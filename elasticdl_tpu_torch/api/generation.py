@@ -1,0 +1,106 @@
+"""Prefill and token selection for the serving path: the port of the
+pieces of elasticdl_tpu/api/generation.py that the serving engine uses.
+
+Token-selection contract. Greedy (temperature 0) is the argmax of the
+fp32 logits, first index on ties, exactly as in the JAX package.
+Sampling applies the same pipeline (scale by temperature, top-k, then
+nucleus filter, then a categorical draw) but cannot reproduce
+`jax.random` bits: the draw comes from a CPU `torch.Generator` seeded
+from (seed, position) alone, so a request's sampled tokens depend on
+its own seed and logits and never on its batch mates, and a CPU run and
+a CUDA run that produce the same logits draw the same token.
+"""
+
+import torch
+
+
+def _prefill_bucket(p, seq_len):
+    """Prefill width: the smallest 64-multiple covering the prompt,
+    clamped to the model's capacity. Rows in [p, p_pad) hold pad
+    junk; decode masks them by length and overwrites each before it is
+    read."""
+    return min(seq_len, -(-p // 64) * 64)
+
+
+def kv_layout(model):
+    """The KV row layout a block pool must hold for `model`: (num_layers,
+    kv_heads, head_dim, dtype). The port's counterpart of the JAX
+    package's `kv_row_leaf` convention: every layer contributes one K
+    and one V arena of rows [kv_heads, head_dim]."""
+    return (model.num_layers, model.num_kv_heads, model.head_dim,
+            model.dtype)
+
+
+def run_prefill(model, prompt):
+    """One causal forward over `prompt` (a list of token ids) padded to
+    its 64-bucket: returns (per-layer (k, v) rows [1, hkv, p_pad, d],
+    fp32 logits [vocab] at the last prompt position)."""
+    p = len(prompt)
+    p_pad = _prefill_bucket(p, model.seq_len)
+    buf = torch.zeros((1, p_pad), dtype=torch.long)
+    buf[0, :p] = torch.as_tensor(prompt, dtype=torch.long)
+    logits, kv = model(buf.to(model.device))
+    return kv, logits[0, p - 1]
+
+
+def _filter_logits(logits, top_k, top_p):
+    """top-k keeps the k highest logits per row (every logit equal to
+    the k-th survives); nucleus keeps the smallest set whose cumulative
+    probability reaches p (always at least the argmax). Filtered
+    entries drop to -inf."""
+    neg = torch.tensor(float("-inf"), dtype=logits.dtype,
+                       device=logits.device)
+    if top_k and top_k > 0:
+        k = min(int(top_k), logits.shape[-1])
+        kth = torch.sort(logits, dim=-1).values[..., -k, None]
+        logits = torch.where(logits < kth, neg, logits)
+    if top_p < 1.0:
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        thr = torch.where(keep, sorted_desc,
+                          torch.full_like(sorted_desc, float("inf")))
+        thr = thr.amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < thr, neg, logits)
+    return logits
+
+
+def sampling_generator(seed, position):
+    """The CPU generator a sampled token at `position` draws from: a
+    function of (seed, position) only. The CPU generator keeps 32 bits
+    of its seed, so the pair is mixed (splitmix64) before truncation."""
+    mask = (1 << 64) - 1
+    x = (int(seed) * 0x9E3779B97F4A7C15 + int(position)) & mask
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
+    x ^= x >> 31
+    return torch.Generator(device="cpu").manual_seed(x & 0xFFFFFFFF)
+
+
+def serving_next_token(step_logits, seed, position, temperature, top_k=0,
+                       top_p=1.0):
+    """The token for `position` from one slot's fp32 logits [vocab]:
+    argmax when temperature <= 0, else a draw from the filtered,
+    temperature-scaled distribution with `sampling_generator(seed,
+    position)`. Returns an int."""
+    if temperature <= 0.0:
+        return int(torch.argmax(step_logits).item())
+    scaled = step_logits.detach().to("cpu", torch.float32) / temperature
+    probs = torch.softmax(_filter_logits(scaled, top_k, top_p), dim=-1)
+    gen = sampling_generator(seed, position)
+    return int(torch.multinomial(probs, 1, generator=gen).item())
+
+
+def next_tokens(logits, seeds, positions, temperatures, top_k=0, top_p=1.0):
+    """`serving_next_token` over a batch of slots: logits [n, vocab];
+    one host transfer for the greedy rows, one CPU draw per sampled
+    row. Returns a list of ints."""
+    greedy = torch.argmax(logits, dim=-1).tolist()
+    out = []
+    for i, temp in enumerate(temperatures):
+        if temp <= 0.0:
+            out.append(int(greedy[i]))
+        else:
+            out.append(serving_next_token(logits[i], seeds[i], positions[i],
+                                          temp, top_k, top_p))
+    return out

@@ -1,0 +1,255 @@
+// Flash-attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel elasticdl_tpu/ops/attention.py::_flash_kernel
+// (launched by _flash_forward through pl.pallas_call). Same function:
+// tiled online-softmax attention, causal or not, grouped-query heads
+// through kv_head = q_head / group, output in the input dtype and the
+// natural-log logsumexp in fp32 (an empty row gets lse = +1e30).
+//
+// What bounds it on the H100: at the prefill shapes of the serving path
+// (head_dim 128, a few hundred to 1024 rows per head) the work is
+// about 4 * lq * lk * d / 2 operations per head against 4 * l * d bytes
+// moved, so it is bound by operations, i.e. by how fast the block can
+// multiply. This first version multiplies with scalar fp32 FMAs out of
+// shared memory (no tensor cores), so it runs far below the bf16 peak;
+// wgmma with TMA-fed tiles is later work.
+//
+// Design: grid (q-tile, b*h), BQ = BK = 64 rows, 256 threads. The Q
+// tile is staged once in shared memory (scaled by scale*log2e so the
+// inner loop uses exp2), then every key tile that is not wholly above
+// the causal diagonal is staged (K, V as fp32) and consumed: S = Q K^T
+// in a 4x4 register block per thread, masked (ragged key edge, causal)
+// in place, a per-row online softmax by four threads per row with warp
+// shuffles, and O += P V into a 4 x D/16 register block per thread.
+// Masked scores contribute exactly 0 (they are never exponentiated), so
+// a row with no visible key keeps l = 0. Ragged query rows are
+// zero-filled and never written. The block needs ~114 KB of shared
+// memory at d = 128, so the launch raises the dynamic shared-memory
+// limit first.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int NT = 256;
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // qs, ks: [64][D+1]; vs: [64][D]; ss: [64][BK+1]; row m, l, corr
+  return sizeof(float) *
+         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int h, int hkv, int lq,
+                     int lk, float scale, int causal) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int DP = D + 1;  // padded row stride: no bank conflicts
+  constexpr int SP = BK + 1;
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + BQ * DP;
+  float* vs = ks + BK * DP;
+  float* ss = vs + BK * D;
+  float* row_m = ss + BQ * SP;
+  float* row_l = row_m + BQ;
+  float* row_c = row_l + BQ;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int kvh = (bh % h) / (h / hkv);
+  const T* qb = q + (size_t)bh * lq * D;
+  const T* kb = k + (size_t)(b * hkv + kvh) * lk * D;
+  const T* vb = v + (size_t)(b * hkv + kvh) * lk * D;
+  const float qscale = scale * LOG2E;
+
+  for (int i = tid; i < BQ * D; i += NT) {
+    const int r = i / D, e = i % D;
+    qs[r * DP + e] =
+        (q0 + r < lq) ? to_f(qb[(size_t)(q0 + r) * D + e]) * qscale : 0.f;
+  }
+  if (tid < BQ) {
+    row_m[tid] = NEG_INF;
+    row_l[tid] = 0.f;
+  }
+
+  // 16 x 16 thread grid: rows ty*4 + i, columns tx + 16*j
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+
+  // causal: keys past the tile's last row are invisible to all its rows
+  const int k_end = causal ? min(lk, q0 + BQ) : lk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = tid; i < BK * D; i += NT) {
+      const int r = i / D, e = i % D;
+      const bool in = k0 + r < lk;
+      ks[r * DP + e] = in ? to_f(kb[(size_t)(k0 + r) * D + e]) : 0.f;
+      vs[r * D + e] = in ? to_f(vb[(size_t)(k0 + r) * D + e]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < D; ++e) {
+      float a[4], c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * DP + e];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * DP + e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * c[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 4 + i, c = tx + 16 * j;
+        const int kp = k0 + c;
+        const bool valid = kp < lk && (!causal || kp <= q0 + r);
+        ss[r * SP + c] = valid ? s[i][j] : NEG_INF;
+      }
+    __syncthreads();
+
+    {  // online softmax: four neighbouring lanes share one row
+      const int r = tid / 4, part = tid % 4;
+      float mx = NEG_INF;
+      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, ss[r * SP + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_prev = row_m[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int c = part; c < BK; c += 4) {
+        const float sv = ss[r * SP + c];
+        const float p = sv > 0.5f * NEG_INF ? exp2f(sv - m_new) : 0.f;
+        ss[r * SP + c] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (part == 0) {
+        const float corr = exp2f(m_prev - m_new);
+        row_l[r] = row_l[r] * corr + sum;
+        row_m[r] = m_new;
+        row_c[r] = corr;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float corr = row_c[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
+    }
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ss[(ty * 4 + i) * SP + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float vv = vs[kk * D + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] += p[i] * vv;
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (q0 + r < lq) {
+      const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
+      T* orow = o + ((size_t)bh * lq + q0 + r) * D;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) store(orow + tx + 16 * j, acc[i][j] * inv);
+    }
+  }
+  if (tid < BQ && q0 + tid < lq) {
+    const float l = row_l[tid];
+    lse[(size_t)bh * lq + q0 + tid] =
+        l > 0.f ? (row_m[tid] + log2f(l)) * LN2 : -NEG_INF;
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int b, int h, int hkv, int lq, int lk, float scale, int causal,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((lq + BQ - 1) / BQ, b * h);
+  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      h, hkv, lq, lk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q [b, h, lq, d], k/v [b, hkv, lk, d], o like q, lse [b, h, lq] fp32;
+// all contiguous. dtype: 0 = float32, 1 = bfloat16. Returns the
+// cudaError_t of the launch (0 = launched).
+extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int b, int h, int hkv,
+                             int lq, int lk, int d, float scale, int causal,
+                             int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && d == 64)
+    return launch<float, 64>(q, k, v, o, lse, b, h, hkv, lq, lk, scale,
+                             causal, s);
+  if (dtype == 0 && d == 128)
+    return launch<float, 128>(q, k, v, o, lse, b, h, hkv, lq, lk, scale,
+                              causal, s);
+  if (dtype == 1 && d == 64)
+    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, h, hkv, lq, lk,
+                                     scale, causal, s);
+  if (dtype == 1 && d == 128)
+    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, b, h, hkv, lq, lk,
+                                      scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,274 @@
+"""Causal transformer language model: the PyTorch twin of the flagship
+model_zoo/transformer_lm/transformer_lm.py, for serving.
+
+Two forwards, both over the same parameters:
+
+* `forward(tokens)`: the causal eval/prefill forward. Attention runs
+  through `ops.attention.flash_attention` (the flash kernel on CUDA).
+  Returns fp32 logits and every layer's (k, v) rows [b, hkv, l, d], which
+  the serving engine writes into its block pool.
+* `decode_paged(tokens, positions, pools, tables)`: a tile of t >= 1
+  tokens per sequence at its OWN positions (`positions` [b]: tokens
+  already cached), attending over each sequence's block table through
+  `ops.attention.paged_decode_attention` (the paged decode kernel on
+  CUDA). The flax model vmaps a scalar cache counter per slot; here the
+  batch carries a position vector. Returns fp32 logits and the tile's
+  (k, v) rows for the engine to scatter.
+
+Numerics follow flax: LayerNorm epsilon 1e-6, tanh-approximate GELU,
+matmul and embedding weights used in the compute dtype (`dtype`), the
+LayerNorms computed in fp32, the head's logits cast to fp32. Parameters
+are created in fp32 (the flax param dtype); `use_compute_weights()`
+casts the matmul and embedding weights to the compute dtype once, which
+is what flax's cast-at-use computes on every call.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from elasticdl_tpu_torch.ops.attention import (
+    apply_rope,
+    flash_attention,
+    paged_decode_attention,
+)
+from elasticdl_tpu_torch.ops.dispatch import resolve_device
+
+_DTYPES = {
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+    "fp32": torch.float32, "float32": torch.float32,
+    "fp16": torch.float16, "float16": torch.float16,
+}
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's default
+
+
+def resolve_dtype(kwargs, family):
+    """"dtype": "bf16" -> torch dtype, for custom_model kwargs."""
+    dtype = kwargs.get("dtype")
+    if isinstance(dtype, str):
+        if dtype.lower() not in _DTYPES:
+            raise ValueError(
+                "Unknown dtype %r for %s (valid: %s)"
+                % (dtype, family, sorted(_DTYPES))
+            )
+        kwargs["dtype"] = _DTYPES[dtype.lower()]
+    return kwargs
+
+
+def _layer_norm(ln, x):
+    """flax LayerNorm(dtype=compute): statistics and affine in fp32,
+    result in the input's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(x.dtype)
+
+
+def _linear(layer, x):
+    w = layer.weight.to(x.dtype)
+    b = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, w, b)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
+                 use_rope=False, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        self.num_kv_heads = num_kv_heads or num_heads
+        if num_heads % self.num_kv_heads:
+            raise ValueError(
+                "num_heads (%d) must be a multiple of num_kv_heads (%d)"
+                % (num_heads, self.num_kv_heads)
+            )
+        self.use_rope = use_rope
+        h, hkv, d = num_heads, self.num_kv_heads, head_dim
+        self.qkv = nn.Linear(embed_dim, (h + 2 * hkv) * d, bias=False,
+                             device=device)
+        self.proj = nn.Linear(h * d, embed_dim, bias=False, device=device)
+
+    def _split(self, x):
+        b, l, _ = x.shape
+        h, hkv, d = self.num_heads, self.num_kv_heads, self.head_dim
+        qkv = _linear(self.qkv, x)
+        q = qkv[..., :h * d].reshape(b, l, h, d).transpose(1, 2)
+        k = qkv[..., h * d:(h + hkv) * d].reshape(b, l, hkv, d).transpose(1, 2)
+        v = qkv[..., (h + hkv) * d:].reshape(b, l, hkv, d).transpose(1, 2)
+        return q, k, v
+
+    def _out(self, out, x):
+        b, l, _ = x.shape
+        out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
+        return _linear(self.proj, out)
+
+    def forward(self, x, positions):
+        """Causal attention over x [b, l, e]; positions [l]. Returns
+        (y, (k, v)) with k/v [b, hkv, l, d] (rotated when RoPE)."""
+        q, k, v = self._split(x)
+        if self.use_rope:
+            q, k = apply_rope(q, positions), apply_rope(k, positions)
+        out = flash_attention(q, k, v, causal=True)
+        return self._out(out, x), (k, v)
+
+    def decode_paged(self, x, positions, pool, table):
+        """A tile x [b, t, e] at positions [b, t] over this layer's
+        arenas `pool` = (k_pool, v_pool) through `table` [b, m]."""
+        q, k, v = self._split(x)
+        if self.use_rope:
+            q, k = apply_rope(q, positions), apply_rope(k, positions)
+        out = paged_decode_attention(
+            q, k, v, pool[0], pool[1], table, positions[:, 0].to(torch.int32),
+            scale=self.head_dim ** -0.5,
+        )
+        return self._out(out, x), (k, v)
+
+
+class Block(nn.Module):
+    def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
+                 use_rope=False, device=None):
+        super().__init__()
+        self.ln_0 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
+        self.attn = CausalSelfAttention(
+            embed_dim, num_heads, head_dim, num_kv_heads=num_kv_heads,
+            use_rope=use_rope, device=device,
+        )
+        self.ln_1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
+        self.mlp_up = nn.Linear(embed_dim, 4 * embed_dim, device=device)
+        self.mlp_down = nn.Linear(4 * embed_dim, embed_dim, device=device)
+
+    def _mlp(self, x):
+        y = _linear(self.mlp_up, _layer_norm(self.ln_1, x))
+        return x + _linear(self.mlp_down, F.gelu(y, approximate="tanh"))
+
+    def forward(self, x, positions):
+        y, kv = self.attn(_layer_norm(self.ln_0, x), positions)
+        return self._mlp(x + y), kv
+
+    def decode_paged(self, x, positions, pool, table):
+        y, kv = self.attn.decode_paged(_layer_norm(self.ln_0, x), positions,
+                                       pool, table)
+        return self._mlp(x + y), kv
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, vocab_size=256, seq_len=128, embed_dim=128,
+                 num_heads=4, num_layers=2, dtype=None, pos_emb="learned",
+                 num_kv_heads=0, attn_window=0, device="cuda", seed=0):
+        super().__init__()
+        if pos_emb not in ("learned", "rope"):
+            raise ValueError(
+                "Unknown pos_emb %r (valid: 'learned', 'rope')" % (pos_emb,)
+            )
+        if attn_window:
+            raise NotImplementedError("attn_window is not ported yet")
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim must be a multiple of num_heads")
+        device = resolve_device(device)
+        self.vocab_size = int(vocab_size)
+        self.seq_len = int(seq_len)
+        self.embed_dim = int(embed_dim)
+        self.num_heads = int(num_heads)
+        self.num_layers = int(num_layers)
+        self.head_dim = self.embed_dim // self.num_heads
+        self.num_kv_heads = int(num_kv_heads) or self.num_heads
+        self.dtype = dtype or torch.float32
+        self.pos_emb = pos_emb
+        self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
+        self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
+                    if pos_emb == "learned" else None)
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, self.head_dim,
+                  num_kv_heads=num_kv_heads, use_rope=pos_emb == "rope",
+                  device=device)
+            for _ in range(num_layers)
+        )
+        self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
+        self.head = nn.Linear(embed_dim, vocab_size, bias=False,
+                              device=device)
+        self.init_weights(seed)
+        self.requires_grad_(False)
+
+    @property
+    def device(self):
+        return self.wte.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, seed):
+        """Seeded init in the flax scheme: fan-in-scaled normal matmul
+        kernels (lecun), unit-variance-over-fan-in embeddings, zero
+        biases, unit LayerNorm scales."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
+                                   generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim),
+                                   generator=gen)
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    @torch.no_grad()
+    def use_compute_weights(self):
+        """Cast matmul and embedding weights to the compute dtype in
+        place (LayerNorm parameters stay fp32). Numerically the same as
+        the per-call cast flax does; returns self."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.to(self.dtype)
+        return self
+
+    def _embed(self, tokens, wpe_idx):
+        x = self.wte.weight[tokens].to(self.dtype)
+        if self.wpe is not None:
+            x = x + self.wpe.weight[wpe_idx].to(self.dtype)
+        return x
+
+    def _logits(self, x):
+        x = _layer_norm(self.ln_f, x)
+        return F.linear(x, self.head.weight.to(x.dtype)).float()
+
+    @torch.no_grad()
+    def forward(self, tokens):
+        """Causal forward over tokens [b, l] (l <= seq_len): fp32 logits
+        [b, l, vocab] and per-layer (k, v) rows [b, hkv, l, d]."""
+        l = tokens.shape[1]
+        if l > self.seq_len:
+            raise ValueError(
+                "length %d exceeds seq_len %d" % (l, self.seq_len)
+            )
+        positions = torch.arange(l, device=tokens.device)
+        x = self._embed(tokens, positions[None])
+        kv = []
+        for blk in self.blocks:
+            x, rows = blk(x, positions)
+            kv.append(rows)
+        return self._logits(x), kv
+
+    @torch.no_grad()
+    def decode_paged(self, tokens, positions, pools, tables):
+        """A tile of tokens [b, t] at positions [b] + [0, t) over the
+        block-paged pool: `pools` is a list of (k_pool, v_pool) arenas
+        [num_blocks, block_size, hkv, d] per layer, `tables` [b, m]
+        int32 block tables (-1 padded). Returns fp32 logits [b, t,
+        vocab] and per-layer (k, v) tile rows [b, hkv, t, d]."""
+        t = tokens.shape[1]
+        pos = positions.long()[:, None] + torch.arange(
+            t, device=tokens.device)[None, :]
+        # pad rows of a suffix tile may sit past seq_len: clamp the table
+        # lookup as flax does; their outputs are never read
+        x = self._embed(tokens, pos.clamp(max=self.seq_len - 1))
+        rows = []
+        for blk, pool in zip(self.blocks, pools):
+            x, kv = blk.decode_paged(x, pos, pool, tables)
+            rows.append(kv)
+        return self._logits(x), rows
+
+
+def custom_model(**kwargs):
+    return TransformerLM(**resolve_dtype(kwargs, "transformer_lm"))

@@ -1,0 +1,415 @@
+"""Attention for the PyTorch port: plain helpers, and the two kernels of
+the serving path with their plain PyTorch versions.
+
+Counterpart of elasticdl_tpu/ops/attention.py. Layout convention as
+there: [batch, heads, seq, head_dim]; k/v may carry fewer heads than q
+(grouped-query attention, q head j reads kv head j // group).
+
+Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
+
+* `flash_forward` -> csrc/flash_fwd.cu, the port of `_flash_kernel`;
+* `paged_decode_partials` -> csrc/paged_decode.cu, the port of
+  `_paged_kernel`: its split kernel (table walk cut across blocks, then
+  merged) for up to SPLIT_MAX_ROWS query rows per (sequence, kv head),
+  its shared-memory tile kernel for larger query tiles.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs
+its plain version, `flash_attention_plain` / `paged_decode_partials_plain`,
+for CPU tensors. `KERNEL_LAUNCHES` counts kernel launches per wrapper.
+"""
+
+import ctypes
+
+import torch
+
+from elasticdl_tpu_torch.ops import _build
+from elasticdl_tpu_torch.ops.dispatch import on_kernel_path
+
+# Finite masking sentinel, as in the JAX package: -inf would turn
+# exp(m - m_new) into NaN for a row that has seen no key yet.
+_NEG_INF = -1e30
+NEG_INF = _NEG_INF
+
+#: kernel launches per wrapper; chip_smoke.py resets and reads these to
+#: show that the serving path went through the kernels
+KERNEL_LAUNCHES = {"flash_fwd": 0, "paged_decode": 0,
+                   "paged_decode_tile": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+# query rows per (sequence, kv head) up to which paged decode takes the
+# split kernel; larger tiles take the shared-memory tile kernel
+SPLIT_MAX_ROWS = 8
+
+
+def reset_launch_counts():
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------ plain helpers
+
+
+def softmax_merge(o, l, m, s, v_blk):
+    """One online-softmax accumulation step: merge scores `s`
+    [b,h,q,k_blk] and values `v_blk` [b,h,k_blk,d] into the running
+    (output, denominator, rowmax) triple."""
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    o_new = o * corr[..., None] + torch.matmul(p, v_blk)
+    return o_new, l_new, m_new
+
+
+def softmax_finalize(o, l):
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def group_size(q, k):
+    """Grouped-query group size: q heads per kv head."""
+    h, hkv = q.shape[1], k.shape[1]
+    if h % hkv:
+        raise ValueError(
+            "grouped-query attention needs num_heads %% num_kv_heads "
+            "== 0, got %d q heads / %d kv heads" % (h, hkv)
+        )
+    return h // hkv
+
+
+def expand_kv(kv, num_heads):
+    """Broadcast grouped-query K/V [b, hkv, l, d] to the full q head
+    count (head j reads kv head j // group)."""
+    hkv = kv.shape[1]
+    if hkv == num_heads:
+        return kv
+    if num_heads % hkv:
+        raise ValueError(
+            "cannot expand %d kv heads to %d q heads" % (hkv, num_heads)
+        )
+    return kv.repeat_interleave(num_heads // hkv, dim=1)
+
+
+def naive_attention(q, k, v, causal=False, scale=None):
+    """Reference softmax(q k^T) v, O(L^2) memory: the test oracle."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    k = expand_kv(k, q.shape[1])
+    v = expand_kv(v, q.shape[1])
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    lq, lk = scores.shape[-2], scores.shape[-1]
+    q_pos = torch.arange(lq, device=q.device)[:, None]
+    k_pos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    return torch.matmul(torch.softmax(scores, dim=-1), v)
+
+
+def apply_rope(x, positions, theta=10000.0):
+    """Rotary position embedding over the head dimension. x: [b, h, l,
+    d]; positions: [l] or [b, l]. Rotates feature pairs (i, i + d/2) by
+    positions * theta^(-2i/d); math in fp32, result in x.dtype; an odd
+    tail feature passes through."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    angles = positions.to(torch.float32)[..., :, None] * freqs
+    if positions.dim() == 1:
+        cos, sin = torch.cos(angles)[None, None], torch.sin(angles)[None, None]
+    else:
+        cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., :half], xf[..., half:2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if d % 2:
+        rot = torch.cat([rot, xf[..., 2 * half:]], dim=-1)
+    return rot.to(x.dtype)
+
+
+def _check_launch(err, name):
+    if err != 0:
+        raise RuntimeError(
+            "%s kernel launch failed: cudaError %d" % (name, err)
+        )
+
+
+def _check_kernel_args(name, tensors, dtypes, d):
+    for t in tensors:
+        if t.dtype not in dtypes:
+            raise TypeError(
+                "%s kernel takes %s, got %s"
+                % (name, [str(x) for x in dtypes], t.dtype)
+            )
+        if not t.is_contiguous():
+            raise ValueError("%s kernel takes contiguous tensors" % name)
+    if d not in _HEAD_DIMS:
+        raise ValueError(
+            "%s kernel supports head_dim %s, got %d" % (name, _HEAD_DIMS, d)
+        )
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("%s kernel takes tensors on one device" % name)
+
+
+# ------------------------------------------------------------------ flash
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=None):
+    """Plain PyTorch version of the flash kernel: (out in q.dtype, lse
+    fp32 [b, h, lq]). Scores and softmax in fp32; masked scores
+    contribute exactly 0, an empty row gives out 0 and lse +1e30 (the
+    kernel's convention, attention.py:1000-1004 in the JAX package)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    group_size(q, k)
+    f32 = torch.float32
+    kf = expand_kv(k, q.shape[1]).to(f32)
+    vf = expand_kv(v, q.shape[1]).to(f32)
+    s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
+    lq, lk = s.shape[-2], s.shape[-1]
+    if causal:
+        valid = (torch.arange(lq, device=q.device)[:, None]
+                 >= torch.arange(lk, device=q.device)[None, :])
+    else:
+        valid = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    mx = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - mx), torch.zeros_like(s))
+    l = p.sum(-1)
+    out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, mx[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, -_NEG_INF))
+    return out.to(q.dtype), lse
+
+
+def flash_forward(q, k, v, causal=False, scale=None):
+    """(out [b, h, lq, d] in q.dtype, lse fp32 [b, h, lq]) of tiled
+    online-softmax attention: the csrc/flash_fwd.cu kernel for CUDA
+    tensors, `flash_attention_plain` for CPU tensors."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    group_size(q, k)
+    if not on_kernel_path(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_kernel_args("flash_fwd", (q, k, v), tuple(_DTYPE_CODES), d)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_fwd kernel takes q, k, v of one dtype")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = _flash_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.edl_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, hkv, lq, lk, d, float(scale), int(causal),
+        _DTYPE_CODES[q.dtype], stream,
+    )
+    _check_launch(err, "flash_fwd")
+    KERNEL_LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def _flash_lib():
+    lib = _build.load("flash_fwd")
+    fn = lib.edl_flash_fwd
+    if not fn.argtypes:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q, k, v, causal=False, scale=None, window=None,
+                    segments=None, pos_offset=0):
+    """Tiled online-softmax attention, [b, h, lq, d] in q.dtype: the
+    forward of the JAX package's `flash_attention`. Sliding windows,
+    packed segments and position offsets are not ported yet."""
+    if window is not None:
+        raise NotImplementedError("flash_attention: window is not ported")
+    if segments is not None:
+        raise NotImplementedError("flash_attention: segments are not ported")
+    if pos_offset:
+        raise NotImplementedError("flash_attention: pos_offset is not ported")
+    return flash_forward(q, k, v, causal=causal, scale=scale)[0]
+
+
+# ----------------------------------------------------------- paged decode
+
+
+def _tile_causal_mask(group, t, device):
+    """[group*t, t] visibility of the query tile's own keys: tile key j'
+    is visible to tile row j iff j' <= j."""
+    tile = torch.arange(t, device=device)
+    tri = tile[:, None] >= tile[None, :]
+    return tri[None].expand(group, t, t).reshape(group * t, t)
+
+
+def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length):
+    """Plain PyTorch version of the paged decode kernel.
+
+    qf: [b, hkv, n_rows, d] fp32 query rows, already multiplied by the
+    softmax scale; k_pool/v_pool: [num_blocks, bs, hkv, d]; block_table:
+    [b, m] int32 (-1 = unallocated); length: [b] int32. Returns the
+    online-softmax partials over the pool rows k_pos < length of each
+    sequence's table: o [b, hkv, n_rows, d], l and m [b, hkv, n_rows],
+    fp32, m in natural-log units. Masked rows contribute exactly 0; a
+    sequence with no visible row gives (0, 0, -1e30)."""
+    b, hkv, _n, d = qf.shape
+    bs = k_pool.shape[1]
+    m = block_table.shape[1]
+    f32 = torch.float32
+    table = block_table.long()
+    safe = table.clamp(min=0)
+    kb = k_pool[safe].reshape(b, m * bs, hkv, d).permute(0, 2, 1, 3)
+    vb = v_pool[safe].reshape(b, m * bs, hkv, d).permute(0, 2, 1, 3)
+    s = torch.matmul(qf.to(f32), kb.to(f32).transpose(-1, -2))
+    k_pos = torch.arange(m * bs, device=qf.device)
+    valid = ((k_pos[None, :] < length.long()[:, None])
+             & (table.repeat_interleave(bs, dim=1) >= 0))[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    mx = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    o = torch.matmul(p, vb.to(f32))
+    mx = torch.where(l > 0, mx, torch.full_like(mx, _NEG_INF))
+    return o, l, mx
+
+
+def paged_decode_partials(qf, k_pool, v_pool, block_table, length):
+    """Online-softmax partials of paged decode attention (see
+    `paged_decode_partials_plain` for the contract): a
+    csrc/paged_decode.cu kernel for CUDA tensors (split up to
+    SPLIT_MAX_ROWS query rows, tile beyond; the launch counts under
+    "paged_decode" / "paged_decode_tile"), the plain version for CPU
+    tensors."""
+    if not on_kernel_path(qf, k_pool, v_pool, block_table, length):
+        return paged_decode_partials_plain(
+            qf, k_pool, v_pool, block_table, length
+        )
+    b, hkv, n_rows, d = qf.shape
+    nb, bs, pool_hkv, pool_d = k_pool.shape
+    m = block_table.shape[1]
+    if (pool_hkv, pool_d) != (hkv, d) or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            "paged_decode: pools %s / %s do not match q rows %s"
+            % (tuple(k_pool.shape), tuple(v_pool.shape), tuple(qf.shape))
+        )
+    if block_table.shape[0] != b or length.shape != (b,):
+        raise ValueError("paged_decode: table [b, m] and length [b] needed")
+    qf = qf.to(torch.float32).contiguous()
+    table = block_table.to(torch.int32).contiguous()
+    length = length.to(torch.int32).contiguous()
+    _check_kernel_args("paged_decode", (k_pool, v_pool), tuple(_DTYPE_CODES),
+                       d)
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError("paged_decode kernel takes pools of one dtype")
+    o = torch.empty((b, hkv, n_rows, d), dtype=torch.float32,
+                    device=qf.device)
+    l = torch.empty((b, hkv, n_rows), dtype=torch.float32, device=qf.device)
+    mx = torch.empty_like(l)
+    if o.numel() == 0 or m == 0:
+        o.zero_()
+        l.zero_()
+        mx.fill_(_NEG_INF)
+        return o, l, mx
+    stream = torch.cuda.current_stream(qf.device).cuda_stream
+    dtype = _DTYPE_CODES[k_pool.dtype]
+    lib = _paged_lib()
+    if n_rows > SPLIT_MAX_ROWS:
+        err = lib.edl_paged_decode_tile(
+            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            table.data_ptr(), length.data_ptr(), o.data_ptr(), l.data_ptr(),
+            mx.data_ptr(), b, hkv, n_rows, m, bs, d, dtype, stream,
+        )
+        _check_launch(err, "paged_decode_tile")
+        KERNEL_LAUNCHES["paged_decode_tile"] += 1
+        return o, l, mx
+    n_split, per_split = _paged_splits(b * hkv, m)
+    o_part = torch.empty((n_split, b, hkv, n_rows, d), dtype=torch.float32,
+                         device=qf.device)
+    l_part = torch.empty((n_split, b, hkv, n_rows), dtype=torch.float32,
+                         device=qf.device)
+    m_part = torch.empty_like(l_part)
+    err = lib.edl_paged_decode_split(
+        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), length.data_ptr(), o.data_ptr(), l.data_ptr(),
+        mx.data_ptr(), o_part.data_ptr(), l_part.data_ptr(),
+        m_part.data_ptr(), n_split, per_split, b, hkv, n_rows, m, bs, d,
+        dtype, stream,
+    )
+    _check_launch(err, "paged_decode")
+    KERNEL_LAUNCHES["paged_decode"] += 1
+    return o, l, mx
+
+
+def _paged_splits(bh, m):
+    """(number of splits, table slots per split) for the split kernel:
+    about four blocks of 4 warps per SM over the card's 132 SMs, and at
+    least 4 slots (one per warp) per split."""
+    n_split = max(1, min(-(-528 // bh), -(-m // 4)))
+    per_split = -(-m // n_split)
+    return -(-m // per_split), per_split
+
+
+def _paged_lib():
+    lib = _build.load("paged_decode")
+    for name, n_ptrs, n_ints in (("edl_paged_decode_tile", 8, 7),
+                                 ("edl_paged_decode_split", 11, 9)):
+        fn = getattr(lib, name)
+        if not fn.argtypes:
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_attention(q, k_cur, v_cur, k_pool, v_pool, block_table,
+                           length, scale=None, window=None,
+                           k_scale_pool=None, v_scale_pool=None,
+                           k_cur_scale=None, v_cur_scale=None):
+    """Decode attention over a block-paged KV pool for a tile of t >= 1
+    new query tokens per sequence (the JAX package's
+    `paged_decode_attention`).
+
+    q: [b, h, t, d] ([b, h, d] for t = 1, the result then drops t);
+    k_cur/v_cur: [b, hkv, t, d], the tile's own keys/values at positions
+    length + j (not in the pool yet); k_pool/v_pool: [num_blocks, bs,
+    hkv, d]; block_table: [b, m] int32, -1 padded; length: [b] int32.
+    Tile row j sees pool rows k_pos < length and tile keys j' <= j.
+    Returns [b, h, t, d] in float32. The pool stream runs through
+    `paged_decode_partials`; the tile merge and the finalize are plain
+    PyTorch, as in the JAX package. int8 arenas and sliding windows are
+    not ported yet."""
+    if window is not None:
+        raise NotImplementedError("paged_decode_attention: window")
+    if any(x is not None for x in (k_scale_pool, v_scale_pool,
+                                   k_cur_scale, v_cur_scale)):
+        raise NotImplementedError("paged_decode_attention: int8 arenas")
+    squeeze = q.dim() == 3
+    if squeeze:
+        q, k_cur, v_cur = q[:, :, None], k_cur[:, :, None], v_cur[:, :, None]
+    b, h, t, d = q.shape
+    hkv = k_cur.shape[1]
+    if h % hkv:
+        raise ValueError(
+            "paged decode needs num_heads %% num_kv_heads == 0, got "
+            "%d q heads / %d kv heads" % (h, hkv)
+        )
+    group = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    f32 = torch.float32
+    qf = (q.to(f32) * scale).reshape(b, hkv, group * t, d)
+    o, l, mx = paged_decode_partials(qf, k_pool, v_pool, block_table, length)
+    s_cur = torch.matmul(qf, k_cur.to(f32).transpose(-1, -2))
+    tri = _tile_causal_mask(group, t, q.device)
+    s_cur = torch.where(tri, s_cur, torch.full_like(s_cur, _NEG_INF))
+    o, l, mx = softmax_merge(o, l, mx, s_cur, v_cur.to(f32))
+    out = softmax_finalize(o, l).reshape(b, h, t, d)
+    return out[:, :, 0] if squeeze else out

@@ -1,0 +1,127 @@
+"""Serving entry point of the PyTorch port.
+
+Builds the transformer_lm model (seeded random weights, or JAX-package
+params converted from an .npz), starts the in-process generation server
+and answers the requests read from stdin, one JSON object per line:
+
+    {"prompt": [1, 2, 3], "max_new_tokens": 16, "temperature": 0.0,
+     "seed": 0}
+
+Each answer is one JSON line {"tokens": [...prompt + generated]} or
+{"error": code, "message": ...}, in request order; the requests are
+submitted together, so they are served concurrently.
+
+    echo '{"prompt": [1, 2, 3], "max_new_tokens": 8}' | \\
+    python -m elasticdl_tpu_torch.serving.main --device cuda \\
+        --model_params "vocab_size=32000; seq_len=1024; embed_dim=1024; \\
+num_heads=8; num_layers=8; dtype='bf16'" --num_slots 8 --kv_block_size 16
+"""
+
+import argparse
+import json
+import sys
+
+
+def parse_serving_args(args=None):
+    parser = argparse.ArgumentParser(
+        description="elasticdl-tpu PyTorch generation server (stdin/stdout)"
+    )
+    parser.add_argument("--model_params", default="")
+    parser.add_argument("--params_npz", default="",
+                        help="flax transformer_lm params saved as an .npz "
+                             "of 'a/b/c'-keyed arrays; empty = seeded "
+                             "random weights")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--num_slots", type=int, default=4)
+    parser.add_argument("--queue_capacity", type=int, default=64)
+    parser.add_argument("--top_k", type=int, default=0)
+    parser.add_argument("--top_p", type=float, default=1.0)
+    parser.add_argument("--kv_block_size", type=int, default=16)
+    parser.add_argument("--kv_num_blocks", type=int, default=0,
+                        help="block budget; 0 = dense-equivalent bytes")
+    parser.add_argument("--kv_shared", type=int, default=1, choices=(0, 1))
+    return parser.parse_args(args)
+
+
+def build_model(args):
+    # imports deferred so --help works without torch initialized
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.model_utils import (
+        get_dict_from_params_str,
+    )
+    from elasticdl_tpu_torch.convert import params_from_flax
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import custom_model
+
+    kwargs = get_dict_from_params_str(args.model_params)
+    model = custom_model(device=args.device, **kwargs)
+    if args.params_npz:
+        with np.load(args.params_npz) as npz:
+            model.load_state_dict(params_from_flax(dict(npz)))
+    return model
+
+
+def build_server(args):
+    from elasticdl_tpu_torch.serving.server import (
+        GenerationServer,
+        ServingConfig,
+    )
+
+    return GenerationServer(
+        build_model(args),
+        ServingConfig(
+            num_slots=args.num_slots, queue_capacity=args.queue_capacity,
+            top_k=args.top_k, top_p=args.top_p,
+            kv_block_size=args.kv_block_size,
+            kv_num_blocks=args.kv_num_blocks,
+            kv_shared=bool(args.kv_shared),
+        ),
+    )
+
+
+def serve_lines(server, lines):
+    """Submit every request line, then collect the answers in order."""
+    from elasticdl_tpu_torch.serving.admission import AdmissionError
+
+    pending = []
+    for line in lines:
+        if not line.strip():
+            continue
+        spec = json.loads(line)
+        try:
+            req = server.submit(
+                spec["prompt"], spec["max_new_tokens"],
+                temperature=spec.get("temperature", 0.0),
+                seed=spec.get("seed", 0),
+                deadline_ms=spec.get("deadline_ms", 0),
+            )
+            pending.append((req, None))
+        except AdmissionError as e:
+            pending.append((None, e))
+    answers = []
+    for req, err in pending:
+        if err is None:
+            try:
+                for _chunk in server.events(req):
+                    pass
+                answers.append({"tokens": req.prompt + req.generated})
+                continue
+            except AdmissionError as e:
+                err = e
+        answers.append({"error": err.code, "message": str(err)})
+    return answers
+
+
+def main(argv=None):
+    args = parse_serving_args(argv)
+    server = build_server(args).start()
+    try:
+        for answer in serve_lines(server, sys.stdin):
+            print(json.dumps(answer), flush=True)
+    finally:
+        server.stop(drain=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""The port stands alone: elasticdl_tpu_torch and chip_smoke.py import
+neither JAX nor anything of the JAX package, so they run on a machine
+that has neither.
+
+One check imports every port module and chip_smoke.py in a fresh
+interpreter and inspects sys.modules; the other scans the sources for
+import statements naming the forbidden packages.
+"""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import elasticdl_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(elasticdl_tpu_torch.__file__)
+FORBIDDEN_TOPS = ("jax", "jaxlib", "flax", "optax", "grpc",
+                  "elasticdl_tpu", "model_zoo")
+
+
+def _forbidden(name):
+    """True for `jax`, `jax.numpy`, `elasticdl_tpu.x` ...; False for the
+    port's own `elasticdl_tpu_torch` and anything else."""
+    return name.split(".")[0] in FORBIDDEN_TOPS
+
+
+def _port_modules():
+    names = [elasticdl_tpu_torch.__name__]
+    for info in pkgutil.walk_packages([PKG_DIR],
+                                      prefix="elasticdl_tpu_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG_DIR):
+        paths.extend(os.path.join(root, f) for f in files
+                     if f.endswith(".py"))
+    return sorted(paths)
+
+
+def test_port_modules_import_no_jax_package():
+    modules = _port_modules()
+    assert "elasticdl_tpu_torch.serving.engine" in modules
+    script = (
+        "import importlib.util, json, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', %r)\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+        % (modules, os.path.join(REPO, "chip_smoke.py"))
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        cwd=REPO, env=env, timeout=120, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "elasticdl_tpu_torch.ops.attention" in loaded
+    assert "torch" in loaded
+    leaked = [m for m in loaded if _forbidden(m)]
+    assert not leaked, leaked
+
+
+def test_port_sources_name_no_jax_package():
+    offenders = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if not node.level else []
+            else:
+                continue
+            offenders.extend("%s: %s" % (os.path.relpath(path, REPO), n)
+                             for n in names if _forbidden(n))
+    assert not offenders, offenders
+    assert not _forbidden("elasticdl_tpu_torch.ops")
+    assert _forbidden("elasticdl_tpu.ops") and _forbidden("jax")
