@@ -12,7 +12,13 @@ of `elasticdl_tpu_torch.model_zoo.transformer_lm.TransformerLM`;
   with `scale`/`bias`; the port names them `ln_0` / `ln_1` with
   `weight`/`bias`;
 * `mlp_up` / `mlp_down` carry biases, `qkv` / `proj` / `head` do not.
+
+`flax_param_path` names a port parameter by its flax path (what a
+`trainable_pattern` regex matches), and `adam_state_from_optax` carries
+an optax adamw state (count, mu, nu) into the port's Trainer.
 """
+
+import re
 
 import numpy as np
 import torch
@@ -117,3 +123,72 @@ def params_to_flax(state_dict):
 
 def _is_flat(params):
     return all(isinstance(k, str) and "/" in k for k in params)
+
+
+def flax_param_path(torch_key):
+    """The flax path of a port parameter: "blocks.7.attn.qkv.weight" ->
+    "block_7/attn/qkv/kernel", "ln_f.weight" -> "ln_f/scale" (the
+    inverse of the mapping `params_from_flax` applies)."""
+    m = re.match(r"blocks\.(\d+)\.", torch_key)
+    keys = _block_keys(int(m.group(1))) if m else _mapping(0)
+    for fkey, tkey, _transpose in keys:
+        if tkey == torch_key:
+            return fkey
+    raise KeyError("not a transformer_lm parameter: %r" % (torch_key,))
+
+
+def _array_leaves(tree, prefix=""):
+    """{"a/b/c": array} over the array leaves of a nested dict, skipping
+    the empty placeholders optax leaves for masked (frozen) params."""
+    out = {}
+    for k, v in tree.items():
+        key = "%s/%s" % (prefix, k) if prefix else str(k)
+        if hasattr(v, "items"):
+            out.update(_array_leaves(v, key))
+        elif hasattr(v, "shape") and hasattr(v, "dtype"):
+            out[key] = np.asarray(v)
+    return out
+
+
+def _find_adam_state(node):
+    """The first node of an optax state tree with count, mu and nu (the
+    ScaleByAdamState inside adamw, under chain / MultiSteps /
+    multi_transform wrappers)."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    if hasattr(node, "items"):
+        children = list(node.values())
+    elif isinstance(node, (tuple, list)):
+        children = list(node)
+    else:
+        children = [getattr(node, f) for f in getattr(node, "_fields", ())]
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_optax(opt_state):
+    """An optax adamw state (the JAX Trainer's `state.opt_state`, any
+    wrapping) -> {"count": int, "exp_avg": {torch key: fp32 tensor},
+    "exp_avg_sq": {torch key: fp32 tensor}} for the port's
+    `Trainer.init_state(..., opt_state=...)`. Dense kernels are
+    transposed as `params_from_flax` transposes the params; frozen
+    params (no slot in optax) get none."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in %r"
+                         % type(opt_state).__name__)
+    mu, nu = _array_leaves(adam.mu), _array_leaves(adam.nu)
+    n = 0
+    while any(k.startswith("block_%d/" % n) for k in mu):
+        n += 1
+    out = {"count": int(np.asarray(adam.count)), "exp_avg": {},
+           "exp_avg_sq": {}}
+    for fkey, tkey, transpose in _mapping(n, "wpe/embedding" in mu):
+        for name, slots in (("exp_avg", mu), ("exp_avg_sq", nu)):
+            if fkey in slots:
+                arr = np.asarray(slots[fkey], np.float32)
+                out[name][tkey] = torch.tensor(arr.T if transpose else arr)
+    return out

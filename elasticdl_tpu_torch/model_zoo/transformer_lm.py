@@ -1,12 +1,20 @@
 """Causal transformer language model: the PyTorch twin of the flagship
-model_zoo/transformer_lm/transformer_lm.py, for serving.
+model_zoo/transformer_lm/transformer_lm.py, for training and serving,
+and the zoo spec around it (loss, optimizer, dataset_fn,
+eval_metrics_fn, feature_shapes).
 
-Two forwards, both over the same parameters:
+Three forwards, all over the same parameters:
 
-* `forward(tokens)`: the causal eval/prefill forward. Attention runs
-  through `ops.attention.flash_attention` (the flash kernel on CUDA).
-  Returns fp32 logits and every layer's (k, v) rows [b, hkv, l, d], which
-  the serving engine writes into its block pool.
+* `model(features, training=...)` with a feature dict: the flax
+  `__call__`, grad-enabled. Returns fp32 logits [b, l, vocab], or
+  {"lm_hidden", "lm_head_kernel"} ([embed, vocab], as flax hands it
+  over) when `fused_head` is set and training. Attention runs through
+  `ops.attention.flash_attention`, whose backward is the flash backward
+  (the kernels on CUDA).
+* `model(tokens)` with a token tensor (`prefill`): the causal
+  eval/prefill forward of serving, under no_grad. Returns fp32 logits
+  and every layer's (k, v) rows [b, hkv, l, d], which the serving engine
+  writes into its block pool.
 * `decode_paged(tokens, positions, pools, tables)`: a tile of t >= 1
   tokens per sequence at its OWN positions (`positions` [b]: tokens
   already cached), attending over each sequence's block table through
@@ -18,23 +26,30 @@ Two forwards, both over the same parameters:
 Numerics follow flax: LayerNorm epsilon 1e-6, tanh-approximate GELU,
 matmul and embedding weights used in the compute dtype (`dtype`), the
 LayerNorms computed in fp32, the head's logits cast to fp32. Parameters
-are created in fp32 (the flax param dtype); `use_compute_weights()`
-casts the matmul and embedding weights to the compute dtype once, which
-is what flax's cast-at-use computes on every call.
+are created in fp32 (the flax param dtype) and cast at use, so training
+keeps fp32 parameters under bf16 compute. Serving calls
+`use_compute_weights()` once, which casts the matmul and embedding
+weights to the compute dtype in place (what flax's cast-at-use computes
+on every call); training never does.
 """
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.common.constants import Mode
+from elasticdl_tpu_torch.data.example_codec import decode_example
 from elasticdl_tpu_torch.ops.attention import (
     apply_rope,
     flash_attention,
     paged_decode_attention,
 )
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
+from elasticdl_tpu_torch.ops.losses import chunked_softmax_xent, softmax_xent
+from elasticdl_tpu_torch.training.optimizers import adamw
 
 _DTYPES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -155,14 +170,17 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     def __init__(self, vocab_size=256, seq_len=128, embed_dim=128,
                  num_heads=4, num_layers=2, dtype=None, pos_emb="learned",
-                 num_kv_heads=0, attn_window=0, device="cuda", seed=0):
+                 num_kv_heads=0, attn_window=0, fused_head=False, remat="",
+                 lora_rank=0, device="cuda", seed=0):
         super().__init__()
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 "Unknown pos_emb %r (valid: 'learned', 'rope')" % (pos_emb,)
             )
-        if attn_window:
-            raise NotImplementedError("attn_window is not ported yet")
+        for name, value in (("attn_window", attn_window), ("remat", remat),
+                            ("lora_rank", lora_rank)):
+            if value:
+                raise NotImplementedError("%s is not ported yet" % name)
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be a multiple of num_heads")
         device = resolve_device(device)
@@ -175,6 +193,7 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = int(num_kv_heads) or self.num_heads
         self.dtype = dtype or torch.float32
         self.pos_emb = pos_emb
+        self.fused_head = bool(fused_head)
         self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
         self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
                     if pos_emb == "learned" else None)
@@ -188,7 +207,6 @@ class TransformerLM(nn.Module):
         self.head = nn.Linear(embed_dim, vocab_size, bias=False,
                               device=device)
         self.init_weights(seed)
-        self.requires_grad_(False)
 
     @property
     def device(self):
@@ -233,15 +251,47 @@ class TransformerLM(nn.Module):
         x = _layer_norm(self.ln_f, x)
         return F.linear(x, self.head.weight.to(x.dtype)).float()
 
-    @torch.no_grad()
-    def forward(self, tokens):
-        """Causal forward over tokens [b, l] (l <= seq_len): fp32 logits
-        [b, l, vocab] and per-layer (k, v) rows [b, hkv, l, d]."""
-        l = tokens.shape[1]
+    def forward(self, inputs, training=False):
+        """A feature dict {"tokens": [b, l]}: the training/eval forward
+        (see `lm_forward`). A token tensor [b, l]: the serving prefill
+        (see `prefill`)."""
+        if isinstance(inputs, dict):
+            return self.lm_forward(inputs, training=training)
+        return self.prefill(inputs)
+
+    def _check_length(self, l):
         if l > self.seq_len:
             raise ValueError(
                 "length %d exceeds seq_len %d" % (l, self.seq_len)
             )
+
+    def lm_forward(self, features, training=False):
+        """The flax model's training/eval `__call__`, grad-enabled:
+        features["tokens"] [b, l] -> fp32 logits [b, l, vocab], or, when
+        `fused_head` and training, {"lm_hidden": [b, l, e] in the compute
+        dtype, "lm_head_kernel": [e, vocab]} for the chunked loss.
+        Packed segments (`segment_ids`) are not ported yet."""
+        if features.get("segment_ids") is not None:
+            raise NotImplementedError("segment_ids are not ported yet")
+        tokens = torch.as_tensor(features["tokens"], device=self.device)
+        tokens = tokens.long()
+        l = tokens.shape[1]
+        self._check_length(l)
+        positions = torch.arange(l, device=tokens.device)
+        x = self._embed(tokens, positions[None])
+        for blk in self.blocks:
+            x, _kv = blk(x, positions)
+        if self.fused_head and training:
+            return {"lm_hidden": _layer_norm(self.ln_f, x),
+                    "lm_head_kernel": self.head.weight.t()}
+        return self._logits(x)
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """Causal forward over tokens [b, l] (l <= seq_len): fp32 logits
+        [b, l, vocab] and per-layer (k, v) rows [b, hkv, l, d]."""
+        l = tokens.shape[1]
+        self._check_length(l)
         positions = torch.arange(l, device=tokens.device)
         x = self._embed(tokens, positions[None])
         kv = []
@@ -272,3 +322,57 @@ class TransformerLM(nn.Module):
 
 def custom_model(**kwargs):
     return TransformerLM(**resolve_dtype(kwargs, "transformer_lm"))
+
+
+def loss(labels, predictions, sample_weights=None):
+    """The zoo loss (model_zoo/transformer_lm/transformer_lm.py:770-794):
+    negative labels (-100 marks) are ignored, each row is the mean of its
+    valid tokens' cross entropy, rows are weighted by
+    sum(ce * w) / max(sum(w), 1). `predictions` are fp32 logits or the
+    fused {"lm_hidden", "lm_head_kernel"} dict."""
+    fused = isinstance(predictions, dict) and "lm_hidden" in predictions
+    device = (predictions["lm_hidden"] if fused else predictions).device
+    labels = torch.as_tensor(labels, device=device)
+    valid = labels >= 0
+    safe = labels.clamp(min=0).long()
+    if fused:
+        tok_ce = chunked_softmax_xent(predictions["lm_hidden"],
+                                      predictions["lm_head_kernel"], safe)
+    else:
+        tok_ce = softmax_xent(predictions, safe)
+    tok_ce = torch.where(valid, tok_ce, torch.zeros_like(tok_ce))
+    ce = tok_ce.sum(-1) / valid.sum(-1).clamp(min=1)
+    if sample_weights is None:
+        return ce.mean()
+    w = torch.as_tensor(sample_weights, device=device, dtype=ce.dtype)
+    return (ce * w).sum() / w.sum().clamp(min=1.0)
+
+
+def optimizer(lr=3e-4):
+    return adamw(lr, weight_decay=0.01)
+
+
+def dataset_fn(dataset, mode, metadata):
+    def _parse(record):
+        tokens = decode_example(record)["tokens"].astype(np.int32)
+        features = {"tokens": tokens[:-1]}
+        if mode == Mode.PREDICTION:
+            return features
+        return features, tokens[1:]
+
+    dataset = dataset.map(_parse)
+    if mode == Mode.TRAINING:
+        dataset = dataset.shuffle(buffer_size=1024, seed=0)
+    return dataset
+
+
+def eval_metrics_fn():
+    return {
+        "token_accuracy": lambda labels, predictions: (
+            np.argmax(predictions, axis=-1) == np.asarray(labels)
+        ).astype(np.float32).reshape(len(labels), -1).mean(axis=1)
+    }
+
+
+def feature_shapes(seq_len=128):
+    return {"tokens": (seq_len,)}

@@ -1,5 +1,5 @@
-"""Attention for the PyTorch port: plain helpers, and the two kernels of
-the serving path with their plain PyTorch versions.
+"""Attention for the PyTorch port: plain helpers, and the kernels of the
+serving and training paths with their plain PyTorch versions.
 
 Counterpart of elasticdl_tpu/ops/attention.py. Layout convention as
 there: [batch, heads, seq, head_dim]; k/v may carry fewer heads than q
@@ -8,14 +8,19 @@ there: [batch, heads, seq, head_dim]; k/v may carry fewer heads than q
 Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 
 * `flash_forward` -> csrc/flash_fwd.cu, the port of `_flash_kernel`;
+* `flash_backward_dq` / `flash_backward_dkv` -> csrc/flash_bwd.cu, the
+  ports of `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, joined
+  by `flash_backward` and wrapped with the forward in
+  `FlashAttentionFunction` (the JAX package's `jax.custom_vjp`);
 * `paged_decode_partials` -> csrc/paged_decode.cu, the port of
   `_paged_kernel`: its split kernel (table walk cut across blocks, then
   merged) for up to SPLIT_MAX_ROWS query rows per (sequence, kv head),
   its shared-memory tile kernel for larger query tiles.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-its plain version, `flash_attention_plain` / `paged_decode_partials_plain`,
-for CPU tensors. `KERNEL_LAUNCHES` counts kernel launches per wrapper.
+its plain version (`flash_attention_plain`, `flash_backward_dq_plain`,
+`flash_backward_dkv_plain`, `paged_decode_partials_plain`) for CPU
+tensors. `KERNEL_LAUNCHES` counts kernel launches per wrapper.
 """
 
 import ctypes
@@ -31,9 +36,10 @@ _NEG_INF = -1e30
 NEG_INF = _NEG_INF
 
 #: kernel launches per wrapper; chip_smoke.py resets and reads these to
-#: show that the serving path went through the kernels
+#: show that the serving and training paths went through the kernels
 KERNEL_LAUNCHES = {"flash_fwd": 0, "paged_decode": 0,
-                   "paged_decode_tile": 0}
+                   "paged_decode_tile": 0, "flash_bwd_dq": 0,
+                   "flash_bwd_dkv": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -228,16 +234,217 @@ def _flash_lib():
 
 def flash_attention(q, k, v, causal=False, scale=None, window=None,
                     segments=None, pos_offset=0):
-    """Tiled online-softmax attention, [b, h, lq, d] in q.dtype: the
-    forward of the JAX package's `flash_attention`. Sliding windows,
-    packed segments and position offsets are not ported yet."""
+    """Tiled online-softmax attention, [b, h, lq, d] in q.dtype: the JAX
+    package's `flash_attention`. When autograd records (grad mode on and
+    an input requires grad) it runs through `FlashAttentionFunction`,
+    whose backward is the flash backward; otherwise (serving, under
+    no_grad) it calls `flash_forward` alone. Sliding windows, packed
+    segments and position offsets are not ported yet."""
     if window is not None:
         raise NotImplementedError("flash_attention: window is not ported")
     if segments is not None:
         raise NotImplementedError("flash_attention: segments are not ported")
     if pos_offset:
         raise NotImplementedError("flash_attention: pos_offset is not ported")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, bool(causal),
+                                            float(scale))
     return flash_forward(q, k, v, causal=causal, scale=scale)[0]
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its flash backward: the port of the JAX
+    package's `_flash` custom_vjp (`_flash_fwd` saves q, k, v, out and
+    the lse; `_flash_bwd` runs the two backward kernels). Inputs are
+    made contiguous once here, so the backward's kernels read the saved
+    tensors as they are."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout.contiguous(),
+                                    causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+# --------------------------------------------------------- flash backward
+
+
+def _recompute_probs(q, k, lse, causal, scale):
+    """P = exp(q k^T * scale - lse) in fp32 over the expanded kv heads,
+    exactly 0 at masked pairs (and on rows whose lse is the +1e30 of an
+    empty row)."""
+    f32 = torch.float32
+    kf = expand_kv(k, q.shape[1]).to(f32)
+    s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
+    if causal:
+        lq, lk = s.shape[-2], s.shape[-1]
+        valid = (torch.arange(lq, device=q.device)[:, None]
+                 >= torch.arange(lk, device=q.device)[None, :])
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    return torch.exp(s - lse.to(f32)[..., None])
+
+
+def flash_backward_dq_plain(q, k, v, out, lse, do, causal=False, scale=None):
+    """Plain PyTorch version of the dq kernel: (dq in q.dtype, delta fp32
+    [b, h, lq]). delta = rowsum(dO * O) in fp32 (the JAX package's
+    `_flash_backward` :1383), dS = P * (dP - delta) * scale with
+    dP = dO V^T, dQ = dS K (the dense recompute at :1731-1769)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    f32 = torch.float32
+    p = _recompute_probs(q, k, lse, causal, scale)
+    gf = do.to(f32)
+    delta = (gf * out.to(f32)).sum(-1)
+    dp = torch.matmul(gf, expand_kv(v, q.shape[1]).to(f32).transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds, expand_kv(k, q.shape[1]).to(f32))
+    return dq.to(q.dtype), delta
+
+
+def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
+                             scale=None):
+    """Plain PyTorch version of the dk/dv kernel: (dk, dv) in the k/v
+    dtypes, group-summed to the kv head count under GQA. dV = P^T dO,
+    dK = dS^T Q, with `delta` as the dq kernel returns it."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    b, h, _lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    p = _recompute_probs(q, k, lse, causal, scale)
+    gf = do.to(f32)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, expand_kv(v, h).to(f32).transpose(-1, -2))
+    ds = p * (dp - delta.to(f32)[..., None]) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(f32))
+    if h != hkv:
+        dk = dk.reshape(b, hkv, h // hkv, lk, d).sum(2)
+        dv = dv.reshape(b, hkv, h // hkv, lk, d).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, out, lse, do, causal=False, scale=None):
+    """Plain PyTorch version of the flash backward: (dq, dk, dv) in the
+    input dtypes; the counterpart of `attention_backward_lse`'s dense
+    recompute in the JAX package."""
+    group_size(q, k)
+    dq, delta = flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
+                                        scale=scale)
+    dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=causal,
+                                      scale=scale)
+    return dq, dk, dv
+
+
+def flash_backward(q, k, v, out, lse, do, causal=False, scale=None):
+    """(dq, dk, dv) of flash attention from its saved lse, in the input
+    dtypes; under GQA dk and dv come back group-summed in the kv head
+    count. CUDA tensors run the two csrc/flash_bwd.cu kernels (dq first:
+    it also writes delta, which the dk/dv kernel reads), CPU tensors the
+    plain version."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    group_size(q, k)
+    if not on_kernel_path(q, k, v, out, lse, do):
+        return flash_backward_plain(q, k, v, out, lse, do, causal=causal,
+                                    scale=scale)
+    dq, delta = flash_backward_dq(q, k, v, out, lse, do, causal=causal,
+                                  scale=scale)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal=causal,
+                                scale=scale)
+    return dq, dk, dv
+
+
+def _bwd_args(name, q, k, v, do, lse, extra=()):
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, lk, d) or v.shape != k.shape:
+        raise ValueError("%s: k/v %s / %s do not match q %s" % (
+            name, tuple(k.shape), tuple(v.shape), tuple(q.shape)))
+    if do.shape != q.shape or lse.shape != (b, h, lq):
+        raise ValueError("%s: dO must be like q and lse [b, h, lq]" % name)
+    _check_kernel_args(name, (q, k, v, do, *extra), tuple(_DTYPE_CODES), d)
+    if any(t.dtype != q.dtype for t in (k, v, do, *extra)):
+        raise TypeError("%s kernel takes q, k, v, out, dO of one dtype"
+                        % name)
+    _check_kernel_args(name, (lse,), (torch.float32,), d)
+    return b, h, hkv, lq, lk, d
+
+
+def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None):
+    """(dq in q.dtype, delta fp32 [b, h, lq]): the csrc/flash_bwd.cu dq
+    kernel for CUDA tensors, `flash_backward_dq_plain` for CPU tensors."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if not on_kernel_path(q, k, v, out, lse, do):
+        return flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
+                                       scale=scale)
+    q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    lse = lse.contiguous()
+    b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
+                                     (out,))
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    err = _bwd_lib().edl_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+        b, h, hkv, lq, lk, d, float(scale), int(causal),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check_launch(err, "flash_bwd_dq")
+    KERNEL_LAUNCHES["flash_bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
+    """(dk, dv) in the k/v dtype, group-summed under GQA: the
+    csrc/flash_bwd.cu dk/dv kernel for CUDA tensors (one block per key
+    tile and kv head walks every q head of its group, so the sum needs
+    no atomics), `flash_backward_dkv_plain` for CPU tensors."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if not on_kernel_path(q, k, v, do, lse, delta):
+        return flash_backward_dkv_plain(q, k, v, do, lse, delta,
+                                        causal=causal, scale=scale)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dkv", q, k, v, do, lse)
+    if delta.shape != lse.shape or delta.dtype != torch.float32:
+        raise ValueError("flash_bwd_dkv: delta must be fp32 like lse")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    err = _bwd_lib().edl_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, hkv, lq, lk, d, float(scale), int(causal),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check_launch(err, "flash_bwd_dkv")
+    KERNEL_LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _bwd_lib():
+    lib = _build.load("flash_bwd")
+    for name in ("edl_flash_bwd_dq", "edl_flash_bwd_dkv"):
+        fn = getattr(lib, name)
+        if not fn.argtypes:
+            fn.argtypes = (
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+    return lib
 
 
 # ----------------------------------------------------------- paged decode

@@ -46,7 +46,8 @@ class PagedContinuousBatchingEngine(object):
     """The decode pool over block-paged KV storage for `model` (the
     port's TransformerLM, on its device). `top_k`/`top_p` are
     server-level sampling filters; temperature and seed ride per
-    request. Casts the model's matmul weights to its compute dtype once
+    request. Freezes the model (no parameter requires grad) and casts its
+    matmul weights to its compute dtype once
     (model.use_compute_weights)."""
 
     def __init__(self, model, num_slots, top_k=0, top_p=1.0, block_size=16,
@@ -55,7 +56,7 @@ class PagedContinuousBatchingEngine(object):
             raise ValueError("num_slots must be >= 1")
         if not 0.0 < top_p <= 1.0:
             raise ValueError("top_p must be in (0, 1], got %r" % (top_p,))
-        self.model = model.use_compute_weights()
+        self.model = model.requires_grad_(False).use_compute_weights()
         self.device = model.device
         self.num_slots = int(num_slots)
         self.seq_len = int(model.seq_len)

@@ -1,0 +1,269 @@
+"""The training step of the port: the dense tier of
+elasticdl_tpu/training/trainer.py on PyTorch.
+
+One `train_step` is the model's forward with autograd on, the zoo loss
+over per-example weights (padded rows of a partial batch weigh 0),
+`backward()`, and the zoo optimizer's update. The JAX package compiles
+that into one XLA program and returns a new state; here PyTorch runs it
+eagerly and updates the parameters and optimizer slots in place, and
+`train_step` returns the same `TrainState` with `step` advanced.
+
+Semantics kept from the JAX Trainer:
+
+* gradient accumulation as optax.MultiSteps: k calls make one applied
+  update with the running mean of their gradients (the same Welford
+  update, acc += (g - acc) / (n + 1)); the calls in between move no
+  parameter, weight decay included; `step` advances on every call;
+* `trainable_pattern`: a regex over flax parameter paths
+  ("block_7/attn/qkv/kernel", see convert.flax_param_path); parameters
+  it does not match are frozen entirely, no gradient and no decay, as
+  optax.set_to_zero does;
+* a `LearningRateScheduler` callback scales the whole update (decay
+  included) by multiplier_fn(applied updates so far, from 0), as
+  optax.chain(tx, scale_by_schedule(fn)) does: each parameter group's lr
+  is set to base x multiplier before `step()`.
+
+The sparse-row and host-spill embedding tiers, meshes (SPMD) and the
+`*_assembled` entry points are not ported yet and raise.
+"""
+
+import inspect
+import logging
+import re
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.api.callbacks import LearningRateScheduler
+from elasticdl_tpu_torch.convert import flax_param_path
+from elasticdl_tpu_torch.ops.dispatch import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+class OptState(object):
+    """The optimizer side of a TrainState: the torch optimizer (its
+    per-parameter slots live in `optimizer.state`), the base learning
+    rate of each parameter group, `count` (applied updates, what a
+    learning-rate schedule reads) and the gradient-accumulation buffers
+    (`accum`, one per trainable parameter, and `mini_step`)."""
+
+    def __init__(self, optimizer, count=0):
+        self.optimizer = optimizer
+        self.base_lrs = [g["lr"] for g in optimizer.param_groups]
+        self.count = int(count)
+        self.accum = []
+        self.mini_step = 0
+
+    def trainable(self):
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+
+class TrainState(object):
+    """step: train_step calls so far (the model version); params: {torch
+    key: the model's live parameter}; opt_state: an OptState."""
+
+    def __init__(self, step, params, opt_state):
+        self.step = int(step)
+        self.params = params
+        self.opt_state = opt_state
+
+    @property
+    def version(self):
+        return int(self.step)
+
+
+def _split_label(batch):
+    """(features, labels) for train/eval batches, bare features else."""
+    if isinstance(batch, tuple) and len(batch) == 2:
+        return batch[0], batch[1]
+    return batch, None
+
+
+class Trainer(object):
+    """Owns the model and optimizer of a port ModelSpec on one device."""
+
+    def __init__(self, model_spec, mesh=None, model_params="", seed=0,
+                 callbacks=None, grad_accum_steps=1, trainable_pattern=None,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Trainer: meshes (SPMD) are not ported; one device only")
+        self.spec = model_spec
+        self.device = resolve_device(device)
+        self.model = model_spec.create_model(model_params, device=self.device,
+                                             seed=seed)
+        if callbacks is None and model_spec.callbacks_fn is not None:
+            callbacks = model_spec.callbacks_fn()
+        self._lr_multiplier_fn = None
+        for cb in callbacks or []:
+            if isinstance(cb, LearningRateScheduler):
+                self._lr_multiplier_fn = cb.multiplier_fn
+                break
+        self.grad_accum_steps = max(1, int(grad_accum_steps))
+        self.trainable_pattern = trainable_pattern
+        self._loss_takes_weights = (
+            len(inspect.signature(model_spec.loss).parameters) >= 3)
+        if not self._loss_takes_weights:
+            logger.warning(
+                "loss() takes no sample_weights arg: padded rows of partial "
+                "final batches will enter the loss unmasked")
+
+    # ---------------------------------------------------------------- init
+
+    def _trainable_names(self):
+        names = [n for n, _p in self.model.named_parameters()]
+        if not self.trainable_pattern:
+            return set(names)
+        rex = re.compile(self.trainable_pattern)
+        train = {n for n in names if rex.search(flax_param_path(n))}
+        logger.info("trainable_pattern %r: %d/%d param tensors train",
+                    self.trainable_pattern, len(train), len(names))
+        if not train:
+            logger.warning("trainable_pattern %r matches NOTHING — every "
+                           "parameter is frozen and training is a no-op",
+                           self.trainable_pattern)
+        return train
+
+    def init_state(self, example_batch, params=None, opt_state=None,
+                   step=0):
+        """A fresh TrainState over the model's seeded parameters.
+        `params` (a state_dict, e.g. from convert.params_from_flax)
+        replaces them; `opt_state` (as convert.adam_state_from_optax
+        returns it) seeds the AdamW slots and the applied-update count;
+        `step` sets the model version. `example_batch` is accepted for
+        the JAX Trainer's signature: the port's parameters do not depend
+        on it."""
+        del example_batch
+        if params is not None:
+            self.model.load_state_dict(params)
+        train = self._trainable_names()
+        named = dict(self.model.named_parameters())
+        for name, p in named.items():
+            p.requires_grad_(name in train)
+        trainable = [p for n, p in named.items() if n in train]
+        optimizer = self.spec.optimizer()(trainable)
+        count = 0
+        if opt_state is not None:
+            count = int(opt_state["count"])
+            for name in train:
+                optimizer.state[named[name]] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": opt_state["exp_avg"][name].to(self.device),
+                    "exp_avg_sq": opt_state["exp_avg_sq"][name].to(
+                        self.device),
+                }
+        return TrainState(step, named, OptState(optimizer, count))
+
+    # ---------------------------------------------------------------- steps
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _features(self, features):
+        if isinstance(features, dict):
+            return {k: self._tensor(v) for k, v in features.items()}
+        return self._tensor(features)
+
+    def _compute_loss(self, labels, predictions, weights):
+        if self._loss_takes_weights:
+            return self.spec.loss(labels, predictions, weights)
+        return self.spec.loss(labels, predictions)
+
+    def train_step(self, state, batch, true_count=None):
+        """One microbatch: forward, loss, backward and (on an update
+        boundary) the optimizer step. `batch` = (features, labels) numpy
+        already padded to the static batch size; `true_count` masks the
+        padding. Updates `state` in place; returns (state, float loss).
+        After the call each trainable parameter's `.grad` holds the
+        gradient the optimizer consumed (the accumulated mean at a
+        boundary) or, between boundaries, this microbatch's gradient."""
+        features, labels = _split_label(batch)
+        weights = _make_weights(_leading_dim(features), true_count)
+        opt = state.opt_state
+        opt.optimizer.zero_grad(set_to_none=True)
+        preds = self.model(self._features(features), training=True)
+        loss = self._compute_loss(self._tensor(labels), preds,
+                                  self._tensor(weights))
+        trainable = opt.trainable()
+        if trainable and loss.requires_grad:
+            loss.backward()
+        for p in trainable:
+            if p.grad is None:  # unused by this batch: optax sees zeros
+                p.grad = torch.zeros_like(p)
+        state.step += 1
+        k = self.grad_accum_steps
+        if k > 1:
+            if not opt.accum:
+                opt.accum = [torch.zeros_like(p) for p in trainable]
+            n = opt.mini_step
+            for acc, p in zip(opt.accum, trainable):
+                acc.add_((p.grad - acc) / (n + 1))
+            if n < k - 1:
+                opt.mini_step = n + 1
+                return state, float(loss.detach())
+            for acc, p in zip(opt.accum, trainable):
+                p.grad.copy_(acc)
+                acc.zero_()
+            opt.mini_step = 0
+        mult = 1.0
+        if self._lr_multiplier_fn is not None:
+            mult = float(self._lr_multiplier_fn(opt.count))
+        for group, base in zip(opt.optimizer.param_groups, opt.base_lrs):
+            group["lr"] = base * mult
+        opt.optimizer.step()
+        opt.count += 1
+        return state, float(loss.detach())
+
+    def forward(self, state, features):
+        """Inference forward (evaluation / prediction) under no_grad."""
+        del state
+        with torch.no_grad():
+            return self.model(self._features(features), training=False)
+
+    def evaluate_batch(self, state, batch, true_count=None):
+        """(outputs, labels) as numpy, trimmed to true_count, for metric
+        aggregation."""
+        features, labels = _split_label(batch)
+        preds = self.forward(state, features)
+
+        def trim(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().float().cpu().numpy()
+            x = np.asarray(x)
+            return x[:true_count] if true_count is not None else x
+
+        if isinstance(preds, dict):
+            preds = {k: trim(v) for k, v in preds.items()}
+        else:
+            preds = trim(preds)
+        labels = trim(labels) if labels is not None else None
+        return preds, labels
+
+    # ------------------------------------------------- not ported (raise)
+
+    def attach_host_embeddings(self, manager):
+        raise NotImplementedError(
+            "Trainer: the host-spill embedding tier is not ported")
+
+    def train_step_assembled(self, state, features, labels, weights):
+        raise NotImplementedError(
+            "Trainer: the SPMD (assembled) step is not ported")
+
+    def forward_assembled(self, state, features):
+        raise NotImplementedError(
+            "Trainer: the SPMD (assembled) forward is not ported")
+
+
+def _leading_dim(features):
+    if isinstance(features, dict):
+        return np.asarray(next(iter(features.values()))).shape[0]
+    return np.asarray(features).shape[0]
+
+
+def _make_weights(batch_size, true_count):
+    if true_count is None or true_count >= batch_size:
+        return np.ones((batch_size,), np.float32)
+    w = np.zeros((batch_size,), np.float32)
+    w[:true_count] = 1.0
+    return w

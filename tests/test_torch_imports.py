@@ -46,7 +46,10 @@ def _sources():
 
 def test_port_modules_import_no_jax_package():
     modules = _port_modules()
-    assert "elasticdl_tpu_torch.serving.engine" in modules
+    for required in ("elasticdl_tpu_torch.serving.engine",
+                     "elasticdl_tpu_torch.training.trainer",
+                     "elasticdl_tpu_torch.api.local_executor"):
+        assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"
         "for name in %r:\n"
