@@ -6,9 +6,9 @@ Needs one CUDA device, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository checkout it sits in. Phases, each of which fails the run:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel of the serving and training paths from
-   elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu, paged_decode.cu;
-   one nvcc per source, all at once);
+2. build every kernel of the serving, training and DLRM paths from
+   elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu, paged_decode.cu,
+   embedding_gather.cu, row_update.cu; one nvcc per source, all at once);
 3. kernel A (flash forward) against its plain PyTorch version at the
    prefill shapes;
 4. kernel B (paged decode partials) against its plain version at the
@@ -17,7 +17,14 @@ repository checkout it sits in. Phases, each of which fails the run:
    versions: b = 2, h = 8 with 8 and 2 kv heads, l = 64 / 200 / 1024,
    d = 128, causal and not, bf16 and fp32; then FlashAttentionFunction's
    gradients on the card against the plain versions on the CPU, fp32;
-6. the serving slice at the flagship transformer_lm width (vocab 32000,
+6. kernels E and F: E (embedding gather) against its plain version, exactly:
+   dims 32 / 64 / 13, fp32 and bf16, ids [4096] and [512, 26] with
+   repeats, -1 and ids past the table; F (row updates), each of
+   its four rules (sgd, momentum, adam, adagrad), against its plain
+   version within 1e-6 relative, dims 32 and 13, unique ids mixed with -1
+   and ids past the table; rows the ids do not name (and their slots)
+   must stay bit-identical;
+7. the serving slice at the flagship transformer_lm width (vocab 32000,
    seq_len 1024, embed 1024, 8 heads, 8 layers, bf16, seeded random
    weights): 16 greedy requests, 8 sharing a 256-token prefix, through
    the port's GenerationServer (8 slots, paged KV, block 16, prefix
@@ -26,8 +33,8 @@ repository checkout it sits in. Phases, each of which fails the run:
    2-layer model at the same width, with weights made by numpy, runs one
    prompt and 8 decode steps on the card and on the CPU (plain
    versions); the logits must agree;
-7. where a decode step's time goes (host clock, torch.profiler);
-8. the training slice at the same flagship width (bf16 compute over fp32
+8. where a decode step's time goes (host clock, torch.profiler);
+9. the training slice at the same flagship width (bf16 compute over fp32
    parameters, AdamW 3e-4, weight decay 0.01): the port's RecordWriter
    writes token records of 1025 tokens, and LocalExecutor(minibatch 8,
    max_steps 4) trains on them. Every loss must be finite and the first
@@ -36,13 +43,30 @@ repository checkout it sits in. Phases, each of which fails the run:
    width with numpy weights takes one train_step in bf16 on the card and
    on the CPU: the loss and each parameter's gradient norm must agree;
    and one profiled step shows where a training step's time goes;
-9. kernel timings at the main paths' shapes (CUDA events, graph-replayed
-   for device time), beside the plain version, a library call where one
-   computes the same function, and the bound implied by the card's
-   published peaks.
+10. the DLRM slice at bench.py's width (26 tables x 1,200,000 rows x 32,
+   fp32, minibatch 4096, SGD 0.01): the port's RecordWriter writes
+   Criteo-like records, LocalExecutor trains 4 steps and evaluates once.
+   Every loss must be finite and the first within its statistical bound
+   of its expectation at initialisation; kernels E and F must each
+   launch once per table in every step; sampled rows of table 0 that the
+   records touch must have moved and sampled untouched rows must be
+   bit-identical; probs_auc must lie in [0, 1]. Then steps on a pre-built
+   batch with ids uniform over the 1.2M rows are timed and profiled, and
+   a small DLRM (4 tapped tables of 20000 x 32, numpy weights) takes one
+   fp32 step on the card and on the CPU: loss and every parameter within
+   1e-5, and each parameter's change in the step within 1e-3 of it;
+11. kernels E and F against their plain versions at the DLRM path's
+   size (a 1,200,000 x 32 fp32 table, the 4096 ids of one column of the
+   uniform batch, each rule of F over them deduplicated);
+12. kernel timings at the main paths' shapes (CUDA events, graph-replayed
+   for device time; E and F over 26 distinct tables and id columns, as a
+   step issues them, with L2 flushed before each round), beside the
+   plain version, a library call where one computes the same function,
+   and the bound implied by the card's published peaks.
 
 It prints a `kernels` JSON line, a `serving` JSON line, a `training`
-JSON line, the nvidia-smi line and, last, {"ok": true, "device": {...}}.
+JSON line, a `dlrm` JSON line, the nvidia-smi line and, last,
+{"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
@@ -61,20 +85,29 @@ import torch.nn.functional as F
 
 from elasticdl_tpu_torch.api.generation import kv_layout
 from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+from elasticdl_tpu_torch.common.constants import Mode
+from elasticdl_tpu_torch.common.hash_utils import string_to_id
 from elasticdl_tpu_torch.common.model_utils import load_model_spec_from_module
-from elasticdl_tpu_torch.convert import params_from_flax
+from elasticdl_tpu_torch.convert import dlrm_params_from_flax, params_from_flax
+from elasticdl_tpu_torch.data.dataset import pad_batch
 from elasticdl_tpu_torch.data.example_codec import encode_example
 from elasticdl_tpu_torch.data.record_format import RecordWriter
+from elasticdl_tpu_torch.master.task_dispatcher import Task, TaskType
+from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
 from elasticdl_tpu_torch.model_zoo.transformer_lm import TransformerLM
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import attention as att
+from elasticdl_tpu_torch.ops import embedding_ops as eo
+from elasticdl_tpu_torch.ops import update_math as um
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 from elasticdl_tpu_torch.serving.server import GenerationServer, ServingConfig
 from elasticdl_tpu_torch.training.trainer import Trainer
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core peak and HBM3 rate
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core peak, fp32 peak
+# outside the tensor cores, and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(vocab_size=32000, seq_len=1024, embed_dim=1024,
@@ -91,9 +124,27 @@ BWD_TOL_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # rounding at other places in cuBLAS and the CPU kernels)
 STEP_LOSS_TOL_REL = 1e-2
 STEP_GRAD_NORM_TOL_REL = 5e-2
+# kernel F against its plain version, max |err| / max |ref| per table:
+# the kernel contracts p - lr * g into one fused multiply-add where the
+# plain version rounds lr * g first (a few units in the last place)
+ROW_TOL_REL = 1e-6
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_tile")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_BATCH, TRAIN_STEPS = 8, 4
+# the DLRM slice at bench.py's width (run_dlrm_bench)
+DLRM = dict(table_size=1_200_000, num_tables=26, embedding_dim=32)
+DLRM_BATCH, DLRM_STEPS = 4096, 4
+DLRM_KERNELS = ("embedding_gather", "row_update")
+# a small DLRM step on the card against the CPU, fp32 with TF32 off:
+# loss (relative) and every parameter after the step (absolute); and the
+# step's change of each parameter tensor, max |card - cpu| / max |cpu|
+# of the change: the card rounds p + change (a fused multiply-add) a
+# unit of p's last place away from the CPU at most, 3.7e-9 for a table
+# value near 0.05 against a largest change near 6e-5 (under 1e-4 of
+# it), while an update of the wrong scale (lr off by a factor s) is off
+# by |1 - s| of it
+DLRM_STEP_TOL = 1e-5
+DLRM_STEP_DELTA_TOL_REL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -120,12 +171,9 @@ def _events_ms(run, iters):
     return start.elapsed_time(end) / iters
 
 
-def timed_ms(fn, iters=50, warmup=3):
-    """(device ms, eager ms) of one fn() call. Device: fn captured once in
-    a CUDA graph and replayed `iters` times between CUDA events, so the
-    host's launch overhead is not in it. Eager: `iters` plain calls
-    between events, which includes the wrapper's host work whenever the
-    host is slower than the card."""
+def _captured(fn, warmup=3):
+    """fn() captured in a CUDA graph, after `warmup` calls on a side
+    stream, and replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -137,11 +185,60 @@ def timed_ms(fn, iters=50, warmup=3):
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def timed_ms(fn, iters=50, warmup=3):
+    """(device ms, eager ms) of one fn() call. Device: fn captured in a
+    CUDA graph, replayed `iters` times between CUDA events, divided by
+    iters, so the host's launch overhead is not in it. Eager: `iters`
+    plain calls between events, which includes the wrapper's host work
+    whenever the host is slower than the card."""
+    graph = _captured(fn, warmup)
     return _events_ms(graph.replay, iters), _events_ms(fn, iters)
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+# bytes written to evict the card's L2 (50 MB on an H100) before a round
+L2_FLUSH_BYTES = 256 << 20
+
+
+def timed_cold_ms(calls, iters=20, graph=True):
+    """(device ms, eager ms) of one call of `calls`: callables over
+    disjoint data, one per table, as a step issues them back to back.
+    Before each round of all the calls the L2 is flushed, so no call
+    finds in L2 what an earlier round brought there, as on the path,
+    where every step brings new ids. Device: the round captured in one
+    CUDA graph (graph=False: plain calls, for a function that syncs with
+    the host), timed between CUDA events, divided by the calls. Eager:
+    the round's plain calls, the same way."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def round_():
+        for call in calls:
+            call()
+
+    def per_call(run):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(iters):
+            flush.zero_()
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters / len(calls)
+
+    if not graph:
+        round_()
+        ms = per_call(round_)
+        return ms, ms
+    return per_call(_captured(round_, warmup=1).replay), per_call(round_)
+
+
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -316,6 +413,114 @@ def check_autograd(gen):
     return max(errs)
 
 
+def check_gather(gen, vocab=50_000):
+    """Kernel E against embedding_gather_plain: dim 32 / 64 / 13, fp32
+    and bf16, ids [4096] and [512, 26] drawn from [-1, vocab + 4] with
+    repeats, padding ids and ids past the table. The kernel copies raw
+    bits, so the outputs must be equal: max |err| 0."""
+    worst = 0.0
+    for dim in (32, 64, 13):
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(vocab, dim, generator=gen).to("cuda", dtype)
+            for shape in ((4096,), (512, 26)):
+                ids = torch.randint(-1, vocab + 5, shape, generator=gen,
+                                    dtype=torch.int32)
+                flat = ids.view(-1)
+                flat[:64] = flat[64:128]  # repeated ids
+                flat[128:136] = -1
+                flat[136:144] = vocab + torch.arange(8, dtype=torch.int32)
+                ids = ids.cuda()
+                out = eo.embedding_gather(table, ids)
+                torch.cuda.synchronize()
+                ref = eo.embedding_gather_plain(table, ids)
+                err = (out.float() - ref.float()).abs().max().item()
+                check(out.shape == ref.shape and out.dtype == ref.dtype,
+                      "gather: shape/dtype %s %s vs %s %s" % (
+                          tuple(out.shape), out.dtype, tuple(ref.shape),
+                          ref.dtype))
+                check(torch.equal(out, ref),
+                      "gather kernel differs from its plain version at "
+                      "dim=%d %s ids %s: max |err| %.3g"
+                      % (dim, dtype, shape, err))
+                worst = max(worst, err)
+        log("gather dim=%d fp32/bf16, ids [4096] and [512, 26]: equal" % dim)
+    return worst
+
+
+# row rules of kernel F with the hyperparameters the checks and timings
+# use: (wrapper arguments after the tables, ids and grads; the plain
+# version's hyperparameters as the kernel takes them)
+ADAM_STEP = 3
+ROW_RULES = {
+    "sgd": ({"lr": 0.01}, [0.01]),
+    "momentum": ({"lr": 0.01, "momentum": 0.9, "nesterov": True},
+                 [0.01, 0.9, 1.0]),
+    "adam": ({"step": ADAM_STEP, "lr": 1e-3, "beta1": 0.9, "beta2": 0.999,
+              "eps": 1e-8},
+             [um.adam_alpha(1e-3, 0.9, 0.999, ADAM_STEP), 0.9, 0.999, 1e-8]),
+    "adagrad": ({"lr": 0.01, "eps": 1e-10}, [0.01, 1e-10]),
+}
+ROW_WRAPPERS = {"sgd": eo.sparse_sgd_update,
+                "momentum": eo.sparse_momentum_update,
+                "adam": eo.sparse_adam_update,
+                "adagrad": eo.sparse_adagrad_update}
+ROW_TABLES = {"sgd": 1, "momentum": 2, "adam": 3, "adagrad": 2}
+
+
+def row_inputs(gen, rule, vocab, dim, n_unique):
+    """Tables (the parameter table, then the rule's slot tables: moments
+    and accumulators non-negative where the rule needs it), n_unique
+    unique ids in [0, vocab) mixed with 32 padding ids and 32 ids past
+    the table, and their gradient rows; all on the card."""
+    tables = [torch.randn(vocab, dim, generator=gen)]
+    for k in range(1, ROW_TABLES[rule]):
+        slot = torch.randn(vocab, dim, generator=gen) * 0.1
+        tables.append(slot.abs() if rule == "adagrad" or k == 2 else slot)
+    uniq = torch.randperm(vocab, generator=gen)[:n_unique].to(torch.int32)
+    bad = torch.cat([torch.full((32,), -1, dtype=torch.int32),
+                     vocab + torch.arange(32, dtype=torch.int32)])
+    ids = torch.cat([uniq, bad])[torch.randperm(n_unique + 64,
+                                                generator=gen)]
+    grads = torch.randn(ids.numel(), dim, generator=gen)
+    return ([t.cuda() for t in tables], ids.cuda(), grads.cuda(),
+            uniq.long().cuda())
+
+
+def check_row_update(gen, vocab=50_000, n_unique=4000):
+    """Kernel F, each rule, against row_update_plain on the same inputs:
+    dim 32 and 13, fp32. Relative error (max |err| / max |ref| per
+    table) within ROW_TOL_REL; rows and slot rows the ids do not name
+    must be bit-identical to their values before the call."""
+    worst_abs = worst_rel = 0.0
+    for dim in (32, 13):
+        for rule, (kwargs, hyper) in ROW_RULES.items():
+            tables, ids, grads, uniq = row_inputs(gen, rule, vocab, dim,
+                                                  n_unique)
+            before = [t.clone() for t in tables]
+            plain = [t.clone() for t in tables]
+            ROW_WRAPPERS[rule](*tables, ids, grads, **kwargs)
+            torch.cuda.synchronize()
+            eo.row_update_plain(rule, plain, ids, grads, hyper)
+            untouched = torch.ones(vocab, dtype=torch.bool, device="cuda")
+            untouched[uniq] = False
+            rels = []
+            for t, p, b in zip(tables, plain, before):
+                check(torch.equal(t[untouched], b[untouched]),
+                      "row_update %s dim=%d moved a row it was not given"
+                      % (rule, dim))
+                check(bool(torch.isfinite(t).all()),
+                      "row_update %s: non-finite" % rule)
+                rels.append(rel_err(t, p))
+                worst_abs = max(worst_abs, (t - p).abs().max().item())
+            log("row_update %s dim=%d: rel err %s, untouched rows equal"
+                % (rule, dim, ["%.3g" % r for r in rels]))
+            check(max(rels) <= ROW_TOL_REL,
+                  "row_update %s dim=%d disagrees with its plain version: "
+                  "%s" % (rule, dim, rels))
+            worst_rel = max(worst_rel, max(rels))
+    return worst_abs, worst_rel
+
+
 # ------------------------------------------------------------ serving slice
 
 
@@ -485,6 +690,11 @@ def compare_cuda_cpu(rng):
     return out
 
 
+def _device_us(event):
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
 def device_summary(events, steps, step_ms, top, group=None):
     """Device time per step from a profiler's key_averages: the sum of
     the kernels' own time (events on the CUDA device; operator ranges,
@@ -496,21 +706,17 @@ def device_summary(events, steps, step_ms, top, group=None):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
-    ranked = sorted(kernels, key=dev_us, reverse=True)
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    ranked = sorted(kernels, key=_device_us, reverse=True)
     out = {
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / step_ms,
         "kernel_ms_per_step": {
-            e.key[:60]: dev_us(e) / 1e3 / steps for e in ranked[:top]},
+            e.key[:60]: _device_us(e) / 1e3 / steps for e in ranked[:top]},
     }
     if group:
-        ms = sum(dev_us(e) for e in kernels if group in e.key) / 1e3 / steps
+        ms = sum(_device_us(e) for e in kernels
+                 if group in e.key) / 1e3 / steps
         out["%s_kernels_ms_per_step" % group.strip("_")] = ms
         out["%s_kernels_share_of_device" % group.strip("_")] = (
             ms / device_ms if device_ms else None)
@@ -629,7 +835,10 @@ def train_flagship(rng, workdir):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(att.KERNEL_LAUNCHES)
-    executor.trainer.train_step = step_fn
+    # drop the wrapper (an instance attribute): assigning the bound
+    # method back would make a reference cycle that keeps the model and
+    # its optimizer slots alive after the caller lets go of them
+    del executor.trainer.train_step
     losses = executor.losses
     log("training losses: %s; step ms %s" % (
         losses, [round(s["ms"], 2) for s in steps]))
@@ -748,18 +957,318 @@ def profile_train_step(executor, rng, steps=2):
                                      if e.key.startswith("aten::")) / steps}
 
 
+# -------------------------------------------------------------- DLRM slice
+
+
+def _dlrm_params_str(cfg):
+    return "; ".join("%s=%r" % kv for kv in cfg.items())
+
+
+def _write_criteo_records(path, n, rng):
+    """n Criteo-like records (numeric I1..I13, categorical strings
+    C1..C26, a binary label, as the JAX package's gen_criteo_like writes
+    them) through the port's writer. Returns the C1 strings' hashed ids,
+    the rows of table 0 these records touch."""
+    c1 = set()
+    with RecordWriter(path) as w:
+        for _ in range(n):
+            ex = {"I%d" % i: np.array(rng.rand() * 100, dtype=np.float32)
+                  for i in range(1, 14)}
+            for i in range(1, 27):
+                ex["C%d" % i] = np.array(
+                    ("cat%d" % rng.randint(1000)).encode(), dtype="S16")
+            ex["label"] = np.array(rng.randint(2), dtype=np.int64)
+            c1.add(string_to_id(ex["C1"].item().decode(), dzoo.HASH_BUCKETS))
+            w.write(encode_example(ex))
+    return sorted(c1)
+
+
+def reset_all_launch_counts():
+    att.reset_launch_counts()
+    eo.reset_launch_counts()
+
+
+def all_launch_counts():
+    return dict(att.KERNEL_LAUNCHES, **eo.KERNEL_LAUNCHES)
+
+
+def train_dlrm(rng, workdir):
+    """DLRM_STEPS steps of the bench-width DLRM through LocalExecutor
+    (minibatch DLRM_BATCH, SGD 0.01) over Criteo-like records on disk,
+    then one evaluation over DLRM_BATCH validation records. Returns the
+    metrics, the executor and the kernel launches of the run."""
+    train, valid = (os.path.join(workdir, d) for d in ("dtrain", "dvalid"))
+    os.makedirs(train)
+    os.makedirs(valid)
+    t0 = time.perf_counter()
+    touched = _write_criteo_records(os.path.join(train, "c-00000.trec"),
+                                    DLRM_BATCH * DLRM_STEPS, rng)
+    _write_criteo_records(os.path.join(valid, "c-00000.trec"), DLRM_BATCH,
+                          rng)
+    write_s = time.perf_counter() - t0
+    executor = LocalExecutor(
+        load_model_spec_from_module(dzoo), training_data=train,
+        validation_data=valid, minibatch_size=DLRM_BATCH,
+        records_per_task=DLRM_BATCH * DLRM_STEPS, max_steps=DLRM_STEPS,
+        model_params=_dlrm_params_str(DLRM), device="cuda")
+    trainer = executor.trainer
+    table0 = trainer.model.table_0.embedding_table
+    touched = np.unique(np.asarray(touched) % DLRM["table_size"])
+    untouched = np.setdiff1d(rng.randint(0, DLRM["table_size"], 256),
+                             touched)[:64]
+    touched = rng.choice(touched, 64, replace=False)
+    before = {"touched": table0[touched].clone(),
+              "untouched": table0[untouched].clone()}
+    # the first loss at initialisation, from the first batch the run will
+    # take (its one task covers every record; dataset_fn's shuffle is
+    # seeded): the cross entropy of a logit z and a label y is ln 2 +
+    # log cosh(z/2) + (1/2 - y) z, and the labels are fair coins
+    # independent of z, so the batch mean is ln 2 + mean(log cosh(z/2))
+    # up to the mean of (1/2 - y) z, whose stddev is sqrt(mean(z^2) / n)
+    # / 2: the check allows five of those. This forward runs before the
+    # counts are reset.
+    reader = executor._reader(train)
+    (shard, (start, count)), = reader.create_shards().items()
+    task = Task(shard, start, start + count, TaskType.TRAINING)
+    for first_batch in executor._task_dataset(reader, task, Mode.TRAINING):
+        break
+    first_batch, _ = pad_batch(first_batch, DLRM_BATCH)
+    z = trainer.forward(None, first_batch[0])["logits"].double()
+    first = math.log(2) + float((torch.logaddexp(z / 2, -z / 2)
+                                 - math.log(2)).mean())
+    first_tol = 2.5 * math.sqrt(float((z * z).mean()) / z.numel())
+    steps = []
+    step_fn = trainer.train_step
+
+    def timed_step(state, batch, true_count=None):
+        if not steps:
+            check(np.array_equal(batch[1], first_batch[1])
+                  and np.array_equal(batch[0]["sparse"],
+                                     first_batch[0]["sparse"]),
+                  "the DLRM run's first batch is not the one its expected "
+                  "first loss was computed from")
+        before_counts = all_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch, true_count)
+        torch.cuda.synchronize()
+        after = all_launch_counts()
+        steps.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {k: after[k] - before_counts[k]
+                         for k in DLRM_KERNELS}})
+        return out
+
+    trainer.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = executor.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launch_counts()
+    del trainer.train_step  # as in train_flagship
+    losses = executor.losses
+    log("dlrm losses: %s; step ms %s; eval %s" % (
+        losses, [round(s["ms"], 2) for s in steps], metrics))
+    check(state is not None and state.step == DLRM_STEPS
+          and len(losses) == DLRM_STEPS,
+          "DLRM LocalExecutor took %d steps, not %d"
+          % (len(losses), DLRM_STEPS))
+    check(all(math.isfinite(x) for x in losses), "non-finite DLRM loss")
+    check(abs(losses[0] - first) <= first_tol,
+          "first DLRM loss %.5f is not within %.4f of its expectation at "
+          "initialisation %.5f" % (losses[0], first_tol, first))
+    for i, s in enumerate(steps):
+        for name in DLRM_KERNELS:
+            check(s["launches"][name] == DLRM["num_tables"],
+                  "DLRM step %d launched %s %d times, not once per table "
+                  "(%d)" % (i, name, s["launches"][name],
+                            DLRM["num_tables"]))
+    moved = (table0[touched] != before["touched"]).any(dim=1)
+    check(bool(moved.all()), "%d of 64 touched rows of table 0 did not move"
+          % int((~moved).sum()))
+    check(torch.equal(table0[untouched], before["untouched"]),
+          "an untouched row of table 0 moved")
+    check(0.0 <= metrics["probs_auc"] <= 1.0
+          and 0.0 <= metrics["logits_accuracy"] <= 1.0,
+          "DLRM evaluation metrics out of range: %s" % metrics)
+    out = {
+        "model": "dlrm, %(num_tables)d tables x %(table_size)d rows x "
+                 "%(embedding_dim)d, fp32, SGD 0.01" % DLRM,
+        "minibatch": DLRM_BATCH, "steps": DLRM_STEPS,
+        "losses": losses, "expected_first_loss": first,
+        "first_loss_tol": first_tol,
+        "step_ms": [s["ms"] for s in steps],
+        "launches_per_step": steps[-1]["launches"],
+        "eval": metrics, "record_write_s": write_s, "wall_s": wall,
+        "peak_memory_bytes_run": int(torch.cuda.max_memory_allocated()),
+        "rows_checked": {"touched_moved": 64, "untouched_equal":
+                         int(len(untouched))},
+    }
+    return out, executor, launches
+
+
+def time_dlrm_steps(executor, rng, steps=10, prof_steps=3):
+    """Where a bench-width DLRM step's time goes: a pre-built batch with
+    ids uniform over the 1.2M rows (bench.py's run_dlrm_bench), one warm
+    step, `steps` steps on the host clock, then `prof_steps` more under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, state = executor.trainer, executor.state
+    batch = ({"dense": rng.rand(DLRM_BATCH, 13).astype(np.float32),
+              "sparse": rng.randint(0, DLRM["table_size"], size=(
+                  DLRM_BATCH, DLRM["num_tables"])).astype(np.int32)},
+             rng.randint(2, size=(DLRM_BATCH,)).astype(np.int32))
+    state, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.percentile(times, 50))
+    peak = int(torch.cuda.max_memory_allocated())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    summary = device_summary(events, prof_steps, step_ms, top=8)
+    for name, kernel in (("embedding_gather", "gather_kernel"),
+                         ("row_update", "row_update_kernel")):
+        own = [e for e in events if kernel in e.key
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(_device_us(e) for e in own)
+        summary["%s_ms_per_step" % name] = total_us / 1e3 / prof_steps
+        summary["%s_ms_per_launch" % name] = total_us / 1e3 / max(
+            1, sum(e.count for e in own))
+    return {
+        "batch": "pre-built, ids uniform over %d rows" % DLRM["table_size"],
+        "step_ms": times, "step_ms_p50": step_ms,
+        "samples_per_s": DLRM_BATCH / (step_ms / 1e3),
+        "peak_memory_bytes": peak,
+        **summary,
+        "host_ops_per_step": sum(e.count for e in events
+                                 if e.key.startswith("aten::")) / prof_steps,
+    }, batch
+
+
+def numpy_dlrm_params(cfg, seed):
+    """DLRM params in the flax layout, drawn by numpy: keras-uniform
+    tables, fan-in-scaled normal kernels, small biases."""
+    rs = np.random.RandomState(seed)
+    d, n = cfg["embedding_dim"], cfg["num_tables"]
+    params = {}
+
+    def dense(name, sizes, width):
+        for i, out in enumerate(sizes):
+            params["%s_%d/kernel" % (name, i)] = (
+                rs.standard_normal((width, out)) / np.sqrt(width)).astype(
+                    np.float32)
+            params["%s_%d/bias" % (name, i)] = (
+                0.1 * rs.standard_normal(out)).astype(np.float32)
+            width = out
+
+    dense("bottom", (64, 32, d), 13)
+    for t in range(n):
+        params["table_%d/embedding_table" % t] = rs.uniform(
+            -0.05, 0.05, (cfg["table_size"], d)).astype(np.float32)
+    dense("top", (64, 1), d + n * (n + 1) // 2)
+    return params
+
+
+def compare_dlrm_step(rng):
+    """One SGD step of a small DLRM (every table tapped) on the card and
+    on the CPU (plain versions), same numpy weights and batch, fp32 with
+    TF32 off: the loss, every table and MLP weight after the step."""
+    cfg = dict(table_size=20000, num_tables=4, embedding_dim=32)
+    sd = dlrm_params_from_flax(numpy_dlrm_params(cfg, seed=5))
+    sparse = rng.randint(0, 64, size=(256, 26)).astype(np.int32)
+    batch = ({"dense": (4 * rng.rand(256, 13)).astype(np.float32),
+              "sparse": sparse}, rng.randint(2, size=(256,)).astype(np.int32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(load_model_spec_from_module(dzoo),
+                          model_params=_dlrm_params_str(cfg), device=dev)
+        state = trainer.init_state(batch, params=sd)
+        check(len(state.embed_opt_state) == cfg["num_tables"],
+              "small DLRM: not every table is tapped")
+        state, loss = trainer.train_step(state, batch)
+        runs[dev] = (loss, {k: p.detach().cpu() for k, p in
+                            state.params.items()})
+    (gl, gp), (cl, cp) = runs["cuda"], runs["cpu"]
+    loss_err = abs(gl - cl) / abs(cl)
+    errs = {k: (gp[k] - cp[k]).abs().max().item() for k in cp}
+    worst = max(errs, key=errs.get)
+    # each tensor's change in the step, card against cpu, relative to the
+    # largest change the cpu made in that tensor
+    change = {k: float((cp[k] - sd[k]).abs().max()) for k in cp}
+    check(all(change.values()), "DLRM step left a parameter unchanged: %s"
+          % [k for k, c in change.items() if not c])
+    delta_errs = {k: float(((gp[k] - sd[k]) - (cp[k] - sd[k])).abs().max())
+                  / change[k] for k in cp}
+    worst_delta = max(delta_errs, key=delta_errs.get)
+    tables = [k for k in cp if k.startswith("table_")]
+    moved = sum(int((gp[k] != sd[k]).any(dim=1).sum()) for k in tables)
+    log("dlrm step cuda vs cpu: loss %.7f / %.7f (rel %.3g); worst param "
+        "err %.3g (%s); worst change err %.3g of the change (%s); %d table "
+        "rows moved, max |change| tables %.3g, MLPs %.3g"
+        % (gl, cl, loss_err, errs[worst], worst, delta_errs[worst_delta],
+           worst_delta, moved, max(change[k] for k in tables),
+           max(c for k, c in change.items() if k not in tables)))
+    check(loss_err <= DLRM_STEP_TOL, "DLRM step loss: card %.7f vs cpu %.7f"
+          % (gl, cl))
+    check(errs[worst] <= DLRM_STEP_TOL, "DLRM step %s: card and cpu differ "
+          "by %.3g" % (worst, errs[worst]))
+    check(delta_errs[worst_delta] <= DLRM_STEP_DELTA_TOL_REL,
+          "DLRM step %s: the card's change differs from the cpu's by %.3g "
+          "of it" % (worst_delta, delta_errs[worst_delta]))
+    check(moved > 0, "DLRM step moved no table row")
+    return {"loss_cuda": gl, "loss_cpu": cl, "loss_rel_err": loss_err,
+            "param_max_abs_err": errs[worst], "worst_param": worst,
+            "change_max_rel_err": delta_errs[worst_delta],
+            "worst_change_param": worst_delta,
+            "table_change_max_abs": max(change[k] for k in tables),
+            "mlp_change_max_abs": max(c for k, c in change.items()
+                                      if k not in tables),
+            "table_rows_moved": moved, "limit": DLRM_STEP_TOL,
+            "change_limit_rel": DLRM_STEP_DELTA_TOL_REL}
+
+
 # ----------------------------------------------------------------- timings
 
 
 def _timing_entry(name, source, replaces, shape, fn, plain, library,
-                  work, launches, errors):
+                  work, launches, errors, plain_eager=False, peak=None,
+                  cold=False):
     """`library`: a callable timed like the kernel, or (ms, what) timed
-    by the caller, or None."""
-    ms, eager_ms = timed_ms(fn)
-    plain_ms, _ = timed_ms(plain)
-    bound, bound_by = bound_ms(*work)
-    if callable(library):
-        library = (timed_ms(library)[0], None)
+    by the caller, or None. `plain_eager`: time the plain version with
+    plain calls between CUDA events (a plain version that syncs with the
+    host cannot be captured in a CUDA graph). `peak`: the operations'
+    peak rate (default bf16). `cold`: fn, plain and library are lists of
+    calls over disjoint data, timed per call with L2 flushed before each
+    round (timed_cold_ms); `work` is that of one call."""
+    if cold:
+        ms, eager_ms = timed_cold_ms(fn)
+        plain_ms = timed_cold_ms(plain, graph=not plain_eager)[0]
+        if library is not None:
+            library = (timed_cold_ms(library)[0], None)
+    else:
+        ms, eager_ms = timed_ms(fn)
+        if plain_eager:
+            plain()
+            plain_ms = _events_ms(plain, 20)
+        else:
+            plain_ms, _ = timed_ms(plain)
+        if callable(library):
+            library = (timed_ms(library)[0], None)
+    bound, bound_by = bound_ms(*work, peak=peak or PEAK_BF16_FLOPS)
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "shape": shape, "launches": launches[name],
@@ -767,6 +1276,9 @@ def _timing_entry(name, source, replaces, shape, fn, plain, library,
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None if library is None else library[0],
     }
+    if cold:
+        entry["timing"] = ("%d calls over disjoint tables and ids per "
+                           "round, L2 flushed before each round" % len(fn))
     if library is not None and library[1]:
         entry["library_call"] = library[1]
     entry.update(errors)
@@ -897,6 +1409,146 @@ def time_kernels(gen, launches, flash_err, paged_err):
     return entries
 
 
+# fp32 operations per element of each row rule (a multiply, an add, a
+# square root or a divide counts one)
+ROW_FLOPS = {"sgd": 2, "momentum": 6, "adam": 13, "adagrad": 7}
+
+
+def check_embedding_kernels_at_path_shape(tables, ids, uniq, summed):
+    """Kernels E and F against their plain versions at the path's size:
+    table 0 (1,200,000 x 32 fp32) with the 4096 ids of the uniform
+    batch's column 0, and for F each rule over those ids deduplicated,
+    on clones of the table and of fresh slot tables. E must be equal;
+    F within ROW_TOL_REL per table, rows and slot rows the ids do not
+    name bit-identical. Returns (E's max |err|, {rule: (max |err|, max
+    relative err)})."""
+    vocab = tables.shape[1]
+    out = eo.embedding_gather(tables[0], ids[0])
+    ref = eo.embedding_gather_plain(tables[0], ids[0])
+    gather_err = (out - ref).abs().max().item()
+    check(torch.equal(out, ref), "gather kernel differs from its plain "
+          "version at the path's shape: max |err| %.3g" % gather_err)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(2)
+    untouched = torch.ones(vocab, dtype=torch.bool, device="cuda")
+    untouched[uniq[0][uniq[0] >= 0].long()] = False
+    row_errs = {}
+    for rule, (kwargs, hyper) in ROW_RULES.items():
+        mine = [tables[0].clone()] + [
+            torch.rand(vocab, tables.shape[2], device="cuda",
+                       generator=cuda_gen) * 0.1
+            for _ in range(ROW_TABLES[rule] - 1)]
+        before = [t.clone() for t in mine]
+        plain = [t.clone() for t in mine]
+        ROW_WRAPPERS[rule](*mine, uniq[0], summed[0], **kwargs)
+        eo.row_update_plain(rule, plain, uniq[0], summed[0], hyper)
+        rels, worst = [], 0.0
+        for t, p, b in zip(mine, plain, before):
+            check(torch.equal(t[untouched], b[untouched]),
+                  "row_update %s moved a row it was not given at the "
+                  "path's shape" % rule)
+            rels.append(rel_err(t, p))
+            worst = max(worst, (t - p).abs().max().item())
+        check(max(rels) <= ROW_TOL_REL, "row_update %s disagrees with its "
+              "plain version at the path's shape: %s" % (rule, rels))
+        row_errs[rule] = (worst, max(rels))
+        del mine, before, plain
+    log("gather and row_update at the path's shape (%d x %d fp32, %d ids, "
+        "%d unique): gather equal; row_update %s" % (
+            vocab, tables.shape[2], ids[0].numel(),
+            int((uniq[0] >= 0).sum()),
+            {r: "%.3g" % e[1] for r, e in row_errs.items()}))
+    return gather_err, row_errs
+
+
+def time_embedding_kernels(launches, gather_err, row_err, batch):
+    """Kernels E and F at the DLRM path's shapes, first held against
+    their plain versions there (check_embedding_kernels_at_path_shape).
+    26 tables of 1,200,000 x 32 fp32, and for table t the 4096 ids of
+    the uniform batch's column t: E gathers them; F applies each rule
+    over them deduplicated (about 4,090 unique, the rest padding) with
+    their summed gradient rows. F's entry is the SGD rule, the path's;
+    the other rules ride along under `other_rules`. Device time: the 26
+    calls of a step in one CUDA graph, with L2 flushed before each
+    replay (timed_cold_ms). Bound per call: bytes 2 n d 4 + 4 n for E,
+    n_u d 4 (2 tables + 1) + 4 n for F, at 3.35 TB/s; operations at the
+    fp32 peak."""
+    vocab, d, n = DLRM["table_size"], DLRM["embedding_dim"], DLRM_BATCH
+    n_tab = DLRM["num_tables"]
+    cuda_gen = torch.Generator(device="cuda").manual_seed(1)
+    tables = torch.randn(n_tab, vocab, d, device="cuda", generator=cuda_gen)
+    ids = [torch.as_tensor(np.ascontiguousarray(batch[0]["sparse"][:, t]),
+                           device="cuda") for t in range(n_tab)]
+    ids_long = [i.long() for i in ids]
+    grads = torch.randn(n_tab, n, d, device="cuda", generator=cuda_gen)
+    uniq, summed = zip(*(eo.dedup_indexed_slices(i, g)
+                         for i, g in zip(ids, grads)))
+    n_u = [int((u >= 0).sum()) for u in uniq]
+    valid = [u[:k].long() for u, k in zip(uniq, n_u)]
+    valid_sum = [s[:k] for s, k in zip(summed, n_u)]
+    path_gather_err, path_row_err = check_embedding_kernels_at_path_shape(
+        tables, ids, uniq, summed)
+    gather = _timing_entry(
+        "embedding_gather", "elasticdl_tpu_torch/csrc/embedding_gather.cu",
+        "elasticdl_tpu/ops/embedding_ops.py:72",
+        "%d ids into a %d x %d fp32 table" % (n, vocab, d),
+        [lambda t=t: eo.embedding_gather(tables[t], ids[t])
+         for t in range(n_tab)],
+        [lambda t=t: eo.embedding_gather_plain(tables[t], ids[t])
+         for t in range(n_tab)],
+        [lambda t=t: torch.index_select(tables[t], 0, ids_long[t])
+         for t in range(n_tab)],
+        (0, 2 * n * d * 4 + 4 * n), launches,
+        {"max_abs_err": max(gather_err, path_gather_err),
+         "max_err": max(gather_err, path_gather_err),
+         "path_shape_max_abs_err": path_gather_err},
+        peak=PEAK_FP32_FLOPS, cold=True)
+    gather["library_call"] = "torch.index_select(table, 0, ids)"
+    mean_u = sum(n_u) / n_tab
+    entries = {}
+    for rule, (kwargs, hyper) in ROW_RULES.items():
+        n_t = ROW_TABLES[rule]
+        slots = [torch.rand(n_tab, vocab, d, device="cuda",
+                            generator=cuda_gen) * 0.1 for _ in range(n_t - 1)]
+        group = [[tables[t]] + [s[t] for s in slots] for t in range(n_tab)]
+        library = None
+        if rule == "sgd":
+            lr = kwargs["lr"]
+            library = [lambda t=t: tables[t].index_add_(
+                0, valid[t], valid_sum[t], alpha=-lr) for t in range(n_tab)]
+        path_abs, path_rel = path_row_err[rule]
+        entries[rule] = _timing_entry(
+            "row_update", "elasticdl_tpu_torch/csrc/row_update.cu",
+            "elasticdl_tpu/ops/embedding_ops.py:216",
+            "%s rule, %d ids (%.1f unique on average) into %d x %d fp32 "
+            "tables" % (rule, n, mean_u, vocab, d),
+            [lambda t=t: ROW_WRAPPERS[rule](*group[t], uniq[t], summed[t],
+                                            **kwargs)
+             for t in range(n_tab)],
+            [lambda t=t: eo.row_update_plain(rule, group[t], uniq[t],
+                                             summed[t], hyper)
+             for t in range(n_tab)],
+            library,
+            (ROW_FLOPS[rule] * mean_u * d,
+             mean_u * d * 4 * (2 * n_t + 1) + 4 * n),
+            launches, {"max_abs_err": max(row_err[0], path_abs),
+                       "max_err": max(row_err[0], path_abs),
+                       "max_rel_err": max(row_err[1], path_rel),
+                       "path_shape_max_abs_err": path_abs,
+                       "path_shape_max_rel_err": path_rel},
+            plain_eager=True, peak=PEAK_FP32_FLOPS, cold=True)
+        del slots, group
+    row = entries.pop("sgd")
+    row["library_call"] = ("Tensor.index_add_(0, unique ids, summed rows, "
+                           "alpha=-lr) over the valid ids")
+    row["plain_timing"] = "eager (its boolean mask syncs with the host)"
+    row["other_rules"] = {
+        rule: {k: e[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "path_shape_max_rel_err")}
+        for rule, e in entries.items()}
+    return [gather, row]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -927,6 +1579,8 @@ def main():
     paged_err = check_paged(gen)
     bwd_err = check_flash_bwd(gen)
     autograd_err = check_autograd(gen)
+    gather_err = check_gather(gen)
+    row_err = check_row_update(gen)
     serving, launches = serve_flagship(rng)
     log("serving run launches: %s" % launches)
     serving["cuda_vs_cpu"] = compare_cuda_cpu(rng)
@@ -940,14 +1594,31 @@ def main():
     del executor
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
+    with tempfile.TemporaryDirectory() as workdir:
+        dlrm, executor, dlrm_launches = train_dlrm(rng, workdir)
+    log("dlrm run launches: %s" % dlrm_launches)
+    for name in DLRM_KERNELS:
+        check(dlrm_launches[name] > 0,
+              "kernel %s was not launched on the DLRM path" % name)
+    dlrm["step_profile"], uniform_batch = time_dlrm_steps(executor, rng)
+    log("dlrm step profile: %s" % json.dumps(dlrm["step_profile"]))
+    del executor
+    torch.cuda.empty_cache()
+    dlrm["cuda_vs_cpu_step"] = compare_dlrm_step(rng)
     kernels = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_training_per_step"] = (
         train_launches["flash_fwd"] // TRAIN_STEPS)
     kernels += time_backward(gen, train_launches, bwd_err)
-    serving["card"] = training["card"] = smi
+    kernels += time_embedding_kernels(dlrm_launches, gather_err, row_err,
+                                      uniform_batch)
+    for entry in kernels[-2:]:
+        entry["launches_per_train_step"] = (
+            dlrm["launches_per_step"][entry["name"]])
+    serving["card"] = training["card"] = dlrm["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"dlrm": dlrm}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

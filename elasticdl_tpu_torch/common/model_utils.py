@@ -12,7 +12,8 @@ exports, by name:
     dataset_fn(dataset, mode, metadata) -> dataset
     eval_metrics_fn() -> {metric_name: fn(labels, predictions)}
 
-plus optionally `callbacks()`.
+plus optionally `callbacks()` and `flax_param_path(param_name) -> the
+flax path` (what a Trainer `trainable_pattern` regex matches).
 """
 
 import importlib.util
@@ -42,13 +43,14 @@ class ModelSpec(object):
     """A resolved zoo spec."""
 
     def __init__(self, model_fn, dataset_fn, loss, optimizer,
-                 eval_metrics_fn, callbacks_fn=None):
+                 eval_metrics_fn, callbacks_fn=None, flax_param_path=None):
         self.model_fn = model_fn
         self.dataset_fn = dataset_fn
         self.loss = loss
         self.optimizer = optimizer
         self.eval_metrics_fn = eval_metrics_fn
         self.callbacks_fn = callbacks_fn
+        self.flax_param_path = flax_param_path
 
     def create_model(self, model_params_str="", **overrides):
         """custom_model(**params, **overrides): `overrides` carries what
@@ -76,6 +78,7 @@ def _spec_from_dict(d, model_name):
         loss=d["loss"], optimizer=d["optimizer"],
         eval_metrics_fn=d["eval_metrics_fn"],
         callbacks_fn=d.get("callbacks"),
+        flax_param_path=d.get("flax_param_path"),
     )
 
 

@@ -16,6 +16,11 @@ of `elasticdl_tpu_torch.model_zoo.transformer_lm.TransformerLM`;
 `flax_param_path` names a port parameter by its flax path (what a
 `trainable_pattern` regex matches), and `adam_state_from_optax` carries
 an optax adamw state (count, mu, nu) into the port's Trainer.
+
+`dlrm_params_from_flax` and `dlrm_flax_param_path` do the same for
+model_zoo/dlrm/dlrm.py:
+`table_t/embedding_table` -> `table_t.embedding_table`,
+`bottom_i|top_i/kernel` -> `.weight` transposed, `/bias` -> `.bias`.
 """
 
 import re
@@ -135,6 +140,40 @@ def flax_param_path(torch_key):
         if tkey == torch_key:
             return fkey
     raise KeyError("not a transformer_lm parameter: %r" % (torch_key,))
+
+
+_DLRM_KEY = re.compile(r"^((?:table|bottom|top)_\d+)\."
+                       r"(embedding_table|weight|bias)$")
+_DLRM_LEAF = {"embedding_table": "embedding_table", "weight": "kernel",
+              "bias": "bias"}
+
+
+def dlrm_flax_param_path(torch_key):
+    """The flax path of a port DLRM parameter: "table_3.embedding_table"
+    -> "table_3/embedding_table", "top_0.weight" -> "top_0/kernel"."""
+    m = _DLRM_KEY.match(torch_key)
+    if not m:
+        raise KeyError("not a dlrm parameter: %r" % (torch_key,))
+    return "%s/%s" % (m.group(1), _DLRM_LEAF[m.group(2)])
+
+
+def dlrm_params_from_flax(params):
+    """flax DLRM params (nested or flat, numpy-convertible) -> a
+    state_dict of fp32 CPU tensors for the port's DLRM. Raises KeyError
+    on a param the port does not carry."""
+    flat = flatten_params(params) if not _is_flat(params) else {
+        k: np.asarray(v) for k, v in params.items()}
+    to_torch = {v: k for k, v in _DLRM_LEAF.items()}
+    sd = {}
+    for fkey, arr in flat.items():
+        mod, _, leaf = fkey.rpartition("/")
+        torch_leaf = to_torch.get(leaf)
+        tkey = "%s.%s" % (mod, torch_leaf)
+        if torch_leaf is None or not _DLRM_KEY.match(tkey):
+            raise KeyError("params the port does not carry: %r" % (fkey,))
+        arr = np.asarray(arr, np.float32)
+        sd[tkey] = torch.tensor(arr.T if leaf == "kernel" else arr)
+    return sd
 
 
 def _array_leaves(tree, prefix=""):

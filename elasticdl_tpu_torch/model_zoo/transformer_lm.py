@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.common.constants import Mode
+from elasticdl_tpu_torch.convert import flax_param_path  # noqa: F401 - spec
 from elasticdl_tpu_torch.data.example_codec import decode_example
 from elasticdl_tpu_torch.ops.attention import (
     apply_rope,

@@ -1,30 +1,51 @@
-"""The training step of the port: the dense tier of
+"""The training step of the port: the dense and sparse-row tiers of
 elasticdl_tpu/training/trainer.py on PyTorch.
 
 One `train_step` is the model's forward with autograd on, the zoo loss
 over per-example weights (padded rows of a partial batch weigh 0),
-`backward()`, and the zoo optimizer's update. The JAX package compiles
-that into one XLA program and returns a new state; here PyTorch runs it
-eagerly and updates the parameters and optimizer slots in place, and
-`train_step` returns the same `TrainState` with `step` advanced.
+`backward()`, the zoo optimizer's update and the row tier's. The JAX
+package compiles that into one XLA program and returns a new state;
+here PyTorch runs it eagerly and updates the parameters and optimizer
+slots in place, and `train_step` returns the same `TrainState` with
+`step` advanced.
+
+Tiers:
+
+* dense: every trainable parameter but the tapped tables, through the
+  zoo's torch optimizer. Embedding tables it holds (the untapped ones)
+  keep untouched rows and their slot rows still
+  (embedding/sparse_optim.py, optax `make_row_sparse`);
+* sparse-row: embedding tables the layer taps (`Embedding.sparse_enabled`,
+  by default tables of at least 2 MiB). The forward runs inside
+  `row_tap`; after backward() `apply_flat_row_updates` dedups each
+  table's ids and updates the touched rows and their slots in place with the
+  optimizer factory's row rule (the row-update kernel on the card). A
+  table's row state (`TrainState.embed_opt_state`) keeps its own update
+  count, as a per-table optax state does.
 
 Semantics kept from the JAX Trainer:
 
 * gradient accumulation as optax.MultiSteps: k calls make one applied
   update with the running mean of their gradients (the same Welford
   update, acc += (g - acc) / (n + 1)); the calls in between move no
-  parameter, weight decay included; `step` advances on every call;
+  parameter, weight decay included; `step` advances on every call. The
+  row tier stages each microbatch's (ids, row gradients / k) and applies
+  their concatenation at the boundary, so every tier advances once per
+  k calls, as one k-times-larger batch would;
 * `trainable_pattern`: a regex over flax parameter paths
-  ("block_7/attn/qkv/kernel", see convert.flax_param_path); parameters
+  ("block_7/attn/qkv/kernel"), as the spec's `flax_param_path` names
+  them (the port's own names where the spec has none); parameters
   it does not match are frozen entirely, no gradient and no decay, as
-  optax.set_to_zero does;
+  optax.set_to_zero does. A tapped table it does not match raises: the
+  row tier would train it anyway;
 * a `LearningRateScheduler` callback scales the whole update (decay
   included) by multiplier_fn(applied updates so far, from 0), as
   optax.chain(tx, scale_by_schedule(fn)) does: each parameter group's lr
-  is set to base x multiplier before `step()`.
+  is set to base x multiplier before `step()`, and each tapped table's
+  row lr by multiplier_fn(its own count).
 
-The sparse-row and host-spill embedding tiers, meshes (SPMD) and the
-`*_assembled` entry points are not ported yet and raise.
+The host-spill embedding tier, meshes (SPMD) and the `*_assembled` entry
+points are not ported yet and raise.
 """
 
 import inspect
@@ -35,7 +56,14 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.api.callbacks import LearningRateScheduler
-from elasticdl_tpu_torch.convert import flax_param_path
+from elasticdl_tpu_torch.embedding import sparse_update
+from elasticdl_tpu_torch.embedding.layer import (
+    EMBEDDING_PARAM_NAME,
+    Embedding,
+    is_embedding_param,
+    row_tap,
+)
+from elasticdl_tpu_torch.embedding.sparse_optim import masked_step
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -46,13 +74,15 @@ class OptState(object):
     per-parameter slots live in `optimizer.state`), the base learning
     rate of each parameter group, `count` (applied updates, what a
     learning-rate schedule reads) and the gradient-accumulation buffers
-    (`accum`, one per trainable parameter, and `mini_step`)."""
+    (`accum`, one per trainable parameter, `row_stage`, the staged row
+    gradients of the tapped tables, and `mini_step`)."""
 
     def __init__(self, optimizer, count=0):
         self.optimizer = optimizer
         self.base_lrs = [g["lr"] for g in optimizer.param_groups]
         self.count = int(count)
         self.accum = []
+        self.row_stage = []
         self.mini_step = 0
 
     def trainable(self):
@@ -61,12 +91,14 @@ class OptState(object):
 
 class TrainState(object):
     """step: train_step calls so far (the model version); params: {torch
-    key: the model's live parameter}; opt_state: an OptState."""
+    key: the model's live parameter}; opt_state: an OptState;
+    embed_opt_state: {tapped table's key: sparse_update.RowState}."""
 
-    def __init__(self, step, params, opt_state):
+    def __init__(self, step, params, opt_state, embed_opt_state=None):
         self.step = int(step)
         self.params = params
         self.opt_state = opt_state
+        self.embed_opt_state = embed_opt_state or {}
 
     @property
     def version(self):
@@ -102,6 +134,11 @@ class Trainer(object):
                 break
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         self.trainable_pattern = trainable_pattern
+        # filled by init_state: the tapped tables, their row rule, the
+        # embedding tables of the dense tier
+        self._taps = {}
+        self._row_rule = None
+        self._masked_tables = []
         self._loss_takes_weights = (
             len(inspect.signature(model_spec.loss).parameters) >= 3)
         if not self._loss_takes_weights:
@@ -116,7 +153,8 @@ class Trainer(object):
         if not self.trainable_pattern:
             return set(names)
         rex = re.compile(self.trainable_pattern)
-        train = {n for n in names if rex.search(flax_param_path(n))}
+        path = self.spec.flax_param_path or (lambda name: name)
+        train = {n for n in names if rex.search(path(n))}
         logger.info("trainable_pattern %r: %d/%d param tensors train",
                     self.trainable_pattern, len(train), len(names))
         if not train:
@@ -125,35 +163,67 @@ class Trainer(object):
                            self.trainable_pattern)
         return train
 
+    def _tapped_tables(self):
+        """{table param key: Embedding layer} of the tables the row tier
+        takes."""
+        return {("%s." % name if name else "") + EMBEDDING_PARAM_NAME: mod
+                for name, mod in self.model.named_modules()
+                if isinstance(mod, Embedding) and mod.sparse_enabled}
+
     def init_state(self, example_batch, params=None, opt_state=None,
                    step=0):
         """A fresh TrainState over the model's seeded parameters.
         `params` (a state_dict, e.g. from convert.params_from_flax)
         replaces them; `opt_state` (as convert.adam_state_from_optax
         returns it) seeds the AdamW slots and the applied-update count;
-        `step` sets the model version. `example_batch` is accepted for
-        the JAX Trainer's signature: the port's parameters do not depend
-        on it."""
+        `step` sets the model version. Tapped embedding tables stay out
+        of the torch optimizer and get zeroed row slots in
+        `embed_opt_state`. `example_batch` is accepted for the JAX
+        Trainer's signature: the port's parameters do not depend on
+        it."""
         del example_batch
         if params is not None:
             self.model.load_state_dict(params)
+        taps = self._tapped_tables()
         train = self._trainable_names()
+        escaped = sorted(n for n in taps if n not in train)
+        if escaped:
+            raise NotImplementedError(
+                "trainable_pattern freezes the dense optimizer path only; "
+                "sparse-row tables %s run their own update engine. Match "
+                "them in the pattern, or set sparse_grads=False for "
+                "fine-tuning." % escaped)
+        factory = self.spec.optimizer()
+        self._row_rule = getattr(factory, "row_rule", None)
+        if taps and self._row_rule is None:
+            raise NotImplementedError(
+                "the sparse-row tier has no row rule for this optimizer: %s"
+                % (getattr(factory, "row_rule_missing", None)
+                   or "the factory carries none (training.optimizers.sgd "
+                   "and adam do)"))
+        self._taps = taps
         named = dict(self.model.named_parameters())
+        dense = [n for n in named if n in train and n not in taps]
         for name, p in named.items():
-            p.requires_grad_(name in train)
-        trainable = [p for n, p in named.items() if n in train]
-        optimizer = self.spec.optimizer()(trainable)
+            p.requires_grad_(name in dense)
+        optimizer = factory([named[n] for n in dense])
+        self._masked_tables = [named[n] for n in dense
+                               if is_embedding_param(n)]
         count = 0
         if opt_state is not None:
             count = int(opt_state["count"])
-            for name in train:
+            for name in dense:
                 optimizer.state[named[name]] = {
                     "step": torch.tensor(float(count)),
                     "exp_avg": opt_state["exp_avg"][name].to(self.device),
                     "exp_avg_sq": opt_state["exp_avg_sq"][name].to(
                         self.device),
                 }
-        return TrainState(step, named, OptState(optimizer, count))
+        embed_opt_state = {
+            n: sparse_update.RowState(self._row_rule.init_slots(named[n]))
+            for n in sorted(taps)}
+        return TrainState(step, named, OptState(optimizer, count),
+                          embed_opt_state)
 
     # ---------------------------------------------------------------- steps
 
@@ -172,25 +242,28 @@ class Trainer(object):
 
     def train_step(self, state, batch, true_count=None):
         """One microbatch: forward, loss, backward and (on an update
-        boundary) the optimizer step. `batch` = (features, labels) numpy
-        already padded to the static batch size; `true_count` masks the
-        padding. Updates `state` in place; returns (state, float loss).
-        After the call each trainable parameter's `.grad` holds the
-        gradient the optimizer consumed (the accumulated mean at a
-        boundary) or, between boundaries, this microbatch's gradient."""
+        boundary) the optimizer step and the row updates. `batch` =
+        (features, labels) numpy already padded to the static batch
+        size; `true_count` masks the padding. Updates `state` in place;
+        returns (state, float loss). After the call each dense trainable
+        parameter's `.grad` holds the gradient the optimizer consumed
+        (the accumulated mean at a boundary) or, between boundaries,
+        this microbatch's gradient."""
         features, labels = _split_label(batch)
         weights = _make_weights(_leading_dim(features), true_count)
         opt = state.opt_state
         opt.optimizer.zero_grad(set_to_none=True)
-        preds = self.model(self._features(features), training=True)
+        with row_tap(self._taps) as records:
+            preds = self.model(self._features(features), training=True)
         loss = self._compute_loss(self._tensor(labels), preds,
                                   self._tensor(weights))
         trainable = opt.trainable()
-        if trainable and loss.requires_grad:
+        if loss.requires_grad:
             loss.backward()
         for p in trainable:
             if p.grad is None:  # unused by this batch: optax sees zeros
                 p.grad = torch.zeros_like(p)
+        rows = sparse_update.tap_gradients(records)
         state.step += 1
         k = self.grad_accum_steps
         if k > 1:
@@ -199,20 +272,32 @@ class Trainer(object):
             n = opt.mini_step
             for acc, p in zip(opt.accum, trainable):
                 acc.add_((p.grad - acc) / (n + 1))
+            if rows:
+                opt.row_stage.append(
+                    {t: (ids, g / k) for t, (ids, g) in rows.items()})
             if n < k - 1:
                 opt.mini_step = n + 1
                 return state, float(loss.detach())
             for acc, p in zip(opt.accum, trainable):
                 p.grad.copy_(acc)
                 acc.zero_()
+            staged, opt.row_stage = opt.row_stage, []
+            rows = {t: (torch.cat([m[t][0] for m in staged]),
+                        torch.cat([m[t][1] for m in staged]))
+                    for t in rows}
             opt.mini_step = 0
         mult = 1.0
         if self._lr_multiplier_fn is not None:
             mult = float(self._lr_multiplier_fn(opt.count))
         for group, base in zip(opt.optimizer.param_groups, opt.base_lrs):
             group["lr"] = base * mult
-        opt.optimizer.step()
+        with masked_step(opt.optimizer, self._masked_tables):
+            opt.optimizer.step()
         opt.count += 1
+        if rows:
+            sparse_update.apply_flat_row_updates(
+                self._row_rule, state.params, state.embed_opt_state, rows,
+                self._lr_multiplier_fn)
         return state, float(loss.detach())
 
     def forward(self, state, features):

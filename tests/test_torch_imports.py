@@ -48,7 +48,10 @@ def test_port_modules_import_no_jax_package():
     modules = _port_modules()
     for required in ("elasticdl_tpu_torch.serving.engine",
                      "elasticdl_tpu_torch.training.trainer",
-                     "elasticdl_tpu_torch.api.local_executor"):
+                     "elasticdl_tpu_torch.api.local_executor",
+                     "elasticdl_tpu_torch.embedding.layer",
+                     "elasticdl_tpu_torch.embedding.sparse_update",
+                     "elasticdl_tpu_torch.model_zoo.dlrm"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"
@@ -66,6 +69,7 @@ def test_port_modules_import_no_jax_package():
     ).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "elasticdl_tpu_torch.ops.attention" in loaded
+    assert "elasticdl_tpu_torch.ops.embedding_ops" in loaded
     assert "torch" in loaded
     leaked = [m for m in loaded if _forbidden(m)]
     assert not leaked, leaked
