@@ -6,13 +6,17 @@ Needs one CUDA device, nvcc (PATH, $CUDA_HOME or /usr/local/cuda) and the
 repository checkout it sits in. Phases, each of which fails the run:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel of the serving, training and DLRM paths from
-   elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu, paged_decode.cu,
-   embedding_gather.cu, row_update.cu; one nvcc per source, all at once);
+2. build every kernel of the serving, training, DLRM and dense-update
+   paths from elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu,
+   paged_decode.cu, embedding_gather.cu, row_update.cu,
+   optimizer_update.cu; one nvcc per source, all at once);
 3. kernel A (flash forward) against its plain PyTorch version at the
    prefill shapes;
 4. kernel B (paged decode partials) against its plain version at the
-   decode shapes;
+   decode shapes: bf16 arenas, then int8 arenas with their fp32 row-scale
+   pools (split and tile kernels; GQA, holes, ragged lengths, t = 1 and
+   t > 1, small shapes and the serving path's; within 1e-5 of the
+   largest value);
 5. kernels C and D (flash backward dq, dk/dv) against their plain
    versions: b = 2, h = 8 with 8 and 2 kv heads, l = 64 / 200 / 1024,
    d = 128, causal and not, bf16 and fp32; then FlashAttentionFunction's
@@ -23,17 +27,24 @@ repository checkout it sits in. Phases, each of which fails the run:
    its four rules (sgd, momentum, adam, adagrad), against its plain
    version within 1e-6 relative, dims 32 and 13, unique ids mixed with -1
    and ids past the table; rows the ids do not name (and their slots)
-   must stay bit-identical;
+   must stay bit-identical; then kernel G (dense optimizer updates),
+   each of its five rules and momentum without Nesterov, fp32 and bf16,
+   against its plain version within 1e-6: a 0-d scalar, (7, 33),
+   1,000,003 elements and a view one element into its storage;
 7. the serving slice at the flagship transformer_lm width (vocab 32000,
    seq_len 1024, embed 1024, 8 heads, 8 layers, bf16, seeded random
    weights): 16 greedy requests, 8 sharing a 256-token prefix, through
    the port's GenerationServer (8 slots, paged KV, block 16, prefix
    sharing). Every request must finish with its full token count and
-   the serving kernels (A, B) must have launched during that run. Then a
-   2-layer model at the same width, with weights made by numpy, runs one
-   prompt and 8 decode steps on the card and on the CPU (plain
-   versions); the logits must agree;
-8. where a decode step's time goes (host clock, torch.profiler);
+   the serving kernels (A, B) must have launched during that run. The
+   same 16 requests again with kv_cache_dtype='int8' (int8 arenas, fp32
+   row scales): 16/16 finished, the int8 split and tile kernels launched
+   and the float ones not. Then a 2-layer model at the same width, with
+   weights made by numpy, runs one prompt and 8 decode steps on the card
+   and on the CPU (plain versions); the logits must agree; and a small
+   fp32 int8-cache model does the same within 1e-4;
+8. where a decode step's time goes (host clock, torch.profiler), with
+   bf16 arenas and with int8 arenas;
 9. the training slice at the same flagship width (bf16 compute over fp32
    parameters, AdamW 3e-4, weight decay 0.01): the port's RecordWriter
    writes token records of 1025 tokens, and LocalExecutor(minibatch 8,
@@ -55,18 +66,23 @@ repository checkout it sits in. Phases, each of which fails the run:
    a small DLRM (4 tapped tables of 20000 x 32, numpy weights) takes one
    fp32 step on the card and on the CPU: loss and every parameter within
    1e-5, and each parameter's change in the step within 1e-3 of it;
-11. kernels E and F against their plain versions at the DLRM path's
+11. the dense update API (path B) at 64M fp32 elements, the size of
+   scripts/bench_optimizer_kernels.py: each rule takes 3 steps through
+   its public function, kernel G launching once per step;
+12. kernels E and F against their plain versions at the DLRM path's
    size (a 1,200,000 x 32 fp32 table, the 4096 ids of one column of the
-   uniform batch, each rule of F over them deduplicated);
-12. kernel timings at the main paths' shapes (CUDA events, graph-replayed
+   uniform batch, each rule of F over them deduplicated); kernel G
+   against its plain version at 64M, each rule;
+13. kernel timings at the main paths' shapes (CUDA events, graph-replayed
    for device time; E and F over 26 distinct tables and id columns, as a
    step issues them, with L2 flushed before each round), beside the
    plain version, a library call where one computes the same function,
    and the bound implied by the card's published peaks.
 
-It prints a `kernels` JSON line, a `serving` JSON line, a `training`
-JSON line, a `dlrm` JSON line, the nvidia-smi line and, last,
-{"ok": true, "device": {...}}.
+It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
+under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
+JSON line, the nvidia-smi line and, last, {"ok": true, "device":
+{...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
@@ -95,10 +111,14 @@ from elasticdl_tpu_torch.data.record_format import RecordWriter
 from elasticdl_tpu_torch.master.task_dispatcher import Task, TaskType
 from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
-from elasticdl_tpu_torch.model_zoo.transformer_lm import TransformerLM
+from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+    TransformerLM,
+    kv_quantize_rows,
+)
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import attention as att
 from elasticdl_tpu_torch.ops import embedding_ops as eo
+from elasticdl_tpu_torch.ops import optimizer_kernels as ok
 from elasticdl_tpu_torch.ops import update_math as um
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 from elasticdl_tpu_torch.serving.server import GenerationServer, ServingConfig
@@ -114,6 +134,7 @@ FLAGSHIP = dict(vocab_size=32000, seq_len=1024, embed_dim=1024,
                 num_heads=8, num_layers=8, dtype=torch.bfloat16)
 FLASH_TOL_OUT, FLASH_TOL_LSE = 2e-2, 1e-3
 PAGED_TOL_REL = 1e-3
+PAGED_TIMING_SEED = 11  # the paged timings' own generator (time_kernels)
 LOGIT_TOL_REL = 5e-2
 # flash backward against its plain version, max |err| / max |ref| per
 # output: fp32 sums in another order (1e-4); bf16 outputs rounded once
@@ -125,10 +146,35 @@ BWD_TOL_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 STEP_LOSS_TOL_REL = 1e-2
 STEP_GRAD_NORM_TOL_REL = 5e-2
 # kernel F against its plain version, max |err| / max |ref| per table:
-# the kernel contracts p - lr * g into one fused multiply-add where the
-# plain version rounds lr * g first (a few units in the last place)
+# the rules of csrc/update_rules.cuh round each operation as the plain
+# version does (no fused multiply-add), so the tables should be equal;
+# the limit allows reassociation a compiler might still do
 ROW_TOL_REL = 1e-6
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_tile")
+SERVING_INT8_KERNELS = ("flash_fwd", "paged_decode_int8",
+                        "paged_decode_tile_int8")
+# the int8 paged kernels against their plain version, max |err| / max
+# |ref| of o, l and m in fp32: the split kernel folds the row scales into
+# scores and weights as the plain version does, the tile kernel scales
+# each row element instead (rounding only), and both sum in another order
+PAGED_INT8_TOL_REL = 1e-5
+# a small fp32 int8-cache model on the card against the CPU, TF32 off:
+# logits within 1e-4 of the largest logit, both runs attending over the
+# card's int8 rows (compare_cuda_cpu_int8). Each device's own quantizer
+# may put an element one step apart from the other's, where fp32
+# rounding puts it on the other side of a .5 (one such v element moved
+# the prefill logits 6.4e-4 in the first card run); those are counted,
+# and the scales (amax / 127 of rows computed on two devices) must agree
+# to 1e-4
+INT8_LOGIT_TOL_REL = 1e-4
+INT8_SCALE_TOL_REL = 1e-4
+# the dense-update kernel against its plain version, max |err| / max
+# |ref| per output: the rules round each operation as the plain version
+# does (no fused multiply-add), so the outputs should be equal
+DENSE_TOL_REL = 1e-6
+DENSE_N = 64 * 1024 * 1024  # scripts/bench_optimizer_kernels.py's N_PARAMS
+DENSE_STEPS = 3
+ADAM_STEP = 3  # the 1-based update count of the Adam checks
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_BATCH, TRAIN_STEPS = 8, 4
 # the DLRM slice at bench.py's width (run_dlrm_bench)
@@ -253,15 +299,16 @@ def flash_work(b, h, hkv, lq, lk, d, itemsize):
     return flops, nbytes
 
 
-def paged_work(lengths, hkv, n_rows, d, itemsize, m):
+def paged_work(lengths, hkv, n_rows, d, itemsize, m, int8=False):
     """(operations, bytes) of one paged partials call over the live rows
     only: each cached row k_pos < length is read once per kv head (K and
-    V), 4*d operations per (query row, live row); fp32 query rows and
-    partials move once, plus the table and lengths."""
+    V, and for int8 arenas their two fp32 scales), 4*d operations per
+    (query row, live row); fp32 query rows and partials move once, plus
+    the table and lengths."""
     live = int(sum(lengths))
     b = len(lengths)
     flops = 4 * d * n_rows * hkv * live
-    nbytes = (2 * itemsize * d * hkv * live
+    nbytes = (2 * (itemsize * d + (4 if int8 else 0)) * hkv * live
               + 4 * b * hkv * n_rows * (2 * d + 2) + 4 * b * (m + 1))
     return flops, nbytes
 
@@ -318,7 +365,25 @@ def paged_inputs(gen, b=8, hkv=8, group=1, t=1, d=128, bs=16, m=64,
 
 
 def rel_err(a, b):
+    if b.numel() == 0:
+        return 0.0
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def partials_errs(got, ref):
+    """Relative errors of paged partials (o, l, m) against the plain
+    version's; m over the rows that saw a key (l > 0) only, since the
+    -1e30 of an empty row would hide any other error."""
+    (o, l, mx), (po, pl, pm) = got, ref
+    live = pl > 0
+    return [rel_err(o, po), rel_err(l, pl), rel_err(mx[live], pm[live])]
+
+
+def quantize_pools(args):
+    """paged_inputs' bf16 arenas as int8 arenas with their fp32 scale
+    pools, quantized on the card by the model's quantizer."""
+    (k8, ks), (v8, vs) = (kv_quantize_rows(p) for p in args[1:3])
+    return (args[0], k8, v8, args[3], args[4], ks, vs)
 
 
 def check_paged(gen):
@@ -331,7 +396,7 @@ def check_paged(gen):
         o, l, mx = att.paged_decode_partials(*args)
         torch.cuda.synchronize()
         po, pl, pm = att.paged_decode_partials_plain(*args)
-        errs = [rel_err(o, po), rel_err(l, pl), rel_err(mx, pm)]
+        errs = partials_errs((o, l, mx), (po, pl, pm))
         e_abs = (o - po).abs().max().item()
         log("paged t=%d: rel err o %.3g l %.3g m %.3g" % (t, *errs))
         check(all(e <= PAGED_TOL_REL for e in errs),
@@ -340,6 +405,143 @@ def check_paged(gen):
         worst_abs, worst_rel = max(worst_abs, e_abs), max(worst_rel,
                                                           max(errs))
     return worst_abs, worst_rel
+
+
+def check_paged_int8(gen):
+    """The int8 split and tile kernels against paged_decode_partials_plain
+    on the same int8 arenas and scale pools: small shapes (groups of 1, 2
+    and 4, d 64 and 128, blocks of 4 and 16, ragged lengths with a length
+    0 and an unallocated slot inside a live range; 1, 2, 4 and 8 query
+    rows through the split kernel, 20 and 160 through the tile kernel),
+    then the serving path's shapes (8 slots at t = 1 over lengths under
+    1000; a 128-row suffix tile over a 256-token prefix). Returns (max
+    |err|, max rel err) and the path shape's worst relative error."""
+    worst_abs = worst_rel = path_rel = 0.0
+    small = [dict(b=3, hkv=2, group=group, t=t, d=d, bs=bs, m=8,
+                  num_blocks=40, lengths=[bs * 5 + 3, 0, bs * 2 + 1])
+             for group, t in ((1, 1), (2, 1), (4, 1), (4, 2), (4, 5),
+                              (4, 40))
+             for d, bs in ((64, 4), (128, 16))]
+    path = [dict(t=1), dict(b=1, t=128, lengths=[256])]
+    for i, case in enumerate(small + path):
+        args, lengths = paged_inputs(gen, **case)
+        if i < len(small):
+            table = args[3]
+            table[0, 1] = -1  # a hole inside sequence 0's live range
+        args = quantize_pools(args)
+        o, l, mx = att.paged_decode_partials(*args)
+        torch.cuda.synchronize()
+        po, pl, pm = att.paged_decode_partials_plain(*args)
+        errs = partials_errs((o, l, mx), (po, pl, pm))
+        e_abs = max((o - po).abs().max().item(), (l - pl).abs().max().item())
+        rows = case.get("group", 1) * case["t"]
+        log("paged int8 %s (%d query rows, %s): rel err o %.3g l %.3g m %.3g"
+            % ("path" if i >= len(small) else "small", rows,
+               "split" if rows <= att.SPLIT_MAX_ROWS else "tile", *errs))
+        check(all(torch.isfinite(x).all().item() for x in (o, l)),
+              "paged int8: non-finite partials")
+        check(max(errs) <= PAGED_INT8_TOL_REL,
+              "int8 paged kernel disagrees with its plain version at %s: %s"
+              % (case, errs))
+        worst_abs, worst_rel = max(worst_abs, e_abs), max(worst_rel,
+                                                          max(errs))
+        if i >= len(small):
+            path_rel = max(path_rel, max(errs))
+    return worst_abs, worst_rel, path_rel
+
+
+# kernel G's rules: rule -> (slot tensors, the public wrapper's
+# hyperparameters); the checks add momentum without Nesterov
+DENSE_RULES = {
+    "sgd": (0, dict(lr=0.01)),
+    "momentum": (1, dict(lr=0.01, momentum=0.9, nesterov=True)),
+    "adam": (2, dict(step=ADAM_STEP, lr=1e-3)),
+    "adam_amsgrad": (3, dict(step=ADAM_STEP, lr=1e-3)),
+    "adagrad": (1, dict(lr=0.01)),
+}
+DENSE_CASES = [(rule, kw) for rule, (_n, kw) in DENSE_RULES.items()] + [
+    ("momentum", dict(DENSE_RULES["momentum"][1], nesterov=False))]
+
+
+def dense_inputs(gen, rule, shape, dtype, offset=0):
+    """(param, slots, grad) on the card; moments non-negative where the
+    rule takes their root. offset > 0 starts every tensor `offset`
+    elements into its storage, so the kernel takes its scalar path."""
+
+    def mk(scale=1.0, positive=False):
+        x = torch.randn(offset + math.prod(shape), generator=gen,
+                        device=gen.device) * scale
+        x = (x.abs() if positive else x).to("cuda", dtype)
+        return x[offset:].view(shape)
+
+    slots = [mk(0.1, positive=(rule == "adagrad" or k > 0))
+             for k in range(DENSE_RULES[rule][0])]
+    return mk(), slots, mk()
+
+
+def dense_call(rule, kw, param, slots, grad):
+    """The rule through its public wrapper (the dense update API);
+    returns the new parameter and slots."""
+    if rule == "adam_amsgrad":
+        out = ok.adam_update(param, slots[0], slots[1], grad,
+                             max_square=slots[2], **kw)
+    else:
+        out = {"sgd": ok.sgd_update, "momentum": ok.momentum_update,
+               "adam": ok.adam_update, "adagrad": ok.adagrad_update}[rule](
+            param, *slots, grad, **kw)
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def dense_plain(rule, kw, param, slots, grad):
+    """The plain version on the hyperparameters the wrapper hands the
+    kernel."""
+    if rule == "sgd":
+        hyper = [kw["lr"]]
+    elif rule == "momentum":
+        hyper = [kw["lr"], kw["momentum"], float(kw["nesterov"])]
+    elif rule == "adagrad":
+        hyper = [kw["lr"], 1e-10]
+    else:
+        hyper = [um.adam_alpha(kw["lr"], 0.9, 0.999, kw["step"]), 0.9,
+                 0.999, 1e-8]
+    return ok.dense_update_plain(rule, [param, *slots, grad], hyper)
+
+
+def check_dense_update(gen):
+    """Kernel G, each rule (momentum with and without Nesterov), against
+    dense_update_plain on the same inputs: fp32 and bf16; a 0-d scalar,
+    (7, 33), 1,000,003 elements (a scalar tail after the vector loop) and
+    4096 elements 1 element into their storage (the scalar path). Max
+    |err| / max |ref| per output within DENSE_TOL_REL; inputs unchanged.
+    Returns the worst relative error."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rule, kw in DENSE_CASES:
+            errs = []
+            for shape, offset in (((), 0), ((7, 33), 0), ((1_000_003,), 0),
+                                  ((4096,), 1)):
+                param, slots, grad = dense_inputs(gen, rule, shape, dtype,
+                                                  offset)
+                before = [t.clone() for t in (param, *slots, grad)]
+                out = dense_call(rule, kw, param, slots, grad)
+                torch.cuda.synchronize()
+                ref = dense_plain(rule, kw, param, slots, grad)
+                check(all(o.dtype == dtype and o.shape == param.shape
+                          for o in out), "dense %s: output dtype/shape"
+                      % rule)
+                check(all(torch.equal(a, b) for a, b in
+                          zip(before, (param, *slots, grad))),
+                      "dense %s modified an input" % rule)
+                errs += [rel_err(o.float(), r.float())
+                         for o, r in zip(out, ref)]
+            log("dense %s %s%s: rel err %.3g over 4 shapes" % (
+                rule, str(dtype)[6:], "" if rule != "momentum" else
+                " nesterov=%s" % kw["nesterov"], max(errs)))
+            check(max(errs) <= DENSE_TOL_REL,
+                  "dense %s %s disagrees with its plain version: %s"
+                  % (rule, dtype, errs))
+            worst = max(worst, max(errs))
+    return worst
 
 
 def check_flash_bwd(gen):
@@ -450,7 +652,6 @@ def check_gather(gen, vocab=50_000):
 # row rules of kernel F with the hyperparameters the checks and timings
 # use: (wrapper arguments after the tables, ids and grads; the plain
 # version's hyperparameters as the kernel takes them)
-ADAM_STEP = 3
 ROW_RULES = {
     "sgd": ({"lr": 0.01}, [0.01]),
     "momentum": ({"lr": 0.01, "momentum": 0.9, "nesterov": True},
@@ -524,29 +725,39 @@ def check_row_update(gen, vocab=50_000, n_unique=4000):
 # ------------------------------------------------------------ serving slice
 
 
-def serve_flagship(rng):
-    """16 greedy requests through the port's server at flagship width.
-    Returns the serving metrics and the kernel launch counts of the run."""
-    model = TransformerLM(device="cuda", seed=0, **FLAGSHIP)
+def serving_specs(rng):
+    """The 16-request mix: (prompt, max_new_tokens), prompts of 32-512
+    tokens, 8 of them sharing a 256-token prefix, 32-128 new tokens."""
+    vocab = FLAGSHIP["vocab_size"]
+    prefix = rng.randint(0, vocab, size=256).tolist()
+    specs = []
+    for i in range(16):
+        p_len = int(rng.randint(32, 513))
+        new = int(rng.randint(32, 129))
+        if i % 2 == 0:
+            p_len = max(p_len, 264)
+            prompt = prefix + rng.randint(0, vocab,
+                                          size=p_len - 256).tolist()
+        else:
+            prompt = rng.randint(0, vocab, size=p_len).tolist()
+        specs.append((prompt, new))
+    return specs
+
+
+def serve_flagship(specs, kv_cache_dtype=""):
+    """Greedy requests `specs` through the port's server at flagship
+    width, the KV arenas in the compute dtype or int8. Returns the
+    serving metrics and the kernel launch counts of the run."""
+    model = TransformerLM(device="cuda", seed=0,
+                          kv_cache_dtype=kv_cache_dtype, **FLAGSHIP)
     server = GenerationServer(model, ServingConfig(
         num_slots=8, queue_capacity=64, kv_block_size=16, kv_shared=True,
     )).start()
+    kernels = SERVING_INT8_KERNELS if kv_cache_dtype else SERVING_KERNELS
     try:
         # warm the card (cuBLAS handles, allocator) outside the counts
         server.generate([1, 2, 3, 4], 2)
         vocab = FLAGSHIP["vocab_size"]
-        prefix = rng.randint(0, vocab, size=256).tolist()
-        specs = []
-        for i in range(16):
-            p_len = int(rng.randint(32, 513))
-            new = int(rng.randint(32, 129))
-            if i % 2 == 0:
-                p_len = max(p_len, 264)
-                prompt = prefix + rng.randint(0, vocab,
-                                              size=p_len - 256).tolist()
-            else:
-                prompt = rng.randint(0, vocab, size=p_len).tolist()
-            specs.append((prompt, new))
         sched = server.scheduler
         n_steps, n_ttft = len(sched.step_secs), len(sched.ttft_secs)
         torch.cuda.synchronize()
@@ -566,7 +777,10 @@ def serve_flagship(rng):
                   % (req.request_id, len(req.generated), new))
             check(all(0 <= t < vocab for t in req.generated),
                   "token out of the vocabulary")
-        kv = server.engine.kv_stats()
+        kv = server.status()
+        check(kv["kv_cache_dtype"] == kv_cache_dtype,
+              "the server reports kv_cache_dtype %r, not %r"
+              % (kv["kv_cache_dtype"], kv_cache_dtype))
         ttft = np.asarray(sched.ttft_secs[n_ttft:]) * 1e3
         steps = np.asarray(sched.step_secs[n_steps:]) * 1e3
         tokens = sum(len(r.generated) for r in reqs)
@@ -584,16 +798,23 @@ def serve_flagship(rng):
             "mean_batch": float(np.mean(sched.step_batch[n_steps:])),
             "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
             "prefix_hit_tokens": kv["prefix_hit_tokens"],
+            "kv_cache_dtype": kv["kv_cache_dtype"],
             "kv_blocks_total": kv["kv_blocks_total"],
+            "kv_bytes_total": kv["kv_bytes_total"],
+            "kv_block_bytes": server.engine.kv.block_bytes,
         }
     finally:
         server.stop(timeout=120)
     check(not server.scheduler.is_alive(), "scheduler did not stop")
     check(server.scheduler.crashed is None,
           "scheduler crashed: %r" % (server.scheduler.crashed,))
-    for name in SERVING_KERNELS:
+    for name in kernels:
         check(launches[name] > 0,
               "kernel %s was not launched on the serving path" % name)
+    for name in set(SERVING_KERNELS + SERVING_INT8_KERNELS) - set(kernels):
+        check(launches[name] == 0,
+              "kernel %s was launched on the %s serving path"
+              % (name, kv_cache_dtype or "bf16"))
     return metrics, launches
 
 
@@ -634,7 +855,7 @@ def logits_trace(model, prompt, forced):
     """Prefill logits [p, vocab] and the logits of len(forced) paged
     decode steps fed `forced` tokens (None: the step's own argmax),
     through the serving pool's write paths. Returns (prefill, decode
-    logits, tokens fed)."""
+    logits, tokens fed, each layer's prefill k rows)."""
     dev = model.device
     pool = PagedKVPool(kv_layout(model), model.seq_len, 1, 64, 16,
                        device=dev)
@@ -653,11 +874,13 @@ def logits_trace(model, prompt, forced):
             torch.as_tensor([[tok]], device=dev),
             torch.as_tensor([pos], device=dev), pool.pools,
             pool.tables_device())
-        pool.scatter([(k[:, :, 0], v[:, :, 0]) for k, v in rows],
+        pool.scatter([tuple(leaf[:, :, 0] for leaf in layer)
+                      for layer in rows],
                      [pool.tables[0, pos // 16]], [pos % 16])
         steps.append(step[0, 0])
         nxt = int(step[0, 0].argmax())
-    return logits[0].float().cpu(), torch.stack(steps).float().cpu(), fed
+    return (logits[0].float().cpu(), torch.stack(steps).float().cpu(), fed,
+            [layer[0].cpu() for layer in kv])
 
 
 def compare_cuda_cpu(rng):
@@ -687,6 +910,85 @@ def compare_cuda_cpu(rng):
               "%s logits: cuda and cpu differ by %.4g (limit %.4g)"
               % (what, err, LOGIT_TOL_REL * scale))
         out[what] = {"max_abs_err": err, "max_abs_logit": scale}
+    return out
+
+
+def compare_cuda_cpu_int8(rng):
+    """A small int8-cache model (vocab 4096, embed 256, 2 heads of 128, 2
+    layers, fp32, numpy weights) on the card and on the CPU: prefill of a
+    64-token prompt and 8 decode steps fed the card's greedy tokens,
+    through the int8 paged kernels on the card and their plain versions
+    on the CPU.
+
+    Each quantizer call of the CPU run returns the card's int8 rows and
+    scales for that call, so both runs attend over the same int8 values
+    and the logits compare the int8 path's arithmetic. The CPU's own
+    quantization of its fp32 rows is held beside the card's: no element
+    more than one step apart (one step where fp32 rounding on the two
+    devices puts a value on either side of a .5; counted), scales within
+    INT8_SCALE_TOL_REL. The same model with an fp32 cache runs on both
+    devices too, as the baseline of the logits' error."""
+    cfg = dict(vocab_size=4096, seq_len=256, embed_dim=256, num_heads=2,
+               num_layers=2)
+    sd = params_from_flax(numpy_flax_params(cfg, seed=7))
+    prompt = rng.randint(0, cfg["vocab_size"], size=64).tolist()
+    quantize = tzoo.kv_quantize_rows
+    card_rows, cpu_rows = [], []
+
+    def on_card(rows):
+        card_rows.append(quantize(rows))
+        return card_rows[-1]
+
+    def on_cpu(rows):
+        cpu_rows.append(quantize(rows))
+        return tuple(t.cpu() for t in card_rows[len(cpu_rows) - 1])
+
+    runs = {}
+    for kv_dtype in ("", "int8"):
+        forced = [None] * 8
+        for dev, hook in (("cuda", on_card), ("cpu", on_cpu)):
+            model = TransformerLM(device=dev, kv_cache_dtype=kv_dtype, **cfg)
+            model.load_state_dict(sd)
+            tzoo.kv_quantize_rows = hook
+            try:
+                runs[kv_dtype, dev] = logits_trace(model, prompt, forced)
+            finally:
+                tzoo.kv_quantize_rows = quantize
+            forced = runs[kv_dtype, dev][2]
+    check(len(card_rows) == len(cpu_rows) == 2 * cfg["num_layers"] * 9,
+          "int8 model: %d quantizer calls on the card, %d on the CPU"
+          % (len(card_rows), len(cpu_rows)))
+    flips = steps = 0
+    scale_err = 0.0
+    for (q_card, s_card), (q_cpu, s_cpu) in zip(card_rows, cpu_rows):
+        diff = (q_card.cpu().int() - q_cpu.int()).abs()
+        steps = max(steps, int(diff.max()))
+        flips += int((diff > 0).sum())
+        scale_err = max(scale_err, rel_err(s_card.cpu(), s_cpu))
+    out = {"quantized_elements_one_step_apart": flips,
+           "quantized_max_steps_apart": steps,
+           "scale_max_rel_err": scale_err}
+    log("int8 quantizer card vs cpu: %d elements one step apart (max %d "
+        "steps), scales rel err %.3g" % (flips, steps, scale_err))
+    check(steps <= 1 and scale_err <= INT8_SCALE_TOL_REL,
+          "int8 quantizer: card and cpu rows %d steps apart, scales rel err "
+          "%.3g" % (steps, scale_err))
+    for i, what in enumerate(("prefill", "decode")):
+        for kv_dtype in ("", "int8"):
+            gpu, cpu = runs[kv_dtype, "cuda"][i], runs[kv_dtype, "cpu"][i]
+            scale = cpu.abs().max().item()
+            err = (gpu - cpu).abs().max().item()
+            log("%s-cache model cuda vs cpu %s logits (fp32): max err %.4g, "
+                "max |logit| %.4g" % (kv_dtype or "fp32", what, err, scale))
+            check(bool(torch.isfinite(gpu).all()),
+                  "non-finite %s logits" % what)
+            check(err <= INT8_LOGIT_TOL_REL * scale,
+                  "%s-cache %s logits: cuda and cpu differ by %.4g (limit "
+                  "%.4g)" % (kv_dtype or "fp32", what, err,
+                             INT8_LOGIT_TOL_REL * scale))
+            key = what if kv_dtype else what + "_fp32_cache"
+            out[key] = {"max_abs_err": err, "max_abs_logit": scale,
+                        "limit_rel": INT8_LOGIT_TOL_REL}
     return out
 
 
@@ -723,11 +1025,11 @@ def device_summary(events, steps, step_ms, top, group=None):
     return out
 
 
-def profile_decode(rng, steps=10):
-    """Where a decode step's time goes: the flagship engine with 8 active
-    slots, `steps` steps timed on the host clock, then the same number
-    under torch.profiler for the device's busy time and the top host
-    and device entries."""
+def profile_decode(rng, steps=10, kv_cache_dtype=""):
+    """Where a decode step's time goes: the flagship engine (KV arenas in
+    the compute dtype, or int8) with 8 active slots, `steps` steps timed
+    on the host clock, then the same number under torch.profiler for the
+    device's busy time and the top host and device entries."""
     from torch.profiler import ProfilerActivity, profile
 
     from elasticdl_tpu_torch.serving.admission import ServingRequest
@@ -736,7 +1038,8 @@ def profile_decode(rng, steps=10):
     )
 
     engine = PagedContinuousBatchingEngine(
-        TransformerLM(device="cuda", seed=0, **FLAGSHIP), 8, block_size=16)
+        TransformerLM(device="cuda", seed=0, kv_cache_dtype=kv_cache_dtype,
+                      **FLAGSHIP), 8, block_size=16)
     for _ in range(8):
         engine.insert(ServingRequest(
             rng.randint(0, FLAGSHIP["vocab_size"], size=256).tolist(),
@@ -760,7 +1063,8 @@ def profile_decode(rng, steps=10):
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:8]
     return {
-        "batch": 8, "step_ms": step_ms, "step_ms_profiled": prof_ms,
+        "batch": 8, "kv_cache_dtype": kv_cache_dtype, "step_ms": step_ms,
+        "step_ms_profiled": prof_ms,
         **device_summary(events, steps, step_ms, top=6),
         "top_host_ms_per_step": {
             e.key[:60]: e.self_cpu_time_total / 1e3 / steps
@@ -1375,7 +1679,9 @@ def time_kernels(gen, launches, flash_err, paged_err):
     """Each serving kernel at the main path's shapes: the largest prefill
     bucket (lq = 512) for A; for B the 8-slot decode step (t = 1, ragged
     lengths under 1000, split kernel) and a 128-token suffix tile over
-    the 256-token shared prefix (tile kernel)."""
+    the 256-token shared prefix (tile kernel), drawn from a generator of
+    their own so that every run, and the int8 timings, see the same
+    lengths. Returns the entries and B's (name, t, label, inputs)."""
     q, k, v = flash_inputs(gen, 1, 8, 8, 512, 128, torch.bfloat16)
     flash = _timing_entry(
         "flash_fwd", "elasticdl_tpu_torch/csrc/flash_fwd.cu",
@@ -1390,12 +1696,14 @@ def time_kernels(gen, launches, flash_err, paged_err):
     )
     paged_errors = {"max_abs_err": paged_err[0], "max_err": paged_err[0],
                     "max_rel_err": paged_err[1]}
-    entries = [flash]
+    entries, cases = [flash], []
+    paged_gen = torch.Generator().manual_seed(PAGED_TIMING_SEED)
     for name, t, lengths, label in (
             ("paged_decode", 1, None, "b=8 t=1"),
             ("paged_decode_tile", 128, [256], "b=1 t=128")):
-        args, lens = paged_inputs(gen, b=1 if lengths else 8, t=t,
+        args, lens = paged_inputs(paged_gen, b=1 if lengths else 8, t=t,
                                   lengths=lengths)
+        cases.append((name, t, label, args, lens))
         entries.append(_timing_entry(
             name, "elasticdl_tpu_torch/csrc/paged_decode.cu",
             "elasticdl_tpu/ops/attention.py:591",
@@ -1406,7 +1714,7 @@ def time_kernels(gen, launches, flash_err, paged_err):
             None, paged_work(lens, 8, t, 128, 2, 64), launches,
             paged_errors,
         ))
-    return entries
+    return entries, cases
 
 
 # fp32 operations per element of each row rule (a multiply, an add, a
@@ -1549,6 +1857,140 @@ def time_embedding_kernels(launches, gather_err, row_err, batch):
     return [gather, row]
 
 
+def time_paged_int8(cases, launches, errors):
+    """The int8 split and tile kernels at the int8 serving path's shapes,
+    on the float timings' inputs (time_kernels' `cases`) quantized: the
+    8-slot decode step and a 128-row suffix tile over a 256-token prefix,
+    hkv = 8, d = 128, block 16, int8 arenas with their fp32 scale
+    pools."""
+    entries = []
+    for name, t, label, args, lens in cases:
+        args = quantize_pools(args)
+        entries.append(_timing_entry(
+            name + "_int8", "elasticdl_tpu_torch/csrc/paged_decode.cu",
+            "elasticdl_tpu/ops/attention.py:591 (int8 branch :613-634)",
+            "%s hkv=8 d=128 bs=16 m=64 int8 + fp32 row scales, live rows "
+            "%d" % (label, sum(lens)),
+            lambda args=args: att.paged_decode_partials(*args),
+            lambda args=args: att.paged_decode_partials_plain(*args),
+            None, paged_work(lens, 8, t, 128, 1, 64, int8=True), launches,
+            errors))
+    return entries
+
+
+# kernel G's rules: the TPU kernel each replaces (optimizer_kernels.py
+# line) and its fp32 operations per element, as ROW_FLOPS counts them
+DENSE_LINES = {"sgd": 77, "momentum": 94, "adam": 123, "adam_amsgrad": 130,
+               "adagrad": 172}
+DENSE_FLOPS = dict(ROW_FLOPS, adam_amsgrad=ROW_FLOPS["adam"] + 1)
+
+
+def run_dense_path():
+    """Path B, the dense update API, at scripts/bench_optimizer_kernels.py's
+    size (DENSE_N fp32 elements): each rule takes DENSE_STEPS steps through
+    its public wrapper, carrying its parameter and slots from step to step
+    (Adam's step count advancing), as a caller drives it. Every result
+    must be finite and each rule's kernel must launch once per step.
+    Returns (metrics, launch counts)."""
+    cuda_gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {"n": DENSE_N, "dtype": "float32", "steps": DENSE_STEPS}
+    torch.cuda.synchronize()
+    ok.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rule, kw in DENSE_CASES[:len(DENSE_RULES)]:
+        param, slots, grad = dense_inputs(cuda_gen, rule, (DENSE_N,),
+                                          torch.float32)
+        for step in range(1, DENSE_STEPS + 1):
+            kw_step = dict(kw, step=step) if "step" in kw else kw
+            param, *slots = dense_call(rule, kw_step, param, slots, grad)
+        check(all(bool(torch.isfinite(t).all()) for t in (param, *slots)),
+              "dense %s: non-finite result" % rule)
+        del param, slots, grad
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    launches = dict(ok.KERNEL_LAUNCHES)
+    for rule in DENSE_RULES:
+        check(launches["dense_" + rule] == DENSE_STEPS,
+              "dense %s launched its kernel %d times in %d steps"
+              % (rule, launches["dense_" + rule], DENSE_STEPS))
+    out["launches"] = launches
+    return out, launches
+
+
+def _torch_optimizer_ms(rule, kw, param, slots, grad):
+    """(ms, what) of one step of the torch.optim optimizer that makes the
+    same update (momentum, Adam, AMSGrad, Adagrad), on a copy of the
+    parameter with `grad` as its gradient, timed between CUDA events;
+    used only as a yardstick, never by the port."""
+    p = torch.nn.Parameter(param.clone())
+    p.grad = grad
+    if rule == "momentum":
+        opt = torch.optim.SGD([p], lr=kw["lr"], momentum=kw["momentum"],
+                              nesterov=kw["nesterov"])
+        what = "torch.optim.SGD(momentum=0.9, nesterov=True).step()"
+    elif rule == "adagrad":
+        opt = torch.optim.Adagrad([p], lr=kw["lr"], foreach=True)
+        what = "torch.optim.Adagrad(foreach=True).step()"
+    else:
+        amsgrad = rule == "adam_amsgrad"
+        opt = torch.optim.Adam([p], lr=kw["lr"], amsgrad=amsgrad,
+                               fused=True)
+        what = "torch.optim.Adam(%sfused=True).step()" % (
+            "amsgrad=True, " if amsgrad else "")
+    opt.step()
+    torch.cuda.synchronize()
+    ms = _events_ms(opt.step, 10)
+    del opt, p
+    return ms, what
+
+
+def time_dense(path_launches):
+    """Kernel G at the path's size, each rule on fresh inputs: first held
+    against its plain version there (max |err| / max |ref| per output
+    within DENSE_TOL_REL), then timed (CUDA-graph replay), beside the
+    plain version and the one PyTorch call that makes the same update
+    (p.add(g, alpha=-lr) for SGD, a torch.optim step for the others).
+    Bound: bytes, each tensor read or written once (2 x slots + 3
+    tensors of 4 bytes per element), at 3.35 TB/s."""
+    cuda_gen = torch.Generator(device="cuda").manual_seed(4)
+    entries = []
+    for rule, kw in DENSE_CASES[:len(DENSE_RULES)]:
+        param, slots, grad = dense_inputs(cuda_gen, rule, (DENSE_N,),
+                                          torch.float32)
+        got = dense_call(rule, kw, param, slots, grad)
+        ref = dense_plain(rule, kw, param, slots, grad)
+        rel = max(rel_err(a, b) for a, b in zip(got, ref))
+        e_abs = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        log("dense %s at %d fp32: rel err %.3g, max |err| %.3g"
+            % (rule, DENSE_N, rel, e_abs))
+        check(rel <= DENSE_TOL_REL, "dense %s disagrees with its plain "
+              "version at the path's size: %.3g" % (rule, rel))
+        del got, ref
+        if rule == "sgd":
+            library = (lambda: param.add(grad, alpha=-kw["lr"]),
+                       "Tensor.add(grad, alpha=-lr)")
+        else:
+            library = _torch_optimizer_ms(rule, kw, param, slots, grad)
+        n_arrays = 2 * DENSE_RULES[rule][0] + 3
+        entry = _timing_entry(
+            "dense_" + rule, "elasticdl_tpu_torch/csrc/optimizer_update.cu",
+            "elasticdl_tpu/ops/optimizer_kernels.py:%d (pallas_call :57)"
+            % DENSE_LINES[rule],
+            "%d fp32 elements, %d tensors" % (DENSE_N, n_arrays),
+            lambda: dense_call(rule, kw, param, slots, grad),
+            lambda: dense_plain(rule, kw, param, slots, grad),
+            library[0] if rule == "sgd" else library,
+            (DENSE_FLOPS[rule] * DENSE_N, 4 * DENSE_N * n_arrays),
+            path_launches, {"max_abs_err": e_abs, "max_err": e_abs,
+                            "max_rel_err": rel},
+            peak=PEAK_FP32_FLOPS)
+        entry["library_call"] = library[1]
+        entries.append(entry)
+        del param, slots, grad
+        torch.cuda.empty_cache()
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1577,15 +2019,33 @@ def main():
     rng = np.random.RandomState(0)
     flash_err = check_flash(gen)
     paged_err = check_paged(gen)
+    int8_err = check_paged_int8(gen)
     bwd_err = check_flash_bwd(gen)
     autograd_err = check_autograd(gen)
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
-    serving, launches = serve_flagship(rng)
+    dense_err = check_dense_update(gen)
+    specs = serving_specs(rng)
+    serving, launches = serve_flagship(specs)
     log("serving run launches: %s" % launches)
+    serving["int8"], int8_launches = serve_flagship(specs, "int8")
+    log("int8 serving run launches: %s; %s" % (
+        int8_launches, json.dumps(serving["int8"])))
+    # the same blocks, each row and kv head d int8 values and a 4-byte
+    # scale in place of d bf16 values: (128 + 4) / 256 of the bytes
+    check(serving["int8"]["kv_blocks_total"] == serving["kv_blocks_total"]
+          and serving["int8"]["kv_bytes_total"] * 256
+          == serving["kv_bytes_total"] * (128 + 4),
+          "int8 pool holds %d bytes, bf16 pool %d"
+          % (serving["int8"]["kv_bytes_total"], serving["kv_bytes_total"]))
     serving["cuda_vs_cpu"] = compare_cuda_cpu(rng)
+    serving["int8"]["cuda_vs_cpu_fp32"] = compare_cuda_cpu_int8(rng)
     serving["decode_profile"] = profile_decode(rng)
     log("decode profile: %s" % json.dumps(serving["decode_profile"]))
+    serving["int8"]["decode_profile"] = profile_decode(rng,
+                                                       kv_cache_dtype="int8")
+    log("int8 decode profile: %s"
+        % json.dumps(serving["int8"]["decode_profile"]))
     with tempfile.TemporaryDirectory() as workdir:
         training, executor, train_launches = train_flagship(rng, workdir)
     log("training run launches: %s" % train_launches)
@@ -1605,7 +2065,15 @@ def main():
     del executor
     torch.cuda.empty_cache()
     dlrm["cuda_vs_cpu_step"] = compare_dlrm_step(rng)
-    kernels = time_kernels(gen, launches, flash_err, paged_err)
+    dense, dense_launches = run_dense_path()
+    log("dense update path: %s" % json.dumps(dense))
+    kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
+    kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
+    kernels += time_paged_int8(
+        paged_cases, int8_launches, {"max_abs_err": int8_err[0],
+                             "max_err": int8_err[0],
+                             "max_rel_err": int8_err[1],
+                             "path_shape_max_rel_err": int8_err[2]})
     kernels[0]["launches_training_per_step"] = (
         train_launches["flash_fwd"] // TRAIN_STEPS)
     kernels += time_backward(gen, train_launches, bwd_err)
@@ -1614,11 +2082,15 @@ def main():
     for entry in kernels[-2:]:
         entry["launches_per_train_step"] = (
             dlrm["launches_per_step"][entry["name"]])
-    serving["card"] = training["card"] = dlrm["card"] = smi
+    kernels += time_dense(dense_launches)
+    for entry in kernels[-len(DENSE_RULES):]:
+        entry["small_shapes_max_rel_err"] = dense_err
+    serving["card"] = training["card"] = dlrm["card"] = dense["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"dlrm": dlrm}))
+    print(json.dumps({"dense": dense}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,17 +24,19 @@ def _prefill_bucket(p, seq_len):
 
 def kv_layout(model):
     """The KV row layout a block pool must hold for `model`: (num_layers,
-    kv_heads, head_dim, dtype). The port's counterpart of the JAX
-    package's `kv_row_leaf` convention: every layer contributes one K
-    and one V arena of rows [kv_heads, head_dim]."""
+    kv_heads, head_dim, dtype, kv_cache_dtype). The port's counterpart
+    of the JAX package's `kv_row_leaf` convention: every layer
+    contributes one K and one V arena of rows [kv_heads, head_dim], and
+    with kv_cache_dtype "int8" their int8 rows plus one fp32 scale arena
+    each."""
     return (model.num_layers, model.num_kv_heads, model.head_dim,
-            model.dtype)
+            model.dtype, model.kv_cache_dtype)
 
 
 def run_prefill(model, prompt):
     """One causal forward over `prompt` (a list of token ids) padded to
-    its 64-bucket: returns (per-layer (k, v) rows [1, hkv, p_pad, d],
-    fp32 logits [vocab] at the last prompt position)."""
+    its 64-bucket: returns (per-layer rows [1, hkv, p_pad, d] in the
+    pool's format, fp32 logits [vocab] at the last prompt position)."""
     p = len(prompt)
     p_pad = _prefill_bucket(p, model.seq_len)
     buf = torch.zeros((1, p_pad), dtype=torch.long)

@@ -19,6 +19,19 @@
 // scores contribute exactly 0, so a sequence with length 0 leaves
 // (o, l, m) = (0, 0, -1e30).
 //
+// Arenas are fp32, bf16 or int8. int8 arenas (the TPU kernel's quantized
+// branch, _paged_kernel's `quantized`) come with fp32 per-row scale pools
+// [num_blocks, block_size, hkv, 1], read beside the rows; the dequantize
+// runs in registers and no float copy of a row is ever written. The int8
+// split kernel folds each key row's scale into its score and each value
+// row's scale into its softmax weight (the JAX scan's deferral: the
+// softmax denominator takes the weight unscaled); the tile kernel
+// multiplies each staged row element by its row scale (the TPU kernel's
+// choice). The two differ only by rounding. int8 halves a bf16 arena's
+// bytes, and the scales add 4 bytes per row and kv head. Rows are read 16
+// int8 values (16 bytes) at a time; d is 64 or 128, a multiple of 16, so
+// no row needs a narrower loader.
+//
 // Two kernels, chosen by the number of query rows per (sequence, kv
 // head):
 //
@@ -32,7 +45,10 @@
 //   vector per lane straight into registers (no shared memory, no
 //   barrier in the loop), scores are reduced across the warp with
 //   shuffles. The warps' partials merge through shared memory, and a
-//   second small kernel merges the splits.
+//   second small kernel merges the splits. int8 arenas take their own
+//   split kernel, in which d/16 lanes hold a row (16 bytes each), so a
+//   warp reads 32/(d/16) rows at once; each such lane group keeps its own
+//   online softmax, and the groups merge by shuffles before the warps do.
 // * tile (n_rows > 8: the shared-prefix suffix tile). One block per
 //   (16-row tile, b*hkv) stages each live block's (bs, d) K and V rows in
 //   shared memory as fp32 and accumulates P V for its 16 rows in
@@ -40,6 +56,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -54,6 +73,16 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+template <typename T>
+constexpr bool kQuant = std::is_same<T, int8_t>::value;
+
+// element e (0..15, a constant after unrolling) of 16 int8 values read
+// as one int4
+__device__ __forceinline__ float i8_at(const int4& x, int e) {
+  const int w = e < 4 ? x.x : (e < 8 ? x.y : (e < 12 ? x.z : x.w));
+  return (float)(int8_t)(w >> (8 * (e & 3)));
+}
+
 template <int D>
 size_t tile_smem_bytes(int bs) {
   // qs [R][D+1], ks [bs][D+1], vs [bs][D], ss [R][bs+1], row m, l, corr
@@ -64,7 +93,8 @@ size_t tile_smem_bytes(int bs) {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) paged_tile_kernel(
     const float* __restrict__ qf, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table,
+    const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ length, float* __restrict__ o,
     float* __restrict__ l_out, float* __restrict__ m_out, int hkv,
     int n_rows, int m, int bs) {
@@ -108,11 +138,30 @@ __global__ void __launch_bounds__(NT) paged_tile_kernel(
     if (bid < 0) continue;  // unallocated slot: never read (block-uniform)
     __syncthreads();        // the previous slot's readers are done
     const size_t base = (size_t)bid * bs * row_stride + (size_t)kvh * D;
-    for (int i = tid; i < bs * D; i += NT) {
-      const int r = i / D, e = i % D;
-      const size_t off = base + (size_t)r * row_stride + e;
-      ks[r * DP + e] = to_f(k_pool[off]);
-      vs[r * D + e] = to_f(v_pool[off]);
+    if constexpr (kQuant<T>) {
+      // 16 int8 elements per 16-byte load (D is 64 or 128), each scaled
+      // by its row's scale on the way into shared memory
+      constexpr int V = 16, CH = D / V;
+      for (int i = tid; i < bs * CH; i += NT) {
+        const int r = i / CH, e = (i % CH) * V;
+        const size_t off = base + (size_t)r * row_stride + e;
+        const int4 kr = *reinterpret_cast<const int4*>(k_pool + off);
+        const int4 vr = *reinterpret_cast<const int4*>(v_pool + off);
+        const size_t srow = ((size_t)bid * bs + r) * hkv + kvh;
+        const float ksc = k_scale[srow], vsc = v_scale[srow];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          ks[r * DP + e + j] = i8_at(kr, j) * ksc;
+          vs[r * D + e + j] = i8_at(vr, j) * vsc;
+        }
+      }
+    } else {
+      for (int i = tid; i < bs * D; i += NT) {
+        const int r = i / D, e = i % D;
+        const size_t off = base + (size_t)r * row_stride + e;
+        ks[r * DP + e] = to_f(k_pool[off]);
+        vs[r * D + e] = to_f(v_pool[off]);
+      }
     }
     __syncthreads();
     for (int i = tid; i < R * bs; i += NT) {
@@ -198,6 +247,37 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
     const float2 a =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     out[0] = a.x; out[1] = a.y;
+  }
+}
+
+// The block's warps' partials (m in log2 units) merged into the split's
+// partials at pbase = (split * b*hkv + bk) * n_rows of o_part / l_part /
+// m_part; each warp has left its (m, l, o) in sm / sl / so. Call after
+// __syncthreads().
+template <int D, int NR>
+__device__ __forceinline__ void store_split_partials(
+    const float (&sm)[SPLIT_WARPS][NR], const float (&sl)[SPLIT_WARPS][NR],
+    const float (&so)[SPLIT_WARPS][NR][D], size_t pbase, int n_rows,
+    float* __restrict__ o_part, float* __restrict__ l_part,
+    float* __restrict__ m_part) {
+  for (int idx = threadIdx.x; idx < NR * D; idx += SPLIT_WARPS * 32) {
+    const int i = idx / D, e = idx % D;
+    if (i >= n_rows) continue;
+    float big = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) big = fmaxf(big, sm[w][i]);
+    float out = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float wgt = exp2f(sm[w][i] - big);
+      out += so[w][i][e] * wgt;
+      l += sl[w][i] * wgt;
+    }
+    o_part[(pbase + i) * D + e] = out;
+    if (e == 0) {
+      l_part[pbase + i] = l;
+      m_part[pbase + i] = big;
+    }
   }
 }
 
@@ -311,26 +391,166 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_kernel(
     for (int e = 0; e < DL; ++e) so[warp][i][lane * DL + e] = o[i][e];
   }
   __syncthreads();
-  const size_t pbase = ((size_t)split * nbk + bk) * n_rows;
+  store_split_partials<D, NR>(sm, sl, so, ((size_t)split * nbk + bk) * n_rows,
+                              n_rows, o_part, l_part, m_part);
+}
+
+// ------------------------------------------------------ int8 split kernel
+
+constexpr int I8V = 16;              // int8 columns a lane reads (an int4)
+constexpr int I8_QSTRIDE = I8V + 4;  // floats per 16-column chunk of qs:
+                                     // the lanes of a row read distinct banks
+
+// The split kernel for int8 arenas: same grid, walk and output as
+// paged_split_kernel. LPR = D / 16 lanes hold a row, 16 int8 columns
+// each, so a warp reads G = 32 / LPR rows (KR per lane group) per step;
+// the k-scale multiplies the reduced score, the v-scale the weight of
+// the value product. Each lane group keeps an online softmax over the
+// rows it reads; the groups merge by shuffles (lanes of one column chunk
+// are LPR apart), then the warps through shared memory. The query rows
+// sit in shared memory (each lane reads its 16 columns).
+template <int D, int NR>
+__global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
+    const float* __restrict__ qf, const int8_t* __restrict__ k_pool,
+    const int8_t* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table,
+    const int* __restrict__ length, float* __restrict__ o_part,
+    float* __restrict__ l_part, float* __restrict__ m_part, int hkv,
+    int n_rows, int m, int bs, int slots_per_split) {
+  constexpr int LPR = D / I8V;  // 8 at d = 128, 4 at d = 64
+  constexpr int G = 32 / LPR;
+  constexpr int KR = NR >= 8 ? 1 : (NR >= 4 ? 2 : 4);
+  __shared__ float qs[NR][(D / I8V) * I8_QSTRIDE];
+  __shared__ float sm[SPLIT_WARPS][NR], sl[SPLIT_WARPS][NR];
+  __shared__ float so[SPLIT_WARPS][NR][D];
+  const int split = blockIdx.x, bk = blockIdx.y, nbk = gridDim.y;
+  const int batch = bk / hkv, kvh = bk % hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LPR, chunk = lane % LPR;
+  const int len = max(length[batch], 0);
+  const int n_slots = min(m, (len + bs - 1) / bs);
+  const int j0 = split * slots_per_split;
+  const int j1 = min(n_slots, j0 + slots_per_split);
+
   for (int idx = threadIdx.x; idx < NR * D; idx += SPLIT_WARPS * 32) {
     const int i = idx / D, e = idx % D;
-    if (i >= n_rows) continue;
-    float big = NEG_INF;
+    qs[i][(e / I8V) * I8_QSTRIDE + e % I8V] =
+        i < n_rows ? qf[((size_t)bk * n_rows + i) * D + e] * LOG2E : 0.f;
+  }
+  __syncthreads();
+
+  float o[NR][I8V], mr[NR], lr[NR];
 #pragma unroll
-    for (int w = 0; w < SPLIT_WARPS; ++w) big = fmaxf(big, sm[w][i]);
-    float out = 0.f, l = 0.f;
+  for (int i = 0; i < NR; ++i) {
 #pragma unroll
-    for (int w = 0; w < SPLIT_WARPS; ++w) {
-      const float wgt = exp2f(sm[w][i] - big);
-      out += so[w][i][e] * wgt;
-      l += sl[w][i] * wgt;
-    }
-    o_part[(pbase + i) * D + e] = out;
-    if (e == 0) {
-      l_part[pbase + i] = l;
-      m_part[pbase + i] = big;
+    for (int e = 0; e < I8V; ++e) o[i][e] = 0.f;
+    mr[i] = NEG_INF;
+    lr[i] = 0.f;
+  }
+
+  const size_t row_stride = (size_t)hkv * D;
+  for (int j = j0 + warp; j < j1; j += SPLIT_WARPS) {
+    const int bid = table[(size_t)batch * m + j];
+    if (bid < 0) continue;  // unallocated slot: never read (warp-uniform)
+    const size_t base =
+        (size_t)bid * bs * row_stride + (size_t)kvh * D + chunk * I8V;
+    const size_t sbase = (size_t)bid * bs * hkv + kvh;
+    for (int r0 = 0; r0 < bs; r0 += G * KR) {
+      int4 kr[KR], vr[KR];
+      float ksc[KR], vsc[KR];
+      bool valid[KR];
+#pragma unroll
+      for (int u = 0; u < KR; ++u) {
+        const int r = r0 + u * G + grp;
+        valid[u] = r < bs && j * bs + r < len;
+        if (r < bs) {
+          kr[u] = *reinterpret_cast<const int4*>(
+              k_pool + base + (size_t)r * row_stride);
+          vr[u] = *reinterpret_cast<const int4*>(
+              v_pool + base + (size_t)r * row_stride);
+          ksc[u] = k_scale[sbase + (size_t)r * hkv];
+          vsc[u] = v_scale[sbase + (size_t)r * hkv];
+        } else {
+          kr[u] = vr[u] = make_int4(0, 0, 0, 0);
+          ksc[u] = vsc[u] = 0.f;
+        }
+      }
+      float s[NR][KR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int u = 0; u < KR; ++u) {
+          const float* q = &qs[i][chunk * I8_QSTRIDE];
+          float acc = 0.f;
+#pragma unroll
+          for (int e = 0; e < I8V; ++e) acc += q[e] * i8_at(kr[u], e);
+          s[i][u] = acc;
+        }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < NR; ++i)
+#pragma unroll
+          for (int u = 0; u < KR; ++u)
+            s[i][u] += __shfl_xor_sync(FULL_MASK, s[i][u], off);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int u = 0; u < KR; ++u) {
+          s[i][u] = valid[u] ? s[i][u] * ksc[u] : NEG_INF;  // k-scale
+          mx = fmaxf(mx, s[i][u]);
+        }
+        const float m_new = fmaxf(mr[i], mx);
+        const float corr = exp2f(mr[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < I8V; ++e) o[i][e] *= corr;
+#pragma unroll
+        for (int u = 0; u < KR; ++u) {
+          const float p = s[i][u] > 0.5f * NEG_INF ? exp2f(s[i][u] - m_new)
+                                                   : 0.f;
+          sum += p;
+          const float pv = p * vsc[u];  // v-scale: value product only
+#pragma unroll
+          for (int e = 0; e < I8V; ++e) o[i][e] += pv * i8_at(vr[u], e);
+        }
+        lr[i] = lr[i] * corr + sum;
+        mr[i] = m_new;
+      }
     }
   }
+
+  // merge the lane groups (same column chunk, lanes LPR apart)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const float m_o = __shfl_xor_sync(FULL_MASK, mr[i], off);
+      const float l_o = __shfl_xor_sync(FULL_MASK, lr[i], off);
+      const float m_new = fmaxf(mr[i], m_o);
+      const float a = exp2f(mr[i] - m_new), b = exp2f(m_o - m_new);
+      lr[i] = lr[i] * a + l_o * b;
+#pragma unroll
+      for (int e = 0; e < I8V; ++e)
+        o[i][e] = o[i][e] * a + __shfl_xor_sync(FULL_MASK, o[i][e], off) * b;
+      mr[i] = m_new;
+    }
+  // then the warps
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      if (chunk == 0) {
+        sm[warp][i] = mr[i];
+        sl[warp][i] = lr[i];
+      }
+#pragma unroll
+      for (int e = 0; e < I8V; ++e) so[warp][i][chunk * I8V + e] = o[i][e];
+    }
+  }
+  __syncthreads();
+  store_split_partials<D, NR>(sm, sl, so, ((size_t)split * nbk + bk) * n_rows,
+                              n_rows, o_part, l_part, m_part);
 }
 
 // Merge the splits: grid (n_rows, b*hkv), D threads.
@@ -361,52 +581,65 @@ __global__ void paged_merge_kernel(const float* __restrict__ o_part,
   }
 }
 
+// The pointers and sizes every launch takes, bundled so the dispatch
+// over (dtype, d, rows) stays short.
+struct PagedArgs {
+  const void *qf, *k_pool, *v_pool, *k_scale, *v_scale, *table, *length;
+  void *o, *l, *mx;
+  int b, hkv, n_rows, m, bs;
+};
+
 template <typename T, int D, int NR>
-int launch_split(const void* qf, const void* k_pool, const void* v_pool,
-                 const void* table, const void* length, void* o, void* l,
-                 void* mx, void* o_part, void* l_part, void* m_part,
-                 int n_split, int slots_per_split, int b, int hkv,
-                 int n_rows, int m, int bs, cudaStream_t stream) {
-  dim3 grid(n_split, b * hkv);
-  paged_split_kernel<T, D, NR><<<grid, SPLIT_WARPS * 32, 0, stream>>>(
-      static_cast<const float*>(qf), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(table),
-      static_cast<const int*>(length), static_cast<float*>(o_part),
-      static_cast<float*>(l_part), static_cast<float*>(m_part), hkv, n_rows,
-      m, bs, slots_per_split);
+int launch_split(const PagedArgs& a, void* o_part, void* l_part,
+                 void* m_part, int n_split, int slots_per_split,
+                 cudaStream_t stream) {
+  dim3 grid(n_split, a.b * a.hkv);
+  if constexpr (kQuant<T>) {
+    paged_split_int8_kernel<D, NR><<<grid, SPLIT_WARPS * 32, 0, stream>>>(
+        static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
+        static_cast<const T*>(a.v_pool),
+        static_cast<const float*>(a.k_scale),
+        static_cast<const float*>(a.v_scale),
+        static_cast<const int*>(a.table), static_cast<const int*>(a.length),
+        static_cast<float*>(o_part), static_cast<float*>(l_part),
+        static_cast<float*>(m_part), a.hkv, a.n_rows, a.m, a.bs,
+        slots_per_split);
+  } else {
+    paged_split_kernel<T, D, NR><<<grid, SPLIT_WARPS * 32, 0, stream>>>(
+        static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
+        static_cast<const T*>(a.v_pool), static_cast<const int*>(a.table),
+        static_cast<const int*>(a.length), static_cast<float*>(o_part),
+        static_cast<float*>(l_part), static_cast<float*>(m_part), a.hkv,
+        a.n_rows, a.m, a.bs, slots_per_split);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_merge_kernel<<<dim3(n_rows, b * hkv), D, 0, stream>>>(
+  paged_merge_kernel<<<dim3(a.n_rows, a.b * a.hkv), D, 0, stream>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(m_part), static_cast<float*>(o),
-      static_cast<float*>(l), static_cast<float*>(mx), n_split, n_rows, D);
+      static_cast<const float*>(m_part), static_cast<float*>(a.o),
+      static_cast<float*>(a.l), static_cast<float*>(a.mx), n_split, a.n_rows,
+      D);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int dispatch_split(const void* qf, const void* k_pool, const void* v_pool,
-                   const void* table, const void* length, void* o, void* l,
-                   void* mx, void* o_part, void* l_part, void* m_part,
-                   int n_split, int slots_per_split, int b, int hkv,
-                   int n_rows, int m, int bs, cudaStream_t s) {
-#define EDL_SPLIT(NR)                                                     \
-  return launch_split<T, D, NR>(qf, k_pool, v_pool, table, length, o, l,  \
-                                mx, o_part, l_part, m_part, n_split,      \
-                                slots_per_split, b, hkv, n_rows, m, bs, s)
-  if (n_rows <= 1) EDL_SPLIT(1);
-  if (n_rows <= 2) EDL_SPLIT(2);
-  if (n_rows <= 4) EDL_SPLIT(4);
-  if (n_rows <= 8) EDL_SPLIT(8);
+int dispatch_split(const PagedArgs& a, void* o_part, void* l_part,
+                   void* m_part, int n_split, int slots_per_split,
+                   cudaStream_t s) {
+#define EDL_SPLIT(NR) \
+  return launch_split<T, D, NR>(a, o_part, l_part, m_part, n_split, \
+                                slots_per_split, s)
+  if (a.n_rows <= 1) EDL_SPLIT(1);
+  if (a.n_rows <= 2) EDL_SPLIT(2);
+  if (a.n_rows <= 4) EDL_SPLIT(4);
+  if (a.n_rows <= 8) EDL_SPLIT(8);
 #undef EDL_SPLIT
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
-int launch_tile(const void* qf, const void* k_pool, const void* v_pool,
-                const void* table, const void* length, void* o, void* l,
-                void* mx, int b, int hkv, int n_rows, int m, int bs,
-                cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes<D>(bs);
+int launch_tile(const PagedArgs& a, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes<D>(a.bs);
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -415,44 +648,54 @@ int launch_tile(const void* qf, const void* k_pool, const void* v_pool,
     if (err != cudaSuccess) return (int)err;
     configured = smem;
   }
-  dim3 grid((n_rows + R - 1) / R, b * hkv);
+  dim3 grid((a.n_rows + R - 1) / R, a.b * a.hkv);
   paged_tile_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(qf), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(table),
-      static_cast<const int*>(length), static_cast<float*>(o),
-      static_cast<float*>(l), static_cast<float*>(mx), hkv, n_rows, m, bs);
+      static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
+      static_cast<const T*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.length), static_cast<float*>(a.o),
+      static_cast<float*>(a.l), static_cast<float*>(a.mx), a.hkv, a.n_rows,
+      a.m, a.bs);
   return (int)cudaGetLastError();
+}
+
+// int8 arenas need both scale pools; float arenas take none
+bool scales_ok(int dtype, const void* k_scale, const void* v_scale) {
+  return dtype == 2 ? (k_scale != nullptr && v_scale != nullptr)
+                    : (k_scale == nullptr && v_scale == nullptr);
 }
 
 }  // namespace
 
 // Common arguments: qf [b, hkv, n_rows, d] fp32 (already multiplied by
 // scale); k_pool and v_pool [num_blocks, bs, hkv, d] (dtype 0 = float32,
-// 1 = bfloat16); table [b, m] int32 (-1 = unallocated); length [b]
-// int32; o [b, hkv, n_rows, d], l and m [b, hkv, n_rows] fp32. All
-// contiguous. Each returns the cudaError_t of its launches (0 = ok).
+// 1 = bfloat16, 2 = int8); for int8, k_scale and v_scale [num_blocks, bs,
+// hkv, 1] fp32 per-row scales, else NULL; table [b, m] int32 (-1 =
+// unallocated); length [b] int32; o [b, hkv, n_rows, d], l and m [b, hkv,
+// n_rows] fp32; d 64 or 128. All contiguous. Each returns the
+// cudaError_t of its launches (0 = ok).
 
 // n_rows > 8: the shared-memory tile kernel.
 extern "C" int edl_paged_decode_tile(const void* qf, const void* k_pool,
-                                     const void* v_pool, const void* table,
+                                     const void* v_pool, const void* k_scale,
+                                     const void* v_scale, const void* table,
                                      const void* length, void* o, void* l,
                                      void* mx, int b, int hkv, int n_rows,
                                      int m, int bs, int d, int dtype,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_tile<float, 64>(qf, k_pool, v_pool, table, length, o, l,
-                                  mx, b, hkv, n_rows, m, bs, s);
-  if (dtype == 0 && d == 128)
-    return launch_tile<float, 128>(qf, k_pool, v_pool, table, length, o, l,
-                                   mx, b, hkv, n_rows, m, bs, s);
-  if (dtype == 1 && d == 64)
-    return launch_tile<__nv_bfloat16, 64>(qf, k_pool, v_pool, table, length,
-                                          o, l, mx, b, hkv, n_rows, m, bs, s);
-  if (dtype == 1 && d == 128)
-    return launch_tile<__nv_bfloat16, 128>(qf, k_pool, v_pool, table,
-                                           length, o, l, mx, b, hkv, n_rows,
-                                           m, bs, s);
+  if (!scales_ok(dtype, k_scale, v_scale)) return (int)cudaErrorInvalidValue;
+  const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
+                    o,  l,      mx,     b,       hkv,     n_rows, m,
+                    bs};
+#define EDL_TILE(T)                                             \
+  return d == 64 ? launch_tile<T, 64>(a, s)                     \
+                 : (d == 128 ? launch_tile<T, 128>(a, s)        \
+                             : (int)cudaErrorInvalidValue)
+  if (dtype == 0) EDL_TILE(float);
+  if (dtype == 1) EDL_TILE(__nv_bfloat16);
+  if (dtype == 2) EDL_TILE(int8_t);
+#undef EDL_TILE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -461,28 +704,25 @@ extern "C" int edl_paged_decode_tile(const void* qf, const void* k_pool,
 // split k covers table slots [k*slots_per_split, (k+1)*slots_per_split).
 extern "C" int edl_paged_decode_split(
     const void* qf, const void* k_pool, const void* v_pool,
-    const void* table, const void* length, void* o, void* l, void* mx,
-    void* o_part, void* l_part, void* m_part, int n_split,
-    int slots_per_split, int b, int hkv, int n_rows, int m, int bs, int d,
-    int dtype, void* stream) {
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* length, void* o, void* l, void* mx, void* o_part,
+    void* l_part, void* m_part, int n_split, int slots_per_split, int b,
+    int hkv, int n_rows, int m, int bs, int d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return dispatch_split<float, 64>(qf, k_pool, v_pool, table, length, o,
-                                     l, mx, o_part, l_part, m_part, n_split,
-                                     slots_per_split, b, hkv, n_rows, m, bs,
-                                     s);
-  if (dtype == 0 && d == 128)
-    return dispatch_split<float, 128>(qf, k_pool, v_pool, table, length, o,
-                                      l, mx, o_part, l_part, m_part, n_split,
-                                      slots_per_split, b, hkv, n_rows, m, bs,
-                                      s);
-  if (dtype == 1 && d == 64)
-    return dispatch_split<__nv_bfloat16, 64>(
-        qf, k_pool, v_pool, table, length, o, l, mx, o_part, l_part, m_part,
-        n_split, slots_per_split, b, hkv, n_rows, m, bs, s);
-  if (dtype == 1 && d == 128)
-    return dispatch_split<__nv_bfloat16, 128>(
-        qf, k_pool, v_pool, table, length, o, l, mx, o_part, l_part, m_part,
-        n_split, slots_per_split, b, hkv, n_rows, m, bs, s);
+  if (!scales_ok(dtype, k_scale, v_scale)) return (int)cudaErrorInvalidValue;
+  const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
+                    o,  l,      mx,     b,       hkv,     n_rows, m,
+                    bs};
+#define EDL_SPLIT_D(T)                                                    \
+  return d == 64 ? dispatch_split<T, 64>(a, o_part, l_part, m_part,       \
+                                         n_split, slots_per_split, s)     \
+                 : (d == 128 ? dispatch_split<T, 128>(a, o_part, l_part,  \
+                                                      m_part, n_split,    \
+                                                      slots_per_split, s) \
+                             : (int)cudaErrorInvalidValue)
+  if (dtype == 0) EDL_SPLIT_D(float);
+  if (dtype == 1) EDL_SPLIT_D(__nv_bfloat16);
+  if (dtype == 2) EDL_SPLIT_D(int8_t);
+#undef EDL_SPLIT_D
   return (int)cudaErrorInvalidValue;
 }

@@ -16,63 +16,21 @@
 // the rows are scattered over tables far larger than L2, so rows in
 // flight are what count.
 //
-// Design: one templated kernel, the rule a device functor holding its
-// hyperparameters by value (the Adam step size alpha is computed on the
-// host by adam_alpha, as the TPU kernel receives it precomputed): sgd (1
-// table), momentum (2: velocity), adam (3: m, v), adagrad (2:
-// accumulator). One warp per id, grid-stride over ids, one element a lane
-// per pass over the row; the row offset is computed in 64 bits. fp32
-// tables only.
+// Design: one templated kernel, the rule a device functor from
+// update_rules.cuh (shared with the dense kernel, optimizer_update.cu)
+// holding its hyperparameters by value: sgd (1 table), momentum (2:
+// velocity), adam (3: m, v), adagrad (2: accumulator). One warp per id,
+// grid-stride over ids, one element a lane per pass over the row; the row
+// offset is computed in 64 bits. fp32 tables only.
 
 #include <cuda_runtime.h>
+
+#include "update_rules.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // 8 warps a block
 constexpr int WARPS = NT / 32;
-
-struct Sgd {
-  static constexpr int kTables = 1;
-  float lr;
-  __device__ void operator()(float* const* rows, int j, float g) const {
-    rows[0][j] = rows[0][j] - lr * g;
-  }
-};
-
-struct Momentum {
-  static constexpr int kTables = 2;
-  float lr, mu, nesterov;
-  __device__ void operator()(float* const* rows, int j, float g) const {
-    const float v = mu * rows[1][j] + g;
-    const float step = nesterov > 0.f ? mu * v + g : v;
-    rows[0][j] = rows[0][j] - lr * step;
-    rows[1][j] = v;
-  }
-};
-
-// c1 = 1 - b1 and c2 = 1 - b2 come from the host, computed in double and
-// rounded once: 1.f - b2 here would round b2 first (1.3e-5 off at 0.999)
-struct Adam {
-  static constexpr int kTables = 3;
-  float alpha, b1, b2, eps, c1, c2;
-  __device__ void operator()(float* const* rows, int j, float g) const {
-    const float m = b1 * rows[1][j] + c1 * g;
-    const float v = b2 * rows[2][j] + c2 * g * g;
-    rows[0][j] = rows[0][j] - alpha * m / (sqrtf(v) + eps);
-    rows[1][j] = m;
-    rows[2][j] = v;
-  }
-};
-
-struct Adagrad {
-  static constexpr int kTables = 2;
-  float lr, eps;
-  __device__ void operator()(float* const* rows, int j, float g) const {
-    const float a = rows[1][j] + g * g;
-    rows[0][j] = rows[0][j] - lr * g / (sqrtf(a) + eps);
-    rows[1][j] = a;
-  }
-};
 
 struct Tables {
   float* t[3];
@@ -83,17 +41,27 @@ __global__ void __launch_bounds__(NT)
     row_update_kernel(Tables tables, const int* __restrict__ ids,
                       const float* __restrict__ grads, long long n,
                       long long vocab, int dim, Rule rule) {
+  constexpr int S = Rule::kSlots;
   const int lane = threadIdx.x & 31;
   const long long nwarps = (long long)gridDim.x * WARPS;
   for (long long i = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
        i < n; i += nwarps) {
     const long long r = __ldg(ids + i);
     if (r < 0 || r >= vocab) continue;
-    float* rows[Rule::kTables];
+    float* rows[S + 1];
 #pragma unroll
-    for (int k = 0; k < Rule::kTables; ++k) rows[k] = tables.t[k] + r * dim;
+    for (int k = 0; k <= S; ++k) rows[k] = tables.t[k] + r * dim;
     const float* g = grads + i * dim;
-    for (int j = lane; j < dim; j += 32) rule(rows, j, __ldg(g + j));
+    for (int j = lane; j < dim; j += 32) {
+      float p = rows[0][j];
+      float s[S > 0 ? S : 1];
+#pragma unroll
+      for (int k = 0; k < S; ++k) s[k] = rows[k + 1][j];
+      rule(p, s, __ldg(g + j));
+      rows[0][j] = p;
+#pragma unroll
+      for (int k = 0; k < S; ++k) rows[k + 1][j] = s[k];
+    }
   }
 }
 
@@ -101,7 +69,7 @@ template <class Rule>
 int launch(const Tables& tables, const void* ids, const void* grads,
            long long n, long long vocab, int dim, Rule rule,
            cudaStream_t stream) {
-  for (int k = 0; k < Rule::kTables; ++k)
+  for (int k = 0; k <= Rule::kSlots; ++k)
     if (tables.t[k] == nullptr) return (int)cudaErrorInvalidValue;
   long long blocks = (n + WARPS - 1) / WARPS;
   if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
@@ -129,15 +97,16 @@ extern "C" int edl_row_update(int rule, void* t0, void* t1, void* t2,
                  static_cast<float*>(t2)}};
   switch (rule) {
     case 0:
-      return launch(tables, ids, grads, n, vocab, dim, Sgd{h0}, s);
+      return launch(tables, ids, grads, n, vocab, dim, edl::Sgd{h0}, s);
     case 1:
-      return launch(tables, ids, grads, n, vocab, dim, Momentum{h0, h1, h2},
-                    s);
+      return launch(tables, ids, grads, n, vocab, dim,
+                    edl::Momentum{h0, h1, h2}, s);
     case 2:
       return launch(tables, ids, grads, n, vocab, dim,
-                    Adam{h0, h1, h2, h3, h4, h5}, s);
+                    edl::Adam{h0, h1, h2, h3, h4, h5}, s);
     case 3:
-      return launch(tables, ids, grads, n, vocab, dim, Adagrad{h0, h1}, s);
+      return launch(tables, ids, grads, n, vocab, dim,
+                    edl::Adagrad{h0, h1}, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -23,6 +23,15 @@ Three forwards, all over the same parameters:
   batch carries a position vector. Returns fp32 logits and the tile's
   (k, v) rows for the engine to scatter.
 
+With `kv_cache_dtype="int8"` the rows that reach the pool are symmetric
+per-row int8 (`kv_quantize_rows`), quantized once where they are
+produced: prefill and `decode_paged` return per layer (k8, v8, k_scale,
+v_scale) in place of (k, v), and `decode_paged` reads the layer's
+4-tuple of arenas (k, v, k_scale, v_scale). Prefill attends over the
+quantize-dequantized rows, so its logits come from the rows decode will
+read back (flax's `prefill` branch). The training forward never
+quantizes.
+
 Numerics follow flax: LayerNorm epsilon 1e-6, tanh-approximate GELU,
 matmul and embedding weights used in the compute dtype (`dtype`), the
 LayerNorms computed in fp32, the head's logits cast to fp32. Parameters
@@ -87,10 +96,34 @@ def _linear(layer, x):
     return F.linear(x, w, b)
 
 
+KV_CACHE_DTYPES = ("", "int8")
+
+
+def kv_quantize_rows(rows):
+    """Symmetric per-row int8 for the KV cache (flax's
+    `_kv_quantize_rows`): rows [..., d] -> (int8 rows, fp32 scales [...,
+    1]) with scale = amax / 127, a zero row keeping scale 1 so it stays
+    exactly zero, round half to even and clip to +-127. Both divisions
+    are elementwise fp32 (a Python-scalar divisor may become a multiply
+    by its reciprocal on the card), so the result is JAX's bit for
+    bit."""
+    r32 = rows.float()
+    amax = r32.abs().amax(-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q8 = torch.clamp(torch.round(r32 / scale), -127, 127).to(torch.int8)
+    return q8, scale
+
+
+def _dequantize(q8, scale, dtype):
+    return (q8.float() * scale).to(dtype)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
-                 use_rope=False, device=None):
+                 use_rope=False, kv_cache_dtype="", device=None):
         super().__init__()
+        self.kv_int8 = kv_cache_dtype == "int8"
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -119,36 +152,53 @@ class CausalSelfAttention(nn.Module):
         out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
         return _linear(self.proj, out)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, prefill=False):
         """Causal attention over x [b, l, e]; positions [l]. Returns
-        (y, (k, v)) with k/v [b, hkv, l, d] (rotated when RoPE)."""
+        (y, rows): rows (k, v) [b, hkv, l, d] (rotated when RoPE), or,
+        for an int8 cache's `prefill`, (k8, v8, k_scale, v_scale) with
+        the attention over their dequantized values."""
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
+        rows = (k, v)
+        if prefill and self.kv_int8:
+            (k8, ks), (v8, vs) = kv_quantize_rows(k), kv_quantize_rows(v)
+            rows = (k8, v8, ks, vs)
+            k, v = _dequantize(k8, ks, q.dtype), _dequantize(v8, vs, q.dtype)
         out = flash_attention(q, k, v, causal=True)
-        return self._out(out, x), (k, v)
+        return self._out(out, x), rows
 
     def decode_paged(self, x, positions, pool, table):
         """A tile x [b, t, e] at positions [b, t] over this layer's
-        arenas `pool` = (k_pool, v_pool) through `table` [b, m]."""
+        arenas `pool` through `table` [b, m]: (k_pool, v_pool), or for an
+        int8 cache (k_pool, v_pool, k_scale_pool, v_scale_pool). Returns
+        (y, the tile's rows in the pool's format)."""
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
+        length = positions[:, 0].to(torch.int32)
+        scale = self.head_dim ** -0.5
+        if not self.kv_int8:
+            out = paged_decode_attention(q, k, v, pool[0], pool[1], table,
+                                         length, scale=scale)
+            return self._out(out, x), (k, v)
+        (k8, ks), (v8, vs) = kv_quantize_rows(k), kv_quantize_rows(v)
         out = paged_decode_attention(
-            q, k, v, pool[0], pool[1], table, positions[:, 0].to(torch.int32),
-            scale=self.head_dim ** -0.5,
+            q, k8, v8, pool[0], pool[1], table, length, scale=scale,
+            k_scale_pool=pool[2], v_scale_pool=pool[3], k_cur_scale=ks,
+            v_cur_scale=vs,
         )
-        return self._out(out, x), (k, v)
+        return self._out(out, x), (k8, v8, ks, vs)
 
 
 class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
-                 use_rope=False, device=None):
+                 use_rope=False, kv_cache_dtype="", device=None):
         super().__init__()
         self.ln_0 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(
             embed_dim, num_heads, head_dim, num_kv_heads=num_kv_heads,
-            use_rope=use_rope, device=device,
+            use_rope=use_rope, kv_cache_dtype=kv_cache_dtype, device=device,
         )
         self.ln_1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.mlp_up = nn.Linear(embed_dim, 4 * embed_dim, device=device)
@@ -158,8 +208,9 @@ class Block(nn.Module):
         y = _linear(self.mlp_up, _layer_norm(self.ln_1, x))
         return x + _linear(self.mlp_down, F.gelu(y, approximate="tanh"))
 
-    def forward(self, x, positions):
-        y, kv = self.attn(_layer_norm(self.ln_0, x), positions)
+    def forward(self, x, positions, prefill=False):
+        y, kv = self.attn(_layer_norm(self.ln_0, x), positions,
+                          prefill=prefill)
         return self._mlp(x + y), kv
 
     def decode_paged(self, x, positions, pool, table):
@@ -172,11 +223,16 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size=256, seq_len=128, embed_dim=128,
                  num_heads=4, num_layers=2, dtype=None, pos_emb="learned",
                  num_kv_heads=0, attn_window=0, fused_head=False, remat="",
-                 lora_rank=0, device="cuda", seed=0):
+                 lora_rank=0, kv_cache_dtype="", device="cuda", seed=0):
         super().__init__()
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 "Unknown pos_emb %r (valid: 'learned', 'rope')" % (pos_emb,)
+            )
+        if kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                "Unknown kv_cache_dtype %r (valid: '', 'int8')"
+                % (kv_cache_dtype,)
             )
         for name, value in (("attn_window", attn_window), ("remat", remat),
                             ("lora_rank", lora_rank)):
@@ -195,13 +251,14 @@ class TransformerLM(nn.Module):
         self.dtype = dtype or torch.float32
         self.pos_emb = pos_emb
         self.fused_head = bool(fused_head)
+        self.kv_cache_dtype = kv_cache_dtype
         self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
         self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
                     if pos_emb == "learned" else None)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, self.head_dim,
                   num_kv_heads=num_kv_heads, use_rope=pos_emb == "rope",
-                  device=device)
+                  kv_cache_dtype=kv_cache_dtype, device=device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -290,14 +347,15 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens):
         """Causal forward over tokens [b, l] (l <= seq_len): fp32 logits
-        [b, l, vocab] and per-layer (k, v) rows [b, hkv, l, d]."""
+        [b, l, vocab] and per-layer (k, v) rows [b, hkv, l, d], or (k8,
+        v8, k_scale, v_scale) for an int8 cache."""
         l = tokens.shape[1]
         self._check_length(l)
         positions = torch.arange(l, device=tokens.device)
         x = self._embed(tokens, positions[None])
         kv = []
         for blk in self.blocks:
-            x, rows = blk(x, positions)
+            x, rows = blk(x, positions, prefill=True)
             kv.append(rows)
         return self._logits(x), kv
 
@@ -305,9 +363,11 @@ class TransformerLM(nn.Module):
     def decode_paged(self, tokens, positions, pools, tables):
         """A tile of tokens [b, t] at positions [b] + [0, t) over the
         block-paged pool: `pools` is a list of (k_pool, v_pool) arenas
-        [num_blocks, block_size, hkv, d] per layer, `tables` [b, m]
-        int32 block tables (-1 padded). Returns fp32 logits [b, t,
-        vocab] and per-layer (k, v) tile rows [b, hkv, t, d]."""
+        [num_blocks, block_size, hkv, d] per layer (int8 cache: (k, v,
+        k_scale, v_scale), the scales [num_blocks, block_size, hkv, 1]),
+        `tables` [b, m] int32 block tables (-1 padded). Returns fp32
+        logits [b, t, vocab] and per-layer tile rows [b, hkv, t, d] in
+        the pool's format ((k8, v8, k_scale, v_scale) for int8)."""
         t = tokens.shape[1]
         pos = positions.long()[:, None] + torch.arange(
             t, device=tokens.device)[None, :]

@@ -7,9 +7,9 @@ loads. Nothing includes PyTorch's headers.
 
 The build happens at first use, into `_build/` beside this package's
 sources (listed in .gitignore). A library's file name carries a hash of
-its source and flags, so an edited kernel is rebuilt and a stale one is
-never loaded. `build()` starts one nvcc per source, all at once, and
-waits for them together.
+its source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited kernel is rebuilt and a stale one is never loaded. `build()`
+starts one nvcc per source, all at once, and waits for them together.
 """
 
 import ctypes
@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "embedding_gather",
-           "row_update")
+           "row_update", "optimizer_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,9 +49,11 @@ def nvcc_path():
 
 
 def library_path(name):
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(
         BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:16])

@@ -15,7 +15,9 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 * `paged_decode_partials` -> csrc/paged_decode.cu, the port of
   `_paged_kernel`: its split kernel (table walk cut across blocks, then
   merged) for up to SPLIT_MAX_ROWS query rows per (sequence, kv head),
-  its shared-memory tile kernel for larger query tiles.
+  its shared-memory tile kernel for larger query tiles; fp32 or bf16
+  arenas, or int8 arenas with fp32 per-row scale pools (the TPU kernel's
+  quantized branch).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain version (`flash_attention_plain`, `flash_backward_dq_plain`,
@@ -37,11 +39,14 @@ NEG_INF = _NEG_INF
 
 #: kernel launches per wrapper; chip_smoke.py resets and reads these to
 #: show that the serving and training paths went through the kernels
+#: (paged decode over int8 arenas counts under its own "_int8" names)
 KERNEL_LAUNCHES = {"flash_fwd": 0, "paged_decode": 0,
-                   "paged_decode_tile": 0, "flash_bwd_dq": 0,
+                   "paged_decode_tile": 0, "paged_decode_int8": 0,
+                   "paged_decode_tile_int8": 0, "flash_bwd_dq": 0,
                    "flash_bwd_dkv": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PAGED_DTYPE_CODES = {**_DTYPE_CODES, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
 # query rows per (sequence, kv head) up to which paged decode takes the
 # split kernel; larger tiles take the shared-memory tile kernel
@@ -56,15 +61,19 @@ def reset_launch_counts():
 # ------------------------------------------------------------ plain helpers
 
 
-def softmax_merge(o, l, m, s, v_blk):
+def softmax_merge(o, l, m, s, v_blk, w_scale=None):
     """One online-softmax accumulation step: merge scores `s`
     [b,h,q,k_blk] and values `v_blk` [b,h,k_blk,d] into the running
-    (output, denominator, rowmax) triple."""
+    (output, denominator, rowmax) triple. `w_scale` [b,h,k_blk]
+    (int8 values' per-row scales) multiplies the weights in the value
+    product only: the denominator `l` normalizes probabilities, which
+    the dequantize does not change."""
     m_new = torch.maximum(m, s.amax(-1))
     p = torch.exp(s - m_new[..., None])
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(-1)
-    o_new = o * corr[..., None] + torch.matmul(p, v_blk)
+    pv = p if w_scale is None else p * w_scale[..., None, :]
+    o_new = o * corr[..., None] + torch.matmul(pv, v_blk)
     return o_new, l_new, m_new
 
 
@@ -458,12 +467,16 @@ def _tile_causal_mask(group, t, device):
     return tri[None].expand(group, t, t).reshape(group * t, t)
 
 
-def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length):
+def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length,
+                                k_scale_pool=None, v_scale_pool=None):
     """Plain PyTorch version of the paged decode kernel.
 
     qf: [b, hkv, n_rows, d] fp32 query rows, already multiplied by the
     softmax scale; k_pool/v_pool: [num_blocks, bs, hkv, d]; block_table:
-    [b, m] int32 (-1 = unallocated); length: [b] int32. Returns the
+    [b, m] int32 (-1 = unallocated); length: [b] int32. For int8 arenas,
+    k_scale_pool/v_scale_pool [num_blocks, bs, hkv, 1] fp32 hold each
+    row's scale: k-scales multiply the scores, v-scales the weights of
+    the value product (the JAX scan's deferred dequantize). Returns the
     online-softmax partials over the pool rows k_pos < length of each
     sequence's table: o [b, hkv, n_rows, d], l and m [b, hkv, n_rows],
     fp32, m in natural-log units. Masked rows contribute exactly 0; a
@@ -477,6 +490,9 @@ def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length):
     kb = k_pool[safe].reshape(b, m * bs, hkv, d).permute(0, 2, 1, 3)
     vb = v_pool[safe].reshape(b, m * bs, hkv, d).permute(0, 2, 1, 3)
     s = torch.matmul(qf.to(f32), kb.to(f32).transpose(-1, -2))
+    if k_scale_pool is not None:
+        ks = k_scale_pool[safe].reshape(b, m * bs, hkv).permute(0, 2, 1)
+        s = s * ks[:, :, None, :]
     k_pos = torch.arange(m * bs, device=qf.device)
     valid = ((k_pos[None, :] < length.long()[:, None])
              & (table.repeat_interleave(bs, dim=1) >= 0))[:, None, None, :]
@@ -484,21 +500,34 @@ def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length):
     mx = s.amax(-1)
     p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
     l = p.sum(-1)
+    if v_scale_pool is not None:
+        vs = v_scale_pool[safe].reshape(b, m * bs, hkv).permute(0, 2, 1)
+        p = p * vs[:, :, None, :]
     o = torch.matmul(p, vb.to(f32))
     mx = torch.where(l > 0, mx, torch.full_like(mx, _NEG_INF))
     return o, l, mx
 
 
-def paged_decode_partials(qf, k_pool, v_pool, block_table, length):
+def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
+                          k_scale_pool=None, v_scale_pool=None):
     """Online-softmax partials of paged decode attention (see
     `paged_decode_partials_plain` for the contract): a
     csrc/paged_decode.cu kernel for CUDA tensors (split up to
     SPLIT_MAX_ROWS query rows, tile beyond; the launch counts under
-    "paged_decode" / "paged_decode_tile"), the plain version for CPU
-    tensors."""
-    if not on_kernel_path(qf, k_pool, v_pool, block_table, length):
+    "paged_decode" / "paged_decode_tile", with "_int8" for int8 arenas),
+    the plain version for CPU tensors. int8 arenas need both scale
+    pools, float arenas take none."""
+    quantized = k_pool.dtype == torch.int8
+    scales = [s for s in (k_scale_pool, v_scale_pool) if s is not None]
+    if len(scales) != (2 if quantized else 0):
+        raise ValueError(
+            "paged_decode: int8 arenas need k_scale_pool and v_scale_pool, "
+            "float arenas take neither"
+        )
+    if not on_kernel_path(qf, k_pool, v_pool, block_table, length, *scales):
         return paged_decode_partials_plain(
-            qf, k_pool, v_pool, block_table, length
+            qf, k_pool, v_pool, block_table, length, k_scale_pool,
+            v_scale_pool
         )
     b, hkv, n_rows, d = qf.shape
     nb, bs, pool_hkv, pool_d = k_pool.shape
@@ -513,10 +542,21 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length):
     qf = qf.to(torch.float32).contiguous()
     table = block_table.to(torch.int32).contiguous()
     length = length.to(torch.int32).contiguous()
-    _check_kernel_args("paged_decode", (k_pool, v_pool), tuple(_DTYPE_CODES),
-                       d)
+    _check_kernel_args("paged_decode", (k_pool, v_pool),
+                       tuple(_PAGED_DTYPE_CODES), d)
     if v_pool.dtype != k_pool.dtype:
         raise TypeError("paged_decode kernel takes pools of one dtype")
+    scale_ptrs = [None, None]
+    if quantized:
+        _check_kernel_args("paged_decode", scales, (torch.float32,), d)
+        if any(s.shape != (nb, bs, hkv, 1) for s in scales):
+            raise ValueError("paged_decode: scale pools must be [%d, %d, %d, "
+                             "1]" % (nb, bs, hkv))
+        if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+            raise ValueError("paged_decode: int8 arenas must be 16-byte "
+                             "aligned")
+        scale_ptrs = [s.data_ptr() for s in scales]
+    suffix = "_int8" if quantized else ""
     o = torch.empty((b, hkv, n_rows, d), dtype=torch.float32,
                     device=qf.device)
     l = torch.empty((b, hkv, n_rows), dtype=torch.float32, device=qf.device)
@@ -527,16 +567,17 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length):
         mx.fill_(_NEG_INF)
         return o, l, mx
     stream = torch.cuda.current_stream(qf.device).cuda_stream
-    dtype = _DTYPE_CODES[k_pool.dtype]
+    dtype = _PAGED_DTYPE_CODES[k_pool.dtype]
     lib = _paged_lib()
     if n_rows > SPLIT_MAX_ROWS:
         err = lib.edl_paged_decode_tile(
             qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), length.data_ptr(), o.data_ptr(), l.data_ptr(),
-            mx.data_ptr(), b, hkv, n_rows, m, bs, d, dtype, stream,
+            *scale_ptrs, table.data_ptr(), length.data_ptr(), o.data_ptr(),
+            l.data_ptr(), mx.data_ptr(), b, hkv, n_rows, m, bs, d, dtype,
+            stream,
         )
         _check_launch(err, "paged_decode_tile")
-        KERNEL_LAUNCHES["paged_decode_tile"] += 1
+        KERNEL_LAUNCHES["paged_decode_tile" + suffix] += 1
         return o, l, mx
     n_split, per_split = _paged_splits(b * hkv, m)
     o_part = torch.empty((n_split, b, hkv, n_rows, d), dtype=torch.float32,
@@ -545,14 +586,14 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length):
                          device=qf.device)
     m_part = torch.empty_like(l_part)
     err = lib.edl_paged_decode_split(
-        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
         table.data_ptr(), length.data_ptr(), o.data_ptr(), l.data_ptr(),
         mx.data_ptr(), o_part.data_ptr(), l_part.data_ptr(),
         m_part.data_ptr(), n_split, per_split, b, hkv, n_rows, m, bs, d,
         dtype, stream,
     )
     _check_launch(err, "paged_decode")
-    KERNEL_LAUNCHES["paged_decode"] += 1
+    KERNEL_LAUNCHES["paged_decode" + suffix] += 1
     return o, l, mx
 
 
@@ -567,8 +608,8 @@ def _paged_splits(bh, m):
 
 def _paged_lib():
     lib = _build.load("paged_decode")
-    for name, n_ptrs, n_ints in (("edl_paged_decode_tile", 8, 7),
-                                 ("edl_paged_decode_split", 11, 9)):
+    for name, n_ptrs, n_ints in (("edl_paged_decode_tile", 10, 7),
+                                 ("edl_paged_decode_split", 13, 9)):
         fn = getattr(lib, name)
         if not fn.argtypes:
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs
@@ -592,16 +633,30 @@ def paged_decode_attention(q, k_cur, v_cur, k_pool, v_pool, block_table,
     Tile row j sees pool rows k_pos < length and tile keys j' <= j.
     Returns [b, h, t, d] in float32. The pool stream runs through
     `paged_decode_partials`; the tile merge and the finalize are plain
-    PyTorch, as in the JAX package. int8 arenas and sliding windows are
+    PyTorch, as in the JAX package.
+
+    int8 arenas: the pools hold symmetric per-row int8 rows and
+    k_scale_pool/v_scale_pool [num_blocks, bs, hkv, 1] their fp32
+    scales; k_cur/v_cur are then int8 too, with k_cur_scale/v_cur_scale
+    [b, hkv, t, 1] ([b, hkv, 1] for t = 1). All four scale operands or
+    none. The tile's own keys fold their scales into the scores and its
+    values into the weights, as the pool rows do. Sliding windows are
     not ported yet."""
     if window is not None:
         raise NotImplementedError("paged_decode_attention: window")
-    if any(x is not None for x in (k_scale_pool, v_scale_pool,
-                                   k_cur_scale, v_cur_scale)):
-        raise NotImplementedError("paged_decode_attention: int8 arenas")
+    scales = (k_scale_pool, v_scale_pool, k_cur_scale, v_cur_scale)
+    quantized = k_scale_pool is not None
+    if any(x is not None for x in scales) and any(x is None for x in scales):
+        raise ValueError(
+            "int8 paged attention needs all four scale operands "
+            "(k_scale_pool, v_scale_pool, k_cur_scale, v_cur_scale)"
+        )
     squeeze = q.dim() == 3
     if squeeze:
         q, k_cur, v_cur = q[:, :, None], k_cur[:, :, None], v_cur[:, :, None]
+        if quantized:
+            k_cur_scale = k_cur_scale[:, :, None]
+            v_cur_scale = v_cur_scale[:, :, None]
     b, h, t, d = q.shape
     hkv = k_cur.shape[1]
     if h % hkv:
@@ -613,10 +668,16 @@ def paged_decode_attention(q, k_cur, v_cur, k_pool, v_pool, block_table,
     scale = scale if scale is not None else d ** -0.5
     f32 = torch.float32
     qf = (q.to(f32) * scale).reshape(b, hkv, group * t, d)
-    o, l, mx = paged_decode_partials(qf, k_pool, v_pool, block_table, length)
+    o, l, mx = paged_decode_partials(qf, k_pool, v_pool, block_table, length,
+                                     k_scale_pool, v_scale_pool)
     s_cur = torch.matmul(qf, k_cur.to(f32).transpose(-1, -2))
+    cur_w_scale = None
+    if quantized:
+        s_cur = s_cur * k_cur_scale[..., 0][:, :, None, :]
+        cur_w_scale = v_cur_scale[..., 0]
     tri = _tile_causal_mask(group, t, q.device)
     s_cur = torch.where(tri, s_cur, torch.full_like(s_cur, _NEG_INF))
-    o, l, mx = softmax_merge(o, l, mx, s_cur, v_cur.to(f32))
+    o, l, mx = softmax_merge(o, l, mx, s_cur, v_cur.to(f32),
+                             w_scale=cur_w_scale)
     out = softmax_finalize(o, l).reshape(b, h, t, d)
     return out[:, :, 0] if squeeze else out

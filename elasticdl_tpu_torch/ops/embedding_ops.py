@@ -113,17 +113,6 @@ def _gather_lib():
 # ------------------------------------------------------------- row updates
 
 
-def _row_math(rule, rows, g, hyper):
-    if rule == "sgd":
-        return [um.sgd_math(rows[0], g, hyper[0])]
-    if rule == "momentum":
-        return um.momentum_math(rows[0], rows[1], g, hyper[0], hyper[1],
-                                hyper[2] > 0)
-    if rule == "adam":
-        return um.adam_math(rows[0], rows[1], rows[2], g, *hyper)
-    return um.adagrad_math(rows[0], rows[1], g, hyper[0], hyper[1])
-
-
 @torch.no_grad()
 def row_update_plain(rule, tables, ids, grads, hyper):
     """Plain version of the row-update kernel: mask the ids in [0,
@@ -135,7 +124,7 @@ def row_update_plain(rule, tables, ids, grads, hyper):
     keep = (ids >= 0) & (ids < vocab)
     rows_at = ids[keep]
     g = grads.reshape(ids.numel(), -1)[keep]
-    new = _row_math(rule, [t[rows_at] for t in tables], g, hyper)
+    new = um.rule_math(rule, [t[rows_at] for t in tables], g, hyper)
     for t, rows in zip(tables, new):
         t.index_copy_(0, rows_at, rows)
 

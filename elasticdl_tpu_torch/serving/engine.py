@@ -15,6 +15,10 @@ port of elasticdl_tpu/serving/engine.py's PagedContinuousBatchingEngine.
 * evict returns a slot's blocks (shared ones survive under their other
   owners).
 
+With a model whose kv_cache_dtype is "int8" the arenas hold int8 rows
+and fp32 per-row scales; the engine scatters the quantized rows the
+model returns as they are.
+
 Token parity with the JAX engine: greedy streams are identical; sampled
 tokens follow the port's own (seed, position) contract
 (api/generation.py). Single-threaded by design: only the scheduler
@@ -31,6 +35,7 @@ from elasticdl_tpu_torch.api.generation import (
     run_prefill,
     serving_next_token,
 )
+from elasticdl_tpu_torch.model_zoo.transformer_lm import KV_CACHE_DTYPES
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 
 
@@ -56,6 +61,11 @@ class PagedContinuousBatchingEngine(object):
             raise ValueError("num_slots must be >= 1")
         if not 0.0 < top_p <= 1.0:
             raise ValueError("top_p must be in (0, 1], got %r" % (top_p,))
+        if model.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                "paged KV supports the plain-dtype and int8 cache formats "
+                "(kv_cache_dtype=%r)" % (model.kv_cache_dtype,)
+            )
         self.model = model.requires_grad_(False).use_compute_weights()
         self.device = model.device
         self.num_slots = int(num_slots)
@@ -168,8 +178,8 @@ class PagedContinuousBatchingEngine(object):
         pos = np.arange(start, start + t)
         bids = self.kv.tables[slot, pos // self.block_size]
         self.kv.scatter(
-            [(k[0, :, :t].transpose(0, 1), v[0, :, :t].transpose(0, 1))
-             for k, v in rows],
+            [tuple(leaf[0, :, :t].transpose(0, 1) for leaf in layer)
+             for layer in rows],
             bids, pos % self.block_size,
         )
         return serving_next_token(logits[0, t - 1], request.seed, p,
@@ -217,7 +227,7 @@ class PagedContinuousBatchingEngine(object):
             self.kv.pools, tables,
         )
         self.kv.scatter(
-            [(k[:, :, 0], v[:, :, 0]) for k, v in rows],
+            [tuple(leaf[:, :, 0] for leaf in layer) for layer in rows],
             self.kv.tables[idx, positions // self.block_size],
             positions % self.block_size,
         )

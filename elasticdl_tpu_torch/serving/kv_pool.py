@@ -19,6 +19,15 @@ export/import.
 * `PagedKVPool` owns the arenas and the write paths: block-granular
   prompt insertion, per-step row scatter and the device-side CoW copy.
 
+A layer's arenas are a tuple: (k, v) in the compute dtype, or for an
+int8 cache (`kv_cache_dtype="int8"`) (k, v, k_scale, v_scale): int8 rows
+and their fp32 per-row scales `[num_blocks, block_size, kv_heads, 1]`.
+Every write path carries each leaf of the tuple the same way, with no
+int8 case of its own (the JAX package's `kv_row_leaf` convention): rows
+arrive quantized from the model, and the arenas only ever receive them.
+The allocator and the prefix trie key on token ids, so sharing and CoW
+do not depend on the format. Byte counts sum each leaf at its own dtype.
+
 Writes go through plain tensor indexing. Where the JAX package drops
 out-of-range writes (`mode="drop"` on a `num_blocks` sentinel id), the
 port never builds such an index: callers pass only the rows to write.
@@ -336,53 +345,58 @@ class BlockAllocator(object):
 
 
 def build_pools(num_layers, kv_heads, head_dim, dtype, num_blocks,
-                block_size, device):
-    """Per-layer (k_arena, v_arena), each zeros [num_blocks, block_size,
-    kv_heads, head_dim] on `device`."""
+                block_size, device, kv_cache_dtype=""):
+    """Per-layer arenas of zeros on `device`: (k, v) [num_blocks,
+    block_size, kv_heads, head_dim] in `dtype`, or for kv_cache_dtype
+    "int8" (k, v) in int8 and (k_scale, v_scale) [num_blocks,
+    block_size, kv_heads, 1] in fp32."""
     shape = (num_blocks, block_size, kv_heads, head_dim)
-    return [
-        (torch.zeros(shape, dtype=dtype, device=device),
-         torch.zeros(shape, dtype=dtype, device=device))
-        for _ in range(num_layers)
-    ]
+    if kv_cache_dtype == "int8":
+        leaves = [(shape, torch.int8)] * 2 + [(shape[:3] + (1,),
+                                               torch.float32)] * 2
+    else:
+        leaves = [(shape, dtype)] * 2
+    return [tuple(torch.zeros(s, dtype=dt, device=device)
+                  for s, dt in leaves) for _ in range(num_layers)]
 
 
 def write_prompt_blocks(pools, kv, first_block, bids, block_size):
     """Insert blocks [first_block, first_block + len(bids)) of a
     prefilled sequence's rows into the arenas at block ids `bids`.
-    `kv` holds per-layer (k, v) rows [1, hkv, p_pad, d]; rows past p_pad
-    (a block wider than the prefill bucket) are written as zeros. Rows
-    past the true prompt length are junk that attention masks by length
-    and decode overwrites before reading."""
+    `kv` holds per-layer rows [1, hkv, p_pad, last], one per arena of
+    the layer; rows past p_pad (a block wider than the prefill bucket)
+    are written as zeros. Rows past the true prompt length are junk that
+    attention masks by length and decode overwrites before reading."""
     n = len(bids)
     lo, hi = first_block * block_size, (first_block + n) * block_size
     idx = torch.as_tensor(bids, dtype=torch.long, device=pools[0][0].device)
-    for (k_arena, v_arena), (k, v) in zip(pools, kv):
-        for arena, rows in ((k_arena, k), (v_arena, v)):
-            rows = rows[0, :, lo:hi]  # [hkv, <= n*bs, d]
+    for arenas, leaves in zip(pools, kv):
+        for arena, rows in zip(arenas, leaves):
+            rows = rows[0, :, lo:hi]  # [hkv, <= n*bs, last]
             if rows.shape[1] < hi - lo:
                 rows = torch.nn.functional.pad(
                     rows, (0, 0, 0, hi - lo - rows.shape[1]))
-            hkv, _, d = rows.shape
-            arena[idx] = rows.reshape(hkv, n, block_size, d).permute(
+            hkv, _, last = rows.shape
+            arena[idx] = rows.reshape(hkv, n, block_size, last).permute(
                 1, 2, 0, 3).to(arena.dtype)
 
 
 def copy_block(pools, src, dst):
-    """Device-side CoW: duplicate block `src` into `dst` in every arena."""
-    for k_arena, v_arena in pools:
-        k_arena[dst] = k_arena[src]
-        v_arena[dst] = v_arena[src]
+    """Device-side CoW: duplicate block `src` into `dst` in every arena
+    (int8 rows and their scales alike)."""
+    for arenas in pools:
+        for arena in arenas:
+            arena[dst] = arena[src]
 
 
 def scatter_rows(pools, rows, bids, offs):
-    """Write decode rows into the arenas: `rows` holds per-layer (k, v)
-    [n, hkv, d], one row per (bids[i], offs[i]) pair. Callers pass only
-    live rows, and distinct live rows target distinct (block, offset)
-    pairs."""
-    for (k_arena, v_arena), (k, v) in zip(pools, rows):
-        k_arena[bids, offs] = k.to(k_arena.dtype)
-        v_arena[bids, offs] = v.to(v_arena.dtype)
+    """Write decode rows into the arenas: `rows` holds per layer one
+    [n, hkv, last] tensor per arena, one row per (bids[i], offs[i])
+    pair. Callers pass only live rows, and distinct live rows target
+    distinct (block, offset) pairs."""
+    for arenas, leaves in zip(pools, rows):
+        for arena, leaf in zip(arenas, leaves):
+            arena[bids, offs] = leaf.to(arena.dtype)
 
 
 class PagedKVPool(object):
@@ -393,7 +407,8 @@ class PagedKVPool(object):
 
     def __init__(self, layout, cache_len, num_slots, num_blocks, block_size,
                  share_prefix=False, device="cuda"):
-        num_layers, kv_heads, head_dim, dtype = layout
+        num_layers, kv_heads, head_dim, dtype, kv_cache_dtype = layout
+        self.kv_cache_dtype = kv_cache_dtype
         cache_len, block_size = int(cache_len), int(block_size)
         if cache_len % block_size:
             raise ValueError(
@@ -408,13 +423,16 @@ class PagedKVPool(object):
         self.allocator = BlockAllocator(num_blocks, block_size,
                                         share_prefix=share_prefix)
         self.pools = build_pools(num_layers, kv_heads, head_dim, dtype,
-                                 self.num_blocks, block_size, self.device)
+                                 self.num_blocks, block_size, self.device,
+                                 kv_cache_dtype)
         self.tables = np.full(
             (int(num_slots), self.max_blocks_per_slot), -1, np.int32
         )
         self._tables_dev = None
+        # each leaf at its own dtype: int8 rows and fp32 scales
         self.bytes_total = int(sum(
-            a.numel() * a.element_size() for pair in self.pools for a in pair
+            a.numel() * a.element_size() for arenas in self.pools
+            for a in arenas
         ))
         self.block_bytes = self.bytes_total // max(1, self.num_blocks)
 
@@ -445,7 +463,8 @@ class PagedKVPool(object):
                                 table[start_block:end], self.block_size)
 
     def scatter(self, rows, bids, offs):
-        """Write per-layer decode rows [n, hkv, d] at (bids, offs)."""
+        """Write per-layer decode rows [n, hkv, last], one per arena, at
+        (bids, offs)."""
         dev = self.device
         scatter_rows(self.pools, rows,
                      torch.as_tensor(bids, dtype=torch.long, device=dev),
@@ -496,6 +515,7 @@ class PagedKVPool(object):
         return {
             "kv_paged": True,
             "kv_shared": alloc.share_prefix,
+            "kv_cache_dtype": self.kv_cache_dtype,
             "kv_block_size": self.block_size,
             "kv_blocks_total": self.num_blocks,
             "kv_blocks_free": alloc.num_free() + alloc.num_cached(),

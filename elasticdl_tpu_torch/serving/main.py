@@ -9,7 +9,13 @@ and answers the requests read from stdin, one JSON object per line:
 
 Each answer is one JSON line {"tokens": [...prompt + generated]} or
 {"error": code, "message": ...}, in request order; the requests are
-submitted together, so they are served concurrently.
+submitted together, so they are served concurrently. A line
+{"status": true} is answered with the server's status when the answers
+before it are in (`GenerationServer.status`: slots, queue, the KV pool's
+format `kv_cache_dtype`, blocks and bytes).
+
+An int8 KV cache is a model parameter, as in the JAX package:
+`--model_params "...; kv_cache_dtype='int8'"`.
 
     echo '{"prompt": [1, 2, 3], "max_new_tokens": 8}' | \\
     python -m elasticdl_tpu_torch.serving.main --device cuda \\
@@ -88,6 +94,9 @@ def serve_lines(server, lines):
         if not line.strip():
             continue
         spec = json.loads(line)
+        if spec.get("status"):
+            pending.append(("status", None))
+            continue
         try:
             req = server.submit(
                 spec["prompt"], spec["max_new_tokens"],
@@ -100,6 +109,9 @@ def serve_lines(server, lines):
             pending.append((None, e))
     answers = []
     for req, err in pending:
+        if req == "status":
+            answers.append({"status": server.status()})
+            continue
         if err is None:
             try:
                 for _chunk in server.events(req):

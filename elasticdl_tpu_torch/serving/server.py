@@ -171,6 +171,19 @@ class GenerationServer(object):
         if self.scheduler.is_alive():
             self.scheduler.join(timeout=timeout)
 
+    def status(self):
+        """The replica's status, as the JAX servicer's ServerStatus
+        reports it: queue and slot occupancy, completed requests and the
+        KV pool's stats (the arenas' format under `kv_cache_dtype`: ""
+        or "int8"; blocks; bytes summed per leaf at its dtype)."""
+        return dict(
+            queue_depth=len(self.queue),
+            active_slots=self.engine.active_count(),
+            num_slots=self.engine.num_slots,
+            completed=self.scheduler.completed,
+            **self.engine.kv_stats(),
+        )
+
     def submit(self, prompt, max_new_tokens, temperature=0.0, seed=0,
                deadline_ms=0):
         """Admit one request (raises AdmissionError) and return it."""

@@ -135,7 +135,9 @@ def test_paged_unported_options_raise():
         seed=1, b=1, h=1, hkv=1, t=1, d=8, bs=4, nb=4, m=2, lengths=[3])]
     with pytest.raises(NotImplementedError):
         tatt.paged_decode_attention(*args, window=2)
-    with pytest.raises(NotImplementedError):
+    # int8 arenas are ported; a partial set of scale operands is refused,
+    # as the JAX op refuses it
+    with pytest.raises(ValueError, match="all four scale operands"):
         tatt.paged_decode_attention(*args, k_scale_pool=args[3])
 
 
