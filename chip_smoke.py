@@ -77,12 +77,35 @@ repository checkout it sits in. Phases, each of which fails the run:
    for device time; E and F over 26 distinct tables and id columns, as a
    step issues them, with L2 flushed before each round), beside the
    plain version, a library call where one computes the same function,
-   and the bound implied by the card's published peaks.
+   and the bound implied by the card's published peaks;
+14. the mask variants of A, C, D (window, segments, both) and B (window:
+   float and int8 split and tile kernels) against their plain versions
+   at small shapes (fp32 and bf16, causal or not, windows 1, 2, 37, 300,
+   ragged segments, GQA groups 1-4; paged t 1, 3, 8, 9, 128 with groups
+   1, 2, 4, windows shorter than the tile) and at the paths' shapes (b =
+   8, h = 8, l = 1024, d = 128 with window 256 and with packed segments;
+   the windowed decode step and suffix tile), within the unmasked
+   kernels' limits;
+15. the windowed paths (attn_window = 256 at the flagship width): the 16
+   requests served with bf16 and with int8 arenas (16/16, the window
+   variants of A and B launched and the unwindowed ones not), a small
+   windowed fp32 model's greedy streams on the card equal to the CPU's,
+   4 LocalExecutor training steps (A, C, D's window variants once per
+   layer in every step);
+16. the packed paths: the packed family (transformer_lm_packed, 128-token
+   rows) 4 LocalExecutor steps at the flagship width over document
+   records; the flagship at seq_len 1024 on packed rows (pack_sequences
+   over documents of 64-1024 tokens, then bench.py's packed=4 layout),
+   2 + 4 Trainer steps each; the segment variants once per layer in
+   every step; a packed row's logits against its documents run alone;
+17. the mask variants timed at the paths' shapes, beside a bound over
+   the pairs the mask keeps, the plain version and
+   F.scaled_dot_product_attention with the same boolean mask.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
-JSON line, the nvidia-smi line and, last, {"ok": true, "device":
-{...}}.
+JSON line, a `packed` and a `windowed` JSON line, the nvidia-smi line
+and, last, {"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
@@ -105,12 +128,14 @@ from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.hash_utils import string_to_id
 from elasticdl_tpu_torch.common.model_utils import load_model_spec_from_module
 from elasticdl_tpu_torch.convert import dlrm_params_from_flax, params_from_flax
+from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.data.dataset import pad_batch
 from elasticdl_tpu_torch.data.example_codec import encode_example
 from elasticdl_tpu_torch.data.record_format import RecordWriter
 from elasticdl_tpu_torch.master.task_dispatcher import Task, TaskType
 from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
+from elasticdl_tpu_torch.model_zoo import transformer_lm_packed as tpacked
 from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     TransformerLM,
     kv_quantize_rows,
@@ -368,6 +393,18 @@ def rel_err(a, b):
     if b.numel() == 0:
         return 0.0
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def masked_rel_err(a, b):
+    """rel_err with the largest reference value taken as at least 1, the
+    size of the unit-variance inputs: under a window of 1 a row sees only
+    its own key, so dS = P (dP - delta) is 0 in exact arithmetic and dq,
+    dk are the rounding of unit-size terms (about 1e-6), which a relative
+    error of their own would read as 0.5-1. Where an output's largest
+    value is 1 or more, this is rel_err."""
+    if b.numel() == 0:
+        return 0.0
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
 
 
 def partials_errs(got, ref):
@@ -744,16 +781,26 @@ def serving_specs(rng):
     return specs
 
 
-def serve_flagship(specs, kv_cache_dtype=""):
+def serving_kernels(kv_cache_dtype="", attn_window=0):
+    """The kernel variants the serving path launches: flash forward
+    (prefill) and the paged split and tile kernels, int8 or float, with
+    their window variants under a sliding window."""
+    names = SERVING_INT8_KERNELS if kv_cache_dtype else SERVING_KERNELS
+    return tuple(n + "_window" for n in names) if attn_window else names
+
+
+def serve_flagship(specs, kv_cache_dtype="", attn_window=0):
     """Greedy requests `specs` through the port's server at flagship
-    width, the KV arenas in the compute dtype or int8. Returns the
+    width, the KV arenas in the compute dtype or int8, every layer
+    sliding-window attention when `attn_window` is set. Returns the
     serving metrics and the kernel launch counts of the run."""
     model = TransformerLM(device="cuda", seed=0,
-                          kv_cache_dtype=kv_cache_dtype, **FLAGSHIP)
+                          kv_cache_dtype=kv_cache_dtype,
+                          attn_window=attn_window, **FLAGSHIP)
     server = GenerationServer(model, ServingConfig(
         num_slots=8, queue_capacity=64, kv_block_size=16, kv_shared=True,
     )).start()
-    kernels = SERVING_INT8_KERNELS if kv_cache_dtype else SERVING_KERNELS
+    kernels = serving_kernels(kv_cache_dtype, attn_window)
     try:
         # warm the card (cuBLAS handles, allocator) outside the counts
         server.generate([1, 2, 3, 4], 2)
@@ -811,10 +858,13 @@ def serve_flagship(specs, kv_cache_dtype=""):
     for name in kernels:
         check(launches[name] > 0,
               "kernel %s was not launched on the serving path" % name)
-    for name in set(SERVING_KERNELS + SERVING_INT8_KERNELS) - set(kernels):
+    every = {n for kv in ("", "int8") for w in (0, 1)
+             for n in serving_kernels(kv, w)}
+    for name in every - set(kernels):
         check(launches[name] == 0,
-              "kernel %s was launched on the %s serving path"
-              % (name, kv_cache_dtype or "bf16"))
+              "kernel %s was launched on the %s%s serving path"
+              % (name, kv_cache_dtype or "bf16",
+                 " windowed" if attn_window else ""))
     return metrics, launches
 
 
@@ -1102,18 +1152,22 @@ def _write_token_records(path, n, rng):
                 0, FLAGSHIP["vocab_size"], size=(length,)).astype(np.int64)}))
 
 
-def train_flagship(rng, workdir):
-    """TRAIN_STEPS steps of the flagship model through LocalExecutor
-    (minibatch TRAIN_BATCH) over token records on disk. Returns the
-    training metrics, the executor and the kernel launches of the run."""
+def train_flagship(rng, workdir, attn_window=0):
+    """TRAIN_STEPS steps of the flagship model (sliding-window attention
+    when `attn_window` is set) through LocalExecutor (minibatch
+    TRAIN_BATCH) over token records on disk. Returns the training
+    metrics, the executor and the kernel launches of the run."""
     data = os.path.join(workdir, "train")
     os.makedirs(data)
     _write_token_records(os.path.join(data, "tokens-00000.trec"),
                          TRAIN_BATCH * TRAIN_STEPS + 3, rng)
+    cfg = dict(FLAGSHIP, attn_window=attn_window) if attn_window else FLAGSHIP
+    kernels = tuple(n + "_window" if attn_window else n
+                    for n in TRAINING_KERNELS)
     executor = LocalExecutor(
         load_model_spec_from_module(tzoo), training_data=data,
         minibatch_size=TRAIN_BATCH, max_steps=TRAIN_STEPS,
-        model_params=_params_str(FLAGSHIP), device="cuda")
+        model_params=_params_str(cfg), device="cuda")
     steps = []
     step_fn = executor.trainer.train_step
 
@@ -1126,7 +1180,7 @@ def train_flagship(rng, workdir):
         steps.append({
             "ms": (time.perf_counter() - t0) * 1e3,
             "launches": {k: att.KERNEL_LAUNCHES[k] - before[k]
-                         for k in TRAINING_KERNELS},
+                         for k in att.KERNEL_LAUNCHES},
         })
         return out
 
@@ -1159,10 +1213,11 @@ def train_flagship(rng, workdir):
           % (losses[0], FLAGSHIP["vocab_size"], expected))
     layers = FLAGSHIP["num_layers"]
     for i, s in enumerate(steps):
-        for name in TRAINING_KERNELS:
-            check(s["launches"][name] == layers,
-                  "step %d launched %s %d times, not once per layer (%d)"
-                  % (i, name, s["launches"][name], layers))
+        for name, count in s["launches"].items():
+            want = layers if name in kernels else 0
+            check(count == want,
+                  "step %d launched %s %d times, not %d" % (i, name, count,
+                                                            want))
     timed = np.asarray([s["ms"] for s in steps[1:]])
     step_ms = float(np.percentile(timed, 50))
     tokens = TRAIN_BATCH * FLAGSHIP["seq_len"]
@@ -1170,7 +1225,8 @@ def train_flagship(rng, workdir):
         TRAIN_BATCH, FLAGSHIP["seq_len"], FLAGSHIP["embed_dim"], layers,
         FLAGSHIP["vocab_size"])
     metrics = {
-        "model": "transformer_lm flagship, bf16 compute, fp32 params",
+        "model": "transformer_lm flagship, bf16 compute, fp32 params"
+                 + (", attn_window %d" % attn_window if attn_window else ""),
         "minibatch": TRAIN_BATCH, "seq_len": FLAGSHIP["seq_len"],
         "steps": TRAIN_STEPS,
         "step_ms": [s["ms"] for s in steps],
@@ -1183,7 +1239,7 @@ def train_flagship(rng, workdir):
         "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
         "losses": losses, "expected_first_loss": expected,
         "wall_s": wall,
-        "launches_per_step": steps[-1]["launches"],
+        "launches_per_step": {k: steps[-1]["launches"][k] for k in kernels},
     }
     return metrics, executor, launches
 
@@ -1234,12 +1290,18 @@ def profile_train_step(executor, rng, steps=2):
     """Where a flagship training step's time goes: after one warm step,
     `steps` more steps of the executor's trainer on one batch timed on
     the host clock, then as many under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    trainer, state = executor.trainer, executor.state
     tokens = rng.randint(0, FLAGSHIP["vocab_size"], size=(
         TRAIN_BATCH, FLAGSHIP["seq_len"] + 1)).astype(np.int32)
     batch = ({"tokens": tokens[:, :-1]}, tokens[:, 1:])
+    return profile_steps(executor.trainer, executor.state, batch, steps)
+
+
+def profile_steps(trainer, state, batch, steps=2):
+    """One warm train_step on `batch`, `steps` more timed on the host
+    clock, then as many under torch.profiler: the step's device time by
+    kernel and its busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
     state, _ = trainer.train_step(state, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1991,6 +2053,682 @@ def time_dense(path_launches):
     return entries
 
 
+# ------------------------------------------- packed and windowed slices
+
+
+WINDOW = 256  # the windowed flagship's attn_window
+PACKED_BATCH, PACKED_STEPS = 8, 4  # the packed family's LocalExecutor run
+PACKED_DOCS = 400  # records of 4-48 tokens, as gen_docs_like writes them
+PACKED_WARM, PACKED_TIMED = 2, 4  # the packed flagship steps per layout
+# a packed row's logits against each of its documents run alone, fp32 at
+# flagship width with TF32 off: the runs differ only in the order of sums
+# (a document's key tiles start at another offset in the row, cuBLAS may
+# split a taller matrix otherwise), about 1e-6 of the largest logit
+PACKED_LOGIT_TOL_REL = 1e-4
+# a small windowed fp32 model served on the card and on the CPU: greedy
+# streams must be equal; windows far shorter than the prompts
+SMALL_WINDOWED = dict(vocab_size=4096, seq_len=256, embed_dim=256,
+                      num_heads=2, num_layers=2, attn_window=32)
+MASKED_FLASH_SMALL = [(4, 4, 64), (8, 4, 128), (8, 2, 64), (4, 1, 128)]
+
+
+def masked_training_kernels(variant):
+    return tuple("%s_%s" % (n, variant) for n in TRAINING_KERNELS)
+
+
+def packed_segments(gen, b, l, docs=6):
+    """[b, l] int32 ids of contiguous runs of ragged lengths, a one-token
+    run first, drawn by `gen`."""
+    seg = torch.zeros(b, l, dtype=torch.int32)
+    for i in range(b):
+        cuts = (torch.randperm(l - 2, generator=gen)[:docs - 2] + 2).tolist()
+        for c in [1] + sorted(cuts):
+            seg[i, c:] += 1
+    return seg
+
+
+def doc_rows(rng, n_rows, row_len, lo, hi, most_docs=False):
+    """n_rows rows of the port's pack_sequences over documents of lo..hi
+    tokens: (tokens, segment_ids, labels). The first rows (first-fit
+    decreasing opens them with the longest documents), or with
+    `most_docs` the rows holding the most documents."""
+    vocab = FLAGSHIP["vocab_size"]
+    docs = [rng.randint(0, vocab, size=rng.randint(lo, hi + 1))
+            for _ in range(3 * n_rows * row_len // ((lo + hi) // 2) + 1)]
+    tokens, seg, labels = packing.pack_sequences(docs, row_len)
+    check(tokens.shape[0] >= n_rows, "too few packed rows")
+    rows = np.arange(n_rows)
+    if most_docs:
+        rows = np.argsort(-docs_per_row(seg, labels), kind="stable")[:n_rows]
+    return tokens[rows], seg[rows], labels[rows]
+
+
+def docs_per_row(seg, labels):
+    """Documents in each packed row: its segments that carry a target
+    (the pad tail carries none)."""
+    return np.array([
+        sum(1 for sid in np.unique(s) if (l[s == sid] >= 0).any())
+        for s, l in zip(np.asarray(seg), np.asarray(labels))])
+
+
+def real_tokens(seg, labels):
+    """Tokens of packed rows that belong to a document (packing_efficiency's
+    count): a segment with m >= 2 tokens carries m - 1 targets; the pad
+    tail carries none."""
+    seg, labels = np.asarray(seg), np.asarray(labels)
+    real = 0
+    for r in range(seg.shape[0]):
+        for sid in np.unique(seg[r]):
+            n = int((labels[r][seg[r] == sid] != packing.IGNORE_LABEL).sum())
+            real += n + 1 if n else 0
+    return real
+
+
+def _flash_case(q, k, v, do, causal, masks):
+    """Kernels A, C, D on one input against their plain versions: (errors
+    by kernel, the variant's name)."""
+    variant = att._variant("", masks.get("window"),
+                           masks.get("q_seg") is not None)
+    out, lse = att.flash_forward(q, k, v, causal=causal, **masks)
+    dq, delta = att.flash_backward_dq(q, k, v, out, lse, do, causal=causal,
+                                      **masks)
+    dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta, causal=causal,
+                                    **masks)
+    torch.cuda.synchronize()
+    ref, ref_lse = att.flash_attention_plain(q, k, v, causal=causal, **masks)
+    pdq, pdelta = att.flash_backward_dq_plain(q, k, v, out, lse, do,
+                                              causal=causal, **masks)
+    pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse, pdelta,
+                                            causal=causal, **masks)
+    errs = {"flash_fwd": {
+        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+        "lse_max_abs_err": (lse - ref_lse).abs().max().item()}}
+    for name, pairs in (("flash_bwd_dq", ((dq, pdq), (delta, pdelta))),
+                        ("flash_bwd_dkv", ((dk, pdk), (dv, pdv)))):
+        check(all(torch.isfinite(a.float()).all().item() for a, _ in pairs),
+              "%s%s: non-finite output" % (name, variant))
+        errs[name] = {
+            "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                               for a, b in pairs),
+            "max_rel_err": max(masked_rel_err(a.float(), b.float())
+                               for a, b in pairs)}
+    check(torch.isfinite(out.float()).all().item(),
+          "flash_fwd%s: non-finite output" % variant)
+    return errs, variant
+
+
+def _check_flash_errs(errs, variant, dtype, where):
+    fwd = errs["flash_fwd"]
+    check(fwd["max_abs_err"] <= FLASH_TOL_OUT
+          and fwd["lse_max_abs_err"] <= FLASH_TOL_LSE,
+          "flash_fwd%s disagrees with its plain version at %s: %s"
+          % (variant, where, fwd))
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(errs[name]["max_rel_err"] <= BWD_TOL_REL[dtype],
+              "%s%s disagrees with its plain version at %s: %s"
+              % (name, variant, where, errs[name]))
+
+
+def _worst(acc, name, errs):
+    slot = acc.setdefault(name, {})
+    for key, value in errs.items():
+        slot[key] = max(slot.get(key, 0.0), value)
+
+
+def check_masked_flash(gen, rng):
+    """Kernels A, C and D with their window and segment variants against
+    their plain versions. Small shapes: fp32 and bf16, causal or not,
+    windows none, 1, 2, 37 (no multiple of the 64-row tile) and 300
+    (past the sequence), ragged packed segments or none, GQA groups 1, 2
+    and 4, d 64 and 128, b = 2, l = 200 (ragged against the tiles). Then
+    the training path's shape, b = 8, h = 8, l = 1024, d = 128, bf16,
+    causal: window 256, and the segments of pack_sequences over
+    documents of 64-1024 tokens. Limits: FLASH_TOL_OUT / FLASH_TOL_LSE
+    for A, BWD_TOL_REL for C and D (by masked_rel_err), those of the
+    unmasked kernels.
+    Returns ({kernel variant: worst errors}, the path shape's worst
+    errors, the path shape's inputs)."""
+    worst, path_worst = {}, {}
+    i = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for window in (None, 1, 2, 37, 300):
+                for packed in (False, True):
+                    h, hkv, d = MASKED_FLASH_SMALL[i % 4]
+                    i += 1
+                    q, k, v = flash_inputs(gen, 2, h, hkv, 200, d, dtype)
+                    do = flash_inputs(gen, 2, h, h, 200, d, dtype)[0]
+                    masks = {"window": window}
+                    if packed:
+                        seg = packed_segments(gen, 2, 200).cuda()
+                        masks.update(q_seg=seg, k_seg=seg)
+                    if window is None and not packed:
+                        continue  # the unmasked kernels: check_flash_bwd
+                    errs, variant = _flash_case(q, k, v, do, causal, masks)
+                    where = ("h=%d hkv=%d d=%d causal=%s window=%s %s"
+                             % (h, hkv, d, causal, window, dtype))
+                    _check_flash_errs(errs, variant, dtype, where)
+                    for name, e in errs.items():
+                        _worst(worst, name + variant, e)
+    b, h, l, d = TRAIN_BATCH, 8, FLAGSHIP["seq_len"], 128
+    q, k, v = flash_inputs(gen, b, h, h, l, d, torch.bfloat16)
+    do = flash_inputs(gen, b, h, h, l, d, torch.bfloat16)[0]
+    seg = torch.as_tensor(doc_rows(rng, b, l, 64, 1024)[1]).cuda()
+    path = {"window": {"window": WINDOW},
+            "segments": {"q_seg": seg, "k_seg": seg}}
+    for key, masks in path.items():
+        errs, variant = _flash_case(q, k, v, do, True, masks)
+        _check_flash_errs(errs, variant, torch.bfloat16,
+                          "the path shape (%s)" % key)
+        log("masked flash at the path shape, %s: %s" % (key, errs))
+        for name, e in errs.items():
+            _worst(path_worst, name + variant, e)
+    log("masked flash kernels, worst at small shapes: %s" % worst)
+    return worst, path_worst, (q, k, v, do, path)
+
+
+def _paged_case(args, window, t, int8):
+    """Kernel B's window variant on one input against the plain version:
+    the relative errors of o, l, m, with rows that see no pool row
+    required to be exactly (0, 0, -1e30)."""
+    if int8:
+        args = quantize_pools(args)
+    o, l, mx = att.paged_decode_partials(*args, window=window, t=t)
+    torch.cuda.synchronize()
+    po, pl, pm = att.paged_decode_partials_plain(*args, window=window, t=t)
+    dead = pl == 0
+    check(bool((o[dead] == 0).all()) and bool((l[dead] == 0).all())
+          and bool((mx[dead] == att.NEG_INF).all()),
+          "paged window: a row that sees no pool row is not (0, 0, -1e30)")
+    check(all(torch.isfinite(x).all().item() for x in (o, l)),
+          "paged window: non-finite partials")
+    e_abs = max((o - po).abs().max().item(), (l - pl).abs().max().item())
+    return partials_errs((o, l, mx), (po, pl, pm)), e_abs, int(dead.sum())
+
+
+def check_masked_paged(gen):
+    """Kernel B's window variants (float and int8 split kernels, float
+    and int8 tile kernels) against the plain version. Small shapes: t 1,
+    3, 8, 9 and 128 with groups 1, 2 and 4 (row r of the group-major
+    query axis is tile token r % t: a wrong map passes every t = 1 case),
+    windows shorter than the tile, a length 0 and a -1 hole inside a
+    live range, bf16 and int8 arenas. Then the windowed serving path's
+    shapes: 8 slots at t = 1 over lengths under 1000 and a 128-row suffix
+    tile over a 256-token prefix, window 256. Limits PAGED_TOL_REL (bf16)
+    and PAGED_INT8_TOL_REL (int8), those of the unmasked kernels.
+    Returns ({variant: worst rel err}, the path shapes' cases)."""
+    worst = {}
+    dead_rows = 0
+    windows = {1: 6, 3: 2, 8: 40, 9: 5, 128: 100}
+    for t, window in windows.items():
+        for group in (1, 2, 4):
+            d, bs = (128, 16) if (t + group) % 2 else (64, 4)
+            for int8 in (False, True):
+                args, _lens = paged_inputs(
+                    gen, b=3, hkv=2, group=group, t=t, d=d, bs=bs, m=8,
+                    num_blocks=40, lengths=[bs * 5 + 3, 0, bs * 2 + 1])
+                args[3][0, 1] = -1  # a hole inside sequence 0's range
+                errs, e_abs, dead = _paged_case(args, window, t, int8)
+                dead_rows += dead
+                name = ("paged_decode_tile" if group * t > att.SPLIT_MAX_ROWS
+                        else "paged_decode") + ("_int8" if int8 else "")
+                tol = PAGED_INT8_TOL_REL if int8 else PAGED_TOL_REL
+                check(max(errs) <= tol,
+                      "%s_window disagrees with its plain version at t=%d "
+                      "group=%d window=%d: %s" % (name, t, group, window,
+                                                  errs))
+                _worst(worst, name + "_window", {
+                    "small_shapes_max_rel_err": max(errs),
+                    "small_shapes_max_abs_err": e_abs})
+    # windows shorter than the tile must have left rows with no pool row
+    check(dead_rows > 0, "no windowed row saw an empty pool")
+    paged_gen = torch.Generator().manual_seed(PAGED_TIMING_SEED + 1)
+    cases = []
+    for t, lengths, label in ((1, None, "b=8 t=1"),
+                              (128, [256], "b=1 t=128")):
+        args, lens = paged_inputs(paged_gen, b=1 if lengths else 8, t=t,
+                                  lengths=lengths)
+        for int8 in (False, True):
+            errs, e_abs, _dead = _paged_case(args, WINDOW, t, int8)
+            name = ("paged_decode_tile" if t > att.SPLIT_MAX_ROWS
+                    else "paged_decode") + ("_int8" if int8 else "")
+            tol = PAGED_INT8_TOL_REL if int8 else PAGED_TOL_REL
+            check(max(errs) <= tol,
+                  "%s_window disagrees with its plain version at the "
+                  "path shape %s: %s" % (name, label, errs))
+            _worst(worst, name + "_window",
+                   {"max_rel_err": max(errs), "max_abs_err": e_abs,
+                    "max_err": e_abs})
+            cases.append((name + "_window", t, label, args, lens, int8))
+    log("paged window kernels, worst rel err: %s (%d empty rows)"
+        % (worst, dead_rows))
+    return worst, cases
+
+
+def drive_engine(engine, requests):
+    """Seat requests in order as slots and blocks allow, step until every
+    one has finished; returns their generated tokens."""
+    pending = list(requests)
+    for _ in range(10_000):
+        while pending and engine.free_slots() and engine.can_seat(
+                pending[0]):
+            engine.insert(pending.pop(0))
+        if not pending and not engine.active_count():
+            break
+        engine.step()
+    check(not pending and not engine.active_count(), "engine did not drain")
+    return [list(r.generated) for r in requests]
+
+
+def compare_windowed_streams(rng):
+    """A small windowed fp32 model (SMALL_WINDOWED, numpy weights) served
+    through the paged engine on the card and on the CPU: 8 greedy
+    requests with prompts of 40-120 tokens (longer than the window of
+    32), 4 of them on a shared 64-token prefix (suffix tiles of more than
+    8 rows over resident blocks); the streams must be equal, and the
+    card run must go through the windowed split and tile kernels."""
+    from elasticdl_tpu_torch.serving.admission import ServingRequest
+    from elasticdl_tpu_torch.serving.engine import (
+        PagedContinuousBatchingEngine,
+    )
+
+    cfg = SMALL_WINDOWED
+    sd = params_from_flax(numpy_flax_params(cfg, seed=5))
+    vocab = cfg["vocab_size"]
+    prefix = rng.randint(0, vocab, size=64).tolist()
+    specs = []
+    for i in range(8):
+        p_len = int(rng.randint(74 if i % 2 == 0 else 40, 121))
+        prompt = (prefix + rng.randint(0, vocab, size=p_len - 64).tolist()
+                  if i % 2 == 0 else rng.randint(0, vocab,
+                                                 size=p_len).tolist())
+        specs.append((prompt, int(rng.randint(16, 33))))
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(device=dev, **cfg)
+        model.load_state_dict(sd)
+        engine = PagedContinuousBatchingEngine(model, 4, block_size=16)
+        att.reset_launch_counts()
+        streams[dev] = drive_engine(engine, [ServingRequest(p, n)
+                                             for p, n in specs])
+        if dev == "cuda":
+            launches = dict(att.KERNEL_LAUNCHES)
+    for name in ("flash_fwd_window", "paged_decode_window",
+                 "paged_decode_tile_window"):
+        check(launches[name] > 0, "the small windowed model's card run did "
+              "not launch %s" % name)
+    equal = streams["cuda"] == streams["cpu"]
+    log("small windowed model, card vs cpu greedy streams equal: %s" % equal)
+    check(equal, "windowed greedy streams differ between the card and the "
+          "CPU: %s / %s" % (streams["cuda"], streams["cpu"]))
+    return {"requests": len(specs), "tokens": sum(map(len, streams["cuda"])),
+            "streams_equal": equal, "config": {
+                k: v for k, v in cfg.items()}, "launches": {
+                k: v for k, v in launches.items() if v}}
+
+
+def compare_packed_rows(rng):
+    """A packed row's logits against those of each of its documents run
+    alone, on the card at the flagship width (2 layers, fp32, seeded
+    weights): the row of pack_sequences over documents of 32-400 tokens
+    that holds the most documents. Within PACKED_LOGIT_TOL_REL of the
+    largest logit."""
+    cfg = dict(FLAGSHIP, num_layers=2, dtype=torch.float32)
+    model = TransformerLM(device="cuda", seed=2, **cfg).requires_grad_(False)
+    tokens, seg, labels = doc_rows(rng, 1, cfg["seq_len"], 32, 400,
+                                   most_docs=True)
+    dev = model.device
+    with torch.no_grad():
+        packed = model({"tokens": torch.as_tensor(tokens, device=dev),
+                        "segment_ids": torch.as_tensor(seg, device=dev)})
+        worst, docs = 0.0, 0
+        for sid in np.unique(seg[0]):
+            span = np.flatnonzero(seg[0] == sid)
+            if not (labels[0][span] != packing.IGNORE_LABEL).any():
+                continue  # the pad tail
+            alone = model({"tokens": torch.as_tensor(tokens[:, span],
+                                                     device=dev)})
+            err = rel_err(packed[0, span[0]:span[-1] + 1], alone[0])
+            worst, docs = max(worst, err), docs + 1
+    log("packed row vs its %d documents alone (fp32, flagship width): rel "
+        "err %.3g" % (docs, worst))
+    check(docs >= 2, "the packed row holds %d documents" % docs)
+    check(worst <= PACKED_LOGIT_TOL_REL,
+          "a packed row's logits differ from its documents' by %.3g of the "
+          "largest logit" % worst)
+    return {"documents": docs, "max_rel_err": worst,
+            "limit_rel": PACKED_LOGIT_TOL_REL}
+
+
+def _step_metrics(step_ms, batch, seq, real, peak_bytes):
+    flops = transformer_flops_per_step(
+        batch, seq, FLAGSHIP["embed_dim"], FLAGSHIP["num_layers"],
+        FLAGSHIP["vocab_size"])
+    share = real / (batch * seq)
+    return {
+        "step_ms_p50": step_ms,
+        "tokens_per_s": batch * seq / (step_ms / 1e3),
+        "real_tokens_per_step": real, "real_token_share": share,
+        "real_tokens_per_s": real / (step_ms / 1e3),
+        "mfu_real_tokens": flops * share / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        "peak_memory_bytes": peak_bytes,
+    }
+
+
+def _check_step_launches(steps, kernels, what):
+    layers = FLAGSHIP["num_layers"]
+    for i, s in enumerate(steps):
+        for name, count in s.items():
+            want = layers if name in kernels else 0
+            check(count == want, "%s step %d launched %s %d times, not %d"
+                  % (what, i, name, count, want))
+
+
+def _write_doc_records(path, n, rng):
+    """n documents of 4-48 tokens (gen_docs_like's records: "tokens" and
+    "vocab_size") through the port's writer."""
+    vocab = FLAGSHIP["vocab_size"]
+    with RecordWriter(path) as w:
+        for _ in range(n):
+            w.write(encode_example({
+                "tokens": rng.randint(0, vocab, size=rng.randint(4, 49))
+                .astype(np.int64),
+                "vocab_size": np.array(vocab, np.int64)}))
+
+
+def train_packed_family(rng, workdir):
+    """The packed family (transformer_lm_packed, seq_len ROW_LEN = 128)
+    at the flagship width through LocalExecutor (minibatch 8, 4 steps)
+    over PACKED_DOCS document records written by the port's RecordWriter:
+    finite losses, the first within 0.5 of ln(vocab) + 1/2, and kernels
+    A, C, D launched in their segment variants once per layer in every
+    step, the unmasked ones never; then the last batch's steps profiled
+    (the launches are read before)."""
+    data = os.path.join(workdir, "docs")
+    os.makedirs(data)
+    _write_doc_records(os.path.join(data, "docs-00000.trec"), PACKED_DOCS,
+                       rng)
+    cfg = dict(FLAGSHIP, seq_len=tpacked.ROW_LEN)
+    executor = LocalExecutor(
+        load_model_spec_from_module(tpacked), training_data=data,
+        minibatch_size=PACKED_BATCH, max_steps=PACKED_STEPS,
+        records_per_task=PACKED_DOCS, model_params=_params_str(cfg),
+        device="cuda")
+    steps, batches = [], []
+    step_fn = executor.trainer.train_step
+
+    def timed_step(state, batch, true_count=None):
+        before = dict(att.KERNEL_LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch, true_count)
+        torch.cuda.synchronize()
+        batches.append(batch)
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "real": real_tokens(batch[0]["segment_ids"], batch[1]),
+                      "launches": {k: att.KERNEL_LAUNCHES[k] - before[k]
+                                   for k in att.KERNEL_LAUNCHES}})
+        return out
+
+    executor.trainer.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    state, _ = executor.train()
+    torch.cuda.synchronize()
+    launches = dict(att.KERNEL_LAUNCHES)
+    del executor.trainer.train_step
+    losses = executor.losses
+    log("packed family losses: %s; step ms %s" % (
+        losses, [round(s["ms"], 2) for s in steps]))
+    check(state is not None and len(losses) == PACKED_STEPS,
+          "the packed family took %d steps, not %d" % (len(losses),
+                                                       PACKED_STEPS))
+    check(all(math.isfinite(x) for x in losses), "non-finite packed loss")
+    expected = math.log(FLAGSHIP["vocab_size"]) + 0.5
+    check(abs(losses[0] - expected) <= 0.5,
+          "packed family: first loss %.4f is not within 0.5 of %.4f"
+          % (losses[0], expected))
+    kernels = masked_training_kernels("segments")
+    _check_step_launches([s["launches"] for s in steps], kernels,
+                         "packed family")
+    step_ms = float(np.percentile([s["ms"] for s in steps[1:]], 50))
+    real = int(np.mean([s["real"] for s in steps]))
+    metrics = {
+        "model": "transformer_lm_packed at flagship width, bf16 compute",
+        "minibatch": PACKED_BATCH, "seq_len": tpacked.ROW_LEN,
+        "documents": PACKED_DOCS, "steps": PACKED_STEPS,
+        "step_ms": [s["ms"] for s in steps],
+        **_step_metrics(step_ms, PACKED_BATCH, tpacked.ROW_LEN, real,
+                        int(torch.cuda.max_memory_allocated())),
+        "losses": losses, "expected_first_loss": expected,
+        "launches_per_step": {k: steps[-1]["launches"][k] for k in kernels},
+        "step_profile": profile_steps(executor.trainer, state, batches[-1]),
+    }
+    return metrics, launches
+
+
+def train_packed_flagship(rng):
+    """transformer_lm at the flagship width and seq_len 1024, minibatch 8,
+    through Trainer.train_step on packed rows with the flagship's AdamW:
+    first the port's pack_sequences over documents of 64-1024 tokens (a
+    ragged number of segments per row, pad tails, cross-document labels
+    -100), then bench.py's packed=4 layout (four equal segments per row,
+    labels the shifted tokens, bench.py:307-313). PACKED_WARM +
+    PACKED_TIMED steps per layout, the segment variants once per layer
+    in every step; then 2 profiled steps for the device's busy share."""
+    b, l = TRAIN_BATCH, FLAGSHIP["seq_len"]
+    vocab = FLAGSHIP["vocab_size"]
+    trainer = Trainer(load_model_spec_from_module(tzoo),
+                      model_params=_params_str(FLAGSHIP), device="cuda")
+    state = trainer.init_state(None)
+    tokens, seg, labels = doc_rows(rng, b, l, 64, 1024)
+    ragged = ({"tokens": tokens, "segment_ids": seg}, labels)
+    toks = rng.randint(0, vocab, size=(b, l + 1)).astype(np.int32)
+    seg4 = np.minimum(np.arange(l) * 4 // l, 3).astype(np.int32)
+    packed4 = ({"tokens": toks[:, :-1],
+                "segment_ids": np.broadcast_to(seg4, (b, l)).copy()},
+               toks[:, 1:])
+    kernels = masked_training_kernels("segments")
+    out, all_launches = {}, {}
+    for name, batch, real in (
+            ("ragged", ragged, real_tokens(seg, labels)),
+            ("packed4", packed4, b * l)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.reset_launch_counts()
+        times, losses, per_step = [], [], []
+        for _ in range(PACKED_WARM + PACKED_TIMED):
+            before = dict(att.KERNEL_LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append({k: att.KERNEL_LAUNCHES[k] - before[k]
+                             for k in att.KERNEL_LAUNCHES})
+        all_launches[name] = dict(att.KERNEL_LAUNCHES)
+        peak = int(torch.cuda.max_memory_allocated())
+        _check_step_launches(per_step, kernels, "packed flagship " + name)
+        check(all(math.isfinite(x) for x in losses),
+              "non-finite packed flagship loss")
+        if name == "ragged":
+            expected = math.log(vocab) + 0.5
+            check(abs(losses[0] - expected) <= 0.5,
+                  "packed flagship: first loss %.4f is not within 0.5 of "
+                  "%.4f" % (losses[0], expected))
+        step_ms = float(np.percentile(times[PACKED_WARM:], 50))
+        out[name] = {
+            "layout": ("pack_sequences over documents of 64-1024 tokens"
+                       if name == "ragged" else
+                       "bench.py packed=4: four equal segments per row"),
+            "documents_per_row": docs_per_row(batch[0]["segment_ids"],
+                                              batch[1]).tolist(),
+            "minibatch": b, "seq_len": l,
+            "steps": "%d warm + %d timed" % (PACKED_WARM, PACKED_TIMED),
+            "step_ms": times, "losses": losses,
+            **_step_metrics(step_ms, b, l, real, peak),
+            "step_profile": profile_steps(trainer, state, batch),
+            "launches_per_step": {k: per_step[-1][k] for k in kernels},
+        }
+        log("packed flagship %s: %s" % (name, json.dumps(
+            {k: v for k, v in out[name].items() if k != "step_profile"})))
+    return out, all_launches
+
+
+def visible_pairs(l, window=None, seg=None):
+    """Causal (query, key) pairs one head sees over l rows: each row of a
+    window sees min(i + 1, window) keys; a packed row sees n(n + 1) / 2
+    pairs per document of n tokens. Summed over the batch rows of
+    `seg` [b, l] (one row without segments)."""
+    if seg is None:
+        w = window or l
+        return sum(min(i + 1, w) for i in range(l))
+    seg = np.asarray(seg)
+    total = 0
+    for row in seg:
+        _ids, counts = np.unique(row, return_counts=True)
+        total += int(sum(n * (n + 1) // 2 for n in counts))
+    return total
+
+
+def sdpa_masked_ms(q, k, v, do, mask):
+    """(forward ms, backward ms) of F.scaled_dot_product_attention with
+    the boolean mask `mask` (True = attend): the yardstick of the masked
+    flash kernels, timed eagerly between CUDA events, never on a path.
+    The backward is forward + backward less the forward."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    with torch.no_grad():
+        fwd()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        fwd_ms = _events_ms(fwd, 20)
+    return fwd_ms, _events_ms(fwd_bwd, 10) - _events_ms(fwd, 10)
+
+
+def time_masked_flash(flash_inputs_path, launches, errors):
+    """Kernels A, C and D's window and segment variants at the training
+    path's shape (b = 8, h = 8, l = 1024, d = 128, causal, bf16; window
+    256, or pack_sequences' segments), each against a bound over the
+    pairs its mask keeps, its plain version, and SDPA with the same
+    boolean mask. `launches`: {variant: count on its path}."""
+    q, k, v, do, path = flash_inputs_path
+    b, h, l, d = q.shape
+    entries = []
+    for key, masks in path.items():
+        seg = masks.get("q_seg")
+        pairs = (visible_pairs(l, window=masks.get("window")) * b
+                 if seg is None else visible_pairs(l, seg=seg.cpu()))
+        mask = att._visible(l, l, True, masks.get("window"), seg, seg,
+                            device=q.device)
+        lib_fwd, lib_bwd = sdpa_masked_ms(q, k, v, do, mask)
+        out, lse = att.flash_forward(q, k, v, causal=True, **masks)
+        _dq, delta = att.flash_backward_dq(q, k, v, out, lse, do,
+                                           causal=True, **masks)
+        shape = "b=%d h=%d lq=lk=%d d=%d causal bf16, %s" % (
+            b, h, l, d, "window %d" % WINDOW if seg is None
+            else "pack_sequences segments, %d documents" % len(
+                np.unique(seg.cpu().numpy() + np.arange(b)[:, None] * l)))
+        seg_bytes = 0 if seg is None else 2 * 4 * b * l
+        rows_q, rows_kv = b * h * l, b * h * l
+        io = 2 * d  # bf16 bytes of one row of d
+        for name, line, fn, plain, flops, nbytes, lib in (
+                ("flash_fwd", 941,
+                 lambda: att.flash_forward(q, k, v, causal=True, **masks),
+                 lambda: att.flash_attention_plain(q, k, v, causal=True,
+                                                   **masks),
+                 4 * d * pairs * h, io * (2 * rows_q + 2 * rows_kv)
+                 + 4 * rows_q, lib_fwd),
+                ("flash_bwd_dq", 1241,
+                 lambda: att.flash_backward_dq(q, k, v, out, lse, do,
+                                               causal=True, **masks),
+                 lambda: att.flash_backward_dq_plain(q, k, v, out, lse, do,
+                                                     causal=True, **masks),
+                 6 * d * pairs * h, io * (4 * rows_q + 2 * rows_kv)
+                 + 8 * rows_q, lib_bwd),
+                ("flash_bwd_dkv", 1294,
+                 lambda: att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                                causal=True, **masks),
+                 lambda: att.flash_backward_dkv_plain(q, k, v, do, lse,
+                                                      delta, causal=True,
+                                                      **masks),
+                 8 * d * pairs * h, io * (2 * rows_q + 4 * rows_kv)
+                 + 8 * rows_q, lib_bwd)):
+            variant = "%s_%s" % (name, key)
+            entry = _timing_entry(
+                variant, "elasticdl_tpu_torch/csrc/%s.cu" % (
+                    "flash_fwd" if name == "flash_fwd" else "flash_bwd"),
+                "elasticdl_tpu/ops/attention.py:%d (%s)" % (
+                    line, "_block_mask window" if seg is None
+                    else "has_segs"),
+                shape, fn, plain,
+                (lib, "F.scaled_dot_product_attention with the same "
+                 "boolean mask, %s (eager)" % (
+                     "forward" if name == "flash_fwd" else
+                     "forward + backward less forward: dq, dk and dv")),
+                (flops, nbytes + seg_bytes), launches,
+                dict(errors.get(variant, {}),
+                     max_err=errors.get(variant, {}).get("max_abs_err")))
+            entry["visible_pairs_per_head"] = pairs
+            entry["causal_pairs_per_head"] = b * l * (l + 1) // 2
+            entries.append(entry)
+    return entries
+
+
+def paged_window_work(lengths, hkv, n_rows, t, d, itemsize, m, window,
+                      int8=False):
+    """(operations, bytes) of one windowed paged partials call over the
+    pairs its mask keeps: tile token r % t sees min(length, window -
+    r % t - 1) pool rows, 4*d operations each; the rows any query row
+    sees (those of token 0) are read once per kv head, with their
+    scales for int8; fp32 query rows and partials move once, plus the
+    table and lengths."""
+    pairs = rows = 0
+    for length in lengths:
+        rows += min(length, window - 1)
+        pairs += sum(min(length, max(0, window - r % t - 1))
+                     for r in range(n_rows))
+    b = len(lengths)
+    flops = 4 * d * hkv * pairs
+    nbytes = (2 * (itemsize * d + (4 if int8 else 0)) * hkv * rows
+              + 4 * b * hkv * n_rows * (2 * d + 2) + 4 * b * (m + 1))
+    return flops, nbytes
+
+
+def time_masked_paged(cases, launches, errors):
+    """Kernel B's window variants at the windowed serving path's shapes
+    (check_masked_paged's cases): the 8-slot decode step and a 128-row
+    suffix tile over a 256-token prefix, window 256, bf16 or int8
+    arenas. The bound counts the pairs inside the window."""
+    entries = []
+    for name, t, label, args, lens, int8 in cases:
+        call_args = quantize_pools(args) if int8 else args
+        entries.append(_timing_entry(
+            name, "elasticdl_tpu_torch/csrc/paged_decode.cu",
+            "elasticdl_tpu/ops/attention.py:591 (window, :355-374 "
+            "_paged_valid%s)" % (", int8 branch :613-634" if int8 else ""),
+            "%s hkv=8 d=128 bs=16 m=64 %s, window %d, live rows %d"
+            % (label, "int8 + fp32 row scales" if int8 else "bf16", WINDOW,
+               sum(lens)),
+            lambda a=call_args, t=t: att.paged_decode_partials(
+                *a, window=WINDOW, t=t),
+            lambda a=call_args, t=t: att.paged_decode_partials_plain(
+                *a, window=WINDOW, t=t),
+            None, paged_window_work(lens, 8, t, t, 128, 1 if int8 else 2,
+                                    64, WINDOW, int8=int8),
+            launches, dict(errors.get(name, {}))))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2017,6 +2755,10 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     rng = np.random.RandomState(0)
+    # the packed and windowed phases draw from their own generators, so
+    # every earlier phase sees the data it saw before they were added
+    gen_masked = torch.Generator().manual_seed(5)
+    rng_masked = np.random.RandomState(5)
     flash_err = check_flash(gen)
     paged_err = check_paged(gen)
     int8_err = check_paged_int8(gen)
@@ -2025,6 +2767,9 @@ def main():
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
     dense_err = check_dense_update(gen)
+    masked_err, masked_path_err, masked_inputs = check_masked_flash(
+        gen_masked, rng_masked)
+    masked_paged_err, masked_paged_cases = check_masked_paged(gen_masked)
     specs = serving_specs(rng)
     serving, launches = serve_flagship(specs)
     log("serving run launches: %s" % launches)
@@ -2038,6 +2783,16 @@ def main():
           == serving["kv_bytes_total"] * (128 + 4),
           "int8 pool holds %d bytes, bf16 pool %d"
           % (serving["int8"]["kv_bytes_total"], serving["kv_bytes_total"]))
+    windowed = {"attn_window": WINDOW}
+    windowed["serving"], win_launches = serve_flagship(specs,
+                                                       attn_window=WINDOW)
+    log("windowed serving run launches: %s; %s" % (
+        win_launches, json.dumps(windowed["serving"])))
+    windowed["serving"]["int8"], win_int8_launches = serve_flagship(
+        specs, "int8", attn_window=WINDOW)
+    log("windowed int8 serving run launches: %s; %s" % (
+        win_int8_launches, json.dumps(windowed["serving"]["int8"])))
+    windowed["streams_cuda_vs_cpu"] = compare_windowed_streams(rng_masked)
     serving["cuda_vs_cpu"] = compare_cuda_cpu(rng)
     serving["int8"]["cuda_vs_cpu_fp32"] = compare_cuda_cpu_int8(rng)
     serving["decode_profile"] = profile_decode(rng)
@@ -2052,6 +2807,25 @@ def main():
     training["step_profile"] = profile_train_step(executor, rng)
     log("training step profile: %s" % json.dumps(training["step_profile"]))
     del executor
+    with tempfile.TemporaryDirectory() as workdir:
+        windowed["training"], executor, win_train_launches = train_flagship(
+            rng_masked, workdir, attn_window=WINDOW)
+    log("windowed training run launches: %s" % win_train_launches)
+    windowed["training"]["step_profile"] = profile_train_step(executor,
+                                                              rng_masked)
+    log("windowed training step profile: %s"
+        % json.dumps(windowed["training"]["step_profile"]))
+    del executor
+    packed = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        packed["family"], family_launches = train_packed_family(rng_masked,
+                                                                workdir)
+    log("packed family launches: %s; %s" % (family_launches,
+                                            json.dumps(packed["family"])))
+    packed["flagship"], packed_flagship_launches = train_packed_flagship(
+        rng_masked)
+    packed["logits_vs_documents"] = compare_packed_rows(rng_masked)
+    torch.cuda.empty_cache()
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
     with tempfile.TemporaryDirectory() as workdir:
@@ -2085,12 +2859,47 @@ def main():
     kernels += time_dense(dense_launches)
     for entry in kernels[-len(DENSE_RULES):]:
         entry["small_shapes_max_rel_err"] = dense_err
+    # each masked variant's launches are those of its own path's run:
+    # the windowed training run, the packed family's run, the windowed
+    # serving runs (bf16 and int8 arenas)
+    masked_launches = {}
+    for name in TRAINING_KERNELS:
+        masked_launches[name + "_window"] = win_train_launches[
+            name + "_window"]
+        masked_launches[name + "_segments"] = family_launches[
+            name + "_segments"]
+    for name in serving_kernels("", WINDOW)[1:]:
+        masked_launches[name] = win_launches[name]
+    for name in serving_kernels("int8", WINDOW)[1:]:
+        masked_launches[name] = win_int8_launches[name]
+    flash_errors = {v: dict(e, small_shapes=masked_err.get(v))
+                    for v, e in masked_path_err.items()}
+    masked = time_masked_flash(masked_inputs, masked_launches, flash_errors)
+    for entry in masked:
+        if entry["name"].endswith("_window"):
+            entry["launches_per_train_step"] = entry["launches"] // TRAIN_STEPS
+        else:
+            entry["launches_per_train_step"] = (
+                entry["launches"] // PACKED_STEPS)
+            entry["launches_packed_flagship_ragged"] = (
+                packed_flagship_launches["ragged"][entry["name"]])
+            entry["launches_packed_flagship_packed4"] = (
+                packed_flagship_launches["packed4"][entry["name"]])
+    masked[0]["launches_windowed_serving"] = win_launches["flash_fwd_window"]
+    masked[0]["launches_windowed_int8_serving"] = (
+        win_int8_launches["flash_fwd_window"])
+    kernels += masked
+    kernels += time_masked_paged(masked_paged_cases, masked_launches,
+                                 masked_paged_err)
     serving["card"] = training["card"] = dlrm["card"] = dense["card"] = smi
+    packed["card"] = windowed["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"dlrm": dlrm}))
     print(json.dumps({"dense": dense}))
+    print(json.dumps({"packed": packed}))
+    print(json.dumps({"windowed": windowed}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,8 +9,14 @@
 //   dS = P * (dP - delta) * scale,
 //   dQ = dS K, dK = dS^T Q, dV = P^T dO,
 // causal or not, grouped-query heads (kv_head = q_head / group), ragged
-// lengths, head_dim 64 and 128, fp32 or bf16 in and out, fp32 inside.
-// An empty row (lse = +1e30 from the forward) gets P = 0.
+// lengths, head_dim 64 and 128, fp32 or bf16 in and out, fp32 inside,
+// under the forward's masks: a sliding window (`window` > 0) and packed
+// segment ids (`q_seg` [b, lq], `k_seg` [b, lk], or null; has_segs in the
+// TPU kernels). P is exactly 0 at masked pairs and on rows whose lse is a
+// sentinel of either sign: the +1e30 of an empty row from the port's
+// forward, or the -1e30 class the TPU forward gives a row the segment
+// pair form masks fully (zeroed there too, :1277 and :1332), so dK and
+// dV of a key that no query sees are exactly 0.
 //
 // What bounds them on the H100: at the training shapes (b = 8, h = 8,
 // l = 1024, d = 128, causal) the dq pass does 6 * d operations per
@@ -39,9 +45,15 @@
 //        dV accumulate in registers across the whole group, so they come
 //        out group-summed without atomics and are deterministic.
 // Fully masked tiles are skipped (never loaded), as _block_run skips
-// them. The blocks need ~146 KB (dq) and ~162 KB (dk/dv) of shared memory
-// at d = 128, so each launch raises the dynamic shared-memory limit
-// first, and every launch returns cudaGetLastError.
+// them: the dq pass walks the key tiles of the forward's window range
+// (_kv_stream_clamp), the dk/dv pass, per key tile and group member, the
+// q tiles from the first that reaches the tile (causal: the diagonal;
+// window, not causal: key k0 - window + 1) to the last whose window holds
+// one of its keys (_q_stream_clamp). Segment ids ride beside the tiles
+// in shared memory; no tile is skipped for segments. The blocks need
+// ~146 KB (dq) and ~162 KB (dk/dv) of shared memory at d = 128, so each
+// launch raises the dynamic shared-memory limit first, and every launch
+// returns cudaGetLastError.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,14 +99,29 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
   }
 }
 
+// A row's lse in the exp2 domain, as the kernels subtract it; a sentinel
+// of either sign (|lse| >= 0.5e30) becomes +1e30, so P = exp2(s - it) = 0.
+__device__ __forceinline__ float lse_log2(float lse) {
+  return fabsf(lse) >= 5e29f ? 1e30f : lse * LOG2E;
+}
+
+// Whether query position qp sees key position kp under the window and
+// segment masks (the causal and ragged-edge tests are the caller's).
+__device__ __forceinline__ bool in_window(int qp, int kp, int causal,
+                                          int window) {
+  return window <= 0 || (qp - kp < window && (causal || kp - qp < window));
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout,
                         const float* __restrict__ lse, T* __restrict__ dq,
-                        float* __restrict__ delta, int h, int hkv, int lq,
-                        int lk, float scale, int causal) {
+                        float* __restrict__ delta,
+                        const int* __restrict__ q_seg,
+                        const int* __restrict__ k_seg, int h, int hkv, int lq,
+                        int lk, float scale, int causal, int window) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int DP = D + 1;  // padded row stride: no bank conflicts
   constexpr int SP = BK + 1;
@@ -107,6 +134,7 @@ __global__ void __launch_bounds__(NT)
   float* ds = vs + BK * DP;
   float* row_lse = ds + BQ * SP;  // lse * log2e
   float* row_delta = row_lse + BQ;
+  __shared__ int qs_seg[BQ], ks_seg[BK];
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -114,6 +142,9 @@ __global__ void __launch_bounds__(NT)
   const int b = bh / h;
   const int kvh = (bh % h) / (h / hkv);
   const size_t q_off = (size_t)bh * lq * D;
+  const bool segs = q_seg != nullptr;
+  if (segs && tid < BQ)
+    qs_seg[tid] = q0 + tid < lq ? q_seg[(size_t)b * lq + q0 + tid] : -1;
   const T* kb = k + (size_t)(b * hkv + kvh) * lk * D;
   const T* vb = v + (size_t)(b * hkv + kvh) * lk * D;
 
@@ -132,7 +163,7 @@ __global__ void __launch_bounds__(NT)
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     if (part == 0) {
       row_delta[r] = sum;
-      row_lse[r] = in ? lse[(size_t)bh * lq + q0 + r] * LOG2E : 0.f;
+      row_lse[r] = in ? lse_log2(lse[(size_t)bh * lq + q0 + r]) : 0.f;
       if (in) delta[(size_t)bh * lq + q0 + r] = sum;
     }
   }
@@ -145,14 +176,21 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  // causal: keys past the tile's last row are invisible to all its rows
-  const int k_end = causal ? min(lk, q0 + BQ) : lk;
+  // the forward's key range: up to the diagonal (causal), from the
+  // window of the tile's first row, to that of its last (not causal)
+  int k_lo = 0, k_end = causal ? min(lk, q0 + BQ) : lk;
+  if (window > 0) {
+    k_lo = max(0, q0 - window + 1);
+    if (!causal) k_end = min(lk, q0 + BQ - 1 + window);
+  }
   const int n_kt = (k_end + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = k_lo / BK; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
     stage<T, D>(ks, kb, k0, lk, 1.f);
     stage<T, D>(vs, vb, k0, lk, 1.f);
+    if (segs && tid < BK)
+      ks_seg[tid] = k0 + tid < lk ? k_seg[(size_t)b * lk + k0 + tid] : -1;
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -187,7 +225,9 @@ __global__ void __launch_bounds__(NT)
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = tx + 16 * j;
         const int qp = q0 + r, kp = k0 + c;
-        const bool valid = qp < lq && kp < lk && (!causal || kp <= qp);
+        const bool valid = qp < lq && kp < lk && (!causal || kp <= qp) &&
+                           in_window(qp, kp, causal, window) &&
+                           (!segs || qs_seg[r] == ks_seg[c]);
         const float p = valid ? exp2f(s[i][j] - row_lse[r]) : 0.f;
         ds[r * SP + c] = p * (dp[i][j] - row_delta[r]) * scale;
       }
@@ -223,8 +263,10 @@ __global__ void __launch_bounds__(NT)
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int h, int hkv, int lq, int lk,
-                         float scale, int causal) {
+                         T* __restrict__ dv, const int* __restrict__ q_seg,
+                         const int* __restrict__ k_seg, int h, int hkv,
+                         int lq, int lk, float scale, int causal,
+                         int window) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
@@ -238,6 +280,7 @@ __global__ void __launch_bounds__(NT)
   float* dss = ps + BQ * SP;  // dS as [q row][key]
   float* row_lse = dss + BQ * SP;
   float* row_delta = row_lse + BQ;
+  __shared__ int qs_seg[BQ], ks_seg[BK];
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BK;
@@ -250,6 +293,9 @@ __global__ void __launch_bounds__(NT)
 
   stage<T, D>(ks, k + kv_off, k0, lk, 1.f);
   stage<T, D>(vs, v + kv_off, k0, lk, 1.f);
+  const bool segs = q_seg != nullptr;
+  if (segs && tid < BK)
+    ks_seg[tid] = k0 + tid < lk ? k_seg[(size_t)b * lk + k0 + tid] : -1;
 
   // 16 x 16 thread grid: key rows ty*4 + i; score columns (q rows) and
   // output columns (head features) tx + 16*j
@@ -260,13 +306,20 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int n_qt = (lq + BQ - 1) / BQ;
-  // causal: q tiles whose last row is above the key tile see none of it
-  const int qt_start = causal ? min(k0 / BQ, n_qt) : 0;
+  // the q rows that can see a key of the tile: causal, from the diagonal
+  // on; under a window, those before key k0 + BK - 1 + window, and (not
+  // causal) from key k0 - window + 1 on
+  int q_lo = causal ? k0 : 0, q_end = lq;
+  if (window > 0) {
+    q_end = min(lq, k0 + BK - 1 + window);
+    if (!causal) q_lo = max(0, k0 - window + 1);
+  }
+  const int qt_start = min(q_lo, lq) / BQ;
+  const int qt_end = (q_end + BQ - 1) / BQ;
   for (int g = 0; g < group; ++g) {
     const int qh = b * h + kvh * group + g;
     const size_t q_off = (size_t)qh * lq * D;
-    for (int qt = qt_start; qt < n_qt; ++qt) {
+    for (int qt = qt_start; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's readers are done
       stage<T, D>(qs, q + q_off, q0, lq, 1.f);
@@ -274,8 +327,10 @@ __global__ void __launch_bounds__(NT)
       if (tid < BQ) {
         const bool in = q0 + tid < lq;
         const size_t row = (size_t)qh * lq + q0 + tid;
-        row_lse[tid] = in ? lse[row] * LOG2E : 0.f;
+        row_lse[tid] = in ? lse_log2(lse[row]) : 0.f;
         row_delta[tid] = in ? delta[row] : 0.f;
+        if (segs)
+          qs_seg[tid] = in ? q_seg[(size_t)b * lq + q0 + tid] : -1;
       }
       __syncthreads();
 
@@ -311,7 +366,9 @@ __global__ void __launch_bounds__(NT)
         for (int j = 0; j < 4; ++j) {
           const int kr = ty * 4 + i, qr = tx + 16 * j;
           const int qp = q0 + qr, kp = k0 + kr;
-          const bool valid = qp < lq && kp < lk && (!causal || kp <= qp);
+          const bool valid = qp < lq && kp < lk && (!causal || kp <= qp) &&
+                             in_window(qp, kp, causal, window) &&
+                             (!segs || qs_seg[qr] == ks_seg[kr]);
           const float p = valid ? exp2f(s[i][j] * slog - row_lse[qr]) : 0.f;
           ps[qr * SP + kr] = p;
           dss[qr * SP + kr] = p * (dp[i][j] - row_delta[qr]) * scale;
@@ -366,8 +423,9 @@ int set_smem(K kernel, size_t bytes, bool* configured) {
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const void* lse, void* dq, void* delta, int b,
-              int h, int hkv, int lq, int lk, float scale, int causal,
+              const void* dout, const void* lse, void* dq, void* delta,
+              const void* q_seg, const void* k_seg, int b, int h, int hkv,
+              int lq, int lk, float scale, int causal, int window,
               cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool configured = false;
@@ -378,15 +436,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), h, hkv, lq, lk, scale,
-      causal);
+      static_cast<T*>(dq), static_cast<float*>(delta),
+      static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
+      lq, lk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int b,
-               int h, int hkv, int lq, int lk, float scale, int causal,
+               const void* lse, const void* delta, void* dk, void* dv,
+               const void* q_seg, const void* k_seg, int b, int h, int hkv,
+               int lq, int lk, float scale, int causal, int window,
                cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured = false;
@@ -397,12 +457,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), h, hkv, lq, lk, scale,
-      causal);
+      static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
+      lq, lk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Both entry points: q_seg [b, lq] and k_seg [b, lk] int32 segment ids,
+// or both NULL; window 0 = none, else the sliding window (lq == lk).
+static bool masks_ok(int h, int hkv, int window, const void* q_seg,
+                     const void* k_seg) {
+  return hkv > 0 && h % hkv == 0 && window >= 0 &&
+         (q_seg == nullptr) == (k_seg == nullptr);
+}
 
 // q, o, dout, dq [b, h, lq, d]; k, v [b, hkv, lk, d]; lse, delta
 // [b, h, lq] fp32; all contiguous. dtype: 0 = float32, 1 = bfloat16.
@@ -410,15 +479,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // launch (0 = launched).
 extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
-                                const void* lse, void* dq, void* delta, int b,
+                                const void* lse, void* dq, void* delta,
+                                const void* q_seg, const void* k_seg, int b,
                                 int h, int hkv, int lq, int lk, int d,
-                                float scale, int causal, int dtype,
-                                void* stream) {
+                                float scale, int causal, int window,
+                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hkv <= 0 || h % hkv != 0) return (int)cudaErrorInvalidValue;
-#define EDL_DQ(T, D)                                                       \
-  return launch_dq<T, D>(q, k, v, o, dout, lse, dq, delta, b, h, hkv, lq, \
-                         lk, scale, causal, s)
+  if (!masks_ok(h, hkv, window, q_seg, k_seg))
+    return (int)cudaErrorInvalidValue;
+#define EDL_DQ(T, D)                                                      \
+  return launch_dq<T, D>(q, k, v, o, dout, lse, dq, delta, q_seg, k_seg, \
+                         b, h, hkv, lq, lk, scale, causal, window, s)
   if (dtype == 0 && d == 64) EDL_DQ(float, 64);
   if (dtype == 0 && d == 128) EDL_DQ(float, 128);
   if (dtype == 1 && d == 64) EDL_DQ(__nv_bfloat16, 64);
@@ -432,15 +503,17 @@ extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
 // dk and dv are summed over the q heads of each kv head's group.
 extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int b,
+                                 const void* delta, void* dk, void* dv,
+                                 const void* q_seg, const void* k_seg, int b,
                                  int h, int hkv, int lq, int lk, int d,
-                                 float scale, int causal, int dtype,
-                                 void* stream) {
+                                 float scale, int causal, int window,
+                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hkv <= 0 || h % hkv != 0) return (int)cudaErrorInvalidValue;
-#define EDL_DKV(T, D)                                                      \
-  return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, b, h, hkv, lq, \
-                          lk, scale, causal, s)
+  if (!masks_ok(h, hkv, window, q_seg, k_seg))
+    return (int)cudaErrorInvalidValue;
+#define EDL_DKV(T, D)                                                     \
+  return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, q_seg, k_seg, \
+                          b, h, hkv, lq, lk, scale, causal, window, s)
   if (dtype == 0 && d == 64) EDL_DKV(float, 64);
   if (dtype == 0 && d == 128) EDL_DKV(float, 128);
   if (dtype == 1 && d == 64) EDL_DKV(__nv_bfloat16, 64);

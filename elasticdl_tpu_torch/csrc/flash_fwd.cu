@@ -4,7 +4,12 @@
 // (launched by _flash_forward through pl.pallas_call). Same function:
 // tiled online-softmax attention, causal or not, grouped-query heads
 // through kv_head = q_head / group, output in the input dtype and the
-// natural-log logsumexp in fp32 (an empty row gets lse = +1e30).
+// natural-log logsumexp in fp32 (an empty row gets lse = +1e30). The TPU
+// kernel's masks are here too: a sliding window (`window` > 0: a query
+// at p sees keys p - k < window, and k - p < window when not causal;
+// _block_mask_apply) and packed segments (`q_seg` [b, lq] and `k_seg`
+// [b, lk] int32 ids, or null: a query sees keys of its own id; the
+// kernel body's has_segs branch).
 //
 // What bounds it on the H100: at the prefill shapes of the serving path
 // (head_dim 128, a few hundred to 1024 rows per head) the work is
@@ -26,6 +31,14 @@
 // zero-filled and never written. The block needs ~114 KB of shared
 // memory at d = 128, so the launch raises the dynamic shared-memory
 // limit first.
+//
+// Window skip (_kv_stream_clamp, _block_run): the block reads only the
+// key tiles that hold a key inside some row's window, from the tile of
+// key q0 - window + 1 up to the diagonal (causal) or to key
+// q0 + BQ - 2 + window (not causal), so a windowed row's work grows with
+// the window, not the sequence. Segment ids are staged per tile beside
+// Q and K (one id row per batch row, shared by every head); as in the TPU
+// kernel, no tile is skipped for segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,8 +72,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int h, int hkv, int lq,
-                     int lk, float scale, int causal) {
+                     float* __restrict__ lse, const int* __restrict__ q_seg,
+                     const int* __restrict__ k_seg, int h, int hkv, int lq,
+                     int lk, float scale, int causal, int window) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int DP = D + 1;  // padded row stride: no bank conflicts
   constexpr int SP = BK + 1;
@@ -73,6 +87,7 @@ __global__ void __launch_bounds__(NT)
   float* row_m = ss + BQ * SP;
   float* row_l = row_m + BQ;
   float* row_c = row_l + BQ;
+  __shared__ int qs_seg[BQ], ks_seg[BK];
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -83,6 +98,9 @@ __global__ void __launch_bounds__(NT)
   const T* kb = k + (size_t)(b * hkv + kvh) * lk * D;
   const T* vb = v + (size_t)(b * hkv + kvh) * lk * D;
   const float qscale = scale * LOG2E;
+  const bool segs = q_seg != nullptr;
+  if (segs && tid < BQ)
+    qs_seg[tid] = q0 + tid < lq ? q_seg[(size_t)b * lq + q0 + tid] : -1;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, e = i % D;
@@ -102,10 +120,16 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  // causal: keys past the tile's last row are invisible to all its rows
-  const int k_end = causal ? min(lk, q0 + BQ) : lk;
+  // causal: keys past the tile's last row are invisible to all its rows;
+  // window: keys before q0 - window + 1 are invisible to all of them, and
+  // (not causal) keys past q0 + BQ - 2 + window too
+  int k_lo = 0, k_end = causal ? min(lk, q0 + BQ) : lk;
+  if (window > 0) {
+    k_lo = max(0, q0 - window + 1);
+    if (!causal) k_end = min(lk, q0 + BQ - 1 + window);
+  }
   const int n_kt = (k_end + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = k_lo / BK; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BK * D; i += NT) {
@@ -114,6 +138,8 @@ __global__ void __launch_bounds__(NT)
       ks[r * DP + e] = in ? to_f(kb[(size_t)(k0 + r) * D + e]) : 0.f;
       vs[r * D + e] = in ? to_f(vb[(size_t)(k0 + r) * D + e]) : 0.f;
     }
+    if (segs && tid < BK)
+      ks_seg[tid] = k0 + tid < lk ? k_seg[(size_t)b * lk + k0 + tid] : -1;
     __syncthreads();
 
     float s[4][4];
@@ -138,8 +164,11 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = tx + 16 * j;
-        const int kp = k0 + c;
-        const bool valid = kp < lk && (!causal || kp <= q0 + r);
+        const int kp = k0 + c, qp = q0 + r;
+        bool valid = kp < lk && (!causal || kp <= qp);
+        if (window > 0)
+          valid = valid && qp - kp < window && (causal || kp - qp < window);
+        if (segs) valid = valid && qs_seg[r] == ks_seg[c];
         ss[r * SP + c] = valid ? s[i][j] : NEG_INF;
       }
     __syncthreads();
@@ -209,7 +238,8 @@ __global__ void __launch_bounds__(NT)
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int b, int h, int hkv, int lq, int lk, float scale, int causal,
+           const void* q_seg, const void* k_seg, int b, int h, int hkv,
+           int lq, int lk, float scale, int causal, int window,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;
@@ -224,32 +254,34 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      h, hkv, lq, lk, scale, causal);
+      static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
+      lq, lk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q [b, h, lq, d], k/v [b, hkv, lk, d], o like q, lse [b, h, lq] fp32;
-// all contiguous. dtype: 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch (0 = launched).
+// q_seg [b, lq] and k_seg [b, lk] int32 segment ids, or both NULL; all
+// contiguous. window: 0 = none, else the sliding window (lq == lk).
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int b, int h, int hkv,
+                             void* o, void* lse, const void* q_seg,
+                             const void* k_seg, int b, int h, int hkv,
                              int lq, int lk, int d, float scale, int causal,
-                             int dtype, void* stream) {
+                             int window, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h % hkv != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, b, h, hkv, lq, lk, scale,
-                             causal, s);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, b, h, hkv, lq, lk, scale,
-                              causal, s);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, h, hkv, lq, lk,
-                                     scale, causal, s);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, b, h, hkv, lq, lk,
-                                      scale, causal, s);
+  if (hkv <= 0 || h % hkv != 0 || window < 0 ||
+      (q_seg == nullptr) != (k_seg == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define EDL_FWD(T, D)                                                    \
+  return launch<T, D>(q, k, v, o, lse, q_seg, k_seg, b, h, hkv, lq, lk, \
+                      scale, causal, window, s)
+  if (dtype == 0 && d == 64) EDL_FWD(float, 64);
+  if (dtype == 0 && d == 128) EDL_FWD(float, 128);
+  if (dtype == 1 && d == 64) EDL_FWD(__nv_bfloat16, 64);
+  if (dtype == 1 && d == 128) EDL_FWD(__nv_bfloat16, 128);
+#undef EDL_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,16 @@
 // arenas, masked by k_pos < length; m is returned in natural-log units.
 // The current-tile merge and the finalize stay outside, in PyTorch.
 //
+// Sliding window (`window` > 0; _paged_valid's window term): row r of the
+// group-major (group * t) query axis is tile token r % t, at position
+// length + r % t, and sees pool rows k_pos > length + r % t - window
+// (_paged_kernel's row_pos). A row that sees none (window <= r % t + 1)
+// keeps the partials (0, 0, -1e30). Every kernel starts its table walk at
+// the slot of position length - window + 1, the first that any row of
+// the tile can see, so a windowed decode reads about window rows, not
+// length; the split kernel cuts that range, not the whole table, across
+// its splits.
+//
 // What bounds it on the H100: bytes. Each cached row is read once and
 // used for group*t dot products, so at t = 1 the kernel does about two
 // operations per byte, far below the ~295 the card needs to be bound by
@@ -57,6 +67,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -97,7 +108,7 @@ __global__ void __launch_bounds__(NT) paged_tile_kernel(
     const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ length, float* __restrict__ o,
     float* __restrict__ l_out, float* __restrict__ m_out, int hkv,
-    int n_rows, int m, int bs) {
+    int n_rows, int m, int bs, int window, int t) {
   static_assert((R * D) % NT == 0, "R*D must be a multiple of NT");
   constexpr int DP = D + 1;
   constexpr int PER = R * D / NT;
@@ -132,8 +143,9 @@ __global__ void __launch_bounds__(NT) paged_tile_kernel(
   for (int i = 0; i < PER; ++i) acc[i] = 0.f;
 
   const int n_slots = min(m, (max(len, 0) + bs - 1) / bs);
+  const int j_lo = window > 0 ? max(0, len - window + 1) / bs : 0;
   const size_t row_stride = (size_t)hkv * D;
-  for (int j = 0; j < n_slots; ++j) {
+  for (int j = j_lo; j < n_slots; ++j) {
     const int bid = table[(size_t)batch * m + j];
     if (bid < 0) continue;  // unallocated slot: never read (block-uniform)
     __syncthreads();        // the previous slot's readers are done
@@ -166,10 +178,13 @@ __global__ void __launch_bounds__(NT) paged_tile_kernel(
     __syncthreads();
     for (int i = tid; i < R * bs; i += NT) {
       const int r = i / bs, c = i % bs;
+      const int kp = j * bs + c;
       float s = 0.f;
 #pragma unroll 8
       for (int e = 0; e < D; ++e) s += qs[r * DP + e] * ks[c * DP + e];
-      ss[r * SP + c] = (j * bs + c < len) ? s : NEG_INF;
+      const bool valid =
+          kp < len && (window <= 0 || kp > len + (r0 + r) % t - window);
+      ss[r * SP + c] = valid ? s : NEG_INF;
     }
     __syncthreads();
     if (tid < R) {
@@ -281,6 +296,33 @@ __device__ __forceinline__ void store_split_partials(
   }
 }
 
+// The table slots [*j0, *j1) that split `split` walks: without a window,
+// slots_per_split of the live ones (k_pos < len); under a window, an even
+// cut of the live slots from that of position len - window + 1, the first
+// any row can see, across the gridDim.x splits.
+__device__ __forceinline__ void split_range(int len, int m, int bs,
+                                            int window, int slots_per_split,
+                                            int split, int* j0, int* j1) {
+  const int n_slots = min(m, (len + bs - 1) / bs);
+  int lo = 0, per = slots_per_split;
+  if (window > 0) {
+    lo = min(n_slots, max(0, len - window + 1) / bs);
+    per = (n_slots - lo + gridDim.x - 1) / gridDim.x;
+  }
+  *j0 = lo + split * per;
+  *j1 = min(n_slots, *j0 + per);
+}
+
+// Row i's window floor: it sees pool rows k_pos > row_lo[i] (INT_MIN
+// without a window); row i is tile token i % t.
+template <int NR>
+__device__ __forceinline__ void window_floors(int len, int window, int t,
+                                              int (&row_lo)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+    row_lo[i] = window > 0 ? len + i % t - window : INT_MIN;
+}
+
 // One block per (split, sequence * kv head); NR = n_rows rounded up to
 // a power of two (<= 8). Writes the split's partials (o, l, m) with m
 // in log2 units to o_part [split, b*hkv, n_rows, D] etc.
@@ -290,16 +332,16 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_kernel(
     const T* __restrict__ v_pool, const int* __restrict__ table,
     const int* __restrict__ length, float* __restrict__ o_part,
     float* __restrict__ l_part, float* __restrict__ m_part, int hkv,
-    int n_rows, int m, int bs, int slots_per_split) {
+    int n_rows, int m, int bs, int slots_per_split, int window, int t) {
   constexpr int DL = D / 32;          // columns per lane
   constexpr int KC = NR >= 8 ? 4 : 8;  // key rows per register chunk
   const int split = blockIdx.x, bk = blockIdx.y, nbk = gridDim.y;
   const int batch = bk / hkv, kvh = bk % hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int len = max(length[batch], 0);
-  const int n_slots = min(m, (len + bs - 1) / bs);
-  const int j0 = split * slots_per_split;
-  const int j1 = min(n_slots, j0 + slots_per_split);
+  int j0, j1, row_lo[NR];
+  split_range(len, m, bs, window, slots_per_split, split, &j0, &j1);
+  window_floors<NR>(len, window, t, row_lo);
 
   float q[NR][DL], o[NR][DL], mr[NR], lr[NR];
 #pragma unroll
@@ -355,7 +397,8 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_kernel(
         float mx = NEG_INF;
 #pragma unroll
         for (int r = 0; r < KC; ++r) {
-          const bool valid = r0 + r < bs && j * bs + r0 + r < len;
+          const int kp = j * bs + r0 + r;
+          const bool valid = r0 + r < bs && kp < len && kp > row_lo[i];
           s[i][r] = valid ? s[i][r] : NEG_INF;
           mx = fmaxf(mx, s[i][r]);
         }
@@ -416,7 +459,7 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
     const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ length, float* __restrict__ o_part,
     float* __restrict__ l_part, float* __restrict__ m_part, int hkv,
-    int n_rows, int m, int bs, int slots_per_split) {
+    int n_rows, int m, int bs, int slots_per_split, int window, int t) {
   constexpr int LPR = D / I8V;  // 8 at d = 128, 4 at d = 64
   constexpr int G = 32 / LPR;
   constexpr int KR = NR >= 8 ? 1 : (NR >= 4 ? 2 : 4);
@@ -428,9 +471,9 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPR, chunk = lane % LPR;
   const int len = max(length[batch], 0);
-  const int n_slots = min(m, (len + bs - 1) / bs);
-  const int j0 = split * slots_per_split;
-  const int j1 = min(n_slots, j0 + slots_per_split);
+  int j0, j1, row_lo[NR];
+  split_range(len, m, bs, window, slots_per_split, split, &j0, &j1);
+  window_floors<NR>(len, window, t, row_lo);
 
   for (int idx = threadIdx.x; idx < NR * D; idx += SPLIT_WARPS * 32) {
     const int i = idx / D, e = idx % D;
@@ -459,10 +502,12 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
       int4 kr[KR], vr[KR];
       float ksc[KR], vsc[KR];
       bool valid[KR];
+      int kp[KR];
 #pragma unroll
       for (int u = 0; u < KR; ++u) {
         const int r = r0 + u * G + grp;
-        valid[u] = r < bs && j * bs + r < len;
+        kp[u] = j * bs + r;
+        valid[u] = r < bs && kp[u] < len;
         if (r < bs) {
           kr[u] = *reinterpret_cast<const int4*>(
               k_pool + base + (size_t)r * row_stride);
@@ -498,7 +543,8 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
         float mx = NEG_INF;
 #pragma unroll
         for (int u = 0; u < KR; ++u) {
-          s[i][u] = valid[u] ? s[i][u] * ksc[u] : NEG_INF;  // k-scale
+          s[i][u] = valid[u] && kp[u] > row_lo[i] ? s[i][u] * ksc[u]
+                                                  : NEG_INF;  // k-scale
           mx = fmaxf(mx, s[i][u]);
         }
         const float m_new = fmaxf(mr[i], mx);
@@ -586,7 +632,7 @@ __global__ void paged_merge_kernel(const float* __restrict__ o_part,
 struct PagedArgs {
   const void *qf, *k_pool, *v_pool, *k_scale, *v_scale, *table, *length;
   void *o, *l, *mx;
-  int b, hkv, n_rows, m, bs;
+  int b, hkv, n_rows, m, bs, window, t;
 };
 
 template <typename T, int D, int NR>
@@ -603,14 +649,14 @@ int launch_split(const PagedArgs& a, void* o_part, void* l_part,
         static_cast<const int*>(a.table), static_cast<const int*>(a.length),
         static_cast<float*>(o_part), static_cast<float*>(l_part),
         static_cast<float*>(m_part), a.hkv, a.n_rows, a.m, a.bs,
-        slots_per_split);
+        slots_per_split, a.window, a.t);
   } else {
     paged_split_kernel<T, D, NR><<<grid, SPLIT_WARPS * 32, 0, stream>>>(
         static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
         static_cast<const T*>(a.v_pool), static_cast<const int*>(a.table),
         static_cast<const int*>(a.length), static_cast<float*>(o_part),
         static_cast<float*>(l_part), static_cast<float*>(m_part), a.hkv,
-        a.n_rows, a.m, a.bs, slots_per_split);
+        a.n_rows, a.m, a.bs, slots_per_split, a.window, a.t);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -655,14 +701,17 @@ int launch_tile(const PagedArgs& a, cudaStream_t stream) {
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.table),
       static_cast<const int*>(a.length), static_cast<float*>(a.o),
       static_cast<float*>(a.l), static_cast<float*>(a.mx), a.hkv, a.n_rows,
-      a.m, a.bs);
+      a.m, a.bs, a.window, a.t);
   return (int)cudaGetLastError();
 }
 
-// int8 arenas need both scale pools; float arenas take none
-bool scales_ok(int dtype, const void* k_scale, const void* v_scale) {
-  return dtype == 2 ? (k_scale != nullptr && v_scale != nullptr)
-                    : (k_scale == nullptr && v_scale == nullptr);
+// int8 arenas need both scale pools, float arenas take none; the query
+// rows are whole tiles of t, and the window is 0 (none) or positive
+bool args_ok(int dtype, const void* k_scale, const void* v_scale,
+             int n_rows, int window, int t) {
+  const bool scales = dtype == 2 ? (k_scale != nullptr && v_scale != nullptr)
+                                 : (k_scale == nullptr && v_scale == nullptr);
+  return scales && window >= 0 && t >= 1 && n_rows % t == 0;
 }
 
 }  // namespace
@@ -672,8 +721,9 @@ bool scales_ok(int dtype, const void* k_scale, const void* v_scale) {
 // 1 = bfloat16, 2 = int8); for int8, k_scale and v_scale [num_blocks, bs,
 // hkv, 1] fp32 per-row scales, else NULL; table [b, m] int32 (-1 =
 // unallocated); length [b] int32; o [b, hkv, n_rows, d], l and m [b, hkv,
-// n_rows] fp32; d 64 or 128. All contiguous. Each returns the
-// cudaError_t of its launches (0 = ok).
+// n_rows] fp32; d 64 or 128; window 0 (none) or the sliding window; t the
+// tile length (query row r is tile token r % t). All contiguous. Each
+// returns the cudaError_t of its launches (0 = ok).
 
 // n_rows > 8: the shared-memory tile kernel.
 extern "C" int edl_paged_decode_tile(const void* qf, const void* k_pool,
@@ -682,12 +732,13 @@ extern "C" int edl_paged_decode_tile(const void* qf, const void* k_pool,
                                      const void* length, void* o, void* l,
                                      void* mx, int b, int hkv, int n_rows,
                                      int m, int bs, int d, int dtype,
-                                     void* stream) {
+                                     int window, int t, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!scales_ok(dtype, k_scale, v_scale)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(dtype, k_scale, v_scale, n_rows, window, t))
+    return (int)cudaErrorInvalidValue;
   const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
                     o,  l,      mx,     b,       hkv,     n_rows, m,
-                    bs};
+                    bs, window, t};
 #define EDL_TILE(T)                                             \
   return d == 64 ? launch_tile<T, 64>(a, s)                     \
                  : (d == 128 ? launch_tile<T, 128>(a, s)        \
@@ -701,18 +752,21 @@ extern "C" int edl_paged_decode_tile(const void* qf, const void* k_pool,
 
 // n_rows <= 8: the split kernel and its merge. o_part [n_split, b*hkv,
 // n_rows, d], l_part and m_part [n_split, b*hkv, n_rows] fp32 scratch;
-// split k covers table slots [k*slots_per_split, (k+1)*slots_per_split).
+// split k covers table slots [k*slots_per_split, (k+1)*slots_per_split)
+// (under a window: its even share of the slots the window can reach).
 extern "C" int edl_paged_decode_split(
     const void* qf, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* table,
     const void* length, void* o, void* l, void* mx, void* o_part,
     void* l_part, void* m_part, int n_split, int slots_per_split, int b,
-    int hkv, int n_rows, int m, int bs, int d, int dtype, void* stream) {
+    int hkv, int n_rows, int m, int bs, int d, int dtype, int window, int t,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!scales_ok(dtype, k_scale, v_scale)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(dtype, k_scale, v_scale, n_rows, window, t))
+    return (int)cudaErrorInvalidValue;
   const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
                     o,  l,      mx,     b,       hkv,     n_rows, m,
-                    bs};
+                    bs, window, t};
 #define EDL_SPLIT_D(T)                                                    \
   return d == 64 ? dispatch_split<T, 64>(a, o_part, l_part, m_part,       \
                                          n_split, slots_per_split, s)     \

@@ -10,7 +10,9 @@ Three forwards, all over the same parameters:
   {"lm_hidden", "lm_head_kernel"} ([embed, vocab], as flax hands it
   over) when `fused_head` is set and training. Attention runs through
   `ops.attention.flash_attention`, whose backward is the flash backward
-  (the kernels on CUDA).
+  (the kernels on CUDA). Packed rows carry `segment_ids` [b, l]:
+  attention stays inside each run and positions restart per run
+  (`packed_positions`), as in flax.
 * `model(tokens)` with a token tensor (`prefill`): the causal
   eval/prefill forward of serving, under no_grad. Returns fp32 logits
   and every layer's (k, v) rows [b, hkv, l, d], which the serving engine
@@ -22,6 +24,11 @@ Three forwards, all over the same parameters:
   CUDA). The flax model vmaps a scalar cache counter per slot; here the
   batch carries a position vector. Returns fp32 logits and the tile's
   (k, v) rows for the engine to scatter.
+
+`attn_window` > 0 makes every layer sliding-window attention (the flax
+`attn_window`): a token sees the `attn_window` newest positions up to
+its own, in the training forward, the prefill and paged decode alike.
+Prefill and decode take no segments (flax refuses them there too).
 
 With `kv_cache_dtype="int8"` the rows that reach the pool are symmetric
 per-row int8 (`kv_quantize_rows`), quantized once where they are
@@ -55,6 +62,7 @@ from elasticdl_tpu_torch.data.example_codec import decode_example
 from elasticdl_tpu_torch.ops.attention import (
     apply_rope,
     flash_attention,
+    packed_positions,
     paged_decode_attention,
 )
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
@@ -121,9 +129,10 @@ def _dequantize(q8, scale, dtype):
 
 class CausalSelfAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
-                 use_rope=False, kv_cache_dtype="", device=None):
+                 use_rope=False, kv_cache_dtype="", window=0, device=None):
         super().__init__()
         self.kv_int8 = kv_cache_dtype == "int8"
+        self.window = int(window) or None
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -152,11 +161,12 @@ class CausalSelfAttention(nn.Module):
         out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
         return _linear(self.proj, out)
 
-    def forward(self, x, positions, prefill=False):
-        """Causal attention over x [b, l, e]; positions [l]. Returns
-        (y, rows): rows (k, v) [b, hkv, l, d] (rotated when RoPE), or,
-        for an int8 cache's `prefill`, (k8, v8, k_scale, v_scale) with
-        the attention over their dequantized values."""
+    def forward(self, x, positions, prefill=False, segments=None):
+        """Causal attention over x [b, l, e]; positions [l], or [b, l]
+        for packed rows, whose `segments` [b, l] confine it to each run.
+        Returns (y, rows): rows (k, v) [b, hkv, l, d] (rotated when
+        RoPE), or, for an int8 cache's `prefill`, (k8, v8, k_scale,
+        v_scale) with the attention over their dequantized values."""
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
@@ -165,7 +175,8 @@ class CausalSelfAttention(nn.Module):
             (k8, ks), (v8, vs) = kv_quantize_rows(k), kv_quantize_rows(v)
             rows = (k8, v8, ks, vs)
             k, v = _dequantize(k8, ks, q.dtype), _dequantize(v8, vs, q.dtype)
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, window=self.window,
+                              segments=segments)
         return self._out(out, x), rows
 
     def decode_paged(self, x, positions, pool, table):
@@ -180,25 +191,27 @@ class CausalSelfAttention(nn.Module):
         scale = self.head_dim ** -0.5
         if not self.kv_int8:
             out = paged_decode_attention(q, k, v, pool[0], pool[1], table,
-                                         length, scale=scale)
+                                         length, scale=scale,
+                                         window=self.window)
             return self._out(out, x), (k, v)
         (k8, ks), (v8, vs) = kv_quantize_rows(k), kv_quantize_rows(v)
         out = paged_decode_attention(
             q, k8, v8, pool[0], pool[1], table, length, scale=scale,
-            k_scale_pool=pool[2], v_scale_pool=pool[3], k_cur_scale=ks,
-            v_cur_scale=vs,
+            window=self.window, k_scale_pool=pool[2], v_scale_pool=pool[3],
+            k_cur_scale=ks, v_cur_scale=vs,
         )
         return self._out(out, x), (k8, v8, ks, vs)
 
 
 class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
-                 use_rope=False, kv_cache_dtype="", device=None):
+                 use_rope=False, kv_cache_dtype="", window=0, device=None):
         super().__init__()
         self.ln_0 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(
             embed_dim, num_heads, head_dim, num_kv_heads=num_kv_heads,
-            use_rope=use_rope, kv_cache_dtype=kv_cache_dtype, device=device,
+            use_rope=use_rope, kv_cache_dtype=kv_cache_dtype, window=window,
+            device=device,
         )
         self.ln_1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.mlp_up = nn.Linear(embed_dim, 4 * embed_dim, device=device)
@@ -208,9 +221,9 @@ class Block(nn.Module):
         y = _linear(self.mlp_up, _layer_norm(self.ln_1, x))
         return x + _linear(self.mlp_down, F.gelu(y, approximate="tanh"))
 
-    def forward(self, x, positions, prefill=False):
+    def forward(self, x, positions, prefill=False, segments=None):
         y, kv = self.attn(_layer_norm(self.ln_0, x), positions,
-                          prefill=prefill)
+                          prefill=prefill, segments=segments)
         return self._mlp(x + y), kv
 
     def decode_paged(self, x, positions, pool, table):
@@ -234,10 +247,12 @@ class TransformerLM(nn.Module):
                 "Unknown kv_cache_dtype %r (valid: '', 'int8')"
                 % (kv_cache_dtype,)
             )
-        for name, value in (("attn_window", attn_window), ("remat", remat),
-                            ("lora_rank", lora_rank)):
+        for name, value in (("remat", remat), ("lora_rank", lora_rank)):
             if value:
                 raise NotImplementedError("%s is not ported yet" % name)
+        if attn_window < 0:
+            raise ValueError("attn_window must be >= 0, got %r"
+                             % (attn_window,))
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be a multiple of num_heads")
         device = resolve_device(device)
@@ -252,13 +267,15 @@ class TransformerLM(nn.Module):
         self.pos_emb = pos_emb
         self.fused_head = bool(fused_head)
         self.kv_cache_dtype = kv_cache_dtype
+        self.attn_window = int(attn_window)
         self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
         self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
                     if pos_emb == "learned" else None)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, self.head_dim,
                   num_kv_heads=num_kv_heads, use_rope=pos_emb == "rope",
-                  kv_cache_dtype=kv_cache_dtype, device=device)
+                  kv_cache_dtype=kv_cache_dtype, window=self.attn_window,
+                  device=device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -328,17 +345,24 @@ class TransformerLM(nn.Module):
         features["tokens"] [b, l] -> fp32 logits [b, l, vocab], or, when
         `fused_head` and training, {"lm_hidden": [b, l, e] in the compute
         dtype, "lm_head_kernel": [e, vocab]} for the chunked loss.
-        Packed segments (`segment_ids`) are not ported yet."""
-        if features.get("segment_ids") is not None:
-            raise NotImplementedError("segment_ids are not ported yet")
+        Packed rows: features["segment_ids"] [b, l] int ids of
+        contiguous runs; attention stays within each run and the
+        positions (learned table and RoPE) restart at each run."""
         tokens = torch.as_tensor(features["tokens"], device=self.device)
         tokens = tokens.long()
         l = tokens.shape[1]
         self._check_length(l)
-        positions = torch.arange(l, device=tokens.device)
-        x = self._embed(tokens, positions[None])
+        segments = features.get("segment_ids")
+        if segments is None:
+            positions = torch.arange(l, device=tokens.device)
+            wpe_idx = positions[None]
+        else:
+            segments = torch.as_tensor(segments, device=self.device).to(
+                torch.int32)
+            positions = wpe_idx = packed_positions(segments).long()
+        x = self._embed(tokens, wpe_idx)
         for blk in self.blocks:
-            x, _kv = blk(x, positions)
+            x, _kv = blk(x, positions, segments=segments)
         if self.fused_head and training:
             return {"lm_hidden": _layer_norm(self.ln_f, x),
                     "lm_head_kernel": self.head.weight.t()}

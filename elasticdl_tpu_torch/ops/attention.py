@@ -19,10 +19,19 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
   arenas, or int8 arenas with fp32 per-row scale pools (the TPU kernel's
   quantized branch).
 
+The flash kernels take the TPU kernels' masks: causal, a sliding
+`window` (key tiles outside every row's window are never read, so the
+work grows with the window, not the sequence) and packed `segments`
+(per-row ids; a query sees keys of its own id only). The paged kernels
+take the `window` of a sliding-window model: tile row j (token j % t of
+the group-major query axis) sees pool rows k_pos > length + j - window.
+Only ring attention's `pos_offset` is still to be ported.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain version (`flash_attention_plain`, `flash_backward_dq_plain`,
 `flash_backward_dkv_plain`, `paged_decode_partials_plain`) for CPU
-tensors. `KERNEL_LAUNCHES` counts kernel launches per wrapper.
+tensors. `KERNEL_LAUNCHES` counts kernel launches per wrapper and
+variant.
 """
 
 import ctypes
@@ -37,13 +46,27 @@ from elasticdl_tpu_torch.ops.dispatch import on_kernel_path
 _NEG_INF = -1e30
 NEG_INF = _NEG_INF
 
-#: kernel launches per wrapper; chip_smoke.py resets and reads these to
-#: show that the serving and training paths went through the kernels
-#: (paged decode over int8 arenas counts under its own "_int8" names)
-KERNEL_LAUNCHES = {"flash_fwd": 0, "paged_decode": 0,
-                   "paged_decode_tile": 0, "paged_decode_int8": 0,
-                   "paged_decode_tile_int8": 0, "flash_bwd_dq": 0,
-                   "flash_bwd_dkv": 0}
+
+def _variant(base, window=None, segments=False):
+    """The launch-count name of a kernel variant: "flash_fwd",
+    "flash_fwd_window", "flash_fwd_segments", "flash_fwd_window_segments"
+    (the paged names take "_window" only)."""
+    return base + ("_window" if window else "") + (
+        "_segments" if segments else "")
+
+
+_FLASH_BASES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+_PAGED_BASES = ("paged_decode", "paged_decode_tile", "paged_decode_int8",
+                "paged_decode_tile_int8")
+#: kernel launches per wrapper and variant; chip_smoke.py resets and
+#: reads these to show that the serving and training paths went through
+#: the kernels (paged decode over int8 arenas counts under its own
+#: "_int8" names, a windowed or packed launch under "_window" /
+#: "_segments")
+KERNEL_LAUNCHES = dict.fromkeys(
+    [_variant(n, w, s) for n in _FLASH_BASES for w in (0, 1)
+     for s in (False, True)]
+    + [_variant(n, w) for n in _PAGED_BASES for w in (0, 1)], 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGED_DTYPE_CODES = {**_DTYPE_CODES, torch.int8: 2}
@@ -105,19 +128,103 @@ def expand_kv(kv, num_heads):
     return kv.repeat_interleave(num_heads // hkv, dim=1)
 
 
-def naive_attention(q, k, v, causal=False, scale=None):
-    """Reference softmax(q k^T) v, O(L^2) memory: the test oracle."""
+def _check_window(window, lq, lk):
+    """Sliding windows are defined for square self-attention and window
+    >= 1, where every row sees at least its own key (the JAX package's
+    `_check_window`)."""
+    if window is None:
+        return
+    if window < 1:
+        raise ValueError("window must be >= 1, got %r" % (window,))
+    if lq != lk:
+        raise ValueError(
+            "sliding-window attention requires square self-attention "
+            "(lq == lk), got lq=%d lk=%d" % (lq, lk)
+        )
+
+
+def _check_segments(segments, b, lq, lk, device=None):
+    """The packing mask argument as (q_seg [b, lq], k_seg [b, lk]) int32
+    on `device`, or None (the JAX package's `_check_segments`). One [b,
+    l] id array is square self-attention, where every row sees itself; a
+    (q_seg, k_seg) pair may leave rows with no visible key."""
+    if segments is None:
+        return None
+    if isinstance(segments, (tuple, list)):
+        if len(segments) != 2:
+            raise ValueError(
+                "segments pair must be (q_seg, k_seg), got %d items"
+                % len(segments)
+            )
+        q_seg, k_seg = segments
+    else:
+        if lq != lk:
+            raise ValueError(
+                "a single segments array requires square self-attention "
+                "(lq == lk), got lq=%d lk=%d; pass a (q_seg, k_seg) pair "
+                "for rectangular shapes" % (lq, lk)
+            )
+        q_seg = k_seg = segments
+    q_seg, k_seg = (torch.as_tensor(x).to(device=device, dtype=torch.int32)
+                    for x in (q_seg, k_seg))
+    if q_seg.shape != (b, lq) or k_seg.shape != (b, lk):
+        raise ValueError(
+            "segments must be [batch, seq]: q side (%d, %d), k side (%d, "
+            "%d); got %r / %r" % (b, lq, b, lk, tuple(q_seg.shape),
+                                  tuple(k_seg.shape))
+        )
+    return q_seg, k_seg
+
+
+def packed_positions(segments):
+    """Per-token positions that restart at each segment boundary:
+    segments [..., l] of contiguous same-id runs -> int32 of the same
+    shape, each token's offset within its own run (what RoPE and the
+    learned position table see for packed rows)."""
+    seg = torch.as_tensor(segments)
+    l = seg.shape[-1]
+    idx = torch.arange(l, device=seg.device).expand(seg.shape)
+    is_start = torch.ones_like(seg, dtype=torch.bool)
+    is_start[..., 1:] = seg[..., 1:] != seg[..., :-1]
+    starts = torch.cummax(torch.where(is_start, idx, torch.zeros_like(idx)),
+                          dim=-1).values
+    return (idx - starts).to(torch.int32)
+
+
+def _visible(lq, lk, causal, window, q_seg=None, k_seg=None, device=None):
+    """[b or 1, 1, lq, lk] bool: the (query, key) pairs the causal,
+    window and segment masks keep (the JAX package's `_block_mask_apply`
+    and segment compare, at pos_offset 0)."""
+    q_pos = torch.arange(lq, device=device)[:, None]
+    k_pos = torch.arange(lk, device=device)[None, :]
+    keep = torch.ones((lq, lk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= q_pos >= k_pos
+    if window is not None:
+        keep &= q_pos - k_pos < window
+        if not causal:
+            keep &= k_pos - q_pos < window
+    keep = keep[None, None]
+    if q_seg is not None:
+        keep = keep & (q_seg[:, :, None] == k_seg[:, None, :])[:, None]
+    return keep
+
+
+def naive_attention(q, k, v, causal=False, scale=None, window=None,
+                    segments=None):
+    """Reference softmax(q k^T) v, O(L^2) memory: the test oracle.
+    `window`: a query at p sees keys in (p - window, p] when causal,
+    |p - k| < window otherwise. `segments` [b, l] (or a (q_seg, k_seg)
+    pair): attention stays within same-id runs."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    lq, lk = q.shape[2], k.shape[2]
+    _check_window(window, lq, lk)
+    segs = _check_segments(segments, q.shape[0], lq, lk, q.device)
     k = expand_kv(k, q.shape[1])
     v = expand_kv(v, q.shape[1])
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
-    lq, lk = scores.shape[-2], scores.shape[-1]
-    q_pos = torch.arange(lq, device=q.device)[:, None]
-    k_pos = torch.arange(lk, device=q.device)[None, :]
-    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= q_pos >= k_pos
-    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    keep = _visible(lq, lk, causal, window, *(segs or ()), device=q.device)
+    scores = torch.where(keep, scores, torch.full_like(scores, _NEG_INF))
     return torch.matmul(torch.softmax(scores, dim=-1), v)
 
 
@@ -172,23 +279,21 @@ def _check_kernel_args(name, tensors, dtypes, d):
 # ------------------------------------------------------------------ flash
 
 
-def flash_attention_plain(q, k, v, causal=False, scale=None):
+def flash_attention_plain(q, k, v, causal=False, scale=None, window=None,
+                          q_seg=None, k_seg=None):
     """Plain PyTorch version of the flash kernel: (out in q.dtype, lse
-    fp32 [b, h, lq]). Scores and softmax in fp32; masked scores
-    contribute exactly 0, an empty row gives out 0 and lse +1e30 (the
-    kernel's convention, attention.py:1000-1004 in the JAX package)."""
+    fp32 [b, h, lq]). Scores and softmax in fp32; masked scores (causal,
+    `window`, segment ids `q_seg` [b, lq] / `k_seg` [b, lk]) contribute
+    exactly 0, an empty row gives out 0 and lse +1e30 (the kernel's
+    convention, attention.py:1000-1004 in the JAX package)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
     f32 = torch.float32
     kf = expand_kv(k, q.shape[1]).to(f32)
     vf = expand_kv(v, q.shape[1]).to(f32)
     s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
-    lq, lk = s.shape[-2], s.shape[-1]
-    if causal:
-        valid = (torch.arange(lq, device=q.device)[:, None]
-                 >= torch.arange(lk, device=q.device)[None, :])
-    else:
-        valid = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    valid = _visible(q.shape[2], k.shape[2], causal, window, q_seg, k_seg,
+                     device=q.device)
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     mx = s.amax(-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - mx), torch.zeros_like(s))
@@ -199,14 +304,41 @@ def flash_attention_plain(q, k, v, causal=False, scale=None):
     return out.to(q.dtype), lse
 
 
-def flash_forward(q, k, v, causal=False, scale=None):
+def _seg_args(q, k, q_seg, k_seg):
+    """(q_seg [b, lq], k_seg [b, lk]) as contiguous int32 on q's device,
+    or (None, None); both or neither."""
+    if (q_seg is None) != (k_seg is None):
+        raise ValueError("segment ids need both q_seg and k_seg")
+    if q_seg is None:
+        return None, None
+    segs = _check_segments((q_seg, k_seg), q.shape[0], q.shape[2],
+                           k.shape[2], q.device)
+    return tuple(x.contiguous() for x in segs)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _window_arg(window, lq, lk):
+    """The kernels' window int (0 = none), validated."""
+    _check_window(window, lq, lk)
+    return 0 if window is None else int(window)
+
+
+def flash_forward(q, k, v, causal=False, scale=None, window=None,
+                  q_seg=None, k_seg=None):
     """(out [b, h, lq, d] in q.dtype, lse fp32 [b, h, lq]) of tiled
-    online-softmax attention: the csrc/flash_fwd.cu kernel for CUDA
-    tensors, `flash_attention_plain` for CPU tensors."""
+    online-softmax attention under the causal, `window` and segment
+    masks: the csrc/flash_fwd.cu kernel for CUDA tensors,
+    `flash_attention_plain` for CPU tensors."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
+    win = _window_arg(window, q.shape[2], k.shape[2])
+    q_seg, k_seg = _seg_args(q, k, q_seg, k_seg)
     if not on_kernel_path(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window, q_seg=q_seg, k_seg=k_seg)
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -221,11 +353,12 @@ def flash_forward(q, k, v, causal=False, scale=None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.edl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, hkv, lq, lk, d, float(scale), int(causal),
-        _DTYPE_CODES[q.dtype], stream,
+        lse.data_ptr(), _ptr(q_seg), _ptr(k_seg), b, h, hkv, lq, lk, d,
+        float(scale), int(causal), win, _DTYPE_CODES[q.dtype], stream,
     )
-    _check_launch(err, "flash_fwd")
-    KERNEL_LAUNCHES["flash_fwd"] += 1
+    name = _variant("flash_fwd", win, q_seg is not None)
+    _check_launch(err, name)
+    KERNEL_LAUNCHES[name] += 1
     return out, lse
 
 
@@ -234,33 +367,70 @@ def _flash_lib():
     fn = lib.edl_flash_fwd
     if not fn.argtypes:
         fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
 
 
+def _fully_masked_rows(q_seg, k_seg, causal, window, lq, lk, chunk=2048):
+    """[b, lq] bool: rows with no visible key under the segment, causal
+    and window masks (the JAX package's `_fully_masked_rows`), reduced
+    over key chunks so the pair mask never exceeds [b, lq, chunk]."""
+    q_pos = torch.arange(lq, device=q_seg.device)[:, None]
+    seen = torch.zeros(q_seg.shape, dtype=torch.bool, device=q_seg.device)
+    for k_lo in range(0, lk, chunk):
+        k_pos = torch.arange(k_lo, min(lk, k_lo + chunk),
+                             device=q_seg.device)[None, :]
+        keep = q_seg[:, :, None] == k_seg[:, None, k_lo:k_lo + chunk]
+        if causal:
+            keep = keep & (q_pos >= k_pos)
+        if window is not None:
+            keep = keep & (q_pos - k_pos < window)
+            if not causal:
+                keep = keep & (k_pos - q_pos < window)
+        seen |= keep.any(-1)
+    return ~seen
+
+
 def flash_attention(q, k, v, causal=False, scale=None, window=None,
                     segments=None, pos_offset=0):
     """Tiled online-softmax attention, [b, h, lq, d] in q.dtype: the JAX
-    package's `flash_attention`. When autograd records (grad mode on and
-    an input requires grad) it runs through `FlashAttentionFunction`,
-    whose backward is the flash backward; otherwise (serving, under
-    no_grad) it calls `flash_forward` alone. Sliding windows, packed
-    segments and position offsets are not ported yet."""
-    if window is not None:
-        raise NotImplementedError("flash_attention: window is not ported")
-    if segments is not None:
-        raise NotImplementedError("flash_attention: segments are not ported")
+    package's `flash_attention`. `window`: sliding-window attention
+    (see naive_attention), square shapes only. `segments`: one [b, l]
+    id array (square) or a (q_seg, k_seg) pair; attention stays within
+    same-id keys in the forward and the backward, and under the pair
+    form a row with no visible key returns exactly 0 with zero gradient.
+    When autograd records (grad mode on and an input requires grad) it
+    runs through `FlashAttentionFunction`, whose backward is the flash
+    backward; otherwise (serving, under no_grad) it calls
+    `flash_forward` alone. `pos_offset` (ring attention's rotations) is
+    not ported yet: it belongs to the ring-attention slice."""
     if pos_offset:
-        raise NotImplementedError("flash_attention: pos_offset is not ported")
+        raise NotImplementedError(
+            "flash_attention: pos_offset belongs to ring attention, which "
+            "is not ported yet (the ring-attention slice)")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    pair_form = isinstance(segments, (tuple, list))
+    lq, lk = q.shape[2], k.shape[2]
+    group_size(q, k)
+    _check_window(window, lq, lk)
+    segs = _check_segments(segments, q.shape[0], lq, lk, q.device)
+    q_seg, k_seg = segs or (None, None)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFunction.apply(q, k, v, bool(causal),
-                                            float(scale))
-    return flash_forward(q, k, v, causal=causal, scale=scale)[0]
+        out = FlashAttentionFunction.apply(q, k, v, bool(causal),
+                                           float(scale), window, q_seg,
+                                           k_seg)
+    else:
+        out = flash_forward(q, k, v, causal=causal, scale=scale,
+                            window=window, q_seg=q_seg, k_seg=k_seg)[0]
+    if pair_form:
+        masked = _fully_masked_rows(q_seg, k_seg, causal, window, lq, lk)
+        out = torch.where(masked[:, None, :, None], torch.zeros_like(out),
+                          out)
+    return out
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -268,50 +438,58 @@ class FlashAttentionFunction(torch.autograd.Function):
     package's `_flash` custom_vjp (`_flash_fwd` saves q, k, v, out and
     the lse; `_flash_bwd` runs the two backward kernels). Inputs are
     made contiguous once here, so the backward's kernels read the saved
-    tensors as they are."""
+    tensors as they are. The window and the segment ids are not
+    differentiable (the JAX side returns float0 for the ids)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, window=None, q_seg=None,
+                k_seg=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                                 window=window, q_seg=q_seg, k_seg=k_seg)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        ctx.segs = (q_seg, k_seg)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        q_seg, k_seg = ctx.segs
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout.contiguous(),
-                                    causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                    causal=ctx.causal, scale=ctx.scale,
+                                    window=ctx.window, q_seg=q_seg,
+                                    k_seg=k_seg)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # --------------------------------------------------------- flash backward
 
 
-def _recompute_probs(q, k, lse, causal, scale):
+def _recompute_probs(q, k, lse, causal, scale, window=None, q_seg=None,
+                     k_seg=None):
     """P = exp(q k^T * scale - lse) in fp32 over the expanded kv heads,
-    exactly 0 at masked pairs (and on rows whose lse is the +1e30 of an
-    empty row)."""
+    exactly 0 at masked pairs and on rows whose lse is a sentinel: the
+    +1e30 of an empty row, or the -1e30 class the TPU kernels give a row
+    the pair form masks fully (their backward zeroes it, :1277)."""
     f32 = torch.float32
     kf = expand_kv(k, q.shape[1]).to(f32)
     s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
-    if causal:
-        lq, lk = s.shape[-2], s.shape[-1]
-        valid = (torch.arange(lq, device=q.device)[:, None]
-                 >= torch.arange(lk, device=q.device)[None, :])
-        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
-    return torch.exp(s - lse.to(f32)[..., None])
+    lse = lse.to(f32)[..., None]
+    keep = _visible(q.shape[2], k.shape[2], causal, window, q_seg, k_seg,
+                    device=q.device) & (lse > 0.5 * _NEG_INF)
+    return torch.where(keep, torch.exp(s - lse), torch.zeros_like(s))
 
 
-def flash_backward_dq_plain(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_backward_dq_plain(q, k, v, out, lse, do, causal=False, scale=None,
+                            window=None, q_seg=None, k_seg=None):
     """Plain PyTorch version of the dq kernel: (dq in q.dtype, delta fp32
     [b, h, lq]). delta = rowsum(dO * O) in fp32 (the JAX package's
     `_flash_backward` :1383), dS = P * (dP - delta) * scale with
     dP = dO V^T, dQ = dS K (the dense recompute at :1731-1769)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     f32 = torch.float32
-    p = _recompute_probs(q, k, lse, causal, scale)
+    p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg)
     gf = do.to(f32)
     delta = (gf * out.to(f32)).sum(-1)
     dp = torch.matmul(gf, expand_kv(v, q.shape[1]).to(f32).transpose(-1, -2))
@@ -321,7 +499,8 @@ def flash_backward_dq_plain(q, k, v, out, lse, do, causal=False, scale=None):
 
 
 def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
-                             scale=None):
+                             scale=None, window=None, q_seg=None,
+                             k_seg=None):
     """Plain PyTorch version of the dk/dv kernel: (dk, dv) in the k/v
     dtypes, group-summed to the kv head count under GQA. dV = P^T dO,
     dK = dS^T Q, with `delta` as the dq kernel returns it."""
@@ -329,7 +508,7 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
     b, h, _lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     f32 = torch.float32
-    p = _recompute_probs(q, k, lse, causal, scale)
+    p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg)
     gf = do.to(f32)
     dv = torch.matmul(p.transpose(-1, -2), gf)
     dp = torch.matmul(gf, expand_kv(v, h).to(f32).transpose(-1, -2))
@@ -341,19 +520,22 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_backward_plain(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_backward_plain(q, k, v, out, lse, do, causal=False, scale=None,
+                         window=None, q_seg=None, k_seg=None):
     """Plain PyTorch version of the flash backward: (dq, dk, dv) in the
     input dtypes; the counterpart of `attention_backward_lse`'s dense
     recompute in the JAX package."""
     group_size(q, k)
+    masks = dict(window=window, q_seg=q_seg, k_seg=k_seg)
     dq, delta = flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
-                                        scale=scale)
+                                        scale=scale, **masks)
     dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=causal,
-                                      scale=scale)
+                                      scale=scale, **masks)
     return dq, dk, dv
 
 
-def flash_backward(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_backward(q, k, v, out, lse, do, causal=False, scale=None,
+                   window=None, q_seg=None, k_seg=None):
     """(dq, dk, dv) of flash attention from its saved lse, in the input
     dtypes; under GQA dk and dv come back group-summed in the kv head
     count. CUDA tensors run the two csrc/flash_bwd.cu kernels (dq first:
@@ -361,13 +543,14 @@ def flash_backward(q, k, v, out, lse, do, causal=False, scale=None):
     plain version."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
+    masks = dict(window=window, q_seg=q_seg, k_seg=k_seg)
     if not on_kernel_path(q, k, v, out, lse, do):
         return flash_backward_plain(q, k, v, out, lse, do, causal=causal,
-                                    scale=scale)
+                                    scale=scale, **masks)
     dq, delta = flash_backward_dq(q, k, v, out, lse, do, causal=causal,
-                                  scale=scale)
+                                  scale=scale, **masks)
     dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal=causal,
-                                scale=scale)
+                                scale=scale, **masks)
     return dq, dk, dv
 
 
@@ -387,13 +570,17 @@ def _bwd_args(name, q, k, v, do, lse, extra=()):
     return b, h, hkv, lq, lk, d
 
 
-def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None,
+                      window=None, q_seg=None, k_seg=None):
     """(dq in q.dtype, delta fp32 [b, h, lq]): the csrc/flash_bwd.cu dq
     kernel for CUDA tensors, `flash_backward_dq_plain` for CPU tensors."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    win = _window_arg(window, q.shape[2], k.shape[2])
+    q_seg, k_seg = _seg_args(q, k, q_seg, k_seg)
     if not on_kernel_path(q, k, v, out, lse, do):
         return flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
-                                       scale=scale)
+                                       scale=scale, window=window,
+                                       q_seg=q_seg, k_seg=k_seg)
     q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
     lse = lse.contiguous()
     b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
@@ -405,23 +592,30 @@ def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None):
     err = _bwd_lib().edl_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-        b, h, hkv, lq, lk, d, float(scale), int(causal),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(q_seg), _ptr(k_seg), b, h, hkv, lq, lk, d, float(scale),
+        int(causal), win, _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check_launch(err, "flash_bwd_dq")
-    KERNEL_LAUNCHES["flash_bwd_dq"] += 1
+    name = _variant("flash_bwd_dq", win, q_seg is not None)
+    _check_launch(err, name)
+    KERNEL_LAUNCHES[name] += 1
     return dq, delta
 
 
-def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
+                       window=None, q_seg=None, k_seg=None):
     """(dk, dv) in the k/v dtype, group-summed under GQA: the
     csrc/flash_bwd.cu dk/dv kernel for CUDA tensors (one block per key
     tile and kv head walks every q head of its group, so the sum needs
     no atomics), `flash_backward_dkv_plain` for CPU tensors."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    win = _window_arg(window, q.shape[2], k.shape[2])
+    q_seg, k_seg = _seg_args(q, k, q_seg, k_seg)
     if not on_kernel_path(q, k, v, do, lse, delta):
         return flash_backward_dkv_plain(q, k, v, do, lse, delta,
-                                        causal=causal, scale=scale)
+                                        causal=causal, scale=scale,
+                                        window=window, q_seg=q_seg,
+                                        k_seg=k_seg)
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dkv", q, k, v, do, lse)
@@ -434,11 +628,13 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     err = _bwd_lib().edl_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, hkv, lq, lk, d, float(scale), int(causal),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(q_seg), _ptr(k_seg), b, h, hkv, lq, lk, d, float(scale),
+        int(causal), win, _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check_launch(err, "flash_bwd_dkv")
-    KERNEL_LAUNCHES["flash_bwd_dkv"] += 1
+    name = _variant("flash_bwd_dkv", win, q_seg is not None)
+    _check_launch(err, name)
+    KERNEL_LAUNCHES[name] += 1
     return dk, dv
 
 
@@ -448,9 +644,8 @@ def _bwd_lib():
         fn = getattr(lib, name)
         if not fn.argtypes:
             fn.argtypes = (
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
     return lib
@@ -459,29 +654,48 @@ def _bwd_lib():
 # ----------------------------------------------------------- paged decode
 
 
-def _tile_causal_mask(group, t, device):
+def _paged_valid(k_pos, bid, length, row_pos, window):
+    """The paged-decode visibility predicate (the JAX package's
+    `_paged_valid`), all operands broadcasting: a pool row at absolute
+    position `k_pos` in block `bid` (-1 = unallocated) is visible to a
+    query row at `row_pos` iff k_pos < length, bid >= 0 and, under a
+    sliding window, k_pos > row_pos - window."""
+    valid = (k_pos < length) & (bid >= 0)
+    if window is not None:
+        valid = valid & (k_pos > row_pos - window)
+    return valid
+
+
+def _tile_causal_mask(group, t, window=None, device=None):
     """[group*t, t] visibility of the query tile's own keys: tile key j'
-    is visible to tile row j iff j' <= j."""
+    is visible to tile row j iff j' <= j and, under a window,
+    j - j' < window (the diagonal is inside any window >= 1)."""
     tile = torch.arange(t, device=device)
     tri = tile[:, None] >= tile[None, :]
+    if window is not None:
+        tri = tri & (tile[:, None] - tile[None, :] < window)
     return tri[None].expand(group, t, t).reshape(group * t, t)
 
 
 def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length,
-                                k_scale_pool=None, v_scale_pool=None):
+                                k_scale_pool=None, v_scale_pool=None,
+                                window=None, t=1):
     """Plain PyTorch version of the paged decode kernel.
 
     qf: [b, hkv, n_rows, d] fp32 query rows, already multiplied by the
-    softmax scale; k_pool/v_pool: [num_blocks, bs, hkv, d]; block_table:
-    [b, m] int32 (-1 = unallocated); length: [b] int32. For int8 arenas,
-    k_scale_pool/v_scale_pool [num_blocks, bs, hkv, 1] fp32 hold each
-    row's scale: k-scales multiply the scores, v-scales the weights of
-    the value product (the JAX scan's deferred dequantize). Returns the
-    online-softmax partials over the pool rows k_pos < length of each
-    sequence's table: o [b, hkv, n_rows, d], l and m [b, hkv, n_rows],
-    fp32, m in natural-log units. Masked rows contribute exactly 0; a
-    sequence with no visible row gives (0, 0, -1e30)."""
-    b, hkv, _n, d = qf.shape
+    softmax scale, group-major over the tile: row r is tile token r % t,
+    at position length + r % t; k_pool/v_pool: [num_blocks, bs, hkv, d];
+    block_table: [b, m] int32 (-1 = unallocated); length: [b] int32. For
+    int8 arenas, k_scale_pool/v_scale_pool [num_blocks, bs, hkv, 1] fp32
+    hold each row's scale: k-scales multiply the scores, v-scales the
+    weights of the value product (the JAX scan's deferred dequantize).
+    Returns the online-softmax partials over the pool rows that
+    `_paged_valid` keeps (k_pos < length, and k_pos > length + r % t -
+    window under a `window`): o [b, hkv, n_rows, d], l and m [b, hkv,
+    n_rows], fp32, m in natural-log units. Masked rows contribute
+    exactly 0; a query row with no visible pool row gives (0, 0,
+    -1e30)."""
+    b, hkv, n_rows, d = qf.shape
     bs = k_pool.shape[1]
     m = block_table.shape[1]
     f32 = torch.float32
@@ -493,9 +707,13 @@ def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length,
     if k_scale_pool is not None:
         ks = k_scale_pool[safe].reshape(b, m * bs, hkv).permute(0, 2, 1)
         s = s * ks[:, :, None, :]
-    k_pos = torch.arange(m * bs, device=qf.device)
-    valid = ((k_pos[None, :] < length.long()[:, None])
-             & (table.repeat_interleave(bs, dim=1) >= 0))[:, None, None, :]
+    length = length.long()
+    row_pos = (length[:, None, None]
+               + (torch.arange(n_rows, device=qf.device) % t)[None, :, None])
+    valid = _paged_valid(
+        torch.arange(m * bs, device=qf.device)[None, None, :],
+        table.repeat_interleave(bs, dim=1)[:, None, :],
+        length[:, None, None], row_pos, window)[:, None]
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     mx = s.amax(-1)
     p = torch.where(valid, torch.exp(s - mx[..., None]), torch.zeros_like(s))
@@ -509,14 +727,16 @@ def paged_decode_partials_plain(qf, k_pool, v_pool, block_table, length,
 
 
 def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
-                          k_scale_pool=None, v_scale_pool=None):
+                          k_scale_pool=None, v_scale_pool=None, window=None,
+                          t=1):
     """Online-softmax partials of paged decode attention (see
     `paged_decode_partials_plain` for the contract): a
     csrc/paged_decode.cu kernel for CUDA tensors (split up to
     SPLIT_MAX_ROWS query rows, tile beyond; the launch counts under
-    "paged_decode" / "paged_decode_tile", with "_int8" for int8 arenas),
-    the plain version for CPU tensors. int8 arenas need both scale
-    pools, float arenas take none."""
+    "paged_decode" / "paged_decode_tile", with "_int8" for int8 arenas
+    and "_window" under a window), the plain version for CPU tensors.
+    int8 arenas need both scale pools, float arenas take none. `t` is
+    the tile length: n_rows must be a multiple of it."""
     quantized = k_pool.dtype == torch.int8
     scales = [s for s in (k_scale_pool, v_scale_pool) if s is not None]
     if len(scales) != (2 if quantized else 0):
@@ -524,12 +744,17 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
             "paged_decode: int8 arenas need k_scale_pool and v_scale_pool, "
             "float arenas take neither"
         )
+    b, hkv, n_rows, d = qf.shape
+    if t < 1 or n_rows % t:
+        raise ValueError("paged_decode: %d query rows are not whole tiles of "
+                         "%d" % (n_rows, t))
+    if window is not None and window < 1:
+        raise ValueError("window must be >= 1, got %r" % (window,))
     if not on_kernel_path(qf, k_pool, v_pool, block_table, length, *scales):
         return paged_decode_partials_plain(
             qf, k_pool, v_pool, block_table, length, k_scale_pool,
-            v_scale_pool
+            v_scale_pool, window=window, t=t
         )
-    b, hkv, n_rows, d = qf.shape
     nb, bs, pool_hkv, pool_d = k_pool.shape
     m = block_table.shape[1]
     if (pool_hkv, pool_d) != (hkv, d) or v_pool.shape != k_pool.shape:
@@ -552,11 +777,12 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
         if any(s.shape != (nb, bs, hkv, 1) for s in scales):
             raise ValueError("paged_decode: scale pools must be [%d, %d, %d, "
                              "1]" % (nb, bs, hkv))
-        if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+        if any(t_.data_ptr() % 16 for t_ in (k_pool, v_pool)):
             raise ValueError("paged_decode: int8 arenas must be 16-byte "
                              "aligned")
         scale_ptrs = [s.data_ptr() for s in scales]
-    suffix = "_int8" if quantized else ""
+    win = 0 if window is None else int(window)
+    suffix = ("_int8" if quantized else "") + ("_window" if win else "")
     o = torch.empty((b, hkv, n_rows, d), dtype=torch.float32,
                     device=qf.device)
     l = torch.empty((b, hkv, n_rows), dtype=torch.float32, device=qf.device)
@@ -574,12 +800,16 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
             qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             *scale_ptrs, table.data_ptr(), length.data_ptr(), o.data_ptr(),
             l.data_ptr(), mx.data_ptr(), b, hkv, n_rows, m, bs, d, dtype,
-            stream,
+            win, t, stream,
         )
-        _check_launch(err, "paged_decode_tile")
-        KERNEL_LAUNCHES["paged_decode_tile" + suffix] += 1
+        name = "paged_decode_tile" + suffix
+        _check_launch(err, name)
+        KERNEL_LAUNCHES[name] += 1
         return o, l, mx
-    n_split, per_split = _paged_splits(b * hkv, m)
+    # a window bounds the slots any row can see (positions length -
+    # window + 1 .. length - 1): split over those only
+    span = m if not win else min(m, -(-win // bs) + 1)
+    n_split, per_split = _paged_splits(b * hkv, span)
     o_part = torch.empty((n_split, b, hkv, n_rows, d), dtype=torch.float32,
                          device=qf.device)
     l_part = torch.empty((n_split, b, hkv, n_rows), dtype=torch.float32,
@@ -590,10 +820,11 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
         table.data_ptr(), length.data_ptr(), o.data_ptr(), l.data_ptr(),
         mx.data_ptr(), o_part.data_ptr(), l_part.data_ptr(),
         m_part.data_ptr(), n_split, per_split, b, hkv, n_rows, m, bs, d,
-        dtype, stream,
+        dtype, win, t, stream,
     )
-    _check_launch(err, "paged_decode")
-    KERNEL_LAUNCHES["paged_decode" + suffix] += 1
+    name = "paged_decode" + suffix
+    _check_launch(err, name)
+    KERNEL_LAUNCHES[name] += 1
     return o, l, mx
 
 
@@ -608,8 +839,8 @@ def _paged_splits(bh, m):
 
 def _paged_lib():
     lib = _build.load("paged_decode")
-    for name, n_ptrs, n_ints in (("edl_paged_decode_tile", 10, 7),
-                                 ("edl_paged_decode_split", 13, 9)):
+    for name, n_ptrs, n_ints in (("edl_paged_decode_tile", 10, 9),
+                                 ("edl_paged_decode_split", 13, 11)):
         fn = getattr(lib, name)
         if not fn.argtypes:
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs
@@ -640,10 +871,10 @@ def paged_decode_attention(q, k_cur, v_cur, k_pool, v_pool, block_table,
     scales; k_cur/v_cur are then int8 too, with k_cur_scale/v_cur_scale
     [b, hkv, t, 1] ([b, hkv, 1] for t = 1). All four scale operands or
     none. The tile's own keys fold their scales into the scores and its
-    values into the weights, as the pool rows do. Sliding windows are
-    not ported yet."""
-    if window is not None:
-        raise NotImplementedError("paged_decode_attention: window")
+    values into the weights, as the pool rows do.
+
+    `window`: a sliding-window model's window; tile row j sees pool rows
+    k_pos > length + j - window and tile keys j - window < j' <= j."""
     scales = (k_scale_pool, v_scale_pool, k_cur_scale, v_cur_scale)
     quantized = k_scale_pool is not None
     if any(x is not None for x in scales) and any(x is None for x in scales):
@@ -669,13 +900,14 @@ def paged_decode_attention(q, k_cur, v_cur, k_pool, v_pool, block_table,
     f32 = torch.float32
     qf = (q.to(f32) * scale).reshape(b, hkv, group * t, d)
     o, l, mx = paged_decode_partials(qf, k_pool, v_pool, block_table, length,
-                                     k_scale_pool, v_scale_pool)
+                                     k_scale_pool, v_scale_pool,
+                                     window=window, t=t)
     s_cur = torch.matmul(qf, k_cur.to(f32).transpose(-1, -2))
     cur_w_scale = None
     if quantized:
         s_cur = s_cur * k_cur_scale[..., 0][:, :, None, :]
         cur_w_scale = v_cur_scale[..., 0]
-    tri = _tile_causal_mask(group, t, q.device)
+    tri = _tile_causal_mask(group, t, window, q.device)
     s_cur = torch.where(tri, s_cur, torch.full_like(s_cur, _NEG_INF))
     o, l, mx = softmax_merge(o, l, mx, s_cur, v_cur.to(f32),
                              w_scale=cur_w_scale)

@@ -62,11 +62,14 @@ def test_flash_matches_jax_kernel_and_naive(causal, h, hkv, l):
 
 
 def test_flash_unported_options_raise():
+    """Windows and segments are ported (tests/test_torch_masked_attention.py);
+    ring attention's pos_offset is not."""
     q, k, v = (torch.zeros(1, 1, 8, 8) for _ in range(3))
-    for kwargs in ({"window": 4}, {"segments": torch.zeros(1, 8)},
-                   {"pos_offset": 2}):
-        with pytest.raises(NotImplementedError):
-            tatt.flash_attention(q, k, v, causal=True, **kwargs)
+    with pytest.raises(NotImplementedError, match="ring"):
+        tatt.flash_attention(q, k, v, causal=True, pos_offset=2)
+    for kwargs in ({"window": 4}, {"segments": torch.zeros(1, 8)}):
+        assert tatt.flash_attention(q, k, v, causal=True, **kwargs).shape == (
+            1, 1, 8, 8)
 
 
 def _paged_inputs(seed, b, h, hkv, t, d, bs, nb, m, lengths, holes=False):
@@ -133,8 +136,10 @@ def test_paged_legacy_shape_and_partials_contract():
 def test_paged_unported_options_raise():
     args = [torch.from_numpy(x) for x in _paged_inputs(
         seed=1, b=1, h=1, hkv=1, t=1, d=8, bs=4, nb=4, m=2, lengths=[3])]
-    with pytest.raises(NotImplementedError):
-        tatt.paged_decode_attention(*args, window=2)
+    # sliding windows are ported; a window below 1 is refused, as the
+    # JAX op's _check_window refuses it
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        tatt.paged_decode_attention(*args, window=0)
     # int8 arenas are ported; a partial set of scale operands is refused,
     # as the JAX op refuses it
     with pytest.raises(ValueError, match="all four scale operands"):

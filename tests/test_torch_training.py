@@ -255,15 +255,16 @@ def test_chunked_xent_matches_jax(s, num_chunks):
 
 
 def test_unported_options_raise():
-    for kwargs in ({"remat": "full"}, {"lora_rank": 4},
-                   {"attn_window": 8}):
+    for kwargs in ({"remat": "full"}, {"lora_rank": 4}):
         with pytest.raises(NotImplementedError):
             tzoo.custom_model(device="cpu", **dict(CFG, **kwargs))
-    model = tzoo.custom_model(device="cpu", **CFG)
+    # attn_window and segment_ids are ported
+    # (tests/test_torch_packed_windowed.py)
+    model = tzoo.custom_model(device="cpu", **dict(CFG, attn_window=8))
     features, _ = tokens_batch(0)
-    with pytest.raises(NotImplementedError):
-        model(dict(features, segment_ids=np.zeros((4, 16), np.int32)),
-              training=True)
+    logits = model(dict(features, segment_ids=np.zeros((4, 16), np.int32)),
+                   training=True)
+    assert logits.shape == (4, 16, CFG["vocab_size"])
     spec = load_model_spec_from_module(tzoo)
     with pytest.raises(NotImplementedError):
         Trainer(spec, mesh=object(), model_params=PARAMS, device="cpu")
