@@ -100,23 +100,50 @@ repository checkout it sits in. Phases, each of which fails the run:
    every step; a packed row's logits against its documents run alone;
 17. the mask variants timed at the paths' shapes, beside a bound over
    the pairs the mask keeps, the plain version and
-   F.scaled_dot_product_attention with the same boolean mask.
+   F.scaled_dot_product_attention with the same boolean mask;
+18. ring attention's pos_offset variants of A, C and D against their
+   plain versions: small shapes (fp32 and bf16, causal or not, windows
+   none, 8, 24, 64, offsets 0, -l, l, l + 1, segments on every other
+   case, fp32 gradients for bf16 inputs), then the ring path's shape (b
+   2, h 8, 1024-row shards, d 128, window 1536; offsets 1024, 2048 and
+   -1024 with a ring-like global lse);
+19. the windowed ring's rotation loop in one process: every rank's
+   rotations at l 4096 over 4 shards through the per-rotation functions
+   the distributed ring calls, merged by lse, against unsharded
+   windowed attention on the card;
+20. the sp training path: the flagship at seq_len 4096, minibatch 2,
+   over 4 rank processes that share the card through a gloo group
+   (this script run as `chip_smoke.py --sp-rank R PORT DIR`; the
+   exchange stages through host memory), 2 steps each of the causal
+   ring, the ring with attn_window 1536 and Ulysses, against the
+   single-device port Trainer on the same batch and params: losses
+   within their limit, parameters bit-identical across ranks, each
+   step's launches per kernel variant summed over the ranks equal to
+   the ring's rotation table (72 forward launches a windowed step, 40 of
+   them with an offset); a small fp32 windowed ring step card against
+   CPU. Its step times are no sp speed figure;
+21. the offset variants timed at the ring's one-shard-back rotation,
+   beside a bound over the pairs the mask keeps, the plain version and
+   SDPA with the same boolean mask.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
-JSON line, a `packed` and a `windowed` JSON line, the nvidia-smi line
-and, last, {"ok": true, "device": {...}}.
+JSON line, a `packed`, a `windowed` and an `sp` JSON line, the
+nvidia-smi line and, last, {"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
 
+import hashlib
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -145,6 +172,7 @@ from elasticdl_tpu_torch.ops import attention as att
 from elasticdl_tpu_torch.ops import embedding_ops as eo
 from elasticdl_tpu_torch.ops import optimizer_kernels as ok
 from elasticdl_tpu_torch.ops import update_math as um
+from elasticdl_tpu_torch.parallel import context_parallel as cp
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 from elasticdl_tpu_torch.serving.server import GenerationServer, ServingConfig
 from elasticdl_tpu_torch.training.trainer import Trainer
@@ -2124,22 +2152,28 @@ def real_tokens(seg, labels):
     return real
 
 
-def _flash_case(q, k, v, do, causal, masks):
+def _flash_case(q, k, v, do, causal, masks, grad_dtype=None, lse_bwd=None):
     """Kernels A, C, D on one input against their plain versions: (errors
-    by kernel, the variant's name)."""
+    by kernel, the variant's name). `masks` may hold window, q_seg /
+    k_seg and pos_offset; `grad_dtype` is the backward's output dtype
+    (None: the input's); `lse_bwd` replaces the forward's lse in the
+    backward (a ring's global lse)."""
     variant = att._variant("", masks.get("window"),
-                           masks.get("q_seg") is not None)
+                           masks.get("q_seg") is not None,
+                           bool(masks.get("pos_offset")))
     out, lse = att.flash_forward(q, k, v, causal=causal, **masks)
-    dq, delta = att.flash_backward_dq(q, k, v, out, lse, do, causal=causal,
-                                      **masks)
-    dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta, causal=causal,
-                                    **masks)
+    lse_b = lse if lse_bwd is None else lse_bwd
+    bwd = dict(masks, causal=causal, grad_dtype=grad_dtype)
+    dq, delta = att.flash_backward_dq(q, k, v, out, lse_b, do, **bwd)
+    dk, dv = att.flash_backward_dkv(q, k, v, do, lse_b, delta, **bwd)
     torch.cuda.synchronize()
+    want = grad_dtype or q.dtype
+    check(dq.dtype == dk.dtype == dv.dtype == want,
+          "flash backward%s wrote %s, not %s" % (variant, dq.dtype, want))
     ref, ref_lse = att.flash_attention_plain(q, k, v, causal=causal, **masks)
-    pdq, pdelta = att.flash_backward_dq_plain(q, k, v, out, lse, do,
-                                              causal=causal, **masks)
-    pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse, pdelta,
-                                            causal=causal, **masks)
+    pdq, pdelta = att.flash_backward_dq_plain(q, k, v, out, lse_b, do, **bwd)
+    pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse_b, pdelta,
+                                            **bwd)
     errs = {"flash_fwd": {
         "max_abs_err": (out.float() - ref.float()).abs().max().item(),
         "lse_max_abs_err": (lse - ref_lse).abs().max().item()}}
@@ -2729,6 +2763,524 @@ def time_masked_paged(cases, launches, errors):
     return entries
 
 
+# ---------------------------------------------- context parallelism (sp)
+
+SP = 4  # rank processes of the sp path; they share the one card
+SP_SEQ = 4096  # global sequence: each rank holds 1024 tokens
+SP_LOCAL = SP_SEQ // SP
+SP_BATCH, SP_STEPS = 2, 2
+SP_WINDOW = 1536  # the windowed ring reaches 0, 1 and 2 shards back
+SP_SEED = 21
+# name: the model params each sp run adds to the flagship
+SP_CONFIGS = {"ring": {"sp_impl": "ring"},
+              "ring_window": {"sp_impl": "ring", "attn_window": SP_WINDOW},
+              "ulysses": {"sp_impl": "ulysses"}}
+# the single-device run each sp run is held against
+SP_SINGLE = {"ring": "causal", "ring_window": "window", "ulysses": "causal"}
+# a bf16 sp step against the single-device step on the same global batch
+# and params: the loss by relative error (bf16 rounding at other places:
+# the ring merges per-shard partials, Ulysses transposes; the limit of
+# the card-vs-CPU bf16 step)
+SP_LOSS_TOL_REL = STEP_LOSS_TOL_REL
+# a small fp32 windowed ring step on the card against the same step on
+# the CPU (plain versions), TF32 off: the loss and each parameter's
+# summed gradient norm by relative error (fp32 sums in another order)
+SP_SMALL = dict(vocab_size=4096, seq_len=512, embed_dim=256, num_heads=2,
+                num_layers=2, attn_window=160)
+SP_SMALL_TOL_REL = 1e-4
+SP_RANK_TIMEOUT_S = 600
+# the ring path's rotations checked and timed alone (b 2, h 8, 1024-row
+# shards, d 128, window 1536): offsets 1 and 2 shards back, and one
+# newer shard of the non-causal band
+SP_PATH_OFFSETS = ((SP_LOCAL, False), (2 * SP_LOCAL, False),
+                   (-SP_LOCAL, False))
+
+
+def sp_expected_launches(config):
+    """{kernel variant: launches in one sp training step summed over the
+    ranks} for one of SP_CONFIGS, from the ring's own rotation table:
+    each rotation that runs is one forward, one dq and one dk/dv launch
+    per layer, under "_window" for a windowed ring and "_offset" when
+    its pos_offset is nonzero; Ulysses launches each kernel once per
+    layer and rank over the whole sequence."""
+    layers = FLAGSHIP["num_layers"]
+    extra = SP_CONFIGS[config]
+    counts = {}
+    if extra["sp_impl"] == "ulysses":
+        calls = [{"window": None, "pos_offset": 0}] * SP
+    else:
+        calls = [cp.rotation_call(src, my, SP, SP_LOCAL, True,
+                                  extra.get("attn_window"))
+                 for my in range(SP) for src in range(SP)]
+    for call in calls:
+        if call is None:
+            continue
+        for base in TRAINING_KERNELS:
+            name = att._variant(base, call["window"], False,
+                                call["pos_offset"] != 0)
+            counts[name] = counts.get(name, 0) + layers
+    return counts
+
+
+def sp_batch():
+    """The global batch every rank is given: [SP_BATCH, SP_SEQ] tokens."""
+    rs = np.random.RandomState(SP_SEED)
+    tokens = rs.randint(0, FLAGSHIP["vocab_size"],
+                        size=(SP_BATCH, SP_SEQ + 1)).astype(np.int32)
+    return {"tokens": tokens[:, :-1]}, tokens[:, 1:]
+
+
+def sp_params():
+    """The flagship's params at seq_len SP_SEQ, drawn by numpy: every
+    rank, and the single-device run, loads the same."""
+    cfg = dict(FLAGSHIP, seq_len=SP_SEQ)
+    return params_from_flax(numpy_flax_params(cfg, seed=SP_SEED))
+
+
+def _param_digest(params):
+    digest = hashlib.sha256()
+    for key in sorted(params):
+        digest.update(params[key].detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def sp_train(params, batch, extra, mesh=None):
+    """SP_STEPS Trainer steps of the flagship at SP_SEQ on the card,
+    under `mesh` (this rank's part of an sp run) or on one device.
+    Returns per step the loss, the host-clock ms, the kernel launches
+    of the step and (under a mesh) the digest of the parameters."""
+    cfg = dict(FLAGSHIP, seq_len=SP_SEQ, **extra)
+    trainer = Trainer(load_model_spec_from_module(tzoo), mesh=mesh,
+                      model_params=_params_str(cfg), device="cuda")
+    state = trainer.init_state(batch, params=params)
+    steps = [{"digest": _param_digest(state.params)}] if mesh else []
+    for _ in range(SP_STEPS):
+        torch.cuda.synchronize()
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step = {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                "launches": {k: n for k, n in att.KERNEL_LAUNCHES.items()
+                             if n}}
+        if mesh is not None:
+            step["digest"] = _param_digest(state.params)
+        steps.append(step)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return steps
+
+
+def sp_small_step(mesh, device):
+    """One windowed ring step of SP_SMALL in fp32 on `device` under
+    `mesh`: the loss and each parameter's summed gradient norm."""
+    batch_rs = np.random.RandomState(SP_SEED + 1)
+    tokens = batch_rs.randint(0, SP_SMALL["vocab_size"], size=(
+        2, SP_SMALL["seq_len"] + 1)).astype(np.int32)
+    batch = ({"tokens": tokens[:, :-1]}, tokens[:, 1:])
+    cfg = dict(SP_SMALL, dtype="fp32", sp_impl="ring")
+    trainer = Trainer(load_model_spec_from_module(tzoo), mesh=mesh,
+                      model_params="; ".join("%s=%r" % kv
+                                             for kv in cfg.items()),
+                      device=device)
+    state = trainer.init_state(batch, params=params_from_flax(
+        numpy_flax_params(SP_SMALL, seed=SP_SEED + 2)))
+    state, loss = trainer.train_step(state, batch)
+    return {"loss": loss, "grad_norms": {
+        k: p.grad.float().norm().item() for k, p in state.params.items()}}
+
+
+def sp_rank_main(rank, port, outdir):
+    """One rank of the sp path (`chip_smoke.py --sp-rank R PORT DIR`):
+    joins the gloo group of SP processes on this card, runs every
+    SP_CONFIGS run and the small card-vs-CPU step, and writes its
+    results to DIR/rank<R>.json. The parent built the kernels."""
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.parallel.mesh import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
+                            world_size=SP, rank=rank,
+                            timeout=timedelta(seconds=SP_RANK_TIMEOUT_S))
+    try:
+        mesh = build_mesh({"sp": SP})
+        batch, params = sp_batch(), sp_params()
+        result = {"rank": rank, "configs": {}}
+        for name, extra in SP_CONFIGS.items():
+            result["configs"][name] = sp_train(params, batch, extra, mesh)
+        result["small"] = {dev: sp_small_step(mesh, dev)
+                           for dev in ("cuda", "cpu")}
+        with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_sp_ranks(outdir):
+    """Start the SP rank processes, wait for them (SP_RANK_TIMEOUT_S)
+    and return their results by rank; a rank that fails or times out
+    fails the phase, and every rank still running is killed."""
+    port = _free_port()
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs, logs = [], []
+    try:
+        for r in range(SP):
+            logs.append(open(os.path.join(outdir, "rank%d.log" % r), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sp-rank",
+                 str(r), str(port), outdir], env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + SP_RANK_TIMEOUT_S
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * SP:
+        tails = []
+        for r in range(SP):
+            with open(os.path.join(outdir, "rank%d.log" % r)) as f:
+                tails.append("rank %d:\n%s" % (r, f.read()[-3000:]))
+        raise SmokeFailure("sp rank processes exited %s\n%s"
+                           % (codes, "\n".join(tails)))
+    results = []
+    for r in range(SP):
+        with open(os.path.join(outdir, "rank%d.json" % r)) as f:
+            results.append(json.load(f))
+    return results
+
+
+def train_sp():
+    """The sp training path: the flagship (vocab 32000, embed 1024, 8
+    heads, 8 layers, bf16 over fp32 params, AdamW 3e-4 / wd 0.01) at
+    seq_len SP_SEQ, minibatch SP_BATCH, over SP rank processes sharing
+    the card through a gloo group, SP_STEPS steps of each of SP_CONFIGS
+    (the causal ring, the ring with attn_window SP_WINDOW, Ulysses),
+    after the single-device port Trainer on the same global batch and
+    params (causal and windowed). Checks: finite losses, every rank's
+    loss equal, each loss within SP_LOSS_TOL_REL of the single-device
+    run's, the parameters bit-identical across ranks before and after
+    every step (sha256 of their bytes), each step's launches per kernel
+    variant summed over the ranks equal to sp_expected_launches, the
+    small fp32 windowed ring step equal card against CPU. Returns the
+    `sp` metrics and the launches of one windowed ring step by variant.
+    The step times are no sp speed figure: SP processes time-share one
+    card and exchange through host memory."""
+    batch, params = sp_batch(), sp_params()
+    single = {}
+    for name, extra in (("causal", {}), ("window",
+                                         {"attn_window": SP_WINDOW})):
+        steps = sp_train(params, batch, extra)
+        single[name] = {"losses": [s["loss"] for s in steps],
+                        "step_ms": [s["ms"] for s in steps],
+                        "launches_per_step": steps[-1]["launches"]}
+        check(all(math.isfinite(x) for x in single[name]["losses"]),
+              "non-finite single-device loss at seq %d" % SP_SEQ)
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        ranks = run_sp_ranks(outdir)
+        wall = time.perf_counter() - t0
+    out = {"model": "transformer_lm flagship, bf16 compute, fp32 params",
+           "seq_len": SP_SEQ, "minibatch": SP_BATCH, "sp": SP,
+           "shard_len": SP_LOCAL, "steps": SP_STEPS,
+           "exchange": "gloo, host-staged (SP processes share one card)",
+           "single_device": single, "ranks_wall_s": wall, "configs": {}}
+    for name in SP_CONFIGS:
+        per_rank = [r["configs"][name] for r in ranks]
+        check(len({r[0]["digest"] for r in per_rank}) == 1,
+              "sp %s: ranks start from different parameters" % name)
+        ref = single[SP_SINGLE[name]]["losses"]
+        want = sp_expected_launches(name)
+        losses = []
+        for i in range(SP_STEPS):
+            steps = [r[i + 1] for r in per_rank]
+            loss = steps[0]["loss"]
+            check(math.isfinite(loss), "sp %s: non-finite loss" % name)
+            check(all(s["loss"] == loss for s in steps),
+                  "sp %s step %d: ranks disagree on the loss: %s"
+                  % (name, i, [s["loss"] for s in steps]))
+            check(len({s["digest"] for s in steps}) == 1,
+                  "sp %s step %d: parameters differ across ranks"
+                  % (name, i))
+            err = abs(loss - ref[i]) / abs(ref[i])
+            check(err <= SP_LOSS_TOL_REL,
+                  "sp %s step %d: loss %.6f against the single device's "
+                  "%.6f" % (name, i, loss, ref[i]))
+            summed = {}
+            for s in steps:
+                for k, n in s["launches"].items():
+                    summed[k] = summed.get(k, 0) + n
+            check(summed == want, "sp %s step %d launched %s, not %s"
+                  % (name, i, summed, want))
+            losses.append(loss)
+        out["configs"][name] = {
+            **SP_CONFIGS[name], "losses": losses,
+            "single_device_losses": ref,
+            "loss_max_rel_err": max(abs(a - b) / abs(b)
+                                    for a, b in zip(losses, ref)),
+            "step_ms_by_rank": [[s["ms"] for s in r[1:]] for r in per_rank],
+            "launches_per_step": want,
+        }
+        log("sp %s: %s" % (name, json.dumps(out["configs"][name])))
+    small = []
+    for r in ranks:
+        gpu, cpu = r["small"]["cuda"], r["small"]["cpu"]
+        errs = [abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])] + [
+            abs(gpu["grad_norms"][k] - n) / max(n, 1e-30)
+            for k, n in cpu["grad_norms"].items()]
+        small.append(max(errs))
+        check(max(errs) <= SP_SMALL_TOL_REL,
+              "small fp32 ring step: card against CPU, rank %d rel err %.3g"
+              % (r["rank"], max(errs)))
+    out["small_ring_cuda_vs_cpu"] = {
+        "model": SP_SMALL, "dtype": "fp32", "max_rel_err": max(small),
+        "limit": SP_SMALL_TOL_REL, "loss_cuda": ranks[0]["small"]["cuda"][
+            "loss"], "loss_cpu": ranks[0]["small"]["cpu"]["loss"]}
+    # the windowed ring run's launches (SP_STEPS steps, summed over ranks)
+    run = {k: n * SP_STEPS for k, n in sp_expected_launches(
+        "ring_window").items()}
+    return out, run
+
+
+def check_offset_flash(gen):
+    """Kernels A, C and D with pos_offset against their plain versions.
+    Small shapes: fp32 and bf16, causal or not, windows none, 8, 24, 64,
+    offsets 0, -l, l and l + 1 (every row of a causal rotation at -l
+    sees no key; l is not a multiple of the 64-row tile, so the tile
+    bounds are ragged), on every other case the segment ids of one
+    packed row cut at both shards' positions (documents cross the shard
+    boundary, as on a packed ring), GQA groups
+    1, 2 and 4, l = 200, d 64 and 128; the backward of the bf16 cases
+    writes fp32 gradients, as the ring asks. Then the ring path's shape
+    (b 2, h 8, 1024-row shards, d 128, bf16, window 1536, fp32
+    gradients) at SP_PATH_OFFSETS, the backward taking a ring-like
+    global lse (the rotation's merged with the diagonal rotation's).
+    Limits: those of the masked variants (FLASH_TOL_OUT / FLASH_TOL_LSE,
+    BWD_TOL_REL of the input dtype by masked_rel_err). Returns
+    ({variant: worst errors}, the path shape's worst, its inputs)."""
+    worst, path_worst = {}, {}
+    i = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for window in (None, 8, 24, 64):
+                for offset in (0, -200, 200, 201):
+                    h, hkv, d = MASKED_FLASH_SMALL[i % 4]
+                    i += 1
+                    q, k, v = flash_inputs(gen, 2, h, hkv, 200, d, dtype)
+                    do = flash_inputs(gen, 2, h, h, 200, d, dtype)[0]
+                    masks = {"window": window, "pos_offset": offset}
+                    if i % 2:
+                        # one packed row over both shards: the q rows'
+                        # ids from positions 200 + offset on, the keys'
+                        # from 200 on, so documents cross the boundary
+                        seg = packed_segments(gen, 2, 601, docs=8).cuda()
+                        masks.update(
+                            q_seg=seg[:, 200 + offset:400 + offset],
+                            k_seg=seg[:, 200:400])
+                    grad = torch.float32 if dtype == torch.bfloat16 else None
+                    errs, variant = _flash_case(q, k, v, do, causal, masks,
+                                                grad_dtype=grad)
+                    where = ("h=%d hkv=%d d=%d causal=%s window=%s offset=%d"
+                             " %s" % (h, hkv, d, causal, window, offset,
+                                      dtype))
+                    _check_flash_errs(errs, variant, dtype, where)
+                    for name, e in errs.items():
+                        _worst(worst, name + variant, e)
+    inputs = sp_rotation_inputs(gen)
+    q, k, v, do, k2, v2 = inputs
+    scale = q.shape[-1] ** -0.5
+    _o, lse_diag = att.flash_forward(q, k2, v2, causal=True)
+    for offset, causal in SP_PATH_OFFSETS:
+        masks = {"window": SP_WINDOW, "pos_offset": offset}
+        _o, lse_rot = att.attention_forward_lse(q, k, v, causal=causal,
+                                                scale=scale, **masks)
+        errs, variant = _flash_case(
+            q, k, v, do, causal, masks, grad_dtype=torch.float32,
+            lse_bwd=torch.logaddexp(lse_rot, lse_diag))
+        _check_flash_errs(errs, variant, torch.bfloat16,
+                          "the ring path's shape, offset %d" % offset)
+        log("offset flash at the ring path's shape, offset %d: %s"
+            % (offset, errs))
+        for name, e in errs.items():
+            _worst(path_worst, name + variant, e)
+    log("offset flash kernels, worst at small shapes: %s" % worst)
+    return worst, path_worst, inputs
+
+
+def sp_rotation_inputs(gen):
+    """One rank's q shard and the kv shard it holds, and a second kv
+    shard (the diagonal rotation's), at the ring path's shape: b 2, h 8,
+    1024 rows, d 128, bf16."""
+    q, k, v = flash_inputs(gen, SP_BATCH, 8, 8, SP_LOCAL, 128,
+                           torch.bfloat16)
+    do = flash_inputs(gen, SP_BATCH, 8, 8, SP_LOCAL, 128, torch.bfloat16)[0]
+    _q2, k2, v2 = flash_inputs(gen, SP_BATCH, 8, 8, SP_LOCAL, 128,
+                               torch.bfloat16)
+    return q, k, v, do, k2, v2
+
+
+def check_ring_rotations(gen):
+    """The windowed ring's rotation loop in one process: every rank's
+    rotations at the sp path's shape (b 2, h 8, l SP_SEQ in SP shards of
+    1024, d 128, bf16, causal, window SP_WINDOW) through the per-rotation
+    functions the distributed ring calls (ring_rotation_forward /
+    _backward, the kernels with their offsets) and lse_merge, against
+    unsharded windowed attention on the card (kernels A, C, D at l
+    SP_SEQ). Holds the kernels and the merge without any exchange.
+    Limits: FLASH_TOL_OUT / FLASH_TOL_LSE, BWD_TOL_REL[bf16] by
+    masked_rel_err."""
+    b, h, d, n = SP_BATCH, 8, 128, SP_LOCAL
+    q, k, v = flash_inputs(gen, b, h, h, SP_SEQ, d, torch.bfloat16)
+    do = flash_inputs(gen, b, h, h, SP_SEQ, d, torch.bfloat16)[0]
+    scale = d ** -0.5
+    ref_out, ref_lse = att.flash_forward(q, k, v, causal=True,
+                                         window=SP_WINDOW)
+    ref = att.flash_backward(q, k, v, ref_out, ref_lse, do, causal=True,
+                             window=SP_WINDOW)
+
+    def shard(x, r):
+        return x[:, :, r * n:(r + 1) * n].contiguous()
+
+    outs, lses, rotations = [], [], 0
+    for my in range(SP):
+        o = torch.zeros((b, h, n, d), dtype=torch.float32, device="cuda")
+        lse = torch.full((b, h, n), att.NEG_INF, device="cuda")
+        for i in range(SP):
+            src = (my + i) % SP
+            part = cp.ring_rotation_forward(
+                shard(q, my), shard(k, src), shard(v, src), None, None, src,
+                my, SP, True, scale, SP_WINDOW)
+            if part is not None:
+                o, lse = att.lse_merge(o, lse, *part)
+                rotations += 1
+        outs.append(o.to(torch.bfloat16))
+        lses.append(lse)
+    out, lse = torch.cat(outs, 2), torch.cat(lses, 2)
+    dq = [torch.zeros((b, h, n, d), device="cuda") for _ in range(SP)]
+    dk = [torch.zeros((b, h, n, d), device="cuda") for _ in range(SP)]
+    dv = [torch.zeros((b, h, n, d), device="cuda") for _ in range(SP)]
+    for my in range(SP):
+        for src in range(SP):
+            grads = cp.ring_rotation_backward(
+                shard(q, my), shard(k, src), shard(v, src), shard(out, my),
+                shard(lse, my), shard(do, my), None, None, src, my, SP, True,
+                scale, SP_WINDOW)
+            if grads is not None:
+                dq[my] += grads[0]
+                dk[src] += grads[1]
+                dv[src] += grads[2]
+    torch.cuda.synchronize()
+    errs = {"out_max_abs_err": (out.float() - ref_out.float()).abs().max()
+            .item(),
+            "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+    for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                            ("dv", dv, ref[2])):
+        errs[name + "_max_rel_err"] = masked_rel_err(torch.cat(got, 2),
+                                                     want.float())
+    log("ring rotation loop (%d rotations) against unsharded attention: %s"
+        % (rotations, errs))
+    check(rotations == 9, "the windowed ring ran %d rotations, not 9"
+          % rotations)
+    check(errs["out_max_abs_err"] <= FLASH_TOL_OUT
+          and errs["lse_max_abs_err"] <= FLASH_TOL_LSE,
+          "the ring's merged forward disagrees with unsharded attention: %s"
+          % errs)
+    check(max(errs[x + "_max_rel_err"] for x in ("dq", "dk", "dv"))
+          <= BWD_TOL_REL[torch.bfloat16],
+          "the ring's backward disagrees with unsharded attention: %s"
+          % errs)
+    return dict(errs, rotations=rotations, shape="b=%d h=%d l=%d in %d "
+                "shards, d=%d, causal bf16, window %d"
+                % (b, h, SP_SEQ, SP, d, SP_WINDOW))
+
+
+def time_offset_flash(inputs, launches, errors):
+    """Kernels A, C and D at the windowed ring's most frequent offset
+    rotation (one shard back: q rows at positions 1024-2047 against keys
+    0-1023, window 1536, the not-causal call the ring makes there; b 2,
+    h 8, d 128, bf16; C and D with the ring's fp32 gradients and global
+    lse), each against a bound over the pairs the mask keeps, its plain
+    version, and SDPA with the same boolean mask. `launches`: {variant:
+    launches in one windowed ring step summed over the ranks}."""
+    q, k, v, do, k2, v2 = inputs
+    b, h, l, d = q.shape
+    offset = SP_LOCAL
+    masks = {"window": SP_WINDOW, "pos_offset": offset}
+    f32 = torch.float32
+    _o, lse_diag = att.flash_forward(q, k2, v2, causal=True)
+    out, lse = att.attention_forward_lse(q, k, v, **masks)
+    lse_g = torch.logaddexp(lse, lse_diag)
+    _dq, delta = att.flash_backward_dq(q, k, v, out, lse_g, do,
+                                       grad_dtype=f32, **masks)
+    mask = att._visible(l, l, False, SP_WINDOW, device=q.device,
+                        pos_offset=offset)
+    pairs = int(mask.sum().item()) * b
+    lib_fwd, lib_bwd = sdpa_masked_ms(q, k, v, do, mask)
+    rows = b * h * l
+    io = 2 * d  # bf16 bytes of one row of d
+    shape = ("b=%d h=%d lq=lk=%d d=%d bf16, window %d, pos_offset %d (one "
+             "shard back, not causal), fp32 gradients" % (
+                 b, h, l, d, SP_WINDOW, offset))
+    entries = []
+    for name, line, fn, plain, flops, nbytes, lib in (
+            ("flash_fwd", 941,
+             lambda: att.flash_forward(q, k, v, **masks),
+             lambda: att.flash_attention_plain(q, k, v, **masks),
+             4 * d * pairs * h, io * 4 * rows + 4 * rows, lib_fwd),
+            ("flash_bwd_dq", 1241,
+             lambda: att.flash_backward_dq(q, k, v, out, lse_g, do,
+                                           grad_dtype=f32, **masks),
+             lambda: att.flash_backward_dq_plain(q, k, v, out, lse_g, do,
+                                                 grad_dtype=f32, **masks),
+             6 * d * pairs * h, io * 5 * rows + 4 * d * rows + 8 * rows,
+             lib_bwd),
+            ("flash_bwd_dkv", 1294,
+             lambda: att.flash_backward_dkv(q, k, v, do, lse_g, delta,
+                                            grad_dtype=f32, **masks),
+             lambda: att.flash_backward_dkv_plain(q, k, v, do, lse_g, delta,
+                                                  grad_dtype=f32, **masks),
+             8 * d * pairs * h, io * 4 * rows + 8 * d * rows + 8 * rows,
+             lib_bwd)):
+        variant = name + "_window_offset"
+        entry = _timing_entry(
+            variant, "elasticdl_tpu_torch/csrc/%s.cu" % (
+                "flash_fwd" if name == "flash_fwd" else "flash_bwd"),
+            "elasticdl_tpu/ops/attention.py:%d (pos_offset: _block_run "
+            ":840, _block_mask_apply :908)" % line,
+            shape, fn, plain,
+            (lib, "F.scaled_dot_product_attention with the same boolean "
+             "mask, %s (eager)" % (
+                 "forward" if name == "flash_fwd" else
+                 "forward + backward less forward: dq, dk and dv")),
+            (flops, nbytes), launches,
+            dict(errors.get(variant, {}),
+                 max_err=errors.get(variant, {}).get("max_abs_err")))
+        entry["visible_pairs_per_head"] = pairs
+        entry["launches_per_windowed_ring_step"] = (launches[variant]
+                                                    // SP_STEPS)
+        entries.append(entry)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2770,6 +3322,10 @@ def main():
     masked_err, masked_path_err, masked_inputs = check_masked_flash(
         gen_masked, rng_masked)
     masked_paged_err, masked_paged_cases = check_masked_paged(gen_masked)
+    # the sp phases draw from their own generator too
+    gen_sp = torch.Generator().manual_seed(6)
+    offset_err, offset_path_err, offset_inputs = check_offset_flash(gen_sp)
+    ring_rotations = check_ring_rotations(gen_sp)
     specs = serving_specs(rng)
     serving, launches = serve_flagship(specs)
     log("serving run launches: %s" % launches)
@@ -2826,6 +3382,8 @@ def main():
         rng_masked)
     packed["logits_vs_documents"] = compare_packed_rows(rng_masked)
     torch.cuda.empty_cache()
+    sp, sp_launches = train_sp()
+    sp["ring_rotations_vs_unsharded"] = ring_rotations
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
     with tempfile.TemporaryDirectory() as workdir:
@@ -2891,8 +3449,12 @@ def main():
     kernels += masked
     kernels += time_masked_paged(masked_paged_cases, masked_launches,
                                  masked_paged_err)
+    kernels += time_offset_flash(
+        offset_inputs, sp_launches,
+        {v: dict(e, small_shapes=offset_err.get(v))
+         for v, e in offset_path_err.items()})
     serving["card"] = training["card"] = dlrm["card"] = dense["card"] = smi
-    packed["card"] = windowed["card"] = smi
+    packed["card"] = windowed["card"] = sp["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -2900,6 +3462,7 @@ def main():
     print(json.dumps({"dense": dense}))
     print(json.dumps({"packed": packed}))
     print(json.dumps({"windowed": windowed}))
+    print(json.dumps({"sp": sp}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2908,6 +3471,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -2,7 +2,9 @@
 zoo spec, the counterpart of elasticdl_tpu/api/local_executor.py.
 
 It drives the same in-memory TaskDispatcher the master uses (tasks stay
-the unit of work) and the port's Trainer on one device. Checkpoints,
+the unit of work) and the port's Trainer on one device, or on this rank
+of an sp mesh (`mesh`, as the JAX executor passes its mesh to the
+Trainer; every rank runs its own executor over the same data). Checkpoints,
 fault injection, the journaled job state and prediction are not ported
 yet.
 """
@@ -29,7 +31,8 @@ class LocalExecutor(object):
     def __init__(self, model_spec, training_data=None, validation_data=None,
                  minibatch_size=32, num_epochs=1, records_per_task=256,
                  evaluation_steps=0, model_params="", seed=0, max_steps=None,
-                 grad_accum_steps=1, trainable_pattern=None, device="cuda"):
+                 grad_accum_steps=1, trainable_pattern=None, device="cuda",
+                 mesh=None):
         self.spec = model_spec
         self.minibatch_size = minibatch_size
         self.num_epochs = num_epochs
@@ -39,7 +42,7 @@ class LocalExecutor(object):
         self.training_data = training_data
         self.validation_data = validation_data
         self.trainer = Trainer(
-            model_spec, model_params=model_params, seed=seed,
+            model_spec, mesh=mesh, model_params=model_params, seed=seed,
             grad_accum_steps=grad_accum_steps,
             trainable_pattern=trainable_pattern, device=device,
         )

@@ -17,3 +17,18 @@ MAX_TASK_RETRIES = 3
 #: tier (O(touched rows) updates through the row tap); smaller ones take
 #: the masked dense tier
 EMBEDDING_PARTITION_THRESHOLD_BYTES = 2 * 1024 * 1024
+
+
+class MeshAxis(object):
+    """Canonical mesh axis names, in order (the JAX package's MeshAxis):
+    dp data, fsdp sharded-parameter data, ep expert / embedding shard,
+    tp tensor, sp sequence / context (ring attention, Ulysses), pp
+    pipeline. The port's mesh runs sp only."""
+
+    DP = "dp"
+    FSDP = "fsdp"
+    EP = "ep"
+    TP = "tp"
+    SP = "sp"
+    PP = "pp"
+    ALL = (DP, FSDP, EP, TP, SP, PP)

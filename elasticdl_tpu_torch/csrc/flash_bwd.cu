@@ -12,7 +12,15 @@
 // lengths, head_dim 64 and 128, fp32 or bf16 in and out, fp32 inside,
 // under the forward's masks: a sliding window (`window` > 0) and packed
 // segment ids (`q_seg` [b, lq], `k_seg` [b, lk], or null; has_segs in the
-// TPU kernels). P is exactly 0 at masked pairs and on rows whose lse is a
+// TPU kernels), and ring attention's `pos_offset`, the shift of the
+// query positions (row + pos_offset) against the keys' (0 .. lk - 1) in
+// the causal and window tests, any int (the TPU kernels' pos_offset,
+// :1257, :1268, :1315, :1325). A ring rotation passes the ring's global
+// lse, so a row that sees no key of the held shard but has a finite lse
+// gets P = 0 from the mask and contributes nothing. The gradients come
+// out in the input dtype or, with `grad_f32`, in fp32 (the ring sums
+// each rotation's partial in fp32, as JAX's grad_dtype=f32 does).
+// P is exactly 0 at masked pairs and on rows whose lse is a
 // sentinel of either sign: the +1e30 of an empty row from the port's
 // forward, or the -1e30 class the TPU forward gives a row the segment
 // pair form masks fully (zeroed there too, :1277 and :1332), so dK and
@@ -49,7 +57,11 @@
 // (_kv_stream_clamp), the dk/dv pass, per key tile and group member, the
 // q tiles from the first that reaches the tile (causal: the diagonal;
 // window, not causal: key k0 - window + 1) to the last whose window holds
-// one of its keys (_q_stream_clamp). Segment ids ride beside the tiles
+// one of its keys (_q_stream_clamp), all shifted by pos_offset. The
+// offset is folded into each tile's first query position once, outside
+// the inner loops; the bounds are clamped to [0, lk] or [0, lq] before
+// they are divided into tiles (C division truncates toward zero), so an
+// offset that leaves no visible pair runs no tile and writes zeros. Segment ids ride beside the tiles
 // in shared memory; no tile is skipped for segments. The blocks need
 // ~146 KB (dq) and ~162 KB (dk/dv) of shared memory at d = 128, so each
 // launch raises the dynamic shared-memory limit first, and every launch
@@ -112,16 +124,17 @@ __device__ __forceinline__ bool in_window(int qp, int kp, int causal,
   return window <= 0 || (qp - kp < window && (causal || kp - qp < window));
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout,
-                        const float* __restrict__ lse, T* __restrict__ dq,
+                        const float* __restrict__ lse, TO* __restrict__ dq,
                         float* __restrict__ delta,
                         const int* __restrict__ q_seg,
                         const int* __restrict__ k_seg, int h, int hkv, int lq,
-                        int lk, float scale, int causal, int window) {
+                        int lk, float scale, int causal, int window,
+                        int pos_offset) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int DP = D + 1;  // padded row stride: no bank conflicts
   constexpr int SP = BK + 1;
@@ -177,12 +190,15 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   // the forward's key range: up to the diagonal (causal), from the
-  // window of the tile's first row, to that of its last (not causal)
-  int k_lo = 0, k_end = causal ? min(lk, q0 + BQ) : lk;
+  // window of the tile's first row, to that of its last (not causal),
+  // at the rows' shifted positions p0 ..
+  const int p0 = q0 + pos_offset;
+  int k_lo = 0, k_end = causal ? min(lk, p0 + BQ) : lk;
   if (window > 0) {
-    k_lo = max(0, q0 - window + 1);
-    if (!causal) k_end = min(lk, q0 + BQ - 1 + window);
+    k_lo = max(0, p0 - window + 1);
+    if (!causal) k_end = min(lk, p0 + BQ - 1 + window);
   }
+  k_end = max(k_end, 0);
   const int n_kt = (k_end + BK - 1) / BK;
   for (int kt = k_lo / BK; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
@@ -224,8 +240,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = tx + 16 * j;
-        const int qp = q0 + r, kp = k0 + c;
-        const bool valid = qp < lq && kp < lk && (!causal || kp <= qp) &&
+        const int qp = p0 + r, kp = k0 + c;
+        const bool valid = q0 + r < lq && kp < lk && (!causal || kp <= qp) &&
                            in_window(qp, kp, causal, window) &&
                            (!segs || qs_seg[r] == ks_seg[c]);
         const float p = valid ? exp2f(s[i][j] - row_lse[r]) : 0.f;
@@ -250,23 +266,23 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (q0 + r < lq) {
-      T* row = dq + q_off + (size_t)(q0 + r) * D;
+      TO* row = dq + q_off + (size_t)(q0 + r) * D;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) store(row + tx + 16 * j, acc[i][j]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, const int* __restrict__ q_seg,
+                         const float* __restrict__ delta, TO* __restrict__ dk,
+                         TO* __restrict__ dv, const int* __restrict__ q_seg,
                          const int* __restrict__ k_seg, int h, int hkv,
                          int lq, int lk, float scale, int causal,
-                         int window) {
+                         int window, int pos_offset) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
@@ -306,21 +322,25 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // the q rows that can see a key of the tile: causal, from the diagonal
-  // on; under a window, those before key k0 + BK - 1 + window, and (not
-  // causal) from key k0 - window + 1 on
-  int q_lo = causal ? k0 : 0, q_end = lq;
+  // the q rows that can see a key of the tile, by their positions
+  // row + pos_offset: causal, from the diagonal on; under a window, those
+  // before key k0 + BK - 1 + window, and (not causal) from key
+  // k0 - window + 1 on
+  int q_lo = causal ? k0 - pos_offset : 0, q_end = lq;
   if (window > 0) {
-    q_end = min(lq, k0 + BK - 1 + window);
-    if (!causal) q_lo = max(0, k0 - window + 1);
+    q_end = min(lq, k0 + BK - 1 + window - pos_offset);
+    if (!causal) q_lo = k0 - window + 1 - pos_offset;
   }
-  const int qt_start = min(q_lo, lq) / BQ;
+  q_lo = min(max(q_lo, 0), lq);
+  q_end = max(q_end, 0);
+  const int qt_start = q_lo / BQ;
   const int qt_end = (q_end + BQ - 1) / BQ;
   for (int g = 0; g < group; ++g) {
     const int qh = b * h + kvh * group + g;
     const size_t q_off = (size_t)qh * lq * D;
     for (int qt = qt_start; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
+      const int p0 = q0 + pos_offset;
       __syncthreads();  // the previous tile's readers are done
       stage<T, D>(qs, q + q_off, q0, lq, 1.f);
       stage<T, D>(dos, dout + q_off, q0, lq, 1.f);
@@ -365,8 +385,9 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kr = ty * 4 + i, qr = tx + 16 * j;
-          const int qp = q0 + qr, kp = k0 + kr;
-          const bool valid = qp < lq && kp < lk && (!causal || kp <= qp) &&
+          const int qp = p0 + qr, kp = k0 + kr;
+          const bool valid = q0 + qr < lq && kp < lk &&
+                             (!causal || kp <= qp) &&
                              in_window(qp, kp, causal, window) &&
                              (!segs || qs_seg[qr] == ks_seg[kr]);
           const float p = valid ? exp2f(s[i][j] * slog - row_lse[qr]) : 0.f;
@@ -400,8 +421,8 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (k0 + r < lk) {
-      T* krow = dk + kv_off + (size_t)(k0 + r) * D;
-      T* vrow = dv + kv_off + (size_t)(k0 + r) * D;
+      TO* krow = dk + kv_off + (size_t)(k0 + r) * D;
+      TO* vrow = dv + kv_off + (size_t)(k0 + r) * D;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         store(krow + tx + 16 * j, dk_acc[i][j]);
@@ -421,103 +442,115 @@ int set_smem(K kernel, size_t bytes, bool* configured) {
   return 0;
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* dq, void* delta,
               const void* q_seg, const void* k_seg, int b, int h, int hkv,
               int lq, int lk, float scale, int causal, int window,
-              cudaStream_t stream) {
+              int pos_offset, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool configured = false;
-  int err = set_smem(flash_bwd_dq_kernel<T, D>, smem, &configured);
+  int err = set_smem(flash_bwd_dq_kernel<T, TO, D>, smem, &configured);
   if (err) return err;
   dim3 grid((lq + BQ - 1) / BQ, b * h);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_kernel<T, TO, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta),
+      static_cast<TO*>(dq), static_cast<float*>(delta),
       static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
-      lq, lk, scale, causal, window);
+      lq, lk, scale, causal, window, pos_offset);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* q_seg, const void* k_seg, int b, int h, int hkv,
                int lq, int lk, float scale, int causal, int window,
-               cudaStream_t stream) {
+               int pos_offset, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured = false;
-  int err = set_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured);
+  int err = set_smem(flash_bwd_dkv_kernel<T, TO, D>, smem, &configured);
   if (err) return err;
   dim3 grid((lk + BK - 1) / BK, b * hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, TO, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<TO*>(dk), static_cast<TO*>(dv),
       static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
-      lq, lk, scale, causal, window);
+      lq, lk, scale, causal, window, pos_offset);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Both entry points: q_seg [b, lq] and k_seg [b, lk] int32 segment ids,
-// or both NULL; window 0 = none, else the sliding window (lq == lk).
+// or both NULL; window 0 = none, else the sliding window (lq == lk);
+// pos_offset the shift of the query positions (any int; 0 = none);
+// grad_f32 1 = write the gradients in fp32, 0 = in the input dtype.
 static bool masks_ok(int h, int hkv, int window, const void* q_seg,
                      const void* k_seg) {
   return hkv > 0 && h % hkv == 0 && window >= 0 &&
          (q_seg == nullptr) == (k_seg == nullptr);
 }
 
-// q, o, dout, dq [b, h, lq, d]; k, v [b, hkv, lk, d]; lse, delta
-// [b, h, lq] fp32; all contiguous. dtype: 0 = float32, 1 = bfloat16.
-// Writes dq and delta = rowsum(dout * o). Returns the cudaError_t of the
-// launch (0 = launched).
+// q, o, dout [b, h, lq, d]; dq like q in the input dtype or fp32; k, v
+// [b, hkv, lk, d]; lse, delta [b, h, lq] fp32; all contiguous. dtype:
+// 0 = float32, 1 = bfloat16. Writes dq and delta = rowsum(dout * o).
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* dq, void* delta,
                                 const void* q_seg, const void* k_seg, int b,
                                 int h, int hkv, int lq, int lk, int d,
                                 float scale, int causal, int window,
-                                int dtype, void* stream) {
+                                int pos_offset, int dtype, int grad_f32,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!masks_ok(h, hkv, window, q_seg, k_seg))
     return (int)cudaErrorInvalidValue;
-#define EDL_DQ(T, D)                                                      \
-  return launch_dq<T, D>(q, k, v, o, dout, lse, dq, delta, q_seg, k_seg, \
-                         b, h, hkv, lq, lk, scale, causal, window, s)
-  if (dtype == 0 && d == 64) EDL_DQ(float, 64);
-  if (dtype == 0 && d == 128) EDL_DQ(float, 128);
-  if (dtype == 1 && d == 64) EDL_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) EDL_DQ(__nv_bfloat16, 128);
+#define EDL_DQ(T, TO, D)                                                  \
+  return launch_dq<T, TO, D>(q, k, v, o, dout, lse, dq, delta, q_seg,    \
+                             k_seg, b, h, hkv, lq, lk, scale, causal,    \
+                             window, pos_offset, s)
+  if (dtype == 0 && d == 64) EDL_DQ(float, float, 64);
+  if (dtype == 0 && d == 128) EDL_DQ(float, float, 128);
+  if (dtype == 1 && d == 64 && grad_f32) EDL_DQ(__nv_bfloat16, float, 64);
+  if (dtype == 1 && d == 128 && grad_f32) EDL_DQ(__nv_bfloat16, float, 128);
+  if (dtype == 1 && d == 64) EDL_DQ(__nv_bfloat16, __nv_bfloat16, 64);
+  if (dtype == 1 && d == 128) EDL_DQ(__nv_bfloat16, __nv_bfloat16, 128);
 #undef EDL_DQ
   return (int)cudaErrorInvalidValue;
 }
 
-// q, dout [b, h, lq, d]; k, v, dk, dv [b, hkv, lk, d]; lse, delta
-// [b, h, lq] fp32 (delta as edl_flash_bwd_dq wrote it); all contiguous.
-// dk and dv are summed over the q heads of each kv head's group.
+// q, dout [b, h, lq, d]; k, v [b, hkv, lk, d]; dk, dv like k in the
+// input dtype or fp32; lse, delta [b, h, lq] fp32 (delta as
+// edl_flash_bwd_dq wrote it); all contiguous. dk and dv are summed over
+// the q heads of each kv head's group.
 extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
                                  const void* q_seg, const void* k_seg, int b,
                                  int h, int hkv, int lq, int lk, int d,
                                  float scale, int causal, int window,
-                                 int dtype, void* stream) {
+                                 int pos_offset, int dtype, int grad_f32,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!masks_ok(h, hkv, window, q_seg, k_seg))
     return (int)cudaErrorInvalidValue;
-#define EDL_DKV(T, D)                                                     \
-  return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, q_seg, k_seg, \
-                          b, h, hkv, lq, lk, scale, causal, window, s)
-  if (dtype == 0 && d == 64) EDL_DKV(float, 64);
-  if (dtype == 0 && d == 128) EDL_DKV(float, 128);
-  if (dtype == 1 && d == 64) EDL_DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) EDL_DKV(__nv_bfloat16, 128);
+#define EDL_DKV(T, TO, D)                                                 \
+  return launch_dkv<T, TO, D>(q, k, v, dout, lse, delta, dk, dv, q_seg,  \
+                              k_seg, b, h, hkv, lq, lk, scale, causal,   \
+                              window, pos_offset, s)
+  if (dtype == 0 && d == 64) EDL_DKV(float, float, 64);
+  if (dtype == 0 && d == 128) EDL_DKV(float, float, 128);
+  if (dtype == 1 && d == 64 && grad_f32) EDL_DKV(__nv_bfloat16, float, 64);
+  if (dtype == 1 && d == 128 && grad_f32)
+    EDL_DKV(__nv_bfloat16, float, 128);
+  if (dtype == 1 && d == 64) EDL_DKV(__nv_bfloat16, __nv_bfloat16, 64);
+  if (dtype == 1 && d == 128) EDL_DKV(__nv_bfloat16, __nv_bfloat16, 128);
 #undef EDL_DKV
   return (int)cudaErrorInvalidValue;
 }

@@ -30,6 +30,17 @@ Three forwards, all over the same parameters:
 its own, in the training forward, the prefill and paged decode alike.
 Prefill and decode take no segments (flax refuses them there too).
 
+Sequence parallelism: inside a `parallel.mesh.Mesh` with sp > 1 (the
+Trainer enters it), the training forward takes this rank's sequence
+shard of the feature dict (tokens and segment_ids [b, l / sp]). Its
+positions are global (rank * l_local + i, or the packed positions of the
+whole row, computed from the all-gathered ids and sliced, since a
+document can cross a shard boundary), grouped-query kv expands to the
+full head count, and attention runs through ring attention or Ulysses
+by `sp_impl` ("ring" | "ulysses", parallel/context_parallel.py), as the
+flax model's attention routes under an sp mesh. Prefill and decode stay
+single-shard, as in flax; `fused_head` under sp is not ported.
+
 With `kv_cache_dtype="int8"` the rows that reach the pool are symmetric
 per-row int8 (`kv_quantize_rows`), quantized once where they are
 produced: prefill and `decode_paged` return per layer (k8, v8, k_scale,
@@ -61,12 +72,18 @@ from elasticdl_tpu_torch.convert import flax_param_path  # noqa: F401 - spec
 from elasticdl_tpu_torch.data.example_codec import decode_example
 from elasticdl_tpu_torch.ops.attention import (
     apply_rope,
+    expand_kv,
     flash_attention,
     packed_positions,
     paged_decode_attention,
 )
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
 from elasticdl_tpu_torch.ops.losses import chunked_softmax_xent, softmax_xent
+from elasticdl_tpu_torch.parallel.context_parallel import (
+    ring_attention_local,
+    ulysses_attention_local,
+)
+from elasticdl_tpu_torch.parallel.mesh import current_mesh
 from elasticdl_tpu_torch.training.optimizers import adamw
 
 _DTYPES = {
@@ -105,6 +122,13 @@ def _linear(layer, x):
 
 
 KV_CACHE_DTYPES = ("", "int8")
+SP_IMPLS = ("ring", "ulysses")
+
+
+def _sp_mesh():
+    """The current mesh when its sp axis is above 1, else None."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
 
 
 def kv_quantize_rows(rows):
@@ -129,10 +153,12 @@ def _dequantize(q8, scale, dtype):
 
 class CausalSelfAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
-                 use_rope=False, kv_cache_dtype="", window=0, device=None):
+                 use_rope=False, kv_cache_dtype="", window=0, sp_impl="ring",
+                 device=None):
         super().__init__()
         self.kv_int8 = kv_cache_dtype == "int8"
         self.window = int(window) or None
+        self.sp_impl = sp_impl
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -166,7 +192,10 @@ class CausalSelfAttention(nn.Module):
         for packed rows, whose `segments` [b, l] confine it to each run.
         Returns (y, rows): rows (k, v) [b, hkv, l, d] (rotated when
         RoPE), or, for an int8 cache's `prefill`, (k8, v8, k_scale,
-        v_scale) with the attention over their dequantized values."""
+        v_scale) with the attention over their dequantized values.
+        Under an sp mesh, x and segments are this rank's sequence shard
+        and attention runs over the whole sequence through ring
+        attention or Ulysses."""
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
@@ -175,8 +204,22 @@ class CausalSelfAttention(nn.Module):
             (k8, ks), (v8, vs) = kv_quantize_rows(k), kv_quantize_rows(v)
             rows = (k8, v8, ks, vs)
             k, v = _dequantize(k8, ks, q.dtype), _dequantize(v8, vs, q.dtype)
-        out = flash_attention(q, k, v, causal=True, window=self.window,
-                              segments=segments)
+        mesh = _sp_mesh()
+        if mesh is None:
+            out = flash_attention(q, k, v, causal=True, window=self.window,
+                                  segments=segments)
+            return self._out(out, x), rows
+        if prefill:
+            raise NotImplementedError(
+                "prefill is single-shard (like decode); drop the sp axis "
+                "for generation")
+        # ring merges partials per kv rotation and Ulysses all-to-alls
+        # the head axis over sp: both want the full head count
+        k, v = expand_kv(k, self.num_heads), expand_kv(v, self.num_heads)
+        sp_attention = (ulysses_attention_local if self.sp_impl == "ulysses"
+                        else ring_attention_local)
+        out = sp_attention(q, k, v, mesh, causal=True, segments=segments,
+                           window=self.window)
         return self._out(out, x), rows
 
     def decode_paged(self, x, positions, pool, table):
@@ -205,13 +248,14 @@ class CausalSelfAttention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
-                 use_rope=False, kv_cache_dtype="", window=0, device=None):
+                 use_rope=False, kv_cache_dtype="", window=0, sp_impl="ring",
+                 device=None):
         super().__init__()
         self.ln_0 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(
             embed_dim, num_heads, head_dim, num_kv_heads=num_kv_heads,
             use_rope=use_rope, kv_cache_dtype=kv_cache_dtype, window=window,
-            device=device,
+            sp_impl=sp_impl, device=device,
         )
         self.ln_1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.mlp_up = nn.Linear(embed_dim, 4 * embed_dim, device=device)
@@ -236,8 +280,12 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size=256, seq_len=128, embed_dim=128,
                  num_heads=4, num_layers=2, dtype=None, pos_emb="learned",
                  num_kv_heads=0, attn_window=0, fused_head=False, remat="",
-                 lora_rank=0, kv_cache_dtype="", device="cuda", seed=0):
+                 lora_rank=0, kv_cache_dtype="", sp_impl="ring",
+                 device="cuda", seed=0):
         super().__init__()
+        if sp_impl not in SP_IMPLS:
+            raise ValueError(
+                "Unknown sp_impl %r (valid: 'ring', 'ulysses')" % (sp_impl,))
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 "Unknown pos_emb %r (valid: 'learned', 'rope')" % (pos_emb,)
@@ -275,7 +323,7 @@ class TransformerLM(nn.Module):
             Block(embed_dim, num_heads, self.head_dim,
                   num_kv_heads=num_kv_heads, use_rope=pos_emb == "rope",
                   kv_cache_dtype=kv_cache_dtype, window=self.attn_window,
-                  device=device)
+                  sp_impl=sp_impl, device=device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -347,19 +395,28 @@ class TransformerLM(nn.Module):
         dtype, "lm_head_kernel": [e, vocab]} for the chunked loss.
         Packed rows: features["segment_ids"] [b, l] int ids of
         contiguous runs; attention stays within each run and the
-        positions (learned table and RoPE) restart at each run."""
+        positions (learned table and RoPE) restart at each run. Under an
+        sp mesh the features are this rank's sequence shard (see the
+        module docstring)."""
         tokens = torch.as_tensor(features["tokens"], device=self.device)
         tokens = tokens.long()
         l = tokens.shape[1]
-        self._check_length(l)
+        mesh = _sp_mesh()
+        sp, start = (1, 0) if mesh is None else (mesh.size, mesh.rank * l)
+        self._check_length(l * sp)
+        if mesh is not None and self.fused_head and training:
+            raise NotImplementedError(
+                "fused_head under an sp mesh is not ported (ROADMAP)")
         segments = features.get("segment_ids")
         if segments is None:
-            positions = torch.arange(l, device=tokens.device)
+            positions = torch.arange(start, start + l, device=tokens.device)
             wpe_idx = positions[None]
         else:
             segments = torch.as_tensor(segments, device=self.device).to(
                 torch.int32)
-            positions = wpe_idx = packed_positions(segments).long()
+            full = segments if mesh is None else mesh.all_gather(segments, 1)
+            positions = wpe_idx = packed_positions(full)[
+                :, start:start + l].long()
         x = self._embed(tokens, wpe_idx)
         for blk in self.blocks:
             x, _kv = blk(x, positions, segments=segments)

@@ -21,11 +21,20 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 
 The flash kernels take the TPU kernels' masks: causal, a sliding
 `window` (key tiles outside every row's window are never read, so the
-work grows with the window, not the sequence) and packed `segments`
-(per-row ids; a query sees keys of its own id only). The paged kernels
-take the `window` of a sliding-window model: tile row j (token j % t of
-the group-major query axis) sees pool rows k_pos > length + j - window.
-Only ring attention's `pos_offset` is still to be ported.
+work grows with the window, not the sequence), packed `segments`
+(per-row ids; a query sees keys of its own id only) and ring
+attention's `pos_offset` (the query rows sit at positions row +
+pos_offset in the causal and window tests, as a rotation that holds an
+older or newer kv shard sees them). The paged kernels take the `window`
+of a sliding-window model: tile row j (token j % t of the group-major
+query axis) sees pool rows k_pos > length + j - window.
+
+`attention_forward_lse` / `attention_backward_lse` and `lse_merge` are
+the per-rotation entry points of ring attention
+(elasticdl_tpu_torch/parallel/context_parallel.py): the forward's empty
+rows come back with lse exactly -1e30 there, so a merge gives them no
+weight, and the backward takes the ring's global lse and can write its
+gradients in fp32.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain version (`flash_attention_plain`, `flash_backward_dq_plain`,
@@ -47,12 +56,13 @@ _NEG_INF = -1e30
 NEG_INF = _NEG_INF
 
 
-def _variant(base, window=None, segments=False):
+def _variant(base, window=None, segments=False, offset=False):
     """The launch-count name of a kernel variant: "flash_fwd",
-    "flash_fwd_window", "flash_fwd_segments", "flash_fwd_window_segments"
-    (the paged names take "_window" only)."""
+    "flash_fwd_window", "flash_fwd_segments", "flash_fwd_window_segments",
+    each with "_offset" appended for a nonzero pos_offset (the paged
+    names take "_window" only)."""
     return base + ("_window" if window else "") + (
-        "_segments" if segments else "")
+        "_segments" if segments else "") + ("_offset" if offset else "")
 
 
 _FLASH_BASES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -61,11 +71,11 @@ _PAGED_BASES = ("paged_decode", "paged_decode_tile", "paged_decode_int8",
 #: kernel launches per wrapper and variant; chip_smoke.py resets and
 #: reads these to show that the serving and training paths went through
 #: the kernels (paged decode over int8 arenas counts under its own
-#: "_int8" names, a windowed or packed launch under "_window" /
-#: "_segments")
+#: "_int8" names, a windowed, packed or shifted launch under "_window" /
+#: "_segments" / "_offset")
 KERNEL_LAUNCHES = dict.fromkeys(
-    [_variant(n, w, s) for n in _FLASH_BASES for w in (0, 1)
-     for s in (False, True)]
+    [_variant(n, w, s, o) for n in _FLASH_BASES for w in (0, 1)
+     for s in (False, True) for o in (False, True)]
     + [_variant(n, w) for n in _PAGED_BASES for w in (0, 1)], 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -191,11 +201,13 @@ def packed_positions(segments):
     return (idx - starts).to(torch.int32)
 
 
-def _visible(lq, lk, causal, window, q_seg=None, k_seg=None, device=None):
+def _visible(lq, lk, causal, window, q_seg=None, k_seg=None, device=None,
+             pos_offset=0):
     """[b or 1, 1, lq, lk] bool: the (query, key) pairs the causal,
-    window and segment masks keep (the JAX package's `_block_mask_apply`
-    and segment compare, at pos_offset 0)."""
-    q_pos = torch.arange(lq, device=device)[:, None]
+    window and segment masks keep, query row i at position i +
+    `pos_offset` (the JAX package's `_block_mask_apply` and segment
+    compare)."""
+    q_pos = torch.arange(lq, device=device)[:, None] + pos_offset
     k_pos = torch.arange(lk, device=device)[None, :]
     keep = torch.ones((lq, lk), dtype=torch.bool, device=device)
     if causal:
@@ -280,12 +292,13 @@ def _check_kernel_args(name, tensors, dtypes, d):
 
 
 def flash_attention_plain(q, k, v, causal=False, scale=None, window=None,
-                          q_seg=None, k_seg=None):
+                          q_seg=None, k_seg=None, pos_offset=0):
     """Plain PyTorch version of the flash kernel: (out in q.dtype, lse
     fp32 [b, h, lq]). Scores and softmax in fp32; masked scores (causal,
-    `window`, segment ids `q_seg` [b, lq] / `k_seg` [b, lk]) contribute
-    exactly 0, an empty row gives out 0 and lse +1e30 (the kernel's
-    convention, attention.py:1000-1004 in the JAX package)."""
+    `window`, segment ids `q_seg` [b, lq] / `k_seg` [b, lk], query rows
+    at positions row + `pos_offset`) contribute exactly 0, an empty row
+    gives out 0 and lse +1e30 (the kernel's convention,
+    attention.py:1000-1004 in the JAX package)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
     f32 = torch.float32
@@ -293,7 +306,7 @@ def flash_attention_plain(q, k, v, causal=False, scale=None, window=None,
     vf = expand_kv(v, q.shape[1]).to(f32)
     s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
     valid = _visible(q.shape[2], k.shape[2], causal, window, q_seg, k_seg,
-                     device=q.device)
+                     device=q.device, pos_offset=pos_offset)
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     mx = s.amax(-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - mx), torch.zeros_like(s))
@@ -327,18 +340,21 @@ def _window_arg(window, lq, lk):
 
 
 def flash_forward(q, k, v, causal=False, scale=None, window=None,
-                  q_seg=None, k_seg=None):
+                  q_seg=None, k_seg=None, pos_offset=0):
     """(out [b, h, lq, d] in q.dtype, lse fp32 [b, h, lq]) of tiled
     online-softmax attention under the causal, `window` and segment
-    masks: the csrc/flash_fwd.cu kernel for CUDA tensors,
-    `flash_attention_plain` for CPU tensors."""
+    masks, query rows at positions row + `pos_offset`: the
+    csrc/flash_fwd.cu kernel for CUDA tensors, `flash_attention_plain`
+    for CPU tensors."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
     win = _window_arg(window, q.shape[2], k.shape[2])
     q_seg, k_seg = _seg_args(q, k, q_seg, k_seg)
+    pos_offset = int(pos_offset)
     if not on_kernel_path(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     window=window, q_seg=q_seg, k_seg=k_seg)
+                                     window=window, q_seg=q_seg, k_seg=k_seg,
+                                     pos_offset=pos_offset)
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -354,9 +370,10 @@ def flash_forward(q, k, v, causal=False, scale=None, window=None,
     err = lib.edl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(q_seg), _ptr(k_seg), b, h, hkv, lq, lk, d,
-        float(scale), int(causal), win, _DTYPE_CODES[q.dtype], stream,
+        float(scale), int(causal), win, pos_offset, _DTYPE_CODES[q.dtype],
+        stream,
     )
-    name = _variant("flash_fwd", win, q_seg is not None)
+    name = _variant("flash_fwd", win, q_seg is not None, pos_offset != 0)
     _check_launch(err, name)
     KERNEL_LAUNCHES[name] += 1
     return out, lse
@@ -368,17 +385,19 @@ def _flash_lib():
     if not fn.argtypes:
         fn.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
 
 
-def _fully_masked_rows(q_seg, k_seg, causal, window, lq, lk, chunk=2048):
+def _fully_masked_rows(q_seg, k_seg, causal, window, lq, lk, chunk=2048,
+                       pos_offset=0):
     """[b, lq] bool: rows with no visible key under the segment, causal
-    and window masks (the JAX package's `_fully_masked_rows`), reduced
-    over key chunks so the pair mask never exceeds [b, lq, chunk]."""
-    q_pos = torch.arange(lq, device=q_seg.device)[:, None]
+    and window masks, query row i at position i + `pos_offset` (the JAX
+    package's `_fully_masked_rows`), reduced over key chunks so the pair
+    mask never exceeds [b, lq, chunk]."""
+    q_pos = torch.arange(lq, device=q_seg.device)[:, None] + pos_offset
     seen = torch.zeros(q_seg.shape, dtype=torch.bool, device=q_seg.device)
     for k_lo in range(0, lk, chunk):
         k_pos = torch.arange(k_lo, min(lk, k_lo + chunk),
@@ -402,16 +421,16 @@ def flash_attention(q, k, v, causal=False, scale=None, window=None,
     id array (square) or a (q_seg, k_seg) pair; attention stays within
     same-id keys in the forward and the backward, and under the pair
     form a row with no visible key returns exactly 0 with zero gradient.
+    `pos_offset` shifts the query positions (row + pos_offset) in the
+    causal and window tests, as a ring rotation sees them; a row it
+    leaves with no visible key returns exactly 0 with zero gradient (the
+    kernels' empty-row contract).
     When autograd records (grad mode on and an input requires grad) it
     runs through `FlashAttentionFunction`, whose backward is the flash
     backward; otherwise (serving, under no_grad) it calls
-    `flash_forward` alone. `pos_offset` (ring attention's rotations) is
-    not ported yet: it belongs to the ring-attention slice."""
-    if pos_offset:
-        raise NotImplementedError(
-            "flash_attention: pos_offset belongs to ring attention, which "
-            "is not ported yet (the ring-attention slice)")
+    `flash_forward` alone."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    pos_offset = int(pos_offset)
     pair_form = isinstance(segments, (tuple, list))
     lq, lk = q.shape[2], k.shape[2]
     group_size(q, k)
@@ -422,12 +441,14 @@ def flash_attention(q, k, v, causal=False, scale=None, window=None,
                                     or v.requires_grad):
         out = FlashAttentionFunction.apply(q, k, v, bool(causal),
                                            float(scale), window, q_seg,
-                                           k_seg)
+                                           k_seg, pos_offset)
     else:
         out = flash_forward(q, k, v, causal=causal, scale=scale,
-                            window=window, q_seg=q_seg, k_seg=k_seg)[0]
+                            window=window, q_seg=q_seg, k_seg=k_seg,
+                            pos_offset=pos_offset)[0]
     if pair_form:
-        masked = _fully_masked_rows(q_seg, k_seg, causal, window, lq, lk)
+        masked = _fully_masked_rows(q_seg, k_seg, causal, window, lq, lk,
+                                    pos_offset=pos_offset)
         out = torch.where(masked[:, None, :, None], torch.zeros_like(out),
                           out)
     return out
@@ -443,13 +464,15 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window=None, q_seg=None,
-                k_seg=None):
+                k_seg=None, pos_offset=0):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
-                                 window=window, q_seg=q_seg, k_seg=k_seg)
+                                 window=window, q_seg=q_seg, k_seg=k_seg,
+                                 pos_offset=pos_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.window = causal, scale, window
         ctx.segs = (q_seg, k_seg)
+        ctx.pos_offset = pos_offset
         return out
 
     @staticmethod
@@ -459,15 +482,15 @@ class FlashAttentionFunction(torch.autograd.Function):
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout.contiguous(),
                                     causal=ctx.causal, scale=ctx.scale,
                                     window=ctx.window, q_seg=q_seg,
-                                    k_seg=k_seg)
-        return dq, dk, dv, None, None, None, None, None
+                                    k_seg=k_seg, pos_offset=ctx.pos_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 # --------------------------------------------------------- flash backward
 
 
 def _recompute_probs(q, k, lse, causal, scale, window=None, q_seg=None,
-                     k_seg=None):
+                     k_seg=None, pos_offset=0):
     """P = exp(q k^T * scale - lse) in fp32 over the expanded kv heads,
     exactly 0 at masked pairs and on rows whose lse is a sentinel: the
     +1e30 of an empty row, or the -1e30 class the TPU kernels give a row
@@ -477,38 +500,44 @@ def _recompute_probs(q, k, lse, causal, scale, window=None, q_seg=None,
     s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
     lse = lse.to(f32)[..., None]
     keep = _visible(q.shape[2], k.shape[2], causal, window, q_seg, k_seg,
-                    device=q.device) & (lse > 0.5 * _NEG_INF)
+                    device=q.device, pos_offset=pos_offset) & (
+                        lse > 0.5 * _NEG_INF)
     return torch.where(keep, torch.exp(s - lse), torch.zeros_like(s))
 
 
 def flash_backward_dq_plain(q, k, v, out, lse, do, causal=False, scale=None,
-                            window=None, q_seg=None, k_seg=None):
-    """Plain PyTorch version of the dq kernel: (dq in q.dtype, delta fp32
-    [b, h, lq]). delta = rowsum(dO * O) in fp32 (the JAX package's
-    `_flash_backward` :1383), dS = P * (dP - delta) * scale with
-    dP = dO V^T, dQ = dS K (the dense recompute at :1731-1769)."""
+                            window=None, q_seg=None, k_seg=None,
+                            pos_offset=0, grad_dtype=None):
+    """Plain PyTorch version of the dq kernel: (dq in `grad_dtype` or
+    q.dtype, delta fp32 [b, h, lq]). delta = rowsum(dO * O) in fp32 (the
+    JAX package's `_flash_backward` :1383), dS = P * (dP - delta) *
+    scale with dP = dO V^T, dQ = dS K (the dense recompute at
+    :1731-1769)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     f32 = torch.float32
-    p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg)
+    p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg,
+                         pos_offset)
     gf = do.to(f32)
     delta = (gf * out.to(f32)).sum(-1)
     dp = torch.matmul(gf, expand_kv(v, q.shape[1]).to(f32).transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.matmul(ds, expand_kv(k, q.shape[1]).to(f32))
-    return dq.to(q.dtype), delta
+    return dq.to(grad_dtype or q.dtype), delta
 
 
 def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
                              scale=None, window=None, q_seg=None,
-                             k_seg=None):
-    """Plain PyTorch version of the dk/dv kernel: (dk, dv) in the k/v
-    dtypes, group-summed to the kv head count under GQA. dV = P^T dO,
-    dK = dS^T Q, with `delta` as the dq kernel returns it."""
+                             k_seg=None, pos_offset=0, grad_dtype=None):
+    """Plain PyTorch version of the dk/dv kernel: (dk, dv) in
+    `grad_dtype` or the k/v dtypes, group-summed to the kv head count
+    under GQA. dV = P^T dO, dK = dS^T Q, with `delta` as the dq kernel
+    returns it."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     b, h, _lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     f32 = torch.float32
-    p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg)
+    p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg,
+                         pos_offset)
     gf = do.to(f32)
     dv = torch.matmul(p.transpose(-1, -2), gf)
     dp = torch.matmul(gf, expand_kv(v, h).to(f32).transpose(-1, -2))
@@ -517,16 +546,18 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
     if h != hkv:
         dk = dk.reshape(b, hkv, h // hkv, lk, d).sum(2)
         dv = dv.reshape(b, hkv, h // hkv, lk, d).sum(2)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype)
 
 
 def flash_backward_plain(q, k, v, out, lse, do, causal=False, scale=None,
-                         window=None, q_seg=None, k_seg=None):
-    """Plain PyTorch version of the flash backward: (dq, dk, dv) in the
-    input dtypes; the counterpart of `attention_backward_lse`'s dense
-    recompute in the JAX package."""
+                         window=None, q_seg=None, k_seg=None, pos_offset=0,
+                         grad_dtype=None):
+    """Plain PyTorch version of the flash backward: (dq, dk, dv) in
+    `grad_dtype` or the input dtypes; the counterpart of
+    `attention_backward_lse`'s dense recompute in the JAX package."""
     group_size(q, k)
-    masks = dict(window=window, q_seg=q_seg, k_seg=k_seg)
+    masks = dict(window=window, q_seg=q_seg, k_seg=k_seg,
+                 pos_offset=pos_offset, grad_dtype=grad_dtype)
     dq, delta = flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
                                         scale=scale, **masks)
     dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=causal,
@@ -535,15 +566,18 @@ def flash_backward_plain(q, k, v, out, lse, do, causal=False, scale=None,
 
 
 def flash_backward(q, k, v, out, lse, do, causal=False, scale=None,
-                   window=None, q_seg=None, k_seg=None):
-    """(dq, dk, dv) of flash attention from its saved lse, in the input
-    dtypes; under GQA dk and dv come back group-summed in the kv head
-    count. CUDA tensors run the two csrc/flash_bwd.cu kernels (dq first:
-    it also writes delta, which the dk/dv kernel reads), CPU tensors the
-    plain version."""
+                   window=None, q_seg=None, k_seg=None, pos_offset=0,
+                   grad_dtype=None):
+    """(dq, dk, dv) of flash attention from its saved lse, in
+    `grad_dtype` (None or torch.float32) or the input dtypes; under GQA
+    dk and dv come back group-summed in the kv head count. CUDA tensors
+    run the two csrc/flash_bwd.cu kernels (dq first: it also writes
+    delta, which the dk/dv kernel reads), CPU tensors the plain
+    version."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
-    masks = dict(window=window, q_seg=q_seg, k_seg=k_seg)
+    masks = dict(window=window, q_seg=q_seg, k_seg=k_seg,
+                 pos_offset=pos_offset, grad_dtype=grad_dtype)
     if not on_kernel_path(q, k, v, out, lse, do):
         return flash_backward_plain(q, k, v, out, lse, do, causal=causal,
                                     scale=scale, **masks)
@@ -570,22 +604,39 @@ def _bwd_args(name, q, k, v, do, lse, extra=()):
     return b, h, hkv, lq, lk, d
 
 
+def _grad_f32(grad_dtype, dtype):
+    """The kernels' grad_f32 flag: gradients in fp32 (1) or in the
+    input dtype (0); they write no other dtype."""
+    if grad_dtype is None or grad_dtype == dtype:
+        return 0
+    if grad_dtype == torch.float32:
+        return 1
+    raise TypeError("flash backward kernels write gradients in the input "
+                    "dtype or float32, not %s" % grad_dtype)
+
+
 def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None,
-                      window=None, q_seg=None, k_seg=None):
-    """(dq in q.dtype, delta fp32 [b, h, lq]): the csrc/flash_bwd.cu dq
-    kernel for CUDA tensors, `flash_backward_dq_plain` for CPU tensors."""
+                      window=None, q_seg=None, k_seg=None, pos_offset=0,
+                      grad_dtype=None):
+    """(dq in `grad_dtype` or q.dtype, delta fp32 [b, h, lq]): the
+    csrc/flash_bwd.cu dq kernel for CUDA tensors,
+    `flash_backward_dq_plain` for CPU tensors."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     win = _window_arg(window, q.shape[2], k.shape[2])
     q_seg, k_seg = _seg_args(q, k, q_seg, k_seg)
+    pos_offset = int(pos_offset)
     if not on_kernel_path(q, k, v, out, lse, do):
         return flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
                                        scale=scale, window=window,
-                                       q_seg=q_seg, k_seg=k_seg)
+                                       q_seg=q_seg, k_seg=k_seg,
+                                       pos_offset=pos_offset,
+                                       grad_dtype=grad_dtype)
     q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
     lse = lse.contiguous()
     b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
                                      (out,))
-    dq = torch.empty_like(q)
+    f32 = _grad_f32(grad_dtype, q.dtype)
+    dq = torch.empty_like(q, dtype=torch.float32 if f32 else q.dtype)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, delta
@@ -593,46 +644,51 @@ def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
         _ptr(q_seg), _ptr(k_seg), b, h, hkv, lq, lk, d, float(scale),
-        int(causal), win, _DTYPE_CODES[q.dtype],
+        int(causal), win, pos_offset, _DTYPE_CODES[q.dtype], f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _variant("flash_bwd_dq", win, q_seg is not None)
+    name = _variant("flash_bwd_dq", win, q_seg is not None, pos_offset != 0)
     _check_launch(err, name)
     KERNEL_LAUNCHES[name] += 1
     return dq, delta
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
-                       window=None, q_seg=None, k_seg=None):
-    """(dk, dv) in the k/v dtype, group-summed under GQA: the
-    csrc/flash_bwd.cu dk/dv kernel for CUDA tensors (one block per key
-    tile and kv head walks every q head of its group, so the sum needs
-    no atomics), `flash_backward_dkv_plain` for CPU tensors."""
+                       window=None, q_seg=None, k_seg=None, pos_offset=0,
+                       grad_dtype=None):
+    """(dk, dv) in `grad_dtype` or the k/v dtype, group-summed under
+    GQA: the csrc/flash_bwd.cu dk/dv kernel for CUDA tensors (one block
+    per key tile and kv head walks every q head of its group, so the sum
+    needs no atomics), `flash_backward_dkv_plain` for CPU tensors."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     win = _window_arg(window, q.shape[2], k.shape[2])
     q_seg, k_seg = _seg_args(q, k, q_seg, k_seg)
+    pos_offset = int(pos_offset)
     if not on_kernel_path(q, k, v, do, lse, delta):
         return flash_backward_dkv_plain(q, k, v, do, lse, delta,
                                         causal=causal, scale=scale,
                                         window=window, q_seg=q_seg,
-                                        k_seg=k_seg)
+                                        k_seg=k_seg, pos_offset=pos_offset,
+                                        grad_dtype=grad_dtype)
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dkv", q, k, v, do, lse)
     if delta.shape != lse.shape or delta.dtype != torch.float32:
         raise ValueError("flash_bwd_dkv: delta must be fp32 like lse")
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    f32 = _grad_f32(grad_dtype, q.dtype)
+    dk = torch.empty_like(k, dtype=torch.float32 if f32 else k.dtype)
+    dv = torch.empty_like(v, dtype=dk.dtype)
     if dk.numel() == 0:
         return dk, dv
     err = _bwd_lib().edl_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _ptr(q_seg), _ptr(k_seg), b, h, hkv, lq, lk, d, float(scale),
-        int(causal), win, _DTYPE_CODES[q.dtype],
+        int(causal), win, pos_offset, _DTYPE_CODES[q.dtype], f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _variant("flash_bwd_dkv", win, q_seg is not None)
+    name = _variant("flash_bwd_dkv", win, q_seg is not None,
+                    pos_offset != 0)
     _check_launch(err, name)
     KERNEL_LAUNCHES[name] += 1
     return dk, dv
@@ -645,10 +701,67 @@ def _bwd_lib():
         if not fn.argtypes:
             fn.argtypes = (
                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
     return lib
+
+
+# ------------------------------------------------ ring attention's entries
+
+
+def lse_merge(o, lse, o_i, lse_i):
+    """Merge two normalized attention partials (o [b, h, lq, d], lse [b,
+    h, lq]) over the same queries and disjoint key sets: the combine step
+    of ring attention (the JAX package's `lse_merge`). A partial with
+    lse_i = -1e30 (a row that saw no key) gets weight 0. fp32."""
+    lse_new = torch.logaddexp(lse, lse_i)
+    w = torch.exp(lse - lse_new)[..., None]
+    w_i = torch.exp(lse_i - lse_new)[..., None]
+    return o * w + o_i * w_i, lse_new
+
+
+def attention_forward_lse(q, k, v, causal=False, scale=None, segments=None,
+                          pos_offset=0, window=None):
+    """(out [b, h, lq, d] in q.dtype, lse fp32 [b, h, lq]) through
+    `flash_forward` (the kernel on CUDA): the JAX package's
+    `attention_forward_lse`. `segments`: one [b, l] id array or a
+    (q_seg, k_seg) pair (a ring rotation's). Whenever segments or an
+    offset are given, a row can see no key; its out is 0 and its lse
+    comes back exactly -1e30 (every |lse| > 0.5e30 is snapped, as JAX
+    snaps its kernel's sentinels), so `lse_merge` gives it no weight."""
+    lq, lk = q.shape[2], k.shape[2]
+    _check_window(window, lq, lk)
+    segs = _check_segments(segments, q.shape[0], lq, lk, q.device)
+    q_seg, k_seg = segs or (None, None)
+    out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                             window=window, q_seg=q_seg, k_seg=k_seg,
+                             pos_offset=pos_offset)
+    if segs is not None or pos_offset:
+        lse = torch.where(lse.abs() > -0.5 * _NEG_INF,
+                          torch.full_like(lse, _NEG_INF), lse)
+    return out, lse
+
+
+def attention_backward_lse(q, k, v, out, lse, g, causal=False, scale=None,
+                           grad_dtype=None, segments=None, pos_offset=0,
+                           window=None):
+    """(dq, dk, dv) of attention given a saved lse, through the two
+    flash backward kernels on CUDA (the JAX package's
+    `attention_backward_lse`). `lse` may be a ring's global lse while
+    k/v are one shard: P = exp(q k^T * scale - lse) is then this shard's
+    slice of the global softmax, and `out` / `g` (the global output and
+    its cotangent) enter through delta = rowsum(g * out). A row that
+    sees no key of the shard gets P = 0 and contributes nothing.
+    `grad_dtype` (None or torch.float32) overrides the input dtypes of
+    the results; under GQA dk and dv come back group-summed."""
+    lq, lk = q.shape[2], k.shape[2]
+    _check_window(window, lq, lk)
+    segs = _check_segments(segments, q.shape[0], lq, lk, q.device)
+    q_seg, k_seg = segs or (None, None)
+    return flash_backward(q, k, v, out, lse, g, causal=causal, scale=scale,
+                          window=window, q_seg=q_seg, k_seg=k_seg,
+                          pos_offset=pos_offset, grad_dtype=grad_dtype)
 
 
 # ----------------------------------------------------------- paged decode

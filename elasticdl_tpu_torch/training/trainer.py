@@ -44,10 +44,25 @@ Semantics kept from the JAX Trainer:
   is set to base x multiplier before `step()`, and each tapped table's
   row lr by multiplier_fn(its own count).
 
-The host-spill embedding tier, meshes (SPMD) and the `*_assembled` entry
-points are not ported yet and raise.
+Sequence parallelism (`mesh` from `parallel.mesh.build_mesh({"sp":
+n})`, one process per sp rank): every rank is given the same global
+batch and takes its own sequence slice of the [b, l] features (l % sp ==
+0). The model runs inside the mesh, so its attention rings (or
+all-to-alls) the shards; parameters are replicated. The loss is not a
+mean of shard losses (the zoo loss averages each row over its valid
+tokens, and -100 labels split unevenly across shards), so the step
+all-gathers the detached local logits, runs the spec's loss on the
+whole sequence through a leaf tensor, and back-propagates this rank's
+slice of that leaf's gradient into the local logits. After backward the
+gradients are summed over the sp ranks, so every rank applies the same
+update and the parameters stay identical across ranks. The row tier
+does not run under sp.
+
+The host-spill embedding tier, meshes with axes other than sp (SPMD)
+and the `*_assembled` entry points are not ported yet and raise.
 """
 
+import contextlib
 import inspect
 import logging
 import re
@@ -65,6 +80,7 @@ from elasticdl_tpu_torch.embedding.layer import (
 )
 from elasticdl_tpu_torch.embedding.sparse_optim import masked_step
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
+from elasticdl_tpu_torch.parallel.mesh import Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -113,14 +129,24 @@ def _split_label(batch):
 
 
 class Trainer(object):
-    """Owns the model and optimizer of a port ModelSpec on one device."""
+    """Owns the model and optimizer of a port ModelSpec on one device,
+    or on this rank of an sp mesh."""
 
     def __init__(self, model_spec, mesh=None, model_params="", seed=0,
                  callbacks=None, grad_accum_steps=1, trainable_pattern=None,
                  device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "Trainer: meshes (SPMD) are not ported; one device only")
+            if not isinstance(mesh, Mesh):
+                raise NotImplementedError(
+                    "Trainer: only the sp mesh of parallel.mesh.build_mesh "
+                    "is ported (SPMD meshes are not), got %r" % (mesh,))
+            others = {a: n for a, n in mesh.shape.items()
+                      if a != "sp" and n > 1}
+            if others:
+                raise NotImplementedError(
+                    "Trainer: mesh axes %s (SPMD) are not ported; the sp "
+                    "axis only" % others)
+        self.mesh = mesh
         self.spec = model_spec
         self.device = resolve_device(device)
         self.model = model_spec.create_model(model_params, device=self.device,
@@ -201,6 +227,10 @@ class Trainer(object):
                 % (getattr(factory, "row_rule_missing", None)
                    or "the factory carries none (training.optimizers.sgd "
                    "and adam do)"))
+        if taps and self._sp() > 1:
+            raise NotImplementedError(
+                "the sparse-row tier does not run under an sp mesh; set "
+                "sparse_grads=False")
         self._taps = taps
         named = dict(self.model.named_parameters())
         dense = [n for n in named if n in train and n not in taps]
@@ -240,6 +270,63 @@ class Trainer(object):
             return self.spec.loss(labels, predictions, weights)
         return self.spec.loss(labels, predictions)
 
+    # ------------------------------------------------------ sp (mesh)
+
+    def _sp(self):
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _mesh_scope(self):
+        return (self.mesh if self.mesh is not None
+                else contextlib.nullcontext())
+
+    def _sp_slice(self, features):
+        """This rank's sequence slice of every [b, l] feature, and l."""
+        if not isinstance(features, dict):
+            raise ValueError("an sp step takes a feature dict")
+        n, r = self.mesh.size, self.mesh.rank
+        local, length = {}, None
+        for key, x in features.items():
+            x = np.asarray(x)
+            if length is None and x.ndim >= 2:
+                length = x.shape[1]
+            if x.ndim < 2 or x.shape[1] != length:
+                raise ValueError("sp features must all be [b, l, ...]; %r "
+                                 "is %s" % (key, x.shape))
+            if length % n:
+                raise ValueError("sequence length %d is not a multiple of "
+                                 "sp = %d" % (length, n))
+            part = length // n
+            local[key] = x[:, r * part:(r + 1) * part]
+        return local, length
+
+    def _sp_loss_backward(self, local_logits, labels, weights, length):
+        """The loss over the whole sequence from every rank's logits,
+        and this rank's share of its gradient back-propagated (see the
+        module docstring). Returns the loss."""
+        if not isinstance(local_logits, torch.Tensor):
+            raise NotImplementedError(
+                "an sp step takes logits; fused_head under sp is not ported")
+        full = self.mesh.all_gather(local_logits.detach(), 1)
+        full.requires_grad_()
+        loss = self._compute_loss(labels, full, weights)
+        if loss.requires_grad:
+            loss.backward()
+            part = length // self.mesh.size
+            start = self.mesh.rank * part
+            local_logits.backward(full.grad[:, start:start + part])
+        return loss
+
+    def _sp_sum_grads(self, params):
+        """Sum each parameter's gradient over the sp ranks, in one
+        flat exchange."""
+        flat = torch.cat([p.grad.reshape(-1).float() for p in params])
+        flat = self.mesh.all_reduce_sum(flat)
+        offset = 0
+        for p in params:
+            n = p.grad.numel()
+            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+            offset += n
+
     def train_step(self, state, batch, true_count=None):
         """One microbatch: forward, loss, backward and (on an update
         boundary) the optimizer step and the row updates. `batch` =
@@ -253,16 +340,24 @@ class Trainer(object):
         weights = _make_weights(_leading_dim(features), true_count)
         opt = state.opt_state
         opt.optimizer.zero_grad(set_to_none=True)
-        with row_tap(self._taps) as records:
+        sp = self._sp()
+        if sp > 1:
+            features, length = self._sp_slice(features)
+        with row_tap(self._taps) as records, self._mesh_scope():
             preds = self.model(self._features(features), training=True)
-        loss = self._compute_loss(self._tensor(labels), preds,
-                                  self._tensor(weights))
+        labels, weights = self._tensor(labels), self._tensor(weights)
         trainable = opt.trainable()
-        if loss.requires_grad:
-            loss.backward()
+        if sp > 1:
+            loss = self._sp_loss_backward(preds, labels, weights, length)
+        else:
+            loss = self._compute_loss(labels, preds, weights)
+            if loss.requires_grad:
+                loss.backward()
         for p in trainable:
             if p.grad is None:  # unused by this batch: optax sees zeros
                 p.grad = torch.zeros_like(p)
+        if sp > 1 and trainable:
+            self._sp_sum_grads(trainable)
         rows = sparse_update.tap_gradients(records)
         state.step += 1
         k = self.grad_accum_steps
@@ -301,10 +396,17 @@ class Trainer(object):
         return state, float(loss.detach())
 
     def forward(self, state, features):
-        """Inference forward (evaluation / prediction) under no_grad."""
+        """Inference forward (evaluation / prediction) under no_grad;
+        under an sp mesh, the logits of the whole sequence."""
         del state
-        with torch.no_grad():
-            return self.model(self._features(features), training=False)
+        sp = self._sp()
+        if sp > 1:
+            features, _length = self._sp_slice(features)
+        with torch.no_grad(), self._mesh_scope():
+            preds = self.model(self._features(features), training=False)
+            if sp > 1:
+                preds = self.mesh.all_gather(preds, 1)
+        return preds
 
     def evaluate_batch(self, state, batch, true_count=None):
         """(outputs, labels) as numpy, trimmed to true_count, for metric

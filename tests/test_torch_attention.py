@@ -62,12 +62,12 @@ def test_flash_matches_jax_kernel_and_naive(causal, h, hkv, l):
 
 
 def test_flash_unported_options_raise():
-    """Windows and segments are ported (tests/test_torch_masked_attention.py);
-    ring attention's pos_offset is not."""
+    """Windows and segments are ported (tests/test_torch_masked_attention.py),
+    and so is ring attention's pos_offset (tests/test_torch_pos_offset.py):
+    each is taken."""
     q, k, v = (torch.zeros(1, 1, 8, 8) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="ring"):
-        tatt.flash_attention(q, k, v, causal=True, pos_offset=2)
-    for kwargs in ({"window": 4}, {"segments": torch.zeros(1, 8)}):
+    for kwargs in ({"window": 4}, {"segments": torch.zeros(1, 8)},
+                   {"pos_offset": 2}):
         assert tatt.flash_attention(q, k, v, causal=True, **kwargs).shape == (
             1, 1, 8, 8)
 

@@ -51,7 +51,9 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.api.local_executor",
                      "elasticdl_tpu_torch.embedding.layer",
                      "elasticdl_tpu_torch.embedding.sparse_update",
-                     "elasticdl_tpu_torch.model_zoo.dlrm"):
+                     "elasticdl_tpu_torch.model_zoo.dlrm",
+                     "elasticdl_tpu_torch.parallel.context_parallel",
+                     "elasticdl_tpu_torch.parallel.mesh"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"
