@@ -9,7 +9,10 @@ repository checkout it sits in. Phases, each of which fails the run:
 2. build every kernel of the serving, training, DLRM and dense-update
    paths from elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu,
    paged_decode.cu, embedding_gather.cu, row_update.cu,
-   optimizer_update.cu; one nvcc per source, all at once);
+   optimizer_update.cu; one nvcc per source, all at once, flash_bwd.cu
+   as nine parts linked into one library), and print each flash_bwd
+   instance's registers, spills and shared memory from ptxas's report
+   (no instance may spill);
 3. kernel A (flash forward) against its plain PyTorch version at the
    prefill shapes;
 4. kernel B (paged decode partials) against its plain version at the
@@ -19,8 +22,14 @@ repository checkout it sits in. Phases, each of which fails the run:
    largest value);
 5. kernels C and D (flash backward dq, dk/dv) against their plain
    versions: b = 2, h = 8 with 8 and 2 kv heads, l = 64 / 200 / 1024,
-   d = 128, causal and not, bf16 and fp32; then FlashAttentionFunction's
+   d = 128, causal and not, bf16 and fp32; the bf16 cases also, with
+   fp32 gradients, against the plain version that rounds P and dS to
+   bf16 as the kernels and the TPU kernels do (rounded_ok; so
+   are every masked and offset variant in phases 14 and 18 and the
+   training shape in phase 13); then FlashAttentionFunction's
    gradients on the card against the plain versions on the CPU, fp32;
+   then a probe of P's bf16 rounding (dO = I), rectangular lq != lk, a
+   misaligned q view, and two launches equal bit for bit;
 6. kernels E and F: E (embedding gather) against its plain version, exactly:
    dims 32 / 64 / 13, fp32 and bf16, ids [4096] and [512, 26] with
    repeats, -1 and ids past the table; F (row updates), each of
@@ -138,6 +147,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -193,6 +203,24 @@ LOGIT_TOL_REL = 5e-2
 # output: fp32 sums in another order (1e-4); bf16 outputs rounded once
 # more or less than the plain version's (2^-8 of the largest value)
 BWD_TOL_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the bf16 backward kernels against the plain version that rounds P and
+# dS to bf16 where they do (bf16_operands=True), both writing fp32
+# gradients, by rms_rel_err per output (the root-mean-square error over
+# masked_rel_err's scale; rounded_ok). The two round at the same places
+# (the probe of check_bwd_rounding reads the kernel's rounded P back).
+# What remains is the fp32 summation order, and the odd P or dS element
+# that lies within a few fp32 units of a bf16 rounding midpoint and
+# rounds the other way on one side, moving its row by up to about 1e-3
+# of the scale; so the largest error says little, and the mean square is
+# held: at most 1.3e-5 over every variant in the first full card runs,
+# while the unrounded plain version lies 4.2e-5 to 3.4e-4 away
+# (unrounded_rms_rel_err), 22x the rounded one's distance or more. So:
+# within BWD_ROUNDED_TOL_REL, and, where the unrounded version differs
+# measurably (BWD_ROUNDED_APART or more), BWD_ROUNDED_CLOSER times closer
+# to the rounded version than to it
+BWD_ROUNDED_TOL_REL = 5e-5
+BWD_ROUNDED_APART = 2e-5
+BWD_ROUNDED_CLOSER = 4
 # a bf16 train step on the card against the same step on the CPU: the
 # loss, and each parameter's gradient norm, by relative error (bf16
 # rounding at other places in cuBLAS and the CPU kernels)
@@ -435,6 +463,52 @@ def masked_rel_err(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
 
 
+def rms_rel_err(a, b):
+    """The root-mean-square of a - b over max(max |b|, 1), the scale of
+    masked_rel_err."""
+    if b.numel() == 0:
+        return 0.0
+    return ((a - b).float().pow(2).mean().sqrt()
+            / b.abs().max().clamp(min=1.0)).item()
+
+
+def rounded_ok(e):
+    """Whether one of rounded_bwd_errs's entries holds (see
+    BWD_ROUNDED_TOL_REL)."""
+    rms, apart = e["rms_rel_err"], e["unrounded_rms_rel_err"]
+    return rms <= BWD_ROUNDED_TOL_REL and (
+        apart < BWD_ROUNDED_APART or rms * BWD_ROUNDED_CLOSER <= apart)
+
+
+def rounded_bwd_errs(q, k, v, out, lse, do, **kw):
+    """{kernel: {"rms_rel_err", "max_rel_err"}} of the bf16 kernels C
+    and D against the plain version that rounds P and dS to bf16 as
+    they do, both with fp32 gradients (no output rounding in the way),
+    the worst over (dq, delta) and (dk, dv): rms_rel_err, which
+    rounded_ok holds with the RMS error against the unrounded plain
+    version, and masked_rel_err, reported. `kw`: the causal flag and
+    masks."""
+    kw = dict(kw, grad_dtype=torch.float32)
+    dq, delta = att.flash_backward_dq(q, k, v, out, lse, do, **kw)
+    dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    pdq, pdelta = att.flash_backward_dq_plain(q, k, v, out, lse, do,
+                                              bf16_operands=True, **kw)
+    pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse, pdelta,
+                                            bf16_operands=True, **kw)
+    edq, _ = att.flash_backward_dq_plain(q, k, v, out, lse, do, **kw)
+    edk, edv = att.flash_backward_dkv_plain(q, k, v, do, lse, pdelta, **kw)
+    return {name: {"rms_rel_err": max(rms_rel_err(a, b) for a, b in pairs),
+                   "max_rel_err": max(masked_rel_err(a, b)
+                                      for a, b in pairs),
+                   "unrounded_rms_rel_err": max(rms_rel_err(a, b)
+                                                for a, b in unrounded)}
+            for name, pairs, unrounded in (
+                ("flash_bwd_dq", ((dq, pdq), (delta, pdelta)), ((dq, edq),)),
+                ("flash_bwd_dkv", ((dk, pdk), (dv, pdv)),
+                 ((dk, edk), (dv, edv))))}
+
+
 def partials_errs(got, ref):
     """Relative errors of paged partials (o, l, m) against the plain
     version's; m over the rows that saw a key (l > 0) only, since the
@@ -612,9 +686,13 @@ def check_dense_update(gen):
 def check_flash_bwd(gen):
     """Kernels C (dq, and delta) and D (dk/dv) against their plain
     versions, on the same inputs and the forward kernel's out and lse.
-    Returns {kernel: {"max_abs_err", "max_rel_err"}}, worst over cases;
-    rel is max |err| / max |ref| of each output."""
+    The bf16 cases also against the plain version that rounds P and dS
+    as the kernels do (rounded_bwd_errs, rounded_ok).
+    Returns {kernel: {"max_abs_err", "max_rel_err",
+    "rounded_max_rel_err"}}, worst over cases; rel is max |err| / max
+    |ref| of each output."""
     worst = {"flash_bwd_dq": [0.0, 0.0], "flash_bwd_dkv": [0.0, 0.0]}
+    worst_rounded = {}
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (True, False):
             for h, hkv, l in ((8, 8, 64), (8, 8, 200), (8, 8, 1024),
@@ -652,8 +730,170 @@ def check_flash_bwd(gen):
                     "%.3g, dk/dv %.3g" % (h, hkv, l, causal,
                                           str(dtype)[6:], errs["flash_bwd_dq"],
                                           errs["flash_bwd_dkv"]))
-    return {name: {"max_abs_err": e[0], "max_rel_err": e[1]}
+                if dtype != torch.bfloat16:
+                    continue
+                rounded = rounded_bwd_errs(q, k, v, out, lse, do,
+                                           causal=causal)
+                log("  against the rounded plain version (fp32 "
+                    "gradients): %s" % rounded)
+                for name, e in rounded.items():
+                    check(rounded_ok(e),
+                          "%s disagrees with its rounded plain version at "
+                          "h=%d hkv=%d l=%d causal=%s: %s"
+                          % (name, h, hkv, l, causal, e))
+                    _worst(worst_rounded, name, e)
+    return {name: {"max_abs_err": e[0], "max_rel_err": e[1],
+                   "rounded_rms_rel_err":
+                       worst_rounded[name]["rms_rel_err"],
+                   "rounded_max_rel_err":
+                       worst_rounded[name]["max_rel_err"],
+                   "unrounded_rms_rel_err":
+                       worst_rounded[name]["unrounded_rms_rel_err"]}
             for name, e in worst.items()}
+
+
+# what one H100 SM holds for resident blocks: 65536 registers, 2048
+# threads, 233472 bytes of shared memory (1024 of them reserved per block)
+SM_REGISTERS, SM_THREADS = 65536, 2048
+SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
+
+
+def flash_bwd_build_report(log):
+    """csrc/flash_bwd.cu's kernel instances from ptxas's report in its
+    build log: {"<kernel> d<D> <output dtype>": {"registers": {mask
+    instance ("CWSO" flags: causal, window, segments, offset, or "-" for
+    the fp32 kernels' runtime masks): registers}, "spill_bytes": spill
+    stores and loads summed over the instances, "smem_bytes": a block's
+    dynamic shared memory, "blocks_per_sm": what the most registers and
+    the shared memory let one SM hold}}."""
+    lib = att._bwd_lib()
+    groups, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if not (m and entry and "flash_bwd_d" in entry):
+            continue
+        dkv = "flash_bwd_dkv" in entry
+        tc = "_tcI" in entry
+        d = int(re.search(r"Li(64|128)E", entry).group(1))
+        out = ("fp32 in and out" if not tc else
+               "bf16 in, fp32 out" if "_tcIf" in entry else "bf16")
+        flags = re.search(r"MasksILb(\d)ELb(\d)ELb(\d)ELb(\d)E", entry)
+        key = "%s%s d%d %s" % ("flash_bwd_dkv" if dkv else "flash_bwd_dq",
+                               "_tc" if tc else "", d, out)
+        group = groups.setdefault(key, {
+            "registers": {}, "spill_bytes": 0,
+            "smem_bytes": lib.edl_flash_bwd_smem_bytes(int(dkv),
+                                                       int(tc), d),
+            "threads": 128 if tc else 256})
+        group["registers"]["".join(flags.groups()) if flags else "-"] = int(
+            m.group(1))
+        group["spill_bytes"] += spill
+        entry, spill = None, 0
+    for group in groups.values():
+        regs = -(-max(group["registers"].values()) // 8) * 8
+        group["blocks_per_sm"] = min(
+            SM_REGISTERS // (regs * group["threads"]),
+            SM_SMEM // (group["smem_bytes"] + BLOCK_SMEM_RESERVED),
+            SM_THREADS // group["threads"], 32)
+    return groups
+
+
+def check_bwd_rounding(gen):
+    """The bf16 kernels C and D beyond the paths' shapes. (1) A probe of
+    P's rounding: with dO = I (l = 64 <= d), dV = P^T dO is bf16(P)^T
+    exactly, so the kernel's rounded P is read back and held to the
+    plain version's bf16(P), causal or not: at most a thousandth of the
+    elements (those at a bf16 rounding midpoint) one bf16 unit apart,
+    none further. (2) Rectangular lq != lk (200 against 136 and 333,
+    GQA 4/2), d 64 and 128, causal or not, and a q view that does not
+    start on 16 bytes (the wrapper copies it), against the unrounded
+    plain version (BWD_TOL_REL) and the rounded one (rounded_ok); the
+    first case launched twice, equal bit for
+    bit. Returns a summary."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    summary = {"probe_elements": 0, "probe_apart": 0, "probe_max_units": 0}
+    for causal in (False, True):
+        l, d = 64, 128
+        q, k, v = flash_inputs(gen, 1, 1, 1, l, d, bf16)
+        do = torch.zeros(1, 1, l, d, device="cuda", dtype=bf16)
+        do[0, 0, torch.arange(l), torch.arange(l)] = 1
+        out, lse = att.flash_forward(q, k, v, causal=causal)
+        kw = dict(causal=causal, grad_dtype=f32)
+        _dq, delta = att.flash_backward_dq(q, k, v, out, lse, do, **kw)
+        _dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        p_kernel = dv[0, 0, :, :l].t().to(bf16).contiguous()
+        p_plain = att._recompute_probs(q, k, lse, causal, d ** -0.5,
+                                       exp2=True)[0, 0].to(bf16).contiguous()
+        # P >= 0: bf16 bit patterns count bf16 units
+        units = (p_kernel.view(torch.int16).int()
+                 - p_plain.view(torch.int16).int()).abs()
+        summary["probe_elements"] += int((p_plain > 0).sum().item())
+        summary["probe_apart"] += int((units > 0).sum().item())
+        summary["probe_max_units"] = max(summary["probe_max_units"],
+                                         int(units.max().item()))
+    check(summary["probe_max_units"] <= 1
+          and summary["probe_apart"] * 1000 <= summary["probe_elements"],
+          "the bf16 backward rounds P otherwise than its plain version: %s"
+          % summary)
+    cases = [(d, causal, lk, False) for d in (64, 128)
+             for causal in (False, True) for lk in (136, 333)]
+    cases.append((128, True, 200, True))
+    worst = {}
+    for i, (d, causal, lk, misaligned) in enumerate(cases):
+        q, _k, _v = flash_inputs(gen, 2, 4, 2, 200, d, bf16)
+        do = flash_inputs(gen, 2, 4, 2, 200, d, bf16)[0]
+        _q, k, v = flash_inputs(gen, 2, 4, 2, lk, d, bf16)
+        if misaligned:
+            flat = torch.empty(q.numel() + 1, device="cuda", dtype=bf16)
+            flat[1:] = q.flatten()
+            q = flat[1:].view(q.shape)
+            check(q.data_ptr() % 16 != 0, "the probe view is aligned")
+        out, lse = att.flash_forward(q, k, v, causal=causal)
+        dq, delta = att.flash_backward_dq(q, k, v, out, lse, do,
+                                          causal=causal)
+        dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                        causal=causal)
+        if i == 0:
+            again = (att.flash_backward_dq(q, k, v, out, lse, do,
+                                           causal=causal)[0],
+                     *att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                             causal=causal))
+            check(all(torch.equal(a, b)
+                      for a, b in zip((dq, dk, dv), again)),
+                  "the bf16 backward differs between two launches")
+        torch.cuda.synchronize()
+        pdq, _ = att.flash_backward_dq_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+        pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse, delta,
+                                                causal=causal)
+        errs = rounded_bwd_errs(q, k, v, out, lse, do, causal=causal)
+        errs["flash_bwd_dq"]["max_rel_err_unrounded"] = masked_rel_err(
+            dq.float(), pdq.float())
+        errs["flash_bwd_dkv"]["max_rel_err_unrounded"] = max(
+            masked_rel_err(dk.float(), pdk.float()),
+            masked_rel_err(dv.float(), pdv.float()))
+        where = "lq=200 lk=%d d=%d causal=%s%s" % (
+            lk, d, causal, " misaligned q" if misaligned else "")
+        for name, e in errs.items():
+            check(e["max_rel_err_unrounded"] <= BWD_TOL_REL[bf16]
+                  and rounded_ok(e),
+                  "%s disagrees with its plain versions at %s: %s"
+                  % (name, where, e))
+            _worst(worst, name, e)
+    summary["rectangular_and_misaligned_worst"] = worst
+    summary["deterministic"] = True
+    log("flash bwd rounding probe and rectangular cases: %s" % summary)
+    return summary
 
 
 def check_autograd(gen):
@@ -1736,11 +1976,20 @@ def sdpa_backward_ms(q, k, v, do):
 
 def time_backward(gen, train_launches, bwd_err):
     """Kernels C and D at the training shape: b = 8, h = 8, l = 1024,
-    d = 128, causal, bf16, on the forward kernel's out and lse."""
+    d = 128, causal, bf16, on the forward kernel's out and lse; first
+    against the plain version that rounds P and dS as they do
+    (rounded_ok)."""
     b, h, l, d = TRAIN_BATCH, 8, FLAGSHIP["seq_len"], 128
     q, k, v = flash_inputs(gen, b, h, h, l, d, torch.bfloat16)
     do = flash_inputs(gen, b, h, h, l, d, torch.bfloat16)[0]
     out, lse = att.flash_forward(q, k, v, causal=True)
+    rounded = rounded_bwd_errs(q, k, v, out, lse, do, causal=True)
+    log("flash bwd at the training shape against the rounded plain "
+        "version (fp32 gradients): %s" % rounded)
+    for name, e in rounded.items():
+        check(rounded_ok(e),
+              "%s disagrees with its rounded plain version at the training "
+              "shape: %s" % (name, e))
     _dq, delta = att.flash_backward_dq(q, k, v, out, lse, do, causal=True)
     library = sdpa_backward_ms(q, k, v, do)
     shape = "b=%d h=%d lq=lk=%d d=%d causal bf16" % (b, h, l, d)
@@ -1761,6 +2010,10 @@ def time_backward(gen, train_launches, bwd_err):
             library, flash_bwd_work(b, h, h, l, d, 2, dkv), train_launches,
             dict(bwd_err[name], max_err=bwd_err[name]["max_abs_err"]))
         entry["launches_per_step"] = train_launches[name] // TRAIN_STEPS
+        entry["path_shape_rounded_rms_rel_err"] = rounded[name]["rms_rel_err"]
+        entry["path_shape_rounded_max_rel_err"] = rounded[name]["max_rel_err"]
+        entry["path_shape_unrounded_rms_rel_err"] = rounded[name][
+            "unrounded_rms_rel_err"]
         entries.append(entry)
     return entries
 
@@ -2157,7 +2410,9 @@ def _flash_case(q, k, v, do, causal, masks, grad_dtype=None, lse_bwd=None):
     by kernel, the variant's name). `masks` may hold window, q_seg /
     k_seg and pos_offset; `grad_dtype` is the backward's output dtype
     (None: the input's); `lse_bwd` replaces the forward's lse in the
-    backward (a ring's global lse)."""
+    backward (a ring's global lse). bf16 inputs: C and D also against
+    the plain version that rounds P and dS as they do
+    (rounded_bwd_errs)."""
     variant = att._variant("", masks.get("window"),
                            masks.get("q_seg") is not None,
                            bool(masks.get("pos_offset")))
@@ -2177,6 +2432,10 @@ def _flash_case(q, k, v, do, causal, masks, grad_dtype=None, lse_bwd=None):
     errs = {"flash_fwd": {
         "max_abs_err": (out.float() - ref.float()).abs().max().item(),
         "lse_max_abs_err": (lse - ref_lse).abs().max().item()}}
+    rounded = {}
+    if q.dtype == torch.bfloat16:
+        rounded = rounded_bwd_errs(q, k, v, out, lse_b, do, causal=causal,
+                                   **masks)
     for name, pairs in (("flash_bwd_dq", ((dq, pdq), (delta, pdelta))),
                         ("flash_bwd_dkv", ((dk, pdk), (dv, pdv)))):
         check(all(torch.isfinite(a.float()).all().item() for a, _ in pairs),
@@ -2186,6 +2445,11 @@ def _flash_case(q, k, v, do, causal, masks, grad_dtype=None, lse_bwd=None):
                                for a, b in pairs),
             "max_rel_err": max(masked_rel_err(a.float(), b.float())
                                for a, b in pairs)}
+        if rounded:
+            errs[name]["rounded_rms_rel_err"] = rounded[name]["rms_rel_err"]
+            errs[name]["rounded_max_rel_err"] = rounded[name]["max_rel_err"]
+            errs[name]["unrounded_rms_rel_err"] = rounded[name][
+                "unrounded_rms_rel_err"]
     check(torch.isfinite(out.float()).all().item(),
           "flash_fwd%s: non-finite output" % variant)
     return errs, variant
@@ -2200,6 +2464,11 @@ def _check_flash_errs(errs, variant, dtype, where):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         check(errs[name]["max_rel_err"] <= BWD_TOL_REL[dtype],
               "%s%s disagrees with its plain version at %s: %s"
+              % (name, variant, where, errs[name]))
+        check("rounded_rms_rel_err" not in errs[name] or rounded_ok({
+            "rms_rel_err": errs[name]["rounded_rms_rel_err"],
+            "unrounded_rms_rel_err": errs[name]["unrounded_rms_rel_err"]}),
+              "%s%s disagrees with its rounded plain version at %s: %s"
               % (name, variant, where, errs[name]))
 
 
@@ -3305,6 +3574,23 @@ def main():
         ", ".join("%s %.1f s" % (n, r["seconds"]) for n, r in
                   report.items())))
 
+    bwd_build = {}
+    if report["flash_bwd"]["log"]:
+        bwd_build = flash_bwd_build_report(report["flash_bwd"]["log"])
+        for name, group in bwd_build.items():
+            log("%s: registers %s; spills %d B; shared memory %d B a "
+                "block; %d blocks per SM" % (
+                    name, " ".join("%s:%d" % x for x in
+                                   group["registers"].items()),
+                    group["spill_bytes"], group["smem_bytes"],
+                    group["blocks_per_sm"]))
+        check(len(bwd_build) == 12 and sum(
+            len(g["registers"]) for g in bwd_build.values()) == 132,
+              "flash_bwd's build log names %s" % sorted(bwd_build))
+        check(not any(g["spill_bytes"] for g in bwd_build.values()),
+              "flash_bwd's kernels spill registers")
+    else:
+        log("flash_bwd was built before this run: no ptxas report")
     gen = torch.Generator().manual_seed(0)
     rng = np.random.RandomState(0)
     # the packed and windowed phases draw from their own generators, so
@@ -3316,6 +3602,9 @@ def main():
     int8_err = check_paged_int8(gen)
     bwd_err = check_flash_bwd(gen)
     autograd_err = check_autograd(gen)
+    # the rounding probe draws from its own generator, so every later
+    # phase sees the data it saw before it was added
+    bwd_rounding = check_bwd_rounding(torch.Generator().manual_seed(7))
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
     dense_err = check_dense_update(gen)
@@ -3386,6 +3675,8 @@ def main():
     sp["ring_rotations_vs_unsharded"] = ring_rotations
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
+    training["flash_bwd_build"] = bwd_build
+    training["flash_bwd_rounding"] = bwd_rounding
     with tempfile.TemporaryDirectory() as workdir:
         dlrm, executor, dlrm_launches = train_dlrm(rng, workdir)
     log("dlrm run launches: %s" % dlrm_launches)

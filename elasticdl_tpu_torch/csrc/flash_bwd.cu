@@ -1,8 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels.
 //
 // Replace the TPU kernels of elasticdl_tpu/ops/attention.py::_flash_backward:
-//   * flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel  (pl.pallas_call at :1415)
-//   * flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel (pl.pallas_call at :1446)
+//   * dq pass  <- _flash_bwd_dq_kernel  (pl.pallas_call at :1415)
+//   * dkv pass <- _flash_bwd_dkv_kernel (pl.pallas_call at :1446)
 // Same function: the standard two-pass flash backward that recomputes the
 // probabilities from the forward's saved logsumexp,
 //   P = exp(q k^T * scale - lse), dP = dO V^T, delta = rowsum(dO * O),
@@ -26,65 +26,175 @@
 // pair form masks fully (zeroed there too, :1277 and :1332), so dK and
 // dV of a key that no query sees are exactly 0.
 //
+// Rounding. For bf16 inputs P and dS are rounded to bf16 before the
+// second products (dV = P^T dO, dQ = dS K, dK = dS^T Q), as the TPU
+// kernels' _mxu_cast (:927) does when the other operand is bf16; S, dP,
+// delta and the three accumulators stay fp32. fp32 inputs are not
+// rounded (_mxu_cast leaves them), so they keep the scalar fp32 kernels
+// below: bf16 tensor cores would miss the fp32 limit of 1e-4, and no
+// training path runs fp32 attention (tests, oracle checks and small fp32
+// runs do). The entry points pick the kernels by dtype, never by a
+// failed launch.
+//
 // What bounds them on the H100: at the training shapes (b = 8, h = 8,
 // l = 1024, d = 128, causal) the dq pass does 6 * d operations per
 // visible (query, key) pair and the dk/dv pass 8 * d, against a few
-// bytes per row moved, so both are bound by operations, i.e. by how fast
-// a block multiplies. Like the forward (flash_fwd.cu), this first version
-// multiplies with scalar fp32 FMAs out of shared memory (no tensor
-// cores), far below the bf16 peak; wgmma with TMA-fed tiles is later
-// work.
+// bytes per row moved, so both are bound by operations: by the tensor
+// cores' bf16 rate.
 //
-// Design. Both kernels use 64 x 64 tiles and 256 threads in a 16 x 16
-// grid; a thread owns a 4 x 4 block of a score tile and a 4 x D/16 block
-// of an output tile, kept in registers.
-//   dq:  grid (q tile, b*h). The Q tile (scaled by scale*log2e, so the
-//        kernel works in the exp2 domain as the TPU kernel does) and the
-//        dO tile are staged once; delta = rowsum(dO * O) is computed for
-//        the tile's rows and written out for the dk/dv kernel (the TPU
-//        code computes it with a jnp sum before the kernels). The block
-//        walks the key tiles up to the causal diagonal: S and dP in one
-//        pass over d, P = exp2(S - lse * log2e), dS into shared memory,
-//        then dQ += dS K into registers.
-//   dkv: grid (key tile, b*hkv). K and V are staged once; the block walks
-//        every (q head of the group, q tile) pair, as the TPU grid's
-//        streamed axis does (_dkv_q_spec), starting at the first q tile
-//        that reaches the key tile when causal (_q_stream_clamp). dK and
-//        dV accumulate in registers across the whole group, so they come
-//        out group-summed without atomics and are deterministic.
-// Fully masked tiles are skipped (never loaded), as _block_run skips
-// them: the dq pass walks the key tiles of the forward's window range
-// (_kv_stream_clamp), the dk/dv pass, per key tile and group member, the
-// q tiles from the first that reaches the tile (causal: the diagonal;
-// window, not causal: key k0 - window + 1) to the last whose window holds
-// one of its keys (_q_stream_clamp), all shifted by pos_offset. The
-// offset is folded into each tile's first query position once, outside
-// the inner loops; the bounds are clamped to [0, lk] or [0, lq] before
-// they are divided into tiles (C division truncates toward zero), so an
-// offset that leaves no visible pair runs no tile and writes zeros. Segment ids ride beside the tiles
-// in shared memory; no tile is skipped for segments. The blocks need
-// ~146 KB (dq) and ~162 KB (dk/dv) of shared memory at d = 128, so each
-// launch raises the dynamic shared-memory limit first, and every launch
-// returns cudaGetLastError.
+// Design of the bf16 kernels (flash_bwd_dq_tc, flash_bwd_dkv_tc): one
+// warpgroup (128 threads) per block and 64 x 64 tiles; every product is
+// a wgmma.mma_async m64n64k16 with bf16 operands and fp32 accumulators.
+// Tiles are copied with cp.async (16 bytes a thread, zero-filled past
+// the ragged edge) into shared memory in the 128-byte-swizzled layout
+// wgmma reads (D / 64 panels of 64 rows x 128 bytes), and a ring of two
+// stages keeps the next tile's copy in flight while the current tile's
+// products run.
+//   dq:  grid (b*h, q tile), the q tiles with the most key tiles first.
+//        Q and dO are staged once; delta = rowsum(dO * O) is computed
+//        from global memory while they land and written out for the dk/dv
+//        pass (the TPU code computes it with a jnp sum before the
+//        kernels). K and V stream through the ring: S = Q K^T and
+//        dP = dO V^T with both operands from shared memory, K-major;
+//        P = exp2(S * scale * log2e - lse * log2e) and dS in the
+//        accumulator registers, converted in registers to the bf16 A
+//        fragments of dQ += dS K (the accumulator layout of a 64 x 64
+//        product is the A layout of four depth steps), with B = the K
+//        tile read MN-major (the transposed descriptor read).
+//   dkv: grid (b*hkv, key tile), key tile 0 (the longest walk) first. K
+//        and V are staged once; the block walks every (q head of the
+//        group, q tile) pair, as the TPU grid's streamed axis does
+//        (_dkv_q_spec), Q, dO and their lse and delta rows streaming
+//        through the ring. It computes the transposed scores S^T = K Q^T
+//        and dP^T = V dO^T directly, turns P^T and dS^T into bf16 A
+//        fragments, and adds dV += P^T dO and dK += dS^T Q with B = the
+//        dO and Q tiles read MN-major, half a q tile (32 rows, m64n32
+//        products) at a time: at d = 128 the dK and dV accumulators take
+//        128 registers a thread, and a whole tile's S^T and dP^T beside
+//        them made the masked instances spill. dK and dV accumulate in
+//        registers across the whole group, so they come out group-summed
+//        without atomics and are deterministic.
+// Rows past lq or lk load as zeros and take an lse of +1e30 (P = 0);
+// stores are masked at the edge. The masks are template parameters
+// (CAUSAL, WINDOW, SEGS, OFFSET), so the unmasked instance carries no
+// mask code, and in every instance the per-element test runs only on the
+// tiles that straddle a mask edge: the diagonal, a window edge, the
+// ragged key edge of the dq pass (the dk/dv pass never stores a key row
+// past lk, and a query row past lq has P = 0), and every tile when SEGS
+// is set. Interior tiles skip it.
+// Resources (ptxas of CUDA 12.8 for sm_90a; chip_smoke.py prints them for
+// every instance): dq 128-203 registers at d = 64 and 196-219 at
+// d = 128, dk/dv 142-167 and 233-255, no spills; 51,712 bytes of shared
+// memory a block at d = 64 and 100,864 at d = 128; so 2 blocks per SM
+// (3 for dk/dv at d = 64), 8 warps, bound by registers and, at d = 128,
+// by shared memory as well.
+//
+// Design of the fp32 kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+// 64 x 64 tiles and 256 threads in a 16 x 16 grid; a thread owns a 4 x 4
+// block of a score tile and a 4 x D/16 block of an output tile in
+// registers; scalar fp32 FMAs out of padded fp32 shared-memory tiles;
+// the masks are runtime arguments. They need ~146 KB (dq) and ~162 KB
+// (dk/dv) of shared memory at d = 128.
+//
+// Both designs skip fully masked tiles (never loaded), as _block_run
+// skips them: the dq pass walks the key tiles of the forward's window
+// range (_kv_stream_clamp), the dk/dv pass, per key tile and group member,
+// the q tiles from the first that reaches the tile (causal: the
+// diagonal; window, not causal: key k0 - window + 1) to the last whose
+// window holds one of its keys (_q_stream_clamp), all shifted by
+// pos_offset. The offset is folded into each tile's first query position
+// once, outside the inner loops; the bounds are clamped to [0, lk] or
+// [0, lq] before they are divided into tiles (C division truncates
+// toward zero), so an offset that leaves no visible pair runs no tile
+// and writes zeros. No tile is skipped for segments. Every launch raises
+// the dynamic shared-memory limit first and returns cudaGetLastError.
+//
+// Build: this file is compiled as nine objects, one nvcc each, linked
+// into one library (ops/_build.py, PARTS): EDL_PART 0 holds the entry
+// points and the fp32 kernels, parts 1-8 the 16 mask instances of one
+// (pass, head dim, output dtype) of the bf16 kernels each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include <type_traits>
+
+#ifndef EDL_PART
+#define EDL_PART 0
+#endif
+
+// What the entry points pass to the bf16 kernels' launchers.
+namespace edl_bwd {
+
+struct Args {
+  const void *q, *k, *v, *o, *dout, *lse;
+  void *dq, *dk, *dv, *delta;  // delta: written by dq, read by dk/dv
+  const int *q_seg, *k_seg;
+  int b, h, hkv, lq, lk;
+  float scale;
+  int causal, window, pos_offset;
+  cudaStream_t stream;
+};
+
+// The launcher of one (pass, head dim, output dtype), defined by its
+// part; it picks the mask instance from the runtime flags.
+template <bool DKV, int D, bool F32>
+int launch_part(const Args& a);
+template <> int launch_part<false, 64, false>(const Args&);
+template <> int launch_part<false, 64, true>(const Args&);
+template <> int launch_part<false, 128, false>(const Args&);
+template <> int launch_part<false, 128, true>(const Args&);
+template <> int launch_part<true, 64, false>(const Args&);
+template <> int launch_part<true, 64, true>(const Args&);
+template <> int launch_part<true, 128, false>(const Args&);
+template <> int launch_part<true, 128, true>(const Args&);
+
+}  // namespace edl_bwd
+
+namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A row's lse in the exp2 domain, as the kernels subtract it; a sentinel
+// of either sign (|lse| >= 0.5e30) becomes +1e30, so P = exp2(s - it) = 0.
+__device__ __forceinline__ float lse_log2(float lse) {
+  return fabsf(lse) >= 5e29f ? 1e30f : lse * LOG2E;
+}
+
+// Dynamic shared memory of a bf16 block: two [64][D] bf16 tiles staged
+// once, a ring of two stages of two tiles, and behind them three
+// two-stage rows of 64 4-byte values (lse, delta, segment ids); 1024
+// bytes of slack to align the tiles to the 128-byte swizzle's 1024-byte
+// period.
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return 6 * (64 * D * 2) + 1024 + 3 * 2 * 64 * 4;
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes, bool* configured) {
+  if (*configured) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  *configured = true;
+  return 0;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The fp32 kernels and the entry points: part 0.
+#if EDL_PART == 0
 namespace {
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -109,12 +219,6 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
     dst[r * DP + e] =
         (r0 + r < rows) ? to_f(src[(size_t)(r0 + r) * D + e]) * mul : 0.f;
   }
-}
-
-// A row's lse in the exp2 domain, as the kernels subtract it; a sentinel
-// of either sign (|lse| >= 0.5e30) becomes +1e30, so P = exp2(s - it) = 0.
-__device__ __forceinline__ float lse_log2(float lse) {
-  return fabsf(lse) >= 5e29f ? 1e30f : lse * LOG2E;
 }
 
 // Whether query position qp sees key position kp under the window and
@@ -432,16 +536,6 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes, bool* configured) {
-  if (*configured) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  *configured = true;
-  return 0;
-}
-
 template <typename T, typename TO, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* dq, void* delta,
@@ -490,10 +584,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // or both NULL; window 0 = none, else the sliding window (lq == lk);
 // pos_offset the shift of the query positions (any int; 0 = none);
 // grad_f32 1 = write the gradients in fp32, 0 = in the input dtype.
+// dtype 0 (float32) runs the fp32 kernels, 1 (bfloat16) the bf16
+// tensor-core kernels, whose tensors must be 16-byte aligned.
 static bool masks_ok(int h, int hkv, int window, const void* q_seg,
-                     const void* k_seg) {
+                    const void* k_seg) {
   return hkv > 0 && h % hkv == 0 && window >= 0 &&
          (q_seg == nullptr) == (k_seg == nullptr);
+}
+
+template <bool DKV>
+static int launch_bf16(const edl_bwd::Args& a, int d, int grad_f32) {
+  using edl_bwd::launch_part;
+  if (d == 64)
+    return grad_f32 ? launch_part<DKV, 64, true>(a)
+                    : launch_part<DKV, 64, false>(a);
+  if (d == 128)
+    return grad_f32 ? launch_part<DKV, 128, true>(a)
+                    : launch_part<DKV, 128, false>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 // q, o, dout [b, h, lq, d]; dq like q in the input dtype or fp32; k, v
@@ -511,17 +619,22 @@ extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!masks_ok(h, hkv, window, q_seg, k_seg))
     return (int)cudaErrorInvalidValue;
-#define EDL_DQ(T, TO, D)                                                  \
-  return launch_dq<T, TO, D>(q, k, v, o, dout, lse, dq, delta, q_seg,    \
-                             k_seg, b, h, hkv, lq, lk, scale, causal,    \
-                             window, pos_offset, s)
-  if (dtype == 0 && d == 64) EDL_DQ(float, float, 64);
-  if (dtype == 0 && d == 128) EDL_DQ(float, float, 128);
-  if (dtype == 1 && d == 64 && grad_f32) EDL_DQ(__nv_bfloat16, float, 64);
-  if (dtype == 1 && d == 128 && grad_f32) EDL_DQ(__nv_bfloat16, float, 128);
-  if (dtype == 1 && d == 64) EDL_DQ(__nv_bfloat16, __nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) EDL_DQ(__nv_bfloat16, __nv_bfloat16, 128);
-#undef EDL_DQ
+  if (dtype == 1) {
+    const edl_bwd::Args a{q, k, v, o, dout, lse, dq, nullptr, nullptr, delta,
+                          static_cast<const int*>(q_seg),
+                          static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
+                          scale, causal, window, pos_offset, s};
+    return launch_bf16<false>(a, d, grad_f32);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return launch_dq<float, float, 64>(q, k, v, o, dout, lse, dq, delta,
+                                       q_seg, k_seg, b, h, hkv, lq, lk,
+                                       scale, causal, window, pos_offset, s);
+  if (d == 128)
+    return launch_dq<float, float, 128>(q, k, v, o, dout, lse, dq, delta,
+                                        q_seg, k_seg, b, h, hkv, lq, lk,
+                                        scale, causal, window, pos_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -540,17 +653,734 @@ extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!masks_ok(h, hkv, window, q_seg, k_seg))
     return (int)cudaErrorInvalidValue;
-#define EDL_DKV(T, TO, D)                                                 \
-  return launch_dkv<T, TO, D>(q, k, v, dout, lse, delta, dk, dv, q_seg,  \
-                              k_seg, b, h, hkv, lq, lk, scale, causal,   \
-                              window, pos_offset, s)
-  if (dtype == 0 && d == 64) EDL_DKV(float, float, 64);
-  if (dtype == 0 && d == 128) EDL_DKV(float, float, 128);
-  if (dtype == 1 && d == 64 && grad_f32) EDL_DKV(__nv_bfloat16, float, 64);
-  if (dtype == 1 && d == 128 && grad_f32)
-    EDL_DKV(__nv_bfloat16, float, 128);
-  if (dtype == 1 && d == 64) EDL_DKV(__nv_bfloat16, __nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) EDL_DKV(__nv_bfloat16, __nv_bfloat16, 128);
-#undef EDL_DKV
+  if (dtype == 1) {
+    const edl_bwd::Args a{q, k, v, nullptr, dout, lse, nullptr, dk, dv,
+                          const_cast<void*>(delta),
+                          static_cast<const int*>(q_seg),
+                          static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
+                          scale, causal, window, pos_offset, s};
+    return launch_bf16<true>(a, d, grad_f32);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return launch_dkv<float, float, 64>(q, k, v, dout, lse, delta, dk, dv,
+                                        q_seg, k_seg, b, h, hkv, lq, lk,
+                                        scale, causal, window, pos_offset, s);
+  if (d == 128)
+    return launch_dkv<float, float, 128>(q, k, v, dout, lse, delta, dk, dv,
+                                         q_seg, k_seg, b, h, hkv, lq, lk,
+                                         scale, causal, window, pos_offset,
+                                         s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of one block, in bytes (-1: no such kernel):
+// dkv 0 = the dq pass, 1 = the dk/dv pass; dtype and d as above.
+extern "C" int edl_flash_bwd_smem_bytes(int dkv, int dtype, int d) {
+  if (dtype == 1 && (d == 64 || d == 128))
+    return (int)(d == 64 ? tc_smem_bytes<64>() : tc_smem_bytes<128>());
+  if (dtype == 0 && d == 64)
+    return (int)(dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>());
+  if (dtype == 0 && d == 128)
+    return (int)(dkv ? dkv_smem_bytes<128>() : dq_smem_bytes<128>());
+  return -1;
+}
+
+#endif  // EDL_PART == 0
+
+// ---------------------------------------------------------------------------
+// The bf16 kernels: wgmma on tensor cores, parts 1-8.
+#if EDL_PART > 0
+namespace {
+
+constexpr int TB = 64;            // rows of every tile: queries or keys
+constexpr int WG = 128;           // one warpgroup per block
+constexpr int PANEL = TB * 128;   // bytes of 64 rows x 64 bf16 columns
+
+template <bool C, bool W, bool S, bool O>
+struct Masks {
+  static constexpr bool causal = C, window = W, segs = S, offset = O;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; `bytes` 0 zero-fills.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the
+// async proxy: this orders the one before the other
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void keep(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Rows [r0, r0 + 64) of a row-major [rows, D] bf16 matrix into a shared
+// tile as wgmma reads it with the 128-byte swizzle: D / 64 panels of
+// 64 rows x 128 bytes, the 16-byte chunk j of row r at chunk j ^ (r % 8)
+// of its row. Rows past `rows` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int rows) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int n = 0; n < TB * CPR / WG; ++n) {
+    const int i = threadIdx.x + WG * n;
+    const int r = i / CPR, c = i % CPR;
+    const bool in = r0 + r < rows;
+    const __nv_bfloat16* g = src + (size_t)(in ? r0 + r : 0) * D + c * 8;
+    cp_async16(dst + (c / 8) * PANEL + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               g, in ? 16u : 0u);
+  }
+}
+
+// wgmma's shared-memory matrix descriptor of such a tile: start address
+// / 16, leading byte offset 16 (unused: a product reads one 64-column
+// panel), stride byte offset 1024 (8 rows of 128 bytes), layout type 1
+// (128-byte swizzle) in bits 62-63. It is made anew in every loop step
+// through an opaque move, and moved from one depth step to the next in
+// place (advance), so the compiler keeps one register pair per operand
+// rather than one per depth step (32 pairs for a d = 128 tile pair).
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  uint64_t desc = (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+                  (64ull << 32) | (1ull << 62);
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(desc));
+  return desc;
+}
+// moves a descriptor's start address by `bytes` (a multiple of 16)
+__device__ __forceinline__ void advance(uint64_t& desc, int bytes) {
+  asm volatile("add.s64 %0, %0, %1;\n" : "+l"(desc) : "l"((int64_t)(bytes / 16)));
+}
+
+#define EDL_ACC32(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+#define EDL_OUT32(d)                                                        \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), \
+      "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),        \
+      "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),    \
+      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),    \
+      "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),    \
+      "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),    \
+      "=f"(d[31])
+#define EDL_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory.
+[[maybe_unused]] __device__ __forceinline__ void wgmma_ss(
+    float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " EDL_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : EDL_ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] = A[64 x 16] B[16 x 64]: the first depth step, which
+// overwrites d (scale-d false), so d needs no zeroing before it.
+[[maybe_unused]] __device__ __forceinline__ void wgmma_ss_first(
+    float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " EDL_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : EDL_OUT32(d)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+#define EDL_ACC16(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define EDL_OUT16(d)                                                        \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), \
+      "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),        \
+      "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+#define EDL_D16                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// The same products with N = 32 (16 accumulator registers a thread).
+[[maybe_unused]] __device__ __forceinline__ void wgmma_ss(
+    float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " EDL_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : EDL_ACC16(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+[[maybe_unused]] __device__ __forceinline__ void wgmma_ss_first(
+    float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " EDL_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : EDL_OUT16(d)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+#undef EDL_ACC16
+#undef EDL_OUT16
+#undef EDL_D16
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (four bf16
+// pairs per thread), B MN-major in shared memory (transposed read).
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " EDL_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : EDL_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef EDL_ACC32
+#undef EDL_OUT32
+#undef EDL_D32
+
+// d = A B^T over the depth D: A a [64][D] tile, B the first 2 R rows of
+// one (R accumulator registers a thread: 64 x 64 or 64 x 32), both read
+// K-major (depth step kk: columns 16 kk .. 16 kk + 15, 32 bytes into a
+// panel's rows, the next panel after four steps)
+template <int D, int R>
+__device__ __forceinline__ void product_ss(float (&d)[R], uint32_t a,
+                                           uint32_t b) {
+  uint64_t da = tile_desc(a), db = tile_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if (kk == 0)
+      wgmma_ss_first(d, da, db);
+    else
+      wgmma_ss(d, da, db);
+    if (kk + 1 < D / 16) {
+      const int step = kk % 4 == 3 ? PANEL - 96 : 32;
+      advance(da, step);
+      advance(db, step);
+    }
+  }
+}
+
+// acc[pn] += A B[:, 64 pn .. 64 pn + 63] over a depth of 16 KS: A the
+// bf16 fragments of KS depth steps, B rows of a [64][64 NP] tile read
+// MN-major (depth step kk: rows 16 kk .. 16 kk + 15, 2048 bytes on)
+template <int NP, int KS>
+__device__ __forceinline__ void product_rs(float (&acc)[NP][32],
+                                           const uint32_t (&frag)[KS][4],
+                                           uint32_t b) {
+  uint64_t db = tile_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      wgmma_rs_t(acc[pn], frag[kk], db);
+      if (kk + 1 < KS || pn + 1 < NP)
+        advance(db, pn + 1 < NP ? PANEL : 16 * 128 - (NP - 1) * PANEL);
+    }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+[[maybe_unused]] __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    s += fx.x * fy.x + fx.y * fy.y;
+  }
+  return s;
+}
+
+[[maybe_unused]] __device__ __forceinline__ void store2(float* p, float a,
+                                                        float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+[[maybe_unused]] __device__ __forceinline__ void store2(__nv_bfloat16* p,
+                                                        float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Whether the tile of query positions p0 .. p0 + 63 and keys k0 ..
+// k0 + 63 holds a pair that the causal or window mask hides, so that
+// its elements must be tested one by one; with segments every tile is.
+template <class M>
+__device__ __forceinline__ bool straddles(int p0, int k0, int window) {
+  if (M::segs) return true;
+  bool edge = M::causal && k0 + TB - 1 > p0;
+  if (M::window) {
+    edge = edge || p0 + TB - 1 - k0 >= window;
+    if (!M::causal) edge = edge || k0 + TB - 1 - p0 >= window;
+  }
+  return edge;
+}
+
+template <class M>
+__device__ __forceinline__ bool visible(int qp, int kp, int window) {
+  return (!M::causal || kp <= qp) &&
+         (!M::window || (qp - kp < window && (M::causal || kp - qp < window)));
+}
+
+// The dq pass's P and dS of one tile, from S = Q K^T and dP = dO V^T in
+// the accumulator layout (element i of a thread: row r0 + 8 * (i % 4 / 2),
+// column 8 * (i / 4) + 2 * (lane % 4) + i % 2), into the bf16 A
+// fragments of dQ += dS K: frag[kk][r] packs elements 8 kk + 2 r and
+// 8 kk + 2 r + 1, which is the A layout of depth step kk.
+template <class M, bool EDGE>
+__device__ __forceinline__ void dq_frags(
+    const float (&sacc)[32], const float (&pacc)[32], uint32_t (&frag)[4][4],
+    const float (&lse2)[2], const float (&dlt)[2], const int (&qseg)[2],
+    const int* kseg, int r0, int cq, int p0, int k0, int lk, float slog,
+    float scale, int window) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 8 * kk + 2 * r + e, rr = r % 2;
+        const int col = 8 * (i / 4) + cq + e;
+        float p = exp2f(sacc[i] * slog - lse2[rr]);
+        if (EDGE) {
+          const int kp = k0 + col;
+          if (!(kp < lk && visible<M>(p0 + r0 + 8 * rr, kp, window) &&
+                (!M::segs || qseg[rr] == kseg[col])))
+            p = 0.f;
+        }
+        ds[e] = p * (pacc[i] - dlt[rr]) * scale;
+      }
+      frag[kk][r] = pack_bf16(ds[0], ds[1]);
+    }
+}
+
+// The dk/dv pass's P^T and dS^T of 64 keys x 16 KS query rows (columns;
+// lse2, dlt and qseg start at the first, at position p0), into the
+// bf16 A fragments of dV += P^T dO and dK += dS^T Q.
+template <class M, bool EDGE, int KS>
+__device__ __forceinline__ void dkv_frags(
+    const float (&sacc)[8 * KS], const float (&pacc)[8 * KS],
+    uint32_t (&pfrag)[KS][4], uint32_t (&dfrag)[KS][4], const float* lse2,
+    const float* dlt, const int* qseg, const int (&kseg)[2], int r0, int cq,
+    int p0, int k0, float slog, float scale, int window) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float pv[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 8 * kk + 2 * r + e, rr = r % 2;
+        const int qc = 8 * (i / 4) + cq + e;
+        float p = exp2f(sacc[i] * slog - lse2[qc]);
+        if (EDGE) {
+          if (!(visible<M>(p0 + qc, k0 + r0 + 8 * rr, window) &&
+                (!M::segs || qseg[qc] == kseg[rr])))
+            p = 0.f;
+        }
+        pv[e] = p;
+        ds[e] = p * (pacc[i] - dlt[qc]) * scale;
+      }
+      pfrag[kk][r] = pack_bf16(pv[0], pv[1]);
+      dfrag[kk][r] = pack_bf16(ds[0], ds[1]);
+    }
+}
+
+template <typename TO, int D, class M>
+__global__ void __launch_bounds__(WG) flash_bwd_dq_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    TO* __restrict__ dq, float* __restrict__ delta,
+    const int* __restrict__ q_seg, const int* __restrict__ k_seg, int h,
+    int hkv, int lq, int lk, float scale, int window, int pos_offset) {
+  constexpr int TILE = TB * D * 2;  // bytes of a [64][D] bf16 tile
+  constexpr int NP = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sp = smem_raw + (base - raw);
+  const uint32_t qs = base, dos = base + TILE;
+  const uint32_t kv_ring = base + 2 * TILE;  // stage s: K, then V
+  float* row_lse = reinterpret_cast<float*>(sp + 6 * TILE);
+  float* row_delta = row_lse + TB;
+  int* ks_seg = reinterpret_cast<int*>(row_delta + TB);  // [2][TB]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TB;  // longest rows first
+  const int b = bh / h;
+  const int kvh = (bh % h) / (h / hkv);
+  const size_t q_off = (size_t)bh * lq * D;
+  const __nv_bfloat16* kb = k + (size_t)(b * hkv + kvh) * lk * D;
+  const __nv_bfloat16* vb = v + (size_t)(b * hkv + kvh) * lk * D;
+  const int p0 = q0 + (M::offset ? pos_offset : 0);
+
+  // the forward's key range (_kv_stream_clamp), as the scalar kernel
+  int k_lo = 0, k_end = M::causal ? min(lk, p0 + TB) : lk;
+  if (M::window) {
+    k_lo = max(0, p0 - window + 1);
+    if (!M::causal) k_end = min(lk, p0 + TB - 1 + window);
+  }
+  k_end = max(k_end, 0);
+  const int kt_lo = k_lo / TB, kt_end = (k_end + TB - 1) / TB;
+
+  auto stage_kv = [&](int s, int kt) {
+    load_tile<D>(kv_ring + 2 * s * TILE, kb, kt * TB, lk);
+    load_tile<D>(kv_ring + (2 * s + 1) * TILE, vb, kt * TB, lk);
+    if (M::segs && tid < TB) {
+      const int kp = kt * TB + tid;
+      ks_seg[s * TB + tid] = kp < lk ? k_seg[(size_t)b * lk + kp] : -1;
+    }
+  };
+  load_tile<D>(qs, q + q_off, q0, lq);
+  load_tile<D>(dos, dout + q_off, q0, lq);
+  if (kt_lo < kt_end) stage_kv(0, kt_lo);
+  cp_async_commit();
+
+  {  // delta = rowsum(dO * O), two threads a row, while the tiles land
+    const int r = tid / 2, half = tid % 2;
+    const bool in = q0 + r < lq;
+    float sum = 0.f;
+    if (in) {
+      const size_t at = q_off + (size_t)(q0 + r) * D + half * (D / 2);
+      const uint4* orow = reinterpret_cast<const uint4*>(o + at);
+      const uint4* grow = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+      for (int e = 0; e < D / 16; ++e) sum += dot8(orow[e], grow[e]);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      row_delta[r] = sum;
+      // rows past lq: P = exp2(s - 1e30) = 0
+      row_lse[r] = in ? lse_log2(lse[(size_t)bh * lq + q0 + r]) : 1e30f;
+      if (in) delta[(size_t)bh * lq + q0 + r] = sum;
+    }
+  }
+  __syncthreads();
+  const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  float lse2[2], dlt[2];
+  int qseg[2] = {-1, -1};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 8 * rr;
+    lse2[rr] = row_lse[r];
+    dlt[rr] = row_delta[r];
+    if (M::segs && q0 + r < lq) qseg[rr] = q_seg[(size_t)b * lq + q0 + r];
+  }
+
+  float acc[NP][32];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  const float slog = scale * LOG2E;
+  for (int kt = kt_lo; kt < kt_end; ++kt) {
+    const int s = (kt - kt_lo) & 1;
+    const uint32_t ks = kv_ring + 2 * s * TILE, vs = ks + TILE;
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile kt landed; stage s ^ 1's readers are done
+    if (kt + 1 < kt_end) stage_kv(s ^ 1, kt + 1);
+    cp_async_commit();
+
+    float sacc[32], pacc[32];
+    wgmma_fence();
+    product_ss<D, 32>(sacc, qs, ks);   // S = Q K^T
+    product_ss<D, 32>(pacc, dos, vs);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait_all();
+    keep(sacc);
+    keep(pacc);
+
+    const int k0 = kt * TB;
+    uint32_t frag[4][4];
+    if (k0 + TB > lk || straddles<M>(p0, k0, window))
+      dq_frags<M, true>(sacc, pacc, frag, lse2, dlt, qseg, ks_seg + s * TB,
+                        r0, cq, p0, k0, lk, slog, scale, window);
+    else
+      dq_frags<M, false>(sacc, pacc, frag, lse2, dlt, qseg, ks_seg + s * TB,
+                         r0, cq, p0, k0, lk, slog, scale, window);
+    wgmma_fence();
+    product_rs<NP, 4>(acc, frag, ks);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) keep(acc[pn]);
+  }
+  cp_async_wait_all();  // a block that ran no tile still has copies out
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 8 * rr;
+    if (q0 + r >= lq) continue;
+    TO* row = dq + q_off + (size_t)(q0 + r) * D;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store2(row + 64 * pn + 8 * j + cq, acc[pn][4 * j + 2 * rr],
+               acc[pn][4 * j + 2 * rr + 1]);
+  }
+}
+
+template <typename TO, int D, class M>
+__global__ void __launch_bounds__(WG) flash_bwd_dkv_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, TO* __restrict__ dk,
+    TO* __restrict__ dv, const int* __restrict__ q_seg,
+    const int* __restrict__ k_seg, int h, int hkv, int lq, int lk,
+    float scale, int window, int pos_offset) {
+  constexpr int TILE = TB * D * 2;  // bytes of a [64][D] bf16 tile
+  constexpr int NP = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sp = smem_raw + (base - raw);
+  const uint32_t ks = base, vs = base + TILE;
+  const uint32_t q_ring = base + 2 * TILE;  // stage s: Q, then dO
+  float* st_lse = reinterpret_cast<float*>(sp + 6 * TILE);  // [2][TB]
+  float* st_delta = st_lse + 2 * TB;                        // [2][TB]
+  int* st_seg = reinterpret_cast<int*>(st_delta + 2 * TB);  // [2][TB]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bkv = blockIdx.x;  // b * hkv + kv head
+  const int k0 = blockIdx.y * TB;  // key tile 0, the longest walk, first
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int group = h / hkv;
+  const size_t kv_off = (size_t)bkv * lk * D;
+  const int off = M::offset ? pos_offset : 0;
+
+  // the q rows that can see a key of the tile (_q_stream_clamp), as the
+  // scalar kernel
+  int q_lo = M::causal ? k0 - off : 0, q_end = lq;
+  if (M::window) {
+    q_end = min(lq, k0 + TB - 1 + window - off);
+    if (!M::causal) q_lo = k0 - window + 1 - off;
+  }
+  q_lo = min(max(q_lo, 0), lq);
+  q_end = max(q_end, 0);
+  const int qt_lo = q_lo / TB;
+  const int nq = max((q_end + TB - 1) / TB - qt_lo, 0);
+  const int steps = group * nq;  // (group member, q tile) pairs
+
+  auto stage_q = [&](int s, int n) {
+    const int q0 = (qt_lo + n % nq) * TB;
+    const size_t qh = (size_t)b * h + kvh * group + n / nq;
+    load_tile<D>(q_ring + 2 * s * TILE, q + qh * lq * D, q0, lq);
+    load_tile<D>(q_ring + (2 * s + 1) * TILE, dout + qh * lq * D, q0, lq);
+    const int t = tid % TB;
+    const bool in = q0 + t < lq;
+    const size_t row = qh * lq + q0 + t;
+    if (tid < TB) {
+      // rows past lq: P = exp2(s - 1e30) = 0
+      st_lse[s * TB + t] = in ? lse_log2(lse[row]) : 1e30f;
+      if (M::segs) st_seg[s * TB + t] = in ? q_seg[(size_t)b * lq + q0 + t] : -1;
+    } else {
+      st_delta[s * TB + t] = in ? delta[row] : 0.f;
+    }
+  };
+  load_tile<D>(ks, k + kv_off, k0, lk);
+  load_tile<D>(vs, v + kv_off, k0, lk);
+  if (steps > 0) stage_q(0, 0);
+  cp_async_commit();
+
+  const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  int kseg[2] = {-1, -1};
+  if (M::segs) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int kp = k0 + r0 + 8 * rr;
+      if (kp < lk) kseg[rr] = k_seg[(size_t)b * lk + kp];
+    }
+  }
+
+  float dk_acc[NP][32], dv_acc[NP][32];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[pn][i] = dv_acc[pn][i] = 0.f;
+  const float slog = scale * LOG2E;
+  for (int n = 0; n < steps; ++n) {
+    const int s = n & 1;
+    const uint32_t qsm = q_ring + 2 * s * TILE, dosm = qsm + TILE;
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // step n landed; stage s ^ 1's readers are done
+    if (n + 1 < steps) stage_q(s ^ 1, n + 1);
+    cp_async_commit();
+
+    // half the q tile at a time: S^T and dP^T of 64 keys x 32 rows take
+    // 16 registers each beside dK and dV's 128 (at d = 128), where a
+    // whole tile's 64 pushed the instances with masks past 255
+    const int p0 = (qt_lo + n % nq) * TB + off;
+    const bool edge = straddles<M>(p0, k0, window);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;  // its first q row in the tile
+      float sacc[16], pacc[16];
+      wgmma_fence();
+      product_ss<D, 16>(sacc, ks, qsm + c0 * 128);   // S^T = K Q^T
+      product_ss<D, 16>(pacc, vs, dosm + c0 * 128);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(sacc);
+      keep(pacc);
+
+      uint32_t pfrag[2][4], dfrag[2][4];
+      const int row = s * TB + c0;
+      if (edge)
+        dkv_frags<M, true, 2>(sacc, pacc, pfrag, dfrag, st_lse + row,
+                              st_delta + row, st_seg + row, kseg, r0, cq,
+                              p0 + c0, k0, slog, scale, window);
+      else
+        dkv_frags<M, false, 2>(sacc, pacc, pfrag, dfrag, st_lse + row,
+                               st_delta + row, st_seg + row, kseg, r0, cq,
+                               p0 + c0, k0, slog, scale, window);
+      wgmma_fence();
+      product_rs<NP, 2>(dv_acc, pfrag, dosm + c0 * 128);  // dV += P^T dO
+      product_rs<NP, 2>(dk_acc, dfrag, qsm + c0 * 128);   // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) {
+        keep(dk_acc[pn]);
+        keep(dv_acc[pn]);
+      }
+    }
+  }
+  cp_async_wait_all();  // a block that ran no step still has copies out
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 8 * rr;
+    if (k0 + r >= lk) continue;
+    TO* krow = dk + kv_off + (size_t)(k0 + r) * D;
+    TO* vrow = dv + kv_off + (size_t)(k0 + r) * D;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * pn + 8 * j + cq, i = 4 * j + 2 * rr;
+        store2(krow + c, dk_acc[pn][i], dk_acc[pn][i + 1]);
+        store2(vrow + c, dv_acc[pn][i], dv_acc[pn][i + 1]);
+      }
+  }
+}
+
+template <bool DKV, int D, typename TO, class M>
+int launch_tc(const edl_bwd::Args& a) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static bool configured = false;
+  using bf = __nv_bfloat16;
+  if constexpr (DKV) {
+    int err = set_smem(flash_bwd_dkv_tc<TO, D, M>, smem, &configured);
+    if (err) return err;
+    dim3 grid(a.b * a.hkv, (a.lk + TB - 1) / TB);
+    flash_bwd_dkv_tc<TO, D, M><<<grid, WG, smem, a.stream>>>(
+        static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+        static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<TO*>(a.dk), static_cast<TO*>(a.dv), a.q_seg, a.k_seg,
+        a.h, a.hkv, a.lq, a.lk, a.scale, a.window, a.pos_offset);
+  } else {
+    int err = set_smem(flash_bwd_dq_tc<TO, D, M>, smem, &configured);
+    if (err) return err;
+    dim3 grid(a.b * a.h, (a.lq + TB - 1) / TB);
+    flash_bwd_dq_tc<TO, D, M><<<grid, WG, smem, a.stream>>>(
+        static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+        static_cast<const bf*>(a.v), static_cast<const bf*>(a.o),
+        static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<TO*>(a.dq), static_cast<float*>(a.delta), a.q_seg,
+        a.k_seg, a.h, a.hkv, a.lq, a.lk, a.scale, a.window, a.pos_offset);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The runtime mask flags -> the instance compiled for them.
+template <bool DKV, int D, typename TO, bool... B>
+struct MaskDispatch {
+  static int run(const edl_bwd::Args& a) {
+    return launch_tc<DKV, D, TO, Masks<B...>>(a);
+  }
+  template <typename... R>
+  static int run(const edl_bwd::Args& a, bool x, R... rest) {
+    return x ? MaskDispatch<DKV, D, TO, B..., true>::run(a, rest...)
+             : MaskDispatch<DKV, D, TO, B..., false>::run(a, rest...);
+  }
+};
+
+}  // namespace
+
+#define EDL_TC_PART(DKV, D, F32)                                          \
+  namespace edl_bwd {                                                     \
+  template <>                                                             \
+  int launch_part<DKV, D, F32>(const Args& a) {                           \
+    using TO = std::conditional_t<F32, float, __nv_bfloat16>;             \
+    return MaskDispatch<DKV, D, TO>::run(a, a.causal != 0, a.window > 0,  \
+                                         a.q_seg != nullptr,              \
+                                         a.pos_offset != 0);              \
+  }                                                                       \
+  }
+#if EDL_PART == 1
+EDL_TC_PART(false, 64, false)
+#elif EDL_PART == 2
+EDL_TC_PART(false, 64, true)
+#elif EDL_PART == 3
+EDL_TC_PART(false, 128, false)
+#elif EDL_PART == 4
+EDL_TC_PART(false, 128, true)
+#elif EDL_PART == 5
+EDL_TC_PART(true, 64, false)
+#elif EDL_PART == 6
+EDL_TC_PART(true, 64, true)
+#elif EDL_PART == 7
+EDL_TC_PART(true, 128, false)
+#elif EDL_PART == 8
+EDL_TC_PART(true, 128, true)
+#endif
+#undef EDL_TC_PART
+
+#endif  // EDL_PART > 0

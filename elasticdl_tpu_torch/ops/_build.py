@@ -9,7 +9,10 @@ The build happens at first use, into `_build/` beside this package's
 sources (listed in .gitignore). A library's file name carries a hash of
 its source, the shared headers (`csrc/*.cuh`) and the flags, so an
 edited kernel is rebuilt and a stale one is never loaded. `build()`
-starts one nvcc per source, all at once, and waits for them together.
+starts one nvcc per source, all at once, and waits for them together. A
+source named in PARTS is compiled as several objects, one nvcc each with
+`-DEDL_PART=<i>` (each holding a share of its kernel instances), all
+started with the rest, and linked into its one library.
 """
 
 import ctypes
@@ -27,8 +30,11 @@ SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "embedding_gather",
            "row_update", "optimizer_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# source -> number of parts (csrc/flash_bwd.cu: part 0 the entry points
+# and fp32 kernels, parts 1-8 the bf16 tensor-core instances)
+PARTS = {"flash_bwd": 9}
 
 _lock = threading.Lock()
 _libs = {}
@@ -55,6 +61,7 @@ def library_path(name):
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(b"parts %d" % PARTS.get(name, 0))
     return os.path.join(
         BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:16])
     )
@@ -62,35 +69,62 @@ def library_path(name):
 
 def build(names=SOURCES):
     """Compile every named source whose library is missing, one nvcc
-    process each, all started together. Returns {name: {"seconds": s,
-    "log": nvcc's stderr (ptxas register and shared-memory report)}};
-    a library already built reports 0 seconds. Raises RuntimeError with
-    nvcc's output when a build fails."""
+    process per source (per part for a source in PARTS), all started
+    together. Returns {name: {"seconds": s, "log": nvcc's output
+    (ptxas register, spill and shared-memory report)}}; a library
+    already built reports 0 seconds. Raises RuntimeError with nvcc's
+    output when a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    jobs = {}  # name -> [(process, output file)]
     report = {}
+    t0 = time.perf_counter()
     for name in names:
         target = library_path(name)
         if os.path.exists(target):
             report[name] = {"seconds": 0.0, "log": ""}
             continue
-        tmp = "%s.%d.tmp" % (target, os.getpid())
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True), tmp, target, time.perf_counter())
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        stem = "%s.%d" % (target, os.getpid())
+        if name in PARTS:
+            cmds = [([nvcc, *NVCC_FLAGS, "-c", "-DEDL_PART=%d" % i, "-o",
+                      "%s.part%d.o" % (stem, i), src],
+                     "%s.part%d.o" % (stem, i))
+                    for i in range(PARTS[name])]
+        else:
+            cmds = [([nvcc, *NVCC_FLAGS, "-shared", "-o", stem + ".tmp",
+                      src], stem + ".tmp")]
+        jobs[name] = [(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            out) for cmd, out in cmds]
     failures = []
-    for name, (proc, tmp, target, t0) in procs.items():
-        out, err = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append("%s (rc %d):\n%s%s" % (
-                name, proc.returncode, out, err))
+    for name, procs in jobs.items():
+        logs, outs, ok = [], [], True
+        for proc, out in procs:
+            stdout, stderr = proc.communicate()
+            logs.append(stdout + stderr)
+            outs.append(out)
+            if proc.returncode != 0:
+                ok = False
+                failures.append("%s (rc %d):\n%s%s" % (
+                    name, proc.returncode, stdout, stderr))
+        if not ok:
             continue
-        os.replace(tmp, target)
-        report[name] = {"seconds": secs, "log": out + err}
+        target = library_path(name)
+        if name in PARTS:
+            lib_tmp = outs[0].rsplit(".part", 1)[0] + ".tmp"
+            link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *outs],
+                                  capture_output=True, text=True)
+            for out in outs:
+                os.remove(out)
+            if link.returncode != 0:
+                failures.append("%s link (rc %d):\n%s%s" % (
+                    name, link.returncode, link.stdout, link.stderr))
+                continue
+            outs = [lib_tmp]
+        os.replace(outs[0], target)
+        report[name] = {"seconds": time.perf_counter() - t0,
+                        "log": "".join(logs)}
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return report

@@ -9,9 +9,12 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 
 * `flash_forward` -> csrc/flash_fwd.cu, the port of `_flash_kernel`;
 * `flash_backward_dq` / `flash_backward_dkv` -> csrc/flash_bwd.cu, the
-  ports of `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, joined
-  by `flash_backward` and wrapped with the forward in
-  `FlashAttentionFunction` (the JAX package's `jax.custom_vjp`);
+  ports of `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (wgmma on
+  tensor cores for bf16, with P and dS rounded to bf16 before the
+  second products as the TPU kernels' `_mxu_cast` does; scalar fp32
+  kernels for fp32), joined by `flash_backward` and wrapped with the
+  forward in `FlashAttentionFunction` (the JAX package's
+  `jax.custom_vjp`);
 * `paged_decode_partials` -> csrc/paged_decode.cu, the port of
   `_paged_kernel`: its split kernel (table walk cut across blocks, then
   merged) for up to SPLIT_MAX_ROWS query rows per (sequence, kv head),
@@ -54,6 +57,7 @@ from elasticdl_tpu_torch.ops.dispatch import on_kernel_path
 # exp(m - m_new) into NaN for a row that has seen no key yet.
 _NEG_INF = -1e30
 NEG_INF = _NEG_INF
+_LOG2E = 1.4426950408889634
 
 
 def _variant(base, window=None, segments=False, offset=False):
@@ -490,58 +494,87 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def _recompute_probs(q, k, lse, causal, scale, window=None, q_seg=None,
-                     k_seg=None, pos_offset=0):
+                     k_seg=None, pos_offset=0, exp2=False):
     """P = exp(q k^T * scale - lse) in fp32 over the expanded kv heads,
     exactly 0 at masked pairs and on rows whose lse is a sentinel: the
     +1e30 of an empty row, or the -1e30 class the TPU kernels give a row
-    the pair form masks fully (their backward zeroes it, :1277)."""
+    the pair form masks fully (their backward zeroes it, :1277).
+    `exp2`: as the Pallas kernels and the card's bf16 kernels form it,
+    exp2(q k^T * (scale * log2 e) - lse * log2 e), so that P rounds to
+    the same bf16 value where it is rounded (the two forms can differ
+    in the last bits of fp32)."""
     f32 = torch.float32
     kf = expand_kv(k, q.shape[1]).to(f32)
-    s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
+    s = torch.matmul(q.to(f32), kf.transpose(-1, -2))
     lse = lse.to(f32)[..., None]
+    if exp2:
+        p = torch.exp2(s * (scale * _LOG2E) - lse * _LOG2E)
+    else:
+        p = torch.exp(s * scale - lse)
     keep = _visible(q.shape[2], k.shape[2], causal, window, q_seg, k_seg,
                     device=q.device, pos_offset=pos_offset) & (
                         lse > 0.5 * _NEG_INF)
-    return torch.where(keep, torch.exp(s - lse), torch.zeros_like(s))
+    return torch.where(keep, p, torch.zeros_like(s))
+
+
+def _operand_round(x, operand_dtype, bf16_operands):
+    """The JAX package's `_mxu_cast` (:927) with `bf16_operands`: an fp32
+    P or dS rounded to bf16 (and read back as fp32) when the other
+    operand of its product is bf16, as the TPU kernels and the card's
+    bf16 kernels multiply them; unchanged otherwise."""
+    if bf16_operands and operand_dtype == torch.bfloat16:
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
 
 
 def flash_backward_dq_plain(q, k, v, out, lse, do, causal=False, scale=None,
                             window=None, q_seg=None, k_seg=None,
-                            pos_offset=0, grad_dtype=None):
+                            pos_offset=0, grad_dtype=None,
+                            bf16_operands=False):
     """Plain PyTorch version of the dq kernel: (dq in `grad_dtype` or
     q.dtype, delta fp32 [b, h, lq]). delta = rowsum(dO * O) in fp32 (the
     JAX package's `_flash_backward` :1383), dS = P * (dP - delta) *
     scale with dP = dO V^T, dQ = dS K (the dense recompute at
-    :1731-1769)."""
+    :1731-1769). `bf16_operands`: with bf16 inputs, dS is rounded to
+    bf16 before dS K, as the Pallas kernel and the card's kernel do;
+    the default keeps it fp32, as the dense recompute does."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     f32 = torch.float32
     p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg,
-                         pos_offset)
+                         pos_offset,
+                         exp2=bf16_operands and q.dtype == torch.bfloat16)
     gf = do.to(f32)
     delta = (gf * out.to(f32)).sum(-1)
     dp = torch.matmul(gf, expand_kv(v, q.shape[1]).to(f32).transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
+    ds = _operand_round(p * (dp - delta[..., None]) * scale, k.dtype,
+                        bf16_operands)
     dq = torch.matmul(ds, expand_kv(k, q.shape[1]).to(f32))
     return dq.to(grad_dtype or q.dtype), delta
 
 
 def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
                              scale=None, window=None, q_seg=None,
-                             k_seg=None, pos_offset=0, grad_dtype=None):
+                             k_seg=None, pos_offset=0, grad_dtype=None,
+                             bf16_operands=False):
     """Plain PyTorch version of the dk/dv kernel: (dk, dv) in
     `grad_dtype` or the k/v dtypes, group-summed to the kv head count
     under GQA. dV = P^T dO, dK = dS^T Q, with `delta` as the dq kernel
-    returns it."""
+    returns it. `bf16_operands`: with bf16 inputs, P and dS are rounded
+    to bf16 before those two products (dS formed from the unrounded P),
+    as the Pallas kernel and the card's kernel do."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     b, h, _lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     f32 = torch.float32
     p = _recompute_probs(q, k, lse, causal, scale, window, q_seg, k_seg,
-                         pos_offset)
+                         pos_offset,
+                         exp2=bf16_operands and q.dtype == torch.bfloat16)
     gf = do.to(f32)
-    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dv = torch.matmul(
+        _operand_round(p, do.dtype, bf16_operands).transpose(-1, -2), gf)
     dp = torch.matmul(gf, expand_kv(v, h).to(f32).transpose(-1, -2))
-    ds = p * (dp - delta.to(f32)[..., None]) * scale
+    ds = _operand_round(p * (dp - delta.to(f32)[..., None]) * scale,
+                        q.dtype, bf16_operands)
     dk = torch.matmul(ds.transpose(-1, -2), q.to(f32))
     if h != hkv:
         dk = dk.reshape(b, hkv, h // hkv, lk, d).sum(2)
@@ -551,13 +584,16 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=False,
 
 def flash_backward_plain(q, k, v, out, lse, do, causal=False, scale=None,
                          window=None, q_seg=None, k_seg=None, pos_offset=0,
-                         grad_dtype=None):
+                         grad_dtype=None, bf16_operands=False):
     """Plain PyTorch version of the flash backward: (dq, dk, dv) in
     `grad_dtype` or the input dtypes; the counterpart of
-    `attention_backward_lse`'s dense recompute in the JAX package."""
+    `attention_backward_lse`'s dense recompute in the JAX package, or,
+    with `bf16_operands`, of its Pallas kernels' rounding (P and dS
+    rounded to bf16 before the second products for bf16 inputs)."""
     group_size(q, k)
     masks = dict(window=window, q_seg=q_seg, k_seg=k_seg,
-                 pos_offset=pos_offset, grad_dtype=grad_dtype)
+                 pos_offset=pos_offset, grad_dtype=grad_dtype,
+                 bf16_operands=bf16_operands)
     dq, delta = flash_backward_dq_plain(q, k, v, out, lse, do, causal=causal,
                                         scale=scale, **masks)
     dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=causal,
@@ -573,7 +609,10 @@ def flash_backward(q, k, v, out, lse, do, causal=False, scale=None,
     dk and dv come back group-summed in the kv head count. CUDA tensors
     run the two csrc/flash_bwd.cu kernels (dq first: it also writes
     delta, which the dk/dv kernel reads), CPU tensors the plain
-    version."""
+    version. For bf16 inputs the kernels multiply on tensor cores with P
+    and dS rounded to bf16 before the second products, as the TPU
+    kernels do (`flash_backward_plain(..., bf16_operands=True)`); fp32
+    inputs run fp32 kernels with no such rounding."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
     masks = dict(window=window, q_seg=q_seg, k_seg=k_seg,
@@ -604,6 +643,12 @@ def _bwd_args(name, q, k, v, do, lse, extra=()):
     return b, h, hkv, lq, lk, d
 
 
+def _aligned16(t):
+    """`t`, or a copy of it where its data does not start on a 16-byte
+    boundary (the bf16 backward kernels copy rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _grad_f32(grad_dtype, dtype):
     """The kernels' grad_f32 flag: gradients in fp32 (1) or in the
     input dtype (0); they write no other dtype."""
@@ -631,7 +676,8 @@ def flash_backward_dq(q, k, v, out, lse, do, causal=False, scale=None,
                                        q_seg=q_seg, k_seg=k_seg,
                                        pos_offset=pos_offset,
                                        grad_dtype=grad_dtype)
-    q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    q, k, v, out, do = (_aligned16(t.contiguous())
+                        for t in (q, k, v, out, do))
     lse = lse.contiguous()
     b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
                                      (out,))
@@ -670,7 +716,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
                                         window=window, q_seg=q_seg,
                                         k_seg=k_seg, pos_offset=pos_offset,
                                         grad_dtype=grad_dtype)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (_aligned16(t.contiguous()) for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     b, h, hkv, lq, lk, d = _bwd_args("flash_bwd_dkv", q, k, v, do, lse)
     if delta.shape != lse.shape or delta.dtype != torch.float32:

@@ -1,5 +1,5 @@
-"""Device time of the unmasked flash kernels (A, C, D) on one card, for
-comparing two checkouts of the port in one call.
+"""Device time of the flash kernels (A, C, D) on one card, for comparing
+two checkouts of the port in one call.
 
     PYTHONPATH=<checkout> python3 <this file> [label]
 
@@ -7,20 +7,34 @@ imports `elasticdl_tpu_torch` from PYTHONPATH (so the same file times
 any checkout whose wrappers take these arguments), builds its kernels,
 and prints one JSON line: each case's device ms, the median of 5 rounds
 of 50 CUDA-graph replays between CUDA events, with the card's name and
-power limit. Cases: A at the serving path's largest prefill bucket (b 1,
-h 8, l 512) and at the training shape (b 8, h 8, l 1024), C and D at the
-training shape; causal, bf16, d 128, inputs from a seeded generator.
+power limit. Cases, bf16, d 128, inputs from seeded generators:
+
+* A at the serving path's largest prefill bucket (b 1, h 8, l 512) and
+  at the training shape (b 8, h 8, l 1024), causal;
+* C and D at the training shape, causal: unmasked, window 256 (the
+  windowed flagship), and the segments of pack_sequences over documents
+  of 64-1024 tokens (the packed flagship);
+* C and D at the windowed ring's one-shard-back rotation (b 2, h 8,
+  1024-row shards, window 1536, pos_offset 1024, not causal, fp32
+  gradients, the ring's global lse);
+* aten's flash-attention backward (dq, dk and dv in one call) at the
+  training shape, causal: the yardstick of C + D, used nowhere in the
+  port.
 """
 
 import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
+from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.ops import attention as att
 
 ROUNDS, REPLAYS = 5, 50
+WINDOW = 256
+RING_WINDOW, RING_SHARD = 1536, 1024
 
 
 def _replay_ms(fn):
@@ -44,6 +58,35 @@ def _replay_ms(fn):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / REPLAYS)
     return sorted(times)[ROUNDS // 2]
+
+
+def _packed_segments(b, l, seed=5):
+    """[b, l] int32 ids of pack_sequences over documents of 64-1024
+    tokens drawn from `seed`, on the card."""
+    rs = np.random.RandomState(seed)
+    docs = [np.zeros(rs.randint(64, 1025), np.int64)
+            for _ in range(3 * b * l // 544 + 1)]
+    seg = packing.pack_sequences(docs, l)[1][:b]
+    return torch.as_tensor(seg, dtype=torch.int32).cuda()
+
+
+def _backward_cases(out, name, q, k, v, do, **kw):
+    """C and D of one variant: device ms of each into `out`."""
+    o, lse = att.flash_forward(q, k, v, **kw)
+    _dq, delta = att.flash_backward_dq(q, k, v, o, lse, do, **kw)
+    out["flash_bwd_dq_" + name] = _replay_ms(
+        lambda: att.flash_backward_dq(q, k, v, o, lse, do, **kw))
+    out["flash_bwd_dkv_" + name] = _replay_ms(
+        lambda: att.flash_backward_dkv(q, k, v, do, lse, delta, **kw))
+
+
+def _aten_backward_ms(q, k, v, do):
+    aten = torch.ops.aten
+    fwd = aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False)
+    o, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    backward = aten._scaled_dot_product_flash_attention_backward
+    return _replay_ms(lambda: backward(do, q, k, v, o, lse, cq, ck, mq, mk,
+                                       0.0, True, seed, offset))
 
 
 def main(label):
@@ -70,6 +113,25 @@ def main(label):
     out["flash_bwd_dkv_b8_l1024"] = _replay_ms(
         lambda: att.flash_backward_dkv(q, k, v, do, lse, delta,
                                        causal=True))
+    out["aten_flash_bwd_b8_l1024"] = _aten_backward_ms(q, k, v, do)
+    _backward_cases(out, "window_b8_l1024", q, k, v, do, causal=True,
+                    window=WINDOW)
+    seg = _packed_segments(8, 1024)
+    _backward_cases(out, "segments_b8_l1024", q, k, v, do, causal=True,
+                    q_seg=seg, k_seg=seg)
+    # the ring's one-shard-back rotation, with its global lse: this
+    # rotation's merged with the diagonal rotation's
+    q, k, v, do, k2, v2 = (mk(2, RING_SHARD) for _ in range(6))
+    ring = dict(window=RING_WINDOW, pos_offset=RING_SHARD)
+    _o, lse_diag = att.flash_forward(q, k2, v2, causal=True)
+    o, lse = att.attention_forward_lse(q, k, v, **ring)
+    lse = torch.logaddexp(lse, lse_diag)
+    grad = dict(ring, grad_dtype=torch.float32)
+    _dq, delta = att.flash_backward_dq(q, k, v, o, lse, do, **grad)
+    out["flash_bwd_dq_window_offset_b2_l1024"] = _replay_ms(
+        lambda: att.flash_backward_dq(q, k, v, o, lse, do, **grad))
+    out["flash_bwd_dkv_window_offset_b2_l1024"] = _replay_ms(
+        lambda: att.flash_backward_dkv(q, k, v, do, lse, delta, **grad))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
