@@ -9,12 +9,21 @@ repository checkout it sits in. Phases, each of which fails the run:
 2. build every kernel of the serving, training, DLRM and dense-update
    paths from elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu,
    paged_decode.cu, embedding_gather.cu, row_update.cu,
-   optimizer_update.cu; one nvcc per source, all at once, flash_bwd.cu
-   as nine parts linked into one library), and print each flash_bwd
-   instance's registers, spills and shared memory from ptxas's report
-   (no instance may spill);
+   optimizer_update.cu; one nvcc per source or part, all at once,
+   flash_fwd.cu as five parts and flash_bwd.cu as nine, each linked into
+   one library), and print each flash_fwd and flash_bwd instance's
+   registers, spills and shared memory from ptxas's report (no
+   tensor-core or backward instance may spill);
 3. kernel A (flash forward) against its plain PyTorch version at the
-   prefill shapes;
+   prefill shapes, the bf16 kernel against the plain version that
+   scales q in bf16 and rounds P to bf16 as it and the TPU kernel do
+   (bf16_operands=True; so is every bf16 check of A below); then each
+   of the bf16 kernel's 32 instances (d 64 and 128, causal or not,
+   window, segments, pos_offset) at GQA 4/2, ragged l and, without a
+   window, rectangular lq != lk, its lse also within
+   FWD_ROUNDED_TOL_LSE and its out within FWD_ROUNDED_TOL_RMS of the
+   rounded plain version and the unrounded one further away; then a
+   probe of P's bf16 rounding (V = I);
 4. kernel B (paged decode partials) against its plain version at the
    decode shapes: bf16 arenas, then int8 arenas with their fp32 row-scale
    pools (split and tile kernels; GQA, holes, ragged lengths, t = 1 and
@@ -82,9 +91,10 @@ repository checkout it sits in. Phases, each of which fails the run:
    size (a 1,200,000 x 32 fp32 table, the 4096 ids of one column of the
    uniform batch, each rule of F over them deduplicated); kernel G
    against its plain version at 64M, each rule;
-13. kernel timings at the main paths' shapes (CUDA events, graph-replayed
-   for device time; E and F over 26 distinct tables and id columns, as a
-   step issues them, with L2 flushed before each round), beside the
+13. kernel timings at the main paths' shapes (A at the serving and the
+   training shape; CUDA events, graph-replayed for device time; E and F
+   over 26 distinct tables and id columns, as a step issues them, with
+   L2 flushed before each round), beside the
    plain version, a library call where one computes the same function,
    and the bound implied by the card's published peaks;
 14. the mask variants of A, C, D (window, segments, both) and B (window:
@@ -144,6 +154,7 @@ allow_tf32 = False).
 """
 
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -196,6 +207,30 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP = dict(vocab_size=32000, seq_len=1024, embed_dim=1024,
                 num_heads=8, num_layers=8, dtype=torch.bfloat16)
 FLASH_TOL_OUT, FLASH_TOL_LSE = 2e-2, 1e-3
+# the bf16 forward's lse against the plain version that rounds as it
+# does (bf16_operands=True): the two differ only in the order of fp32
+# sums (S, l), while the unrounded plain version's fp32 scale moves the
+# lse by about 0.3% of the largest score (1e-3 to 1e-2 at unit inputs);
+# so within FWD_ROUNDED_TOL_LSE of the rounded version, and
+# FWD_ROUNDED_CLOSER times further from the unrounded one where that
+# one differs by FWD_ROUNDED_APART or more
+FWD_ROUNDED_TOL_LSE = 1e-4
+FWD_ROUNDED_APART = 1e-3
+FWD_ROUNDED_CLOSER = 10
+# the bf16 forward's out against the rounded plain version by
+# rms_rel_err, as rounded_ok holds C and D: the kernel rounds P against
+# each 64-key tile's running max where the plain version rounds it
+# against the row's max, so outputs here and there land a bf16 unit
+# apart and the largest error says little. At most 2.2e-4 over every
+# bf16 check of A in the first card run of this check (an H100 80GB
+# HBM3), the unrounded version 1.94x as far or more (it also scales q
+# in fp32; the probe of check_fwd_rounding reads the kernel's rounded P
+# back). So: within FWD_ROUNDED_TOL_RMS, and FWD_ROUNDED_RMS_CLOSER
+# times closer to the rounded version than to the unrounded one where
+# that one differs by FWD_ROUNDED_RMS_APART or more
+FWD_ROUNDED_TOL_RMS = 5e-4
+FWD_ROUNDED_RMS_APART = 1e-4
+FWD_ROUNDED_RMS_CLOSER = 1.5
 PAGED_TOL_REL = 1e-3
 PAGED_TIMING_SEED = 11  # the paged timings' own generator (time_kernels)
 LOGIT_TOL_REL = 5e-2
@@ -404,25 +439,165 @@ def flash_inputs(gen, b, h, hkv, l, d, dtype):
     return mk(h), mk(hkv), mk(hkv)
 
 
+def flash_fwd_errs(q, k, v, out, lse, causal, masks):
+    """Kernel A's out and lse against its plain version on the same
+    inputs, the one that rounds as the kernel does (bf16_operands=True;
+    the same arithmetic for fp32): {"max_abs_err", "lse_max_abs_err"};
+    for bf16 also out's "rms_rel_err", and the distances of lse and out
+    from the unrounded plain version ("unrounded_lse_max_abs_err",
+    "unrounded_rms_rel_err"). An empty row's lse is +1e30 on both
+    sides."""
+    ref, ref_lse = att.flash_attention_plain(q, k, v, causal=causal,
+                                             bf16_operands=True, **masks)
+    errs = {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+    if q.dtype == torch.bfloat16:
+        e_out, e_lse = att.flash_attention_plain(q, k, v, causal=causal,
+                                                 **masks)
+        errs["rms_rel_err"] = rms_rel_err(out.float(), ref.float())
+        errs["unrounded_lse_max_abs_err"] = (lse - e_lse).abs().max().item()
+        errs["unrounded_rms_rel_err"] = rms_rel_err(out.float(),
+                                                    e_out.float())
+    return errs
+
+
+def fwd_ok(e):
+    """Whether one of flash_fwd_errs's results holds: FLASH_TOL_OUT and
+    FLASH_TOL_LSE, and for bf16 FWD_ROUNDED_TOL_LSE with the unrounded
+    version FWD_ROUNDED_CLOSER times further where it differs by
+    FWD_ROUNDED_APART or more, and out's FWD_ROUNDED_TOL_RMS with the
+    unrounded version FWD_ROUNDED_RMS_CLOSER times further where it
+    differs by FWD_ROUNDED_RMS_APART or more."""
+    ok = (e["max_abs_err"] <= FLASH_TOL_OUT
+          and e["lse_max_abs_err"] <= FLASH_TOL_LSE)
+    if "unrounded_lse_max_abs_err" in e:
+        apart = e["unrounded_lse_max_abs_err"]
+        ok = ok and e["lse_max_abs_err"] <= FWD_ROUNDED_TOL_LSE and (
+            apart < FWD_ROUNDED_APART
+            or e["lse_max_abs_err"] * FWD_ROUNDED_CLOSER <= apart)
+        rms, rms_apart = e["rms_rel_err"], e["unrounded_rms_rel_err"]
+        ok = ok and rms <= FWD_ROUNDED_TOL_RMS and (
+            rms_apart < FWD_ROUNDED_RMS_APART
+            or rms * FWD_ROUNDED_RMS_CLOSER <= rms_apart)
+    return ok
+
+
 def check_flash(gen):
-    """Kernel A against flash_attention_plain at the prefill shapes."""
-    worst_out = worst_lse = 0.0
+    """Kernel A against flash_attention_plain at the prefill shapes
+    (fwd_ok). Returns the worst errors."""
+    worst = {}
     cases = [(8, 8, 64), (8, 8, 200), (8, 8, 1024), (8, 2, 200)]
     for h, hkv, l in cases:
         q, k, v = flash_inputs(gen, 1, h, hkv, l, 128, torch.bfloat16)
         out, lse = att.flash_forward(q, k, v, causal=True)
         torch.cuda.synchronize()
-        ref, ref_lse = att.flash_attention_plain(q, k, v, causal=True)
-        e_out = (out.float() - ref.float()).abs().max().item()
-        e_lse = (lse - ref_lse).abs().max().item()
-        log("flash h=%d hkv=%d lq=%d bf16: out err %.3g, lse err %.3g"
-            % (h, hkv, l, e_out, e_lse))
+        e = flash_fwd_errs(q, k, v, out, lse, True, {})
+        log("flash h=%d hkv=%d lq=%d bf16: %s" % (h, hkv, l, e))
         check(torch.isfinite(out.float()).all().item(), "flash: non-finite")
-        check(e_out <= FLASH_TOL_OUT and e_lse <= FLASH_TOL_LSE,
-              "flash kernel disagrees with its plain version at h=%d "
-              "hkv=%d lq=%d: %.3g / %.3g" % (h, hkv, l, e_out, e_lse))
-        worst_out, worst_lse = max(worst_out, e_out), max(worst_lse, e_lse)
-    return worst_out, worst_lse
+        check(fwd_ok(e), "flash kernel disagrees with its plain version at "
+              "h=%d hkv=%d lq=%d: %s" % (h, hkv, l, e))
+        _worst(worst, "flash_fwd", e)
+    return worst["flash_fwd"]
+
+
+def check_fwd_rounding(gen):
+    """A probe of the bf16 kernel A's rounding of P: with one key tile
+    (lq = lk = 64 <= d, so the running max is the row max) and V = I,
+    out = bf16(bf16(P) / l) is the kernel's rounded P read back, held in
+    bf16 units to the rounded plain version's out, causal or not: at
+    most a thousandth of the visible elements (those at a bf16 rounding
+    midpoint) one unit apart, none further. The same out with P kept in
+    fp32, bf16(P / l), lies a unit apart at a twentieth of them or more,
+    so the probe tells the two apart. Returns a summary."""
+    bf16 = torch.bfloat16
+    summary = {"elements": 0, "apart": 0, "max_units": 0,
+               "fp32_p_apart": 0}
+    for causal in (False, True):
+        l, d = 64, 128
+        q, k, _v = flash_inputs(gen, 1, 1, 1, l, d, bf16)
+        v = torch.zeros(1, 1, l, d, device="cuda", dtype=bf16)
+        v[0, 0, torch.arange(l), torch.arange(l)] = 1
+        out, _lse = att.flash_forward(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref, _lse, p, lsum = att._flash_plain_f32(
+            q, k, v, causal, d ** -0.5, None, None, None, 0, True)
+        fp32_p = p / lsum.clamp(min=1e-30)[..., None]
+        visible = p > 0
+
+        def units(a, b):
+            # out >= 0: bf16 bit patterns count bf16 units
+            return (a[..., :l].to(bf16).view(torch.int16).int()
+                    - b[..., :l].to(bf16).view(torch.int16).int()).abs()[
+                        visible]
+
+        apart = units(out, ref)
+        summary["elements"] += int(visible.sum().item())
+        summary["apart"] += int((apart > 0).sum().item())
+        summary["max_units"] = max(summary["max_units"],
+                                   int(apart.max().item()))
+        summary["fp32_p_apart"] += int((units(out, fp32_p) > 0).sum().item())
+        check(torch.equal(out[..., l:], torch.zeros_like(out[..., l:])),
+              "the probe's output columns past lk are not 0")
+    log("flash fwd rounding probe: %s" % summary)
+    check(summary["max_units"] <= 1
+          and summary["apart"] * 1000 <= summary["elements"],
+          "the bf16 forward rounds P otherwise than its plain version: %s"
+          % summary)
+    check(summary["fp32_p_apart"] * 20 >= summary["elements"],
+          "the forward's probe cannot tell a rounded P from an fp32 one: "
+          "%s" % summary)
+    return summary
+
+
+def check_flash_instances(gen):
+    """Each of the bf16 kernel A's 32 instances (d 64 and 128; causal or
+    not; window 37 or none; segment ids or none; pos_offset 0, or -50
+    causal (its first 50 rows see no key) and 77 not causal) against the
+    rounded plain version (fwd_ok): b 2, h 4 over 2 kv heads, lq 200
+    (ragged against the 64-row tiles), lk 200 under a window, else 136
+    or 333 (rectangular; segments as a (q_seg, k_seg) pair, some rows
+    then see no key). The first case also with a q view that does not
+    start on 16 bytes (the wrapper copies it) and launched twice, equal
+    bit for bit. Returns {"instances", "worst": {variant: worst errors}}."""
+    bf16 = torch.bfloat16
+    worst, n = {}, 0
+    for d, causal, window, segs, shifted in itertools.product(
+            (64, 128), (False, True), (None, 37), (False, True),
+            (False, True)):
+        offset = (-50 if causal else 77) if shifted else 0
+        lq = 200
+        lk = lq if window else (136 if segs else 333)
+        q = flash_inputs(gen, 2, 4, 2, lq, d, bf16)[0]
+        _q, k, v = flash_inputs(gen, 2, 4, 2, lk, d, bf16)
+        masks = {"window": window, "pos_offset": offset}
+        if segs:
+            masks.update(q_seg=packed_segments(gen, 2, lq).cuda(),
+                         k_seg=packed_segments(gen, 2, lk).cuda())
+        if n == 0:
+            flat = torch.empty(q.numel() + 1, device="cuda", dtype=bf16)
+            flat[1:] = q.flatten()
+            q = flat[1:].view(q.shape)
+            check(q.data_ptr() % 16 != 0, "the probe view is aligned")
+        out, lse = att.flash_forward(q, k, v, causal=causal, **masks)
+        if n == 0:
+            again = att.flash_forward(q, k, v, causal=causal, **masks)
+            check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                  "the bf16 forward differs between two launches")
+        torch.cuda.synchronize()
+        e = flash_fwd_errs(q, k, v, out, lse, causal, masks)
+        variant = att._variant("flash_fwd", window, segs, shifted)
+        where = ("d=%d causal=%s window=%s segments=%s offset=%d lq=%d "
+                 "lk=%d" % (d, causal, window, segs, offset, lq, lk))
+        log("flash fwd instance %s: %s" % (where, e))
+        check(torch.isfinite(out.float()).all().item(),
+              "%s: non-finite output at %s" % (variant, where))
+        check(fwd_ok(e), "%s disagrees with its rounded plain version at "
+              "%s: %s" % (variant, where, e))
+        _worst(worst, variant, e)
+        n += 1
+    check(n == 32, "checked %d of the 32 instances" % n)
+    return {"instances": n, "misaligned_q_and_repeat": True,
+            "worst": worst}
 
 
 def paged_inputs(gen, b=8, hkv=8, group=1, t=1, d=128, bs=16, m=64,
@@ -758,16 +933,10 @@ SM_REGISTERS, SM_THREADS = 65536, 2048
 SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
 
 
-def flash_bwd_build_report(log):
-    """csrc/flash_bwd.cu's kernel instances from ptxas's report in its
-    build log: {"<kernel> d<D> <output dtype>": {"registers": {mask
-    instance ("CWSO" flags: causal, window, segments, offset, or "-" for
-    the fp32 kernels' runtime masks): registers}, "spill_bytes": spill
-    stores and loads summed over the instances, "smem_bytes": a block's
-    dynamic shared memory, "blocks_per_sm": what the most registers and
-    the shared memory let one SM hold}}."""
-    lib = att._bwd_lib()
-    groups, entry, spill = {}, None, 0
+def ptxas_entries(log):
+    """[(mangled kernel name, registers, spill bytes)] from ptxas's
+    report in a build log."""
+    entries, entry, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -779,25 +948,27 @@ def flash_bwd_build_report(log):
             spill = int(m.group(1)) + int(m.group(2))
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if not (m and entry and "flash_bwd_d" in entry):
+        if m and entry:
+            entries.append((entry, int(m.group(1)), spill))
+            entry, spill = None, 0
+    return entries
+
+
+def _build_groups(entries, group_of):
+    """{group: {"registers": {mask instance: registers}, "spill_bytes",
+    "smem_bytes", "threads", "blocks_per_sm"}} of the entries that
+    `group_of` maps to (key, instance, smem bytes, threads), or None."""
+    groups = {}
+    for entry, regs, spill in entries:
+        found = group_of(entry)
+        if found is None:
             continue
-        dkv = "flash_bwd_dkv" in entry
-        tc = "_tcI" in entry
-        d = int(re.search(r"Li(64|128)E", entry).group(1))
-        out = ("fp32 in and out" if not tc else
-               "bf16 in, fp32 out" if "_tcIf" in entry else "bf16")
-        flags = re.search(r"MasksILb(\d)ELb(\d)ELb(\d)ELb(\d)E", entry)
-        key = "%s%s d%d %s" % ("flash_bwd_dkv" if dkv else "flash_bwd_dq",
-                               "_tc" if tc else "", d, out)
-        group = groups.setdefault(key, {
-            "registers": {}, "spill_bytes": 0,
-            "smem_bytes": lib.edl_flash_bwd_smem_bytes(int(dkv),
-                                                       int(tc), d),
-            "threads": 128 if tc else 256})
-        group["registers"]["".join(flags.groups()) if flags else "-"] = int(
-            m.group(1))
+        key, instance, smem, threads = found
+        group = groups.setdefault(key, {"registers": {}, "spill_bytes": 0,
+                                        "smem_bytes": smem,
+                                        "threads": threads})
+        group["registers"][instance] = regs
         group["spill_bytes"] += spill
-        entry, spill = None, 0
     for group in groups.values():
         regs = -(-max(group["registers"].values()) // 8) * 8
         group["blocks_per_sm"] = min(
@@ -805,6 +976,65 @@ def flash_bwd_build_report(log):
             SM_SMEM // (group["smem_bytes"] + BLOCK_SMEM_RESERVED),
             SM_THREADS // group["threads"], 32)
     return groups
+
+
+def _mask_flags(entry):
+    """The "CWSO" flags (causal, window, segments, offset) of a bf16
+    instance's Masks template argument, or None."""
+    flags = re.search(r"MasksILb(\d)ELb(\d)ELb(\d)ELb(\d)E", entry)
+    return "".join(flags.groups()) if flags else None
+
+
+def flash_bwd_build_report(log):
+    """csrc/flash_bwd.cu's kernel instances from ptxas's report in its
+    build log: {"<kernel> d<D> <output dtype>": {"registers": {mask
+    instance ("CWSO" flags: causal, window, segments, offset, or "-" for
+    the fp32 kernels' runtime masks): registers}, "spill_bytes": spill
+    stores and loads summed over the instances, "smem_bytes": a block's
+    dynamic shared memory, "blocks_per_sm": what the most registers and
+    the shared memory let one SM hold}}."""
+    lib = att._bwd_lib()
+
+    def group_of(entry):
+        if "flash_bwd_d" not in entry:
+            return None
+        dkv = "flash_bwd_dkv" in entry
+        tc = "_tcI" in entry
+        d = int(re.search(r"Li(64|128)E", entry).group(1))
+        out = ("fp32 in and out" if not tc else
+               "bf16 in, fp32 out" if "_tcIf" in entry else "bf16")
+        key = "%s%s d%d %s" % ("flash_bwd_dkv" if dkv else "flash_bwd_dq",
+                               "_tc" if tc else "", d, out)
+        return (key, _mask_flags(entry) or "-",
+                lib.edl_flash_bwd_smem_bytes(int(dkv), int(tc), d),
+                128 if tc else 256)
+
+    return _build_groups(ptxas_entries(log), group_of)
+
+
+def flash_fwd_build_report(log):
+    """csrc/flash_fwd.cu's kernel instances, as flash_bwd_build_report:
+    "flash_fwd_tc d<D> bf16" by mask instance ("CWSO" flags), and the
+    fp32 kernel "flash_fwd d<D> fp32" by its offset template flag ("-O0",
+    "-O1"; its other masks are runtime flags)."""
+    lib = att._flash_lib()
+
+    def group_of(entry):
+        if "flash_fwd_" not in entry:
+            return None
+        tc = "flash_fwd_tcI" in entry
+        d = int(re.search(r"Li(64|128)E", entry).group(1))
+        if tc:
+            instance = _mask_flags(entry)
+        else:
+            instance = "-O%s" % re.search(r"Li(?:64|128)ELb(\d)E",
+                                          entry).group(1)
+        return ("flash_fwd%s d%d %s" % ("_tc" if tc else "", d,
+                                        "bf16" if tc else "fp32"),
+                instance, lib.edl_flash_fwd_smem_bytes(int(tc), d),
+                128 if tc else 256)
+
+    return _build_groups(ptxas_entries(log), group_of)
 
 
 def check_bwd_rounding(gen):
@@ -1975,10 +2205,10 @@ def sdpa_backward_ms(q, k, v, do):
 
 
 def time_backward(gen, train_launches, bwd_err):
-    """Kernels C and D at the training shape: b = 8, h = 8, l = 1024,
-    d = 128, causal, bf16, on the forward kernel's out and lse; first
-    against the plain version that rounds P and dS as they do
-    (rounded_ok)."""
+    """Kernels A, C and D at the training shape: b = 8, h = 8, l = 1024,
+    d = 128, causal, bf16, C and D on the forward kernel's out and lse;
+    first against the plain versions that round as they do (fwd_ok,
+    rounded_ok). A beside SDPA, C and D beside aten's flash backward."""
     b, h, l, d = TRAIN_BATCH, 8, FLAGSHIP["seq_len"], 128
     q, k, v = flash_inputs(gen, b, h, h, l, d, torch.bfloat16)
     do = flash_inputs(gen, b, h, h, l, d, torch.bfloat16)[0]
@@ -1993,7 +2223,21 @@ def time_backward(gen, train_launches, bwd_err):
     _dq, delta = att.flash_backward_dq(q, k, v, out, lse, do, causal=True)
     library = sdpa_backward_ms(q, k, v, do)
     shape = "b=%d h=%d lq=lk=%d d=%d causal bf16" % (b, h, l, d)
-    entries = []
+    fwd_err = flash_fwd_errs(q, k, v, out, lse, True, {})
+    log("flash fwd at the training shape: %s" % fwd_err)
+    check(fwd_ok(fwd_err), "flash_fwd disagrees with its rounded plain "
+          "version at the training shape: %s" % fwd_err)
+    fwd = _timing_entry(
+        "flash_fwd", "elasticdl_tpu_torch/csrc/flash_fwd.cu",
+        "elasticdl_tpu/ops/attention.py:941", shape,
+        lambda: att.flash_forward(q, k, v, causal=True),
+        lambda: att.flash_attention_plain(q, k, v, causal=True,
+                                          bf16_operands=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        flash_work(b, h, h, l, l, d, 2), train_launches,
+        dict(fwd_err, max_err=fwd_err["max_abs_err"]))
+    fwd["launches_per_step"] = train_launches["flash_fwd"] // TRAIN_STEPS
+    entries = [fwd]
     for name, line, fn, plain, dkv in (
             ("flash_bwd_dq", 1241,
              lambda: att.flash_backward_dq(q, k, v, out, lse, do, causal=True),
@@ -2031,11 +2275,11 @@ def time_kernels(gen, launches, flash_err, paged_err):
         "elasticdl_tpu/ops/attention.py:941",
         "b=1 h=8 lq=lk=512 d=128 causal bf16",
         lambda: att.flash_forward(q, k, v, causal=True),
-        lambda: att.flash_attention_plain(q, k, v, causal=True),
+        lambda: att.flash_attention_plain(q, k, v, causal=True,
+                                          bf16_operands=True),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
         flash_work(1, 8, 8, 512, 512, 128, 2), launches,
-        {"max_abs_err": flash_err[0], "max_err": flash_err[0],
-         "lse_max_abs_err": flash_err[1]},
+        dict(flash_err, max_err=flash_err["max_abs_err"]),
     )
     paged_errors = {"max_abs_err": paged_err[0], "max_err": paged_err[0],
                     "max_rel_err": paged_err[1]}
@@ -2425,13 +2669,10 @@ def _flash_case(q, k, v, do, causal, masks, grad_dtype=None, lse_bwd=None):
     want = grad_dtype or q.dtype
     check(dq.dtype == dk.dtype == dv.dtype == want,
           "flash backward%s wrote %s, not %s" % (variant, dq.dtype, want))
-    ref, ref_lse = att.flash_attention_plain(q, k, v, causal=causal, **masks)
     pdq, pdelta = att.flash_backward_dq_plain(q, k, v, out, lse_b, do, **bwd)
     pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse_b, pdelta,
                                             **bwd)
-    errs = {"flash_fwd": {
-        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-        "lse_max_abs_err": (lse - ref_lse).abs().max().item()}}
+    errs = {"flash_fwd": flash_fwd_errs(q, k, v, out, lse, causal, masks)}
     rounded = {}
     if q.dtype == torch.bfloat16:
         rounded = rounded_bwd_errs(q, k, v, out, lse_b, do, causal=causal,
@@ -2456,11 +2697,9 @@ def _flash_case(q, k, v, do, causal, masks, grad_dtype=None, lse_bwd=None):
 
 
 def _check_flash_errs(errs, variant, dtype, where):
-    fwd = errs["flash_fwd"]
-    check(fwd["max_abs_err"] <= FLASH_TOL_OUT
-          and fwd["lse_max_abs_err"] <= FLASH_TOL_LSE,
+    check(fwd_ok(errs["flash_fwd"]),
           "flash_fwd%s disagrees with its plain version at %s: %s"
-          % (variant, where, fwd))
+          % (variant, where, errs["flash_fwd"]))
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         check(errs[name]["max_rel_err"] <= BWD_TOL_REL[dtype],
               "%s%s disagrees with its plain version at %s: %s"
@@ -2948,6 +3187,7 @@ def time_masked_flash(flash_inputs_path, launches, errors):
                 ("flash_fwd", 941,
                  lambda: att.flash_forward(q, k, v, causal=True, **masks),
                  lambda: att.flash_attention_plain(q, k, v, causal=True,
+                                                   bf16_operands=True,
                                                    **masks),
                  4 * d * pairs * h, io * (2 * rows_q + 2 * rows_kv)
                  + 4 * rows_q, lib_fwd),
@@ -3513,7 +3753,8 @@ def time_offset_flash(inputs, launches, errors):
     for name, line, fn, plain, flops, nbytes, lib in (
             ("flash_fwd", 941,
              lambda: att.flash_forward(q, k, v, **masks),
-             lambda: att.flash_attention_plain(q, k, v, **masks),
+             lambda: att.flash_attention_plain(q, k, v, bf16_operands=True,
+                                               **masks),
              4 * d * pairs * h, io * 4 * rows + 4 * rows, lib_fwd),
             ("flash_bwd_dq", 1241,
              lambda: att.flash_backward_dq(q, k, v, out, lse_g, do,
@@ -3574,23 +3815,29 @@ def main():
         ", ".join("%s %.1f s" % (n, r["seconds"]) for n, r in
                   report.items())))
 
-    bwd_build = {}
-    if report["flash_bwd"]["log"]:
-        bwd_build = flash_bwd_build_report(report["flash_bwd"]["log"])
-        for name, group in bwd_build.items():
+    builds = {}
+    # no instance may spill, but the fp32 forward, the scalar kernel of
+    # PR 1, whose d 64 instance ptxas gives a 16-byte spill
+    for source, reporter, n_groups, n_instances, held in (
+            ("flash_fwd", flash_fwd_build_report, 4, 36, "_tc"),
+            ("flash_bwd", flash_bwd_build_report, 12, 132, "")):
+        if not report[source]["log"]:
+            log("%s was built before this run: no ptxas report" % source)
+            continue
+        groups = builds[source] = reporter(report[source]["log"])
+        for name, group in groups.items():
             log("%s: registers %s; spills %d B; shared memory %d B a "
                 "block; %d blocks per SM" % (
                     name, " ".join("%s:%d" % x for x in
                                    group["registers"].items()),
                     group["spill_bytes"], group["smem_bytes"],
                     group["blocks_per_sm"]))
-        check(len(bwd_build) == 12 and sum(
-            len(g["registers"]) for g in bwd_build.values()) == 132,
-              "flash_bwd's build log names %s" % sorted(bwd_build))
-        check(not any(g["spill_bytes"] for g in bwd_build.values()),
-              "flash_bwd's kernels spill registers")
-    else:
-        log("flash_bwd was built before this run: no ptxas report")
+        check(len(groups) == n_groups and sum(
+            len(g["registers"]) for g in groups.values()) == n_instances,
+              "%s's build log names %s" % (source, sorted(groups)))
+        check(not any(g["spill_bytes"] for name, g in groups.items()
+                      if held in name),
+              "%s's kernels spill registers" % source)
     gen = torch.Generator().manual_seed(0)
     rng = np.random.RandomState(0)
     # the packed and windowed phases draw from their own generators, so
@@ -3598,6 +3845,11 @@ def main():
     gen_masked = torch.Generator().manual_seed(5)
     rng_masked = np.random.RandomState(5)
     flash_err = check_flash(gen)
+    # the instance checks draw from their own generator, so every later
+    # phase sees the data it saw before they were added
+    fwd_instances = check_flash_instances(torch.Generator().manual_seed(8))
+    # so does the forward's rounding probe
+    fwd_rounding = check_fwd_rounding(torch.Generator().manual_seed(9))
     paged_err = check_paged(gen)
     int8_err = check_paged_int8(gen)
     bwd_err = check_flash_bwd(gen)
@@ -3675,7 +3927,10 @@ def main():
     sp["ring_rotations_vs_unsharded"] = ring_rotations
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
-    training["flash_bwd_build"] = bwd_build
+    training["flash_fwd_build"] = builds.get("flash_fwd", {})
+    training["flash_bwd_build"] = builds.get("flash_bwd", {})
+    training["flash_fwd_instances"] = fwd_instances
+    training["flash_fwd_rounding"] = fwd_rounding
     training["flash_bwd_rounding"] = bwd_rounding
     with tempfile.TemporaryDirectory() as workdir:
         dlrm, executor, dlrm_launches = train_dlrm(rng, workdir)
@@ -3692,6 +3947,7 @@ def main():
     log("dense update path: %s" % json.dumps(dense))
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
+    kernels[0]["bf16_instances_checked"] = fwd_instances["instances"]
     kernels += time_paged_int8(
         paged_cases, int8_launches, {"max_abs_err": int8_err[0],
                              "max_err": int8_err[0],

@@ -32,9 +32,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# source -> number of parts (csrc/flash_bwd.cu: part 0 the entry points
-# and fp32 kernels, parts 1-8 the bf16 tensor-core instances)
-PARTS = {"flash_bwd": 9}
+# source -> number of parts (part 0 the entry points and fp32 kernels,
+# the others the bf16 tensor-core instances: csrc/flash_bwd.cu one
+# (pass, head dim, output dtype) each, csrc/flash_fwd.cu one (head dim,
+# causal) each)
+PARTS = {"flash_bwd": 9, "flash_fwd": 5}
 
 _lock = threading.Lock()
 _libs = {}

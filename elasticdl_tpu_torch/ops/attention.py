@@ -7,7 +7,9 @@ there: [batch, heads, seq, head_dim]; k/v may carry fewer heads than q
 
 Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 
-* `flash_forward` -> csrc/flash_fwd.cu, the port of `_flash_kernel`;
+* `flash_forward` -> csrc/flash_fwd.cu, the port of `_flash_kernel`
+  (wgmma on tensor cores for bf16, with q scaled in bf16 and P rounded
+  to bf16 as the TPU kernel does; a scalar fp32 kernel for fp32);
 * `flash_backward_dq` / `flash_backward_dkv` -> csrc/flash_bwd.cu, the
   ports of `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (wgmma on
   tensor cores for bf16, with P and dS rounded to bf16 before the
@@ -58,6 +60,7 @@ from elasticdl_tpu_torch.ops.dispatch import on_kernel_path
 _NEG_INF = -1e30
 NEG_INF = _NEG_INF
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def _variant(base, window=None, segments=False, offset=False):
@@ -296,29 +299,60 @@ def _check_kernel_args(name, tensors, dtypes, d):
 
 
 def flash_attention_plain(q, k, v, causal=False, scale=None, window=None,
-                          q_seg=None, k_seg=None, pos_offset=0):
+                          q_seg=None, k_seg=None, pos_offset=0,
+                          bf16_operands=False):
     """Plain PyTorch version of the flash kernel: (out in q.dtype, lse
     fp32 [b, h, lq]). Scores and softmax in fp32; masked scores (causal,
     `window`, segment ids `q_seg` [b, lq] / `k_seg` [b, lk], query rows
     at positions row + `pos_offset`) contribute exactly 0, an empty row
     gives out 0 and lse +1e30 (the kernel's convention,
-    attention.py:1000-1004 in the JAX package)."""
+    attention.py:1000-1004 in the JAX package).
+
+    `bf16_operands`: with bf16 inputs, the arithmetic of the Pallas
+    kernel (`_flash_kernel`, :964-981) and of the card's bf16 kernel:
+    q is scaled in bf16 by the bf16-rounded constant scale * log2 e
+    (JAX's weak typing rounds the Python float to q's dtype), S = q_s
+    K^T in fp32 is in log2 units, P = exp2(S - m) with the row max m,
+    l = rowsum(P) from the unrounded P, and P is rounded to bf16 before
+    P V (`_mxu_cast`); lse = (m + log2 l) ln 2. The default keeps the
+    scale and P in fp32, as the CPU paths of the models run it; fp32
+    inputs are never rounded."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
+    out, lse, _p, _l = _flash_plain_f32(
+        q, k, v, causal, scale, window, q_seg, k_seg, pos_offset,
+        bf16_operands and q.dtype == torch.bfloat16)
+    return out.to(q.dtype), lse
+
+
+def _flash_plain_f32(q, k, v, causal, scale, window, q_seg, k_seg,
+                     pos_offset, rounded):
+    """`flash_attention_plain`'s arithmetic, `rounded` its bf16 branch:
+    (out fp32 before the cast to q.dtype, lse, P fp32 [b, h, lq, lk]
+    before any rounding, l = rowsum(P))."""
     f32 = torch.float32
     kf = expand_kv(k, q.shape[1]).to(f32)
     vf = expand_kv(v, q.shape[1]).to(f32)
-    s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
+    if rounded:
+        const = torch.tensor(scale * _LOG2E).to(torch.bfloat16).to(f32)
+        qs = (q.to(f32) * const).to(torch.bfloat16).to(f32)
+        s = torch.matmul(qs, kf.transpose(-1, -2))
+    else:
+        s = torch.matmul(q.to(f32), kf.transpose(-1, -2)) * scale
     valid = _visible(q.shape[2], k.shape[2], causal, window, q_seg, k_seg,
                      device=q.device, pos_offset=pos_offset)
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     mx = s.amax(-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - mx), torch.zeros_like(s))
+    exp = torch.exp2 if rounded else torch.exp
+    p = torch.where(valid, exp(s - mx), torch.zeros_like(s))
     l = p.sum(-1)
-    out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)[..., None]
-    lse = torch.where(l > 0, mx[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
-                      torch.full_like(l, -_NEG_INF))
-    return out.to(q.dtype), lse
+    l_safe = torch.clamp(l, min=1e-30)
+    out = torch.matmul(_operand_round(p, v.dtype, rounded), vf) / l_safe[
+        ..., None]
+    lse = ((mx[..., 0] + torch.log2(l_safe)) * _LN2 if rounded
+           else mx[..., 0] + torch.log(l_safe))
+    lse = torch.where(l > 0, lse, torch.full_like(l, -_NEG_INF))
+    return out, lse, p, l
 
 
 def _seg_args(q, k, q_seg, k_seg):
@@ -349,7 +383,10 @@ def flash_forward(q, k, v, causal=False, scale=None, window=None,
     online-softmax attention under the causal, `window` and segment
     masks, query rows at positions row + `pos_offset`: the
     csrc/flash_fwd.cu kernel for CUDA tensors, `flash_attention_plain`
-    for CPU tensors."""
+    for CPU tensors. For bf16 inputs the kernel multiplies on tensor
+    cores with q scaled in bf16 and P rounded to bf16, as the TPU
+    kernel does (`flash_attention_plain(..., bf16_operands=True)`);
+    fp32 inputs run the fp32 kernel with no such rounding."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group_size(q, k)
     win = _window_arg(window, q.shape[2], k.shape[2])
@@ -361,7 +398,7 @@ def flash_forward(q, k, v, causal=False, scale=None, window=None,
                                      pos_offset=pos_offset)
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
     _check_kernel_args("flash_fwd", (q, k, v), tuple(_DTYPE_CODES), d)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_fwd kernel takes q, k, v of one dtype")
@@ -645,7 +682,7 @@ def _bwd_args(name, q, k, v, do, lse, extra=()):
 
 def _aligned16(t):
     """`t`, or a copy of it where its data does not start on a 16-byte
-    boundary (the bf16 backward kernels copy rows 16 bytes at a time)."""
+    boundary (the bf16 flash kernels copy rows 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

@@ -10,16 +10,20 @@ of 50 CUDA-graph replays between CUDA events, with the card's name and
 power limit. Cases, bf16, d 128, inputs from seeded generators:
 
 * A at the serving path's largest prefill bucket (b 1, h 8, l 512) and
-  at the training shape (b 8, h 8, l 1024), causal;
-* C and D at the training shape, causal: unmasked, window 256 (the
-  windowed flagship), and the segments of pack_sequences over documents
-  of 64-1024 tokens (the packed flagship);
-* C and D at the windowed ring's one-shard-back rotation (b 2, h 8,
-  1024-row shards, window 1536, pos_offset 1024, not causal, fp32
-  gradients, the ring's global lse);
+  at the training shape (b 8, h 8, l 1024), causal, each beside SDPA
+  (is_causal);
+* A, C and D at the training shape, causal: unmasked (C and D), window
+  256 (the windowed flagship), and the segments of pack_sequences over
+  documents of 64-1024 tokens (the packed flagship); A's masked cases
+  beside SDPA with the same boolean mask;
+* A, C and D at the windowed ring's one-shard-back rotation (b 2, h 8,
+  1024-row shards, window 1536, pos_offset 1024, not causal; C and D
+  with fp32 gradients and the ring's global lse); A beside SDPA with the
+  same boolean mask;
 * aten's flash-attention backward (dq, dk and dv in one call) at the
-  training shape, causal: the yardstick of C + D, used nowhere in the
-  port.
+  training shape, causal: the yardstick of C + D.
+
+SDPA and aten are used nowhere in the port.
 """
 
 import json
@@ -28,6 +32,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.ops import attention as att
@@ -70,6 +75,18 @@ def _packed_segments(b, l, seed=5):
     return torch.as_tensor(seg, dtype=torch.int32).cuda()
 
 
+def _forward_case(out, name, q, k, v, **kw):
+    """A of one variant and SDPA with the same boolean mask: device ms of
+    each into `out`."""
+    mask = att._visible(q.shape[2], k.shape[2], kw.get("causal", False),
+                        kw.get("window"), kw.get("q_seg"), kw.get("k_seg"),
+                        device=q.device, pos_offset=kw.get("pos_offset", 0))
+    out["flash_fwd_" + name] = _replay_ms(lambda: att.flash_forward(q, k, v,
+                                                                    **kw))
+    out["sdpa_fwd_" + name] = _replay_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+
+
 def _backward_cases(out, name, q, k, v, do, **kw):
     """C and D of one variant: device ms of each into `out`."""
     o, lse = att.flash_forward(q, k, v, **kw)
@@ -103,26 +120,35 @@ def main(label):
     q, k, v = mk(1, 512), mk(1, 512), mk(1, 512)
     out["flash_fwd_b1_l512"] = _replay_ms(
         lambda: att.flash_forward(q, k, v, causal=True))
+    out["sdpa_fwd_b1_l512"] = _replay_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     q, k, v, do = mk(8, 1024), mk(8, 1024), mk(8, 1024), mk(8, 1024)
     o, lse = att.flash_forward(q, k, v, causal=True)
     _dq, delta = att.flash_backward_dq(q, k, v, o, lse, do, causal=True)
     out["flash_fwd_b8_l1024"] = _replay_ms(
         lambda: att.flash_forward(q, k, v, causal=True))
+    out["sdpa_fwd_b8_l1024"] = _replay_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     out["flash_bwd_dq_b8_l1024"] = _replay_ms(
         lambda: att.flash_backward_dq(q, k, v, o, lse, do, causal=True))
     out["flash_bwd_dkv_b8_l1024"] = _replay_ms(
         lambda: att.flash_backward_dkv(q, k, v, do, lse, delta,
                                        causal=True))
     out["aten_flash_bwd_b8_l1024"] = _aten_backward_ms(q, k, v, do)
+    _forward_case(out, "window_b8_l1024", q, k, v, causal=True,
+                  window=WINDOW)
     _backward_cases(out, "window_b8_l1024", q, k, v, do, causal=True,
                     window=WINDOW)
     seg = _packed_segments(8, 1024)
+    _forward_case(out, "segments_b8_l1024", q, k, v, causal=True,
+                  q_seg=seg, k_seg=seg)
     _backward_cases(out, "segments_b8_l1024", q, k, v, do, causal=True,
                     q_seg=seg, k_seg=seg)
     # the ring's one-shard-back rotation, with its global lse: this
     # rotation's merged with the diagonal rotation's
     q, k, v, do, k2, v2 = (mk(2, RING_SHARD) for _ in range(6))
     ring = dict(window=RING_WINDOW, pos_offset=RING_SHARD)
+    _forward_case(out, "window_offset_b2_l1024", q, k, v, **ring)
     _o, lse_diag = att.flash_forward(q, k2, v2, causal=True)
     o, lse = att.attention_forward_lse(q, k, v, **ring)
     lse = torch.logaddexp(lse, lse_diag)
