@@ -28,7 +28,10 @@ repository checkout it sits in. Phases, each of which fails the run:
    decode shapes: bf16 arenas, then int8 arenas with their fp32 row-scale
    pools (split and tile kernels; GQA, holes, ragged lengths, t = 1 and
    t > 1, small shapes and the serving path's; within 1e-5 of the
-   largest value);
+   largest value); then fp32, bf16 and int8 arenas over the small shapes
+   and the edges of the split walk (lengths bs k and bs k + 1, a full
+   table, a sequence 8x longer than its mates, 8 and 9 query rows, a
+   last live slot of -1);
 5. kernels C and D (flash backward dq, dk/dv) against their plain
    versions: b = 2, h = 8 with 8 and 2 kv heads, l = 64 / 200 / 1024,
    d = 128, causal and not, bf16 and fp32; the bf16 cases also, with
@@ -48,7 +51,9 @@ repository checkout it sits in. Phases, each of which fails the run:
    must stay bit-identical; then kernel G (dense optimizer updates),
    each of its five rules and momentum without Nesterov, fp32 and bf16,
    against its plain version within 1e-6: a 0-d scalar, (7, 33),
-   1,000,003 elements and a view one element into its storage;
+   1,000,003 elements and a view one element into its storage; then
+   element counts at the edges of a thread's vector and a block's 256
+   vectors, each tensor in turn 4 bytes off 16-byte alignment;
 7. the serving slice at the flagship transformer_lm width (vocab 32000,
    seq_len 1024, embed 1024, 8 heads, 8 layers, bf16, seeded random
    weights): 16 greedy requests, 8 sharing a 256-token prefix, through
@@ -94,7 +99,8 @@ repository checkout it sits in. Phases, each of which fails the run:
 13. kernel timings at the main paths' shapes (A at the serving and the
    training shape; CUDA events, graph-replayed for device time; E and F
    over 26 distinct tables and id columns, as a step issues them, with
-   L2 flushed before each round), beside the
+   L2 flushed before each round; B also cold, 8 calls over disjoint
+   arena pairs as a decode step's layers, L2 flushed), beside the
    plain version, a library call where one computes the same function,
    and the bound implied by the card's published peaks;
 14. the mask variants of A, C, D (window, segments, both) and B (window:
@@ -601,7 +607,7 @@ def check_flash_instances(gen):
 
 
 def paged_inputs(gen, b=8, hkv=8, group=1, t=1, d=128, bs=16, m=64,
-                 num_blocks=640, lengths=None):
+                 num_blocks=640, lengths=None, dtype=torch.bfloat16):
     if lengths is None:
         lengths = torch.randint(1, 1000, (b,), generator=gen)
     lengths = torch.as_tensor(lengths)
@@ -613,7 +619,7 @@ def paged_inputs(gen, b=8, hkv=8, group=1, t=1, d=128, bs=16, m=64,
         table[i, :n] = perm[used:used + n].to(torch.int32)
         used += n
     pools = [torch.randn(num_blocks, bs, hkv, d, generator=gen).to(
-        "cuda", torch.bfloat16) for _ in range(2)]
+        "cuda", dtype) for _ in range(2)]
     qf = (torch.randn(b, hkv, group * t, d, generator=gen)
           * d ** -0.5).to("cuda")
     return (qf, pools[0], pools[1], table.cuda(),
@@ -718,6 +724,8 @@ def check_paged(gen):
               % (t, errs))
         worst_abs, worst_rel = max(worst_abs, e_abs), max(worst_rel,
                                                           max(errs))
+    log("paged bf16 decode shapes, worst rel err %.3g (limit %g)"
+        % (worst_rel, PAGED_TOL_REL))
     return worst_abs, worst_rel
 
 
@@ -761,7 +769,69 @@ def check_paged_int8(gen):
                                                           max(errs))
         if i >= len(small):
             path_rel = max(path_rel, max(errs))
+    log("paged int8, worst rel err %.3g (limit %g)"
+        % (worst_rel, PAGED_INT8_TOL_REL))
     return worst_abs, worst_rel, path_rel
+
+
+def paged_sweep_cases():
+    """(case, hole) pairs of check_paged_sweep: paged_inputs keywords and
+    the table slot of sequence 0 to unallocate (None: none). The small
+    shapes of check_paged_int8 (groups 1, 2, 4; d 64 with blocks of 4, d
+    128 with blocks of 16; lengths with a 0; a -1 hole inside a live
+    range), then the edges of the split walk, which cuts each
+    sequence's live keys across the blocks of a cluster: lengths bs k and
+    bs k + 1, a full table (m bs), a sequence 8x longer than its batch
+    mates, 8 and 9 query rows (the split / tile boundary), and a table
+    whose last live slot is -1."""
+    small = [(dict(b=3, hkv=2, group=group, t=t, d=d, bs=bs, m=8,
+                   num_blocks=40, lengths=[bs * 5 + 3, 0, bs * 2 + 1]), 1)
+             for group, t in ((1, 1), (2, 1), (4, 1), (4, 2), (4, 5), (4, 40))
+             for d, bs in ((64, 4), (128, 16))]
+    edge = dict(b=3, hkv=2, bs=16, m=8, num_blocks=40)
+    edges = []
+    for d in (64, 128):
+        edges += [
+            (dict(edge, d=d, lengths=[32, 33, 48]), None),
+            (dict(edge, d=d, lengths=[128, 16, 1]), None),
+            (dict(edge, d=d, lengths=[112, 14, 13]), None),
+            (dict(edge, d=d, group=8, lengths=[77, 128, 31]), None),
+            (dict(edge, d=d, t=9, lengths=[77, 128, 31]), None),
+            (dict(edge, d=d, group=2, lengths=[77, 96, 5]), 4),
+        ]
+    return small + edges
+
+
+def check_paged_sweep(gen):
+    """Kernel B, split and tile, against paged_decode_partials_plain on
+    fp32, bf16 and int8 arenas over paged_sweep_cases, each dtype within
+    its limit (PAGED_TOL_REL for float arenas, PAGED_INT8_TOL_REL for
+    int8). Returns {dtype: worst rel err}."""
+    worst = {}
+    for case, hole in paged_sweep_cases():
+        for dtype in ("float32", "bfloat16", "int8"):
+            args, _lengths = paged_inputs(
+                gen, dtype=torch.bfloat16 if dtype == "int8"
+                else getattr(torch, dtype), **case)
+            if hole is not None:
+                args[3][0, hole] = -1
+            if dtype == "int8":
+                args = quantize_pools(args)
+            o, l, mx = att.paged_decode_partials(*args, t=case.get("t", 1))
+            torch.cuda.synchronize()
+            ref = att.paged_decode_partials_plain(*args, t=case.get("t", 1))
+            errs = partials_errs((o, l, mx), ref)
+            tol = PAGED_INT8_TOL_REL if dtype == "int8" else PAGED_TOL_REL
+            check(all(torch.isfinite(x).all().item() for x in (o, l)),
+                  "paged %s: non-finite partials at %s" % (dtype, case))
+            check(max(errs) <= tol, "paged kernel disagrees with its plain "
+                  "version on %s arenas at %s (hole %s): %s"
+                  % (dtype, case, hole, errs))
+            worst[dtype] = max(worst.get(dtype, 0.0), max(errs))
+    log("paged sweep (%d cases per arena dtype), worst rel err: %s; limits "
+        "%g (float), %g (int8)" % (len(paged_sweep_cases()), worst,
+                                   PAGED_TOL_REL, PAGED_INT8_TOL_REL))
+    return worst
 
 
 # kernel G's rules: rule -> (slot tensors, the public wrapper's
@@ -855,6 +925,54 @@ def check_dense_update(gen):
                   "dense %s %s disagrees with its plain version: %s"
                   % (rule, dtype, errs))
             worst = max(worst, max(errs))
+    log("dense small shapes, worst rel err %.3g (limit %g)"
+        % (worst, DENSE_TOL_REL))
+    return worst
+
+
+def misaligned(x):
+    """A copy of x that starts 4 bytes into its storage (off the 16-byte
+    alignment of the kernel's vector path)."""
+    shift = 4 // x.element_size()
+    buf = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    out = buf[shift:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_dense_edges(gen):
+    """Kernel G at the edges of a thread's chunk (one 16-byte vector) and
+    a block's: for each rule (momentum with and without Nesterov), fp32
+    and bf16, element counts of fewer than one vector, a vector and one,
+    and a block less one, a block, a block and one, with every tensor
+    aligned and then each tensor in turn 4 bytes off 16-byte alignment
+    (the scalar path). Max |err| / max |ref| per output within
+    DENSE_TOL_REL. Returns the worst relative error."""
+    worst, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        vec = 16 // torch.empty((), dtype=dtype).element_size()
+        block = 256 * vec  # csrc/optimizer_update.cu: 256 threads a block
+        for rule, kw in DENSE_CASES:
+            for n in (vec - 1, vec + 1, block - 1, block, block + 1):
+                param, slots, grad = dense_inputs(gen, rule, (n,), dtype)
+                tensors = [param, *slots, grad]
+                for off in [None] + list(range(len(tensors))):
+                    args = [misaligned(x) if k == off else x
+                            for k, x in enumerate(tensors)]
+                    out = dense_call(rule, kw, args[0], args[1:-1], args[-1])
+                    torch.cuda.synchronize()
+                    ref = dense_plain(rule, kw, args[0], args[1:-1],
+                                      args[-1])
+                    errs = [rel_err(o.float(), r.float())
+                            for o, r in zip(out, ref)]
+                    check(max(errs) <= DENSE_TOL_REL,
+                          "dense %s %s disagrees with its plain version at "
+                          "%d elements, tensor %s misaligned: %s"
+                          % (rule, dtype, n, off, errs))
+                    worst = max(worst, max(errs))
+                    cases += 1
+    log("dense chunk edges (%d cases), worst rel err %.3g (limit %g)"
+        % (cases, worst, DENSE_TOL_REL))
     return worst
 
 
@@ -2262,6 +2380,37 @@ def time_backward(gen, train_launches, bwd_err):
     return entries
 
 
+PAGED_COLD_LAYERS = 8  # a decode step's paged calls: one per layer
+
+
+def paged_cold(entry, args, window=None, t=1, int8=False):
+    """Adds kernel B's cold time to its timing entry: PAGED_COLD_LAYERS
+    calls over disjoint arena pairs, as a decode step issues one per
+    layer (args' own pools, then pools drawn on the card from a generator
+    of their own; int8 arenas quantized from them), L2 flushed before
+    each round (timed_cold_ms). On the serving path each layer's arena
+    was last read a decode step earlier, with the other layers' arenas
+    and weights read in between, so its rows come from device memory;
+    the hot time (`ms`, one call replayed) finds them in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(PAGED_TIMING_SEED + 100)
+    pools = [tuple(args[1:3])] + [
+        tuple(torch.randn(args[1].shape, generator=gen, device="cuda").to(
+            args[1].dtype) for _ in range(2))
+        for _ in range(PAGED_COLD_LAYERS - 1)]
+    calls = []
+    for k_pool, v_pool in pools:
+        call_args = (args[0], k_pool, v_pool, args[3], args[4])
+        if int8:
+            call_args = quantize_pools(call_args)
+        calls.append(lambda a=call_args: att.paged_decode_partials(
+            *a, window=window, t=t))
+    entry["cold_ms"] = timed_cold_ms(calls)[0]
+    entry["cold_timing"] = (
+        "%d calls over disjoint arena pairs per round (a decode step's "
+        "layers), L2 flushed before each round" % PAGED_COLD_LAYERS)
+    return entry
+
+
 def time_kernels(gen, launches, flash_err, paged_err):
     """Each serving kernel at the main path's shapes: the largest prefill
     bucket (lq = 512) for A; for B the 8-slot decode step (t = 1, ragged
@@ -2291,7 +2440,7 @@ def time_kernels(gen, launches, flash_err, paged_err):
         args, lens = paged_inputs(paged_gen, b=1 if lengths else 8, t=t,
                                   lengths=lengths)
         cases.append((name, t, label, args, lens))
-        entries.append(_timing_entry(
+        entries.append(paged_cold(_timing_entry(
             name, "elasticdl_tpu_torch/csrc/paged_decode.cu",
             "elasticdl_tpu/ops/attention.py:591",
             "%s hkv=8 d=128 bs=16 m=64 bf16, live rows %d"
@@ -2299,8 +2448,7 @@ def time_kernels(gen, launches, flash_err, paged_err):
             lambda args=args: att.paged_decode_partials(*args),
             lambda args=args: att.paged_decode_partials_plain(*args),
             None, paged_work(lens, 8, t, 128, 2, 64), launches,
-            paged_errors,
-        ))
+            paged_errors, peak=PEAK_FP32_FLOPS), args, t=t))
     return entries, cases
 
 
@@ -2452,16 +2600,16 @@ def time_paged_int8(cases, launches, errors):
     pools."""
     entries = []
     for name, t, label, args, lens in cases:
-        args = quantize_pools(args)
-        entries.append(_timing_entry(
+        int8_args = quantize_pools(args)
+        entries.append(paged_cold(_timing_entry(
             name + "_int8", "elasticdl_tpu_torch/csrc/paged_decode.cu",
             "elasticdl_tpu/ops/attention.py:591 (int8 branch :613-634)",
             "%s hkv=8 d=128 bs=16 m=64 int8 + fp32 row scales, live rows "
             "%d" % (label, sum(lens)),
-            lambda args=args: att.paged_decode_partials(*args),
-            lambda args=args: att.paged_decode_partials_plain(*args),
+            lambda a=int8_args: att.paged_decode_partials(*a),
+            lambda a=int8_args: att.paged_decode_partials_plain(*a),
             None, paged_work(lens, 8, t, 128, 1, 64, int8=True), launches,
-            errors))
+            errors, peak=PEAK_FP32_FLOPS), args, t=t, int8=True))
     return entries
 
 
@@ -2842,8 +2990,9 @@ def check_masked_paged(gen):
                    {"max_rel_err": max(errs), "max_abs_err": e_abs,
                     "max_err": e_abs})
             cases.append((name + "_window", t, label, args, lens, int8))
-    log("paged window kernels, worst rel err: %s (%d empty rows)"
-        % (worst, dead_rows))
+    log("paged window kernels, worst rel err: %s (%d empty rows); limits "
+        "%g (bf16), %g (int8)" % (worst, dead_rows, PAGED_TOL_REL,
+                                  PAGED_INT8_TOL_REL))
     return worst, cases
 
 
@@ -3255,7 +3404,7 @@ def time_masked_paged(cases, launches, errors):
     entries = []
     for name, t, label, args, lens, int8 in cases:
         call_args = quantize_pools(args) if int8 else args
-        entries.append(_timing_entry(
+        entries.append(paged_cold(_timing_entry(
             name, "elasticdl_tpu_torch/csrc/paged_decode.cu",
             "elasticdl_tpu/ops/attention.py:591 (window, :355-374 "
             "_paged_valid%s)" % (", int8 branch :613-634" if int8 else ""),
@@ -3268,7 +3417,8 @@ def time_masked_paged(cases, launches, errors):
                 *a, window=WINDOW, t=t),
             None, paged_window_work(lens, 8, t, t, 128, 1 if int8 else 2,
                                     64, WINDOW, int8=int8),
-            launches, dict(errors.get(name, {}))))
+            launches, dict(errors.get(name, {})), peak=PEAK_FP32_FLOPS),
+            args, window=WINDOW, t=t, int8=int8))
     return entries
 
 
@@ -3852,6 +4002,9 @@ def main():
     fwd_rounding = check_fwd_rounding(torch.Generator().manual_seed(9))
     paged_err = check_paged(gen)
     int8_err = check_paged_int8(gen)
+    # the sweeps draw from their own generators, so every later phase
+    # sees the data it saw before they were added
+    paged_sweep = check_paged_sweep(torch.Generator().manual_seed(10))
     bwd_err = check_flash_bwd(gen)
     autograd_err = check_autograd(gen)
     # the rounding probe draws from its own generator, so every later
@@ -3860,6 +4013,7 @@ def main():
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
     dense_err = check_dense_update(gen)
+    dense_edges = check_dense_edges(torch.Generator().manual_seed(12))
     masked_err, masked_path_err, masked_inputs = check_masked_flash(
         gen_masked, rng_masked)
     masked_paged_err, masked_paged_cases = check_masked_paged(gen_masked)
@@ -3964,6 +4118,7 @@ def main():
     kernels += time_dense(dense_launches)
     for entry in kernels[-len(DENSE_RULES):]:
         entry["small_shapes_max_rel_err"] = dense_err
+        entry["chunk_edges_max_rel_err"] = dense_edges
     # each masked variant's launches are those of its own path's run:
     # the windowed training run, the packed family's run, the windowed
     # serving runs (bf16 and int8 arenas)
@@ -3996,6 +4151,11 @@ def main():
     kernels += masked
     kernels += time_masked_paged(masked_paged_cases, masked_launches,
                                  masked_paged_err)
+    for entry in kernels:
+        if entry["name"].startswith("paged_decode"):
+            entry["sweep_max_rel_err"] = paged_sweep[
+                "int8" if "_int8" in entry["name"] else "bfloat16"]
+            entry["sweep_max_rel_err_fp32_arenas"] = paged_sweep["float32"]
     kernels += time_offset_flash(
         offset_inputs, sp_launches,
         {v: dict(e, small_shapes=offset_err.get(v))

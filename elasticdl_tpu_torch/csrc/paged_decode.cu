@@ -12,559 +12,465 @@
 // group-major (group * t) query axis is tile token r % t, at position
 // length + r % t, and sees pool rows k_pos > length + r % t - window
 // (_paged_kernel's row_pos). A row that sees none (window <= r % t + 1)
-// keeps the partials (0, 0, -1e30). Every kernel starts its table walk at
-// the slot of position length - window + 1, the first that any row of
-// the tile can see, so a windowed decode reads about window rows, not
-// length; the split kernel cuts that range, not the whole table, across
-// its splits.
+// keeps the partials (0, 0, -1e30). Both kernels walk the keys from
+// position length - window + 1, the first that any row of the tile can
+// see, so a windowed decode reads about window rows, not length.
 //
-// What bounds it on the H100: bytes. Each cached row is read once and
-// used for group*t dot products, so at t = 1 the kernel does about two
-// operations per byte, far below the ~295 the card needs to be bound by
-// operations. The design therefore reads only what the mask keeps: the
-// TPU kernel streams every table slot and masks unallocated (-1) and
-// out-of-length slots; these kernels stop at ceil(length / block_size)
-// and skip -1 slots without reading them. Query rows are prescaled by
-// scale on the host and by log2e here, so the loops use exp2; masked
-// scores contribute exactly 0, so a sequence with length 0 leaves
+// What bounds it on the H100: at t = 1, bytes (each cached row is read
+// once and used for group*t dot products, about two operations per
+// byte); for a 128-row suffix tile, fp32 operations on the CUDA cores.
+// The arithmetic is fp32 throughout, as the TPU kernel's (K/V cast to
+// fp32, fp32 dots): no tensor-core product. The kernels read only what
+// the mask keeps: they stop at the sequence's length and skip -1
+// (unallocated) slots without reading them, where the TPU kernel streams
+// every table slot and masks. Query rows are prescaled by scale on the
+// host and by log2e here, so the loops use exp2; masked scores
+// contribute exactly 0, so a row that sees no pool row leaves
 // (o, l, m) = (0, 0, -1e30).
 //
 // Arenas are fp32, bf16 or int8. int8 arenas (the TPU kernel's quantized
 // branch, _paged_kernel's `quantized`) come with fp32 per-row scale pools
 // [num_blocks, block_size, hkv, 1], read beside the rows; the dequantize
-// runs in registers and no float copy of a row is ever written. The int8
+// runs in registers and no float copy of a row is ever written. The
 // split kernel folds each key row's scale into its score and each value
 // row's scale into its softmax weight (the JAX scan's deferral: the
 // softmax denominator takes the weight unscaled); the tile kernel
 // multiplies each staged row element by its row scale (the TPU kernel's
-// choice). The two differ only by rounding. int8 halves a bf16 arena's
-// bytes, and the scales add 4 bytes per row and kv head. Rows are read 16
-// int8 values (16 bytes) at a time; d is 64 or 128, a multiple of 16, so
-// no row needs a narrower loader.
+// choice). The two differ only by rounding.
 //
-// Two kernels, chosen by the number of query rows per (sequence, kv
-// head):
+// Build: this file is compiled as three objects, one nvcc each, linked
+// into one library (ops/_build.py, PARTS): EDL_PART 0 holds the entry
+// points and the fp32 arenas' instances, part 1 the bf16 arenas', part 2
+// the int8 arenas'.
 //
-// * split (n_rows <= 8: the decode step, GQA groups, short tiles). The
-//   TPU grid walks a sequence's table in order on one core; on the H100
-//   one block per (sequence, kv head) would leave most of the 132 SMs
-//   idle and serialize the walk. So the table is cut into splits, one
-//   block each (grid (split, b*hkv)), and each of the block's 4 warps
-//   takes every 4th slot of its split. A lane holds d/32 columns of the
-//   query rows and of its running output; K and V rows are read as one
-//   vector per lane straight into registers (no shared memory, no
-//   barrier in the loop), scores are reduced across the warp with
-//   shuffles. The warps' partials merge through shared memory, and a
-//   second small kernel merges the splits. int8 arenas take their own
-//   split kernel, in which d/16 lanes hold a row (16 bytes each), so a
-//   warp reads 32/(d/16) rows at once; each such lane group keeps its own
-//   online softmax, and the groups merge by shuffles before the warps do.
-// * tile (n_rows > 8: the shared-prefix suffix tile). One block per
-//   (16-row tile, b*hkv) stages each live block's (bs, d) K and V rows in
-//   shared memory as fp32 and accumulates P V for its 16 rows in
-//   registers.
+// Both kernels cut a sequence's live key range [lo, min(length, m*bs))
+// evenly across n_split blocks (<= 8, about four blocks per SM over the
+// card), which the launch groups into one thread-block cluster. Each
+// block pushes its partials of each query row into the shared memory of
+// the row's owner block (remote stores, through distributed shared
+// memory); after one cluster barrier every owner merges its rows. So a
+// call is one launch, with no scratch in device memory, and no block
+// walks more of its sequence's keys than another.
+//
+// * split (n_rows <= 8: the decode step, GQA groups, short tiles): grid
+//   (split, b*hkv), 4 warps. Every row is read 16 bytes a lane (4 fp32,
+//   8 bf16 or 16 int8 columns; 8 int8 columns at 4 or more query rows),
+//   so d*itemsize/16 lanes hold a row and a warp reads 32/(that) rows at
+//   once; the sequence's table row is read into shared memory once,
+//   beside its length. Each lane issues the loads of its next KR rows
+//   (K, V and int8 scales, into registers) before it consumes the
+//   current ones, so two steps of rows are in flight. Scores are reduced
+//   across a row's lanes by shuffles; each lane group keeps its own
+//   online softmax; groups merge by shuffles, warps through shared
+//   memory, splits through the cluster.
+// * tile (n_rows > 8: the shared-prefix suffix tile): grid (split, 32-row
+//   tile, b*hkv), 4 warps. 32-key tiles (pool blocks gathered through
+//   the table) are staged raw by cp.async into a 2-stage ring, one
+//   __syncthreads per key tile. A thread holds a 4 x 2 (row x key) micro
+//   tile of S = q K^T and a 4-row x d/16-column micro tile of O; the row
+//   softmax reduces over the 16 lanes of a half warp by shuffles, and P
+//   passes through shared memory within that half warp.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
 
+#include "flash_tc.cuh"
+
+namespace cg = cooperative_groups;
+
+#ifndef EDL_PART
+#define EDL_PART 0
+#endif
+
+namespace edl_paged {
+
+// The pointers and sizes every launch takes, bundled so the dispatch
+// over (dtype, d, rows) stays short.
+struct PagedArgs {
+  const void *qf, *k_pool, *v_pool, *k_scale, *v_scale, *table, *length;
+  void *o, *l, *mx;
+  int b, hkv, n_rows, m, bs, window, t;
+  int n_split;  // blocks a cluster: chosen by paged_decode
+};
+
+// the split (tile = false) or tile kernel over arenas of T, head dim d;
+// part 0 holds float's instances, part 1 bf16's, part 2 int8's
+template <typename T>
+int launch_dtype(bool tile, int d, const PagedArgs& a, cudaStream_t s);
+template <>
+int launch_dtype<float>(bool, int, const PagedArgs&, cudaStream_t);
+template <>
+int launch_dtype<__nv_bfloat16>(bool, int, const PagedArgs&, cudaStream_t);
+template <>
+int launch_dtype<int8_t>(bool, int, const PagedArgs&, cudaStream_t);
+
+}  // namespace edl_paged
+
 namespace {
 
-constexpr int R = 16;
-constexpr int NT = 128;
+using edl_paged::PagedArgs;
+
+using edl_tc::cp_async16;
+using edl_tc::cp_async_commit;
+using edl_tc::cp_async_wait_all;
+using edl_tc::smem_u32;
+
+constexpr int NW = 4;  // warps a block, both kernels
+constexpr int NT = NW * 32;
+constexpr int MAX_SPLIT = 8;  // the portable cluster size
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
 constexpr bool kQuant = std::is_same<T, int8_t>::value;
 
-// element e (0..15, a constant after unrolling) of 16 int8 values read
-// as one int4
-__device__ __forceinline__ float i8_at(const int4& x, int e) {
-  const int w = e < 4 ? x.x : (e < 8 ? x.y : (e < 12 ? x.z : x.w));
-  return (float)(int8_t)(w >> (8 * (e & 3)));
+// elements of T in 16 bytes: 4 fp32, 8 bf16, 16 int8
+template <typename T>
+constexpr int kPer16 = 16 / (int)sizeof(T);
+
+// element e of T in the 32-bit words w, as fp32 (bf16 by its bits)
+template <typename T>
+__device__ __forceinline__ float word_elem(const uint32_t* w, int e) {
+  if constexpr (std::is_same<T, float>::value) {
+    return __uint_as_float(w[e]);
+  } else if constexpr (kQuant<T>) {
+    return (float)(int8_t)(w[e >> 2] >> (8 * (e & 3)));
+  } else {
+    return __uint_as_float((e & 1) ? (w[e >> 1] & 0xffff0000u)
+                                   : (w[e >> 1] << 16));
+  }
 }
 
+// 16 or 8 raw bytes of T as fp32
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r,
+                                       float (&out)[kPer16<T>]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int e = 0; e < kPer16<T>; ++e) out[e] = word_elem<T>(w, e);
+}
+template <typename T>
+__device__ __forceinline__ void unpack(const uint2& r,
+                                       float (&out)[kPer16<T> / 2]) {
+  const uint32_t w[2] = {r.x, r.y};
+#pragma unroll
+  for (int e = 0; e < kPer16<T> / 2; ++e) out[e] = word_elem<T>(w, e);
+}
+
+// N consecutive elements of T at p (shared memory, 4-byte aligned, and
+// 16-byte aligned where N * sizeof(T) >= 16) as fp32
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const T* p, float (&out)[N]) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  uint32_t w[BYTES / 4];
+  if constexpr (BYTES >= 16) {
+#pragma unroll
+    for (int q = 0; q < BYTES / 16; ++q) {
+      const uint4 x = reinterpret_cast<const uint4*>(p)[q];
+      w[4 * q] = x.x; w[4 * q + 1] = x.y; w[4 * q + 2] = x.z;
+      w[4 * q + 3] = x.w;
+    }
+  } else if constexpr (BYTES == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x; w[1] = x.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] = word_elem<T>(w, e);
+}
+
+// 4 bytes global -> shared, asynchronously; `bytes` 0 zero-fills
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The keys [*k0, *k1) that split `split` of n_split walks: an even cut
+// of the live keys from position len - window + 1 (0 without a window),
+// the first any row can see, to min(len, m * bs).
+__device__ __forceinline__ void key_range(int len, int m, int bs, int window,
+                                          int n_split, int split, int* k0,
+                                          int* k1) {
+  const int hi = min(len, m * bs);
+  const int lo = window > 0 ? min(hi, max(0, len - window + 1)) : 0;
+  const int per = (hi - lo + n_split - 1) / n_split;
+  *k0 = min(hi, lo + split * per);
+  *k1 = min(hi, *k0 + per);
+}
+
+// Row i's window floor (rows are tile tokens i % t): it sees pool rows
+// k_pos > floor; INT_MIN without a window.
+__device__ __forceinline__ int window_floor(int len, int window, int t,
+                                            int i) {
+  return window > 0 ? len + i % t - window : INT_MIN;
+}
+
+// The cluster's merge. Row i of a block's partials belongs to block
+// i % n_split of the cluster, which keeps, for each block `src`, slot
+// [src][i / n_split] of D + 4 floats in its `recv` array (o, then m in
+// log2 units and l; 16-byte aligned): recv holds n_split * ceil(rows /
+// n_split) slots. Every block pushes its rows there by remote stores
+// (they do not wait on a reply, where loads from another block's shared
+// memory would), the cluster syncs, and each block merges the rows it
+// owns from its own shared memory.
+
+// slots a block's recv holds for `rows` rows: at most rows + 7
+__host__ __device__ constexpr int recv_slots(int rows) {
+  return rows + MAX_SPLIT - 1;
+}
+
+// the address, in the shared memory of row i's owner, of the slot that
+// block `split` fills for it
+__device__ __forceinline__ float* recv_slot(cg::cluster_group& cluster,
+                                            float* recv, int i, int split,
+                                            int n_split, int rows, int D) {
+  const int per = (rows + n_split - 1) / n_split;
+  return cluster.map_shared_rank(recv, i % n_split) +
+         (size_t)(split * per + i / n_split) * (D + 4);
+}
+
+// After the pushes and a cluster.sync(): this block merges its rows and
+// writes o [.., n_rows, D], l and m (natural log) for the rows r0 + i <
+// n_rows, out_row0 the output row of i = 0.
 template <int D>
-size_t tile_smem_bytes(int bs) {
-  // qs [R][D+1], ks [bs][D+1], vs [bs][D], ss [R][bs+1], row m, l, corr
-  return sizeof(float) * ((size_t)R * (D + 1) + (size_t)bs * (D + 1) +
-                          (size_t)bs * D + (size_t)R * (bs + 1) + 3 * R);
+__device__ __forceinline__ void merge_owned(
+    const float* recv, int rows, int n_split, int split, size_t out_row0,
+    int r0, int n_rows, float* __restrict__ o, float* __restrict__ l_out,
+    float* __restrict__ m_out) {
+  const int per = (rows + n_split - 1) / n_split;
+  for (int idx = threadIdx.x; idx < per * D; idx += NT) {
+    const int slot = idx / D, e = idx % D;
+    const int i = slot * n_split + split;
+    if (i >= rows || r0 + i >= n_rows) continue;
+    float big = NEG_INF;
+    for (int src = 0; src < n_split; ++src)
+      big = fmaxf(big, recv[(size_t)(src * per + slot) * (D + 4) + D]);
+    float out = 0.f, l = 0.f;
+    for (int src = 0; src < n_split; ++src) {
+      const float* from = recv + (size_t)(src * per + slot) * (D + 4);
+      const float w = exp2f(from[D] - big);
+      out += from[e] * w;
+      l += from[D + 1] * w;
+    }
+    const size_t row = out_row0 + i;
+    o[row * D + e] = out;
+    if (e == 0) {
+      l_out[row] = l;
+      m_out[row] = l > 0.f ? big * LN2 : NEG_INF;
+    }
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_tile_kernel(
+// the cluster barrier in two halves: arrive at the kernel's start, wait
+// before the first remote store, so no block writes into a block that
+// has not started
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ split kernel
+
+// rows each lane group reads a step, before the next step's loads
+// (half for int8, whose 16-column lanes hold twice the values)
+template <typename T, int NR>
+constexpr int kSplitRows =
+    NR >= 8 ? 1 : (NR >= 2 ? 2 : 4) / (kQuant<T> ? 2 : 1);
+
+// blocks an SM must hold: five at one query row (the decode step): at
+// four, an H100 cannot hold all 64 clusters of 8 of a decode step over 8
+// sequences x 8 kv heads at once, and the last start a wave late
+template <int NR>
+constexpr int kSplitMinBlocks = NR == 1 ? 5 : (NR == 2 ? 4 : 1);
+
+// bytes of a row a lane reads: 16, but 8 for int8 arenas at 4 or more
+// query rows, whose 16 columns a lane would need 16 accumulators a row
+template <typename T, int NR>
+constexpr int kLaneBytes = kQuant<T> && NR >= 4 ? 8 : 16;
+
+// one step's rows of a lane: raw K / V bytes (R: uint4 or uint2) and,
+// for int8, their scales
+template <typename R, int KR>
+struct Rows {
+  R k[KR], v[KR];
+  float ks[KR], vs[KR];
+  bool ok[KR];  // read (in range, slot allocated)
+};
+
+// One block per (split, sequence * kv head), a cluster per sequence * kv
+// head; NR = n_rows rounded up to a power of two (<= 8).
+template <typename T, int D, int NR>
+__global__ void __launch_bounds__(NT, kSplitMinBlocks<NR>) paged_split_kernel(
     const float* __restrict__ qf, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ length, float* __restrict__ o,
     float* __restrict__ l_out, float* __restrict__ m_out, int hkv,
     int n_rows, int m, int bs, int window, int t) {
-  static_assert((R * D) % NT == 0, "R*D must be a multiple of NT");
-  constexpr int DP = D + 1;
-  constexpr int PER = R * D / NT;
-  const int SP = bs + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + R * DP;
-  float* vs = ks + bs * DP;
-  float* ss = vs + bs * D;
-  float* row_m = ss + R * SP;
-  float* row_l = row_m + R;
-  float* row_c = row_l + R;
+  constexpr int LB = kLaneBytes<T, NR>;
+  using Raw = std::conditional_t<LB == 16, uint4, uint2>;
+  constexpr int CPL = LB / (int)sizeof(T);  // columns a lane
+  constexpr int LPR = D / CPL;    // lanes a row
+  constexpr int G = 32 / LPR;     // rows a warp reads at once
+  constexpr int KR = kSplitRows<T, NR>;
+  constexpr int STEP = NW * G * KR;  // rows a block reads a step
+  constexpr int QS = CPL + 4;  // floats per column chunk of qs: the lanes
+                               // of a row read distinct banks
+  extern __shared__ int tbl_s[];  // the sequence's table row
+  __shared__ __align__(16) float qs[NR][LPR * QS];
+  __shared__ float wm[NW][NR], wl[NW][NR];
+  __shared__ __align__(16) float wo[NW][NR][D];
+  __shared__ __align__(16) float recv[recv_slots(NR) * (D + 4)];
 
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * R;
-  const int bk = blockIdx.y;  // batch * hkv + kv head
-  const int batch = bk / hkv, kvh = bk % hkv;
-  const int len = length[batch];
-  const float* qb = qf + (size_t)bk * n_rows * D;
-
-  for (int i = tid; i < R * D; i += NT) {
-    const int r = i / D, e = i % D;
-    qs[r * DP + e] =
-        (r0 + r < n_rows) ? qb[(size_t)(r0 + r) * D + e] * LOG2E : 0.f;
-  }
-  if (tid < R) {
-    row_m[tid] = NEG_INF;
-    row_l[tid] = 0.f;
-  }
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-
-  const int n_slots = min(m, (max(len, 0) + bs - 1) / bs);
-  const int j_lo = window > 0 ? max(0, len - window + 1) / bs : 0;
-  const size_t row_stride = (size_t)hkv * D;
-  for (int j = j_lo; j < n_slots; ++j) {
-    const int bid = table[(size_t)batch * m + j];
-    if (bid < 0) continue;  // unallocated slot: never read (block-uniform)
-    __syncthreads();        // the previous slot's readers are done
-    const size_t base = (size_t)bid * bs * row_stride + (size_t)kvh * D;
-    if constexpr (kQuant<T>) {
-      // 16 int8 elements per 16-byte load (D is 64 or 128), each scaled
-      // by its row's scale on the way into shared memory
-      constexpr int V = 16, CH = D / V;
-      for (int i = tid; i < bs * CH; i += NT) {
-        const int r = i / CH, e = (i % CH) * V;
-        const size_t off = base + (size_t)r * row_stride + e;
-        const int4 kr = *reinterpret_cast<const int4*>(k_pool + off);
-        const int4 vr = *reinterpret_cast<const int4*>(v_pool + off);
-        const size_t srow = ((size_t)bid * bs + r) * hkv + kvh;
-        const float ksc = k_scale[srow], vsc = v_scale[srow];
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          ks[r * DP + e + j] = i8_at(kr, j) * ksc;
-          vs[r * D + e + j] = i8_at(vr, j) * vsc;
-        }
-      }
-    } else {
-      for (int i = tid; i < bs * D; i += NT) {
-        const int r = i / D, e = i % D;
-        const size_t off = base + (size_t)r * row_stride + e;
-        ks[r * DP + e] = to_f(k_pool[off]);
-        vs[r * D + e] = to_f(v_pool[off]);
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < R * bs; i += NT) {
-      const int r = i / bs, c = i % bs;
-      const int kp = j * bs + c;
-      float s = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) s += qs[r * DP + e] * ks[c * DP + e];
-      const bool valid =
-          kp < len && (window <= 0 || kp > len + (r0 + r) % t - window);
-      ss[r * SP + c] = valid ? s : NEG_INF;
-    }
-    __syncthreads();
-    if (tid < R) {
-      float mx = NEG_INF;
-      for (int c = 0; c < bs; ++c) mx = fmaxf(mx, ss[tid * SP + c]);
-      const float m_prev = row_m[tid];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = 0; c < bs; ++c) {
-        const float sv = ss[tid * SP + c];
-        const float p = sv > 0.5f * NEG_INF ? exp2f(sv - m_new) : 0.f;
-        ss[tid * SP + c] = p;
-        sum += p;
-      }
-      const float corr = exp2f(m_prev - m_new);
-      row_l[tid] = row_l[tid] * corr + sum;
-      row_m[tid] = m_new;
-      row_c[tid] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = tid + NT * i;
-      const int r = idx / D, e = idx % D;
-      float a = acc[i] * row_c[r];
-      for (int c = 0; c < bs; ++c) a += ss[r * SP + c] * vs[c * D + e];
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = tid + NT * i;
-    const int r = idx / D, e = idx % D;
-    if (r0 + r < n_rows) o[((size_t)bk * n_rows + r0 + r) * D + e] = acc[i];
-  }
-  if (tid < R && r0 + tid < n_rows) {
-    const size_t out = (size_t)bk * n_rows + r0 + tid;
-    const float l = row_l[tid];
-    l_out[out] = l;
-    m_out[out] = l > 0.f ? row_m[tid] * LN2 : NEG_INF;
-  }
-}
-
-// ------------------------------------------------------------ split kernel
-
-constexpr int SPLIT_WARPS = 4;
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// `n` consecutive elements at p (a lane's columns of one row) as fp32,
-// read as one vector.
-template <int N>
-__device__ __forceinline__ void load_cols(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x; out[1] = x.y;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
-                                          float (&out)[N]) {
-  if constexpr (N == 4) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  } else {
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = a.x; out[1] = a.y;
-  }
-}
-
-// The block's warps' partials (m in log2 units) merged into the split's
-// partials at pbase = (split * b*hkv + bk) * n_rows of o_part / l_part /
-// m_part; each warp has left its (m, l, o) in sm / sl / so. Call after
-// __syncthreads().
-template <int D, int NR>
-__device__ __forceinline__ void store_split_partials(
-    const float (&sm)[SPLIT_WARPS][NR], const float (&sl)[SPLIT_WARPS][NR],
-    const float (&so)[SPLIT_WARPS][NR][D], size_t pbase, int n_rows,
-    float* __restrict__ o_part, float* __restrict__ l_part,
-    float* __restrict__ m_part) {
-  for (int idx = threadIdx.x; idx < NR * D; idx += SPLIT_WARPS * 32) {
-    const int i = idx / D, e = idx % D;
-    if (i >= n_rows) continue;
-    float big = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < SPLIT_WARPS; ++w) big = fmaxf(big, sm[w][i]);
-    float out = 0.f, l = 0.f;
-#pragma unroll
-    for (int w = 0; w < SPLIT_WARPS; ++w) {
-      const float wgt = exp2f(sm[w][i] - big);
-      out += so[w][i][e] * wgt;
-      l += sl[w][i] * wgt;
-    }
-    o_part[(pbase + i) * D + e] = out;
-    if (e == 0) {
-      l_part[pbase + i] = l;
-      m_part[pbase + i] = big;
-    }
-  }
-}
-
-// The table slots [*j0, *j1) that split `split` walks: without a window,
-// slots_per_split of the live ones (k_pos < len); under a window, an even
-// cut of the live slots from that of position len - window + 1, the first
-// any row can see, across the gridDim.x splits.
-__device__ __forceinline__ void split_range(int len, int m, int bs,
-                                            int window, int slots_per_split,
-                                            int split, int* j0, int* j1) {
-  const int n_slots = min(m, (len + bs - 1) / bs);
-  int lo = 0, per = slots_per_split;
-  if (window > 0) {
-    lo = min(n_slots, max(0, len - window + 1) / bs);
-    per = (n_slots - lo + gridDim.x - 1) / gridDim.x;
-  }
-  *j0 = lo + split * per;
-  *j1 = min(n_slots, *j0 + per);
-}
-
-// Row i's window floor: it sees pool rows k_pos > row_lo[i] (INT_MIN
-// without a window); row i is tile token i % t.
-template <int NR>
-__device__ __forceinline__ void window_floors(int len, int window, int t,
-                                              int (&row_lo)[NR]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-    row_lo[i] = window > 0 ? len + i % t - window : INT_MIN;
-}
-
-// One block per (split, sequence * kv head); NR = n_rows rounded up to
-// a power of two (<= 8). Writes the split's partials (o, l, m) with m
-// in log2 units to o_part [split, b*hkv, n_rows, D] etc.
-template <typename T, int D, int NR>
-__global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_kernel(
-    const float* __restrict__ qf, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table,
-    const int* __restrict__ length, float* __restrict__ o_part,
-    float* __restrict__ l_part, float* __restrict__ m_part, int hkv,
-    int n_rows, int m, int bs, int slots_per_split, int window, int t) {
-  constexpr int DL = D / 32;          // columns per lane
-  constexpr int KC = NR >= 8 ? 4 : 8;  // key rows per register chunk
-  const int split = blockIdx.x, bk = blockIdx.y, nbk = gridDim.y;
-  const int batch = bk / hkv, kvh = bk % hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = max(length[batch], 0);
-  int j0, j1, row_lo[NR];
-  split_range(len, m, bs, window, slots_per_split, split, &j0, &j1);
-  window_floors<NR>(len, window, t, row_lo);
-
-  float q[NR][DL], o[NR][DL], mr[NR], lr[NR];
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-#pragma unroll
-    for (int e = 0; e < DL; ++e) {
-      q[i][e] = i < n_rows
-                    ? qf[((size_t)bk * n_rows + i) * D + lane * DL + e] * LOG2E
-                    : 0.f;
-      o[i][e] = 0.f;
-    }
-    mr[i] = NEG_INF;
-    lr[i] = 0.f;
-  }
-
-  const size_t row_stride = (size_t)hkv * D;
-  for (int j = j0 + warp; j < j1; j += SPLIT_WARPS) {
-    const int bid = table[(size_t)batch * m + j];
-    if (bid < 0) continue;  // unallocated slot: never read (warp-uniform)
-    const size_t base =
-        (size_t)bid * bs * row_stride + (size_t)kvh * D + lane * DL;
-    for (int r0 = 0; r0 < bs; r0 += KC) {
-      float kf[KC][DL], vf[KC][DL];
-#pragma unroll
-      for (int r = 0; r < KC; ++r) {
-        if (r0 + r < bs) {
-          load_cols(k_pool + base + (size_t)(r0 + r) * row_stride, kf[r]);
-          load_cols(v_pool + base + (size_t)(r0 + r) * row_stride, vf[r]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < DL; ++e) kf[r][e] = vf[r][e] = 0.f;
-        }
-      }
-      float s[NR][KC];
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int r = 0; r < KC; ++r) {
-          float acc = 0.f;
-#pragma unroll
-          for (int e = 0; e < DL; ++e) acc += q[i][e] * kf[r][e];
-          s[i][r] = acc;
-        }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < NR; ++i)
-#pragma unroll
-          for (int r = 0; r < KC; ++r)
-            s[i][r] += __shfl_xor_sync(FULL_MASK, s[i][r], off);
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int r = 0; r < KC; ++r) {
-          const int kp = j * bs + r0 + r;
-          const bool valid = r0 + r < bs && kp < len && kp > row_lo[i];
-          s[i][r] = valid ? s[i][r] : NEG_INF;
-          mx = fmaxf(mx, s[i][r]);
-        }
-        const float m_new = fmaxf(mr[i], mx);
-        const float corr = exp2f(mr[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int e = 0; e < DL; ++e) o[i][e] *= corr;
-#pragma unroll
-        for (int r = 0; r < KC; ++r) {
-          const float p = s[i][r] > 0.5f * NEG_INF ? exp2f(s[i][r] - m_new)
-                                                   : 0.f;
-          sum += p;
-#pragma unroll
-          for (int e = 0; e < DL; ++e) o[i][e] += p * vf[r][e];
-        }
-        lr[i] = lr[i] * corr + sum;
-        mr[i] = m_new;
-      }
-    }
-  }
-
-  // merge the warps' partials
-  __shared__ float sm[SPLIT_WARPS][NR], sl[SPLIT_WARPS][NR];
-  __shared__ float so[SPLIT_WARPS][NR][D];
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    if (lane == 0) {
-      sm[warp][i] = mr[i];
-      sl[warp][i] = lr[i];
-    }
-#pragma unroll
-    for (int e = 0; e < DL; ++e) so[warp][i][lane * DL + e] = o[i][e];
-  }
-  __syncthreads();
-  store_split_partials<D, NR>(sm, sl, so, ((size_t)split * nbk + bk) * n_rows,
-                              n_rows, o_part, l_part, m_part);
-}
-
-// ------------------------------------------------------ int8 split kernel
-
-constexpr int I8V = 16;              // int8 columns a lane reads (an int4)
-constexpr int I8_QSTRIDE = I8V + 4;  // floats per 16-column chunk of qs:
-                                     // the lanes of a row read distinct banks
-
-// The split kernel for int8 arenas: same grid, walk and output as
-// paged_split_kernel. LPR = D / 16 lanes hold a row, 16 int8 columns
-// each, so a warp reads G = 32 / LPR rows (KR per lane group) per step;
-// the k-scale multiplies the reduced score, the v-scale the weight of
-// the value product. Each lane group keeps an online softmax over the
-// rows it reads; the groups merge by shuffles (lanes of one column chunk
-// are LPR apart), then the warps through shared memory. The query rows
-// sit in shared memory (each lane reads its 16 columns).
-template <int D, int NR>
-__global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
-    const float* __restrict__ qf, const int8_t* __restrict__ k_pool,
-    const int8_t* __restrict__ v_pool, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ table,
-    const int* __restrict__ length, float* __restrict__ o_part,
-    float* __restrict__ l_part, float* __restrict__ m_part, int hkv,
-    int n_rows, int m, int bs, int slots_per_split, int window, int t) {
-  constexpr int LPR = D / I8V;  // 8 at d = 128, 4 at d = 64
-  constexpr int G = 32 / LPR;
-  constexpr int KR = NR >= 8 ? 1 : (NR >= 4 ? 2 : 4);
-  __shared__ float qs[NR][(D / I8V) * I8_QSTRIDE];
-  __shared__ float sm[SPLIT_WARPS][NR], sl[SPLIT_WARPS][NR];
-  __shared__ float so[SPLIT_WARPS][NR][D];
-  const int split = blockIdx.x, bk = blockIdx.y, nbk = gridDim.y;
-  const int batch = bk / hkv, kvh = bk % hkv;
+  cluster_arrive();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = gridDim.x, split = blockIdx.x;  // the cluster spans x
+  const int bk = blockIdx.y, batch = bk / hkv, kvh = bk % hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPR, chunk = lane % LPR;
+  // the length, the table row and the query rows, all loads in flight
+  // at once (the row does not wait for the length)
   const int len = max(length[batch], 0);
-  int j0, j1, row_lo[NR];
-  split_range(len, m, bs, window, slots_per_split, split, &j0, &j1);
-  window_floors<NR>(len, window, t, row_lo);
-
-  for (int idx = threadIdx.x; idx < NR * D; idx += SPLIT_WARPS * 32) {
+  for (int i = threadIdx.x; i < m; i += NT)
+    tbl_s[i] = table[(size_t)batch * m + i];
+  for (int idx = threadIdx.x; idx < NR * D; idx += NT) {
     const int i = idx / D, e = idx % D;
-    qs[i][(e / I8V) * I8_QSTRIDE + e % I8V] =
+    qs[i][(e / CPL) * QS + e % CPL] =
         i < n_rows ? qf[((size_t)bk * n_rows + i) * D + e] * LOG2E : 0.f;
   }
   __syncthreads();
+  int k0, k1;
+  key_range(len, m, bs, window, n_split, split, &k0, &k1);
 
-  float o[NR][I8V], mr[NR], lr[NR];
+  int row_lo[NR];
+  float acc[NR][CPL], mr[NR], lr[NR];
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
+    row_lo[i] = window_floor(len, window, t, i);
 #pragma unroll
-    for (int e = 0; e < I8V; ++e) o[i][e] = 0.f;
+    for (int e = 0; e < CPL; ++e) acc[i][e] = 0.f;
     mr[i] = NEG_INF;
     lr[i] = 0.f;
   }
 
   const size_t row_stride = (size_t)hkv * D;
-  for (int j = j0 + warp; j < j1; j += SPLIT_WARPS) {
-    const int bid = table[(size_t)batch * m + j];
-    if (bid < 0) continue;  // unallocated slot: never read (warp-uniform)
-    const size_t base =
-        (size_t)bid * bs * row_stride + (size_t)kvh * D + chunk * I8V;
-    const size_t sbase = (size_t)bid * bs * hkv + kvh;
-    for (int r0 = 0; r0 < bs; r0 += G * KR) {
-      int4 kr[KR], vr[KR];
-      float ksc[KR], vsc[KR];
-      bool valid[KR];
-      int kp[KR];
+  auto row_of = [&](int it, int u) {
+    return k0 + ((it * KR + u) * NW + warp) * G + grp;
+  };
+  // the lane group's next row as (table slot, row in the block), walked
+  // in steps of NW * G rows rather than divided out row by row: load
+  // visits the rows in order
+  int slot = row_of(0, 0) / bs, in_slot = row_of(0, 0) % bs;
+  auto load = [&](int it, Rows<Raw, KR>& r) {
 #pragma unroll
-      for (int u = 0; u < KR; ++u) {
-        const int r = r0 + u * G + grp;
-        kp[u] = j * bs + r;
-        valid[u] = r < bs && kp[u] < len;
-        if (r < bs) {
-          kr[u] = *reinterpret_cast<const int4*>(
-              k_pool + base + (size_t)r * row_stride);
-          vr[u] = *reinterpret_cast<const int4*>(
-              v_pool + base + (size_t)r * row_stride);
-          ksc[u] = k_scale[sbase + (size_t)r * hkv];
-          vsc[u] = v_scale[sbase + (size_t)r * hkv];
-        } else {
-          kr[u] = vr[u] = make_int4(0, 0, 0, 0);
-          ksc[u] = vsc[u] = 0.f;
+    for (int u = 0; u < KR; ++u) {
+      const int kp = row_of(it, u);
+      const int bid = kp < k1 ? tbl_s[slot] : -1;
+      const int w = in_slot;
+      for (in_slot += NW * G; in_slot >= bs; in_slot -= bs) ++slot;
+      r.ok[u] = bid >= 0;
+      if (bid >= 0) {  // -1 slots are never read
+        const size_t prow = (size_t)(bid * bs + w);
+        const size_t off = prow * row_stride + (size_t)kvh * D + chunk * CPL;
+        r.k[u] = __ldg(reinterpret_cast<const Raw*>(k_pool + off));
+        r.v[u] = __ldg(reinterpret_cast<const Raw*>(v_pool + off));
+        if constexpr (kQuant<T>) {
+          r.ks[u] = __ldg(k_scale + prow * hkv + kvh);
+          r.vs[u] = __ldg(v_scale + prow * hkv + kvh);
         }
+      } else {
+        r.k[u] = r.v[u] = Raw{};
+        r.ks[u] = r.vs[u] = 0.f;
       }
-      float s[NR][KR];
+    }
+  };
+  auto consume = [&](int it, const Rows<Raw, KR>& r) {
+    float s[NR][KR];
+#pragma unroll
+    for (int u = 0; u < KR; ++u) {
+      float kf[CPL];
+      unpack<T>(r.k[u], kf);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float4* q = reinterpret_cast<const float4*>(&qs[i][chunk * QS]);
+        float dot = 0.f;
+#pragma unroll
+        for (int e4 = 0; e4 < CPL / 4; ++e4) {
+          const float4 x = q[e4];
+          dot += x.x * kf[4 * e4] + x.y * kf[4 * e4 + 1] +
+                 x.z * kf[4 * e4 + 2] + x.w * kf[4 * e4 + 3];
+        }
+        s[i][u] = dot;
+      }
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
 #pragma unroll
       for (int i = 0; i < NR; ++i)
 #pragma unroll
-        for (int u = 0; u < KR; ++u) {
-          const float* q = &qs[i][chunk * I8_QSTRIDE];
-          float acc = 0.f;
+        for (int u = 0; u < KR; ++u)
+          s[i][u] += __shfl_xor_sync(FULL_MASK, s[i][u], off);
 #pragma unroll
-          for (int e = 0; e < I8V; ++e) acc += q[e] * i8_at(kr[u], e);
-          s[i][u] = acc;
-        }
+    for (int i = 0; i < NR; ++i) {
+      float mx = NEG_INF;
 #pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
+      for (int u = 0; u < KR; ++u) {
+        const bool valid = r.ok[u] && row_of(it, u) > row_lo[i];
+        // int8: the k-scale multiplies the reduced score
+        s[i][u] = valid ? (kQuant<T> ? s[i][u] * r.ks[u] : s[i][u]) : NEG_INF;
+        mx = fmaxf(mx, s[i][u]);
+      }
+      const float m_new = fmaxf(mr[i], mx);
+      const float corr = exp2f(mr[i] - m_new);
+      float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < NR; ++i)
+      for (int u = 0; u < KR; ++u) {
+        s[i][u] = s[i][u] > 0.5f * NEG_INF ? exp2f(s[i][u] - m_new) : 0.f;
+        sum += s[i][u];
+      }
 #pragma unroll
-          for (int u = 0; u < KR; ++u)
-            s[i][u] += __shfl_xor_sync(FULL_MASK, s[i][u], off);
+      for (int e = 0; e < CPL; ++e) acc[i][e] *= corr;
+      lr[i] = lr[i] * corr + sum;
+      mr[i] = m_new;
+    }
+#pragma unroll
+    for (int u = 0; u < KR; ++u) {
+      float vf[CPL];
+      unpack<T>(r.v[u], vf);
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        float mx = NEG_INF;
+        // int8: the v-scale multiplies the weight of the value product only
+        const float pv = kQuant<T> ? s[i][u] * r.vs[u] : s[i][u];
 #pragma unroll
-        for (int u = 0; u < KR; ++u) {
-          s[i][u] = valid[u] && kp[u] > row_lo[i] ? s[i][u] * ksc[u]
-                                                  : NEG_INF;  // k-scale
-          mx = fmaxf(mx, s[i][u]);
-        }
-        const float m_new = fmaxf(mr[i], mx);
-        const float corr = exp2f(mr[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int e = 0; e < I8V; ++e) o[i][e] *= corr;
-#pragma unroll
-        for (int u = 0; u < KR; ++u) {
-          const float p = s[i][u] > 0.5f * NEG_INF ? exp2f(s[i][u] - m_new)
-                                                   : 0.f;
-          sum += p;
-          const float pv = p * vsc[u];  // v-scale: value product only
-#pragma unroll
-          for (int e = 0; e < I8V; ++e) o[i][e] += pv * i8_at(vr[u], e);
-        }
-        lr[i] = lr[i] * corr + sum;
-        mr[i] = m_new;
+        for (int e = 0; e < CPL; ++e) acc[i][e] += pv * vf[e];
       }
     }
+  };
+
+  // two register sets of rows: the next step's loads are issued before
+  // the current step is consumed
+  const int n_it = k1 > k0 ? (k1 - k0 + STEP - 1) / STEP : 0;
+  Rows<Raw, KR> ra, rb;
+  if (n_it > 0) load(0, ra);
+  for (int it = 0; it < n_it; it += 2) {
+    if (it + 1 < n_it) load(it + 1, rb);
+    consume(it, ra);
+    if (it + 1 >= n_it) break;
+    if (it + 2 < n_it) load(it + 2, ra);
+    consume(it + 1, rb);
   }
 
   // merge the lane groups (same column chunk, lanes LPR apart)
@@ -578,205 +484,463 @@ __global__ void __launch_bounds__(SPLIT_WARPS * 32) paged_split_int8_kernel(
       const float a = exp2f(mr[i] - m_new), b = exp2f(m_o - m_new);
       lr[i] = lr[i] * a + l_o * b;
 #pragma unroll
-      for (int e = 0; e < I8V; ++e)
-        o[i][e] = o[i][e] * a + __shfl_xor_sync(FULL_MASK, o[i][e], off) * b;
+      for (int e = 0; e < CPL; ++e)
+        acc[i][e] =
+            acc[i][e] * a + __shfl_xor_sync(FULL_MASK, acc[i][e], off) * b;
       mr[i] = m_new;
     }
-  // then the warps
+  // then the warps, into the block's partials
   if (grp == 0) {
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       if (chunk == 0) {
-        sm[warp][i] = mr[i];
-        sl[warp][i] = lr[i];
+        wm[warp][i] = mr[i];
+        wl[warp][i] = lr[i];
       }
 #pragma unroll
-      for (int e = 0; e < I8V; ++e) so[warp][i][chunk * I8V + e] = o[i][e];
+      for (int e = 0; e < CPL; ++e) wo[warp][i][chunk * CPL + e] = acc[i][e];
     }
   }
   __syncthreads();
-  store_split_partials<D, NR>(sm, sl, so, ((size_t)split * nbk + bk) * n_rows,
-                              n_rows, o_part, l_part, m_part);
+  // the block's partials, warps merged, pushed to each row's owner
+  cluster_wait();
+  for (int idx = threadIdx.x; idx < NR * D; idx += NT) {
+    const int i = idx / D, e = idx % D;
+    float big = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) big = fmaxf(big, wm[w][i]);
+    float out = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float wgt = exp2f(wm[w][i] - big);
+      out += wo[w][i][e] * wgt;
+      l += wl[w][i] * wgt;
+    }
+    float* slot = recv_slot(cluster, recv, i, split, n_split, NR, D);
+    slot[e] = out;
+    if (e == 0) {
+      slot[D] = big;
+      slot[D + 1] = l;
+    }
+  }
+  cluster.sync();
+  merge_owned<D>(recv, NR, n_split, split, (size_t)bk * n_rows, 0, n_rows, o,
+                 l_out, m_out);
 }
 
-// Merge the splits: grid (n_rows, b*hkv), D threads.
-__global__ void paged_merge_kernel(const float* __restrict__ o_part,
-                                   const float* __restrict__ l_part,
-                                   const float* __restrict__ m_part,
-                                   float* __restrict__ o,
-                                   float* __restrict__ l_out,
-                                   float* __restrict__ m_out, int n_split,
-                                   int n_rows, int d) {
-  const int i = blockIdx.x, bk = blockIdx.y, nbk = gridDim.y;
-  const int e = threadIdx.x;
-  float big = NEG_INF;
-  for (int s = 0; s < n_split; ++s)
-    big = fmaxf(big, m_part[((size_t)s * nbk + bk) * n_rows + i]);
-  float out = 0.f, l = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const size_t row = ((size_t)s * nbk + bk) * n_rows + i;
-    const float wgt = exp2f(m_part[row] - big);
-    out += o_part[row * d + e] * wgt;
-    l += l_part[row] * wgt;
-  }
-  const size_t row = (size_t)bk * n_rows + i;
-  o[row * d + e] = out;
-  if (e == 0) {
-    l_out[row] = l;
-    m_out[row] = l > 0.f ? big * LN2 : NEG_INF;
-  }
-}
+// ------------------------------------------------------------- tile kernel
 
-// The pointers and sizes every launch takes, bundled so the dispatch
-// over (dtype, d, rows) stays short.
-struct PagedArgs {
-  const void *qf, *k_pool, *v_pool, *k_scale, *v_scale, *table, *length;
-  void *o, *l, *mx;
-  int b, hkv, n_rows, m, bs, window, t;
+constexpr int TR = 32;  // query rows a block
+constexpr int TK = 32;  // keys a staged tile: two pool blocks of 16
+constexpr int RPT = TR / 8;   // query rows a thread
+constexpr int KPT = TK / 16;  // keys a thread scores in a tile
+constexpr int TPK = NT / TK;  // threads that stage a key
+
+// the tile kernel's dynamic shared memory: a 2-stage ring of raw K and V
+// tiles (rows padded by 16 bytes, so the lanes reading 16 bytes of 16
+// keys hit distinct banks), int8 scales and key flags per stage, the fp32
+// query rows and P. After the key loop the ring holds the block's
+// partials for the cluster's merge.
+template <typename T, int D>
+struct TileLayout {
+  static constexpr int KS = D + kPer16<T>;  // elements a staged key row
+  static constexpr int QS = D + 4;          // floats a query row
+  static constexpr int PS = TK + 4;         // floats a row of P
+  static constexpr size_t KV = sizeof(T) * TK * KS;  // one tensor, stage
+  // the ring, which the merge's slots reuse once the key loop is done
+  static constexpr size_t RING =
+      4 * KV > sizeof(float) * recv_slots(TR) * (D + 4)
+          ? 4 * KV
+          : sizeof(float) * recv_slots(TR) * (D + 4);
+  static constexpr size_t Q_OFF = RING;
+  static constexpr size_t P_OFF = Q_OFF + sizeof(float) * TR * QS;
+  static constexpr size_t SC_OFF = P_OFF + sizeof(float) * TR * PS;
+  static constexpr size_t OK_OFF = SC_OFF + sizeof(float) * 4 * TK;
+  static constexpr size_t BYTES = OK_OFF + sizeof(int) * 2 * TK;
 };
 
-template <typename T, int D, int NR>
-int launch_split(const PagedArgs& a, void* o_part, void* l_part,
-                 void* m_part, int n_split, int slots_per_split,
-                 cudaStream_t stream) {
-  dim3 grid(n_split, a.b * a.hkv);
-  if constexpr (kQuant<T>) {
-    paged_split_int8_kernel<D, NR><<<grid, SPLIT_WARPS * 32, 0, stream>>>(
-        static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
-        static_cast<const T*>(a.v_pool),
-        static_cast<const float*>(a.k_scale),
-        static_cast<const float*>(a.v_scale),
-        static_cast<const int*>(a.table), static_cast<const int*>(a.length),
-        static_cast<float*>(o_part), static_cast<float*>(l_part),
-        static_cast<float*>(m_part), a.hkv, a.n_rows, a.m, a.bs,
-        slots_per_split, a.window, a.t);
-  } else {
-    paged_split_kernel<T, D, NR><<<grid, SPLIT_WARPS * 32, 0, stream>>>(
-        static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
-        static_cast<const T*>(a.v_pool), static_cast<const int*>(a.table),
-        static_cast<const int*>(a.length), static_cast<float*>(o_part),
-        static_cast<float*>(l_part), static_cast<float*>(m_part), a.hkv,
-        a.n_rows, a.m, a.bs, slots_per_split, a.window, a.t);
+// One block per (split, 32-row tile, sequence * kv head), a cluster per
+// (tile, sequence * kv head). Thread (r, c) = (tid / 16, tid % 16) holds
+// rows r + 8 i (i < RPT): scores of keys c + 16 j (j < KPT) of each tile,
+// and output columns c * D/16 .. + D/16. At about 57 KB of shared memory
+// (bf16, d 128) four blocks fit an SM, so the card holds every cluster of
+// the path's tile at once.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) paged_tile_kernel(
+    const float* __restrict__ qf, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table,
+    const int* __restrict__ length, float* __restrict__ o,
+    float* __restrict__ l_out, float* __restrict__ m_out, int hkv,
+    int n_rows, int m, int bs, int window, int t) {
+  using L = TileLayout<T, D>;
+  constexpr int E = kPer16<T>;  // elements a 16-byte chunk
+  constexpr int CH = D / E;     // chunks a row
+  constexpr int CPT = D / 16;   // output columns a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = reinterpret_cast<T*>(smem + 2 * L::KV);
+  float* qs = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* ps = reinterpret_cast<float*>(smem + L::P_OFF);
+  float* ksc = reinterpret_cast<float*>(smem + L::SC_OFF);  // [2][TK]
+  float* vsc = ksc + 2 * TK;                                // [2][TK]
+  int* kok = reinterpret_cast<int*>(smem + L::OK_OFF);      // [2][TK]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = gridDim.x, split = blockIdx.x;  // the cluster spans x
+  const int r0 = blockIdx.y * TR;
+  const int bk = blockIdx.z, batch = bk / hkv, kvh = bk % hkv;
+  const int tid = threadIdx.x, r = tid / 16, c = tid % 16;
+  const int len = max(length[batch], 0);
+  int k0, k1;
+  key_range(len, m, bs, window, n_split, split, &k0, &k1);
+  const int n_tiles = k1 > k0 ? (k1 - k0 + TK - 1) / TK : 0;
+  const int* tbl = table + (size_t)batch * m;
+
+  // keys kbase .. kbase + TK into stage kt % 2; keys past k1 and -1
+  // slots are zero-filled (never read) and flagged
+  auto issue = [&](int kt) {
+    const int st = kt & 1, key = tid / TPK, kp = k0 + kt * TK + key;
+    const int bid = kp < k1 ? __ldg(tbl + kp / bs) : -1;
+    const size_t row = bid >= 0 ? (size_t)bid * bs + kp % bs : 0;
+    const size_t off = (row * hkv + kvh) * D;
+    const uint32_t bytes = bid >= 0 ? 16 : 0;
+    const size_t dst = (size_t)(st * TK + key) * L::KS;
+#pragma unroll
+    for (int ch = tid % TPK; ch < CH; ch += TPK) {
+      cp_async16(smem_u32(ks + dst + ch * E), k_pool + off + ch * E, bytes);
+      cp_async16(smem_u32(vs + dst + ch * E), v_pool + off + ch * E, bytes);
+    }
+    if (tid % TPK == 0) {
+      kok[st * TK + key] = bid >= 0;
+      if constexpr (kQuant<T>) {
+        cp_async4(smem_u32(ksc + st * TK + key), k_scale + row * hkv + kvh,
+                  bytes / 4);
+        cp_async4(smem_u32(vsc + st * TK + key), v_scale + row * hkv + kvh,
+                  bytes / 4);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (n_tiles > 0) issue(0);
+  // the query rows, 16 bytes a load, all of a thread's loads in flight
+#pragma unroll
+  for (int k = 0; k < TR * D / 4 / NT; ++k) {
+    const int idx = (k * NT + tid) * 4, i = idx / D, e = idx % D;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + i < n_rows)
+      x = __ldg(reinterpret_cast<const float4*>(
+          qf + ((size_t)bk * n_rows + r0 + i) * D + e));
+    *reinterpret_cast<float4*>(&qs[i * L::QS + e]) =
+        make_float4(x.x * LOG2E, x.y * LOG2E, x.z * LOG2E, x.w * LOG2E);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_merge_kernel<<<dim3(a.n_rows, a.b * a.hkv), D, 0, stream>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(m_part), static_cast<float*>(a.o),
-      static_cast<float*>(a.l), static_cast<float*>(a.mx), n_split, a.n_rows,
-      D);
-  return (int)cudaGetLastError();
+  int row_lo[RPT];
+  float acc[RPT][CPT], mrow[RPT], lrow[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    row_lo[i] = window_floor(len, window, t, r0 + r + 8 * i);
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) acc[i][e] = 0.f;
+    mrow[i] = NEG_INF;
+    lrow[i] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // stage kt has landed; stage kt + 1 is free
+    if (kt + 1 < n_tiles) issue(kt + 1);
+    const int st = kt & 1, kbase = k0 + kt * TK;
+    const int n_keys = min(TK, k1 - kbase);
+    const T* kst = ks + (size_t)st * TK * L::KS;
+    const T* vst = vs + (size_t)st * TK * L::KS;
+
+    // S = q K^T over this thread's rows and keys
+    float s[RPT][KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += E) {
+      float qv[RPT][E];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int e4 = 0; e4 < E / 4; ++e4) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              &qs[(r + 8 * i) * L::QS + d0 + 4 * e4]);
+          qv[i][4 * e4] = x.x; qv[i][4 * e4 + 1] = x.y;
+          qv[i][4 * e4 + 2] = x.z; qv[i][4 * e4 + 3] = x.w;
+        }
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        if (16 * j >= n_keys) break;  // block-uniform
+        const int key = c + 16 * j;
+        float kf[E];
+        load_f<T, E>(kst + key * L::KS + d0, kf);
+        if constexpr (kQuant<T>) {
+          const float sc = ksc[st * TK + key];  // each element by its scale
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[e] *= sc;
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int e = 0; e < E; ++e) s[i][j] += qv[i][e] * kf[e];
+      }
+    }
+
+    // the online softmax of each row over its 16 lanes
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const int key = c + 16 * j, kp = kbase + key;
+        const bool valid = key < n_keys && kok[st * TK + key] &&
+                           kp > row_lo[i];
+        s[i][j] = valid ? s[i][j] : NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
+      const float m_new = fmaxf(mrow[i], mx);
+      const float corr = exp2f(mrow[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float p =
+            s[i][j] > 0.5f * NEG_INF ? exp2f(s[i][j] - m_new) : 0.f;
+        ps[(r + 8 * i) * L::PS + c + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(FULL_MASK, sum, off);
+      lrow[i] = lrow[i] * corr + sum;
+      mrow[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) acc[i][e] *= corr;
+    }
+    __syncwarp();  // P of these rows was written by this half warp
+
+    // O += P V over the tile's keys
+    for (int k4 = 0; k4 < n_keys; k4 += 4) {
+      float p[RPT][4];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(&ps[(r + 8 * i) * L::PS + k4]);
+        p[i][0] = x.x; p[i][1] = x.y; p[i][2] = x.z; p[i][3] = x.w;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int key = k4 + jj;
+        float vf[CPT];
+        load_f<T, CPT>(vst + key * L::KS + c * CPT, vf);
+        if constexpr (kQuant<T>) {
+          const float sc = vsc[st * TK + key];
+#pragma unroll
+          for (int e = 0; e < CPT; ++e) vf[e] *= sc;
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int e = 0; e < CPT; ++e) acc[i][e] += p[i][jj] * vf[e];
+      }
+    }
+  }
+
+  // the block's partials pushed to each row's owner, into its ring once
+  // every block of the cluster is done with its own
+  cluster.sync();
+  float* recv = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    float* slot = recv_slot(cluster, recv, r + 8 * i, split, n_split, TR, D);
+#pragma unroll
+    for (int e = 0; e < CPT; e += 4)
+      *reinterpret_cast<float4*>(slot + c * CPT + e) = make_float4(
+          acc[i][e], acc[i][e + 1], acc[i][e + 2], acc[i][e + 3]);
+    if (c == 0)
+      *reinterpret_cast<float2*>(slot + D) = make_float2(mrow[i], lrow[i]);
+  }
+  cluster.sync();
+  merge_owned<D>(recv, TR, n_split, split, (size_t)bk * n_rows + r0, r0,
+                 n_rows, o, l_out, m_out);
 }
 
-template <typename T, int D>
-int dispatch_split(const PagedArgs& a, void* o_part, void* l_part,
-                   void* m_part, int n_split, int slots_per_split,
-                   cudaStream_t s) {
-#define EDL_SPLIT(NR) \
-  return launch_split<T, D, NR>(a, o_part, l_part, m_part, n_split, \
-                                slots_per_split, s)
-  if (a.n_rows <= 1) EDL_SPLIT(1);
-  if (a.n_rows <= 2) EDL_SPLIT(2);
-  if (a.n_rows <= 4) EDL_SPLIT(4);
-  if (a.n_rows <= 8) EDL_SPLIT(8);
-#undef EDL_SPLIT
-  return (int)cudaErrorInvalidValue;
-}
+// ------------------------------------------------------------------ launch
 
-template <typename T, int D>
-int launch_tile(const PagedArgs& a, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes<D>(a.bs);
-  static size_t configured = 48 * 1024;
+// launches Kernel on `grid` as clusters of n_split blocks along x,
+// raising its dynamic shared memory limit first where `smem` needs it
+template <auto Kernel, typename T>
+int launch_cluster(dim3 grid, size_t smem, const PagedArgs& a,
+                   cudaStream_t stream) {
+  constexpr auto kernel = Kernel;
+  static size_t configured = 0;  // one per kernel instance
   if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_tile_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = smem;
   }
-  dim3 grid((a.n_rows + R - 1) / R, a.b * a.hkv);
-  paged_tile_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(a.qf), static_cast<const T*>(a.k_pool),
-      static_cast<const T*>(a.v_pool), static_cast<const float*>(a.k_scale),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(a.qf),
+      static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
+      static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.table),
       static_cast<const int*>(a.length), static_cast<float*>(a.o),
       static_cast<float*>(a.l), static_cast<float*>(a.mx), a.hkv, a.n_rows,
       a.m, a.bs, a.window, a.t);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// int8 arenas need both scale pools, float arenas take none; the query
-// rows are whole tiles of t, and the window is 0 (none) or positive
-bool args_ok(int dtype, const void* k_scale, const void* v_scale,
-             int n_rows, int window, int t) {
-  const bool scales = dtype == 2 ? (k_scale != nullptr && v_scale != nullptr)
-                                 : (k_scale == nullptr && v_scale == nullptr);
-  return scales && window >= 0 && t >= 1 && n_rows % t == 0;
+template <typename T, int D, int NR>
+int launch_split(const PagedArgs& a, cudaStream_t stream) {
+  const size_t smem = sizeof(int) * (size_t)a.m;  // the table row
+  return launch_cluster<paged_split_kernel<T, D, NR>, T>(
+      dim3(a.n_split, a.b * a.hkv), smem, a, stream);
+}
+
+template <typename T, int D>
+int dispatch_split(const PagedArgs& a, cudaStream_t s) {
+  if (a.n_rows <= 1) return launch_split<T, D, 1>(a, s);
+  if (a.n_rows <= 2) return launch_split<T, D, 2>(a, s);
+  if (a.n_rows <= 4) return launch_split<T, D, 4>(a, s);
+  if (a.n_rows <= 8) return launch_split<T, D, 8>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+int launch_tile(const PagedArgs& a, cudaStream_t s) {
+  return launch_cluster<paged_tile_kernel<T, D>, T>(
+      dim3(a.n_split, (a.n_rows + TR - 1) / TR, a.b * a.hkv),
+      TileLayout<T, D>::BYTES, a, s);
+}
+
+template <typename T>
+int by_d(bool tile, int d, const PagedArgs& a, cudaStream_t s) {
+  if (d == 64)
+    return tile ? launch_tile<T, 64>(a, s) : dispatch_split<T, 64>(a, s);
+  if (d == 128)
+    return tile ? launch_tile<T, 128>(a, s) : dispatch_split<T, 128>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the keys fewer than which a split kernel's block is not worth a split
+constexpr int SPLIT_KEYS = 32;
+
+// The blocks (one cluster) that cut each unit's live keys: about four
+// blocks per SM across `units` (sequence * kv head, times the 32-row
+// tiles for the tile kernel), at most MAX_SPLIT, and no more than one per
+// `keys_per_split` of the `keys` a row can see.
+int choose_splits(int units, int keys, int keys_per_split, int* n_split) {
+  static int sms = 0;  // one card per process
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int by_card = (4 * sms + units - 1) / units;
+  const int by_keys = (keys + keys_per_split - 1) / keys_per_split;
+  *n_split = std::max(1, std::min({MAX_SPLIT, by_card, by_keys}));
+  return 0;
+}
+
+[[maybe_unused]] int paged_decode(bool tile, PagedArgs a, int d, int dtype,
+                                  cudaStream_t s) {
+  // int8 arenas need both scale pools, float arenas take none; the query
+  // rows are whole tiles of t, and the window is 0 (none) or positive
+  const bool scales = dtype == 2
+                          ? (a.k_scale != nullptr && a.v_scale != nullptr)
+                          : (a.k_scale == nullptr && a.v_scale == nullptr);
+  if (!scales || a.window < 0 || a.t < 1 || a.n_rows % a.t != 0)
+    return (int)cudaErrorInvalidValue;
+  // the keys a row can see: under a window, positions length - window + 1
+  // .. length - 1 of the table's m * bs
+  const int keys =
+      a.window > 0 ? std::min(a.m * a.bs, a.window - 1) : a.m * a.bs;
+  const int err =
+      tile ? choose_splits(a.b * a.hkv * ((a.n_rows + TR - 1) / TR), keys,
+                           TK, &a.n_split)
+           : choose_splits(a.b * a.hkv, keys, SPLIT_KEYS, &a.n_split);
+  if (err != 0) return err;
+  if (dtype == 0) return edl_paged::launch_dtype<float>(tile, d, a, s);
+  if (dtype == 1)
+    return edl_paged::launch_dtype<__nv_bfloat16>(tile, d, a, s);
+  if (dtype == 2) return edl_paged::launch_dtype<int8_t>(tile, d, a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Common arguments: qf [b, hkv, n_rows, d] fp32 (already multiplied by
-// scale); k_pool and v_pool [num_blocks, bs, hkv, d] (dtype 0 = float32,
-// 1 = bfloat16, 2 = int8); for int8, k_scale and v_scale [num_blocks, bs,
+#define EDL_PAGED_PART(T)                                                  \
+  template <>                                                              \
+  int edl_paged::launch_dtype<T>(bool tile, int d, const PagedArgs& a,     \
+                                 cudaStream_t s) {                         \
+    return by_d<T>(tile, d, a, s);                                         \
+  }
+#if EDL_PART == 0
+EDL_PAGED_PART(float)
+#elif EDL_PART == 1
+EDL_PAGED_PART(__nv_bfloat16)
+#elif EDL_PART == 2
+EDL_PAGED_PART(int8_t)
+#endif
+#undef EDL_PAGED_PART
+
+#if EDL_PART == 0
+
+// qf [b, hkv, n_rows, d] fp32 (already multiplied by scale); k_pool and
+// v_pool [num_blocks, bs, hkv, d] (dtype 0 = float32, 1 = bfloat16, 2 =
+// int8), 16-byte aligned; for int8, k_scale and v_scale [num_blocks, bs,
 // hkv, 1] fp32 per-row scales, else NULL; table [b, m] int32 (-1 =
 // unallocated); length [b] int32; o [b, hkv, n_rows, d], l and m [b, hkv,
-// n_rows] fp32; d 64 or 128; window 0 (none) or the sliding window; t the
-// tile length (query row r is tile token r % t). All contiguous. Each
-// returns the cudaError_t of its launches (0 = ok).
+// n_rows] fp32; d 64 or 128; window 0 (none) or the sliding window; t
+// the tile length (query row r is tile token r % t). All contiguous.
+// Each returns the cudaError_t of its one launch (0 = ok).
 
-// n_rows > 8: the shared-memory tile kernel.
-extern "C" int edl_paged_decode_tile(const void* qf, const void* k_pool,
-                                     const void* v_pool, const void* k_scale,
-                                     const void* v_scale, const void* table,
-                                     const void* length, void* o, void* l,
-                                     void* mx, int b, int hkv, int n_rows,
-                                     int m, int bs, int d, int dtype,
-                                     int window, int t, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!args_ok(dtype, k_scale, v_scale, n_rows, window, t))
-    return (int)cudaErrorInvalidValue;
-  const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
-                    o,  l,      mx,     b,       hkv,     n_rows, m,
-                    bs, window, t};
-#define EDL_TILE(T)                                             \
-  return d == 64 ? launch_tile<T, 64>(a, s)                     \
-                 : (d == 128 ? launch_tile<T, 128>(a, s)        \
-                             : (int)cudaErrorInvalidValue)
-  if (dtype == 0) EDL_TILE(float);
-  if (dtype == 1) EDL_TILE(__nv_bfloat16);
-  if (dtype == 2) EDL_TILE(int8_t);
-#undef EDL_TILE
-  return (int)cudaErrorInvalidValue;
-}
-
-// n_rows <= 8: the split kernel and its merge. o_part [n_split, b*hkv,
-// n_rows, d], l_part and m_part [n_split, b*hkv, n_rows] fp32 scratch;
-// split k covers table slots [k*slots_per_split, (k+1)*slots_per_split)
-// (under a window: its even share of the slots the window can reach).
+// n_rows <= 8: the split kernel.
 extern "C" int edl_paged_decode_split(
     const void* qf, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* table,
-    const void* length, void* o, void* l, void* mx, void* o_part,
-    void* l_part, void* m_part, int n_split, int slots_per_split, int b,
-    int hkv, int n_rows, int m, int bs, int d, int dtype, int window, int t,
+    const void* length, void* o, void* l, void* mx, int b, int hkv,
+    int n_rows, int m, int bs, int d, int dtype, int window, int t,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!args_ok(dtype, k_scale, v_scale, n_rows, window, t))
-    return (int)cudaErrorInvalidValue;
   const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
                     o,  l,      mx,     b,       hkv,     n_rows, m,
-                    bs, window, t};
-#define EDL_SPLIT_D(T)                                                    \
-  return d == 64 ? dispatch_split<T, 64>(a, o_part, l_part, m_part,       \
-                                         n_split, slots_per_split, s)     \
-                 : (d == 128 ? dispatch_split<T, 128>(a, o_part, l_part,  \
-                                                      m_part, n_split,    \
-                                                      slots_per_split, s) \
-                             : (int)cudaErrorInvalidValue)
-  if (dtype == 0) EDL_SPLIT_D(float);
-  if (dtype == 1) EDL_SPLIT_D(__nv_bfloat16);
-  if (dtype == 2) EDL_SPLIT_D(int8_t);
-#undef EDL_SPLIT_D
-  return (int)cudaErrorInvalidValue;
+                    bs, window, t,      1};
+  return paged_decode(false, a, d, dtype, static_cast<cudaStream_t>(stream));
 }
+
+// n_rows > 8: the tile kernel.
+extern "C" int edl_paged_decode_tile(
+    const void* qf, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* length, void* o, void* l, void* mx, int b, int hkv,
+    int n_rows, int m, int bs, int d, int dtype, int window, int t,
+    void* stream) {
+  const PagedArgs a{qf, k_pool, v_pool, k_scale, v_scale, table, length,
+                    o,  l,      mx,     b,       hkv,     n_rows, m,
+                    bs, window, t,      1};
+  return paged_decode(true, a, d, dtype, static_cast<cudaStream_t>(stream));
+}
+
+#endif  // EDL_PART == 0

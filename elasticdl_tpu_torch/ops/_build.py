@@ -35,8 +35,8 @@ NVCC_FLAGS = (
 # source -> number of parts (part 0 the entry points and fp32 kernels,
 # the others the bf16 tensor-core instances: csrc/flash_bwd.cu one
 # (pass, head dim, output dtype) each, csrc/flash_fwd.cu one (head dim,
-# causal) each)
-PARTS = {"flash_bwd": 9, "flash_fwd": 5}
+# causal) each; csrc/paged_decode.cu one arena dtype each)
+PARTS = {"flash_bwd": 9, "flash_fwd": 5, "paged_decode": 3}
 
 _lock = threading.Lock()
 _libs = {}

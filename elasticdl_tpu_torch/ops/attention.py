@@ -18,11 +18,13 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
   forward in `FlashAttentionFunction` (the JAX package's
   `jax.custom_vjp`);
 * `paged_decode_partials` -> csrc/paged_decode.cu, the port of
-  `_paged_kernel`: its split kernel (table walk cut across blocks, then
-  merged) for up to SPLIT_MAX_ROWS query rows per (sequence, kv head),
-  its shared-memory tile kernel for larger query tiles; fp32 or bf16
-  arenas, or int8 arenas with fp32 per-row scale pools (the TPU kernel's
-  quantized branch).
+  `_paged_kernel`: its split kernel for up to SPLIT_MAX_ROWS query rows
+  per (sequence, kv head), its tile kernel (32-key tiles staged by
+  cp.async, register micro tiles) for larger query tiles; each cuts a
+  sequence's live keys across the blocks of one thread-block cluster,
+  which merges their partials in one launch; fp32 or bf16 arenas, or
+  int8 arenas with fp32 per-row scale pools (the TPU kernel's quantized
+  branch).
 
 The flash kernels take the TPU kernels' masks: causal, a sliding
 `window` (key tiles outside every row's window are never read, so the
@@ -973,10 +975,10 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
         if any(s.shape != (nb, bs, hkv, 1) for s in scales):
             raise ValueError("paged_decode: scale pools must be [%d, %d, %d, "
                              "1]" % (nb, bs, hkv))
-        if any(t_.data_ptr() % 16 for t_ in (k_pool, v_pool)):
-            raise ValueError("paged_decode: int8 arenas must be 16-byte "
-                             "aligned")
         scale_ptrs = [s.data_ptr() for s in scales]
+    if any(t_.data_ptr() % 16 for t_ in (k_pool, v_pool)):
+        # the kernels read every row 16 bytes at a time
+        raise ValueError("paged_decode: arenas must be 16-byte aligned")
     win = 0 if window is None else int(window)
     suffix = ("_int8" if quantized else "") + ("_window" if win else "")
     o = torch.empty((b, hkv, n_rows, d), dtype=torch.float32,
@@ -988,59 +990,28 @@ def paged_decode_partials(qf, k_pool, v_pool, block_table, length,
         l.zero_()
         mx.fill_(_NEG_INF)
         return o, l, mx
-    stream = torch.cuda.current_stream(qf.device).cuda_stream
-    dtype = _PAGED_DTYPE_CODES[k_pool.dtype]
-    lib = _paged_lib()
-    if n_rows > SPLIT_MAX_ROWS:
-        err = lib.edl_paged_decode_tile(
-            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            *scale_ptrs, table.data_ptr(), length.data_ptr(), o.data_ptr(),
-            l.data_ptr(), mx.data_ptr(), b, hkv, n_rows, m, bs, d, dtype,
-            win, t, stream,
-        )
-        name = "paged_decode_tile" + suffix
-        _check_launch(err, name)
-        KERNEL_LAUNCHES[name] += 1
-        return o, l, mx
-    # a window bounds the slots any row can see (positions length -
-    # window + 1 .. length - 1): split over those only
-    span = m if not win else min(m, -(-win // bs) + 1)
-    n_split, per_split = _paged_splits(b * hkv, span)
-    o_part = torch.empty((n_split, b, hkv, n_rows, d), dtype=torch.float32,
-                         device=qf.device)
-    l_part = torch.empty((n_split, b, hkv, n_rows), dtype=torch.float32,
-                         device=qf.device)
-    m_part = torch.empty_like(l_part)
-    err = lib.edl_paged_decode_split(
+    tile = n_rows > SPLIT_MAX_ROWS
+    name = ("paged_decode_tile" if tile else "paged_decode") + suffix
+    entry = "edl_paged_decode_tile" if tile else "edl_paged_decode_split"
+    err = getattr(_paged_lib(), entry)(
         qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scale_ptrs,
         table.data_ptr(), length.data_ptr(), o.data_ptr(), l.data_ptr(),
-        mx.data_ptr(), o_part.data_ptr(), l_part.data_ptr(),
-        m_part.data_ptr(), n_split, per_split, b, hkv, n_rows, m, bs, d,
-        dtype, win, t, stream,
+        mx.data_ptr(), b, hkv, n_rows, m, bs, d,
+        _PAGED_DTYPE_CODES[k_pool.dtype], win, t,
+        torch.cuda.current_stream(qf.device).cuda_stream,
     )
-    name = "paged_decode" + suffix
     _check_launch(err, name)
     KERNEL_LAUNCHES[name] += 1
     return o, l, mx
 
 
-def _paged_splits(bh, m):
-    """(number of splits, table slots per split) for the split kernel:
-    about four blocks of 4 warps per SM over the card's 132 SMs, and at
-    least 4 slots (one per warp) per split."""
-    n_split = max(1, min(-(-528 // bh), -(-m // 4)))
-    per_split = -(-m // n_split)
-    return -(-m // per_split), per_split
-
-
 def _paged_lib():
     lib = _build.load("paged_decode")
-    for name, n_ptrs, n_ints in (("edl_paged_decode_tile", 10, 9),
-                                 ("edl_paged_decode_split", 13, 11)):
+    for name in ("edl_paged_decode_tile", "edl_paged_decode_split"):
         fn = getattr(lib, name)
         if not fn.argtypes:
-            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
 

@@ -11,7 +11,9 @@ Kernel: `csrc/optimizer_update.cu`, the port of `_sgd_kernel`,
 `_momentum_kernel`, `_adam_kernel`, `_adam_amsgrad_kernel` and
 `_adagrad_kernel` (one kernel, the rule a functor of
 `csrc/update_rules.cuh`), for CUDA tensors in fp32 or bf16 (arithmetic in
-fp32, a bf16 result rounded once where it is stored). CPU tensors run the
+fp32, a bf16 result rounded once where it is stored; 16-byte streaming
+accesses where every tensor is 16-byte aligned, a scalar loop where one
+is not). CPU tensors run the
 plain version, `dense_update_plain`: the rules of `ops/update_math.py` in
 fp32 on the same values, rounded once to the parameter's dtype.
 `KERNEL_LAUNCHES` counts kernel launches per rule.
@@ -81,8 +83,9 @@ def _dense_update(rule, arrays, hyper):
     n = ins[0].numel()
     if n == 0:
         return outs
-    align = 4 * ins[0].element_size()
-    vec = int(all(t.data_ptr() % align == 0 for t in ins + outs))
+    # the kernel's 16-byte accesses need every tensor 16-byte aligned;
+    # otherwise it runs its scalar loop
+    vec = int(all(t.data_ptr() % 16 == 0 for t in ins + outs))
     ptr_in = [t.data_ptr() for t in ins] + [None] * (5 - len(ins))
     ptr_out = [t.data_ptr() for t in outs] + [None] * (4 - len(outs))
     h = [float(x) for x in hyper] + [0.0] * (4 - len(hyper))

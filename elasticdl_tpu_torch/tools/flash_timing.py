@@ -1,13 +1,18 @@
-"""Device time of the flash kernels (A, C, D) on one card, for comparing
-two checkouts of the port in one call.
+"""Device time of the port's attention kernels (A, C, D, B) and its dense
+update kernel (G) on one card, for comparing two checkouts of the port
+in one call.
 
     PYTHONPATH=<checkout> python3 <this file> [label]
 
 imports `elasticdl_tpu_torch` from PYTHONPATH (so the same file times
 any checkout whose wrappers take these arguments), builds its kernels,
-and prints one JSON line: each case's device ms, the median of 5 rounds
-of 50 CUDA-graph replays between CUDA events, with the card's name and
-power limit. Cases, bf16, d 128, inputs from seeded generators:
+and prints one JSON line: each case's device ms, with the card's name
+and power limit. "Hot": the median of 5 rounds of 50 CUDA-graph replays
+of one call between CUDA events, so its inputs sit in L2 where they
+fit. "Cold" (B): 8 calls over 8 disjoint arena pairs in one CUDA graph,
+as a decode step issues one per layer, L2 flushed before each of 20
+rounds, the per-call mean. Flash cases, bf16, d 128, inputs from seeded
+generators:
 
 * A at the serving path's largest prefill bucket (b 1, h 8, l 512) and
   at the training shape (b 8, h 8, l 1024), causal, each beside SDPA
@@ -23,7 +28,26 @@ power limit. Cases, bf16, d 128, inputs from seeded generators:
 * aten's flash-attention backward (dq, dk and dv in one call) at the
   training shape, causal: the yardstick of C + D.
 
-SDPA and aten are used nowhere in the port.
+B, `paged_decode_partials` (hkv 8, d 128, blocks of 16, tables of 64
+slots), bf16 arenas and the same quantized to int8 with fp32 row scales,
+hot, cold and by the profiler (`_kernel_us`: the kernels' own device
+time, since a one-call graph replay adds a few microseconds, measured as
+`replay_floor_ms` on a one-element fill), inputs drawn as chip_smoke.py's
+time_kernels draws them
+(PAGED_SEED; PAGED_SEED + 1 for the windowed cases, as
+check_masked_paged draws them):
+
+* the split kernel at the 8-slot decode step (t 1, lengths under 1000),
+  without and with window 256; and, by the profiler, bf16 with the same
+  4184 rows spread evenly (8 sequences of 523);
+* the tile kernel at a 128-row suffix tile over a 256-token prefix,
+  without and with window 256.
+
+G, the five rules at 64M fp32 (the dense update API's path) through
+their public wrappers, beside `p.add(g, alpha=-lr)`, hot (every call
+moves 0.8-2.4 GB, far past L2).
+
+SDPA, aten and `p.add` are used nowhere in the port.
 """
 
 import json
@@ -33,13 +57,20 @@ import sys
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from elasticdl_tpu_torch.data import packing
+from elasticdl_tpu_torch.model_zoo.transformer_lm import kv_quantize_rows
 from elasticdl_tpu_torch.ops import attention as att
+from elasticdl_tpu_torch.ops import optimizer_kernels as ok
 
 ROUNDS, REPLAYS = 5, 50
 WINDOW = 256
 RING_WINDOW, RING_SHARD = 1536, 1024
+PAGED_SEED = 11  # chip_smoke.py's PAGED_TIMING_SEED
+COLD_LAYERS, COLD_ROUNDS = 8, 20
+L2_FLUSH_BYTES = 256 << 20  # past the H100's 50 MB L2
+DENSE_N = 64 * 1024 * 1024
 
 
 def _replay_ms(fn):
@@ -106,6 +137,151 @@ def _aten_backward_ms(q, k, v, do):
                                        0.0, True, seed, offset))
 
 
+def _kernel_us(fn, name, calls=20):
+    """Device microseconds a call of fn spends in kernels whose name holds
+    `name`, by torch.profiler over `calls` eager calls: the kernels' own
+    durations, without the few microseconds a graph replay adds around a
+    short kernel."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for event in prof.key_averages():
+        if name in event.key:
+            total += getattr(event, "device_time_total", None) or getattr(
+                event, "cuda_time_total", 0.0)
+    return total / calls
+
+
+def _cold_ms(calls):
+    """Per-call device ms of `calls` (over disjoint data) captured in one
+    CUDA graph, with L2 flushed before each of COLD_ROUNDS rounds."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def round_():
+        for call in calls:
+            call()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        round_()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        round_()
+    total = 0.0
+    for _ in range(COLD_ROUNDS):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / COLD_ROUNDS / len(calls)
+
+
+def _paged_inputs(gen, b=8, t=1, lengths=None, hkv=8, d=128, bs=16, m=64,
+                  num_blocks=640):
+    """chip_smoke.py's paged_inputs: (qf, k_pool, v_pool, table, length)
+    on the card and the lengths, drawn from `gen` in the same order."""
+    if lengths is None:
+        lengths = torch.randint(1, 1000, (b,), generator=gen)
+    lengths = torch.as_tensor(lengths)
+    table = torch.full((b, m), -1, dtype=torch.int32)
+    perm = torch.randperm(num_blocks, generator=gen)
+    used = 0
+    for i in range(b):
+        n = -(-int(lengths[i]) // bs)
+        table[i, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    pools = [torch.randn(num_blocks, bs, hkv, d, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(2)]
+    qf = (torch.randn(b, hkv, t, d, generator=gen) * d ** -0.5).to("cuda")
+    return (qf, pools[0], pools[1], table.cuda(),
+            lengths.to(torch.int32).cuda()), lengths.tolist()
+
+
+def _paged_cases(out):
+    """B's split and tile kernels, bf16 and int8, without and with window
+    256, hot and cold (see the module docstring)."""
+    arena_gen = torch.Generator(device="cuda").manual_seed(PAGED_SEED + 100)
+    for seed, window in ((PAGED_SEED, None), (PAGED_SEED + 1, WINDOW)):
+        gen = torch.Generator().manual_seed(seed)
+        for kernel, t, lengths in (("split", 1, None),
+                                   ("tile", 128, [256])):
+            args, lens = _paged_inputs(gen, b=1 if lengths else 8, t=t,
+                                       lengths=lengths)
+            qf, k_pool, v_pool, table, length = args
+            # 8 arena pairs, as 8 layers: the first is the hot inputs'
+            pairs = [(k_pool, v_pool)] + [
+                tuple(torch.randn(k_pool.shape, generator=arena_gen,
+                                  device="cuda").to(torch.bfloat16)
+                      for _ in range(2)) for _ in range(COLD_LAYERS - 1)]
+            for dtype in ("bf16", "int8"):
+                calls = []
+                for kp, vp in pairs:
+                    if dtype == "int8":
+                        (k8, ks), (v8, vs) = map(kv_quantize_rows, (kp, vp))
+                        extra = (k8, v8, table, length, ks, vs)
+                    else:
+                        extra = (kp, vp, table, length)
+                    calls.append(lambda e=extra: att.paged_decode_partials(
+                        qf, *e, window=window, t=t))
+                name = "paged_%s_%s%s" % (kernel, dtype,
+                                         "_window" if window else "")
+                out[name + "_hot"] = _replay_ms(calls[0])
+                out[name + "_cold"] = _cold_ms(calls)
+                out[name + "_kernel_us"] = _kernel_us(calls[0], "paged")
+                out[name + "_live_rows"] = sum(lens)
+            del pairs
+            torch.cuda.empty_cache()
+    # the same 4184 rows with every sequence at their mean length: what
+    # the spread of the lengths costs the split kernel
+    gen = torch.Generator().manual_seed(PAGED_SEED + 2)
+    args, _ = _paged_inputs(gen, b=8, t=1, lengths=[523] * 8)
+    out["paged_split_bf16_even_kernel_us"] = _kernel_us(
+        lambda: att.paged_decode_partials(*args), "paged")
+
+
+DENSE_SLOTS = {"sgd": 0, "momentum": 1, "adam": 2, "adam_amsgrad": 3,
+               "adagrad": 1}
+
+
+def _dense_call(rule, p, slots, g):
+    """One update of `rule` through its public wrapper."""
+    if rule == "sgd":
+        return ok.sgd_update(p, g, 0.01)
+    if rule == "momentum":
+        return ok.momentum_update(p, slots[0], g, 0.01, nesterov=True)
+    if rule == "adagrad":
+        return ok.adagrad_update(p, slots[0], g, 0.01)
+    return ok.adam_update(p, slots[0], slots[1], g, 3, 1e-3,
+                          max_square=slots[2] if len(slots) > 2 else None)
+
+
+def _dense_cases(out):
+    """G's five rules at DENSE_N fp32 and p.add(g, alpha=-lr), hot."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for rule, n_slots in DENSE_SLOTS.items():
+        p, g = (torch.randn(DENSE_N, generator=gen, device="cuda")
+                for _ in range(2))
+        slots = [torch.randn(DENSE_N, generator=gen, device="cuda").abs()
+                 * 0.1 for _ in range(n_slots)]
+        if rule == "sgd":
+            out["torch_add_64m"] = _replay_ms(lambda: p.add(g, alpha=-0.01))
+        out["dense_%s_64m" % rule] = _replay_ms(
+            lambda: _dense_call(rule, p, slots, g))
+        del p, g, slots
+        torch.cuda.empty_cache()
+
+
 def main(label):
     if not torch.cuda.is_available():
         print("flash_timing: no CUDA device", file=sys.stderr)
@@ -158,6 +334,10 @@ def main(label):
         lambda: att.flash_backward_dq(q, k, v, o, lse, do, **grad))
     out["flash_bwd_dkv_window_offset_b2_l1024"] = _replay_ms(
         lambda: att.flash_backward_dkv(q, k, v, do, lse, delta, **grad))
+    one = torch.zeros(1, device="cuda")
+    out["replay_floor_ms"] = _replay_ms(one.zero_)
+    _paged_cases(out)
+    _dense_cases(out)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
