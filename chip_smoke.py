@@ -48,7 +48,15 @@ repository checkout it sits in. Phases, each of which fails the run:
    its four rules (sgd, momentum, adam, adagrad), against its plain
    version within 1e-6 relative, dims 32 and 13, unique ids mixed with -1
    and ids past the table; rows the ids do not name (and their slots)
-   must stay bit-identical; then kernel G (dense optimizer updates),
+   must stay bit-identical; then the grouped wrappers of E and F (one
+   launch for many tables) against their plain versions at small
+   shapes: dims 13, 32, 40 and 64, E in fp32 and bf16, 5 tables of
+   different vocab and GROUP_TABLES + 3 (two launches), a table with
+   no ids, -1 ids and ids past the end, each table with its own
+   learning rate and count for F, and a table 4 bytes off 16-byte
+   alignment (the scalar path); E equal, F within 1e-6, untouched rows
+   bit-identical, one launch per GROUP_TABLES tables; then kernel G
+   (dense optimizer updates),
    each of its five rules and momentum without Nesterov, fp32 and bf16,
    against its plain version within 1e-6: a 0-d scalar, (7, 33),
    1,000,003 elements and a view one element into its storage; then
@@ -81,8 +89,10 @@ repository checkout it sits in. Phases, each of which fails the run:
    fp32, minibatch 4096, SGD 0.01): the port's RecordWriter writes
    Criteo-like records, LocalExecutor trains 4 steps and evaluates once.
    Every loss must be finite and the first within its statistical bound
-   of its expectation at initialisation; kernels E and F must each
-   launch once per table in every step; sampled rows of table 0 that the
+   of its expectation at initialisation; every step must launch E once
+   and F once for all 26 tables (the grouped wrappers), and no
+   one-table wrapper, and the evaluation E once; sampled rows of table 0
+   that the
    records touch must have moved and sampled untouched rows must be
    bit-identical; probs_auc must lie in [0, 1]. Then steps on a pre-built
    batch with ids uniform over the 1.2M rows are timed and profiled, and
@@ -94,12 +104,17 @@ repository checkout it sits in. Phases, each of which fails the run:
    its public function, kernel G launching once per step;
 12. kernels E and F against their plain versions at the DLRM path's
    size (a 1,200,000 x 32 fp32 table, the 4096 ids of one column of the
-   uniform batch, each rule of F over them deduplicated); kernel G
+   uniform batch, each rule of F over them deduplicated), then grouped
+   over the 26 tables and the batch's 26 columns (E equal to the
+   per-table plain versions; F each rule within 1e-6 with its own
+   learning rate and count per table, untouched rows bit-identical);
+   kernel G
    against its plain version at 64M, each rule;
 13. kernel timings at the main paths' shapes (A at the serving and the
    training shape; CUDA events, graph-replayed for device time; E and F
-   over 26 distinct tables and id columns, as a step issues them, with
-   L2 flushed before each round; B also cold, 8 calls over disjoint
+   over 26 distinct tables and id columns with L2 flushed before each
+   round, one table a call and grouped, one call a step, as the step
+   issues them; B also cold, 8 calls over disjoint
    arena pairs as a decode step's layers, L2 flushed), beside the
    plain version, a library call where one computes the same function,
    and the bound implied by the card's published peaks;
@@ -302,7 +317,10 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 4
 # the DLRM slice at bench.py's width (run_dlrm_bench)
 DLRM = dict(table_size=1_200_000, num_tables=26, embedding_dim=32)
 DLRM_BATCH, DLRM_STEPS = 4096, 4
-DLRM_KERNELS = ("embedding_gather", "row_update")
+# the DLRM path's wrappers: one launch of E and one of F for all 26
+# tables; the one-table wrappers launch the same kernels for one table
+DLRM_KERNELS = ("embedding_gather_many", "row_update_many")
+DLRM_TABLE_KERNELS = ("embedding_gather", "row_update")
 # a small DLRM step on the card against the CPU, fp32 with TF32 off:
 # loss (relative) and every parameter after the step (absolute); and the
 # step's change of each parameter tensor, max |card - cpu| / max |cpu|
@@ -372,7 +390,8 @@ L2_FLUSH_BYTES = 256 << 20
 
 def timed_cold_ms(calls, iters=20, graph=True):
     """(device ms, eager ms) of one call of `calls`: callables over
-    disjoint data, one per table, as a step issues them back to back.
+    disjoint data (one per table, as a step of one-table calls issues
+    them back to back, or one call over all the tables).
     Before each round of all the calls the L2 is flushed, so no call
     finds in L2 what an earlier round brought there, as on the path,
     where every step brings new ids. Device: the round captured in one
@@ -1375,6 +1394,136 @@ def check_row_update(gen, vocab=50_000, n_unique=4000):
     return worst_abs, worst_rel
 
 
+def grouped_hyper(rule, t, n_tab):
+    """Table t's hyperparameters for the grouped row update, as the
+    kernel takes them: its own learning rate and, for Adam, its own
+    update count, so that a mix-up of the tables' descriptors shows."""
+    kwargs, _hyper = ROW_RULES[rule]
+    lr = kwargs["lr"] * (1.0 + t / n_tab)
+    if rule == "sgd":
+        return [lr]
+    if rule == "momentum":
+        return [lr, kwargs["momentum"], float(t % 2)]  # nesterov on odd t
+    if rule == "adam":
+        return [um.adam_alpha(lr, kwargs["beta1"], kwargs["beta2"], 1 + t),
+                kwargs["beta1"], kwargs["beta2"], kwargs["eps"]]
+    return [lr, kwargs["eps"]]
+
+
+def _off_alignment(x):
+    """A copy of x whose data starts one element past a 16-byte boundary
+    (4 bytes off for fp32, 2 for bf16): the kernels' scalar path."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = flat[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _grouped_launches(name, before, n_nonempty):
+    got = eo.KERNEL_LAUNCHES[name] - before
+    want = -(-n_nonempty // eo.GROUP_TABLES)
+    check(got == want, "%s launched %d times for %d tables with ids, not %d"
+          % (name, got, n_nonempty, want))
+
+
+def check_grouped_sweep(gen):
+    """The grouped wrappers of E and F (one launch for up to
+    GROUP_TABLES tables) against their plain versions, at small shapes:
+    dims 13 (the scalar path), 32, 40 (10 16-byte units a row) and 64;
+    5 tables and GROUP_TABLES + 3 (two launches); vocabs 1 to 3000 in
+    one group; a table with no ids; ids of -1 and past the table; table
+    0 one element off 16-byte alignment (the scalar path for the whole
+    launch) or not. E: fp32 and bf16, ids as a list and as one [T, n]
+    tensor, equal bit for bit. F: each rule, each table its own
+    learning rate and count (grouped_hyper), unique ids mixed with -1
+    and ids past the table; within ROW_TOL_REL per table, and rows the
+    ids do not name equal to the plain version's, which leaves them as
+    they were. Returns (E's max |err|, F's max relative err, cases)."""
+    worst_gather = worst_row = 0.0
+    cases = 0
+    for dim, n_tab, misalign in itertools.product(
+            (13, 32, 40, 64), (5, eo.GROUP_TABLES + 3), (False, True)):
+        vocabs = torch.randint(1, 3000, (n_tab,), generator=gen).tolist()
+        vocabs[0] = 1
+        counts = torch.randint(1, 300, (n_tab,), generator=gen).tolist()
+        counts[1] = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            tables = [torch.randn(v, dim, generator=gen).to("cuda", dtype)
+                      for v in vocabs]
+            if misalign:
+                tables[0] = _off_alignment(tables[0])
+            ids = [torch.randint(-2, v + 3, (k,), generator=gen,
+                                 dtype=torch.int32).cuda()
+                   for v, k in zip(vocabs, counts)]
+            matrix = torch.randint(-1, min(vocabs) + 2, (n_tab, 64),
+                                   generator=gen, dtype=torch.int32).cuda()
+            for form, nonempty in ((ids, n_tab - 1), (matrix, n_tab)):
+                before = eo.KERNEL_LAUNCHES["embedding_gather_many"]
+                out = eo.embedding_gather_many(tables, form)
+                torch.cuda.synchronize()
+                _grouped_launches("embedding_gather_many", before, nonempty)
+                for t, (o, r) in enumerate(zip(
+                        out, eo.embedding_gather_many_plain(tables, form))):
+                    err = ((o.float() - r.float()).abs().max().item()
+                           if o.numel() else 0.0)
+                    check(o.shape == r.shape and torch.equal(o, r),
+                          "grouped gather differs from its plain version: "
+                          "table %d of %d, dim %d %s%s, max |err| %.3g"
+                          % (t, n_tab, dim, dtype, " misaligned"
+                             if misalign else "", err))
+                    worst_gather = max(worst_gather, err)
+                cases += 1
+        for rule in ROW_RULES:
+            groups, uniq, grads, hypers = [], [], [], []
+            for t, (v, k) in enumerate(zip(vocabs, counts)):
+                group = [torch.randn(v, dim, generator=gen)]
+                for j in range(1, ROW_TABLES[rule]):
+                    slot = torch.randn(v, dim, generator=gen) * 0.1
+                    group.append(slot.abs() if rule == "adagrad" or j == 2
+                                 else slot)
+                groups.append([x.cuda() for x in group])
+                u = torch.randperm(v, generator=gen)[:k].to(torch.int32)
+                if k:
+                    u = torch.cat([u, torch.tensor([-1, v, v + 7],
+                                                   dtype=torch.int32)])
+                uniq.append(u[torch.randperm(u.numel(), generator=gen)]
+                            .cuda())
+                grads.append(torch.randn(u.numel(), dim, generator=gen)
+                             .cuda())
+                hypers.append(grouped_hyper(rule, t, n_tab))
+            if misalign:
+                groups[0][0] = _off_alignment(groups[0][0])
+            mine = [[x.clone() for x in g] for g in groups]
+            if misalign:
+                mine[0][0] = _off_alignment(mine[0][0])
+            before = eo.KERNEL_LAUNCHES["row_update_many"]
+            eo.row_update_many(rule, mine, uniq, grads, hypers)
+            torch.cuda.synchronize()
+            _grouped_launches("row_update_many", before, n_tab - 1)
+            eo.row_update_many_plain(rule, groups, uniq, grads, hypers)
+            for t, (got, ref, u) in enumerate(zip(mine, groups, uniq)):
+                untouched = torch.ones(vocabs[t], dtype=torch.bool,
+                                       device="cuda")
+                untouched[u[(u >= 0) & (u < vocabs[t])].long()] = False
+                for x, y in zip(got, ref):
+                    check(torch.equal(x[untouched], y[untouched]),
+                          "grouped row_update %s moved a row it was not "
+                          "given: table %d of %d, dim %d" % (
+                              rule, t, n_tab, dim))
+                    rel = rel_err(x, y)
+                    check(rel <= ROW_TOL_REL, "grouped row_update %s "
+                          "differs from its plain version: table %d of %d, "
+                          "dim %d%s, rel err %.3g" % (
+                              rule, t, n_tab, dim, " misaligned"
+                              if misalign else "", rel))
+                    worst_row = max(worst_row, rel)
+            cases += 1
+    log("grouped gather / row_update sweep: %d cases, gather max |err| "
+        "%.3g, row_update max rel err %.3g" % (cases, worst_gather,
+                                               worst_row))
+    return worst_gather, worst_row, cases
+
+
 # ------------------------------------------------------------ serving slice
 
 
@@ -2038,7 +2187,7 @@ def train_dlrm(rng, workdir):
         steps.append({
             "ms": (time.perf_counter() - t0) * 1e3,
             "launches": {k: after[k] - before_counts[k]
-                         for k in DLRM_KERNELS}})
+                         for k in DLRM_KERNELS + DLRM_TABLE_KERNELS}})
         return out
 
     trainer.train_step = timed_step
@@ -2063,11 +2212,17 @@ def train_dlrm(rng, workdir):
           "first DLRM loss %.5f is not within %.4f of its expectation at "
           "initialisation %.5f" % (losses[0], first_tol, first))
     for i, s in enumerate(steps):
-        for name in DLRM_KERNELS:
-            check(s["launches"][name] == DLRM["num_tables"],
-                  "DLRM step %d launched %s %d times, not once per table "
-                  "(%d)" % (i, name, s["launches"][name],
-                            DLRM["num_tables"]))
+        want = dict.fromkeys(DLRM_KERNELS, 1)
+        want.update(dict.fromkeys(DLRM_TABLE_KERNELS, 0))
+        check(s["launches"] == want, "DLRM step %d launched %s, not one "
+              "grouped launch each of E and F for the %d tables" % (
+                  i, s["launches"], DLRM["num_tables"]))
+    eval_launches = {k: launches[k] - sum(s["launches"][k] for s in steps)
+                     for k in DLRM_KERNELS + DLRM_TABLE_KERNELS}
+    check(eval_launches == {"embedding_gather_many": 1, "row_update_many": 0,
+                            "embedding_gather": 0, "row_update": 0},
+          "the DLRM evaluation launched %s, not one grouped gather"
+          % eval_launches)
     moved = (table0[touched] != before["touched"]).any(dim=1)
     check(bool(moved.all()), "%d of 64 touched rows of table 0 did not move"
           % int((~moved).sum()))
@@ -2084,6 +2239,7 @@ def train_dlrm(rng, workdir):
         "first_loss_tol": first_tol,
         "step_ms": [s["ms"] for s in steps],
         "launches_per_step": steps[-1]["launches"],
+        "launches_evaluation": eval_launches,
         "eval": metrics, "record_write_s": write_s, "wall_s": wall,
         "peak_memory_bytes_run": int(torch.cuda.max_memory_allocated()),
         "rows_checked": {"touched_moved": 64, "untouched_equal":
@@ -2503,33 +2659,110 @@ def check_embedding_kernels_at_path_shape(tables, ids, uniq, summed):
     return gather_err, row_errs
 
 
-def time_embedding_kernels(launches, gather_err, row_err, batch):
+def check_grouped_at_path_shape(tables, ids, uniq, summed):
+    """The grouped E and F against the per-table plain versions at the
+    path's size: the 26 tables (1,200,000 x 32 fp32) with the uniform
+    batch's 26 id columns in one [26, 4096] matrix, and for F each rule
+    over each column deduplicated, each table with its own learning rate
+    and count (grouped_hyper), on clones of the tables and of fresh slot
+    tables. E must be equal; F within ROW_TOL_REL per table, and rows
+    the ids do not name equal to the plain version's (which leaves them
+    as they were). Returns (E's max |err|, {rule: (max |err|, max
+    relative err)})."""
+    n_tab, vocab, d = tables.shape
+    out = eo.embedding_gather_many(list(tables), torch.stack(ids))
+    gather_err = 0.0
+    for t in range(n_tab):
+        ref = eo.embedding_gather_plain(tables[t], ids[t])
+        gather_err = max(gather_err, (out[t] - ref).abs().max().item())
+        check(torch.equal(out[t], ref), "grouped gather differs from the "
+              "plain version of table %d at the path's shape: max |err| "
+              "%.3g" % (t, gather_err))
+    del out
+    cuda_gen = torch.Generator(device="cuda").manual_seed(3)
+    untouched = []
+    for u in uniq:
+        mask = torch.ones(vocab, dtype=torch.bool, device="cuda")
+        mask[u[u >= 0].long()] = False
+        untouched.append(mask)
+    hypers = {rule: [grouped_hyper(rule, t, n_tab) for t in range(n_tab)]
+              for rule in ROW_RULES}
+    row_errs = {}
+    for rule in ROW_RULES:
+        mine = [[tables[t].clone()] + [
+            torch.rand(vocab, d, device="cuda", generator=cuda_gen) * 0.1
+            for _ in range(ROW_TABLES[rule] - 1)] for t in range(n_tab)]
+        plain = [[x.clone() for x in g] for g in mine]
+        eo.row_update_many(rule, mine, list(uniq), list(summed),
+                           hypers[rule])
+        eo.row_update_many_plain(rule, plain, uniq, summed, hypers[rule])
+        rels, worst = [], 0.0
+        for group, ref, mask in zip(mine, plain, untouched):
+            for x, y in zip(group, ref):
+                check(torch.equal(x[mask], y[mask]), "grouped row_update "
+                      "%s moved a row it was not given at the path's shape"
+                      % rule)
+                rels.append(rel_err(x, y))
+                worst = max(worst, (x - y).abs().max().item())
+        check(max(rels) <= ROW_TOL_REL, "grouped row_update %s disagrees "
+              "with the plain versions at the path's shape: %.3g"
+              % (rule, max(rels)))
+        row_errs[rule] = (worst, max(rels))
+        del mine, plain
+        torch.cuda.empty_cache()
+    log("grouped gather and row_update at the path's shape (%d tables of "
+        "%d x %d fp32, %d ids each): gather equal; row_update %s" % (
+            n_tab, vocab, d, ids[0].numel(),
+            {r: "%.3g" % e[1] for r, e in row_errs.items()}))
+    return gather_err, row_errs
+
+
+def time_embedding_kernels(launches, gather_err, row_err, batch, sweep):
     """Kernels E and F at the DLRM path's shapes, first held against
-    their plain versions there (check_embedding_kernels_at_path_shape).
-    26 tables of 1,200,000 x 32 fp32, and for table t the 4096 ids of
-    the uniform batch's column t: E gathers them; F applies each rule
-    over them deduplicated (about 4,090 unique, the rest padding) with
-    their summed gradient rows. F's entry is the SGD rule, the path's;
-    the other rules ride along under `other_rules`. Device time: the 26
-    calls of a step in one CUDA graph, with L2 flushed before each
-    replay (timed_cold_ms). Bound per call: bytes 2 n d 4 + 4 n for E,
-    n_u d 4 (2 tables + 1) + 4 n for F, at 3.35 TB/s; operations at the
-    fp32 peak."""
+    their plain versions there (check_embedding_kernels_at_path_shape,
+    check_grouped_at_path_shape). 26 tables of 1,200,000 x 32 fp32, and
+    for table t the 4096 ids of the uniform batch's column t: E gathers
+    them; F applies each rule over them deduplicated (about 4,090
+    unique, the rest padding) with their summed gradient rows. Each
+    kernel twice: one table a call (`embedding_gather`, `row_update`:
+    the 26 calls of a step in one CUDA graph, per call) and grouped
+    (`embedding_gather_many`, `row_update_many`: the step's one call
+    over the 26 tables, per step), with L2 flushed before each replay
+    (timed_cold_ms). F's entries are the SGD rule, the path's; the other
+    rules ride along under `other_rules`. Bound per table: bytes 2 n d 4
+    + 4 n for E, n_u d 4 (2 tables + 1) + 4 n for F, at 3.35 TB/s;
+    operations at the fp32 peak; a step's bound is the sum of its
+    tables'. `sweep`: check_grouped_sweep's result."""
     vocab, d, n = DLRM["table_size"], DLRM["embedding_dim"], DLRM_BATCH
     n_tab = DLRM["num_tables"]
     cuda_gen = torch.Generator(device="cuda").manual_seed(1)
     tables = torch.randn(n_tab, vocab, d, device="cuda", generator=cuda_gen)
+    table_list = list(tables)
     ids = [torch.as_tensor(np.ascontiguousarray(batch[0]["sparse"][:, t]),
                            device="cuda") for t in range(n_tab)]
+    ids_matrix = torch.stack(ids)
     ids_long = [i.long() for i in ids]
     grads = torch.randn(n_tab, n, d, device="cuda", generator=cuda_gen)
     uniq, summed = zip(*(eo.dedup_indexed_slices(i, g)
                          for i, g in zip(ids, grads)))
+    uniq, summed = list(uniq), list(summed)
     n_u = [int((u >= 0).sum()) for u in uniq]
     valid = [u[:k].long() for u, k in zip(uniq, n_u)]
     valid_sum = [s[:k] for s, k in zip(summed, n_u)]
     path_gather_err, path_row_err = check_embedding_kernels_at_path_shape(
         tables, ids, uniq, summed)
+    many_gather_err, many_row_err = check_grouped_at_path_shape(
+        tables, ids, uniq, summed)
+    gather_work = (0, 2 * n * d * 4 + 4 * n)
+    gather_errors = {
+        "max_abs_err": max(gather_err, path_gather_err, many_gather_err,
+                           sweep[0]),
+        "max_err": max(gather_err, path_gather_err, many_gather_err,
+                       sweep[0]),
+        "path_shape_max_abs_err": path_gather_err,
+        "grouped_path_shape_max_abs_err": many_gather_err,
+        "grouped_sweep_max_abs_err": sweep[0],
+        "grouped_sweep_cases": sweep[2]}
     gather = _timing_entry(
         "embedding_gather", "elasticdl_tpu_torch/csrc/embedding_gather.cu",
         "elasticdl_tpu/ops/embedding_ops.py:72",
@@ -2540,25 +2773,48 @@ def time_embedding_kernels(launches, gather_err, row_err, batch):
          for t in range(n_tab)],
         [lambda t=t: torch.index_select(tables[t], 0, ids_long[t])
          for t in range(n_tab)],
-        (0, 2 * n * d * 4 + 4 * n), launches,
-        {"max_abs_err": max(gather_err, path_gather_err),
-         "max_err": max(gather_err, path_gather_err),
-         "path_shape_max_abs_err": path_gather_err},
+        gather_work, launches, gather_errors,
         peak=PEAK_FP32_FLOPS, cold=True)
     gather["library_call"] = "torch.index_select(table, 0, ids)"
-    mean_u = sum(n_u) / n_tab
-    entries = {}
+    gather_many = _timing_entry(
+        "embedding_gather_many",
+        "elasticdl_tpu_torch/csrc/embedding_gather.cu",
+        "elasticdl_tpu/ops/embedding_ops.py:72",
+        "%d tables x %d ids into %d x %d fp32 tables, one call"
+        % (n_tab, n, vocab, d),
+        [lambda: eo.embedding_gather_many(table_list, ids_matrix)],
+        [lambda: eo.embedding_gather_many_plain(table_list, ids_matrix)],
+        [lambda: [torch.index_select(tables[t], 0, ids_long[t])
+                  for t in range(n_tab)]],
+        (0, n_tab * gather_work[1]), launches, gather_errors,
+        peak=PEAK_FP32_FLOPS, cold=True)
+    gather_many["library_call"] = ("%d x torch.index_select(table, 0, ids) "
+                                   "in one CUDA graph" % n_tab)
+    entries, many = {}, {}
     for rule, (kwargs, hyper) in ROW_RULES.items():
         n_t = ROW_TABLES[rule]
         slots = [torch.rand(n_tab, vocab, d, device="cuda",
                             generator=cuda_gen) * 0.1 for _ in range(n_t - 1)]
         group = [[tables[t]] + [s[t] for s in slots] for t in range(n_tab)]
-        library = None
+        library = library_many = None
         if rule == "sgd":
             lr = kwargs["lr"]
             library = [lambda t=t: tables[t].index_add_(
                 0, valid[t], valid_sum[t], alpha=-lr) for t in range(n_tab)]
+            library_many = [lambda: [call() for call in library]]
         path_abs, path_rel = path_row_err[rule]
+        many_abs, many_rel = many_row_err[rule]
+        errors = {"max_abs_err": max(row_err[0], path_abs, many_abs),
+                  "max_err": max(row_err[0], path_abs, many_abs),
+                  "max_rel_err": max(row_err[1], path_rel, many_rel,
+                                     sweep[1]),
+                  "path_shape_max_abs_err": path_abs,
+                  "path_shape_max_rel_err": path_rel,
+                  "grouped_path_shape_max_rel_err": many_rel,
+                  "grouped_sweep_max_rel_err": sweep[1]}
+        mean_u = sum(n_u) / n_tab
+        work = (ROW_FLOPS[rule] * mean_u * d,
+                mean_u * d * 4 * (2 * n_t + 1) + 4 * n)
         entries[rule] = _timing_entry(
             "row_update", "elasticdl_tpu_torch/csrc/row_update.cu",
             "elasticdl_tpu/ops/embedding_ops.py:216",
@@ -2570,26 +2826,59 @@ def time_embedding_kernels(launches, gather_err, row_err, batch):
             [lambda t=t: eo.row_update_plain(rule, group[t], uniq[t],
                                              summed[t], hyper)
              for t in range(n_tab)],
-            library,
-            (ROW_FLOPS[rule] * mean_u * d,
-             mean_u * d * 4 * (2 * n_t + 1) + 4 * n),
-            launches, {"max_abs_err": max(row_err[0], path_abs),
-                       "max_err": max(row_err[0], path_abs),
-                       "max_rel_err": max(row_err[1], path_rel),
-                       "path_shape_max_abs_err": path_abs,
-                       "path_shape_max_rel_err": path_rel},
+            library, work, launches, errors,
             plain_eager=True, peak=PEAK_FP32_FLOPS, cold=True)
+        hypers = [hyper] * n_tab
+        many[rule] = _timing_entry(
+            "row_update_many", "elasticdl_tpu_torch/csrc/row_update.cu",
+            "elasticdl_tpu/ops/embedding_ops.py:216",
+            "%s rule, %d tables x %d ids (%.1f unique on average) into "
+            "%d x %d fp32 tables, one call" % (rule, n_tab, n, mean_u, vocab,
+                                              d),
+            [lambda: eo.row_update_many(rule, group, uniq, summed, hypers)],
+            [lambda: eo.row_update_many_plain(rule, group, uniq, summed,
+                                              hypers)],
+            library_many,
+            (ROW_FLOPS[rule] * sum(n_u) * d,
+             sum(n_u) * d * 4 * (2 * n_t + 1) + 4 * n * n_tab),
+            launches, errors, plain_eager=True, peak=PEAK_FP32_FLOPS,
+            cold=True)
         del slots, group
-    row = entries.pop("sgd")
-    row["library_call"] = ("Tensor.index_add_(0, unique ids, summed rows, "
-                           "alpha=-lr) over the valid ids")
-    row["plain_timing"] = "eager (its boolean mask syncs with the host)"
-    row["other_rules"] = {
-        rule: {k: e[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms",
-                                 "path_shape_max_rel_err")}
-        for rule, e in entries.items()}
-    return [gather, row]
+        torch.cuda.empty_cache()
+    out = []
+    for entry, step_of in ((gather, n_tab), (gather_many, 1)):
+        entry["ms_per_step"] = entry["ms"] * step_of
+        entry["bound_ms_per_step"] = entry["bound_ms"] * step_of
+        entry["library_ms_per_step"] = entry["library_ms"] * step_of
+        out.append(entry)
+    for name, by_rule, step_of in (("row_update", entries, n_tab),
+                                   ("row_update_many", many, 1)):
+        row = by_rule.pop("sgd")
+        for entry in [row] + list(by_rule.values()):
+            entry["ms_per_step"] = entry["ms"] * step_of
+            entry["plain_ms_per_step"] = entry["plain_ms"] * step_of
+            entry["bound_ms_per_step"] = entry["bound_ms"] * step_of
+            if entry["library_ms"] is not None:
+                entry["library_ms_per_step"] = entry["library_ms"] * step_of
+        row["plain_timing"] = "eager (its boolean mask syncs with the host)"
+        row["other_rules"] = {
+            rule: {k: e[k] for k in (
+                "shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "ms_per_step", "bound_ms_per_step",
+                "plain_ms_per_step", "path_shape_max_rel_err",
+                "grouped_path_shape_max_rel_err") if k in e}
+            for rule, e in by_rule.items()}
+        out.append(row)
+    out[2]["library_call"] = ("Tensor.index_add_(0, unique ids, summed rows, "
+                              "alpha=-lr) over the valid ids")
+    out[3]["library_call"] = ("%d x Tensor.index_add_(0, unique ids, summed "
+                              "rows, alpha=-lr) in one CUDA graph" % n_tab)
+    for entry in out[1::2]:
+        entry["timing"] = ("one call over the %d tables of a step per round, "
+                           "L2 flushed before each round: ms, plain_ms, "
+                           "bound_ms and library_ms are a step's" % n_tab)
+        entry["ms_per_table"] = entry["ms"] / n_tab
+    return [out[0], out[2], out[1], out[3]]
 
 
 def time_paged_int8(cases, launches, errors):
@@ -4012,6 +4301,9 @@ def main():
     bwd_rounding = check_bwd_rounding(torch.Generator().manual_seed(7))
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
+    # the grouped sweep draws from its own generator, so every later
+    # phase sees the data it saw before it was added
+    grouped_sweep = check_grouped_sweep(torch.Generator().manual_seed(13))
     dense_err = check_dense_update(gen)
     dense_edges = check_dense_edges(torch.Generator().manual_seed(12))
     masked_err, masked_path_err, masked_inputs = check_masked_flash(
@@ -4111,10 +4403,17 @@ def main():
         train_launches["flash_fwd"] // TRAIN_STEPS)
     kernels += time_backward(gen, train_launches, bwd_err)
     kernels += time_embedding_kernels(dlrm_launches, gather_err, row_err,
-                                      uniform_batch)
-    for entry in kernels[-2:]:
+                                      uniform_batch, grouped_sweep)
+    for entry in kernels[-4:]:
         entry["launches_per_train_step"] = (
             dlrm["launches_per_step"][entry["name"]])
+    # the one-table entries time the kernels the grouped wrappers launch
+    # on the DLRM path: their launches are the kernel's, by either wrapper
+    for entry, grouped in zip(kernels[-4:-2], DLRM_KERNELS):
+        entry["launches_by_wrapper"] = {
+            entry["name"]: dlrm_launches[entry["name"]],
+            grouped: dlrm_launches[grouped]}
+        entry["launches"] = sum(entry["launches_by_wrapper"].values())
     kernels += time_dense(dense_launches)
     for entry in kernels[-len(DENSE_RULES):]:
         entry["small_shapes_max_rel_err"] = dense_err

@@ -2,8 +2,11 @@
 elasticdl_tpu/embedding/layer.py.
 
 A table is one [vocab, dim] parameter named `embedding_table`; lookups
-go through the gather kernel (`ops.embedding_ops.embedding_gather`,
-csrc/embedding_gather.cu on the card). Ragged inputs are padded id
+go through the gather kernel (`ops.embedding_ops`, csrc/embedding_gather.cu
+on the card). `lookup_many(layers, ids)` looks up many layers at once, as
+a DLRM forward does for its 26 tables: one launch gathers for every
+layer whose table takes no autograd gradient here (tapped tables, and
+every table under no_grad). Ragged inputs are padded id
 matrices [batch, max_ids] where PADDING_ID (-1) marks absent entries; a
 combiner (sum / mean / sqrtn) reduces them as `safe_embedding_lookup`
 does (empty rows give zero vectors).
@@ -35,7 +38,11 @@ from torch import nn
 
 from elasticdl_tpu_torch.common import constants
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
-from elasticdl_tpu_torch.ops.embedding_ops import PADDING_ID, embedding_gather
+from elasticdl_tpu_torch.ops.embedding_ops import (
+    PADDING_ID,
+    embedding_gather,
+    embedding_gather_many,
+)
 
 # Param name the row tiers key on.
 EMBEDDING_PARAM_NAME = "embedding_table"
@@ -111,6 +118,67 @@ def _gather(table, ids):
     if torch.is_grad_enabled() and table.requires_grad:
         return EmbeddingGatherFunction.apply(table, ids)
     return embedding_gather(table, ids)
+
+
+def _gather_rows(layers, ids):
+    """The gathered rows ids[t].shape + (dim,) of each layer: one
+    embedding_gather_many per (dim, dtype) over the layers that are
+    tapped (a grad-enabled forward under `row_tap`) or whose table
+    takes no gradient here; EmbeddingGatherFunction for each table of
+    the dense tier. A tapped layer records (ids, rows) with rows a leaf
+    that requires grad; a second call of it in one forward raises."""
+    grad = torch.is_grad_enabled()
+    rows = [None] * len(layers)
+    groups, taps = {}, set()
+    for t, layer in enumerate(layers):
+        table = layer.embedding_table
+        if layer._tap is not None and grad:
+            records, name = layer._tap
+            if name in records or name in taps:
+                # one tap per layer and forward: a second call's row
+                # gradients could not be told apart from the first's
+                raise ValueError(
+                    "sparse-grad Embedding %r called more than once per "
+                    "forward; use one layer instance per call site or set "
+                    "sparse_grads=False" % name)
+            taps.add(name)
+        elif grad and table.requires_grad:
+            rows[t] = EmbeddingGatherFunction.apply(table, ids[t])
+            continue
+        groups.setdefault((table.shape[1], table.dtype), []).append(t)
+    for members in groups.values():
+        # the whole id matrix when every layer is in the group: the
+        # kernel reads each table's ids in place
+        group_ids = ids if len(members) == len(layers) else [
+            ids[t] for t in members]
+        gathered = embedding_gather_many(
+            [layers[t].embedding_table.detach() for t in members], group_ids)
+        for t, out in zip(members, gathered):
+            if layers[t]._tap is not None and grad:
+                records, name = layers[t]._tap
+                out.requires_grad_()
+                records[name] = (ids[t], out)
+            rows[t] = out
+    return rows
+
+
+def lookup_many(layers, ids):
+    """[layer(ids[t]) for t, layer in enumerate(layers)] in as few
+    launches as the tiers allow (see `_gather_rows`): `ids` is a list of
+    id tensors, one per layer, or one tensor whose rows ids[t] are layer
+    t's (a DLRM forward's [tables, batch] matrix)."""
+    if len(ids) != len(layers):
+        raise ValueError("lookup_many: %d layers, %d id sets"
+                         % (len(layers), len(ids)))
+    device = layers[0].embedding_table.device if layers else None
+    if isinstance(ids, torch.Tensor):
+        ids = ids.to(device)
+    else:
+        ids = [torch.as_tensor(i, device=device) for i in ids]
+    for layer, i in zip(layers, ids):
+        layer._check_ids(i)
+    return [layer._combine(rows, i) for layer, rows, i in
+            zip(layers, _gather_rows(layers, ids), ids)]
 
 
 def safe_embedding_lookup(table, ids, combiner="mean", weights=None):
@@ -190,31 +258,18 @@ class Embedding(nn.Module):
                 >= constants.EMBEDDING_PARTITION_THRESHOLD_BYTES)
 
     def forward(self, ids, weights=None):
-        table = self.embedding_table
-        ids = torch.as_tensor(ids, device=table.device)
+        ids = torch.as_tensor(ids, device=self.embedding_table.device)
+        self._check_ids(ids)
+        return self._combine(_gather_rows([self], [ids])[0], ids, weights)
+
+    def _check_ids(self, ids):
         if self.combiner is not None and ids.dim() != 2:
             raise ValueError(
                 "combiner=%r needs [batch, max_ids] padded ids, got shape %s"
                 % (self.combiner, tuple(ids.shape)))
-        if self._tap is not None and torch.is_grad_enabled():
-            gathered = self._tap_rows(ids)
-        else:
-            gathered = _gather(table, ids)
+
+    def _combine(self, gathered, ids, weights=None):
         if self.combiner is None:
             return gathered
         return combine_gathered(gathered, ids, combiner=self.combiner,
                                 weights=weights)
-
-    def _tap_rows(self, ids):
-        records, name = self._tap
-        if name in records:
-            # one tap per layer and forward: a second call's row
-            # gradients could not be told apart from the first's
-            raise ValueError(
-                "sparse-grad Embedding %r called more than once per "
-                "forward; use one layer instance per call site or set "
-                "sparse_grads=False" % name)
-        rows = embedding_gather(self.embedding_table.detach(), ids)
-        rows.requires_grad_()
-        records[name] = (ids, rows)
-        return rows

@@ -6,10 +6,12 @@ The Embedding layer taps each large table (embedding/layer.py
 [vocab, dim] gradient. The Trainer keeps tapped tables out of its torch
 optimizer; after backward() it reads the taps (`tap_gradients`) and
 calls `apply_flat_row_updates`: per table, dedup the ids (summing the
-rows of repeated ids), then one launch of the row-update kernel with the
-optimizer's row rule updates the table and its slot tables in place.
-Under gradient accumulation the Trainer stages each microbatch's taps
-and applies their concatenation at the boundary; the JAX package's
+rows of repeated ids) and advance its update count, then one launch of
+the row-update kernel over every table (`row_update_many`, each table
+with its own hyperparameters) updates the tables and their slot tables
+in place with the optimizer's row rule. Under gradient accumulation the
+Trainer stages each microbatch's taps and applies their concatenation at
+the boundary; the JAX package's
 `apply_row_updates` (taps straight to updates) is that call on one
 microbatch.
 
@@ -24,6 +26,7 @@ import math
 import torch
 
 from elasticdl_tpu_torch.ops import embedding_ops as eo
+from elasticdl_tpu_torch.ops import update_math as um
 
 
 class RowRule(object):
@@ -49,27 +52,25 @@ class RowRule(object):
         return [torch.zeros_like(table, memory_format=torch.contiguous_format)
                 for _ in range(self._SLOTS[self.kind])]
 
-    def update(self, table, slots, ids, grads, count, scale=1.0):
-        """Update the rows named by unique `ids` in place; `count` is the
-        table's 1-based update count, `scale` the learning-rate
-        schedule's multiplier."""
+    def kernel_hyper(self, count, scale=1.0):
+        """The row kernel's hyperparameters (row_update_plain's `hyper`)
+        for a table at its 1-based update count `count`, with `scale`
+        the learning-rate schedule's multiplier."""
         lr = self.lr * scale
         if self.kind == "sgd":
-            eo.sparse_sgd_update(table, ids, grads, lr)
-        elif self.kind == "momentum":
-            eo.sparse_momentum_update(table, slots[0], ids, grads, lr,
-                                      self.momentum, self.nesterov)
-        else:
-            # optax.adam steps lr m_hat / (sqrt(v_hat) + eps) with
-            # m_hat = m / (1 - b1^t), v_hat = v / (1 - b2^t), which is
-            #   [lr sqrt(1 - b2^t) / (1 - b1^t)]
-            #     * m / (sqrt(v) + eps sqrt(1 - b2^t));
-            # the kernel steps alpha m / (sqrt(v) + eps') with alpha =
-            # lr sqrt(1 - b2^t) / (1 - b1^t) (adam_alpha), so the two
-            # agree exactly for eps' = eps sqrt(1 - b2^t).
-            eps = self.eps * math.sqrt(1.0 - self.b2 ** count)
-            eo.sparse_adam_update(table, slots[0], slots[1], ids, grads,
-                                  count, lr, self.b1, self.b2, eps)
+            return [lr]
+        if self.kind == "momentum":
+            return [lr, self.momentum, 1.0 if self.nesterov else 0.0]
+        # optax.adam steps lr m_hat / (sqrt(v_hat) + eps) with
+        # m_hat = m / (1 - b1^t), v_hat = v / (1 - b2^t), which is
+        #   [lr sqrt(1 - b2^t) / (1 - b1^t)]
+        #     * m / (sqrt(v) + eps sqrt(1 - b2^t));
+        # the kernel steps alpha m / (sqrt(v) + eps') with alpha =
+        # lr sqrt(1 - b2^t) / (1 - b1^t) (adam_alpha), so the two agree
+        # exactly for eps' = eps sqrt(1 - b2^t).
+        eps = self.eps * math.sqrt(1.0 - self.b2 ** count)
+        return [um.adam_alpha(lr, self.b1, self.b2, count), self.b1,
+                self.b2, eps]
 
 
 class RowState(object):
@@ -88,15 +89,8 @@ def row_sparse_apply(rule, table, state, ids, row_grads, multiplier_fn=None):
     repeat; ids < 0 or >= vocab are dropped), with `row_grads` the
     gradient of each gathered row ([*ids.shape, dim]). Updates the table
     and `state` in place; all data movement is O(len(ids) * dim)."""
-    ids = ids.reshape(-1)
-    grads = row_grads.reshape(ids.numel(), -1).to(table.dtype)
-    uniq, summed = eo.dedup_indexed_slices(ids, grads)
-    scale = 1.0 if multiplier_fn is None else float(
-        multiplier_fn(state.count))
-    state.count += 1
-    with torch.no_grad():
-        rule.update(table.detach(), state.slots, uniq, summed, state.count,
-                    scale)
+    apply_flat_row_updates(rule, {"": table}, {"": state},
+                           {"": (ids, row_grads)}, multiplier_fn)
 
 
 def tap_gradients(records):
@@ -114,9 +108,21 @@ def apply_flat_row_updates(rule, tables, states, staged, multiplier_fn=None):
     """Row-sparse update of every table in `staged` ({table name: (ids
     [m], grads [m, dim])}), e.g. the concatenated microbatches of one
     gradient-accumulation cycle (the dedup sums repeats across them).
-    `tables` and `states` are keyed by the same names."""
+    `tables` and `states` are keyed by the same names. Each table's
+    count advances and its schedule scale is read at its own count;
+    then one `row_update_many` updates them all."""
+    groups, ids, grads, hypers = [], [], [], []
     for name in sorted(staged):
-        ids, grads = staged[name]
-        row_sparse_apply(rule, tables[name], states[name], ids, grads,
-                         multiplier_fn)
-
+        table, state = tables[name].detach(), states[name]
+        flat, row_grads = staged[name]
+        flat = flat.reshape(-1)
+        uniq, summed = eo.dedup_indexed_slices(
+            flat, row_grads.reshape(flat.numel(), -1).to(table.dtype))
+        scale = 1.0 if multiplier_fn is None else float(
+            multiplier_fn(state.count))
+        state.count += 1
+        groups.append([table] + state.slots)
+        ids.append(uniq)
+        grads.append(summed)
+        hypers.append(rule.kernel_hyper(state.count, scale))
+    eo.row_update_many(rule.kind, groups, ids, grads, hypers)

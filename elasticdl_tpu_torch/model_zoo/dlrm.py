@@ -7,12 +7,14 @@ dataset_fn, eval_metrics_fn, feature_shapes).
     pairwise dot products over the 27 vectors (upper triangle, i < j)
     concat(bottom, interactions) -> top MLP -> logit
 
-Every table is the port's `Embedding` (embedding/layer.py): a lookup is
-the gather kernel, and a table of at least 2 MiB (every table at the
-bench width, 1.2M x 32 fp32 = 154 MB) takes the sparse-row tier, whose
-updates are the row-update kernel. Parameter names follow the flax
-module names (`bottom_0` ..., `table_0.embedding_table` ..., `top_0`
-...), so `convert.dlrm_params_from_flax` carries flax weights over.
+Every table is the port's `Embedding` (embedding/layer.py), looked up
+together through `lookup_many`: one gather-kernel launch for the 26
+tables. A table of at least 2 MiB (every table at the bench width, 1.2M
+x 32 fp32 = 154 MB) takes the sparse-row tier, whose updates are one
+row-update-kernel launch a step for all the tables. Parameter names
+follow the flax module names (`bottom_0` ..., `table_0.embedding_table`
+..., `top_0` ...), so `convert.dlrm_params_from_flax` carries flax
+weights over.
 
 Numerics follow flax: Dense kernels drawn lecun-normal (a normal cut at
 two standard deviations and rescaled to variance 1/fan_in), zero
@@ -29,7 +31,7 @@ from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.hash_utils import string_to_id
 from elasticdl_tpu_torch.convert import dlrm_flax_param_path
 from elasticdl_tpu_torch.data.example_codec import decode_example
-from elasticdl_tpu_torch.embedding.layer import Embedding
+from elasticdl_tpu_torch.embedding.layer import Embedding, lookup_many
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
 from elasticdl_tpu_torch.training.metrics import AUC
 from elasticdl_tpu_torch.training.optimizers import sgd
@@ -102,7 +104,7 @@ class DLRM(nn.Module):
         ids = torch.as_tensor(features["sparse"], device=self.device)
         ids = (ids.to(torch.int32) % self.table_size).t().contiguous()
         bottom = self._run_mlp(self.bottom, dense)  # [b, d]
-        embs = [table(ids[t]) for t, table in enumerate(self.tables())]
+        embs = lookup_many(self.tables(), ids[:self.num_tables])
         z = torch.stack([bottom] + embs, dim=1)  # [b, T+1, d]
         inter = torch.bmm(z, z.transpose(1, 2))  # [b, T+1, T+1]
         pairs = inter.reshape(inter.shape[0], -1)[:, self.pair_index]

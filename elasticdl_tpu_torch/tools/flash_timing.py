@@ -1,18 +1,19 @@
-"""Device time of the port's attention kernels (A, C, D, B) and its dense
-update kernel (G) on one card, for comparing two checkouts of the port
-in one call.
+"""Device time of the port's attention kernels (A, C, D, B), its dense
+update kernel (G) and its embedding kernels (E, F) on one card, for
+comparing two checkouts of the port in one call.
 
-    PYTHONPATH=<checkout> python3 <this file> [label]
+    PYTHONPATH=<checkout> python3 <this file> [label [group ...]]
 
 imports `elasticdl_tpu_torch` from PYTHONPATH (so the same file times
 any checkout whose wrappers take these arguments), builds its kernels,
 and prints one JSON line: each case's device ms, with the card's name
-and power limit. "Hot": the median of 5 rounds of 50 CUDA-graph replays
-of one call between CUDA events, so its inputs sit in L2 where they
-fit. "Cold" (B): 8 calls over 8 disjoint arena pairs in one CUDA graph,
-as a decode step issues one per layer, L2 flushed before each of 20
-rounds, the per-call mean. Flash cases, bf16, d 128, inputs from seeded
-generators:
+and power limit. The groups (all by default): flash (A, C, D), paged
+(B), dense (G), embedding (E, F). "Hot": the median of 5 rounds of 50
+CUDA-graph replays of one call between CUDA events, so its inputs sit in
+L2 where they fit. "Cold" (B): 8 calls over 8 disjoint arena pairs in
+one CUDA graph, as a decode step issues one per layer, L2 flushed
+before each of 20 rounds, the per-call mean. Flash cases, bf16, d 128,
+inputs from seeded generators:
 
 * A at the serving path's largest prefill bucket (b 1, h 8, l 512) and
   at the training shape (b 8, h 8, l 1024), causal, each beside SDPA
@@ -47,7 +48,26 @@ G, the five rules at 64M fp32 (the dense update API's path) through
 their public wrappers, beside `p.add(g, alpha=-lr)`, hot (every call
 moves 0.8-2.4 GB, far past L2).
 
-SDPA, aten and `p.add` are used nowhere in the port.
+E and F at the DLRM path's shape: 26 tables of 1,200,000 x 32 fp32 and
+4096 ids a table uniform over the rows, drawn from EMB_SEED; F over
+each table's ids deduplicated (`dedup_indexed_slices`), as the row tier
+calls it. Each case over the 26 tables of a step, with L2 flushed
+before each round (`_step`: ms a step, `_kernel_us`: the kernels'
+own microseconds a step by the profiler, each call after a flush,
+`_eager_ms`: a step's calls without a graph, the wrappers' host work
+included):
+
+* the 26 lookups of a step: through `embedding_gather_many` where the
+  checkout has it, else 26 `embedding_gather` calls in one graph; one
+  table's call (`_table`: per call of 26 in one graph, and its kernel
+  alone); 26 `torch.index_select` in one graph;
+* the 26 updates of a step for each rule (sgd, momentum with Nesterov,
+  adam at update 3, adagrad): through `row_update_many` where the
+  checkout has it, else 26 `sparse_*_update` calls; SGD's one table's
+  call; 26 `Tensor.index_add_` (SGD's update) in one graph.
+
+SDPA, aten, `p.add`, `index_select` and `index_add_` are used nowhere in
+the port.
 """
 
 import json
@@ -62,7 +82,9 @@ from torch.profiler import ProfilerActivity, profile
 from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.model_zoo.transformer_lm import kv_quantize_rows
 from elasticdl_tpu_torch.ops import attention as att
+from elasticdl_tpu_torch.ops import embedding_ops as eo
 from elasticdl_tpu_torch.ops import optimizer_kernels as ok
+from elasticdl_tpu_torch.ops import update_math as um
 
 ROUNDS, REPLAYS = 5, 50
 WINDOW = 256
@@ -71,6 +93,8 @@ PAGED_SEED = 11  # chip_smoke.py's PAGED_TIMING_SEED
 COLD_LAYERS, COLD_ROUNDS = 8, 20
 L2_FLUSH_BYTES = 256 << 20  # past the H100's 50 MB L2
 DENSE_N = 64 * 1024 * 1024
+EMB_TABLES, EMB_VOCAB, EMB_DIM, EMB_IDS = 26, 1_200_000, 32, 4096
+EMB_SEED = 6
 
 
 def _replay_ms(fn):
@@ -137,16 +161,19 @@ def _aten_backward_ms(q, k, v, do):
                                        0.0, True, seed, offset))
 
 
-def _kernel_us(fn, name, calls=20):
+def _kernel_us(fn, name, calls=20, flush=None):
     """Device microseconds a call of fn spends in kernels whose name holds
     `name`, by torch.profiler over `calls` eager calls: the kernels' own
     durations, without the few microseconds a graph replay adds around a
-    short kernel."""
+    short kernel. `flush`: a tensor zeroed before each call, to evict
+    the L2."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     total = 0.0
@@ -282,17 +309,142 @@ def _dense_cases(out):
         torch.cuda.empty_cache()
 
 
-def main(label):
+# each rule's arguments for the one-table wrappers, and its hyperparameters
+# as the grouped wrapper takes them
+ROW_CASES = {
+    "sgd": (eo.sparse_sgd_update, 0, {"lr": 0.01}, [0.01]),
+    "momentum": (eo.sparse_momentum_update, 1,
+                 {"lr": 0.01, "momentum": 0.9, "nesterov": True},
+                 [0.01, 0.9, 1.0]),
+    "adam": (eo.sparse_adam_update, 2,
+             {"step": 3, "lr": 1e-3, "beta1": 0.9, "beta2": 0.999,
+              "eps": 1e-8},
+             [um.adam_alpha(1e-3, 0.9, 0.999, 3), 0.9, 0.999, 1e-8]),
+    "adagrad": (eo.sparse_adagrad_update, 1, {"lr": 0.01, "eps": 1e-10},
+                [0.01, 1e-10]),
+}
+
+
+def _eager_ms(fn, calls=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _embedding_cases(out):
+    """E and F over the 26 tables of a DLRM step (see the module
+    docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(EMB_SEED)
+    n_tab = EMB_TABLES
+    tables = torch.randn(n_tab, EMB_VOCAB, EMB_DIM, generator=gen,
+                         device="cuda")
+    tabs = list(tables)
+    ids = torch.randint(0, EMB_VOCAB, (n_tab, EMB_IDS), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    grouped = hasattr(eo, "embedding_gather_many")
+    out["embedding_grouped_wrappers"] = grouped
+    one = [lambda t=t: eo.embedding_gather(tabs[t], ids[t])
+           for t in range(n_tab)]
+
+    def step():
+        if grouped:
+            return eo.embedding_gather_many(tabs, ids)
+        return [call() for call in one]
+
+    out["gather_step"] = _cold_ms([step])
+    out["gather_step_kernel_us"] = _kernel_us(step, "gather_kernel",
+                                              flush=flush)
+    out["gather_step_eager_ms"] = _eager_ms(step)
+    out["gather_table"] = _cold_ms(one)
+    out["gather_table_kernel_us"] = _kernel_us(one[0], "gather_kernel",
+                                               flush=flush)
+    longs = [i.long() for i in ids]
+    out["index_select_step"] = _cold_ms([lambda: [
+        torch.index_select(tabs[t], 0, longs[t]) for t in range(n_tab)]])
+    grads = torch.randn(n_tab, EMB_IDS, EMB_DIM, generator=gen,
+                        device="cuda")
+    uniq, summed = map(list, zip(*(eo.dedup_indexed_slices(i, g)
+                                   for i, g in zip(ids, grads))))
+    for rule, (wrapper, n_slots, kwargs, hyper) in ROW_CASES.items():
+        slots = [torch.rand(n_tab, EMB_VOCAB, EMB_DIM, generator=gen,
+                            device="cuda") * 0.1 for _ in range(n_slots)]
+        group = [[tabs[t]] + [s[t] for s in slots] for t in range(n_tab)]
+        one = [lambda t=t: wrapper(*group[t], uniq[t], summed[t], **kwargs)
+               for t in range(n_tab)]
+
+        def step(rule=rule, group=group, hyper=hyper, one=one):
+            if grouped:
+                eo.row_update_many(rule, group, uniq, summed,
+                                   [hyper] * n_tab)
+            else:
+                for call in one:
+                    call()
+
+        name = "row_%s" % rule
+        out[name + "_step"] = _cold_ms([step])
+        out[name + "_step_kernel_us"] = _kernel_us(
+            step, "row_update_kernel", flush=flush)
+        out[name + "_step_eager_ms"] = _eager_ms(step)
+        if rule == "sgd":
+            out[name + "_table"] = _cold_ms(one)
+            out[name + "_table_kernel_us"] = _kernel_us(
+                one[0], "row_update_kernel", flush=flush)
+            valid = [(u[u >= 0].long(), s[:int((u >= 0).sum())])
+                     for u, s in zip(uniq, summed)]
+            out["index_add_step"] = _cold_ms([lambda: [
+                tabs[t].index_add_(0, v, s, alpha=-0.01)
+                for t, (v, s) in enumerate(valid)]])
+        del slots, group
+        torch.cuda.empty_cache()
+
+
+GROUPS = ("flash", "paged", "dense", "embedding")
+
+
+def main(label, groups=GROUPS):
     if not torch.cuda.is_available():
         print("flash_timing: no CUDA device", file=sys.stderr)
         return 2
+    unknown = set(groups) - set(GROUPS)
+    if unknown:
+        print("flash_timing: unknown groups %s (of %s)"
+              % (sorted(unknown), GROUPS), file=sys.stderr)
+        return 2
+    out = {"label": label, "module": att.__file__}
+    if "flash" in groups:
+        _flash_cases(out)
+    one = torch.zeros(1, device="cuda")
+    out["replay_floor_ms"] = _replay_ms(one.zero_)
+    if "paged" in groups:
+        _paged_cases(out)
+    if "dense" in groups:
+        _dense_cases(out)
+    if "embedding" in groups:
+        _embedding_cases(out)
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps(out))
+    return 0
+
+
+def _flash_cases(out):
+    """A, C and D (see the module docstring)."""
     gen = torch.Generator().manual_seed(0)
 
     def mk(b, l):
         return torch.randn(b, 8, l, 128, generator=gen).to("cuda",
                                                             torch.bfloat16)
 
-    out = {"label": label, "module": att.__file__}
     q, k, v = mk(1, 512), mk(1, 512), mk(1, 512)
     out["flash_fwd_b1_l512"] = _replay_ms(
         lambda: att.flash_forward(q, k, v, causal=True))
@@ -334,17 +486,8 @@ def main(label):
         lambda: att.flash_backward_dq(q, k, v, o, lse, do, **grad))
     out["flash_bwd_dkv_window_offset_b2_l1024"] = _replay_ms(
         lambda: att.flash_backward_dkv(q, k, v, do, lse, delta, **grad))
-    one = torch.zeros(1, device="cuda")
-    out["replay_floor_ms"] = _replay_ms(one.zero_)
-    _paged_cases(out)
-    _dense_cases(out)
-    out["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(json.dumps(out))
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else ""))
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "",
+                  sys.argv[2:] or GROUPS))
