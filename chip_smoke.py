@@ -164,12 +164,30 @@ repository checkout it sits in. Phases, each of which fails the run:
    CPU. Its step times are no sp speed figure;
 21. the offset variants timed at the ring's one-shard-back rotation,
    beside a bound over the pairs the mask keeps, the plain version and
-   SDPA with the same boolean mask.
+   SDPA with the same boolean mask;
+22. checkpoints and crash recovery at the flagship width (after phase
+   11): LocalExecutor trains 6 steps at 2 a task over token records,
+   with a checkpoint every 2 steps (2 kept) and a job state dir. Run 1,
+   a process of its own (this script run as `chip_smoke.py --ckpt-run
+   1 DIR`), dies by SIGKILL from EDL_FAULT_SPEC=local_get_task:kill:1:
+   skip=2 fetching its third task: rc -9 after 4 steps, version-2 and
+   version-4 on disk, verify_checkpoint of version 4. Run 2, another
+   process, restores version 4 (checkpoint_dir_for_init) and the job
+   state and trains only the last task, to step 6. Run 3 trains the 6
+   steps here without a stop: run 1's and run 2's losses and run 2's
+   version-6 parameters and AdamW slots must equal run 3's bit for bit
+   (else within what two uninterrupted runs differ by, both printed).
+   A, C and D launch once per layer in every step of the three runs. A
+   server built by serving/main.py with --checkpoint_dir serves 4
+   greedy requests (A and B launched) with the tokens of a server over
+   run 3's parameters. Then one save of run 3's state, synchronous
+   (device to host, serialize + sha256, write + rename) and async (the
+   ms the loop pays, steps during the write), and a restore.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
-JSON line, a `packed`, a `windowed` and an `sp` JSON line, the
-nvidia-smi line and, last, {"ok": true, "device": {...}}.
+JSON line, a `packed`, a `windowed`, an `sp` and a `checkpoint` JSON
+line, the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
@@ -179,7 +197,9 @@ import itertools
 import json
 import math
 import os
+import random
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -193,9 +213,20 @@ import torch.nn.functional as F
 
 from elasticdl_tpu_torch.api.generation import kv_layout
 from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+from elasticdl_tpu_torch.checkpoint.saver import (
+    CheckpointSaver,
+    flatten_state,
+    get_latest_checkpoint_version,
+    load_checkpoint,
+    restore_state_from_checkpoint,
+    verify_checkpoint,
+)
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.hash_utils import string_to_id
-from elasticdl_tpu_torch.common.model_utils import load_model_spec_from_module
+from elasticdl_tpu_torch.common.model_utils import (
+    get_dict_from_params_str,
+    load_model_spec_from_module,
+)
 from elasticdl_tpu_torch.convert import dlrm_params_from_flax, params_from_flax
 from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.data.dataset import pad_batch
@@ -215,6 +246,7 @@ from elasticdl_tpu_torch.ops import embedding_ops as eo
 from elasticdl_tpu_torch.ops import optimizer_kernels as ok
 from elasticdl_tpu_torch.ops import update_math as um
 from elasticdl_tpu_torch.parallel import context_parallel as cp
+from elasticdl_tpu_torch.serving import main as serving_main
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 from elasticdl_tpu_torch.serving.server import GenerationServer, ServingConfig
 from elasticdl_tpu_torch.training.trainer import Trainer
@@ -4230,6 +4262,407 @@ def time_offset_flash(inputs, launches, errors):
     return entries
 
 
+# ------------------------------------------------ checkpoint and recovery
+
+# the job the phase trains, crashes, resumes and serves: CKPT_STEPS
+# steps at CKPT_STEPS_PER_TASK a task, a checkpoint every CKPT_EVERY
+# steps keeping CKPT_KEEP; run 1 dies by SIGKILL fetching its third task
+CKPT_STEPS, CKPT_STEPS_PER_TASK = 6, 2
+CKPT_EVERY, CKPT_KEEP = 2, 2
+CKPT_FAULT = "local_get_task:kill:1:skip=2"
+CKPT_KILLED_AT = 4  # the steps run 1 takes before it dies
+CKPT_SERVE = ((37, 24), (200, 16), (513, 16), (64, 32))  # (prompt, new)
+
+
+def _ckpt_job(workdir, cfg, batch, device, rng):
+    """Write the phase's token records and its job file (read by the
+    rank processes, `chip_smoke.py --ckpt-run RUN WORKDIR`)."""
+    data = os.path.join(workdir, "train")
+    os.makedirs(data)
+    with RecordWriter(os.path.join(data, "tokens-00000.trec")) as w:
+        for _ in range(batch * CKPT_STEPS):
+            w.write(encode_example({"tokens": rng.randint(
+                0, cfg["vocab_size"], size=(cfg["seq_len"] + 1,)).astype(
+                    np.int64)}))
+    job = {"data": data, "params": _params_str(cfg), "batch": batch,
+           "device": device, "ckpt": os.path.join(workdir, "ckpt"),
+           "job_state": os.path.join(workdir, "job_state")}
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump(job, f)
+    return job
+
+
+def _ckpt_executor(job, **extra):
+    """The phase's LocalExecutor; the dispatcher's task shuffle seeded
+    so every run sees the tasks in one order."""
+    random.seed(0)
+    return LocalExecutor(
+        load_model_spec_from_module(tzoo), training_data=job["data"],
+        minibatch_size=job["batch"],
+        records_per_task=job["batch"] * CKPT_STEPS_PER_TASK,
+        model_params=job["params"], device=job["device"], **extra)
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _record_steps(executor, device, out_path=None):
+    """Wrap the executor's train step: each step's loss, host ms, wall
+    clock at its start and end and kernel launches go to a list, and
+    (flushed, so a killed process leaves them) one JSON line each to
+    `out_path`. Returns the list."""
+    steps = []
+    step_fn = executor.trainer.train_step
+
+    def recorded(state, batch, true_count=None):
+        before = dict(att.KERNEL_LAUNCHES)
+        _sync(device)
+        t_start, t0 = time.time(), time.perf_counter()
+        state, loss = step_fn(state, batch, true_count)
+        _sync(device)
+        rec = {"step": state.step, "loss": loss,
+               "ms": (time.perf_counter() - t0) * 1e3,
+               "t_start": t_start, "t_end": time.time(),
+               "launches": {k: att.KERNEL_LAUNCHES[k] - before[k]
+                            for k in att.KERNEL_LAUNCHES}}
+        steps.append(rec)
+        if out_path:
+            with open(out_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        return state, loss
+
+    executor.trainer.train_step = recorded
+    return steps
+
+
+def ckpt_run_main(run, workdir):
+    """Run 1 (killed by its fault rule) or run 2 (the resume) of the
+    checkpoint phase, in a process of its own."""
+    t_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    extra = dict(checkpoint_dir=job["ckpt"], checkpoint_steps=CKPT_EVERY,
+                 keep_checkpoint_max=CKPT_KEEP,
+                 job_state_dir=job["job_state"])
+    if run == 2:
+        extra["checkpoint_dir_for_init"] = job["ckpt"]
+    executor = _ckpt_executor(job, **extra)
+    _record_steps(executor, job["device"],
+                  os.path.join(workdir, "run%d.steps.jsonl" % run))
+    timing = {}
+    init_state, ensure = executor.trainer.init_state, executor._ensure_state
+
+    def timed_init(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = init_state(*args, **kwargs)
+        _sync(job["device"])
+        timing["init_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_ensure(batch):
+        fresh = executor.state is None
+        t0 = time.perf_counter()
+        ensure(batch)
+        _sync(job["device"])
+        if fresh:
+            timing["restore_s"] = (time.perf_counter() - t0
+                                   - timing["init_s"])
+
+    executor.trainer.init_state = timed_init
+    executor._ensure_state = timed_ensure
+    state, _ = executor.train()
+    with open(os.path.join(workdir, "run%d.json" % run), "w") as f:
+        json.dump(dict(timing, run=run, t_process_main=t_start,
+                       final_step=state.step,
+                       restored_version=executor.restored_version,
+                       save=executor.checkpoint_saver.last_timing), f)
+
+
+def _ckpt_child(run, workdir, fault=""):
+    """Start run `run` in a process of its own; returns (rc, wall clock
+    at the start, its step records, its summary or None)."""
+    env = dict(os.environ)
+    env.pop("EDL_FAULT_SPEC", None)
+    if fault:
+        env["EDL_FAULT_SPEC"] = fault
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    log_path = os.path.join(workdir, "run%d.log" % run)
+    t_launch = time.time()
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ckpt-run",
+             str(run), workdir], stdout=log_f, stderr=subprocess.STDOUT,
+            env=env)
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    steps_path = os.path.join(workdir, "run%d.steps.jsonl" % run)
+    steps = []
+    if os.path.exists(steps_path):
+        with open(steps_path) as f:
+            steps = [json.loads(line) for line in f if line.strip()]
+    summary_path = os.path.join(workdir, "run%d.json" % run)
+    summary = None
+    if os.path.exists(summary_path):
+        with open(summary_path) as f:
+            summary = json.load(f)
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    log("checkpoint run %d: rc %d, %d steps; log tail:\n%s"
+        % (run, rc, len(steps), tail))
+    return rc, t_launch, steps, summary
+
+
+def _flat_diff(a, b):
+    """(largest |a - b| over every leaf, the leaves that differ)."""
+    check(sorted(a) == sorted(b), "the resumed and the uninterrupted state "
+          "name other leaves")
+    worst, differ = 0.0, []
+    for name in a:
+        x = np.asarray(a[name], np.float64)
+        y = np.asarray(b[name], np.float64)
+        if x.shape != y.shape:
+            differ.append(name)
+            worst = math.inf
+            continue
+        d = float(np.max(np.abs(x - y))) if x.size else 0.0
+        if d or not np.array_equal(np.asarray(a[name]), np.asarray(b[name])):
+            differ.append(name)
+            worst = max(worst, d)
+    return worst, differ
+
+
+def _ckpt_serve(args_or_model, lines, device):
+    """Serve `lines` through a server built by serving/main.py from
+    argv, or around a model; returns (answers, launches, version)."""
+    att.reset_launch_counts()
+    if isinstance(args_or_model, list):
+        server = serving_main.build_server(
+            serving_main.parse_serving_args(args_or_model))
+    else:
+        server = GenerationServer(args_or_model, ServingConfig(
+            num_slots=8, kv_block_size=16))
+    server.start()
+    try:
+        answers = serving_main.serve_lines(server, lines)
+    finally:
+        server.stop(drain=True)
+    _sync(device)
+    return answers, dict(att.KERNEL_LAUNCHES), server.model_version
+
+
+def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
+                     device="cuda"):
+    """Train -> crash -> resume -> serve at `cfg`: run 1 (a process)
+    dies by SIGKILL at the dispatch boundary after CKPT_KILLED_AT steps,
+    run 2 (a process) resumes from its checkpoint and job state and
+    trains the last task, run 3 (here) trains all CKPT_STEPS without a
+    stop. Run 2's losses, parameters and AdamW slots must equal run 3's,
+    and a server built from run 2's checkpoint through serving/main.py
+    must give the greedy tokens of a server over run 3's parameters.
+    Then one save's time, synchronous and async. Returns (metrics,
+    launches by part)."""
+    on_card = device == "cuda"
+    layers = cfg["num_layers"]
+    job = _ckpt_job(workdir, cfg, batch, device, rng)
+    ckpt = job["ckpt"]
+    if on_card:
+        torch.cuda.empty_cache()
+    # run 1: the crash
+    rc1, _, steps1, _ = _ckpt_child(1, workdir, fault=CKPT_FAULT)
+    check(rc1 == -9, "run 1 ended with rc %d, not by SIGKILL (-9)" % rc1)
+    check([s["step"] for s in steps1] == list(range(1, CKPT_KILLED_AT + 1)),
+          "run 1 took steps %s before it died" % [s["step"] for s in steps1])
+    versions = sorted(os.listdir(ckpt))
+    check(versions == ["version-2", "version-4"],
+          "run 1 left %s, not version-2 and version-4" % versions)
+    t0 = time.perf_counter()
+    manifest = verify_checkpoint(ckpt, CKPT_KILLED_AT)
+    verify_s = time.perf_counter() - t0
+    # run 2: the resume
+    rc2, t_launch2, steps2, run2 = _ckpt_child(2, workdir)
+    check(rc2 == 0 and run2 is not None, "run 2 ended with rc %d" % rc2)
+    check(run2["restored_version"] == CKPT_KILLED_AT
+          and run2["final_step"] == CKPT_STEPS
+          and [s["step"] for s in steps2] == list(
+              range(CKPT_KILLED_AT + 1, CKPT_STEPS + 1)),
+          "run 2 restored version %s and took steps %s" % (
+              run2["restored_version"], [s["step"] for s in steps2]))
+    check(get_latest_checkpoint_version(ckpt) == CKPT_STEPS,
+          "run 2 did not save version %d" % CKPT_STEPS)
+    def control():
+        """Run 3, the uninterrupted run, in this process."""
+        executor = _ckpt_executor(job)
+        steps = _record_steps(executor, device)
+        att.reset_launch_counts()
+        state, _ = executor.train()
+        del executor.trainer.train_step
+        check(state.step == CKPT_STEPS, "the control took %d steps"
+              % state.step)
+        return executor, steps
+
+    ex3, steps3 = control()
+    if on_card:
+        for s in steps1 + steps2 + steps3:
+            for name in TRAINING_KERNELS:
+                check(s["launches"][name] == layers,
+                      "checkpoint phase step %d launched %s %d times, not %d"
+                      % (s["step"], name, s["launches"][name], layers))
+    resumed_losses = [s["loss"] for s in steps1 + steps2]
+    control_losses = [s["loss"] for s in steps3]
+    flat3 = flatten_state(ex3.trainer, ex3.state)
+    flat6, _ = load_checkpoint(ckpt, CKPT_STEPS)
+    resumed_diff, differ = _flat_diff(flat6, flat3)
+    loss_diff = max(abs(a - b) for a, b in zip(resumed_losses,
+                                                control_losses))
+    log("checkpoint phase losses: resumed %s, uninterrupted %s; largest "
+        "state difference %r over %d leaves"
+        % (resumed_losses, control_losses, resumed_diff, len(differ)))
+    bitwise = not differ and resumed_losses == control_losses
+    control_diff = None
+    if not bitwise:
+        # a kernel on the path is not deterministic: the bound is what
+        # two uninterrupted runs show between themselves
+        ex4, steps4 = control()
+        control_diff, _ = _flat_diff(flatten_state(ex4.trainer, ex4.state),
+                                     flat3)
+        control_loss_diff = max(abs(s["loss"] - t["loss"])
+                                for s, t in zip(steps4, steps3))
+        log("two uninterrupted runs differ by %r (state), %r (loss)"
+            % (control_diff, control_loss_diff))
+        check(resumed_diff <= control_diff
+              and loss_diff <= control_loss_diff,
+              "resumed vs uninterrupted %r / %r exceeds two uninterrupted "
+              "runs' %r / %r" % (resumed_diff, loss_diff, control_diff,
+                                 control_loss_diff))
+        del ex4
+    # serving: from the checkpoint through serving/main.py, and over the
+    # control's parameters
+    prompts = [(rng.randint(0, cfg["vocab_size"],
+                            size=min(n, cfg["seq_len"] // 2)).tolist(), new)
+               for n, new in CKPT_SERVE]
+    lines = [json.dumps({"prompt": p, "max_new_tokens": new})
+             for p, new in prompts]
+    argv = ["--device", device, "--model_params", job["params"],
+            "--checkpoint_dir", ckpt, "--num_slots", "8",
+            "--kv_block_size", "16"]
+    t0 = time.perf_counter()
+    served, serve_launches, version = _ckpt_serve(argv, lines, device)
+    serve_s = time.perf_counter() - t0
+    model3 = tzoo.custom_model(device=device,
+                               **get_dict_from_params_str(job["params"]))
+    model3.load_state_dict(ex3.trainer.model.state_dict())
+    reference, _, _ = _ckpt_serve(model3, lines, device)
+    del model3
+    check(version == CKPT_STEPS, "the server serves version %d" % version)
+    check(all("tokens" in a and len(a["tokens"]) == len(p) + new
+              for a, (p, new) in zip(served, prompts)),
+          "serving from the checkpoint: %s" % served)
+    check(served == reference, "serving from the checkpoint gave other "
+          "tokens than the uninterrupted run's parameters")
+    if on_card:
+        for name in ("flash_fwd", "paged_decode"):
+            check(serve_launches[name] > 0, "serving from the checkpoint "
+                  "launched no %s" % name)
+    # one save's time, synchronous and async, and a restore, on the
+    # control's state
+    shutil.rmtree(ckpt)
+    times_dir = os.path.join(workdir, "timing")
+    trainer3, state3 = ex3.trainer, ex3.state
+    saver = CheckpointSaver(trainer3, times_dir, keep_max_version=1)
+    t0 = time.perf_counter()
+    saver.save(state3, CKPT_STEPS)
+    sync_s = time.perf_counter() - t0
+    sync = dict(saver.last_timing, total_s=sync_s,
+                gb_per_s=saver.last_timing["bytes"] / sync_s / 1e9)
+    tokens = rng.randint(0, cfg["vocab_size"],
+                         size=(batch, cfg["seq_len"] + 1)).astype(np.int32)
+    fixed = ({"tokens": tokens[:, :-1]}, tokens[:, 1:])
+
+    def step_ms():
+        _sync(device)
+        t0 = time.perf_counter()
+        trainer3.train_step(state3, fixed)
+        _sync(device)
+        return (time.perf_counter() - t0) * 1e3
+
+    quiet = [step_ms() for _ in range(2)]
+    asaver = CheckpointSaver(trainer3, times_dir, keep_max_version=1,
+                             async_save=True)
+    saved_step = state3.step
+    t0 = time.perf_counter()
+    asaver.save(state3, saved_step)
+    paid_ms = (time.perf_counter() - t0) * 1e3
+    during = [step_ms() for _ in range(2)]
+    asaver.wait()
+    async_total = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_state_from_checkpoint(trainer3, state3, times_dir)
+    _sync(device)
+    restore_here_s = time.perf_counter() - t0
+    check(state3.step == saved_step, "the timing restore read step %d, not "
+          "%d" % (state3.step, saved_step))
+    shutil.rmtree(times_dir)
+    recover_s = steps2[0]["t_end"] - t_launch2
+    metrics = {
+        "model": "transformer_lm %s, bf16 compute, fp32 params, AdamW"
+                 % ("flagship" if cfg is FLAGSHIP else "small"),
+        "minibatch": batch, "seq_len": cfg["seq_len"],
+        "steps": CKPT_STEPS, "steps_per_task": CKPT_STEPS_PER_TASK,
+        "checkpoint_steps": CKPT_EVERY, "keep_checkpoint_max": CKPT_KEEP,
+        "fault": CKPT_FAULT,
+        "run1": {"rc": rc1, "steps": len(steps1),
+                 "versions_on_disk": versions,
+                 "step_ms": [s["ms"] for s in steps1]},
+        "run2": {"rc": rc2, "restored_version": run2["restored_version"],
+                 "final_step": run2["final_step"],
+                 "process_main_after_launch_s":
+                     run2["t_process_main"] - t_launch2,
+                 "init_s": run2["init_s"], "restore_s": run2["restore_s"],
+                 "first_step_start_after_launch_s":
+                     steps2[0]["t_start"] - t_launch2,
+                 "save": run2["save"],
+                 "step_ms": [s["ms"] for s in steps2]},
+        "time_to_recover_s": recover_s,
+        "time_to_recover_is": "from run 2's process start to the end of "
+                              "its first step",
+        "losses_resumed": resumed_losses, "losses_uninterrupted":
+            control_losses,
+        "bitwise_equal": bitwise,
+        "resumed_vs_uninterrupted_max_abs": resumed_diff,
+        "resumed_vs_uninterrupted_loss_max_abs": loss_diff,
+        "leaves_differing": differ[:10],
+        "two_uninterrupted_runs_max_abs": control_diff,
+        "checkpoint_bytes": manifest["bytes"],
+        "leaf_count": manifest["leaf_count"],
+        "verify_s": verify_s,
+        "save_sync": sync,
+        "save_async": {"paid_ms": paid_ms, "total_s": async_total,
+                       "step_ms_without_write": quiet,
+                       "step_ms_during_write": during},
+        "restore_s_in_process": restore_here_s,
+        "serving": {"requests": len(prompts),
+                    "new_tokens": sum(n for _p, n in prompts),
+                    "model_version": version, "wall_s": serve_s,
+                    "tokens_equal_uninterrupted": served == reference},
+        "launches_per_step": {k: steps3[-1]["launches"][k]
+                              for k in TRAINING_KERNELS},
+    }
+    launches = {"training_per_step": metrics["launches_per_step"],
+                "serving": {k: serve_launches[k] for k in SERVING_KERNELS}}
+    del ex3, trainer3, state3
+    return metrics, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4391,6 +4824,12 @@ def main():
     dlrm["cuda_vs_cpu_step"] = compare_dlrm_step(rng)
     dense, dense_launches = run_dense_path()
     log("dense update path: %s" % json.dumps(dense))
+    # the checkpoint phase draws from its own generator, so every later
+    # phase sees the data it saw before it was added
+    with tempfile.TemporaryDirectory() as workdir:
+        checkpoint, ckpt_launches = checkpoint_phase(
+            np.random.RandomState(14), workdir)
+    log("checkpoint phase launches: %s" % ckpt_launches)
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
     kernels[0]["bf16_instances_checked"] = fwd_instances["instances"]
@@ -4459,8 +4898,15 @@ def main():
         offset_inputs, sp_launches,
         {v: dict(e, small_shapes=offset_err.get(v))
          for v, e in offset_path_err.items()})
+    for entry in kernels:
+        if entry["name"] in TRAINING_KERNELS:
+            entry["launches_checkpoint_phase_per_step"] = ckpt_launches[
+                "training_per_step"][entry["name"]]
+        if entry["name"] in SERVING_KERNELS:
+            entry["launches_checkpoint_phase_serving"] = ckpt_launches[
+                "serving"][entry["name"]]
     serving["card"] = training["card"] = dlrm["card"] = dense["card"] = smi
-    packed["card"] = windowed["card"] = sp["card"] = smi
+    packed["card"] = windowed["card"] = sp["card"] = checkpoint["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4469,6 +4915,7 @@ def main():
     print(json.dumps({"packed": packed}))
     print(json.dumps({"windowed": windowed}))
     print(json.dumps({"sp": sp}))
+    print(json.dumps({"checkpoint": checkpoint}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4479,6 +4926,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-rank"]:
         sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ckpt-run"]:
+        ckpt_run_main(int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     try:
         sys.exit(main())

@@ -12,8 +12,10 @@ exports, by name:
     dataset_fn(dataset, mode, metadata) -> dataset
     eval_metrics_fn() -> {metric_name: fn(labels, predictions)}
 
-plus optionally `callbacks()` and `flax_param_path(param_name) -> the
-flax path` (what a Trainer `trainable_pattern` regex matches).
+plus optionally `callbacks()`, `flax_param_path(param_name) -> the
+flax path` (what a Trainer `trainable_pattern` regex matches and what
+names the parameter in a checkpoint) and `PredictionOutputsProcessor`
+(worker/prediction_outputs_processor.py).
 """
 
 import importlib.util
@@ -43,7 +45,8 @@ class ModelSpec(object):
     """A resolved zoo spec."""
 
     def __init__(self, model_fn, dataset_fn, loss, optimizer,
-                 eval_metrics_fn, callbacks_fn=None, flax_param_path=None):
+                 eval_metrics_fn, callbacks_fn=None, flax_param_path=None,
+                 prediction_outputs_processor=None):
         self.model_fn = model_fn
         self.dataset_fn = dataset_fn
         self.loss = loss
@@ -51,6 +54,7 @@ class ModelSpec(object):
         self.eval_metrics_fn = eval_metrics_fn
         self.callbacks_fn = callbacks_fn
         self.flax_param_path = flax_param_path
+        self.prediction_outputs_processor = prediction_outputs_processor
 
     def create_model(self, model_params_str="", **overrides):
         """custom_model(**params, **overrides): `overrides` carries what
@@ -79,6 +83,7 @@ def _spec_from_dict(d, model_name):
         eval_metrics_fn=d["eval_metrics_fn"],
         callbacks_fn=d.get("callbacks"),
         flax_param_path=d.get("flax_param_path"),
+        prediction_outputs_processor=d.get("PredictionOutputsProcessor"),
     )
 
 

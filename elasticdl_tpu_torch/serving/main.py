@@ -1,7 +1,9 @@
 """Serving entry point of the PyTorch port.
 
-Builds the transformer_lm model (seeded random weights, or JAX-package
-params converted from an .npz), starts the in-process generation server
+Builds the transformer_lm model (seeded random weights; the `.params`
+of the latest valid checkpoint under --checkpoint_dir, which either
+package's trainer wrote; or JAX-package params converted from an .npz),
+starts the in-process generation server
 and answers the requests read from stdin, one JSON object per line:
 
     {"prompt": [1, 2, 3], "max_new_tokens": 16, "temperature": 0.0,
@@ -25,7 +27,10 @@ num_heads=8; num_layers=8; dtype='bf16'" --num_slots 8 --kv_block_size 16
 
 import argparse
 import json
+import logging
 import sys
+
+logger = logging.getLogger(__name__)
 
 
 def parse_serving_args(args=None):
@@ -37,6 +42,12 @@ def parse_serving_args(args=None):
                         help="flax transformer_lm params saved as an .npz "
                              "of 'a/b/c'-keyed arrays; empty = seeded "
                              "random weights")
+    parser.add_argument("--checkpoint_dir", default="",
+                        help="restore the parameters of the latest valid "
+                             "checkpoint version here at start-up "
+                             "(strict=False: a parameter it lacks keeps "
+                             "its seeded value); none yet = seeded "
+                             "weights")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--num_slots", type=int, default=4)
     parser.add_argument("--queue_capacity", type=int, default=64)
@@ -50,21 +61,40 @@ def parse_serving_args(args=None):
 
 
 def build_model(args):
+    """(model, checkpoint version it was restored from or 0)."""
     # imports deferred so --help works without torch initialized
     import numpy as np
 
+    from elasticdl_tpu_torch.checkpoint.saver import (
+        get_latest_checkpoint_version,
+        load_checkpoint,
+        restore_params_from_flat,
+    )
     from elasticdl_tpu_torch.common.model_utils import (
         get_dict_from_params_str,
     )
     from elasticdl_tpu_torch.convert import params_from_flax
-    from elasticdl_tpu_torch.model_zoo.transformer_lm import custom_model
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        custom_model,
+        flax_param_path,
+    )
 
     kwargs = get_dict_from_params_str(args.model_params)
     model = custom_model(device=args.device, **kwargs)
+    version = 0
+    if args.checkpoint_dir:
+        if get_latest_checkpoint_version(args.checkpoint_dir) >= 0:
+            flat, version = load_checkpoint(args.checkpoint_dir)
+            restore_params_from_flat(model, flax_param_path, flat,
+                                     strict=False)
+            logger.info("serving checkpoint version-%d", version)
+        else:
+            logger.warning("no checkpoint under %r yet; serving seeded "
+                           "weights", args.checkpoint_dir)
     if args.params_npz:
         with np.load(args.params_npz) as npz:
             model.load_state_dict(params_from_flax(dict(npz)))
-    return model
+    return model, version
 
 
 def build_server(args):
@@ -73,8 +103,9 @@ def build_server(args):
         ServingConfig,
     )
 
+    model, version = build_model(args)
     return GenerationServer(
-        build_model(args),
+        model,
         ServingConfig(
             num_slots=args.num_slots, queue_capacity=args.queue_capacity,
             top_k=args.top_k, top_p=args.top_p,
@@ -82,6 +113,7 @@ def build_server(args):
             kv_num_blocks=args.kv_num_blocks,
             kv_shared=bool(args.kv_shared),
         ),
+        model_version=version,
     )
 
 

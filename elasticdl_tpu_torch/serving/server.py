@@ -142,11 +142,13 @@ class _Scheduler(threading.Thread):
 
 class GenerationServer(object):
     """Owns the engine, the admission queue and the scheduler thread for
-    `model` (the port's TransformerLM, on the device it serves from).
+    `model` (the port's TransformerLM, on the device it serves from;
+    `model_version` the checkpoint version its weights came from).
     `generate` / `generate_stream` are the in-process entry points."""
 
-    def __init__(self, model, config=None):
+    def __init__(self, model, config=None, model_version=0):
         self.config = config or ServingConfig()
+        self.model_version = int(model_version)
         cfg = self.config
         self.engine = PagedContinuousBatchingEngine(
             model, cfg.num_slots, top_k=cfg.top_k, top_p=cfg.top_p,
@@ -173,10 +175,12 @@ class GenerationServer(object):
 
     def status(self):
         """The replica's status, as the JAX servicer's ServerStatus
-        reports it: queue and slot occupancy, completed requests and the
+        reports it: the checkpoint version it serves, queue and slot
+        occupancy, completed requests and the
         KV pool's stats (the arenas' format under `kv_cache_dtype`: ""
         or "int8"; blocks; bytes summed per leaf at its dtype)."""
         return dict(
+            model_version=self.model_version,
             queue_depth=len(self.queue),
             active_slots=self.engine.active_count(),
             num_slots=self.engine.num_slots,

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.api.callbacks import LearningRateScheduler
+from elasticdl_tpu_torch.common.prng import state_rng
 from elasticdl_tpu_torch.embedding import sparse_update
 from elasticdl_tpu_torch.embedding.layer import (
     EMBEDDING_PARAM_NAME,
@@ -108,13 +109,18 @@ class OptState(object):
 class TrainState(object):
     """step: train_step calls so far (the model version); params: {torch
     key: the model's live parameter}; opt_state: an OptState;
-    embed_opt_state: {tapped table's key: sparse_update.RowState}."""
+    embed_opt_state: {tapped table's key: sparse_update.RowState}; rng:
+    the JAX Trainer's state key for the same seed (uint32 [2]), which no
+    port model draws from: it travels through checkpoints only."""
 
-    def __init__(self, step, params, opt_state, embed_opt_state=None):
+    def __init__(self, step, params, opt_state, embed_opt_state=None,
+                 rng=None):
         self.step = int(step)
         self.params = params
         self.opt_state = opt_state
         self.embed_opt_state = embed_opt_state or {}
+        self.rng = (np.zeros(2, np.uint32) if rng is None
+                    else np.asarray(rng, np.uint32))
 
     @property
     def version(self):
@@ -148,6 +154,7 @@ class Trainer(object):
                     "axis only" % others)
         self.mesh = mesh
         self.spec = model_spec
+        self.seed = seed
         self.device = resolve_device(device)
         self.model = model_spec.create_model(model_params, device=self.device,
                                              seed=seed)
@@ -160,8 +167,10 @@ class Trainer(object):
                 break
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         self.trainable_pattern = trainable_pattern
-        # filled by init_state: the tapped tables, their row rule, the
-        # embedding tables of the dense tier
+        # filled by init_state: the parameters trainable_pattern trains,
+        # the tapped tables, their row rule, the embedding tables of the
+        # dense tier
+        self.train_names = set()
         self._taps = {}
         self._row_rule = None
         self._masked_tables = []
@@ -211,7 +220,7 @@ class Trainer(object):
         if params is not None:
             self.model.load_state_dict(params)
         taps = self._tapped_tables()
-        train = self._trainable_names()
+        train = self.train_names = self._trainable_names()
         escaped = sorted(n for n in taps if n not in train)
         if escaped:
             raise NotImplementedError(
@@ -253,7 +262,7 @@ class Trainer(object):
             n: sparse_update.RowState(self._row_rule.init_slots(named[n]))
             for n in sorted(taps)}
         return TrainState(step, named, OptState(optimizer, count),
-                          embed_opt_state)
+                          embed_opt_state, rng=state_rng(self.seed))
 
     # ---------------------------------------------------------------- steps
 

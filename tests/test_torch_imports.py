@@ -18,8 +18,8 @@ import elasticdl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(elasticdl_tpu_torch.__file__)
-FORBIDDEN_TOPS = ("jax", "jaxlib", "flax", "optax", "grpc",
-                  "elasticdl_tpu", "model_zoo")
+FORBIDDEN_TOPS = ("jax", "jaxlib", "flax", "optax", "orbax", "grpc",
+                  "ml_dtypes", "elasticdl_tpu", "model_zoo")
 
 
 def _forbidden(name):
@@ -53,7 +53,16 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.embedding.sparse_update",
                      "elasticdl_tpu_torch.model_zoo.dlrm",
                      "elasticdl_tpu_torch.parallel.context_parallel",
-                     "elasticdl_tpu_torch.parallel.mesh"):
+                     "elasticdl_tpu_torch.parallel.mesh",
+                     "elasticdl_tpu_torch.checkpoint",
+                     "elasticdl_tpu_torch.checkpoint.saver",
+                     "elasticdl_tpu_torch.master.state_store",
+                     "elasticdl_tpu_torch.master.task_dispatcher",
+                     "elasticdl_tpu_torch.common.fault_injection",
+                     "elasticdl_tpu_torch.common.dtypes",
+                     "elasticdl_tpu_torch.common.tensor_utils",
+                     "elasticdl_tpu_torch.common.prng",
+                     "elasticdl_tpu_torch.worker.prediction_outputs_processor"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"
@@ -72,6 +81,7 @@ def test_port_modules_import_no_jax_package():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "elasticdl_tpu_torch.ops.attention" in loaded
     assert "elasticdl_tpu_torch.ops.embedding_ops" in loaded
+    assert "elasticdl_tpu_torch.checkpoint.saver" in loaded
     assert "torch" in loaded
     leaked = [m for m in loaded if _forbidden(m)]
     assert not leaked, leaked

@@ -275,8 +275,11 @@ def test_unported_options_raise():
                  lambda: trainer.forward_assembled(None, None)):
         with pytest.raises(NotImplementedError):
             call()
+    # checkpoints under an sp mesh (tests/test_torch_checkpoint.py has
+    # the single-device ones)
     with pytest.raises(NotImplementedError):
-        TaskDispatcher({"f": (0, 4)}, {}, {}, 2, 1, state_store=object())
+        LocalExecutor(spec, mesh=object(), checkpoint_dir="ckpt",
+                      checkpoint_steps=1, device="cpu")
 
 
 def test_flax_param_path_inverts_the_mapping():
