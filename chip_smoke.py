@@ -182,12 +182,40 @@ repository checkout it sits in. Phases, each of which fails the run:
    greedy requests (A and B launched) with the tokens of a server over
    run 3's parameters. Then one save of run 3's state, synchronous
    (device to host, serialize + sha256, write + rename) and async (the
-   ms the loop pays, steps during the write), and a restore.
+   ms the loop pays, steps during the write), and a restore;
+23. the serving engine's other modes at the flagship width (bf16,
+   seeded weights, 8 slots, block 16), each serving the 16 requests and
+   one 512-token prompt submitted after them: the plain paged engine
+   (the reference), the dense engine with a bf16 and with an int8 cache,
+   speculative decode (k = 2) with a random 2-layer draft and with the
+   target as its own draft, chunked prefill (128-token tiles, 8 ms a
+   tick), the engine with the step profiler, and the self-draft and
+   chunked runs again with it (where their ticks spend their time), then
+   the dense step under torch.profiler. Each mode's launches of A,
+   B split and B tile must equal what the run did (A once a layer a
+   monolithic prefill, the draft's at every seat; B's split kernel once
+   a layer a step or verify and a tile of up to 8 rows, its tile kernel
+   once a layer a wider tile; the dense engine no B), each stream must
+   equal the reference's or diverge only where the reference's top two
+   logits are within LOGIT_TOL_REL of the largest (logits_trace; the int8
+   dense engine against phase 7's int8 paged run), and the self-draft
+   must accept MODES_ACCEPT_MIN of its proposals. Hot reload: a server
+   built by serving/main.py follows a checkpoint dir at version 1 while
+   8 requests decode, version 2 is renamed into it, the watcher swaps
+   between steps: no token dropped, every weight equal to version 2's
+   fp32 value cast to its dtype bit for bit, a later request at version
+   2 with the tokens of a fresh server over version 2. Then the flagship
+   width at 2 layers in fp32: the greedy streams of every mode on the
+   card and of the paged engine on the CPU identical. Then B's split
+   kernel timed at the verify tile's shape (b 8, t 3).
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
-JSON line, a `packed`, a `windowed`, an `sp` and a `checkpoint` JSON
-line, the nvidia-smi line and, last, {"ok": true, "device": {...}}.
+JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint` and a
+`serving_modes` JSON line, each with its own seconds (`phase_s`; the
+kernel checks' and timings' and the whole script's under
+`serving_modes.kernels_phase_s` and `.script_s`), the nvidia-smi line
+and, last, {"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
@@ -1586,16 +1614,19 @@ def serving_kernels(kv_cache_dtype="", attn_window=0):
     return tuple(n + "_window" for n in names) if attn_window else names
 
 
-def serve_flagship(specs, kv_cache_dtype="", attn_window=0):
+def serve_flagship(specs, kv_cache_dtype="", attn_window=0,
+                   streams_out=None):
     """Greedy requests `specs` through the port's server at flagship
-    width, the KV arenas in the compute dtype or int8, every layer
-    sliding-window attention when `attn_window` is set. Returns the
-    serving metrics and the kernel launch counts of the run."""
+    width (the paged pool), the KV arenas in the compute dtype or int8,
+    every layer sliding-window attention when `attn_window` is set.
+    Returns the serving metrics and the kernel launch counts of the run;
+    the generated tokens go to `streams_out` when it is a list."""
     model = TransformerLM(device="cuda", seed=0,
                           kv_cache_dtype=kv_cache_dtype,
                           attn_window=attn_window, **FLAGSHIP)
     server = GenerationServer(model, ServingConfig(
-        num_slots=8, queue_capacity=64, kv_block_size=16, kv_shared=True,
+        num_slots=8, queue_capacity=64, kv_paged=True, kv_block_size=16,
+        kv_shared=True,
     )).start()
     kernels = serving_kernels(kv_cache_dtype, attn_window)
     try:
@@ -1615,6 +1646,8 @@ def serve_flagship(specs, kv_cache_dtype="", attn_window=0):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(att.KERNEL_LAUNCHES)
+        if streams_out is not None:
+            streams_out.extend(list(r.generated) for r in reqs)
         for req, (prompt, new) in zip(reqs, specs):
             check(len(req.generated) == new,
                   "request %d finished with %d of %d tokens"
@@ -1872,21 +1905,24 @@ def device_summary(events, steps, step_ms, top, group=None):
     return out
 
 
-def profile_decode(rng, steps=10, kv_cache_dtype=""):
+def profile_decode(rng, steps=10, kv_cache_dtype="", dense=False):
     """Where a decode step's time goes: the flagship engine (KV arenas in
-    the compute dtype, or int8) with 8 active slots, `steps` steps timed
-    on the host clock, then the same number under torch.profiler for the
-    device's busy time and the top host and device entries."""
+    the compute dtype, or int8; the paged engine, or the dense one) with
+    8 active slots, `steps` steps timed on the host clock, then the same
+    number under torch.profiler for the device's busy time and the top
+    host and device entries."""
     from torch.profiler import ProfilerActivity, profile
 
     from elasticdl_tpu_torch.serving.admission import ServingRequest
     from elasticdl_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine,
         PagedContinuousBatchingEngine,
     )
 
-    engine = PagedContinuousBatchingEngine(
-        TransformerLM(device="cuda", seed=0, kv_cache_dtype=kv_cache_dtype,
-                      **FLAGSHIP), 8, block_size=16)
+    model = TransformerLM(device="cuda", seed=0,
+                          kv_cache_dtype=kv_cache_dtype, **FLAGSHIP)
+    engine = (ContinuousBatchingEngine(model, 8) if dense else
+              PagedContinuousBatchingEngine(model, 8, block_size=16))
     for _ in range(8):
         engine.insert(ServingRequest(
             rng.randint(0, FLAGSHIP["vocab_size"], size=256).tolist(),
@@ -1910,7 +1946,8 @@ def profile_decode(rng, steps=10, kv_cache_dtype=""):
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:8]
     return {
-        "batch": 8, "kv_cache_dtype": kv_cache_dtype, "step_ms": step_ms,
+        "batch": 8, "kv_cache_dtype": kv_cache_dtype,
+        "engine": "dense" if dense else "paged", "step_ms": step_ms,
         "step_ms_profiled": prof_ms,
         **device_summary(events, steps, step_ms, top=6),
         "top_host_ms_per_step": {
@@ -4450,7 +4487,7 @@ def _ckpt_serve(args_or_model, lines, device):
             serving_main.parse_serving_args(args_or_model))
     else:
         server = GenerationServer(args_or_model, ServingConfig(
-            num_slots=8, kv_block_size=16))
+            num_slots=8, kv_paged=True, kv_block_size=16))
     server.start()
     try:
         answers = serving_main.serve_lines(server, lines)
@@ -4554,7 +4591,7 @@ def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
              for p, new in prompts]
     argv = ["--device", device, "--model_params", job["params"],
             "--checkpoint_dir", ckpt, "--num_slots", "8",
-            "--kv_block_size", "16"]
+            "--kv_paged", "1", "--kv_block_size", "16"]
     t0 = time.perf_counter()
     served, serve_launches, version = _ckpt_serve(argv, lines, device)
     serve_s = time.perf_counter() - t0
@@ -4663,7 +4700,516 @@ def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
     return metrics, launches
 
 
+# ------------------------------------------------ serving modes (phase 23)
+
+MODES_DRAFT_K = 2  # bench.py's spec_gamma
+MODES_DRAFT_LAYERS = 2  # bench.py:567's spec_draft_layers
+MODES_CHUNK = 128  # chunked prefill's tile, in tokens
+MODES_BUDGET_MS = 8.0  # the scheduler's per-tick tile budget (the default)
+MODES_ACCEPT_MIN = 0.85  # the self-draft's acceptance at bf16
+MODES_LONG_PROMPT, MODES_LONG_NEW = 512, 32  # submitted after the 16
+# the fp32 exactness check: this many of the 16 requests, their new
+# tokens cut to MODES_EXACT_NEW, so that the CPU's run stays short
+MODES_EXACT_REQUESTS, MODES_EXACT_NEW = 6, 24
+MODES_RELOAD_POLL_S = 0.05
+MODES_RELOAD_TIMEOUT_S = 120
+
+
+def _tile_log(engine):
+    """Records (tile width in rows, profiler phase) of every prompt tile a
+    paged engine runs (suffix tiles and chunked-prefill tiles): a tile of
+    more than SPLIT_MAX_ROWS rows launches B's tile kernel, a narrower
+    one its split kernel."""
+    log = []
+    inner = getattr(engine, "_tile", None)
+    if inner is None:
+        return log
+
+    def tile(slot, request, start, t, phase, final=True):
+        log.append((engine._suffix_bucket(t), phase))
+        return inner(slot, request, start, t, phase, final=final)
+
+    engine._tile = tile
+    return log
+
+
+def _kv_names(model):
+    """The launch-count names of A, B split and B tile for `model`."""
+    suffix = "_int8" if model.kv_cache_dtype == "int8" else ""
+    return "flash_fwd", "paged_decode" + suffix, "paged_decode_tile" + suffix
+
+
+def _long_gap_ms(sched, req):
+    """The longest time between the ends of two decode steps whose span
+    overlaps `req`'s prefill (from its seat to its first token): how long
+    the other slots waited behind it."""
+    ends = sched.step_ends
+    gaps = [b - a for a, b in zip(ends, ends[1:])
+            if b >= req.seated_at and a <= req.first_token_at]
+    return max(gaps) * 1e3 if gaps else None
+
+
+def run_mode(model, specs, config, draft=None, long_req=None):
+    """Serve `specs` (greedy (prompt, new) pairs, then `long_req` if
+    given) through a GenerationServer around `model` with
+    ServingConfig(num_slots=8, kv_block_size=16, **config), after one
+    warm-up request. Returns the run's metrics,
+    streams, launches, tile log, requests and server."""
+    device = model.device.type
+    server = GenerationServer(model, ServingConfig(
+        num_slots=8, queue_capacity=64, kv_block_size=16, kv_shared=True,
+        **config), draft=draft).start()
+    engine, sched = server.engine, server.scheduler
+    tiles = _tile_log(engine)
+    try:
+        server.generate([1, 2, 3, 4], 4)
+        n_steps, n_ttft = len(sched.step_secs), len(sched.ttft_secs)
+        ticks0, prop0 = len(sched.step_secs), engine.draft_proposed
+        acc0, tiles0 = engine.draft_accepted, sched.prefill_tiles
+        del tiles[:]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [server.submit(p, n) for p, n in specs]
+        if long_req is not None:
+            reqs.append(server.submit(*long_req))
+        in_use = 0
+        for req in reqs:
+            for _chunk in server.events(req):
+                pass
+            in_use = max(in_use, engine.kv_stats()["kv_bytes_in_use"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(att.KERNEL_LAUNCHES)
+    finally:
+        server.stop(timeout=120)
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    wanted = list(specs) + ([long_req] if long_req is not None else [])
+    for req, (prompt, new) in zip(reqs, wanted):
+        check(len(req.generated) == new, "request %d finished with %d of %d "
+              "tokens" % (req.request_id, len(req.generated), new))
+    steps = np.asarray(sched.step_secs[n_steps:]) * 1e3
+    ttft = np.asarray(sched.ttft_secs[n_ttft:]) * 1e3
+    tokens = sum(len(r.generated) for r in reqs)
+    a, split, tile = _kv_names(model)
+    kv = engine.kv_stats()
+    metrics = {
+        "requests": len(reqs), "tokens_generated": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "step_ms_p50": float(np.percentile(steps, 50)),
+        "step_ms_p99": float(np.percentile(steps, 99)),
+        "steps": int(steps.size),
+        "tokens_per_step": float(np.sum(sched.step_tokens[n_steps:])
+                                 / max(1, steps.size)),
+        "kv_paged": kv["kv_paged"], "kv_cache_dtype": kv["kv_cache_dtype"],
+        "kv_bytes_total": kv["kv_bytes_total"],
+        "kv_bytes_in_use_peak": in_use,
+        "launches": {"flash_fwd": launches[a], "paged_split": launches[split],
+                     "paged_tile": launches[tile]},
+    }
+    if long_req is not None:
+        metrics["long_prompt_tokens"] = len(long_req[0])
+        metrics["long_prompt_ttft_ms"] = (
+            reqs[-1].first_token_at - reqs[-1].submitted_at) * 1e3
+        metrics["long_prompt_decode_wait_ms"] = _long_gap_ms(sched, reqs[-1])
+    if engine.draft_k:
+        proposed = engine.draft_proposed - prop0
+        accepted = engine.draft_accepted - acc0
+        metrics.update(draft_k=engine.draft_k, proposed=proposed,
+                       accepted=accepted,
+                       acceptance=accepted / max(1, proposed),
+                       ticks=len(sched.step_secs) - ticks0)
+    if engine.prefill_chunk_tokens:
+        metrics["prefill_tiles"] = sched.prefill_tiles - tiles0
+    if engine.profiler is not None:
+        metrics["profile"] = engine.profiler.snapshot()
+    return {"metrics": metrics, "streams": [list(r.generated) for r in reqs],
+            "launches": launches, "tiles": list(tiles), "requests": reqs,
+            "server": server}
+
+
+def _check_mode_launches(name, run, layers, draft_layers=0):
+    """Each kernel's launches in a mode's run, from what the run did: B's
+    split kernel once a layer a decode step (or speculative verify) and a
+    tile of up to SPLIT_MAX_ROWS rows, its tile kernel once a layer a
+    wider tile, A once a layer a monolithic prefill (the target's, and
+    the draft's at every seat); the dense engine launches no B."""
+    m = run["metrics"]
+    got = m["launches"]
+    small = sum(1 for rows, _ph in run["tiles"] if rows <= att.SPLIT_MAX_ROWS)
+    wide = len(run["tiles"]) - small
+    seats = m["requests"]
+    if not m["kv_paged"]:
+        want = {"flash_fwd": layers * seats, "paged_split": 0,
+                "paged_tile": 0}
+    else:
+        mono = seats - sum(1 for _r, ph in run["tiles"]
+                           if ph == "suffix_tile")
+        if m.get("prefill_tiles"):
+            mono = 0  # every prompt of the run is chunked
+        want = {"flash_fwd": layers * mono + draft_layers * seats,
+                "paged_split": layers * (m["steps"] + small),
+                "paged_tile": layers * wide}
+    m["launches_expected"] = want
+    log("serving mode %s: launches %s, from the run %s (steps %d, tiles "
+        "%d narrow / %d wide)" % (name, got, want, m["steps"], small, wide))
+    check(got == want, "serving mode %s launched %s, not %s"
+          % (name, got, want))
+
+
+def _first_divergence(got, ref):
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if x != y:
+            return i
+    return None if len(got) == len(ref) else min(len(got), len(ref))
+
+
+def near_tie_gaps(model, prompts, ref_streams, streams_by_mode):
+    """Each mode's streams against the reference run's: the identical
+    count, and for every stream that differs, the gap between the
+    reference's top two logits at the first divergent position over the
+    largest |logit| there (logits_trace, one per diverging request, fed
+    the reference's tokens). A divergence must be a near-tie: gap within
+    LOGIT_TOL_REL."""
+    first = {}
+    for mode, streams in streams_by_mode.items():
+        for r, (got, ref) in enumerate(zip(streams, ref_streams)):
+            i = _first_divergence(got, ref)
+            if i is not None:
+                first.setdefault(r, {})[mode] = i
+    out = {mode: {"identical": len(ref_streams), "gaps": []}
+           for mode in streams_by_mode}
+    for r, modes in sorted(first.items()):
+        prefill, steps, _fed, _rows = logits_trace(
+            model, prompts[r], ref_streams[r][:max(modes.values())])
+        for mode, i in modes.items():
+            lg = prefill[len(prompts[r]) - 1] if i == 0 else steps[i - 1]
+            top = torch.topk(lg, 2).values
+            gap = ((top[0] - top[1]) / lg.abs().max()).item()
+            out[mode]["identical"] -= 1
+            out[mode]["gaps"].append({"request": r, "position": i,
+                                      "gap_rel": gap})
+    for mode, res in out.items():
+        log("serving mode %s: %d of %d streams identical to the reference; "
+            "first-divergence top-2 gaps %s" % (
+                mode, res["identical"], len(ref_streams),
+                [round(g["gap_rel"], 6) for g in res["gaps"]]))
+        for g in res["gaps"]:
+            check(g["gap_rel"] <= LOGIT_TOL_REL,
+                  "serving mode %s: request %d diverges at %d where the "
+                  "reference's top two logits are %.4g of the largest apart "
+                  "(limit %.4g)" % (mode, g["request"], g["position"],
+                                    g["gap_rel"], LOGIT_TOL_REL))
+    return out
+
+
+def modes_exact_fp32(specs, device="cuda"):
+    """The flagship width at 2 layers in fp32 (numpy weights, TF32 off):
+    the plain paged engine, the dense engine, speculative decode with a
+    random 2-layer draft and with the target as its own draft, chunked
+    prefill and the profiled engine on the card, and the plain paged
+    engine on the CPU, over the first MODES_EXACT_REQUESTS requests cut
+    to MODES_EXACT_NEW new tokens: every greedy stream identical."""
+    cfg = dict(FLAGSHIP, num_layers=2, dtype=torch.float32)
+    sd = params_from_flax(numpy_flax_params(cfg, seed=23))
+    reqs = [(p, min(n, MODES_EXACT_NEW))
+            for p, n in specs[:MODES_EXACT_REQUESTS]]
+
+    def model(dev, seed=None):
+        m = TransformerLM(device=dev, **cfg)
+        if seed is None:
+            m.load_state_dict(sd)
+        else:
+            m.init_weights(seed)
+        return m
+
+    target = model(device)
+    modes = {
+        "paged": ({"kv_paged": True}, None),
+        "dense": ({"kv_paged": False}, None),
+        "speculative_random_draft": ({"kv_paged": True,
+                                      "draft_k": MODES_DRAFT_K},
+                                     model(device, seed=1)),
+        "speculative_self_draft": ({"kv_paged": True,
+                                    "draft_k": MODES_DRAFT_K}, target),
+        "chunked": ({"kv_paged": True, "prefill_chunk_tokens": MODES_CHUNK,
+                     "prefill_budget_ms": MODES_BUDGET_MS}, None),
+        "profiled": ({"kv_paged": True, "profile": True}, None),
+    }
+    streams = {mode: run_mode(target, reqs, config, draft=draft)["streams"]
+               for mode, (config, draft) in modes.items()}
+    streams["paged_cpu"] = run_mode(model("cpu"), reqs,
+                                    {"kv_paged": True})["streams"]
+    ref = streams["paged"]
+    equal = {mode: s == ref for mode, s in streams.items()}
+    log("fp32 2-layer exactness, streams equal to the card's paged run: %s"
+        % equal)
+    check(all(equal.values()), "fp32 greedy streams differ between modes: "
+          "%s" % {m: s for m, s in streams.items() if s != ref})
+    return {"config": "flagship width, 2 layers, fp32, TF32 off, numpy "
+                      "weights", "requests": len(reqs),
+            "tokens": sum(map(len, ref)), "streams_equal": equal}
+
+
+def _reload_server(ckpt, params, device):
+    return serving_main.build_server(serving_main.parse_serving_args([
+        "--device", device, "--model_params", params, "--checkpoint_dir",
+        ckpt, "--kv_paged", "1", "--num_slots", "8", "--kv_block_size", "16",
+        "--reload_poll_secs", str(MODES_RELOAD_POLL_S)]))
+
+
+def modes_hot_reload(specs, workdir, device="cuda"):
+    """A server built by serving/main.py follows a checkpoint dir holding
+    version 1 (a port Trainer's seeded flagship parameters, SGD, no
+    slots); while 8 requests decode, version 2 (re-seeded parameters) is
+    written; the watcher swaps between steps. No stream may drop a token;
+    every live weight must equal version 2's fp32 value cast to its dtype
+    bit for bit; a request admitted after the swap reports version 2 and
+    its greedy tokens equal a fresh server's over version 2."""
+    from elasticdl_tpu_torch.training.optimizers import sgd
+
+    params = _params_str(FLAGSHIP)
+    spec = load_model_spec_from_module(tzoo)
+    spec.optimizer = lambda: sgd(0.01)
+    trainer = Trainer(spec, model_params=params, device=device, seed=3)
+    state = trainer.init_state(None)
+    ckpt = os.path.join(workdir, "reload")
+    staged = os.path.join(workdir, "staged")
+    CheckpointSaver(trainer, ckpt).save(state, 1)
+    # version 2 is written beside the dir and renamed into it while the
+    # requests decode, as a saver's own rename lands a version
+    trainer.model.init_weights(4)
+    t0 = time.perf_counter()
+    CheckpointSaver(trainer, staged).save(state, 2)
+    save_s = time.perf_counter() - t0
+    del trainer, state
+    server = _reload_server(ckpt, params, device)
+    check(server.model_version == 1, "the server starts at version %d"
+          % server.model_version)
+    server.start()
+    sched = server.scheduler
+    try:
+        server.generate([1, 2, 3, 4], 4)
+        reqs = [server.submit(p, n) for p, n in specs[:8]]
+        streams = [server.events(r) for r in reqs]
+        got = [list(next(s)) for s in streams]  # all 8 are decoding
+        os.rename(os.path.join(staged, "version-2"),
+                  os.path.join(ckpt, "version-2"))
+        t_written = time.monotonic()
+        for g, s in zip(got, streams):
+            for chunk in s:
+                g.extend(chunk)
+        deadline = time.monotonic() + MODES_RELOAD_TIMEOUT_S
+        while server.model_version != 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(server.model_version == 2, "the server did not swap to "
+              "version 2: %s" % server.status())
+        dropped = sum(n for _p, n in specs[:8]) - sum(map(len, got))
+        later = server.submit(*specs[8])
+        later_tokens = list(itertools.chain(*server.events(later)))
+        flat2, _v = load_checkpoint(ckpt, 2)
+        swapped = _weights_equal_cast(server.engine.model, flat2)
+        status = server.status()
+    finally:
+        server.stop(timeout=120)
+    check(sched.crashed is None, "scheduler crashed: %r" % (sched.crashed,))
+    check(dropped == 0, "hot reload dropped %d tokens" % dropped)
+    check(sched.reload_in_flight and sched.reload_in_flight[0] > 0,
+          "the swap landed with no request decoding")
+    check(later.model_version == 2, "a request after the swap reports "
+          "version %d" % later.model_version)
+    check(swapped["equal"], "after the swap %d weights differ from version "
+          "2's cast: %s" % (len(swapped["differ"]), swapped["differ"][:5]))
+    fresh = _reload_server(ckpt, params, device).start()
+    try:
+        check(fresh.model_version == 2, "the fresh server serves version %d"
+              % fresh.model_version)
+        fresh_tokens = fresh.generate(*specs[8])[len(specs[8][0]):]
+    finally:
+        fresh.stop(timeout=120)
+    check(later_tokens == fresh_tokens, "after the swap a request's tokens "
+          "differ from a fresh server's over version 2")
+    # the swap's stall: the longest gap between decode steps from the
+    # write to the end of the in-flight streams (the watcher's verify and
+    # load run on the scheduler thread, then the in-place copy)
+    ends = [e for e in sched.step_ends if e >= t_written]
+    stall = max((b - a for a, b in zip(ends, ends[1:])), default=0.0)
+    return {
+        "versions": [1, status["model_version"]], "reloads": status["reloads"],
+        "swap_ms": [s * 1e3 for s in sched.reload_secs],
+        "in_flight_at_swap": sched.reload_in_flight[0],
+        "save_s": save_s, "decode_stall_ms": stall * 1e3,
+        "tokens_dropped": dropped, "streams": len(reqs),
+        "later_request_version": later.model_version,
+        "later_equals_fresh_server": later_tokens == fresh_tokens,
+        "weights_equal_cast": swapped["equal"],
+        "weights_checked": swapped["checked"],
+        "weight_dtypes": swapped["dtypes"],
+    }
+
+
+def _weights_equal_cast(model, flat):
+    """Every parameter of `model` against the checkpoint's value cast to
+    that parameter's dtype (a flax kernel transposed), bit for bit."""
+    from elasticdl_tpu_torch.convert import flax_param_path
+
+    differ, dtypes = [], set()
+    for key, p in model.named_parameters():
+        path = flax_param_path(key).split("/")
+        value = torch.as_tensor(np.asarray(flat[".params" + "".join(
+            "[%r]" % k for k in path)])).to(p.device)
+        if path[-1] == "kernel":
+            value = value.t()
+        dtypes.add(str(p.dtype))
+        if not torch.equal(p.detach(), value.to(p.dtype)):
+            differ.append(key)
+    return {"equal": not differ, "differ": differ,
+            "checked": len(list(model.parameters())),
+            "dtypes": sorted(dtypes)}
+
+
+def time_verify_tile(launches):
+    """B's split kernel at the speculative verify tile's shape: 8 slots,
+    t = MODES_DRAFT_K + 1 rows each, ragged lengths under 1000, against
+    its plain version and timed as the decode step's row of `kernels`."""
+    t = MODES_DRAFT_K + 1
+    args, lens = paged_inputs(torch.Generator().manual_seed(
+        PAGED_TIMING_SEED + 23), b=8, t=t)
+    errs = partials_errs(att.paged_decode_partials(*args, t=t),
+                         att.paged_decode_partials_plain(*args, t=t))
+    check(max(errs) <= PAGED_TOL_REL, "B's split kernel at the verify tile: "
+          "rel errs %s" % errs)
+    entry = _timing_entry(
+        "paged_decode", "elasticdl_tpu_torch/csrc/paged_decode.cu",
+        "elasticdl_tpu/ops/attention.py:591",
+        "b=8 t=%d (the speculative verify tile) hkv=8 d=128 bs=16 m=64 bf16, "
+        "live rows %d" % (t, sum(lens)),
+        lambda: att.paged_decode_partials(*args, t=t),
+        lambda: att.paged_decode_partials_plain(*args, t=t),
+        None, paged_work(lens, 8, t, 128, 2, 64), launches,
+        {"max_abs_err": errs[0], "max_rel_err": max(errs)},
+        peak=PEAK_FP32_FLOPS)
+    entry["path"] = "speculative verify (serving_modes)"
+    return paged_cold(entry, args, t=t)
+
+
+def serving_modes_phase(specs, int8_ref_streams, workdir, device="cuda"):
+    """Phase 23: the serving engine's other modes at the flagship width
+    (bf16, seeded weights, 8 slots, block 16): the plain paged engine
+    (the reference), the dense engine with a bf16 and an int8 cache,
+    speculative decode (k = MODES_DRAFT_K) with a random 2-layer draft
+    and with the target as its own draft, chunked prefill, the profiled
+    engine and hot reload; the 16 requests and one 512-token prompt
+    submitted after them. Then the fp32 exactness check. Returns the
+    `serving_modes` line. Off the card (a rehearsal at a small width)
+    the launch checks are skipped."""
+    on_card = device == "cuda"
+    rng = np.random.RandomState(23)
+    layers = FLAGSHIP["num_layers"]
+    long_req = (rng.randint(0, FLAGSHIP["vocab_size"],
+                            size=MODES_LONG_PROMPT).tolist(), MODES_LONG_NEW)
+    model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+    draft = TransformerLM(device=device, seed=1, **dict(
+        FLAGSHIP, num_layers=MODES_DRAFT_LAYERS))
+    chunked_cfg = {"kv_paged": True, "prefill_chunk_tokens": MODES_CHUNK,
+                   "prefill_budget_ms": MODES_BUDGET_MS}
+    spec_cfg = {"kv_paged": True, "draft_k": MODES_DRAFT_K}
+    runs = {}
+    for name, config, mode_draft, draft_layers in (
+            ("paged", {"kv_paged": True}, None, 0),
+            ("dense", {"kv_paged": False}, None, 0),
+            ("speculative_random_draft", spec_cfg, draft, MODES_DRAFT_LAYERS),
+            ("speculative_self_draft", spec_cfg, model, layers),
+            ("chunked", chunked_cfg, None, 0),
+            ("profiled", {"kv_paged": True, "profile": True}, None, 0),
+            ("profiled_speculative_self_draft", dict(spec_cfg, profile=True),
+             model, layers),
+            ("profiled_chunked", dict(chunked_cfg, profile=True), None, 0)):
+        runs[name] = run_mode(model, specs, config, draft=mode_draft,
+                              long_req=long_req)
+        if on_card:
+            _check_mode_launches(name, runs[name], layers, draft_layers)
+        log("serving mode %s: %s" % (name, json.dumps(runs[name]["metrics"])))
+    del draft
+    int8_model = TransformerLM(device=device, seed=0, kv_cache_dtype="int8",
+                               **FLAGSHIP)
+    runs["dense_int8"] = run_mode(int8_model, specs, {"kv_paged": False},
+                                  long_req=long_req)
+    if on_card:
+        _check_mode_launches("dense_int8", runs["dense_int8"], layers)
+    prompts = [p for p, _n in specs]
+    ref = runs["paged"]["streams"][:len(specs)]
+    agreement = near_tie_gaps(model, prompts, ref, {
+        name: run["streams"][:len(specs)] for name, run in runs.items()
+        if name not in ("paged", "dense_int8")})
+    agreement.update(near_tie_gaps(int8_model, prompts, int8_ref_streams, {
+        "dense_int8": runs["dense_int8"]["streams"][:len(specs)]}))
+    del int8_model
+    out = {name: run["metrics"] for name, run in runs.items()}
+    for name, res in agreement.items():
+        out[name]["agreement"] = dict(
+            res, reference="the plain paged engine's %s run" % (
+                "int8 (phase 7)" if name == "dense_int8" else "bf16"))
+    plain = out["paged"]
+    for name in ("speculative_random_draft", "speculative_self_draft",
+                 "profiled_speculative_self_draft"):
+        m = out[name]
+        batches = runs[name]["server"].scheduler.step_batch[-m["ticks"]:]
+        check(m["proposed"] == MODES_DRAFT_K * sum(batches),
+              "%s proposed %d, not k x active slots summed over ticks"
+              % (name, m["proposed"]))
+        m["verify_tick_ms_p50"] = m["step_ms_p50"]
+        m["plain_step_ms_p50"] = plain["step_ms_p50"]
+        m["tokens_per_s_vs_plain"] = m["tokens_per_s"] / plain["tokens_per_s"]
+    check(out["speculative_self_draft"]["acceptance"] >= MODES_ACCEPT_MIN,
+          "the self-draft accepted %.3f of its proposals (at least %.2f)"
+          % (out["speculative_self_draft"]["acceptance"], MODES_ACCEPT_MIN))
+    out["chunked"]["monolithic_long_prompt_decode_wait_ms"] = plain[
+        "long_prompt_decode_wait_ms"]
+    out["chunked"]["monolithic_long_prompt_ttft_ms"] = plain[
+        "long_prompt_ttft_ms"]
+    del runs
+    if on_card:
+        out["dense"]["decode_profile"] = profile_decode(rng, dense=True)
+        log("dense decode profile: %s"
+            % json.dumps(out["dense"]["decode_profile"]))
+    out["hot_reload"] = modes_hot_reload(specs, workdir, device)
+    log("hot reload: %s" % json.dumps(out["hot_reload"]))
+    out["exact_fp32"] = modes_exact_fp32(specs, device)
+    out["config"] = {
+        "model": "transformer_lm flagship (vocab 32000, seq_len 1024, embed "
+                 "1024, 8 heads, 8 layers, bf16), seeded weights",
+        "slots": 8, "kv_block_size": 16, "requests": len(specs) + 1,
+        "draft_k": MODES_DRAFT_K, "draft_layers": MODES_DRAFT_LAYERS,
+        "prefill_chunk_tokens": MODES_CHUNK,
+        "prefill_budget_ms": MODES_BUDGET_MS,
+        "long_prompt": [MODES_LONG_PROMPT, MODES_LONG_NEW]}
+    return out
+
+
+class _Laps(object):
+    """Seconds of the script's run by JSON line: `to(name)` charges the
+    time since the last call to the line it was charging and starts
+    charging `name` (None: stop)."""
+
+    def __init__(self, first):
+        self.secs = {}
+        self._name, self._t0 = first, time.perf_counter()
+
+    def to(self, name):
+        now = time.perf_counter()
+        self.secs[self._name] = self.secs.get(self._name, 0.0) + (
+            now - self._t0)
+        self._name, self._t0 = name, now
+
+
 def main():
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4680,6 +5226,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN (fp32 comparisons in full fp32)")
 
+    laps = _Laps("kernels")
     t0 = time.perf_counter()
     report = _build.build()
     log("kernels built in %.1f s: %s" % (
@@ -4746,10 +5293,13 @@ def main():
     gen_sp = torch.Generator().manual_seed(6)
     offset_err, offset_path_err, offset_inputs = check_offset_flash(gen_sp)
     ring_rotations = check_ring_rotations(gen_sp)
+    laps.to("serving")
     specs = serving_specs(rng)
     serving, launches = serve_flagship(specs)
     log("serving run launches: %s" % launches)
-    serving["int8"], int8_launches = serve_flagship(specs, "int8")
+    int8_streams = []
+    serving["int8"], int8_launches = serve_flagship(
+        specs, "int8", streams_out=int8_streams)
     log("int8 serving run launches: %s; %s" % (
         int8_launches, json.dumps(serving["int8"])))
     # the same blocks, each row and kv head d int8 values and a 4-byte
@@ -4759,6 +5309,7 @@ def main():
           == serving["kv_bytes_total"] * (128 + 4),
           "int8 pool holds %d bytes, bf16 pool %d"
           % (serving["int8"]["kv_bytes_total"], serving["kv_bytes_total"]))
+    laps.to("windowed")
     windowed = {"attn_window": WINDOW}
     windowed["serving"], win_launches = serve_flagship(specs,
                                                        attn_window=WINDOW)
@@ -4769,6 +5320,7 @@ def main():
     log("windowed int8 serving run launches: %s; %s" % (
         win_int8_launches, json.dumps(windowed["serving"]["int8"])))
     windowed["streams_cuda_vs_cpu"] = compare_windowed_streams(rng_masked)
+    laps.to("serving")
     serving["cuda_vs_cpu"] = compare_cuda_cpu(rng)
     serving["int8"]["cuda_vs_cpu_fp32"] = compare_cuda_cpu_int8(rng)
     serving["decode_profile"] = profile_decode(rng)
@@ -4777,12 +5329,14 @@ def main():
                                                        kv_cache_dtype="int8")
     log("int8 decode profile: %s"
         % json.dumps(serving["int8"]["decode_profile"]))
+    laps.to("training")
     with tempfile.TemporaryDirectory() as workdir:
         training, executor, train_launches = train_flagship(rng, workdir)
     log("training run launches: %s" % train_launches)
     training["step_profile"] = profile_train_step(executor, rng)
     log("training step profile: %s" % json.dumps(training["step_profile"]))
     del executor
+    laps.to("windowed")
     with tempfile.TemporaryDirectory() as workdir:
         windowed["training"], executor, win_train_launches = train_flagship(
             rng_masked, workdir, attn_window=WINDOW)
@@ -4792,6 +5346,7 @@ def main():
     log("windowed training step profile: %s"
         % json.dumps(windowed["training"]["step_profile"]))
     del executor
+    laps.to("packed")
     packed = {}
     with tempfile.TemporaryDirectory() as workdir:
         packed["family"], family_launches = train_packed_family(rng_masked,
@@ -4802,8 +5357,10 @@ def main():
         rng_masked)
     packed["logits_vs_documents"] = compare_packed_rows(rng_masked)
     torch.cuda.empty_cache()
+    laps.to("sp")
     sp, sp_launches = train_sp()
     sp["ring_rotations_vs_unsharded"] = ring_rotations
+    laps.to("training")
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
     training["flash_fwd_build"] = builds.get("flash_fwd", {})
@@ -4811,6 +5368,7 @@ def main():
     training["flash_fwd_instances"] = fwd_instances
     training["flash_fwd_rounding"] = fwd_rounding
     training["flash_bwd_rounding"] = bwd_rounding
+    laps.to("dlrm")
     with tempfile.TemporaryDirectory() as workdir:
         dlrm, executor, dlrm_launches = train_dlrm(rng, workdir)
     log("dlrm run launches: %s" % dlrm_launches)
@@ -4822,14 +5380,24 @@ def main():
     del executor
     torch.cuda.empty_cache()
     dlrm["cuda_vs_cpu_step"] = compare_dlrm_step(rng)
+    laps.to("dense")
     dense, dense_launches = run_dense_path()
     log("dense update path: %s" % json.dumps(dense))
     # the checkpoint phase draws from its own generator, so every later
     # phase sees the data it saw before it was added
+    laps.to("checkpoint")
     with tempfile.TemporaryDirectory() as workdir:
         checkpoint, ckpt_launches = checkpoint_phase(
             np.random.RandomState(14), workdir)
     log("checkpoint phase launches: %s" % ckpt_launches)
+    torch.cuda.empty_cache()
+    laps.to("serving_modes")
+    with tempfile.TemporaryDirectory() as workdir:
+        serving_modes = serving_modes_phase(specs, int8_streams, workdir)
+    torch.cuda.empty_cache()
+    verify_entry = time_verify_tile({"paged_decode": serving_modes[
+        "speculative_self_draft"]["launches"]["paged_split"]})
+    laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
     kernels[0]["bf16_instances_checked"] = fwd_instances["instances"]
@@ -4905,8 +5473,33 @@ def main():
         if entry["name"] in SERVING_KERNELS:
             entry["launches_checkpoint_phase_serving"] = ckpt_launches[
                 "serving"][entry["name"]]
-    serving["card"] = training["card"] = dlrm["card"] = dense["card"] = smi
-    packed["card"] = windowed["card"] = sp["card"] = checkpoint["card"] = smi
+    for name, entry in (("paged_decode", kernels[1]),
+                        ("paged_decode_tile", kernels[2])):
+        check(entry["name"] == name, "kernels[%d] is %s" % (
+            kernels.index(entry), entry["name"]))
+        entry["launches_serving_modes"] = {
+            mode: m["launches"]["paged_split" if name == "paged_decode"
+                                else "paged_tile"]
+            for mode, m in serving_modes.items()
+            if "launches" in m and not m["kv_cache_dtype"]}
+    kernels[0]["launches_serving_modes"] = {
+        mode: m["launches"]["flash_fwd"]
+        for mode, m in serving_modes.items() if "launches" in m}
+    kernels.append(verify_entry)
+    laps.to(None)
+    lines = {"serving": serving, "training": training, "dlrm": dlrm,
+             "dense": dense, "packed": packed, "windowed": windowed,
+             "sp": sp, "checkpoint": checkpoint,
+             "serving_modes": serving_modes}
+    for name, line in lines.items():
+        line["card"] = smi
+        line["phase_s"] = laps.secs[name]
+    # the kernels line keeps its one key: its checks' and timings'
+    # seconds ride in the serving_modes line with the whole script's
+    serving_modes["kernels_phase_s"] = laps.secs["kernels"]
+    serving_modes["script_s"] = time.perf_counter() - t_script
+    log("phase seconds: %s; the whole script %.1f s" % (
+        json.dumps(laps.secs), serving_modes["script_s"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4916,6 +5509,7 @@ def main():
     print(json.dumps({"windowed": windowed}))
     print(json.dumps({"sp": sp}))
     print(json.dumps({"checkpoint": checkpoint}))
+    print(json.dumps({"serving_modes": serving_modes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

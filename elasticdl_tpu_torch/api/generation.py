@@ -1,5 +1,7 @@
-"""Prefill and token selection for the serving path: the port of the
-pieces of elasticdl_tpu/api/generation.py that the serving engine uses.
+"""Prefill, token selection and offline decoding: the port of
+elasticdl_tpu/api/generation.py's serving helpers and of
+`autoregressive_generate` (recompute or KV-cached). `beam_search_generate`
+and `speculative_generate` are not ported yet.
 
 Token-selection contract. Greedy (temperature 0) is the argmax of the
 fp32 logits, first index on ties, exactly as in the JAX package.
@@ -33,12 +35,14 @@ def kv_layout(model):
             model.dtype, model.kv_cache_dtype)
 
 
-def run_prefill(model, prompt):
+def run_prefill(model, prompt, p_pad=None):
     """One causal forward over `prompt` (a list of token ids) padded to
-    its 64-bucket: returns (per-layer rows [1, hkv, p_pad, d] in the
-    pool's format, fp32 logits [vocab] at the last prompt position)."""
+    its 64-bucket (or to `p_pad`): returns (per-layer rows [1, hkv,
+    p_pad, d] in the pool's format, fp32 logits [vocab] at the last
+    prompt position)."""
     p = len(prompt)
-    p_pad = _prefill_bucket(p, model.seq_len)
+    if p_pad is None:
+        p_pad = _prefill_bucket(p, model.seq_len)
     buf = torch.zeros((1, p_pad), dtype=torch.long)
     buf[0, :p] = torch.as_tensor(prompt, dtype=torch.long)
     logits, kv = model(buf.to(model.device))
@@ -105,4 +109,78 @@ def next_tokens(logits, seeds, positions, temperatures, top_k=0, top_p=1.0):
         else:
             out.append(serving_next_token(logits[i], seeds[i], positions[i],
                                           temp, top_k, top_p))
+    return out
+
+
+def write_dense_rows(caches, rows, slot, n):
+    """Copy the first `n` rows of a batch-1 prefill's per-layer `rows`
+    ([1, hkv, l, d] leaves, as `run_prefill` returns them) into row
+    `slot` of dense caches (`model.dense_cache`), and zero the rest of
+    that row's positions: what flax's prefill leaves in a fresh cache
+    (a slot's stale rows from an earlier occupant are never read, but a
+    speculative draft attends over positions it has not written)."""
+    for layer, new in zip(caches, rows):
+        for leaf, r in zip(layer, new):
+            leaf[slot, :, :n] = r[0, :, :n]
+            leaf[slot, :, n:] = 0
+
+
+def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
+                            seed=0, use_cache=False, top_k=0, top_p=1.0):
+    """Continue `prompt` (int [b, p]) by `max_new_tokens` tokens with the
+    port's TransformerLM; returns int64 [b, p + max_new_tokens] on the
+    CPU. The JAX package's argument checks and two strategies: the
+    default recomputes the causal forward over the tokens so far for
+    each position; `use_cache` prefills the prompt once (bucketed to
+    64) into dense KV caches and then decodes one token a step
+    (`decode_dense`). Greedy (temperature 0) equals the JAX package's;
+    sampled tokens follow the port's (seed, position) contract, every
+    row of the batch with the same seed."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    if prompt.dim() != 2:
+        raise ValueError("prompt must be [b, p], got %s"
+                         % (tuple(prompt.shape),))
+    b, p = prompt.shape
+    seq_len = model.seq_len
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError("top_p must be in (0, 1], got %r (use "
+                         "temperature=0 for greedy)" % (top_p,))
+    if top_k < 0:
+        raise ValueError("top_k must be >= 0, got %r" % (top_k,))
+    if temperature <= 0.0:
+        top_k, top_p = 0, 1.0
+    total = p + int(max_new_tokens)
+    if max_new_tokens < 1 or p < 1 or total > seq_len:
+        raise ValueError(
+            "need prompt length >= 1 and max_new_tokens >= 1 with prompt "
+            "%d + new %d <= the model's seq_len %d"
+            % (p, max_new_tokens, seq_len))
+    dev = model.device
+    out = torch.zeros((b, total), dtype=torch.long)
+    out[:, :p] = prompt
+    seeds, temps = [seed] * b, [temperature] * b
+    with torch.no_grad():
+        if not use_cache:
+            for i in range(p, total):
+                logits, _kv = model(out[:, :i].to(dev))
+                out[:, i] = torch.as_tensor(next_tokens(
+                    logits[:, i - 1], seeds, [i] * b, temps, top_k, top_p))
+            return out
+        p_pad = _prefill_bucket(p, seq_len)
+        buf = torch.zeros((b, p_pad), dtype=torch.long)
+        buf[:, :p] = prompt
+        logits, rows = model(buf.to(dev))
+        caches = model.dense_cache(b)
+        for layer, new in zip(caches, rows):
+            for leaf, r in zip(layer, new):
+                leaf[:, :, :p_pad] = r
+        out[:, p] = torch.as_tensor(next_tokens(
+            logits[:, p - 1], seeds, [p] * b, temps, top_k, top_p))
+        for i in range(p, total - 1):
+            step = model.decode_dense(
+                out[:, i:i + 1].to(dev),
+                torch.full((b,), i, dtype=torch.long, device=dev), caches,
+                span=i + 1)
+            out[:, i + 1] = torch.as_tensor(next_tokens(
+                step[:, 0], seeds, [i + 1] * b, temps, top_k, top_p))
     return out

@@ -1,6 +1,7 @@
 from elasticdl_tpu_torch.checkpoint.saver import (  # noqa: F401
     CheckpointCorruptError,
     CheckpointSaver,
+    check_params_flat,
     flatten_state,
     get_latest_checkpoint_version,
     load_checkpoint,

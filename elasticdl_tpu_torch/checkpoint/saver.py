@@ -598,6 +598,23 @@ class CheckpointSaver(object):
             logger.info("Pruned checkpoint version-%d", v)
 
 
+def check_params_flat(model, flax_param_path, flat):
+    """Raise ValueError when a `.params` leaf of `flat` has another shape
+    than its parameter of `model` (a flax kernel transposed), before
+    anything is copied: what a server checks before it swaps in a
+    checkpoint, so a mismatched one leaves every weight as it was."""
+    for key, p in model.named_parameters():
+        path = tuple(flax_param_path(key).split("/"))
+        name = ".params" + _keystr(path)
+        if name not in flat:
+            continue
+        want = tuple(p.shape)[::-1] if _is_kernel(path, p) else tuple(
+            p.shape)
+        if tuple(flat[name].shape) != want:
+            raise ValueError("checkpoint leaf %s has shape %s, the model %s"
+                             % (name, tuple(flat[name].shape), want))
+
+
 # ------------------------------------------------------------- reading
 
 

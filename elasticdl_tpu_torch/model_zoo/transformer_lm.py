@@ -3,7 +3,7 @@ model_zoo/transformer_lm/transformer_lm.py, for training and serving,
 and the zoo spec around it (loss, optimizer, dataset_fn,
 eval_metrics_fn, feature_shapes).
 
-Three forwards, all over the same parameters:
+Four forwards, all over the same parameters:
 
 * `model(features, training=...)` with a feature dict: the flax
   `__call__`, grad-enabled. Returns fp32 logits [b, l, vocab], or
@@ -24,6 +24,12 @@ Three forwards, all over the same parameters:
   CUDA). The flax model vmaps a scalar cache counter per slot; here the
   batch carries a position vector. Returns fp32 logits and the tile's
   (k, v) rows for the engine to scatter.
+* `decode_dense(tokens, positions, caches)`: flax's `decode=True` step
+  against per-sequence dense caches [n, hkv, seq_len, d] (`dense_cache`),
+  a chunk of t >= 1 tokens per sequence at its own position; the rows
+  are written in place and attention is two plain matmuls, as flax's
+  einsums are (no Pallas kernel there either). The dense serving
+  engine, a speculative draft and `api.generation` decode through it.
 
 `attn_window` > 0 makes every layer sliding-window attention (the flax
 `attn_window`): a token sees the `attn_window` newest positions up to
@@ -71,6 +77,7 @@ from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.convert import flax_param_path  # noqa: F401 - spec
 from elasticdl_tpu_torch.data.example_codec import decode_example
 from elasticdl_tpu_torch.ops.attention import (
+    NEG_INF,
     apply_rope,
     expand_kv,
     flash_attention,
@@ -245,6 +252,54 @@ class CausalSelfAttention(nn.Module):
         )
         return self._out(out, x), (k8, v8, ks, vs)
 
+    def decode_dense(self, x, positions, cache, slots=None, span=None):
+        """A chunk x [b, t, e] at positions [b, t] against this layer's
+        dense cache `cache`: (k, v) [S, hkv, seq_len, d], or for an int8
+        cache (k8, v8, k_scale, v_scale), the scales [S, hkv, seq_len,
+        1]. Sequence i of the chunk owns cache row `slots[i]` (None:
+        row i). The chunk's rows are written at their positions first
+        (quantized for int8; a position past the cache clamps to its
+        last row, as flax's dynamic_update_slice does), then each query
+        attends over rows k_pos <= its position (and k_pos > position -
+        window) among the first `span` (None: all) rows. The int8
+        dequantize folds into the scores and the weights (flax
+        `_decode_step`, :443-460). Returns y [b, t, e]."""
+        q, k, v = self._split(x)
+        if self.use_rope:
+            q, k = apply_rope(q, positions), apply_rope(k, positions)
+        b, h, t, d = q.shape
+        hkv = k.shape[1]
+        group = h // hkv
+        dtype = q.dtype
+        rows = (k, v)
+        if self.kv_int8:
+            (k8, ks), (v8, vs) = kv_quantize_rows(k), kv_quantize_rows(v)
+            rows = (k8, v8, ks, vs)
+        cache_len = cache[0].shape[2]
+        sl = (torch.arange(b, device=x.device) if slots is None
+              else slots)[:, None]
+        wpos = positions.clamp(max=cache_len - 1)
+        for leaf, new in zip(cache, rows):
+            leaf[sl, :, wpos] = new.transpose(1, 2).to(leaf.dtype)
+        span = cache_len if span is None else int(span)
+        read = [leaf[:b, :, :span] if slots is None else leaf[slots, :, :span]
+                for leaf in cache]
+        qg = (q * self.head_dim ** -0.5).reshape(b, hkv, group * t, d)
+        s = torch.matmul(qg, read[0].to(dtype).transpose(-1, -2)).float()
+        if self.kv_int8:
+            s = s * read[2][..., 0][:, :, None, :]
+        k_pos = torch.arange(span, device=x.device)
+        row_pos = positions.repeat(1, group)[:, None, :, None]
+        valid = k_pos <= row_pos
+        if self.window:
+            valid = valid & (k_pos > row_pos - self.window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1)
+        if self.kv_int8:
+            w = w * read[3][..., 0][:, :, None, :]
+        out = torch.matmul(w.to(dtype), read[1].to(dtype))
+        return self._out(out.reshape(b, h, t, d), x)
+
 
 class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
@@ -274,6 +329,11 @@ class Block(nn.Module):
         y, kv = self.attn.decode_paged(_layer_norm(self.ln_0, x), positions,
                                        pool, table)
         return self._mlp(x + y), kv
+
+    def decode_dense(self, x, positions, cache, slots=None, span=None):
+        y = self.attn.decode_dense(_layer_norm(self.ln_0, x), positions,
+                                   cache, slots=slots, span=span)
+        return self._mlp(x + y)
 
 
 class TransformerLM(nn.Module):
@@ -460,6 +520,43 @@ class TransformerLM(nn.Module):
             x, kv = blk.decode_paged(x, pos, pool, tables)
             rows.append(kv)
         return self._logits(x), rows
+
+    def dense_cache(self, n):
+        """Zeroed dense KV caches for `n` sequences, one tuple a layer:
+        (k, v) [n, hkv, seq_len, d] in the compute dtype, or for an int8
+        cache (k8, v8, k_scale, v_scale) with fp32 scales [n, hkv,
+        seq_len, 1] (flax `_cache_vars`)."""
+        shape = (n, self.num_kv_heads, self.seq_len, self.head_dim)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if self.kv_cache_dtype == "int8":
+            sshape = shape[:3] + (1,)
+            return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                     zeros(sshape, torch.float32),
+                     zeros(sshape, torch.float32))
+                    for _ in range(self.num_layers)]
+        return [(zeros(shape, self.dtype), zeros(shape, self.dtype))
+                for _ in range(self.num_layers)]
+
+    @torch.no_grad()
+    def decode_dense(self, tokens, positions, caches, slots=None, span=None):
+        """The flax `decode=True` step against dense caches (from
+        `dense_cache`): a chunk of tokens [b, t] at positions [b] + [0,
+        t), every sequence at its own position (flax keeps one counter
+        per sequence; here the batch carries a position vector).
+        Sequence i owns row `slots[i]` of every cache (None: row i);
+        its rows are written in place, then attention reads the first
+        `span` rows (None: all; the caller's bound on position + t).
+        Returns fp32 logits [b, t, vocab]."""
+        t = tokens.shape[1]
+        pos = positions.long()[:, None] + torch.arange(
+            t, device=tokens.device)[None, :]
+        x = self._embed(tokens, pos.clamp(max=self.seq_len - 1))
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.decode_dense(x, pos, cache, slots=slots, span=span)
+        return self._logits(x)
 
 
 def custom_model(**kwargs):

@@ -54,6 +54,8 @@ class ServingRequest(object):
         self.generated = []
         self.first_token_at = None
         self.seated_at = None
+        # the checkpoint version whose weights produced the latest token
+        self.model_version = 0
 
     def expired(self, now):
         return self.deadline is not None and now > self.deadline

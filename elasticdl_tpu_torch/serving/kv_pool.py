@@ -184,6 +184,21 @@ class BlockAllocator(object):
                     self._evictable.pop(parent, None)
             parent = bid
 
+    def flush_index(self):
+        """Drop the whole prefix index (hot reload: the cached rows were
+        computed under superseded weights, and no new request may seat
+        on them). Reclaimable blocks return to the free list; live
+        blocks only lose their index entry and free at refcount 0."""
+        for bid in list(self._cached):
+            self._free.append(bid)
+            self._refcount.pop(bid, None)
+        self._cached.clear()
+        self._evictable.clear()
+        self._index.clear()
+        self._index_key.clear()
+        self._children.clear()
+        self._rkids.clear()
+
     # -------------------------------------------------------- refcounts
 
     def incref(self, bid):
@@ -486,6 +501,11 @@ class PagedKVPool(object):
         copy_block(self.pools, moved[0], moved[1])
         self._sync_row(slot)
         return moved
+
+    def flush_prefix_cache(self):
+        """Hot reload: forget every indexed prefix (BlockAllocator.
+        flush_index)."""
+        self.allocator.flush_index()
 
     def release(self, slot):
         freed = self.allocator.free(slot)

@@ -3,8 +3,8 @@
 Builds the transformer_lm model (seeded random weights; the `.params`
 of the latest valid checkpoint under --checkpoint_dir, which either
 package's trainer wrote; or JAX-package params converted from an .npz),
-starts the in-process generation server
-and answers the requests read from stdin, one JSON object per line:
+starts the in-process generation server and answers the requests read
+from stdin, one JSON object per line:
 
     {"prompt": [1, 2, 3], "max_new_tokens": 16, "temperature": 0.0,
      "seed": 0}
@@ -16,13 +16,24 @@ submitted together, so they are served concurrently. A line
 before it are in (`GenerationServer.status`: slots, queue, the KV pool's
 format `kv_cache_dtype`, blocks and bytes).
 
-An int8 KV cache is a model parameter, as in the JAX package:
-`--model_params "...; kv_cache_dtype='int8'"`.
+The engine is chosen as the JAX entry point chooses it: `--kv_paged`
+-1 (the default) resolves from EDL_KV_PAGED, so the dense pool unless
+that is set; 1 is the block-paged pool, which speculative decode
+(`--draft_k` with a draft given by `--draft_model_params`, a second
+transformer_lm; its `seed` picks its weights) and chunked prefill
+(`--prefill_chunk_tokens`, `--prefill_budget_ms`) need. `--profile 1`
+adds the step profiler's phases to the status answer. With
+--checkpoint_dir the server keeps following the directory and swaps in
+newer versions between decode steps, `--reload_poll_secs` apart (0 =
+never by itself). `--warmup_tokens` generates that many tokens before
+the first request is read. An int8 KV cache is a model parameter, as in
+the JAX package: `--model_params "...; kv_cache_dtype='int8'"`.
 
     echo '{"prompt": [1, 2, 3], "max_new_tokens": 8}' | \\
     python -m elasticdl_tpu_torch.serving.main --device cuda \\
         --model_params "vocab_size=32000; seq_len=1024; embed_dim=1024; \\
-num_heads=8; num_layers=8; dtype='bf16'" --num_slots 8 --kv_block_size 16
+num_heads=8; num_layers=8; dtype='bf16'" --num_slots 8 --kv_paged 1 \\
+        --kv_block_size 16
 """
 
 import argparse
@@ -53,10 +64,40 @@ def parse_serving_args(args=None):
     parser.add_argument("--queue_capacity", type=int, default=64)
     parser.add_argument("--top_k", type=int, default=0)
     parser.add_argument("--top_p", type=float, default=1.0)
+    parser.add_argument("--kv_paged", type=int, default=-1,
+                        choices=(-1, 0, 1),
+                        help="1 = block-paged pool, 0 = dense; -1 "
+                             "resolves from EDL_KV_PAGED (dense unless "
+                             "set)")
     parser.add_argument("--kv_block_size", type=int, default=16)
     parser.add_argument("--kv_num_blocks", type=int, default=0,
                         help="block budget; 0 = dense-equivalent bytes")
     parser.add_argument("--kv_shared", type=int, default=1, choices=(0, 1))
+    parser.add_argument("--reload_poll_secs", type=float, default=2.0,
+                        help="seconds between polls of --checkpoint_dir "
+                             "for a newer version; 0 = explicit reloads "
+                             "only")
+    parser.add_argument("--draft_k", type=int, default=0,
+                        help="speculative decode: tokens the draft "
+                             "proposes a tick (paged pool only)")
+    parser.add_argument("--draft_model_params", default="",
+                        help="the draft transformer_lm's params; empty = "
+                             "speculative decode off")
+    parser.add_argument("--prefill_chunk_tokens", type=int, default=-1,
+                        help="chunked prefill's tile width (paged pool "
+                             "only); -1 resolves from "
+                             "EDL_PREFILL_CHUNK_TOKENS, 0 = monolithic")
+    parser.add_argument("--prefill_budget_ms", type=float, default=-1.0,
+                        help="tile ms a tick may spend while decode "
+                             "waits; -1 resolves from "
+                             "EDL_PREFILL_BUDGET_MS (default 8), 0 = "
+                             "unbounded")
+    parser.add_argument("--profile", type=int, default=-1,
+                        choices=(-1, 0, 1),
+                        help="the step profiler; -1 resolves from "
+                             "EDL_PROFILE (off)")
+    parser.add_argument("--warmup_tokens", type=int, default=0,
+                        help="generate this many tokens before serving")
     return parser.parse_args(args)
 
 
@@ -103,18 +144,49 @@ def build_server(args):
         ServingConfig,
     )
 
+    from elasticdl_tpu_torch.common.model_utils import (
+        get_dict_from_params_str,
+    )
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import custom_model
+
     model, version = build_model(args)
+    draft = None
+    if args.draft_k > 0 and args.draft_model_params:
+        draft = custom_model(
+            device=args.device,
+            **get_dict_from_params_str(args.draft_model_params))
+
+    def unset(value):
+        return None if value < 0 else value
+
     return GenerationServer(
         model,
         ServingConfig(
             num_slots=args.num_slots, queue_capacity=args.queue_capacity,
             top_k=args.top_k, top_p=args.top_p,
+            kv_paged=unset(args.kv_paged),
             kv_block_size=args.kv_block_size,
             kv_num_blocks=args.kv_num_blocks,
             kv_shared=bool(args.kv_shared),
+            draft_k=args.draft_k if draft is not None else 0,
+            prefill_chunk_tokens=unset(args.prefill_chunk_tokens),
+            prefill_budget_ms=unset(args.prefill_budget_ms),
+            profile=unset(args.profile),
+            checkpoint_dir=args.checkpoint_dir,
+            reload_poll_secs=args.reload_poll_secs,
         ),
         model_version=version,
+        draft=draft,
     )
+
+
+def warmup(server, tokens):
+    """Generate `tokens` tokens in-process before the first request is
+    read, so the kernels' build and the allocator's growth are paid
+    before traffic arrives."""
+    if tokens > 0:
+        server.generate([1, 2], tokens)
+        logger.info("warmup complete (%d tokens)", tokens)
 
 
 def serve_lines(server, lines):
@@ -159,6 +231,7 @@ def serve_lines(server, lines):
 def main(argv=None):
     args = parse_serving_args(argv)
     server = build_server(args).start()
+    warmup(server, args.warmup_tokens)
     try:
         for answer in serve_lines(server, sys.stdin):
             print(json.dumps(answer), flush=True)

@@ -62,7 +62,9 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.common.dtypes",
                      "elasticdl_tpu_torch.common.tensor_utils",
                      "elasticdl_tpu_torch.common.prng",
-                     "elasticdl_tpu_torch.worker.prediction_outputs_processor"):
+                     "elasticdl_tpu_torch.worker.prediction_outputs_processor",
+                     "elasticdl_tpu_torch.serving.hot_reload",
+                     "elasticdl_tpu_torch.observability.histogram"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"

@@ -471,7 +471,8 @@ def test_main_serves_int8_on_cpu_and_reports_the_format(rig, tmp_path):
     np.savez(npz, **flat)
     args = port_main.parse_serving_args([
         "--device", "cpu", "--model_params", ENGINE_PARAMS,
-        "--num_slots", "2", "--kv_block_size", "4", "--params_npz", str(npz),
+        "--num_slots", "2", "--kv_paged", "1", "--kv_block_size", "4",
+        "--params_npz", str(npz),
     ])
     server = port_main.build_server(args).start()
     try:

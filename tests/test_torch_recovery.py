@@ -415,7 +415,7 @@ def test_serving_main_checkpoint_dir_matches_params_npz(tmp_path):
     lines = ['{"prompt": [1, 2, 3], "max_new_tokens": 6}',
              '{"prompt": [5, 4], "max_new_tokens": 4}', '{"status": true}']
     common = ["--device", "cpu", "--model_params", T.PARAMS,
-              "--num_slots", "2", "--kv_block_size", "4"]
+              "--num_slots", "2", "--kv_paged", "1", "--kv_block_size", "4"]
     answers = {}
     for name, extra in (("npz", ["--params_npz", npz]),
                         ("ckpt", ["--checkpoint_dir", ckpt]),

@@ -184,7 +184,8 @@ def test_server_backpressure_waits_for_blocks(rig):
     _trainer, _state, sd = rig
     server = GenerationServer(
         port_model(sd),
-        ServingConfig(num_slots=3, queue_capacity=8, kv_block_size=4,
+        ServingConfig(num_slots=3, queue_capacity=8, kv_paged=True,
+                      kv_block_size=4,
                       kv_num_blocks=4, kv_shared=False),
     ).start()
     try:
@@ -253,7 +254,7 @@ def test_in_process_server_answers_concurrent_requests(rig):
         [ServingRequest(p, n) for p, n in REQUESTS])
     server = GenerationServer(
         port_model(sd),
-        ServingConfig(num_slots=SLOTS, queue_capacity=16,
+        ServingConfig(num_slots=SLOTS, queue_capacity=16, kv_paged=True,
                       kv_block_size=BLOCK, kv_num_blocks=NUM_BLOCKS),
     ).start()
     results, errors = {}, {}
@@ -297,7 +298,7 @@ def test_main_serves_json_lines_on_cpu(rig, tmp_path):
     np.savez(npz, **flat)
     args = port_main.parse_serving_args([
         "--device", "cpu", "--model_params", PARAMS, "--num_slots", "2",
-        "--kv_block_size", "4", "--params_npz", str(npz),
+        "--kv_paged", "1", "--kv_block_size", "4", "--params_npz", str(npz),
     ])
     server = port_main.build_server(args).start()
     try:
