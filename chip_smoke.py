@@ -207,15 +207,35 @@ repository checkout it sits in. Phases, each of which fails the run:
    2 with the tokens of a fresh server over version 2. Then the flagship
    width at 2 layers in fp32: the greedy streams of every mode on the
    card and of the paged engine on the CPU identical. Then B's split
-   kernel timed at the verify tile's shape (b 8, t 3).
+   kernel timed at the verify tile's shape (b 8, t 3);
+24. the elastic training job at the flagship width over phase 22's
+   token records (6 steps of 8 at 2 a task): (1) a Master served over
+   the port's HTTP transport on localhost and one Worker in this
+   process (master_addr=, device cuda) train the 6 steps; A, C and D
+   launch once a layer a step, and the losses, parameters and AdamW
+   slots equal bit for bit a Trainer fed the batches the worker's
+   stream must give (the records of the dispatched tasks in order
+   through the zoo's dataset_fn: its shuffle buffer spans the stream's
+   tasks, so phase 22's LocalExecutor, which shuffles each task alone,
+   is not that reference); every call's round trip and every step's
+   wall time are kept; (2) `python -m elasticdl_tpu_torch.client.main
+   train --num_workers 1 --device cuda` as a process: rc 0, its job
+   status Succeeded and its last checkpoint equal to (1)'s state bit
+   for bit; (3) a Master here and LocalInstanceManager with two worker
+   processes over 2 epochs: the first worker seen holding tasks is
+   killed by SIGKILL, its phase Failed, its tasks requeued, a worker
+   with a new id launched without spending a relaunch, the job done
+   with every range reported done once an epoch and
+   all_workers_failed never true; the kill to the new worker's first
+   get_task and each worker's start-up (its timeline stamps) are kept.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
-JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint` and a
-`serving_modes` JSON line, each with its own seconds (`phase_s`; the
-kernel checks' and timings' and the whole script's under
-`serving_modes.kernels_phase_s` and `.script_s`), the nvidia-smi line
-and, last, {"ok": true, "device": {...}}.
+JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint`, a
+`serving_modes` and a `master_worker` JSON line, each with its own
+seconds (`phase_s`; the kernel checks' and timings' and the whole
+script's under `serving_modes.kernels_phase_s` and `.script_s`), the
+nvidia-smi line and, last, {"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
@@ -232,6 +252,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from datetime import timedelta
 
@@ -257,9 +278,16 @@ from elasticdl_tpu_torch.common.model_utils import (
 )
 from elasticdl_tpu_torch.convert import dlrm_params_from_flax, params_from_flax
 from elasticdl_tpu_torch.data import packing
-from elasticdl_tpu_torch.data.dataset import pad_batch
+from elasticdl_tpu_torch.common import job_status
+from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
 from elasticdl_tpu_torch.data.example_codec import encode_example
-from elasticdl_tpu_torch.data.record_format import RecordWriter
+from elasticdl_tpu_torch.data.reader.recordio_reader import (
+    RecordIODataReader,
+)
+from elasticdl_tpu_torch.data.record_format import RecordWriter, Scanner
+from elasticdl_tpu_torch.master.instance_manager import LocalInstanceManager
+from elasticdl_tpu_torch.master.master import Master
+from elasticdl_tpu_torch.master.state_store import JobStateStore
 from elasticdl_tpu_torch.master.task_dispatcher import Task, TaskType
 from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
@@ -278,6 +306,7 @@ from elasticdl_tpu_torch.serving import main as serving_main
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 from elasticdl_tpu_torch.serving.server import GenerationServer, ServingConfig
 from elasticdl_tpu_torch.training.trainer import Trainer
+from elasticdl_tpu_torch.worker.worker import Worker
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor-core peak, fp32 peak
 # outside the tensor cores, and HBM3 rate
@@ -4507,7 +4536,7 @@ def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
     and a server built from run 2's checkpoint through serving/main.py
     must give the greedy tokens of a server over run 3's parameters.
     Then one save's time, synchronous and async. Returns (metrics,
-    launches by part)."""
+    launches by part, the job: its records feed phase 24)."""
     on_card = device == "cuda"
     layers = cfg["num_layers"]
     job = _ckpt_job(workdir, cfg, batch, device, rng)
@@ -4697,6 +4726,415 @@ def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
     launches = {"training_per_step": metrics["launches_per_step"],
                 "serving": {k: serve_launches[k] for k in SERVING_KERNELS}}
     del ex3, trainer3, state3
+    return metrics, launches, job
+
+
+# ------------------------------------------------ the elastic job (phase 24)
+
+MW_EPOCHS = 2  # the drill's epochs over phase 22's records
+MW_WORKERS = 2  # the drill's worker processes; they share the card
+MW_DEADLINE_S = 300  # every wait of the phase
+MW_POLL_S = 0.02
+
+
+def _mw_wait(cond, what, deadline_s=MW_DEADLINE_S):
+    deadline = time.monotonic() + deadline_s
+    while not cond():
+        check(time.monotonic() < deadline,
+              "master_worker: timed out waiting for %s" % what)
+        time.sleep(MW_POLL_S)
+
+
+def _mw_run_bounded(fn, what, deadline_s=MW_DEADLINE_S):
+    """fn() on a thread joined with a deadline; its exception re-raised
+    here."""
+    errors = []
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    thread.join(timeout=deadline_s)
+    check(not thread.is_alive(), "master_worker: %s did not finish in %d s"
+          % (what, deadline_s))
+    if errors:
+        raise errors[0]
+
+
+def _mw_common_args(job, device):
+    """The flags of a job over phase 22's records, as the CLI takes
+    them and the master hands them to its workers."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return ["--model_zoo", os.path.join(repo, "elasticdl_tpu_torch",
+                                        "model_zoo"),
+            "--model_def", "transformer_lm.custom_model",
+            "--model_params", job["params"],
+            "--training_data", job["data"],
+            "--minibatch_size", str(job["batch"]),
+            "--records_per_task", str(job["batch"] * CKPT_STEPS_PER_TASK),
+            "--seed", "0", "--device", device]
+
+
+def _mw_env():
+    env = dict(os.environ)
+    env.pop("EDL_FAULT_SPEC", None)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _mw_master(job, **kwargs):
+    """A Master over the job's records, the task shuffle seeded as the
+    CLI's master seeds it (--seed 0); `stamps` records each worker's
+    first register_worker and get_task, `dispatched` the (worker, shard,
+    start, end) of the tasks given out, in order. Handlers are wrapped
+    before prepare() binds them."""
+    random.seed(0)
+    master = Master(load_model_spec_from_module(tzoo),
+                    training_data=job["data"], minibatch_size=job["batch"],
+                    records_per_task=job["batch"] * CKPT_STEPS_PER_TASK,
+                    **kwargs)
+    master.stamps = {"register_worker": {}, "get_task": {}}
+    master.dispatched = []
+    for name, seen in master.stamps.items():
+        fn = getattr(master.servicer, name)
+
+        def stamped(request, _context=None, fn=fn, seen=seen):
+            seen.setdefault(request.worker_id, time.time())
+            return fn(request, _context)
+
+        setattr(master.servicer, name, stamped)
+    get = master.task_d.get
+
+    def recorded(worker_id):
+        task_id, task = get(worker_id)
+        if task is not None:
+            master.dispatched.append((worker_id, task.shard_name,
+                                      task.start, task.end))
+        return task_id, task
+
+    master.task_d.get = recorded
+    return master
+
+
+def _mw_stream_reference(job, dispatched, device):
+    """(losses, flat state) of a Trainer fed what a worker's stream over
+    `dispatched` gives: the tasks' records in dispatch order through
+    the zoo's dataset_fn (its shuffle buffer holds the whole stream),
+    batched and padded as the worker does, with its seed."""
+    records = [r for _worker, shard, start, end in dispatched
+               for r in Scanner(shard, start, end - start)]
+    spec = load_model_spec_from_module(tzoo)
+    ds = spec.dataset_fn(Dataset.from_list(records), Mode.TRAINING, None)
+    trainer = Trainer(spec, model_params=job["params"], device=device)
+    state, losses, step_ms = None, [], []
+    for batch in ds.batch(job["batch"]):
+        padded, n = pad_batch(batch, job["batch"])
+        if state is None:
+            state = trainer.init_state(padded)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, padded, n)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    flat = flatten_state(trainer, state)
+    del trainer, state
+    return losses, flat, step_ms
+
+
+def _pcts(secs):
+    ms = np.sort(np.asarray(list(secs), np.float64)) * 1e3
+    if not ms.size:
+        return None
+    return {"calls": int(ms.size), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms[-1])}
+
+
+def _log_tail(path, n=3000):
+    if not os.path.exists(path):
+        return "(no log)"
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def _worker_timeline(path):
+    """The timeline a worker process logs at its exit (worker/main.py),
+    or None."""
+    if not os.path.exists(path):
+        return None
+    with open(path, errors="replace") as f:
+        for line in f:
+            if " timeline " in line:
+                return json.loads(line.split(" timeline ", 1)[1])
+    return None
+
+
+def _start_cuda_init_probe():
+    """A throwaway process that prints the seconds a fresh process takes
+    to import torch and to create its CUDA context."""
+    code = ("import time; t0 = time.time(); import torch; t1 = time.time(); "
+            "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+            "print(t1 - t0, time.time() - t1)")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def _read_cuda_init_probe(proc):
+    try:
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, "the CUDA start-up probe failed")
+    import_s, init_s = map(float, out.split())
+    return {"import_torch_s": import_s, "cuda_context_s": init_s}
+
+
+def master_worker_phase(job, workdir, device="cuda"):
+    """The elastic job at the flagship over phase 22's records (see the
+    module docstring, 24). Returns (metrics, part 1's launches)."""
+    on_card = device == "cuda"
+    layers = get_dict_from_params_str(job["params"])["num_layers"]
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    # (1) a Master over the transport and one Worker here
+    master = _mw_master(job)
+    master.prepare()
+    worker = None
+    try:
+        worker = Worker(0, load_model_spec_from_module(tzoo),
+                        master_addr="localhost:%d" % master.port,
+                        minibatch_size=job["batch"],
+                        training_data=job["data"],
+                        model_params=job["params"], wait_sleep_secs=0.05,
+                        device=device)
+        steps = _record_steps(worker, device)
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        _mw_run_bounded(worker.run, "the in-process worker")
+        _sync(device)
+        part1_s = time.perf_counter() - t0
+        launches = {k: att.KERNEL_LAUNCHES[k] for k in TRAINING_KERNELS}
+        check(master.task_d.finished() and worker.job_complete,
+              "master_worker (1): the job did not complete")
+    finally:
+        master.stop()
+        if worker is not None:
+            worker.close()
+    check(worker.state.step == CKPT_STEPS and len(steps) == CKPT_STEPS,
+          "master_worker (1): %d steps, not %d" % (len(steps), CKPT_STEPS))
+    if on_card:
+        for s in steps:
+            for name in TRAINING_KERNELS:
+                check(s["launches"][name] == layers,
+                      "master_worker (1) step %d launched %s %d times, "
+                      "not %d" % (s["step"], name, s["launches"][name],
+                                  layers))
+        for name in TRAINING_KERNELS:
+            check(launches[name] == layers * CKPT_STEPS,
+                  "master_worker (1) launched %s %d times, not %d"
+                  % (name, launches[name], layers * CKPT_STEPS))
+    flat1 = flatten_state(worker.trainer, worker.state)
+    losses1 = list(worker.losses)
+    rpc = {name: _pcts(secs) for name, secs in worker.rpc_seconds.items()}
+    rpc_all = _pcts(itertools.chain.from_iterable(
+        secs for name, secs in worker.rpc_seconds.items()
+        if name == "get_task" or name.startswith("report_")))
+    timeline1 = dict(worker.timeline)
+    dispatched = list(master.dispatched)
+    del worker
+    if on_card:
+        torch.cuda.empty_cache()
+    ref_losses, ref_flat, ref_step_ms = _mw_stream_reference(
+        job, dispatched, device)
+    ref_diff, ref_differ = _flat_diff(flat1, ref_flat)
+    del ref_flat
+    log("master_worker (1): losses %s, the stream reference's %s; state "
+        "difference %r over %d leaves" % (losses1, ref_losses, ref_diff,
+                                           len(ref_differ)))
+    check(losses1 == ref_losses and not ref_differ,
+          "master_worker (1): the worker's losses or state differ from a "
+          "Trainer fed its stream's batches (%d leaves differ, largest "
+          "%r)" % (len(ref_differ), ref_diff))
+    if on_card:
+        torch.cuda.empty_cache()
+    # (2) the CLI, a process: its master here-in-that-process, one worker
+    cli_dir = os.path.join(workdir, "cli")
+    os.makedirs(cli_dir)
+    status = os.path.join(cli_dir, "status.json")
+    ckpt = os.path.join(cli_dir, "ckpt")
+    cmd = ([sys.executable, "-m", "elasticdl_tpu_torch.client.main",
+            "train"] + _mw_common_args(job, device)
+           + ["--num_workers", "1", "--port", "0", "--checkpoint_dir", ckpt,
+              "--checkpoint_steps", str(CKPT_STEPS), "--job_status_file",
+              status])
+    cli_log = os.path.join(cli_dir, "cli.log")
+    # the start-up probe runs beside the CLI's own start-up
+    probe = _start_cuda_init_probe() if on_card else None
+    t0 = time.perf_counter()
+    with open(cli_log, "w") as log_f:
+        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                env=_mw_env(), cwd=cli_dir)
+        try:
+            rc = proc.wait(timeout=MW_DEADLINE_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - t0
+    fresh_process = _read_cuda_init_probe(probe) if probe else None
+    cli_status = job_status.read_job_status(status) or {}
+    if rc != 0 or cli_status.get("status") != job_status.SUCCEEDED:
+        log("master_worker (2): the CLI's log tail:\n%s" % _log_tail(cli_log))
+    check(rc == 0 and cli_status.get("status") == job_status.SUCCEEDED,
+          "master_worker (2): the CLI ended with rc %d, status %s"
+          % (rc, cli_status.get("status")))
+    check(get_latest_checkpoint_version(ckpt) == CKPT_STEPS,
+          "master_worker (2): the CLI's job saved no version %d"
+          % CKPT_STEPS)
+    flat2, _ = load_checkpoint(ckpt, CKPT_STEPS)
+    cli_diff, cli_differ = _flat_diff(flat2, flat1)
+    del flat2
+    check(not cli_differ, "master_worker (2): the CLI's checkpoint differs "
+          "from (1)'s state in %d leaves (largest %r)"
+          % (len(cli_differ), cli_diff))
+    del flat1
+    if on_card:
+        torch.cuda.empty_cache()
+    # (3) the elastic drill: two worker processes, one killed
+    drill_dir = os.path.join(workdir, "drill")
+    logs = os.path.join(drill_dir, "logs")
+    state_dir = os.path.join(drill_dir, "job_state")
+    master = _mw_master(job, num_epochs=MW_EPOCHS, job_state_dir=state_dir)
+    master.prepare()
+    manager = LocalInstanceManager(
+        master.task_d, num_workers=MW_WORKERS,
+        worker_args=_mw_common_args(job, device) + [
+            "--master_addr", "localhost:%d" % master.port,
+            "--job_type", "training_only"],
+        env=_mw_env(), log_dir=logs)
+    master.instance_manager = manager
+    t0 = time.perf_counter()
+    new_id = MW_WORKERS
+    try:
+        manager.start_workers()
+        _mw_wait(lambda: master.task_d.doing_tasks(), "a task in flight")
+        holders = {w for w, _t, _s in master.task_d.doing_tasks().values()}
+        victim = min(holders)
+        held = {(t.shard_name, t.start) for w, t, _s in
+                master.task_d.doing_tasks().values() if w == victim}
+        t_kill = time.time()
+        manager.remove_worker(victim)
+        _mw_wait(lambda: manager.worker_phase(new_id) is not None,
+                 "the relaunch")
+        check(manager.worker_phase(victim) in ("Failed", "Deleted"),
+              "master_worker (3): the killed worker is %s"
+              % manager.worker_phase(victim))
+        failed_seen = []
+
+        def done():
+            failed_seen.append(manager.all_workers_failed())
+            return master.task_d.finished()
+
+        _mw_wait(done, "the drill's job to finish")
+        _mw_wait(lambda: new_id in master.stamps["get_task"],
+                 "the new worker's first get_task")
+        check(manager.wait_all(MW_DEADLINE_S),
+              "master_worker (3): worker processes still run after "
+              "JOB_COMPLETE")
+    except SmokeFailure:
+        for wid in manager.workers():
+            log("worker %d log tail:\n%s" % (wid, _log_tail(os.path.join(
+                logs, "worker-%d.log" % wid))))
+        raise
+    finally:
+        master.stop()
+    drill_s = time.perf_counter() - t0
+    check(not any(failed_seen), "master_worker (3): all_workers_failed "
+          "became true")
+    workers = manager.workers()
+    check(workers[victim][4] == 137 and workers[new_id][0]
+          == workers[victim][0] and workers[new_id][2] == 0,
+          "master_worker (3): the kill and relaunch left %s" % workers)
+    check(all(w[4] == 0 for wid, w in workers.items() if wid != victim),
+          "master_worker (3): a worker exited badly: %s" % workers)
+    _, events = JobStateStore(state_dir).load()
+    done_ranges = sorted(tuple(e["task"][:3]) for e in events
+                         if e["ev"] in ("done", "done_recovered"))
+    failed = {(e["task"][0], e["task"][1]) for e in events
+              if e["ev"] == "fail"}
+    victim_tasks = {(shard, start) for w, shard, start, _end in
+                    master.dispatched if w == victim}
+    per_task = job["batch"] * CKPT_STEPS_PER_TASK
+    per_epoch = [(shard, s, min(s + per_task, start + n))
+                 for shard, (start, n) in RecordIODataReader(
+                     job["data"]).create_shards().items()
+                 for s in range(start, start + n, per_task)]
+    check(done_ranges == sorted(per_epoch * MW_EPOCHS),
+          "master_worker (3): ranges done %s, not each range once an "
+          "epoch" % done_ranges)
+    check(held <= failed <= victim_tasks,
+          "master_worker (3): requeued %s; the killed worker held %s and "
+          "was given %s" % (sorted(failed), sorted(held),
+                            sorted(victim_tasks)))
+    timelines = {wid: _worker_timeline(os.path.join(
+        logs, "worker-%d.log" % wid)) for wid in workers}
+    startup = {}
+    for wid, (slot, phase, relaunches, launched, code) in workers.items():
+        tl = timelines.get(wid) or {}
+        entry = {"slot": slot, "phase": phase, "exit_code": code,
+                 "relaunches_used": relaunches}
+        for key in ("main", "built", "registered", "first_get_task",
+                    "state_ready", "first_step"):
+            if key in tl:
+                entry[key + "_after_launch_s"] = tl[key] - launched
+        if wid in master.stamps["register_worker"]:
+            entry["master_saw_register_after_launch_s"] = (
+                master.stamps["register_worker"][wid] - launched)
+        startup[wid] = entry
+    metrics = {
+        "model": "transformer_lm %s, AdamW" % job["params"],
+        "minibatch": job["batch"], "steps": CKPT_STEPS,
+        "steps_per_task": CKPT_STEPS_PER_TASK,
+        "in_process": {
+            "wall_s": part1_s, "losses": losses1,
+            "equal_stream_reference_bitwise": True,
+            "stream_reference_losses": ref_losses,
+            "step_ms": [s["ms"] for s in steps],
+            "stream_reference_step_ms": ref_step_ms,
+            "rpc_round_trip": rpc_all, "rpc_by_method": rpc,
+            "launches": launches,
+            "launches_per_step": {k: steps[-1]["launches"][k]
+                                  for k in TRAINING_KERNELS},
+            "timeline_s": {k: v - timeline1["built"]
+                           for k, v in timeline1.items()},
+            "tasks_dispatched": len(dispatched)},
+        "cli": {"rc": rc, "status": cli_status.get("status"),
+                "wall_s": cli_s, "checkpoint_version": CKPT_STEPS,
+                "checkpoint_equal_in_process_bitwise": True},
+        "drill": {"workers": MW_WORKERS, "epochs": MW_EPOCHS,
+                  "wall_s": drill_s, "killed": victim,
+                  "killed_held_tasks": len(held), "relaunched_as": new_id,
+                  "kill_to_new_worker_first_get_task_s":
+                      master.stamps["get_task"][new_id] - t_kill,
+                  "new_worker_launch_after_kill_s":
+                      workers[new_id][3] - t_kill,
+                  "ranges_done": len(done_ranges),
+                  "requeued": sum(e["ev"] == "fail" for e in events),
+                  "workers": {str(k): v for k, v in startup.items()}},
+        "fresh_process": fresh_process,
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    log("master_worker: %s" % json.dumps(metrics))
     return metrics, launches
 
 
@@ -5387,9 +5825,12 @@ def main():
     # phase sees the data it saw before it was added
     laps.to("checkpoint")
     with tempfile.TemporaryDirectory() as workdir:
-        checkpoint, ckpt_launches = checkpoint_phase(
+        checkpoint, ckpt_launches, ckpt_job = checkpoint_phase(
             np.random.RandomState(14), workdir)
-    log("checkpoint phase launches: %s" % ckpt_launches)
+        log("checkpoint phase launches: %s" % ckpt_launches)
+        torch.cuda.empty_cache()
+        laps.to("master_worker")
+        master_worker, mw_launches = master_worker_phase(ckpt_job, workdir)
     torch.cuda.empty_cache()
     laps.to("serving_modes")
     with tempfile.TemporaryDirectory() as workdir:
@@ -5473,6 +5914,8 @@ def main():
         if entry["name"] in SERVING_KERNELS:
             entry["launches_checkpoint_phase_serving"] = ckpt_launches[
                 "serving"][entry["name"]]
+        if entry["name"] in TRAINING_KERNELS:
+            entry["launches_master_worker"] = mw_launches[entry["name"]]
     for name, entry in (("paged_decode", kernels[1]),
                         ("paged_decode_tile", kernels[2])):
         check(entry["name"] == name, "kernels[%d] is %s" % (
@@ -5490,7 +5933,7 @@ def main():
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
              "sp": sp, "checkpoint": checkpoint,
-             "serving_modes": serving_modes}
+             "serving_modes": serving_modes, "master_worker": master_worker}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -5510,6 +5953,7 @@ def main():
     print(json.dumps({"sp": sp}))
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"serving_modes": serving_modes}))
+    print(json.dumps({"master_worker": master_worker}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

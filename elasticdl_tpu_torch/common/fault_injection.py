@@ -25,9 +25,17 @@ Examples:
     local_get_task:drop:1:skip=2    the third task fetch is lost
     local_get_task:kill:1:skip=2    the process dies on its 3rd fetch
 
+The master's servicer is wrapped by `maybe_wrap_servicer` (the five
+Master methods, `get_task:drop:3`, `report_task_result:error:1` ...),
+and the local instance manager intercepts `worker_launch` /
+`worker_exit`.
+
 The card's machine has no grpc, so a rejected call raises the port's
-`InjectedRpcError`, whose `code()` is the status name as a string. The
-servicer wrappers wait for the port's transport.
+`InjectedRpcError`, an `RpcError` of the port's transport
+(proto/service.py) whose `code()` is the status name as a string: the
+transport answers it with that status, and common/retry.py classifies
+it as a transport failure, as the JAX package's subclass of
+grpc.RpcError is.
 """
 
 import logging
@@ -36,28 +44,19 @@ import signal
 import threading
 import time
 
+from elasticdl_tpu_torch.proto.service import RpcError
+
 logger = logging.getLogger(__name__)
 
 FAULT_SPEC_ENV = "EDL_FAULT_SPEC"
 
 
-class InjectedRpcError(Exception):
+class InjectedRpcError(RpcError):
     """An injected fault: `code()` is the status name (e.g.
     "UNAVAILABLE"), `details()` what was injected where."""
 
-    def __init__(self, code, details):
-        super().__init__(details)
-        self._code = code
-        self._details = details
-
-    def code(self):
-        return self._code
-
-    def details(self):
-        return self._details
-
     def __str__(self):
-        return "InjectedRpcError(%s, %r)" % (self._code, self._details)
+        return "InjectedRpcError(%s, %r)" % (self.code(), self.details())
 
 
 class FaultRule(object):
@@ -153,11 +152,15 @@ class FaultInjector(object):
                     return rule
         return None
 
-    def intercept(self, rpc_name, when="before"):
+    def intercept(self, rpc_name, context=None, when="before",
+                  trace_id=""):
         """Apply the first matching armed rule: raise InjectedRpcError
         for drop (when="before") and error (when="after"), sleep for
         delay, SIGKILL the process for kill; no-op when nothing
-        matches."""
+        matches. `context` and `trace_id` are the JAX signature's: the
+        port's transport answers the raised error with its code, and
+        tracing is not ported."""
+        del context, trace_id
         rule = self._fire(rpc_name, when)
         if rule is None:
             return
@@ -176,3 +179,56 @@ class FaultInjector(object):
         )
         raise InjectedRpcError(
             rule.code, "injected fault: %s %s" % (rule.action, rpc_name))
+
+
+# RPCs the servicer wrapper intercepts (proto/service.py's table)
+_SERVICER_RPCS = (
+    "get_task",
+    "report_task_result",
+    "report_evaluation_metrics",
+    "report_version",
+    "register_worker",
+)
+
+
+class FaultInjectingServicer(object):
+    """Transparent servicer wrapper: the same RPC surface, with
+    injector.intercept applied before and after each handler. Other
+    attributes (get_model_version, the watchdog helpers ...) proxy
+    through; names the servicer does not implement are skipped."""
+
+    def __init__(self, servicer, injector):
+        self._servicer = servicer
+        self._injector = injector
+        for name in _SERVICER_RPCS:
+            if hasattr(servicer, name):
+                setattr(self, name, self._wrap(name))
+
+    def _wrap(self, name):
+        handler = getattr(self._servicer, name)
+
+        def rpc(request, _context=None):
+            self._injector.intercept(name, context=_context, when="before")
+            response = handler(request, _context)
+            self._injector.intercept(name, context=_context, when="after")
+            return response
+
+        rpc.__name__ = name
+        return rpc
+
+    def __getattr__(self, name):
+        return getattr(self._servicer, name)
+
+
+def maybe_wrap_servicer(servicer, injector=None):
+    """Wrap when an injector is active (explicit or via EDL_FAULT_SPEC);
+    otherwise return the servicer untouched."""
+    injector = injector or FaultInjector.from_env()
+    if injector is None or not injector.rules:
+        return servicer
+    logger.warning(
+        "Fault injection ACTIVE on servicer %s: %s",
+        type(servicer).__name__,
+        [(r.rpc, r.action, r.count) for r in injector.rules],
+    )
+    return FaultInjectingServicer(servicer, injector)

@@ -14,8 +14,10 @@ exports, by name:
 
 plus optionally `callbacks()`, `flax_param_path(param_name) -> the
 flax path` (what a Trainer `trainable_pattern` regex matches and what
-names the parameter in a checkpoint) and `PredictionOutputsProcessor`
-(worker/prediction_outputs_processor.py).
+names the parameter in a checkpoint), `PredictionOutputsProcessor`
+(worker/prediction_outputs_processor.py), `custom_data_reader` and
+`host_embeddings` (the host-spill tier, which the port's Trainer and
+Worker refuse).
 """
 
 import importlib.util
@@ -46,7 +48,8 @@ class ModelSpec(object):
 
     def __init__(self, model_fn, dataset_fn, loss, optimizer,
                  eval_metrics_fn, callbacks_fn=None, flax_param_path=None,
-                 prediction_outputs_processor=None):
+                 prediction_outputs_processor=None, custom_data_reader=None,
+                 host_embeddings_fn=None):
         self.model_fn = model_fn
         self.dataset_fn = dataset_fn
         self.loss = loss
@@ -55,6 +58,8 @@ class ModelSpec(object):
         self.callbacks_fn = callbacks_fn
         self.flax_param_path = flax_param_path
         self.prediction_outputs_processor = prediction_outputs_processor
+        self.custom_data_reader = custom_data_reader
+        self.host_embeddings_fn = host_embeddings_fn
 
     def create_model(self, model_params_str="", **overrides):
         """custom_model(**params, **overrides): `overrides` carries what
@@ -84,6 +89,8 @@ def _spec_from_dict(d, model_name):
         callbacks_fn=d.get("callbacks"),
         flax_param_path=d.get("flax_param_path"),
         prediction_outputs_processor=d.get("PredictionOutputsProcessor"),
+        custom_data_reader=d.get("custom_data_reader"),
+        host_embeddings_fn=d.get("host_embeddings"),
     )
 
 
@@ -98,3 +105,18 @@ def get_model_spec(model_zoo, model_def):
 def load_model_spec_from_module(module):
     """The spec of an already-imported zoo module (custom_model entry)."""
     return _spec_from_dict(module.__dict__, "custom_model")
+
+
+def resolve_dataset_fn(spec, reader):
+    """spec.dataset_fn, else the reader's schema-driven default
+    (`reader.default_dataset_fn()`), resolved once and cached on the
+    spec."""
+    if spec.dataset_fn is None:
+        default = getattr(reader, "default_dataset_fn", None)
+        if default is None:
+            raise ValueError(
+                "dataset_fn is required if the data reader used does "
+                "not provide a default implementation of dataset_fn"
+            )
+        spec.dataset_fn = default()
+    return spec.dataset_fn

@@ -20,7 +20,10 @@ class Metadata(object):
 
 
 class RecordIODataReader(object):
-    def __init__(self, data_dir):
+    def __init__(self, data_dir, **kwargs):
+        """`kwargs` (records_per_task, ...) are the factory's; a TRec
+        reader needs none of them."""
+        del kwargs
         self._data_dir = data_dir
 
     @property

@@ -29,7 +29,9 @@ with payload = [shard_name, start, end, type, model_version].
 crash, keeping their old ids (``_recovered_doing``) so a late success
 report is reconciled instead of running the range twice.
 
-The evaluation service stays master-side and is not ported.
+Evaluation tasks: `set_evaluation_service` wires the master's
+EvaluationService (master/evaluation_service.py); a completed
+evaluation task is handed to its `complete_task` outside the lock.
 """
 
 import logging
@@ -114,6 +116,7 @@ class TaskDispatcher(object):
         self._doing = {}  # task_id -> (worker_id, task, start_time)
         self._task_id = 0
         self._eval_todo = []
+        self._evaluation_service = None
         self._tasks_done_deferred_callbacks = []
         # retry counts keyed by task payload (shard, start, end, type,
         # model_version) — payload keys survive the journal round-trip,
@@ -292,6 +295,8 @@ class TaskDispatcher(object):
         they exceeded MAX_TASK_RETRIES.
 
         Returns (elapsed_time, task, worker_id)."""
+        evaluation_task_completed = False
+        eval_service = None
         with self._lock:
             worker_id, task, start_time = self._doing.pop(
                 task_id, (-1, None, -1)
@@ -316,6 +321,15 @@ class TaskDispatcher(object):
                         self._eval_todo.append(task)
                     else:
                         self._todo.append(task)
+            elif (
+                task.type == TaskType.EVALUATION
+                and self._evaluation_service is not None
+            ):
+                self._journal({
+                    "ev": "done", "id": task_id, "task": _payload(task),
+                })
+                evaluation_task_completed = True
+                eval_service = self._evaluation_service
             else:
                 self._journal({
                     "ev": "done", "id": task_id, "task": _payload(task),
@@ -335,6 +349,11 @@ class TaskDispatcher(object):
                 if self.stop_training and self._todo:
                     self._journal({"ev": "stop"})
                     self._todo = []
+
+        # outside the lock: complete_task re-enters the dispatcher
+        # (try_to_create_new_job -> create_tasks takes self._lock)
+        if evaluation_task_completed:
+            eval_service.complete_task()
 
         return (time.time() - start_time), task, worker_id
 
@@ -423,6 +442,18 @@ class TaskDispatcher(object):
             ]
         for tid in ids:
             self.report(tid, False)
+
+    def set_evaluation_service(self, evaluation_service):
+        with self._lock:
+            self._evaluation_service = evaluation_service
+            eval_only = (
+                bool(self._evaluation_shards)
+                and not self._training_shards
+            )
+            n_eval = len(self._eval_todo)
+        # init takes the eval service's own lock; never nest it under ours
+        if eval_only:
+            evaluation_service.init_eval_only_job(n_eval)
 
     def _call_on_task_end(self, task):
         if self._callbacks_list:
@@ -601,3 +632,9 @@ class TaskDispatcher(object):
     @property
     def epoch(self):
         return self._epoch
+
+    def doing_tasks(self):
+        """{task_id: (worker_id, task, start time)} of the tasks in
+        flight, for the straggler watchdog."""
+        with self._lock:
+            return dict(self._doing)

@@ -1,10 +1,13 @@
 """The port stands alone: elasticdl_tpu_torch and chip_smoke.py import
-neither JAX nor anything of the JAX package, so they run on a machine
-that has neither.
+neither JAX nor anything of the JAX package, nor grpc or protobuf
+(`google`: the control plane's wire format is written by hand), so they
+run on a machine that has none of them.
 
 One check imports every port module and chip_smoke.py in a fresh
-interpreter and inspects sys.modules; the other scans the sources for
-import statements naming the forbidden packages.
+interpreter and inspects the modules those imports loaded (not the ones
+the interpreter's site hooks loaded before: a namespace-package .pth
+file may pre-load an empty `google` package); the other scans the
+sources for import statements naming the forbidden packages.
 """
 
 import ast
@@ -19,7 +22,7 @@ import elasticdl_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(elasticdl_tpu_torch.__file__)
 FORBIDDEN_TOPS = ("jax", "jaxlib", "flax", "optax", "orbax", "grpc",
-                  "ml_dtypes", "elasticdl_tpu", "model_zoo")
+                  "google", "ml_dtypes", "elasticdl_tpu", "model_zoo")
 
 
 def _forbidden(name):
@@ -64,15 +67,34 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.common.prng",
                      "elasticdl_tpu_torch.worker.prediction_outputs_processor",
                      "elasticdl_tpu_torch.serving.hot_reload",
-                     "elasticdl_tpu_torch.observability.histogram"):
+                     "elasticdl_tpu_torch.observability.histogram",
+                     "elasticdl_tpu_torch.proto.messages",
+                     "elasticdl_tpu_torch.proto.convert",
+                     "elasticdl_tpu_torch.proto.service",
+                     "elasticdl_tpu_torch.common.retry",
+                     "elasticdl_tpu_torch.common.args",
+                     "elasticdl_tpu_torch.common.timing_utils",
+                     "elasticdl_tpu_torch.common.job_status",
+                     "elasticdl_tpu_torch.data.reader.data_reader_factory",
+                     "elasticdl_tpu_torch.master.servicer",
+                     "elasticdl_tpu_torch.master.evaluation_service",
+                     "elasticdl_tpu_torch.master.master",
+                     "elasticdl_tpu_torch.master.instance_manager",
+                     "elasticdl_tpu_torch.master.main",
+                     "elasticdl_tpu_torch.worker.task_data_service",
+                     "elasticdl_tpu_torch.worker.worker",
+                     "elasticdl_tpu_torch.worker.main",
+                     "elasticdl_tpu_torch.client.api",
+                     "elasticdl_tpu_torch.client.main"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"
+        "before = set(sys.modules)\n"
         "for name in %r:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', %r)\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "print(json.dumps(sorted(sys.modules)))\n"
+        "print(json.dumps(sorted(set(sys.modules) - before)))\n"
         % (modules, os.path.join(REPO, "chip_smoke.py"))
     )
     env = dict(os.environ, PYTHONPATH=REPO)
