@@ -227,12 +227,51 @@ repository checkout it sits in. Phases, each of which fails the run:
    with a new id launched without spending a relaunch, the job done
    with every range reported done once an epoch and
    all_workers_failed never true; the kill to the new worker's first
-   get_task and each worker's start-up (its timeline stamps) are kept.
+   get_task and each worker's start-up (its timeline stamps) are kept;
+25. the lifecycle after pretraining at the flagship width (inside phase
+   22's temporary directory, over its records): (1) remat "", "full" and
+   "dots" each take 2 Trainer steps at minibatch 8 from the same seeded
+   state on the same batches: losses and parameters equal remat ""'s
+   bit for bit, A 16 launches a step under remat (8 without), C and D 8,
+   each mode's peak memory kept; remat ""'s state is saved as the dense
+   checkpoint; (2) a lora_rank=8, remat "full" model with
+   trainable_pattern "lora" restores it with strict=False: its first
+   loss equals the dense model's on the same batch bit for bit, and
+   after 4 steps every base tensor equals the checkpoint's and every
+   adapter has moved; its state is saved; (3) a Master over the
+   transport with export_saved_model and an in-process Worker restored
+   from that checkpoint train 16 of phase 22's records (2 steps) and
+   SavedModelExporter(merge_lora=True) writes the export at the train
+   end: load_exported equals merge_lora of the worker's state bit for
+   bit, the merged dense model's fp32 logits lie within
+   LIFE_MERGE_TOL_REL of the adapter model's, and the export's bytes
+   and its write and load seconds are kept; (4) quantize_params of the
+   export, saved as a checkpoint and read by serving/main.py's
+   build_model (dequantized once), serves the 16 requests through the
+   paged engine beside the float export: launches as the runs did, each
+   int8 stream equal to the float one or leaving it where the float
+   run's top two logits lie within LOGIT_TOL_REL; quantized_bytes
+   against the float bytes; (5) beam_search_generate with 4 beams,
+   full forwards and KV-cached, equal tokens (2 layers, fp32); on that
+   2-layer target, whose greedy rows each hold many distinct tokens,
+   speculative_generate with gamma 4 and a draft that differs from it
+   in one product accepts strictly between none and all of its
+   proposals, so rounds commit the batch's shortest accepted prefix,
+   and its tokens equal greedy's or leave them at a near-tie; a 2-layer
+   draft warm-started from the export (warm_start_draft) and distilled
+   on windows of random tokens, the distribution the export trained on
+   (distill_draft, 40 Adam steps over 4 batches: the last pass's mean
+   KL must lie below the first pass's on the same windows; A, C, D
+   launched as its forwards and backwards do); speculative_generate
+   with gamma 4 before and after distillation, each row's tokens equal
+   to autoregressive_generate's greedy ones or leaving them at a
+   near-tie; acceptance and tokens/s against greedy.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
 JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint`, a
-`serving_modes` and a `master_worker` JSON line, each with its own
+`serving_modes`, a `master_worker` and a `lifecycle` JSON line, each
+with its own
 seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -260,13 +299,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from elasticdl_tpu_torch.api.generation import kv_layout
+from elasticdl_tpu_torch.api.callbacks import SavedModelExporter
+from elasticdl_tpu_torch.api.distill import distill_draft, warm_start_draft
+from elasticdl_tpu_torch.api.exporter import flax_tree, load_exported
+from elasticdl_tpu_torch.api.finetune import merge_lora
+from elasticdl_tpu_torch.api.generation import (
+    autoregressive_generate,
+    beam_search_generate,
+    kv_layout,
+    speculative_generate,
+)
 from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+from elasticdl_tpu_torch.api.quantization import (
+    load_params,
+    quantize_params,
+    quantized_bytes,
+)
 from elasticdl_tpu_torch.checkpoint.saver import (
     CheckpointSaver,
     flatten_state,
     get_latest_checkpoint_version,
     load_checkpoint,
+    params_tree_leaves,
     restore_state_from_checkpoint,
     verify_checkpoint,
 )
@@ -276,7 +330,11 @@ from elasticdl_tpu_torch.common.model_utils import (
     get_dict_from_params_str,
     load_model_spec_from_module,
 )
-from elasticdl_tpu_torch.convert import dlrm_params_from_flax, params_from_flax
+from elasticdl_tpu_torch.convert import (
+    dlrm_params_from_flax,
+    flatten_params,
+    params_from_flax,
+)
 from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.common import job_status
 from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
@@ -1788,7 +1846,9 @@ def logits_trace(model, prompt, forced):
                      [pool.tables[0, pos // 16]], [pos % 16])
         steps.append(step[0, 0])
         nxt = int(step[0, 0].argmax())
-    return (logits[0].float().cpu(), torch.stack(steps).float().cpu(), fed,
+    steps = (torch.stack(steps) if steps
+             else logits.new_zeros((0, logits.shape[-1])))
+    return (logits[0].float().cpu(), steps.float().cpu(), fed,
             [layer[0].cpu() for layer in kv])
 
 
@@ -5630,6 +5690,517 @@ def serving_modes_phase(specs, int8_ref_streams, workdir, device="cuda"):
     return out
 
 
+# ------------------------------------------------------------------
+# phase 25: the lifecycle after pretraining (fine-tune, export, int8,
+# offline generation)
+
+LIFE_REMAT_STEPS = 2  # steps a remat mode takes, on the same batches
+LIFE_LORA_RANK = 8
+LIFE_LORA_STEPS = 4
+LIFE_WORKER_RECORDS = 16  # phase 22's first records: one task, 2 steps
+# the merged dense model's logits against the adapter model's, both in
+# fp32 (TF32 off): they differ only in where (x A) B * s is summed
+LIFE_MERGE_TOL_REL = 1e-4
+LIFE_BEAMS, LIFE_BEAM_PROMPT, LIFE_BEAM_NEW = 4, 32, 16
+LIFE_DRAFT_LAYERS = 2
+LIFE_DISTILL_LEN, LIFE_DISTILL_BATCH, LIFE_DISTILL_EPOCHS = 128, 4, 10
+LIFE_DISTILL_WINDOWS = 16  # 4 batches a pass
+LIFE_DISTILL_LR = 1e-3
+LIFE_GAMMA = 4
+LIFE_SPEC_ROWS, LIFE_SPEC_PROMPT, LIFE_SPEC_NEW = 4, 128, 64
+# the mismatched draft: the 2-layer target with block_1's mlp_down
+# kernel scaled by this (0.348 of its proposals accepted over 48 new
+# tokens in a CPU run of the same weights)
+LIFE_MISMATCH_SCALE = 0.9
+
+
+def _life_batches(rng, n):
+    """n training batches of TRAIN_BATCH rows of seq_len + 1 tokens."""
+    cfg = FLAGSHIP
+    out = []
+    for _ in range(n):
+        t = rng.randint(0, cfg["vocab_size"], size=(
+            TRAIN_BATCH, cfg["seq_len"] + 1)).astype(np.int32)
+        out.append(({"tokens": t[:, :-1]}, t[:, 1:]))
+    return out
+
+
+def _life_steps(trainer, state, batches, device):
+    """Train on `batches`: (state, losses, each step's launches of A, C
+    and D, each step's peak bytes allocated over what was allocated when
+    it began, each step's wall ms). The first step's peak also holds the
+    optimizer's first allocation of its slots; the later ones are a
+    training step's own (activations, the loss, gradients)."""
+    losses, launches, peaks, ms = [], [], [], []
+    on_card = device == "cuda"
+    for batch in batches:
+        before = dict(att.KERNEL_LAUNCHES)
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(int(torch.cuda.max_memory_allocated()) - start
+                     if on_card else 0)
+        losses.append(loss)
+        launches.append({k: att.KERNEL_LAUNCHES[k] - before[k]
+                         for k in TRAINING_KERNELS})
+    return state, losses, launches, peaks, ms
+
+
+def _life_check_launches(part, launches, layers, a_per_layer, on_card):
+    if not on_card:
+        return
+    want = {"flash_fwd": a_per_layer * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+    for i, got in enumerate(launches):
+        got = {k: got[k] for k in want}
+        check(got == want, "lifecycle %s step %d launched %s, not %s"
+              % (part, i + 1, got, want))
+
+
+def _timed(fn, device):
+    """(fn(), its wall seconds), the card synchronized around it."""
+    _sync(device)
+    t = time.perf_counter()
+    res = fn()
+    _sync(device)
+    return res, time.perf_counter() - t
+
+
+def _life_tie_gaps(model, ref, got, p):
+    """Rows of `got` that leave the greedy `ref` tokens: each first
+    divergence with the gap of the greedy run's top two logits there
+    (a prefill over the greedy prefix) over the largest |logit|; each
+    must be within LOGIT_TOL_REL."""
+    gaps = []
+    for r in range(ref.shape[0]):
+        i = _first_divergence(got[r].tolist(), ref[r].tolist())
+        if i is None:
+            continue
+        with torch.no_grad():
+            lg = model(ref[r:r + 1, :i].to(model.device))[0][0, -1].float()
+        top = torch.topk(lg, 2).values
+        gap = ((top[0] - top[1]) / lg.abs().max()).item()
+        gaps.append({"row": r, "position": i - p, "gap_rel": gap})
+        check(gap <= LOGIT_TOL_REL, "lifecycle: speculative row %d leaves "
+              "greedy at new token %d where its top two logits are %.4g of "
+              "the largest apart (limit %.4g)" % (r, i - p, gap,
+                                                  LOGIT_TOL_REL))
+    return gaps
+
+
+class _TimedExporter(SavedModelExporter):
+    """SavedModelExporter that keeps the seconds its export took."""
+
+    seconds = None
+
+    def on_train_end(self, worker):
+        t0 = time.perf_counter()
+        super().on_train_end(worker)
+        self.seconds = time.perf_counter() - t0
+
+
+def lifecycle_phase(specs, job, workdir, device="cuda"):
+    """Phase 25 (see the module docstring): remat, a LoRA warm start from
+    a dense checkpoint, merge and export at a Worker's train end, int8
+    weights served, beam search, a distilled draft's speculative decode.
+    Returns (the `lifecycle` line, launches by part). Off the card (a
+    rehearsal at a small width) the launch and memory checks are
+    skipped."""
+    on_card = device == "cuda"
+    rng = np.random.RandomState(25)
+    layers = FLAGSHIP["num_layers"]
+    spec = load_model_spec_from_module(tzoo)
+    out = {"config": {
+        "model": "transformer_lm flagship (vocab %d, seq_len %d, embed %d, "
+                 "%d heads, %d layers, bf16 over fp32 parameters), seeded "
+                 "weights" % (FLAGSHIP["vocab_size"], FLAGSHIP["seq_len"],
+                              FLAGSHIP["embed_dim"], FLAGSHIP["num_heads"],
+                              layers),
+        "minibatch": TRAIN_BATCH, "lora_rank": LIFE_LORA_RANK,
+        "lora_alpha": 16.0, "trainable_pattern": "lora"}}
+    launches = {}
+    batches = _life_batches(rng, LIFE_REMAT_STEPS + LIFE_LORA_STEPS)
+    # 1. remat: the same steps from the same state under "", full, dots
+    t0 = time.perf_counter()
+    remat = {}
+    ref = None
+    dense_ckpt = os.path.join(workdir, "lifecycle_dense")
+    for mode in ("", "full", "dots"):
+        if on_card:
+            torch.cuda.empty_cache()
+        trainer = Trainer(spec, model_params=_params_str(dict(
+            FLAGSHIP, remat=mode)), device=device)
+        state = trainer.init_state(None)
+        att.reset_launch_counts()
+        state, losses, steps, peak, ms = _life_steps(
+            trainer, state, batches[:LIFE_REMAT_STEPS], device)
+        _life_check_launches("remat %r" % mode, steps, layers,
+                             2 if mode else 1, on_card)
+        launches["remat_" + (mode or "off")] = steps
+        remat[mode or "off"] = {"losses": losses,
+                                "step_peak_bytes_over_start": peak,
+                                "step_ms": ms}
+        if not mode:
+            ref = {k: p.detach().clone() for k, p in state.params.items()}
+            ref_losses = losses
+            # the dense model's loss on the LoRA run's first batch, with
+            # the weights of the train step (ones)
+            feats, labels = batches[LIFE_REMAT_STEPS]
+            with torch.no_grad():
+                dense_loss = float(tzoo.loss(
+                    torch.as_tensor(labels, device=trainer.device),
+                    trainer.model(trainer._features(feats), training=True),
+                    torch.ones(TRAIN_BATCH, device=trainer.device)))
+            saver = CheckpointSaver(trainer, dense_ckpt)
+            saver.save(state, state.step)
+            dense_version = state.step
+        else:
+            check(losses == ref_losses, "lifecycle: remat %r losses %s, "
+                  "remat '' %s" % (mode, losses, ref_losses))
+            differ = [k for k, p in state.params.items()
+                      if not torch.equal(p, ref[k])]
+            check(not differ, "lifecycle: remat %r parameters differ from "
+                  "remat '' in %d tensors, e.g. %s" % (mode, len(differ),
+                                                       differ[:3]))
+        del trainer, state
+    # a step's own peak: the last step's (the first also allocates the
+    # optimizer's slots)
+    remat["step_peak_vs_off"] = {
+        m: remat[m]["step_peak_bytes_over_start"][-1] / max(1, remat["off"][
+            "step_peak_bytes_over_start"][-1]) for m in ("full", "dots")}
+    remat["seconds"] = time.perf_counter() - t0
+    out["remat"] = remat
+    log("lifecycle remat: %s" % json.dumps(remat))
+    # 2. LoRA warm start from the dense checkpoint, adapters only
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    lora_params = _params_str(dict(FLAGSHIP, lora_rank=LIFE_LORA_RANK,
+                                   remat="full"))
+    trainer = Trainer(spec, model_params=lora_params, device=device,
+                      trainable_pattern="lora")
+    state = trainer.init_state(None)
+    t1 = time.perf_counter()
+    state, version = restore_state_from_checkpoint(trainer, state,
+                                                   dense_ckpt, strict=False)
+    restore_s = time.perf_counter() - t1
+    check(version == dense_version, "lifecycle: restored version %d"
+          % version)
+    adapters = {k: p.detach().clone() for k, p in state.params.items()
+                if "lora" in k}
+    att.reset_launch_counts()
+    state, losses, steps, peak, ms = _life_steps(
+        trainer, state, batches[LIFE_REMAT_STEPS:], device)
+    _life_check_launches("LoRA", steps, layers, 2, on_card)
+    launches["lora"] = steps
+    check(losses[0] == dense_loss, "lifecycle: the warm-started LoRA model's "
+          "first loss %r, the dense model's %r" % (losses[0], dense_loss))
+    moved_base = [k for k, r in ref.items() if not torch.equal(
+        state.params[k], r)]
+    check(not moved_base, "lifecycle: LoRA training moved %d base tensors, "
+          "e.g. %s" % (len(moved_base), moved_base[:3]))
+    still = [k for k, a in adapters.items() if torch.equal(
+        state.params[k], a)]
+    check(len(adapters) == 4 * layers and not still, "lifecycle: %d "
+          "adapters, %d unmoved" % (len(adapters), len(still)))
+    del ref, adapters
+    lora_ckpt = os.path.join(workdir, "lifecycle_lora")
+    CheckpointSaver(trainer, lora_ckpt).save(state, state.step)
+    lora_version = state.step
+    out["lora"] = {"losses": losses, "dense_first_loss": dense_loss,
+                   "restore_s": restore_s,
+                   "step_peak_bytes_over_start": peak,
+                   "step_ms": ms,
+                   "trainable_params": sum(
+                       p.numel() for k, p in state.params.items()
+                       if k in trainer.train_names),
+                   "seconds": time.perf_counter() - t0}
+    log("lifecycle LoRA: %s" % json.dumps(out["lora"]))
+    del trainer, state
+    # 3. train end of an in-process Worker: merge_lora, then the export
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    data = os.path.join(workdir, "lifecycle_train")
+    os.makedirs(data)
+    shard = os.path.join(job["data"], "tokens-00000.trec")
+    with RecordWriter(os.path.join(data, "tokens-00000.trec")) as w:
+        for record in Scanner(shard, 0, LIFE_WORKER_RECORDS):
+            w.write(record)
+    export_dir = os.path.join(workdir, "lifecycle_export")
+    exporter_cb = _TimedExporter(export_dir, merge_lora=True)
+    master = Master(spec, training_data=data, minibatch_size=TRAIN_BATCH,
+                    records_per_task=LIFE_WORKER_RECORDS,
+                    export_saved_model=True)
+    master.prepare()
+    worker = None
+    try:
+        worker = Worker(0, spec, master_addr="localhost:%d" % master.port,
+                        minibatch_size=TRAIN_BATCH, training_data=data,
+                        model_params=lora_params, wait_sleep_secs=0.05,
+                        device=device, trainable_pattern="lora",
+                        checkpoint_dir_for_init=lora_ckpt,
+                        callbacks=[exporter_cb])
+        wsteps = _record_steps(worker, device)
+        att.reset_launch_counts()
+        _mw_run_bounded(worker.run, "the lifecycle worker")
+        _sync(device)
+        check(master.task_d.finished() and worker.job_complete,
+              "lifecycle: the worker's job did not complete")
+    finally:
+        master.stop()
+        if worker is not None:
+            worker.close()
+    worker_steps = LIFE_WORKER_RECORDS // TRAIN_BATCH
+    check(worker.restored_version == lora_version
+          and worker.state.step == lora_version + worker_steps
+          and len(wsteps) == worker_steps, "lifecycle: the worker restored "
+          "%r and ended at step %d" % (worker.restored_version,
+                                       worker.state.step))
+    _life_check_launches("worker", [s["launches"] for s in wsteps],
+                         layers, 2, on_card)
+    launches["worker"] = [{k: s["launches"][k] for k in TRAINING_KERNELS}
+                          for s in wsteps]
+    check(exporter_cb.seconds is not None, "lifecycle: no export at the "
+          "worker's train end")
+    merged = merge_lora(flax_tree(worker.trainer.model,
+                                  worker.state.params),
+                        model=worker.trainer.model)
+    t1 = time.perf_counter()
+    payload, meta = load_exported(export_dir)
+    load_s = time.perf_counter() - t1
+    flat_merged, flat_export = (flatten_params(merged),
+                                flatten_params(payload["params"]))
+    differ = sorted(set(flat_merged) ^ set(flat_export)) + [
+        k for k in flat_merged if k in flat_export and not (
+            flat_export[k].dtype == flat_merged[k].dtype
+            and np.array_equal(flat_export[k], flat_merged[k]))]
+    check(not differ and meta["version"] == worker.state.step,
+          "lifecycle: the export differs from merge_lora of the worker's "
+          "state in %s (version %s)" % (differ[:3], meta.get("version")))
+    export_bytes = os.path.getsize(os.path.join(export_dir, "params.msgpack"))
+    # the merged dense model against the adapter model, both fp32
+    fp32 = dict(FLAGSHIP, dtype=torch.float32)
+    lora_fp32 = TransformerLM(device=device, lora_rank=LIFE_LORA_RANK,
+                              **fp32)
+    lora_fp32.load_state_dict(worker.trainer.model.state_dict())
+    feats = {"tokens": batches[0][0]["tokens"][:2]}
+    with torch.no_grad():
+        want = lora_fp32(feats, training=False)
+        del lora_fp32
+        merged_fp32 = load_params(TransformerLM(device=device, **fp32),
+                                  payload["params"])
+        got = merged_fp32(feats, training=False)
+    merge_err = rel_err(got, want)
+    del merged_fp32, got, want, worker, merged, flat_merged, flat_export
+    check(merge_err <= LIFE_MERGE_TOL_REL, "lifecycle: merged logits %.3g "
+          "from the adapter model's (limit %g)" % (merge_err,
+                                                    LIFE_MERGE_TOL_REL))
+    out["export"] = {"bytes": export_bytes, "write_s": exporter_cb.seconds,
+                     "load_s": load_s, "version": meta["version"],
+                     "num_params": meta["num_params"],
+                     "merged_vs_adapter_logits_rel_err_fp32": merge_err,
+                     "worker_step_ms": [s["ms"] for s in wsteps],
+                     "seconds": time.perf_counter() - t0}
+    log("lifecycle export: %s" % json.dumps(out["export"]))
+    # 4. int8 weights: a checkpoint of the quantized export, served by
+    # serving/main.py's model from it, against the float export's streams
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    qtree = quantize_params(payload["params"])
+    quantize_s = time.perf_counter() - t1
+    qbytes, fbytes = quantized_bytes(qtree)
+    qckpt = os.path.join(workdir, "lifecycle_int8")
+    CheckpointSaver(None, qckpt).save_flat(dict(
+        params_tree_leaves(qtree), **{".step": np.int32(meta["version"])}),
+        meta["version"])
+    int8_model, qversion = serving_main.build_model(
+        serving_main.parse_serving_args([
+            "--device", device, "--model_params", _params_str(FLAGSHIP),
+            "--checkpoint_dir", qckpt]))
+    check(qversion == meta["version"], "lifecycle: the int8 checkpoint "
+          "served version %d" % qversion)
+    target = load_params(TransformerLM(device=device, **FLAGSHIP),
+                         payload["params"])
+    float_run = run_mode(target, specs, {"kv_paged": True})
+    int8_run = run_mode(int8_model, specs, {"kv_paged": True})
+    for name, run in (("float_export", float_run), ("int8_weights",
+                                                    int8_run)):
+        if on_card:
+            _check_mode_launches("lifecycle " + name, run, layers)
+        launches["serving_" + name] = run["metrics"]["launches"]
+    prompts = [p for p, _n in specs]
+    agreement = near_tie_gaps(target, prompts, float_run["streams"],
+                              {"int8_weights": int8_run["streams"]})
+    out["int8"] = {"quantized_bytes": qbytes, "float_bytes": fbytes,
+                   "ratio": qbytes / fbytes, "quantize_s": quantize_s,
+                   "float_export": float_run["metrics"],
+                   "int8_weights": int8_run["metrics"],
+                   "agreement": agreement["int8_weights"],
+                   "seconds": time.perf_counter() - t0}
+    log("lifecycle int8: %s" % json.dumps(out["int8"]))
+    del int8_model, int8_run
+    # 5. generation: beam search at 2 layers fp32; a warm-started,
+    # distilled 2-layer draft's speculative decode at the flagship
+    t0 = time.perf_counter()
+    gen = {}
+    cfg2 = dict(FLAGSHIP, num_layers=2, dtype=torch.float32)
+    small_flax = numpy_flax_params(cfg2, 25)
+    small = TransformerLM(device=device, **cfg2)
+    small.load_state_dict(params_from_flax(small_flax))
+    prompt = rng.randint(0, FLAGSHIP["vocab_size"],
+                         size=(2, LIFE_BEAM_PROMPT))
+    att.reset_launch_counts()
+    t1 = time.perf_counter()
+    full = beam_search_generate(small, prompt, LIFE_BEAM_NEW,
+                                num_beams=LIFE_BEAMS)
+    t2 = time.perf_counter()
+    cached = beam_search_generate(small, prompt, LIFE_BEAM_NEW,
+                                  num_beams=LIFE_BEAMS, use_cache=True)
+    _sync(device)
+    t3 = time.perf_counter()
+    launches["beam"] = {"flash_fwd": att.KERNEL_LAUNCHES["flash_fwd"]}
+    check(torch.equal(full, cached), "lifecycle: beam search's cached "
+          "tokens differ from its full-forward ones")
+    # full: a prefill a new token; cached: one prefill
+    if on_card:
+        check(launches["beam"]["flash_fwd"] == 2 * (LIFE_BEAM_NEW + 1),
+              "lifecycle: beam search launched A %d times"
+              % launches["beam"]["flash_fwd"])
+    gen["beam"] = {"config": "flagship width, 2 layers, fp32, numpy "
+                             "weights", "beams": LIFE_BEAMS,
+                   "rows": 2, "prompt": LIFE_BEAM_PROMPT,
+                   "new": LIFE_BEAM_NEW, "full_s": t2 - t1,
+                   "cached_s": t3 - t2, "tokens_equal": True}
+    # speculative decode whose rounds accept part of their proposals:
+    # the 2-layer target and a draft that differs from it in one product
+    off = dict(small_flax)
+    off["block_1/mlp_down/kernel"] = small_flax["block_1/mlp_down/kernel"] * (
+        np.float32(LIFE_MISMATCH_SCALE))
+    mismatched = TransformerLM(device=device, **cfg2)
+    mismatched.load_state_dict(params_from_flax(off))
+    mprompt = torch.as_tensor(rng.randint(0, FLAGSHIP["vocab_size"], size=(
+        LIFE_SPEC_ROWS, LIFE_SPEC_PROMPT)))
+    mgreedy, mgreedy_s = _timed(lambda: autoregressive_generate(
+        small, mprompt, LIFE_SPEC_NEW, use_cache=True), device)
+    distinct = [len(set(row[LIFE_SPEC_PROMPT:].tolist())) for row in mgreedy]
+    check(min(distinct) > 1, "lifecycle: the 2-layer target's greedy rows "
+          "hold %s distinct new tokens; a row of one token repeated cannot "
+          "test a partial acceptance" % distinct)
+    att.reset_launch_counts()
+    (mtokens, mstats), mspec_s = _timed(lambda: speculative_generate(
+        small, mismatched, mprompt, LIFE_SPEC_NEW, gamma=LIFE_GAMMA,
+        return_stats=True), device)
+    launches["speculative_mismatched"] = {
+        "flash_fwd": att.KERNEL_LAUNCHES["flash_fwd"]}
+    if on_card:
+        check(launches["speculative_mismatched"]["flash_fwd"] == 4,
+              "lifecycle: the mismatched speculative decode launched A %s "
+              "times, not 4 (2 + 2 layers' prefill)"
+              % launches["speculative_mismatched"])
+    check(0.0 < mstats["acceptance_rate"] < 1.0
+          and mstats["committed_tokens"] < LIFE_GAMMA * mstats[
+              "verify_calls"], "lifecycle: the mismatched draft's rounds "
+          "did not accept part of their proposals: %s" % mstats)
+    mgaps = _life_tie_gaps(small, mgreedy, mtokens, LIFE_SPEC_PROMPT)
+    new_tokens = LIFE_SPEC_ROWS * LIFE_SPEC_NEW
+    gen["speculative_mismatched"] = dict(
+        mstats, config="flagship width, 2 layers, fp32, numpy weights; the "
+        "draft's block_1 mlp_down kernel scaled by %g" % LIFE_MISMATCH_SCALE,
+        gamma=LIFE_GAMMA, rows=LIFE_SPEC_ROWS, prompt=LIFE_SPEC_PROMPT,
+        new=LIFE_SPEC_NEW, greedy_distinct_new_tokens=distinct,
+        rows_identical_to_greedy=LIFE_SPEC_ROWS - len(mgaps),
+        divergences=mgaps, seconds=mspec_s, greedy_s=mgreedy_s,
+        tokens_per_s_vs_greedy=mgreedy_s / mspec_s)
+    del small, mismatched
+    draft = TransformerLM(device=device, seed=1, **dict(
+        FLAGSHIP, num_layers=LIFE_DRAFT_LAYERS))
+    copied = warm_start_draft(payload["params"], draft)
+    want_copied = sorted(["wte", "wpe", "ln_f", "head"] + [
+        "block_%d" % i for i in range(LIFE_DRAFT_LAYERS)])
+    check(copied == want_copied, "lifecycle: warm_start_draft copied %s"
+          % copied)
+    sprompt = torch.as_tensor(rng.randint(0, FLAGSHIP["vocab_size"], size=(
+        LIFE_SPEC_ROWS, LIFE_SPEC_PROMPT)))
+    greedy, greedy_s = _timed(lambda: autoregressive_generate(
+        target, sprompt, LIFE_SPEC_NEW, use_cache=True), device)
+    spec_runs = {}
+    for when in ("warm_start", "distilled"):
+        if when == "distilled":
+            # windows of random tokens, the distribution the export was
+            # trained on (the target's greedy rows repeat one token)
+            windows = rng.randint(0, FLAGSHIP["vocab_size"], size=(
+                LIFE_DISTILL_WINDOWS, LIFE_DISTILL_LEN))
+            dbatches = [windows[i:i + LIFE_DISTILL_BATCH]
+                        for _ in range(LIFE_DISTILL_EPOCHS)
+                        for i in range(0, LIFE_DISTILL_WINDOWS,
+                                       LIFE_DISTILL_BATCH)]
+            att.reset_launch_counts()
+            losses, distill_s = _timed(lambda: distill_draft(
+                target, draft, dbatches, lr=LIFE_DISTILL_LR), device)
+            launches["distill"] = {k: att.KERNEL_LAUNCHES[k]
+                                   for k in TRAINING_KERNELS}
+            per_pass = len(dbatches) // LIFE_DISTILL_EPOCHS
+            first_pass = float(np.mean(losses[:per_pass]))
+            last_pass = float(np.mean(losses[-per_pass:]))
+            check(last_pass < first_pass, "lifecycle: the distillation "
+                  "KL's last pass mean %.6g is not below its first's %.6g "
+                  "on the same windows: %s" % (last_pass, first_pass,
+                                               losses))
+            if on_card:
+                steps = len(dbatches)
+                want = {"flash_fwd": steps * (layers + LIFE_DRAFT_LAYERS),
+                        "flash_bwd_dq": steps * LIFE_DRAFT_LAYERS,
+                        "flash_bwd_dkv": steps * LIFE_DRAFT_LAYERS}
+                check(launches["distill"] == want, "lifecycle: distillation "
+                      "launched %s, not %s" % (launches["distill"], want))
+            gen["distill"] = {"steps": len(dbatches), "batch": [
+                LIFE_DISTILL_BATCH, LIFE_DISTILL_LEN], "lr": LIFE_DISTILL_LR,
+                "kl_first": losses[0], "kl_last": losses[-1],
+                "kl_first_pass_mean": first_pass,
+                "kl_last_pass_mean": last_pass,
+                "losses": losses, "seconds": distill_s}
+        att.reset_launch_counts()
+        (tokens, stats), spec_s = _timed(lambda: speculative_generate(
+            target, draft, sprompt, LIFE_SPEC_NEW, gamma=LIFE_GAMMA,
+            return_stats=True), device)
+        launches["speculative_" + when] = {
+            "flash_fwd": att.KERNEL_LAUNCHES["flash_fwd"]}
+        if on_card:
+            check(launches["speculative_" + when]["flash_fwd"]
+                  == layers + LIFE_DRAFT_LAYERS, "lifecycle: speculative "
+                  "decode launched A %s times" % launches[
+                      "speculative_" + when])
+        gaps = _life_tie_gaps(target, greedy, tokens, LIFE_SPEC_PROMPT)
+        spec_runs[when] = dict(stats, seconds=spec_s,
+                               tokens_per_s=new_tokens / spec_s,
+                               rows_identical_to_greedy=LIFE_SPEC_ROWS - len(
+                                   gaps), divergences=gaps)
+    gen["speculative"] = dict(
+        spec_runs, gamma=LIFE_GAMMA, rows=LIFE_SPEC_ROWS,
+        greedy_distinct_new_tokens=[
+            len(set(row[LIFE_SPEC_PROMPT:].tolist())) for row in greedy],
+        prompt=LIFE_SPEC_PROMPT, new=LIFE_SPEC_NEW,
+        draft_layers=LIFE_DRAFT_LAYERS, greedy_s=greedy_s,
+        greedy_tokens_per_s=new_tokens / greedy_s,
+        tokens_per_s_vs_greedy={w: r["tokens_per_s"] * greedy_s / new_tokens
+                                for w, r in spec_runs.items()})
+    gen["seconds"] = time.perf_counter() - t0
+    out["generation"] = gen
+    log("lifecycle generation: %s" % json.dumps(gen))
+    del target, draft, payload, qtree
+    if on_card:
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -5831,6 +6402,9 @@ def main():
         torch.cuda.empty_cache()
         laps.to("master_worker")
         master_worker, mw_launches = master_worker_phase(ckpt_job, workdir)
+        torch.cuda.empty_cache()
+        laps.to("lifecycle")
+        lifecycle, life_launches = lifecycle_phase(specs, ckpt_job, workdir)
     torch.cuda.empty_cache()
     laps.to("serving_modes")
     with tempfile.TemporaryDirectory() as workdir:
@@ -5928,12 +6502,35 @@ def main():
     kernels[0]["launches_serving_modes"] = {
         mode: m["launches"]["flash_fwd"]
         for mode, m in serving_modes.items() if "launches" in m}
+    # phase 25's launches by part: a step's under remat and LoRA, the
+    # worker's, the export's serving runs, beam search, distillation and
+    # speculative decode
+    for entry in kernels:
+        name = entry["name"]
+        if name in TRAINING_KERNELS:
+            entry["launches_lifecycle"] = {
+                part: [step[name] for step in steps]
+                for part, steps in life_launches.items()
+                if isinstance(steps, list)}
+            entry["launches_lifecycle"]["distill"] = life_launches[
+                "distill"][name]
+        if name in ("flash_fwd", "paged_decode", "paged_decode_tile"):
+            key = {"flash_fwd": "flash_fwd", "paged_decode": "paged_split",
+                   "paged_decode_tile": "paged_tile"}[name]
+            entry.setdefault("launches_lifecycle", {}).update({
+                part: counts[key] for part, counts in life_launches.items()
+                if part.startswith("serving_")})
+    kernels[0]["launches_lifecycle"].update({
+        part: life_launches[part]["flash_fwd"] for part in (
+            "beam", "speculative_mismatched", "speculative_warm_start",
+            "speculative_distilled")})
     kernels.append(verify_entry)
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
              "sp": sp, "checkpoint": checkpoint,
-             "serving_modes": serving_modes, "master_worker": master_worker}
+             "serving_modes": serving_modes, "master_worker": master_worker,
+             "lifecycle": lifecycle}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -5954,6 +6551,7 @@ def main():
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"serving_modes": serving_modes}))
     print(json.dumps({"master_worker": master_worker}))
+    print(json.dumps({"lifecycle": lifecycle}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,10 @@
-"""Training callbacks: the port's copy of elasticdl_tpu/api/callbacks.py
-without `SavedModelExporter` (it waits for the port's exporter).
+"""Training callbacks: the port's copy of elasticdl_tpu/api/callbacks.py.
 
+* `SavedModelExporter(export_dir)` writes the export artifact
+  (api/exporter.py) of the worker's state when the worker runs the
+  TRAIN_END_CALLBACK task; with `merge_lora=True` a LoRA model's
+  adapters are folded into its kernels first (api/finetune.merge_lora),
+  so the artifact is the plain dense model a `lora_rank=0` model loads;
 * `CallbackList` holds the callbacks the TaskDispatcher calls on each
   completed task (`on_task_end`);
 * `MaxStepsStopping(max_steps, minibatch_size)` counts the steps of
@@ -33,6 +37,32 @@ class CallbackList(object):
 
     def append(self, cb):
         self.callbacks.append(cb)
+
+
+class SavedModelExporter(Callback):
+    """Exports the trained model at train end (the worker calls
+    `on_train_end` on the TRAIN_END_CALLBACK task)."""
+
+    def __init__(self, export_dir, merge_lora=False):
+        self.export_dir = export_dir
+        self.merge_lora = bool(merge_lora)
+
+    def on_train_end(self, worker):
+        from elasticdl_tpu_torch.api.exporter import export_model, flax_tree
+        from elasticdl_tpu_torch.api.finetune import merge_lora
+        from elasticdl_tpu_torch.training.trainer import TrainState
+
+        if worker.state is None:
+            logger.warning("No trained state to export")
+            return
+        state = worker.state
+        model = worker.trainer.model
+        if self.merge_lora and getattr(model, "lora_rank", 0):
+            merged = merge_lora(flax_tree(model, state.params),
+                                model=model)
+            state = TrainState(state.step, merged, None)
+        path = export_model(model, state, self.export_dir)
+        logger.info("Exported trained model to %s", path)
 
 
 class MaxStepsStopping(Callback):

@@ -1,7 +1,13 @@
 """Prefill, token selection and offline decoding: the port of
-elasticdl_tpu/api/generation.py's serving helpers and of
-`autoregressive_generate` (recompute or KV-cached). `beam_search_generate`
-and `speculative_generate` are not ported yet.
+elasticdl_tpu/api/generation.py's serving helpers,
+`autoregressive_generate` (recompute or KV-cached),
+`beam_search_generate` (full forwards or KV-cached) and
+`speculative_generate` (a draft model's greedy proposals verified in one
+target chunk). Each takes the port model (the JAX package takes a
+trainer and a state); an export's or a checkpoint's flax-named tree,
+float or int8, goes into the model first through
+`api.quantization.load_params`, which dequantizes int8 leaves once, as
+the JAX package dequantizes a quantized state before it decodes.
 
 Token-selection contract. Greedy (temperature 0) is the argmax of the
 fp32 logits, first index on ties, exactly as in the JAX package.
@@ -125,6 +131,32 @@ def write_dense_rows(caches, rows, slot, n):
             leaf[slot, :, n:] = 0
 
 
+def _check_lengths(p, max_new_tokens, seq_len):
+    total = p + int(max_new_tokens)
+    if max_new_tokens < 1 or p < 1 or total > seq_len:
+        raise ValueError(
+            "need prompt length >= 1 and max_new_tokens >= 1 with prompt "
+            "%d + new %d <= the model's seq_len %d"
+            % (p, max_new_tokens, seq_len))
+    return total
+
+
+def _prefill_dense(model, prompt, n):
+    """Prefill `prompt` [b, p] (bucketed to 64) into fresh dense caches
+    for b * n rows, each prompt row repeated n times. Returns (caches,
+    fp32 logits [b, vocab] at the last prompt position)."""
+    b, p = prompt.shape
+    p_pad = _prefill_bucket(p, model.seq_len)
+    buf = torch.zeros((b, p_pad), dtype=torch.long)
+    buf[:, :p] = prompt
+    logits, rows = model(buf.to(model.device))
+    caches = model.dense_cache(b * n)
+    for layer, new in zip(caches, rows):
+        for leaf, r in zip(layer, new):
+            leaf[:, :, :p_pad] = r.repeat_interleave(n, dim=0)
+    return caches, logits[:, p - 1]
+
+
 def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
                             seed=0, use_cache=False, top_k=0, top_p=1.0):
     """Continue `prompt` (int [b, p]) by `max_new_tokens` tokens with the
@@ -149,12 +181,7 @@ def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
         raise ValueError("top_k must be >= 0, got %r" % (top_k,))
     if temperature <= 0.0:
         top_k, top_p = 0, 1.0
-    total = p + int(max_new_tokens)
-    if max_new_tokens < 1 or p < 1 or total > seq_len:
-        raise ValueError(
-            "need prompt length >= 1 and max_new_tokens >= 1 with prompt "
-            "%d + new %d <= the model's seq_len %d"
-            % (p, max_new_tokens, seq_len))
+    total = _check_lengths(p, max_new_tokens, seq_len)
     dev = model.device
     out = torch.zeros((b, total), dtype=torch.long)
     out[:, :p] = prompt
@@ -166,16 +193,9 @@ def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
                 out[:, i] = torch.as_tensor(next_tokens(
                     logits[:, i - 1], seeds, [i] * b, temps, top_k, top_p))
             return out
-        p_pad = _prefill_bucket(p, seq_len)
-        buf = torch.zeros((b, p_pad), dtype=torch.long)
-        buf[:, :p] = prompt
-        logits, rows = model(buf.to(dev))
-        caches = model.dense_cache(b)
-        for layer, new in zip(caches, rows):
-            for leaf, r in zip(layer, new):
-                leaf[:, :, :p_pad] = r
+        caches, last = _prefill_dense(model, prompt, 1)
         out[:, p] = torch.as_tensor(next_tokens(
-            logits[:, p - 1], seeds, [p] * b, temps, top_k, top_p))
+            last, seeds, [p] * b, temps, top_k, top_p))
         for i in range(p, total - 1):
             step = model.decode_dense(
                 out[:, i:i + 1].to(dev),
@@ -184,3 +204,153 @@ def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
             out[:, i + 1] = torch.as_tensor(next_tokens(
                 step[:, 0], seeds, [i + 1] * b, temps, top_k, top_p))
     return out
+
+
+def _expand(tokens, scores, step_logits, i):
+    """One beam expansion writing position i: log-softmax of each beam's
+    fp32 logits, the k best (beam, token) candidates per row, the
+    surviving beams' tokens gathered. tokens [b, k, L], scores [b, k],
+    step_logits [b * k, vocab]. Returns (tokens, scores, flat source
+    beam [b * k])."""
+    b, k = scores.shape
+    step = torch.log_softmax(step_logits.float().reshape(b, k, -1), dim=-1)
+    cand = (scores[:, :, None] + step.cpu()).reshape(b, -1)
+    vocab = step.shape[-1]
+    vals, idx = torch.topk(cand, k, dim=-1)
+    src = idx // vocab
+    tokens = torch.gather(tokens, 1, src[:, :, None].expand_as(tokens))
+    tokens[:, :, i] = idx % vocab
+    flat_src = (torch.arange(b)[:, None] * k + src).reshape(-1)
+    return tokens, vals, flat_src
+
+
+def beam_search_generate(model, prompt, max_new_tokens, num_beams=4,
+                         use_cache=False):
+    """Beam search: keep the `num_beams` highest-log-probability
+    continuations of each prompt row and return the best one, int64 [b,
+    p + max_new_tokens] on the CPU. Initial beam scores are [0, -inf,
+    ...], so the first expansion takes k distinct tokens of beam 0.
+    Deterministic.
+
+    The default runs the causal forward over every beam's tokens so far
+    for each position. `use_cache` prefills the prompt once for the b
+    rows (bucketed to 64), tiles the dense caches to b * num_beams rows
+    and decodes one token a step (`decode_dense`), gathering the
+    surviving beams' cache rows along the batch axis after each step;
+    both return the same tokens, as in the JAX package."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    b, p = prompt.shape
+    total = _check_lengths(p, max_new_tokens, model.seq_len)
+    k = int(num_beams)
+    if k < 1 or k > model.vocab_size:
+        raise ValueError("num_beams must be in [1, vocab_size], got %d" % k)
+    dev = model.device
+    tokens = torch.zeros((b, k, total), dtype=torch.long)
+    tokens[:, :, :p] = prompt[:, None, :]
+    scores = torch.full((b, k), float("-inf"))
+    scores[:, 0] = 0.0
+    with torch.no_grad():
+        if not use_cache:
+            for i in range(p, total):
+                logits, _kv = model(tokens[:, :, :i].reshape(b * k, i).to(
+                    dev))
+                tokens, scores, _src = _expand(tokens, scores,
+                                               logits[:, i - 1], i)
+        else:
+            caches, last = _prefill_dense(model, prompt, k)
+            tokens, scores, _src = _expand(
+                tokens, scores, last.repeat_interleave(k, dim=0), p)
+            for i in range(p + 1, total):
+                step = model.decode_dense(
+                    tokens[:, :, i - 1].reshape(b * k, 1).to(dev),
+                    torch.full((b * k,), i - 1, dtype=torch.long,
+                               device=dev), caches, span=i)
+                tokens, scores, src = _expand(tokens, scores, step[:, 0], i)
+                src = src.to(dev)
+                caches = [tuple(leaf.index_select(0, src) for leaf in layer)
+                          for layer in caches]
+    best = torch.argmax(scores, dim=-1)
+    return tokens[torch.arange(b), best]
+
+
+def speculative_generate(model, draft, prompt, max_new_tokens, gamma=4,
+                         return_stats=False):
+    """Speculative greedy decoding: the `draft` model proposes gamma - 1
+    tokens a round and `model` (the target) verifies them in ONE
+    gamma-token `decode_dense` chunk from position pos - 1. The round
+    commits c = min over the batch of (accepted prefix + 1) tokens, the
+    target's own argmax at each, so the output equals plain greedy
+    decoding of the target; both models roll back by position only
+    (rows past it are rewritten before they are read). Returns int64 [b,
+    p + max_new_tokens] on the CPU, and with `return_stats` the JAX
+    package's stats: verify_calls (target chunks after the prefill),
+    committed_tokens and acceptance_rate (accepted proposals over gamma
+    - 1 per verify).
+
+    The draft's first step of a round feeds the two newest committed
+    tokens (positions pos - 2 and pos - 1), so it rewrites row pos - 2:
+    after a full acceptance no step of the last round fed the last
+    proposal, and that row would stay stale (the JAX package feeds only
+    the newest token and reads it stale; its tokens are exact all the
+    same, but a perfect draft accepts less than it could). With a draft
+    that never fully accepts, the stats equal the JAX package's."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    b, p = prompt.shape
+    if model.vocab_size != draft.vocab_size:
+        raise ValueError("target and draft must share a vocabulary, got "
+                         "%r vs %r" % (model.vocab_size, draft.vocab_size))
+    gamma = int(gamma)
+    if gamma < 1:
+        raise ValueError("gamma must be >= 1, got %d" % gamma)
+    total = p + int(max_new_tokens)
+    seq_len = min(model.seq_len, draft.seq_len)
+    if max_new_tokens < 1 or p < 1 or total + gamma - 1 > seq_len:
+        raise ValueError(
+            "need prompt %d + new %d + gamma %d - 1 <= min seq_len %d (the "
+            "verify chunk must fit the cache)"
+            % (p, max_new_tokens, gamma, seq_len))
+    dev = model.device
+    tokens = torch.zeros((b, total + gamma), dtype=torch.long)
+    tokens[:, :p] = prompt
+    n = acc = 0
+    with torch.no_grad():
+        t_caches, last = _prefill_dense(model, prompt, 1)
+        d_caches, _ = _prefill_dense(draft, prompt, 1)
+        tokens[:, p] = torch.argmax(last, dim=-1).cpu()
+        pos = p + 1
+        while pos < total:
+            # draft: gamma - 1 greedy proposals for pos .. pos + gamma - 2
+            tok = tokens[:, pos - 2:pos].to(dev)
+            proposals = []
+            for j in range(gamma - 1):
+                start = pos - 1 + j - (tok.shape[1] - 1)
+                lg = draft.decode_dense(
+                    tok, torch.full((b,), start, dtype=torch.long,
+                                    device=dev), d_caches, span=pos + j)
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                proposals.append(tok)
+            d_toks = (torch.cat(proposals, dim=1) if proposals
+                      else torch.zeros((b, 0), dtype=torch.long, device=dev))
+            # target: one chunk over pos - 1 .. pos + gamma - 2
+            chunk = torch.cat([tokens[:, pos - 1:pos].to(dev), d_toks], 1)
+            logits = model.decode_dense(
+                chunk, torch.full((b,), pos - 1, dtype=torch.long,
+                                  device=dev), t_caches, span=pos + gamma - 1)
+            g = torch.argmax(logits, dim=-1)
+            match = torch.cumprod((d_toks == g[:, :gamma - 1]).long(), dim=1)
+            a = int(match.sum(dim=1).min().item()) if gamma > 1 else 0
+            c = a + 1
+            tokens[:, pos:pos + c] = g[:, :c].cpu()
+            pos += c
+            n += 1
+            acc += a
+    out = tokens[:, :total]
+    if not return_stats:
+        return out
+    stats = {
+        "verify_calls": n,
+        "committed_tokens": int(max_new_tokens) - 1,
+        "acceptance_rate": (float(acc) / max(1, (gamma - 1) * n)
+                            if gamma > 1 else 0.0),
+    }
+    return out, stats

@@ -55,6 +55,7 @@ import logging
 import os
 import re
 import shutil
+import sys
 import tempfile
 import threading
 import time
@@ -138,6 +139,64 @@ def _param_leaves(params, paths):
                     lambda v, p=p, kernel=kernel, n=key: _copy_into(
                         p, v, kernel, n)))
     return out
+
+
+_KEYSTR_PART = re.compile(r"\['([^']*)'\]")
+
+
+def params_tree_leaves(params, prefix=".params"):
+    """{keystr: leaf} of a flax-named params tree, under the names the
+    JAX Trainer's flatten_state gives them (`.params['block_0']['attn']
+    ['qkv']['kernel']`; a quantized leaf's `['__w8__']`,
+    `['__w8_scale__']` and `['__w8_src_itemsize__']`, the last a 0-d
+    int64 array as np.asarray makes it)."""
+    out = {}
+    for key, val in params.items():
+        name = prefix + "[%r]" % str(key)
+        if isinstance(val, dict):
+            out.update(params_tree_leaves(val, name))
+        elif isinstance(val, torch.Tensor):
+            out[name] = val
+        else:
+            out[name] = np.asarray(val)
+    return out
+
+
+def params_tree_from_flat(flat, prefix=".params"):
+    """The nested flax-named tree of a flat checkpoint's `prefix` leaves
+    (the inverse of `params_tree_leaves`)."""
+    tree = {}
+    for name, val in flat.items():
+        if not name.startswith(prefix + "["):
+            continue
+        parts = _KEYSTR_PART.findall(name[len(prefix):])
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def model_flax_param_path(model):
+    """The `flax_param_path` of `model`'s zoo module: how a checkpoint
+    or an export names its parameters."""
+    path_fn = getattr(sys.modules[type(model).__module__],
+                      "flax_param_path", None)
+    if path_fn is None:
+        raise NotImplementedError(
+            "%s's zoo module defines no flax_param_path, so its parameters "
+            "have no flax names" % type(model).__name__)
+    return path_fn
+
+
+def params_tree(params, flax_param_path):
+    """The flax-named tree of {torch key: parameter}, under the names and
+    in the layout a checkpoint gives its `.params` leaves (a kernel
+    transposed to [in, out], each tensor's dtype kept: a numpy array, or
+    a torch.bfloat16 tensor)."""
+    paths = {k: tuple(flax_param_path(k).split("/")) for k in params}
+    return params_tree_from_flat({
+        name: read() for name, read, _write in _param_leaves(params, paths)})
 
 
 def restore_params_from_flat(model, flax_param_path, flat, strict=False):
@@ -435,8 +494,9 @@ def restore_state_from_checkpoint(trainer, state, checkpoint_dir,
 
 class CheckpointSaver(object):
     """Writes and prunes versioned sharded checkpoints of `trainer`'s
-    state: checkpoint_steps (save every N model versions; 0 = disabled),
-    keep_max_version (0 = keep all), num_shards files a version.
+    state (or, with `save_flat`, of given leaves): checkpoint_steps
+    (save every N model versions; 0 = disabled), keep_max_version (0 =
+    keep all), num_shards files a version.
 
     extra_state_fn: () -> {name: array} merged into every save.
     async_save: the copy from the device to the host stays on the
@@ -473,6 +533,18 @@ class CheckpointSaver(object):
 
     def is_enabled(self):
         return bool(self.checkpoint_dir) and self.checkpoint_steps > 0
+
+    def save_flat(self, flat, version):
+        """Write an already-flat {JAX keystr: array} as version-<V>, as
+        `save` writes a state's leaves (synchronously; `trainer` may be
+        None): how a derived artifact such as an int8-quantized params
+        tree (`params_tree_leaves`) becomes a checkpoint a server
+        restores. Returns the version dir."""
+        version = int(version)
+        out = self._write_and_log(dict(flat), {}, version,
+                                  {"device_to_host_s": 0.0})
+        self._last_saved_version = version
+        return out
 
     def maybe_save(self, state, version=None):
         """Save iff `version` (default state.step) crosses a
@@ -602,17 +674,20 @@ def check_params_flat(model, flax_param_path, flat):
     """Raise ValueError when a `.params` leaf of `flat` has another shape
     than its parameter of `model` (a flax kernel transposed), before
     anything is copied: what a server checks before it swaps in a
-    checkpoint, so a mismatched one leaves every weight as it was."""
+    checkpoint, so a mismatched one leaves every weight as it was. An
+    int8-quantized leaf (api/quantization) is checked by its int8
+    values' shape, the float leaf's."""
     for key, p in model.named_parameters():
         path = tuple(flax_param_path(key).split("/"))
         name = ".params" + _keystr(path)
-        if name not in flat:
+        leaf = flat.get(name, flat.get(name + "['__w8__']"))
+        if leaf is None:
             continue
         want = tuple(p.shape)[::-1] if _is_kernel(path, p) else tuple(
             p.shape)
-        if tuple(flat[name].shape) != want:
+        if tuple(leaf.shape) != want:
             raise ValueError("checkpoint leaf %s has shape %s, the model %s"
-                             % (name, tuple(flat[name].shape), want))
+                             % (name, tuple(leaf.shape), want))
 
 
 # ------------------------------------------------------------- reading

@@ -11,7 +11,10 @@ of `elasticdl_tpu_torch.model_zoo.transformer_lm.TransformerLM`;
 * the Block's LayerNorms are auto-named `LayerNorm_0` / `LayerNorm_1`
   with `scale`/`bias`; the port names them `ln_0` / `ln_1` with
   `weight`/`bias`;
-* `mlp_up` / `mlp_down` carry biases, `qkv` / `proj` / `head` do not.
+* `mlp_up` / `mlp_down` carry biases, `qkv` / `proj` / `head` do not;
+* LoRA adapters (`lora_rank` > 0) keep the flax layout and names:
+  `block_i/attn/qkv_lora_a` [embed, r] is `blocks.i.attn.qkv_lora_a`,
+  likewise `qkv_lora_b`, `proj_lora_a` and `proj_lora_b`, untransposed.
 
 `flax_param_path` names a port parameter by its flax path (what a
 `trainable_pattern` regex matches), and `adam_state_from_optax` carries
@@ -34,15 +37,24 @@ _DENSE = (("attn", "qkv"), ("attn", "proj"), (None, "mlp_up"),
 
 
 def flatten_params(tree, prefix=""):
-    """Nested param dict -> {"a/b/c": array}."""
+    """Nested param dict -> {"a/b/c": array} (torch tensors, such as a
+    torch.bfloat16 leaf, stay tensors)."""
     out = {}
     for k, v in tree.items():
         key = "%s/%s" % (prefix, k) if prefix else str(k)
         if isinstance(v, dict) or hasattr(v, "items"):
             out.update(flatten_params(v, key))
         else:
-            out[key] = np.asarray(v)
+            out[key] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
+
+
+def fp32_array(x):
+    """A leaf (numpy array, or torch tensor such as a bfloat16 one) as an
+    fp32 numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, np.float32)
 
 
 def unflatten_params(flat):
@@ -57,8 +69,12 @@ def unflatten_params(flat):
     return tree
 
 
-def _block_keys(i):
-    """(flax path, torch key, transpose) for block i's params."""
+_LORA = ("qkv_lora_a", "qkv_lora_b", "proj_lora_a", "proj_lora_b")
+
+
+def _block_keys(i, lora=True):
+    """(flax path, torch key, transpose) for block i's params; `lora`
+    adds the adapters'."""
     out = []
     for flax_ln, torch_ln in _LN:
         out.append(("block_%d/%s/scale" % (i, flax_ln),
@@ -71,15 +87,18 @@ def _block_keys(i):
         out.append((fpath + "/kernel", tpath + ".weight", True))
         if name.startswith("mlp"):
             out.append((fpath + "/bias", tpath + ".bias", False))
+    if lora:
+        out += [("block_%d/attn/%s" % (i, name),
+                 "blocks.%d.attn.%s" % (i, name), False) for name in _LORA]
     return out
 
 
-def _mapping(num_layers, learned_pos=True):
+def _mapping(num_layers, learned_pos=True, lora=False):
     keys = [("wte/embedding", "wte.weight", False)]
     if learned_pos:
         keys.append(("wpe/embedding", "wpe.weight", False))
     for i in range(num_layers):
-        keys.extend(_block_keys(i))
+        keys.extend(_block_keys(i, lora))
     keys += [
         ("ln_f/scale", "ln_f.weight", False),
         ("ln_f/bias", "ln_f.bias", False),
@@ -100,12 +119,12 @@ def params_from_flax(params):
     -> a state_dict of fp32 CPU tensors for the port's TransformerLM
     (load with `model.load_state_dict(sd)`). Raises KeyError on a
     missing or unexpected param."""
-    flat = flatten_params(params) if not _is_flat(params) else {
-        k: np.asarray(v) for k, v in params.items()}
-    mapping = _mapping(_num_layers(flat), "wpe/embedding" in flat)
+    flat = flatten_params(params) if not _is_flat(params) else dict(params)
+    mapping = _mapping(_num_layers(flat), "wpe/embedding" in flat,
+                       "block_0/attn/qkv_lora_a" in flat)
     sd = {}
     for fkey, tkey, transpose in mapping:
-        arr = np.asarray(flat.pop(fkey), np.float32)
+        arr = fp32_array(flat.pop(fkey))
         sd[tkey] = torch.tensor(arr.T if transpose else arr)
     if flat:
         raise KeyError("params the port does not carry: %s" % sorted(flat))
@@ -114,15 +133,18 @@ def params_from_flax(params):
 
 def params_to_flax(state_dict):
     """The inverse of `params_from_flax`: a nested dict of fp32 numpy
-    arrays in the flax layout."""
+    arrays in the flax layout, copies of the tensors."""
     keys = list(state_dict)
     n = 0
     while any(k.startswith("blocks.%d." % n) for k in keys):
         n += 1
     flat = {}
-    for fkey, tkey, transpose in _mapping(n, "wpe.weight" in state_dict):
+    for fkey, tkey, transpose in _mapping(
+            n, "wpe.weight" in state_dict,
+            "blocks.0.attn.qkv_lora_a" in state_dict):
         arr = state_dict[tkey].detach().to("cpu", torch.float32).numpy()
-        flat[fkey] = np.ascontiguousarray(arr.T if transpose else arr)
+        # a copy: a CPU fp32 tensor's numpy() shares its storage
+        flat[fkey] = np.array(arr.T if transpose else arr, order="C")
     return unflatten_params(flat)
 
 
@@ -225,7 +247,7 @@ def adam_state_from_optax(opt_state):
         n += 1
     out = {"count": int(np.asarray(adam.count)), "exp_avg": {},
            "exp_avg_sq": {}}
-    for fkey, tkey, transpose in _mapping(n, "wpe/embedding" in mu):
+    for fkey, tkey, transpose in _mapping(n, "wpe/embedding" in mu, True):
         for name, slots in (("exp_avg", mu), ("exp_avg_sq", nu)):
             if fkey in slots:
                 arr = np.asarray(slots[fkey], np.float32)

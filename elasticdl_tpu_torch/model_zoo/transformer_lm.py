@@ -56,6 +56,26 @@ quantize-dequantized rows, so its logits come from the rows decode will
 read back (flax's `prefill` branch). The training forward never
 quantizes.
 
+LoRA (`lora_rank` r > 0, `lora_alpha`): every attention layer carries
+adapters `qkv_lora_a` [embed, r], `qkv_lora_b` [r, (h + 2 hkv) d],
+`proj_lora_a` [h d, r] and `proj_lora_b` [r, embed] in the flax layout
+(A lecun-normal, B zeros), and adds ((x @ A) @ B) * alpha / r, in the
+compute dtype, to the qkv and proj products (flax `_lora_branch`). The
+one place qkv and proj are computed (`_split`, `_out`) adds them, so
+every forward takes the adapters: training, prefill, paged and dense
+decode, the verify tile.
+
+`remat` ("" | "full" | "dots") recomputes each block's activations in
+the backward of the training/eval forward (flax `nn.remat` per block),
+never in prefill or decode: "full" saves only the block's input
+(non-reentrant `torch.utils.checkpoint`); "dots" also saves the
+outputs of the products without batch dimensions (qkv, proj, mlp_up,
+mlp_down and the adapters' products: aten.mm / addmm), as JAX's
+`dots_with_no_batch_dims_saveable`. The flash forward's launch is no
+aten op, so under either mode it runs again in the recompute, as the
+Pallas call does under JAX's policy. The parameters, losses and
+gradients are those of remat "".
+
 Numerics follow flax: LayerNorm epsilon 1e-6, tanh-approximate GELU,
 matmul and embedding weights used in the compute dtype (`dtype`), the
 LayerNorms computed in fp32, the head's logits cast to fp32. Parameters
@@ -66,11 +86,13 @@ weights to the compute dtype in place (what flax's cast-at-use computes
 on every call); training never does.
 """
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 from elasticdl_tpu_torch.common.constants import Mode
@@ -130,6 +152,29 @@ def _linear(layer, x):
 
 KV_CACHE_DTYPES = ("", "int8")
 SP_IMPLS = ("ring", "ulysses")
+REMAT_MODES = ("", "full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat "dots": keep the outputs of products without batch
+    dimensions, recompute everything else."""
+    if op in _SAVED_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(blk, remat, x, positions, segments):
+    """One block of the training/eval forward under `remat`."""
+    def run(x):
+        return blk(x, positions, segments=segments)[0]
+
+    if remat == "dots":
+        return torch_checkpoint.checkpoint(
+            run, x, use_reentrant=False, context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _dots_policy))
+    return torch_checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 def _sp_mesh():
@@ -161,7 +206,7 @@ def _dequantize(q8, scale, dtype):
 class CausalSelfAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
                  use_rope=False, kv_cache_dtype="", window=0, sp_impl="ring",
-                 device=None):
+                 lora_rank=0, lora_alpha=16.0, device=None):
         super().__init__()
         self.kv_int8 = kv_cache_dtype == "int8"
         self.window = int(window) or None
@@ -179,11 +224,31 @@ class CausalSelfAttention(nn.Module):
         self.qkv = nn.Linear(embed_dim, (h + 2 * hkv) * d, bias=False,
                              device=device)
         self.proj = nn.Linear(h * d, embed_dim, bias=False, device=device)
+        self.lora_rank = int(lora_rank)
+        self.lora_scale = float(lora_alpha) / max(1, self.lora_rank)
+        if self.lora_rank:
+            for name, fan_in, out in (("qkv", embed_dim, (h + 2 * hkv) * d),
+                                      ("proj", h * d, embed_dim)):
+                self.register_parameter(name + "_lora_a", nn.Parameter(
+                    torch.empty(fan_in, self.lora_rank, device=device)))
+                self.register_parameter(name + "_lora_b", nn.Parameter(
+                    torch.zeros(self.lora_rank, out, device=device)))
+
+    def _dense(self, name, x):
+        """The `name` product (qkv or proj) of x in its dtype, with the
+        LoRA branch ((x @ A) @ B) * alpha / rank added when adapters
+        exist (flax `_lora_branch`)."""
+        y = _linear(getattr(self, name), x)
+        if self.lora_rank:
+            a = getattr(self, name + "_lora_a").to(x.dtype)
+            b = getattr(self, name + "_lora_b").to(x.dtype)
+            y = y + torch.matmul(torch.matmul(x, a), b) * self.lora_scale
+        return y
 
     def _split(self, x):
         b, l, _ = x.shape
         h, hkv, d = self.num_heads, self.num_kv_heads, self.head_dim
-        qkv = _linear(self.qkv, x)
+        qkv = self._dense("qkv", x)
         q = qkv[..., :h * d].reshape(b, l, h, d).transpose(1, 2)
         k = qkv[..., h * d:(h + hkv) * d].reshape(b, l, hkv, d).transpose(1, 2)
         v = qkv[..., (h + hkv) * d:].reshape(b, l, hkv, d).transpose(1, 2)
@@ -192,7 +257,7 @@ class CausalSelfAttention(nn.Module):
     def _out(self, out, x):
         b, l, _ = x.shape
         out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
-        return _linear(self.proj, out)
+        return self._dense("proj", out)
 
     def forward(self, x, positions, prefill=False, segments=None):
         """Causal attention over x [b, l, e]; positions [l], or [b, l]
@@ -304,13 +369,14 @@ class CausalSelfAttention(nn.Module):
 class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
                  use_rope=False, kv_cache_dtype="", window=0, sp_impl="ring",
-                 device=None):
+                 lora_rank=0, lora_alpha=16.0, device=None):
         super().__init__()
         self.ln_0 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(
             embed_dim, num_heads, head_dim, num_kv_heads=num_kv_heads,
             use_rope=use_rope, kv_cache_dtype=kv_cache_dtype, window=window,
-            sp_impl=sp_impl, device=device,
+            sp_impl=sp_impl, lora_rank=lora_rank, lora_alpha=lora_alpha,
+            device=device,
         )
         self.ln_1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.mlp_up = nn.Linear(embed_dim, 4 * embed_dim, device=device)
@@ -340,8 +406,8 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size=256, seq_len=128, embed_dim=128,
                  num_heads=4, num_layers=2, dtype=None, pos_emb="learned",
                  num_kv_heads=0, attn_window=0, fused_head=False, remat="",
-                 lora_rank=0, kv_cache_dtype="", sp_impl="ring",
-                 device="cuda", seed=0):
+                 lora_rank=0, lora_alpha=16.0, kv_cache_dtype="",
+                 sp_impl="ring", device="cuda", seed=0):
         super().__init__()
         if sp_impl not in SP_IMPLS:
             raise ValueError(
@@ -355,9 +421,11 @@ class TransformerLM(nn.Module):
                 "Unknown kv_cache_dtype %r (valid: '', 'int8')"
                 % (kv_cache_dtype,)
             )
-        for name, value in (("remat", remat), ("lora_rank", lora_rank)):
-            if value:
-                raise NotImplementedError("%s is not ported yet" % name)
+        if remat not in REMAT_MODES:
+            raise ValueError(
+                "Unknown remat %r (valid: '', 'full', 'dots')" % (remat,))
+        if lora_rank < 0:
+            raise ValueError("lora_rank must be >= 0, got %r" % (lora_rank,))
         if attn_window < 0:
             raise ValueError("attn_window must be >= 0, got %r"
                              % (attn_window,))
@@ -376,6 +444,9 @@ class TransformerLM(nn.Module):
         self.fused_head = bool(fused_head)
         self.kv_cache_dtype = kv_cache_dtype
         self.attn_window = int(attn_window)
+        self.remat = remat
+        self.lora_rank = int(lora_rank)
+        self.lora_alpha = float(lora_alpha)
         self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
         self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
                     if pos_emb == "learned" else None)
@@ -383,7 +454,8 @@ class TransformerLM(nn.Module):
             Block(embed_dim, num_heads, self.head_dim,
                   num_kv_heads=num_kv_heads, use_rope=pos_emb == "rope",
                   kv_cache_dtype=kv_cache_dtype, window=self.attn_window,
-                  sp_impl=sp_impl, device=device)
+                  sp_impl=sp_impl, lora_rank=self.lora_rank,
+                  lora_alpha=self.lora_alpha, device=device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -398,8 +470,9 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed):
         """Seeded init in the flax scheme: fan-in-scaled normal matmul
-        kernels (lecun), unit-variance-over-fan-in embeddings, zero
-        biases, unit LayerNorm scales."""
+        kernels (lecun) and LoRA A, zero LoRA B,
+        unit-variance-over-fan-in embeddings, zero biases, unit LayerNorm
+        scales."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
@@ -413,15 +486,25 @@ class TransformerLM(nn.Module):
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, CausalSelfAttention) and mod.lora_rank:
+                for name in ("qkv", "proj"):
+                    a = getattr(mod, name + "_lora_a")
+                    a.normal_(0.0, 1.0 / math.sqrt(a.shape[0]), generator=gen)
+                    getattr(mod, name + "_lora_b").zero_()
 
     @torch.no_grad()
     def use_compute_weights(self):
-        """Cast matmul and embedding weights to the compute dtype in
-        place (LayerNorm parameters stay fp32). Numerically the same as
-        the per-call cast flax does; returns self."""
+        """Cast matmul, adapter and embedding weights to the compute
+        dtype in place (LayerNorm parameters stay fp32). Numerically the
+        same as the per-call cast flax does; returns self."""
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
                 mod.to(self.dtype)
+            elif isinstance(mod, CausalSelfAttention) and mod.lora_rank:
+                for name in ("qkv", "proj"):
+                    for ab in ("_lora_a", "_lora_b"):
+                        p = getattr(mod, name + ab)
+                        p.data = p.data.to(self.dtype)
         return self
 
     def _embed(self, tokens, wpe_idx):
@@ -478,8 +561,12 @@ class TransformerLM(nn.Module):
             positions = wpe_idx = packed_positions(full)[
                 :, start:start + l].long()
         x = self._embed(tokens, wpe_idx)
+        remat = self.remat if torch.is_grad_enabled() else ""
         for blk in self.blocks:
-            x, _kv = blk(x, positions, segments=segments)
+            if remat:
+                x = _remat_block(blk, remat, x, positions, segments)
+            else:
+                x, _kv = blk(x, positions, segments=segments)
         if self.fused_head and training:
             return {"lm_hidden": _layer_norm(self.ln_f, x),
                     "lm_head_kernel": self.head.weight.t()}

@@ -39,6 +39,12 @@ evict_expired / kv_stats / set_params):
     proposal and reads it stale from then on; the port's first step
     rewrites it (a perfect draft then accepts all its budget allows).
 
+Weight-only int8 checkpoints (api/quantization): `set_params` dequantizes
+their int8 leaves once, at the load, and the engine serves float weights
+in the compute dtype, the JAX engines' default. Their in-jit variant
+(EDL_SERVING_FUSED_DEQUANT=1, the int8 weights dequantized inside every
+step) is not ported and raises.
+
 Only active slots run, and only their rows are written (the JAX engine
 runs every slot and drops the free lanes' writes). `set_params` swaps
 the weights between steps: the checkpoint's values are copied into the
@@ -70,7 +76,15 @@ from elasticdl_tpu_torch.api.generation import (
     serving_next_token,
     write_dense_rows,
 )
-from elasticdl_tpu_torch.checkpoint.saver import restore_params_from_flat
+from elasticdl_tpu_torch.api.quantization import (
+    dequantize_params,
+    is_quantized,
+)
+from elasticdl_tpu_torch.checkpoint.saver import (
+    params_tree_from_flat,
+    params_tree_leaves,
+    restore_params_from_flat,
+)
 from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     KV_CACHE_DTYPES,
     flax_param_path,
@@ -102,6 +116,25 @@ def prefill_budget_default():
         return float(os.environ.get("EDL_PREFILL_BUDGET_MS", "") or 8.0)
     except ValueError:
         return 8.0
+
+
+def float_weights(flat):
+    """A checkpoint's flat leaves with int8 weights dequantized, once:
+    what the engines serve (the `.params` leaves rebuilt as a tree,
+    dequantized and named again; the other leaves as they were). The
+    in-step dequantize of the JAX engines' EDL_SERVING_FUSED_DEQUANT=1
+    is not ported."""
+    tree = params_tree_from_flat(flat)
+    if not is_quantized(tree):
+        return flat
+    if os.environ.get("EDL_SERVING_FUSED_DEQUANT", "") not in ("", "0"):
+        raise NotImplementedError(
+            "EDL_SERVING_FUSED_DEQUANT=1 (int8 weights dequantized inside "
+            "each step) is not ported; unset it to serve the weights "
+            "dequantized once at load")
+    out = {k: v for k, v in flat.items() if not k.startswith(".params[")}
+    out.update(params_tree_leaves(dequantize_params(tree)))
+    return out
 
 
 def profile_default():
@@ -265,10 +298,11 @@ class ContinuousBatchingEngine(object):
         saver.load_checkpoint) are copied in place into the model's
         tensors, each cast to that tensor's dtype; parameters the
         checkpoint lacks keep their values. In-flight sequences keep
-        their caches, positions and pending tokens."""
+        their caches, positions and pending tokens. Int8 weights
+        (a quantized checkpoint) are dequantized here, once."""
         t0 = self._tick()
-        restore_params_from_flat(self.model, flax_param_path, flat,
-                                 strict=False)
+        restore_params_from_flat(self.model, flax_param_path,
+                                 float_weights(flat), strict=False)
         self.model_version = int(version)
         self._observe("reload_swap", t0)
 

@@ -27,7 +27,9 @@ adds the step profiler's phases to the status answer. With
 newer versions between decode steps, `--reload_poll_secs` apart (0 =
 never by itself). `--warmup_tokens` generates that many tokens before
 the first request is read. An int8 KV cache is a model parameter, as in
-the JAX package: `--model_params "...; kv_cache_dtype='int8'"`.
+the JAX package: `--model_params "...; kv_cache_dtype='int8'"`. A
+checkpoint of int8 weights (api/quantization) is served dequantized
+once at load.
 
     echo '{"prompt": [1, 2, 3], "max_new_tokens": 8}' | \\
     python -m elasticdl_tpu_torch.serving.main --device cuda \\
@@ -119,6 +121,7 @@ def build_model(args):
         custom_model,
         flax_param_path,
     )
+    from elasticdl_tpu_torch.serving.engine import float_weights
 
     kwargs = get_dict_from_params_str(args.model_params)
     model = custom_model(device=args.device, **kwargs)
@@ -126,8 +129,8 @@ def build_model(args):
     if args.checkpoint_dir:
         if get_latest_checkpoint_version(args.checkpoint_dir) >= 0:
             flat, version = load_checkpoint(args.checkpoint_dir)
-            restore_params_from_flat(model, flax_param_path, flat,
-                                     strict=False)
+            restore_params_from_flat(model, flax_param_path,
+                                     float_weights(flat), strict=False)
             logger.info("serving checkpoint version-%d", version)
         else:
             logger.warning("no checkpoint under %r yet; serving seeded "

@@ -117,9 +117,11 @@ class Worker(object):
         grad_accum_steps=1,
         retry_policy=None,
         device="cuda",
+        trainable_pattern=None,
     ):
         """Connect in-process (`master_servicer`) or over the transport
-        (`master_addr`)."""
+        (`master_addr`). `trainable_pattern` freezes what it does not
+        match, as the LocalExecutor's does (the Trainer's)."""
         if spmd:
             raise NotImplementedError(
                 "Worker: the SPMD lockstep loop (spmd=True) needs "
@@ -140,6 +142,7 @@ class Worker(object):
         self.trainer = Trainer(
             model_spec, model_params=model_params, seed=seed,
             grad_accum_steps=grad_accum_steps, device=device,
+            trainable_pattern=trainable_pattern,
         )
         if getattr(model_spec, "host_embeddings_fn", None) is not None:
             self.trainer.attach_host_embeddings(model_spec.host_embeddings_fn)

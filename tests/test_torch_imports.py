@@ -1,7 +1,8 @@
 """The port stands alone: elasticdl_tpu_torch and chip_smoke.py import
 neither JAX nor anything of the JAX package, nor grpc or protobuf
-(`google`: the control plane's wire format is written by hand), so they
-run on a machine that has none of them.
+(`google`: the control plane's wire format is written by hand), nor
+msgpack (the export format is written by hand too), so they run on a
+machine that has none of them.
 
 One check imports every port module and chip_smoke.py in a fresh
 interpreter and inspects the modules those imports loaded (not the ones
@@ -22,7 +23,8 @@ import elasticdl_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(elasticdl_tpu_torch.__file__)
 FORBIDDEN_TOPS = ("jax", "jaxlib", "flax", "optax", "orbax", "grpc",
-                  "google", "ml_dtypes", "elasticdl_tpu", "model_zoo")
+                  "google", "ml_dtypes", "msgpack", "elasticdl_tpu",
+                  "model_zoo")
 
 
 def _forbidden(name):
@@ -85,7 +87,15 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.worker.worker",
                      "elasticdl_tpu_torch.worker.main",
                      "elasticdl_tpu_torch.client.api",
-                     "elasticdl_tpu_torch.client.main"):
+                     "elasticdl_tpu_torch.client.main",
+                     "elasticdl_tpu_torch.api.finetune",
+                     "elasticdl_tpu_torch.api.quantization",
+                     "elasticdl_tpu_torch.api.exporter",
+                     "elasticdl_tpu_torch.api.distill",
+                     "elasticdl_tpu_torch.api.generation",
+                     "elasticdl_tpu_torch.api.callbacks",
+                     "elasticdl_tpu_torch.common.flax_msgpack",
+                     "elasticdl_tpu_torch.common.model_handler"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"

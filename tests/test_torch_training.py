@@ -255,9 +255,12 @@ def test_chunked_xent_matches_jax(s, num_chunks):
 
 
 def test_unported_options_raise():
-    for kwargs in ({"remat": "full"}, {"lora_rank": 4}):
-        with pytest.raises(NotImplementedError):
-            tzoo.custom_model(device="cpu", **dict(CFG, **kwargs))
+    # remat and lora_rank are ported (tests/test_torch_finetune_export.py);
+    # an unknown remat mode is refused as flax refuses it
+    for kwargs in ({"remat": "full"}, {"remat": "dots"}, {"lora_rank": 4}):
+        tzoo.custom_model(device="cpu", **dict(CFG, **kwargs))
+    with pytest.raises(ValueError, match="remat"):
+        tzoo.custom_model(device="cpu", **dict(CFG, remat="all"))
     # attn_window and segment_ids are ported
     # (tests/test_torch_packed_windowed.py)
     model = tzoo.custom_model(device="cpu", **dict(CFG, attn_window=8))
