@@ -11,7 +11,8 @@ repository checkout it sits in. Phases, each of which fails the run:
    paged_decode.cu, embedding_gather.cu, row_update.cu,
    optimizer_update.cu; one nvcc per source or part, all at once,
    flash_fwd.cu as five parts and flash_bwd.cu as nine, each linked into
-   one library), and print each flash_fwd and flash_bwd instance's
+   one library; the host tier's store, host_embedding.cc, with the host
+   C++ compiler beside them), and print each flash_fwd and flash_bwd instance's
    registers, spills and shared memory from ptxas's report (no
    tensor-core or backward instance may spill);
 3. kernel A (flash forward) against its plain PyTorch version at the
@@ -265,13 +266,36 @@ repository checkout it sits in. Phases, each of which fails the run:
    launched as its forwards and backwards do); speculative_generate
    with gamma 4 before and after distillation, each row's tokens equal
    to autoregressive_generate's greedy ones or leaving them at a
-   near-tie; acceptance and tokens/s against greedy.
+   near-tie; acceptance and tokens/s against greedy;
+26. the host-DRAM embedding tier and the DeepFM family at the zoo's
+   widths (embedding_dim 64, input_length 10, fc_unit 64, SGD 0.1), over
+   frappe-like records of vocabulary 5383 (gen_frappe_like, two record
+   dirs of 4 batches of 512): (1) deepfm_host_embedding through
+   LocalExecutor with the native store, 8 steps, E 2 launches a step
+   (one a table) and F none; deepfm_edl_embedding (dense tier) from the
+   same dense weights, its tables the host stores' initial rows: losses
+   and every touched row within HOST_LOSS_RTOL / HOST_LOSS_ATOL; the
+   same host-tier steps on the CPU within the same; (2) 4 steps with a
+   checkpoint holding the host leaves, a fresh executor resumed from it
+   for 4 more: losses, dense parameters and every host row equal to the
+   8 uninterrupted steps bit for bit; (3) the trained model exported
+   with its host rows and served by make_serving_fn on 256 held-out
+   rows: predictions equal to the executor's forward, the caller's
+   stores unchanged (row count and bytes); (4) the scale: 20 steps of
+   4096 rows of 10 ids uniform over [1, 10,000,000) in the host tier
+   (step p50 / p99 and its split: prepare, h2d, device, d2h, apply;
+   rows a step, store rows and bytes, device busy share), then the same
+   batches from the same weights and initial rows in the HBM sparse-row
+   tier (deepfm_edl_embedding at input_dim 10,000,000: a 2.56 GB table
+   and its 40 MB bias on the card, E and F 2 launches a step) with
+   losses within HOST_SCALE_LOSS_RTOL, and the host / HBM step ratio.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
 JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint`, a
-`serving_modes`, a `master_worker` and a `lifecycle` JSON line, each
-with its own
+`serving_modes`, a `master_worker`, a `lifecycle` and a
+`host_embedding` JSON line (whose E and F launches by run also ride the
+`kernels` line as `launches_host_embedding`), each with its own
 seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -279,6 +303,7 @@ fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
 
+import contextlib
 import hashlib
 import itertools
 import json
@@ -301,7 +326,12 @@ import torch.nn.functional as F
 
 from elasticdl_tpu_torch.api.callbacks import SavedModelExporter
 from elasticdl_tpu_torch.api.distill import distill_draft, warm_start_draft
-from elasticdl_tpu_torch.api.exporter import flax_tree, load_exported
+from elasticdl_tpu_torch.api.exporter import (
+    export_model,
+    flax_tree,
+    load_exported,
+    make_serving_fn,
+)
 from elasticdl_tpu_torch.api.finetune import merge_lora
 from elasticdl_tpu_torch.api.generation import (
     autoregressive_generate,
@@ -336,6 +366,7 @@ from elasticdl_tpu_torch.convert import (
     params_from_flax,
 )
 from elasticdl_tpu_torch.data import packing
+from elasticdl_tpu_torch.data import recordio_gen as port_recordio_gen
 from elasticdl_tpu_torch.common import job_status
 from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
 from elasticdl_tpu_torch.data.example_codec import encode_example
@@ -343,10 +374,14 @@ from elasticdl_tpu_torch.data.reader.recordio_reader import (
     RecordIODataReader,
 )
 from elasticdl_tpu_torch.data.record_format import RecordWriter, Scanner
+from elasticdl_tpu_torch.embedding import layer as embedding_layer
+from elasticdl_tpu_torch.embedding.host_bridge import attach_from_spec
 from elasticdl_tpu_torch.master.instance_manager import LocalInstanceManager
 from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.master.state_store import JobStateStore
 from elasticdl_tpu_torch.master.task_dispatcher import Task, TaskType
+from elasticdl_tpu_torch.model_zoo import deepfm_edl_embedding as dzoo_edl
+from elasticdl_tpu_torch.model_zoo import deepfm_host_embedding as thost
 from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm_packed as tpacked
@@ -354,6 +389,7 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     TransformerLM,
     kv_quantize_rows,
 )
+from elasticdl_tpu_torch.native.host_embedding import HostEmbeddingStore
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import attention as att
 from elasticdl_tpu_torch.ops import embedding_ops as eo
@@ -6201,6 +6237,594 @@ def lifecycle_phase(specs, job, workdir, device="cuda"):
     return out, launches
 
 
+# ------------------------------------------------- phase 26: host tier
+
+HOST_VOCAB = 5383  # frappe's vocabulary, the DeepFM zoo's input_dim
+HOST_BATCH = 512
+HOST_STEPS = 8  # 4 before the resume, 4 after
+HOST_HELD_OUT = 256
+HOST_SCALE_BATCH = 4096
+HOST_SCALE_IDS = 10_000_000  # ids uniform over [1, HOST_SCALE_IDS)
+HOST_SCALE_STEPS = 20
+HOST_SPLIT_STEPS = 5  # host-tier steps of their own for the split
+HOST_PROFILE_STEPS = 3
+# the Zipf stream's exponent: skewed ids whose rows recur across steps,
+# as CTR features do (the uniform stream has no reuse)
+HOST_ZIPF_A = 1.2
+HOST_SEED = 26
+# host tier against HBM tier and card against CPU, 8 steps: each sums
+# the row gradients in another order (tests/test_host_bridge.py's)
+HOST_LOSS_RTOL, HOST_LOSS_ATOL = 2e-4, 2e-5
+# the scale runs, 20 steps of 4096 rows apart in the same way
+HOST_SCALE_LOSS_RTOL = 1e-3
+# each touched row's change over the 20 steps (one SGD update of about
+# 1e-5 for most rows), host tier against HBM tier, max |err| / max
+# |change| per table: the two tiers sum each row's gradient in another
+# order and their dense towers drift apart as the losses do; a row F
+# left unmoved or a wrong row written is off by the whole change
+HOST_SCALE_ROW_CHANGE_TOL_REL = 1e-3
+HOST_KERNELS = ("embedding_gather", "embedding_gather_many", "row_update",
+                "row_update_many")
+HOST_TABLES = ("edl_embedding", "edl_id_bias")
+
+
+def _host_counts():
+    counts = all_launch_counts()
+    return {k: counts[k] for k in HOST_KERNELS}
+
+
+def _host_rows(manager):
+    """{table: (ids sorted, their rows)} of a manager's stores."""
+    out = {}
+    for name, t in manager.tables().items():
+        ids, values = t.engine.param.export_rows()
+        order = np.argsort(ids)
+        out[name] = (ids[order], values[order])
+    return out
+
+
+def _host_digest(manager):
+    """{table: (row count, sha256 of the sorted ids and rows)}."""
+    out = {}
+    for name, (ids, values) in _host_rows(manager).items():
+        h = hashlib.sha256(ids.tobytes())
+        h.update(values.tobytes())
+        out[name] = (int(ids.size), h.hexdigest())
+    return out
+
+
+def _host_executor(zoo, part, device, **kwargs):
+    return LocalExecutor(
+        load_model_spec_from_module(zoo), training_data=part,
+        minibatch_size=HOST_BATCH,
+        records_per_task=HOST_BATCH * HOST_STEPS // 2, device=device,
+        **kwargs)
+
+
+def _host_train(executor, parts):
+    """Train over each record dir in turn (one task of HOST_STEPS // 2
+    batches each); returns the losses."""
+    for part in parts:
+        executor.training_data = part
+        executor.train()
+    return list(executor.losses)
+
+
+def _rel_diff(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / (HOST_LOSS_ATOL / HOST_LOSS_RTOL
+                                         + np.abs(b))))
+
+
+def _check_close(what, got, want, rtol=HOST_LOSS_RTOL, atol=HOST_LOSS_ATOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    check(got.shape == want.shape and np.all(np.isfinite(got))
+          and np.allclose(got, want, rtol=rtol, atol=atol),
+          "%s: max abs difference %.3g over rtol %g / atol %g"
+          % (what, err, rtol, atol))
+    return err
+
+
+def _dense_sd(model):
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+
+
+def _init_rows(ids):
+    """The host stores' lazy initial rows of `ids` for both tables
+    (engines seeded 0, the zoo's dims)."""
+    dims = {n: c["dim"] for n, c in thost.host_embeddings().items()}
+    return {name: HostEmbeddingStore(dims[name], seed=0).lookup(ids)
+            for name in HOST_TABLES}
+
+
+def host_parity(parts, device):
+    """deepfm_host_embedding through LocalExecutor over `parts` on
+    `device`, deepfm_edl_embedding beside it from the same initial
+    weights and rows, and the host run again on the CPU."""
+    out, launches = {}, {}
+    ex = _host_executor(thost, parts[0], device)
+    init = _dense_sd(ex.trainer.model)
+    _sync(device)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    losses = _host_train(ex, parts)
+    _sync(device)
+    out["host_wall_s"] = time.perf_counter() - t0
+    launches["parity_host"] = _host_counts()
+    check(len(losses) == HOST_STEPS and all(map(math.isfinite, losses)),
+          "host-tier run: %s" % losses)
+    rows = _host_rows(ex.host_manager)
+    # the HBM tier: its tables hold the host stores' initial rows
+    hbm = _host_executor(dzoo_edl, parts[0], device)
+    tables = _init_rows(np.arange(HOST_VOCAB, dtype=np.int64))
+    hbm.state = hbm.trainer.init_state(None, params=dict(init, **{
+        "%s.embedding_table" % n: torch.from_numpy(tables[n])
+        for n in HOST_TABLES}))
+    check(not hbm.trainer._taps, "the frappe-width tables are tapped")
+    _sync(device)
+    reset_all_launch_counts()
+    hbm_losses = _host_train(hbm, parts)
+    _sync(device)
+    launches["parity_hbm"] = _host_counts()
+    out["losses_host"], out["losses_hbm"] = losses, hbm_losses
+    out["host_vs_hbm_loss_max_abs"] = _check_close(
+        "host-tier losses against the HBM tier's", losses, hbm_losses)
+    for name in HOST_TABLES:
+        ids, values = rows[name]
+        table = hbm.state.params["%s.embedding_table" % name]
+        out["host_vs_hbm_%s_max_abs" % name] = _check_close(
+            "%s rows, host tier against HBM tier" % name, values,
+            table.detach().cpu().numpy()[ids])
+    out["rows_touched"] = int(rows["edl_embedding"][0].size)
+    # the same host-tier steps on the CPU
+    if device == "cuda":
+        cpu = _host_executor(thost, parts[0], "cpu")
+        cpu.state = cpu.trainer.init_state(None, params=init)
+        cpu_losses = _host_train(cpu, parts)
+        out["cuda_vs_cpu_loss_max_abs"] = _check_close(
+            "host-tier losses, card against CPU", losses, cpu_losses)
+        cpu_rows = _host_rows(cpu.host_manager)
+        for name in HOST_TABLES:
+            check(np.array_equal(rows[name][0], cpu_rows[name][0]),
+                  "the card and the CPU made other %s rows" % name)
+            out["cuda_vs_cpu_%s_max_abs" % name] = _check_close(
+                "%s rows, card against CPU" % name, rows[name][1],
+                cpu_rows[name][1])
+        for key, p in ex.state.params.items():
+            _check_close("%s, card against CPU" % key,
+                         p.detach().cpu().numpy(),
+                         cpu.state.params[key].detach().numpy())
+    return ex, init, out, launches
+
+
+def host_resume(parts, reference, init, workdir, device):
+    """4 steps with a checkpoint, a fresh executor resumed from it for 4
+    more: equal bit for bit to `reference`'s 8 uninterrupted steps."""
+    ck = os.path.join(workdir, "host_ckpt")
+    first = _host_executor(thost, parts[0], device, checkpoint_dir=ck,
+                           checkpoint_steps=HOST_STEPS // 2)
+    check(all(torch.equal(p.detach().cpu(), init[k]) for k, p in
+              first.trainer.model.state_dict().items()),
+          "two executors seeded alike start from other dense weights")
+    losses = _host_train(first, parts[:1])
+    flat, version = load_checkpoint(ck)
+    host_keys = sorted(k for k in flat if k.startswith(".host_embeddings"))
+    check(version == HOST_STEPS // 2 and host_keys == sorted(
+        first.host_manager.flat_state()),
+          "the checkpoint (version %d) holds host leaves %s" % (
+              version, host_keys[:4]))
+    del first
+    second = _host_executor(thost, parts[1], device,
+                            checkpoint_dir_for_init=ck)
+    _sync(device)
+    t0 = time.perf_counter()
+    losses += _host_train(second, parts[1:])
+    _sync(device)
+    out = {"resumed_losses": losses, "checkpoint_version": version,
+           "checkpoint_host_leaves": len(host_keys),
+           "second_run_s": time.perf_counter() - t0}
+    check(losses == reference.losses,
+          "resumed losses %s, uninterrupted %s" % (losses, reference.losses))
+    for key, p in reference.state.params.items():
+        check(torch.equal(second.state.params[key], p),
+              "resumed %s differs from the uninterrupted run's" % key)
+    want, got = _host_rows(reference.host_manager), _host_rows(
+        second.host_manager)
+    for name in HOST_TABLES:
+        check(np.array_equal(got[name][0], want[name][0])
+              and np.array_equal(got[name][1], want[name][1]),
+              "resumed %s rows differ from the uninterrupted run's" % name)
+        check(second.host_manager.tables()[name].engine.state_dict()[
+            "step"] == HOST_STEPS, "%s engine step" % name)
+    out["resume_equal"] = "bit for bit: losses, dense parameters, host rows"
+    return out
+
+
+def host_export(executor, workdir, rng, device):
+    """Export the trained host-tier model with its rows, serve held-out
+    rows from it, hold the predictions to the executor's forward and the
+    caller's manager to its bytes."""
+    manager = executor.host_manager
+    path = os.path.join(workdir, "host_export")
+    before = _host_digest(manager)
+    t0 = time.perf_counter()
+    export_model(executor.trainer.model, executor.state, path,
+                 host_manager=manager)
+    export_s = time.perf_counter() - t0
+    payload, meta = load_exported(path)
+    serve = make_serving_fn(executor.trainer.model, payload,
+                            host_manager=manager)
+    held = {"feature": rng.randint(0, HOST_VOCAB, (HOST_HELD_OUT, 10)
+                                   ).astype(np.int32)}
+    served = serve(held)
+    _sync(device)
+    check(_host_digest(manager) == before,
+          "make_serving_fn moved the caller's host rows")
+    ref = executor.trainer.forward(executor.state, held)
+    diff = float((served["logits"] - ref["logits"]).abs().max())
+    check(diff == 0.0 and torch.equal(served["probs"], ref["probs"]),
+          "served logits differ from the executor's forward by %.3g" % diff)
+    return {"export_bytes": os.path.getsize(os.path.join(path,
+                                                         "params.msgpack")),
+            "export_s": export_s, "export_version": meta["version"],
+            "served_rows": HOST_HELD_OUT, "served_vs_forward_max_abs": diff,
+            "caller_rows_unchanged": {n: c for n, (c, _h) in before.items()}}
+
+
+def _scale_steps(trainer, state, batches, device):
+    """Each batch one train step, timed on the host clock to a
+    synchronized end, with nothing wrapped; (state, losses, ms, unique
+    rows a step of the host tier's table, or None)."""
+    losses, ms, uniq = [], [], []
+    manager = trainer.host_manager
+    for batch in batches:
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if manager:
+            uniq.append(int(manager.tables()["edl_embedding"]
+                            .last_unique.size))
+    return state, losses, ms, uniq or None
+
+
+def _step_summary(ms, uniq=None):
+    out = {"step_ms": ms, "step_p50_ms": float(np.percentile(ms, 50)),
+           "step_p99_ms": float(np.percentile(ms, 99)),
+           "samples_per_s": HOST_SCALE_BATCH / (np.percentile(ms, 50)
+                                                / 1e3)}
+    if uniq:
+        out["unique_rows_per_step"] = uniq
+        out["unique_rows_mean"] = float(np.mean(uniq))
+    return out
+
+
+def _split_steps(trainer, state, batches, device):
+    """The host tier's step split into prepare (unique + native lookup),
+    h2d (the prepared features to the device), device (forward and
+    backward, to an idle device), d2h (the row gradients to the host)
+    and apply (the native rule), in ms a step: steps of their own, whose
+    stages are wrapped here with a device synchronization at each edge
+    (the steps timed for the ratio run unwrapped)."""
+    manager, edges = trainer.host_manager, {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(device)
+            edges[name] = (t0, time.perf_counter())
+            return out
+        return run
+
+    def apply(grads, lr_scale=1.0):
+        _sync(device)
+        t0 = time.perf_counter()
+        grads = {k: v.detach().to("cpu") for k, v in grads.items()}
+        edges["d2h"] = (t0, time.perf_counter())
+        timed("apply", real_apply)(grads, lr_scale=lr_scale)
+
+    real_apply = manager.apply
+    manager.prepare = timed("prepare", manager.prepare)
+    trainer._features = timed("h2d", trainer._features)
+    manager.apply = apply
+    split = {k: [] for k in ("prepare", "h2d", "device", "d2h", "apply")}
+    try:
+        for batch in batches:
+            state, _ = trainer.train_step(state, batch)
+            for k, (a, b) in edges.items():
+                split[k].append((b - a) * 1e3)
+            split["device"].append((edges["d2h"][0] - edges["h2d"][1]) * 1e3)
+    finally:
+        for obj, attr in ((manager, "prepare"), (trainer, "_features"),
+                          (manager, "apply")):
+            delattr(obj, attr)  # the class's method again
+    return state, {k: float(np.percentile(v, 50)) for k, v in split.items()}
+
+
+@contextlib.contextmanager
+def _held_to_plain(errs):
+    """Within: every launch of E (through the embedding layer) and of F
+    (through sparse_update) that the path makes is held against its
+    plain version on the same inputs, F's on clones of its tables taken
+    before the launch. E must be equal; F within ROW_TOL_REL per table,
+    the rows its ids do not name bit-identical, and the rows they name
+    moved. `errs` collects {kernel: [max |err|, ...]}."""
+    real = (embedding_layer.embedding_gather,
+            embedding_layer.embedding_gather_many, eo.row_update_many)
+
+    def held(name, outs, refs):
+        for out, ref in zip(outs, refs):
+            errs.setdefault(name, []).append(
+                (out - ref).abs().max().item() if out.numel() else 0.0)
+            check(torch.equal(out, ref), "%s differs from its plain version "
+                  "at %s on the host-embedding path" % (name,
+                                                        tuple(out.shape)))
+
+    def gather(table, ids):
+        out = real[0](table, ids)
+        held("embedding_gather", [out], [eo.embedding_gather_plain(table,
+                                                                   ids)])
+        return out
+
+    def gather_many(tables, ids):
+        outs = real[1](tables, ids)
+        held("embedding_gather_many", outs,
+             eo.embedding_gather_many_plain(tables, ids))
+        return outs
+
+    def row_update_many(rule, groups, ids, grads, hypers):
+        plain = [[t.clone() for t in g] for g in groups]
+        named = [u[u >= 0].long() for u in ids]
+        before = [g[0][u].clone() for g, u in zip(groups, named)]
+        real[2](rule, groups, ids, grads, hypers)
+        eo.row_update_many_plain(rule, plain, ids, grads, hypers)
+        for group, ref, u, rows in zip(groups, plain, named, before):
+            untouched = torch.ones(group[0].shape[0], dtype=torch.bool,
+                                   device=group[0].device)
+            untouched[u] = False
+            for x, y in zip(group, ref):
+                diff = (x - y).abs()
+                err = diff.max().item()
+                rel = err / max(y.abs().max().item(), 1e-30)
+                errs.setdefault("row_update_many", []).append(err)
+                errs.setdefault("row_update_many_rel", []).append(rel)
+                check(rel <= ROW_TOL_REL and not bool(diff[untouched].any()),
+                      "row_update_many %s at %s on the host-embedding path: "
+                      "rel err %.3g against its plain version, or a row it "
+                      "was not given moved" % (rule, tuple(x.shape), rel))
+                del diff
+            moved = int((group[0][u] != rows).any(1).sum())
+            errs.setdefault("row_update_many_moved", []).append(
+                [moved, int(u.numel()), int(group[0].shape[1])])
+            check(moved > u.numel() // 2, "row_update_many moved %d of the "
+                  "%d rows it was given" % (moved, u.numel()))
+        del plain
+
+    embedding_layer.embedding_gather = gather
+    embedding_layer.embedding_gather_many = gather_many
+    eo.row_update_many = row_update_many
+    try:
+        yield errs
+    finally:
+        (embedding_layer.embedding_gather,
+         embedding_layer.embedding_gather_many, eo.row_update_many) = real
+
+
+def _scale_profile(trainer, state, batches, step_ms, device):
+    if device != "cuda":
+        return state, {}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    return state, device_summary(prof.key_averages(), len(batches), step_ms,
+                                 top=6)
+
+
+def _scale_ids(rng):
+    """{stream: [steps, batch, 10] ids in [1, HOST_SCALE_IDS)}: the
+    uniform stream (timed steps, then the host tier's split steps, one
+    checked step, the profiled steps) and the Zipf stream."""
+    n = HOST_SCALE_STEPS + HOST_SPLIT_STEPS + 1 + HOST_PROFILE_STEPS
+    uniform = rng.randint(1, HOST_SCALE_IDS, (n, HOST_SCALE_BATCH, 10))
+    zipf = rng.zipf(HOST_ZIPF_A, (HOST_SCALE_STEPS, HOST_SCALE_BATCH, 10))
+    zipf = (zipf - 1) % (HOST_SCALE_IDS - 1) + 1
+    return {"uniform": uniform.astype(np.int32),
+            "zipf": zipf.astype(np.int32)}
+
+
+def host_scale(rng, device):
+    """The tier's reason to exist: HOST_SCALE_STEPS steps of
+    HOST_SCALE_BATCH rows of 10 ids uniform over [1, HOST_SCALE_IDS)
+    (no reuse: the host tier's worst case), in the host tier and, on the
+    same batches from the same initial weights and rows, in the HBM
+    sparse-row tier, both timed unwrapped; the two tiers' losses and row
+    updates held to each other, then one step of each with its E and F
+    launches held to their plain versions, the host tier's split, a
+    profile, and HOST_SCALE_STEPS steps of a Zipf id stream in each."""
+    ids = _scale_ids(rng)
+    labels = rng.randint(0, 2, (len(ids["uniform"]), HOST_SCALE_BATCH)
+                         ).astype(np.int32)
+    batches = [({"feature": x}, y) for x, y in zip(ids["uniform"], labels)]
+    zipf = [({"feature": x}, y) for x, y in zip(ids["zipf"], labels)]
+    n, m = HOST_SCALE_STEPS, HOST_SCALE_STEPS + HOST_SPLIT_STEPS
+    timed, split_batches = batches[:n], batches[n:m]
+    checked, profiled = batches[m], batches[m + 1:]
+    out, launches = {"batch": HOST_SCALE_BATCH, "ids": HOST_SCALE_IDS,
+                     "steps": HOST_SCALE_STEPS, "zipf_a": HOST_ZIPF_A}, {}
+    errs = {}
+    # host tier
+    spec = load_model_spec_from_module(thost)
+    trainer = Trainer(spec, device=device)
+    manager = attach_from_spec(trainer, spec)
+    state = trainer.init_state(None)
+    init = _dense_sd(trainer.model)
+    reset_all_launch_counts()
+    state, host_losses, host_ms, uniq = _scale_steps(trainer, state, timed,
+                                                     device)
+    launches["scale_host"] = _host_counts()
+    host_rows = _host_rows(manager)
+    store_rows = {name: len(t.engine.param) for name, t in
+                  manager.tables().items()}
+    dims = {name: t.engine.dim for name, t in manager.tables().items()}
+    out["host"] = dict(_step_summary(host_ms, uniq), losses=host_losses,
+                       store_rows=store_rows,
+                       store_row_bytes={k: store_rows[k] * dims[k] * 4
+                                        for k in store_rows})
+    check(all(map(math.isfinite, host_losses)), "host scale losses")
+    state, out["host"]["split_p50_ms"] = _split_steps(
+        trainer, state, split_batches, device)
+    with _held_to_plain(errs):
+        state, _ = trainer.train_step(state, checked)
+    state, prof = _scale_profile(trainer, state, profiled,
+                                 out["host"]["step_p50_ms"], device)
+    out["host"].update(prof)
+    rows_before = len(manager.tables()["edl_embedding"].engine.param)
+    reset_all_launch_counts()
+    state, _, zipf_ms, zipf_uniq = _scale_steps(trainer, state, zipf,
+                                                device)
+    launches["scale_host_zipf"] = _host_counts()
+    rows_after = len(manager.tables()["edl_embedding"].engine.param)
+    out["host_zipf"] = dict(_step_summary(zipf_ms, zipf_uniq),
+                            store_rows_after=rows_after,
+                            new_rows_per_step=(rows_after - rows_before)
+                            / HOST_SCALE_STEPS)
+    del trainer, manager, state
+    # HBM sparse-row tier: a [HOST_SCALE_IDS, 64] table and its bias on
+    # the card, the rows the batches touch set to the host stores' initial
+    # rows, the dense tower to the host run's initial weights
+    spec = load_model_spec_from_module(dzoo_edl)
+    trainer = Trainer(spec, model_params="input_dim=%d" % HOST_SCALE_IDS,
+                      device=device)
+    check(sorted(trainer._tapped_tables()) == [
+        "edl_embedding.embedding_table", "edl_id_bias.embedding_table"],
+          "the HBM tables at %d ids are not both tapped" % HOST_SCALE_IDS)
+    touched = np.unique(ids["uniform"][:n])
+    rows = _init_rows(touched.astype(np.int64))
+    at = torch.as_tensor(touched, device=device).long()
+    with torch.no_grad():
+        for name in HOST_TABLES:
+            table = getattr(trainer.model, name).embedding_table
+            table.index_copy_(0, at, torch.from_numpy(rows[name]).to(device))
+        for key, value in init.items():
+            trainer.model.state_dict()[key].copy_(value)
+    state = trainer.init_state(None)
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    state, hbm_losses, hbm_ms, _ = _scale_steps(trainer, state, timed,
+                                                device)
+    launches["scale_hbm"] = _host_counts()
+    out["hbm"] = dict(_step_summary(hbm_ms), losses=hbm_losses, table_bytes=sum(
+        t.numel() * 4 for t in state.params.values()
+        if t.dim() == 2 and t.shape[0] == HOST_SCALE_IDS))
+    if device == "cuda":
+        out["hbm"]["peak_memory_bytes"] = int(
+            torch.cuda.max_memory_allocated())
+    out["host_vs_hbm_loss_max_abs"] = _check_close(
+        "scale losses, host tier against HBM tier", host_losses, hbm_losses,
+        rtol=HOST_SCALE_LOSS_RTOL)
+    # each touched row's change over the run, host tier against HBM tier
+    out["host_vs_hbm_row_change"] = {}
+    for name in HOST_TABLES:
+        host_ids, host_values = host_rows[name]
+        pos = np.searchsorted(host_ids, touched)
+        check(np.array_equal(host_ids[np.minimum(pos, host_ids.size - 1)],
+                             touched), "the host store lacks touched %s "
+              "rows" % name)
+        table = state.params["%s.embedding_table" % name]
+        hbm_change = table[at].detach().cpu().numpy() - rows[name]
+        host_change = host_values[pos] - rows[name]
+        scale = float(np.abs(hbm_change).max())
+        rel = float(np.abs(host_change - hbm_change).max()) / max(scale,
+                                                                  1e-30)
+        moved = int(np.any(hbm_change != 0, axis=1).sum())
+        out["host_vs_hbm_row_change"][name] = {
+            "rows": int(touched.size), "rows_moved_hbm": moved,
+            "max_abs_change": scale, "max_rel_err": rel}
+        check(rel <= HOST_SCALE_ROW_CHANGE_TOL_REL
+              and moved > touched.size // 2,
+              "%s: the HBM tier moved %d of %d touched rows, %.3g apart "
+              "from the host tier's change (max %.3g)" % (
+                  name, moved, touched.size, rel, scale))
+    with _held_to_plain(errs):
+        state, _ = trainer.train_step(state, checked)
+    out["held_to_plain"] = errs
+    check(len(errs.get("embedding_gather", ())) == 2
+          and len(errs.get("embedding_gather_many", ())) == 2
+          and len(errs.get("row_update_many_moved", ())) == 2,
+          "the checked steps' E and F launches: %s" % {
+              k: len(v) for k, v in errs.items()})
+    state, prof = _scale_profile(trainer, state, profiled,
+                                 out["hbm"]["step_p50_ms"], device)
+    out["hbm"].update(prof)
+    reset_all_launch_counts()
+    state, _, zipf_ms, _ = _scale_steps(trainer, state, zipf, device)
+    launches["scale_hbm_zipf"] = _host_counts()
+    out["hbm_zipf"] = _step_summary(zipf_ms)
+    out["host_over_hbm_step_p50"] = (out["host"]["step_p50_ms"]
+                                     / out["hbm"]["step_p50_ms"])
+    out["host_over_hbm_step_p50_zipf"] = (out["host_zipf"]["step_p50_ms"]
+                                          / out["hbm_zipf"]["step_p50_ms"])
+    del trainer, state
+    return out, launches
+
+
+def host_embedding_phase(rng, workdir, device="cuda"):
+    """Phase 26: the host-DRAM embedding tier and the DeepFM family (see
+    the module docstring). Returns the `host_embedding` line and the E
+    and F launches of each of its runs."""
+    parts = []
+    for i in range(2):
+        part = os.path.join(workdir, "frappe_%d" % i)
+        port_recordio_gen.gen_frappe_like(
+            part, num_files=1, records_per_file=HOST_BATCH * HOST_STEPS // 2,
+            input_dim=HOST_VOCAB, seed=HOST_SEED + i)
+        parts.append(part)
+    out = {"model": "deepfm_host_embedding: embedding_dim 64, input_length "
+                    "10, fc_unit 64, SGD 0.1; vocab %d, minibatch %d, %d "
+                    "steps" % (HOST_VOCAB, HOST_BATCH, HOST_STEPS)}
+    executor, init, out["parity"], launches = host_parity(parts, device)
+    out["resume"] = host_resume(parts, executor, init, workdir, device)
+    out["export"] = host_export(executor, workdir, rng, device)
+    del executor
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["scale"], scale_launches = host_scale(rng, device)
+    launches.update(scale_launches)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        per_step = 2 * HOST_STEPS  # one gather a table a step
+        check(launches["parity_host"]["embedding_gather"] == per_step
+              and launches["parity_host"]["row_update_many"] == 0,
+              "host-tier run launched %s" % launches["parity_host"])
+        check(launches["parity_hbm"]["embedding_gather"] == per_step,
+              "HBM-tier run launched %s" % launches["parity_hbm"])
+        for run in ("scale_host", "scale_host_zipf"):
+            check(launches[run]["embedding_gather"] == 2 * HOST_SCALE_STEPS
+                  and launches[run]["row_update_many"] == 0,
+                  "host %s run launched %s" % (run, launches[run]))
+        for run in ("scale_hbm", "scale_hbm_zipf"):
+            check(launches[run]["embedding_gather_many"]
+                  == 2 * HOST_SCALE_STEPS
+                  and launches[run]["row_update_many"]
+                  == 2 * HOST_SCALE_STEPS,
+                  "HBM %s run launched %s" % (run, launches[run]))
+    out["launches"] = launches
+    log("host_embedding: %s" % json.dumps({k: out[k] for k in (
+        "parity", "resume", "export")})[:3000])
+    return out, launches
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -6410,6 +7034,13 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         serving_modes = serving_modes_phase(specs, int8_streams, workdir)
     torch.cuda.empty_cache()
+    # phase 26 draws from its own generator, so every earlier phase sees
+    # the data it saw before it was added
+    laps.to("host_embedding")
+    with tempfile.TemporaryDirectory() as workdir:
+        host_embedding, host_launches = host_embedding_phase(
+            np.random.RandomState(HOST_SEED), workdir)
+    torch.cuda.empty_cache()
     verify_entry = time_verify_tile({"paged_decode": serving_modes[
         "speculative_self_draft"]["launches"]["paged_split"]})
     laps.to("kernels")
@@ -6525,12 +7156,26 @@ def main():
             "beam", "speculative_mismatched", "speculative_warm_start",
             "speculative_distilled")})
     kernels.append(verify_entry)
+    # phase 26's E and F launches, run by run, and the errors of its
+    # checked steps' launches against their plain versions (the kernels'
+    # timings are phase 13's)
+    held = host_embedding["scale"]["held_to_plain"]
+    for entry in kernels:
+        name = entry["name"]
+        if name in HOST_KERNELS:
+            entry["launches_host_embedding"] = {
+                run: counts[name] for run, counts in host_launches.items()}
+        if held.get(name):
+            entry["host_embedding_max_abs_err"] = max(held[name])
+            for key in ("max_abs_err", "max_err"):
+                if key in entry:
+                    entry[key] = max(entry[key], max(held[name]))
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
              "sp": sp, "checkpoint": checkpoint,
              "serving_modes": serving_modes, "master_worker": master_worker,
-             "lifecycle": lifecycle}
+             "lifecycle": lifecycle, "host_embedding": host_embedding}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -6552,6 +7197,7 @@ def main():
     print(json.dumps({"serving_modes": serving_modes}))
     print(json.dumps({"master_worker": master_worker}))
     print(json.dumps({"lifecycle": lifecycle}))
+    print(json.dumps({"host_embedding": host_embedding}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,6 +5,7 @@
   TRAIN_END_CALLBACK task; with `merge_lora=True` a LoRA model's
   adapters are folded into its kernels first (api/finetune.merge_lora),
   so the artifact is the plain dense model a `lora_rank=0` model loads;
+  a host-tier model's artifact carries its host tables' rows;
 * `CallbackList` holds the callbacks the TaskDispatcher calls on each
   completed task (`on_task_end`);
 * `MaxStepsStopping(max_steps, minibatch_size)` counts the steps of
@@ -61,7 +62,8 @@ class SavedModelExporter(Callback):
             merged = merge_lora(flax_tree(model, state.params),
                                 model=model)
             state = TrainState(state.step, merged, None)
-        path = export_model(model, state, self.export_dir)
+        path = export_model(model, state, self.export_dir,
+                            host_manager=worker.trainer.host_manager)
         logger.info("Exported trained model to %s", path)
 
 

@@ -18,8 +18,13 @@ checkpoints and exports of every zoo model. `make_serving_fn` turns
 (model, payload) into a features -> predictions callable on the
 model's device.
 
-The host-spill embedding tier (`host_manager`) is not ported: its
-branches raise.
+A model whose tables live in the host-spill tier (`host_manager`,
+embedding/host_bridge.py) carries their trained rows in the artifact
+too, as the JAX exporter writes them: `payload["host_embeddings"] =
+{table: {"ids": int64 [n], "values": float32 [n, dim]}}`. Serving such
+an export pulls its rows from a fresh clone of the caller's manager
+seeded with them, per batch, as training does; the caller's engines are
+never touched.
 """
 
 import copy
@@ -40,18 +45,12 @@ from elasticdl_tpu_torch.checkpoint.saver import (
     params_tree_from_flat,
 )
 from elasticdl_tpu_torch.common import flax_msgpack
+from elasticdl_tpu_torch.embedding.host_bridge import check_manager
 
 logger = logging.getLogger(__name__)
 
 PARAMS_FILE = "params.msgpack"
 META_FILE = "meta.json"
-
-
-def _no_host_tier(host_manager):
-    if host_manager is not None:
-        raise NotImplementedError(
-            "the host-spill embedding tier is not ported (ROADMAP Queue 1 "
-            "item 4)")
 
 
 def _host_tree(node):
@@ -84,11 +83,20 @@ def _num_params(tree):
 def export_model(model, state, export_dir, host_manager=None):
     """Write the export artifact of `state` (anything with `.params`, a
     port state dict or a flax-named tree such as `merge_lora`'s or
-    `quantize_params`' result, and `.step`). Returns the dir."""
-    _no_host_tier(host_manager)
+    `quantize_params`' result, and `.step`), with every host table's
+    rows when `host_manager` is given. Returns the dir."""
+    if host_manager is not None:
+        check_manager(host_manager)
     os.makedirs(export_dir, exist_ok=True)
     payload = {"params": _host_tree(flax_tree(model, state.params)),
                "model_state": {}}
+    if host_manager:
+        host = {}
+        for name, table in host_manager.tables().items():
+            ids, values = table.engine.param.export_rows()
+            host[name] = {"ids": np.asarray(ids, np.int64),
+                          "values": np.asarray(values, np.float32)}
+        payload["host_embeddings"] = host
     with open(os.path.join(export_dir, PARAMS_FILE), "wb") as f:
         flax_msgpack.write(f, payload)
     with open(os.path.join(export_dir, META_FILE), "w") as f:
@@ -102,15 +110,23 @@ def export_from_checkpoint(model, template_state, checkpoint_dir, export_dir,
                            host_manager=None):
     """Export the latest valid checkpoint under `checkpoint_dir`: its
     `.params` leaves and version, read without touching
-    `template_state` (the live state a caller trains keeps its
-    values)."""
-    _no_host_tier(host_manager)
+    `template_state` (the live state a caller trains keeps its values).
+    With `host_manager`, the host rows of the same version restore into
+    a fresh clone of it, never into the caller's engines, which a live
+    job keeps training."""
     del template_state
+    if host_manager is not None:
+        check_manager(host_manager)
     flat, version = load_checkpoint(checkpoint_dir)
     logger.info("Exporting checkpoint version %d", version)
     state = types.SimpleNamespace(params=params_tree_from_flat(flat),
                                   step=version)
-    return export_model(model, state, export_dir)
+    export_manager = None
+    if host_manager:
+        export_manager = host_manager.fresh_clone()
+        export_manager.load_flat_state(flat)
+    return export_model(model, state, export_dir,
+                        host_manager=export_manager)
 
 
 def load_exported(export_dir):
@@ -129,16 +145,44 @@ def make_serving_fn(model, payload, host_manager=None):
     """A features -> predictions callable over the exported weights: a
     copy of the port `model` (the caller's keeps its weights) holding
     the payload's params (int8 leaves dequantized once), run under
-    torch.inference_mode on the model's device."""
-    _no_host_tier(host_manager)
-    if payload.get("host_embeddings"):
-        raise NotImplementedError(
-            "the export carries host-resident tables; the host-spill tier "
-            "is not ported")
+    torch.inference_mode on the model's device.
+
+    An export with host tables (payload["host_embeddings"]) needs a
+    manager whose tables are the artifact's (build_manager_from_spec);
+    `serve` pulls each batch's rows from a fresh clone of it seeded
+    with the exported rows, so the caller's engines never move."""
+    if host_manager is not None:
+        check_manager(host_manager)
+    host_rows = payload.get("host_embeddings") or {}
+    if host_rows and host_manager is None:
+        raise ValueError(
+            "exported model carries host-resident tables %s; pass the "
+            "spec's HostEmbeddingManager (build_manager_from_spec)"
+            % sorted(host_rows))
+    if host_manager and not host_rows:
+        raise ValueError(
+            "manager declares host tables %s but the artifact carries "
+            "none; re-export with host_manager passed to export_model"
+            % sorted(host_manager.tables()))
+    if host_rows:
+        if set(host_manager.tables()) != set(host_rows):
+            # a table missing from the artifact would serve lazily
+            # initialised random rows
+            raise ValueError(
+                "host-table mismatch: artifact has %s, manager has %s"
+                % (sorted(host_rows), sorted(host_manager.tables())))
+        host_manager = host_manager.fresh_clone()
+        tables = host_manager.tables()
+        for name, rec in host_rows.items():
+            tables[name].engine.param.set_rows(
+                np.asarray(rec["ids"], np.int64),
+                np.asarray(rec["values"], np.float32))
     served = load_params(copy.deepcopy(model), payload["params"]).eval()
     served.requires_grad_(False)
 
     def serve(features):
+        if host_rows:
+            features = host_manager.prepare(dict(features))
         with torch.inference_mode():
             return served(features, training=False)
 

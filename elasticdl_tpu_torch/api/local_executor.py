@@ -19,6 +19,11 @@ Crash recovery, as in the JAX executor:
 * `fault_injector` (or EDL_FAULT_SPEC) intercepts the dispatch boundary
   (`local_get_task`, `local_report`) for drills.
 
+A spec that declares `host_embeddings()` trains its tables in the
+host-spill tier (embedding/host_bridge.py `attach_from_spec`, native
+stores): every checkpoint carries the engines' state beside the
+TrainState, and a restore reads both from one version.
+
 Checkpoints under an sp mesh are not ported (every rank is a process of
 its own; writing from many ranks comes with the rest of the parallel
 port) and raise.
@@ -28,15 +33,16 @@ import logging
 
 import numpy as np
 
-from elasticdl_tpu_torch.checkpoint.saver import (
-    CheckpointSaver,
-    restore_state_from_checkpoint,
-)
+from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.fault_injection import FaultInjector
 from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
 from elasticdl_tpu_torch.data.reader.recordio_reader import (
     RecordIODataReader,
+)
+from elasticdl_tpu_torch.embedding.host_bridge import (
+    attach_from_spec,
+    restore_with_host_state,
 )
 from elasticdl_tpu_torch.master.state_store import JobStateStore
 from elasticdl_tpu_torch.master.task_dispatcher import (
@@ -80,6 +86,7 @@ class LocalExecutor(object):
             grad_accum_steps=grad_accum_steps,
             trainable_pattern=trainable_pattern, device=device,
         )
+        self.host_manager = attach_from_spec(self.trainer, model_spec)
         self.state = None
         self.losses = []
         self._job_state_dir = job_state_dir
@@ -91,7 +98,9 @@ class LocalExecutor(object):
             self.checkpoint_saver = CheckpointSaver(
                 self.trainer, checkpoint_dir,
                 checkpoint_steps=checkpoint_steps,
-                keep_max_version=keep_checkpoint_max)
+                keep_max_version=keep_checkpoint_max,
+                extra_state_fn=(self.host_manager.flat_state
+                                if self.host_manager else None))
 
     def _reader(self, data_origin):
         return RecordIODataReader(data_dir=data_origin)
@@ -118,8 +127,9 @@ class LocalExecutor(object):
             return
         self.state = self.trainer.init_state(batch)
         if self._checkpoint_dir_for_init:
-            self.state, version = restore_state_from_checkpoint(
-                self.trainer, self.state, self._checkpoint_dir_for_init)
+            self.state, version = restore_with_host_state(
+                self.trainer, self.state, self.host_manager,
+                self._checkpoint_dir_for_init)
             self.restored_version = version
             logger.info("Restored model version %d from %s", version,
                         self._checkpoint_dir_for_init)

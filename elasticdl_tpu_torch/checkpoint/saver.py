@@ -45,6 +45,12 @@ optimizer slots, accumulation buffers and row slots: the torch optimizer
 keys its state by the Parameter object, so new tensors in their place
 would detach the slots.
 
+Leaves from `extra_state_fn` (the host-spill tier's
+`.host_embeddings[...]` leaves, embedding/host_bridge.py `flat_state`)
+ride shard 0 beside the state's; a load returns them with the rest,
+`restore_state_from_flat` leaves them to the manager's
+`load_flat_state`, and a restore without a manager ignores them.
+
 Not ported: the multi-host branch (every process writing its own
 shards), while the port runs one process a card.
 """

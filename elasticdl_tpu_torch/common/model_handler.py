@@ -40,7 +40,8 @@ class ModelHandler(object):
                             host_manager=None):
         """Write the export artifact: from the latest valid checkpoint
         under the handler's checkpoint_dir when there is one, else from
-        `state`. Returns the export dir."""
+        `state`; with `host_manager`, the host tables' rows of the same
+        version ride along. Returns the export dir."""
         from elasticdl_tpu_torch.api import exporter
         from elasticdl_tpu_torch.checkpoint.saver import (
             get_latest_checkpoint_version,

@@ -24,6 +24,17 @@ an optax adamw state (count, mu, nu) into the port's Trainer.
 model_zoo/dlrm/dlrm.py:
 `table_t/embedding_table` -> `table_t.embedding_table`,
 `bottom_i|top_i/kernel` -> `.weight` transposed, `/bias` -> `.bias`.
+
+`deepfm_params_from_flax`, `deepfm_params_to_flax` and
+`deepfm_flax_param_path` do it for the three DeepFM zoo models
+(model_zoo/deepfm_edl_embedding, deepfm_functional_api and
+deepfm_host_embedding): `Dense_0|Dense_1/kernel` -> `.weight`
+transposed, `/bias` -> `.bias`; the `edl_embedding` / `edl_id_bias`
+tables (`/embedding_table`, the port's Embedding) and the `embedding` /
+`id_bias` tables (`/embedding`, flax nn.Embed, a torch nn.Embedding's
+`.weight`) as they are. The host tables of deepfm_host_embedding are no
+params: their engines' state carries across as `state_dict()` (ids,
+values, step), which both packages' engines share.
 """
 
 import re
@@ -253,3 +264,52 @@ def adam_state_from_optax(opt_state):
                 arr = np.asarray(slots[fkey], np.float32)
                 out[name][tkey] = torch.tensor(arr.T if transpose else arr)
     return out
+
+
+_DEEPFM_KEYS = {
+    "edl_embedding.embedding_table": "edl_embedding/embedding_table",
+    "edl_id_bias.embedding_table": "edl_id_bias/embedding_table",
+    "embedding.weight": "embedding/embedding",
+    "id_bias.weight": "id_bias/embedding",
+    "Dense_0.weight": "Dense_0/kernel",
+    "Dense_0.bias": "Dense_0/bias",
+    "Dense_1.weight": "Dense_1/kernel",
+    "Dense_1.bias": "Dense_1/bias",
+}
+_DEEPFM_TORCH = {v: k for k, v in _DEEPFM_KEYS.items()}
+
+
+def deepfm_flax_param_path(torch_key):
+    """The flax path of a port DeepFM parameter: "Dense_0.weight" ->
+    "Dense_0/kernel", "embedding.weight" -> "embedding/embedding"."""
+    try:
+        return _DEEPFM_KEYS[torch_key]
+    except KeyError:
+        raise KeyError("not a deepfm parameter: %r" % (torch_key,))
+
+
+def deepfm_params_from_flax(params):
+    """flax DeepFM params (nested or flat, numpy-convertible) -> a
+    state_dict of fp32 CPU tensors for the port's DeepFM models. Raises
+    KeyError on a param the port does not carry."""
+    flat = flatten_params(params) if not _is_flat(params) else dict(params)
+    sd = {}
+    for fkey, arr in flat.items():
+        if fkey not in _DEEPFM_TORCH:
+            raise KeyError("params the port does not carry: %r" % (fkey,))
+        arr = fp32_array(arr)
+        sd[_DEEPFM_TORCH[fkey]] = torch.tensor(
+            arr.T if fkey.endswith("/kernel") else arr)
+    return sd
+
+
+def deepfm_params_to_flax(state_dict):
+    """The inverse of `deepfm_params_from_flax`: a nested dict of fp32
+    numpy arrays in the flax layout, copies of the tensors."""
+    flat = {}
+    for tkey, t in state_dict.items():
+        fkey = deepfm_flax_param_path(tkey)
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        flat[fkey] = np.array(arr.T if fkey.endswith("/kernel") else arr,
+                              order="C")
+    return unflatten_params(flat)

@@ -22,9 +22,10 @@ Gradients take one of two tiers, as in the JAX package:
   (embedding/sparse_update.py) applies it. A second call of one tapped
   layer in one forward raises.
 * every other table: `EmbeddingGatherFunction`, whose forward is the
-  gather kernel and whose backward is a dense index_add_ into a zero
-  [vocab, dim] gradient (jnp.take's scatter-add backward); the masked
-  dense tier (embedding/sparse_optim.py) keeps untouched rows still.
+  gather kernel and whose backward is a dense scatter-add (index_put_
+  with accumulate, in a fixed order) into a zero [vocab, dim] gradient
+  (jnp.take's scatter-add backward); the masked dense tier
+  (embedding/sparse_optim.py) keeps untouched rows still.
 
 Ids outside [0, vocab) clamp into range (row 0 for padding, the last row
 past the end), as the TPU gather kernel clamps; the JAX layer's
@@ -96,7 +97,11 @@ def combine_gathered(gathered, ids, combiner="mean", weights=None):
 
 class EmbeddingGatherFunction(torch.autograd.Function):
     """table[clip(ids)] through the gather kernel; the table's gradient
-    is the dense scatter-add of the output gradient at the clamped ids."""
+    is the dense scatter-add of the output gradient at the clamped ids,
+    as index_put_ with accumulate: on the card it sorts the ids and sums
+    each row's contributions in one fixed order (index_add_'s atomic
+    adds would sum them in any order), so a step's gradient is the same
+    bit for bit on every run."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -110,7 +115,8 @@ class EmbeddingGatherFunction(torch.autograd.Function):
         rows = ids.reshape(-1).long().clamp(0, ctx.vocab - 1)
         dtable = torch.zeros((ctx.vocab, ctx.dim), dtype=grad.dtype,
                              device=grad.device)
-        dtable.index_add_(0, rows, grad.reshape(-1, ctx.dim))
+        dtable.index_put_((rows,), grad.reshape(-1, ctx.dim),
+                          accumulate=True)
         return dtable, None
 
 

@@ -7,9 +7,9 @@ The Embedding layer taps each large table (embedding/layer.py
 optimizer; after backward() it reads the taps (`tap_gradients`) and
 calls `apply_flat_row_updates`: per table, dedup the ids (summing the
 rows of repeated ids) and advance its update count, then one launch of
-the row-update kernel over every table (`row_update_many`, each table
-with its own hyperparameters) updates the tables and their slot tables
-in place with the optimizer's row rule. Under gradient accumulation the
+the row-update kernel over every table of one width (`row_update_many`,
+each table with its own hyperparameters) updates the tables and their
+slot tables in place with the optimizer's row rule. Under gradient accumulation the
 Trainer stages each microbatch's taps and applies their concatenation at
 the boundary; the JAX package's
 `apply_row_updates` (taps straight to updates) is that call on one
@@ -110,8 +110,10 @@ def apply_flat_row_updates(rule, tables, states, staged, multiplier_fn=None):
     gradient-accumulation cycle (the dedup sums repeats across them).
     `tables` and `states` are keyed by the same names. Each table's
     count advances and its schedule scale is read at its own count;
-    then one `row_update_many` updates them all."""
-    groups, ids, grads, hypers = [], [], [], []
+    then one `row_update_many` per table width updates them all (a DLRM
+    step's 26 tables share one; DeepFM's [V, 64] table and [V, 1] bias
+    take two)."""
+    by_dim = {}  # dim -> (groups, ids, grads, hypers)
     for name in sorted(staged):
         table, state = tables[name].detach(), states[name]
         flat, row_grads = staged[name]
@@ -121,8 +123,10 @@ def apply_flat_row_updates(rule, tables, states, staged, multiplier_fn=None):
         scale = 1.0 if multiplier_fn is None else float(
             multiplier_fn(state.count))
         state.count += 1
-        groups.append([table] + state.slots)
-        ids.append(uniq)
-        grads.append(summed)
-        hypers.append(rule.kernel_hyper(state.count, scale))
-    eo.row_update_many(rule.kind, groups, ids, grads, hypers)
+        group = by_dim.setdefault(table.shape[1], ([], [], [], []))
+        group[0].append([table] + state.slots)
+        group[1].append(uniq)
+        group[2].append(summed)
+        group[3].append(rule.kernel_hyper(state.count, scale))
+    for groups, ids, grads, hypers in by_dim.values():
+        eo.row_update_many(rule.kind, groups, ids, grads, hypers)

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ libraries.
 
 Each `csrc/<name>.cu` has a plain C interface (pointers, ints and the
 stream as arguments; the cudaError_t of the launch as the result), so it
@@ -13,6 +13,16 @@ starts one nvcc per source, all at once, and waits for them together. A
 source named in PARTS is compiled as several objects, one nvcc each with
 `-DEDL_PART=<i>` (each holding a share of its kernel instances), all
 started with the rest, and linked into its one library.
+
+A source named in HOST_SOURCES (`csrc/<name>.cc`: the host-DRAM
+embedding store) is host C++, built the same way with the host compiler
+(`c++ -O3 -shared -fPIC`, $CXX overrides the compiler) under the same
+kind of hashed name. It needs no CUDA toolkit, so it builds on a machine
+without one too.
+
+Every build writes a file of its own (the process id in its name) and
+renames it into place, so processes that build one library at once
+never load a half-written file.
 """
 
 import ctypes
@@ -28,6 +38,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "embedding_gather",
            "row_update", "optimizer_update")
+HOST_SOURCES = ("host_embedding",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +48,7 @@ NVCC_FLAGS = (
 # (pass, head dim, output dtype) each, csrc/flash_fwd.cu one (head dim,
 # causal) each; csrc/paged_decode.cu one arena dtype each)
 PARTS = {"flash_bwd": 9, "flash_fwd": 5, "paged_decode": 3}
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs = {}
@@ -56,28 +68,42 @@ def nvcc_path():
     return path
 
 
+def cxx_path():
+    found = shutil.which(os.environ.get("CXX") or "c++")
+    if not found:
+        raise RuntimeError(
+            "no host C++ compiler ($CXX or c++ on PATH); the port's host "
+            "libraries are built from csrc/ at first use")
+    return found
+
+
 def library_path(name):
     digest = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for fname in [name + ".cu"] + headers:
+    if name in HOST_SOURCES:
+        sources, flags = [name + ".cc"], CXX_FLAGS
+    else:
+        headers = sorted(f for f in os.listdir(CSRC_DIR)
+                         if f.endswith(".cuh"))
+        sources, flags = [name + ".cu"] + headers, NVCC_FLAGS
+    for fname in sources:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     digest.update(b"parts %d" % PARTS.get(name, 0))
     return os.path.join(
         BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:16])
     )
 
 
-def build(names=SOURCES):
-    """Compile every named source whose library is missing, one nvcc
+def build(names=SOURCES + HOST_SOURCES):
+    """Compile every named source whose library is missing, one compiler
     process per source (per part for a source in PARTS), all started
-    together. Returns {name: {"seconds": s, "log": nvcc's output
-    (ptxas register, spill and shared-memory report)}}; a library
-    already built reports 0 seconds. Raises RuntimeError with nvcc's
-    output when a build fails."""
+    together: nvcc for a CUDA source, the host compiler for one of
+    HOST_SOURCES. Returns {name: {"seconds": s, "log": the compiler's
+    output (for nvcc, ptxas's register, spill and shared-memory
+    report)}}; a library already built reports 0 seconds. Raises
+    RuntimeError with the compiler's output when a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = nvcc_path()
     jobs = {}  # name -> [(process, output file)]
     report = {}
     t0 = time.perf_counter()
@@ -86,16 +112,22 @@ def build(names=SOURCES):
         if os.path.exists(target):
             report[name] = {"seconds": 0.0, "log": ""}
             continue
-        src = os.path.join(CSRC_DIR, name + ".cu")
         stem = "%s.%d" % (target, os.getpid())
-        if name in PARTS:
+        if name in HOST_SOURCES:
+            src = os.path.join(CSRC_DIR, name + ".cc")
+            cmds = [([cxx_path(), *CXX_FLAGS, "-o", stem + ".tmp", src],
+                     stem + ".tmp")]
+        elif name in PARTS:
+            src = os.path.join(CSRC_DIR, name + ".cu")
+            nvcc = nvcc_path()
             cmds = [([nvcc, *NVCC_FLAGS, "-c", "-DEDL_PART=%d" % i, "-o",
                       "%s.part%d.o" % (stem, i), src],
                      "%s.part%d.o" % (stem, i))
                     for i in range(PARTS[name])]
         else:
-            cmds = [([nvcc, *NVCC_FLAGS, "-shared", "-o", stem + ".tmp",
-                      src], stem + ".tmp")]
+            src = os.path.join(CSRC_DIR, name + ".cu")
+            cmds = [([nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
+                      stem + ".tmp", src], stem + ".tmp")]
         jobs[name] = [(subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             out) for cmd, out in cmds]
@@ -114,6 +146,7 @@ def build(names=SOURCES):
             continue
         target = library_path(name)
         if name in PARTS:
+            nvcc = nvcc_path()
             lib_tmp = outs[0].rsplit(".part", 1)[0] + ".tmp"
             link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *outs],
                                   capture_output=True, text=True)
@@ -128,12 +161,13 @@ def build(names=SOURCES):
         report[name] = {"seconds": time.perf_counter() - t0,
                         "log": "".join(logs)}
     if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        raise RuntimeError("the build failed for " + "\n".join(failures))
     return report
 
 
 def load(name):
-    """The ctypes handle of kernel library `name`, built on first use."""
+    """The ctypes handle of library `name` (a kernel's, or one of
+    HOST_SOURCES), built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

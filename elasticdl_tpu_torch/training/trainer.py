@@ -58,8 +58,22 @@ gradients are summed over the sp ranks, so every rank applies the same
 update and the parameters stay identical across ranks. The row tier
 does not run under sp.
 
-The host-spill embedding tier, meshes with axes other than sp (SPMD)
-and the `*_assembled` entry points are not ported yet and raise.
+The host-spill tier (`attach_host_embeddings`, before the first step;
+embedding/host_bridge.py): `train_step` and `forward` pull each batch's
+unique rows of the host tables on the host (`manager.prepare`), the
+rows go to the device as one leaf tensor per table that requires grad,
+and after backward() each leaf's `.grad` is the per-row gradient the
+native engines apply (`manager.apply`, with the learning-rate
+schedule's multiplier at the update count, as the JAX Trainer scales
+the host tier). Under accumulation each microbatch stages its row
+gradients / k and the boundary applies the cycle (`stage` /
+`apply_staged`). A failed apply or stage is not retried: the rows miss
+that update, and `tier_health` counts the failed cycles and dropped row
+updates. The tier does not run under sp, nor with a `trainable_pattern`
+(the engines would train the tables anyway).
+
+Meshes with axes other than sp (SPMD) and the `*_assembled` entry
+points are not ported yet and raise.
 """
 
 import contextlib
@@ -73,6 +87,7 @@ import torch
 from elasticdl_tpu_torch.api.callbacks import LearningRateScheduler
 from elasticdl_tpu_torch.common.prng import state_rng
 from elasticdl_tpu_torch.embedding import sparse_update
+from elasticdl_tpu_torch.embedding.host_bridge import check_manager
 from elasticdl_tpu_torch.embedding.layer import (
     EMBEDDING_PARAM_NAME,
     Embedding,
@@ -180,6 +195,97 @@ class Trainer(object):
             logger.warning(
                 "loss() takes no sample_weights arg: padded rows of partial "
                 "final batches will enter the loss unmasked")
+        self._host_manager = None
+        self._ran = False
+        # the host tier's health: a failed apply or stage drops those
+        # rows' update (no retry); cumulative for the Trainer's lifetime,
+        # the worker forwards them to the master as tier/ counters
+        self.tier_health = {"host_failed_cycles": 0,
+                            "host_dropped_row_updates": 0}
+
+    # ------------------------------------------------------- host bridge
+
+    def attach_host_embeddings(self, manager):
+        """Register a HostEmbeddingManager (embedding/host_bridge.py),
+        before the first step or forward."""
+        check_manager(manager)
+        if self._ran:
+            raise RuntimeError(
+                "attach_host_embeddings must precede the first step")
+        if self._sp() > 1:
+            raise NotImplementedError(
+                "the host-spill tier does not run under an sp mesh")
+        self._host_manager = manager
+        return self
+
+    @property
+    def host_manager(self):
+        return self._host_manager
+
+    def _host_prepare(self, features):
+        if self._host_manager:
+            return self._host_manager.prepare(features)
+        return features
+
+    def _host_lr_scale(self, pre_step):
+        """The schedule's multiplier at the update count (the macro step
+        under accumulation), as the JAX Trainer scales the host tier.
+        Read before the step, so a schedule that raises fails while the
+        batch can still be retried."""
+        if self._lr_multiplier_fn is None:
+            return 1.0
+        return float(self._lr_multiplier_fn(pre_step
+                                            // self.grad_accum_steps))
+
+    def _host_post_step(self, pre_step, host_grads, scale):
+        """Apply (k = 1) or stage the host tier's row gradients; the
+        boundary of an accumulation cycle applies the staged cycle. A
+        failure is logged and counted, never raised: the dense update
+        has been applied, so a retry would apply it twice."""
+        manager, k = self._host_manager, self.grad_accum_steps
+        if k == 1:
+            at_risk = self._host_rows_at_risk(staged=False)
+            try:
+                manager.apply(host_grads, lr_scale=scale)
+            except Exception:
+                self._count_dropped_host_rows(at_risk)
+                logger.exception("host-embedding apply failed; affected "
+                                 "rows miss this update (no retry)")
+            return
+        try:
+            manager.stage(host_grads, weight=1.0 / k)
+        except Exception:
+            self._count_dropped_host_rows(
+                self._host_rows_at_risk(staged=False))
+            logger.exception("host-embedding stage failed; this "
+                             "microbatch's rows miss the cycle (no retry)")
+        if pre_step % k == k - 1:
+            at_risk = self._host_rows_at_risk(pending=False)
+            try:
+                manager.apply_staged(lr_scale=scale)
+            except Exception:
+                self._count_dropped_host_rows(at_risk)
+                logger.exception("host-embedding apply_staged failed; the "
+                                 "staged cycle's rows miss this update (no "
+                                 "retry)")
+
+    def _host_rows_at_risk(self, pending=True, staged=True):
+        """Row updates a failure would drop: the current microbatch's
+        pulled rows (`pending`) and/or the accumulation buffer
+        (`staged`). Never raises (it feeds exception handlers)."""
+        try:
+            rows = 0
+            if pending:
+                rows += self._host_manager.pending_row_count()
+            if staged:
+                rows += self._host_manager.staged_row_count()
+            return rows
+        except Exception:
+            return 0
+
+    def _count_dropped_host_rows(self, rows):
+        self.tier_health["host_failed_cycles"] += 1
+        self.tier_health["host_dropped_row_updates"] += int(rows)
 
     # ---------------------------------------------------------------- init
 
@@ -222,6 +328,11 @@ class Trainer(object):
         taps = self._tapped_tables()
         train = self.train_names = self._trainable_names()
         escaped = sorted(n for n in taps if n not in train)
+        if self.trainable_pattern and self._host_manager is not None:
+            raise NotImplementedError(
+                "trainable_pattern freezes the dense optimizer path only; "
+                "host-spill tables run their own update engines. Disable "
+                "the tier (no host_embeddings) for fine-tuning.")
         if escaped:
             raise NotImplementedError(
                 "trainable_pattern freezes the dense optimizer path only; "
@@ -345,15 +456,26 @@ class Trainer(object):
         parameter's `.grad` holds the gradient the optimizer consumed
         (the accumulated mean at a boundary) or, between boundaries,
         this microbatch's gradient."""
+        self._ran = True
         features, labels = _split_label(batch)
         weights = _make_weights(_leading_dim(features), true_count)
         opt = state.opt_state
         opt.optimizer.zero_grad(set_to_none=True)
+        pre_step = state.step
+        host = self._host_manager
+        if host:
+            scale = self._host_lr_scale(pre_step)
+            features = host.prepare(features)
         sp = self._sp()
         if sp > 1:
             features, length = self._sp_slice(features)
+        features = self._features(features)
+        host_rows = {}
+        if host:
+            for key in host.rows_keys():
+                host_rows[key] = features[key].requires_grad_()
         with row_tap(self._taps) as records, self._mesh_scope():
-            preds = self.model(self._features(features), training=True)
+            preds = self.model(features, training=True)
         labels, weights = self._tensor(labels), self._tensor(weights)
         trainable = opt.trainable()
         if sp > 1:
@@ -370,6 +492,11 @@ class Trainer(object):
         rows = sparse_update.tap_gradients(records)
         state.step += 1
         k = self.grad_accum_steps
+        if host:
+            host_grads = {key: r.grad if r.grad is not None
+                          else torch.zeros_like(r)
+                          for key, r in host_rows.items()}
+            self._host_post_step(pre_step, host_grads, scale)
         if k > 1:
             if not opt.accum:
                 opt.accum = [torch.zeros_like(p) for p in trainable]
@@ -408,6 +535,8 @@ class Trainer(object):
         """Inference forward (evaluation / prediction) under no_grad;
         under an sp mesh, the logits of the whole sequence."""
         del state
+        self._ran = True
+        features = self._host_prepare(features)
         sp = self._sp()
         if sp > 1:
             features, _length = self._sp_slice(features)
@@ -437,10 +566,6 @@ class Trainer(object):
         return preds, labels
 
     # ------------------------------------------------- not ported (raise)
-
-    def attach_host_embeddings(self, manager):
-        raise NotImplementedError(
-            "Trainer: the host-spill embedding tier is not ported")
 
     def train_step_assembled(self, state, features, labels, weights):
         raise NotImplementedError(

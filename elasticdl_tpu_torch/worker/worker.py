@@ -31,8 +31,12 @@ Several workers do not train one model. Outside SPMD each worker trains
 its own state from the tasks it pulls, as the JAX package's workers do;
 gradients are combined only in the SPMD lockstep loop (`spmd=True`),
 which needs parallel/spmd.py and raises here until that is ported. A
-spec with a host-spill tier raises, as the port's Trainer does. The
-Task's trace fields are left empty: tracing is not ported.
+spec that declares `host_embeddings()` trains its tables in the
+host-spill tier (embedding/host_bridge.py `attach_from_spec`); its
+checkpoints carry the engines' state and a restore reads both tiers from
+one version, and every task report carries the Trainer's `tier_health`
+counters as `tier/` exec counters once one is non-zero. The Task's
+trace fields are left empty: tracing is not ported.
 
 `timeline` holds the wall-clock times (time.time()) at which the worker
 was built (its Trainer and model on the device), first registered,
@@ -49,10 +53,7 @@ import traceback
 
 import numpy as np
 
-from elasticdl_tpu_torch.checkpoint.saver import (
-    CheckpointSaver,
-    restore_state_from_checkpoint,
-)
+from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
 from elasticdl_tpu_torch.common.constants import (
     MAX_MINIBATCH_RETRY_NUM,
     JobType,
@@ -67,6 +68,10 @@ from elasticdl_tpu_torch.common.retry import (
 from elasticdl_tpu_torch.common.tensor_utils import serialize_ndarray_dict
 from elasticdl_tpu_torch.common.timing_utils import Timing, cuda_sync
 from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
+from elasticdl_tpu_torch.embedding.host_bridge import (
+    attach_from_spec,
+    restore_with_host_state,
+)
 from elasticdl_tpu_torch.master.task_dispatcher import Task
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.proto.convert import task_type_from_pb
@@ -144,8 +149,7 @@ class Worker(object):
             grad_accum_steps=grad_accum_steps, device=device,
             trainable_pattern=trainable_pattern,
         )
-        if getattr(model_spec, "host_embeddings_fn", None) is not None:
-            self.trainer.attach_host_embeddings(model_spec.host_embeddings_fn)
+        self.host_manager = attach_from_spec(self.trainer, model_spec)
         self.state = None
         self._task_data_service = TaskDataService(
             self,
@@ -174,7 +178,9 @@ class Worker(object):
             self._checkpoint_saver = CheckpointSaver(
                 self.trainer, checkpoint_dir,
                 checkpoint_steps=checkpoint_steps,
-                keep_max_version=keep_checkpoint_max)
+                keep_max_version=keep_checkpoint_max,
+                extra_state_fn=(self.host_manager.flat_state
+                                if self.host_manager else None))
         self._checkpoint_dir_for_init = checkpoint_dir_for_init
         self.restored_version = None
         self.timeline = {"built": time.time()}
@@ -280,6 +286,10 @@ class Worker(object):
         )
         for k, v in (exec_counters or {}).items():
             req.exec_counters[k] = int(v)
+        # the host tier's cumulative drop counters, as tier/ gauges
+        if any(self.trainer.tier_health.values()):
+            for k, v in self.trainer.tier_health.items():
+                req.exec_counters["tier/" + k] = int(v)
         # the RPC-resilience counters ride every report
         if self.rpc_retry_count:
             req.exec_counters["fault/rpc_retries"] = self.rpc_retry_count
@@ -328,8 +338,9 @@ class Worker(object):
             return
         self.state = self.trainer.init_state(batch)
         if self._checkpoint_dir_for_init:
-            self.state, version = restore_state_from_checkpoint(
-                self.trainer, self.state, self._checkpoint_dir_for_init)
+            self.state, version = restore_with_host_state(
+                self.trainer, self.state, self.host_manager,
+                self._checkpoint_dir_for_init)
             self.restored_version = version
             logger.info("Restored model version %d from %s", version,
                         self._checkpoint_dir_for_init)
