@@ -288,14 +288,33 @@ repository checkout it sits in. Phases, each of which fails the run:
    batches from the same weights and initial rows in the HBM sparse-row
    tier (deepfm_edl_embedding at input_dim 10,000,000: a 2.56 GB table
    and its 40 MB bias on the card, E and F 2 launches a step) with
-   losses within HOST_SCALE_LOSS_RTOL, and the host / HBM step ratio.
+   losses within HOST_SCALE_LOSS_RTOL, and the host / HBM step ratio;
+27. the serving replica on the wire at the flagship width (bf16, seeded
+   weights, paged, block 16, prefix sharing, 8 slots): a port replica
+   with its transport on port 0 in this process; (1) the 16 requests,
+   one client thread each through ServingStub.generate_stream, admitted
+   in spec order while the scheduler waits on a held job (so they are
+   seated and batched as phase 7's in-process run's): every stream
+   equal to that run's token for token, A, B split and B tile launched
+   and no other serving variant, server_status over the wire equal to
+   the run (16 more completed and admitted, tokens_generated up by the
+   sum of max_new_tokens); (2) the 16 sent together, timed: tokens/s
+   against phase 7's in-process run, client TTFT p50 / p99; (3)
+   server_status round trips; (4) `python -m
+   elasticdl_tpu_torch.serving.main --device cuda --port 0` at the
+   flagship as a process: seconds to SERVING_READY, the first request
+   streamed and SIGTERM sent after its first chunk: the stream ends
+   with all its tokens (equal to the in-process run's, or leaving them
+   at a near-tie, since it decodes alone) and the process exits 0.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
 JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint`, a
-`serving_modes`, a `master_worker`, a `lifecycle` and a
+`serving_modes`, a `master_worker`, a `lifecycle`, a
 `host_embedding` JSON line (whose E and F launches by run also ride the
-`kernels` line as `launches_host_embedding`), each with its own
+`kernels` line as `launches_host_embedding`) and a `serving_wire` line
+(A's and B's launches on that path ride the `kernels` line as
+`launches_serving_wire`), each with its own
 seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -312,6 +331,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -390,6 +410,8 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     kv_quantize_rows,
 )
 from elasticdl_tpu_torch.native.host_embedding import HostEmbeddingStore
+from elasticdl_tpu_torch.proto import messages as wire_pb
+from elasticdl_tpu_torch.proto import service as wire_service
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import attention as att
 from elasticdl_tpu_torch.ops import embedding_ops as eo
@@ -6825,6 +6847,253 @@ def host_embedding_phase(rng, workdir, device="cuda"):
     return out, launches
 
 
+# ------------------------------------------------- the replica on the wire
+
+WIRE_STATUS_CALLS = 20  # server_status round trips timed
+WIRE_READY_SECS = 300  # the subprocess's start-up bound
+
+
+def _wire_streams(stub, specs, gate=None, timeout=600):
+    """One client thread a request, streaming `specs` over `stub`.
+    With `gate` = (admitted, release): thread i waits until `admitted()`
+    reached i before it sends, then the last one sets `release`, so the
+    requests are admitted in spec order. Returns each stream's tokens,
+    done chunk's version and client stamps (send, first chunk, end)."""
+    out = [None] * len(specs)
+
+    def run(i, prompt, new):
+        try:
+            if gate is not None:
+                admitted, _release = gate
+                deadline = time.monotonic() + timeout
+                while admitted() < i and time.monotonic() < deadline:
+                    time.sleep(0.0005)
+            t_send = time.perf_counter()
+            tokens, first, last = [], None, None
+            for chunk in stub.generate_stream(
+                    wire_pb.GenerateRequest(prompt=prompt,
+                                            max_new_tokens=new),
+                    timeout=timeout):
+                if first is None:
+                    first = time.perf_counter()
+                tokens.extend(chunk.tokens)
+                last = chunk
+            out[i] = dict(tokens=tokens, done=last.done,
+                          version=last.model_version, t_send=t_send,
+                          t_first=first, t_end=time.perf_counter())
+        except Exception as e:  # noqa: BLE001 - checked below
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, p, n), daemon=True)
+               for i, (p, n) in enumerate(specs)]
+    for t in threads:
+        t.start()
+    if gate is not None:
+        admitted, release = gate
+        deadline = time.monotonic() + timeout
+        while admitted() < len(specs) and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        release.set()
+    for t in threads:
+        t.join(timeout=timeout)
+        check(not t.is_alive(), "a wire client did not finish")
+    for i, r in enumerate(out):
+        check(isinstance(r, dict), "wire request %d failed: %r" % (i, r))
+        check(r["done"], "wire request %d ended without its done chunk" % i)
+    return out
+
+
+def _wire_entry(specs, ref_streams, device):
+    """`python -m elasticdl_tpu_torch.serving.main --port 0` at the
+    flagship as a process: seconds to SERVING_READY, one streamed
+    request against the in-process tokens, SIGTERM, exit 0."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("EDL_FAULT_SPEC", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
+           "--device", device, "--port", "0", "--model_params",
+           _params_str(FLAGSHIP), "--num_slots", "8", "--kv_paged", "1",
+           "--kv_block_size", "16"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    ready = threading.Event()
+
+    def read():
+        for line in iter(proc.stdout.readline, ""):
+            lines.append(line)
+            if line.startswith("SERVING_READY"):
+                ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        deadline = time.monotonic() + WIRE_READY_SECS
+        while not ready.wait(0.05):
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  "the serving entry never printed SERVING_READY (rc %s): %s"
+                  % (proc.poll(), "".join(lines)[-3000:]))
+        ready_s = time.perf_counter() - t0
+        port = int([l for l in lines if l.startswith("SERVING_READY")][0]
+                   .split("port=")[1])
+        stub = wire_service.ServingStub(wire_service.build_channel(
+            "localhost:%d" % port))
+        prompt, new = specs[0]
+        stream = iter(stub.generate_stream(wire_pb.GenerateRequest(
+            prompt=prompt, max_new_tokens=new), timeout=600))
+        chunks = [next(stream)]
+        proc.send_signal(signal.SIGTERM)  # mid-stream: it must drain
+        chunks.extend(stream)
+        tokens = [t for c in chunks for t in c.tokens]
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=30)
+        proc.stdout.close()
+    check(rc == 0, "the serving entry exited %s after SIGTERM: %s"
+          % (rc, "".join(lines)[-3000:]))
+    check(len(tokens) == new and chunks[-1].done,
+          "the entry's stream gave %d of %d tokens" % (len(tokens), new))
+    return dict(ready_s=ready_s, rc=rc, tokens=tokens,
+                stream_equal=tokens == ref_streams[0])
+
+
+def serving_wire_phase(specs, ref_streams, inproc_tokens_per_s,
+                       device="cuda"):
+    """Phase 27: the port's replica on its transport at the flagship
+    (paged, block 16, prefix sharing, 8 slots), in this process. (1)
+    The 16 requests, one client thread each through
+    ServingStub.generate_stream, admitted in spec order while the
+    scheduler waits, so each is seated and batched as the in-process
+    run's: every stream equal to the in-process run's, A and B launched,
+    server_status's counters equal to the run's. (2) The same 16 sent
+    together, timed: tokens/s against in-process, client TTFT. (3)
+    server_status round trips. (4) The entry as a process. A timed or
+    entry stream that leaves the in-process one must leave it at a
+    near-tie (near_tie_gaps)."""
+    on_card = device == "cuda"
+    model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+    server = GenerationServer(model, ServingConfig(
+        num_slots=8, queue_capacity=64, kv_paged=True, kv_block_size=16,
+        kv_shared=True, port=0)).start(transport=True)
+    stub = wire_service.ServingStub(wire_service.build_channel(
+        "localhost:%d" % server.port))
+    out = {"port": server.port}
+    try:
+        # warm the card outside the counts, as serve_flagship does
+        list(stub.generate_stream(wire_pb.GenerateRequest(
+            prompt=[1, 2, 3, 4], max_new_tokens=2), timeout=600))
+        status0 = stub.server_status(wire_pb.ServerStatusRequest(),
+                                     timeout=60)
+        # (1) the held pass: the scheduler runs a job that waits until
+        # the 16 are admitted
+        held, release = threading.Event(), threading.Event()
+
+        def hold_job():
+            held.set()
+            release.wait(600)
+
+        hold = threading.Thread(target=server.scheduler.submit_job,
+                                args=(hold_job, 620), daemon=True)
+        hold.start()
+        check(held.wait(60), "the scheduler did not take the hold job")
+        base = server.telemetry.counters["admitted"]
+        _sync(device)
+        att.reset_launch_counts()
+        held = _wire_streams(stub, specs, gate=(
+            lambda: server.telemetry.counters["admitted"] - base, release))
+        _sync(device)
+        launches = dict(att.KERNEL_LAUNCHES)
+        hold.join(timeout=60)
+        status1 = stub.server_status(wire_pb.ServerStatusRequest(),
+                                     timeout=60)
+        streams = [r["tokens"] for r in held]
+        for i, (got, ref) in enumerate(zip(streams, ref_streams)):
+            check(got == ref, "wire request %d: tokens differ from the "
+                  "in-process run's from position %s" % (
+                      i, _first_divergence(got, ref)))
+        new_total = sum(n for _p, n in specs)
+        check(status1.completed - status0.completed == len(specs)
+              and status1.tokens_generated - status0.tokens_generated
+              == new_total and status1.admitted - status0.admitted
+              == len(specs) and status1.rejected == status0.rejected,
+              "server_status after the wire run: %r then %r"
+              % (status0, status1))
+        check(all(r["version"] == 0 for r in held),
+              "a done chunk's model_version is not 0")
+        if on_card:
+            for name in SERVING_KERNELS:
+                check(launches[name] > 0, "kernel %s was not launched on "
+                      "the wire path" % name)
+            every = {n for kv in ("", "int8") for w in (0, 1)
+                     for n in serving_kernels(kv, w)}
+            for name in every - set(SERVING_KERNELS):
+                check(launches[name] == 0, "kernel %s was launched on the "
+                      "wire path" % name)
+        out["launches"] = {n: launches[n] for n in SERVING_KERNELS}
+        out["streams_equal_in_process"] = len(specs)
+        out["status"] = {k: getattr(status1, k) for k in (
+            "completed", "tokens_generated", "admitted", "rejected",
+            "prefix_hit_tokens", "cow_copies", "kv_blocks_total",
+            "kv_bytes_total", "max_active_slots", "ttft_p50_ms",
+            "ttft_p99_ms", "queue_wait_p50_ms")}
+        # (2) the timed pass: 16 clients at once
+        _sync(device)
+        t0 = time.perf_counter()
+        timed = _wire_streams(stub, specs)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        ttft = np.asarray([r["t_first"] - r["t_send"] for r in timed]) * 1e3
+        tokens = sum(len(r["tokens"]) for r in timed)
+        out["timed"] = {
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "in_process_tokens_per_s": inproc_tokens_per_s,
+            "wire_over_in_process": tokens / wall / inproc_tokens_per_s,
+            "client_ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "client_ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "streams_equal_in_process": sum(
+                r["tokens"] == ref for r, ref in zip(timed, ref_streams)),
+        }
+        timed_streams = [r["tokens"] for r in timed]
+        # (3) server_status round trips (host counters only)
+        rtt = []
+        for _ in range(WIRE_STATUS_CALLS):
+            t0 = time.perf_counter()
+            stub.server_status(wire_pb.ServerStatusRequest(), timeout=60)
+            rtt.append((time.perf_counter() - t0) * 1e3)
+        out["server_status_ms_p50"] = float(np.percentile(rtt, 50))
+        out["server_status_ms_max"] = float(max(rtt))
+    finally:
+        server.stop(drain=True, timeout=120)
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    del server
+    # the timed pass seats and batches as the clients arrive: a stream
+    # that leaves the in-process one must leave it at a near-tie
+    prompts = [p for p, _n in specs]
+    out["timed"]["near_tie"] = near_tie_gaps(
+        model, prompts, ref_streams, {"timed": timed_streams})["timed"]
+    # (4) the entry as a process
+    entry = _wire_entry(specs, ref_streams, device)
+    if not entry["stream_equal"]:
+        # one request alone decodes at batch 1, the in-process run at up
+        # to 8: a difference must be a near-tie there
+        entry["near_tie"] = near_tie_gaps(
+            model, prompts[:1], ref_streams[:1],
+            {"entry": [entry["tokens"]]})["entry"]
+    del entry["tokens"], model
+    if on_card:
+        torch.cuda.empty_cache()
+    out["entry"] = entry
+    log("serving_wire: %s" % json.dumps(out))
+    return out, launches
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -6928,7 +7197,8 @@ def main():
     ring_rotations = check_ring_rotations(gen_sp)
     laps.to("serving")
     specs = serving_specs(rng)
-    serving, launches = serve_flagship(specs)
+    bf16_streams = []
+    serving, launches = serve_flagship(specs, streams_out=bf16_streams)
     log("serving run launches: %s" % launches)
     int8_streams = []
     serving["int8"], int8_launches = serve_flagship(
@@ -7040,6 +7310,10 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         host_embedding, host_launches = host_embedding_phase(
             np.random.RandomState(HOST_SEED), workdir)
+    torch.cuda.empty_cache()
+    laps.to("serving_wire")
+    serving_wire, wire_launches = serving_wire_phase(
+        specs, bf16_streams, serving["tokens_per_s"])
     torch.cuda.empty_cache()
     verify_entry = time_verify_tile({"paged_decode": serving_modes[
         "speculative_self_draft"]["launches"]["paged_split"]})
@@ -7170,12 +7444,17 @@ def main():
             for key in ("max_abs_err", "max_err"):
                 if key in entry:
                     entry[key] = max(entry[key], max(held[name]))
+    # phase 27's launches of A and B through the replica's transport
+    for entry in kernels:
+        if entry["name"] in SERVING_KERNELS:
+            entry["launches_serving_wire"] = wire_launches[entry["name"]]
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
              "sp": sp, "checkpoint": checkpoint,
              "serving_modes": serving_modes, "master_worker": master_worker,
-             "lifecycle": lifecycle, "host_embedding": host_embedding}
+             "lifecycle": lifecycle, "host_embedding": host_embedding,
+             "serving_wire": serving_wire}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -7198,6 +7477,7 @@ def main():
     print(json.dumps({"master_worker": master_worker}))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"host_embedding": host_embedding}))
+    print(json.dumps({"serving_wire": serving_wire}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

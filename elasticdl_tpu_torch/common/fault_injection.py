@@ -27,8 +27,9 @@ Examples:
 
 The master's servicer is wrapped by `maybe_wrap_servicer` (the five
 Master methods, `get_task:drop:3`, `report_task_result:error:1` ...),
-and the local instance manager intercepts `worker_launch` /
-`worker_exit`.
+the serving replica's with `rpcs=SERVING_RPCS` (`generate:error:3`,
+`generate_stream:drop:1`, `server_status:delay:1:secs=2` ...), and the
+local instance manager intercepts `worker_launch` / `worker_exit`.
 
 The card's machine has no grpc, so a rejected call raises the port's
 `InjectedRpcError`, an `RpcError` of the port's transport
@@ -191,16 +192,43 @@ _SERVICER_RPCS = (
 )
 
 
+# The routing tier's surface (the router is not ported yet; its names
+# stay in SERVING_RPCS so one spec grammar covers both boundaries)
+ROUTER_RPCS = (
+    "router_generate",
+    "router_generate_stream",
+    "router_status",
+)
+
+# The serving front-end's RPC surface and intercept hooks, as the JAX
+# package names them; a servicer exposes only its own subset and the
+# wrapper skips the names it does not have. The port's replica serves
+# generate, generate_stream, server_status and reload_checkpoint.
+SERVING_RPCS = (
+    "generate",
+    "generate_stream",
+    "server_status",
+    "export_chain",
+    "transfer_chain",
+    "abort_transfer",
+    "disagg_handoff",
+    "reload_checkpoint",
+    "checkpoint_read",
+) + ROUTER_RPCS
+
+
 class FaultInjectingServicer(object):
     """Transparent servicer wrapper: the same RPC surface, with
     injector.intercept applied before and after each handler. Other
     attributes (get_model_version, the watchdog helpers ...) proxy
-    through; names the servicer does not implement are skipped."""
+    through. `rpcs` selects the intercepted surface (default: the
+    Master table; serving processes pass SERVING_RPCS); names the
+    servicer does not implement are skipped."""
 
-    def __init__(self, servicer, injector):
+    def __init__(self, servicer, injector, rpcs=_SERVICER_RPCS):
         self._servicer = servicer
         self._injector = injector
-        for name in _SERVICER_RPCS:
+        for name in rpcs:
             if hasattr(servicer, name):
                 setattr(self, name, self._wrap(name))
 
@@ -220,7 +248,7 @@ class FaultInjectingServicer(object):
         return getattr(self._servicer, name)
 
 
-def maybe_wrap_servicer(servicer, injector=None):
+def maybe_wrap_servicer(servicer, injector=None, rpcs=_SERVICER_RPCS):
     """Wrap when an injector is active (explicit or via EDL_FAULT_SPEC);
     otherwise return the servicer untouched."""
     injector = injector or FaultInjector.from_env()
@@ -231,4 +259,4 @@ def maybe_wrap_servicer(servicer, injector=None):
         type(servicer).__name__,
         [(r.rpc, r.action, r.count) for r in injector.rules],
     )
-    return FaultInjectingServicer(servicer, injector)
+    return FaultInjectingServicer(servicer, injector, rpcs=rpcs)

@@ -118,10 +118,10 @@ def _host_array(x):
 
 
 def check_manager(manager):
-    """Raise unless `manager` is the port's HostEmbeddingManager (a JAX
-    package manager, for one, has no port counterpart)."""
+    """Raise TypeError unless `manager` is the port's
+    HostEmbeddingManager (a JAX package manager, for one, is not)."""
     if not isinstance(manager, HostEmbeddingManager):
-        raise NotImplementedError(
+        raise TypeError(
             "the host-spill tier takes the port's HostEmbeddingManager "
             "(embedding/host_bridge.py); %r is not one"
             % (type(manager).__name__,))

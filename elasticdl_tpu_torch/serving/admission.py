@@ -27,9 +27,11 @@ class AdmissionError(Exception):
 
 class ServingRequest(object):
     """One in-flight generation request. Events flow through `events`:
-        ("tokens", [ids])         new tokens
-        ("done",)                 completed
-        ("error", code, message)  terminal failure
+        ("tokens", [ids], version)  new tokens and the checkpoint
+                                    version of the weights that made
+                                    them
+        ("done", version)           completed
+        ("error", code, message)    terminal failure
     """
 
     _ids = iter(range(1, 2 ** 62))
@@ -55,10 +57,17 @@ class ServingRequest(object):
         self.first_token_at = None
         self.seated_at = None
         # the checkpoint version whose weights produced the latest token
-        self.model_version = 0
+        # (-1 until the first one)
+        self.model_version = -1
 
     def expired(self, now):
         return self.deadline is not None and now > self.deadline
+
+    def queue_wait_secs(self):
+        """Seconds queued before seating (None until seated)."""
+        if self.seated_at is None:
+            return None
+        return self.seated_at - self.submitted_at
 
     def push(self, event):
         with self._event_cv:

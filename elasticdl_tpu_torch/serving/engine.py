@@ -257,6 +257,9 @@ class ContinuousBatchingEngine(object):
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.profiler = None
+        # a ServingTelemetry the server attaches: the engine counts what
+        # only it sees (prefix hits, copy-on-write faults, drafts)
+        self.telemetry = None
         self.model_version = 0
         self.draft_k = 0  # speculative decode off (the paged engine's)
         self.draft_proposed = 0
@@ -618,11 +621,18 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         copy-on-write."""
         p = len(request.prompt)
         if shared >= p:
-            self.kv.cow_for_write(slot, p - 1)
+            if (self.kv.cow_for_write(slot, p - 1) is not None
+                    and self.telemetry is not None):
+                self.telemetry.count("cow_copies")
             start = p - 1
         else:
             start = shared
-        return self._tile(slot, request, start, p - start, "suffix_tile")
+        first = self._tile(slot, request, start, p - start, "suffix_tile")
+        if self.telemetry is not None:
+            # the allocator's shared tokens (a full match's re-run row
+            # included), in step with its prefix_hit_tokens
+            self.telemetry.count("prefix_hit_tokens", shared)
+        return first
 
     def _suffix_bucket(self, t):
         """Tile widths in steps of 8 (the JAX engine's buckets)."""
@@ -655,6 +665,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._finish_prefill(job,
                                  self._insert_shared(slot, request, shared))
             return job
+        if shared and self.telemetry is not None:
+            self.telemetry.count("prefix_hit_tokens", shared)
         job = _PrefillJob(slot, request, shared)
         self._prefilling[slot] = job
         return job
@@ -830,6 +842,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.kv.tables[idx[lane], wpos // self.block_size],
             wpos % self.block_size)
         self._observe("scatter", t0)
+        accepted_total = int((counts - 1).sum())
         self.draft_proposed += k * len(active)
-        self.draft_accepted += int((counts - 1).sum())
+        self.draft_accepted += accepted_total
+        if self.telemetry is not None:
+            self.telemetry.count("draft_proposed", k * len(active))
+            if accepted_total:
+                self.telemetry.count("draft_accepted", accepted_total)
         return self._commit(active, committed)

@@ -1,56 +1,100 @@
-"""Serving entry point of the PyTorch port.
+"""Serving entry point of the PyTorch port: the port of
+elasticdl_tpu/serving/main.py.
 
-Builds the transformer_lm model (seeded random weights; the `.params`
-of the latest valid checkpoint under --checkpoint_dir, which either
-package's trainer wrote; or JAX-package params converted from an .npz),
-starts the in-process generation server and answers the requests read
-from stdin, one JSON object per line:
+Builds the sequence model from a zoo spec (`--model_zoo` / `--model_def`,
+by default the port's own `transformer_lm`; the model must have a
+`seq_len`) with seeded random weights, the `.params` of the latest valid
+checkpoint under --checkpoint_dir (which either package's trainer
+wrote), or JAX-package params converted from an .npz, and serves
+generate / generate_stream / server_status / reload_checkpoint on
+`--port` (0: an ephemeral one) over the port's transport
+(proto/service.py), with at most `--max_workers` handlers at once. Once
+bound it prints `SERVING_READY port=N`; it serves until SIGTERM or
+SIGINT, which drain it: admission closes, queued requests get
+RESOURCE_EXHAUSTED, requests in flight finish, then the transport
+stops.
 
-    {"prompt": [1, 2, 3], "max_new_tokens": 16, "temperature": 0.0,
-     "seed": 0}
+    python -m elasticdl_tpu_torch.serving.main --device cuda --port 50051 \\
+        --model_params "vocab_size=32000; seq_len=1024; embed_dim=1024; \\
+num_heads=8; num_layers=8; dtype='bf16'" --num_slots 8 --kv_paged 1 \\
+        --kv_block_size 16
 
-Each answer is one JSON line {"tokens": [...prompt + generated]} or
-{"error": code, "message": ...}, in request order; the requests are
-submitted together, so they are served concurrently. A line
-{"status": true} is answered with the server's status when the answers
-before it are in (`GenerationServer.status`: slots, queue, the KV pool's
-format `kv_cache_dtype`, blocks and bytes).
+and from Python:
+
+    from elasticdl_tpu_torch.proto import messages as pb
+    from elasticdl_tpu_torch.proto.service import ServingStub, build_channel
+
+    stub = ServingStub(build_channel("localhost:50051"))
+    for chunk in stub.generate_stream(pb.GenerateRequest(
+            prompt=[1, 2, 3], max_new_tokens=8), timeout=60):
+        print(list(chunk.tokens), chunk.done, chunk.model_version)
 
 The engine is chosen as the JAX entry point chooses it: `--kv_paged`
 -1 (the default) resolves from EDL_KV_PAGED, so the dense pool unless
 that is set; 1 is the block-paged pool, which speculative decode
-(`--draft_k` with a draft given by `--draft_model_params`, a second
-transformer_lm; its `seed` picks its weights) and chunked prefill
-(`--prefill_chunk_tokens`, `--prefill_budget_ms`) need. `--profile 1`
-adds the step profiler's phases to the status answer. With
---checkpoint_dir the server keeps following the directory and swaps in
-newer versions between decode steps, `--reload_poll_secs` apart (0 =
-never by itself). `--warmup_tokens` generates that many tokens before
-the first request is read. An int8 KV cache is a model parameter, as in
-the JAX package: `--model_params "...; kv_cache_dtype='int8'"`. A
+(`--draft_k` with a draft model: `--draft_model_def`, default the
+target's, and `--draft_model_params`; its `seed` picks its weights) and
+chunked prefill (`--prefill_chunk_tokens`, `--prefill_budget_ms`) need.
+`--profile 1` arms the step profiler. With --checkpoint_dir the server
+keeps following the directory and swaps in newer versions between
+decode steps, `--reload_poll_secs` apart (0 = only through
+reload_checkpoint). `--warmup_tokens` generates that many tokens
+through the unwrapped servicer before SERVING_READY, then drops the
+latency histograms. An int8 KV cache is a model parameter, as in the
+JAX package: `--model_params "...; kv_cache_dtype='int8'"`. A
 checkpoint of int8 weights (api/quantization) is served dequantized
 once at load.
 
-    echo '{"prompt": [1, 2, 3], "max_new_tokens": 8}' | \\
-    python -m elasticdl_tpu_torch.serving.main --device cuda \\
-        --model_params "vocab_size=32000; seq_len=1024; embed_dim=1024; \\
-num_heads=8; num_layers=8; dtype='bf16'" --num_slots 8 --kv_paged 1 \\
-        --kv_block_size 16
+Not accepted yet (each raises with the ROADMAP item that brings it):
+`--kv_host_bytes` and `--role` (Queue 1 item 3, the host spill tier and
+disaggregation), `--metrics_port`, `--forensics`, `--runtime_health`,
+`--stall_after_secs` and `--tensorboard_log_dir` (item 6, the
+replica's metrics plane). `serve_lines` is a library function that
+answers JSON request lines in-process.
 """
 
 import argparse
 import json
 import logging
+import os
+import signal
 import sys
+import threading
 
 logger = logging.getLogger(__name__)
 
 
+#: the port's zoo, the default --model_zoo
+PORT_ZOO = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "model_zoo")
+
+_ITEM3 = "ROADMAP Queue 1 item 3 (the host spill tier, disaggregation)"
+_ITEM6 = "ROADMAP Queue 1 item 6 (the replica's metrics plane)"
+#: the JAX entry's flags the port does not take yet -> what brings them
+NOT_PORTED = {
+    "--kv_host_bytes": _ITEM3, "--role": _ITEM3,
+    "--metrics_port": _ITEM6, "--forensics": _ITEM6,
+    "--runtime_health": _ITEM6, "--stall_after_secs": _ITEM6,
+    "--tensorboard_log_dir": _ITEM6,
+}
+
+
 def parse_serving_args(args=None):
     parser = argparse.ArgumentParser(
-        description="elasticdl-tpu PyTorch generation server (stdin/stdout)"
+        description="elasticdl-tpu PyTorch generation server"
     )
+    parser.add_argument("--model_zoo", default=PORT_ZOO,
+                        help="the directory of zoo modules (default: the "
+                             "port's own, elasticdl_tpu_torch/model_zoo)")
+    parser.add_argument("--model_def", default="transformer_lm.custom_model",
+                        help="'<module path>.<model fn>' under --model_zoo")
     parser.add_argument("--model_params", default="")
+    parser.add_argument("--port", type=int, default=50051,
+                        help="the transport's port; 0 = an ephemeral one")
+    parser.add_argument("--max_workers", type=int, default=64,
+                        help="handlers that may run at once; size above "
+                             "the concurrent calls expected (a pool full "
+                             "of streams starves server_status)")
     parser.add_argument("--params_npz", default="",
                         help="flax transformer_lm params saved as an .npz "
                              "of 'a/b/c'-keyed arrays; empty = seeded "
@@ -82,9 +126,12 @@ def parse_serving_args(args=None):
     parser.add_argument("--draft_k", type=int, default=0,
                         help="speculative decode: tokens the draft "
                              "proposes a tick (paged pool only)")
+    parser.add_argument("--draft_model_def", default="",
+                        help="the draft's model_def under --model_zoo; "
+                             "empty = the target's")
     parser.add_argument("--draft_model_params", default="",
-                        help="the draft transformer_lm's params; empty = "
-                             "speculative decode off")
+                        help="the draft's params; empty = speculative "
+                             "decode off")
     parser.add_argument("--prefill_chunk_tokens", type=int, default=-1,
                         help="chunked prefill's tile width (paged pool "
                              "only); -1 resolves from "
@@ -100,7 +147,30 @@ def parse_serving_args(args=None):
                              "EDL_PROFILE (off)")
     parser.add_argument("--warmup_tokens", type=int, default=0,
                         help="generate this many tokens before serving")
-    return parser.parse_args(args)
+    parsed, unknown = parser.parse_known_args(args)
+    for arg in unknown:
+        flag = arg.split("=", 1)[0]
+        if flag in NOT_PORTED:
+            parser.error("%s is not ported yet: %s" % (flag,
+                                                       NOT_PORTED[flag]))
+    if unknown:
+        parser.error("unrecognized arguments: %s" % " ".join(unknown))
+    return parsed
+
+
+def _spec(args, model_def):
+    from elasticdl_tpu_torch.common.model_utils import get_model_spec
+
+    return get_model_spec(args.model_zoo, model_def)
+
+
+def _create(spec, params, device):
+    model = spec.create_model(params, device=device)
+    if getattr(model, "seq_len", None) is None:
+        raise ValueError(
+            "the serving entry needs a sequence model with a seq_len; "
+            "%s has none" % type(model).__name__)
+    return model
 
 
 def build_model(args):
@@ -113,23 +183,16 @@ def build_model(args):
         load_checkpoint,
         restore_params_from_flat,
     )
-    from elasticdl_tpu_torch.common.model_utils import (
-        get_dict_from_params_str,
-    )
     from elasticdl_tpu_torch.convert import params_from_flax
-    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
-        custom_model,
-        flax_param_path,
-    )
     from elasticdl_tpu_torch.serving.engine import float_weights
 
-    kwargs = get_dict_from_params_str(args.model_params)
-    model = custom_model(device=args.device, **kwargs)
+    spec = _spec(args, args.model_def)
+    model = _create(spec, args.model_params, args.device)
     version = 0
     if args.checkpoint_dir:
         if get_latest_checkpoint_version(args.checkpoint_dir) >= 0:
             flat, version = load_checkpoint(args.checkpoint_dir)
-            restore_params_from_flat(model, flax_param_path,
+            restore_params_from_flat(model, spec.flax_param_path,
                                      float_weights(flat), strict=False)
             logger.info("serving checkpoint version-%d", version)
         else:
@@ -147,17 +210,11 @@ def build_server(args):
         ServingConfig,
     )
 
-    from elasticdl_tpu_torch.common.model_utils import (
-        get_dict_from_params_str,
-    )
-    from elasticdl_tpu_torch.model_zoo.transformer_lm import custom_model
-
     model, version = build_model(args)
     draft = None
     if args.draft_k > 0 and args.draft_model_params:
-        draft = custom_model(
-            device=args.device,
-            **get_dict_from_params_str(args.draft_model_params))
+        draft = _create(_spec(args, args.draft_model_def or args.model_def),
+                        args.draft_model_params, args.device)
 
     def unset(value):
         return None if value < 0 else value
@@ -177,6 +234,8 @@ def build_server(args):
             profile=unset(args.profile),
             checkpoint_dir=args.checkpoint_dir,
             reload_poll_secs=args.reload_poll_secs,
+            port=args.port,
+            max_workers=args.max_workers,
         ),
         model_version=version,
         draft=draft,
@@ -184,11 +243,17 @@ def build_server(args):
 
 
 def warmup(server, tokens):
-    """Generate `tokens` tokens in-process before the first request is
-    read, so the kernels' build and the allocator's growth are paid
-    before traffic arrives."""
+    """Generate `tokens` tokens through the unwrapped servicer (an armed
+    fault rule never sees it) before the server reports ready, so the
+    kernels' build and the allocator's growth are paid before traffic
+    arrives; then drop the latency histograms, so that request never
+    shows in the percentiles."""
+    from elasticdl_tpu_torch.proto import messages as pb
+
     if tokens > 0:
-        server.generate([1, 2], tokens)
+        server.raw_servicer.generate(
+            pb.GenerateRequest(prompt=[1, 2], max_new_tokens=tokens))
+        server.telemetry.reset_latency()
         logger.info("warmup complete (%d tokens)", tokens)
 
 
@@ -233,11 +298,22 @@ def serve_lines(server, lines):
 
 def main(argv=None):
     args = parse_serving_args(argv)
-    server = build_server(args).start()
-    warmup(server, args.warmup_tokens)
+    server = build_server(args).start(transport=True)
+    done = threading.Event()
+
+    def _graceful(_signum, _frame):
+        logger.info("signal received: draining and stopping")
+        done.set()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
     try:
-        for answer in serve_lines(server, sys.stdin):
-            print(json.dumps(answer), flush=True)
+        warmup(server, args.warmup_tokens)
+        print("SERVING_READY port=%d" % server.port, flush=True)
+        while not done.wait(1.0):
+            if not server.scheduler.is_alive():
+                raise RuntimeError("the serving scheduler stopped: %r"
+                                   % (server.scheduler.crashed,))
     finally:
         server.stop(drain=True)
     return 0

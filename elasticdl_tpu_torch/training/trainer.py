@@ -207,12 +207,14 @@ class Trainer(object):
 
     def attach_host_embeddings(self, manager):
         """Register a HostEmbeddingManager (embedding/host_bridge.py),
-        before the first step or forward."""
-        check_manager(manager)
+        before the first step or forward; None attaches no tier, as in
+        the JAX Trainer. Anything else raises TypeError."""
+        if manager is not None:
+            check_manager(manager)
         if self._ran:
             raise RuntimeError(
                 "attach_host_embeddings must precede the first step")
-        if self._sp() > 1:
+        if manager is not None and self._sp() > 1:
             raise NotImplementedError(
                 "the host-spill tier does not run under an sp mesh")
         self._host_manager = manager

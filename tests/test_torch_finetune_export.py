@@ -735,7 +735,7 @@ def test_model_handler_prefers_checkpoint(tmp_path):
         with pytest.raises(NotImplementedError, match="SPMD"):
             ModelHandler.get_model_handler(strategy)
     assert issubclass(MeshModelHandler, ModelHandler)
-    with pytest.raises(NotImplementedError, match="host-spill"):
+    with pytest.raises(TypeError, match="host-spill"):
         exporter.export_model(pt.model, trained, str(tmp_path / "h"),
                               host_manager=object())
     with open(os.path.join(str(tmp_path / "live"), "meta.json")) as f:

@@ -289,7 +289,7 @@ def test_apply_before_prepare_raises_and_refusals():
     trainer.train_step(state, _batches(1)[0])
     with pytest.raises(RuntimeError, match="precede"):
         trainer.attach_host_embeddings(_managers()[0])
-    with pytest.raises(NotImplementedError, match="HostEmbeddingManager"):
+    with pytest.raises(TypeError, match="HostEmbeddingManager"):
         Trainer(load_model_spec_from_module(hzoo), device="cpu"
                 ).attach_host_embeddings(_ref)
     frozen = Trainer(load_model_spec_from_module(hzoo), device="cpu",

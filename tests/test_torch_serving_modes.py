@@ -446,7 +446,7 @@ def test_scheduler_prefill_budget_round_robin(decoding, tile_ms, per_tick):
         ticks.append(len(eng.ran) - before)
     assert ticks == per_tick
     assert eng.ran == ["a", "b", "a", "b", "a"]  # round-robin
-    assert [ev for ev in a.events] == [("tokens", [7])]
+    assert [ev for ev in a.events] == [("tokens", [7], -1)]
     assert sched.ttft_secs and sched.prefill_tiles == 5
 
 
@@ -462,7 +462,7 @@ def test_scheduler_aborts_a_prefill_whose_deadline_expires():
     assert eng.aborted == ["late"]
     assert eng.ran == ["late", "ok", "late", "ok", "ok"]
     assert late.events[-1][:2] == ("error", "DEADLINE_EXCEEDED")
-    assert ok.events[-1] == ("tokens", [7])
+    assert ok.events[-1] == ("tokens", [7], -1)
 
 
 # ------------------------------------------------------------ profiler

@@ -272,12 +272,25 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         Trainer(spec, mesh=object(), model_params=PARAMS, device="cpu")
     trainer = Trainer(spec, model_params=PARAMS, device="cpu")
-    for call in (lambda: trainer.attach_host_embeddings(None),
-                 lambda: trainer.train_step_assembled(None, None, None,
+    for call in (lambda: trainer.train_step_assembled(None, None, None,
                                                       None),
                  lambda: trainer.forward_assembled(None, None)):
         with pytest.raises(NotImplementedError):
             call()
+    # attach_host_embeddings: None attaches no tier and the step runs
+    # unchanged, as in the JAX Trainer; a non-manager is a TypeError
+    with pytest.raises(TypeError):
+        trainer.attach_host_embeddings(object())
+    params = numpy_params()
+    plain, plain_state = port_trainer(params)
+    none, none_state = port_trainer(params)
+    assert none.attach_host_embeddings(None) is none
+    assert none.host_manager is None
+    plain_state, plain_loss = plain.train_step(plain_state, tokens_batch(3))
+    none_state, none_loss = none.train_step(none_state, tokens_batch(3))
+    assert none_loss == plain_loss
+    assert all(torch.equal(none_state.params[k], plain_state.params[k])
+               for k in plain_state.params)
     # checkpoints under an sp mesh (tests/test_torch_checkpoint.py has
     # the single-device ones)
     with pytest.raises(NotImplementedError):
