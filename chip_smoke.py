@@ -305,17 +305,52 @@ repository checkout it sits in. Phases, each of which fails the run:
    flagship as a process: seconds to SERVING_READY, the first request
    streamed and SIGTERM sent after its first chunk: the stream ends
    with all its tokens (equal to the in-process run's, or leaving them
-   at a near-tie, since it decodes alone) and the process exits 0.
+   at a near-tie, since it decodes alone) and the process exits 0;
+28. the paged pool's host spill tier and the disaggregated handoff at
+   the flagship width (bf16, seeded weights, paged, block 16, prefix
+   sharing, 8 slots; 48 prompts of its own generator, half 1008 tokens
+   (63 full blocks) and half 1000 (62 and an 8-token suffix), 16 new
+   tokens each, every pass admitted while the scheduler waits so its
+   seats and batches are those of every other pass): (1) a replica of
+   512 blocks (the dense-equivalent pool) with a 2 GiB host tier (4096
+   blocks) serves the 48 twice: nearly every chain spills in pass 1 and
+   revives by upload in pass 2; each pass's streams equal, token for
+   token, those of the same pass on a 3200-block replica that keeps
+   every chain resident; spills, revive uploads, prefill_tokens_revived
+   = revived blocks x 16, the host bytes within budget after every
+   scheduler tick, and every launch of A and B in both passes held
+   against its plain version on the same inputs (fwd_ok, PAGED_TOL_REL);
+   TTFT by pass, the profiler's revive_upload ms and the upload rate;
+   (2) a 256 MiB host tier (512 blocks, 8 chains): chains drop, the
+   budget holds, pass 2's whole chains give the resident pass-2 streams,
+   dropped ones prefill again and give the pass-1 streams, and chains
+   cut short leave pass 2's streams only at a near-tie; (3) int8 arenas,
+   16 prompts twice: every revived block's rows and scales hash equal to
+   what its spill read; (4) a prefill replica and a decode replica on
+   the transport (port 0): for 16 prompts (1008 tokens, and 1005: a
+   13-token suffix, B's tile kernel) a HandoffCoordinator runs the
+   prefill-only generate and export_chain on the one and transfer_chain
+   on the other, and the decode replica's stream equals a unified
+   replica's after its own prefill-only warm-up; the decode replica
+   launches no A and one B tile a layer a 1005-token prompt, every
+   launch held to its plain version; ServerStatus shows the roles, the
+   chain counters and transfers_inflight 0, an abort counts, a payload
+   of the wrong block size comes back ok=False; chain bytes, export /
+   transfer / gather / upload ms, MB/s, TTFT after a handoff against a
+   cold prefill; (5) serving/main.py's parser and build_server take
+   --kv_host_bytes and --role, and both reach ServerStatus.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
 JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint`, a
 `serving_modes`, a `master_worker`, a `lifecycle`, a
 `host_embedding` JSON line (whose E and F launches by run also ride the
-`kernels` line as `launches_host_embedding`) and a `serving_wire` line
+`kernels` line as `launches_host_embedding`), a `serving_wire` line
 (A's and B's launches on that path ride the `kernels` line as
-`launches_serving_wire`), each with its own
-seconds (`phase_s`; the kernel checks' and timings' and the whole
+`launches_serving_wire`) and a `serving_tiers` line (its A and B
+launches by part ride the `kernels` line as `launches_serving_tiers`,
+its checked launches' errors as `serving_tiers_max_abs_err`), each with
+its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
 fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
@@ -338,6 +373,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from datetime import timedelta
 
 import numpy as np
@@ -419,6 +455,8 @@ from elasticdl_tpu_torch.ops import optimizer_kernels as ok
 from elasticdl_tpu_torch.ops import update_math as um
 from elasticdl_tpu_torch.parallel import context_parallel as cp
 from elasticdl_tpu_torch.serving import main as serving_main
+from elasticdl_tpu_torch.serving.disagg import HandoffCoordinator
+from elasticdl_tpu_torch.serving.engine import StepProfiler
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 from elasticdl_tpu_torch.serving.server import GenerationServer, ServingConfig
 from elasticdl_tpu_torch.training.trainer import Trainer
@@ -7094,6 +7132,626 @@ def serving_wire_phase(specs, ref_streams, inproc_tokens_per_s,
     return out, launches
 
 
+# --------------------------------------- phase 28: the host tier, handoffs
+
+TIERS_SEED = 28
+TIERS_PROMPTS = 48  # distinct prompts, each sent in two passes
+# 63 full blocks (a full-prompt match re-runs one token), and 62 blocks
+# with an 8-token suffix (one tile of 8 rows: B's split kernel)
+TIERS_LENS = (1008, 1000)
+TIERS_NEW = 16
+TIERS_BLOCKS = 512  # the dense-equivalent pool of 8 slots
+TIERS_REF_BLOCKS = 3200  # every chain of the 48 resident
+TIERS_HOST_BLOCKS = 4096  # 2 GiB of bf16 blocks: every spilled chain
+TIERS_SMALL_HOST_BLOCKS = 512  # 256 MiB of bf16 blocks: 8 chains
+TIERS_INT8_PROMPTS = 16
+TIERS_DISAGG_PROMPTS = 16
+# the handoff's prompts: 63 full blocks, and 62 with a 13-token suffix
+# (a 16-row tile: B's tile kernel)
+TIERS_DISAGG_LENS = (1008, 1005)
+TIERS_COLD_PROMPTS = 4  # cold prefills on the decode replica
+TIERS_WAIT_S = 600
+TIERS_KERNELS = SERVING_KERNELS + SERVING_INT8_KERNELS[1:]
+
+
+def _tiers_block_bytes(model):
+    """One block's bytes in the model's KV format, every layer's leaves:
+    what `kv_host_bytes` buys a block of."""
+    layers, hkv, d, dtype, kv = kv_layout(model)
+    if kv == "int8":
+        row = hkv * (d + 4)  # int8 rows and an fp32 scale each
+    else:
+        row = hkv * d * torch.empty((), dtype=dtype).element_size()
+    return layers * 2 * 16 * row
+
+
+def _tiers_server(model, num_blocks, host_blocks=0, role="unified",
+                  profile=False):
+    """A paged replica (8 slots, block 16, prefix sharing) with a host
+    tier of `host_blocks` of the model's blocks."""
+    return GenerationServer(model, ServingConfig(
+        num_slots=8, queue_capacity=64, kv_paged=True, kv_block_size=16,
+        kv_num_blocks=num_blocks, kv_shared=True,
+        kv_host_bytes=host_blocks * _tiers_block_bytes(model), role=role,
+        profile=profile, port=0))
+
+
+def _tiers_guard(server, out):
+    """After every scheduler tick: the host tier's bytes, its peak in
+    out["host_bytes_peak"], any tick over the budget in out["over"]."""
+    sched, kv = server.scheduler, server.engine.kv
+    tick = sched._iterate
+
+    def iterate():
+        tick()
+        used = kv.host_bytes_in_use()
+        out["host_bytes_peak"] = max(out.get("host_bytes_peak", 0), used)
+        out["ticks"] = out.get("ticks", 0) + 1
+        if used > kv.host_bytes_budget:
+            out.setdefault("over", []).append(used)
+
+    sched._iterate = iterate
+
+
+def _tiers_shared_log(engine, log):
+    """request_id -> the tokens its seat shared (resident or revived)."""
+    seat = engine._seat_blocks
+
+    def logged(slot, request):
+        shared = seat(slot, request)
+        log[request.request_id] = shared
+        return shared
+
+    engine._seat_blocks = logged
+
+
+def _tiers_pass(server, specs):
+    """All of `specs` admitted while the scheduler waits on a held job,
+    then released: the seat order and the decode batches are the same in
+    every pass and on every replica. Returns the requests and the pass's
+    times (TTFT from the release, which includes the queue; seat to
+    first token, the prefill or revival itself)."""
+    held, release = threading.Event(), threading.Event()
+
+    def hold_job():
+        held.set()
+        release.wait(TIERS_WAIT_S)
+
+    hold = threading.Thread(target=server.scheduler.submit_job,
+                            args=(hold_job, TIERS_WAIT_S + 20), daemon=True)
+    hold.start()
+    check(held.wait(60), "the scheduler did not take the hold job")
+    reqs = [server.submit(p, n) for p, n in specs]
+    t0 = time.monotonic()  # the scheduler's clock
+    release.set()
+    try:
+        for req in reqs:
+            for _chunk in server.events(req):
+                pass
+    except Exception as e:  # noqa: BLE001 - surfaced with the cause
+        crashed = server.scheduler.crashed
+        raise SmokeFailure("a tiers request failed (%r); the scheduler: %s"
+                           % (e, "".join(traceback.format_exception(
+                               crashed)) if crashed else "running"))
+    wall = time.monotonic() - t0
+    hold.join(timeout=60)
+    for req, (_p, n) in zip(reqs, specs):
+        check(len(req.generated) == n, "request %d finished with %d of %d "
+              "tokens" % (req.request_id, len(req.generated), n))
+    ttft = np.asarray([r.first_token_at - t0 for r in reqs]) * 1e3
+    seat = np.asarray([r.first_token_at - r.seated_at for r in reqs]) * 1e3
+    return reqs, {
+        "wall_s": wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "seat_to_first_ms_p50": float(np.percentile(seat, 50)),
+        "seat_to_first_ms_p99": float(np.percentile(seat, 99)),
+    }
+
+
+@contextlib.contextmanager
+def _attention_held_to_plain(errs, on_card):
+    """Within: every launch of A (flash_forward) and B
+    (paged_decode_partials) is held against its plain version on the
+    same inputs, as _held_to_plain holds E and F: A by fwd_ok with out's
+    error over max(max |out|, 1) (the model's activations reach several
+    units, where one bf16 step of out is 0.03: FLASH_TOL_OUT is set for
+    unit-scale inputs), B's partials within PAGED_TOL_REL. `errs`
+    collects {kernel: [max |err|, ...]}. Off the card the wrappers are
+    the plain versions: no check."""
+    real = (att.flash_forward, att.paged_decode_partials)
+    if not on_card:
+        yield errs
+        return
+
+    def fwd(q, k, v, **kw):
+        out, lse = real[0](q, k, v, **kw)
+        masks = {n: x for n, x in kw.items() if n != "causal"}
+        e = flash_fwd_errs(q, k, v, out, lse, kw.get("causal", False),
+                           masks)
+        errs.setdefault("flash_fwd", []).append(e["max_abs_err"])
+        e["out_scale"] = max(out.float().abs().max().item(), 1.0)
+        check(fwd_ok(dict(e, max_abs_err=e["max_abs_err"] / e["out_scale"])),
+              "flash_fwd differs from its plain version at %s on the tiers "
+              "path: %s" % (tuple(q.shape), e))
+        return out, lse
+
+    def paged(qf, k_pool, v_pool, block_table, length, k_scale_pool=None,
+              v_scale_pool=None, window=None, t=1):
+        args = (qf, k_pool, v_pool, block_table, length, k_scale_pool,
+                v_scale_pool)
+        got = real[1](*args, window=window, t=t)
+        ref = att.paged_decode_partials_plain(*args, window=window, t=t)
+        rel = partials_errs(got, ref)
+        name = ("paged_decode_tile" if qf.shape[2] > att.SPLIT_MAX_ROWS
+                else "paged_decode") + ("_int8" if k_scale_pool is not None
+                                        else "")
+        errs.setdefault(name, []).append((got[0] - ref[0]).abs().max().item())
+        check(all(e <= PAGED_TOL_REL for e in rel), "%s differs from its "
+              "plain version at %s on the tiers path: %s"
+              % (name, tuple(qf.shape), rel))
+        return got
+
+    att.flash_forward, att.paged_decode_partials = fwd, paged
+    try:
+        yield errs
+    finally:
+        att.flash_forward, att.paged_decode_partials = real
+
+
+def _tiers_counts():
+    return {n: att.KERNEL_LAUNCHES[n] for n in TIERS_KERNELS}
+
+
+def _tiers_delta(before):
+    return {n: att.KERNEL_LAUNCHES[n] - before[n] for n in TIERS_KERNELS}
+
+
+def _tiers_spill_revive(model, specs, ref_streams, errs, launches, on_card):
+    """(1) Spill and revive: a 512-block replica with a 4096-block host
+    tier, two timed passes of `specs` and a third under the held-to-plain
+    check (the revival path again); each pass's streams equal the
+    resident reference's of that pass (pass 3: of pass 2)."""
+    server = _tiers_server(model, TIERS_BLOCKS, TIERS_HOST_BLOCKS,
+                           profile=True)
+    guard, shared = {}, {}
+    _tiers_guard(server, guard)
+    _tiers_shared_log(server.engine, shared)
+    server.start()
+    out = {}
+    try:
+        server.generate([1, 2, 3, 4], 2)  # warm, outside the counts
+        _sync("cuda" if on_card else "cpu")
+        server.engine.profiler = StepProfiler()  # the passes' phases only
+        passes = []
+        for name in ("pass1", "pass2", "pass3"):
+            if name == "pass3":  # the timed passes' profile and economy
+                out["profile"] = server.engine.profiler.snapshot()
+                out["revived_blocks"] = server.engine.kv.allocator.\
+                    blocks_revived
+            with _attention_held_to_plain(errs if name == "pass3" else {},
+                                          on_card and name == "pass3"):
+                before = _tiers_counts()
+                reqs, times = _tiers_pass(server, specs)
+                _sync("cuda" if on_card else "cpu")
+                launches["spill_revive_" + name] = _tiers_delta(before)
+            passes.append(reqs)
+            out[name] = times
+        status = server.status()
+        alloc = server.engine.kv.allocator
+    finally:
+        server.stop(timeout=120)
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    for n, (reqs, ref) in enumerate(zip(passes,
+                                        ref_streams + ref_streams[1:])):
+        for i, (req, want) in enumerate(zip(reqs, ref)):
+            check(req.generated == want, "host tier pass %d request %d: "
+                  "tokens leave the resident replica's from position %s"
+                  % (n + 1, i, _first_divergence(req.generated, want)))
+    whole = [shared[r.request_id] == len(r.prompt) // 16 * 16
+             for r in passes[1] + passes[2]]
+    check(all(whole), "passes 2 and 3 seated %d of %d prompts on their "
+          "whole chain" % (sum(whole), len(whole)))
+    check(status["host_drops"] == 0 and alloc.spills > 0
+          and status["revive_uploads"] > 0,
+          "host tier: %d spills, %d revive uploads, %d drops"
+          % (alloc.spills, status["revive_uploads"], status["host_drops"]))
+    check(status["prefill_tokens_revived"] == alloc.blocks_revived * 16,
+          "prefill_tokens_revived %d, revived blocks %d"
+          % (status["prefill_tokens_revived"], alloc.blocks_revived))
+    check(not guard.get("over"), "the host tier went over its budget after "
+          "%d ticks: %s" % (len(guard.get("over", ())), guard.get("over")))
+    if on_card:
+        p1, p2, p3 = (launches["spill_revive_" + n]
+                      for n in ("pass1", "pass2", "pass3"))
+        check(p1["flash_fwd"] > 0 and p1["paged_decode"] > 0
+              and p2["paged_decode"] > 0 and p2["flash_fwd"] == 0
+              and p3 == p2, "spill/revive launches: %s, %s, %s"
+              % (p1, p2, p3))
+    revive = out["profile"].get("revive_upload", {})
+    uploaded = out["revived_blocks"] * _tiers_block_bytes(model)
+    out.update(
+        streams_equal_resident=len(specs) * 3,
+        revived_blocks_all=alloc.blocks_revived,
+        spills=alloc.spills, host_drops=status["host_drops"],
+        revive_uploads=status["revive_uploads"],
+        prefill_tokens_revived=status["prefill_tokens_revived"],
+        host_bytes_peak=guard.get("host_bytes_peak", 0),
+        host_bytes_budget=status["kv_host_bytes_budget"],
+        ticks_checked=guard.get("ticks", 0),
+        revive_upload_ms=revive,
+        uploaded_bytes=uploaded,
+        upload_gb_per_s=(uploaded / (revive["total_ms"] / 1e3) / 1e9
+                         if revive.get("total_ms") else None),
+    )
+    return out
+
+
+def _tiers_small_host(model, specs, ref_streams, prompts, errs, launches,
+                      on_card):
+    """(2) A 512-block host tier (8 chains), both passes under the
+    held-to-plain check: chains drop, the budget holds, and a pass-2
+    prompt seats on what is left of its chain. Whole chains give the
+    resident reference's pass-2 stream, dropped ones prefill again and
+    give its pass-1 stream; a chain cut short re-runs its dropped tail
+    as one tile, whose stream must equal pass 2's or leave it at a
+    near-tie (near_tie_gaps)."""
+    server = _tiers_server(model, TIERS_BLOCKS, TIERS_SMALL_HOST_BLOCKS)
+    guard, shared = {}, {}
+    _tiers_guard(server, guard)
+    _tiers_shared_log(server.engine, shared)
+    server.start()
+    try:
+        with _attention_held_to_plain(errs, on_card):
+            before = _tiers_counts()
+            reqs1, _ = _tiers_pass(server, specs)
+            reqs2, times = _tiers_pass(server, specs)
+            _sync("cuda" if on_card else "cpu")
+            launches["small_host"] = _tiers_delta(before)
+        status = server.status()
+    finally:
+        server.stop(timeout=120)
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    for i, (req, want) in enumerate(zip(reqs1, ref_streams[0])):
+        check(req.generated == want, "small host tier pass 1 request %d: "
+              "tokens leave the resident replica's" % i)
+    kinds = {"whole": 0, "dropped": 0, "cut": 0}
+    cut_streams, cut_refs, cut_prompts = [], [], []
+    for i, req in enumerate(reqs2):
+        full = len(req.prompt) // 16 * 16
+        got = shared[req.request_id]
+        if got == full:
+            kinds["whole"] += 1
+            want = ref_streams[1][i]
+        elif got == 0:
+            kinds["dropped"] += 1
+            want = ref_streams[0][i]
+        else:
+            kinds["cut"] += 1
+            cut_streams.append(req.generated)
+            cut_refs.append(ref_streams[1][i])
+            cut_prompts.append(prompts[i])
+            continue
+        check(req.generated == want, "small host tier pass 2 request %d "
+              "(shared %d of %d): tokens leave the reference's" % (
+                  i, got, full))
+    near = near_tie_gaps(model, cut_prompts, cut_refs,
+                         {"cut": cut_streams})["cut"] if cut_streams else None
+    check(status["host_drops"] > 0 and not guard.get("over"),
+          "small host tier: %d drops, over the budget at %s"
+          % (status["host_drops"], guard.get("over")))
+    return dict(
+        times_pass2=times, seats=kinds, cut_near_tie=near,
+        host_drops=status["host_drops"],
+        revive_uploads=status["revive_uploads"],
+        host_bytes_peak=guard.get("host_bytes_peak", 0),
+        host_bytes_budget=status["kv_host_bytes_budget"],
+        ticks_checked=guard.get("ticks", 0))
+
+
+def _rows_digest(rows):
+    h = hashlib.sha256()
+    for r in rows:
+        h.update(r.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tiers_int8(specs, errs, launches, on_card, device):
+    """(3) int8 arenas: every block revived is read back and its rows and
+    scales hashed against what the spill read before eviction."""
+    model = TransformerLM(device=device, seed=0, kv_cache_dtype="int8",
+                          **FLAGSHIP)
+    server = _tiers_server(model, TIERS_BLOCKS, TIERS_HOST_BLOCKS)
+    kv = server.engine.kv
+    alloc = kv.allocator
+    spilled, compared = {}, []
+    sink = alloc._spill_sink
+
+    def spill(bid, vid):
+        sink(bid, vid)
+        spilled[vid] = _rows_digest(kv._host_rows[vid])
+
+    apply = kv._apply_revivals
+
+    def revive():
+        moves = list(alloc._revived)
+        apply()
+        for vid, bid in moves:
+            compared.append(_rows_digest(kv._gather_rows(bid))
+                            == spilled[vid])
+
+    alloc._spill_sink, kv._apply_revivals = spill, revive
+    server.start()
+    try:
+        with _attention_held_to_plain(errs, on_card):
+            before = _tiers_counts()
+            for _ in range(2):
+                _tiers_pass(server, specs)
+            _sync(device)
+            launches["int8"] = _tiers_delta(before)
+        status = server.status()
+    finally:
+        server.stop(timeout=120)
+        del model
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    check(compared and all(compared), "int8: %d of %d revived blocks "
+          "byte-equal to their spilled rows" % (sum(compared),
+                                                len(compared)))
+    if on_card:
+        check(launches["int8"]["paged_decode_int8"] > 0
+              and launches["int8"]["paged_decode"] == 0,
+              "int8 launches: %s" % launches["int8"])
+    return dict(blocks_compared=len(compared), spills=alloc.spills,
+                revive_uploads=status["revive_uploads"],
+                block_bytes=kv.block_bytes)
+
+
+class _TimedStub(object):
+    """A ServingStub whose calls' wall ms are kept by method."""
+
+    def __init__(self, stub, ms):
+        self._stub, self._ms = stub, ms
+
+    def __getattr__(self, name):
+        call = getattr(self._stub, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return call(*args, **kw)
+            finally:
+                self._ms.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+
+        return timed
+
+
+class _TiersRep(object):
+    def __init__(self, server, ms):
+        self.server = server
+        self.address = "localhost:%d" % server.port
+        self.stub = _TimedStub(wire_service.ServingStub(
+            wire_service.build_channel(self.address)), ms)
+
+
+def _timed_method(obj, name, ms):
+    real = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, timed)
+
+
+def _stream(stub, prompt, new):
+    t_send, first, tokens = time.perf_counter(), None, []
+    for chunk in stub.generate_stream(wire_pb.GenerateRequest(
+            prompt=prompt, max_new_tokens=new), timeout=TIERS_WAIT_S):
+        if first is None:
+            first = time.perf_counter()
+        tokens.extend(chunk.tokens)
+    return tokens, (first - t_send) * 1e3
+
+
+def _tiers_disagg(model, rs, errs, launches, on_card):
+    """(4) A prefill replica and a decode replica on the transport; for
+    each prompt a HandoffCoordinator exports from the one and imports
+    into the other, then the client streams from the decode replica: the
+    stream must equal a unified replica's after its own prefill-only
+    warm-up. The decode replica runs no A (each full block arrives
+    imported; a suffix is a B tile). The first half of the prompts run
+    under the held-to-plain check, the second half give the handoff's
+    TTFT; cold prompts on the decode replica give a prefill's."""
+    vocab = FLAGSHIP["vocab_size"]
+    specs = [rs.randint(0, vocab, size=TIERS_DISAGG_LENS[i % 2]).tolist()
+             for i in range(TIERS_DISAGG_PROMPTS)]
+    cold = [rs.randint(0, vocab, size=TIERS_DISAGG_LENS[0]).tolist()
+            for _ in range(TIERS_COLD_PROMPTS)]
+    servers = {role: _tiers_server(model, TIERS_BLOCKS, role=role).start(
+        transport=True) for role in ("prefill", "decode", "unified")}
+    client_ms, pool_ms = {}, {}
+    reps = {role: _TiersRep(s, client_ms if role != "unified" else {})
+            for role, s in servers.items()}
+    _timed_method(servers["prefill"].engine.kv, "export_chain", pool_ms)
+    _timed_method(servers["decode"].engine.kv, "import_chain", pool_ms)
+    co = HandoffCoordinator(timeout_secs=TIERS_WAIT_S)
+    out = {"chain_bytes": [], "handoff_ttft_ms": [], "cold_ttft_ms": []}
+    dec_launches = dict.fromkeys(TIERS_KERNELS, 0)
+    try:
+        before_all = _tiers_counts()
+        for i, prompt in enumerate(specs):
+            checked = i < len(specs) // 2
+            with _attention_held_to_plain(errs if checked else {},
+                                          on_card and checked):
+                payload = co.export_chain(
+                    reps["prefill"], wire_pb.GenerateRequest(prompt=prompt),
+                    co.new_transfer_id())
+                out["chain_bytes"].append(sum(
+                    len(leaf) for blk in payload.blocks
+                    for leaf in blk.leaves))
+                resp = co.import_chain(reps["decode"], payload)
+                check(resp.ok and resp.blocks == len(prompt) // 16,
+                      "import covered %d of %d blocks"
+                      % (resp.blocks, len(prompt) // 16))
+                before = _tiers_counts()
+                got, ttft = _stream(reps["decode"].stub, prompt, TIERS_NEW)
+                _sync("cuda" if on_card else "cpu")
+                for n, c in _tiers_delta(before).items():
+                    dec_launches[n] += c
+                if not checked:
+                    out["handoff_ttft_ms"].append(ttft)
+                reps["unified"].stub.generate(wire_pb.GenerateRequest(
+                    prompt=prompt, max_new_tokens=1, prefill_only=True),
+                    timeout=TIERS_WAIT_S)
+                want, _ = _stream(reps["unified"].stub, prompt, TIERS_NEW)
+                check(got == want, "handoff: the decode replica's stream "
+                      "leaves the unified replica's from position %s"
+                      % _first_divergence(got, want))
+        launches["disagg_all"] = _tiers_delta(before_all)
+        launches["disagg_decode"] = dec_launches
+        for prompt in cold:
+            _tokens, ttft = _stream(reps["decode"].stub, prompt, TIERS_NEW)
+            out["cold_ttft_ms"].append(ttft)
+        co.abort_transfer(reps["prefill"], "xfer-aborted")
+        wrong = wire_pb.TransferChainRequest.FromString(
+            payload.SerializeToString())
+        wrong.block_size = 32
+        bad = reps["decode"].stub.transfer_chain(wrong, timeout=TIERS_WAIT_S)
+        status = {role: reps[role].stub.server_status(
+            wire_pb.ServerStatusRequest(), timeout=60)
+            for role in ("prefill", "decode")}
+    finally:
+        for s in servers.values():
+            s.stop(timeout=120)
+    for s in servers.values():
+        check(s.scheduler.crashed is None,
+              "scheduler crashed: %r" % (s.scheduler.crashed,))
+    pre, dec = status["prefill"], status["decode"]
+    imported = sum(len(p) // 16 * 16 for p in specs)
+    check(pre.role == "prefill" and dec.role == "decode"
+          and pre.chain_exports == len(specs)
+          and dec.chain_imports == len(specs)
+          and dec.chain_import_tokens == imported
+          and pre.transfers_inflight == dec.transfers_inflight == 0
+          and pre.transfer_aborts == 1,
+          "handoff status: prefill %r, decode %r" % (pre, dec))
+    check(not bad.ok and "block_size" in bad.error,
+          "a payload of the wrong block size was not refused: %r" % bad)
+    if on_card:
+        check(dec_launches["flash_fwd"] == 0
+              and dec_launches["paged_decode_tile"]
+              == FLAGSHIP["num_layers"] * (len(specs) // 2)
+              and dec_launches["paged_decode"] > 0,
+              "the decode replica's launches after handoffs: %s"
+              % dec_launches)
+    chain_b = np.asarray(out["chain_bytes"], np.float64)
+    exp_ms = np.asarray(client_ms["export_chain"])
+    imp_ms = np.asarray(client_ms["transfer_chain"])
+    out.update(
+        prompts=len(specs), streams_equal_unified=len(specs),
+        chain_bytes_p50=float(np.percentile(chain_b, 50)),
+        export_rpc_ms_p50=float(np.percentile(exp_ms, 50)),
+        export_gather_ms_p50=float(np.percentile(pool_ms["export_chain"],
+                                                 50)),
+        transfer_rpc_ms_p50=float(np.percentile(imp_ms, 50)),
+        import_upload_ms_p50=float(np.percentile(pool_ms["import_chain"],
+                                                 50)),
+        prefill_only_rpc_ms_p50=float(np.percentile(client_ms["generate"],
+                                                    50)),
+        handoff_mb_per_s=float(np.sum(chain_b) / 1e6
+                               / ((exp_ms.sum() + imp_ms.sum()) / 1e3)),
+        handoff_ttft_ms_p50=float(np.percentile(out["handoff_ttft_ms"], 50)),
+        cold_ttft_ms_p50=float(np.percentile(out["cold_ttft_ms"], 50)),
+        status={role: {k: getattr(st, k) for k in (
+            "role", "chain_exports", "chain_imports", "chain_import_tokens",
+            "transfer_aborts", "transfers_inflight")}
+            for role, st in status.items()},
+        wrong_block_size_refused=True)
+    out.pop("chain_bytes")
+    return out
+
+
+def _tiers_entry(model, device):
+    """(5) serving/main.py's own parser and build_server take
+    --kv_host_bytes and --role, and both reach ServerStatus."""
+    host = TIERS_HOST_BLOCKS * _tiers_block_bytes(model)
+    args = serving_main.parse_serving_args([
+        "--device", device, "--port", "0", "--model_params",
+        _params_str(FLAGSHIP), "--num_slots", "8", "--kv_paged", "1",
+        "--kv_block_size", "16", "--kv_host_bytes", str(host),
+        "--role", "decode"])
+    server = serving_main.build_server(args)
+    st = server.raw_servicer.server_status(wire_pb.ServerStatusRequest())
+    budget = server.status()["kv_host_bytes_budget"]
+    del server
+    check(st.role == "decode" and budget == host and st.kv_host_bytes == 0,
+          "the entry's --role / --kv_host_bytes: role %r, budget %d"
+          % (st.role, budget))
+    return {"role": st.role, "kv_host_bytes_budget": budget}
+
+
+def serving_tiers_phase(device="cuda"):
+    """Phase 28: the paged pool's host spill tier and the disaggregated
+    prefill/decode handoff at the flagship (bf16, seeded weights, 8
+    slots, block 16, prefix sharing). Its own generator (TIERS_SEED)."""
+    on_card = device == "cuda"
+    rs = np.random.RandomState(TIERS_SEED)
+    vocab = FLAGSHIP["vocab_size"]
+    specs = [(rs.randint(0, vocab, size=TIERS_LENS[i % 2]).tolist(),
+              TIERS_NEW) for i in range(TIERS_PROMPTS)]
+    prompts = [p for p, _n in specs]
+    model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+    out, errs, launches = {}, {}, {}
+    # the reference: a pool that keeps every chain resident
+    ref = _tiers_server(model, TIERS_REF_BLOCKS)
+    ref.start()
+    try:
+        ref.generate([1, 2, 3, 4], 2)
+        ref_streams, ref_times = [], []
+        for _ in range(2):
+            reqs, times = _tiers_pass(ref, specs)
+            ref_streams.append([list(r.generated) for r in reqs])
+            ref_times.append(times)
+        ref_status = ref.status()
+    finally:
+        ref.stop(timeout=120)
+    check(ref_status["kv_host_blocks"] == 0 and ref_status[
+        "prefix_hit_tokens"] == sum(len(p) // 16 * 16 for p in prompts),
+          "the reference did not keep every chain resident: %r" % ref_status)
+    out["resident"] = {"pass1": ref_times[0], "pass2": ref_times[1]}
+    out["spill_revive"] = _tiers_spill_revive(model, specs, ref_streams,
+                                              errs, launches, on_card)
+    out["small_host"] = _tiers_small_host(model, specs, ref_streams,
+                                          prompts, errs, launches, on_card)
+    out["int8"] = _tiers_int8(specs[:TIERS_INT8_PROMPTS], errs, launches,
+                              on_card, device)
+    if on_card:
+        torch.cuda.empty_cache()
+    out["disagg"] = _tiers_disagg(model, rs, errs, launches, on_card)
+    out["entry"] = _tiers_entry(model, device)
+    out["ttft_pass2_over_pass1_p50"] = (
+        out["spill_revive"]["pass2"]["seat_to_first_ms_p50"]
+        / out["spill_revive"]["pass1"]["seat_to_first_ms_p50"])
+    out["ttft_pass2_over_resident_p50"] = (
+        out["spill_revive"]["pass2"]["seat_to_first_ms_p50"]
+        / out["resident"]["pass2"]["seat_to_first_ms_p50"])
+    out["launches"] = launches
+    out["held_to_plain"] = {k: {"launches": len(v), "max_abs_err": max(v)}
+                            for k, v in errs.items()}
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    log("serving_tiers: %s" % json.dumps(out))
+    return out, launches, errs
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -7317,6 +7975,10 @@ def main():
     torch.cuda.empty_cache()
     verify_entry = time_verify_tile({"paged_decode": serving_modes[
         "speculative_self_draft"]["launches"]["paged_split"]})
+    # phase 28 draws from its own generator (TIERS_SEED)
+    laps.to("serving_tiers")
+    serving_tiers, tiers_launches, tiers_errs = serving_tiers_phase()
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -7448,13 +8110,25 @@ def main():
     for entry in kernels:
         if entry["name"] in SERVING_KERNELS:
             entry["launches_serving_wire"] = wire_launches[entry["name"]]
+    # phase 28's launches of A and B by part, and the errors of its
+    # checked launches against their plain versions
+    for entry in kernels:
+        name = entry["name"]
+        if name in TIERS_KERNELS:
+            entry["launches_serving_tiers"] = {
+                part: counts[name] for part, counts in tiers_launches.items()}
+        if tiers_errs.get(name):
+            entry["serving_tiers_max_abs_err"] = max(tiers_errs[name])
+            for key in ("max_abs_err", "max_err"):
+                if key in entry:
+                    entry[key] = max(entry[key], max(tiers_errs[name]))
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
              "sp": sp, "checkpoint": checkpoint,
              "serving_modes": serving_modes, "master_worker": master_worker,
              "lifecycle": lifecycle, "host_embedding": host_embedding,
-             "serving_wire": serving_wire}
+             "serving_wire": serving_wire, "serving_tiers": serving_tiers}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -7478,6 +8152,7 @@ def main():
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"host_embedding": host_embedding}))
     print(json.dumps({"serving_wire": serving_wire}))
+    print(json.dumps({"serving_tiers": serving_tiers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -203,7 +203,8 @@ ROUTER_RPCS = (
 # The serving front-end's RPC surface and intercept hooks, as the JAX
 # package names them; a servicer exposes only its own subset and the
 # wrapper skips the names it does not have. The port's replica serves
-# generate, generate_stream, server_status and reload_checkpoint.
+# generate, generate_stream, server_status, the three chain-transfer
+# methods and reload_checkpoint.
 SERVING_RPCS = (
     "generate",
     "generate_stream",

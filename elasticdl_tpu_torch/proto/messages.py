@@ -19,6 +19,9 @@ same bytes protobuf does for these messages:
 * repeated int32 / int64 are written packed (one length-delimited
   run of varints), as proto3 writes them, and parse packed or not;
   occurrences of the field concatenate;
+* repeated string, repeated bytes and repeated nested messages are
+  one length-delimited record per item (never packed; an empty string
+  or an empty message is still written), in list order;
 * `map<string, string>` and `map<string, int32>` are repeated entry
   messages (key = 1, value = 2, both always written) under the map's
   field number, in the dict's order;
@@ -34,8 +37,9 @@ same bytes protobuf does for these messages:
 The enums (`TaskType`, `TaskReason`) keep their numbers, and their
 values are module constants (`TRAINING` ... `NONE`, `JOB_COMPLETE`) as
 in the generated module. The serving messages are those of one
-replica (generate, generate_stream, server_status, reload_checkpoint);
-the chain-transfer and router messages are not ported yet.
+replica (generate, generate_stream, server_status, reload_checkpoint)
+and of the disaggregated chain handoff (export_chain, transfer_chain,
+abort_transfer); the router's messages are not ported yet.
 """
 
 import math
@@ -288,6 +292,61 @@ class _Repeated(object):
         return current, end
 
 
+class _RepeatedLen(object):
+    """repeated string / bytes: one length-delimited record an item."""
+
+    wire_types = (_LEN,)
+
+    def __init__(self, kind):
+        self.item = _Scalar(kind)
+
+    @property
+    def default(self):
+        return []
+
+    def check(self, name, value):
+        return [self.item.check(name, v) for v in value]
+
+    def encode(self, out, number, values):
+        for v in values:
+            self.item.encode(out, number, v, always=True)
+
+    def decode(self, data, pos, wire_type, current):
+        value, pos = self.item.decode(data, pos, wire_type, None)
+        current.append(value)
+        return current, pos
+
+
+class _RepeatedMessage(object):
+    """repeated <message>: one length-delimited record a message."""
+
+    wire_types = (_LEN,)
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    @property
+    def default(self):
+        return []
+
+    def check(self, name, value):
+        value = list(value)
+        for v in value:
+            if not isinstance(v, self.cls):
+                raise TypeError("%s items must be %s, got %r"
+                                % (name, self.cls.__name__, type(v)))
+        return value
+
+    def encode(self, out, number, values):
+        for v in values:
+            _write_len(out, number, v.SerializeToString())
+
+    def decode(self, data, pos, wire_type, current):
+        raw, pos = _read_len(data, pos)
+        current.append(self.cls.FromString(raw))
+        return current, pos
+
+
 class _Map(object):
     """map<string, V>: repeated {key = 1: string, value = 2: V}."""
 
@@ -418,6 +477,8 @@ _FLOAT = _Scalar("float")
 _DOUBLE = _Scalar("double")
 _I32S = _Repeated("int32")
 _I64S = _Repeated("int64")
+_STRS = _RepeatedLen("string")
+_BYTESS = _RepeatedLen("bytes")
 
 
 class Task(Message):
@@ -530,9 +591,42 @@ class ReloadCheckpointResponse(Message):
                      ("error", 3, _STR))
 
 
+# ------------------------------------- disaggregated prefill/decode
+
+
+class ExportChainRequest(Message):
+    FIELDS = _fields(("prompt", 1, _I32S), ("transfer_id", 2, _STR))
+
+
+class KvChainBlock(Message):
+    """One block of a chain: its token ids and its raw row bytes, one
+    entry per row leaf in the JAX package's `jax.tree.leaves` order."""
+
+    FIELDS = _fields(("tokens", 1, _I32S), ("leaves", 2, _BYTESS))
+
+
+class TransferChainRequest(Message):
+    FIELDS = _fields(
+        ("transfer_id", 1, _STR), ("block_size", 2, _I32_),
+        ("leaf_dtypes", 3, _STRS),
+        ("blocks", 4, _RepeatedMessage(KvChainBlock)))
+
+
+class TransferChainResponse(Message):
+    FIELDS = _fields(
+        ("transfer_id", 1, _STR), ("ok", 2, _BOOL), ("blocks", 3, _I32_),
+        ("tokens", 4, _I32_), ("error", 5, _STR))
+
+
+class AbortTransferRequest(Message):
+    FIELDS = _fields(("transfer_id", 1, _STR))
+
+
 MESSAGES = (Task, GetTaskRequest, ReportTaskResultRequest,
             ReportEvaluationMetricsRequest, ReportVersionRequest, Empty,
             RegisterWorkerRequest, RegisterWorkerResponse)
 SERVING_MESSAGES = (GenerateRequest, GenerateResponse, TokenChunk,
                     ServerStatusRequest, ServerStatusResponse,
-                    ReloadCheckpointRequest, ReloadCheckpointResponse)
+                    ReloadCheckpointRequest, ReloadCheckpointResponse,
+                    ExportChainRequest, KvChainBlock, TransferChainRequest,
+                    TransferChainResponse, AbortTransferRequest)

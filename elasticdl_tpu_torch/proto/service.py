@@ -59,9 +59,11 @@ HTTP/1.0 on a TCP socket:
 
 A request is only ever parsed by its message class's `FromString`:
 nothing on this path unpickles or evaluates what a client sent. The
-Serving table holds one replica's methods; the chain-transfer methods
-and the router's table are not ported yet (a call to one answers
-UNIMPLEMENTED).
+Serving table holds one replica's methods, the disaggregated chain
+handoff's three among them (export_chain, whose response is the
+TransferChainRequest payload the decode side imports, transfer_chain
+and abort_transfer); the router's table is not ported yet (a call to
+one of its methods answers UNIMPLEMENTED).
 """
 
 import contextlib
@@ -104,6 +106,22 @@ _SERVING_METHODS = {
     "server_status": (
         pb.ServerStatusRequest,
         pb.ServerStatusResponse,
+        False,
+    ),
+    # disaggregated prefill/decode handoff (serving/disagg.py)
+    "export_chain": (
+        pb.ExportChainRequest,
+        pb.TransferChainRequest,
+        False,
+    ),
+    "transfer_chain": (
+        pb.TransferChainRequest,
+        pb.TransferChainResponse,
+        False,
+    ),
+    "abort_transfer": (
+        pb.AbortTransferRequest,
+        pb.TransferChainResponse,
         False,
     ),
     "reload_checkpoint": (

@@ -38,11 +38,14 @@ class ServingRequest(object):
     _ids_lock = threading.Lock()
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0, seed=0,
-                 deadline_ms=0, clock=time.monotonic):
+                 deadline_ms=0, clock=time.monotonic, prefill_only=False):
         with ServingRequest._ids_lock:
             self.request_id = next(ServingRequest._ids)
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
+        # disaggregated cache warming (serving/disagg.py): seat, run the
+        # prompt's prefill, register the chain, release
+        self.prefill_only = bool(prefill_only)
         self.temperature = float(temperature)
         self.seed = int(seed)
         self.submitted_at = clock()
@@ -142,8 +145,8 @@ class RequestQueue(object):
                 "seq_len %d" % (p, request.max_new_tokens, self.seq_len),
             )
         cached = p + request.max_new_tokens - 1
-        if (self.max_cached_tokens is not None
-                and request.max_new_tokens > 1
+        caches = request.max_new_tokens > 1 or request.prefill_only
+        if (self.max_cached_tokens is not None and caches
                 and cached > self.max_cached_tokens):
             raise AdmissionError(
                 "INVALID_ARGUMENT",

@@ -26,6 +26,14 @@ evict_expired / kv_stats / set_params):
     each the suffix-tile path pointed at a window [pos, pos + t) (B's
     tile kernel for tiles of more than SPLIT_MAX_ROWS rows), between
     decode steps; the final tile samples the first token.
+  - Host spill tier (`host_bytes` > 0; None resolves from
+    EDL_KV_HOST_BYTES): evicted prefix chains demote to host memory and a
+    prompt that matches one seats by upload (serving/kv_pool.py), then
+    runs only its suffix through the same tile as a resident match.
+  - Prefill-only requests (`request.prefill_only`, the disaggregated
+    prefill replica's cache warming, serving/disagg.py): seat, prefill,
+    register the chain, release; the chain parks refcount-0 cached,
+    matchable and exportable.
   - Speculative decode (`draft` model, `draft_k` = k): the draft holds a
     dense per-slot pool, prefilled with the full prompt at seat time;
     each tick it proposes k greedy tokens (k steps, the first fed the
@@ -99,6 +107,26 @@ def kv_paged_default():
     return os.environ.get("EDL_KV_PAGED", "") not in ("", "0")
 
 
+def kv_host_bytes_default():
+    """EDL_KV_HOST_BYTES resolves the paged pool's host spill-tier budget
+    when the config leaves it unset (0 = eviction forgets)."""
+    try:
+        return int(os.environ.get("EDL_KV_HOST_BYTES", "") or 0)
+    except ValueError:
+        return 0
+
+
+def role_default():
+    """EDL_SERVING_ROLE resolves the replica's disaggregation role when
+    the config leaves it unset: "prefill" | "decode" | "unified" (the
+    default, serving both phases)."""
+    role = os.environ.get("EDL_SERVING_ROLE", "") or "unified"
+    if role not in ("prefill", "decode", "unified"):
+        raise ValueError(
+            "EDL_SERVING_ROLE must be prefill|decode|unified, got %r" % role)
+    return role
+
+
 def prefill_chunk_default():
     """EDL_PREFILL_CHUNK_TOKENS resolves the chunked-prefill tile width
     when the config leaves it unset (0 = monolithic prefill)."""
@@ -159,7 +187,8 @@ class StepProfiler(object):
                        of a speculative tick
         verify_commit  the (k + 1)-tile verify and the accept / commit
         scatter        row scatter into the paged arenas
-        revive_upload  host-tier revival (the port has no host tier)
+        revive_upload  the host tier's batched upload of revived or
+                       imported blocks (timed by the paged pool)
         reload_swap    a hot checkpoint swap (set_params)
 
     The scheduler thread records and any thread may snapshot: one
@@ -467,11 +496,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     1; the target itself may be its own draft). Same scheduler surface
     and token streams as the dense engine; see the module docstring.
     With a model whose kv_cache_dtype is "int8" the arenas hold int8
-    rows and fp32 per-row scales."""
+    rows and fp32 per-row scales. `host_bytes` (None resolves from
+    EDL_KV_HOST_BYTES) is the host spill tier's byte budget."""
+
+    #: the pool's monotone host-tier counters the telemetry mirrors
+    _HOST_COUNTERS = ("revive_uploads", "prefill_tokens_revived",
+                      "host_drops")
 
     def __init__(self, model, num_slots, top_k=0, top_p=1.0, block_size=16,
                  num_blocks=0, share_prefix=True, draft=None, draft_k=0,
-                 prefill_chunk_tokens=None):
+                 prefill_chunk_tokens=None, host_bytes=None):
         if model.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(
                 "paged KV supports the plain-dtype and int8 cache formats "
@@ -481,19 +515,36 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.num_blocks = int(num_blocks) or (
             int(num_slots) * -(-int(model.seq_len) // self.block_size))
         self._share = bool(share_prefix)
+        self.host_bytes = (kv_host_bytes_default() if host_bytes is None
+                           else int(host_bytes))
         super().__init__(model, num_slots, top_k=top_k, top_p=top_p)
         self.prefill_chunk_tokens = (
             prefill_chunk_default() if prefill_chunk_tokens is None
             else int(prefill_chunk_tokens))
         self._prefilling = {}  # slot -> _PrefillJob
+        # the pool's monotone host-tier counters as last forwarded to the
+        # telemetry, which mirrors them by delta
+        self._host_counters_seen = dict.fromkeys(self._HOST_COUNTERS, 0)
         self._init_draft(draft, draft_k)
 
     def _init_pool(self):
         self.kv = PagedKVPool(
             kv_layout(self.model), self.seq_len, self.num_slots,
             self.num_blocks, self.block_size, share_prefix=self._share,
-            device=self.device)
+            device=self.device, host_bytes=self.host_bytes)
+        self.kv.profiler = self.profiler
         self._kv_bytes_total = self.kv.bytes_total
+
+    @property
+    def profiler(self):
+        return self._profiler
+
+    @profiler.setter
+    def profiler(self, value):
+        # the pool times its own revive uploads
+        self._profiler = value
+        if hasattr(self, "kv"):
+            self.kv.profiler = value
 
     def _init_draft(self, draft, draft_k):
         """Seat the draft for speculative decode: its own dense per-slot
@@ -539,7 +590,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return len(self._prefilling)
 
     def can_seat(self, request):
-        if request.max_new_tokens <= 1:
+        if request.max_new_tokens <= 1 and not request.prefill_only:
             return True  # one-token answer; never touches the pool
         cached = len(request.prompt) + request.max_new_tokens - 1
         return self.kv.can_seat(request.prompt, len(request.prompt), cached)
@@ -551,6 +602,20 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def kv_stats(self):
         return self.kv.stats()
 
+    def _sync_host_telemetry(self):
+        """Forward the pool's monotone host-tier counters (revival
+        uploads, tokens revived instead of prefilled, host drops) to the
+        telemetry by delta: the pool is the one source, so the mirror
+        cannot drift whichever path (seat, extend, CoW) spilled."""
+        if self.telemetry is None:
+            return
+        stats = self.kv.stats()
+        for name in self._HOST_COUNTERS:
+            delta = stats[name] - self._host_counters_seen[name]
+            if delta:
+                self.telemetry.count(name, delta)
+                self._host_counters_seen[name] = stats[name]
+
     def _seat_blocks(self, slot, request):
         """Reserve the request's full block budget (reserve-or-raise
         before any compute; the scheduler checks can_seat first).
@@ -561,14 +626,17 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def insert(self, request):
         """Seat `request` in a free slot: prefill (or the shared-prefix
         suffix tile) produces the FIRST generated token. Returns (slot,
-        first_token, finished); a one-token request skips the pool."""
+        first_token, finished); a one-token request skips the pool. A
+        prefill-only request registers its chain and releases its slot
+        (finished)."""
         free = self.free_slots()
         if not free:
             raise RuntimeError("no free slot")
         slot = free[0]
         total = self._check_fits(request)
         p = len(request.prompt)
-        decoding = request.max_new_tokens > 1
+        prefill_only = request.prefill_only
+        decoding = request.max_new_tokens > 1 or prefill_only
         shared = self._seat_blocks(slot, request) if decoding else 0
         if shared:
             first = self._insert_shared(slot, request, shared)
@@ -581,11 +649,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._observe("prefill", t0)
         request.generated.append(first)
         request.model_version = self.model_version
-        if not decoding:
+        if decoding:
+            self.kv.register_prefix(slot, request.prompt)
+            if self.draft_k and not prefill_only:
+                self._prefill_draft(slot, request)
+        self._sync_host_telemetry()
+        if prefill_only:
+            # the chain parks refcount-0 cached: matchable, exportable
+            self.kv.release(slot)
+        if not decoding or prefill_only:
             return slot, first, True
-        self.kv.register_prefix(slot, request.prompt)
-        if self.draft_k:
-            self._prefill_draft(slot, request)
         self._seat(slot, request, total, first)
         return slot, first, False
 
@@ -647,7 +720,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         no chunking (chunking off, a one-token answer, a full-prompt
         prefix match) completes here: job.done() is True and job.first /
         job.finished carry insert()'s result."""
-        if not self.prefill_chunk_tokens or request.max_new_tokens <= 1:
+        if not self.prefill_chunk_tokens or (request.max_new_tokens <= 1
+                                             and not request.prefill_only):
             slot, first, finished = self.insert(request)
             job = _PrefillJob(slot, request, len(request.prompt))
             job.first, job.finished = first, finished
@@ -696,12 +770,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         slot, request = job.slot, job.request
         self._prefilling.pop(slot, None)
         self.kv.register_prefix(slot, request.prompt)
-        if self.draft_k:
+        if self.draft_k and not request.prefill_only:
             self._prefill_draft(slot, request)
         request.generated.append(first)
         request.model_version = self.model_version
+        self._sync_host_telemetry()
         job.first = first
-        if request.max_new_tokens <= 1:
+        if request.prefill_only or request.max_new_tokens <= 1:
             self.kv.release(slot)
             job.finished = True
             return
@@ -749,6 +824,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         for i in idx:
             # the block this step writes, drawn from the reservation
             self.kv.ensure_blocks(int(i), int(self._positions[i]))
+        # an extend's pop can spill under pressure
+        self._sync_host_telemetry()
         dev = self.device
         positions = self._positions[idx]
         tables = self.kv.tables_device()[torch.as_tensor(idx, device=dev)]
@@ -784,6 +861,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.kv.ensure_blocks(i, min(pos + k, st.max_total - 2))
             budgets[n] = st.max_total - (len(st.request.prompt)
                                          + len(st.request.generated))
+        self._sync_host_telemetry()  # ensure_blocks' pops can spill
         dev = self.device
         positions = self._positions[idx]
         pos_dev = torch.as_tensor(positions, device=dev)

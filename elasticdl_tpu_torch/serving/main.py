@@ -6,7 +6,8 @@ by default the port's own `transformer_lm`; the model must have a
 `seq_len`) with seeded random weights, the `.params` of the latest valid
 checkpoint under --checkpoint_dir (which either package's trainer
 wrote), or JAX-package params converted from an .npz, and serves
-generate / generate_stream / server_status / reload_checkpoint on
+generate / generate_stream / server_status / reload_checkpoint and the
+chain handoff's export_chain / transfer_chain / abort_transfer on
 `--port` (0: an ephemeral one) over the port's transport
 (proto/service.py), with at most `--max_workers` handlers at once. Once
 bound it prints `SERVING_READY port=N`; it serves until SIGTERM or
@@ -34,7 +35,15 @@ The engine is chosen as the JAX entry point chooses it: `--kv_paged`
 that is set; 1 is the block-paged pool, which speculative decode
 (`--draft_k` with a draft model: `--draft_model_def`, default the
 target's, and `--draft_model_params`; its `seed` picks its weights) and
-chunked prefill (`--prefill_chunk_tokens`, `--prefill_budget_ms`) need.
+chunked prefill (`--prefill_chunk_tokens`, `--prefill_budget_ms`) need,
+as do the host spill tier (`--kv_host_bytes`: the byte budget for
+evicted prefix chains kept in host memory and revived by upload; -1
+resolves from EDL_KV_HOST_BYTES, 0 = off) and the chain handoff of
+disaggregated serving. `--role` is the phase the replica advertises in
+its status (prefill, decode or unified; "" resolves from
+EDL_SERVING_ROLE, default unified): a prefill replica answers
+`prefill_only` generates and `export_chain`, a decode replica
+`transfer_chain` (every role answers all three).
 `--profile 1` arms the step profiler. With --checkpoint_dir the server
 keeps following the directory and swaps in newer versions between
 decode steps, `--reload_poll_secs` apart (0 = only through
@@ -46,8 +55,7 @@ checkpoint of int8 weights (api/quantization) is served dequantized
 once at load.
 
 Not accepted yet (each raises with the ROADMAP item that brings it):
-`--kv_host_bytes` and `--role` (Queue 1 item 3, the host spill tier and
-disaggregation), `--metrics_port`, `--forensics`, `--runtime_health`,
+`--metrics_port`, `--forensics`, `--runtime_health`,
 `--stall_after_secs` and `--tensorboard_log_dir` (item 6, the
 replica's metrics plane). `serve_lines` is a library function that
 answers JSON request lines in-process.
@@ -68,11 +76,9 @@ logger = logging.getLogger(__name__)
 PORT_ZOO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "model_zoo")
 
-_ITEM3 = "ROADMAP Queue 1 item 3 (the host spill tier, disaggregation)"
 _ITEM6 = "ROADMAP Queue 1 item 6 (the replica's metrics plane)"
 #: the JAX entry's flags the port does not take yet -> what brings them
 NOT_PORTED = {
-    "--kv_host_bytes": _ITEM3, "--role": _ITEM3,
     "--metrics_port": _ITEM6, "--forensics": _ITEM6,
     "--runtime_health": _ITEM6, "--stall_after_secs": _ITEM6,
     "--tensorboard_log_dir": _ITEM6,
@@ -119,6 +125,14 @@ def parse_serving_args(args=None):
     parser.add_argument("--kv_num_blocks", type=int, default=0,
                         help="block budget; 0 = dense-equivalent bytes")
     parser.add_argument("--kv_shared", type=int, default=1, choices=(0, 1))
+    parser.add_argument("--kv_host_bytes", type=int, default=-1,
+                        help="host spill tier's byte budget (paged pool "
+                             "only); -1 resolves from EDL_KV_HOST_BYTES, "
+                             "0 = off")
+    parser.add_argument("--role", default="",
+                        choices=("", "prefill", "decode", "unified"),
+                        help="the phase the replica advertises; empty "
+                             "resolves from EDL_SERVING_ROLE (unified)")
     parser.add_argument("--reload_poll_secs", type=float, default=2.0,
                         help="seconds between polls of --checkpoint_dir "
                              "for a newer version; 0 = explicit reloads "
@@ -228,6 +242,8 @@ def build_server(args):
             kv_block_size=args.kv_block_size,
             kv_num_blocks=args.kv_num_blocks,
             kv_shared=bool(args.kv_shared),
+            kv_host_bytes=unset(args.kv_host_bytes),
+            role=args.role or None,
             draft_k=args.draft_k if draft is not None else 0,
             prefill_chunk_tokens=unset(args.prefill_chunk_tokens),
             prefill_budget_ms=unset(args.prefill_budget_ms),

@@ -1,7 +1,8 @@
 """The generation server: the port of elasticdl_tpu/serving/server.py's
 ServingConfig, scheduler loop, ServingServicer and GenerationServer, on
-the port's transport (proto/service.py), without its forensics,
-tracing or health plane.
+the port's transport (proto/service.py), with the disaggregated chain
+handoff's methods (serving/disagg.py), without its forensics, tracing or
+health plane.
 
 Wiring (one process):
 
@@ -25,7 +26,8 @@ that made them, to the requests' event queues. Handler threads (the
 transport's, or in-process callers) only submit to the admission queue
 and wait on their request's events, always with a timeout, so a lost
 scheduler surfaces as an error and never as a hang; they never touch
-the device (`server_status` reads host-side counters only).
+the device (`server_status` reads host-side counters only); a chain
+export or import runs on the scheduler thread as a submitted job.
 
 The engine is the dense pool unless `kv_paged` (None resolves from
 EDL_KV_PAGED, as in the JAX package, so dense by default); speculative
@@ -36,6 +38,7 @@ master's choke point (common/fault_injection.py, EDL_FAULT_SPEC) with
 the serving RPC names, e.g. ``generate:error:3``.
 """
 
+import contextlib
 import threading
 import time
 
@@ -45,6 +48,7 @@ from elasticdl_tpu_torch.common.fault_injection import (
     maybe_wrap_servicer,
 )
 from elasticdl_tpu_torch.proto import messages as pb
+from elasticdl_tpu_torch.serving import disagg
 from elasticdl_tpu_torch.serving.admission import (
     AdmissionError,
     RequestQueue,
@@ -54,10 +58,12 @@ from elasticdl_tpu_torch.serving.engine import (
     ContinuousBatchingEngine,
     PagedContinuousBatchingEngine,
     StepProfiler,
+    kv_host_bytes_default,
     kv_paged_default,
     prefill_budget_default,
     prefill_chunk_default,
     profile_default,
+    role_default,
 )
 from elasticdl_tpu_torch.serving.hot_reload import (
     CheckpointWatcher,
@@ -83,14 +89,19 @@ class ServingConfig(object):
     directory of checkpoints the server follows, reload_poll_secs apart
     (0 = explicit reloads only). port: the transport's port when the
     server is started with it (0 = an ephemeral one); max_workers: the
-    transport's handlers that may run at once."""
+    transport's handlers that may run at once. kv_host_bytes: the paged
+    pool's host spill tier in bytes (None resolves from
+    EDL_KV_HOST_BYTES; 0 = eviction forgets). role: the phase the
+    replica advertises for disaggregated serving, "prefill", "decode" or
+    "unified" (None resolves from EDL_SERVING_ROLE, default unified)."""
 
     def __init__(self, num_slots=4, queue_capacity=64, top_k=0, top_p=1.0,
                  idle_wait_secs=0.05, handler_poll_secs=0.25,
                  kv_paged=None, kv_block_size=16, kv_num_blocks=0,
                  kv_shared=True, draft_k=0, prefill_chunk_tokens=None,
                  prefill_budget_ms=None, profile=None, checkpoint_dir="",
-                 reload_poll_secs=2.0, port=0, max_workers=64):
+                 reload_poll_secs=2.0, port=0, max_workers=64,
+                 kv_host_bytes=None, role=None):
         self.num_slots = int(num_slots)
         self.queue_capacity = int(queue_capacity)
         self.top_k = int(top_k)
@@ -114,6 +125,12 @@ class ServingConfig(object):
         self.reload_poll_secs = float(reload_poll_secs)
         self.port = int(port)
         self.max_workers = int(max_workers)
+        self.kv_host_bytes = (kv_host_bytes_default() if kv_host_bytes is None
+                              else int(kv_host_bytes))
+        self.role = role_default() if role is None else str(role)
+        if self.role not in ("prefill", "decode", "unified"):
+            raise ValueError("role must be prefill|decode|unified, got %r"
+                             % (self.role,))
 
 
 def _admit_request(queue, telemetry, req):
@@ -406,22 +423,26 @@ class _Scheduler(threading.Thread):
 class ServingServicer(object):
     """The Serving methods (proto/service.py's table) over `scheduler`'s
     queue, engine and telemetry: generate, generate_stream,
-    server_status, reload_checkpoint. Called with a context of None
-    (the port's transport, or in-process), a failure raises
-    AdmissionError with its status name, which the transport answers
-    with that status, as the JAX servicer's `context.abort` does over
-    gRPC."""
+    server_status, reload_checkpoint and the chain handoff's
+    export_chain, transfer_chain and abort_transfer. `role` is the phase
+    the replica advertises. Called with a context of None (the port's
+    transport, or in-process), a failure raises AdmissionError with its
+    status name, which the transport answers with that status, as the
+    JAX servicer's `context.abort` does over gRPC."""
 
-    #: the advertised phase role (disaggregation is not ported)
-    ROLE = "unified"
-
-    def __init__(self, scheduler, handler_poll_secs=0.25):
+    def __init__(self, scheduler, handler_poll_secs=0.25, role="unified"):
         self._scheduler = scheduler
         self._queue = scheduler.queue
         self._engine = scheduler.engine
         self._telemetry = scheduler.telemetry
         self._watcher = scheduler.watcher
         self._poll = handler_poll_secs
+        self._role = role
+        # the transfer ledger: transfer calls executing now (0 after a
+        # drain) and aborts closed out here
+        self._transfers_inflight = 0
+        self._transfer_aborts = 0
+        self._transfers_lock = threading.Lock()
 
     # ------------------------------------------------------------- RPCs
 
@@ -443,6 +464,75 @@ class ServingServicer(object):
                                 model_version=req.model_version)
 
         return stream()
+
+    def _shared_pool(self, context, what):
+        """The engine's prefix-shared paged pool, or FAILED_PRECONDITION."""
+        kv = getattr(self._engine, "kv", None)
+        if kv is None or not kv.allocator.share_prefix:
+            self._fail(context, "FAILED_PRECONDITION",
+                       "chain %s needs the shared paged pool" % what)
+        return kv
+
+    @contextlib.contextmanager
+    def _transfer(self):
+        with self._transfers_lock:
+            self._transfers_inflight += 1
+        try:
+            yield
+        finally:
+            with self._transfers_lock:
+                self._transfers_inflight -= 1
+
+    def export_chain(self, request, context=None):
+        """The handoff's exporter side: the prompt's indexed chain (int8
+        rows and scales alike, through the host tier's gather) as the
+        TransferChainRequest the decode side imports verbatim, gathered
+        on the scheduler thread. Holds no references: the chain stays
+        parked refcount-0. NOT_FOUND when no full prompt block is
+        indexed."""
+        kv = self._shared_pool(context, "export")
+        prompt = list(request.prompt)
+        with self._transfer():
+            chain, dtypes = self._scheduler.submit_job(
+                lambda: (kv.export_chain(prompt), kv.leaf_dtypes()))
+            if not chain:
+                self._fail(context, "NOT_FOUND",
+                           "no resident chain for prompt")
+            return disagg.chain_to_proto(chain, kv.block_size, dtypes,
+                                         request.transfer_id)
+
+    def transfer_chain(self, request, context=None):
+        """The handoff's importer side: the payload's blocks land in
+        fresh blocks re-keyed into the trie in one batched upload, on the
+        scheduler thread; the next generate with the prompt seats by
+        prefix hit. The response's blocks / tokens are the chain's
+        coverage here (imported plus already resident levels). A layout
+        that does not match is ok=False, not an RPC error."""
+        kv = self._shared_pool(context, "import")
+        with self._transfer():
+            try:
+                blocks, dtypes = disagg.proto_to_blocks(request, kv)
+
+                def import_and_resolve():
+                    kv.import_chain(blocks, leaf_dtypes=dtypes)
+                    flat = [t for toks, _ in blocks for t in toks]
+                    return len(kv.allocator.match_prefix(flat))
+
+                resolved = self._scheduler.submit_job(import_and_resolve)
+            except ValueError as e:
+                return pb.TransferChainResponse(
+                    transfer_id=request.transfer_id, ok=False, error=str(e))
+            return pb.TransferChainResponse(
+                transfer_id=request.transfer_id, ok=True, blocks=resolved,
+                tokens=resolved * kv.block_size)
+
+    def abort_transfer(self, request, context=None):
+        """Close a failed handoff: exports hold no references, so this
+        is the failure's record in the ledger."""
+        with self._transfers_lock:
+            self._transfer_aborts += 1
+        return pb.TransferChainResponse(transfer_id=request.transfer_id,
+                                        ok=True)
 
     def reload_checkpoint(self, request, context=None):
         """Swap to exactly request.version, newer or older, on the
@@ -470,13 +560,16 @@ class ServingServicer(object):
 
     def server_status(self, request, context=None):
         """The replica's status from host-side counters (no device
-        sync). The health plane is off (health_state ""), the role is
-        "unified", and the host-tier and chain fields are 0: those
-        planes are not ported."""
+        sync): the pool's host-tier and chain counters, the role and the
+        transfer ledger among them. The health plane is not ported
+        (health_state "")."""
         snap = self._telemetry.snapshot()
         engine = self._engine
         kv = engine.kv_stats()
         watcher = self._watcher
+        with self._transfers_lock:
+            transfer_aborts = self._transfer_aborts
+            transfers_inflight = self._transfers_inflight
         return pb.ServerStatusResponse(
             queue_depth=len(self._queue),
             active_slots=engine.active_count(),
@@ -524,10 +617,12 @@ class ServingServicer(object):
             ttft_hist=snap["ttft_hist"],
             queue_wait_hist=snap["queue_wait_hist"],
             slow_cause_counts=snap["slow_cause_counts"],
-            role=self.ROLE,
+            role=self._role,
             chain_exports=kv.get("chain_exports", 0),
             chain_imports=kv.get("chain_imports", 0),
             chain_import_tokens=kv.get("chain_import_tokens", 0),
+            transfer_aborts=transfer_aborts,
+            transfers_inflight=transfers_inflight,
             reload_failed=bool(watcher.reload_failed) if watcher else False,
             reload_error=watcher.last_error if watcher else "",
         )
@@ -535,16 +630,13 @@ class ServingServicer(object):
     # --------------------------------------------------------- internals
 
     def _admit(self, proto_req, context):
-        if proto_req.prefill_only:
-            self._fail(context, "UNIMPLEMENTED",
-                       "prefill_only needs the disaggregated serving path, "
-                       "which is not ported yet")
         req = ServingRequest(
             prompt=list(proto_req.prompt),
             max_new_tokens=proto_req.max_new_tokens,
             temperature=proto_req.temperature,
             seed=proto_req.seed,
             deadline_ms=proto_req.deadline_ms,
+            prefill_only=proto_req.prefill_only,
         )
         try:
             return _admit_request(self._queue, self._telemetry, req)
@@ -602,7 +694,8 @@ class GenerationServer(object):
                 block_size=cfg.kv_block_size, num_blocks=cfg.kv_num_blocks,
                 share_prefix=cfg.kv_shared, draft=draft,
                 draft_k=cfg.draft_k,
-                prefill_chunk_tokens=cfg.prefill_chunk_tokens)
+                prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+                host_bytes=cfg.kv_host_bytes)
         else:
             if draft is not None and cfg.draft_k:
                 raise ValueError(
@@ -630,7 +723,8 @@ class GenerationServer(object):
             watcher=self.watcher, prefill_budget_ms=cfg.prefill_budget_ms,
             telemetry=self.telemetry)
         self.raw_servicer = ServingServicer(
-            self.scheduler, handler_poll_secs=cfg.handler_poll_secs)
+            self.scheduler, handler_poll_secs=cfg.handler_poll_secs,
+            role=cfg.role)
         self.servicer = maybe_wrap_servicer(self.raw_servicer, injector,
                                             rpcs=SERVING_RPCS)
         self._server = None
@@ -685,7 +779,8 @@ class GenerationServer(object):
         prefilling, completed requests, the speculative counters, the
         KV pool's stats (the layout `kv_paged`, the format under
         `kv_cache_dtype`: "" or "int8"; blocks; bytes summed per leaf at
-        its dtype) and, with the step profiler, its phases under
+        its dtype; the paged pool's host-tier and chain counters), the
+        advertised `role` and, with the step profiler, its phases under
         `profile`. `raw_servicer.server_status` answers the
         ServerStatusResponse."""
         engine, watcher = self.engine, self.watcher
@@ -706,13 +801,15 @@ class GenerationServer(object):
             draft_k=engine.draft_k,
             draft_proposed=engine.draft_proposed,
             draft_accepted=engine.draft_accepted,
+            role=self.config.role,
             **engine.kv_stats(), **extra)
 
     def submit(self, prompt, max_new_tokens, temperature=0.0, seed=0,
-               deadline_ms=0):
+               deadline_ms=0, prefill_only=False):
         """Admit one request (raises AdmissionError) and return it."""
         req = ServingRequest(prompt, max_new_tokens, temperature=temperature,
-                             seed=seed, deadline_ms=deadline_ms)
+                             seed=seed, deadline_ms=deadline_ms,
+                             prefill_only=prefill_only)
         return _admit_request(self.queue, self.telemetry, req)
 
     def generate_stream(self, prompt, max_new_tokens, temperature=0.0,

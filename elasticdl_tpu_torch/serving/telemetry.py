@@ -38,8 +38,11 @@ class ServingTelemetry(object):
     #: seated by shared-prefix incref, prompt_tokens every prompt token
     #: seated (the hit rate's denominator), cow_copies the copy-on-write
     #: faults, draft_proposed / draft_accepted the speculative proposals;
-    #: the host-tier trio and the health pair are declared as in the JAX
-    #: package and stay 0 until those planes are ported.
+    #: revive_uploads / prefill_tokens_revived / host_drops the paged
+    #: pool's host tier (forwarded by the engine by delta, with the
+    #: kv_host_blocks / kv_host_bytes gauges fed each step); the health
+    #: pair is declared as in the JAX package and stays 0 until that
+    #: plane is ported.
     COUNTERS = ("admitted", "rejected", "expired", "completed",
                 "tokens_generated", "reloads", "prefix_hit_tokens",
                 "prompt_tokens", "cow_copies", "draft_proposed",

@@ -129,7 +129,8 @@ def _allocator_state(alloc, slots):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_block_allocator_tracks_jax_allocator_op_for_op(seed):
-    """The port keeps its own copy of the BlockAllocator (no host tier).
+    """The port keeps its own copy of the BlockAllocator (here without a
+    host tier; tests/test_torch_kv_host_tier.py holds that one).
     A random mix of seats on shared-prefix prompts, growth, CoW faults
     and releases, under pool pressure (reclaimable-LRU eviction and
     OutOfBlocks refusals), leaves both allocators in the same state

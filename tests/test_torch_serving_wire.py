@@ -241,13 +241,11 @@ def test_field_values_are_checked_as_protobuf_checks_them():
 
 def test_serving_table_and_fault_names_match_jax():
     assert service.SERVING_SERVICE_NAME == jservice.SERVING_SERVICE_NAME
-    ported = ("generate", "generate_stream", "server_status",
-              "reload_checkpoint")
+    # the whole table, the chain handoff's three methods included
     assert {k: (a.__name__, b.__name__, s)
             for k, (a, b, s) in service._SERVING_METHODS.items()} == {
         k: (a.__name__, b.__name__, s)
-        for k, (a, b, s) in jservice._SERVING_METHODS.items()
-        if k in ported}
+        for k, (a, b, s) in jservice._SERVING_METHODS.items()}
     assert fault_injection.SERVING_RPCS == jfault.SERVING_RPCS
 
 
@@ -710,6 +708,11 @@ class _FakeServing(object):
     def reload_checkpoint(self, request, _context=None):
         raise RuntimeError("no watcher")
 
+    def export_chain(self, request, _context=None):
+        raise RuntimeError("no pool")
+
+    transfer_chain = abort_transfer = export_chain
+
 
 def _fake_server(servicer, **kw):
     server = service.build_server(**kw)
@@ -747,11 +750,11 @@ def test_a_stream_ends_with_its_handler_status_after_the_chunks(fail, code):
         # a failure at admission: before any chunk
         assert code_of(lambda: list(stub.generate_stream(
             pb.GenerateRequest(), timeout=WAIT))) == "INVALID_ARGUMENT"
-        # a method of the table that is not ported, and a handler error
+        # a method that is not ported (the router's), and a handler error
         assert code_of(lambda: service.Channel(
             "localhost:%d" % _port).call(
-                "/elasticdl_tpu.Serving/export_chain", b"", timeout=WAIT)) \
-            == "UNIMPLEMENTED"
+                "/elasticdl_tpu.Router/router_generate", b"",
+                timeout=WAIT)) == "UNIMPLEMENTED"
         assert code_of(lambda: stub.reload_checkpoint(
             pb.ReloadCheckpointRequest(), timeout=WAIT)) == "UNKNOWN"
     finally:
@@ -932,12 +935,18 @@ def test_time_series_ring_matches_jax():
 
 
 def test_entry_flags_of_later_items_raise():
-    for flag, item in (("--kv_host_bytes", "item 3"), ("--role", "item 3"),
-                       ("--metrics_port", "item 6"),
+    for flag, item in (("--metrics_port", "item 6"),
                        ("--stall_after_secs", "item 6")):
         with pytest.raises(SystemExit):
             port_main.parse_serving_args([flag, "1"])
         assert item in port_main.NOT_PORTED[flag]
+    # item 3's flags are ported: the host tier's budget and the role
+    assert not {"--kv_host_bytes", "--role"} & set(port_main.NOT_PORTED)
+    args = port_main.parse_serving_args(["--kv_host_bytes", "4096",
+                                         "--role", "decode"])
+    assert (args.kv_host_bytes, args.role) == (4096, "decode")
+    with pytest.raises(SystemExit):
+        port_main.parse_serving_args(["--role", "router"])
     args = port_main.parse_serving_args([])
     assert (args.port, args.max_workers, args.device) == (50051, 64, "cuda")
     assert args.model_def == "transformer_lm.custom_model"
