@@ -338,7 +338,44 @@ repository checkout it sits in. Phases, each of which fails the run:
    of the wrong block size comes back ok=False; chain bytes, export /
    transfer / gather / upload ms, MB/s, TTFT after a handoff against a
    cold prefill; (5) serving/main.py's parser and build_server take
-   --kv_host_bytes and --role, and both reach ServerStatus.
+   --kv_host_bytes and --role, and both reach ServerStatus;
+29. the serving router at the flagship width: replicas R1 and R2 (512
+   blocks, 8 slots, block 16, prefix sharing) in this process, R3 the
+   serving entry's main() in a process of its own (this script run as
+   `chip_smoke.py --router-replica LOG <serving.main flags>`), and
+   `python -m elasticdl_tpu_torch.serving.router_main --port 0` as its
+   own process in front of the three; each replica's engine operations
+   (every seat with its request's trace id, every decode step) are
+   logged. (1) 24 requests (16 sharing a 512-token prefix with 96-token
+   suffixes, 8 distinct 992-token prompts, 32 new tokens; 16 through
+   router_generate_stream, 8 through router_generate) in waves of 8
+   concurrent RouterStub calls, each carrying its own trace id: routed
+   = completed = 24, affinity hits + misses = 24, hits > 0, shed 0, A
+   and B launched in this process's replicas; (5) in the quiet fleet
+   router_status's fleet TTFT p50 / p90 / p99 equal the percentiles of
+   the replicas' own ttft_hist buckets summed here, every ReplicaStatus
+   names its address, role, breaker and KV counters, the SLO block its
+   three objectives; (2) six interleaved passes of 16 fresh requests of
+   the same shapes at concurrency 8, direct to R1 and through a second
+   router fronting R1 alone: tokens/s, client TTFT, the router's e2e
+   p50 / p99, router_status round trips, each router's seconds to
+   ROUTER_READY; (3) 16 streams of 896-token prompts, 128 new tokens,
+   and R3 SIGKILLed once each has its first chunk: every stream
+   completes or ends UNAVAILABLE ("mid-stream") after its chunks, within
+   the dispatch timeout, the failed ones exactly R3's, R3 out of the
+   rotation within lease + 2 polls (3.5 s), then 8 more requests
+   complete with nothing shed; (6) each replica's logged operations
+   replayed on a fresh replica's engine (the same seats and batches),
+   step 1's with every A and B launch held to its plain version, and
+   every completed stream of steps 1-3 equal, token for token, to its
+   replay; (4) a prefill-role and a decode-role replica behind a router:
+   8 cold 1008-token prompts (16 new) one at a time through
+   router_generate_stream, 8 handoffs and no fallback, no A on the
+   decode replica, each stream equal to a unified replica's after its
+   own prefill-only warm-up; then a router with EDL_FAULT_SPEC=
+   disagg_handoff:drop:1 falls back once and its stream equals the
+   unified replica's cold one. Every child that dies unasked fails the
+   phase; routers exit 0 on SIGTERM.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -347,9 +384,12 @@ JSON line, a `packed`, a `windowed`, an `sp`, a `checkpoint`, a
 `host_embedding` JSON line (whose E and F launches by run also ride the
 `kernels` line as `launches_host_embedding`), a `serving_wire` line
 (A's and B's launches on that path ride the `kernels` line as
-`launches_serving_wire`) and a `serving_tiers` line (its A and B
+`launches_serving_wire`), a `serving_tiers` line (its A and B
 launches by part ride the `kernels` line as `launches_serving_tiers`,
-its checked launches' errors as `serving_tiers_max_abs_err`), each with
+its checked launches' errors as `serving_tiers_max_abs_err`) and a
+`serving_router` line (its A and B launches in this process's replicas
+ride the `kernels` line as `launches_serving_router`, its replayed
+launches' errors as `serving_router_max_abs_err`), each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -446,6 +486,7 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     kv_quantize_rows,
 )
 from elasticdl_tpu_torch.native.host_embedding import HostEmbeddingStore
+from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
 from elasticdl_tpu_torch.proto import messages as wire_pb
 from elasticdl_tpu_torch.proto import service as wire_service
 from elasticdl_tpu_torch.ops import _build
@@ -7250,7 +7291,7 @@ def _tiers_pass(server, specs):
 
 
 @contextlib.contextmanager
-def _attention_held_to_plain(errs, on_card):
+def _attention_held_to_plain(errs, on_card, where="tiers"):
     """Within: every launch of A (flash_forward) and B
     (paged_decode_partials) is held against its plain version on the
     same inputs, as _held_to_plain holds E and F: A by fwd_ok with out's
@@ -7272,8 +7313,8 @@ def _attention_held_to_plain(errs, on_card):
         errs.setdefault("flash_fwd", []).append(e["max_abs_err"])
         e["out_scale"] = max(out.float().abs().max().item(), 1.0)
         check(fwd_ok(dict(e, max_abs_err=e["max_abs_err"] / e["out_scale"])),
-              "flash_fwd differs from its plain version at %s on the tiers "
-              "path: %s" % (tuple(q.shape), e))
+              "flash_fwd differs from its plain version at %s on the %s "
+              "path: %s" % (tuple(q.shape), where, e))
         return out, lse
 
     def paged(qf, k_pool, v_pool, block_table, length, k_scale_pool=None,
@@ -7288,8 +7329,8 @@ def _attention_held_to_plain(errs, on_card):
                                         else "")
         errs.setdefault(name, []).append((got[0] - ref[0]).abs().max().item())
         check(all(e <= PAGED_TOL_REL for e in rel), "%s differs from its "
-              "plain version at %s on the tiers path: %s"
-              % (name, tuple(qf.shape), rel))
+              "plain version at %s on the %s path: %s"
+              % (name, tuple(qf.shape), where, rel))
         return got
 
     att.flash_forward, att.paged_decode_partials = fwd, paged
@@ -7752,6 +7793,734 @@ def serving_tiers_phase(device="cuda"):
     return out, launches, errs
 
 
+# ------------------------------------------ phase 29: the serving router
+
+ROUTER_SEED = 29
+ROUTER_PREFIX_LEN = 512  # the shared prefix: 32 blocks
+ROUTER_SUFFIX_LEN = 96  # each shared-prefix request's own suffix
+# prompt + new tokens fit the flagship's seq_len (1024): a 1000-token
+# prompt leaves room for 24, so the distinct prompts are 992 tokens (62
+# blocks) and the death drill's 896 (56 blocks, 128 new)
+ROUTER_DISTINCT_LEN = 992
+ROUTER_SHARED, ROUTER_DISTINCT = 16, 8  # the parity run's requests
+ROUTER_NEW = 32
+ROUTER_CONCURRENCY = 8
+ROUTER_OVERHEAD = 16  # requests of one overhead pass (8 shared, 8 not)
+# the passes, interleaved so that drift falls on both sides; each pass
+# draws fresh prompts, so none finds another's prefix in R1's cache
+ROUTER_OVERHEAD_ORDER = ("direct", "router", "router", "direct", "direct",
+                         "router")
+ROUTER_STATUS_CALLS = 20  # router_status round trips timed
+ROUTER_KILL_STREAMS = 16
+ROUTER_KILL_LEN = 896
+ROUTER_KILL_NEW = 128
+ROUTER_AFTER_KILL = 8
+ROUTER_HANDOFF_PROMPTS = 8
+ROUTER_HANDOFF_LEN = 1008  # 63 full blocks
+ROUTER_HANDOFF_NEW = 16  # 1008 + 16 = seq_len, as phase 28
+ROUTER_BLOCKS = 512  # the dense-equivalent pool of 8 slots
+# router_main's defaults, which the phase's routers run with
+ROUTER_POLL_S, ROUTER_LEASE_S, ROUTER_DISPATCH_S = 0.5, 2.5, 120.0
+ROUTER_WAIT_S = 600
+ROUTER_KERNELS = SERVING_KERNELS
+
+
+class _ScheduleLog(object):
+    """One replica's engine operations in order, enough to replay its
+    computation exactly: each seat (engine.insert) with the request's
+    trace id, prompt and sampling, and each decode step (engine.step).
+    The trace id rides from the servicer's admission to the queued
+    request on the admitting thread. `sink` is a list (a replica in this
+    process) or a path (a replica process: one JSON line an operation,
+    flushed as written, so a SIGKILL loses none)."""
+
+    def __init__(self, server, sink):
+        self._list = sink if isinstance(sink, list) else None
+        self._file = (None if self._list is not None
+                      else open(sink, "a", buffering=1))
+        local = threading.local()
+        servicer, queue, engine = (server.raw_servicer, server.queue,
+                                   server.engine)
+        admit, submit = servicer._admit, queue.submit
+        insert, step = engine.insert, engine.step
+
+        def admit_traced(proto_req, context):
+            local.trace = proto_req.trace_id
+            try:
+                return admit(proto_req, context)
+            finally:
+                local.trace = ""
+
+        def submit_traced(req):
+            req.trace_id = getattr(local, "trace", "")
+            return submit(req)
+
+        def insert_logged(req):
+            self._write(["insert", req.trace_id, req.prompt,
+                         req.max_new_tokens, req.temperature, req.seed,
+                         req.prefill_only])
+            return insert(req)
+
+        def step_logged():
+            self._write(["step"])
+            return step()
+
+        servicer._admit, queue.submit = admit_traced, submit_traced
+        engine.insert, engine.step = insert_logged, step_logged
+
+    def _write(self, entry):
+        if self._list is not None:
+            self._list.append(entry)
+        else:
+            self._file.write(json.dumps(entry) + "\n")
+
+
+def _read_schedule(path):
+    """A replica process's logged operations; a last line cut by the
+    SIGKILL is dropped."""
+    entries = []
+    with open(path) as f:
+        for line in f:
+            try:
+                entries.append(json.loads(line))
+            except ValueError:
+                break
+    return entries
+
+
+def router_replica_main(log_path, argv):
+    """Replica R3 of phase 29 (`chip_smoke.py --router-replica LOG
+    <serving.main flags>`): the serving entry's own main() over argv,
+    with its engine operations logged to LOG (_ScheduleLog), so that the
+    phase can replay what this process computed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = serving_main.build_server
+
+    def logged(args):
+        server = build(args)
+        _ScheduleLog(server, log_path)
+        return server
+
+    serving_main.build_server = logged
+    return serving_main.main(argv)
+
+
+def _router_replay(model, entries, errs, held, on_card):
+    """Re-run a replica's logged operations on a fresh replica's engine
+    (the same configuration and weights): the same seats and batches,
+    so the same computation. The first `held` operations run with every
+    A and B launch held to its plain version. Returns {trace id: the
+    generated tokens} and the replay's launches."""
+    from elasticdl_tpu_torch.serving.admission import ServingRequest
+
+    engine = _tiers_server(model, ROUTER_BLOCKS).engine
+    reqs = {}
+
+    def run(part):
+        for entry in part:
+            if entry[0] == "step":
+                engine.step()
+                continue
+            _op, trace, prompt, new, temp, seed, prefill_only = entry
+            check(trace not in reqs, "trace %s seated twice" % trace)
+            reqs[trace] = ServingRequest(prompt, new, temperature=temp,
+                                         seed=seed, prefill_only=prefill_only)
+            engine.insert(reqs[trace])
+
+    before = _tiers_counts()
+    with _attention_held_to_plain(errs, on_card, where="router"):
+        run(entries[:held])
+    run(entries[held:])
+    _sync("cuda" if on_card else "cpu")
+    launches = _tiers_delta(before)
+    del engine
+    return {t: list(r.generated) for t, r in reqs.items()}, launches
+
+
+class _Child(object):
+    """A child process of the phase whose output lines are collected."""
+
+    def __init__(self, argv, what, fault=""):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env.pop("EDL_FAULT_SPEC", None)
+        if fault:
+            env["EDL_FAULT_SPEC"] = fault
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (repo, env.get("PYTHONPATH")) if p)
+        self.what, self.lines = what, []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=repo, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        self.port = self.ready_s = None
+
+    def _read(self):
+        for line in iter(self.proc.stdout.readline, ""):
+            self.lines.append(line)
+
+    def tail(self):
+        return "".join(self.lines)[-3000:]
+
+    def ready(self, prefix):
+        """Wait for the `prefix ... port=N` line; returns N."""
+        deadline = time.monotonic() + WIRE_READY_SECS
+        while True:
+            hit = [l for l in list(self.lines) if l.startswith(prefix)]
+            if hit:
+                break
+            check(self.proc.poll() is None and time.monotonic() < deadline,
+                  "%s never printed %s (rc %s): %s" % (
+                      self.what, prefix, self.proc.poll(), self.tail()))
+            time.sleep(0.005)
+        self.ready_s = time.perf_counter() - self.t0
+        self.port = int(hit[0].split("port=")[1])
+        return self.port
+
+    def alive(self):
+        check(self.proc.poll() is None, "%s died unasked (rc %s): %s"
+              % (self.what, self.proc.poll(), self.tail()))
+
+    def stop(self):
+        """SIGTERM; the process must exit 0."""
+        self.alive()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = "hung"
+        check(rc == 0, "%s exited %s after SIGTERM: %s"
+              % (self.what, rc, self.tail()))
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._reader.join(timeout=30)
+        self.proc.stdout.close()
+
+
+def _router_child(addrs, what, fault=""):
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.serving.router_main",
+            "--port", "0"]
+    for addr in addrs:
+        argv += ["--replica", addr]
+    child = _Child(argv, what, fault)
+    child.ready("ROUTER_READY")
+    return child
+
+
+def _routed(stub, method, trace, prompt, new, out=None):
+    """One call carrying `trace` as its trace id, into `out`: the new
+    tokens, done, the failure's status (None) and details, the chunk
+    count and the client stamps (send, first token, end)."""
+    out = {} if out is None else out
+    out.update(trace=trace, tokens=[], done=False, code=None, chunks=0,
+               t_send=time.perf_counter())
+    req = wire_pb.GenerateRequest(prompt=prompt, max_new_tokens=new,
+                                  trace_id=trace)
+    try:
+        if method.endswith("_stream"):
+            for chunk in getattr(stub, method)(req, timeout=ROUTER_WAIT_S):
+                if not out["chunks"]:
+                    out["t_first"] = time.perf_counter()
+                out["chunks"] += 1
+                out["tokens"].extend(chunk.tokens)
+                out["done"] = chunk.done
+        else:
+            resp = getattr(stub, method)(req, timeout=ROUTER_WAIT_S)
+            out["t_first"] = time.perf_counter()
+            out["tokens"] = list(resp.tokens)[len(prompt):]
+            out["done"] = True
+    except wire_service.RpcError as e:
+        out["code"], out["details"] = e.code(), e.details()
+    out["t_end"] = time.perf_counter()
+    return out
+
+
+def _pool(calls, workers):
+    """Each call on a pool of `workers` client threads; the results in
+    order, each bounded by ROUTER_WAIT_S."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        futs = [ex.submit(c) for c in calls]
+        return [f.result(timeout=ROUTER_WAIT_S) for f in futs]
+
+
+def _all_ok(results, new, what):
+    for r in results:
+        check(r["code"] is None and r["done"] and len(r["tokens"]) == new,
+              "%s: %s ended with %s after %d tokens (%s)" % (
+                  what, r["trace"], r["code"], len(r["tokens"]),
+                  r.get("details", "")))
+
+
+def _interleave(shared, distinct):
+    """Two shared-prefix prompts, then one distinct, and so on."""
+    out, shared, distinct = [], list(shared), list(distinct)
+    while shared or distinct:
+        out += shared[:2] + distinct[:1]
+        shared, distinct = shared[2:], distinct[1:]
+    return out
+
+
+def _router_prompts(rs, n_shared, n_distinct):
+    vocab = FLAGSHIP["vocab_size"]
+    prefix = rs.randint(0, vocab, size=ROUTER_PREFIX_LEN).tolist()
+    return _interleave(
+        [prefix + rs.randint(0, vocab, size=ROUTER_SUFFIX_LEN).tolist()
+         for _ in range(n_shared)],
+        [rs.randint(0, vocab, size=ROUTER_DISTINCT_LEN).tolist()
+         for _ in range(n_distinct)])
+
+
+def _wait_polled(stub, n, what, roles=None):
+    """Until router_status shows `n` healthy replicas, each polled once
+    (free blocks reported) and, with `roles`, advertising them."""
+    deadline = time.monotonic() + 60
+    while True:
+        st = stub.router_status(wire_pb.RouterStatusRequest(), timeout=60)
+        polled = all(r.kv_blocks_free > 0 for r in st.replica)
+        if roles is not None:
+            polled = polled and {r.address: r.role
+                                 for r in st.replica} == roles
+        if st.healthy == n and polled:
+            return st
+        check(time.monotonic() < deadline, "%s: the router never showed "
+              "%d polled replicas: %r" % (what, n, st))
+        time.sleep(0.05)
+
+
+def _router_status_step(router, direct, addrs):
+    """(5) In a quiet fleet: router_status's fleet TTFT percentiles equal
+    those of the replicas' own ttft_hist buckets summed here, every
+    ReplicaStatus names its replica's address, role, breaker and KV
+    counters, and the SLO block holds the three objectives."""
+    time.sleep(2 * ROUTER_POLL_S + 0.2)
+    for _ in range(10):
+        own = {n: s.server_status(wire_pb.ServerStatusRequest(), timeout=60)
+               for n, s in direct.items()}
+        st = router.router_status(wire_pb.RouterStatusRequest(), timeout=60)
+        fleet = LogLinearHistogram()
+        for s in own.values():
+            fleet.merge(LogLinearHistogram.from_counts(s.ttft_hist))
+        want = [fleet.percentile(q) for q in (50, 90, 99)]
+        got = [st.ttft_p50_ms, st.ttft_p90_ms, st.ttft_p99_ms]
+        if got == want:
+            break
+        time.sleep(ROUTER_POLL_S)
+    check(got == want, "router_status fleet TTFT %s, the replicas' summed "
+          "buckets give %s" % (got, want))
+    check([s.name for s in st.slo] == ["ttft_p99", "e2e_p99", "goodput"],
+          "router_status slo block: %r" % (list(st.slo),))
+    by_addr = {r.address: r for r in st.replica}
+    for name, s in own.items():
+        r = by_addr.get(addrs[name])
+        check(r is not None and r.role == s.role == "unified"
+              and r.breaker == "closed" and r.healthy
+              and (r.kv_blocks_free, r.kv_blocks_cached, r.kv_blocks_shared)
+              == (s.kv_blocks_free, s.kv_blocks_cached, s.kv_blocks_shared),
+              "ReplicaStatus of %s: %r against its status %r" % (
+                  name, r, s))
+    return st, own, dict(zip(("p50", "p90", "p99"), got))
+
+
+def _overhead_pass(stub, method, label, prompts):
+    """(2) One pass of `prompts` at ROUTER_CONCURRENCY: its results and
+    wall, tokens/s, client TTFT."""
+    t0 = time.perf_counter()
+    res = _pool([lambda i=i, p=p: _routed(stub, method, "%s-%02d" % (
+        label, i), p, ROUTER_NEW) for i, p in enumerate(prompts)],
+        ROUTER_CONCURRENCY)
+    wall = time.perf_counter() - t0
+    _all_ok(res, ROUTER_NEW, label)
+    ttft = [(r["t_first"] - r["t_send"]) * 1e3 for r in res]
+    return res, ttft, {
+        "wall_s": wall,
+        "tokens_per_s": sum(len(r["tokens"]) for r in res) / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+    }
+
+
+def _death_step(router, r3, rs, addrs):
+    """(3) ROUTER_KILL_STREAMS streams at once; once every one has its
+    first chunk, SIGKILL R3. Each stream completes or ends UNAVAILABLE
+    after its chunks, within the dispatch timeout; router_status shows
+    2 healthy within lease + 2 polls; ROUTER_AFTER_KILL more requests
+    complete with nothing shed."""
+    vocab = FLAGSHIP["vocab_size"]
+    prompts = [rs.randint(0, vocab, size=ROUTER_KILL_LEN).tolist()
+               for _ in range(ROUTER_KILL_STREAMS)]
+    outs = [{} for _ in prompts]
+    threads = [threading.Thread(target=_routed, daemon=True, args=(
+        router, "router_generate_stream", "s3-%02d" % i, p, ROUTER_KILL_NEW,
+        outs[i])) for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + ROUTER_WAIT_S
+    while not all("t_first" in o or o.get("code") for o in outs):
+        check(time.monotonic() < deadline, "the death streams never all "
+              "delivered a first chunk")
+        time.sleep(0.001)
+    r3.alive()
+    t_kill = time.monotonic()
+    r3.proc.kill()
+    r3.proc.wait()
+    while True:
+        st = router.router_status(wire_pb.RouterStatusRequest(), timeout=60)
+        if st.healthy == 2:
+            evict_s = time.monotonic() - t_kill
+            break
+        check(time.monotonic() - t_kill < 60, "R3 never left the rotation: "
+              "%r" % st)
+        time.sleep(0.01)
+    check(evict_s <= ROUTER_LEASE_S + 2 * ROUTER_POLL_S,
+          "R3 left the rotation %.2f s after its SIGKILL (bound %.2f s)"
+          % (evict_s, ROUTER_LEASE_S + 2 * ROUTER_POLL_S))
+    for t in threads:
+        t.join(timeout=ROUTER_DISPATCH_S + 30)
+        check(not t.is_alive(), "a death stream hangs")
+    failed = []
+    for o in outs:
+        check(o["t_end"] - o["t_send"] < ROUTER_DISPATCH_S,
+              "stream %s took %.1f s" % (o["trace"], o["t_end"] - o["t_send"]))
+        if o["code"] is None:
+            check(o["done"] and len(o["tokens"]) == ROUTER_KILL_NEW,
+                  "stream %s ended without an error after %d tokens"
+                  % (o["trace"], len(o["tokens"])))
+        else:
+            check(o["code"] == "UNAVAILABLE" and o["chunks"] >= 1
+                  and "mid-stream" in o["details"],
+                  "stream %s failed %s after %d chunks: %s" % (
+                      o["trace"], o["code"], o["chunks"], o["details"]))
+            failed.append(o["trace"])
+    after = _pool([lambda i=i, p=p: _routed(
+        router, "router_generate_stream", "s3b-%02d" % i, p, ROUTER_NEW)
+        for i, p in enumerate(
+            rs.randint(0, vocab, size=ROUTER_DISTINCT_LEN).tolist()
+            for _ in range(ROUTER_AFTER_KILL))], ROUTER_CONCURRENCY)
+    _all_ok(after, ROUTER_NEW, "after the kill")
+    st = router.router_status(wire_pb.RouterStatusRequest(), timeout=60)
+    check(st.shed == 0 and st.healthy == 2, "router_status after the "
+          "kill: %r" % st)
+    r3_row = [r for r in st.replica if r.address == addrs["R3"]][0]
+    done = [o for o in outs if o["code"] is None]
+    return done + after, failed, {
+        "streams": len(outs), "explicit_failures": len(failed),
+        "completed": len(done), "kill_to_eviction_s": evict_s,
+        "eviction_bound_s": ROUTER_LEASE_S + 2 * ROUTER_POLL_S,
+        "longest_stream_s": max(o["t_end"] - o["t_send"] for o in outs),
+        "redispatched": st.redispatched, "breaker_trips": st.breaker_trips,
+        "r3_breaker": r3_row.breaker, "after_kill_completed": len(after),
+        "shed": st.shed}
+
+
+def _handoff_step(model, rs, on_card):
+    """(4) A prefill-role and a decode-role replica behind a router with
+    --disagg 1: ROUTER_HANDOFF_PROMPTS cold prompts, one at a time,
+    each handed off (the decode replica launches no A) and equal to a
+    unified replica's stream after its own prefill-only warm-up; then a
+    router whose EDL_FAULT_SPEC drops the disagg_handoff hook once
+    falls back, and its stream equals the unified replica's cold one."""
+    vocab = FLAGSHIP["vocab_size"]
+    servers = {r: _tiers_server(model, ROUTER_BLOCKS, role=r).start(
+        transport=True) for r in ("prefill", "decode", "unified")}
+    addrs = {r: "localhost:%d" % s.port for r, s in servers.items()}
+    stubs = {r: wire_service.ServingStub(wire_service.build_channel(a))
+             for r, a in addrs.items()}
+    dec = servers["decode"].engine
+    dec_launches = dict.fromkeys(ROUTER_KERNELS, 0)
+
+    def counted(fn):
+        def run(*args):
+            before = _tiers_counts()
+            try:
+                return fn(*args)
+            finally:
+                _sync("cuda" if on_card else "cpu")
+                for n, c in _tiers_delta(before).items():
+                    if n in dec_launches:
+                        dec_launches[n] += c
+        return run
+
+    dec.insert, dec.step = counted(dec.insert), counted(dec.step)
+    roles = {addrs["prefill"]: "prefill", addrs["decode"]: "decode"}
+    out, children = {}, []
+    try:
+        for fault in ("", "disagg_handoff:drop:1"):
+            child = _router_child([addrs["prefill"], addrs["decode"]],
+                                  "the handoff router", fault)
+            children.append(child)
+            router = wire_service.RouterStub(wire_service.build_channel(
+                "localhost:%d" % child.port))
+            _wait_polled(router, 2, "the handoff router", roles)
+            n = 1 if fault else ROUTER_HANDOFF_PROMPTS
+            before = dict(dec_launches)
+            ttft = []
+            for i in range(n):
+                prompt = rs.randint(0, vocab, size=ROUTER_HANDOFF_LEN).tolist()
+                got = _routed(router, "router_generate_stream",
+                              "s4-%s%d" % ("f" if fault else "", i), prompt,
+                              ROUTER_HANDOFF_NEW)
+                _all_ok([got], ROUTER_HANDOFF_NEW, "handoff")
+                ttft.append((got["t_first"] - got["t_send"]) * 1e3)
+                if not fault:
+                    stubs["unified"].generate(wire_pb.GenerateRequest(
+                        prompt=prompt, max_new_tokens=1, prefill_only=True),
+                        timeout=ROUTER_WAIT_S)
+                want = _routed(stubs["unified"], "generate_stream", "ref",
+                               prompt, ROUTER_HANDOFF_NEW)["tokens"]
+                check(got["tokens"] == want, "handoff%s: the routed stream "
+                      "leaves the unified replica's from position %s" % (
+                          " fallback" if fault else "",
+                          _first_divergence(got["tokens"], want)))
+            st = router.router_status(wire_pb.RouterStatusRequest(),
+                                      timeout=60)
+            want_counts = (0, 1) if fault else (n, 0)
+            check((st.disagg_handoffs, st.disagg_fallbacks) == want_counts
+                  and st.completed == n,
+                  "handoff router%s: handoffs %d, fallbacks %d, completed %d"
+                  % (" (fault)" if fault else "", st.disagg_handoffs,
+                     st.disagg_fallbacks, st.completed))
+            launched = {k: dec_launches[k] - before[k] for k in dec_launches}
+            if on_card and not fault:
+                check(launched["flash_fwd"] == 0 and launched[
+                    "paged_decode"] > 0, "the decode replica's launches "
+                      "over the handoffs: %s" % launched)
+            out["fallback" if fault else "handoffs"] = {
+                "prompts": n, "disagg_handoffs": st.disagg_handoffs,
+                "disagg_fallbacks": st.disagg_fallbacks,
+                "streams_equal_unified": n,
+                "client_ttft_ms_p50": float(np.percentile(ttft, 50)),
+                "decode_replica_launches": launched,
+                "router_ready_s": child.ready_s}
+            child.stop()
+        exports = stubs["prefill"].server_status(
+            wire_pb.ServerStatusRequest(), timeout=60).chain_exports
+        check(exports == ROUTER_HANDOFF_PROMPTS, "the prefill replica "
+              "exported %d chains" % exports)
+    finally:
+        for child in children:
+            child.close()
+        for s in servers.values():
+            s.stop(timeout=120)
+    for s in servers.values():
+        check(s.scheduler.crashed is None,
+              "scheduler crashed: %r" % (s.scheduler.crashed,))
+    return out
+
+
+def serving_router_phase(device="cuda"):
+    """Phase 29: the port's router (`python -m
+    elasticdl_tpu_torch.serving.router_main`, its own process, importing
+    no torch) in front of flagship paged replicas (bf16, seeded weights,
+    8 slots, 512 blocks of 16, prefix sharing): R1 and R2 in this
+    process, R3 a serving-entry process (router_replica_main). Clients
+    are RouterStub calls carrying their own trace ids. (1) 24 requests
+    in waves of 8 concurrent ones, two heartbeats apart (16 share a
+    512-token prefix, 16 streamed); (5)
+    router_status in the quiet fleet; (2) overhead: passes of 16 fresh
+    requests of the same shapes direct to R1 and through a second router
+    fronting R1 alone; (3) R3 SIGKILLed mid-stream; (6) each replica's
+    logged operations replayed on a fresh replica's engine, step 1's
+    with every A and B launch held to its plain version, and every
+    completed routed or direct stream of steps 1-3 equal to its replay;
+    (4) the router-driven handoff. Its own generator (ROUTER_SEED)."""
+    on_card = device == "cuda"
+    rs = np.random.RandomState(ROUTER_SEED)
+    model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+    out, errs = {}, {}
+    workdir = tempfile.mkdtemp(prefix="router_phase_")
+    r3_log = os.path.join(workdir, "r3.jsonl")
+    r3 = _Child([sys.executable, os.path.abspath(__file__),
+                 "--router-replica", r3_log, "--device", device, "--port",
+                 "0", "--model_params", _params_str(FLAGSHIP), "--num_slots",
+                 "8", "--kv_paged", "1", "--kv_block_size", "16",
+                 "--kv_num_blocks", str(ROUTER_BLOCKS)], "replica R3")
+    children, servers, logs = [r3], {}, {"R1": [], "R2": []}
+    try:
+        for name in ("R1", "R2"):
+            servers[name] = _tiers_server(model, ROUTER_BLOCKS).start(
+                transport=True)
+            _ScheduleLog(servers[name], logs[name])
+        r3.ready("SERVING_READY")
+        out["r3_ready_s"] = r3.ready_s
+        addrs = {n: "localhost:%d" % s.port for n, s in servers.items()}
+        addrs["R3"] = "localhost:%d" % r3.port
+        direct = {n: wire_service.ServingStub(wire_service.build_channel(a))
+                  for n, a in addrs.items()}
+        for name, stub in direct.items():  # warm, outside the counts
+            _all_ok([_routed(stub, "generate_stream", "warm-" + name,
+                             [1, 2, 3, 4], 2)], 2, "warm-up")
+        main = _router_child([addrs[n] for n in ("R1", "R2", "R3")],
+                             "the router")
+        children.append(main)
+        out["router_ready_s"] = main.ready_s
+        router = wire_service.RouterStub(wire_service.build_channel(
+            "localhost:%d" % main.port))
+        _wait_polled(router, 3, "the router")
+        # (1) parity and affinity
+        prompts = _router_prompts(rs, ROUTER_SHARED, ROUTER_DISTINCT)
+        methods = ["router_generate" if i % 3 == 1 else
+                   "router_generate_stream" for i in range(len(prompts))]
+        _sync(device)
+        att.reset_launch_counts()
+        step1 = []
+        for w in range(0, len(prompts), ROUTER_CONCURRENCY):
+            if w:  # the router sees the warm chains before the next wave
+                time.sleep(2 * ROUTER_POLL_S + 0.1)
+            step1 += _pool([lambda i=i, p=p: _routed(
+                router, methods[i], "s1-%02d" % i, p, ROUTER_NEW)
+                for i, p in enumerate(prompts[w:w + ROUTER_CONCURRENCY],
+                                      w)], ROUTER_CONCURRENCY)
+        _sync(device)
+        launches = {n: att.KERNEL_LAUNCHES[n] for n in ROUTER_KERNELS}
+        _all_ok(step1, ROUTER_NEW, "parity")
+        marks = {n: len(log) for n, log in logs.items()}
+        if on_card:
+            for name in ("flash_fwd", "paged_decode"):
+                check(launches[name] > 0, "kernel %s was not launched in "
+                      "this process's replicas on the routed path" % name)
+        # (5) router_status in the quiet fleet
+        st, own, fleet_ttft = _router_status_step(router, direct, addrs)
+        n = len(prompts)
+        check(st.routed == st.completed == n and st.shed == 0
+              and st.affinity_hits + st.affinity_misses == n
+              and st.affinity_hits > 0,
+              "router_status after the parity run: routed %d completed %d "
+              "shed %d affinity %d / %d" % (st.routed, st.completed, st.shed,
+                                            st.affinity_hits,
+                                            st.affinity_misses))
+        out["parity"] = {
+            "requests": n, "streamed": methods.count("router_generate_stream"),
+            "unary": methods.count("router_generate"),
+            "routed": st.routed, "completed": st.completed, "shed": st.shed,
+            "affinity_hits": st.affinity_hits,
+            "affinity_misses": st.affinity_misses,
+            "prefix_hit_tokens": sum(s.prefix_hit_tokens
+                                     for s in own.values()),
+            "by_replica": {n: s.completed - 1 for n, s in own.items()},
+            "launches_in_process": launches}
+        out["status"] = {
+            "fleet_ttft_ms": fleet_ttft, "equal_summed_buckets": True,
+            "slo": {s.name: {"fast_burn": s.fast_burn,
+                             "slow_burn": s.slow_burn,
+                             "fast_samples": s.fast_samples,
+                             "threshold_ms": s.threshold_ms}
+                    for s in st.slo},
+            "replica_rows": len(st.replica)}
+        # (2) overhead: direct to R1 against a router fronting R1 alone
+        second = _router_child([addrs["R1"]], "the R1 router")
+        children.append(second)
+        r1_router = wire_service.RouterStub(wire_service.build_channel(
+            "localhost:%d" % second.port))
+        _wait_polled(r1_router, 1, "the R1 router")
+        half = ROUTER_OVERHEAD // 2
+        passes, step2 = {"direct": [], "router": []}, []
+        ttfts = {"direct": [], "router": []}
+        for k, label in enumerate(ROUTER_OVERHEAD_ORDER):
+            stub, method = ((direct["R1"], "generate_stream")
+                            if label == "direct" else
+                            (r1_router, "router_generate_stream"))
+            res, ttft, summary = _overhead_pass(
+                stub, method, "s2-%d" % k, _router_prompts(rs, half, half))
+            passes[label].append(summary)
+            ttfts[label] += ttft
+            step2 += res
+        r1_st = r1_router.router_status(wire_pb.RouterStatusRequest(),
+                                        timeout=60)
+        rtt = []
+        for _ in range(ROUTER_STATUS_CALLS):
+            t0 = time.perf_counter()
+            router.router_status(wire_pb.RouterStatusRequest(), timeout=60)
+            rtt.append(time.perf_counter() - t0)
+        second.stop()
+
+        def median(label):
+            return float(np.median([p["tokens_per_s"]
+                                    for p in passes[label]]))
+
+        out["overhead"] = {
+            "passes": passes,
+            "tokens_per_s_median": {k: median(k) for k in passes},
+            "router_over_direct_tokens_per_s": (median("router")
+                                                / median("direct")),
+            "ttft_ms": {k: {"p50": float(np.percentile(v, 50)),
+                            "p99": float(np.percentile(v, 99))}
+                        for k, v in ttfts.items()},
+            "router_minus_direct_ttft_ms_p50": float(
+                np.percentile(ttfts["router"], 50)
+                - np.percentile(ttfts["direct"], 50)),
+            "router_e2e_ms_p50": r1_st.e2e_p50_ms,
+            "router_e2e_ms_p99": r1_st.e2e_p99_ms,
+            "router_status_rtt": _pcts(rtt),
+            "router_ready_s": second.ready_s}
+        # (3) replica death
+        step3, failed, out["death"] = _death_step(router, r3, rs, addrs)
+        main.stop()
+        for s in servers.values():
+            s.stop(timeout=120)
+        for s in servers.values():
+            check(s.scheduler.crashed is None,
+                  "scheduler crashed: %r" % (s.scheduler.crashed,))
+        # (6) the replays: step 1's launches held to their plain versions
+        r3_entries = _read_schedule(r3_log)
+        marks["R3"] = next((i for i, e in enumerate(r3_entries)
+                            if e[0] == "insert" and e[1].startswith("s3-")),
+                           len(r3_entries))
+        r3_s3 = {e[1] for e in r3_entries
+                 if e[0] == "insert" and e[1].startswith("s3-")}
+        check(r3_s3 and r3_s3 == set(failed), "the streams R3 seated in "
+              "step 3 (%s) are not the ones that failed (%s)"
+              % (sorted(r3_s3), sorted(failed)))
+        refs, replayed = {}, {}
+        for name, entries in (("R1", logs["R1"]), ("R2", logs["R2"]),
+                              ("R3", r3_entries)):
+            got, replayed[name] = _router_replay(model, entries, errs,
+                                                 marks[name], on_card)
+            check(not set(got) & set(refs), "a trace seated on two "
+                  "replicas: %s" % sorted(set(got) & set(refs)))
+            refs.update(got)
+        compared = 0
+        for r in step1 + step2 + step3:
+            want = refs.get(r["trace"])
+            check(want is not None, "no replica seated %s" % r["trace"])
+            check(r["tokens"] == want, "%s leaves its replica's replay "
+                  "from position %s" % (r["trace"], _first_divergence(
+                      r["tokens"], want)))
+            compared += 1
+        out["replay"] = {"streams_equal": compared,
+                         "step1_equal": len(step1),
+                         "launches": replayed}
+        out["held_to_plain"] = {k: {"launches": len(v), "max_abs_err": max(v)}
+                                for k, v in errs.items()}
+        if on_card:
+            check(errs.get("flash_fwd") and errs.get("paged_decode"),
+                  "the replay held no A or B launch: %s" % sorted(errs))
+        del logs, r3_entries, refs
+        if on_card:
+            torch.cuda.empty_cache()
+        # (4) the handoff through the router
+        out["handoff"] = _handoff_step(model, rs, on_card)
+    finally:
+        for child in children:
+            child.close()
+        for s in servers.values():
+            s.stop(drain=False, timeout=120)
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["launches"] = launches
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    log("serving_router: %s" % json.dumps(out))
+    return out, launches, errs
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -7979,6 +8748,10 @@ def main():
     laps.to("serving_tiers")
     serving_tiers, tiers_launches, tiers_errs = serving_tiers_phase()
     torch.cuda.empty_cache()
+    # phase 29 draws from its own generator (ROUTER_SEED)
+    laps.to("serving_router")
+    serving_router, router_launches, router_errs = serving_router_phase()
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -8122,13 +8895,26 @@ def main():
             for key in ("max_abs_err", "max_err"):
                 if key in entry:
                     entry[key] = max(entry[key], max(tiers_errs[name]))
+    # phase 29's launches of A and B in this process's replicas on the
+    # routed path, and the errors of its replayed launches against their
+    # plain versions
+    for entry in kernels:
+        name = entry["name"]
+        if name in ROUTER_KERNELS:
+            entry["launches_serving_router"] = router_launches[name]
+        if router_errs.get(name):
+            entry["serving_router_max_abs_err"] = max(router_errs[name])
+            for key in ("max_abs_err", "max_err"):
+                if key in entry:
+                    entry[key] = max(entry[key], max(router_errs[name]))
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
              "sp": sp, "checkpoint": checkpoint,
              "serving_modes": serving_modes, "master_worker": master_worker,
              "lifecycle": lifecycle, "host_embedding": host_embedding,
-             "serving_wire": serving_wire, "serving_tiers": serving_tiers}
+             "serving_wire": serving_wire, "serving_tiers": serving_tiers,
+             "serving_router": serving_router}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -8153,6 +8939,7 @@ def main():
     print(json.dumps({"host_embedding": host_embedding}))
     print(json.dumps({"serving_wire": serving_wire}))
     print(json.dumps({"serving_tiers": serving_tiers}))
+    print(json.dumps({"serving_router": serving_router}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -8167,6 +8954,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ckpt-run"]:
         ckpt_run_main(int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
+    if sys.argv[1:2] == ["--router-replica"]:
+        sys.exit(router_replica_main(sys.argv[2], sys.argv[3:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

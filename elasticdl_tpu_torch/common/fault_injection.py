@@ -192,8 +192,8 @@ _SERVICER_RPCS = (
 )
 
 
-# The routing tier's surface (the router is not ported yet; its names
-# stay in SERVING_RPCS so one spec grammar covers both boundaries)
+# The routing tier's surface (serving/router.py); its names ride in
+# SERVING_RPCS so one spec grammar covers both boundaries
 ROUTER_RPCS = (
     "router_generate",
     "router_generate_stream",
@@ -204,7 +204,8 @@ ROUTER_RPCS = (
 # package names them; a servicer exposes only its own subset and the
 # wrapper skips the names it does not have. The port's replica serves
 # generate, generate_stream, server_status, the three chain-transfer
-# methods and reload_checkpoint.
+# methods and reload_checkpoint; the router serves the three router_*
+# methods and consults the disagg_handoff hook itself.
 SERVING_RPCS = (
     "generate",
     "generate_stream",

@@ -9,9 +9,11 @@ are linear, above that each power-of-two range is split into
 SUBBUCKETS/2 linear subbuckets, so the relative error is at most
 2/SUBBUCKETS (~3.1%) at every magnitude, in NUM_BUCKETS (832) buckets.
 
-Not ported: exemplars and the wire form (`exemplars_wire`,
-`from_counts`), which serve the JAX package's metrics plane and router.
-No lock: the owner of a histogram locks it.
+`to_counts` / `from_counts` are the wire form: the trimmed bucket counts
+a replica's ServerStatus carries and the router merges by addition.
+Not ported: exemplars (`exemplars_wire`, the exemplar argument of
+`from_counts`), which serve the JAX package's metrics plane (ROADMAP
+Queue 1 item 6). No lock: the owner of a histogram locks it.
 """
 
 import math
@@ -115,6 +117,25 @@ class LogLinearHistogram(object):
             if c:
                 last = i + 1
         return self.counts[:last]
+
+    @classmethod
+    def from_counts(cls, counts):
+        """Rebuild from wire-form counts. min / max / sum degrade to
+        bucket-midpoint estimates (within the scheme's relative error),
+        enough for percentiles, which need only the counts."""
+        h = cls()
+        for i, c in enumerate(counts):
+            c = int(c)
+            if c <= 0 or i >= NUM_BUCKETS:
+                continue
+            h.counts[i] = c
+            h.count += c
+            lo, hi = bucket_bounds(i)
+            mid = (lo + hi) / 2.0
+            h.sum += mid * c
+            h.min = min(h.min, mid)
+            h.max = max(h.max, mid)
+        return h
 
 
 def percentiles(values, qs=(50, 90, 99)):

@@ -1,15 +1,40 @@
 """The windowed time-series ring: the port's copy of `TimeSeriesRing`
-from elasticdl_tpu/observability/metrics.py, which the serving
-telemetry feeds and its windowed prefix-hit rate reads.
+from elasticdl_tpu/observability/metrics.py, which the serving and
+router telemetry feed, the windowed prefix-hit rate and the SLO
+burn-rate engine (observability/slo.py) read, with `add_counts` (the
+bucket addition every fleet merge uses) and `metrics_port_default`.
 
 Not ported: the Prometheus exposition, the metrics HTTP server, the
-exemplar maps, the ring's histogram and partial-window queries and the
-window merges of the fleet plane (the router and observability items of
-ROADMAP Queue 1).
+exemplar maps, the ring's partial-window queries and the window merges
+of the fleet collector (ROADMAP Queue 1 item 6).
 """
 
+import os
 import time
 from collections import deque
+
+
+def metrics_port_default():
+    """EDL_METRICS_PORT resolves the scrape port a config leaves unset:
+    unset or empty is off (None), an integer that port (0 = ephemeral),
+    anything else off."""
+    text = os.environ.get("EDL_METRICS_PORT", "")
+    if text == "":
+        return None
+    try:
+        return int(text)
+    except ValueError:
+        return None
+
+
+def add_counts(a, b):
+    """Elementwise bucket addition of two trimmed count lists."""
+    if len(a) < len(b):
+        a, b = b, a
+    out = list(a)
+    for i, c in enumerate(b):
+        out[i] += c
+    return out
 
 
 def _sub_counts(cur, base):
@@ -119,6 +144,17 @@ class TimeSeriesRing(object):
     def sum_counter(self, name, horizon_secs=None, now=None):
         return sum(w["counters"].get(name, 0)
                    for w in self.windows(horizon_secs, now))
+
+    def merged_hist_counts(self, name, horizon_secs=None, now=None):
+        """Bucket-added histogram deltas over the trailing horizon, for
+        LogLinearHistogram.from_counts or the SLO engine's threshold
+        count."""
+        out = []
+        for w in self.windows(horizon_secs, now):
+            counts = w["hists"].get(name)
+            if counts:
+                out = add_counts(out, counts)
+        return out
 
     def baseline_counter(self, name):
         """The cumulative value the open window started from."""

@@ -22,6 +22,10 @@ same bytes protobuf does for these messages:
 * repeated string, repeated bytes and repeated nested messages are
   one length-delimited record per item (never packed; an empty string
   or an empty message is still written), in list order;
+* a singular nested message is None while unset and then not written;
+  once set it is one length-delimited record, even when empty (a
+  zero-length record); on parse, occurrences merge as protobuf merges
+  them (the later one's set fields win, repeated fields concatenate);
 * `map<string, string>` and `map<string, int32>` are repeated entry
   messages (key = 1, value = 2, both always written) under the map's
   field number, in the dict's order;
@@ -37,9 +41,11 @@ same bytes protobuf does for these messages:
 The enums (`TaskType`, `TaskReason`) keep their numbers, and their
 values are module constants (`TRAINING` ... `NONE`, `JOB_COMPLETE`) as
 in the generated module. The serving messages are those of one
-replica (generate, generate_stream, server_status, reload_checkpoint)
-and of the disaggregated chain handoff (export_chain, transfer_chain,
-abort_transfer); the router's messages are not ported yet.
+replica (generate, generate_stream, server_status, reload_checkpoint),
+of the disaggregated chain handoff (export_chain, transfer_chain,
+abort_transfer) and of the router (router_status: RouterStatusRequest,
+RouterStatusResponse and its nested AutoscalerStatus, SloObjective,
+ReplicaStatus and RolloutStatus).
 """
 
 import math
@@ -347,6 +353,32 @@ class _RepeatedMessage(object):
         return current, pos
 
 
+class _Message(object):
+    """A singular nested message: None while unset."""
+
+    wire_types = (_LEN,)
+    default = None
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def check(self, name, value):
+        if value is not None and not isinstance(value, self.cls):
+            raise TypeError("%s must be a %s or None, got %r"
+                            % (name, self.cls.__name__, type(value)))
+        return value
+
+    def encode(self, out, number, value):
+        if value is not None:
+            _write_len(out, number, value.SerializeToString())
+
+    def decode(self, data, pos, wire_type, current):
+        raw, pos = _read_len(data, pos)
+        if current is not None:  # a repeat merges into the first
+            raw = current.SerializeToString() + bytes(raw)
+        return self.cls.FromString(raw), pos
+
+
 class _Map(object):
     """map<string, V>: repeated {key = 1: string, value = 2: V}."""
 
@@ -448,6 +480,13 @@ class Message(object):
                                      getattr(msg, name))
             object.__setattr__(msg, name, value)
         return msg
+
+    def HasField(self, name):
+        """Whether singular message field `name` is set."""
+        if not isinstance(self._kinds().get(name), _Message):
+            raise ValueError("%s has no singular message field %r"
+                             % (type(self).__name__, name))
+        return getattr(self, name) is not None
 
     def ListFields(self):
         """(name, value) of every field not at its default."""
@@ -622,6 +661,88 @@ class AbortTransferRequest(Message):
     FIELDS = _fields(("transfer_id", 1, _STR))
 
 
+# --------------------------------------------------------------- router
+
+
+class RouterStatusRequest(Message):
+    FIELDS = ()
+
+
+class AutoscalerStatus(Message):
+    FIELDS = _fields(
+        ("enabled", 1, _BOOL), ("target", 2, _I32_), ("live", 3, _I32_),
+        ("starting", 4, _I32_), ("draining", 5, _I32_),
+        ("scale_ups", 6, _I64_), ("scale_downs", 7, _I64_),
+        ("replacements", 8, _I64_), ("spawn_failures", 9, _I64_),
+        ("circuit_open", 10, _BOOL), ("last_decision", 11, _STR),
+        ("last_reason", 12, _STR), ("last_decision_age_secs", 13, _DOUBLE),
+        ("supervisor_restarts", 14, _I64_))
+
+
+class SloObjective(Message):
+    FIELDS = _fields(
+        ("name", 1, _STR), ("kind", 2, _STR), ("threshold_ms", 3, _DOUBLE),
+        ("goal", 4, _DOUBLE), ("fast_burn", 5, _DOUBLE),
+        ("slow_burn", 6, _DOUBLE), ("fast_window_secs", 7, _DOUBLE),
+        ("slow_window_secs", 8, _DOUBLE), ("fast_samples", 9, _I64_),
+        ("slow_samples", 10, _I64_), ("alerting", 11, _BOOL))
+
+
+class ReplicaStatus(Message):
+    FIELDS = _fields(
+        ("address", 1, _STR), ("healthy", 2, _BOOL), ("draining", 3, _BOOL),
+        ("breaker", 4, _STR), ("lease_remaining_secs", 5, _DOUBLE),
+        ("queue_depth", 6, _I32_), ("active_slots", 7, _I32_),
+        ("kv_blocks_free", 8, _I32_), ("queue_wait_ms", 9, _DOUBLE),
+        ("dispatched", 10, _I64_), ("failures", 11, _I64_),
+        ("inflight", 12, _I32_), ("kv_cache_dtype", 13, _STR),
+        ("kv_host_blocks", 14, _I32_), ("kv_host_bytes", 15, _I64_),
+        ("revive_uploads", 16, _I64_), ("prefill_tokens_revived", 17, _I64_),
+        ("host_drops", 18, _I64_), ("prefix_hit_rate_window", 19, _DOUBLE),
+        ("slow_cause_counts", 20, _I64S),
+        ("last_progress_age_ms", 21, _DOUBLE), ("health_state", 22, _STR),
+        ("kv_blocks_cached", 23, _I32_), ("kv_blocks_shared", 24, _I32_),
+        ("role", 25, _STR), ("model_version", 26, _I32_),
+        ("reload_failed", 27, _BOOL))
+
+
+class RolloutStatus(Message):
+    FIELDS = _fields(
+        ("enabled", 1, _BOOL), ("phase", 2, _STR),
+        ("target_version", 3, _I32_), ("old_version", 4, _I32_),
+        ("wave", 5, _I32_), ("waves_total", 6, _I32_), ("swapped", 7, _I32_),
+        ("fleet", 8, _I32_), ("canary", 9, _STR), ("verdict", 10, _STR),
+        ("last_error", 11, _STR), ("rollbacks", 12, _I64_),
+        ("rollout_restarts", 13, _I64_))
+
+
+class RouterStatusResponse(Message):
+    FIELDS = _fields(
+        ("replicas", 1, _I32_), ("healthy", 2, _I32_),
+        ("replica", 3, _RepeatedMessage(ReplicaStatus)),
+        ("routed", 4, _I64_), ("completed", 5, _I64_),
+        ("redispatched", 6, _I64_), ("hedges", 7, _I64_),
+        ("hedge_wins", 8, _I64_), ("shed", 9, _I64_),
+        ("breaker_trips", 10, _I64_), ("uptime_secs", 11, _DOUBLE),
+        ("e2e_p50_ms", 12, _DOUBLE), ("e2e_p90_ms", 13, _DOUBLE),
+        ("e2e_p99_ms", 14, _DOUBLE), ("ttft_p50_ms", 15, _DOUBLE),
+        ("ttft_p90_ms", 16, _DOUBLE), ("ttft_p99_ms", 17, _DOUBLE),
+        ("queue_wait_p50_ms", 18, _DOUBLE),
+        ("queue_wait_p90_ms", 19, _DOUBLE),
+        ("queue_wait_p99_ms", 20, _DOUBLE),
+        ("autoscaler", 21, _Message(AutoscalerStatus)),
+        ("kv_host_blocks", 22, _I64_), ("kv_host_bytes", 23, _I64_),
+        ("revive_uploads", 24, _I64_), ("prefill_tokens_revived", 25, _I64_),
+        ("host_drops", 26, _I64_),
+        ("slo", 27, _RepeatedMessage(SloObjective)),
+        ("cell_id", 28, _I32_), ("cells", 29, _I32_),
+        ("affinity_hits", 30, _I64_), ("affinity_misses", 31, _I64_),
+        ("journal_events", 32, _I64_), ("journal_replayed", 33, _I64_),
+        ("cell_restarts", 34, _I64_), ("disagg_handoffs", 35, _I64_),
+        ("disagg_fallbacks", 36, _I64_),
+        ("rollout", 37, _Message(RolloutStatus)))
+
+
 MESSAGES = (Task, GetTaskRequest, ReportTaskResultRequest,
             ReportEvaluationMetricsRequest, ReportVersionRequest, Empty,
             RegisterWorkerRequest, RegisterWorkerResponse)
@@ -630,3 +751,5 @@ SERVING_MESSAGES = (GenerateRequest, GenerateResponse, TokenChunk,
                     ReloadCheckpointRequest, ReloadCheckpointResponse,
                     ExportChainRequest, KvChainBlock, TransferChainRequest,
                     TransferChainResponse, AbortTransferRequest)
+ROUTER_MESSAGES = (RouterStatusRequest, AutoscalerStatus, SloObjective,
+                   ReplicaStatus, RolloutStatus, RouterStatusResponse)

@@ -1,6 +1,6 @@
-"""The Master and Serving services over a transport from the standard
-library: the port's copy of elasticdl_tpu/proto/service.py without
-gRPC.
+"""The Master, Serving and Router services over a transport from the
+standard library: the port's copy of elasticdl_tpu/proto/service.py
+without gRPC.
 
 The JAX package binds the services' method tables to grpc. The card's
 machine has neither grpc nor protobuf, so the port carries the same
@@ -30,7 +30,8 @@ HTTP/1.0 on a TCP socket:
     a request that does not parse         INTERNAL
     an unknown method                     UNIMPLEMENTED
 
-* a server-streaming method (`generate_stream`) replies 200 with the
+* a server-streaming method (`generate_stream`,
+  `router_generate_stream`) replies 200 with the
   `X-Rpc-Stream` header and no Content-Length (the body ends when the
   server closes the connection); the body is a run of frames, each a
   1-byte kind, a 4-byte big-endian length and the payload: kind 0 an
@@ -39,7 +40,11 @@ HTTP/1.0 on a TCP socket:
   and then raises RpcError with the trailer's status unless it is OK,
   after the messages already sent, as gRPC does; a connection that
   closes before the trailer is UNAVAILABLE. A failure before the
-  handler's first message (its admission) is the unary error reply.
+  handler's first message (its admission) is the unary error reply; an
+  exception the handler's iterator raises later ends the stream in a
+  trailer with that exception's code (an AdmissionError's own, a
+  router's UNAVAILABLE after a replica lost mid-stream), and a client
+  that hangs up closes the iterator at the next frame.
   Each frame is one write on a socket with TCP_NODELAY set at both
   ends, so a small frame is not held back for an ACK;
 * `timeout=` on a stub call is the call's deadline: connect, send and
@@ -62,8 +67,10 @@ nothing on this path unpickles or evaluates what a client sent. The
 Serving table holds one replica's methods, the disaggregated chain
 handoff's three among them (export_chain, whose response is the
 TransferChainRequest payload the decode side imports, transfer_chain
-and abort_transfer); the router's table is not ported yet (a call to
-one of its methods answers UNIMPLEMENTED).
+and abort_transfer). The Router table (`router_generate`, the streamed
+`router_generate_stream`, `router_status`; serving/router.py) is a
+service of its own: a replica's server does not serve it, so a call to
+one of its methods there answers UNIMPLEMENTED.
 """
 
 import contextlib
@@ -83,6 +90,7 @@ logger = logging.getLogger(__name__)
 
 SERVICE_NAME = "elasticdl_tpu.Master"
 SERVING_SERVICE_NAME = "elasticdl_tpu.Serving"
+ROUTER_SERVICE_NAME = "elasticdl_tpu.Router"
 
 # method name -> (request class, response class)
 _METHODS = {
@@ -127,6 +135,18 @@ _SERVING_METHODS = {
     "reload_checkpoint": (
         pb.ReloadCheckpointRequest,
         pb.ReloadCheckpointResponse,
+        False,
+    ),
+}
+
+# the routing tier's surface (serving/router.py); its names differ from
+# the replica's, so a fault-injection spec targets one boundary only
+_ROUTER_METHODS = {
+    "router_generate": (pb.GenerateRequest, pb.GenerateResponse, False),
+    "router_generate_stream": (pb.GenerateRequest, pb.TokenChunk, True),
+    "router_status": (
+        pb.RouterStatusRequest,
+        pb.RouterStatusResponse,
         False,
     ),
 }
@@ -437,6 +457,10 @@ def add_serving_servicer_to_server(servicer, server):
     server.add_handlers(SERVING_SERVICE_NAME, _SERVING_METHODS, servicer)
 
 
+def add_router_servicer_to_server(servicer, server):
+    server.add_handlers(ROUTER_SERVICE_NAME, _ROUTER_METHODS, servicer)
+
+
 def build_server(max_send_message_length=GRPC.MAX_SEND_MESSAGE_LENGTH,
                  max_receive_message_length=GRPC.MAX_RECEIVE_MESSAGE_LENGTH,
                  max_workers=None):
@@ -661,15 +685,23 @@ class MasterStub(object):
                 response_deserializer=resp_cls.FromString))
 
 
+def _bind(stub, channel, service_name, methods):
+    for name, (req_cls, resp_cls, streaming) in methods.items():
+        make = channel.unary_stream if streaming else channel.unary_unary
+        setattr(stub, name, make(
+            "/%s/%s" % (service_name, name),
+            request_serializer=req_cls.SerializeToString,
+            response_deserializer=resp_cls.FromString))
+
+
 class ServingStub(object):
     def __init__(self, channel):
-        for name, (req_cls, resp_cls, streaming) in (
-                _SERVING_METHODS.items()):
-            make = channel.unary_stream if streaming else channel.unary_unary
-            setattr(self, name, make(
-                "/%s/%s" % (SERVING_SERVICE_NAME, name),
-                request_serializer=req_cls.SerializeToString,
-                response_deserializer=resp_cls.FromString))
+        _bind(self, channel, SERVING_SERVICE_NAME, _SERVING_METHODS)
+
+
+class RouterStub(object):
+    def __init__(self, channel):
+        _bind(self, channel, ROUTER_SERVICE_NAME, _ROUTER_METHODS)
 
 
 def build_channel(addr,

@@ -30,6 +30,10 @@ importer refuses a mismatched layout cheaply; the replica answers such a
 payload `ok=False`, never an RPC error. bfloat16 has no numpy dtype: a
 leaf's bytes are its tensor's raw 16-bit patterns, read back through an
 int16 view, the bytes ml_dtypes writes for the JAX package.
+
+Only the codec functions import torch (inside them): the router imports
+HandoffCoordinator, which moves encoded messages between stubs, and its
+process loads no torch.
 """
 
 import itertools
@@ -37,19 +41,18 @@ import logging
 import threading
 
 import numpy as np
-import torch
 
 from elasticdl_tpu_torch.proto import messages as pb
 
 logger = logging.getLogger(__name__)
 
 # the row-leaf dtypes a chain carries: name -> (numpy dtype of the raw
-# bytes, torch dtype of the rows)
+# bytes, name of the torch dtype of the rows)
 _LEAF_DTYPES = {
-    "bfloat16": (np.int16, torch.bfloat16),
-    "float16": (np.float16, torch.float16),
-    "float32": (np.float32, torch.float32),
-    "int8": (np.int8, torch.int8),
+    "bfloat16": (np.int16, "bfloat16"),
+    "float16": (np.float16, "float16"),
+    "float32": (np.float32, "float32"),
+    "int8": (np.int8, "int8"),
 }
 
 
@@ -61,6 +64,8 @@ class HandoffError(Exception):
 
 def _leaf_bytes(rows):
     """A row leaf's raw bytes (a CPU tensor of any dtype, bf16 too)."""
+    import torch
+
     rows = rows.detach().to("cpu").contiguous()
     return rows.reshape(-1).view(torch.uint8).numpy().tobytes()
 
@@ -85,6 +90,8 @@ def proto_to_blocks(msg, pool):
     a size mismatch (other model dims, another block_size) raises a
     ValueError the servicer answers as ok=False. Returns (blocks,
     leaf_dtypes) in import_chain's argument shape."""
+    import torch
+
     shapes = pool.leaf_shapes()
     dtypes = list(msg.leaf_dtypes)
     if len(dtypes) != len(shapes):
@@ -112,7 +119,7 @@ def proto_to_blocks(msg, pool):
                     "chain leaf holds %d values, this pool's block %s"
                     % (arr.size, shape))
             rows.append(torch.from_numpy(arr.reshape(shape).copy())
-                        .view(torch_dt))
+                        .view(getattr(torch, torch_dt)))
         blocks.append((tuple(blk.tokens), rows))
     return blocks, dtypes
 

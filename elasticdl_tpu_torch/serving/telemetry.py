@@ -1,6 +1,7 @@
-"""Serving telemetry: the port's copy of `ServingTelemetry` from
-elasticdl_tpu/serving/telemetry.py, the counters, gauges and latency
-histograms behind a replica's ServerStatus.
+"""Serving telemetry: the port's copy of `ServingTelemetry` and
+`RouterTelemetry` from elasticdl_tpu/serving/telemetry.py, the counters,
+gauges and latency histograms behind a replica's ServerStatus and the
+router's RouterStatus.
 
 The counter, gauge and slow-cause sets are closed: `count`, `gauge` and
 `count_slow_cause` raise on a name not declared, because a typo would
@@ -21,8 +22,8 @@ handler threads bump admission counters and read snapshots, all under
 one lock. Nothing here touches the device.
 
 Not ported: the TensorBoard event writer (`log_dir`), the Prometheus
-exposition, histogram exemplars and RouterTelemetry (ROADMAP Queue 1
-items 4 and 6).
+exposition (`prometheus()`) and histogram exemplars (ROADMAP Queue 1
+item 6).
 """
 
 import threading
@@ -31,6 +32,8 @@ import time
 from elasticdl_tpu_torch.observability.forensics import CAUSES
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
 from elasticdl_tpu_torch.observability.metrics import TimeSeriesRing
+
+_ITEM6 = "ROADMAP Queue 1 item 6, the metrics plane"
 
 
 class ServingTelemetry(object):
@@ -74,8 +77,7 @@ class ServingTelemetry(object):
         if log_dir:
             raise NotImplementedError(
                 "the serving telemetry's TensorBoard writer is not ported "
-                "yet (ROADMAP Queue 1 item 6, the replica's metrics "
-                "plane)")
+                "yet (%s)" % _ITEM6)
         self._clock = clock
         self._lock = threading.Lock()
         self._started = clock()
@@ -269,4 +271,117 @@ class ServingTelemetry(object):
         """Land the final partial window in the ring."""
         with self._lock:
             self._ring_observe_locked(roll=False)
+            self.ring.flush()
+
+
+class RouterTelemetry(object):
+    """The routing tier's counters and gauges behind router_status.
+
+    Counters (a closed set: `count` raises on an unknown name): routed
+    (accepted dispatches), completed (returned OK), redispatched (re-sent
+    after a replica failure), hedges, hedge_wins, shed
+    (RESOURCE_EXHAUSTED with no replica in rotation), breaker_trips
+    (closed -> open), errors (terminal failures), affinity_hits /
+    affinity_misses (requests with a prefix fingerprint that did / did
+    not land on their learned replica), disagg_handoffs /
+    disagg_fallbacks (prefill -> decode handoffs; a fallback dispatches
+    cold, it does not fail). Gauges (closed too): healthy_replicas and
+    replicas at the last heartbeat, cell_id and cells.
+
+    The router's end-to-end dispatch latency (accept -> terminal outcome,
+    re-dispatches and hedges included) rides the shared log-linear
+    histogram behind router_status's e2e_p* fields. Every heartbeat poll
+    feeds the ring one cumulative observation: the counters, the e2e
+    buckets and the fleet-merged replica histograms the router hands in
+    (`fleet_hists`); the SLO burn-rate engine reads that ring.
+    `flush_every` is the TensorBoard writer's cadence (the writer is not
+    ported: a `log_dir` raises)."""
+
+    COUNTERS = ("routed", "completed", "redispatched", "hedges",
+                "hedge_wins", "shed", "breaker_trips", "errors",
+                "affinity_hits", "affinity_misses",
+                "disagg_handoffs", "disagg_fallbacks")
+    GAUGES = ("healthy_replicas", "replicas", "cell_id", "cells")
+
+    def __init__(self, log_dir=None, flush_every=20, clock=time.monotonic,
+                 ring_secs=2.0, ring_windows=300):
+        if log_dir:
+            raise NotImplementedError(
+                "the router telemetry's TensorBoard writer is not ported "
+                "yet (%s)" % _ITEM6)
+        del flush_every  # the writer's cadence
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._started = clock()
+        self._poll = 0
+        self.counters = {name: 0 for name in self.COUNTERS}
+        self.gauges = {name: 0.0 for name in self.GAUGES}
+        self.hists = {"e2e_ms": LogLinearHistogram()}
+        self.ring = TimeSeriesRing(interval_secs=ring_secs,
+                                   capacity=ring_windows, clock=clock)
+
+    def _gauge_locked(self, name, value):
+        if name not in self.gauges:
+            raise ValueError(
+                "unknown router gauge %r (declared: %s)"
+                % (name, ", ".join(self.GAUGES)))
+        self.gauges[name] = float(value)
+
+    def gauge(self, name, value):
+        with self._lock:
+            self._gauge_locked(name, value)
+
+    def count(self, name, n=1):
+        with self._lock:
+            if name not in self.counters:
+                raise ValueError(
+                    "unknown router counter %r (declared: %s)"
+                    % (name, ", ".join(self.COUNTERS)))
+            self.counters[name] += n
+
+    def record_e2e(self, latency_ms, trace_id=None):
+        """The end-to-end latency of one dispatch that reached a
+        terminal outcome (`trace_id` names an exemplar in the JAX
+        package; exemplars are not ported)."""
+        del trace_id
+        with self._lock:
+            self.hists["e2e_ms"].record(latency_ms)
+
+    def record_poll(self, healthy, replicas, fleet_hists=None):
+        """One heartbeat sweep: the rotation gauges and one cumulative
+        ring observation (the counters, the e2e buckets and
+        `fleet_hists`, e.g. {"fleet_ttft_ms": cumulative buckets})."""
+        with self._lock:
+            self._poll += 1
+            self._gauge_locked("healthy_replicas", healthy)
+            self._gauge_locked("replicas", replicas)
+            hists = {"e2e_ms": self.hists["e2e_ms"].to_counts()}
+            if fleet_hists:
+                hists.update(fleet_hists)
+            self.ring.observe(counters=self.counters, gauges=self.gauges,
+                              hists=hists)
+
+    def evaluate_slos(self, engine, now=None):
+        """A BurnRateEngine over the ring, under the telemetry lock."""
+        with self._lock:
+            return engine.evaluate(self.ring, now)
+
+    def snapshot(self):
+        with self._lock:
+            snap = dict(self.counters)
+            snap["uptime_secs"] = self._clock() - self._started
+            snap["polls"] = self._poll
+            snap["healthy_replicas"] = int(self.gauges["healthy_replicas"])
+            snap["replicas"] = int(self.gauges["replicas"])
+            for q in (50, 90, 99):
+                snap["e2e_p%d_ms" % q] = self.hists["e2e_ms"].percentile(q)
+            return snap
+
+    def close(self):
+        """Land the final partial window in the ring."""
+        with self._lock:
+            self.ring.observe(
+                counters=self.counters, gauges=self.gauges,
+                hists={"e2e_ms": self.hists["e2e_ms"].to_counts()},
+                roll=False)
             self.ring.flush()

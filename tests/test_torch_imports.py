@@ -69,6 +69,11 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.common.prng",
                      "elasticdl_tpu_torch.worker.prediction_outputs_processor",
                      "elasticdl_tpu_torch.serving.hot_reload",
+                     "elasticdl_tpu_torch.serving.router",
+                     "elasticdl_tpu_torch.serving.router_main",
+                     "elasticdl_tpu_torch.serving.prefix_affinity",
+                     "elasticdl_tpu_torch.observability.slo",
+                     "elasticdl_tpu_torch.observability.tracing",
                      "elasticdl_tpu_torch.observability.histogram",
                      "elasticdl_tpu_torch.proto.messages",
                      "elasticdl_tpu_torch.proto.convert",

@@ -750,7 +750,8 @@ def test_a_stream_ends_with_its_handler_status_after_the_chunks(fail, code):
         # a failure at admission: before any chunk
         assert code_of(lambda: list(stub.generate_stream(
             pb.GenerateRequest(), timeout=WAIT))) == "INVALID_ARGUMENT"
-        # a method that is not ported (the router's), and a handler error
+        # a method of a table a replica's server does not serve (the
+        # Router's), and a handler error
         assert code_of(lambda: service.Channel(
             "localhost:%d" % _port).call(
                 "/elasticdl_tpu.Router/router_generate", b"",
