@@ -375,7 +375,37 @@ repository checkout it sits in. Phases, each of which fails the run:
    own prefill-only warm-up; then a router with EDL_FAULT_SPEC=
    disagg_handoff:drop:1 falls back once and its stream equals the
    unified replica's cold one. Every child that dies unasked fails the
-   phase; routers exit 0 on SIGTERM.
+   phase; routers exit 0 on SIGTERM;
+30. the rest of the router tier at the flagship width, every router a
+   `python -m elasticdl_tpu_torch.serving.router_main` process that maps
+   no torch library: R1 and R2 in this process (serving.main's
+   build_server over checkpoint version 1 of the seeded flagship,
+   --reload_poll_secs 0, engine operations logged) and a reference
+   replica over the same weights. (1) `--cells 2` over R1 and R2 and a
+   CellFront here: 16 requests at once (8 sharing a 512-token prefix
+   whose family cell 0 owns, every third unary), cell 0 SIGKILLed once
+   one of its streams has a chunk: requests it had accepted reroute
+   through cell 1, a stream past its first chunk fails UNAVAILABLE
+   ("mid-stream"), none is lost; the cell supervisor restarts cell 0,
+   which replays the journal and lists both replicas; a third cell with
+   no --replica learns them from the journal; (2) rollouts over one
+   journal: version 2 (version 1's bytes) under 8 live streams commits
+   canary first with one swap per replica and no live failure; version
+   4 (a shard removed) aborts with no swap; version 3 (perturbed, valid
+   digests) fails parity on the canary and rolls back to version 2;
+   version 5 with EDL_FAULT_SPEC=rollout_swap:kill:1:skip=1 loses its
+   controller mid-wave and a router given only --rollout_journal_dir
+   commits it with no replica swapped twice; client TTFT before and
+   during the healthy rollout; (3) `--autoscale --min_replicas 1
+   --max_replicas 2` over flagship serving.main processes it spawns:
+   spawn and adopt, a burst of 32 scales to 2, a SIGKILLed replica is
+   replaced, idle time drains back to 1 (SIGTERM, exit 0, retired), and
+   the router SIGKILLed and restarted on its journal re-adopts the live
+   replica with no spawn; each adopted replica's answer to a prompt
+   sent alone equals the reference replica's; no accepted request is
+   lost; then R1's and R2's operations of step (1) replayed on a fresh
+   engine with every A and B launch held to its plain version, and
+   every completed stream of step (1) equal to a replay of its trace.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -389,7 +419,9 @@ launches by part ride the `kernels` line as `launches_serving_tiers`,
 its checked launches' errors as `serving_tiers_max_abs_err`) and a
 `serving_router` line (its A and B launches in this process's replicas
 ride the `kernels` line as `launches_serving_router`, its replayed
-launches' errors as `serving_router_max_abs_err`), each with
+launches' errors as `serving_router_max_abs_err`) and a
+`serving_router_tier` line (likewise `launches_serving_router_tier`
+and `serving_router_tier_max_abs_err`), each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -7906,12 +7938,14 @@ def router_replica_main(log_path, argv):
     return serving_main.main(argv)
 
 
-def _router_replay(model, entries, errs, held, on_card):
+def _router_replay(model, entries, errs, held, on_card, reseat=False):
     """Re-run a replica's logged operations on a fresh replica's engine
     (the same configuration and weights): the same seats and batches,
     so the same computation. The first `held` operations run with every
     A and B launch held to its plain version. Returns {trace id: the
-    generated tokens} and the replay's launches."""
+    generated tokens} ({trace id: [the tokens of each seat]} with
+    `reseat`, where a rerouted request is seated again under its trace)
+    and the replay's launches."""
     from elasticdl_tpu_torch.serving.admission import ServingRequest
 
     engine = _tiers_server(model, ROUTER_BLOCKS).engine
@@ -7923,10 +7957,11 @@ def _router_replay(model, entries, errs, held, on_card):
                 engine.step()
                 continue
             _op, trace, prompt, new, temp, seed, prefill_only = entry
-            check(trace not in reqs, "trace %s seated twice" % trace)
-            reqs[trace] = ServingRequest(prompt, new, temperature=temp,
-                                         seed=seed, prefill_only=prefill_only)
-            engine.insert(reqs[trace])
+            key = (trace, sum(k[0] == trace for k in reqs))
+            check(reseat or key[1] == 0, "trace %s seated twice" % trace)
+            reqs[key] = ServingRequest(prompt, new, temperature=temp,
+                                       seed=seed, prefill_only=prefill_only)
+            engine.insert(reqs[key])
 
     before = _tiers_counts()
     with _attention_held_to_plain(errs, on_card, where="router"):
@@ -7935,7 +7970,12 @@ def _router_replay(model, entries, errs, held, on_card):
     _sync("cuda" if on_card else "cpu")
     launches = _tiers_delta(before)
     del engine
-    return {t: list(r.generated) for t, r in reqs.items()}, launches
+    if reseat:
+        out = {}
+        for (trace, _n), r in sorted(reqs.items()):
+            out.setdefault(trace, []).append(list(r.generated))
+        return out, launches
+    return {t: list(r.generated) for (t, _n), r in reqs.items()}, launches
 
 
 class _Child(object):
@@ -7965,19 +8005,24 @@ class _Child(object):
     def tail(self):
         return "".join(self.lines)[-3000:]
 
-    def ready(self, prefix):
-        """Wait for the `prefix ... port=N` line; returns N."""
+    def line(self, prefix):
+        """Wait for the first line starting with `prefix`; returns it."""
         deadline = time.monotonic() + WIRE_READY_SECS
         while True:
             hit = [l for l in list(self.lines) if l.startswith(prefix)]
             if hit:
-                break
+                self.ready_s = time.perf_counter() - self.t0
+                return hit[0]
             check(self.proc.poll() is None and time.monotonic() < deadline,
                   "%s never printed %s (rc %s): %s" % (
                       self.what, prefix, self.proc.poll(), self.tail()))
             time.sleep(0.005)
-        self.ready_s = time.perf_counter() - self.t0
-        self.port = int(hit[0].split("port=")[1])
+
+    def ready(self, prefix):
+        """Wait for the `prefix ... port=N` line; returns N."""
+        line = self.line(prefix)
+        # the digits only: another thread's log line may land after them
+        self.port = int(re.match(r"\d+", line.split("port=")[1]).group())
         return self.port
 
     def alive(self):
@@ -8521,6 +8566,740 @@ def serving_router_phase(device="cuda"):
     return out, launches, errs
 
 
+TIER_SEED = 30
+TIER_SHARED, TIER_DISTINCT = 8, 8  # the cells step's 16 requests
+TIER_LIVE = 8  # concurrent live streams under the healthy rollout
+TIER_LIVE_LEN = 512  # their prompts: 32 blocks, distinct
+TIER_BEFORE = 16  # live streams timed through an idle controller first
+TIER_PARITY, TIER_PARITY_LEN = 2, 16  # the pinned greedy-parity prompts
+TIER_BURST = 48  # the autoscaler's burst, sent at once (992 tokens each)
+TIER_CKPT_SHARDS = 2
+TIER_WAIT_S = 300
+TIER_TERMINAL = ("committed", "rolled_back", "aborted")
+
+
+def _free_base(n):
+    """A port p with p .. p+n-1 free on localhost (router_main --cells
+    puts cell i on --port + i)."""
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                socks.append(socket.socket())
+                socks[-1].bind(("localhost", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise SmokeFailure("no %d consecutive free ports" % n)
+
+
+def _torch_free(pid):
+    """The process maps no torch, jaxlib or grpc library."""
+    with open("/proc/%d/maps" % pid) as f:
+        maps = f.read()
+    return not any(name in maps for name in ("/torch/", "libtorch",
+                                             "jaxlib", "grpc"))
+
+
+def _cell_pids(pid):
+    """{cell id: pid} of the router cells process `pid` supervises."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % name) as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open("/proc/%s/cmdline" % name, "rb") as f:
+                argv = f.read().split(b"\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid and b"--cell_id" in argv:
+            out[int(argv[argv.index(b"--cell_id") + 1])] = int(name)
+    return out
+
+
+def _tier_router(argv, what, fault=""):
+    return _Child([sys.executable, "-m",
+                   "elasticdl_tpu_torch.serving.router_main"] + argv, what,
+                  fault)
+
+
+def _tier_status(port, wait=None, what=""):
+    """router_status of the router on `port`; with `wait`, polled until
+    wait(status) holds (TIER_WAIT_S), None while it does not answer."""
+    stub = wire_service.RouterStub(wire_service.build_channel(
+        "localhost:%d" % port))
+    deadline = time.monotonic() + TIER_WAIT_S
+    while True:
+        try:
+            st = stub.router_status(wire_pb.RouterStatusRequest(), timeout=30)
+        except wire_service.RpcError:
+            st = None
+        if wait is None or (st is not None and wait(st)):
+            return st
+        check(time.monotonic() < deadline, "%s: router_status never "
+              "showed it: %r" % (what, st))
+        time.sleep(0.05)
+
+
+def _tier_flags(device):
+    """The flagship replica's serving.main flags (seeded weights)."""
+    return ["--device", device, "--model_params", _params_str(FLAGSHIP),
+            "--num_slots", "8", "--kv_paged", "1", "--kv_block_size", "16",
+            "--kv_num_blocks", str(ROUTER_BLOCKS)]
+
+
+def _tier_flat(model, noise_seed=None):
+    """The model's params as checkpoint leaves; with `noise_seed`, each
+    leaf plus Gaussian noise of its own std (a poisoned version whose
+    digests are valid)."""
+    from elasticdl_tpu_torch.checkpoint.saver import params_tree
+    from elasticdl_tpu_torch.convert import flax_param_path
+
+    flat = params_tree_leaves(params_tree(dict(model.named_parameters()),
+                                          flax_param_path))
+    if noise_seed is None:
+        return flat
+    gen = torch.Generator().manual_seed(noise_seed)
+    out = {}
+    for name, leaf in flat.items():
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+        x = t.float()
+        std = float(x.std()) if x.numel() > 1 else 0.0
+        x = (x + torch.randn(x.shape, generator=gen) * max(std, 1e-3)).to(
+            t.dtype)
+        out[name] = x if isinstance(leaf, torch.Tensor) else x.numpy()
+    return out
+
+
+def _tier_link(ckpt, src, dst, drop=None):
+    """version-`dst` as hard links to version-`src`'s files (the same
+    bytes, byte for byte), less the file `drop` (a torn version)."""
+    tmp = os.path.join(ckpt, ".staging-%d" % dst)
+    os.makedirs(tmp)
+    src_dir = os.path.join(ckpt, "version-%d" % src)
+    for name in os.listdir(src_dir):
+        if name != drop:
+            os.link(os.path.join(src_dir, name), os.path.join(tmp, name))
+    os.rename(tmp, os.path.join(ckpt, "version-%d" % dst))
+
+
+def _tier_journal(path):
+    with open(os.path.join(path, "journal.jsonl")) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def _fronted(front, method, trace, prompt, new, out=None):
+    """One call through the CellFront, recorded as _routed records one."""
+    from elasticdl_tpu_torch.serving.router import RouterError
+
+    out = {} if out is None else out
+    out.update(trace=trace, tokens=[], done=False, code=None, chunks=0,
+               t_send=time.perf_counter())
+    req = wire_pb.GenerateRequest(prompt=prompt, max_new_tokens=new,
+                                  trace_id=trace)
+    try:
+        if method == "stream":
+            for chunk in front.generate_stream(req, timeout=ROUTER_WAIT_S):
+                if not out["chunks"]:
+                    out["t_first"] = time.perf_counter()
+                out["chunks"] += 1
+                out["tokens"].extend(chunk.tokens)
+                out["done"] = chunk.done
+        else:
+            resp = front.generate(req, timeout=ROUTER_WAIT_S)
+            out["t_first"] = time.perf_counter()
+            out["tokens"] = list(resp.tokens)[len(prompt):]
+            out["done"] = True
+    except RouterError as e:
+        out["code"], out["details"] = e.code, str(e)
+    out["t_end"] = time.perf_counter()
+    return out
+
+
+def _tier_outcomes(outs, new, what):
+    """(completed, failed explicitly, lost) of calls: a failure is
+    explicit when it carries a status, and a stream's after its first
+    chunk must say it was lost mid-stream; a call that neither ends with
+    all its tokens nor fails so is lost."""
+    done = [o for o in outs if o.get("code") is None and o.get("done")
+            and len(o["tokens"]) == new]
+    failed = [o for o in outs if o.get("code") is not None]
+    for o in failed:
+        check(not o["chunks"] or (o["code"] == "UNAVAILABLE"
+                                  and "mid-stream" in o.get("details", "")),
+              "%s: %s failed %s after %d chunks: %s" % (
+                  what, o["trace"], o["code"], o["chunks"],
+                  o.get("details")))
+    return done, failed, len(outs) - len(done) - len(failed)
+
+
+def _tier_idle(servers):
+    """Until the replicas have nothing queued or seated."""
+    deadline = time.monotonic() + TIER_WAIT_S
+    while not all(len(s.queue) == 0 and s.engine.active_count() == 0
+                  for s in servers):
+        check(time.monotonic() < deadline, "the replicas never went idle")
+        time.sleep(0.05)
+
+
+def _tier_cells(rs, addrs, workdir):
+    """(1) router_main --cells 2 over R1 and R2, a CellFront in this
+    process: 16 requests at once (8 sharing a 512-token prefix whose
+    family cell 0 owns, every third unary), cell 0 SIGKILLed once one of
+    its streams has its first chunk; then cell 0's restart and a third
+    cell that learns the fleet from the journal alone."""
+    from elasticdl_tpu_torch.serving.prefix_affinity import (
+        HashRing,
+        prefix_fingerprint,
+    )
+    from elasticdl_tpu_torch.serving.router_cell import CellFront
+
+    vocab = FLAGSHIP["vocab_size"]
+    base = _free_base(2)
+    journal = os.path.join(workdir, "cells")
+    cells = ["localhost:%d" % (base + i) for i in range(2)]
+    ring = HashRing(cells)
+
+    def owner(prompt):
+        return ring.lookup(prefix_fingerprint(prompt, 16, 4))
+
+    prefix = rs.randint(0, vocab, size=ROUTER_PREFIX_LEN).tolist()
+    while owner(prefix) != cells[0]:
+        prefix = rs.randint(0, vocab, size=ROUTER_PREFIX_LEN).tolist()
+    prompts = _interleave(
+        [prefix + rs.randint(0, vocab, size=ROUTER_SUFFIX_LEN).tolist()
+         for _ in range(TIER_SHARED)],
+        [rs.randint(0, vocab, size=ROUTER_DISTINCT_LEN).tolist()
+         for _ in range(TIER_DISTINCT)])
+    methods = ["unary" if i % 3 == 1 else "stream"
+               for i in range(len(prompts))]
+    owners = [owner(p) for p in prompts]
+    argv = ["--cells", "2", "--port", str(base), "--cell_journal_dir",
+            journal]
+    for addr in addrs:
+        argv += ["--replica", addr]
+    sup = _tier_router(argv, "the cell supervisor")
+    children, front = [sup], None
+    try:
+        sup.line("ROUTER_CELLS_READY")
+        for i in range(2):
+            _tier_status(base + i, lambda s: s.healthy == 2 and all(
+                r.kv_blocks_free > 0 for r in s.replica), "cell %d" % i)
+        pids = {}
+        deadline = time.monotonic() + 60
+        while len(pids) < 2:
+            check(time.monotonic() < deadline, "the cells' processes")
+            pids = _cell_pids(sup.proc.pid)
+            time.sleep(0.05)
+        clean = [_torch_free(p) for p in [sup.proc.pid] + list(pids.values())]
+        front = CellFront(cells, block_tokens=16, reroute_window_secs=60)
+        outs = [{} for _ in prompts]
+        threads = [threading.Thread(target=_fronted, daemon=True, args=(
+            front, methods[i], "c1-%02d" % i, p, ROUTER_NEW, outs[i]))
+            for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + ROUTER_WAIT_S
+        while not any("t_first" in o for o, m, c in zip(outs, methods, owners)
+                      if m == "stream" and c == cells[0]):
+            check(time.monotonic() < deadline, "no stream through cell 0 "
+                  "delivered a chunk")
+            time.sleep(0.001)
+        t_kill = time.monotonic()
+        os.kill(pids[0], signal.SIGKILL)
+        for t in threads:
+            t.join(timeout=ROUTER_DISPATCH_S + 60)
+        done, failed, lost = _tier_outcomes(outs, ROUTER_NEW, "cells")
+        check(lost == 0, "cells: %d accepted requests lost" % lost)
+        check(front.counters["rerouted"] > 0, "cells: nothing rerouted "
+              "after cell 0's kill: %s" % front.counters)
+        st = _tier_status(base, lambda s: s.replicas == 2
+                          and s.cell_restarts >= 1, "cell 0's restart")
+        restart_s = time.monotonic() - t_kill
+        check(st.journal_replayed > 0 and st.cell_id == 0,
+              "the restarted cell 0: %r" % st)
+        pids = _cell_pids(sup.proc.pid)
+        third = _tier_router(["--cell_id", "2", "--cells", "3", "--port",
+                              "0", "--cell_journal_dir", journal],
+                             "a third cell")
+        children.append(third)
+        third_st = _tier_status(third.ready("ROUTER_READY"),
+                                lambda s: s.replicas == 2, "the third cell")
+        check(sorted(r.address for r in third_st.replica) == sorted(addrs)
+              and any(l.startswith("ROUTER_CELL cell=2 cells=3")
+                      for l in third.lines),
+              "the third cell: %r" % third_st)
+        clean += [_torch_free(p) for p in [third.proc.pid] + list(
+            pids.values())]
+        third.stop()
+        sup.stop()
+    finally:
+        if front is not None:
+            front.close()
+        for child in children:
+            child.close()
+    ttft = [(o["t_first"] - o["t_send"]) * 1e3 for o in done]
+    return done, {
+        "requests": len(prompts), "shared_prefix": TIER_SHARED,
+        "shared_on_one_cell": len({c for c, p in zip(owners, prompts)
+                                   if p[:ROUTER_PREFIX_LEN] == prefix}) == 1,
+        "unary": methods.count("unary"),
+        "routed": front.counters["routed"],
+        "completed": len(done), "rerouted": front.counters["rerouted"],
+        "cell_failures": front.counters["cell_failures"],
+        "failed_explicitly": len(failed), "lost": lost,
+        "client_ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "kill_to_restarted_s": restart_s,
+        "restarted_journal_replayed": st.journal_replayed,
+        "restarted_cell_restarts": st.cell_restarts,
+        "restarted_replicas": st.replicas,
+        "third_cell_replicas_learned": third_st.replicas,
+        "third_cell_journal_replayed": third_st.journal_replayed,
+        "supervisor_ready_s": sup.ready_s,
+        "processes_torch_free": "%d/%d" % (sum(clean), len(clean))}, all(
+            clean)
+
+
+def _tier_live(stub, prompts, label, stop=None):
+    """Streams of `prompts` through `stub` on TIER_LIVE client threads,
+    each thread its share in order; with `stop`, each thread cycles
+    through its share until stop() holds. Returns the results."""
+    outs = []
+    lock = threading.Lock()
+    deadline = time.monotonic() + TIER_WAIT_S
+
+    def worker(k):
+        n = 0
+        while stop is not None or n < len(prompts[k::TIER_LIVE]):
+            if stop is not None and (stop() or time.monotonic() > deadline):
+                return
+            share = prompts[k::TIER_LIVE]
+            o = _routed(stub, "router_generate_stream", "%s-%d-%03d" % (
+                label, k, n), share[n % len(share)], ROUTER_NEW)
+            with lock:
+                outs.append(o)
+            n += 1
+
+    threads = [threading.Thread(target=worker, args=(k,), daemon=True)
+               for k in range(TIER_LIVE)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=TIER_WAIT_S + ROUTER_WAIT_S)
+        check(not t.is_alive(), "a live stream hangs")
+    return outs
+
+
+def _ttft(outs):
+    ms = [(o["t_first"] - o["t_send"]) * 1e3 for o in outs if "t_first" in o]
+    return {"streams": len(outs), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _swaps(journal, target):
+    """{address: reloads the controller made to `target`} by journal."""
+    out = {}
+    for ev in _tier_journal(journal):
+        if (ev["ev"] == "swap_done" and ev["ok"] and ev["to"] == target
+                and "note" not in ev):
+            out[ev["addr"]] = out.get(ev["addr"], 0) + 1
+    return out
+
+
+def _tier_rollout(rs, servers, addrs, model, ckpt, workdir):
+    """(2) Four rollouts of R1 and R2 by router_main processes over one
+    journal: version 2 (version 1's bytes) under TIER_LIVE live streams,
+    version 4 (torn), version 3 (perturbed, valid digests), version 5
+    (version 1's bytes) with the controller SIGKILLed before its second
+    swap and resumed by a router given only the journal."""
+    vocab = FLAGSHIP["vocab_size"]
+    journal = os.path.join(workdir, "rollout")
+    _tier_save(ckpt, 3, _tier_flat(model, noise_seed=TIER_SEED))
+    _tier_link(ckpt, 1, 2)
+    _tier_link(ckpt, 1, 4, drop="variables-1-of-%d.ckpt" % TIER_CKPT_SHARDS)
+    _tier_link(ckpt, 1, 5)
+    parity = ";".join(",".join(str(t) for t in rs.randint(
+        0, vocab, size=TIER_PARITY_LEN)) for _ in range(TIER_PARITY))
+    fleet = []
+    for addr in addrs:
+        fleet += ["--replica", addr]
+    args = ["--port", "0", "--rollout_journal_dir", journal,
+            "--rollout_checkpoint_dir", ckpt, "--rollout_wave_size", "1",
+            "--rollout_soak_secs", "1", "--rollout_parity_prompts",
+            parity] + fleet
+    live = [rs.randint(0, vocab, size=TIER_LIVE_LEN).tolist()
+            for _ in range(4 * TIER_LIVE)]
+    out, clean, children = {}, [], []
+
+    def run(target, fault="", argv=None):
+        child = _tier_router((argv or args) + (
+            ["--rollout", str(target)] if target is not None else []),
+            "the rollout router", fault)
+        children.append(child)
+        port = child.ready("ROUTER_READY")
+        clean.append(_torch_free(child.proc.pid))
+        return child, port, wire_service.RouterStub(
+            wire_service.build_channel("localhost:%d" % port))
+
+    def finish(port, target):
+        # the journal's last rollout shows until this one begins
+        return _tier_status(port, lambda s: s.rollout.phase in TIER_TERMINAL
+                            and s.rollout.target_version == target,
+                            "the rollout to version %d" % target)
+
+    try:
+        child, port, stub = run(None)  # an idle controller: TTFT before
+        _wait_polled(stub, 2, "the rollout router")
+        before = _tier_live(stub, live[:TIER_BEFORE], "r0")
+        _all_ok(before, ROUTER_NEW, "before the rollout")
+        child.stop()
+        t0 = time.monotonic()
+        child, port, stub = run(2)
+        state = {}
+
+        def terminal():
+            if "st" not in state:
+                st = _tier_status(port)
+                phase = (st.rollout.phase if st is not None
+                         and st.rollout.target_version == 2 else "idle")
+                if phase != "idle":
+                    state.setdefault("t_stage", time.monotonic())
+                if phase in TIER_TERMINAL:
+                    state["st"], state["t"] = st, time.monotonic()
+            return "st" in state
+
+        during = _tier_live(stub, live, "r1", stop=terminal)
+        st = state.get("st") or finish(port, 2)
+        _all_ok(during, ROUTER_NEW, "under the healthy rollout")
+        check(st.rollout.phase == "committed" and st.rollout.verdict == "pass",
+              "the healthy rollout: %r" % st.rollout)
+        swaps = _swaps(journal, 2)
+        order = [ev["addr"] for ev in _tier_journal(journal)
+                 if ev["ev"] == "swap_done" and ev["to"] == 2]
+        check(swaps == {a: 1 for a in addrs} and order == sorted(addrs),
+              "the healthy rollout's swaps: %s in the order %s"
+              % (swaps, order))
+        st = _tier_status(port, lambda s: sorted(
+            r.model_version for r in s.replica) == [2, 2], "version 2")
+        child.stop()
+        out["healthy"] = {
+            "phase": "committed", "canary_first": True,
+            "start_to_commit_s": state.get("t", time.monotonic()) - t0,
+            "stage_to_commit_s": (state["t"] - state["t_stage"]
+                                  if "t_stage" in state else None),
+            "swaps_per_replica": sorted(swaps.values()),
+            "parity_matched": "%d/%d" % (TIER_PARITY, TIER_PARITY),
+            "live_streams": len(during), "live_failures": 0,
+            "fleet_versions": sorted(r.model_version for r in st.replica),
+            "ttft_before": _ttft(before), "ttft_during": _ttft(during),
+            "router_ready_s": child.ready_s}
+        child, port, _stub = run(4)
+        st = finish(port, 4)
+        torn = _swaps(journal, 4)
+        check(st.rollout.phase == "aborted" and not torn
+              and "verification" in st.rollout.last_error,
+              "the torn rollout: %r" % st.rollout)
+        child.stop()
+        out["torn"] = {"phase": st.rollout.phase, "swaps": len(torn)}
+        child, port, _stub = run(3)
+        st = finish(port, 3)
+        versions = [s.model_version for s in servers]
+        check(st.rollout.phase == "rolled_back"
+              and st.rollout.verdict == "parity_fail" and versions == [2, 2],
+              "the poisoned rollout: %r, the fleet on %s"
+              % (st.rollout, versions))
+        matched = re.search(r"reproduced (\d+)/(\d+)", st.rollout.last_error)
+        child.stop()
+        out["poisoned"] = {
+            "phase": st.rollout.phase, "verdict": st.rollout.verdict,
+            "parity_matched": "%s/%s" % matched.groups() if matched else "",
+            "rollbacks": st.rollout.rollbacks,
+            "final_fleet_versions": versions}
+        before_reloads = [s.scheduler.reloads for s in servers]
+        child, port, _stub = run(5, fault="rollout_swap:kill:1:skip=1")
+        try:
+            rc = child.proc.wait(timeout=TIER_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = "alive"
+        check(rc == -signal.SIGKILL, "the rollout_swap kill rule left the "
+              "controller %s" % rc)
+        mixed = sorted(s.model_version for s in servers)
+        child, port, _stub = run(None, argv=["--port", "0",
+                                             "--rollout_journal_dir",
+                                             journal] + fleet)
+        st = finish(port, 5)
+        resumed = _swaps(journal, 5)
+        reloads = [s.scheduler.reloads - b
+                   for s, b in zip(servers, before_reloads)]
+        check(st.rollout.phase == "committed" and st.rollout.target_version
+              == 5 and resumed == {a: 1 for a in addrs} and reloads == [1, 1]
+              and [s.model_version for s in servers] == [5, 5],
+              "the resumed rollout: %r, swaps %s, reloads %s"
+              % (st.rollout, resumed, reloads))
+        child.stop()
+        out["resumed"] = {
+            "fleet_at_kill": mixed, "phase": st.rollout.phase,
+            "swaps_per_replica": sorted(resumed.values()),
+            "replica_reloads": reloads,
+            "rollout_restarts": st.rollout.rollout_restarts}
+    finally:
+        for child in children:
+            child.close()
+    out["processes_torch_free"] = "%d/%d" % (sum(clean), len(clean))
+    return out, all(clean)
+
+
+def _tier_alone(addr, ref, prompt, label):
+    """`prompt` alone on the replica at `addr` and alone on the
+    reference replica: the same tokens."""
+    stub = wire_service.ServingStub(wire_service.build_channel(addr))
+    got = _routed(stub, "generate_stream", label, prompt, ROUTER_NEW)
+    want = _routed(ref, "generate_stream", label + "-ref", prompt, ROUTER_NEW)
+    _all_ok([got, want], ROUTER_NEW, label)
+    check(got["tokens"] == want["tokens"], "%s: the adopted replica leaves "
+          "the reference from position %s" % (label, _first_divergence(
+              got["tokens"], want["tokens"])))
+
+
+def _tier_autoscale(rs, ref, device, workdir):
+    """(3) router_main --autoscale --min_replicas 1 --max_replicas 2 over
+    flagship entries it spawns: spawn and adopt, a burst of TIER_BURST
+    requests scales to 2, a SIGKILLed replica is replaced, idle time
+    drains back to 1, and the router SIGKILLed and restarted on its
+    journal re-adopts the live replica."""
+    import shlex
+
+    vocab = FLAGSHIP["vocab_size"]
+    journal = os.path.join(workdir, "fleet")
+    argv = ["--port", "0", "--autoscale", "--min_replicas", "1",
+            "--max_replicas", "2", "--journal_dir", journal,
+            "--replica_args", " ".join(shlex.quote(a) for a in _tier_flags(
+                device) + ["--port", "0", "--warmup_tokens", "4"])]
+    out, children, alone = {}, [], 0
+
+    def seats():
+        """{seat: (pid, address)} of the journal's live seats."""
+        live = {}
+        for ev in _tier_journal(journal):
+            if ev["ev"] == "adopt":
+                live[ev["seat"]] = (ev["pid"], ev["address"])
+            elif ev["ev"] in ("retire", "reap"):
+                live.pop(ev["seat"], None)
+        return live
+
+    def fresh():
+        return rs.randint(0, vocab, size=ROUTER_DISTINCT_LEN).tolist()
+
+    try:
+        router = _tier_router(argv, "the autoscaling router")
+        children.append(router)
+        port = router.ready("ROUTER_READY")
+        t0 = time.monotonic()
+        st = _tier_status(port, lambda s: s.autoscaler.live == 1 and all(
+            r.kv_blocks_free > 0 for r in s.replica) and s.healthy == 1,
+            "the first adoption")
+        out["spawn_to_adopt_s"] = time.monotonic() - t0
+        clean = [_torch_free(router.proc.pid)]
+        (pid0, addr0), = seats().values()
+        check(not _torch_free(pid0), "the spawned replica maps no torch")
+        _tier_alone(addr0, ref, fresh(), "alone-0")
+        alone += 1
+        stub = wire_service.RouterStub(wire_service.build_channel(
+            "localhost:%d" % port))
+        burst = [fresh() for _ in range(TIER_BURST)]
+        outs = [{} for _ in burst]
+        threads = [threading.Thread(target=_routed, daemon=True, args=(
+            stub, "router_generate_stream", "a2-%02d" % i, p, ROUTER_NEW,
+            outs[i])) for i, p in enumerate(burst)]
+        t_burst = time.monotonic()
+        for t in threads:
+            t.start()
+        st = _tier_status(port, lambda s: s.autoscaler.live == 2,
+                          "the scale-up")
+        out["burst_to_second_adopt_s"] = time.monotonic() - t_burst
+        for t in threads:
+            t.join(timeout=ROUTER_DISPATCH_S + 60)
+        done, failed, lost = _tier_outcomes(outs, ROUTER_NEW, "burst")
+        check(lost == 0 and st.autoscaler.scale_ups == 1,
+              "the burst: %d lost, %r" % (lost, st.autoscaler))
+        out["burst"] = {"requests": len(burst), "completed": len(done),
+                        "failed_explicitly": len(failed), "lost": lost,
+                        "failure_codes": sorted(o["code"] for o in failed),
+                        "client_ttft": _ttft(done)}
+        live = seats()
+        check(len(live) == 2, "two live seats: %s" % live)
+        _tier_alone(live[max(live)][1], ref, fresh(), "alone-1")
+        alone += 1
+        victim = live[min(live)]
+        t_kill = time.monotonic()
+        os.kill(victim[0], signal.SIGKILL)
+        st = _tier_status(port, lambda s: s.autoscaler.replacements == 1
+                          and s.autoscaler.live == 2
+                          and victim[1] not in [r.address for r in s.replica]
+                          and s.healthy == 2, "the replacement")
+        out["kill_to_replacement_s"] = time.monotonic() - t_kill
+        live = seats()
+        _tier_alone(live[max(live)][1], ref, fresh(), "alone-2")
+        alone += 1
+        t_idle = time.monotonic()
+        _tier_status(port, lambda s: s.autoscaler.draining == 1,
+                     "the scale-down's drain")
+        t_drain = time.monotonic()
+        st = _tier_status(port, lambda s: s.autoscaler.live == 1
+                          and s.autoscaler.draining == 0
+                          and s.autoscaler.scale_downs == 1, "the retire")
+        out["idle_to_drain_s"] = t_drain - t_idle
+        out["drain_to_retire_s"] = time.monotonic() - t_drain
+        retired = [ev for ev in _tier_journal(journal)
+                   if ev["ev"] == "retire"]
+        check(len(retired) == 1 and retired[0].get("rc") == 0,
+              "the drained replica's retire: %s" % retired)
+        spawned = sum(ev["ev"] == "launched" for ev in _tier_journal(journal))
+        (pid_live, _addr), = seats().values()
+        router.proc.kill()
+        router.proc.wait()
+        router = _tier_router(argv, "the restarted autoscaling router")
+        children.append(router)
+        port = router.ready("ROUTER_READY")
+        st = _tier_status(port, lambda s: s.autoscaler.live == 1
+                          and s.healthy == 1, "the re-adoption")
+        respawned = sum(ev["ev"] == "launched"
+                        for ev in _tier_journal(journal)) - spawned
+        check(respawned == 0 and st.autoscaler.supervisor_restarts == 1
+              and seats()[max(seats())][0] == pid_live,
+              "the restarted router: %d spawns, %r" % (respawned,
+                                                       st.autoscaler))
+        clean.append(_torch_free(router.proc.pid))
+        router.stop()
+        check(not os.path.exists("/proc/%d" % pid_live) or open(
+            "/proc/%d/stat" % pid_live).read().rsplit(")", 1)[1].split()[0]
+            == "Z", "the drained replica outlived its router")
+        out.update(
+            spawns_after_restart=respawned,
+            supervisor_restarts=st.autoscaler.supervisor_restarts,
+            scale_ups=st.autoscaler.scale_ups,
+            scale_downs=st.autoscaler.scale_downs,
+            replacements=st.autoscaler.replacements,
+            spawns=spawned, lost=lost, alone_equal_reference=alone,
+            processes_torch_free="%d/%d" % (sum(clean), len(clean)))
+    finally:
+        for child in children:
+            child.close()
+        if os.path.exists(os.path.join(journal, "journal.jsonl")):
+            for pid, _addr in seats().values():  # left by a failed step
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+    return out, all(clean)
+
+
+def _tier_save(ckpt, version, flat):
+    CheckpointSaver(None, ckpt, num_shards=TIER_CKPT_SHARDS).save_flat(
+        flat, version)
+
+
+def serving_router_tier_phase(device="cuda"):
+    """Phase 30: the rest of the router tier, router_main processes that
+    import no torch in front of flagship replicas: R1 and R2 in this
+    process (serving.main's build_server over checkpoint version 1 of
+    the seeded flagship, --reload_poll_secs 0, their engine operations
+    logged), a reference replica over the same weights, and the
+    autoscaler's own serving.main processes. (1) cells, (2) rollouts,
+    (3) the autoscaler; then R1's and R2's logged operations of step (1)
+    replayed on a fresh engine with every A and B launch held to its
+    plain version, and every completed stream of step (1) equal to a
+    replay of its trace. Its own generator (TIER_SEED)."""
+    on_card = device == "cuda"
+    rs = np.random.RandomState(TIER_SEED)
+    model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+    workdir = tempfile.mkdtemp(prefix="router_tier_")
+    ckpt = os.path.join(workdir, "ckpt")
+    _tier_save(ckpt, 1, _tier_flat(model))
+    out, errs, servers, logs = {}, {}, [], [[], []]
+    try:
+        for oplog in logs:
+            server = serving_main.build_server(serving_main.parse_serving_args(
+                _tier_flags(device) + ["--checkpoint_dir", ckpt,
+                                       "--reload_poll_secs", "0", "--port",
+                                       "0"]))
+            _ScheduleLog(server, oplog)
+            servers.append(server.start(transport=True))
+        ref_server = _tiers_server(model, ROUTER_BLOCKS).start(transport=True)
+        servers.append(ref_server)
+        addrs = ["localhost:%d" % s.port for s in servers[:2]]
+        ref = wire_service.ServingStub(wire_service.build_channel(
+            "localhost:%d" % ref_server.port))
+        for stub in [wire_service.ServingStub(wire_service.build_channel(a))
+                     for a in addrs] + [ref]:  # warm, outside the counts
+            _all_ok([_routed(stub, "generate_stream", "warm", [1, 2, 3, 4],
+                             2)], 2, "warm-up")
+        check([s.model_version for s in servers[:2]] == [1, 1],
+              "R1 and R2 serve versions %s"
+              % [s.model_version for s in servers[:2]])
+        _sync(device)
+        att.reset_launch_counts()
+        step1, out["cells"], clean_cells = _tier_cells(rs, addrs, workdir)
+        _tier_idle(servers[:2])
+        marks = [len(log) for log in logs]
+        out["rollout"], clean_roll = _tier_rollout(rs, servers[:2], addrs,
+                                                   model, ckpt, workdir)
+        out["autoscaler"], clean_auto = _tier_autoscale(rs, ref, device,
+                                                        workdir)
+        _sync(device)
+        launches = {n: att.KERNEL_LAUNCHES[n] for n in ROUTER_KERNELS}
+        if on_card:
+            for name in ("flash_fwd", "paged_decode"):
+                check(launches[name] > 0, "kernel %s was not launched in "
+                      "this process's replicas on the router tier's path"
+                      % name)
+        check(clean_cells and clean_roll and clean_auto, "a router-side "
+              "process maps torch: %s" % {k: v["processes_torch_free"]
+                                          for k, v in out.items()})
+        for s in servers:
+            s.stop(timeout=120)
+        for s in servers:
+            check(s.scheduler.crashed is None,
+                  "scheduler crashed: %r" % (s.scheduler.crashed,))
+        refs, replayed = {}, {}
+        for name, oplog, mark in zip(("R1", "R2"), logs, marks):
+            got, replayed[name] = _router_replay(model, oplog[:mark], errs,
+                                                 mark, on_card, reseat=True)
+            for trace, streams in got.items():
+                refs.setdefault(trace, []).extend(streams)
+        for r in step1:
+            check(r["tokens"] in refs.get(r["trace"], []), "%s leaves every "
+                  "replay of its trace" % r["trace"])
+        out["replay"] = {"streams_equal": len(step1),
+                         "seats": sum(map(len, refs.values())),
+                         "launches": replayed}
+        out["held_to_plain"] = {k: {"launches": len(v), "max_abs_err": max(v)}
+                                for k, v in errs.items()}
+        if on_card:
+            check(errs.get("flash_fwd") and errs.get("paged_decode"),
+                  "the replay held no A or B launch: %s" % sorted(errs))
+    finally:
+        for s in servers:
+            s.stop(drain=False, timeout=120)
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["launches"] = launches
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    log("serving_router_tier: %s" % json.dumps(out))
+    return out, launches, errs
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -8752,6 +9531,11 @@ def main():
     laps.to("serving_router")
     serving_router, router_launches, router_errs = serving_router_phase()
     torch.cuda.empty_cache()
+    # phase 30 draws from its own generator (TIER_SEED)
+    laps.to("serving_router_tier")
+    serving_router_tier, tier_launches, tier_errs = (
+        serving_router_tier_phase())
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -8907,6 +9691,17 @@ def main():
             for key in ("max_abs_err", "max_err"):
                 if key in entry:
                     entry[key] = max(entry[key], max(router_errs[name]))
+    # phase 30's launches of A and B in this process's replicas on the
+    # router tier's path, and the errors of its replayed launches
+    for entry in kernels:
+        name = entry["name"]
+        if name in ROUTER_KERNELS:
+            entry["launches_serving_router_tier"] = tier_launches[name]
+        if tier_errs.get(name):
+            entry["serving_router_tier_max_abs_err"] = max(tier_errs[name])
+            for key in ("max_abs_err", "max_err"):
+                if key in entry:
+                    entry[key] = max(entry[key], max(tier_errs[name]))
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
@@ -8914,7 +9709,8 @@ def main():
              "serving_modes": serving_modes, "master_worker": master_worker,
              "lifecycle": lifecycle, "host_embedding": host_embedding,
              "serving_wire": serving_wire, "serving_tiers": serving_tiers,
-             "serving_router": serving_router}
+             "serving_router": serving_router,
+             "serving_router_tier": serving_router_tier}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -8940,6 +9736,7 @@ def main():
     print(json.dumps({"serving_wire": serving_wire}))
     print(json.dumps({"serving_tiers": serving_tiers}))
     print(json.dumps({"serving_router": serving_router}))
+    print(json.dumps({"serving_router_tier": serving_router_tier}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -218,6 +218,35 @@ SERVING_RPCS = (
     "checkpoint_read",
 ) + ROUTER_RPCS
 
+# The replica supervisor's process boundary (serving/autoscaler.py) and
+# the rollout controller's (serving/rollout.py): hooks the controllers
+# intercept() directly, not servicer methods, as the JAX package names
+# them --
+#   supervisor_spawn:drop:1          one spawn fails outright
+#   supervisor_ready:delay:*:secs=2  every replica is slow to ready
+#   supervisor_adopt:drop:1          one adoption is dropped (the seat is
+#                                    reaped and respawned)
+#   rollout_swap:kill:1:skip=1       the controller dies before its
+#                                    second reload dispatch (mid-wave)
+#   rollout_judge:drop:1             one canary judgment is skipped
+SUPERVISOR_RPCS = (
+    "supervisor_spawn",
+    "supervisor_ready",
+    "supervisor_adopt",
+    "rollout_swap",
+    "rollout_judge",
+)
+
+# The router cell tier's hooks (serving/router_cell.py, router_main
+# --cells): the cell supervisor intercepts `cell_spawn` at each cell
+# launch, each cell `cell_kill` at its heartbeat tick --
+#   cell_kill:kill:1:skip=4    the cell dies on its 5th heartbeat
+#   cell_spawn:drop:1          one cell launch fails outright
+CELL_HOOKS = (
+    "cell_spawn",
+    "cell_kill",
+)
+
 
 class FaultInjectingServicer(object):
     """Transparent servicer wrapper: the same RPC surface, with

@@ -342,6 +342,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 class _HTTPServer(http.server.ThreadingHTTPServer):
     daemon_threads = True
     block_on_close = False
+    # the listen backlog: socketserver's 5 resets connections of a burst
+    # of concurrent calls before the accept loop reaches them
+    request_queue_size = 128
 
     def __init__(self, address, rpc):
         self.rpc = rpc

@@ -355,6 +355,9 @@ class Replica(object):
         self.dispatched = 0
         self.failures = 0
         self.poll_failures = 0
+        # heartbeats observed: 0 until model_version and the load
+        # signals are known (the rollout controller waits for the first)
+        self.polls = 0
         # router-side in-flight dispatches: the polled signals freeze
         # between heartbeats, so this breaks ties inside a poll window
         self.inflight = 0
@@ -438,6 +441,7 @@ class Replica(object):
     def observe(self, status, lease_until):
         """One heartbeat's signal copy, driven by the declared tables."""
         self.lease_expires_at = lease_until
+        self.polls += 1
         for name, default in self.OBSERVED_SCALARS.items():
             setattr(self, name, type(default)(getattr(status, name)))
         for name in self.OBSERVED_LISTS:

@@ -71,6 +71,10 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.serving.hot_reload",
                      "elasticdl_tpu_torch.serving.router",
                      "elasticdl_tpu_torch.serving.router_main",
+                     "elasticdl_tpu_torch.serving.router_cell",
+                     "elasticdl_tpu_torch.serving.rollout",
+                     "elasticdl_tpu_torch.serving.autoscaler",
+                     "elasticdl_tpu_torch.common.checkpoint_integrity",
                      "elasticdl_tpu_torch.serving.prefix_affinity",
                      "elasticdl_tpu_torch.observability.slo",
                      "elasticdl_tpu_torch.observability.tracing",

@@ -8,8 +8,10 @@ localhost (CPU), and its entry point.
   re-dispatched to the survivor, a stream past its first chunk fails
   with UNAVAILABLE after the chunks it delivered;
 * each server answers only its own table (UNIMPLEMENTED otherwise);
-* the entry: the JAX parser's defaults, the unported flags raising with
-  their ROADMAP item, an import that loads neither torch nor jax, and
+* the entry: the JAX parser's defaults and its results for the cell,
+  supervisor and rollout flags (and what each builds), the metrics
+  plane's flags raising with their ROADMAP item, an import that loads
+  neither torch nor jax, and
   `python -m elasticdl_tpu_torch.serving.router_main` as a process
   (ROUTER_READY, routed calls, exit 0 on SIGTERM).
 """
@@ -207,16 +209,78 @@ def test_parser_defaults_equal_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cells", "2"], "item 4"), (["--cell_id", "0"], "item 4"),
-    (["--cell_journal_dir", "d"], "item 4"), (["--autoscale"], "item 4"),
-    (["--max_replicas", "8"], "item 4"),
-    (["--rollout", "3", "--rollout_journal_dir", "d"], "item 4"),
-    (["--rollout_parity_prompts", "4,5"], "item 4"),
     (["--metrics_port", "0"], "item 6"),
     (["--tensorboard_log_dir", "tb"], "item 6")])
 def test_unported_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         router_main.parse_router_args(["--replica", "localhost:1"] + flags)
+
+
+ITEM4_FLAGS = {
+    "cells": ["--replica", "localhost:1", "--cells", "2",
+              "--cell_journal_dir", "{d}/cells", "--port", "7000"],
+    "cell_id": ["--replica", "localhost:1", "--cell_id", "0",
+                "--cells", "2", "--cell_journal_dir", "{d}/cells"],
+    "journal_only": ["--cell_journal_dir", "{d}/cells", "--cell_id", "1"],
+    "autoscale": ["--autoscale", "--replica_args", "--port 0 --device cpu",
+                  "--journal_dir", "{d}/fleet"],
+    "autoscale_knobs": ["--autoscale", "--replica_args", "--port 0",
+                        "--journal_dir", "{d}/fleet", "--min_replicas", "2",
+                        "--max_replicas", "8", "--decide_secs", "0.25",
+                        "--up_queue_wait_ms", "50", "--up_window_secs", "1",
+                        "--down_window_secs", "3",
+                        "--scale_cooldown_secs", "2", "--max_restarts", "5"],
+    "rollout": ["--replica", "localhost:1", "--rollout", "3",
+                "--rollout_journal_dir", "{d}/roll",
+                "--rollout_checkpoint_dir", "{d}/ck"],
+    "rollout_knobs": ["--replica", "localhost:1", "--rollout_journal_dir",
+                      "{d}/roll", "--rollout_wave_size", "2",
+                      "--rollout_soak_secs", "1", "--rollout_parity_prompts",
+                      "4,5;6", "--rollout_judge_timeout_secs", "9"],
+    "rollout_needs_ckpt": ["--replica", "localhost:1", "--rollout", "3",
+                           "--rollout_journal_dir", "d"],
+    "autoscale_needs_args": ["--autoscale"],
+}
+
+
+def _built(mod, args):
+    """(the controllers' settings, stop) for what `mod`'s router_main
+    builds from `args`, started nowhere."""
+    router = mod.build_router(args)
+    out, stops = {"router": type(router).__name__}, [router.stop]
+    if args.cells > 1:
+        out["cell_argv"] = mod._cell_child_argv(args, 1)[3:]
+    if args.autoscale:
+        sup = mod.build_supervisor(args, router)
+        out["autoscaler"] = vars(sup.config)
+        stops.insert(0, sup.stop)
+    if args.rollout_journal_dir:
+        from importlib import import_module
+
+        ctl = import_module(mod.__name__.replace(
+            "router_main", "rollout")).build_rollout(args, router)
+        out["rollout"] = vars(ctl.config)
+        stops.insert(0, ctl.stop)
+    for stop in stops:
+        stop()
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ITEM4_FLAGS))
+def test_item4_flags_parse_as_jax_and_build(tmp_path, case):
+    argv = [a.format(d=tmp_path) for a in ITEM4_FLAGS[case]]
+    if case.endswith(("needs_ckpt", "needs_args")):
+        for mod in (jrouter_main, router_main):
+            with pytest.raises(SystemExit):
+                mod.parse_router_args(argv)
+        return
+    args = router_main.parse_router_args(argv)
+    assert vars(args) == vars(jrouter_main.parse_router_args(argv))
+    want = _built(jrouter_main, jrouter_main.parse_router_args(argv))
+    got = _built(router_main, args)
+    assert got == want
+    assert got["router"] == ("RouterCell" if "--cell_journal_dir" in argv
+                             else "Router")
 
 
 def test_router_main_imports_neither_torch_nor_jax():
