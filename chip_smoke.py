@@ -398,7 +398,7 @@ repository checkout it sits in. Phases, each of which fails the run:
    commits it with no replica swapped twice; client TTFT before and
    during the healthy rollout; (3) `--autoscale --min_replicas 1
    --max_replicas 2` over flagship serving.main processes it spawns:
-   spawn and adopt, a burst of 32 scales to 2, a SIGKILLed replica is
+   spawn and adopt, a burst of 48 scales to 2, a SIGKILLed replica is
    replaced, idle time drains back to 1 (SIGTERM, exit 0, retired), and
    the router SIGKILLed and restarted on its journal re-adopts the live
    replica with no spawn; each adopted replica's answer to a prompt
@@ -406,6 +406,31 @@ repository checkout it sits in. Phases, each of which fails the run:
    lost; then R1's and R2's operations of step (1) replayed on a fresh
    engine with every A and B launch held to its plain version, and
    every completed stream of step (1) equal to a replay of its trace.
+31. the preprocessing layers and the tabular and CTR zoo (the JAX
+   package's heart_functional_api, census_dnn_model x 3,
+   census_wide_deep_model, census_model_sqlflow dnn and wide&deep, and
+   dac_ctr wide_deep / deepfm / dcn / xdeepfm, found by their JAX
+   --model_def strings in elasticdl_tpu_torch/model_zoo): each model
+   takes TAB_STEPS LocalExecutor steps and one evaluation on the card
+   over records the copied generators write (gen_heart_like,
+   gen_census_raw, gen_criteo_like), at its published widths, dac_ctr at
+   max_hashing_bucket_size 10^6 (38 tables of 5.50 M rows at dims 1 and
+   8, Adam), one model at a time, each freed before the next; minibatch
+   TAB_BATCH for the tabular models and TAB_CTR_BATCH for the CTR ones
+   (see their comment); every loss finite, the metrics in [0, 1], no
+   kernel launched by the training (the tables are plain lookups, as the
+   JAX zoo's nn.Embed), and the first step's loss on the card within
+   TAB_LOSS_TOL_REL of the CPU port's from the same weights and batch;
+   per model its parameter bytes, peak memory, step ms and p50, and
+   dataset_fn's records/s on the host apart from the step; the step of
+   the simplest and the heaviest CTR model profiled (TAB_PROFILED). Then
+   kernel E through the preprocessing path: an embedding_column over the
+   concatenated_categorical_column of the 38 dac_ctr groups (5.50 M rows
+   x 8, ids from the CTR transform of 2048 records, a tenth of the slots
+   and one whole row PADDING_ID), sum and mean combiners, against the
+   same layer on the CPU within TAB_EMB_TOL_REL of the largest value; E
+   launched once a lookup; E timed at that shape beside its plain
+   version and F.embedding.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -421,7 +446,11 @@ its checked launches' errors as `serving_tiers_max_abs_err`) and a
 ride the `kernels` line as `launches_serving_router`, its replayed
 launches' errors as `serving_router_max_abs_err`) and a
 `serving_router_tier` line (likewise `launches_serving_router_tier`
-and `serving_router_tier_max_abs_err`), each with
+and `serving_router_tier_max_abs_err`) and a `tabular_zoo` line (E's
+launches through embedding_column ride the `kernels` line as
+`launches_tabular_zoo`, by wrapper, their errors as
+`tabular_zoo_max_abs_err`, E's timing there as `tabular_zoo_timing`),
+each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -430,6 +459,7 @@ allow_tf32 = False).
 """
 
 import contextlib
+import gc
 import hashlib
 import itertools
 import json
@@ -486,6 +516,7 @@ from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.hash_utils import string_to_id
 from elasticdl_tpu_torch.common.model_utils import (
     get_dict_from_params_str,
+    get_model_spec,
     load_model_spec_from_module,
 )
 from elasticdl_tpu_torch.convert import (
@@ -497,7 +528,10 @@ from elasticdl_tpu_torch.data import packing
 from elasticdl_tpu_torch.data import recordio_gen as port_recordio_gen
 from elasticdl_tpu_torch.common import job_status
 from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
-from elasticdl_tpu_torch.data.example_codec import encode_example
+from elasticdl_tpu_torch.data.example_codec import (
+    decode_example,
+    encode_example,
+)
 from elasticdl_tpu_torch.data.reader.recordio_reader import (
     RecordIODataReader,
 )
@@ -509,6 +543,13 @@ from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.master.state_store import JobStateStore
 from elasticdl_tpu_torch.master.task_dispatcher import Task, TaskType
 from elasticdl_tpu_torch.model_zoo import deepfm_edl_embedding as dzoo_edl
+from elasticdl_tpu_torch.model_zoo.dac_ctr.feature_config import (
+    FEATURE_GROUPS,
+)
+from elasticdl_tpu_torch.model_zoo.dac_ctr.feature_transform import (
+    group_max_ids,
+    transform_feature,
+)
 from elasticdl_tpu_torch.model_zoo import deepfm_host_embedding as thost
 from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
@@ -527,6 +568,7 @@ from elasticdl_tpu_torch.ops import embedding_ops as eo
 from elasticdl_tpu_torch.ops import optimizer_kernels as ok
 from elasticdl_tpu_torch.ops import update_math as um
 from elasticdl_tpu_torch.parallel import context_parallel as cp
+from elasticdl_tpu_torch.preprocessing import feature_column as fcol
 from elasticdl_tpu_torch.serving import main as serving_main
 from elasticdl_tpu_torch.serving.disagg import HandoffCoordinator
 from elasticdl_tpu_torch.serving.engine import StepProfiler
@@ -8572,7 +8614,11 @@ TIER_LIVE = 8  # concurrent live streams under the healthy rollout
 TIER_LIVE_LEN = 512  # their prompts: 32 blocks, distinct
 TIER_BEFORE = 16  # live streams timed through an idle controller first
 TIER_PARITY, TIER_PARITY_LEN = 2, 16  # the pinned greedy-parity prompts
-TIER_BURST = 48  # the autoscaler's burst, sent at once (992 tokens each)
+# the autoscaler's burst, sent at once: ROUTER_KILL_LEN-token prompts
+# with ROUTER_KILL_NEW new tokens each, so the 8 slots stay full and the
+# queue deep for seconds, past the 2 s window a scale-up needs (992-token
+# prompts with 32 new tokens drained in about 2 s on a fast card)
+TIER_BURST = 48
 TIER_CKPT_SHARDS = 2
 TIER_WAIT_S = 300
 TIER_TERMINAL = ("committed", "rolled_back", "aborted")
@@ -9116,11 +9162,12 @@ def _tier_autoscale(rs, ref, device, workdir):
         alone += 1
         stub = wire_service.RouterStub(wire_service.build_channel(
             "localhost:%d" % port))
-        burst = [fresh() for _ in range(TIER_BURST)]
+        burst = [rs.randint(0, vocab, size=ROUTER_KILL_LEN).tolist()
+                 for _ in range(TIER_BURST)]
         outs = [{} for _ in burst]
         threads = [threading.Thread(target=_routed, daemon=True, args=(
-            stub, "router_generate_stream", "a2-%02d" % i, p, ROUTER_NEW,
-            outs[i])) for i, p in enumerate(burst)]
+            stub, "router_generate_stream", "a2-%02d" % i, p,
+            ROUTER_KILL_NEW, outs[i])) for i, p in enumerate(burst)]
         t_burst = time.monotonic()
         for t in threads:
             t.start()
@@ -9129,7 +9176,7 @@ def _tier_autoscale(rs, ref, device, workdir):
         out["burst_to_second_adopt_s"] = time.monotonic() - t_burst
         for t in threads:
             t.join(timeout=ROUTER_DISPATCH_S + 60)
-        done, failed, lost = _tier_outcomes(outs, ROUTER_NEW, "burst")
+        done, failed, lost = _tier_outcomes(outs, ROUTER_KILL_NEW, "burst")
         check(lost == 0 and st.autoscaler.scale_ups == 1,
               "the burst: %d lost, %r" % (lost, st.autoscaler))
         out["burst"] = {"requests": len(burst), "completed": len(done),
@@ -9297,6 +9344,298 @@ def serving_router_tier_phase(device="cuda"):
     if on_card:
         torch.cuda.empty_cache()
     log("serving_router_tier: %s" % json.dumps(out))
+    return out, launches, errs
+
+
+TAB_SEED = 31
+TAB_STEPS = 4  # LocalExecutor steps a model takes
+# the tabular models' minibatch: heart's published table has 303 rows and
+# census-income 32,561, so 64 gives each model several steps of real
+# batches; the CTR models' minibatch is the order Criteo CTR models train
+# at (the DLRM phase takes 4096), halved so that the host's per-record
+# transform (26 md5 hashes a record, a few thousand records/s on one
+# core) keeps the phase within its 90 s
+TAB_BATCH = 64
+TAB_CTR_BATCH = 2048
+TAB_CTR_BUCKETS = 1_000_000  # dac_ctr's published MAX_HASHING_BUCKET_SIZE
+TAB_LOSS_TOL_REL = 1e-4  # first loss, card against the CPU port
+TAB_EMB_DIM = 8  # the dac_ctr deep tables' dim
+TAB_PAD_SHARE = 0.1  # the id slots the kernel E check sets to PADDING_ID
+TAB_EMB_TOL_REL = 1e-6
+TAB_KERNELS = ("embedding_gather", "embedding_gather_many")
+# the models whose step is profiled on the card: the CTR model with the
+# least and the one with the most dense work
+TAB_PROFILED = ("dac_ctr_wide_deep", "dac_ctr_xdeepfm")
+# name -> (--model_def in the zoo, generator, model_params, minibatch)
+TAB_MODELS = {
+    "heart": ("heart_functional_api.heart_functional_api.custom_model",
+              "gen_heart_like", "", TAB_BATCH),
+    "census_dnn_functional_api": (
+        "census_dnn_model.census_functional_api.custom_model",
+        "gen_census_raw", "", TAB_BATCH),
+    "census_dnn_sequential": (
+        "census_dnn_model.census_sequential.custom_model",
+        "gen_census_raw", "", TAB_BATCH),
+    "census_dnn_subclass": ("census_dnn_model.census_subclass.custom_model",
+                            "gen_census_raw", "", TAB_BATCH),
+    "census_wide_deep": ("census_wide_deep_model.wide_deep_functional_api."
+                         "custom_model", "gen_census_raw", "", TAB_BATCH),
+    "sqlflow_dnn": ("census_model_sqlflow.dnn.census_dnn.custom_model",
+                    "gen_census_raw", "", TAB_BATCH),
+    "sqlflow_wide_deep": ("census_model_sqlflow.wide_and_deep."
+                          "census_wide_and_deep.custom_model",
+                          "gen_census_raw", "", TAB_BATCH),
+}
+for _ctr in ("wide_deep", "deepfm", "dcn", "xdeepfm"):
+    TAB_MODELS["dac_ctr_" + _ctr] = (
+        "dac_ctr.elasticdl_train.custom_model", "gen_criteo_like",
+        "ctr_model='%s'; max_hashing_bucket_size=%d" % (_ctr,
+                                                         TAB_CTR_BUCKETS),
+        TAB_CTR_BATCH)
+
+
+def _tab_zoo_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "elasticdl_tpu_torch", "model_zoo")
+
+
+def _tab_records(gen, batch, workdir, seed):
+    """The training (TAB_STEPS batches) and validation (one batch)
+    record dirs of a generator and minibatch, written once."""
+    train = os.path.join(workdir, "%s-%d-train" % (gen, batch))
+    valid = os.path.join(workdir, "%s-%d-valid" % (gen, batch))
+    if not os.path.isdir(train):
+        getattr(port_recordio_gen, gen)(train, num_files=1,
+                                        records_per_file=batch * TAB_STEPS,
+                                        seed=seed)
+        getattr(port_recordio_gen, gen)(valid, num_files=1,
+                                        records_per_file=batch,
+                                        seed=seed + 1)
+    return train, valid
+
+
+def _tab_host_rate(spec, train, n):
+    """dataset_fn's records/s over the first `n` training records, alone
+    (no step): decode, transform and the shuffle buffer."""
+    (name,) = os.listdir(train)
+    records = list(Scanner(os.path.join(train, name)))[:n]
+    t0 = time.perf_counter()
+    n = sum(1 for _ in spec.dataset_fn(Dataset.from_list(records),
+                                       Mode.TRAINING, None))
+    return n / (time.perf_counter() - t0)
+
+
+def _tab_train(name, workdir, device):
+    """TAB_STEPS LocalExecutor steps and one evaluation of one zoo model
+    on `device`, then its first step again on the CPU port from the same
+    weights and batch. Returns the model's report."""
+    model_def, gen, params, batch = TAB_MODELS[name]
+    train, valid = _tab_records(gen, batch, workdir, TAB_SEED)
+    spec = get_model_spec(_tab_zoo_dir(), model_def)
+    executor = LocalExecutor(
+        spec, training_data=train, validation_data=valid,
+        minibatch_size=batch, records_per_task=batch * TAB_STEPS,
+        model_params=params, device=device)
+    trainer = executor.trainer
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in trainer.model.state_dict().items()}
+    param_bytes = sum(v.numel() * v.element_size() for v in init.values())
+    steps, first = [], {}
+    step_fn = trainer.train_step
+
+    def recorded(state, batch_, true_count=None):
+        if not first:
+            first.update(features={k: np.array(v) for k, v in
+                                   batch_[0].items()},
+                         labels=np.array(batch_[1]), true_count=true_count)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step_fn(state, batch_, true_count)
+        _sync(device)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.train_step = recorded
+    base = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        # what the process holds already (earlier phases, this model's
+        # parameters): the peak below counts it too
+        base = int(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    state, metrics = executor.train()
+    peak = (int(torch.cuda.max_memory_allocated()) if device == "cuda"
+            else None)
+    losses = list(executor.losses)
+    check(state is not None and state.step == TAB_STEPS
+          and len(losses) == TAB_STEPS,
+          "%s took %d steps, not %d" % (name, len(losses), TAB_STEPS))
+    check(all(math.isfinite(x) for x in losses),
+          "%s: a non-finite loss in %s" % (name, losses))
+    want_metrics = (("logits_accuracy", "probs_auc")
+                    if "logits_accuracy" in metrics else ("accuracy",))
+    check(sorted(metrics) == sorted(want_metrics)
+          and all(0.0 <= metrics[k] <= 1.0 for k in want_metrics),
+          "%s evaluation metrics %s" % (name, metrics))
+    on_device = {p.device.type for p in trainer.model.parameters()}
+    check(on_device == {torch.device(device).type},
+          "%s's parameters lie on %s" % (name, sorted(on_device)))
+    # the instance attribute closes a cycle (the wrapper holds the bound
+    # method, which holds the trainer): drop it, so the model, its
+    # gradients and Adam's moments go before the next model is built
+    del trainer.train_step
+    profile = None
+    if device == "cuda" and name in TAB_PROFILED:
+        profile = profile_steps(trainer, state, (first["features"],
+                                                 first["labels"]))
+        log("tabular_zoo %s step profile: %s" % (name, json.dumps(profile)))
+    del executor, trainer, state, step_fn, recorded
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # the first step again on the CPU port, from the same weights and batch
+    cpu = Trainer(spec, model_params=params, device="cpu")
+    cpu_state = cpu.init_state(None, params=init)
+    _cpu_state, cpu_loss = cpu.train_step(
+        cpu_state, (first["features"], first["labels"]), first["true_count"])
+    rel = abs(losses[0] - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    check(rel <= TAB_LOSS_TOL_REL,
+          "%s: first loss %.8f on %s, %.8f on the CPU (rel %.3g > %g)"
+          % (name, losses[0], device, cpu_loss, rel, TAB_LOSS_TOL_REL))
+    del cpu, cpu_state, _cpu_state, init
+    return {
+        "model_def": model_def, "model_params": params, "minibatch": batch,
+        "steps": TAB_STEPS, "losses": losses, "first_loss_cpu": cpu_loss,
+        "first_loss_rel_err": rel, "eval": metrics,
+        "param_bytes": int(param_bytes), "peak_memory_bytes": peak,
+        "memory_allocated_before_bytes": base,
+        "step_ms": steps, "step_p50_ms": float(np.median(steps)),
+        "dataset_fn_records_per_s": _tab_host_rate(spec, train, batch),
+        "step_profile": profile,
+    }
+
+
+def _tab_embedding_column(workdir, device):
+    """Kernel E through the preprocessing path: an embedding_column over
+    the concatenated_categorical_column of the 38 dac_ctr groups at their
+    published id spaces (5.50 M rows, dim 8), ids from the CTR transform
+    (transform_feature) of Criteo-like records with TAB_PAD_SHARE of the
+    slots PADDING_ID,
+    looked up with the sum and the mean combiner on `device` and held to
+    the same layer on the CPU (the plain version). Returns (report,
+    launches by wrapper, max abs errors)."""
+    max_ids = group_max_ids(FEATURE_GROUPS, TAB_CTR_BUCKETS)
+    train, _valid = _tab_records("gen_criteo_like", TAB_CTR_BATCH, workdir,
+                                 TAB_SEED)
+    (rec_name,) = os.listdir(train)
+    parsed = [transform_feature(decode_example(r), FEATURE_GROUPS,
+                                TAB_CTR_BUCKETS)[1]
+              for r in list(Scanner(os.path.join(train, rec_name)))[
+                  :TAB_CTR_BATCH]]
+    groups = sorted(max_ids, key=lambda n: int(n.split("_")[-1]))
+    features = {g: np.stack([f[g] for f in parsed]) for g in groups}
+    column = fcol.concatenated_categorical_column(
+        [fcol.categorical_column_with_identity(g, max_ids[g])
+         for g in groups])
+    ids = column(features)
+    pad = np.random.RandomState(TAB_SEED).rand(*ids.shape) < TAB_PAD_SHARE
+    ids[pad] = embedding_layer.PADDING_ID
+    ids[0] = embedding_layer.PADDING_ID  # a row with no ids at all
+    gen = torch.Generator(device=device).manual_seed(TAB_SEED)
+    report = {"rows": int(column.num_buckets), "dim": TAB_EMB_DIM,
+              "ids": list(ids.shape), "padding_slots": int(
+                  (ids == embedding_layer.PADDING_ID).sum())}
+    errs, launches = [], dict.fromkeys(TAB_KERNELS, 0)
+    table = None
+    for combiner in ("sum", "mean"):
+        _col, factory = fcol.embedding_column(column, TAB_EMB_DIM,
+                                              combiner=combiner)
+        layer = factory(device=device, generator=gen)
+        if table is not None:
+            with torch.no_grad():
+                layer.embedding_table.copy_(table)
+        table = layer.embedding_table.detach()
+        ids_dev = torch.as_tensor(ids, device=device)
+        _sync(device)
+        before = all_launch_counts()
+        with torch.no_grad():
+            out = layer(ids_dev)
+        _sync(device)
+        after = all_launch_counts()
+        for k in TAB_KERNELS:
+            launches[k] += after[k] - before[k]
+        plain = factory(device="cpu")
+        plain.load_state_dict({"embedding_table": table.cpu()})
+        with torch.no_grad():
+            ref = plain(torch.as_tensor(ids))
+        got = out.cpu()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= TAB_EMB_TOL_REL * scale,
+              "embedding_column (%s) on %s: max abs err %.3g against the "
+              "plain version (largest value %.3g)" % (combiner, device, err,
+                                                      scale))
+        check(not got[0].any(), "a row of only PADDING_ID gave no zeros")
+        report["max_abs_err_" + combiner] = err
+        errs.append(err)
+        del layer, plain, out
+    if device == "cuda":
+        check(launches["embedding_gather_many"] == 2
+              and launches["embedding_gather"] == 0,
+              "the embedding_column lookups launched %s, not kernel E once "
+              "a lookup (through embedding_gather_many)" % launches)
+        # E alone at the path's shape: the gather of the [batch, 38] ids
+        # from the 5.50 M x 8 table, beside its plain version and
+        # F.embedding (a library gather of the same rows)
+        ids_dev = torch.as_tensor(ids, device=device)
+        n = ids_dev.numel()
+        ms, _eager = timed_ms(lambda: eo.embedding_gather(table, ids_dev))
+        plain_ms, _ = timed_ms(lambda: eo.embedding_gather_plain(table,
+                                                                 ids_dev))
+        clipped = ids_dev.clamp(0, table.shape[0] - 1)
+        library_ms, _ = timed_ms(lambda: F.embedding(clipped, table))
+        bound, bound_by = bound_ms(0, n * 8 + 2 * n * TAB_EMB_DIM * 4,
+                                   peak=PEAK_FP32_FLOPS)
+        report["gather_timing"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "F.embedding on clamped ids",
+            "bound_ms": bound, "bound_by": bound_by}
+    del table
+    return report, launches, errs
+
+
+def tabular_zoo_phase(workdir, device="cuda"):
+    """Phase 31: the preprocessing layers and the tabular and CTR zoo on
+    `device` (see the module docstring). Returns (report, E's launches
+    by wrapper, E's errors against its plain version)."""
+    t_phase = time.perf_counter()
+    out = {"models": {}}
+    reset_all_launch_counts()
+    for name in TAB_MODELS:
+        t0 = time.perf_counter()
+        out["models"][name] = rep = _tab_train(name, workdir, device)
+        rep["model_s"] = time.perf_counter() - t0
+        log("tabular_zoo %s: %s" % (name, json.dumps(rep)))
+    # the zoo's tables are plain lookups, as the JAX zoo's flax nn.Embed:
+    # training them launches none of the port's kernels
+    out["kernel_launches_training"] = all_launch_counts()
+    check(not any(out["kernel_launches_training"].values()),
+          "the zoo's training launched %s" % out["kernel_launches_training"])
+    reset_all_launch_counts()
+    out["embedding_column"], launches, errs = _tab_embedding_column(
+        workdir, device)
+    log("tabular_zoo embedding_column: %s; launches %s" % (
+        json.dumps(out["embedding_column"]), launches))
+    out["minibatch"] = {
+        "tabular": TAB_BATCH, "ctr": TAB_CTR_BATCH,
+        "why": ("tabular: heart's published table has 303 rows and "
+                "census-income 32,561, so 64 gives each model several "
+                "steps of real batches; CTR: the order Criteo CTR models "
+                "train at, halved from the DLRM phase's 4096 so the host's "
+                "per-record md5 transform keeps the phase near 90 s")}
+    out["loss_tol_rel"] = TAB_LOSS_TOL_REL
+    out["embedding_tol_rel"] = TAB_EMB_TOL_REL
+    out["seconds"] = time.perf_counter() - t_phase
     return out, launches, errs
 
 
@@ -9536,6 +9875,11 @@ def main():
     serving_router_tier, tier_launches, tier_errs = (
         serving_router_tier_phase())
     torch.cuda.empty_cache()
+    # phase 31 draws from its own generators (TAB_SEED)
+    laps.to("tabular_zoo")
+    with tempfile.TemporaryDirectory() as workdir:
+        tabular_zoo, tab_launches, tab_errs = tabular_zoo_phase(workdir)
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -9702,6 +10046,20 @@ def main():
             for key in ("max_abs_err", "max_err"):
                 if key in entry:
                     entry[key] = max(entry[key], max(tier_errs[name]))
+    # phase 31's launches of E through embedding_column (by wrapper; the
+    # grouped wrapper launches the kernel for one table), its errors
+    # against the plain version, and E timed at that path's shape
+    for entry in kernels:
+        name = entry["name"]
+        if name in TAB_KERNELS:
+            entry["launches_tabular_zoo"] = tab_launches
+            entry["tabular_zoo_max_abs_err"] = max(tab_errs)
+        if name == "embedding_gather":
+            entry["tabular_zoo_timing"] = dict(
+                tabular_zoo["embedding_column"]["gather_timing"],
+                shape="%s ids into a %d x %d fp32 table" % (
+                    tabular_zoo["embedding_column"]["ids"],
+                    tabular_zoo["embedding_column"]["rows"], TAB_EMB_DIM))
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
@@ -9710,7 +10068,8 @@ def main():
              "lifecycle": lifecycle, "host_embedding": host_embedding,
              "serving_wire": serving_wire, "serving_tiers": serving_tiers,
              "serving_router": serving_router,
-             "serving_router_tier": serving_router_tier}
+             "serving_router_tier": serving_router_tier,
+             "tabular_zoo": tabular_zoo}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -9737,6 +10096,7 @@ def main():
     print(json.dumps({"serving_tiers": serving_tiers}))
     print(json.dumps({"serving_router": serving_router}))
     print(json.dumps({"serving_router_tier": serving_router_tier}))
+    print(json.dumps({"tabular_zoo": tabular_zoo}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

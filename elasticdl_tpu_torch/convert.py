@@ -35,6 +35,14 @@ tables (`/embedding_table`, the port's Embedding) and the `embedding` /
 `.weight`) as they are. The host tables of deepfm_host_embedding are no
 params: their engines' state carries across as `state_dict()` (ids,
 values, step), which both packages' engines share.
+
+`zoo_params_from_flax`, `zoo_params_to_flax` and `zoo_flax_param_path`
+do it for the tabular and CTR zoo (heart_functional_api,
+census_dnn_model, census_wide_deep_model, census_model_sqlflow,
+dac_ctr), whose modules carry the flax names (model_zoo/flax_layers.py):
+one rule for every family, "." for "/", a Dense `weight` its `kernel`
+transposed, every other leaf (`embedding`, `bias`, `cross_w_0`,
+`cin_w_0`) as it is.
 """
 
 import re
@@ -309,6 +317,49 @@ def deepfm_params_to_flax(state_dict):
     flat = {}
     for tkey, t in state_dict.items():
         fkey = deepfm_flax_param_path(tkey)
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        flat[fkey] = np.array(arr.T if fkey.endswith("/kernel") else arr,
+                              order="C")
+    return unflatten_params(flat)
+
+
+def zoo_flax_param_path(torch_key):
+    """The flax path of a parameter of the tabular and CTR zoo (heart,
+    census, census_model_sqlflow, dac_ctr), whose modules carry the flax
+    names: "." becomes "/", a Dense's `weight` its `kernel`:
+    "inner.DNN_0.Dense_1.weight" -> "inner/DNN_0/Dense_1/kernel",
+    "thal_embedding.embedding" -> "thal_embedding/embedding",
+    "inner.CIN_0.cin_w_0" -> "inner/CIN_0/cin_w_0"."""
+    mod, _, leaf = torch_key.rpartition(".")
+    if leaf == "kernel":
+        raise KeyError("not a zoo parameter: %r" % (torch_key,))
+    leaf = "kernel" if leaf == "weight" else leaf
+    return "%s/%s" % (mod.replace(".", "/"), leaf) if mod else leaf
+
+
+def zoo_params_from_flax(params):
+    """flax params of a tabular or CTR zoo model (nested or flat,
+    numpy-convertible) -> a state_dict of fp32 CPU tensors for its port
+    (`zoo_flax_param_path` read backwards; Dense kernels transposed)."""
+    flat = flatten_params(params) if not _is_flat(params) else dict(params)
+    sd = {}
+    for fkey, arr in flat.items():
+        mod, _, leaf = fkey.rpartition("/")
+        if leaf == "weight":
+            raise KeyError("params the port does not carry: %r" % (fkey,))
+        tleaf = "weight" if leaf == "kernel" else leaf
+        arr = fp32_array(arr)
+        sd[("%s.%s" % (mod.replace("/", "."), tleaf)) if mod else tleaf] = (
+            torch.tensor(arr.T if leaf == "kernel" else arr))
+    return sd
+
+
+def zoo_params_to_flax(state_dict):
+    """The inverse of `zoo_params_from_flax`: a nested dict of fp32 numpy
+    arrays in the flax layout, copies of the tensors."""
+    flat = {}
+    for tkey, t in state_dict.items():
+        fkey = zoo_flax_param_path(tkey)
         arr = t.detach().to("cpu", torch.float32).numpy()
         flat[fkey] = np.array(arr.T if fkey.endswith("/kernel") else arr,
                               order="C")

@@ -1,6 +1,7 @@
 """Synthetic record files (TRec) made from a seed: the port's copy of the
 part of elasticdl_tpu/data/recordio_gen.py its tests and chip_smoke.py
-use. The same seed gives the same records, byte for byte, as the JAX
+use (frappe for DeepFM; census, heart and Criteo for the tabular and CTR
+zoo). The same seed gives the same records, byte for byte, as the JAX
 package's generator."""
 
 import os
@@ -38,4 +39,101 @@ def gen_frappe_like(data_dir, num_files=2, records_per_file=128,
         }
 
     return _generate(data_dir, "frappe", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_census_like(data_dir, num_files=2, records_per_file=128, seed=0):
+    """Tabular wide&deep records: a few dense floats + categorical ids."""
+    def example(rng):
+        return {
+            "dense": rng.rand(5).astype(np.float32),
+            "category": rng.randint(1000, size=8).astype(np.int64),
+            "label": np.array([rng.randint(2)], dtype=np.int32),
+        }
+
+    return _generate(data_dir, "census", example, num_files,
+                     records_per_file, seed)
+
+
+CENSUS_CATEGORICAL_VOCAB = {
+    "workclass": [b"Private", b"Self-emp-not-inc", b"Self-emp-inc",
+                  b"Federal-gov", b"Local-gov", b"State-gov", b"Without-pay",
+                  b"Never-worked"],
+    "education": [b"Bachelors", b"HS-grad", b"11th", b"Masters", b"9th",
+                  b"Some-college", b"Assoc-acdm", b"Assoc-voc", b"Doctorate"],
+    "marital-status": [b"Married-civ-spouse", b"Divorced", b"Never-married",
+                       b"Separated", b"Widowed", b"Married-spouse-absent",
+                       b"Married-AF-spouse"],
+    "occupation": [b"Tech-support", b"Craft-repair", b"Other-service",
+                   b"Sales", b"Exec-managerial", b"Prof-specialty"],
+    "relationship": [b"Wife", b"Own-child", b"Husband", b"Not-in-family",
+                     b"Other-relative", b"Unmarried"],
+    "race": [b"White", b"Asian-Pac-Islander", b"Amer-Indian-Eskimo",
+             b"Other", b"Black"],
+    "sex": [b"Female", b"Male"],
+    "native-country": [b"United-States", b"Cambodia", b"England",
+                       b"Puerto-Rico", b"Canada", b"Germany", b"India"],
+}
+
+
+def gen_census_raw(data_dir, num_files=2, records_per_file=128, seed=0):
+    """Raw census-income schema (reference data/recordio_gen/census schema +
+    tests/test_utils.py census fixtures): 8 string categoricals, 4 numerics,
+    binary label."""
+    def example(rng):
+        ex = {}
+        for name, vocab in CENSUS_CATEGORICAL_VOCAB.items():
+            ex[name] = np.array(vocab[rng.randint(len(vocab))], dtype="S32")
+        ex["age"] = np.array(rng.randint(17, 90), dtype=np.float32)
+        ex["capital-gain"] = np.array(rng.randint(0, 9000),
+                                      dtype=np.float32)
+        ex["capital-loss"] = np.array(rng.randint(0, 4500),
+                                      dtype=np.float32)
+        ex["hours-per-week"] = np.array(rng.randint(1, 80),
+                                        dtype=np.float32)
+        ex["label"] = np.array(rng.randint(2), dtype=np.int64)
+        return ex
+
+    return _generate(data_dir, "census-raw", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_heart_like(data_dir, num_files=2, records_per_file=128, seed=0):
+    """Heart-disease schema (reference model_zoo/heart_functional_api
+    dataset_fn feature_description)."""
+    def example(rng):
+        return {
+            "age": np.array(rng.randint(18, 90), dtype=np.int64),
+            "trestbps": np.array(rng.randint(90, 200), dtype=np.int64),
+            "chol": np.array(rng.randint(120, 560), dtype=np.int64),
+            "thalach": np.array(rng.randint(70, 210), dtype=np.int64),
+            "oldpeak": np.array(rng.rand() * 6.0, dtype=np.float32),
+            "slope": np.array(rng.randint(0, 3), dtype=np.int64),
+            "ca": np.array(rng.randint(0, 4), dtype=np.int64),
+            "thal": np.array(
+                [b"fixed", b"normal", b"reversible"][rng.randint(3)],
+                dtype="S16",
+            ),
+            "target": np.array(rng.randint(2), dtype=np.int64),
+        }
+
+    return _generate(data_dir, "heart", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_criteo_like(data_dir, num_files=2, records_per_file=128, seed=0):
+    """Criteo/DAC CTR schema (reference model_zoo/dac_ctr/feature_config:
+    numeric I1..I13, categorical C1..C26 as strings, binary label)."""
+    def example(rng):
+        ex = {}
+        for i in range(1, 14):
+            ex["I%d" % i] = np.array(rng.rand() * 100, dtype=np.float32)
+        for i in range(1, 27):
+            ex["C%d" % i] = np.array(
+                ("cat%d" % rng.randint(1000)).encode(), dtype="S16"
+            )
+        ex["label"] = np.array(rng.randint(2), dtype=np.int64)
+        return ex
+
+    return _generate(data_dir, "criteo", example, num_files,
                      records_per_file, seed)

@@ -104,7 +104,47 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.api.generation",
                      "elasticdl_tpu_torch.api.callbacks",
                      "elasticdl_tpu_torch.common.flax_msgpack",
-                     "elasticdl_tpu_torch.common.model_handler"):
+                     "elasticdl_tpu_torch.common.model_handler",
+                     "elasticdl_tpu_torch.preprocessing",
+                     "elasticdl_tpu_torch.preprocessing.layers",
+                     "elasticdl_tpu_torch.preprocessing.feature_column",
+                     "elasticdl_tpu_torch.preprocessing.analyzer_utils",
+                     "elasticdl_tpu_torch.data.recordio_gen",
+                     "elasticdl_tpu_torch.model_zoo.flax_layers",
+                     "elasticdl_tpu_torch.model_zoo.heart_functional_api."
+                     "heart_functional_api",
+                     "elasticdl_tpu_torch.model_zoo.census_dnn_model."
+                     "census_feature_columns",
+                     "elasticdl_tpu_torch.model_zoo.census_dnn_model."
+                     "census_functional_api",
+                     "elasticdl_tpu_torch.model_zoo.census_dnn_model."
+                     "census_sequential",
+                     "elasticdl_tpu_torch.model_zoo.census_dnn_model."
+                     "census_subclass",
+                     "elasticdl_tpu_torch.model_zoo.census_wide_deep_model."
+                     "feature_config",
+                     "elasticdl_tpu_torch.model_zoo.census_wide_deep_model."
+                     "feature_info_util",
+                     "elasticdl_tpu_torch.model_zoo.census_wide_deep_model."
+                     "transform_layers",
+                     "elasticdl_tpu_torch.model_zoo.census_wide_deep_model."
+                     "wide_deep_functional_api",
+                     "elasticdl_tpu_torch.model_zoo.census_model_sqlflow."
+                     "transform_ops",
+                     "elasticdl_tpu_torch.model_zoo.census_model_sqlflow."
+                     "feature_configs",
+                     "elasticdl_tpu_torch.model_zoo.census_model_sqlflow.dnn."
+                     "census_dnn",
+                     "elasticdl_tpu_torch.model_zoo.census_model_sqlflow."
+                     "wide_and_deep.census_wide_and_deep",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.feature_config",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.feature_transform",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.utils",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.wide_deep_model",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.deepfm_model",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.dcn_model",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.xdeepfm_model",
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.elasticdl_train"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"
