@@ -431,6 +431,28 @@ repository checkout it sits in. Phases, each of which fails the run:
    same layer on the CPU within TAB_EMB_TOL_REL of the largest value; E
    launched once a lookup; E timed at that shape beside its plain
    version and F.embedding.
+32. the vision zoo (the JAX package's mnist_functional_api,
+   mnist_subclass, cifar10_functional_api, cifar10_subclass,
+   resnet50_subclass and imagenet_resnet50, found by their JAX
+   --model_def strings in elasticdl_tpu_torch/model_zoo) at their
+   published widths over records the copied generators write
+   (gen_mnist_like, gen_cifar10_like, gen_imagenet_like at 224 x 224 x
+   3, 1000 classes): each model takes VIS_STEPS LocalExecutor steps at
+   minibatch VIS_BATCH (the README quickstart's) and one evaluation,
+   one model at a time; the first step at dropout rate 0, its loss
+   within VIS_LOSS_TOL_REL and its BatchNorm running averages within
+   VIS_STATS_TOL_REL of the CPU port's from the same weights and batch
+   (TF32 off), the later steps with dropout on; the checkpoint of step
+   VIS_CKPT_STEP restored into a fresh Trainer, every leaf (parameters,
+   batch_stats, momentum traces) bit for bit and its eval logits within
+   VIS_RESTORE_TOL_REL of the saved state's; per model its step ms and
+   p50, peak memory above what the process held before, parameter
+   bytes and dataset_fn's records/s; no kernel launched (conv,
+   BatchNorm and pooling are cuDNN / aten calls, as they are XLA ops in
+   the JAX package). Then the README quickstart on the port:
+   `client.main train` of mnist_functional_api over 2 x 256
+   gen_mnist_like records, 2 worker processes sharing the card,
+   minibatch 64, rc 0 and the job Succeeded.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -449,8 +471,9 @@ launches' errors as `serving_router_max_abs_err`) and a
 and `serving_router_tier_max_abs_err`) and a `tabular_zoo` line (E's
 launches through embedding_column ride the `kernels` line as
 `launches_tabular_zoo`, by wrapper, their errors as
-`tabular_zoo_max_abs_err`, E's timing there as `tabular_zoo_timing`),
-each with
+`tabular_zoo_max_abs_err`, E's timing there as `tabular_zoo_timing`)
+and a `vision_zoo` line (its launches, all 0, ride the `kernels` line as
+`launches_vision_zoo`), each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -552,6 +575,7 @@ from elasticdl_tpu_torch.model_zoo.dac_ctr.feature_transform import (
 )
 from elasticdl_tpu_torch.model_zoo import deepfm_host_embedding as thost
 from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
+from elasticdl_tpu_torch.model_zoo import flax_layers as vis_layers
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm_packed as tpacked
 from elasticdl_tpu_torch.model_zoo.transformer_lm import (
@@ -9639,6 +9663,306 @@ def tabular_zoo_phase(workdir, device="cuda"):
     return out, launches, errs
 
 
+VIS_SEED = 32
+VIS_STEPS = 4  # LocalExecutor steps a model takes
+VIS_BATCH = 64  # the README quickstart's minibatch
+VIS_CKPT_STEP = 2  # the checkpoint a fresh state restores
+VIS_IMAGENET_SIZE = 224  # the published ImageNet crop
+# the first loss and the running averages after the first step, card
+# against the CPU port from the same weights and batch (BatchNorm in
+# training mode, dropout at rate 0, TF32 off): looser than the tabular
+# zoo's, as the convs sum kh * kw * in products in other orders through
+# up to 53 layers; the running averages are held per buffer to its
+# largest value
+VIS_LOSS_TOL_REL = 1e-4
+VIS_STATS_TOL_REL = 1e-3
+# a restored state's eval logits against the saved state's (one device,
+# one process, the same weights): bit for bit is expected, this bounds it
+VIS_RESTORE_TOL_REL = 1e-6
+VIS_QUICKSTART_RECORDS = 256  # records a file, 2 files (the README's)
+VIS_QUICKSTART_WAIT_S = 300
+# name -> (--model_def in the zoo, generator, its keyword arguments)
+VIS_MODELS = {
+    "mnist_functional_api": (
+        "mnist_functional_api.mnist_functional_api.custom_model",
+        "gen_mnist_like", {}),
+    "mnist_subclass": ("mnist_subclass.mnist_subclass.custom_model",
+                       "gen_mnist_like", {}),
+    "cifar10_functional_api": (
+        "cifar10_functional_api.cifar10_functional_api.custom_model",
+        "gen_cifar10_like", {}),
+    "cifar10_subclass": ("cifar10_subclass.cifar10_subclass.custom_model",
+                         "gen_cifar10_like", {}),
+    "resnet50_subclass": (
+        "resnet50_subclass.resnet50_subclass.custom_model",
+        "gen_cifar10_like", {}),
+    "imagenet_resnet50": (
+        "imagenet_resnet50.imagenet_resnet50.custom_model",
+        "gen_imagenet_like", {"num_classes": 1000}),
+}
+
+
+def _vis_records(gen, gen_kwargs, workdir):
+    """The training (VIS_STEPS batches) and validation (one batch)
+    record dirs of a generator, written once."""
+    train = os.path.join(workdir, "%s-train" % gen)
+    valid = os.path.join(workdir, "%s-valid" % gen)
+    kwargs = dict(gen_kwargs)
+    if gen == "gen_imagenet_like":
+        kwargs["image_size"] = VIS_IMAGENET_SIZE
+    if not os.path.isdir(train):
+        make = getattr(port_recordio_gen, gen)
+        make(train, num_files=1, records_per_file=VIS_BATCH * VIS_STEPS,
+             seed=VIS_SEED, **kwargs)
+        make(valid, num_files=1, records_per_file=VIS_BATCH,
+             seed=VIS_SEED + 1, **kwargs)
+    return train, valid
+
+
+def _vis_dropout_rates(model, rates=None):
+    """Set every Dropout of `model` to `rates` (0 when None); returns the
+    rates it had."""
+    layers = [m for m in model.modules() if isinstance(m, vis_layers.Dropout)]
+    before = [m.rate for m in layers]
+    for i, m in enumerate(layers):
+        m.rate = 0.0 if rates is None else rates[i]
+    return before
+
+
+def _vis_stats_err(got, want):
+    """The largest |got - want| of each running-average buffer over its
+    largest |want|, the worst of them."""
+    worst = 0.0
+    for key, ref in want.items():
+        scale = max(float(ref.abs().max()), 1e-12)
+        worst = max(worst, float((got[key] - ref).abs().max()) / scale)
+    return worst
+
+
+def _vis_train(name, workdir, device):
+    """VIS_STEPS LocalExecutor steps (the first at dropout rate 0, the
+    rest with dropout on) and one evaluation of one vision model on
+    `device`, a checkpoint every VIS_CKPT_STEP steps; then version
+    VIS_CKPT_STEP restored into a fresh Trainer, and the first step again
+    on the CPU port from the same weights and batch. Returns the model's
+    report."""
+    model_def, gen, gen_kwargs = VIS_MODELS[name]
+    train, valid = _vis_records(gen, gen_kwargs, workdir)
+    spec = get_model_spec(_tab_zoo_dir(), model_def)
+    ckpt = os.path.join(workdir, name + "-ckpt")
+    executor = LocalExecutor(
+        spec, training_data=train, validation_data=valid,
+        minibatch_size=VIS_BATCH, records_per_task=VIS_BATCH * VIS_STEPS,
+        checkpoint_dir=ckpt, checkpoint_steps=VIS_CKPT_STEP, device=device)
+    trainer = executor.trainer
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in trainer.model.state_dict().items()}
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in trainer.model.parameters())
+    stats_bytes = sum(b.numel() * b.element_size()
+                      for b in trainer.model.buffers())
+    steps, first, saved = [], {}, {}
+    step_fn = trainer.train_step
+
+    def recorded(state, batch_, true_count=None):
+        rates = None
+        if not first:
+            first.update(features={k: np.array(v) for k, v in
+                                   batch_[0].items()},
+                         labels=np.array(batch_[1]), true_count=true_count)
+            rates = _vis_dropout_rates(trainer.model)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step_fn(state, batch_, true_count)
+        _sync(device)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        if rates is not None:
+            _vis_dropout_rates(trainer.model, rates)
+            first["stats"] = {k: b.detach().to("cpu", copy=True)
+                              for k, b in out[0].model_state.items()}
+        if out[0].step == VIS_CKPT_STEP:
+            saved["flat"] = flatten_state(trainer, out[0])
+            saved["logits"] = trainer.forward(
+                out[0], first["features"]).detach().to("cpu", copy=True)
+        return out
+
+    trainer.train_step = recorded
+    base = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        base = int(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    state, metrics = executor.train()
+    peak = (int(torch.cuda.max_memory_allocated()) - base
+            if device == "cuda" else None)
+    losses = list(executor.losses)
+    check(state is not None and state.step == VIS_STEPS
+          and len(losses) == VIS_STEPS,
+          "%s took %d steps, not %d" % (name, len(losses), VIS_STEPS))
+    check(all(math.isfinite(x) for x in losses),
+          "%s: a non-finite loss in %s" % (name, losses))
+    check(sorted(metrics) == ["accuracy"]
+          and 0.0 <= metrics["accuracy"] <= 1.0,
+          "%s evaluation metrics %s" % (name, metrics))
+    on_device = {p.device.type for p in trainer.model.parameters()}
+    on_device |= {b.device.type for b in state.model_state.values()}
+    check(on_device == {torch.device(device).type},
+          "%s's parameters and buffers lie on %s" % (name, sorted(on_device)))
+    check(len(state.model_state) > 0 and all(
+        not torch.equal(b.cpu(), init[k]) for k, b in
+        state.model_state.items()),
+          "%s: a running average did not move" % name)
+    del trainer.train_step  # the wrapper's reference cycle (see phase 31)
+    del executor, trainer, state, step_fn, recorded
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # version VIS_CKPT_STEP into a fresh Trainer of another seed: every
+    # leaf bit for bit, then its eval logits against the saved state's
+    t0 = time.perf_counter()
+    fresh = Trainer(spec, device=device, seed=1)
+    fresh_state = fresh.init_state(None)
+    fresh_state, version = restore_state_from_checkpoint(
+        fresh, fresh_state, ckpt, version=VIS_CKPT_STEP)
+    restore_s = time.perf_counter() - t0
+    flat = flatten_state(fresh, fresh_state)
+    check(version == VIS_CKPT_STEP and list(flat) == list(saved["flat"]),
+          "%s: version %d restored %d leaves, %d saved" % (
+              name, version, len(flat), len(saved["flat"])))
+    differ = [k for k, v in flat.items()
+              if not np.array_equal(np.asarray(v),
+                                    np.asarray(saved["flat"][k]))]
+    check(not differ, "%s: %d leaves differ after the restore, e.g. %s"
+          % (name, len(differ), differ[:3]))
+    leaves = {kind: sum(1 for k in flat if k.startswith(prefix))
+              for kind, prefix in (("params", ".params"),
+                                   ("batch_stats", ".model_state"),
+                                   ("opt_state", ".opt_state"))}
+    logits = fresh.forward(fresh_state, first["features"]).detach().cpu()
+    logit_err = float((logits - saved["logits"]).abs().max())
+    logit_scale = float(saved["logits"].abs().max())
+    check(logit_err <= VIS_RESTORE_TOL_REL * logit_scale,
+          "%s: the restored state's eval logits are %.3g from the saved "
+          "state's (largest %.3g)" % (name, logit_err, logit_scale))
+    del fresh, fresh_state, flat, saved
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # the first step again on the CPU port, from the same weights and
+    # batch, dropout at rate 0
+    t0 = time.perf_counter()
+    cpu = Trainer(spec, device="cpu")
+    cpu_state = cpu.init_state(None, params=init)
+    _vis_dropout_rates(cpu.model)
+    cpu_state, cpu_loss = cpu.train_step(
+        cpu_state, (first["features"], first["labels"]), first["true_count"])
+    cpu_s = time.perf_counter() - t0
+    rel = abs(losses[0] - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    check(rel <= VIS_LOSS_TOL_REL,
+          "%s: first loss %.8f on %s, %.8f on the CPU (rel %.3g > %g)"
+          % (name, losses[0], device, cpu_loss, rel, VIS_LOSS_TOL_REL))
+    stats_rel = _vis_stats_err(first["stats"], {
+        k: b.detach() for k, b in cpu_state.model_state.items()})
+    check(stats_rel <= VIS_STATS_TOL_REL,
+          "%s: running averages after the first step %.3g from the CPU "
+          "port's (> %g)" % (name, stats_rel, VIS_STATS_TOL_REL))
+    del cpu, cpu_state, init
+    gc.collect()
+    return {
+        "model_def": model_def, "minibatch": VIS_BATCH, "steps": VIS_STEPS,
+        "image": list(first["features"]["image"].shape[1:]),
+        "losses": losses, "first_step_dropout_rate": 0.0,
+        "first_loss_cpu": cpu_loss, "first_loss_rel_err": rel,
+        "running_stats_rel_err": stats_rel, "eval": metrics,
+        "param_bytes": int(param_bytes), "batch_stats_bytes": int(stats_bytes),
+        "peak_memory_above_baseline_bytes": peak,
+        "memory_allocated_before_bytes": base,
+        "step_ms": steps, "step_p50_ms": float(np.median(steps)),
+        "dataset_fn_records_per_s": _tab_host_rate(spec, train, VIS_BATCH),
+        "checkpoint_restore": {
+            "version": VIS_CKPT_STEP, "leaves": leaves,
+            "leaves_bit_for_bit": True, "restore_s": restore_s,
+            "eval_logits_max_abs_diff": logit_err,
+            "eval_logits_equal": logit_err == 0.0},
+        "cpu_step_s": cpu_s,
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+    }
+
+
+def _vis_quickstart(workdir, device):
+    """The README's quickstart on the port: MNIST records from
+    gen_mnist_like (2 files of VIS_QUICKSTART_RECORDS), then `client.main
+    train` of mnist_functional_api with 2 worker processes sharing the
+    card at minibatch 64. Returns its report."""
+    data = os.path.join(workdir, "quickstart_mnist")
+    port_recordio_gen.gen_mnist_like(data, 2, VIS_QUICKSTART_RECORDS)
+    status = os.path.join(workdir, "quickstart_status.json")
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train",
+           "--model_zoo", _tab_zoo_dir(),
+           "--model_def",
+           "mnist_functional_api.mnist_functional_api.custom_model",
+           "--training_data", data, "--num_workers", "2",
+           "--minibatch_size", "64", "--port", "0",
+           "--job_status_file", status]
+    if device != "cuda":
+        cmd += ["--device", device]
+    out_log = os.path.join(workdir, "quickstart.log")
+    t0 = time.perf_counter()
+    with open(out_log, "w") as log_f:
+        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                env=_mw_env(), cwd=workdir)
+        try:
+            rc = proc.wait(timeout=VIS_QUICKSTART_WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    job = job_status.read_job_status(status) or {}
+    with open(out_log, errors="replace") as f:
+        text = f.read()
+    completed = len(re.findall(r"Task:\d+ completed", text))
+    if rc != 0 or job.get("status") != job_status.SUCCEEDED:
+        log("vision_zoo quickstart's log tail:\n%s" % _log_tail(out_log))
+    check(rc == 0 and job.get("status") == job_status.SUCCEEDED,
+          "the README quickstart ended with rc %d, status %s"
+          % (rc, job.get("status")))
+    check(completed == 2, "the quickstart completed %d tasks, not 2"
+          % completed)
+    return {"rc": rc, "status": job.get("status"), "seconds": seconds,
+            "workers": 2, "records": 2 * VIS_QUICKSTART_RECORDS,
+            "tasks_completed": completed, "minibatch": 64,
+            "command": " ".join(cmd[1:])}
+
+
+def vision_zoo_phase(workdir, device="cuda"):
+    """Phase 32: the vision zoo with BatchNorm state, dropout and conv
+    weights on `device` (see the module docstring), then the README
+    quickstart. Returns (report, the kernels' launches in it)."""
+    t_phase = time.perf_counter()
+    out = {"models": {}}
+    reset_all_launch_counts()
+    for name in VIS_MODELS:
+        t0 = time.perf_counter()
+        out["models"][name] = rep = _vis_train(name, workdir, device)
+        rep["model_s"] = time.perf_counter() - t0
+        log("vision_zoo %s: %s" % (name, json.dumps(rep)))
+    out["quickstart"] = _vis_quickstart(workdir, device)
+    log("vision_zoo quickstart: %s" % json.dumps(out["quickstart"]))
+    # conv, BatchNorm, pooling and dense layers are XLA ops in the JAX
+    # package, cuDNN / aten calls here: none of the port's kernels
+    launches = out["kernel_launches"] = all_launch_counts()
+    check(not any(launches.values()),
+          "the vision zoo launched %s" % launches)
+    out["minibatch"] = VIS_BATCH
+    out["loss_tol_rel"] = VIS_LOSS_TOL_REL
+    out["running_stats_tol_rel"] = VIS_STATS_TOL_REL
+    out["restore_logits_tol_rel"] = VIS_RESTORE_TOL_REL
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -9880,6 +10204,11 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         tabular_zoo, tab_launches, tab_errs = tabular_zoo_phase(workdir)
     torch.cuda.empty_cache()
+    # phase 32 draws from its own generators (VIS_SEED)
+    laps.to("vision_zoo")
+    with tempfile.TemporaryDirectory() as workdir:
+        vision_zoo, vis_launches = vision_zoo_phase(workdir)
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -10060,6 +10389,10 @@ def main():
                 shape="%s ids into a %d x %d fp32 table" % (
                     tabular_zoo["embedding_column"]["ids"],
                     tabular_zoo["embedding_column"]["rows"], TAB_EMB_DIM))
+    # phase 32's launches: none of the port's kernels runs on the vision
+    # zoo's path (conv, BatchNorm and pooling are cuDNN / aten calls)
+    for entry in kernels:
+        entry["launches_vision_zoo"] = vis_launches.get(entry["name"], 0)
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
@@ -10069,7 +10402,7 @@ def main():
              "serving_wire": serving_wire, "serving_tiers": serving_tiers,
              "serving_router": serving_router,
              "serving_router_tier": serving_router_tier,
-             "tabular_zoo": tabular_zoo}
+             "tabular_zoo": tabular_zoo, "vision_zoo": vision_zoo}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -10097,6 +10430,7 @@ def main():
     print(json.dumps({"serving_router": serving_router}))
     print(json.dumps({"serving_router_tier": serving_router_tier}))
     print(json.dumps({"tabular_zoo": tabular_zoo}))
+    print(json.dumps({"vision_zoo": vision_zoo}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -61,7 +61,8 @@ class SavedModelExporter(Callback):
         if self.merge_lora and getattr(model, "lora_rank", 0):
             merged = merge_lora(flax_tree(model, state.params),
                                 model=model)
-            state = TrainState(state.step, merged, None)
+            state = TrainState(state.step, merged, None,
+                               model_state=state.model_state)
         path = export_model(model, state, self.export_dir,
                             host_manager=worker.trainer.host_manager)
         logger.info("Exported trained model to %s", path)

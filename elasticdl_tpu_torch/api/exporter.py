@@ -14,9 +14,12 @@ at every level and its leaves are host arrays, as the JAX exporter's
 torch.bfloat16 tensor for bfloat16). A live state's parameters are
 named and laid out as a checkpoint names them (`saver.params_tree`
 with the model's zoo `flax_param_path`), so one naming serves
-checkpoints and exports of every zoo model. `make_serving_fn` turns
-(model, payload) into a features -> predictions callable on the
-model's device.
+checkpoints and exports of every zoo model. `model_state` is flax's:
+{"batch_stats": ...} of a model with BatchNorm running averages (the
+state's `model_state` buffers, `saver.model_state_tree`), {} otherwise.
+`make_serving_fn` turns (model, payload) into a features -> predictions
+callable on the model's device, with the payload's running averages in
+its BatchNorm buffers.
 
 A model whose tables live in the host-spill tier (`host_manager`,
 embedding/host_bridge.py) carries their trained rows in the artifact
@@ -39,13 +42,18 @@ import torch
 
 from elasticdl_tpu_torch.api.quantization import load_params
 from elasticdl_tpu_torch.checkpoint.saver import (
+    MODEL_STATE_PREFIX,
     load_checkpoint,
     model_flax_param_path,
+    model_state_tree,
     params_tree,
     params_tree_from_flat,
+    params_tree_leaves,
+    restore_model_state_from_flat,
 )
 from elasticdl_tpu_torch.common import flax_msgpack
 from elasticdl_tpu_torch.embedding.host_bridge import check_manager
+from elasticdl_tpu_torch.model_zoo.flax_layers import model_state_buffers
 
 logger = logging.getLogger(__name__)
 
@@ -74,6 +82,19 @@ def flax_tree(model, params):
     return params_tree(params, model_flax_param_path(model))
 
 
+def _model_state(model, state):
+    """flax's model state of `state`: its `model_state` as a flax tree
+    ({"batch_stats": ...}) as it is, or as {torch key: buffer} named by
+    the zoo's `flax_param_path`; the model's own buffers when the state
+    carries none."""
+    buffers = getattr(state, "model_state", None)
+    if buffers is None:
+        buffers = model_state_buffers(model)
+    if not buffers or any(isinstance(v, Mapping) for v in buffers.values()):
+        return dict(buffers)
+    return model_state_tree(buffers, model_flax_param_path(model))
+
+
 def _num_params(tree):
     if isinstance(tree, Mapping):
         return sum(_num_params(v) for v in tree.values())
@@ -83,13 +104,14 @@ def _num_params(tree):
 def export_model(model, state, export_dir, host_manager=None):
     """Write the export artifact of `state` (anything with `.params`, a
     port state dict or a flax-named tree such as `merge_lora`'s or
-    `quantize_params`' result, and `.step`), with every host table's
-    rows when `host_manager` is given. Returns the dir."""
+    `quantize_params`' result, `.step`, and `.model_state` when the
+    model keeps running averages), with every host table's rows when
+    `host_manager` is given. Returns the dir."""
     if host_manager is not None:
         check_manager(host_manager)
     os.makedirs(export_dir, exist_ok=True)
     payload = {"params": _host_tree(flax_tree(model, state.params)),
-               "model_state": {}}
+               "model_state": _host_tree(_model_state(model, state))}
     if host_manager:
         host = {}
         for name, table in host_manager.tables().items():
@@ -109,7 +131,7 @@ def export_model(model, state, export_dir, host_manager=None):
 def export_from_checkpoint(model, template_state, checkpoint_dir, export_dir,
                            host_manager=None):
     """Export the latest valid checkpoint under `checkpoint_dir`: its
-    `.params` leaves and version, read without touching
+    `.params` and `.model_state` leaves and version, read without touching
     `template_state` (the live state a caller trains keeps its values).
     With `host_manager`, the host rows of the same version restore into
     a fresh clone of it, never into the caller's engines, which a live
@@ -119,8 +141,9 @@ def export_from_checkpoint(model, template_state, checkpoint_dir, export_dir,
         check_manager(host_manager)
     flat, version = load_checkpoint(checkpoint_dir)
     logger.info("Exporting checkpoint version %d", version)
-    state = types.SimpleNamespace(params=params_tree_from_flat(flat),
-                                  step=version)
+    state = types.SimpleNamespace(
+        params=params_tree_from_flat(flat), step=version,
+        model_state=params_tree_from_flat(flat, MODEL_STATE_PREFIX))
     export_manager = None
     if host_manager:
         export_manager = host_manager.fresh_clone()
@@ -144,8 +167,8 @@ def load_exported(export_dir):
 def make_serving_fn(model, payload, host_manager=None):
     """A features -> predictions callable over the exported weights: a
     copy of the port `model` (the caller's keeps its weights) holding
-    the payload's params (int8 leaves dequantized once), run under
-    torch.inference_mode on the model's device.
+    the payload's params (int8 leaves dequantized once) and model state,
+    run under torch.inference_mode on the model's device.
 
     An export with host tables (payload["host_embeddings"]) needs a
     manager whose tables are the artifact's (build_manager_from_spec);
@@ -179,6 +202,11 @@ def make_serving_fn(model, payload, host_manager=None):
                 np.asarray(rec["values"], np.float32))
     served = load_params(copy.deepcopy(model), payload["params"]).eval()
     served.requires_grad_(False)
+    buffers = model_state_buffers(served)
+    if buffers or payload.get("model_state"):
+        restore_model_state_from_flat(
+            buffers, model_flax_param_path(served), params_tree_leaves(
+                payload.get("model_state") or {}, MODEL_STATE_PREFIX))
 
     def serve(features):
         if host_rows:

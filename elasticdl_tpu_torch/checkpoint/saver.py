@@ -18,12 +18,16 @@ The leaf names are the JAX Trainer's: `flatten_state(trainer, state)`
 names each leaf of the port's live state by the `jax.tree_util.keystr`
 path of the same leaf in the JAX TrainState that the same spec and
 options give (`.step`, `.params['block_0']['attn']['qkv']['kernel']` in
-the flax [in, out] layout, `.opt_state[0].mu[...]`, `.rng`,
+the flax [in, out] layout, a conv kernel in flax's [kh, kw, in, out],
+`.opt_state[0].mu[...]`,
+`.model_state['batch_stats']['BatchNorm_0']['mean']`, `.rng`,
 `.embed_opt_state['table_0/embedding_table'][0].count`, ...), in its
 leaf order. The optimizer state's names come from composing the
 wrappers the JAX Trainer composes, in its order: the zoo transform
 (optax.adam / adamw: ``[0].count``, ``[0].mu``, ``[0].nu``; optax.sgd
-with momentum: ``[0].trace``; without: no leaf), the learning-rate
+with momentum: ``[0].trace``; without: no leaf;
+chain(add_decayed_weights, sgd with momentum), torch's SGD with a
+weight_decay: ``[1][0].trace``), the learning-rate
 schedule (``chain(tx, scale_by_schedule)``: ``[0]`` + tx, ``[1].count``),
 the split that keeps tapped tables out of the dense update
 (``.inner_states['dense'].inner_state``), the `trainable_pattern` freeze
@@ -96,13 +100,20 @@ def _keystr(path):
     return "".join("[%r]" % k for k in path)
 
 
-def _host(t, kernel=False):
+# a kernel's rank -> the permutation from the torch layout to flax's
+# (Dense: [out, in] -> [in, out]; Conv: [out, in, kh, kw] -> [kh, kw, in,
+# out]) and back
+_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def _host(t, kernel=0):
     """A copy of `t` on the host: a numpy array, or a torch.bfloat16
-    tensor (numpy has no bfloat16). A flax kernel is transposed on the
-    tensor's own device first."""
+    tensor (numpy has no bfloat16). A flax kernel (`kernel` its rank) is
+    permuted to the flax layout on the tensor's own device first."""
     x = t.detach()
     if kernel:
-        x = x.t().contiguous()
+        x = x.permute(*_TO_FLAX[kernel]).contiguous()
     x = x.to("cpu", copy=True)
     return x if x.dtype == torch.bfloat16 else x.numpy()
 
@@ -118,10 +129,10 @@ def _as_tensor(arr):
 
 
 def _copy_into(dst, arr, kernel, name):
-    # to the device first: a kernel is transposed there, not on the host
+    # to the device first: a kernel is permuted there, not on the host
     src = _as_tensor(arr).to(dst.device)
     if kernel:
-        src = src.t()
+        src = src.permute(*_FROM_FLAX[kernel])
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError("checkpoint leaf %s has shape %s, the state %s"
                          % (name, tuple(src.shape), tuple(dst.shape)))
@@ -134,9 +145,17 @@ def _scalar(arr):
 
 
 def _is_kernel(path, t):
-    """A flax Dense kernel is [in, out], the torch Linear weight [out,
-    in]."""
-    return path[-1] == "kernel" and t.dim() == 2
+    """The rank of a flax kernel leaf, 0 for any other: a flax Dense
+    kernel is [in, out], the torch Linear weight [out, in]; a flax Conv
+    kernel [kh, kw, in, out], the torch conv weight [out, in, kh, kw].
+    A kernel of another rank raises."""
+    if path[-1] != "kernel":
+        return 0
+    if t.dim() not in _TO_FLAX:
+        raise NotImplementedError(
+            "checkpoint layout: a %d-D kernel %s has no flax layout rule "
+            "(2-D Dense and 4-D Conv kernels do)" % (t.dim(), "/".join(path)))
+    return t.dim()
 
 
 def _param_leaves(params, paths):
@@ -204,11 +223,53 @@ def model_flax_param_path(model):
 def params_tree(params, flax_param_path):
     """The flax-named tree of {torch key: parameter}, under the names and
     in the layout a checkpoint gives its `.params` leaves (a kernel
-    transposed to [in, out], each tensor's dtype kept: a numpy array, or
-    a torch.bfloat16 tensor)."""
+    permuted to flax's layout, each tensor's dtype kept: a numpy array,
+    or a torch.bfloat16 tensor)."""
     paths = {k: tuple(flax_param_path(k).split("/")) for k in params}
     return params_tree_from_flat({
         name: read() for name, read, _write in _param_leaves(params, paths)})
+
+
+MODEL_STATE_PREFIX = ".model_state"
+_BATCH_STATS = MODEL_STATE_PREFIX + "['batch_stats']"
+
+
+def _model_state_leaves(buffers, flax_param_path):
+    """The `.model_state['batch_stats']` leaves of {torch key: buffer}
+    (TrainState.model_state, flax_layers.model_state_buffers), in the JAX
+    leaf order."""
+    out = []
+    for path, key in sorted((tuple(flax_param_path(k).split("/")), k)
+                            for k in buffers):
+        b = buffers[key]
+        out.append((_BATCH_STATS + _keystr(path), lambda b=b: _host(b),
+                    lambda v, b=b, n=key: _copy_into(b, v, 0, n)))
+    return out
+
+
+def model_state_tree(buffers, flax_param_path):
+    """flax's model state of {torch key: buffer}: {"batch_stats": the
+    flax-named tree}, or {} for a model without one (what the JAX
+    exporter writes as `model_state`)."""
+    return params_tree_from_flat({
+        name: read() for name, read, _write in _model_state_leaves(
+            buffers, flax_param_path)}, prefix=MODEL_STATE_PREFIX)
+
+
+def restore_model_state_from_flat(buffers, flax_param_path, flat):
+    """Copy the `.model_state` leaves of a flat checkpoint (or of
+    `params_tree_leaves(tree, MODEL_STATE_PREFIX)`) into {torch key:
+    buffer} in place. Raises on a buffer the leaves lack or a leaf no
+    buffer takes."""
+    leaves = _model_state_leaves(buffers, flax_param_path)
+    missing = [name for name, _r, _w in leaves if name not in flat]
+    extra = set(n for n in flat if n.startswith(MODEL_STATE_PREFIX)) - set(
+        name for name, _r, _w in leaves)
+    if missing or extra:
+        raise ValueError("model state mismatch: missing %s, extra %s"
+                         % (missing[:3], sorted(extra)[:3]))
+    for name, _read, write in leaves:
+        write(flat[name])
 
 
 def restore_params_from_flat(model, flax_param_path, flat, strict=False):
@@ -247,6 +308,10 @@ class _Layout(object):
         self.opt = opt
         self.optimizer = opt.optimizer
         self.kind = _dense_kind(self.optimizer)
+        # chain(add_decayed_weights, sgd): the trace sits in element 1
+        self.decayed = any(g.get("weight_decay")
+                           for g in self.optimizer.param_groups) and (
+            self.kind != "adam")
         self.k = trainer.grad_accum_steps
         self.scheduled = trainer._lr_multiplier_fn is not None
         self.paths = {key: tuple(path_fn(key).split("/"))
@@ -261,6 +326,7 @@ class _Layout(object):
                         self._write_step)]
         self.leaves += _param_leaves(state.params, self.paths)
         self.leaves += self._opt_state()
+        self.leaves += _model_state_leaves(state.model_state, path_fn)
         self.leaves.append((".rng", lambda: np.asarray(self.state.rng,
                                                        np.uint32),
                             self._write_rng))
@@ -320,7 +386,8 @@ class _Layout(object):
                         for path, key in tree]
             return out
         if self.kind == "momentum":
-            return [self._slot_leaf(prefix + "[0].trace" + _keystr(path),
+            at = "[1][0].trace" if self.decayed else "[0].trace"
+            return [self._slot_leaf(prefix + at + _keystr(path),
                                     key, "momentum_buffer")
                     for path, key in tree]
         return []
@@ -411,7 +478,7 @@ class _Layout(object):
 
     def _row_slot(self, name, rs, i):
         return (name, lambda: _host(rs.slots[i]),
-                lambda v: _copy_into(rs.slots[i], v, False, name))
+                lambda v: _copy_into(rs.slots[i], v, 0, name))
 
     # -------------------------------------------------------- top level
 
@@ -436,14 +503,19 @@ class _Layout(object):
 
 def _dense_kind(optimizer):
     """The optax transform a torch optimizer stands for: "adam"
-    (optax.adam / adamw), "momentum" (optax.sgd with momentum) or
-    "sgd"."""
+    (optax.adam / adamw), "momentum" (optax.sgd with momentum, after
+    add_decayed_weights when the SGD has a weight_decay) or "sgd"."""
     groups = optimizer.param_groups
     if type(optimizer) in (torch.optim.Adam, torch.optim.AdamW):
         if any(g.get("amsgrad") for g in groups):
             raise NotImplementedError(
                 "checkpoint names: amsgrad has no leaf in optax.adam's "
                 "state")
+        if type(optimizer) is torch.optim.Adam and any(
+                g.get("weight_decay") for g in groups):
+            raise NotImplementedError(
+                "checkpoint names: Adam with a coupled weight_decay has no "
+                "optax counterpart the JAX names cover")
         return "adam"
     if type(optimizer) is torch.optim.SGD:
         return "momentum" if any(g.get("momentum") for g in groups) else (
@@ -695,8 +767,9 @@ def check_params_flat(model, flax_param_path, flat):
         leaf = flat.get(name, flat.get(name + "['__w8__']"))
         if leaf is None:
             continue
-        want = tuple(p.shape)[::-1] if _is_kernel(path, p) else tuple(
-            p.shape)
+        kernel = _is_kernel(path, p)
+        want = (tuple(p.shape[i] for i in _TO_FLAX[kernel]) if kernel
+                else tuple(p.shape))
         if tuple(leaf.shape) != want:
             raise ValueError("checkpoint leaf %s has shape %s, the model %s"
                              % (name, tuple(leaf.shape), want))

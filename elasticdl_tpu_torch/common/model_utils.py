@@ -22,6 +22,7 @@ Worker refuse).
 
 import importlib.util
 import os
+import sys
 
 
 def get_dict_from_params_str(params_str):
@@ -70,8 +71,12 @@ class ModelSpec(object):
 
 
 def load_module(module_file):
+    """The zoo module at `module_file`, registered in sys.modules under
+    its path, so what it defines can find its module again (a model's
+    `flax_param_path`, saver.model_flax_param_path)."""
     spec = importlib.util.spec_from_file_location(module_file, module_file)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[module_file] = module
     spec.loader.exec_module(module)
     return module
 

@@ -37,12 +37,16 @@ params: their engines' state carries across as `state_dict()` (ids,
 values, step), which both packages' engines share.
 
 `zoo_params_from_flax`, `zoo_params_to_flax` and `zoo_flax_param_path`
-do it for the tabular and CTR zoo (heart_functional_api,
+do it for the tabular, CTR and vision zoo (heart_functional_api,
 census_dnn_model, census_wide_deep_model, census_model_sqlflow,
-dac_ctr), whose modules carry the flax names (model_zoo/flax_layers.py):
-one rule for every family, "." for "/", a Dense `weight` its `kernel`
-transposed, every other leaf (`embedding`, `bias`, `cross_w_0`,
-`cin_w_0`) as it is.
+dac_ctr, mnist_*, cifar10_*, resnet50_subclass, imagenet_resnet50),
+whose modules carry the flax names (model_zoo/flax_layers.py): one
+rule for every family, "." for "/", a `weight` its `kernel` (a 2-D
+Dense kernel transposed, a 4-D Conv kernel [kh, kw, in, out] permuted
+to torch's [out, in, kh, kw]), every other leaf (`embedding`, `bias`,
+`scale`, `cross_w_0`, `cin_w_0`) as it is. A BatchNorm's running `mean`
+and `var` (flax's `batch_stats` collection) are the same modules'
+buffers in the same state_dict, so one `load_state_dict` carries both.
 """
 
 import re
@@ -324,9 +328,9 @@ def deepfm_params_to_flax(state_dict):
 
 
 def zoo_flax_param_path(torch_key):
-    """The flax path of a parameter of the tabular and CTR zoo (heart,
-    census, census_model_sqlflow, dac_ctr), whose modules carry the flax
-    names: "." becomes "/", a Dense's `weight` its `kernel`:
+    """The flax path of a parameter (or BatchNorm buffer) of the
+    tabular, CTR and vision zoo, whose modules carry the flax names: "."
+    becomes "/", a Dense's or Conv's `weight` its `kernel`:
     "inner.DNN_0.Dense_1.weight" -> "inner/DNN_0/Dense_1/kernel",
     "thal_embedding.embedding" -> "thal_embedding/embedding",
     "inner.CIN_0.cin_w_0" -> "inner/CIN_0/cin_w_0"."""
@@ -337,30 +341,57 @@ def zoo_flax_param_path(torch_key):
     return "%s/%s" % (mod.replace(".", "/"), leaf) if mod else leaf
 
 
-def zoo_params_from_flax(params):
-    """flax params of a tabular or CTR zoo model (nested or flat,
-    numpy-convertible) -> a state_dict of fp32 CPU tensors for its port
-    (`zoo_flax_param_path` read backwards; Dense kernels transposed)."""
-    flat = flatten_params(params) if not _is_flat(params) else dict(params)
+# a zoo kernel's rank -> the permutation from flax's layout to torch's
+_ZOO_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
+_ZOO_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+# the leaves of flax's `batch_stats` collection (flax_layers.BatchNorm)
+_BATCH_STATS_LEAVES = ("mean", "var")
+
+
+def _zoo_layout(fkey, arr, perms):
+    if not fkey.endswith("/kernel") and fkey != "kernel":
+        return arr
+    if arr.ndim not in perms:
+        raise ValueError("a %d-D kernel %r has no layout rule (2-D Dense "
+                         "and 4-D Conv kernels do)" % (arr.ndim, fkey))
+    return np.transpose(arr, perms[arr.ndim])
+
+
+def zoo_params_from_flax(params, batch_stats=None):
+    """flax params of a tabular, CTR or vision zoo model (nested or
+    flat, numpy-convertible), and its `batch_stats` collection when it
+    has one -> a state_dict of fp32 CPU tensors for its port
+    (`zoo_flax_param_path` read backwards; Dense kernels transposed,
+    Conv kernels permuted; the running averages as the BatchNorm
+    buffers)."""
     sd = {}
-    for fkey, arr in flat.items():
-        mod, _, leaf = fkey.rpartition("/")
-        if leaf == "weight":
-            raise KeyError("params the port does not carry: %r" % (fkey,))
-        tleaf = "weight" if leaf == "kernel" else leaf
-        arr = fp32_array(arr)
-        sd[("%s.%s" % (mod.replace("/", "."), tleaf)) if mod else tleaf] = (
-            torch.tensor(arr.T if leaf == "kernel" else arr))
+    for tree, collection in ((params, "params"), (batch_stats or {},
+                                                  "batch_stats")):
+        flat = flatten_params(tree) if not _is_flat(tree) else dict(tree)
+        for fkey, arr in flat.items():
+            mod, _, leaf = fkey.rpartition("/")
+            if leaf == "weight" or (leaf in _BATCH_STATS_LEAVES) != (
+                    collection == "batch_stats"):
+                raise KeyError("%s the port does not carry: %r"
+                               % (collection, fkey))
+            tleaf = "weight" if leaf == "kernel" else leaf
+            arr = _zoo_layout(fkey, fp32_array(arr), _ZOO_FROM_FLAX)
+            sd[("%s.%s" % (mod.replace("/", "."), tleaf)) if mod
+               else tleaf] = torch.tensor(np.ascontiguousarray(arr))
     return sd
 
 
-def zoo_params_to_flax(state_dict):
-    """The inverse of `zoo_params_from_flax`: a nested dict of fp32 numpy
-    arrays in the flax layout, copies of the tensors."""
+def zoo_params_to_flax(state_dict, collection="params"):
+    """The inverse of `zoo_params_from_flax`: the nested dict of fp32
+    numpy arrays in the flax layout (copies of the tensors) of one
+    collection, "params" or the BatchNorm buffers' "batch_stats"."""
     flat = {}
     for tkey, t in state_dict.items():
+        stats = tkey.rpartition(".")[2] in _BATCH_STATS_LEAVES
+        if stats != (collection == "batch_stats"):
+            continue
         fkey = zoo_flax_param_path(tkey)
         arr = t.detach().to("cpu", torch.float32).numpy()
-        flat[fkey] = np.array(arr.T if fkey.endswith("/kernel") else arr,
+        flat[fkey] = np.array(_zoo_layout(fkey, arr, _ZOO_TO_FLAX),
                               order="C")
     return unflatten_params(flat)

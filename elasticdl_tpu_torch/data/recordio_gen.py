@@ -1,8 +1,9 @@
 """Synthetic record files (TRec) made from a seed: the port's copy of the
 part of elasticdl_tpu/data/recordio_gen.py its tests and chip_smoke.py
 use (frappe for DeepFM; census, heart and Criteo for the tabular and CTR
-zoo). The same seed gives the same records, byte for byte, as the JAX
-package's generator."""
+zoo; MNIST, CIFAR-10 and ImageNet shapes for the vision zoo). The same
+seed gives the same records, byte for byte, as the JAX package's
+generator."""
 
 import os
 
@@ -24,6 +25,30 @@ def _generate(data_dir, prefix, make_example, num_files, records_per_file,
                 w.write(encode_example(make_example(rng)))
         paths.append(path)
     return paths
+
+
+def gen_mnist_like(data_dir, num_files=2, records_per_file=128, seed=0):
+    """28x28 float images in [0,1) + int32 labels in [0,10)."""
+    def example(rng):
+        return {
+            "image": rng.rand(28, 28).astype(np.float32),
+            "label": np.array([rng.randint(10)], dtype=np.int32),
+        }
+
+    return _generate(data_dir, "mnist", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_cifar10_like(data_dir, num_files=2, records_per_file=128, seed=0):
+    """32x32x3 float images in [0,1) + int32 labels in [0,10)."""
+    def example(rng):
+        return {
+            "image": rng.rand(32, 32, 3).astype(np.float32),
+            "label": np.array([rng.randint(10)], dtype=np.int32),
+        }
+
+    return _generate(data_dir, "cifar10", example, num_files,
+                     records_per_file, seed)
 
 
 def gen_frappe_like(data_dir, num_files=2, records_per_file=128,
@@ -118,6 +143,22 @@ def gen_heart_like(data_dir, num_files=2, records_per_file=128, seed=0):
         }
 
     return _generate(data_dir, "heart", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_imagenet_like(data_dir, num_files=1, records_per_file=16,
+                      image_size=224, num_classes=1000, seed=0):
+    """ImageNet-shaped records: HxWx3 uint8-valued floats (a 224 x 224
+    image is 602 KB) + an int32 label."""
+    def example(rng):
+        return {
+            "image": (rng.rand(image_size, image_size, 3) * 255).astype(
+                np.float32
+            ),
+            "label": np.array([rng.randint(num_classes)], dtype=np.int32),
+        }
+
+    return _generate(data_dir, "imagenet", example, num_files,
                      records_per_file, seed)
 
 

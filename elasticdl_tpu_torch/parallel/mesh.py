@@ -8,7 +8,7 @@ block, as JAX's `with mesh:` is: the Trainer enters it around its step,
 and the model's attention reads it to route to ring attention or
 Ulysses (parallel/context_parallel.py). Every other axis is one; a mesh
 that sets one above one raises (dp, fsdp, ep, tp and pp over
-torch.distributed are ROADMAP Queue 1 item 6).
+torch.distributed are ROADMAP Queue 1 item 7).
 
 The collectives the sp path needs (the ring's neighbour shift, Ulysses'
 all-to-all, an all-gather and a sum) are methods of the mesh, and all of
@@ -141,7 +141,7 @@ def build_mesh(mesh_spec):
     if others:
         raise NotImplementedError(
             "the port's mesh runs the sp axis only; %s over "
-            "torch.distributed is not ported (ROADMAP Queue 1 item 6)"
+            "torch.distributed is not ported (ROADMAP Queue 1 item 7)"
             % others)
     sp = sizes[MeshAxis.SP]
     if sp < 1:

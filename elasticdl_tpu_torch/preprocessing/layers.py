@@ -64,6 +64,14 @@ class Normalizer(_Layer):
         return (x - self.subtractor) / self.divisor
 
 
+def _torch_ids(v):
+    """A float tensor's int64 ids with NaN read as 0, as XLA converts NaN
+    in the JAX layer's `jnp` path (torch's own cast of NaN differs by
+    device)."""
+    return torch.where(torch.isnan(v), torch.zeros_like(v), v).to(
+        torch.int64)
+
+
 def _truncate(v, n, default, torch_ids):
     """v where it lies in [0, n), else `default`."""
     bad = (v < 0) | (v >= n)
@@ -82,7 +90,7 @@ class RoundIdentity(_Layer):
 
     def call(self, inputs):
         if _is_torch(inputs):
-            v = torch.round(inputs.to(torch.float32)).to(torch.int64)
+            v = _torch_ids(torch.round(inputs.to(torch.float32)))
         else:
             v = np.round(np.asarray(inputs, dtype=np.float32)).astype(
                 np.int64)
@@ -105,7 +113,7 @@ class LogRound(_Layer):
             if self.base is not None:
                 v = v / torch.log(torch.tensor(self.base, dtype=torch.float32,
                                                device=v.device))
-            v = torch.round(v).to(torch.int64)
+            v = _torch_ids(torch.round(v))
         else:
             v = np.log(np.asarray(inputs, dtype=np.float32))
             if self.base is not None:

@@ -78,9 +78,10 @@ percentiles (bucket addition, never percentile averaging); the SLO
 burn-rate engine (observability/slo.py) reads the telemetry's ring.
 
 Not ported: the /metrics exposition (`metrics_port`, `_metrics_families`;
-ROADMAP Queue 1 item 6); the autoscaler and rollout blocks stay unset
-until those controllers are ported (item 4), though `set_autoscaler` /
-`set_rollout` take any object with `status_block()`.
+ROADMAP Queue 1 item 6). The autoscaler and rollout blocks come from
+the controllers `set_autoscaler` / `set_rollout` attach
+(serving/autoscaler.py, serving/rollout.py; any object with
+`status_block()` will do).
 """
 
 import logging

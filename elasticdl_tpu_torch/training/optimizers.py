@@ -31,11 +31,26 @@ class OptimizerFactory(object):
         return self.cls(params, **self.kwargs)
 
 
-def sgd(learning_rate, momentum=None, nesterov=False):
+def sgd(learning_rate, momentum=None, nesterov=False, weight_decay=0.0):
     """optax.sgd(learning_rate, momentum, nesterov) as torch.optim.SGD.
     optax's momentum is `trace` (v = mu v + g, the step v, or g + mu v
     with Nesterov), which is torch's momentum with dampening 0. Row rule
-    "sgd", or "momentum" with a momentum."""
+    "sgd", or "momentum" with a momentum.
+
+    `weight_decay` stands for optax.chain(add_decayed_weights(wd),
+    sgd(...)): torch's SGD adds wd * p to the gradient before the trace,
+    which is that chain's first element. No row rule then: the row
+    kernel has no decay term, so tapped tables would lose the decay of
+    their touched rows."""
+    if weight_decay:
+        return OptimizerFactory(
+            torch.optim.SGD, row_rule_missing=(
+                "sgd with weight_decay (optax.add_decayed_weights) decays "
+                "the touched rows of a table; the row-update kernel's "
+                "rules have no decay term"),
+            lr=learning_rate, momentum=momentum or 0.0,
+            nesterov=bool(nesterov and momentum),
+            weight_decay=float(weight_decay))
     rule = RowRule("momentum" if momentum else "sgd", learning_rate,
                    momentum=momentum, nesterov=nesterov)
     return OptimizerFactory(torch.optim.SGD, row_rule=rule, lr=learning_rate,

@@ -43,6 +43,19 @@ Semantics kept from the JAX Trainer:
   optax.chain(tx, scale_by_schedule(fn)) does: each parameter group's lr
   is set to base x multiplier before `step()`, and each tapped table's
   row lr by multiplier_fn(its own count).
+* model state: `TrainState.model_state` is {state_dict key: buffer} of
+  the model's BatchNorm running averages (flax's `batch_stats`,
+  model_zoo/flax_layers.py `model_state_buffers`). Every training
+  forward updates them in place, the microbatches of an accumulation
+  cycle included and under a `trainable_pattern` freeze too, as the JAX
+  step returns the mutated collection on every call; padded rows enter
+  the batch statistics (only the loss is weighted), in both packages.
+  Evaluation and prediction read the running averages;
+* dropout: each training forward runs inside `dropout_rng` with a
+  generator on the Trainer's device seeded from (seed, step before the
+  call) (`dropout_generator`), as the JAX step folds its key with the
+  step. The masks are torch's bits, not `jax.random`'s; a model without
+  Dropout layers is untouched.
 
 Sequence parallelism (`mesh` from `parallel.mesh.build_mesh({"sp":
 n})`, one process per sp rank): every rank is given the same global
@@ -95,6 +108,12 @@ from elasticdl_tpu_torch.embedding.layer import (
     row_tap,
 )
 from elasticdl_tpu_torch.embedding.sparse_optim import masked_step
+from elasticdl_tpu_torch.model_zoo.flax_layers import (
+    Dropout,
+    dropout_generator,
+    dropout_rng,
+    model_state_buffers,
+)
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
 from elasticdl_tpu_torch.parallel.mesh import Mesh
 
@@ -124,16 +143,19 @@ class OptState(object):
 class TrainState(object):
     """step: train_step calls so far (the model version); params: {torch
     key: the model's live parameter}; opt_state: an OptState;
-    embed_opt_state: {tapped table's key: sparse_update.RowState}; rng:
-    the JAX Trainer's state key for the same seed (uint32 [2]), which no
-    port model draws from: it travels through checkpoints only."""
+    embed_opt_state: {tapped table's key: sparse_update.RowState};
+    model_state: {torch key: the model's live BatchNorm buffer} (flax's
+    `batch_stats`); rng: the JAX Trainer's state key for the same seed
+    (uint32 [2]), which no port model draws from (dropout draws from
+    `dropout_generator`): it travels through checkpoints only."""
 
     def __init__(self, step, params, opt_state, embed_opt_state=None,
-                 rng=None):
+                 rng=None, model_state=None):
         self.step = int(step)
         self.params = params
         self.opt_state = opt_state
         self.embed_opt_state = embed_opt_state or {}
+        self.model_state = model_state or {}
         self.rng = (np.zeros(2, np.uint32) if rng is None
                     else np.asarray(rng, np.uint32))
 
@@ -197,6 +219,8 @@ class Trainer(object):
                 "final batches will enter the loss unmasked")
         self._host_manager = None
         self._ran = False
+        self._has_dropout = any(isinstance(m, Dropout)
+                                for m in self.model.modules())
         # the host tier's health: a failed apply or stage drops those
         # rows' update (no retry); cumulative for the Trainer's lifetime,
         # the worker forwards them to the master as tier/ counters
@@ -316,9 +340,10 @@ class Trainer(object):
     def init_state(self, example_batch, params=None, opt_state=None,
                    step=0):
         """A fresh TrainState over the model's seeded parameters.
-        `params` (a state_dict, e.g. from convert.params_from_flax)
-        replaces them; `opt_state` (as convert.adam_state_from_optax
-        returns it) seeds the AdamW slots and the applied-update count;
+        `params` (a state_dict, e.g. from convert.params_from_flax, with
+        the BatchNorm buffers of a model that has them) replaces them;
+        `opt_state` (as convert.adam_state_from_optax returns it) seeds
+        the AdamW slots and the applied-update count;
         `step` sets the model version. Tapped embedding tables stay out
         of the torch optimizer and get zeroed row slots in
         `embed_opt_state`. `example_batch` is accepted for the JAX
@@ -375,7 +400,8 @@ class Trainer(object):
             n: sparse_update.RowState(self._row_rule.init_slots(named[n]))
             for n in sorted(taps)}
         return TrainState(step, named, OptState(optimizer, count),
-                          embed_opt_state, rng=state_rng(self.seed))
+                          embed_opt_state, rng=state_rng(self.seed),
+                          model_state=model_state_buffers(self.model))
 
     # ---------------------------------------------------------------- steps
 
@@ -396,6 +422,12 @@ class Trainer(object):
 
     def _sp(self):
         return 1 if self.mesh is None else self.mesh.size
+
+    def _dropout_scope(self, step):
+        if not self._has_dropout:
+            return contextlib.nullcontext()
+        return dropout_rng(self.model, dropout_generator(self.seed, step,
+                                                         self.device))
 
     def _mesh_scope(self):
         return (self.mesh if self.mesh is not None
@@ -476,7 +508,8 @@ class Trainer(object):
         if host:
             for key in host.rows_keys():
                 host_rows[key] = features[key].requires_grad_()
-        with row_tap(self._taps) as records, self._mesh_scope():
+        with row_tap(self._taps) as records, self._mesh_scope(), (
+                self._dropout_scope(pre_step)):
             preds = self.model(features, training=True)
         labels, weights = self._tensor(labels), self._tensor(weights)
         trainable = opt.trainable()

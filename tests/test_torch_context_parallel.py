@@ -440,7 +440,7 @@ def test_sp_mesh_and_model_arguments_are_checked():
     from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
     from elasticdl_tpu_torch.parallel.mesh import build_mesh, current_mesh
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         build_mesh({"sp": 1, "dp": 2})
     with pytest.raises(ValueError, match="Unknown mesh axis"):
         build_mesh({"sq": 2})

@@ -144,7 +144,22 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.model_zoo.dac_ctr.deepfm_model",
                      "elasticdl_tpu_torch.model_zoo.dac_ctr.dcn_model",
                      "elasticdl_tpu_torch.model_zoo.dac_ctr.xdeepfm_model",
-                     "elasticdl_tpu_torch.model_zoo.dac_ctr.elasticdl_train"):
+                     "elasticdl_tpu_torch.model_zoo.dac_ctr.elasticdl_train",
+                     "elasticdl_tpu_torch.model_zoo.image_spec",
+                     "elasticdl_tpu_torch.model_zoo.mnist_functional_api."
+                     "mnist_functional_api",
+                     "elasticdl_tpu_torch.model_zoo.mnist_subclass."
+                     "mnist_subclass",
+                     "elasticdl_tpu_torch.model_zoo.cifar10_functional_api."
+                     "cifar10_functional_api",
+                     "elasticdl_tpu_torch.model_zoo.cifar10_subclass."
+                     "cifar10_subclass",
+                     "elasticdl_tpu_torch.model_zoo.resnet50_subclass."
+                     "resnet50_model",
+                     "elasticdl_tpu_torch.model_zoo.resnet50_subclass."
+                     "resnet50_subclass",
+                     "elasticdl_tpu_torch.model_zoo.imagenet_resnet50."
+                     "imagenet_resnet50"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"

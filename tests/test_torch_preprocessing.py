@@ -184,6 +184,26 @@ def test_round_identity_rounds_half_to_even():
         tl.RoundIdentity(5)(torch.from_numpy(halves)).numpy(), want)
 
 
+EDGES = np.array([-1, 0, np.nan, np.inf, 0.5, 2.5, 1e12], np.float32)
+
+
+@pytest.mark.parametrize("make,jnp_ids", [
+    (lambda m: m.LogRound(10, base=2, default_value=7),
+     [0, 7, 0, 7, 7, 1, 7]),
+    (lambda m: m.RoundIdentity(5, default_value=3), [3, 0, 0, 3, 0, 2, 3]),
+], ids=["log_round", "round_identity"])
+def test_rounding_layers_read_nan_as_the_jnp_path_does(make, jnp_ids):
+    """A NaN (log of -1, or NaN itself) is id 0 through the tensor path,
+    as XLA casts it in the JAX layer's jnp path; the numpy paths of both
+    packages give default_value."""
+    ref = np.asarray(make(jl)(jnp.asarray(EDGES)))
+    np.testing.assert_array_equal(ref, jnp_ids)
+    got = make(tl)(torch.from_numpy(EDGES))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(make(tl)(EDGES), make(jl)(EDGES))
+
+
 def test_discretization_boundary_is_the_right_bucket():
     """A value equal to a boundary goes to the bucket right of it, as
     searchsorted(side="right") (torch.bucketize(right=True))."""
