@@ -360,7 +360,8 @@ repository checkout it sits in. Phases, each of which fails the run:
    router fronting R1 alone: tokens/s, client TTFT, the router's e2e
    p50 / p99, router_status round trips, each router's seconds to
    ROUTER_READY; (3) 16 streams of 896-token prompts, 128 new tokens,
-   and R3 SIGKILLed once each has its first chunk: every stream
+   and R3 SIGKILLed once each has its first chunk (or once each that
+   R3 seated has, and R3 seats no more: its slots are full): every stream
    completes or ends UNAVAILABLE ("mid-stream") after its chunks, within
    the dispatch timeout, the failed ones exactly R3's, R3 out of the
    rotation within lease + 2 polls (3.5 s), then 8 more requests
@@ -453,6 +454,26 @@ repository checkout it sits in. Phases, each of which fails the run:
    `client.main train` of mnist_functional_api over 2 x 256
    gen_mnist_like records, 2 worker processes sharing the card,
    minibatch 64, rc 0 and the job Succeeded.
+33. the bidirectional encoders and the iris model on CSV rows: BERT-base
+   (bert.bert.custom_model: vocab 30522, seq 512, 768, 12 heads, 12
+   layers, bf16, minibatch 16, over gen_tokens_like records) and
+   ViT-Base (vit.vit.custom_model: 224 px, patch 14, 1000 classes, 768,
+   12 heads, 12 layers, fp32, minibatch 64, dropout on, over
+   gen_imagenet_like records) take ENC_STEPS LocalExecutor steps each;
+   every step launches A, C and D once a layer (not causal, head_dim 64)
+   and nothing else; step ms and p50, tokens/s or images/s, peak
+   memory. Then BERT-base's packed row with the most documents against
+   each document alone within ENC_PACKED_TOL_REL of the largest logit,
+   and one training step of 16 packed rows (A, C and D's segments
+   variant once a layer); the first step of a 2-layer model at each
+   encoder's full width on the card against the CPU port from the same
+   weights and batch (STEP_LOSS_TOL_REL, STEP_GRAD_NORM_TOL_REL); the
+   iris model over gen_iris_csv files through LocalExecutor on the card
+   and on the CPU, losses within ENC_IRIS_LOSS_TOL_REL, and through
+   `client.main train` with one worker (rc 0, Succeeded). A, C and D are
+   then held to their plain versions and timed at both encoders' path
+   shapes (ENC_KERNEL_SHAPES) beside their bound, the plain version,
+   SDPA and aten's backward.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -473,7 +494,10 @@ launches through embedding_column ride the `kernels` line as
 `launches_tabular_zoo`, by wrapper, their errors as
 `tabular_zoo_max_abs_err`, E's timing there as `tabular_zoo_timing`)
 and a `vision_zoo` line (its launches, all 0, ride the `kernels` line as
-`launches_vision_zoo`), each with
+`launches_vision_zoo`) and an `encoder_zoo` line (its launches by part
+ride the `kernels` line as `launches_bert_vit`; A, C and D timed at the
+bert and vit shapes are the `kernels` entries named `..._bert` and
+`..._vit`), each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -578,6 +602,7 @@ from elasticdl_tpu_torch.model_zoo import dlrm as dzoo
 from elasticdl_tpu_torch.model_zoo import flax_layers as vis_layers
 from elasticdl_tpu_torch.model_zoo import transformer_lm as tzoo
 from elasticdl_tpu_torch.model_zoo import transformer_lm_packed as tpacked
+from elasticdl_tpu_torch.model_zoo.bert import bert as bert_zoo
 from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     TransformerLM,
     kv_quantize_rows,
@@ -812,11 +837,12 @@ def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
                                        else "bytes")
 
 
-def flash_work(b, h, hkv, lq, lk, d, itemsize):
-    """(operations, bytes) of one causal flash forward: 4*d operations
-    per visible (query, key) pair; q, k, v read once, out and the fp32
-    lse written once."""
-    pairs = sum(min(i + 1, lk) for i in range(lq))
+def flash_work(b, h, hkv, lq, lk, d, itemsize, causal=True):
+    """(operations, bytes) of one flash forward, causal unless `causal`
+    is False: 4*d operations per visible (query, key) pair; q, k, v read
+    once, out and the fp32 lse written once."""
+    pairs = (sum(min(i + 1, lk) for i in range(lq)) if causal
+             else lq * lk)
     flops = 4 * d * pairs * b * h
     nbytes = itemsize * d * (2 * b * h * lq + 2 * b * hkv * lk) + 4 * b * h * lq
     return flops, nbytes
@@ -2816,13 +2842,14 @@ def _timing_entry(name, source, replaces, shape, fn, plain, library,
     return entry
 
 
-def flash_bwd_work(b, h, hkv, l, d, itemsize, dkv):
-    """(operations, bytes) of one causal backward pass at lq = lk = l:
-    6*d operations per visible (query, key) pair for dq (S, dP, dQ), 8*d
-    for dk/dv (S, dP, dV, dK); each input read once and each output
-    written once: dq reads q, k, v, out, dO and the lse, writes dq and
-    delta; dk/dv reads q, k, v, dO, lse and delta, writes dk and dv."""
-    pairs = l * (l + 1) // 2
+def flash_bwd_work(b, h, hkv, l, d, itemsize, dkv, causal=True):
+    """(operations, bytes) of one backward pass at lq = lk = l, causal
+    unless `causal` is False: 6*d operations per visible (query, key)
+    pair for dq (S, dP, dQ), 8*d for dk/dv (S, dP, dV, dK); each input
+    read once and each output written once: dq reads q, k, v, out, dO
+    and the lse, writes dq and delta; dk/dv reads q, k, v, dO, lse and
+    delta, writes dk and dv."""
+    pairs = l * (l + 1) // 2 if causal else l * l
     rows_q, rows_kv = b * h * l, b * hkv * l
     if dkv:
         return (8 * d * pairs * b * h,
@@ -2831,21 +2858,23 @@ def flash_bwd_work(b, h, hkv, l, d, itemsize, dkv):
             itemsize * d * (4 * rows_q + 2 * rows_kv) + 8 * rows_q)
 
 
-def sdpa_backward_ms(q, k, v, do):
+def sdpa_backward_ms(q, k, v, do, causal=True):
     """(ms, what) of PyTorch's own flash-attention backward computing dq,
-    dk and dv in one call at these inputs (causal), timed eagerly between
-    CUDA events; used only as a yardstick, never by the port. Where the
-    aten op's signature does not fit this PyTorch, SDPA's autograd
-    backward is timed instead (forward + backward less the forward)."""
+    dk and dv in one call at these inputs (causal unless `causal` is
+    False), timed eagerly between CUDA events; used only as a yardstick,
+    never by the port. Where the aten op does not take these inputs
+    (its signature in this PyTorch, or fp32, which its flash kernel
+    refuses), SDPA's autograd backward is timed instead (forward +
+    backward less the forward; the memory-efficient kernel for fp32)."""
     aten = torch.ops.aten
     try:
-        fwd = aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True,
+        fwd = aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal,
                                                        False)
         out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
 
         def run():
             return aten._scaled_dot_product_flash_attention_backward(
-                do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, True, seed,
+                do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
                 offset)
 
         run()
@@ -2859,7 +2888,7 @@ def sdpa_backward_ms(q, k, v, do):
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
     def fwd_only():
-        return F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal)
 
     def fwd_bwd():
         torch.autograd.grad(fwd_only(), leaves, do)
@@ -3566,7 +3595,9 @@ def check_masked_flash(gen, rng):
         for causal in (True, False):
             for window in (None, 1, 2, 37, 300):
                 for packed in (False, True):
-                    h, hkv, d = MASKED_FLASH_SMALL[i % 4]
+                    # i + i // 2: packed and unpacked cases each run all
+                    # four shapes (i % 4 gives packed ones only d 128)
+                    h, hkv, d = MASKED_FLASH_SMALL[(i + i // 2) % 4]
                     i += 1
                     q, k, v = flash_inputs(gen, 2, h, hkv, 200, d, dtype)
                     do = flash_inputs(gen, 2, h, h, 200, d, dtype)[0]
@@ -7919,6 +7950,7 @@ ROUTER_HANDOFF_NEW = 16  # 1008 + 16 = seq_len, as phase 28
 ROUTER_BLOCKS = 512  # the dense-equivalent pool of 8 slots
 # router_main's defaults, which the phase's routers run with
 ROUTER_POLL_S, ROUTER_LEASE_S, ROUTER_DISPATCH_S = 0.5, 2.5, 120.0
+ROUTER_SETTLE_S = 0.3  # R3 seated nothing new: its slots are full
 ROUTER_WAIT_S = 600
 ROUTER_KERNELS = SERVING_KERNELS
 
@@ -8258,12 +8290,30 @@ def _overhead_pass(stub, method, label, prompts):
     }
 
 
-def _death_step(router, r3, rs, addrs):
-    """(3) ROUTER_KILL_STREAMS streams at once; once every one has its
-    first chunk, SIGKILL R3. Each stream completes or ends UNAVAILABLE
-    after its chunks, within the dispatch timeout; router_status shows
-    2 healthy within lease + 2 polls; ROUTER_AFTER_KILL more requests
-    complete with nothing shed."""
+def _r3_seated(f, seen):
+    """Add to `seen` the step-3 traces that R3's schedule log (open as
+    `f`, read on from where the last call stopped) shows seated."""
+    while True:
+        pos = f.tell()
+        line = f.readline()
+        if not line.endswith(b"\n"):  # R3 is still writing it
+            f.seek(pos)
+            return seen
+        e = json.loads(line)
+        if e[0] == "insert" and e[1].startswith("s3-"):
+            seen.add(e[1])
+
+
+def _death_step(router, r3, r3_log, rs, addrs):
+    """(3) ROUTER_KILL_STREAMS streams at once; SIGKILL R3 once every
+    one has its first chunk, or once every stream R3 seated has its
+    first chunk and R3 has seated no other for ROUTER_SETTLE_S: the
+    router may send R3 more streams than its slots, and one waiting for
+    a slot gets its first chunk only after a seated one ended. A stream
+    R3 admitted but never seated is re-dispatched whole. Each stream
+    completes or ends UNAVAILABLE after its chunks, within the dispatch
+    timeout; router_status shows 2 healthy within lease + 2 polls;
+    ROUTER_AFTER_KILL more requests complete with nothing shed."""
     vocab = FLAGSHIP["vocab_size"]
     prompts = [rs.randint(0, vocab, size=ROUTER_KILL_LEN).tolist()
                for _ in range(ROUTER_KILL_STREAMS)]
@@ -8271,13 +8321,25 @@ def _death_step(router, r3, rs, addrs):
     threads = [threading.Thread(target=_routed, daemon=True, args=(
         router, "router_generate_stream", "s3-%02d" % i, p, ROUTER_KILL_NEW,
         outs[i])) for i, p in enumerate(prompts)]
-    for t in threads:
-        t.start()
-    deadline = time.monotonic() + ROUTER_WAIT_S
-    while not all("t_first" in o or o.get("code") for o in outs):
-        check(time.monotonic() < deadline, "the death streams never all "
-              "delivered a first chunk")
-        time.sleep(0.001)
+    seated, settled_since = set(), time.monotonic()
+    with open(r3_log, "rb") as f:
+        f.seek(0, os.SEEK_END)
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + ROUTER_WAIT_S
+        while not all("t_first" in o or o.get("code") for o in outs):
+            check(time.monotonic() < deadline, "the death streams never "
+                  "all delivered a first chunk")
+            n = len(seated)
+            now = time.monotonic()
+            if len(_r3_seated(f, seated)) > n:
+                settled_since = now
+            first = {o["trace"] for o in outs if "t_first" in o}
+            if (seated and seated <= first
+                    and now - settled_since >= ROUTER_SETTLE_S):
+                break
+            time.sleep(0.001)
+    all_first = all("t_first" in o or o.get("code") for o in outs)
     r3.alive()
     t_kill = time.monotonic()
     r3.proc.kill()
@@ -8323,6 +8385,8 @@ def _death_step(router, r3, rs, addrs):
     done = [o for o in outs if o["code"] is None]
     return done + after, failed, {
         "streams": len(outs), "explicit_failures": len(failed),
+        "killed_at": ("every first chunk" if all_first
+                      else "R3's %d seats settled" % len(seated)),
         "completed": len(done), "kill_to_eviction_s": evict_s,
         "eviction_bound_s": ROUTER_LEASE_S + 2 * ROUTER_POLL_S,
         "longest_stream_s": max(o["t_end"] - o["t_send"] for o in outs),
@@ -8572,7 +8636,8 @@ def serving_router_phase(device="cuda"):
             "router_status_rtt": _pcts(rtt),
             "router_ready_s": second.ready_s}
         # (3) replica death
-        step3, failed, out["death"] = _death_step(router, r3, rs, addrs)
+        step3, failed, out["death"] = _death_step(router, r3, r3_log,
+                                                    rs, addrs)
         main.stop()
         for s in servers.values():
             s.stop(timeout=120)
@@ -9963,6 +10028,486 @@ def vision_zoo_phase(workdir, device="cuda"):
     return out, launches
 
 
+ENC_SEED = 33
+ENC_STEPS = 4  # LocalExecutor steps an encoder takes
+# name -> (--model_def in the zoo, model_params, minibatch): BERT-base at
+# bench.py:756-757 (bf16, seq 512) and ViT-Base at 224 px, patch 14
+# (bench.py:423-424, fp32); both head_dim 64
+ENC_MODELS = {
+    "bert": ("bert.bert.custom_model",
+             dict(vocab_size=30522, seq_len=512, embed_dim=768,
+                  num_heads=12, num_layers=12, dtype="bf16"), 16),
+    "vit": ("vit.vit.custom_model",
+            dict(image_size=224, patch_size=14, num_classes=1000,
+                 embed_dim=768, num_heads=12, num_layers=12), 64),
+}
+ENC_COMPARE_LAYERS = 2  # the card-against-CPU step: full width, 2 layers
+ENC_COMPARE_BATCH = 2
+ENC_PACKED_DOCS = (32, 400)  # document lengths of the packed bert rows
+# a packed bf16 row's logits against each of its documents run alone,
+# through BERT-base's 12 layers: the key tiles of a document start at
+# another offset in the row, so P's bf16 rounding (relative to other
+# running maxima) and cuBLAS's splits of taller matrices differ; held
+# as the bf16 logits of the card against the CPU are
+ENC_PACKED_TOL_REL = LOGIT_TOL_REL
+ENC_IRIS_DEF = "odps_iris_dnn_model.odps_iris_dnn_model.custom_model"
+ENC_IRIS_ROWS = 48  # rows a CSV file, 2 files
+ENC_IRIS_BATCH, ENC_IRIS_TASK, ENC_IRIS_EPOCHS = 16, 32, 2
+# the iris losses on the card against the CPU port's from the same
+# weights: one fp32 Dense(3) under SGD
+ENC_IRIS_LOSS_TOL_REL = 1e-5
+ENC_IRIS_WAIT_S = 300
+# the kernels timed at each encoder's path shape: (b, h, l, d, dtype)
+ENC_KERNEL_SHAPES = {"bert": (16, 12, 512, 64, torch.bfloat16),
+                     "vit": (64, 12, 256, 64, torch.float32)}
+
+
+def _enc_records(name, workdir):
+    """The training records of one encoder (ENC_STEPS batches), written
+    once: gen_tokens_like at seq_len and the vocabulary, or
+    gen_imagenet_like at the image size and class count."""
+    _model_def, cfg, batch = ENC_MODELS[name]
+    train = os.path.join(workdir, "%s-train" % name)
+    n = batch * ENC_STEPS
+    if name == "bert":
+        port_recordio_gen.gen_tokens_like(
+            train, num_files=1, records_per_file=n, seed=ENC_SEED,
+            seq_len=cfg["seq_len"], vocab_size=cfg["vocab_size"])
+    else:
+        port_recordio_gen.gen_imagenet_like(
+            train, num_files=1, records_per_file=n, seed=ENC_SEED,
+            image_size=cfg["image_size"], num_classes=cfg["num_classes"])
+    return train
+
+
+def _enc_train(name, workdir, device):
+    """ENC_STEPS LocalExecutor steps of one encoder at its published
+    width on `device` (vit with dropout on), each step's ms and kernel
+    launches. Returns (report, executor)."""
+    model_def, cfg, batch = ENC_MODELS[name]
+    t0 = time.perf_counter()
+    train = _enc_records(name, workdir)
+    write_s = time.perf_counter() - t0
+    spec = get_model_spec(_tab_zoo_dir(), model_def)
+    executor = LocalExecutor(
+        spec, training_data=train, minibatch_size=batch,
+        records_per_task=batch * ENC_STEPS, model_params=_dlrm_params_str(cfg),
+        seed=ENC_SEED, device=device)
+    trainer = executor.trainer
+    steps = []
+    step_fn = trainer.train_step
+
+    def timed(state, batch_, true_count=None):
+        before = all_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step_fn(state, batch_, true_count)
+        _sync(device)
+        after = all_launch_counts()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": {k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]}})
+        return out
+
+    trainer.train_step = timed
+    base = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        base = int(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _metrics = executor.train()
+    wall = time.perf_counter() - t0
+    peak = (int(torch.cuda.max_memory_allocated()) - base
+            if device == "cuda" else None)
+    del trainer.train_step  # the wrapper's reference cycle (see phase 31)
+    losses = list(executor.losses)
+    check(state is not None and state.step == ENC_STEPS
+          and len(losses) == ENC_STEPS,
+          "%s took %d steps, not %d" % (name, len(losses), ENC_STEPS))
+    check(all(math.isfinite(x) for x in losses),
+          "%s: a non-finite loss in %s" % (name, losses))
+    layers = cfg["num_layers"]
+    if device == "cuda":
+        for i, s in enumerate(steps):
+            want = {k: layers for k in TRAINING_KERNELS}
+            check(s["launches"] == want,
+                  "%s step %d launched %s, not %s" % (name, i, s["launches"],
+                                                      want))
+    step_ms = [s["ms"] for s in steps]
+    p50 = float(np.median(step_ms[1:]))
+    unit = "tokens" if name == "bert" else "images"
+    per_step = batch * (cfg["seq_len"] if name == "bert" else 1)
+    rep = {
+        "model_def": model_def, "model_params": _dlrm_params_str(cfg),
+        "minibatch": batch, "steps": ENC_STEPS, "losses": losses,
+        "step_ms": step_ms, "step_p50_ms": p50,
+        "step_p50_over": "steps 2-%d (step 1 warms the card)" % ENC_STEPS,
+        "%s_per_s" % unit: per_step / (p50 / 1e3),
+        "peak_memory_above_baseline_bytes": peak,
+        "memory_allocated_before_bytes": base,
+        "param_bytes": int(sum(p.numel() * p.element_size()
+                               for p in trainer.model.parameters())),
+        "launches_per_step": steps[-1]["launches"],
+        "records_write_s": write_s, "train_wall_s": wall,
+        "dataset_fn_records_per_s": _tab_host_rate(spec, train, batch),
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+    }
+    log("encoder_zoo %s: %s" % (name, json.dumps(rep)))
+    return rep, executor
+
+
+def _bert_packed_rows(rng):
+    """pack_sequences over documents of ENC_PACKED_DOCS tokens drawn by
+    `rng` at BERT-base's vocabulary and seq_len: (tokens, segment_ids,
+    labels), at least a minibatch of rows."""
+    _model_def, cfg, batch = ENC_MODELS["bert"]
+    seq, vocab = cfg["seq_len"], cfg["vocab_size"]
+    lo, hi = ENC_PACKED_DOCS
+    docs = [rng.randint(0, vocab, size=rng.randint(lo, hi + 1))
+            for _ in range(3 * batch * seq // ((lo + hi) // 2) + 1)]
+    tokens, seg, labels = packing.pack_sequences(docs, seq)
+    check(tokens.shape[0] >= batch, "too few packed rows")
+    return tokens, seg, labels
+
+
+def _enc_packed(executor, rng, device):
+    """BERT-base's packed rows on `device` after its training: the row
+    of pack_sequences (documents of ENC_PACKED_DOCS tokens) that holds
+    the most documents against each document run alone, within
+    ENC_PACKED_TOL_REL of the largest logit; then one training step of
+    a minibatch of packed rows, masked as dataset_fn masks. Returns
+    (report, the training step's launches)."""
+    _model_def, cfg, batch = ENC_MODELS["bert"]
+    trainer, model = executor.trainer, executor.trainer.model
+    vocab = cfg["vocab_size"]
+    tokens, seg, labels = _bert_packed_rows(rng)
+    r = int(np.argmax(docs_per_row(seg, labels)))
+    dev = model.device
+    worst, n_docs = 0.0, 0
+    with torch.no_grad():
+        packed = model({"tokens": torch.as_tensor(tokens[r:r + 1],
+                                                  device=dev),
+                        "segment_ids": torch.as_tensor(seg[r:r + 1],
+                                                       device=dev)})
+        for sid in np.unique(seg[r]):
+            span = np.flatnonzero(seg[r] == sid)
+            if not (labels[r][span] != packing.IGNORE_LABEL).any():
+                continue  # the pad tail
+            alone = model({"tokens": torch.as_tensor(
+                tokens[r:r + 1, span], device=dev)})
+            worst = max(worst, rel_err(packed[0, span[0]:span[-1] + 1],
+                                       alone[0]))
+            n_docs += 1
+    log("bert packed row vs its %d documents alone (%s, %d layers): rel "
+        "err %.3g" % (n_docs, cfg["dtype"], cfg["num_layers"], worst))
+    check(n_docs >= 2, "the packed bert row holds %d documents" % n_docs)
+    check(worst <= ENC_PACKED_TOL_REL,
+          "a packed bert row's logits differ from its documents' by %.3g "
+          "of the largest logit" % worst)
+    masked, mlm = zip(*[bert_zoo._mask_tokens(row.astype(np.int32), vocab,
+                                              np.random.RandomState(i))
+                        for i, row in enumerate(tokens[:batch])])
+    features = {"tokens": np.stack(masked),
+                "segment_ids": np.asarray(seg[:batch], np.int32)}
+    reset_all_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    executor.state, loss = trainer.train_step(
+        executor.state, (features, np.stack(mlm)))
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+    check(math.isfinite(loss), "the packed bert step's loss is %r" % loss)
+    if device == "cuda":
+        want = {k + "_segments": cfg["num_layers"] for k in TRAINING_KERNELS}
+        check(launches == want, "the packed bert step launched %s, not %s"
+              % (launches, want))
+    rep = {"documents_in_row": n_docs, "logits_max_rel_err": worst,
+           "limit_rel": ENC_PACKED_TOL_REL, "train_step_loss": loss,
+           "train_step_ms": step_ms, "rows": batch,
+           "documents_in_batch": int(docs_per_row(seg[:batch],
+                                                  labels[:batch]).sum()),
+           "launches": launches}
+    log("encoder_zoo bert_packed: %s" % json.dumps(rep))
+    return rep, launches
+
+
+def _enc_compare(name, rng, device):
+    """One train_step of a ENC_COMPARE_LAYERS-layer model at the
+    encoder's full width on `device` and on the CPU (plain versions),
+    from the same weights and batch (vit's dropout at rate 0): the loss
+    and every parameter's gradient norm, by relative error
+    (STEP_LOSS_TOL_REL, STEP_GRAD_NORM_TOL_REL, as compare_train_step)."""
+    model_def, cfg, _batch = ENC_MODELS[name]
+    cfg = dict(cfg, num_layers=ENC_COMPARE_LAYERS)
+    spec = get_model_spec(_tab_zoo_dir(), model_def)
+    params = _dlrm_params_str(cfg)
+    init = {k: v.detach().clone() for k, v in spec.create_model(
+        params, device="cpu", seed=3).state_dict().items()}
+    n = ENC_COMPARE_BATCH
+    if name == "bert":
+        tokens = rng.randint(0, cfg["vocab_size"], size=(n, cfg["seq_len"]))
+        masked, mlm = zip(*[bert_zoo._mask_tokens(
+            row.astype(np.int32), cfg["vocab_size"], rng) for row in tokens])
+        batch = ({"tokens": np.stack(masked)}, np.stack(mlm))
+    else:
+        s = cfg["image_size"]
+        batch = ({"image": (rng.rand(n, s, s, 3) * 255).astype(np.float32)},
+                 rng.randint(cfg["num_classes"], size=n).astype(np.int32))
+    runs = {}
+    for dev in (device, "cpu"):
+        trainer = Trainer(spec, model_params=params, device=dev)
+        _vis_dropout_rates(trainer.model)
+        state = trainer.init_state(batch, params=init)
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        secs = time.perf_counter() - t0
+        runs[dev] = (loss, {k: p.grad.float().norm().item()
+                            for k, p in state.params.items()}, secs)
+        del trainer, state
+    (gl, gn, gs), (cl, cn, cs) = runs[device], runs["cpu"]
+    loss_err = abs(gl - cl) / abs(cl)
+    norm_errs = {k: abs(gn[k] - cn[k]) / max(cn[k], 1e-30) for k in cn}
+    worst = max(norm_errs, key=norm_errs.get)
+    log("%s train step %s vs cpu: loss %.6f / %.6f (rel %.3g); worst grad "
+        "norm rel err %.3g (%s); %.1f s / %.1f s"
+        % (name, device, gl, cl, loss_err, norm_errs[worst], worst, gs, cs))
+    check(all(math.isfinite(x) for x in list(gn.values()) + [gl]),
+          "%s: non-finite loss or gradient on %s" % (name, device))
+    check(loss_err <= STEP_LOSS_TOL_REL,
+          "%s train step loss: %s %.6f vs cpu %.6f" % (name, device, gl, cl))
+    check(norm_errs[worst] <= STEP_GRAD_NORM_TOL_REL,
+          "%s gradient norm of %s: %s %.6g vs cpu %.6g"
+          % (name, worst, device, gn[worst], cn[worst]))
+    return {"layers": ENC_COMPARE_LAYERS, "minibatch": n,
+            "loss_device": gl, "loss_cpu": cl, "loss_rel_err": loss_err,
+            "grad_norm_max_rel_err": norm_errs[worst],
+            "grad_norm_worst_param": worst,
+            "limits": {"loss_rel": STEP_LOSS_TOL_REL,
+                       "grad_norm_rel": STEP_GRAD_NORM_TOL_REL},
+            "device_s": gs, "cpu_s": cs}
+
+
+def _enc_iris(workdir, device):
+    """odps_iris_dnn_model on CSV rows: gen_iris_csv (2 files of
+    ENC_IRIS_ROWS), ENC_IRIS_EPOCHS epochs through LocalExecutor on
+    `device` and on the CPU from the same weights (losses within
+    ENC_IRIS_LOSS_TOL_REL), then the job through `client.main train`
+    with one worker process (rc 0, Succeeded, every task completed)."""
+    data = os.path.join(workdir, "iris")
+    port_recordio_gen.gen_iris_csv(data, num_files=2,
+                                   rows_per_file=ENC_IRIS_ROWS,
+                                   seed=ENC_SEED)
+    spec = get_model_spec(_tab_zoo_dir(), ENC_IRIS_DEF)
+    init = {k: v.clone() for k, v in spec.create_model(
+        "", device="cpu", seed=ENC_SEED).state_dict().items()}
+    runs = {}
+    for dev in (device, "cpu"):
+        random.seed(ENC_SEED)  # the dispatcher's task shuffle
+        executor = LocalExecutor(
+            spec, training_data=data, minibatch_size=ENC_IRIS_BATCH,
+            records_per_task=ENC_IRIS_TASK, num_epochs=ENC_IRIS_EPOCHS,
+            device=dev)
+        executor.state = executor.trainer.init_state(None, params=init)
+        executor.train()
+        runs[dev] = list(executor.losses)
+    got, want = runs[device], runs["cpu"]
+    steps = ENC_IRIS_EPOCHS * 2 * -(-ENC_IRIS_ROWS // ENC_IRIS_BATCH)
+    check(len(got) == len(want) == steps,
+          "iris took %d and %d steps, not %d" % (len(got), len(want), steps))
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+    check(rel <= ENC_IRIS_LOSS_TOL_REL,
+          "iris losses on %s %s, on the CPU %s (rel %.3g)"
+          % (device, got, want, rel))
+    status = os.path.join(workdir, "iris_status.json")
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train",
+           "--model_zoo", _tab_zoo_dir(), "--model_def", ENC_IRIS_DEF,
+           "--training_data", data, "--num_workers", "1",
+           "--minibatch_size", str(ENC_IRIS_BATCH),
+           "--records_per_task", str(ENC_IRIS_TASK), "--port", "0",
+           "--job_status_file", status]
+    if device != "cuda":
+        cmd += ["--device", device]
+    out_log = os.path.join(workdir, "iris_job.log")
+    t0 = time.perf_counter()
+    with open(out_log, "w") as log_f:
+        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                env=_mw_env(), cwd=workdir)
+        try:
+            rc = proc.wait(timeout=ENC_IRIS_WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    job = job_status.read_job_status(status) or {}
+    with open(out_log, errors="replace") as f:
+        completed = len(re.findall(r"Task:\d+ completed", f.read()))
+    if rc != 0 or job.get("status") != job_status.SUCCEEDED:
+        log("encoder_zoo iris job's log tail:\n%s" % _log_tail(out_log))
+    check(rc == 0 and job.get("status") == job_status.SUCCEEDED,
+          "the iris CSV job ended with rc %d, status %s"
+          % (rc, job.get("status")))
+    tasks = 2 * -(-ENC_IRIS_ROWS // ENC_IRIS_TASK)
+    check(completed == tasks, "the iris job completed %d tasks, not %d"
+          % (completed, tasks))
+    rep = {"rows": 2 * ENC_IRIS_ROWS, "losses": got, "losses_cpu": want,
+           "loss_max_rel_err": rel, "limit_rel": ENC_IRIS_LOSS_TOL_REL,
+           "job": {"rc": rc, "status": job.get("status"),
+                   "tasks_completed": completed, "seconds": seconds,
+                   "command": " ".join(cmd[1:])}}
+    log("encoder_zoo iris: %s" % json.dumps(rep))
+    return rep
+
+
+def encoder_zoo_phase(workdir, device="cuda"):
+    """Phase 33: BERT-base and ViT-Base training at full width, the
+    card against the CPU port, packed bert rows and the iris model on
+    CSV rows (see the module docstring). Returns (report, the kernels'
+    launches by part)."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(ENC_SEED)
+    out = {"models": {}}
+    launches = {}
+    for name in ENC_MODELS:
+        reset_all_launch_counts()
+        rep, executor = _enc_train(name, workdir, device)
+        launches[name] = {k: v for k, v in all_launch_counts().items() if v}
+        out["models"][name] = rep
+        if name == "bert":
+            out["bert_packed"], launches["bert_packed"] = _enc_packed(
+                executor, rng, device)
+        del executor, rep
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if device == "cuda":
+        for name in ENC_MODELS:
+            want = {k: ENC_MODELS[name][1]["num_layers"] * ENC_STEPS
+                    for k in TRAINING_KERNELS}
+            check(launches[name] == want, "%s's run launched %s, not %s"
+                  % (name, launches[name], want))
+    out["cuda_vs_cpu_step"] = {name: _enc_compare(name, rng, device)
+                               for name in ENC_MODELS}
+    gc.collect()
+    reset_all_launch_counts()
+    out["iris"] = _enc_iris(workdir, device)
+    launches["iris"] = {k: v for k, v in all_launch_counts().items() if v}
+    check(not launches["iris"], "the iris model launched %s"
+          % launches["iris"])
+    out["kernel_launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def time_encoder_kernels(launches):
+    """Kernels A, C and D at each encoder's path shape (ENC_KERNEL_SHAPES:
+    not causal, d 64; bert bf16, vit fp32), against their plain versions
+    (bf16 also against the plain version that rounds as they do); at
+    bert's shape also their segments variants on the packed bert step's
+    segment ids (_flash_case's limits, those of check_masked_flash); then
+    timed beside their bound (bf16 peak for bert, fp32 peak for vit),
+    the plain version, SDPA (A) and aten's flash or memory-efficient
+    backward (C + D). `launches`: encoder_zoo_phase's, by part."""
+    gen = torch.Generator().manual_seed(ENC_SEED)
+    entries = []
+    for family, (b, h, l, d, dtype) in ENC_KERNEL_SHAPES.items():
+        q, k, v = flash_inputs(gen, b, h, h, l, d, dtype)
+        do = flash_inputs(gen, b, h, h, l, d, dtype)[0]
+        out, lse = att.flash_forward(q, k, v, causal=False)
+        dq, delta = att.flash_backward_dq(q, k, v, out, lse, do,
+                                          causal=False)
+        dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                        causal=False)
+        torch.cuda.synchronize()
+        fwd_err = flash_fwd_errs(q, k, v, out, lse, False, {})
+        check(fwd_ok(fwd_err), "flash_fwd disagrees with its plain version "
+              "at %s's shape: %s" % (family, fwd_err))
+        pdq, pdelta = att.flash_backward_dq_plain(q, k, v, out, lse, do,
+                                                  causal=False)
+        pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse, pdelta,
+                                                causal=False)
+        bwd_err = {}
+        for name, pairs in (("flash_bwd_dq", ((dq, pdq), (delta, pdelta))),
+                            ("flash_bwd_dkv", ((dk, pdk), (dv, pdv)))):
+            rel = max(rel_err(a.float(), b_.float()) for a, b_ in pairs)
+            bwd_err[name] = {
+                "max_abs_err": max((a.float() - b_.float()).abs().max().item()
+                                   for a, b_ in pairs),
+                "max_rel_err": rel}
+            check(rel <= BWD_TOL_REL[dtype], "%s disagrees with its plain "
+                  "version at %s's shape: rel err %.3g" % (name, family, rel))
+        if dtype == torch.bfloat16:
+            for name, e in rounded_bwd_errs(q, k, v, out, lse, do,
+                                            causal=False).items():
+                check(rounded_ok(e), "%s disagrees with its rounded plain "
+                      "version at %s's shape: %s" % (name, family, e))
+                bwd_err[name].update({"rounded_" + key: val
+                                      for key, val in e.items()})
+        log("encoder kernels at %s's shape: fwd %s, bwd %s"
+            % (family, fwd_err, bwd_err))
+        seg_errs = None
+        if family == "bert":
+            # the segments variants on the packed bert step's segment ids
+            # (encoder_zoo_phase draws them from the same seed)
+            seg = torch.as_tensor(_bert_packed_rows(
+                np.random.RandomState(ENC_SEED))[1][:b]).cuda()
+            seg_errs, variant = _flash_case(q, k, v, do, False,
+                                            {"q_seg": seg, "k_seg": seg})
+            _check_flash_errs(seg_errs, variant, dtype,
+                              "bert's packed path shape")
+            log("encoder kernels%s at bert's packed path shape: %s"
+                % (variant, seg_errs))
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+        shape = "b=%d h=%d lq=lk=%d d=%d not causal %s (%s's path)" % (
+            b, h, l, d, str(dtype)[6:], family)
+        path = {name + "_" + family: launches[family][name]
+                for name in TRAINING_KERNELS}
+        library = sdpa_backward_ms(q, k, v, do, causal=False)
+        fwd = _timing_entry(
+            "flash_fwd_" + family, "elasticdl_tpu_torch/csrc/flash_fwd.cu",
+            "elasticdl_tpu/ops/attention.py:941", shape,
+            lambda: att.flash_forward(q, k, v, causal=False),
+            lambda: att.flash_attention_plain(q, k, v, causal=False,
+                                              bf16_operands=True),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            flash_work(b, h, h, l, l, d, itemsize, causal=False), path,
+            dict(fwd_err, max_err=fwd_err["max_abs_err"]), peak=peak)
+        entries.append(fwd)
+        for name, line, fn, plain, dkv in (
+                ("flash_bwd_dq", 1241,
+                 lambda: att.flash_backward_dq(q, k, v, out, lse, do,
+                                               causal=False),
+                 lambda: att.flash_backward_dq_plain(q, k, v, out, lse, do,
+                                                     causal=False), False),
+                ("flash_bwd_dkv", 1294,
+                 lambda: att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                                causal=False),
+                 lambda: att.flash_backward_dkv_plain(q, k, v, do, lse, delta,
+                                                      causal=False), True)):
+            entries.append(_timing_entry(
+                name + "_" + family, "elasticdl_tpu_torch/csrc/flash_bwd.cu",
+                "elasticdl_tpu/ops/attention.py:%d" % line, shape, fn, plain,
+                library, flash_bwd_work(b, h, h, l, d, itemsize, dkv,
+                                        causal=False), path,
+                dict(bwd_err[name], max_err=bwd_err[name]["max_abs_err"]),
+                peak=peak))
+        for entry in entries[-3:]:
+            entry["launches_per_step"] = entry["launches"] // ENC_STEPS
+            if seg_errs is not None:
+                kernel = entry["name"][:-len(family) - 1]
+                entry["segments_check"] = dict(
+                    seg_errs[kernel], variant=kernel + "_segments",
+                    segment_ids="the packed bert step's (pack_sequences "
+                    "over documents of %d-%d tokens)" % ENC_PACKED_DOCS)
+        del q, k, v, do, out, lse, dq, delta, dk, dv, pdq, pdelta, pdk, pdv
+        torch.cuda.empty_cache()
+    return entries
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -10209,6 +10754,11 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         vision_zoo, vis_launches = vision_zoo_phase(workdir)
     torch.cuda.empty_cache()
+    # phase 33 draws from its own generators (ENC_SEED)
+    laps.to("encoder_zoo")
+    with tempfile.TemporaryDirectory() as workdir:
+        encoder_zoo, enc_launches = encoder_zoo_phase(workdir)
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -10389,10 +10939,22 @@ def main():
                 shape="%s ids into a %d x %d fp32 table" % (
                     tabular_zoo["embedding_column"]["ids"],
                     tabular_zoo["embedding_column"]["rows"], TAB_EMB_DIM))
+    # A, C and D at phase 33's path shapes (bert, vit: d 64, not causal)
+    kernels += time_encoder_kernels(enc_launches)
     # phase 32's launches: none of the port's kernels runs on the vision
     # zoo's path (conv, BatchNorm and pooling are cuDNN / aten calls)
     for entry in kernels:
         entry["launches_vision_zoo"] = vis_launches.get(entry["name"], 0)
+    # phase 33's launches of every kernel by part (A, C and D 12 a layer
+    # stack pass; the entries timed at an encoder's shape count their
+    # kernel's)
+    for entry in kernels:
+        name = entry["name"]
+        for family in ENC_MODELS:
+            if name.endswith("_" + family):
+                name = name[:-len(family) - 1]
+        entry["launches_bert_vit"] = {
+            part: counts.get(name, 0) for part, counts in enc_launches.items()}
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
@@ -10402,7 +10964,8 @@ def main():
              "serving_wire": serving_wire, "serving_tiers": serving_tiers,
              "serving_router": serving_router,
              "serving_router_tier": serving_router_tier,
-             "tabular_zoo": tabular_zoo, "vision_zoo": vision_zoo}
+             "tabular_zoo": tabular_zoo, "vision_zoo": vision_zoo,
+             "encoder_zoo": encoder_zoo}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -10431,6 +10994,7 @@ def main():
     print(json.dumps({"serving_router_tier": serving_router_tier}))
     print(json.dumps({"tabular_zoo": tabular_zoo}))
     print(json.dumps({"vision_zoo": vision_zoo}))
+    print(json.dumps({"encoder_zoo": encoder_zoo}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,7 +7,9 @@ target chunk). Each takes the port model (the JAX package takes a
 trainer and a state); an export's or a checkpoint's flax-named tree,
 float or int8, goes into the model first through
 `api.quantization.load_params`, which dequantizes int8 leaves once, as
-the JAX package dequantizes a quantized state before it decodes.
+the JAX package dequantizes a quantized state before it decodes. Each
+refuses a bidirectional model (a `causal` attribute False, as the bert
+encoder has) with the JAX package's ValueError before it decodes.
 
 Token-selection contract. Greedy (temperature 0) is the argmax of the
 fp32 logits, first index on ties, exactly as in the JAX package.
@@ -131,6 +133,15 @@ def write_dense_rows(caches, rows, slot, n):
             leaf[slot, :, n:] = 0
 
 
+def _require_causal(model, message=None):
+    """flax's refusal of a bidirectional model (the bert encoder:
+    `causal` False) before any decoding."""
+    if not getattr(model, "causal", True):
+        raise ValueError(message or (
+            "model %r is not causal; autoregressive decoding needs a causal "
+            "(left-to-right) model" % type(model).__name__))
+
+
 def _check_lengths(p, max_new_tokens, seq_len):
     total = p + int(max_new_tokens)
     if max_new_tokens < 1 or p < 1 or total > seq_len:
@@ -174,6 +185,7 @@ def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
                          % (tuple(prompt.shape),))
     b, p = prompt.shape
     seq_len = model.seq_len
+    _require_causal(model)
     if not 0.0 < top_p <= 1.0:
         raise ValueError("top_p must be in (0, 1], got %r (use "
                          "temperature=0 for greedy)" % (top_p,))
@@ -240,6 +252,8 @@ def beam_search_generate(model, prompt, max_new_tokens, num_beams=4,
     both return the same tokens, as in the JAX package."""
     prompt = torch.as_tensor(prompt, dtype=torch.long)
     b, p = prompt.shape
+    _require_causal(model, "beam search needs a causal sequence-family "
+                           "model")
     total = _check_lengths(p, max_new_tokens, model.seq_len)
     k = int(num_beams)
     if k < 1 or k > model.vocab_size:
@@ -296,6 +310,8 @@ def speculative_generate(model, draft, prompt, max_new_tokens, gamma=4,
     that never fully accepts, the stats equal the JAX package's."""
     prompt = torch.as_tensor(prompt, dtype=torch.long)
     b, p = prompt.shape
+    for m in (model, draft):
+        _require_causal(m, "speculative decode needs causal models")
     if model.vocab_size != draft.vocab_size:
         raise ValueError("target and draft must share a vocabulary, got "
                          "%r vs %r" % (model.vocab_size, draft.vocab_size))

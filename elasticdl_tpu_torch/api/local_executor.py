@@ -19,6 +19,12 @@ Crash recovery, as in the JAX executor:
 * `fault_injector` (or EDL_FAULT_SPEC) intercepts the dispatch boundary
   (`local_get_task`, `local_report`) for drills.
 
+Data comes through the reader factory
+(data/reader/data_reader_factory.py): TRec record files, or a directory
+of CSV files, whose rows reach dataset_fn as lists of strings;
+`data_reader_params` are the factory's keyword arguments
+(`reader_type`, `sep`, ...), as in the JAX executor.
+
 A spec that declares `host_embeddings()` trains its tables in the
 host-spill tier (embedding/host_bridge.py `attach_from_spec`, native
 stores): every checkpoint carries the engines' state beside the
@@ -37,8 +43,8 @@ from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.fault_injection import FaultInjector
 from elasticdl_tpu_torch.data.dataset import Dataset, pad_batch
-from elasticdl_tpu_torch.data.reader.recordio_reader import (
-    RecordIODataReader,
+from elasticdl_tpu_torch.data.reader.data_reader_factory import (
+    create_data_reader,
 )
 from elasticdl_tpu_torch.embedding.host_bridge import (
     attach_from_spec,
@@ -63,11 +69,12 @@ class LocalExecutor(object):
     def __init__(self, model_spec, training_data=None, validation_data=None,
                  prediction_data=None, minibatch_size=32, num_epochs=1,
                  records_per_task=256, evaluation_steps=0, model_params="",
-                 seed=0, max_steps=None, checkpoint_dir=None,
-                 checkpoint_steps=0, keep_checkpoint_max=0,
-                 checkpoint_dir_for_init=None, grad_accum_steps=1,
-                 trainable_pattern=None, job_state_dir=None,
-                 fault_injector=None, device="cuda", mesh=None):
+                 data_reader_params=None, seed=0, max_steps=None,
+                 checkpoint_dir=None, checkpoint_steps=0,
+                 keep_checkpoint_max=0, checkpoint_dir_for_init=None,
+                 grad_accum_steps=1, trainable_pattern=None,
+                 job_state_dir=None, fault_injector=None, device="cuda",
+                 mesh=None):
         if mesh is not None and (checkpoint_dir or checkpoint_dir_for_init):
             raise NotImplementedError(
                 "LocalExecutor: checkpoints under an sp mesh are not "
@@ -76,6 +83,7 @@ class LocalExecutor(object):
         self.minibatch_size = minibatch_size
         self.num_epochs = num_epochs
         self.records_per_task = records_per_task
+        self._reader_params = data_reader_params or {}
         self.evaluation_steps = evaluation_steps
         self.max_steps = max_steps
         self.training_data = training_data
@@ -103,7 +111,8 @@ class LocalExecutor(object):
                                 if self.host_manager else None))
 
     def _reader(self, data_origin):
-        return RecordIODataReader(data_dir=data_origin)
+        return create_data_reader(data_origin, self.records_per_task,
+                                  **dict(self._reader_params))
 
     def _make_dispatcher(self):
         def shards_of(data):

@@ -47,6 +47,11 @@ to torch's [out, in, kh, kw]), every other leaf (`embedding`, `bias`,
 `scale`, `cross_w_0`, `cin_w_0`) as it is. A BatchNorm's running `mean`
 and `var` (flax's `batch_stats` collection) are the same modules'
 buffers in the same state_dict, so one `load_state_dict` carries both.
+The same rule carries the bert and vit encoders, whose transformer
+Blocks sit under `layer_%d`: a Block's Dense layers (`attn/qkv`,
+`attn/proj`, `mlp_up`, `mlp_down`), LoRA leaves and norms take the
+names `_block_keys` gives a block (`layer_0.ln_1.weight` is
+`layer_0/LayerNorm_1/scale`).
 """
 
 import re
@@ -327,18 +332,42 @@ def deepfm_params_to_flax(state_dict):
     return unflatten_params(flat)
 
 
+# a transformer Block's leaves below `layer_%d` in the bert and vit
+# encoders: port key -> flax path, the names `_block_keys` gives block 0
+_ZOO_BLOCK = re.compile(r"^(layer_\d+)[./](.+)$")
+_BLOCK_TO_FLAX = {tkey[len("blocks.0."):]: fpath[len("block_0/"):]
+                  for fpath, tkey, _t in _block_keys(0)}
+_BLOCK_FROM_FLAX = {f: t for t, f in _BLOCK_TO_FLAX.items()}
+
+
 def zoo_flax_param_path(torch_key):
     """The flax path of a parameter (or BatchNorm buffer) of the
-    tabular, CTR and vision zoo, whose modules carry the flax names: "."
-    becomes "/", a Dense's or Conv's `weight` its `kernel`:
+    tabular, CTR, vision and encoder zoo, whose modules carry the flax
+    names: "." becomes "/", a Dense's or Conv's `weight` its `kernel`,
+    a transformer Block's leaf under `layer_%d` its `_block_keys` name:
     "inner.DNN_0.Dense_1.weight" -> "inner/DNN_0/Dense_1/kernel",
     "thal_embedding.embedding" -> "thal_embedding/embedding",
-    "inner.CIN_0.cin_w_0" -> "inner/CIN_0/cin_w_0"."""
+    "inner.CIN_0.cin_w_0" -> "inner/CIN_0/cin_w_0",
+    "layer_3.ln_0.weight" -> "layer_3/LayerNorm_0/scale"."""
+    block = _ZOO_BLOCK.match(torch_key)
+    if block and block.group(2) in _BLOCK_TO_FLAX:
+        return "%s/%s" % (block.group(1), _BLOCK_TO_FLAX[block.group(2)])
     mod, _, leaf = torch_key.rpartition(".")
     if leaf == "kernel":
         raise KeyError("not a zoo parameter: %r" % (torch_key,))
     leaf = "kernel" if leaf == "weight" else leaf
     return "%s/%s" % (mod.replace(".", "/"), leaf) if mod else leaf
+
+
+def _zoo_torch_key(fkey):
+    """The port key of a zoo leaf's flax path (`zoo_flax_param_path`
+    read backwards)."""
+    block = _ZOO_BLOCK.match(fkey)
+    if block and block.group(2) in _BLOCK_FROM_FLAX:
+        return "%s.%s" % (block.group(1), _BLOCK_FROM_FLAX[block.group(2)])
+    mod, _, leaf = fkey.rpartition("/")
+    tleaf = "weight" if leaf == "kernel" else leaf
+    return ("%s.%s" % (mod.replace("/", "."), tleaf)) if mod else tleaf
 
 
 # a zoo kernel's rank -> the permutation from flax's layout to torch's
@@ -358,26 +387,25 @@ def _zoo_layout(fkey, arr, perms):
 
 
 def zoo_params_from_flax(params, batch_stats=None):
-    """flax params of a tabular, CTR or vision zoo model (nested or
-    flat, numpy-convertible), and its `batch_stats` collection when it
-    has one -> a state_dict of fp32 CPU tensors for its port
-    (`zoo_flax_param_path` read backwards; Dense kernels transposed,
-    Conv kernels permuted; the running averages as the BatchNorm
-    buffers)."""
+    """flax params of a tabular, CTR, vision or encoder zoo model
+    (nested or flat, numpy-convertible), and its `batch_stats`
+    collection when it has one -> a state_dict of fp32 CPU tensors for
+    its port (`zoo_flax_param_path` read backwards; Dense kernels
+    transposed, Conv kernels permuted; the running averages as the
+    BatchNorm buffers)."""
     sd = {}
     for tree, collection in ((params, "params"), (batch_stats or {},
                                                   "batch_stats")):
         flat = flatten_params(tree) if not _is_flat(tree) else dict(tree)
         for fkey, arr in flat.items():
-            mod, _, leaf = fkey.rpartition("/")
+            leaf = fkey.rpartition("/")[2]
             if leaf == "weight" or (leaf in _BATCH_STATS_LEAVES) != (
                     collection == "batch_stats"):
                 raise KeyError("%s the port does not carry: %r"
                                % (collection, fkey))
-            tleaf = "weight" if leaf == "kernel" else leaf
             arr = _zoo_layout(fkey, fp32_array(arr), _ZOO_FROM_FLAX)
-            sd[("%s.%s" % (mod.replace("/", "."), tleaf)) if mod
-               else tleaf] = torch.tensor(np.ascontiguousarray(arr))
+            sd[_zoo_torch_key(fkey)] = torch.tensor(
+                np.ascontiguousarray(arr))
     return sd
 
 

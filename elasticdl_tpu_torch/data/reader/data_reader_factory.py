@@ -1,17 +1,19 @@
 """Reader factory: the port's copy of
-elasticdl_tpu/data/reader/data_reader_factory.py for TRec data.
+elasticdl_tpu/data/reader/data_reader_factory.py for TRec and CSV data.
 
-`create_data_reader` returns a RecordIODataReader for a TRec directory
-(an explicit reader_type="RecordIO", or a directory that is not all
-.csv files). CSV directories and ODPS tables (reader_type "CSV" /
-"ODPS", or MaxCompute credentials in the environment with a table name
-for an origin) raise: those readers are not ported.
+`create_data_reader` returns a CSVDataReader for a directory of .csv
+files (or reader_type="CSV") and a RecordIODataReader for a TRec
+directory (reader_type="RecordIO", or a directory that is not all .csv
+files). ODPS tables (reader_type "ODPS", or MaxCompute credentials in
+the environment with a table name for an origin) raise: that reader is
+not ported.
 """
 
 import os
 
 from elasticdl_tpu_torch.common.constants import ReaderType
 from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
+from elasticdl_tpu_torch.data.reader.csv_reader import CSVDataReader
 from elasticdl_tpu_torch.data.reader.recordio_reader import (
     RecordIODataReader,
 )
@@ -30,7 +32,7 @@ def _odps_env():
 def _not_ported(kind, data_origin):
     raise NotImplementedError(
         "the %s data reader is not ported (origin %r); the port reads TRec "
-        "record files" % (kind, data_origin))
+        "record files and CSV files" % (kind, data_origin))
 
 
 def create_data_reader(data_origin, records_per_task=None, **kwargs):
@@ -45,11 +47,13 @@ def create_data_reader(data_origin, records_per_task=None, **kwargs):
         if data_origin and os.path.isdir(data_origin):
             names = os.listdir(data_origin)
             if names and all(n.endswith(".csv") for n in names):
-                _not_ported("CSV", data_origin)
+                return CSVDataReader(**kwargs)
         return RecordIODataReader(**kwargs)
+    if reader_type == ReaderType.CSV:
+        return CSVDataReader(**kwargs)
     if reader_type == ReaderType.RECORDIO:
         return RecordIODataReader(**kwargs)
-    if reader_type in (ReaderType.CSV, ReaderType.ODPS):
+    if reader_type == ReaderType.ODPS:
         _not_ported(reader_type, data_origin)
     raise ValueError("Unknown reader_type %s" % reader_type)
 

@@ -8,22 +8,17 @@ Shards are one file each, named by path, with (0, record_count);
 import os
 
 from elasticdl_tpu_torch.data import record_format
+from elasticdl_tpu_torch.data.reader.data_reader import (  # noqa: F401
+    AbstractDataReader,
+    Metadata,
+)
 
 
-class Metadata(object):
-    """Dataset metadata handed to a zoo's dataset_fn (column names and
-    dtypes for table-like sources; None for record files)."""
-
-    def __init__(self, column_names=None, column_dtypes=None):
-        self.column_names = column_names
-        self.column_dtypes = column_dtypes
-
-
-class RecordIODataReader(object):
+class RecordIODataReader(AbstractDataReader):
     def __init__(self, data_dir, **kwargs):
         """`kwargs` (records_per_task, ...) are the factory's; a TRec
         reader needs none of them."""
-        del kwargs
+        super().__init__(**kwargs)
         self._data_dir = data_dir
 
     @property

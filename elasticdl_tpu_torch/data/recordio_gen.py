@@ -1,9 +1,10 @@
 """Synthetic record files (TRec) made from a seed: the port's copy of the
 part of elasticdl_tpu/data/recordio_gen.py its tests and chip_smoke.py
 use (frappe for DeepFM; census, heart and Criteo for the tabular and CTR
-zoo; MNIST, CIFAR-10 and ImageNet shapes for the vision zoo). The same
-seed gives the same records, byte for byte, as the JAX package's
-generator."""
+zoo; MNIST, CIFAR-10 and ImageNet shapes for the vision zoo; token
+sequences for transformer_lm and bert, variable-length documents for the
+packed family, iris CSV rows). The same seed gives the same records (the
+same CSV text), byte for byte, as the JAX package's generator."""
 
 import os
 
@@ -177,4 +178,60 @@ def gen_criteo_like(data_dir, num_files=2, records_per_file=128, seed=0):
         return ex
 
     return _generate(data_dir, "criteo", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_iris_csv(data_dir, num_files=2, rows_per_file=64, seed=0):
+    """Iris-style CSV files (a header, then 4 floats and a class label a
+    row), for odps_iris_dnn_model through the CSV reader."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    paths = []
+    for i in range(num_files):
+        path = os.path.join(data_dir, "iris-%04d.csv" % i)
+        with open(path, "w") as f:
+            f.write("sepal_l,sepal_w,petal_l,petal_w,label\n")
+            for _ in range(rows_per_file):
+                vals = rng.rand(4) * 7.0
+                f.write("%.3f,%.3f,%.3f,%.3f,%d\n"
+                        % (*vals, rng.randint(3)))
+        paths.append(path)
+    return paths
+
+
+def gen_tokens_like(data_dir, num_files=2, records_per_file=128, seed=0,
+                    seq_len=33, vocab_size=64):
+    """Token-sequence records (transformer_lm reads seq_len + 1 tokens a
+    record, bert masks seq_len tokens), each carrying its vocab_size."""
+    def example(rng):
+        return {
+            "tokens": rng.randint(
+                0, vocab_size, size=(seq_len,)
+            ).astype(np.int64),
+            "vocab_size": np.array(vocab_size, np.int64),
+        }
+
+    return _generate(data_dir, "tokens", example, num_files,
+                     records_per_file, seed)
+
+
+def gen_docs_like(data_dir, num_files=2, records_per_file=128, seed=0,
+                  vocab_size=64, min_len=4, max_len=48, cyclic=False):
+    """Variable-length documents for the packed family
+    (model_zoo/transformer_lm_packed): one document of min_len..max_len
+    tokens a record; cyclic=True writes next = (tok + 1) % vocab
+    cycles."""
+    def example(rng):
+        n = rng.randint(min_len, max_len + 1)
+        if cyclic:
+            tokens = (rng.randint(0, vocab_size)
+                      + np.arange(n)) % vocab_size
+        else:
+            tokens = rng.randint(0, vocab_size, size=(n,))
+        return {
+            "tokens": tokens.astype(np.int64),
+            "vocab_size": np.array(vocab_size, np.int64),
+        }
+
+    return _generate(data_dir, "docs", example, num_files,
                      records_per_file, seed)

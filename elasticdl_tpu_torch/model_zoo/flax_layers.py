@@ -1,8 +1,8 @@
 """flax's layers for the port's zoo (`nn.Dense`, `nn.Embed`, `nn.Conv`,
-`nn.BatchNorm`, `nn.Dropout`, `nn.max_pool`), named and initialised as
-flax's, so a model's state_dict keys are its flax paths with "." for
-"/" (`Dense_0.weight` is `Dense_0/kernel` transposed, `Conv_0.weight`
-`Conv_0/kernel` permuted, `BatchNorm_0.mean` is
+`nn.BatchNorm`, `nn.LayerNorm`, `nn.Dropout`, `nn.max_pool`), named and
+initialised as flax's, so a model's state_dict keys are its flax paths
+with "." for "/" (`Dense_0.weight` is `Dense_0/kernel` transposed,
+`Conv_0.weight` `Conv_0/kernel` permuted, `BatchNorm_0.mean` is
 `batch_stats/BatchNorm_0/mean`; convert.zoo_params_from_flax carries
 weights over).
 
@@ -23,6 +23,14 @@ weights over).
   batch stat with that same variance; in evaluation it reads the
   running averages. `momentum` and `epsilon` are flax's (0.99 is torch's
   momentum 0.01);
+* `LayerNorm`: flax's nn.LayerNorm(dtype) with `scale` and `bias`,
+  epsilon 1e-6, the statistics and the affine in fp32 and the result in
+  the input's dtype (as the transformer Block's norms run,
+  model_zoo/transformer_lm.py);
+* `init_flax_`: flax's initialisers over a torch module of nn.Linear
+  and nn.LayerNorm layers (the transformer Block inside the bert and vit
+  encoders): lecun-normal kernels, unit scales, zero biases, LoRA A
+  lecun-normal and B zero;
 * `Dropout`: keeps with probability 1 - rate and scales by 1 / (1 -
   rate); in training its mask comes from the generator `dropout_rng`
   opens for one step (the Trainer's, seeded from (seed, step) by
@@ -47,18 +55,60 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
+def lecun_normal_(weight, fan_in, generator=None):
+    """flax's lecun_normal in place: a normal cut at two standard
+    deviations, rescaled to variance 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+
 class Dense(nn.Linear):
     """flax nn.Dense(n_out, use_bias) over n_in inputs."""
 
     def __init__(self, n_in, n_out, use_bias=True, device=None,
                  generator=None):
         super().__init__(n_in, n_out, bias=use_bias, device=device)
-        with torch.no_grad():
-            std = (1.0 / n_in) ** 0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            if use_bias:
+        lecun_normal_(self.weight, n_in, generator)
+        if use_bias:
+            with torch.no_grad():
                 self.bias.zero_()
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm(dtype): see the module docstring."""
+
+    def __init__(self, features, epsilon=1e-6, device=None):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.scale = nn.Parameter(torch.ones(int(features), device=device))
+        self.bias = nn.Parameter(torch.zeros(int(features), device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.scale.shape, self.scale.float(),
+                            self.bias.float(), self.epsilon).to(x.dtype)
+
+
+@torch.no_grad()
+def init_flax_(module, generator=None):
+    """flax's initialisers over every parameter of `module`, in its
+    registration order: a 2-D `weight` (a torch Linear's [out, in])
+    lecun-normal over its second axis, a 1-D `weight` (a LayerNorm's
+    scale) ones, a `bias` and a LoRA `*_lora_b` zeros, a LoRA
+    `*_lora_a` ([in, r]) lecun-normal over its first axis."""
+    for name, p in module.named_parameters():
+        leaf = name.rpartition(".")[2]
+        if leaf.endswith("_lora_a"):
+            lecun_normal_(p, p.shape[0], generator)
+        elif leaf == "weight" and p.dim() == 2:
+            lecun_normal_(p, p.shape[1], generator)
+        elif leaf == "weight" and p.dim() == 1:
+            p.fill_(1.0)
+        elif leaf == "bias" or leaf.endswith("_lora_b"):
+            p.zero_()
+        else:
+            raise ValueError("init_flax_: no flax initialiser for %r" % name)
 
 
 class Embed(nn.Module):
@@ -136,10 +186,7 @@ class Conv(nn.Module):
             (int(features), int(in_features), kh, kw), device=device))
         self.bias = (nn.Parameter(torch.zeros(int(features), device=device))
                      if use_bias else None)
-        with torch.no_grad():
-            std = (1.0 / (kh * kw * in_features)) ** 0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+        lecun_normal_(self.weight, kh * kw * in_features, generator)
 
     def forward(self, x):
         pads = _pads(self.padding, x.shape[2:], self.kernel_size,

@@ -65,6 +65,18 @@ one place qkv and proj are computed (`_split`, `_out`) adds them, so
 every forward takes the adapters: training, prefill, paged and dense
 decode, the verify tile.
 
+`causal` (a `Block` and `CausalSelfAttention` argument, True for this
+model) is the mask the attention takes: False makes the block
+bidirectional, as flax's `Block(causal=False)` is in the bert and vit
+encoders (model_zoo/bert, model_zoo/vit), a window then reaching both
+ways; prefill and decode refuse such a block with flax's ValueErrors.
+`attn_impl` ("auto" | "xla" | "jax_flash") names the flax model's
+attention backend; all three compute the same function here (kernels A,
+C and D on the card, their plain versions on the CPU), and
+"jax_flash" keeps flax's refusals of packed rows and of the ring sp
+scheme. `tp_shard` is accepted as flax's tp annotation is: on one
+device it changes nothing.
+
 `remat` ("" | "full" | "dots") recomputes each block's activations in
 the backward of the training/eval forward (flax `nn.remat` per block),
 never in prefill or decode: "full" saves only the block's input
@@ -152,6 +164,7 @@ def _linear(layer, x):
 
 KV_CACHE_DTYPES = ("", "int8")
 SP_IMPLS = ("ring", "ulysses")
+ATTN_IMPLS = ("auto", "xla", "jax_flash")
 REMAT_MODES = ("", "full", "dots")
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -203,11 +216,23 @@ def _dequantize(q8, scale, dtype):
     return (q8.float() * scale).to(dtype)
 
 
+def check_attn_impl(attn_impl):
+    """flax's check of the `attn_impl` argument."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(
+            "Unknown attn_impl %r (valid: 'auto', 'xla', 'jax_flash')"
+            % (attn_impl,))
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
                  use_rope=False, kv_cache_dtype="", window=0, sp_impl="ring",
-                 lora_rank=0, lora_alpha=16.0, device=None):
+                 lora_rank=0, lora_alpha=16.0, causal=True, attn_impl="auto",
+                 device=None):
         super().__init__()
+        check_attn_impl(attn_impl)
+        self.causal = bool(causal)
+        self.attn_impl = attn_impl
         self.kv_int8 = kv_cache_dtype == "int8"
         self.window = int(window) or None
         self.sp_impl = sp_impl
@@ -259,15 +284,21 @@ class CausalSelfAttention(nn.Module):
         out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
         return self._dense("proj", out)
 
+    def _require_causal(self, what):
+        if not self.causal:
+            raise ValueError("%s requires a causal model" % what)
+
     def forward(self, x, positions, prefill=False, segments=None):
-        """Causal attention over x [b, l, e]; positions [l], or [b, l]
-        for packed rows, whose `segments` [b, l] confine it to each run.
-        Returns (y, rows): rows (k, v) [b, hkv, l, d] (rotated when
-        RoPE), or, for an int8 cache's `prefill`, (k8, v8, k_scale,
-        v_scale) with the attention over their dequantized values.
-        Under an sp mesh, x and segments are this rank's sequence shard
-        and attention runs over the whole sequence through ring
-        attention or Ulysses."""
+        """Attention over x [b, l, e], causal unless the layer is not;
+        positions [l], or [b, l] for packed rows, whose `segments` [b, l]
+        confine it to each run. Returns (y, rows): rows (k, v) [b, hkv,
+        l, d] (rotated when RoPE), or, for an int8 cache's `prefill`,
+        (k8, v8, k_scale, v_scale) with the attention over their
+        dequantized values. Under an sp mesh, x and segments are this
+        rank's sequence shard and attention runs over the whole sequence
+        through ring attention or Ulysses."""
+        if prefill:
+            self._require_causal("prefill")
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
@@ -278,9 +309,18 @@ class CausalSelfAttention(nn.Module):
             k, v = _dequantize(k8, ks, q.dtype), _dequantize(v8, vs, q.dtype)
         mesh = _sp_mesh()
         if mesh is None:
-            out = flash_attention(q, k, v, causal=True, window=self.window,
-                                  segments=segments)
+            if self.attn_impl == "jax_flash" and segments is not None:
+                raise ValueError(
+                    "attn_impl='jax_flash' does not support packed-sequence "
+                    "masking; use attn_impl='auto' or 'xla'")
+            out = flash_attention(q, k, v, causal=self.causal,
+                                  window=self.window, segments=segments)
             return self._out(out, x), rows
+        if self.attn_impl == "jax_flash" and self.sp_impl == "ring":
+            raise ValueError(
+                "attn_impl='jax_flash' is incompatible with sp_impl='ring' "
+                "(no logsumexp output); use sp_impl='ulysses' or "
+                "attn_impl='auto'")
         if prefill:
             raise NotImplementedError(
                 "prefill is single-shard (like decode); drop the sp axis "
@@ -290,8 +330,8 @@ class CausalSelfAttention(nn.Module):
         k, v = expand_kv(k, self.num_heads), expand_kv(v, self.num_heads)
         sp_attention = (ulysses_attention_local if self.sp_impl == "ulysses"
                         else ring_attention_local)
-        out = sp_attention(q, k, v, mesh, causal=True, segments=segments,
-                           window=self.window)
+        out = sp_attention(q, k, v, mesh, causal=self.causal,
+                           segments=segments, window=self.window)
         return self._out(out, x), rows
 
     def decode_paged(self, x, positions, pool, table):
@@ -299,6 +339,7 @@ class CausalSelfAttention(nn.Module):
         arenas `pool` through `table` [b, m]: (k_pool, v_pool), or for an
         int8 cache (k_pool, v_pool, k_scale_pool, v_scale_pool). Returns
         (y, the tile's rows in the pool's format)."""
+        self._require_causal("decode mode")
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
@@ -329,6 +370,7 @@ class CausalSelfAttention(nn.Module):
         window) among the first `span` (None: all) rows. The int8
         dequantize folds into the scores and the weights (flax
         `_decode_step`, :443-460). Returns y [b, t, e]."""
+        self._require_causal("decode mode")
         q, k, v = self._split(x)
         if self.use_rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
@@ -369,14 +411,15 @@ class CausalSelfAttention(nn.Module):
 class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, head_dim, num_kv_heads=0,
                  use_rope=False, kv_cache_dtype="", window=0, sp_impl="ring",
-                 lora_rank=0, lora_alpha=16.0, device=None):
+                 lora_rank=0, lora_alpha=16.0, causal=True, attn_impl="auto",
+                 device=None):
         super().__init__()
         self.ln_0 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(
             embed_dim, num_heads, head_dim, num_kv_heads=num_kv_heads,
             use_rope=use_rope, kv_cache_dtype=kv_cache_dtype, window=window,
             sp_impl=sp_impl, lora_rank=lora_rank, lora_alpha=lora_alpha,
-            device=device,
+            causal=causal, attn_impl=attn_impl, device=device,
         )
         self.ln_1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.mlp_up = nn.Linear(embed_dim, 4 * embed_dim, device=device)
@@ -402,13 +445,46 @@ class Block(nn.Module):
         return self._mlp(x + y)
 
 
+# the ROADMAP item that bert and vit under a tp or sp mesh wait for
+MESH_ITEM = "ROADMAP Queue 1 item 7"
+
+
+def refuse_mesh(family):
+    """The bidirectional encoders (bert, vit) run on one device: under a
+    mesh they raise."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "%s under a mesh (tp or sp) is not ported (%s)"
+            % (family, MESH_ITEM))
+
+
+def encoder_blocks(module, embed_dim, num_heads, num_layers, window=0,
+                   lora_rank=0, lora_alpha=16.0, attn_impl="auto",
+                   device=None):
+    """`num_layers` bidirectional Blocks added to `module` as
+    `layer_%d`, flax's names in the bert and vit encoders; head_dim is
+    embed_dim // num_heads, as flax's."""
+    blocks = []
+    for i in range(num_layers):
+        blk = Block(embed_dim, num_heads, embed_dim // num_heads,
+                    window=window, lora_rank=lora_rank,
+                    lora_alpha=lora_alpha, causal=False,
+                    attn_impl=attn_impl, device=device)
+        module.add_module("layer_%d" % i, blk)
+        blocks.append(blk)
+    return blocks
+
+
 class TransformerLM(nn.Module):
     def __init__(self, vocab_size=256, seq_len=128, embed_dim=128,
                  num_heads=4, num_layers=2, dtype=None, pos_emb="learned",
                  num_kv_heads=0, attn_window=0, fused_head=False, remat="",
                  lora_rank=0, lora_alpha=16.0, kv_cache_dtype="",
-                 sp_impl="ring", device="cuda", seed=0):
+                 sp_impl="ring", attn_impl="auto", tp_shard=True,
+                 device="cuda", seed=0):
         super().__init__()
+        check_attn_impl(attn_impl)
         if sp_impl not in SP_IMPLS:
             raise ValueError(
                 "Unknown sp_impl %r (valid: 'ring', 'ulysses')" % (sp_impl,))
@@ -447,6 +523,8 @@ class TransformerLM(nn.Module):
         self.remat = remat
         self.lora_rank = int(lora_rank)
         self.lora_alpha = float(lora_alpha)
+        self.attn_impl = attn_impl
+        self.tp_shard = bool(tp_shard)
         self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
         self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
                     if pos_emb == "learned" else None)
@@ -455,7 +533,8 @@ class TransformerLM(nn.Module):
                   num_kv_heads=num_kv_heads, use_rope=pos_emb == "rope",
                   kv_cache_dtype=kv_cache_dtype, window=self.attn_window,
                   sp_impl=sp_impl, lora_rank=self.lora_rank,
-                  lora_alpha=self.lora_alpha, device=device)
+                  lora_alpha=self.lora_alpha, attn_impl=attn_impl,
+                  device=device)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)

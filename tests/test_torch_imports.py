@@ -159,7 +159,13 @@ def test_port_modules_import_no_jax_package():
                      "elasticdl_tpu_torch.model_zoo.resnet50_subclass."
                      "resnet50_subclass",
                      "elasticdl_tpu_torch.model_zoo.imagenet_resnet50."
-                     "imagenet_resnet50"):
+                     "imagenet_resnet50",
+                     "elasticdl_tpu_torch.model_zoo.bert.bert",
+                     "elasticdl_tpu_torch.model_zoo.vit.vit",
+                     "elasticdl_tpu_torch.model_zoo.odps_iris_dnn_model."
+                     "odps_iris_dnn_model",
+                     "elasticdl_tpu_torch.data.reader.data_reader",
+                     "elasticdl_tpu_torch.data.reader.csv_reader"):
         assert required in modules, required
     script = (
         "import importlib.util, json, sys\n"

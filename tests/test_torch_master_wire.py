@@ -416,10 +416,17 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     csv_dir = tmp_path / "csv"
     csv_dir.mkdir()
     (csv_dir / "a.csv").write_text("x\n1\n")
-    for origin, kw in ((str(csv_dir), {}), (str(tmp_path), {
-            "reader_type": "ODPS"}), (str(tmp_path), {"reader_type": "CSV"})):
-        with pytest.raises(NotImplementedError):
-            f.create_data_reader(origin, 8, **kw)
+    with pytest.raises(NotImplementedError):
+        f.create_data_reader(str(tmp_path), 8, reader_type="ODPS")
+    # the CSV reader is ported: a .csv directory and reader_type="CSV"
+    # both build it, as the JAX factory does
+    from elasticdl_tpu_torch.data.reader.csv_reader import CSVDataReader
+
+    for origin, kw in ((str(csv_dir), {}), (str(csv_dir), {
+            "reader_type": "CSV"})):
+        reader = f.create_data_reader(origin, 8, **kw)
+        assert isinstance(reader, CSVDataReader)
+        assert reader.create_shards() == {str(csv_dir / "a.csv"): (0, 1)}
     with pytest.raises(ValueError):
         f.create_data_reader(str(tmp_path), 8, reader_type="Parquet")
     reader = f.build_data_reader(str(tmp_path), 8, "reader_type='RecordIO'")
