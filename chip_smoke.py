@@ -10,11 +10,13 @@ repository checkout it sits in. Phases, each of which fails the run:
    paths from elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu,
    paged_decode.cu, embedding_gather.cu, row_update.cu,
    optimizer_update.cu; one nvcc per source or part, all at once,
-   flash_fwd.cu as five parts and flash_bwd.cu as nine, each linked into
+   flash_fwd.cu as five parts and flash_bwd.cu as eleven, each linked into
    one library; the host tier's store, host_embedding.cc, with the host
    C++ compiler beside them), and print each flash_fwd and flash_bwd instance's
    registers, spills and shared memory from ptxas's report (no
-   tensor-core or backward instance may spill);
+   tensor-core or backward instance may spill); the fp32 backward
+   instances' SASS (cuobjdump) must hold no tensor-core product and no
+   16-bit or TF32 conversion;
 3. kernel A (flash forward) against its plain PyTorch version at the
    prefill shapes, the bf16 kernel against the plain version that
    scales q in bf16 and rounds P to bf16 as it and the TPU kernel do
@@ -42,7 +44,10 @@ repository checkout it sits in. Phases, each of which fails the run:
    training shape in phase 13); then FlashAttentionFunction's
    gradients on the card against the plain versions on the CPU, fp32;
    then a probe of P's bf16 rounding (dO = I), rectangular lq != lk, a
-   misaligned q view, and two launches equal bit for bit;
+   misaligned q view, and two launches equal bit for bit; then the fp32
+   kernels at ViT-Base's width (b 64, h 12, d 64, not causal): l 197
+   against their plain versions at BWD_TOL_REL, and two launches at the
+   path's l 256 equal bit for bit (check_vit_bwd);
 6. kernels E and F: E (embedding gather) against its plain version, exactly:
    dims 32 / 64 / 13, fp32 and bf16, ids [4096] and [512, 26] with
    repeats, -1 and ids past the table; F (row updates), each of
@@ -1533,11 +1538,12 @@ def _mask_flags(entry):
 def flash_bwd_build_report(log):
     """csrc/flash_bwd.cu's kernel instances from ptxas's report in its
     build log: {"<kernel> d<D> <output dtype>": {"registers": {mask
-    instance ("CWSO" flags: causal, window, segments, offset, or "-" for
-    the fp32 kernels' runtime masks): registers}, "spill_bytes": spill
+    instance ("CWSO" flags of a bf16 instance: causal, window, segments,
+    offset; "none" or "general" for the fp32 kernels, the general one
+    taking its masks as runtime flags): registers}, "spill_bytes": spill
     stores and loads summed over the instances, "smem_bytes": a block's
-    dynamic shared memory, "blocks_per_sm": what the most registers and
-    the shared memory let one SM hold}}."""
+    dynamic shared memory, "threads": a block's, "blocks_per_sm": what
+    the most registers and the shared memory let one SM hold}}."""
     lib = att._bwd_lib()
 
     def group_of(entry):
@@ -1546,15 +1552,81 @@ def flash_bwd_build_report(log):
         dkv = "flash_bwd_dkv" in entry
         tc = "_tcI" in entry
         d = int(re.search(r"Li(64|128)E", entry).group(1))
-        out = ("fp32 in and out" if not tc else
-               "bf16 in, fp32 out" if "_tcIf" in entry else "bf16")
+        if tc:
+            out = "bf16 in, fp32 out" if "_tcIf" in entry else "bf16"
+            instance = _mask_flags(entry)
+        else:
+            out = "fp32 in and out"
+            instance = ("general" if re.search(r"Li(?:64|128)ELb1E", entry)
+                        else "none")
         key = "%s%s d%d %s" % ("flash_bwd_dkv" if dkv else "flash_bwd_dq",
-                               "_tc" if tc else "", d, out)
-        return (key, _mask_flags(entry) or "-",
+                               "_tc" if tc else "_f32", d, out)
+        return (key, instance,
                 lib.edl_flash_bwd_smem_bytes(int(dkv), int(tc), d),
-                128 if tc else 256)
+                128 if tc else 2 * d)
 
     return _build_groups(ptxas_entries(log), group_of)
+
+
+# opcodes a fp32 backward instance must not hold: tensor-core products
+# and conversions to or from a 16-bit or TF32 format
+F32_BWD_FORBIDDEN = re.compile(r"^(?:[HID]G?MMA|F2F|.*BF16|.*TF32)")
+
+
+def start_sass(lib_path):
+    """(process, output file) of cuobjdump (the toolkit's, beside nvcc)
+    disassembling a library in the background into a temporary file: it
+    takes ~20 s for flash_bwd's; flash_bwd_f32_sass reads it."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    out = tempfile.TemporaryFile(mode="w+")
+    return subprocess.Popen([cuobjdump, "-sass", lib_path], stdout=out,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def flash_bwd_f32_sass(started):
+    """The fp32 backward kernels as compiled, from start_sass's process
+    over the flash_bwd library: per instance {"instructions",
+    "ffma_share", "lds128"}; fails if an instance holds an opcode of
+    F32_BWD_FORBIDDEN, so they stay exact fp32 FMAs."""
+    proc, out = started
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with out:
+        out.seek(0)
+        sass = out.read()
+    check(proc.returncode == 0, "cuobjdump failed: %s" % sass[-2000:])
+    ops, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"flash_bwd_(dq|dkv)_f32ILi(\d+)ELb(\d)E",
+                          m.group(1))
+            name = ("flash_bwd_%s_f32 d%s %s" % (
+                k.group(1), k.group(2), "general" if k.group(3) == "1"
+                else "none")) if k else None
+            if name:
+                ops[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_.]*)?)", line)
+        if name and m:
+            ops[name].append(m.group(1))
+    check(len(ops) == 8, "cuobjdump shows %d fp32 backward instances, not 8"
+          % len(ops))
+    report = {}
+    for name, seq in ops.items():
+        bad = sorted({op for op in seq if F32_BWD_FORBIDDEN.match(op)})
+        check(not bad, "%s holds %s" % (name, bad))
+        report[name] = {
+            "instructions": len(seq),
+            "ffma_share": sum(op == "FFMA" for op in seq) / len(seq),
+            "lds128": sum(op == "LDS.128" for op in seq)}
+    return report
 
 
 def flash_fwd_build_report(log):
@@ -1669,6 +1741,70 @@ def check_bwd_rounding(gen):
     summary["deterministic"] = True
     log("flash bwd rounding probe and rectangular cases: %s" % summary)
     return summary
+
+
+# ViT-B/16 at 224 px: 196 patches and the class token, 3 x 64 + 5 rows,
+# ragged against every tile of C and D (ViT-Base's width otherwise:
+# ENC_KERNEL_SHAPES["vit"])
+VIT_RAGGED_L = 197
+VIT_BWD_SEED = 14
+
+
+def check_vit_bwd(gen):
+    """The fp32 kernels C and D at ViT-Base's width (ENC_KERNEL_SHAPES
+    ["vit"]: b 64, h 12, d 64, not causal): (1) at l VIT_RAGGED_L
+    against their plain versions at BWD_TOL_REL (max |err| / max |ref|
+    of each output); (2) at the path's l, a second launch of each on the
+    same inputs (D on the first launch's delta) equal bit for bit: dq,
+    delta, dk, dv. Returns {"ragged": ..., "repeat_bit_equal": ...}."""
+    b, h, path_l, d, dtype = ENC_KERNEL_SHAPES["vit"]
+    out = {}
+    for l in (VIT_RAGGED_L, path_l):
+        q, k, v = flash_inputs(gen, b, h, h, l, d, dtype)
+        do = flash_inputs(gen, b, h, h, l, d, dtype)[0]
+        o, lse = att.flash_forward(q, k, v, causal=False)
+        dq, delta = att.flash_backward_dq(q, k, v, o, lse, do, causal=False)
+        dk, dv = att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                        causal=False)
+        torch.cuda.synchronize()
+        if l == VIT_RAGGED_L:
+            pdq, pdelta = att.flash_backward_dq_plain(q, k, v, o, lse, do,
+                                                      causal=False)
+            pdk, pdv = att.flash_backward_dkv_plain(q, k, v, do, lse, pdelta,
+                                                    causal=False)
+            errs = {}
+            for name, pairs in (
+                    ("flash_bwd_dq", ((dq, pdq), (delta, pdelta))),
+                    ("flash_bwd_dkv", ((dk, pdk), (dv, pdv)))):
+                check(all(torch.isfinite(a).all().item() for a, _r in pairs),
+                      "%s: non-finite output at vit's width, l %d"
+                      % (name, l))
+                rel = max(rel_err(a, r) for a, r in pairs)
+                check(rel <= BWD_TOL_REL[dtype],
+                      "%s disagrees with its plain version at vit's width, "
+                      "l %d: rel err %.3g" % (name, l, rel))
+                errs[name] = {"max_rel_err": rel, "max_abs_err": max(
+                    (a - r).abs().max().item() for a, r in pairs)}
+            out["ragged"] = {"l": l, "limit_rel": BWD_TOL_REL[dtype],
+                             "errors": errs}
+            del pdq, pdelta, pdk, pdv
+        else:
+            dq2, delta2 = att.flash_backward_dq(q, k, v, o, lse, do,
+                                                causal=False)
+            dk2, dv2 = att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                              causal=False)
+            torch.cuda.synchronize()
+            equal = {name: torch.equal(a, a2) for name, a, a2 in (
+                ("dq", dq, dq2), ("delta", delta, delta2), ("dk", dk, dk2),
+                ("dv", dv, dv2))}
+            check(all(equal.values()), "C and D at vit's path shape differ "
+                  "between two launches: %s" % equal)
+            out["repeat_bit_equal"] = dict(equal, l=l)
+            del dq2, delta2, dk2, dv2
+        del q, k, v, do, o, lse, dq, delta, dk, dv
+    torch.cuda.empty_cache()
+    log("vit's fp32 C and D: %s" % json.dumps(out))
+    return out
 
 
 def check_autograd(gen):
@@ -10555,7 +10691,7 @@ def main():
     # PR 1, whose d 64 instance ptxas gives a 16-byte spill
     for source, reporter, n_groups, n_instances, held in (
             ("flash_fwd", flash_fwd_build_report, 4, 36, "_tc"),
-            ("flash_bwd", flash_bwd_build_report, 12, 132, "")):
+            ("flash_bwd", flash_bwd_build_report, 12, 136, "")):
         if not report[source]["log"]:
             log("%s was built before this run: no ptxas report" % source)
             continue
@@ -10573,6 +10709,8 @@ def main():
         check(not any(g["spill_bytes"] for name, g in groups.items()
                       if held in name),
               "%s's kernels spill registers" % source)
+    # the fp32 backward instances' SASS, read after the kernel checks
+    bwd_sass = start_sass(_build.library_path("flash_bwd"))
     gen = torch.Generator().manual_seed(0)
     rng = np.random.RandomState(0)
     # the packed and windowed phases draw from their own generators, so
@@ -10595,6 +10733,8 @@ def main():
     # the rounding probe draws from its own generator, so every later
     # phase sees the data it saw before it was added
     bwd_rounding = check_bwd_rounding(torch.Generator().manual_seed(7))
+    # and so does the fp32 check at vit's width
+    vit_bwd = check_vit_bwd(torch.Generator().manual_seed(VIT_BWD_SEED))
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
     # the grouped sweep draws from its own generator, so every later
@@ -10609,6 +10749,9 @@ def main():
     gen_sp = torch.Generator().manual_seed(6)
     offset_err, offset_path_err, offset_inputs = check_offset_flash(gen_sp)
     ring_rotations = check_ring_rotations(gen_sp)
+    builds["flash_bwd_f32_sass"] = flash_bwd_f32_sass(bwd_sass)
+    log("fp32 backward instances' SASS (no tensor-core product, no 16-bit "
+        "or TF32 conversion): %s" % json.dumps(builds["flash_bwd_f32_sass"]))
     laps.to("serving")
     specs = serving_specs(rng)
     bf16_streams = []
@@ -10682,6 +10825,7 @@ def main():
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
     training["flash_fwd_build"] = builds.get("flash_fwd", {})
     training["flash_bwd_build"] = builds.get("flash_bwd", {})
+    training["flash_bwd_f32_sass"] = builds["flash_bwd_f32_sass"]
     training["flash_fwd_instances"] = fwd_instances
     training["flash_fwd_rounding"] = fwd_rounding
     training["flash_bwd_rounding"] = bwd_rounding
@@ -10941,6 +11085,12 @@ def main():
                     tabular_zoo["embedding_column"]["rows"], TAB_EMB_DIM))
     # A, C and D at phase 33's path shapes (bert, vit: d 64, not causal)
     kernels += time_encoder_kernels(enc_launches)
+    for entry in kernels:
+        if entry["name"] in ("flash_bwd_dq_vit", "flash_bwd_dkv_vit"):
+            entry["ragged_check"] = dict(
+                vit_bwd["ragged"]["errors"][entry["name"][:-len("_vit")]],
+                l=VIT_RAGGED_L, limit_rel=vit_bwd["ragged"]["limit_rel"])
+            entry["repeat_bit_equal"] = vit_bwd["repeat_bit_equal"]
     # phase 32's launches: none of the port's kernels runs on the vision
     # zoo's path (conv, BatchNorm and pooling are cuDNN / aten calls)
     for entry in kernels:

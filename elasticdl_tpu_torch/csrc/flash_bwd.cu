@@ -30,17 +30,19 @@
 // second products (dV = P^T dO, dQ = dS K, dK = dS^T Q), as the TPU
 // kernels' _mxu_cast (:927) does when the other operand is bf16; S, dP,
 // delta and the three accumulators stay fp32. fp32 inputs are not
-// rounded (_mxu_cast leaves them), so they keep the scalar fp32 kernels
-// below: bf16 tensor cores would miss the fp32 limit of 1e-4, and no
-// training path runs fp32 attention (tests, oracle checks and small fp32
-// runs do). The entry points pick the kernels by dtype, never by a
-// failed launch.
+// rounded (_mxu_cast leaves them), so they take the fp32 kernels below,
+// on exact fp32 FMAs: bf16 or TF32 tensor cores would miss the fp32
+// limit of 1e-4. ViT-Base trains in fp32 and runs them 12 times a step
+// each (d = 64, not causal). The entry points pick the kernels by dtype,
+// never by a failed launch.
 //
 // What bounds them on the H100: at the training shapes (b = 8, h = 8,
 // l = 1024, d = 128, causal) the dq pass does 6 * d operations per
 // visible (query, key) pair and the dk/dv pass 8 * d, against a few
 // bytes per row moved, so both are bound by operations: by the tensor
-// cores' bf16 rate.
+// cores' bf16 rate for bf16, by the fp32 FMA rate of the CUDA cores
+// (67 TFLOP/s) for fp32 (ViT-Base's b = 64, h = 12, l = 256, d = 64 as
+// well).
 //
 // Design of the bf16 kernels (flash_bwd_dq_tc, flash_bwd_dkv_tc): one
 // warpgroup (128 threads) per block and 64 x 64 tiles; every product is
@@ -89,12 +91,56 @@
 // (3 for dk/dv at d = 64), 8 warps, bound by registers and, at d = 128,
 // by shared memory as well.
 //
-// Design of the fp32 kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
-// 64 x 64 tiles and 256 threads in a 16 x 16 grid; a thread owns a 4 x 4
-// block of a score tile and a 4 x D/16 block of an output tile in
-// registers; scalar fp32 FMAs out of padded fp32 shared-memory tiles;
-// the masks are runtime arguments. They need ~146 KB (dq) and ~162 KB
-// (dk/dv) of shared memory at d = 128.
+// Design of the fp32 kernels (flash_bwd_dq_f32, flash_bwd_dkv_f32): the
+// same two passes, grids, walks, ring and tile skips as the bf16 kernels,
+// on exact fp32 FMAs (FFMA), so bound by operations: the CUDA cores'
+// fp32 rate. What keeps a product from it is shared memory: an SM
+// returns about 128 bytes of it to registers a clock (one warp-wide
+// 4-byte load, a quarter of a 16-byte one, broadcast or not) against 128
+// FMA lanes, so a thread's a x b block of a product, which loads a + b
+// values for a * b FMAs a depth step, runs at most at ab / (a + b) / 4 of
+// the FMA rate. The design raises that ratio and wastes no load:
+//   * 2 * d threads a block (4 warps at d = 64, 8 at d = 128) over 64
+//     own rows (q rows in dq, keys in dk/dv) and SN = 64 streamed rows a
+//     step (keys, q rows). A thread holds an 8 x SC block of S and of dP
+//     (SC = 4 at d = 64: ratio 2.67; 2 at d = 128) and an 8 x 4 block of
+//     each output accumulator (dQ, or dV and dK; ratio 2.67). Warp w owns
+//     rows 32 (w % 2) .. + 31, lane l rows 8 (l / 8) .. + 7, score
+//     columns 8 SC (w / 2) + SC (l % 8) and features 32 (w / 2) +
+//     4 (l % 8).
+//   * Every operand is read as 16-byte float4 loads along the reduction
+//     dimension, which is contiguous in every tile (P and dS are stored
+//     transposed for dk/dv), so a load is one instruction for 4 values.
+//   * Shared tiles are swizzled, not padded: the 16-byte chunk c of row r
+//     lies at c ^ swz(r) (swz<SC>), so the rows a warp reads at once
+//     (8 lr + i over lr; SC lc + j over lc) and the chunks of one row
+//     (the features of the dQ, dV, dK products) fall into different
+//     banks. Each thread keeps the swizzled offsets of its rows in
+//     registers (Lanes), so a load costs no address arithmetic.
+//   * Operand tiles are copied with cp.async into a ring of two stages,
+//     so the next step's copy runs under the current step's products:
+//     K and V in dq, Q and dO in dk/dv.
+//   * S and dP are two products one after the other (their registers
+//     then hold P and dS), which leaves ptxas registers for its load
+//     pipelining without spilling; eight depth chunks are unrolled and
+//     the rest is a loop, so a kernel's loop stays within the instruction
+//     cache (unrolled fully, d = 128's dk/dv ran 21% slower).
+//   * P and dS go through shared memory once a step, as 16-byte (8-byte
+//     at d = 128) stores into a swizzled [64][SN] tile, since the second
+//     products reduce over the streamed rows that other threads hold. In
+//     dk/dv one tile carries P^T for dV += P^T dO, then dS^T for dK +=
+//     dS^T Q, and each step's lse and delta are read from global memory
+//     into registers, so that two blocks fit an SM at d = 64; dq passes
+//     its rows' lse and delta through the dS tile once, into registers.
+//   * The masks are a template parameter: an instance with no mask code
+//     (runtime flags all off: ViT's path) and a general one whose
+//     per-element test runs only on the tiles at a mask edge. Both test
+//     the ragged key edge of the dq pass.
+// Shared memory a block: 115,200 (dq) and 114,688 (dk/dv) bytes at d =
+// 64, two blocks of 4 warps an SM; 213,504 and 212,992 at d = 128, one
+// block of 8 warps. chip_smoke.py prints the instances' registers and
+// checks their SASS for tensor-core products and 16-bit or TF32
+// conversions (there are none).
 //
 // Both designs skip fully masked tiles (never loaded), as _block_run
 // skips them: the dq pass walks the key tiles of the forward's window
@@ -109,12 +155,12 @@
 // and writes zeros. No tile is skipped for segments. Every launch raises
 // the dynamic shared-memory limit first and returns cudaGetLastError.
 //
-// Build: this file is compiled as nine objects, one nvcc each, linked
+// Build: this file is compiled as eleven objects, one nvcc each, linked
 // into one library (ops/_build.py, PARTS): EDL_PART 0 holds the entry
-// points and the fp32 kernels, parts 1-8 the 16 mask instances of one
-// (pass, head dim, output dtype) of the bf16 kernels each. The tile
-// loads, wgmma products and mask tests are flash_tc.cuh's, shared with
-// the forward (flash_fwd.cu).
+// points, parts 1-8 the 16 mask instances of one (pass, head dim, output
+// dtype) of the bf16 kernels each, parts 9 and 10 the fp32 dq and dk/dv
+// instances. The tile loads, wgmma products and mask tests are
+// flash_tc.cuh's, shared with the forward (flash_fwd.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +174,7 @@
 #define EDL_PART 0
 #endif
 
-// What the entry points pass to the bf16 kernels' launchers.
+// What the entry points pass to the parts' launchers.
 namespace edl_bwd {
 
 struct Args {
@@ -141,7 +187,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The launcher of one (pass, head dim, output dtype), defined by its
+// The launcher of one bf16 (pass, head dim, output dtype), defined by its
 // part; it picks the mask instance from the runtime flags.
 template <bool DKV, int D, bool F32>
 int launch_part(const Args& a);
@@ -154,6 +200,29 @@ template <> int launch_part<true, 64, true>(const Args&);
 template <> int launch_part<true, 128, false>(const Args&);
 template <> int launch_part<true, 128, true>(const Args&);
 
+// The launcher of one fp32 (pass, head dim): parts 9 (dq) and 10 (dk/dv).
+template <bool DKV, int D>
+int launch_f32(const Args& a);
+template <> int launch_f32<false, 64>(const Args&);
+template <> int launch_f32<false, 128>(const Args&);
+template <> int launch_f32<true, 64>(const Args&);
+template <> int launch_f32<true, 128>(const Args&);
+
+// The fp32 kernels' block: 2 * D threads, SN = D / 2 streamed rows a
+// step, and their dynamic shared memory in bytes. dq: Q and dO [64][D],
+// a ring of two stages of K and V [SN][D], dS [64][SN], the rows' lse,
+// delta and segment ids [64], the keys' segment ids [2][SN]. dk/dv: K and
+// V [64][D], a ring of two stages of Q and dO [SN][D], P^T and dS^T
+// [64][SN], the q rows' lse, delta and segment ids [2][SN], the keys'
+// segment ids [64].
+template <int D>
+struct F32Shape {
+  static constexpr int NT = 2 * D, SN = 64, SC = 256 / D;
+  static constexpr size_t dq_smem =
+      4 * (2 * 64 * D + 4 * SN * D + 64 * SN + 2 * SN);
+  static constexpr size_t dkv_smem = 4 * (2 * 64 * D + 4 * SN * D + 64 * SN);
+};
+
 }  // namespace edl_bwd
 
 namespace {
@@ -162,7 +231,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // A row's lse in the exp2 domain, as the kernels subtract it; a sentinel
 // of either sign (|lse| >= 0.5e30) becomes +1e30, so P = exp2(s - it) = 0.
-__device__ __forceinline__ float lse_log2(float lse) {
+[[maybe_unused]] __device__ __forceinline__ float lse_log2(float lse) {
   return fabsf(lse) >= 5e29f ? 1e30f : lse * LOG2E;
 }
 
@@ -181,422 +250,37 @@ using edl_tc::set_smem;
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The fp32 kernels and the entry points: part 0.
+// The entry points: part 0.
 #if EDL_PART == 0
-namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // qs, dos, ks, vs: [64][D+1]; ds: [64][BK+1]; row lse, delta
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // ks, vs, qs, dos: [64][D+1]; ps, dss: [BQ][BK+1]; row lse, delta
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
-}
-
-// Stage rows [r0, r0 + 64) of a [rows, D] matrix as fp32 into a padded
-// [64][D+1] shared tile, times `mul`; rows past `rows` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int rows, float mul) {
-  constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, e = i % D;
-    dst[r * DP + e] =
-        (r0 + r < rows) ? to_f(src[(size_t)(r0 + r) * D + e]) * mul : 0.f;
-  }
-}
-
-// Whether query position qp sees key position kp under the window and
-// segment masks (the causal and ragged-edge tests are the caller's).
-__device__ __forceinline__ bool in_window(int qp, int kp, int causal,
-                                          int window) {
-  return window <= 0 || (qp - kp < window && (causal || kp - qp < window));
-}
-
-template <typename T, typename TO, int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse, TO* __restrict__ dq,
-                        float* __restrict__ delta,
-                        const int* __restrict__ q_seg,
-                        const int* __restrict__ k_seg, int h, int hkv, int lq,
-                        int lk, float scale, int causal, int window,
-                        int pos_offset) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DP = D + 1;  // padded row stride: no bank conflicts
-  constexpr int SP = BK + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + BQ * DP;
-  float* ks = dos + BQ * DP;
-  float* vs = ks + BK * DP;
-  float* ds = vs + BK * DP;
-  float* row_lse = ds + BQ * SP;  // lse * log2e
-  float* row_delta = row_lse + BQ;
-  __shared__ int qs_seg[BQ], ks_seg[BK];
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int kvh = (bh % h) / (h / hkv);
-  const size_t q_off = (size_t)bh * lq * D;
-  const bool segs = q_seg != nullptr;
-  if (segs && tid < BQ)
-    qs_seg[tid] = q0 + tid < lq ? q_seg[(size_t)b * lq + q0 + tid] : -1;
-  const T* kb = k + (size_t)(b * hkv + kvh) * lk * D;
-  const T* vb = v + (size_t)(b * hkv + kvh) * lk * D;
-
-  stage<T, D>(qs, q + q_off, q0, lq, scale * LOG2E);
-  stage<T, D>(dos, dout + q_off, q0, lq, 1.f);
-  __syncthreads();
-  {  // delta = rowsum(dO * O): four neighbouring lanes share one row
-    const int r = tid / 4, part = tid % 4;
-    const bool in = q0 + r < lq;
-    float sum = 0.f;
-    if (in) {
-      const T* orow = o + q_off + (size_t)(q0 + r) * D;
-      for (int e = part; e < D; e += 4) sum += dos[r * DP + e] * to_f(orow[e]);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      row_delta[r] = sum;
-      row_lse[r] = in ? lse_log2(lse[(size_t)bh * lq + q0 + r]) : 0.f;
-      if (in) delta[(size_t)bh * lq + q0 + r] = sum;
-    }
-  }
-
-  // 16 x 16 thread grid: rows ty*4 + i, columns tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  // the forward's key range: up to the diagonal (causal), from the
-  // window of the tile's first row, to that of its last (not causal),
-  // at the rows' shifted positions p0 ..
-  const int p0 = q0 + pos_offset;
-  int k_lo = 0, k_end = causal ? min(lk, p0 + BQ) : lk;
-  if (window > 0) {
-    k_lo = max(0, p0 - window + 1);
-    if (!causal) k_end = min(lk, p0 + BQ - 1 + window);
-  }
-  k_end = max(k_end, 0);
-  const int n_kt = (k_end + BK - 1) / BK;
-  for (int kt = k_lo / BK; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(ks, kb, k0, lk, 1.f);
-    stage<T, D>(vs, vb, k0, lk, 1.f);
-    if (segs && tid < BK)
-      ks_seg[tid] = k0 + tid < lk ? k_seg[(size_t)b * lk + k0 + tid] : -1;
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < D; ++e) {
-      float a[4], g[4], c[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(ty * 4 + i) * DP + e];
-        g[i] = dos[(ty * 4 + i) * DP + e];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[j] = ks[(tx + 16 * j) * DP + e];
-        w[j] = vs[(tx + 16 * j) * DP + e];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += a[i] * c[j];
-          dp[i][j] += g[i] * w[j];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty * 4 + i, c = tx + 16 * j;
-        const int qp = p0 + r, kp = k0 + c;
-        const bool valid = q0 + r < lq && kp < lk && (!causal || kp <= qp) &&
-                           in_window(qp, kp, causal, window) &&
-                           (!segs || qs_seg[r] == ks_seg[c]);
-        const float p = valid ? exp2f(s[i][j] - row_lse[r]) : 0.f;
-        ds[r * SP + c] = p * (dp[i][j] - row_delta[r]) * scale;
-      }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ds[(ty * 4 + i) * SP + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kv = ks[kk * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += dsv[i] * kv;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r < lq) {
-      TO* row = dq + q_off + (size_t)(q0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) store(row + tx + 16 * j, acc[i][j]);
-    }
-  }
-}
-
-template <typename T, typename TO, int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, TO* __restrict__ dk,
-                         TO* __restrict__ dv, const int* __restrict__ q_seg,
-                         const int* __restrict__ k_seg, int h, int hkv,
-                         int lq, int lk, float scale, int causal,
-                         int window, int pos_offset) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DP = D + 1;
-  constexpr int SP = BK + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + BK * DP;
-  float* qs = vs + BK * DP;
-  float* dos = qs + BQ * DP;
-  float* ps = dos + BQ * DP;  // P as [q row][key]
-  float* dss = ps + BQ * SP;  // dS as [q row][key]
-  float* row_lse = dss + BQ * SP;
-  float* row_delta = row_lse + BQ;
-  __shared__ int qs_seg[BQ], ks_seg[BK];
-
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
-  const int bkv = blockIdx.y;  // b * hkv + kv head
-  const int b = bkv / hkv;
-  const int kvh = bkv % hkv;
-  const int group = h / hkv;
-  const size_t kv_off = (size_t)bkv * lk * D;
-  const float slog = scale * LOG2E;
-
-  stage<T, D>(ks, k + kv_off, k0, lk, 1.f);
-  stage<T, D>(vs, v + kv_off, k0, lk, 1.f);
-  const bool segs = q_seg != nullptr;
-  if (segs && tid < BK)
-    ks_seg[tid] = k0 + tid < lk ? k_seg[(size_t)b * lk + k0 + tid] : -1;
-
-  // 16 x 16 thread grid: key rows ty*4 + i; score columns (q rows) and
-  // output columns (head features) tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  // the q rows that can see a key of the tile, by their positions
-  // row + pos_offset: causal, from the diagonal on; under a window, those
-  // before key k0 + BK - 1 + window, and (not causal) from key
-  // k0 - window + 1 on
-  int q_lo = causal ? k0 - pos_offset : 0, q_end = lq;
-  if (window > 0) {
-    q_end = min(lq, k0 + BK - 1 + window - pos_offset);
-    if (!causal) q_lo = k0 - window + 1 - pos_offset;
-  }
-  q_lo = min(max(q_lo, 0), lq);
-  q_end = max(q_end, 0);
-  const int qt_start = q_lo / BQ;
-  const int qt_end = (q_end + BQ - 1) / BQ;
-  for (int g = 0; g < group; ++g) {
-    const int qh = b * h + kvh * group + g;
-    const size_t q_off = (size_t)qh * lq * D;
-    for (int qt = qt_start; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      const int p0 = q0 + pos_offset;
-      __syncthreads();  // the previous tile's readers are done
-      stage<T, D>(qs, q + q_off, q0, lq, 1.f);
-      stage<T, D>(dos, dout + q_off, q0, lq, 1.f);
-      if (tid < BQ) {
-        const bool in = q0 + tid < lq;
-        const size_t row = (size_t)qh * lq + q0 + tid;
-        row_lse[tid] = in ? lse_log2(lse[row]) : 0.f;
-        row_delta[tid] = in ? delta[row] : 0.f;
-        if (segs)
-          qs_seg[tid] = in ? q_seg[(size_t)b * lq + q0 + tid] : -1;
-      }
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-      for (int e = 0; e < D; ++e) {
-        float a[4], w[4], c[4], g2[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = ks[(ty * 4 + i) * DP + e];
-          w[i] = vs[(ty * 4 + i) * DP + e];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          c[j] = qs[(tx + 16 * j) * DP + e];
-          g2[j] = dos[(tx + 16 * j) * DP + e];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] += a[i] * c[j];
-            dp[i][j] += w[i] * g2[j];
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kr = ty * 4 + i, qr = tx + 16 * j;
-          const int qp = p0 + qr, kp = k0 + kr;
-          const bool valid = q0 + qr < lq && kp < lk &&
-                             (!causal || kp <= qp) &&
-                             in_window(qp, kp, causal, window) &&
-                             (!segs || qs_seg[qr] == ks_seg[kr]);
-          const float p = valid ? exp2f(s[i][j] * slog - row_lse[qr]) : 0.f;
-          ps[qr * SP + kr] = p;
-          dss[qr * SP + kr] = p * (dp[i][j] - row_delta[qr]) * scale;
-        }
-      __syncthreads();
-
-      for (int qr = 0; qr < BQ; ++qr) {
-        float pv[4], dsv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = ps[qr * SP + ty * 4 + i];
-          dsv[i] = dss[qr * SP + ty * 4 + i];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float gv = dos[qr * DP + tx + 16 * j];
-          const float qv = qs[qr * DP + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][j] += pv[i] * gv;
-            dk_acc[i][j] += dsv[i] * qv;
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (k0 + r < lk) {
-      TO* krow = dk + kv_off + (size_t)(k0 + r) * D;
-      TO* vrow = dv + kv_off + (size_t)(k0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        store(krow + tx + 16 * j, dk_acc[i][j]);
-        store(vrow + tx + 16 * j, dv_acc[i][j]);
-      }
-    }
-  }
-}
-
-template <typename T, typename TO, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const void* lse, void* dq, void* delta,
-              const void* q_seg, const void* k_seg, int b, int h, int hkv,
-              int lq, int lk, float scale, int causal, int window,
-              int pos_offset, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static bool configured = false;
-  int err = set_smem(flash_bwd_dq_kernel<T, TO, D>, smem, &configured);
-  if (err) return err;
-  dim3 grid((lq + BQ - 1) / BQ, b * h);
-  flash_bwd_dq_kernel<T, TO, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<TO*>(dq), static_cast<float*>(delta),
-      static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
-      lq, lk, scale, causal, window, pos_offset);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename TO, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               const void* q_seg, const void* k_seg, int b, int h, int hkv,
-               int lq, int lk, float scale, int causal, int window,
-               int pos_offset, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  static bool configured = false;
-  int err = set_smem(flash_bwd_dkv_kernel<T, TO, D>, smem, &configured);
-  if (err) return err;
-  dim3 grid((lk + BK - 1) / BK, b * hkv);
-  flash_bwd_dkv_kernel<T, TO, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<TO*>(dk), static_cast<TO*>(dv),
-      static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), h, hkv,
-      lq, lk, scale, causal, window, pos_offset);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // Both entry points: q_seg [b, lq] and k_seg [b, lk] int32 segment ids,
 // or both NULL; window 0 = none, else the sliding window (lq == lk);
 // pos_offset the shift of the query positions (any int; 0 = none);
 // grad_f32 1 = write the gradients in fp32, 0 = in the input dtype.
 // dtype 0 (float32) runs the fp32 kernels, 1 (bfloat16) the bf16
-// tensor-core kernels, whose tensors must be 16-byte aligned.
+// tensor-core kernels; every tensor must be 16-byte aligned.
 static bool masks_ok(int h, int hkv, int window, const void* q_seg,
-                    const void* k_seg) {
+                     const void* k_seg) {
   return hkv > 0 && h % hkv == 0 && window >= 0 &&
          (q_seg == nullptr) == (k_seg == nullptr);
 }
 
 template <bool DKV>
-static int launch_bf16(const edl_bwd::Args& a, int d, int grad_f32) {
+static int launch_pass(const edl_bwd::Args& a, int d, int dtype,
+                       int grad_f32) {
+  using edl_bwd::launch_f32;
   using edl_bwd::launch_part;
-  if (d == 64)
-    return grad_f32 ? launch_part<DKV, 64, true>(a)
-                    : launch_part<DKV, 64, false>(a);
-  if (d == 128)
-    return grad_f32 ? launch_part<DKV, 128, true>(a)
-                    : launch_part<DKV, 128, false>(a);
+  if (dtype == 0) {  // fp32 gradients either way
+    if (d == 64) return launch_f32<DKV, 64>(a);
+    if (d == 128) return launch_f32<DKV, 128>(a);
+  } else if (dtype == 1) {
+    if (d == 64)
+      return grad_f32 ? launch_part<DKV, 64, true>(a)
+                      : launch_part<DKV, 64, false>(a);
+    if (d == 128)
+      return grad_f32 ? launch_part<DKV, 128, true>(a)
+                      : launch_part<DKV, 128, false>(a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -612,26 +296,14 @@ extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 float scale, int causal, int window,
                                 int pos_offset, int dtype, int grad_f32,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!masks_ok(h, hkv, window, q_seg, k_seg))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const edl_bwd::Args a{q, k, v, o, dout, lse, dq, nullptr, nullptr, delta,
-                          static_cast<const int*>(q_seg),
-                          static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
-                          scale, causal, window, pos_offset, s};
-    return launch_bf16<false>(a, d, grad_f32);
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return launch_dq<float, float, 64>(q, k, v, o, dout, lse, dq, delta,
-                                       q_seg, k_seg, b, h, hkv, lq, lk,
-                                       scale, causal, window, pos_offset, s);
-  if (d == 128)
-    return launch_dq<float, float, 128>(q, k, v, o, dout, lse, dq, delta,
-                                        q_seg, k_seg, b, h, hkv, lq, lk,
-                                        scale, causal, window, pos_offset, s);
-  return (int)cudaErrorInvalidValue;
+  const edl_bwd::Args a{q, k, v, o, dout, lse, dq, nullptr, nullptr, delta,
+                        static_cast<const int*>(q_seg),
+                        static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
+                        scale, causal, window, pos_offset,
+                        static_cast<cudaStream_t>(stream)};
+  return launch_pass<false>(a, d, dtype, grad_f32);
 }
 
 // q, dout [b, h, lq, d]; k, v [b, hkv, lk, d]; dk, dv like k in the
@@ -646,47 +318,557 @@ extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  float scale, int causal, int window,
                                  int pos_offset, int dtype, int grad_f32,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!masks_ok(h, hkv, window, q_seg, k_seg))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const edl_bwd::Args a{q, k, v, nullptr, dout, lse, nullptr, dk, dv,
-                          const_cast<void*>(delta),
-                          static_cast<const int*>(q_seg),
-                          static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
-                          scale, causal, window, pos_offset, s};
-    return launch_bf16<true>(a, d, grad_f32);
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return launch_dkv<float, float, 64>(q, k, v, dout, lse, delta, dk, dv,
-                                        q_seg, k_seg, b, h, hkv, lq, lk,
-                                        scale, causal, window, pos_offset, s);
-  if (d == 128)
-    return launch_dkv<float, float, 128>(q, k, v, dout, lse, delta, dk, dv,
-                                         q_seg, k_seg, b, h, hkv, lq, lk,
-                                         scale, causal, window, pos_offset,
-                                         s);
-  return (int)cudaErrorInvalidValue;
+  const edl_bwd::Args a{q, k, v, nullptr, dout, lse, nullptr, dk, dv,
+                        const_cast<void*>(delta),
+                        static_cast<const int*>(q_seg),
+                        static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
+                        scale, causal, window, pos_offset,
+                        static_cast<cudaStream_t>(stream)};
+  return launch_pass<true>(a, d, dtype, grad_f32);
 }
 
 // Dynamic shared memory of one block, in bytes (-1: no such kernel):
 // dkv 0 = the dq pass, 1 = the dk/dv pass; dtype and d as above.
 extern "C" int edl_flash_bwd_smem_bytes(int dkv, int dtype, int d) {
+  using edl_bwd::F32Shape;
   if (dtype == 1 && (d == 64 || d == 128))
     return (int)(d == 64 ? tc_smem_bytes<64>() : tc_smem_bytes<128>());
   if (dtype == 0 && d == 64)
-    return (int)(dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>());
+    return (int)(dkv ? F32Shape<64>::dkv_smem : F32Shape<64>::dq_smem);
   if (dtype == 0 && d == 128)
-    return (int)(dkv ? dkv_smem_bytes<128>() : dq_smem_bytes<128>());
+    return (int)(dkv ? F32Shape<128>::dkv_smem : F32Shape<128>::dq_smem);
   return -1;
 }
 
 #endif  // EDL_PART == 0
 
 // ---------------------------------------------------------------------------
+// The fp32 kernels: FFMA, part 9 the dq pass, part 10 the dk/dv pass.
+#if EDL_PART == 9 || EDL_PART == 10
+namespace {
+
+using edl_bwd::F32Shape;
+using edl_tc::cp_async16;
+using edl_tc::cp_async_commit;
+using edl_tc::cp_async_wait_all;
+using edl_tc::smem_u32;
+
+constexpr int FR = 64;  // a block's own rows: q rows (dq) or keys (dk/dv)
+
+// The swizzle of the fp32 shared tiles: the 16-byte chunk c of row r lies
+// at chunk c ^ swz<SC>(r) of its row. SC is the score columns a thread
+// holds: with 4 (d = 64) the streamed rows a warp reads at once are
+// 4 lc + j, with 2 (d = 128) 2 lc + j.
+template <int SC>
+__host__ __device__ constexpr int swz(int r) {
+  return SC == 4 ? (r >> 2) & 7 : ((r >> 1) & 7) ^ ((r >> 4) & 1);
+}
+
+// Rows [r0, r0 + N) of a row-major [rows, W] fp32 matrix into a swizzled
+// [N][W] shared tile with cp.async, 16 bytes a thread, NT threads; rows
+// past `rows` are zero-filled.
+template <int N, int W, int NT, int SC>
+__device__ __forceinline__ void f32_tile(float* dst, const float* src,
+                                         int r0, int rows) {
+  constexpr int CPR = W / 4;  // chunks per row
+  static_assert((N * CPR) % NT == 0, "the threads split the tile evenly");
+#pragma unroll
+  for (int n = 0; n < N * CPR / NT; ++n) {
+    const int i = threadIdx.x + NT * n;
+    const int r = i / CPR, c = i % CPR;
+    const bool in = r0 + r < rows;
+    cp_async16(smem_u32(dst + r * W + ((c ^ swz<SC>(r)) << 2)),
+               src + (size_t)(in ? r0 + r : 0) * W + 4 * c, in ? 16u : 0u);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc + a . b over the four lanes of a float4, in order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// acc[0..3] += x.x * b[0] + x.y * b[1] + x.z * b[2] + x.w * b[3], per lane
+__device__ __forceinline__ void axpy4(float (&acc)[4], float4 x,
+                                      const float4 (&b)[4]) {
+  acc[0] = fmaf(x.w, b[3].x, fmaf(x.z, b[2].x, fmaf(x.y, b[1].x,
+                                                    fmaf(x.x, b[0].x, acc[0]))));
+  acc[1] = fmaf(x.w, b[3].y, fmaf(x.z, b[2].y, fmaf(x.y, b[1].y,
+                                                    fmaf(x.x, b[0].y, acc[1]))));
+  acc[2] = fmaf(x.w, b[3].z, fmaf(x.z, b[2].z, fmaf(x.y, b[1].z,
+                                                    fmaf(x.x, b[0].z, acc[2]))));
+  acc[3] = fmaf(x.w, b[3].w, fmaf(x.z, b[2].w, fmaf(x.y, b[1].w,
+                                                    fmaf(x.x, b[0].w, acc[3]))));
+}
+
+// A thread's rows and columns (see the design notes) and the swizzled
+// float offsets of its reads, so that every read is a register plus a
+// constant: pa[m] / ps[m] for its own rows r0 + i of a [64][D] / [64][SN]
+// tile, at chunk 8 k + (m ^ swz(i)) (swz(r0 + i) = swz(r0) ^ swz(i), r0
+// a multiple of 8); pb[m] for the streamed rows c0 + j of a [SN][D] tile,
+// at chunk 8 k + m (swz(c0 + j) = swz(c0)); pd[m] for its features'
+// chunk f4 of a streamed row kr with swz(kr) = m.
+template <int D>
+struct Lanes {
+  static constexpr int SN = F32Shape<D>::SN, SC = F32Shape<D>::SC;
+  int r0, c0, f4;
+  int pa[8], ps[8], pb[8], pd[8];
+  __device__ __forceinline__ Lanes() {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    r0 = 32 * (warp % 2) + 8 * (lane / 8);
+    c0 = (warp / 2) * 8 * SC + (lane % 8) * SC;
+    f4 = 8 * (warp / 2) + lane % 8;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      pa[m] = r0 * D + ((m ^ swz<SC>(r0)) << 2);
+      ps[m] = r0 * SN + ((m ^ swz<SC>(r0)) << 2);
+      pb[m] = c0 * D + ((m ^ swz<SC>(c0)) << 2);
+      pd[m] = (f4 ^ m) << 2;
+    }
+  }
+  // stores the thread's P or dS values of row r0 + i (columns c0 ..
+  // c0 + SC - 1, within one 16-byte chunk) into a [64][SN] tile
+  __device__ __forceinline__ void store_row(float* t, int i,
+                                            const float (&v)[SC]) const {
+    float* at = t + (r0 + i) * SN + (((c0 >> 2) ^ swz<SC>(r0 + i)) << 2) +
+                (c0 & 3);
+    if constexpr (SC == 4)
+      *reinterpret_cast<float4*>(at) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<float2*>(at) = make_float2(v[0], v[1]);
+  }
+};
+
+// acc = A B^T over the depth D, the thread's 8 x SC block: A a [64][D]
+// tile of the block's own rows, B a [SN][D] tile of the streamed rows.
+// Eight chunks of depth are unrolled, the rest is a loop, so that the
+// kernels' loops stay within the instruction cache.
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[8][F32Shape<D>::SC],
+                                       const float* A, const float* B,
+                                       const Lanes<D>& L) {
+  constexpr int SC = F32Shape<D>::SC;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < SC; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+  for (int hi = 0; hi < D; hi += 32) {  // chunks 8 k .. 8 k + 7
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float4 bf[SC];
+#pragma unroll
+      for (int j = 0; j < SC; ++j) bf[j] = ld4(B + L.pb[u] + j * D + hi);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = ld4(A + L.pa[u ^ swz<SC>(i)] + i * D + hi);
+#pragma unroll
+        for (int j = 0; j < SC; ++j) acc[i][j] = dot4(a, bf[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc += X Y for the thread's 8 x 4 block: X a [64][SN] tile of P or dS
+// (own rows), Y a [SN][D] tile of streamed rows, summed over the SN
+// streamed rows, eight 4-row steps unrolled.
+template <int D>
+__device__ __forceinline__ void outer(float (&acc)[8][4], const float* X,
+                                      const float* Y, const Lanes<D>& L) {
+  constexpr int SN = F32Shape<D>::SN, SC = F32Shape<D>::SC;
+#pragma unroll 1
+  for (int k8 = 0; k8 < SN; k8 += 32) {  // streamed rows k8 .. k8 + 31
+    const float* Yk = Y + k8 * D;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float4 y[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        y[t] = ld4(Yk + L.pd[swz<SC>(4 * u + t)] + (4 * u + t) * D);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        axpy4(acc[i], ld4(X + L.ps[u ^ swz<SC>(i)] + i * SN + k8), y);
+    }
+  }
+}
+
+__device__ __forceinline__ bool f32_visible(int qp, int kp, bool causal,
+                                            int window) {
+  return (!causal || kp <= qp) &&
+         (window <= 0 || (qp - kp < window && (causal || kp - qp < window)));
+}
+
+// Whether the tile of query positions p0 .. p0 + nq - 1 and keys k0 ..
+// k0 + nk - 1 holds a pair that the causal or window mask hides; with
+// segments every tile does.
+__device__ __forceinline__ bool f32_straddles(int p0, int nq, int k0, int nk,
+                                              bool causal, int window,
+                                              bool segs) {
+  if (segs) return true;
+  bool edge = causal && k0 + nk - 1 > p0;
+  if (window > 0) {
+    edge = edge || p0 + nq - 1 - k0 >= window;
+    if (!causal) edge = edge || k0 + nk - 1 - p0 >= window;
+  }
+  return edge;
+}
+
+// The dq pass. GEN: the general instance (the masks from the runtime
+// flags); otherwise no mask code, only the ragged key edge.
+template <int D, bool GEN>
+__global__ void __launch_bounds__(F32Shape<D>::NT, D == 64 ? 2 : 1)
+    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ o,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ dq,
+                     float* __restrict__ delta, const int* __restrict__ q_seg,
+                     const int* __restrict__ k_seg, int h, int hkv, int lq,
+                     int lk, float scale, int causal_arg, int window_arg,
+                     int pos_offset) {
+  constexpr int NT = F32Shape<D>::NT, SN = F32Shape<D>::SN;
+  constexpr int SC = F32Shape<D>::SC;
+  constexpr int TILE = FR * D, STILE = SN * D;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;
+  float* dos = qs + TILE;
+  float* ring = dos + TILE;  // stage s: K at ring + 2 s STILE, then V
+  float* dss = ring + 4 * STILE;  // dS [64][SN]
+  int* ks_seg = reinterpret_cast<int*>(dss + FR * SN);  // [2][SN]
+
+  const bool causal = GEN && causal_arg != 0;
+  const int window = GEN ? window_arg : 0;
+  const bool segs = GEN && q_seg != nullptr;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FR;  // longest rows first
+  const int b = bh / h;
+  const int kvh = (bh % h) / (h / hkv);
+  const size_t q_off = (size_t)bh * lq * D;
+  const float* kb = k + (size_t)(b * hkv + kvh) * lk * D;
+  const float* vb = v + (size_t)(b * hkv + kvh) * lk * D;
+  const int p0 = q0 + (GEN ? pos_offset : 0);
+
+  // the forward's key range (_kv_stream_clamp)
+  int k_lo = 0, k_end = causal ? min(lk, p0 + FR) : lk;
+  if (window > 0) {
+    k_lo = max(0, p0 - window + 1);
+    if (!causal) k_end = min(lk, p0 + FR - 1 + window);
+  }
+  k_end = max(k_end, 0);
+  const int kt_lo = k_lo / SN, kt_end = (k_end + SN - 1) / SN;
+
+  auto stage_kv = [&](int s, int kt) {
+    f32_tile<SN, D, NT, SC>(ring + 2 * s * STILE, kb, kt * SN, lk);
+    f32_tile<SN, D, NT, SC>(ring + (2 * s + 1) * STILE, vb, kt * SN, lk);
+    if (segs && tid < SN) {
+      const int kp = kt * SN + tid;
+      ks_seg[s * SN + tid] = kp < lk ? k_seg[(size_t)b * lk + kp] : -1;
+    }
+  };
+  f32_tile<FR, D, NT, SC>(qs, q + q_off, q0, lq);
+  f32_tile<FR, D, NT, SC>(dos, dout + q_off, q0, lq);
+  if (kt_lo < kt_end) stage_kv(0, kt_lo);
+  cp_async_commit();
+
+  {  // delta = rowsum(dO * O), NT / 64 threads a row, while the tiles land;
+     // the rows' lse, delta and segment ids pass through the dS tile
+    constexpr int TPR = NT / FR, PER = D / TPR;  // PER = 32 columns
+    const int r = tid / TPR, part = tid % TPR;
+    const bool in = q0 + r < lq;
+    float sum = 0.f;
+    if (in) {
+      const size_t at = q_off + (size_t)(q0 + r) * D + part * PER;
+#pragma unroll
+      for (int e = 0; e < PER; e += 4)
+        sum = dot4(ld4(o + at + e), ld4(dout + at + e), sum);
+    }
+#pragma unroll
+    for (int m = 1; m < TPR; m <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (part == 0) {
+      // rows past lq: P = exp2(s - 1e30) = 0
+      dss[r] = in ? lse_log2(lse[(size_t)bh * lq + q0 + r]) : 1e30f;
+      dss[FR + r] = sum;
+      if (in) delta[(size_t)bh * lq + q0 + r] = sum;
+      if (segs)
+        reinterpret_cast<int*>(dss)[2 * FR + r] =
+            in ? q_seg[(size_t)b * lq + q0 + r] : -1;
+    }
+  }
+  __syncthreads();
+  const Lanes<D> L;
+  float lse2[8], dlt[8];
+  int qsg[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    lse2[i] = dss[L.r0 + i];
+    dlt[i] = dss[FR + L.r0 + i];
+    qsg[i] = segs ? reinterpret_cast<const int*>(dss)[2 * FR + L.r0 + i] : 0;
+  }
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const float slog = scale * LOG2E;
+  for (int kt = kt_lo; kt < kt_end; ++kt) {
+    const int s = (kt - kt_lo) & 1;
+    const float* ks = ring + 2 * s * STILE;
+    const float* vs = ks + STILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; stage s ^ 1's and dS's readers done
+    if (kt + 1 < kt_end) stage_kv(s ^ 1, kt + 1);
+    cp_async_commit();
+
+    float sc[8][SC], dp[8][SC];
+    scores<D>(sc, qs, ks, L);   // S = Q K^T
+    scores<D>(dp, dos, vs, L);  // dP = dO V^T
+
+    const int k0 = kt * SN;
+    const bool edge = k0 + SN > lk ||
+                      f32_straddles(p0, FR, k0, SN, causal, window, segs);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float ds[SC];
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float p = exp2f(fmaf(sc[i][j], slog, -lse2[i]));
+        if (edge) {
+          const int kp = k0 + L.c0 + j;
+          if (!(kp < lk && f32_visible(p0 + L.r0 + i, kp, causal, window) &&
+                (!segs || qsg[i] == ks_seg[s * SN + L.c0 + j])))
+            p = 0.f;
+        }
+        ds[j] = p * (dp[i][j] - dlt[i]) * scale;
+      }
+      L.store_row(dss, i, ds);
+    }
+    __syncthreads();  // dS is complete
+    outer<D>(acc, dss, ks, L);  // dQ += dS K
+  }
+  cp_async_wait_all();  // a block that ran no tile still has copies out
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + L.r0 + i;
+    if (r < lq)
+      *reinterpret_cast<float4*>(dq + q_off + (size_t)r * D + 4 * L.f4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// The dk/dv pass, GEN as for the dq pass. One [64][SN] tile carries P^T
+// for dV += P^T dO, then dS^T for dK += dS^T Q, so that two blocks fit an
+// SM at d = 64; the streamed rows' lse and delta are read from global
+// memory into registers at the start of each step.
+template <int D, bool GEN>
+__global__ void __launch_bounds__(F32Shape<D>::NT, D == 64 ? 2 : 1)
+    flash_bwd_dkv_f32(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, const int* __restrict__ q_seg,
+                      const int* __restrict__ k_seg, int h, int hkv, int lq,
+                      int lk, float scale, int causal_arg, int window_arg,
+                      int pos_offset) {
+  constexpr int NT = F32Shape<D>::NT, SN = F32Shape<D>::SN;
+  constexpr int SC = F32Shape<D>::SC;
+  constexpr int TILE = FR * D, STILE = SN * D;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* ks = smem_f32;
+  float* vs = ks + TILE;
+  float* ring = vs + TILE;  // stage s: Q at ring + 2 s STILE, then dO
+  float* pds = ring + 4 * STILE;  // P^T, then dS^T: [key][q row]
+
+  const bool causal = GEN && causal_arg != 0;
+  const int window = GEN ? window_arg : 0;
+  const bool segs = GEN && q_seg != nullptr;
+  const int off = GEN ? pos_offset : 0;
+  const int bkv = blockIdx.x;      // b * hkv + kv head
+  const int k0 = blockIdx.y * FR;  // key tile 0, the longest walk, first
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int group = h / hkv;
+  const size_t kv_off = (size_t)bkv * lk * D;
+
+  // the q rows that can see a key of the tile (_q_stream_clamp), by their
+  // positions row + pos_offset
+  int q_lo = causal ? k0 - off : 0, q_end = lq;
+  if (window > 0) {
+    q_end = min(lq, k0 + FR - 1 + window - off);
+    if (!causal) q_lo = k0 - window + 1 - off;
+  }
+  q_lo = min(max(q_lo, 0), lq);
+  q_end = max(q_end, 0);
+  const int qt_lo = q_lo / SN;
+  const int nq = max((q_end + SN - 1) / SN - qt_lo, 0);
+  const int steps = group * nq;  // (group member, q tile) pairs
+
+  auto stage_q = [&](int s, int n) {
+    const int q0 = (qt_lo + n % nq) * SN;
+    const size_t qh = (size_t)b * h + kvh * group + n / nq;
+    f32_tile<SN, D, NT, SC>(ring + 2 * s * STILE, q + qh * lq * D, q0, lq);
+    f32_tile<SN, D, NT, SC>(ring + (2 * s + 1) * STILE, dout + qh * lq * D,
+                            q0, lq);
+  };
+  f32_tile<FR, D, NT, SC>(ks, k + kv_off, k0, lk);
+  f32_tile<FR, D, NT, SC>(vs, v + kv_off, k0, lk);
+  if (steps > 0) stage_q(0, 0);
+  cp_async_commit();
+
+  const Lanes<D> L;
+  int ksg[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int kp = k0 + L.r0 + i;
+    ksg[i] = segs && kp < lk ? k_seg[(size_t)b * lk + kp] : -1;
+  }
+  float acc[2][8][4];  // dV, dK
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[x][i][j] = 0.f;
+  const float slog = scale * LOG2E;
+  for (int n = 0; n < steps; ++n) {
+    const int s = n & 1;
+    const float* qsm = ring + 2 * s * STILE;
+    const float* dosm = qsm + STILE;
+    cp_async_wait_all();
+    __syncthreads();  // step n landed; stage s ^ 1's and dS^T's readers done
+    if (n + 1 < steps) stage_q(s ^ 1, n + 1);
+    cp_async_commit();
+
+    // the thread's q columns' lse, delta and segment ids; rows past lq:
+    // P = exp2(s - 1e30) = 0
+    const int q0 = (qt_lo + n % nq) * SN;
+    const size_t qrow = ((size_t)b * h + kvh * group + n / nq) * lq;
+    float lse2[SC], dlt[SC];
+    int qsg[SC];
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      const int qr = q0 + L.c0 + j;
+      const bool in = qr < lq;
+      lse2[j] = in ? lse_log2(lse[qrow + qr]) : 1e30f;
+      dlt[j] = in ? delta[qrow + qr] : 0.f;
+      qsg[j] = segs && in ? q_seg[(size_t)b * lq + qr] : -1;
+    }
+
+    float sc[8][SC], dp[8][SC];
+    scores<D>(sc, ks, qsm, L);   // S^T = K Q^T
+    scores<D>(dp, vs, dosm, L);  // dP^T = V dO^T
+
+    const int p0 = q0 + off;
+    const bool edge = f32_straddles(p0, SN, k0, FR, causal, window, segs);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float p = exp2f(fmaf(sc[i][j], slog, -lse2[j]));
+        if (edge && !(f32_visible(p0 + L.c0 + j, k0 + L.r0 + i, causal,
+                                  window) &&
+                      (!segs || qsg[j] == ksg[i])))
+          p = 0.f;
+        sc[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - dlt[j]) * scale;
+      }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) L.store_row(pds, i, sc[i]);
+    __syncthreads();  // P^T is complete
+    outer<D>(acc[0], pds, dosm, L);  // dV += P^T dO
+    __syncthreads();  // P^T's readers are done
+#pragma unroll
+    for (int i = 0; i < 8; ++i) L.store_row(pds, i, dp[i]);
+    __syncthreads();  // dS^T is complete
+    outer<D>(acc[1], pds, qsm, L);  // dK += dS^T Q
+  }
+  cp_async_wait_all();  // a block that ran no step still has copies out
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = k0 + L.r0 + i;
+    if (r >= lk) continue;
+    const size_t at = kv_off + (size_t)r * D + 4 * L.f4;
+    *reinterpret_cast<float4*>(dv + at) =
+        make_float4(acc[0][i][0], acc[0][i][1], acc[0][i][2], acc[0][i][3]);
+    *reinterpret_cast<float4*>(dk + at) =
+        make_float4(acc[1][i][0], acc[1][i][1], acc[1][i][2], acc[1][i][3]);
+  }
+}
+
+template <bool DKV, int D, bool GEN>
+int launch_f32_instance(const edl_bwd::Args& a) {
+  constexpr int NT = F32Shape<D>::NT;
+  constexpr size_t smem = DKV ? F32Shape<D>::dkv_smem : F32Shape<D>::dq_smem;
+  static bool configured = false;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  if constexpr (DKV) {
+    int err = set_smem(flash_bwd_dkv_f32<D, GEN>, smem, &configured);
+    if (err) return err;
+    dim3 grid(a.b * a.hkv, (a.lk + FR - 1) / FR);
+    flash_bwd_dkv_f32<D, GEN><<<grid, NT, smem, a.stream>>>(
+        q, k, v, dout, lse, static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.q_seg,
+        a.k_seg, a.h, a.hkv, a.lq, a.lk, a.scale, a.causal, a.window,
+        a.pos_offset);
+  } else {
+    int err = set_smem(flash_bwd_dq_f32<D, GEN>, smem, &configured);
+    if (err) return err;
+    dim3 grid(a.b * a.h, (a.lq + FR - 1) / FR);
+    flash_bwd_dq_f32<D, GEN><<<grid, NT, smem, a.stream>>>(
+        q, k, v, static_cast<const float*>(a.o), dout, lse,
+        static_cast<float*>(a.dq), static_cast<float*>(a.delta), a.q_seg,
+        a.k_seg, a.h, a.hkv, a.lq, a.lk, a.scale, a.causal, a.window,
+        a.pos_offset);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the instance with no mask code when every mask flag is off
+template <bool DKV, int D>
+int launch_f32_pass(const edl_bwd::Args& a) {
+  const bool general = a.causal != 0 || a.window > 0 ||
+                       a.q_seg != nullptr || a.pos_offset != 0;
+  return general ? launch_f32_instance<DKV, D, true>(a)
+                 : launch_f32_instance<DKV, D, false>(a);
+}
+
+}  // namespace
+
+namespace edl_bwd {
+#if EDL_PART == 9
+template <> int launch_f32<false, 64>(const Args& a) {
+  return launch_f32_pass<false, 64>(a);
+}
+template <> int launch_f32<false, 128>(const Args& a) {
+  return launch_f32_pass<false, 128>(a);
+}
+#else
+template <> int launch_f32<true, 64>(const Args& a) {
+  return launch_f32_pass<true, 64>(a);
+}
+template <> int launch_f32<true, 128>(const Args& a) {
+  return launch_f32_pass<true, 128>(a);
+}
+#endif
+}  // namespace edl_bwd
+
+#endif  // EDL_PART 9, 10
+// ---------------------------------------------------------------------------
 // The bf16 kernels: wgmma on tensor cores, parts 1-8.
-#if EDL_PART > 0
+#if EDL_PART >= 1 && EDL_PART <= 8
 namespace {
 
 using namespace edl_tc;
@@ -798,7 +980,7 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_tc(
   const __nv_bfloat16* vb = v + (size_t)(b * hkv + kvh) * lk * D;
   const int p0 = q0 + (M::offset ? pos_offset : 0);
 
-  // the forward's key range (_kv_stream_clamp), as the scalar kernel
+  // the forward's key range (_kv_stream_clamp), as the fp32 kernels
   int k_lo = 0, k_end = M::causal ? min(lk, p0 + TB) : lk;
   if (M::window) {
     k_lo = max(0, p0 - window + 1);
@@ -936,7 +1118,7 @@ __global__ void __launch_bounds__(WG) flash_bwd_dkv_tc(
   const int off = M::offset ? pos_offset : 0;
 
   // the q rows that can see a key of the tile (_q_stream_clamp), as the
-  // scalar kernel
+  // fp32 kernels
   int q_lo = M::causal ? k0 - off : 0, q_end = lq;
   if (M::window) {
     q_end = min(lq, k0 + TB - 1 + window - off);
@@ -1125,4 +1307,4 @@ EDL_TC_PART(true, 128, true)
 #endif
 #undef EDL_TC_PART
 
-#endif  // EDL_PART > 0
+#endif  // EDL_PART 1-8

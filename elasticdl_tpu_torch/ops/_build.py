@@ -43,11 +43,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# source -> number of parts (part 0 the entry points and fp32 kernels,
-# the others the bf16 tensor-core instances: csrc/flash_bwd.cu one
-# (pass, head dim, output dtype) each, csrc/flash_fwd.cu one (head dim,
-# causal) each; csrc/paged_decode.cu one arena dtype each)
-PARTS = {"flash_bwd": 9, "flash_fwd": 5, "paged_decode": 3}
+# source -> number of parts: csrc/flash_bwd.cu part 0 the entry points,
+# 1-8 the bf16 tensor-core instances of one (pass, head dim, output
+# dtype) each, 9 and 10 the fp32 dq and dk/dv instances; csrc/flash_fwd.cu
+# part 0 the entry points and fp32 kernel, 1-4 one bf16 (head dim,
+# causal) each; csrc/paged_decode.cu one arena dtype each
+PARTS = {"flash_bwd": 11, "flash_fwd": 5, "paged_decode": 3}
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

@@ -13,10 +13,10 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 * `flash_backward_dq` / `flash_backward_dkv` -> csrc/flash_bwd.cu, the
   ports of `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (wgmma on
   tensor cores for bf16, with P and dS rounded to bf16 before the
-  second products as the TPU kernels' `_mxu_cast` does; scalar fp32
-  kernels for fp32), joined by `flash_backward` and wrapped with the
-  forward in `FlashAttentionFunction` (the JAX package's
-  `jax.custom_vjp`);
+  second products as the TPU kernels' `_mxu_cast` does; fp32 kernels on
+  the CUDA cores' FMAs for fp32), joined by `flash_backward` and
+  wrapped with the forward in `FlashAttentionFunction` (the JAX
+  package's `jax.custom_vjp`);
 * `paged_decode_partials` -> csrc/paged_decode.cu, the port of
   `_paged_kernel`: its split kernel for up to SPLIT_MAX_ROWS query rows
   per (sequence, kv head), its tile kernel (32-key tiles staged by

@@ -7,8 +7,9 @@ comparing two checkouts of the port in one call.
 imports `elasticdl_tpu_torch` from PYTHONPATH (so the same file times
 any checkout whose wrappers take these arguments), builds its kernels,
 and prints one JSON line: each case's device ms, with the card's name
-and power limit. The groups (all by default): flash (A, C, D), paged
-(B), dense (G), embedding (E, F). "Hot": the median of 5 rounds of 50
+and power limit. The groups (all but vit by default): flash (A, C,
+D), paged (B), dense (G), embedding (E, F), vit (C and D in fp32).
+"Hot": the median of 5 rounds of 50
 CUDA-graph replays of one call between CUDA events, so its inputs sit in
 L2 where they fit. "Cold" (B): 8 calls over 8 disjoint arena pairs in
 one CUDA graph, as a decode step issues one per layer, L2 flushed
@@ -28,6 +29,18 @@ inputs from seeded generators:
   same boolean mask;
 * aten's flash-attention backward (dq, dk and dv in one call) at the
   training shape, causal: the yardstick of C + D.
+
+The `vit` group: C and D in fp32 (TF32 off) at ViT-Base's path shape
+(b 64, h 12, l 256, d 64, not causal), at l 197 (ViT-B/16 at 224 px,
+196 patches and the class token) and at the training shape (b 8, h 8,
+l 1024, d 128, causal: the fp32 d 128 instances), each beside SDPA's
+autograd backward on the same inputs (dq, dk and dv; forward and
+backward less the forward, eager between CUDA events, 20 calls: the
+memory-efficient kernel, which SDPA runs for fp32), and with the
+kernels' ms over the operations bound at the card's 67 TFLOP/s fp32
+rate (`_bound_share`); at the path's shape also the SM clock and power
+draw while C and D run back to back for 2 s (`_clocks`: the median of
+nvidia-smi's 100 ms samples). Not in the default groups.
 
 B, `paged_decode_partials` (hkv 8, d 128, blocks of 16, tables of 64
 slots), bf16 arenas and the same quantized to int8 with fp32 row scales,
@@ -73,6 +86,7 @@ the port.
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -407,20 +421,120 @@ def _embedding_cases(out):
 
 
 GROUPS = ("flash", "paged", "dense", "embedding")
+OPTIONAL_GROUPS = ("vit",)
+PEAK_FP32_FLOPS = 67e12
+VIT_CASES = {"vit_l256": (64, 12, 256, 64, False),
+             "vit_l197": (64, 12, 197, 64, False),
+             "f32_b8_l1024_d128": (8, 8, 1024, 128, True)}
+
+
+def _events_ms(fn, calls=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _sdpa_backward_ms(q, k, v, do, causal):
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    return _events_ms(fwd_bwd) - _events_ms(fwd)
+
+
+def _clocks(fn, seconds=2.0):
+    """(median SM MHz, median W, the card's max SM MHz) over nvidia-smi's
+    100 ms samples while fn runs repeatedly for `seconds`; None where
+    nvidia-smi gives no samples."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = []
+    for line in smi.communicate(timeout=30)[0].splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    rows = rows[2:-1]  # the first samples may precede the load
+    if not rows:
+        return None
+    mhz, watts = (sorted(r[col] for r in rows)[len(rows) // 2]
+                  for col in (0, 1))
+    return mhz, watts, rows[0][2]
+
+
+def _bound_share(ms, b, h, l, d, causal, dkv):
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = (8 if dkv else 6) * d * pairs * b * h
+    return flops / PEAK_FP32_FLOPS * 1e3 / ms
+
+
+def _vit_cases(out):
+    """C and D in fp32 (see the module docstring)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    for name, (b, h, l, d, causal) in VIT_CASES.items():
+        q, k, v, do = (torch.randn(b, h, l, d, generator=gen).cuda()
+                       for _ in range(4))
+        o, lse = att.flash_forward(q, k, v, causal=causal)
+        _dq, delta = att.flash_backward_dq(q, k, v, o, lse, do,
+                                           causal=causal)
+        dq_ms = out["flash_bwd_dq_" + name] = _replay_ms(
+            lambda: att.flash_backward_dq(q, k, v, o, lse, do,
+                                          causal=causal))
+        dkv_ms = out["flash_bwd_dkv_" + name] = _replay_ms(
+            lambda: att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                           causal=causal))
+        out["sdpa_bwd_" + name] = _sdpa_backward_ms(q, k, v, do, causal)
+        if name == "vit_l256":
+            out["sm_mhz_watts_max_mhz_" + name] = _clocks(lambda: (
+                att.flash_backward_dq(q, k, v, o, lse, do, causal=causal),
+                att.flash_backward_dkv(q, k, v, do, lse, delta,
+                                       causal=causal)))
+        out["bound_share_dq_" + name] = _bound_share(dq_ms, b, h, l, d,
+                                                     causal, False)
+        out["bound_share_dkv_" + name] = _bound_share(dkv_ms, b, h, l, d,
+                                                      causal, True)
+        del q, k, v, do, o, lse, _dq, delta
+        torch.cuda.empty_cache()
 
 
 def main(label, groups=GROUPS):
     if not torch.cuda.is_available():
         print("flash_timing: no CUDA device", file=sys.stderr)
         return 2
-    unknown = set(groups) - set(GROUPS)
+    unknown = set(groups) - set(GROUPS + OPTIONAL_GROUPS)
     if unknown:
         print("flash_timing: unknown groups %s (of %s)"
-              % (sorted(unknown), GROUPS), file=sys.stderr)
+              % (sorted(unknown), GROUPS + OPTIONAL_GROUPS),
+              file=sys.stderr)
         return 2
     out = {"label": label, "module": att.__file__}
     if "flash" in groups:
         _flash_cases(out)
+    if "vit" in groups:
+        _vit_cases(out)
     one = torch.zeros(1, device="cuda")
     out["replay_floor_ms"] = _replay_ms(one.zero_)
     if "paged" in groups:
