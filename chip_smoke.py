@@ -10,13 +10,13 @@ repository checkout it sits in. Phases, each of which fails the run:
    paths from elasticdl_tpu_torch/csrc (flash_fwd.cu, flash_bwd.cu,
    paged_decode.cu, embedding_gather.cu, row_update.cu,
    optimizer_update.cu; one nvcc per source or part, all at once,
-   flash_fwd.cu as five parts and flash_bwd.cu as eleven, each linked into
+   flash_fwd.cu as seven parts and flash_bwd.cu as eleven, each linked into
    one library; the host tier's store, host_embedding.cc, with the host
    C++ compiler beside them), and print each flash_fwd and flash_bwd instance's
-   registers, spills and shared memory from ptxas's report (no
-   tensor-core or backward instance may spill); the fp32 backward
-   instances' SASS (cuobjdump) must hold no tensor-core product and no
-   16-bit or TF32 conversion;
+   registers, spills, stack frame and shared memory from ptxas's report
+   (no instance may spill, no fp32 forward instance may have a stack
+   frame); the fp32 forward and backward instances' SASS (cuobjdump)
+   must hold no tensor-core product and no 16-bit or TF32 conversion;
 3. kernel A (flash forward) against its plain PyTorch version at the
    prefill shapes, the bf16 kernel against the plain version that
    scales q in bf16 and rounds P to bf16 as it and the TPU kernel do
@@ -26,7 +26,10 @@ repository checkout it sits in. Phases, each of which fails the run:
    window, rectangular lq != lk, its lse also within
    FWD_ROUNDED_TOL_LSE and its out within FWD_ROUNDED_TOL_RMS of the
    rounded plain version and the unrounded one further away; then a
-   probe of P's bf16 rounding (V = I);
+   probe of P's bf16 rounding (V = I); every fp32 check of A here and
+   below holds out and lse within FWD_F32_TOL_REL of the plain version's
+   largest value (lse over the rows that see a key; a row that sees
+   none has lse +1e30 on both sides);
 4. kernel B (paged decode partials) against its plain version at the
    decode shapes: bf16 arenas, then int8 arenas with their fp32 row-scale
    pools (split and tile kernels; GQA, holes, ragged lengths, t = 1 and
@@ -47,7 +50,9 @@ repository checkout it sits in. Phases, each of which fails the run:
    misaligned q view, and two launches equal bit for bit; then the fp32
    kernels at ViT-Base's width (b 64, h 12, d 64, not causal): l 197
    against their plain versions at BWD_TOL_REL, and two launches at the
-   path's l 256 equal bit for bit (check_vit_bwd);
+   path's l 256 equal bit for bit (check_vit_bwd); then the fp32 kernel
+   A at the same width, l 197 and 256, against its plain version at
+   FWD_F32_TOL_REL, two launches bit-equal (check_vit_fwd);
 6. kernels E and F: E (embedding gather) against its plain version, exactly:
    dims 32 / 64 / 13, fp32 and bf16, ids [4096] and [512, 26] with
    repeats, -1 and ids past the table; F (row updates), each of
@@ -640,6 +645,14 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP = dict(vocab_size=32000, seq_len=1024, embed_dim=1024,
                 num_heads=8, num_layers=8, dtype=torch.bfloat16)
 FLASH_TOL_OUT, FLASH_TOL_LSE = 2e-2, 1e-3
+# the fp32 forward against its plain version, out and lse each by max
+# |err| / max |ref| (lse over the rows that see a key): both sum in fp32
+# in another order and round nothing else; at most 1.7e-6 (out) and
+# 7.3e-7 (lse) over the masked and offset checks (GQA, ragged l, d 64
+# and 128) and 1.4e-6 / 2.1e-7 at ViT's width in this script's first
+# run with the FFMA kernel (an H100 80GB HBM3). FLASH_TOL_OUT and
+# FLASH_TOL_LSE stay for bf16 inputs.
+FWD_F32_TOL_REL = 1e-5
 # the bf16 forward's lse against the plain version that rounds as it
 # does (bf16_operands=True): the two differ only in the order of fp32
 # sums (S, l), while the unrounded plain version's fp32 scale moves the
@@ -881,14 +894,28 @@ def flash_fwd_errs(q, k, v, out, lse, causal, masks):
     """Kernel A's out and lse against its plain version on the same
     inputs, the one that rounds as the kernel does (bf16_operands=True;
     the same arithmetic for fp32): {"max_abs_err", "lse_max_abs_err"};
-    for bf16 also out's "rms_rel_err", and the distances of lse and out
-    from the unrounded plain version ("unrounded_lse_max_abs_err",
-    "unrounded_rms_rel_err"). An empty row's lse is +1e30 on both
-    sides."""
+    for fp32 also out's and lse's errors over the largest reference
+    value ("max_rel_err", "lse_max_rel_err", lse over the rows that see a
+    key) and the rows that see a key on one side only
+    ("empty_rows_apart"); for bf16 out's "rms_rel_err", and the
+    distances of lse and out from the unrounded plain version
+    ("unrounded_lse_max_abs_err", "unrounded_rms_rel_err"). An empty
+    row's lse is +1e30 on both sides."""
     ref, ref_lse = att.flash_attention_plain(q, k, v, causal=causal,
                                              bf16_operands=True, **masks)
     errs = {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
             "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+    if q.dtype == torch.float32:
+        seen = ref_lse < -0.5 * att.NEG_INF
+        lse_err = (lse - ref_lse).abs()[seen]
+        errs.update(
+            max_rel_err=errs["max_abs_err"] / max(
+                ref.abs().max().item(), 1e-30),
+            lse_max_rel_err=lse_err.max().item() / max(
+                ref_lse[seen].abs().max().item(), 1e-30)
+            if lse_err.numel() else 0.0,
+            empty_rows_apart=int(
+                (seen != (lse < -0.5 * att.NEG_INF)).sum().item()))
     if q.dtype == torch.bfloat16:
         e_out, e_lse = att.flash_attention_plain(q, k, v, causal=causal,
                                                  **masks)
@@ -900,12 +927,17 @@ def flash_fwd_errs(q, k, v, out, lse, causal, masks):
 
 
 def fwd_ok(e):
-    """Whether one of flash_fwd_errs's results holds: FLASH_TOL_OUT and
-    FLASH_TOL_LSE, and for bf16 FWD_ROUNDED_TOL_LSE with the unrounded
-    version FWD_ROUNDED_CLOSER times further where it differs by
-    FWD_ROUNDED_APART or more, and out's FWD_ROUNDED_TOL_RMS with the
-    unrounded version FWD_ROUNDED_RMS_CLOSER times further where it
-    differs by FWD_ROUNDED_RMS_APART or more."""
+    """Whether one of flash_fwd_errs's results holds: for fp32 out and
+    lse within FWD_F32_TOL_REL and no row empty on one side only; else
+    FLASH_TOL_OUT and FLASH_TOL_LSE, and for bf16 FWD_ROUNDED_TOL_LSE
+    with the unrounded version FWD_ROUNDED_CLOSER times further where it
+    differs by FWD_ROUNDED_APART or more, and out's FWD_ROUNDED_TOL_RMS
+    with the unrounded version FWD_ROUNDED_RMS_CLOSER times further where
+    it differs by FWD_ROUNDED_RMS_APART or more."""
+    if "lse_max_rel_err" in e:
+        return (e["max_rel_err"] <= FWD_F32_TOL_REL
+                and e["lse_max_rel_err"] <= FWD_F32_TOL_REL
+                and e["empty_rows_apart"] == 0)
     ok = (e["max_abs_err"] <= FLASH_TOL_OUT
           and e["lse_max_abs_err"] <= FLASH_TOL_LSE)
     if "unrounded_lse_max_abs_err" in e:
@@ -1484,41 +1516,45 @@ SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
 
 
 def ptxas_entries(log):
-    """[(mangled kernel name, registers, spill bytes)] from ptxas's
-    report in a build log."""
-    entries, entry, spill = [], None, 0
+    """[(mangled kernel name, registers, spill bytes, stack frame bytes)]
+    from ptxas's report in a build log."""
+    entries, entry, spill, stack = [], None, 0, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = int(m.group(1)) + int(m.group(2))
+            stack = int(m.group(1))
+            spill = int(m.group(2)) + int(m.group(3))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            entries.append((entry, int(m.group(1)), spill))
-            entry, spill = None, 0
+            entries.append((entry, int(m.group(1)), spill, stack))
+            entry, spill, stack = None, 0, 0
     return entries
 
 
 def _build_groups(entries, group_of):
     """{group: {"registers": {mask instance: registers}, "spill_bytes",
-    "smem_bytes", "threads", "blocks_per_sm"}} of the entries that
-    `group_of` maps to (key, instance, smem bytes, threads), or None."""
+    "stack_bytes" (the largest stack frame), "smem_bytes", "threads",
+    "blocks_per_sm"}} of the entries that `group_of` maps to (key,
+    instance, smem bytes, threads), or None."""
     groups = {}
-    for entry, regs, spill in entries:
+    for entry, regs, spill, stack in entries:
         found = group_of(entry)
         if found is None:
             continue
         key, instance, smem, threads = found
         group = groups.setdefault(key, {"registers": {}, "spill_bytes": 0,
+                                        "stack_bytes": 0,
                                         "smem_bytes": smem,
                                         "threads": threads})
         group["registers"][instance] = regs
         group["spill_bytes"] += spill
+        group["stack_bytes"] = max(group["stack_bytes"], stack)
     for group in groups.values():
         regs = -(-max(group["registers"].values()) // 8) * 8
         group["blocks_per_sm"] = min(
@@ -1557,8 +1593,7 @@ def flash_bwd_build_report(log):
             instance = _mask_flags(entry)
         else:
             out = "fp32 in and out"
-            instance = ("general" if re.search(r"Li(?:64|128)ELb1E", entry)
-                        else "none")
+            instance = _f32_instance(entry)
         key = "%s%s d%d %s" % ("flash_bwd_dkv" if dkv else "flash_bwd_dq",
                                "_tc" if tc else "_f32", d, out)
         return (key, instance,
@@ -1568,15 +1603,15 @@ def flash_bwd_build_report(log):
     return _build_groups(ptxas_entries(log), group_of)
 
 
-# opcodes a fp32 backward instance must not hold: tensor-core products
-# and conversions to or from a 16-bit or TF32 format
-F32_BWD_FORBIDDEN = re.compile(r"^(?:[HID]G?MMA|F2F|.*BF16|.*TF32)")
+# opcodes an fp32 flash instance (A, C, D) must not hold: tensor-core
+# products and conversions to or from a 16-bit or TF32 format
+F32_FORBIDDEN = re.compile(r"^(?:[HID]G?MMA|F2F|.*BF16|.*TF32)")
 
 
 def start_sass(lib_path):
     """(process, output file) of cuobjdump (the toolkit's, beside nvcc)
     disassembling a library in the background into a temporary file: it
-    takes ~20 s for flash_bwd's; flash_bwd_f32_sass reads it."""
+    takes ~20 s for flash_bwd's; flash_f32_sass reads it."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     out = tempfile.TemporaryFile(mode="w+")
@@ -1584,11 +1619,13 @@ def start_sass(lib_path):
                             stderr=subprocess.STDOUT, text=True), out
 
 
-def flash_bwd_f32_sass(started):
-    """The fp32 backward kernels as compiled, from start_sass's process
-    over the flash_bwd library: per instance {"instructions",
-    "ffma_share", "lds128"}; fails if an instance holds an opcode of
-    F32_BWD_FORBIDDEN, so they stay exact fp32 FMAs."""
+def flash_f32_sass(started, expected):
+    """The fp32 flash kernels of one library as compiled (A's in
+    flash_fwd's, C's and D's in flash_bwd's), from start_sass's process
+    over it: per instance {"instructions", "ffma_share", "lds128"}; fails
+    if an instance holds an opcode of F32_FORBIDDEN, so they stay exact
+    fp32 FMAs, or if the library holds other than `expected` fp32
+    instances."""
     proc, out = started
     try:
         proc.wait(timeout=600)
@@ -1604,11 +1641,11 @@ def flash_bwd_f32_sass(started):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"flash_bwd_(dq|dkv)_f32ILi(\d+)ELb(\d)E",
+            k = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_f32ILi(\d+)E",
                           m.group(1))
-            name = ("flash_bwd_%s_f32 d%s %s" % (
-                k.group(1), k.group(2), "general" if k.group(3) == "1"
-                else "none")) if k else None
+            name = ("flash_%s_f32 d%s %s" % (
+                k.group(1), k.group(2), _f32_instance(m.group(1)))
+                    if k else None)
             if name:
                 ops[name] = []
             continue
@@ -1616,11 +1653,11 @@ def flash_bwd_f32_sass(started):
                       r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_.]*)?)", line)
         if name and m:
             ops[name].append(m.group(1))
-    check(len(ops) == 8, "cuobjdump shows %d fp32 backward instances, not 8"
-          % len(ops))
+    check(len(ops) == expected, "cuobjdump shows %d fp32 instances, not %d"
+          % (len(ops), expected))
     report = {}
     for name, seq in ops.items():
-        bad = sorted({op for op in seq if F32_BWD_FORBIDDEN.match(op)})
+        bad = sorted({op for op in seq if F32_FORBIDDEN.match(op)})
         check(not bad, "%s holds %s" % (name, bad))
         report[name] = {
             "instructions": len(seq),
@@ -1629,11 +1666,20 @@ def flash_bwd_f32_sass(started):
     return report
 
 
+def _f32_instance(entry):
+    """The instance of an fp32 flash kernel from its template flags:
+    "none" (no mask code), "general" (the masks as runtime flags) or, for
+    the forward, "general_offset" (with pos_offset)."""
+    flags = re.search(r"Li(?:64|128)ELb(\d)E(?:Lb(\d)E)?", entry).groups()
+    if flags[0] == "0":
+        return "none"
+    return "general_offset" if flags[1] == "1" else "general"
+
+
 def flash_fwd_build_report(log):
     """csrc/flash_fwd.cu's kernel instances, as flash_bwd_build_report:
     "flash_fwd_tc d<D> bf16" by mask instance ("CWSO" flags), and the
-    fp32 kernel "flash_fwd d<D> fp32" by its offset template flag ("-O0",
-    "-O1"; its other masks are runtime flags)."""
+    fp32 kernel "flash_fwd_f32 d<D> fp32" by instance (_f32_instance)."""
     lib = att._flash_lib()
 
     def group_of(entry):
@@ -1641,17 +1687,44 @@ def flash_fwd_build_report(log):
             return None
         tc = "flash_fwd_tcI" in entry
         d = int(re.search(r"Li(64|128)E", entry).group(1))
-        if tc:
-            instance = _mask_flags(entry)
-        else:
-            instance = "-O%s" % re.search(r"Li(?:64|128)ELb(\d)E",
-                                          entry).group(1)
-        return ("flash_fwd%s d%d %s" % ("_tc" if tc else "", d,
+        instance = _mask_flags(entry) if tc else _f32_instance(entry)
+        return ("flash_fwd%s d%d %s" % ("_tc" if tc else "_f32", d,
                                         "bf16" if tc else "fp32"),
-                instance, lib.edl_flash_fwd_smem_bytes(int(tc), d),
-                128 if tc else 256)
+                instance, lib.edl_flash_fwd_smem_bytes(int(tc), d), 128)
 
     return _build_groups(ptxas_entries(log), group_of)
+
+
+def flash_builds(report):
+    """The flash_fwd and flash_bwd instances from _build.build's report
+    (flash_fwd_build_report, flash_bwd_build_report), logged; fails if
+    an instance spills, an fp32 forward instance keeps a stack frame, or
+    a library holds other instances than it should. Returns {source:
+    groups} of the sources built in this run."""
+    builds = {}
+    for source, reporter, n_groups, n_instances in (
+            ("flash_fwd", flash_fwd_build_report, 4, 38),
+            ("flash_bwd", flash_bwd_build_report, 12, 136)):
+        if not report[source]["log"]:
+            log("%s was built before this run: no ptxas report" % source)
+            continue
+        groups = builds[source] = reporter(report[source]["log"])
+        for name, group in groups.items():
+            log("%s: registers %s; spills %d B; stack frame %d B; shared "
+                "memory %d B a block; %d blocks per SM" % (
+                    name, " ".join("%s:%d" % x for x in
+                                   group["registers"].items()),
+                    group["spill_bytes"], group["stack_bytes"],
+                    group["smem_bytes"], group["blocks_per_sm"]))
+        check(len(groups) == n_groups and sum(
+            len(g["registers"]) for g in groups.values()) == n_instances,
+              "%s's build log names %s" % (source, sorted(groups)))
+        check(not any(g["spill_bytes"] for g in groups.values()),
+              "%s's kernels spill registers" % source)
+        check(not any(g["stack_bytes"] for name, g in groups.items()
+                      if name.startswith("flash_fwd_f32")),
+              "the fp32 forward keeps a stack frame")
+    return builds
 
 
 def check_bwd_rounding(gen):
@@ -1804,6 +1877,38 @@ def check_vit_bwd(gen):
         del q, k, v, do, o, lse, dq, delta, dk, dv
     torch.cuda.empty_cache()
     log("vit's fp32 C and D: %s" % json.dumps(out))
+    return out
+
+
+VIT_FWD_SEED = 15
+
+
+def check_vit_fwd(gen):
+    """The fp32 kernel A at ViT-Base's width (ENC_KERNEL_SHAPES["vit"]:
+    b 64, h 12, d 64, not causal), at l VIT_RAGGED_L and at the path's l:
+    against its plain version (fwd_ok: out and lse within FWD_F32_TOL_REL
+    of the plain version's largest value), and a second launch on the
+    same inputs equal bit for bit. Returns {"l<l>": flash_fwd_errs's
+    errors and "repeat_bit_equal"}."""
+    b, h, path_l, d, dtype = ENC_KERNEL_SHAPES["vit"]
+    out = {}
+    for l in (VIT_RAGGED_L, path_l):
+        q, k, v = flash_inputs(gen, b, h, h, l, d, dtype)
+        o, lse = att.flash_forward(q, k, v, causal=False)
+        o2, lse2 = att.flash_forward(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        check(torch.isfinite(o).all().item(),
+              "flash_fwd: non-finite output at vit's width, l %d" % l)
+        e = flash_fwd_errs(q, k, v, o, lse, False, {})
+        check(fwd_ok(e), "flash_fwd disagrees with its plain version at "
+              "vit's width, l %d: %s" % (l, e))
+        equal = torch.equal(o, o2) and torch.equal(lse, lse2)
+        check(equal, "A at vit's width, l %d, differs between two launches"
+              % l)
+        out["l%d" % l] = dict(e, repeat_bit_equal=equal)
+        del q, k, v, o, lse, o2, lse2
+    torch.cuda.empty_cache()
+    log("vit's fp32 A: %s" % json.dumps(out))
     return out
 
 
@@ -3720,8 +3825,9 @@ def check_masked_flash(gen, rng):
     and 4, d 64 and 128, b = 2, l = 200 (ragged against the tiles). Then
     the training path's shape, b = 8, h = 8, l = 1024, d = 128, bf16,
     causal: window 256, and the segments of pack_sequences over
-    documents of 64-1024 tokens. Limits: FLASH_TOL_OUT / FLASH_TOL_LSE
-    for A, BWD_TOL_REL for C and D (by masked_rel_err), those of the
+    documents of 64-1024 tokens. Limits: fwd_ok for A (FWD_F32_TOL_REL
+    for fp32, FLASH_TOL_OUT / FLASH_TOL_LSE and the rounded limits for
+    bf16), BWD_TOL_REL for C and D (by masked_rel_err), those of the
     unmasked kernels.
     Returns ({kernel variant: worst errors}, the path shape's worst
     errors, the path shape's inputs)."""
@@ -4582,8 +4688,8 @@ def check_offset_flash(gen):
     (b 2, h 8, 1024-row shards, d 128, bf16, window 1536, fp32
     gradients) at SP_PATH_OFFSETS, the backward taking a ring-like
     global lse (the rotation's merged with the diagonal rotation's).
-    Limits: those of the masked variants (FLASH_TOL_OUT / FLASH_TOL_LSE,
-    BWD_TOL_REL of the input dtype by masked_rel_err). Returns
+    Limits: those of the masked variants (fwd_ok for A, BWD_TOL_REL of
+    the input dtype by masked_rel_err for C and D). Returns
     ({variant: worst errors}, the path shape's worst, its inputs)."""
     worst, path_worst = {}, {}
     i = 0
@@ -7562,7 +7668,8 @@ def _attention_held_to_plain(errs, on_card, where="tiers"):
     same inputs, as _held_to_plain holds E and F: A by fwd_ok with out's
     error over max(max |out|, 1) (the model's activations reach several
     units, where one bf16 step of out is 0.03: FLASH_TOL_OUT is set for
-    unit-scale inputs), B's partials within PAGED_TOL_REL. `errs`
+    unit-scale inputs; fp32 inputs are held by their relative errors),
+    B's partials within PAGED_TOL_REL. `errs`
     collects {kernel: [max |err|, ...]}. Off the card the wrappers are
     the plain versions: no check."""
     real = (att.flash_forward, att.paged_decode_partials)
@@ -10686,31 +10793,10 @@ def main():
         ", ".join("%s %.1f s" % (n, r["seconds"]) for n, r in
                   report.items())))
 
-    builds = {}
-    # no instance may spill, but the fp32 forward, the scalar kernel of
-    # PR 1, whose d 64 instance ptxas gives a 16-byte spill
-    for source, reporter, n_groups, n_instances, held in (
-            ("flash_fwd", flash_fwd_build_report, 4, 36, "_tc"),
-            ("flash_bwd", flash_bwd_build_report, 12, 136, "")):
-        if not report[source]["log"]:
-            log("%s was built before this run: no ptxas report" % source)
-            continue
-        groups = builds[source] = reporter(report[source]["log"])
-        for name, group in groups.items():
-            log("%s: registers %s; spills %d B; shared memory %d B a "
-                "block; %d blocks per SM" % (
-                    name, " ".join("%s:%d" % x for x in
-                                   group["registers"].items()),
-                    group["spill_bytes"], group["smem_bytes"],
-                    group["blocks_per_sm"]))
-        check(len(groups) == n_groups and sum(
-            len(g["registers"]) for g in groups.values()) == n_instances,
-              "%s's build log names %s" % (source, sorted(groups)))
-        check(not any(g["spill_bytes"] for name, g in groups.items()
-                      if held in name),
-              "%s's kernels spill registers" % source)
-    # the fp32 backward instances' SASS, read after the kernel checks
-    bwd_sass = start_sass(_build.library_path("flash_bwd"))
+    builds = flash_builds(report)
+    # the fp32 instances' SASS, read after the kernel checks
+    f32_sass = {name: start_sass(_build.library_path(name))
+                for name in ("flash_fwd", "flash_bwd")}
     gen = torch.Generator().manual_seed(0)
     rng = np.random.RandomState(0)
     # the packed and windowed phases draw from their own generators, so
@@ -10733,8 +10819,9 @@ def main():
     # the rounding probe draws from its own generator, so every later
     # phase sees the data it saw before it was added
     bwd_rounding = check_bwd_rounding(torch.Generator().manual_seed(7))
-    # and so does the fp32 check at vit's width
+    # and so do the fp32 checks at vit's width
     vit_bwd = check_vit_bwd(torch.Generator().manual_seed(VIT_BWD_SEED))
+    vit_fwd = check_vit_fwd(torch.Generator().manual_seed(VIT_FWD_SEED))
     gather_err = check_gather(gen)
     row_err = check_row_update(gen)
     # the grouped sweep draws from its own generator, so every later
@@ -10749,9 +10836,13 @@ def main():
     gen_sp = torch.Generator().manual_seed(6)
     offset_err, offset_path_err, offset_inputs = check_offset_flash(gen_sp)
     ring_rotations = check_ring_rotations(gen_sp)
-    builds["flash_bwd_f32_sass"] = flash_bwd_f32_sass(bwd_sass)
-    log("fp32 backward instances' SASS (no tensor-core product, no 16-bit "
-        "or TF32 conversion): %s" % json.dumps(builds["flash_bwd_f32_sass"]))
+    builds["flash_f32_sass"] = {}
+    for name, expected in (("flash_fwd", 6), ("flash_bwd", 8)):
+        builds["flash_f32_sass"].update(flash_f32_sass(f32_sass[name],
+                                                       expected))
+    log("fp32 forward and backward instances' SASS (no tensor-core product, "
+        "no 16-bit or TF32 conversion): %s"
+        % json.dumps(builds["flash_f32_sass"]))
     laps.to("serving")
     specs = serving_specs(rng)
     bf16_streams = []
@@ -10825,7 +10916,7 @@ def main():
     training["autograd_cuda_vs_cpu_rel_err"] = autograd_err
     training["flash_fwd_build"] = builds.get("flash_fwd", {})
     training["flash_bwd_build"] = builds.get("flash_bwd", {})
-    training["flash_bwd_f32_sass"] = builds["flash_bwd_f32_sass"]
+    training["flash_f32_sass"] = builds["flash_f32_sass"]
     training["flash_fwd_instances"] = fwd_instances
     training["flash_fwd_rounding"] = fwd_rounding
     training["flash_bwd_rounding"] = bwd_rounding
@@ -11091,6 +11182,9 @@ def main():
                 vit_bwd["ragged"]["errors"][entry["name"][:-len("_vit")]],
                 l=VIT_RAGGED_L, limit_rel=vit_bwd["ragged"]["limit_rel"])
             entry["repeat_bit_equal"] = vit_bwd["repeat_bit_equal"]
+        if entry["name"] == "flash_fwd_vit":
+            entry["vit_check"] = dict(vit_fwd, limit_rel=FWD_F32_TOL_REL)
+            entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     # phase 32's launches: none of the port's kernels runs on the vision
     # zoo's path (conv, BatchNorm and pooling are cuDNN / aten calls)
     for entry in kernels:

@@ -350,9 +350,14 @@ extern "C" int edl_flash_bwd_smem_bytes(int dkv, int dtype, int d) {
 namespace {
 
 using edl_bwd::F32Shape;
+using edl_tc::axpy4;
 using edl_tc::cp_async16;
 using edl_tc::cp_async_commit;
 using edl_tc::cp_async_wait_all;
+using edl_tc::dot4;
+using edl_tc::f32_straddles;
+using edl_tc::f32_visible;
+using edl_tc::ld4;
 using edl_tc::smem_u32;
 
 constexpr int FR = 64;  // a block's own rows: q rows (dq) or keys (dk/dv)
@@ -382,28 +387,6 @@ __device__ __forceinline__ void f32_tile(float* dst, const float* src,
     cp_async16(smem_u32(dst + r * W + ((c ^ swz<SC>(r)) << 2)),
                src + (size_t)(in ? r0 + r : 0) * W + 4 * c, in ? 16u : 0u);
   }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc + a . b over the four lanes of a float4, in order
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-// acc[0..3] += x.x * b[0] + x.y * b[1] + x.z * b[2] + x.w * b[3], per lane
-__device__ __forceinline__ void axpy4(float (&acc)[4], float4 x,
-                                      const float4 (&b)[4]) {
-  acc[0] = fmaf(x.w, b[3].x, fmaf(x.z, b[2].x, fmaf(x.y, b[1].x,
-                                                    fmaf(x.x, b[0].x, acc[0]))));
-  acc[1] = fmaf(x.w, b[3].y, fmaf(x.z, b[2].y, fmaf(x.y, b[1].y,
-                                                    fmaf(x.x, b[0].y, acc[1]))));
-  acc[2] = fmaf(x.w, b[3].z, fmaf(x.z, b[2].z, fmaf(x.y, b[1].z,
-                                                    fmaf(x.x, b[0].z, acc[2]))));
-  acc[3] = fmaf(x.w, b[3].w, fmaf(x.z, b[2].w, fmaf(x.y, b[1].w,
-                                                    fmaf(x.x, b[0].w, acc[3]))));
 }
 
 // A thread's rows and columns (see the design notes) and the swizzled
@@ -495,27 +478,6 @@ __device__ __forceinline__ void outer(float (&acc)[8][4], const float* X,
         axpy4(acc[i], ld4(X + L.ps[u ^ swz<SC>(i)] + i * SN + k8), y);
     }
   }
-}
-
-__device__ __forceinline__ bool f32_visible(int qp, int kp, bool causal,
-                                            int window) {
-  return (!causal || kp <= qp) &&
-         (window <= 0 || (qp - kp < window && (causal || kp - qp < window)));
-}
-
-// Whether the tile of query positions p0 .. p0 + nq - 1 and keys k0 ..
-// k0 + nk - 1 holds a pair that the causal or window mask hides; with
-// segments every tile does.
-__device__ __forceinline__ bool f32_straddles(int p0, int nq, int k0, int nk,
-                                              bool causal, int window,
-                                              bool segs) {
-  if (segs) return true;
-  bool edge = causal && k0 + nk - 1 > p0;
-  if (window > 0) {
-    edge = edge || p0 + nq - 1 - k0 >= window;
-    if (!causal) edge = edge || k0 + nk - 1 - p0 >= window;
-  }
-  return edge;
 }
 
 // The dq pass. GEN: the general instance (the masks from the runtime

@@ -24,16 +24,18 @@
 // the row max, l = rowsum(P) from the unrounded P and the output
 // accumulator stay fp32. The bf16 kernel below does the same
 // (flash_attention_plain(..., bf16_operands=True) is its plain
-// version). fp32 inputs are not rounded, and keep the scalar fp32
-// kernel: bf16 tensor cores would miss the fp32 limits. ViT-Base trains
-// in fp32 and runs it 12 times a step (d = 64, not causal); it has not
-// been redesigned for the H100 yet. The entry point picks the kernel by
-// dtype, never by a failed launch.
+// version). fp32 inputs are not rounded (_mxu_cast leaves them), so they
+// take the fp32 kernel below, on exact fp32 FMAs: q scaled by scale *
+// log2 e in fp32 once, S and P V by FFMA, never a tensor-core or TF32
+// product. ViT-Base trains in fp32 and runs it 12 times a step (d = 64,
+// not causal). The entry point picks the kernel by dtype, never by a
+// failed launch.
 //
 // What bounds it on the H100: 4 * d operations per visible (query, key)
 // pair against 4 * d bytes per row moved (q, k, v read and out written
 // once), so from a few hundred rows per head on it is bound by
-// operations, i.e. by the tensor cores' bf16 rate.
+// operations: by the tensor cores' bf16 rate for bf16, by the CUDA
+// cores' fp32 FMA rate (67 TFLOP/s) for fp32.
 //
 // Design of the bf16 kernel (flash_fwd_tc): one warpgroup a block,
 // owning 64 query rows, and 64-key tiles (two warpgroups of 64 rows
@@ -61,18 +63,56 @@
 // past lq load as zeros and are never stored. The grid runs the q tiles
 // with the most key tiles first.
 //
-// Design of the fp32 kernel (flash_fwd_kernel): grid (q-tile, b*h),
-// BQ = BK = 64 rows, 256 threads. The Q tile is staged once in shared
-// memory (scaled by scale*log2e so the inner loop uses exp2), then
-// every key tile that is not wholly above the causal diagonal is staged
-// (K, V as fp32) and consumed: S = Q K^T in a 4x4 register block per
-// thread, masked (ragged key edge, causal) in place, a per-row online
-// softmax by four threads per row with warp shuffles, and O += P V into
-// a 4 x D/16 register block per thread. Masked scores contribute exactly
-// 0 (they are never exponentiated), so a row with no visible key keeps
-// l = 0. Ragged query rows are zero-filled and never written. The block
-// needs ~114 KB of shared memory at d = 128, so the launch raises the
-// dynamic shared-memory limit first.
+// Design of the fp32 kernel (flash_fwd_f32). Bound by operations on the
+// CUDA cores, it is held back by shared memory first: an SM returns
+// about 128 bytes of it to registers a clock against 128 FMA lanes, so a
+// thread whose a x b block of a product loads a + b values for a * b
+// FMAs a depth step runs at most at ab / (a + b) / 4 of the FMA rate
+// (flash_bwd.cu's fp32 kernels, PERF.md). So:
+//   * 128 threads (4 warps) own 64 query rows; keys come in 64-row tiles.
+//     Each warp owns 16 whole rows: lane l holds rows 8 (l / 16) .. + 7
+//     of them, keys 4 (l % 16) .. + 3 of a tile, and features 4 (l % 16)
+//     + 64 n, n < d / 64. A thread's block of S is 8 x 4 (ratio 2.67, at
+//     most 67% of the FMA rate) and of the O accumulator 8 x 4 at d = 64
+//     and 8 x 8 at d = 128 (ratio 4).
+//   * Every operand is read as 16-byte float4 loads along the reduction
+//     dimension: S = Q K^T reduces over d, along which Q and K rows are
+//     contiguous; O += P V reduces over keys: a thread reads each of its
+//     P rows as a float4 over 4 keys and each V row as a float4 over its
+//     4 features. The Q and P reads are broadcasts (a quarter warp reads
+//     one row), the V reads neighbouring chunks; only the K tile is
+//     swizzled, not padded: chunk c of key row r lies at c ^ ((r / 4) %
+//     8), so the 8 keys a quarter warp reads at once fall into 8 banks.
+//   * The row max is a __shfl_xor reduction inside the 16 lanes that
+//     hold a row, the correction factor stays in registers, and P goes
+//     through a tile that only its warp reads. The block barriers are the
+//     copies' alone.
+//   * Q is loaded once, multiplied by scale * log2 e in fp32 and stored;
+//     K and V stream by cp.async (zero-filled past lk) into one buffer
+//     each, staggered: V of a tile is copied while S of the tile runs,
+//     K of the next while P V runs. That takes two barriers a tile but
+//     half the shared memory of a two-stage ring of both.
+//   * Three instances a head dim: no mask code (every mask flag off:
+//     ViT's path), the general one, and the general one with the offset.
+//     On a tile at a mask edge (the diagonal, a window edge, the ragged
+//     key edge, every tile under segments) a thread first finds which of
+//     its 32 pairs are visible, as a 32-bit mask, while S's registers are
+//     still free; after the product a hidden pair's score becomes -inf,
+//     so its P is exactly 0. Interior tiles skip both steps.
+//   * Registers: ptxas pipelines the shared-memory loads up to its cap,
+//     so the live values are kept few: a row's q segment id is read from
+//     global memory (L1) on an edge tile; at d = 64 each lane keeps the
+//     rows' max and its own share of their sums in registers, summed at
+//     the end; at d = 128, where O takes 64 registers, the rows' max and
+//     sum live in shared memory, the sum reduced over the row's lanes
+//     every tile. Both head dims run two blocks of 4 warps an SM (65,792
+//     and 115,712 bytes of shared memory); ptxas spills nothing and keeps
+//     no stack frame (chip_smoke.py checks).
+//   * Eight depth chunks of S and 32 (d = 64) or 16 (d = 128) keys of
+//     P V are unrolled, the rest is a loop, so the loop stays within the
+//     instruction cache.
+// Rows past lq load as zeros and are never stored. The grid runs the q
+// tiles with the most key tiles first.
 //
 // Window skip (_kv_stream_clamp, _block_run), both kernels: a q tile
 // reads only the key tiles that hold a key inside some row's window,
@@ -83,16 +123,17 @@
 // the tile loop; the bounds are clamped to [0, lk] before they are
 // divided into tiles (C division truncates toward zero), so an offset
 // that leaves no visible key runs no tile. Both kernels are compiled
-// with and without the offset (OFFSET): a launch at offset 0, every call
-// but a ring rotation's, runs the instance without it (one fp32 kernel
-// for both ran 6% slower, PR 6). Segment ids are staged per tile beside
-// K (one id row per batch row, shared by every head); as in the TPU
-// kernel, no tile is skipped for segments.
+// with and without the offset: a launch at offset 0, every call but a
+// ring rotation's, runs an instance without it (one fp32 kernel for both
+// ran 6% slower). Segment ids are staged per tile beside K (one id
+// row per batch row, shared by every head); as in the TPU kernel, no
+// tile is skipped for segments.
 //
-// Build: this file is compiled as five objects, one nvcc each, linked
+// Build: this file is compiled as seven objects, one nvcc each, linked
 // into one library (ops/_build.py, PARTS): EDL_PART 0 holds the entry
-// points and the fp32 kernel, parts 1-4 the 8 mask instances (window,
-// segments, offset) of one (head dim, causal) of the bf16 kernel each.
+// points, parts 1-4 the 8 mask instances (window, segments, offset) of
+// one (head dim, causal) of the bf16 kernel each, parts 5 and 6 the
+// three fp32 instances of d = 64 and of d = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,7 +145,7 @@
 #define EDL_PART 0
 #endif
 
-// What the entry point passes to the bf16 kernel's launchers.
+// What the entry point passes to the parts' launchers.
 namespace edl_fwd {
 
 struct Args {
@@ -117,14 +158,32 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The launcher of one (head dim, causal), defined by its part; it picks
-// the mask instance from the runtime flags.
+// The bf16 launcher of one (head dim, causal), defined by its part; it
+// picks the mask instance from the runtime flags.
 template <int D, bool CAUSAL>
 int launch_part(const Args& a);
 template <> int launch_part<64, false>(const Args&);
 template <> int launch_part<64, true>(const Args&);
 template <> int launch_part<128, false>(const Args&);
 template <> int launch_part<128, true>(const Args&);
+
+// The fp32 launcher of one head dim: parts 5 (d = 64) and 6 (d = 128).
+template <int D>
+int launch_f32(const Args& a);
+template <> int launch_f32<64>(const Args&);
+template <> int launch_f32<128>(const Args&);
+
+// The fp32 kernel's block: 128 threads, 64 query rows, 64-key tiles, and
+// its dynamic shared memory in bytes: the Q, K and V tiles [64][D], the
+// warps' P rows [64][64], the key tile's segment ids [64] and, at d =
+// 128 (SHARED_ROWS), the rows' running max and sum [2][64].
+template <int D>
+struct F32Shape {
+  static constexpr int NT = 128, ROWS = 64, KEYS = 64;
+  static constexpr bool SHARED_ROWS = D == 128;
+  static constexpr size_t smem =
+      4 * (3 * ROWS * D + ROWS * KEYS + KEYS + (SHARED_ROWS ? 2 * ROWS : 0));
+};
 
 }  // namespace edl_fwd
 
@@ -146,219 +205,15 @@ constexpr size_t tc_smem_bytes() {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The fp32 kernel and the entry points: part 0.
+// The entry points: part 0.
 #if EDL_PART == 0
-namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // qs, ks: [64][D+1]; vs: [64][D]; ss: [64][BK+1]; row m, l, corr
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
-}
-
-template <int D, bool OFFSET>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, const int* __restrict__ q_seg,
-                     const int* __restrict__ k_seg, int h, int hkv, int lq,
-                     int lk, float scale, int causal, int window,
-                     int pos_offset) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DP = D + 1;  // padded row stride: no bank conflicts
-  constexpr int SP = BK + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + BQ * DP;
-  float* vs = ks + BK * DP;
-  float* ss = vs + BK * D;
-  float* row_m = ss + BQ * SP;
-  float* row_l = row_m + BQ;
-  float* row_c = row_l + BQ;
-  __shared__ int qs_seg[BQ], ks_seg[BK];
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int kvh = (bh % h) / (h / hkv);
-  const float* qb = q + (size_t)bh * lq * D;
-  const float* kb = k + (size_t)(b * hkv + kvh) * lk * D;
-  const float* vb = v + (size_t)(b * hkv + kvh) * lk * D;
-  const float qscale = scale * LOG2E;
-  const bool segs = q_seg != nullptr;
-  if (segs && tid < BQ)
-    qs_seg[tid] = q0 + tid < lq ? q_seg[(size_t)b * lq + q0 + tid] : -1;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, e = i % D;
-    qs[r * DP + e] = (q0 + r < lq) ? qb[(size_t)(q0 + r) * D + e] * qscale
-                                   : 0.f;
-  }
-  if (tid < BQ) {
-    row_m[tid] = NEG_INF;
-    row_l[tid] = 0.f;
-  }
-
-  // 16 x 16 thread grid: rows ty*4 + i, columns tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  // causal: keys past the tile's last position are invisible to all its
-  // rows; window: keys before p0 - window + 1 are invisible to all of
-  // them, and (not causal) keys past p0 + BQ - 2 + window too
-  const int p0 = OFFSET ? q0 + pos_offset : q0;
-  int k_lo = 0, k_end = causal ? min(lk, p0 + BQ) : lk;
-  if (window > 0) {
-    k_lo = max(0, p0 - window + 1);
-    if (!causal) k_end = min(lk, p0 + BQ - 1 + window);
-  }
-  if (OFFSET) k_end = max(k_end, 0);
-  const int n_kt = (k_end + BK - 1) / BK;
-  for (int kt = k_lo / BK; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, e = i % D;
-      const bool in = k0 + r < lk;
-      ks[r * DP + e] = in ? kb[(size_t)(k0 + r) * D + e] : 0.f;
-      vs[r * D + e] = in ? vb[(size_t)(k0 + r) * D + e] : 0.f;
-    }
-    if (segs && tid < BK)
-      ks_seg[tid] = k0 + tid < lk ? k_seg[(size_t)b * lk + k0 + tid] : -1;
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < D; ++e) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * DP + e];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * DP + e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * c[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty * 4 + i, c = tx + 16 * j;
-        const int kp = k0 + c, qp = p0 + r;
-        bool valid = kp < lk && (!causal || kp <= qp);
-        if (window > 0)
-          valid = valid && qp - kp < window && (causal || kp - qp < window);
-        if (segs) valid = valid && qs_seg[r] == ks_seg[c];
-        ss[r * SP + c] = valid ? s[i][j] : NEG_INF;
-      }
-    __syncthreads();
-
-    {  // online softmax: four neighbouring lanes share one row
-      const int r = tid / 4, part = tid % 4;
-      float mx = NEG_INF;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, ss[r * SP + c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = row_m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part; c < BK; c += 4) {
-        const float sv = ss[r * SP + c];
-        const float p = sv > 0.5f * NEG_INF ? exp2f(sv - m_new) : 0.f;
-        ss[r * SP + c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float corr = exp2f(m_prev - m_new);
-        row_l[r] = row_l[r] * corr + sum;
-        row_m[r] = m_new;
-        row_c[r] = corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = row_c[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty * 4 + i) * SP + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = vs[kk * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += p[i] * vv;
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r < lq) {
-      const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
-      float* orow = o + ((size_t)bh * lq + q0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
-    }
-  }
-  if (tid < BQ && q0 + tid < lq) {
-    const float l = row_l[tid];
-    lse[(size_t)bh * lq + q0 + tid] =
-        l > 0.f ? (row_m[tid] + log2f(l)) * LN2 : -NEG_INF;
-  }
-}
-
-template <int D, bool OFFSET>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           const void* q_seg, const void* k_seg, int b, int h, int hkv,
-           int lq, int lk, float scale, int causal, int window,
-           int pos_offset, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;
-  int err = edl_tc::set_smem(flash_fwd_kernel<D, OFFSET>, smem, &configured);
-  if (err) return err;
-  dim3 grid((lq + BQ - 1) / BQ, b * h);
-  flash_fwd_kernel<D, OFFSET><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), static_cast<const int*>(q_seg),
-      static_cast<const int*>(k_seg), h, hkv, lq, lk, scale, causal, window,
-      pos_offset);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // q [b, h, lq, d], k/v [b, hkv, lk, d], o like q, lse [b, h, lq] fp32;
 // q_seg [b, lq] and k_seg [b, lk] int32 segment ids, or both NULL; all
-// contiguous. window: 0 = none, else the sliding window (lq == lk).
-// pos_offset: the shift of the query positions (any int; 0 = none).
-// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (the tensor-core
-// kernel, whose q, k, v must be 16-byte aligned). Returns the
+// contiguous, q, k, v and o 16-byte aligned. window: 0 = none, else the
+// sliding window (lq == lk). pos_offset: the shift of the query
+// positions (any int; 0 = none). dtype: 0 = float32 (the fp32 FFMA
+// kernel), 1 = bfloat16 (the tensor-core kernel). Returns the
 // cudaError_t of the launch (0 = launched).
 extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* q_seg,
@@ -366,50 +221,387 @@ extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
                              int lq, int lk, int d, float scale, int causal,
                              int window, int pos_offset, int dtype,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hkv <= 0 || h % hkv != 0 || window < 0 ||
       (q_seg == nullptr) != (k_seg == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    using edl_fwd::launch_part;
-    const edl_fwd::Args a{q, k, v, o, lse,
-                          static_cast<const int*>(q_seg),
-                          static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
-                          scale, causal, window, pos_offset, s};
-    if (d == 64)
-      return causal ? launch_part<64, true>(a) : launch_part<64, false>(a);
-    if (d == 128)
-      return causal ? launch_part<128, true>(a) : launch_part<128, false>(a);
-    return (int)cudaErrorInvalidValue;
-  }
-#define EDL_FWD(D)                                                        \
-  return pos_offset != 0                                                 \
-             ? launch<D, true>(q, k, v, o, lse, q_seg, k_seg, b, h, hkv, \
-                               lq, lk, scale, causal, window, pos_offset,\
-                               s)                                        \
-             : launch<D, false>(q, k, v, o, lse, q_seg, k_seg, b, h,     \
-                                hkv, lq, lk, scale, causal, window, 0, s)
-  if (dtype == 0 && d == 64) EDL_FWD(64);
-  if (dtype == 0 && d == 128) EDL_FWD(128);
-#undef EDL_FWD
+  const edl_fwd::Args a{q, k, v, o, lse,
+                        static_cast<const int*>(q_seg),
+                        static_cast<const int*>(k_seg), b, h, hkv, lq, lk,
+                        scale, causal, window, pos_offset,
+                        static_cast<cudaStream_t>(stream)};
+  using edl_fwd::launch_f32;
+  using edl_fwd::launch_part;
+  if (dtype == 0 && d == 64) return launch_f32<64>(a);
+  if (dtype == 0 && d == 128) return launch_f32<128>(a);
+  if (dtype == 1 && d == 64)
+    return causal ? launch_part<64, true>(a) : launch_part<64, false>(a);
+  if (dtype == 1 && d == 128)
+    return causal ? launch_part<128, true>(a) : launch_part<128, false>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one block in bytes of the kernel for dtype
 // (0 float32, 1 bfloat16) and d; -1 where there is none. Reporting only.
 extern "C" int edl_flash_fwd_smem_bytes(int dtype, int d) {
+  using edl_fwd::F32Shape;
   if (dtype == 1 && (d == 64 || d == 128))
     return (int)(d == 64 ? tc_smem_bytes<64>() : tc_smem_bytes<128>());
   if (dtype == 0 && (d == 64 || d == 128))
-    return (int)(d == 64 ? smem_bytes<64>() : smem_bytes<128>());
+    return (int)(d == 64 ? F32Shape<64>::smem : F32Shape<128>::smem);
   return -1;
 }
 
 #endif  // EDL_PART == 0
 
 // ---------------------------------------------------------------------------
+// The fp32 kernel: FFMA, part 5 d = 64, part 6 d = 128.
+#if EDL_PART == 5 || EDL_PART == 6
+namespace {
+
+using edl_fwd::F32Shape;
+using edl_tc::axpy4;
+using edl_tc::cp_async16;
+using edl_tc::cp_async_commit;
+using edl_tc::cp_async_wait_all;
+using edl_tc::dot4;
+using edl_tc::f32_straddles;
+using edl_tc::f32_visible;
+using edl_tc::ld4;
+using edl_tc::set_smem;
+using edl_tc::smem_u32;
+
+constexpr int NT = 128, FR = 64, KN = 64;  // F32Shape's
+
+// Keys [k0, k0 + KN) of a row-major [lk, D] fp32 matrix into a [KN][D]
+// shared tile with cp.async, 16 bytes a thread; keys past lk are
+// zero-filled. SWZ: K's swizzle (chunk c of row r at c ^ ((r / 4) % 8)).
+template <int D, bool SWZ>
+__device__ __forceinline__ void stage_keys(float* dst, const float* src,
+                                           int k0, int lk) {
+  constexpr int CPR = D / 4;  // chunks per row
+#pragma unroll
+  for (int n = 0; n < KN * CPR / NT; ++n) {
+    const int i = threadIdx.x + NT * n;
+    const int r = i / CPR, c = i % CPR;
+    const bool in = k0 + r < lk;
+    cp_async16(smem_u32(dst + r * D + ((SWZ ? c ^ ((r >> 2) & 7) : c) << 2)),
+               src + (size_t)(in ? k0 + r : 0) * D + 4 * c, in ? 16u : 0u);
+  }
+}
+
+// The Q tile, rows q0 .. q0 + 63 of a [lq, D] matrix, multiplied by c in
+// fp32, into a [FR][D] shared tile; rows past lq are zero.
+template <int D>
+__device__ __forceinline__ void stage_q(float* dst, const float* src, int q0,
+                                        int lq, float c) {
+  constexpr int CPR = D / 4;
+#pragma unroll
+  for (int n = 0; n < FR * CPR / NT; ++n) {
+    const int i = threadIdx.x + NT * n;
+    const int r = i / CPR, cc = i % CPR;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < lq) {
+      x = ld4(src + (size_t)(q0 + r) * D + 4 * cc);
+      x = make_float4(x.x * c, x.y * c, x.z * c, x.w * c);
+    }
+    *reinterpret_cast<float4*>(dst + r * D + 4 * cc) = x;
+  }
+}
+
+// s = the thread's 8 x 4 block of Q K^T: its rows of the Q tile (qrow:
+// the first), its keys of the swizzled K tile (krow: the first key's
+// row; sw its swizzle, the same for the 4), over the depth D. Eight
+// chunks of depth are unrolled, the rest is a loop.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[8][4], const float* qrow,
+                                       const float* krow, int sw) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+  for (int hi = 0; hi < D; hi += 32) {  // chunks hi / 4 .. hi / 4 + 7
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float4 kf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kf[j] = ld4(krow + j * D + hi + ((u ^ sw) << 2));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = ld4(qrow + i * D + hi + 4 * u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(a, kf[j], s[i][j]);
+      }
+    }
+  }
+}
+
+// acc += the thread's rows of P (prow: its first row of the warp's P
+// tile) times V (vcol: its first feature of the V tile), over the KN
+// keys; NC float4s of features a row. 4 * PU keys are unrolled.
+template <int D>
+__device__ __forceinline__ void pv(float (&acc)[8][D / 64][4],
+                                   const float* prow, const float* vcol) {
+  constexpr int NC = D / 64, PU = D == 64 ? 8 : 4;
+#pragma unroll 1
+  for (int k4 = 0; k4 < KN; k4 += 4 * PU) {
+#pragma unroll
+    for (int u = 0; u < PU; ++u) {
+      const int kk = k4 + 4 * u;  // keys kk .. kk + 3
+      float4 y[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) y[n][t] = ld4(vcol + (kk + t) * D + 64 * n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 x = ld4(prow + i * KN + kk);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) axpy4(acc[i][n], x, y[n]);
+      }
+    }
+  }
+}
+
+// GEN: the general instance (the masks from the runtime flags; OFFSET:
+// with pos_offset); otherwise no mask code, only the ragged key edge.
+template <int D, bool GEN, bool OFFSET>
+__global__ void __launch_bounds__(NT, 2)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, const int* __restrict__ q_seg,
+                  const int* __restrict__ k_seg, int h, int hkv, int lq,
+                  int lk, float scale, int causal_arg, int window_arg,
+                  int pos_offset) {
+  constexpr int NC = D / 64;
+  constexpr bool SHARED_ROWS = F32Shape<D>::SHARED_ROWS;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;                                // [FR][D], scaled
+  float* ks = qs + FR * D;                             // [KN][D], swizzled
+  float* vs = ks + KN * D;                             // [KN][D]
+  float* ps = vs + KN * D;                             // [FR][KN]
+  int* ks_seg = reinterpret_cast<int*>(ps + FR * KN);  // [KN]
+  float* row_m = reinterpret_cast<float*>(ks_seg + KN);  // [FR] (d = 128)
+  float* row_l = row_m + FR;                             // [FR] (d = 128)
+
+  const bool causal = GEN && causal_arg != 0;
+  const int window = GEN ? window_arg : 0;
+  const bool segs = GEN && q_seg != nullptr;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FR;  // longest rows first
+  const int b = bh / h;
+  const int kvh = (bh % h) / (h / hkv);
+  const size_t q_off = (size_t)bh * lq * D;
+  const float* kb = k + (size_t)(b * hkv + kvh) * lk * D;
+  const float* vb = v + (size_t)(b * hkv + kvh) * lk * D;
+  const int p0 = q0 + (OFFSET ? pos_offset : 0);
+
+  // the key tiles some row of the tile can see (_kv_stream_clamp)
+  int k_lo = 0, k_end = causal ? min(lk, p0 + FR) : lk;
+  if (window > 0) {
+    k_lo = max(0, p0 - window + 1);
+    if (!causal) k_end = min(lk, p0 + FR - 1 + window);
+  }
+  k_end = max(k_end, 0);
+  const int kt_lo = k_lo / KN, kt_end = (k_end + KN - 1) / KN;
+
+  auto stage_k = [&](int kt) {
+    stage_keys<D, true>(ks, kb, kt * KN, lk);
+    if (segs && tid < KN) {
+      const int kp = kt * KN + tid;
+      ks_seg[tid] = kp < lk ? k_seg[(size_t)b * lk + kp] : -1;
+    }
+  };
+  if (kt_lo < kt_end) stage_k(kt_lo);
+  cp_async_commit();
+  stage_q<D>(qs, q + q_off, q0, lq, scale * LOG2E);
+
+  // the thread's rows r0 .. r0 + 7, keys 4 c4 .. 4 c4 + 3 of a tile and
+  // features 4 c4 + 64 n; sw: its keys' swizzle, (4 c4 + j) / 4 % 8
+  const int r0 = 16 * warp + 8 * (lane / 16), c4 = lane % 16, sw = lane & 7;
+  const float* qrow = qs + r0 * D;
+  const float* krow = ks + 4 * c4 * D;
+  float* prow = ps + r0 * KN;
+  const float* vcol = vs + 4 * c4;
+
+  float acc[8][NC][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][n][j] = 0.f;
+  // the rows' running max m and sum l: in registers, each lane its share
+  // of l, summed at the end; at d = 128, where O takes 64 registers, in
+  // shared memory, l summed over the row's lanes every tile
+  float m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  if (SHARED_ROWS && c4 == 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      row_m[r0 + i] = NEG_INF;
+      row_l[r0 + i] = 0.f;
+    }
+  for (int kt = kt_lo; kt < kt_end; ++kt) {
+    const int k0 = kt * KN;
+    cp_async_wait_all();
+    __syncthreads();  // K (and Q) landed; the last tile's V readers done
+    stage_keys<D, false>(vs, vb, k0, lk);
+    cp_async_commit();
+
+    // at a mask edge, which of the thread's pairs are visible (bit 4 i +
+    // j), found before the product, while S's registers are free
+    const bool edge = k0 + KN > lk ||
+        (GEN && f32_straddles(p0, FR, k0, KN, causal, window, segs));
+    uint32_t seen = ~0u;
+    if (edge) {
+      seen = 0u;
+      const int4 ksg = segs ? *reinterpret_cast<const int4*>(ks_seg + 4 * c4)
+                            : make_int4(0, 0, 0, 0);
+      const int kseg[4] = {ksg.x, ksg.y, ksg.z, ksg.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = q0 + r0 + i;
+        const int qseg = segs && r < lq ? q_seg[(size_t)b * lq + r] : -1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kp = k0 + 4 * c4 + j;
+          bool vis = kp < lk;
+          if (GEN)
+            vis = vis && f32_visible(p0 + r0 + i, kp, causal, window) &&
+                  (!segs || qseg == kseg[j]);
+          seen |= (uint32_t)vis << (4 * i + j);
+        }
+      }
+    }
+
+    float s[8][4];
+    scores<D>(s, qrow, krow, sw);  // S = Q K^T, log2 units
+    if (edge) {
+      const float neg_inf = __int_as_float(0xff800000);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (!((seen >> (4 * i + j)) & 1u)) s[i][j] = neg_inf;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int x = 1; x < 16; x <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float m_old = SHARED_ROWS ? row_m[r0 + i] : m[i];
+      const float m_new = fmaxf(m_old, mx);
+      const float corr = exp2f(m_old - m_new);
+      float p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = exp2f(s[i][j] - m_new);
+      float sum = (p[0] + p[1]) + (p[2] + p[3]);
+      if (SHARED_ROWS) {
+#pragma unroll
+        for (int x = 1; x < 16; x <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, x);
+        l[i] = row_l[r0 + i] * corr + sum;  // stored below
+      } else {
+        l[i] = l[i] * corr + sum;
+      }
+      m[i] = m_new;
+      *reinterpret_cast<float4*>(prow + i * KN + 4 * c4) =
+          make_float4(p[0], p[1], p[2], p[3]);
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][n][j] *= corr;
+    }
+    if (SHARED_ROWS) {
+      __syncwarp();  // the row's lanes have read the old m and l
+      if (c4 == 0)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          row_m[r0 + i] = m[i];
+          row_l[r0 + i] = l[i];
+        }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // V landed; K's readers and the P rows are done
+    if (kt + 1 < kt_end) stage_k(kt + 1);
+    cp_async_commit();
+    pv<D>(acc, prow, vcol);  // O += P V
+  }
+  cp_async_wait_all();  // a block that ran no tile still has copies out
+  if (SHARED_ROWS) __syncwarp();  // the last tile's m and l are stored
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float sum = SHARED_ROWS ? row_l[r0 + i] : l[i];
+    const float mi = SHARED_ROWS ? row_m[r0 + i] : m[i];
+    if (!SHARED_ROWS)
+#pragma unroll
+      for (int x = 1; x < 16; x <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, x);
+    const int r = q0 + r0 + i;
+    if (r >= lq) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    float* orow = o + q_off + (size_t)r * D + 4 * c4;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      *reinterpret_cast<float4*>(orow + 64 * n) =
+          make_float4(acc[i][n][0] * inv, acc[i][n][1] * inv,
+                      acc[i][n][2] * inv, acc[i][n][3] * inv);
+    if (c4 == 0)
+      lse[(size_t)bh * lq + r] = sum > 0.f ? (mi + log2f(sum)) * LN2
+                                           : -NEG_INF;
+  }
+}
+
+template <int D, bool GEN, bool OFFSET>
+int launch_f32_instance(const edl_fwd::Args& a) {
+  constexpr size_t smem = F32Shape<D>::smem;
+  static bool configured = false;
+  int err = set_smem(flash_fwd_f32<D, GEN, OFFSET>, smem, &configured);
+  if (err) return err;
+  dim3 grid(a.b * a.h, (a.lq + FR - 1) / FR);
+  flash_fwd_f32<D, GEN, OFFSET><<<grid, NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.q_seg, a.k_seg, a.h, a.hkv, a.lq, a.lk,
+      a.scale, a.causal, a.window, a.pos_offset);
+  return (int)cudaGetLastError();
+}
+
+// the instance with no mask code when every mask flag is off
+template <int D>
+int launch_f32_fwd(const edl_fwd::Args& a) {
+  if (a.pos_offset != 0) return launch_f32_instance<D, true, true>(a);
+  const bool general = a.causal != 0 || a.window > 0 || a.q_seg != nullptr;
+  return general ? launch_f32_instance<D, true, false>(a)
+                 : launch_f32_instance<D, false, false>(a);
+}
+
+}  // namespace
+
+namespace edl_fwd {
+#if EDL_PART == 5
+template <> int launch_f32<64>(const Args& a) { return launch_f32_fwd<64>(a); }
+#else
+template <> int launch_f32<128>(const Args& a) {
+  return launch_f32_fwd<128>(a);
+}
+#endif
+}  // namespace edl_fwd
+
+#endif  // EDL_PART 5, 6
+
+// ---------------------------------------------------------------------------
 // The bf16 kernel: wgmma on tensor cores, parts 1-4.
-#if EDL_PART > 0
+#if EDL_PART >= 1 && EDL_PART <= 4
 namespace {
 
 using namespace edl_tc;
@@ -684,4 +876,4 @@ EDL_TC_PART(128, true)
 #endif
 #undef EDL_TC_PART
 
-#endif  // EDL_PART > 0
+#endif  // EDL_PART 1-4

@@ -4,7 +4,9 @@
 // operands from shared memory, K-major; RS: A from registers, B read
 // MN-major), the accumulator -> bf16 A-fragment packing, and the
 // per-tile mask tests. Every tile is 64 rows (queries or keys) of D
-// bf16 columns, stored as D / 64 panels of 64 rows x 128 bytes.
+// bf16 columns, stored as D / 64 panels of 64 rows x 128 bytes. Also the
+// float4 FMA steps and runtime-flag mask tests of the fp32 kernels (both
+// files), and the launchers' shared-memory setting.
 
 #pragma once
 
@@ -268,6 +270,53 @@ template <class M>
 __device__ __forceinline__ bool visible(int qp, int kp, int window) {
   return (!M::causal || kp <= qp) &&
          (!M::window || (qp - kp < window && (M::causal || kp - qp < window)));
+}
+
+// The fp32 kernels' building blocks: 16-byte shared-memory loads, and
+// the FMA steps of a product over one float4 of its reduction dimension.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc + a . b over the four lanes of a float4, in order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// acc[0..3] += x.x * b[0] + x.y * b[1] + x.z * b[2] + x.w * b[3], per lane
+__device__ __forceinline__ void axpy4(float (&acc)[4], float4 x,
+                                      const float4 (&b)[4]) {
+  acc[0] = fmaf(x.w, b[3].x, fmaf(x.z, b[2].x, fmaf(x.y, b[1].x,
+                                                    fmaf(x.x, b[0].x, acc[0]))));
+  acc[1] = fmaf(x.w, b[3].y, fmaf(x.z, b[2].y, fmaf(x.y, b[1].y,
+                                                    fmaf(x.x, b[0].y, acc[1]))));
+  acc[2] = fmaf(x.w, b[3].z, fmaf(x.z, b[2].z, fmaf(x.y, b[1].z,
+                                                    fmaf(x.x, b[0].z, acc[2]))));
+  acc[3] = fmaf(x.w, b[3].w, fmaf(x.z, b[2].w, fmaf(x.y, b[1].w,
+                                                    fmaf(x.x, b[0].w, acc[3]))));
+}
+
+// The fp32 kernels' mask tests, the masks as runtime flags: whether the
+// query at position qp sees the key at kp under the causal and window
+// masks, and whether the tile of query positions p0 .. p0 + nq - 1 and
+// keys k0 .. k0 + nk - 1 holds a pair that they hide (with segments
+// every tile does).
+__device__ __forceinline__ bool f32_visible(int qp, int kp, bool causal,
+                                            int window) {
+  return (!causal || kp <= qp) &&
+         (window <= 0 || (qp - kp < window && (causal || kp - qp < window)));
+}
+
+__device__ __forceinline__ bool f32_straddles(int p0, int nq, int k0, int nk,
+                                              bool causal, int window,
+                                              bool segs) {
+  if (segs) return true;
+  bool edge = causal && k0 + nk - 1 > p0;
+  if (window > 0) {
+    edge = edge || p0 + nq - 1 - k0 >= window;
+    if (!causal) edge = edge || k0 + nk - 1 - p0 >= window;
+  }
+  return edge;
 }
 
 // Raises a kernel's dynamic shared-memory limit once (the launchers'

@@ -46,9 +46,10 @@ NVCC_FLAGS = (
 # source -> number of parts: csrc/flash_bwd.cu part 0 the entry points,
 # 1-8 the bf16 tensor-core instances of one (pass, head dim, output
 # dtype) each, 9 and 10 the fp32 dq and dk/dv instances; csrc/flash_fwd.cu
-# part 0 the entry points and fp32 kernel, 1-4 one bf16 (head dim,
-# causal) each; csrc/paged_decode.cu one arena dtype each
-PARTS = {"flash_bwd": 11, "flash_fwd": 5, "paged_decode": 3}
+# part 0 the entry points, 1-4 one bf16 (head dim, causal) each, 5 and 6
+# the fp32 instances of one head dim each; csrc/paged_decode.cu one arena
+# dtype each
+PARTS = {"flash_bwd": 11, "flash_fwd": 7, "paged_decode": 3}
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

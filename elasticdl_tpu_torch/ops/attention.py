@@ -9,7 +9,9 @@ Kernels (hand-written CUDA for sm_90a, elasticdl_tpu_torch/csrc/):
 
 * `flash_forward` -> csrc/flash_fwd.cu, the port of `_flash_kernel`
   (wgmma on tensor cores for bf16, with q scaled in bf16 and P rounded
-  to bf16 as the TPU kernel does; a scalar fp32 kernel for fp32);
+  to bf16 as the TPU kernel does; for fp32 a kernel on the CUDA cores'
+  FMAs, with register blocks fed by 16-byte shared-memory loads and
+  whole query rows a warp);
 * `flash_backward_dq` / `flash_backward_dkv` -> csrc/flash_bwd.cu, the
   ports of `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (wgmma on
   tensor cores for bf16, with P and dS rounded to bf16 before the
@@ -684,7 +686,7 @@ def _bwd_args(name, q, k, v, do, lse, extra=()):
 
 def _aligned16(t):
     """`t`, or a copy of it where its data does not start on a 16-byte
-    boundary (the bf16 flash kernels copy rows 16 bytes at a time)."""
+    boundary (the flash kernels copy rows 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

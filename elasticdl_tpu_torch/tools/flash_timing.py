@@ -8,7 +8,7 @@ imports `elasticdl_tpu_torch` from PYTHONPATH (so the same file times
 any checkout whose wrappers take these arguments), builds its kernels,
 and prints one JSON line: each case's device ms, with the card's name
 and power limit. The groups (all but vit by default): flash (A, C,
-D), paged (B), dense (G), embedding (E, F), vit (C and D in fp32).
+D), paged (B), dense (G), embedding (E, F), vit (A, C and D in fp32).
 "Hot": the median of 5 rounds of 50
 CUDA-graph replays of one call between CUDA events, so its inputs sit in
 L2 where they fit. "Cold" (B): 8 calls over 8 disjoint arena pairs in
@@ -30,17 +30,18 @@ inputs from seeded generators:
 * aten's flash-attention backward (dq, dk and dv in one call) at the
   training shape, causal: the yardstick of C + D.
 
-The `vit` group: C and D in fp32 (TF32 off) at ViT-Base's path shape
-(b 64, h 12, l 256, d 64, not causal), at l 197 (ViT-B/16 at 224 px,
-196 patches and the class token) and at the training shape (b 8, h 8,
-l 1024, d 128, causal: the fp32 d 128 instances), each beside SDPA's
-autograd backward on the same inputs (dq, dk and dv; forward and
-backward less the forward, eager between CUDA events, 20 calls: the
-memory-efficient kernel, which SDPA runs for fp32), and with the
-kernels' ms over the operations bound at the card's 67 TFLOP/s fp32
-rate (`_bound_share`); at the path's shape also the SM clock and power
-draw while C and D run back to back for 2 s (`_clocks`: the median of
-nvidia-smi's 100 ms samples). Not in the default groups.
+The `vit` group: A, C and D in fp32 (TF32 off) at ViT-Base's path
+shape (b 64, h 12, l 256, d 64, not causal), at l 197 (ViT-B/16 at 224
+px, 196 patches and the class token) and at the training shape (b 8,
+h 8, l 1024, d 128, causal: the fp32 d 128 instances); A beside SDPA's
+fp32 forward (hot, graph-replayed: the memory-efficient kernel, which
+SDPA runs for fp32), C and D beside SDPA's autograd backward on the
+same inputs (dq, dk and dv; forward and backward less the forward,
+eager between CUDA events, 20 calls), each kernel's ms also over the
+operations bound at the card's 67 TFLOP/s fp32 rate (`_bound_share`);
+at the path's shape also the SM clock and power draw while C and D run
+back to back for 2 s, and while A runs for 2 s (`_clocks`: the median
+of nvidia-smi's 100 ms samples). Not in the default groups.
 
 B, `paged_decode_partials` (hkv 8, d 128, blocks of 16, tables of 64
 slots), bf16 arenas and the same quantized to int8 with fp32 row scales,
@@ -483,20 +484,29 @@ def _clocks(fn, seconds=2.0):
     return mhz, watts, rows[0][2]
 
 
-def _bound_share(ms, b, h, l, d, causal, dkv):
+def _bound_share(ms, b, h, l, d, causal, ops_per_pair):
+    """The operations bound at the fp32 rate over ms: `ops_per_pair`
+    times d operations per visible (query, key) pair (A 4, C 6, D 8)."""
     pairs = l * (l + 1) // 2 if causal else l * l
-    flops = (8 if dkv else 6) * d * pairs * b * h
+    flops = ops_per_pair * d * pairs * b * h
     return flops / PEAK_FP32_FLOPS * 1e3 / ms
 
 
 def _vit_cases(out):
-    """C and D in fp32 (see the module docstring)."""
+    """A, C and D in fp32 (see the module docstring)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     for name, (b, h, l, d, causal) in VIT_CASES.items():
         q, k, v, do = (torch.randn(b, h, l, d, generator=gen).cuda()
                        for _ in range(4))
+        fwd_ms = out["flash_fwd_" + name] = _replay_ms(
+            lambda: att.flash_forward(q, k, v, causal=causal))
+        out["sdpa_fwd_" + name] = _replay_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal))
+        out["bound_share_fwd_" + name] = _bound_share(fwd_ms, b, h, l, d,
+                                                      causal, 4)
         o, lse = att.flash_forward(q, k, v, causal=causal)
         _dq, delta = att.flash_backward_dq(q, k, v, o, lse, do,
                                            causal=causal)
@@ -512,10 +522,12 @@ def _vit_cases(out):
                 att.flash_backward_dq(q, k, v, o, lse, do, causal=causal),
                 att.flash_backward_dkv(q, k, v, do, lse, delta,
                                        causal=causal)))
+            out["sm_mhz_watts_max_mhz_fwd_" + name] = _clocks(
+                lambda: att.flash_forward(q, k, v, causal=causal))
         out["bound_share_dq_" + name] = _bound_share(dq_ms, b, h, l, d,
-                                                     causal, False)
+                                                     causal, 6)
         out["bound_share_dkv_" + name] = _bound_share(dkv_ms, b, h, l, d,
-                                                      causal, True)
+                                                      causal, 8)
         del q, k, v, do, o, lse, _dq, delta
         torch.cuda.empty_cache()
 
