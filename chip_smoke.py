@@ -484,6 +484,32 @@ repository checkout it sits in. Phases, each of which fails the run:
    then held to their plain versions and timed at both encoders' path
    shapes (ENC_KERNEL_SHAPES) beside their bound, the plain version,
    SDPA and aten's backward.
+34. the metrics plane and tail forensics on the serving fleet
+   (metrics_plane_phase), at the flagship's serving configuration
+   (bf16, paged, block 16, MP_SLOTS slots): (a) phase 16's requests
+   twice through an in-process replica, admitted while the scheduler
+   waits on a held job, with the plane off (forensics off, no metrics
+   port) and on (forensics on, /metrics on port 0 scraped from another
+   thread throughout, every page through the port's parser): the
+   streams token for token and A's and B's launches by variant equal,
+   decode tokens/s of both and the scrape's and render's ms a record;
+   (b) two `serving.main --device cuda --kv_paged 1 --metrics_port 0
+   --port 0` processes (started before (a)) behind a `router_main
+   --metrics_port 0` process, all under a temporary EDL_TRACE_DIR; 24
+   routed requests (the 16, then 4 with deadlines too tight for their
+   64 tokens, then after the first scrape 4 with loose deadlines) while
+   observability.collector.scrape_fleet scrapes the router MP_SCRAPES
+   times MP_INTERVAL_S apart; every page parses clean; the router's
+   completed plus errors is the 24 sent; its fleet TTFT buckets equal
+   the replicas' summed `edl_serving_ttft_ms` buckets; the status RPCs'
+   counters equal the pages'; `slow_cause_counts` nonzero and equal to
+   its family; the collector CLI against the live router (rc 0, a valid
+   report, no torch in its /proc/<pid>/maps); SIGTERM (each process
+   exports its spans); build_report with a TTFT objective at half the
+   run's smallest TTFT bucket validates, alerts on ttft_p99 and resolves
+   at least one exemplar to a trace attributed to a cause of CAUSES,
+   the span evidence complete; the dump CLI over the directory, and one
+   router_generate -> dispatch -> serve tree for every routed request.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -507,7 +533,8 @@ and a `vision_zoo` line (its launches, all 0, ride the `kernels` line as
 `launches_vision_zoo`) and an `encoder_zoo` line (its launches by part
 ride the `kernels` line as `launches_bert_vit`; A, C and D timed at the
 bert and vit shapes are the `kernels` entries named `..._bert` and
-`..._vit`), each with
+`..._vit`) and a `metrics_plane` line (its A and B launches by pass ride
+the `kernels` line as `launches_metrics_plane`), each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -533,6 +560,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.request
 from datetime import timedelta
 
 import numpy as np
@@ -618,7 +646,15 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     kv_quantize_rows,
 )
 from elasticdl_tpu_torch.native.host_embedding import HostEmbeddingStore
+from elasticdl_tpu_torch.observability import collector, dump, forensics
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
+from elasticdl_tpu_torch.observability.metrics import (
+    add_counts,
+    render_prometheus,
+)
+from elasticdl_tpu_torch.observability.promparse import parse_prometheus_text
+from elasticdl_tpu_torch.observability.slo import default_router_slos
+from elasticdl_tpu_torch.observability.tracing import group_by_trace
 from elasticdl_tpu_torch.proto import messages as wire_pb
 from elasticdl_tpu_torch.proto import service as wire_service
 from elasticdl_tpu_torch.ops import _build
@@ -8322,12 +8358,13 @@ def _router_replay(model, entries, errs, held, on_card, reseat=False):
 class _Child(object):
     """A child process of the phase whose output lines are collected."""
 
-    def __init__(self, argv, what, fault=""):
+    def __init__(self, argv, what, fault="", extra_env=None):
         repo = os.path.dirname(os.path.abspath(__file__))
         env = dict(os.environ)
         env.pop("EDL_FAULT_SPEC", None)
         if fault:
             env["EDL_FAULT_SPEC"] = fault
+        env.update(extra_env or {})
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (repo, env.get("PYTHONPATH")) if p)
         self.what, self.lines = what, []
@@ -8399,7 +8436,7 @@ def _router_child(addrs, what, fault=""):
     return child
 
 
-def _routed(stub, method, trace, prompt, new, out=None):
+def _routed(stub, method, trace, prompt, new, out=None, deadline_ms=0):
     """One call carrying `trace` as its trace id, into `out`: the new
     tokens, done, the failure's status (None) and details, the chunk
     count and the client stamps (send, first token, end)."""
@@ -8407,7 +8444,7 @@ def _routed(stub, method, trace, prompt, new, out=None):
     out.update(trace=trace, tokens=[], done=False, code=None, chunks=0,
                t_send=time.perf_counter())
     req = wire_pb.GenerateRequest(prompt=prompt, max_new_tokens=new,
-                                  trace_id=trace)
+                                  trace_id=trace, deadline_ms=deadline_ms)
     try:
         if method.endswith("_stream"):
             for chunk in getattr(stub, method)(req, timeout=ROUTER_WAIT_S):
@@ -10751,6 +10788,389 @@ def time_encoder_kernels(launches):
     return entries
 
 
+MP_SLOTS = 8  # the flagship serving configuration's (bench.py)
+MP_TIGHT_DEADLINE_MS = (100, 150, 200, 250)  # sent behind the specs
+MP_TIGHT_NEW = 64  # more tokens than such a deadline can decode
+MP_LATE_DEADLINE_MS = (1000, 2000, 4000, 8000)  # after the first scrape
+MP_LATE_NEW = 16
+MP_SCRAPES, MP_INTERVAL_S = 3, 2.0
+MP_COLLECTOR_INTERVAL_S = 1.0  # the collector CLI's scrapes, 2 of them
+MP_SETTLE_S = 10.0  # bound on the router's heartbeat catching up
+MP_SCRAPE_EVERY_S = 0.1  # (a)'s scraper: 150x Prometheus's usual 15 s
+MP_RENDERS = 50  # renders of (a)'s last families timed after the pass
+MP_WAIT_S = 300
+
+
+def _mp_scraper(server, out, stop):
+    """Scrape `server`'s /metrics every MP_SCRAPE_EVERY_S until `stop`,
+    keeping each page and its round trip's seconds (the pages are
+    parsed after the pass, off its host threads)."""
+    url = "http://127.0.0.1:%d/metrics" % server.metrics.port
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        out["pages"].append(urllib.request.urlopen(url, timeout=60).read()
+                            .decode())
+        out["scrape"].append(time.perf_counter() - t0)
+        stop.wait(MP_SCRAPE_EVERY_S)
+
+
+def _mp_pass(model, specs, plane_on, device):
+    """Phase 34 (a): the specs through an in-process replica at the
+    flagship's serving configuration, admitted while the scheduler waits
+    on a held job (_tiers_pass), with the plane off (forensics off, no
+    metrics port) or on (forensics on, /metrics on an ephemeral port
+    scraped from another thread throughout)."""
+    server = GenerationServer(model, ServingConfig(
+        num_slots=MP_SLOTS, queue_capacity=64, kv_paged=True,
+        kv_block_size=16, kv_shared=True, forensics=plane_on,
+        metrics_port=0 if plane_on else None)).start()
+    scrapes, stop = {"scrape": [], "pages": []}, threading.Event()
+    scraper = None
+    try:
+        server.generate([1, 2, 3, 4], 2)  # warm, outside the counts
+        server.telemetry.reset_latency()  # as the entry's warmup does
+        _sync(device)
+        att.reset_launch_counts()
+        if plane_on:
+            scraper = threading.Thread(target=_mp_scraper,
+                                       args=(server, scrapes, stop),
+                                       daemon=True)
+            scraper.start()
+        reqs, times = _tiers_pass(server, specs)
+        _sync(device)
+        launches = {n: att.KERNEL_LAUNCHES[n] for n in SERVING_KERNELS}
+        stop.set()
+        if scraper is not None:
+            scraper.join(timeout=60)
+            check(not scraper.is_alive() and scrapes["scrape"],
+                  "the /metrics scraper did not finish: %r" % scrapes)
+        tokens = sum(len(r.generated) for r in reqs)
+        exemplars = {ex[0] for ex in
+                     server.telemetry.hists["ttft_ms"].exemplars.values()}
+        traces = {r.trace_id for r in reqs}
+        out = dict(times, tokens=tokens,
+                   decode_tokens_per_s=tokens / times["wall_s"],
+                   ttft_exemplars=len(exemplars))
+        check(all(r.span is not None and r.span.status == "ok"
+                  for r in reqs), "a request's serve span is not ok")
+        if plane_on:
+            check(exemplars and exemplars <= traces, "the TTFT exemplars "
+                  "%s name no request of the pass" % sorted(exemplars))
+            fams = [parse_prometheus_text(text) for text in scrapes["pages"]]
+            last = server._metrics_families()
+            renders = []
+            for _ in range(MP_RENDERS):
+                t0 = time.perf_counter()
+                render_prometheus(last)
+                renders.append(time.perf_counter() - t0)
+            out.update(scrapes=len(scrapes["scrape"]),
+                       scrape_ms=_pcts(scrapes["scrape"]),
+                       render_ms=_pcts(renders),
+                       page_families=len(fams[-1]),
+                       page_bytes=len(scrapes["pages"][-1]))
+        else:
+            check(not exemplars, "exemplars with the plane off")
+    finally:
+        stop.set()
+        server.stop(timeout=120)
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    return [list(r.generated) for r in reqs], launches, out
+
+
+def _mp_get(port):
+    return urllib.request.urlopen("http://127.0.0.1:%d/metrics" % port,
+                                  timeout=60).read().decode()
+
+
+def _mp_value(fams, name, labels=None):
+    """A sample's value on a parsed page (0 when absent)."""
+    for sample_name, lab, value in fams.get(name, {}).get("samples", ()):
+        if sample_name == name and lab == (labels or {}):
+            return value
+    return 0
+
+
+def _mp_metrics_port(child):
+    line = child.line("METRICS_READY")
+    return int(re.match(r"\d+", line.split("port=")[1]).group())
+
+
+def _mp_load(stub, specs):
+    """Phase 34 (b)'s load: a sleep hook for scrape_fleet whose first
+    call sends the specs and, behind them, the tight-deadline requests,
+    and whose second sends the late ones; each call on a thread of its
+    own. Returns (hook, the results by trace, the threads)."""
+    results, threads, calls = {}, [], [0]
+
+    def send(trace, prompt, new, deadline_ms):
+        method = ("router_generate" if len(results) % 3 == 1 else
+                  "router_generate_stream")
+        results[trace] = {}
+        t = threading.Thread(target=_routed, args=(
+            stub, method, trace, prompt, new, results[trace]),
+            kwargs={"deadline_ms": deadline_ms}, daemon=True)
+        t.start()
+        threads.append(t)
+
+    def hook(secs):
+        t0 = time.monotonic()
+        calls[0] += 1
+        if calls[0] == 1:
+            for i, (prompt, new) in enumerate(specs):
+                send("mp-spec-%02d" % i, prompt, new, 0)
+            time.sleep(0.1)  # the tight ones queue behind them
+            for i, deadline in enumerate(MP_TIGHT_DEADLINE_MS):
+                send("mp-tight-%d" % i, specs[i][0], MP_TIGHT_NEW, deadline)
+        else:
+            for i, deadline in enumerate(MP_LATE_DEADLINE_MS):
+                send("mp-late-%d" % i, specs[-1 - i][0], MP_LATE_NEW,
+                     deadline)
+        time.sleep(max(0.0, secs - (time.monotonic() - t0)))
+
+    return hook, results, threads
+
+
+def _mp_fleet(specs, trace_dir, children):
+    """Phase 34 (b): two replica processes (`children`, started by the
+    caller) behind a router process, all with /metrics and
+    EDL_TRACE_DIR; the load while scrape_fleet scrapes the router; the
+    counters, buckets and exemplars across pages and status RPCs; the
+    collector CLI against the live router; SIGTERM; the incident report
+    and the dump. The processes it starts join `children`."""
+    out, replicas = {}, list(children)
+    env = {"EDL_TRACE_DIR": trace_dir}
+    for rep in replicas:
+        rep.ready("SERVING_READY")
+    out["replica_ready_s"] = [rep.ready_s for rep in replicas]
+    rep_mports = [_mp_metrics_port(rep) for rep in replicas]
+    addrs = ["localhost:%d" % rep.port for rep in replicas]
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.serving.router_main",
+            "--port", "0", "--metrics_port", "0"]
+    for addr in addrs:
+        argv += ["--replica", addr]
+    router = _Child(argv, "the metrics router", extra_env=env)
+    children.append(router)  # closed by the caller
+    router.ready("ROUTER_READY")
+    r_mport = _mp_metrics_port(router)
+    out["router_ready_s"] = router.ready_s
+    stub = wire_service.RouterStub(wire_service.build_channel(
+        "localhost:%d" % router.port))
+    _wait_polled(stub, 2, "the metrics router")
+    hook, results, threads = _mp_load(stub, specs)
+    sent = len(specs) + len(MP_TIGHT_DEADLINE_MS) + len(MP_LATE_DEADLINE_MS)
+    t0 = time.perf_counter()
+    bundle = collector.scrape_fleet(["127.0.0.1:%d" % r_mport],
+                                    scrapes=MP_SCRAPES,
+                                    interval_secs=MP_INTERVAL_S, sleep=hook)
+    for t in threads:
+        t.join(timeout=MP_WAIT_S)
+        check(not t.is_alive(), "a routed call did not end")
+    out["load_s"] = time.perf_counter() - t0
+    check(len(results) == sent, "%d calls sent, %d wanted"
+          % (len(results), sent))
+    codes = {}
+    for trace, r in results.items():
+        key = r["code"] or "OK"
+        codes[key] = codes.get(key, 0) + 1
+        if not trace.startswith("mp-tight") and r["code"] is None:
+            check(r["done"], "%s ended without done" % trace)
+    out["outcomes"] = codes
+    check(set(codes) <= {"OK", "DEADLINE_EXCEEDED"}, "unexpected outcomes "
+          "%s" % codes)
+    check(codes.get("DEADLINE_EXCEEDED", 0) >= 1, "no tight request "
+          "expired: %s" % codes)
+    # the replicas' pages against their status RPCs, the router's fleet
+    # TTFT buckets against the replicas' summed ones after a heartbeat
+    direct = [wire_service.ServingStub(wire_service.build_channel(a))
+              for a in addrs]
+    deadline = time.monotonic() + MP_SETTLE_S
+    while True:
+        rep_pages = [parse_prometheus_text(_mp_get(p)) for p in rep_mports]
+        summed = []
+        for fams in rep_pages:
+            counts, _ex = collector._counts_from_hist_family(
+                fams["edl_serving_ttft_ms"])
+            summed = add_counts(summed, counts)
+        r_page = parse_prometheus_text(_mp_get(r_mport))
+        fleet, _ex = collector._counts_from_hist_family(
+            r_page["edl_router_fleet_ttft_ms"])
+        if fleet == summed or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(fleet == summed and sum(fleet) > 0, "the router's fleet TTFT "
+          "buckets %s, the replicas' summed %s" % (fleet, summed))
+    rst = stub.router_status(wire_pb.RouterStatusRequest(), timeout=60)
+    for name in ("routed", "completed", "shed", "redispatched", "hedges",
+                 "breaker_trips", "affinity_hits", "affinity_misses"):
+        check(_mp_value(r_page, "edl_router_%s_total" % name)
+              == getattr(rst, name), "router %s: page %s, status %s" % (
+                  name, _mp_value(r_page, "edl_router_%s_total" % name),
+                  getattr(rst, name)))
+    errors = int(_mp_value(r_page, "edl_router_errors_total"))
+    check(rst.routed == sent and rst.completed + errors + rst.shed == sent
+          and rst.completed == codes.get("OK", 0),
+          "router: routed %d completed %d errors %d shed %d of %d sent"
+          % (rst.routed, rst.completed, errors, rst.shed, sent))
+    slow = [0] * len(forensics.CAUSES)
+    rep_rows = []
+    for fams, s in zip(rep_pages, direct):
+        st = s.server_status(wire_pb.ServerStatusRequest(), timeout=60)
+        for name in ("admitted", "rejected", "expired", "completed",
+                     "tokens_generated"):
+            check(_mp_value(fams, "edl_serving_%s_total" % name)
+                  == getattr(st, name), "replica %s: page %s, status %s"
+                  % (name, _mp_value(fams, "edl_serving_%s_total" % name),
+                     getattr(st, name)))
+        page_slow = [int(_mp_value(fams, "edl_serving_slow_cause_total",
+                                   {"cause": c})) for c in forensics.CAUSES]
+        check(page_slow == list(st.slow_cause_counts), "slow causes: page "
+              "%s, status %s" % (page_slow, list(st.slow_cause_counts)))
+        slow = [a + b for a, b in zip(slow, page_slow)]
+        rep_rows.append({"completed": st.completed, "expired": st.expired,
+                         "slow_cause_counts": list(st.slow_cause_counts),
+                         "ttft_exemplars": len(
+                             fams["edl_serving_ttft_ms"]["exemplars"])})
+    check(sum(slow) > 0, "no slow cause counted: %s" % slow)
+    out["router"] = {"routed": rst.routed, "completed": rst.completed,
+                     "errors": errors, "shed": rst.shed,
+                     "e2e_p50_ms": rst.e2e_p50_ms,
+                     "ttft_p50_ms": rst.ttft_p50_ms,
+                     "ttft_p99_ms": rst.ttft_p99_ms}
+    out["replicas"] = rep_rows
+    out["slow_cause_counts"] = dict(zip(forensics.CAUSES, slow))
+    # the collector CLI against the live router: no torch in its maps
+    report_path = os.path.join(trace_dir, "cli_report.json")
+    cli = _Child([sys.executable, "-m",
+                  "elasticdl_tpu_torch.observability.collector",
+                  "--endpoints", "127.0.0.1:%d" % r_mport, "--router",
+                  "localhost:%d" % router.port, "--scrapes", "2",
+                  "--interval", str(MP_COLLECTOR_INTERVAL_S), "--out",
+                  report_path, "--trace_dir", trace_dir], "the collector")
+    children.append(cli)
+    time.sleep(MP_COLLECTOR_INTERVAL_S / 2)
+    cli_torch_free = cli.proc.poll() is None and _torch_free(cli.proc.pid)
+    rc = cli.proc.wait(timeout=120)
+    check(rc == 0 and cli_torch_free, "the collector CLI: rc %s, torch free "
+          "%s: %s" % (rc, cli_torch_free, cli.tail()))
+    collector.validate_report(json.load(open(report_path)))
+    out["collector_cli"] = {"rc": rc, "torch_free": cli_torch_free,
+                            "s": time.perf_counter() - cli.t0}
+    cli.close()
+    # SIGTERM flushes each process's spans into the trace directory
+    for child in [router] + list(replicas):
+        child.stop()
+    fleet_hist = LogLinearHistogram.from_counts(fleet)
+    threshold = fleet_hist.percentile(0) / 2  # below the run's p50
+    specs_slo = default_router_slos(threshold, 60000.0, 0.02,
+                                    latency_goal=0.01)
+    report = collector.validate_report(collector.build_report(
+        bundle, specs_slo, trace_dir=trace_dir))
+    resolved = [e for e in report["exemplars"] if e["resolved"]]
+    causes = [report["traces"][e["trace_id"]]["attribution"][
+        "dominant_cause"] for e in resolved]
+    check("ttft_p99" in report["alerting"], "the report does not alert on "
+          "ttft_p99 at %.3f ms: %s" % (threshold, report["slo"]))
+    check(resolved and all(c in forensics.CAUSES for c in causes),
+          "no exemplar resolved to an attributed trace: %s"
+          % report["exemplars"])
+    check(report["span_evidence"]["complete"], "span evidence incomplete: "
+          "%s" % report["span_evidence"])
+    out["report"] = {
+        "ttft_threshold_ms": threshold,
+        "fleet_ttft_p50_ms": fleet_hist.percentile(50),
+        "alerting": report["alerting"],
+        "slo": {r["name"]: {"fast_burn": r["fast_burn"],
+                            "slow_burn": r["slow_burn"]}
+                for r in report["slo"]},
+        "exemplars": len(report["exemplars"]), "resolved": len(resolved),
+        "dominant_causes": causes,
+        "cause_histogram": report["cause_histogram"],
+        "exports": report["span_evidence"]["exports"]}
+    # the dump over the directory, and one router_generate -> dispatch ->
+    # serve tree a routed request
+    dump_out = os.path.join(trace_dir, "trace.json")
+    d = subprocess.run([sys.executable, "-m",
+                        "elasticdl_tpu_torch.observability.dump", "--dir",
+                        trace_dir, "--out", dump_out], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    doc = json.load(open(dump_out))
+    check(d.returncode == 0 and doc["otherData"]["evidence_complete"],
+          "dump: rc %d %s" % (d.returncode, d.stdout + d.stderr))
+    spans, _meta = dump.merge_dir(trace_dir)
+    by_trace = group_by_trace(spans)
+    for trace in results:
+        tree = by_trace.get(trace, [])
+        ids = {s["span_id"]: s for s in tree}
+
+        def parent(span):
+            return ids.get(span["parent_span_id"], {})
+
+        roots = [s for s in tree if s["name"].startswith("router_generate")]
+        chains = [s for s in tree if s["name"] == "serve"
+                  and parent(s).get("name") == "dispatch"
+                  and parent(parent(s)) in roots]
+        check(len(roots) == 1 and len(chains) == 1, "trace %s is not one "
+              "router_generate -> dispatch -> serve tree: %s" % (
+                  trace, sorted((s["name"], s["status"]) for s in tree)))
+    out["trees"] = len(results)
+    out["dump"] = {"spans": len(spans), "traceEvents": len(
+        doc["traceEvents"])}
+    return out
+
+
+def metrics_plane_phase(specs, device="cuda"):
+    """Phase 34: the metrics plane and tail forensics on the serving
+    fleet. (a) the specs twice through an in-process replica, plane off
+    then on (scraped throughout): streams and A / B launches equal,
+    tokens/s and the scrape's and render's ms a record. (b) the fleet
+    (_mp_fleet), its replica processes started after (a), so that their
+    start-up does not share the host with (a)'s passes. Returns the line
+    and (a)'s launches by pass."""
+    on_card = device == "cuda"
+    trace_dir = tempfile.mkdtemp(prefix="metrics_plane_")
+    out, launches, children = {}, {}, []
+    try:
+        model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+        streams = {}
+        for name, plane_on in (("plane_off", False), ("plane_on", True)):
+            streams[name], launches[name], out[name] = _mp_pass(
+                model, specs, plane_on, device)
+        check(streams["plane_on"] == streams["plane_off"], "the plane "
+              "changed the streams from position %s" % (_first_divergence(
+                  sum(streams["plane_on"], []),
+                  sum(streams["plane_off"], [])),))
+        check(launches["plane_on"] == launches["plane_off"], "the plane "
+              "changed the launches: %s" % launches)
+        if on_card:
+            for name in ("flash_fwd", "paged_decode"):
+                check(launches["plane_on"][name] > 0, "kernel %s was not "
+                      "launched on the metrics plane's path" % name)
+        out["streams_equal"] = len(streams["plane_on"])
+        out["launches"] = launches
+        out["on_over_off_tokens_per_s"] = (
+            out["plane_on"]["decode_tokens_per_s"]
+            / out["plane_off"]["decode_tokens_per_s"])
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        children += [_Child([
+            sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
+            "--device", device, "--kv_paged", "1", "--metrics_port", "0",
+            "--port", "0", "--model_params", _params_str(FLAGSHIP),
+            "--num_slots", str(MP_SLOTS), "--kv_block_size", "16",
+            "--warmup_tokens", "2"], "metrics replica %d" % i,
+            extra_env={"EDL_TRACE_DIR": trace_dir}) for i in range(2)]
+        out["fleet"] = _mp_fleet(specs, trace_dir, children)
+    finally:
+        for child in children:
+            child.close()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    log("metrics_plane: %s" % json.dumps(out))
+    return out, launches
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
@@ -10994,6 +11414,10 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         encoder_zoo, enc_launches = encoder_zoo_phase(workdir)
     torch.cuda.empty_cache()
+    # phase 34 serves phase 16's requests
+    laps.to("metrics_plane")
+    metrics_plane, mp_launches = metrics_plane_phase(specs)
+    torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
     kernels[0]["launches_int8_serving"] = int8_launches["flash_fwd"]
@@ -11199,6 +11623,12 @@ def main():
                 name = name[:-len(family) - 1]
         entry["launches_bert_vit"] = {
             part: counts.get(name, 0) for part, counts in enc_launches.items()}
+    # phase 34's launches of A and B in this process, plane off and on
+    for entry in kernels:
+        if entry["name"] in SERVING_KERNELS:
+            entry["launches_metrics_plane"] = {
+                part: counts[entry["name"]]
+                for part, counts in mp_launches.items()}
     laps.to(None)
     lines = {"serving": serving, "training": training, "dlrm": dlrm,
              "dense": dense, "packed": packed, "windowed": windowed,
@@ -11209,7 +11639,7 @@ def main():
              "serving_router": serving_router,
              "serving_router_tier": serving_router_tier,
              "tabular_zoo": tabular_zoo, "vision_zoo": vision_zoo,
-             "encoder_zoo": encoder_zoo}
+             "encoder_zoo": encoder_zoo, "metrics_plane": metrics_plane}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
@@ -11239,6 +11669,7 @@ def main():
     print(json.dumps({"tabular_zoo": tabular_zoo}))
     print(json.dumps({"vision_zoo": vision_zoo}))
     print(json.dumps({"encoder_zoo": encoder_zoo}))
+    print(json.dumps({"metrics_plane": metrics_plane}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

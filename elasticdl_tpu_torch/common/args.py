@@ -11,12 +11,12 @@ reaches every worker.
 A flag the port does not honour raises when it is set to anything but
 its default, instead of being ignored (`check_ported_args`):
 --worker_image (Kubernetes workers), --need_tensorboard,
---distribution_strategy AllreduceStrategy (the SPMD lockstep loop),
---mesh_spec, and a metrics port (--metrics_port, or EDL_METRICS_PORT).
+--distribution_strategy AllreduceStrategy (the SPMD lockstep loop) and
+--mesh_spec. The master's /metrics port (--metrics_port, or
+EDL_METRICS_PORT when the flag is -1) is honoured (master/main.py).
 """
 
 import argparse
-import os
 import shlex
 import warnings
 
@@ -40,7 +40,6 @@ _NOT_PORTED = {
     "distribution_strategy": (
         "Local", "the SPMD lockstep loop (parallel/spmd.py)"),
     "mesh_spec": ("", "device meshes through the CLI"),
-    "metrics_port": (-1, "the master's /metrics exposition"),
 }
 
 
@@ -202,7 +201,8 @@ def add_master_params(parser):
     )
     parser.add_argument(
         "--metrics_port", type=int, default=-1,
-        help="The master's /metrics port (not ported: raises when set)",
+        help="The master's /metrics port; -1 resolves from "
+             "EDL_METRICS_PORT (unset = off), 0 = an ephemeral one",
     )
 
 
@@ -236,10 +236,6 @@ def check_ported_args(args):
             raise NotImplementedError(
                 "--%s=%r needs %s, which is not ported"
                 % (name, getattr(args, name), what))
-    if hasattr(args, "metrics_port") and os.environ.get(METRICS_PORT_ENV):
-        raise NotImplementedError(
-            "%s is set, but the master's /metrics exposition is not ported"
-            % METRICS_PORT_ENV)
     return args
 
 

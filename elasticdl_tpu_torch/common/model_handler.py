@@ -70,4 +70,4 @@ class MeshModelHandler(ModelHandler):
     def __init__(self, checkpoint_dir=None):
         raise NotImplementedError(
             "MeshModelHandler: the mesh (SPMD) strategies are not ported "
-            "(ROADMAP Queue 1 item 6)")
+            "(ROADMAP Queue 1 item 7)")

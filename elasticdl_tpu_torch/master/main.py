@@ -12,8 +12,11 @@ serves until the job is done and writes the job's phase to
 workers train on --device (cuda by default).
 
 The task shuffle is drawn from Python's `random` seeded with --seed, so
-one job's task order repeats from run to run. Kubernetes workers
-(--worker_image), the TensorBoard service and the /metrics exposition
+one job's task order repeats from run to run. `--metrics_port N` (-1
+resolves from EDL_METRICS_PORT, unset = off; 0 = an ephemeral port)
+serves the master's Prometheus page at `GET /metrics` (queue depths, the
+model version, restarts and requeued tasks) and prints `METRICS_READY
+port=N`. Kubernetes workers (--worker_image) and the TensorBoard service
 are not ported and raise (common/args.py).
 """
 
@@ -37,6 +40,12 @@ from elasticdl_tpu_torch.data.reader.data_reader_factory import (
 )
 from elasticdl_tpu_torch.master.instance_manager import LocalInstanceManager
 from elasticdl_tpu_torch.master.master import Master
+from elasticdl_tpu_torch.observability.metrics import (
+    MetricsServer,
+    counter_family,
+    gauge_family,
+    metrics_port_default,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -131,8 +140,50 @@ def _run_master(args):
     if instance_manager:
         instance_manager.start_workers()
     logger.info("Master ready on port %d", master.port)
+    metrics = _start_metrics(args, master)
     job_status.write_job_status(args.job_status_file, job_status.RUNNING)
-    return master.run()
+    try:
+        return master.run()
+    finally:
+        if metrics is not None:
+            metrics.close()
+
+
+def _metrics_families(master):
+    """The master's exposition: task-queue pressure, the model version
+    and the crash-recovery counters."""
+    todo, doing, eval_todo = master.task_d.queue_depths()
+    restarts = (master.state_store.restart_count
+                if master.state_store else 0)
+    return [
+        gauge_family("edl_master_tasks_todo", "training tasks queued",
+                     [({}, todo)]),
+        gauge_family("edl_master_tasks_doing",
+                     "training tasks dispatched and in flight",
+                     [({}, doing)]),
+        gauge_family("edl_master_eval_tasks_todo", "evaluation tasks queued",
+                     [({}, eval_todo)]),
+        gauge_family("edl_master_model_version", "dispatcher model version",
+                     [({}, master.task_d.model_version)]),
+        counter_family("edl_master_restarts_total",
+                       "master crash recoveries", restarts),
+        counter_family("edl_master_recovery_requeued_tasks_total",
+                       "doing-tasks requeued by journal recovery",
+                       master.task_d.requeued_on_recovery),
+    ]
+
+
+def _start_metrics(args, master):
+    """The master's /metrics server (--metrics_port, or EDL_METRICS_PORT
+    when it is -1; off when neither is set), or None."""
+    port = (metrics_port_default() if args.metrics_port < 0
+            else args.metrics_port)
+    if port is None:
+        return None
+    server = MetricsServer(lambda: _metrics_families(master), port=port)
+    logger.info("Master /metrics exposition on port %d", server.port)
+    print("METRICS_READY port=%d" % server.port, flush=True)
+    return server
 
 
 def main(argv=None):

@@ -154,6 +154,13 @@ class TaskDispatcher(object):
         if self._state_store.append(event):
             self._state_store.write_snapshot(self._snapshot_locked())
 
+    def queue_depths(self):
+        """(todo, doing, eval_todo) under the lock: the master's /metrics
+        exposition reads the queues through this."""
+        with self._lock:
+            return (len(self._todo), len(self._doing),
+                    len(self._eval_todo))
+
     def create_tasks(self, task_type, model_version=-1):
         """Public entry: callers outside the dispatcher (the evaluation
         service's trigger threads) do NOT hold the lock, but they race

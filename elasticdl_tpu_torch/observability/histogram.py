@@ -11,12 +11,19 @@ SUBBUCKETS/2 linear subbuckets, so the relative error is at most
 
 `to_counts` / `from_counts` are the wire form: the trimmed bucket counts
 a replica's ServerStatus carries and the router merges by addition.
-Not ported: exemplars (`exemplars_wire`, the exemplar argument of
-`from_counts`), which serve the JAX package's metrics plane (ROADMAP
-Queue 1 item 6). No lock: the owner of a histogram locks it.
+
+Exemplars: `record(value, trace_id=...)` attaches a per-bucket exemplar
+(trace_id, value, unix_ts), at most EXEMPLAR_SLOTS buckets, the highest
+buckets winning a slot (the tail is what forensics reads) and the
+largest sample winning within a bucket, which keeps the merge
+associative. `exemplars_wire` / `from_counts(counts, exemplars)` carry
+them beside the counts; the Prometheus renderer writes them in
+OpenMetrics exemplar syntax on `_bucket` lines. No lock: the owner of a
+histogram locks it.
 """
 
 import math
+import time
 
 #: smallest distinguishable value (0.01 => 10 us when recording ms)
 RESOLUTION = 0.01
@@ -27,6 +34,8 @@ _HALF = SUBBUCKETS // 2
 #: ranges above the linear one (about 2.8 hours in ms)
 _DECADES = 24
 NUM_BUCKETS = SUBBUCKETS + _DECADES * _HALF
+#: the most buckets of one histogram that carry an exemplar
+EXEMPLAR_SLOTS = 16
 
 
 def bucket_index(value):
@@ -56,9 +65,9 @@ def bucket_bounds(idx):
 
 class LogLinearHistogram(object):
     """Mergeable fixed-bucket histogram with exact count, sum, min and
-    max."""
+    max, and up to EXEMPLAR_SLOTS bucket exemplars."""
 
-    __slots__ = ("counts", "count", "sum", "min", "max")
+    __slots__ = ("counts", "count", "sum", "min", "max", "exemplars")
 
     def __init__(self):
         self.counts = [0] * NUM_BUCKETS
@@ -66,19 +75,42 @@ class LogLinearHistogram(object):
         self.sum = 0.0
         self.min = math.inf
         self.max = 0.0
+        #: bucket index -> (trace_id, value, unix_ts)
+        self.exemplars = {}
 
-    def record(self, value):
+    def record(self, value, trace_id=None, ts=None):
         value = float(value)
         if not 0.0 <= value < math.inf:  # negative, NaN, inf: refused
             return
-        self.counts[bucket_index(value)] += 1
+        idx = bucket_index(value)
+        self.counts[idx] += 1
         self.count += 1
         self.sum += value
         self.min = min(self.min, value)
         self.max = max(self.max, value)
+        if trace_id:
+            self._note_exemplar(idx, str(trace_id), value,
+                                time.time() if ts is None else float(ts))
+
+    def _note_exemplar(self, idx, trace_id, value, ts):
+        """At most EXEMPLAR_SLOTS exemplar buckets: a higher bucket
+        evicts the lowest one, a lower bucket never evicts; within a
+        bucket the largest value (the later one on a tie) wins."""
+        cur = self.exemplars.get(idx)
+        if cur is not None:
+            if value >= cur[1]:
+                self.exemplars[idx] = (trace_id, value, ts)
+            return
+        if len(self.exemplars) >= EXEMPLAR_SLOTS:
+            low = min(self.exemplars)
+            if idx <= low:
+                return
+            del self.exemplars[low]
+        self.exemplars[idx] = (trace_id, value, ts)
 
     def merge(self, other):
-        """Fold `other` in (elementwise bucket addition)."""
+        """Fold `other` in (elementwise bucket addition; exemplars by
+        the same slot rule as record)."""
         for i, c in enumerate(other.counts):
             if c:
                 self.counts[i] += c
@@ -87,6 +119,8 @@ class LogLinearHistogram(object):
         if other.count:
             self.min = min(self.min, other.min)
             self.max = max(self.max, other.max)
+        for idx, (tid, value, ts) in other.exemplars.items():
+            self._note_exemplar(idx, tid, value, ts)
         return self
 
     def percentile(self, q):
@@ -118,11 +152,18 @@ class LogLinearHistogram(object):
                 last = i + 1
         return self.counts[:last]
 
+    def exemplars_wire(self):
+        """{bucket_index: [trace_id, value, unix_ts]}, JSON-safe (a JSON
+        round trip's string keys come back through from_counts)."""
+        return {idx: [tid, value, ts]
+                for idx, (tid, value, ts) in self.exemplars.items()}
+
     @classmethod
-    def from_counts(cls, counts):
-        """Rebuild from wire-form counts. min / max / sum degrade to
-        bucket-midpoint estimates (within the scheme's relative error),
-        enough for percentiles, which need only the counts."""
+    def from_counts(cls, counts, exemplars=None):
+        """Rebuild from wire-form counts and, optionally, an exemplar
+        map. min / max / sum degrade to bucket-midpoint estimates
+        (within the scheme's relative error), enough for percentiles,
+        which need only the counts."""
         h = cls()
         for i, c in enumerate(counts):
             c = int(c)
@@ -135,6 +176,8 @@ class LogLinearHistogram(object):
             h.sum += mid * c
             h.min = min(h.min, mid)
             h.max = max(h.max, mid)
+        for idx, (tid, value, ts) in (exemplars or {}).items():
+            h._note_exemplar(int(idx), str(tid), float(value), float(ts))
         return h
 
 

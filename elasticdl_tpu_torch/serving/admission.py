@@ -1,6 +1,5 @@
 """Request admission: the bounded queue in front of the decode pool.
-The port's copy of elasticdl_tpu/serving/admission.py without its
-tracing hooks.
+The port's copy of elasticdl_tpu/serving/admission.py.
 
 * full queue        -> reject now with RESOURCE_EXHAUSTED (backpressure)
 * invalid request   -> INVALID_ARGUMENT (the prompt and output budget
@@ -32,13 +31,19 @@ class ServingRequest(object):
                                     them
         ("done", version)           completed
         ("error", code, message)    terminal failure
-    """
+
+    `span` (observability/tracing.py) is the request's serve span: the
+    servicer opens it at admission, parented under the caller's dispatch
+    span when the call carried trace context, and the scheduler and
+    engine annotate the lifecycle through `trace_event`; both are no-ops
+    while `span` is None (requests built directly)."""
 
     _ids = iter(range(1, 2 ** 62))
     _ids_lock = threading.Lock()
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0, seed=0,
-                 deadline_ms=0, clock=time.monotonic, prefill_only=False):
+                 deadline_ms=0, clock=time.monotonic, trace_id="",
+                 parent_span_id="", prefill_only=False):
         with ServingRequest._ids_lock:
             self.request_id = next(ServingRequest._ids)
         self.prompt = [int(t) for t in prompt]
@@ -55,6 +60,10 @@ class ServingRequest(object):
         )
         self.events = collections.deque()
         self._event_cv = threading.Condition()
+        # trace context (empty: an untraced caller; the servicer mints)
+        self.trace_id = trace_id or ""
+        self.parent_span_id = parent_span_id or ""
+        self.span = None
         # scheduler-side state
         self.generated = []
         self.first_token_at = None
@@ -62,6 +71,14 @@ class ServingRequest(object):
         # the checkpoint version whose weights produced the latest token
         # (-1 until the first one)
         self.model_version = -1
+
+    def trace_event(self, name, **attrs):
+        if self.span is not None:
+            self.span.event(name, **attrs)
+
+    def finish_span(self, status="ok"):
+        if self.span is not None:
+            self.span.finish(status)
 
     def expired(self, now):
         return self.deadline is not None and now > self.deadline

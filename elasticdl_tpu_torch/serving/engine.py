@@ -98,6 +98,7 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
     flax_param_path,
 )
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
+from elasticdl_tpu_torch.observability.metrics import hist_family
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 
 
@@ -191,8 +192,8 @@ class StepProfiler(object):
                        imported blocks (timed by the paged pool)
         reload_swap    a hot checkpoint swap (set_params)
 
-    The scheduler thread records and any thread may snapshot: one
-    lock."""
+    The scheduler thread records and any thread may snapshot or render
+    (`prometheus`, the edl_serving_phase_ms family): one lock."""
 
     PHASES = ("prefill", "suffix_tile", "prefill_tile", "decode",
               "draft", "verify_commit", "scatter", "revive_upload",
@@ -230,6 +231,19 @@ class StepProfiler(object):
                     "total_ms": round(h.sum, 3),
                 }
             return out
+
+    def prometheus(self):
+        """One labeled histogram family, edl_serving_phase_ms, a `phase`
+        series for each phase that recorded samples."""
+        with self._lock:
+            series = [({"phase": phase}, self.hists[phase].to_counts(),
+                       self.hists[phase].sum)
+                      for phase in self.PHASES if self.hists[phase].count]
+            return [hist_family(
+                "edl_serving_phase_ms",
+                "per-step decode profiler: wall ms per phase (shared "
+                "log-linear scheme)",
+                series)]
 
 
 class _Slot(object):
@@ -294,6 +308,11 @@ class ContinuousBatchingEngine(object):
         self.draft_proposed = 0
         self.draft_accepted = 0
         self.prefill_chunk_tokens = 0  # the dense pool never chunks
+        # wall ms the scheduler has spent in this engine's prefills (it
+        # advances the clock); the servicer stamps it at admission, so
+        # seating reports how long OTHER requests' prefills held the
+        # scheduler (forensics' prefill_blocked_by_other)
+        self.prefill_busy_ms = 0.0
         self._init_pool()
         self._slots = [None] * self.num_slots
         self._positions = np.zeros(self.num_slots, np.int64)
@@ -416,6 +435,8 @@ class ContinuousBatchingEngine(object):
         write_dense_rows(self._pool, kv, slot, kv[0][0].shape[2])
         first = self._sample_first(last, request, p)
         self._observe("prefill", t0)
+        request.trace_event("prefill", bucket=_prefill_bucket(p, self.seq_len),
+               slot=slot)
         request.generated.append(first)
         request.model_version = self.model_version
         finished = request.max_new_tokens <= 1
@@ -619,9 +640,19 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _seat_blocks(self, slot, request):
         """Reserve the request's full block budget (reserve-or-raise
         before any compute; the scheduler checks can_seat first).
-        Returns the shared prefix tokens."""
-        return self.kv.seat(slot, request.prompt,
-                            len(request.prompt) + request.max_new_tokens - 1)
+        Returns the shared prefix tokens. A seat that revives a spilled
+        chain notes the upload on the request's span (forensics splits
+        revive_upload out of prefill_own by it)."""
+        revived = self.kv.allocator.blocks_revived
+        t0 = time.perf_counter()
+        shared = self.kv.seat(slot, request.prompt,
+                              len(request.prompt) + request.max_new_tokens - 1)
+        revived = self.kv.allocator.blocks_revived - revived
+        if revived:
+            request.trace_event("revive_upload",
+                   ms=round((time.perf_counter() - t0) * 1000.0, 3),
+                   tokens=revived * self.block_size)
+        return shared
 
     def insert(self, request):
         """Seat `request` in a free slot: prefill (or the shared-prefix
@@ -647,6 +678,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             if decoding:
                 self.kv.write_prompt(kv, slot, p)
             self._observe("prefill", t0)
+            request.trace_event("prefill",
+                   bucket=_prefill_bucket(p, self.seq_len), slot=slot,
+                   paged=True)
         request.generated.append(first)
         request.model_version = self.model_version
         if decoding:
@@ -705,6 +739,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             # the allocator's shared tokens (a full match's re-run row
             # included), in step with its prefix_hit_tokens
             self.telemetry.count("prefix_hit_tokens", shared)
+        request.trace_event("prefix_hit", slot=slot, shared_tokens=start,
+               suffix_tokens=p - start)
         return first
 
     def _suffix_bucket(self, t):
@@ -739,8 +775,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._finish_prefill(job,
                                  self._insert_shared(slot, request, shared))
             return job
-        if shared and self.telemetry is not None:
-            self.telemetry.count("prefix_hit_tokens", shared)
+        if shared:
+            if self.telemetry is not None:
+                self.telemetry.count("prefix_hit_tokens", shared)
+            request.trace_event("prefix_hit", slot=slot, shared_tokens=shared,
+                   suffix_tokens=p - shared)
         job = _PrefillJob(slot, request, shared)
         self._prefilling[slot] = job
         return job
@@ -761,6 +800,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         job.tiles += 1
         if not final:
             return False
+        job.request.trace_event("prefill", slot=job.slot, paged=True,
+               tiles=job.tiles, chunk_tokens=self.prefill_chunk_tokens)
         self._finish_prefill(job, first)
         return True
 

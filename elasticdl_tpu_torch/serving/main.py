@@ -44,7 +44,14 @@ its status (prefill, decode or unified; "" resolves from
 EDL_SERVING_ROLE, default unified): a prefill replica answers
 `prefill_only` generates and `export_chain`, a decode replica
 `transfer_chain` (every role answers all three).
-`--profile 1` arms the step profiler. With --checkpoint_dir the server
+`--profile 1` arms the step profiler. `--metrics_port N` (-1 resolves
+from EDL_METRICS_PORT, unset = off; 0 = an ephemeral port) serves the
+replica's Prometheus page at `GET /metrics` and prints `METRICS_READY
+port=N` before SERVING_READY; `--forensics 0|1` (-1 resolves from
+EDL_FORENSICS, on) switches exemplars, serve-span retention and
+slow-cause attribution. The process's span recorder is named
+`replica:<port>` and exports to EDL_TRACE_DIR on a stop when that is
+set. With --checkpoint_dir the server
 keeps following the directory and swaps in newer versions between
 decode steps, `--reload_poll_secs` apart (0 = only through
 reload_checkpoint). `--warmup_tokens` generates that many tokens
@@ -55,10 +62,10 @@ checkpoint of int8 weights (api/quantization) is served dequantized
 once at load.
 
 Not accepted yet (each raises with the ROADMAP item that brings it):
-`--metrics_port`, `--forensics`, `--runtime_health`,
-`--stall_after_secs` and `--tensorboard_log_dir` (item 6, the
-replica's metrics plane). `serve_lines` is a library function that
-answers JSON request lines in-process.
+`--runtime_health`, `--stall_after_secs` (item 6, the runtime-health
+plane) and `--tensorboard_log_dir` (item 6, the TensorBoard writers).
+`serve_lines` is a library function that answers JSON request lines
+in-process.
 """
 
 import argparse
@@ -76,12 +83,12 @@ logger = logging.getLogger(__name__)
 PORT_ZOO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "model_zoo")
 
-_ITEM6 = "ROADMAP Queue 1 item 6 (the replica's metrics plane)"
+_HEALTH = "ROADMAP Queue 1 item 6 (the runtime-health plane)"
 #: the JAX entry's flags the port does not take yet -> what brings them
 NOT_PORTED = {
-    "--metrics_port": _ITEM6, "--forensics": _ITEM6,
-    "--runtime_health": _ITEM6, "--stall_after_secs": _ITEM6,
-    "--tensorboard_log_dir": _ITEM6,
+    "--runtime_health": _HEALTH, "--stall_after_secs": _HEALTH,
+    "--tensorboard_log_dir": "ROADMAP Queue 1 item 6 (the TensorBoard "
+                             "writers)",
 }
 
 
@@ -161,6 +168,15 @@ def parse_serving_args(args=None):
                              "EDL_PROFILE (off)")
     parser.add_argument("--warmup_tokens", type=int, default=0,
                         help="generate this many tokens before serving")
+    parser.add_argument("--metrics_port", type=int, default=-1,
+                        help="the /metrics port; -1 resolves from "
+                             "EDL_METRICS_PORT (off), 0 = an ephemeral "
+                             "one")
+    parser.add_argument("--forensics", type=int, default=-1,
+                        choices=(-1, 0, 1),
+                        help="exemplars, serve-span retention, slow-cause "
+                             "attribution; -1 resolves from EDL_FORENSICS "
+                             "(on)")
     parsed, unknown = parser.parse_known_args(args)
     for arg in unknown:
         flag = arg.split("=", 1)[0]
@@ -252,6 +268,8 @@ def build_server(args):
             reload_poll_secs=args.reload_poll_secs,
             port=args.port,
             max_workers=args.max_workers,
+            metrics_port=unset(args.metrics_port),
+            forensics=None if args.forensics < 0 else bool(args.forensics),
         ),
         model_version=version,
         draft=draft,
@@ -313,8 +331,12 @@ def serve_lines(server, lines):
 
 
 def main(argv=None):
+    from elasticdl_tpu_torch.observability.tracing import configure
+
     args = parse_serving_args(argv)
     server = build_server(args).start(transport=True)
+    # the recorder's name in its span export
+    configure(service="replica:%d" % server.port)
     done = threading.Event()
 
     def _graceful(_signum, _frame):
@@ -325,6 +347,8 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _graceful)
     try:
         warmup(server, args.warmup_tokens)
+        if server.metrics is not None:
+            print("METRICS_READY port=%d" % server.metrics.port, flush=True)
         print("SERVING_READY port=%d" % server.port, flush=True)
         while not done.wait(1.0):
             if not server.scheduler.is_alive():

@@ -77,9 +77,11 @@ queue-wait histogram BUCKETS from their heartbeats into fleet-wide
 percentiles (bucket addition, never percentile averaging); the SLO
 burn-rate engine (observability/slo.py) reads the telemetry's ring.
 
-Not ported: the /metrics exposition (`metrics_port`, `_metrics_families`;
-ROADMAP Queue 1 item 6). The autoscaler and rollout blocks come from
-the controllers `set_autoscaler` / `set_rollout` attach
+The /metrics exposition (`RouterConfig.metrics_port`): the telemetry's
+families with the fleet-merged histograms, the SLO burn and alerting
+gauges, and the autoscaler's and rollout controller's series when they
+are attached. The autoscaler and rollout blocks come from the
+controllers `set_autoscaler` / `set_rollout` attach
 (serving/autoscaler.py, serving/rollout.py; any object with
 `status_block()` will do).
 """
@@ -102,7 +104,10 @@ from elasticdl_tpu_torch.common.retry import (
 )
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
 from elasticdl_tpu_torch.observability.metrics import (
+    MetricsServer,
     add_counts,
+    counter_family,
+    gauge_family,
     metrics_port_default,
 )
 from elasticdl_tpu_torch.observability.slo import (
@@ -122,8 +127,6 @@ from elasticdl_tpu_torch.serving.telemetry import RouterTelemetry
 
 logger = logging.getLogger(__name__)
 
-_ITEM6 = "ROADMAP Queue 1 item 6, the metrics plane"
-
 
 class RouterError(AdmissionError):
     """A terminal router-side failure; `code` is the status name the
@@ -141,8 +144,8 @@ class RouterConfig(object):
     `slo_ttft_p99_ms`, router e2e p99 under `slo_e2e_p99_ms` (both with
     error budget `slo_latency_goal`) and the goodput floor (shed + errors
     over routed under `slo_goodput_goal`). metrics_port (None resolves
-    from EDL_METRICS_PORT, unset = off) arms the /metrics exposition,
-    which is not ported: a port raises NotImplementedError.
+    from EDL_METRICS_PORT, unset = off; 0 = an ephemeral port) arms the
+    /metrics exposition.
 
     Affinity knobs: with `affinity` on, a prompt of at least one full
     `affinity_block_tokens` block (match the replicas' kv_block_size) is
@@ -187,10 +190,6 @@ class RouterConfig(object):
         self.telemetry_flush_every = int(telemetry_flush_every)
         self.metrics_port = (metrics_port_default() if metrics_port is None
                              else int(metrics_port))
-        if self.metrics_port is not None:
-            raise NotImplementedError(
-                "the router's /metrics exposition is not ported yet (%s)"
-                % _ITEM6)
         self.slo_ttft_p99_ms = float(slo_ttft_p99_ms)
         self.slo_e2e_p99_ms = float(slo_e2e_p99_ms)
         self.slo_latency_goal = float(slo_latency_goal)
@@ -518,6 +517,7 @@ class Router(object):
         self._server = None
         self.servicer = None
         self.port = None
+        self.metrics = None  # the MetricsServer with config.metrics_port
         # the last-seen CUMULATIVE replica buckets per address (an entry
         # outlives its replica, so a killed replica's history stays in
         # the fleet sum), bucket-added into the ring each heartbeat
@@ -1166,12 +1166,76 @@ class Router(object):
             queue_wait_p99_ms=fleet_wait.percentile(99),
         )
 
+    # ----------------------------------------------------- /metrics
+
+    def _metrics_families(self):
+        """One router scrape: the telemetry's families (the fleet-merged
+        histograms among them), the SLO burn and alerting gauges, and the
+        attached autoscaler's and rollout controller's series. On the
+        metrics thread; every collector locks itself."""
+        fams = self.telemetry.prometheus()
+        burn, alerting = [], []
+        for r in self.slo_reports():
+            burn.append(({"slo": r["name"], "window": "fast"},
+                         r["fast_burn"]))
+            burn.append(({"slo": r["name"], "window": "slow"},
+                         r["slow_burn"]))
+            alerting.append(({"slo": r["name"]},
+                             1.0 if r["alerting"] else 0.0))
+        fams.append(gauge_family(
+            "edl_router_slo_burn",
+            "SLO error-budget burn rate per objective and window "
+            "(1.0 = spending the budget exactly on schedule)", burn))
+        fams.append(gauge_family(
+            "edl_router_slo_alerting",
+            "1 when BOTH burn windows exceed 1.0 (multi-window rule)",
+            alerting))
+        if self.autoscaler is not None:
+            block = self.autoscaler.status_block()
+            for name in ("target", "live", "starting", "draining"):
+                fams.append(gauge_family(
+                    "edl_autoscaler_%s" % name,
+                    "autoscaler roster gauge %s" % name,
+                    [({}, getattr(block, name))]))
+            for name in ("scale_ups", "scale_downs", "replacements",
+                         "spawn_failures"):
+                fams.append(counter_family(
+                    "edl_autoscaler_%s_total" % name,
+                    "autoscaler decision counter %s" % name,
+                    getattr(block, name)))
+            fams.append(gauge_family(
+                "edl_autoscaler_circuit_open",
+                "1 when the restart circuit is open",
+                [({}, 1.0 if block.circuit_open else 0.0)]))
+        if self.rollout is not None:
+            block = self.rollout.status_block()
+            for name in ("target_version", "old_version", "wave",
+                         "waves_total", "swapped", "fleet"):
+                fams.append(gauge_family(
+                    "edl_rollout_%s" % name,
+                    "rollout controller gauge %s" % name,
+                    [({}, getattr(block, name))]))
+            fams.append(gauge_family(
+                "edl_rollout_active",
+                "1 while a rollout is in flight (any non-terminal "
+                "phase)",
+                [({"phase": block.phase},
+                  0.0 if block.phase in ("idle", "committed",
+                                         "rolled_back", "aborted")
+                  else 1.0)]))
+            fams.append(counter_family(
+                "edl_rollout_rollbacks_total",
+                "replica checkpoint swaps reversed by judgment or "
+                "burn (rollback swap count)", block.rollbacks))
+        return fams
+
     # -------------------------------------------------------- lifecycle
 
     def start(self, transport=True, injector=None):
         """Start the heartbeat and wrap the servicer (EDL_FAULT_SPEC, or
-        `injector`); with `transport`, serve the Router table on
-        config.port (0: an ephemeral port, in `self.port`) with
+        `injector`); with config.metrics_port, serve /metrics (its port in
+        `self.metrics.port`); with `transport`, serve the Router table
+        on config.port (0: an ephemeral port, in `self.port`) with
         config.max_workers handlers."""
         self.telemetry.gauge("cell_id", self.config.cell_id)
         self.telemetry.gauge("cells", self.config.cells)
@@ -1183,6 +1247,11 @@ class Router(object):
         self._injector = injector
         self.servicer = maybe_wrap_servicer(RouterServicer(self), injector,
                                             rpcs=SERVING_RPCS)
+        if self.config.metrics_port is not None:
+            self.metrics = MetricsServer(self._metrics_families,
+                                         port=self.config.metrics_port)
+            logger.info("Router /metrics exposition on port %d",
+                        self.metrics.port)
         if transport:
             from elasticdl_tpu_torch.proto.service import (
                 add_router_servicer_to_server,
@@ -1209,6 +1278,9 @@ class Router(object):
         if self._server is not None:
             self._server.stop(grace)
             self._server = None
+        if self.metrics is not None:
+            self.metrics.close()
+            self.metrics = None
         self.telemetry.close()
         # export the spans when EDL_TRACE_DIR is set (no-op otherwise)
         recorder().flush()

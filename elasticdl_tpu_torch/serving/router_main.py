@@ -53,10 +53,14 @@ the supervisor's and the rollout's hooks (`supervisor_spawn`,
 `supervisor_ready`, `supervisor_adopt`, `rollout_swap`,
 `rollout_judge`) and the cells' (`cell_spawn`, `cell_kill`).
 
-Not accepted yet, each raising NotImplementedError with the ROADMAP item
-that ports it: `--metrics_port` >= 0 and `--tensorboard_log_dir` (item
-6, the metrics plane). The JAX entry's SIGUSR2 all-thread stack dump
-comes from runtime_health.py (item 6) and is left out.
+`--metrics_port N` (-1 resolves from EDL_METRICS_PORT, unset = off; 0 =
+an ephemeral port) serves the router's Prometheus page at `GET /metrics`
+and prints `METRICS_READY port=N` before ROUTER_READY.
+
+Not accepted yet: `--tensorboard_log_dir` raises NotImplementedError
+(ROADMAP Queue 1 item 6, the TensorBoard writers). The JAX entry's
+SIGUSR2 all-thread stack dump comes from runtime_health.py (item 6, the
+runtime-health plane) and is left out.
 """
 
 import argparse
@@ -74,7 +78,7 @@ from elasticdl_tpu_torch.serving.router import Router, RouterConfig
 
 logger = logging.getLogger(__name__)
 
-_ITEM6 = "ROADMAP Queue 1 item 6, the metrics plane"
+_ITEM6 = "ROADMAP Queue 1 item 6, the TensorBoard writers"
 
 
 def parse_router_args(args=None):
@@ -96,8 +100,9 @@ def parse_router_args(args=None):
                         default=30.0)
     parser.add_argument("--tensorboard_log_dir", default="")
     parser.add_argument("--metrics_port", type=int, default=-1,
-                        help="-1 resolves from EDL_METRICS_PORT (unset = "
-                             "off); not ported yet")
+                        help="the /metrics port; -1 resolves from "
+                             "EDL_METRICS_PORT (unset = off), 0 = an "
+                             "ephemeral one")
     parser.add_argument("--slo_ttft_p99_ms", type=float, default=30000.0)
     parser.add_argument("--slo_e2e_p99_ms", type=float, default=60000.0)
     parser.add_argument("--slo_latency_goal", type=float, default=0.01,
@@ -148,12 +153,9 @@ def parse_router_args(args=None):
                         default=60.0)
     parser.add_argument("--rollout_parity_prompts", default="1,2,3")
     parsed = parser.parse_args(args)
-    for name, unported in (
-            ("tensorboard_log_dir", parsed.tensorboard_log_dir != ""),
-            ("metrics_port", parsed.metrics_port >= 0)):
-        if unported:
-            raise NotImplementedError(
-                "--%s is not ported yet (%s)" % (name, _ITEM6))
+    if parsed.tensorboard_log_dir:
+        raise NotImplementedError(
+            "--tensorboard_log_dir is not ported yet (%s)" % _ITEM6)
     if (not parsed.replica and not parsed.autoscale
             and not parsed.cell_journal_dir):
         parser.error("at least one --replica is required (or pass "
@@ -183,7 +185,7 @@ def build_router(args):
         dispatch_timeout_secs=args.dispatch_timeout_secs,
         redispatch_window_secs=args.redispatch_window_secs,
         port=args.port,
-        metrics_port=None,
+        metrics_port=(None if args.metrics_port < 0 else args.metrics_port),
         slo_ttft_p99_ms=args.slo_ttft_p99_ms,
         slo_e2e_p99_ms=args.slo_e2e_p99_ms,
         slo_latency_goal=args.slo_latency_goal,
@@ -404,6 +406,8 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
+    if router.metrics is not None:
+        print("METRICS_READY port=%d" % router.metrics.port, flush=True)
     if args.cell_id >= 0:
         # a line of its own: readers parse `port=` off the READY line
         print("ROUTER_CELL cell=%d cells=%d" % (args.cell_id, args.cells),

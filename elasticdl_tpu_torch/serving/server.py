@@ -1,8 +1,9 @@
 """The generation server: the port of elasticdl_tpu/serving/server.py's
 ServingConfig, scheduler loop, ServingServicer and GenerationServer, on
 the port's transport (proto/service.py), with the disaggregated chain
-handoff's methods (serving/disagg.py), without its forensics, tracing or
-health plane.
+handoff's methods (serving/disagg.py), the serve span, tail forensics
+and the /metrics exposition; without the JAX server's runtime-health
+plane.
 
 Wiring (one process):
 
@@ -36,9 +37,26 @@ decode and chunked prefill need the paged pool.
 Fault injection: the servicer the transport serves is wrapped at the
 master's choke point (common/fault_injection.py, EDL_FAULT_SPEC) with
 the serving RPC names, e.g. ``generate:error:3``.
+
+Observability: every admitted request opens a `serve` span on the
+process recorder (observability/tracing.py), parented under the caller's
+dispatch span when the call carried trace context, with the events
+`queued`, `seated` (queue wait, and the ms other prefills held the
+scheduler meanwhile), the engine's `prefill` / `prefix_hit` /
+`revive_upload`, `first_token`, then `completed` or `expired` /
+`rejected`. The forensics switch (`ServingConfig.forensics`, None
+resolves from EDL_FORENSICS, on by default) adds three things: trace
+ids as exemplars of the latency histograms, the `serve_span_classifier`
+that retains slow and failed serve traces, and the attribution of each
+terminally slow request to a cause of observability/forensics.py (the
+status's `slow_cause_counts`). `metrics_port` (None resolves from
+EDL_METRICS_PORT, unset = off) serves the telemetry's and the
+profiler's families at `GET /metrics`. A stop exports the recorder to
+EDL_TRACE_DIR when that is set.
 """
 
 import contextlib
+import os
 import threading
 import time
 
@@ -47,6 +65,12 @@ from elasticdl_tpu_torch.common.fault_injection import (
     FaultInjector,
     maybe_wrap_servicer,
 )
+from elasticdl_tpu_torch.observability import forensics
+from elasticdl_tpu_torch.observability.metrics import (
+    MetricsServer,
+    metrics_port_default,
+)
+from elasticdl_tpu_torch.observability.tracing import recorder
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.serving import disagg
 from elasticdl_tpu_torch.serving.admission import (
@@ -72,6 +96,45 @@ from elasticdl_tpu_torch.serving.hot_reload import (
 from elasticdl_tpu_torch.serving.telemetry import ServingTelemetry
 
 
+def forensics_default():
+    """EDL_FORENSICS resolves the forensics switch a config leaves
+    unset: on unless it is "0"."""
+    return os.environ.get("EDL_FORENSICS", "1") != "0"
+
+
+def serve_span_classifier(span):
+    """The tail-retention verdict on a replica's `serve` span: one that
+    expired, was rejected or failed is retained, and so is one that
+    completed after most of its own deadline (forensics.
+    is_terminally_slow); healthy ones are sampled. None for other
+    spans."""
+    if span.name != "serve":
+        return None
+    if span.status != "ok":
+        return True
+    deadline_ms = span.attrs.get("deadline_ms") or 0
+    if deadline_ms and span.end is not None:
+        e2e_ms = (span.end - span.start) * 1000.0
+        if forensics.is_terminally_slow("ok", e2e_ms, deadline_ms):
+            return True
+    return False
+
+
+# servers with forensics on in this process: the classifier stays on the
+# process recorder while any of them runs
+_classifier_users = [0]
+_classifier_lock = threading.Lock()
+
+
+def _hold_classifier(delta):
+    with _classifier_lock:
+        _classifier_users[0] += delta
+        if _classifier_users[0] == 1 and delta > 0:
+            recorder().add_classifier(serve_span_classifier)
+        elif _classifier_users[0] == 0:
+            recorder().remove_classifier(serve_span_classifier)
+
+
 class ServingConfig(object):
     """num_slots sizes the decode pool; queue_capacity bounds the queued
     backlog; top_k/top_p are server-level sampling filters.
@@ -93,7 +156,11 @@ class ServingConfig(object):
     pool's host spill tier in bytes (None resolves from
     EDL_KV_HOST_BYTES; 0 = eviction forgets). role: the phase the
     replica advertises for disaggregated serving, "prefill", "decode" or
-    "unified" (None resolves from EDL_SERVING_ROLE, default unified)."""
+    "unified" (None resolves from EDL_SERVING_ROLE, default unified).
+    metrics_port: the /metrics exposition's port (None resolves from
+    EDL_METRICS_PORT, unset = off; 0 = an ephemeral one). forensics:
+    exemplars, serve-span retention and slow-cause attribution (None
+    resolves from EDL_FORENSICS, on)."""
 
     def __init__(self, num_slots=4, queue_capacity=64, top_k=0, top_p=1.0,
                  idle_wait_secs=0.05, handler_poll_secs=0.25,
@@ -101,7 +168,8 @@ class ServingConfig(object):
                  kv_shared=True, draft_k=0, prefill_chunk_tokens=None,
                  prefill_budget_ms=None, profile=None, checkpoint_dir="",
                  reload_poll_secs=2.0, port=0, max_workers=64,
-                 kv_host_bytes=None, role=None):
+                 kv_host_bytes=None, role=None, metrics_port=None,
+                 forensics=None):
         self.num_slots = int(num_slots)
         self.queue_capacity = int(queue_capacity)
         self.top_k = int(top_k)
@@ -131,17 +199,33 @@ class ServingConfig(object):
         if self.role not in ("prefill", "decode", "unified"):
             raise ValueError("role must be prefill|decode|unified, got %r"
                              % (self.role,))
+        self.metrics_port = (metrics_port_default() if metrics_port is None
+                             else int(metrics_port))
+        self.forensics = (forensics_default() if forensics is None
+                          else bool(forensics))
 
 
-def _admit_request(queue, telemetry, req):
-    """Queue `req` (AdmissionError when refused), counting it as the
-    JAX servicer's admission counts it."""
+def _admit_request(queue, telemetry, engine, req, deadline_ms):
+    """Open `req`'s serve span (under its caller's span when it carries
+    trace context, else a fresh trace), stamp the engine's prefill-busy
+    clock, and queue it (AdmissionError when refused), counting it as
+    the JAX servicer's admission counts it."""
+    req.span = recorder().start_span(
+        "serve", trace_id=req.trace_id or None,
+        parent_span_id=req.parent_span_id, request_id=req.request_id,
+        prompt_len=len(req.prompt), max_new_tokens=req.max_new_tokens,
+        deadline_ms=int(deadline_ms or 0))
+    req.trace_id = req.span.trace_id
+    req.prefill_busy_at_queued = getattr(engine, "prefill_busy_ms", 0.0)
     try:
         queue.submit(req)
     except AdmissionError as e:
-        telemetry.count("expired" if e.code == "DEADLINE_EXCEEDED"
-                        else "rejected")
+        expired = e.code == "DEADLINE_EXCEEDED"
+        telemetry.count("expired" if expired else "rejected")
+        req.trace_event("expired" if expired else "rejected", why=str(e))
+        req.finish_span(e.code)
         raise
+    req.trace_event("queued", queue_depth=len(queue))
     telemetry.count("admitted")
     return req
 
@@ -158,7 +242,7 @@ class _Scheduler(threading.Thread):
 
     def __init__(self, engine, queue, idle_wait_secs=0.05,
                  clock=time.monotonic, watcher=None, prefill_budget_ms=0.0,
-                 telemetry=None):
+                 telemetry=None, forensics_on=True):
         super().__init__(daemon=True, name="serving-scheduler")
         self.engine = engine
         self.queue = queue
@@ -166,6 +250,8 @@ class _Scheduler(threading.Thread):
         self.watcher = watcher
         self._clock = clock
         self.telemetry = telemetry or ServingTelemetry(clock=clock)
+        # slow-cause attribution at the terminal paths
+        self.forensics_on = bool(forensics_on)
         self._stop_requested = threading.Event()
         self._drain = True
         self.crashed = None
@@ -272,10 +358,14 @@ class _Scheduler(threading.Thread):
             self._swap(loaded)
         return int(self.engine.model_version)
 
-    def _expire(self, req, where):
+    def _expire(self, req, where, **attrs):
+        """`where`: mid-decode, queued or mid-prefill."""
         self.telemetry.count("expired")
-        req.push(("error", "DEADLINE_EXCEEDED",
-                  "deadline expired %s" % where))
+        req.trace_event("expired", where=where, **attrs)
+        req.finish_span("DEADLINE_EXCEEDED")
+        self._count_slow(req)
+        req.push(("error", "DEADLINE_EXCEEDED", "deadline expired %s" % (
+            "while queued" if where == "queued" else where)))
 
     def _iterate(self):
         self._run_jobs()
@@ -330,7 +420,7 @@ class _Scheduler(threading.Thread):
             if req.expired(self._clock()):
                 self._pending_prefills.pop(0)
                 self.engine.abort_prefill(job)
-                self._expire(req, "mid-prefill")
+                self._expire(req, "mid-prefill", tiles=job.tiles)
                 continue
             if (ran and budget > 0.0 and self.engine.active_count()
                     and spent + self._tile_ms > budget):
@@ -338,6 +428,9 @@ class _Scheduler(threading.Thread):
             t0 = self._clock()
             finished = self.engine.advance_prefill(job)
             dt_ms = (self._clock() - t0) * 1000.0
+            # the tile held the scheduler, as an insert does
+            self.engine.prefill_busy_ms = (
+                getattr(self.engine, "prefill_busy_ms", 0.0) + dt_ms)
             spent += dt_ms
             self._tile_ms = (0.8 * self._tile_ms + 0.2 * dt_ms
                              if self._tile_ms else dt_ms)
@@ -347,15 +440,17 @@ class _Scheduler(threading.Thread):
             self._pending_prefills.append(self._pending_prefills.pop(0))
             if finished:
                 self._pending_prefills.remove(job)
-                self._first_token(job.request, job.first, job.finished)
+                self._first_token(job.request, job.slot, job.first,
+                                  job.finished)
 
-    def _first_token(self, req, first, finished):
+    def _first_token(self, req, slot, first, finished):
         """Prefill completion, monolithic or chunked: TTFT, the first
         token (counted here; steps count the decode loop's), and the
         completion of a one-token request."""
         req.first_token_at = self._clock()
         self.ttft_secs.append(req.first_token_at - req.submitted_at)
-        self.telemetry.record_ttft(req)
+        ttft_ms = self.telemetry.record_ttft(req)
+        req.trace_event("first_token", slot=slot, ttft_ms=round(ttft_ms, 3))
         self.telemetry.count("tokens_generated")
         req.push(("tokens", [first], req.model_version))
         if finished:
@@ -365,29 +460,73 @@ class _Scheduler(threading.Thread):
         while self.engine.free_slots():
             req, expired = self.queue.pop_ready(fit=self.engine.can_seat)
             for e in expired:
-                self._expire(e, "while queued")
+                self._expire(e, "queued", prefill_blocked_ms=round(
+                    self._blocked_ms(e), 3))
             if req is None:
                 break
             req.seated_at = self._clock()
-            self.telemetry.record_queue_wait(req.queue_wait_secs())
+            wait_ms = self.telemetry.record_queue_wait(
+                req.queue_wait_secs(), trace_id=req.trace_id)
             # the windowed prefix-hit rate's denominator
             self.telemetry.count("prompt_tokens", len(req.prompt))
+            req.trace_event("seated", queue_wait_ms=round(wait_ms, 3),
+                            prefill_blocked_ms=round(self._blocked_ms(req),
+                                                     3))
+            t0 = self._clock()
             if self._chunked:
                 job = self.engine.begin_insert(req)
-                if job.done():
-                    self._first_token(req, job.first, job.finished)
-                else:
-                    self._pending_prefills.append(job)
-                continue
-            _slot, first, finished = self.engine.insert(req)
-            self._first_token(req, first, finished)
+            else:
+                job = None
+                slot, first, finished = self.engine.insert(req)
+            # the insert (prefill, suffix tile, draft prefill) held the
+            # scheduler
+            self.engine.prefill_busy_ms = (
+                getattr(self.engine, "prefill_busy_ms", 0.0)
+                + (self._clock() - t0) * 1000.0)
+            if job is None:
+                self._first_token(req, slot, first, finished)
+            elif job.done():
+                self._first_token(req, job.slot, job.first, job.finished)
+            else:
+                self._pending_prefills.append(job)
 
     def _complete(self, req):
         self.completed += 1
         self.telemetry.count("completed")
         self.telemetry.record_e2e((self._clock() - req.submitted_at)
-                                  * 1000.0)
+                                  * 1000.0, trace_id=req.trace_id)
+        req.trace_event("completed", tokens=len(req.generated))
+        req.finish_span("ok")
+        self._count_slow(req)
         req.push(("done", req.model_version))
+
+    def _count_slow(self, req):
+        """A terminally slow request (a deadline breach, or a completion
+        after most of its deadline) counts once under the dominant cause
+        forensics.attribute finds in its serve span."""
+        if not self.forensics_on:
+            return
+        span = req.span
+        if span is None or span.end is None:
+            return
+        deadline_ms = ((req.deadline - req.submitted_at) * 1000.0
+                       if req.deadline is not None else 0.0)
+        e2e_ms = (span.end - span.start) * 1000.0
+        if not forensics.is_terminally_slow(span.status, e2e_ms,
+                                            deadline_ms):
+            return
+        verdict = forensics.attribute([span.to_dict()])
+        if verdict["dominant_cause"]:
+            self.telemetry.count_slow_cause(verdict["dominant_cause"])
+
+    def _blocked_ms(self, req):
+        """The ms other requests' prefills held the scheduler while `req`
+        waited: the engine's prefill-busy clock now against its stamp at
+        admission."""
+        stamp = getattr(req, "prefill_busy_at_queued", None)
+        if stamp is None:
+            return 0.0
+        return max(0.0, getattr(self.engine, "prefill_busy_ms", 0.0) - stamp)
 
     def _shutdown(self):
         """Reject the queued backlog; with drain finish the in-flight
@@ -395,6 +534,8 @@ class _Scheduler(threading.Thread):
         terminates."""
         for req in self.queue.close():
             self.telemetry.count("rejected")
+            req.trace_event("rejected", why="shutdown")
+            req.finish_span("RESOURCE_EXHAUSTED")
             req.push(("error", "RESOURCE_EXHAUSTED", "server shutting down"))
         if not self._drain:
             self._abort_all("RESOURCE_EXHAUSTED", "server shutting down")
@@ -409,8 +550,10 @@ class _Scheduler(threading.Thread):
     def _abort_all(self, code, message):
         self._pending_prefills = []
         for req in self.engine.active_requests():
+            req.finish_span(code)
             req.push(("error", code, message))
         for req in self.queue.close():
+            req.finish_span(code)
             req.push(("error", code, message))
 
     def stop(self, drain=True):
@@ -636,10 +779,13 @@ class ServingServicer(object):
             temperature=proto_req.temperature,
             seed=proto_req.seed,
             deadline_ms=proto_req.deadline_ms,
+            trace_id=proto_req.trace_id,
+            parent_span_id=proto_req.parent_span_id,
             prefill_only=proto_req.prefill_only,
         )
         try:
-            return _admit_request(self._queue, self._telemetry, req)
+            return _admit_request(self._queue, self._telemetry, self._engine,
+                                  req, proto_req.deadline_ms)
         except AdmissionError as e:
             self._fail(context, e.code, str(e))
 
@@ -683,7 +829,8 @@ class GenerationServer(object):
     draft). `raw_servicer` is the ServingServicer, `servicer` the same
     wrapped by EDL_FAULT_SPEC's injector for the transport.
     `generate` / `generate_stream` / `submit` / `events` are the
-    in-process entry points; `reload_checkpoint` the explicit swap."""
+    in-process entry points; `reload_checkpoint` the explicit swap.
+    `metrics` is the MetricsServer while one runs (config.metrics_port)."""
 
     def __init__(self, model, config=None, model_version=0, draft=None):
         self.config = config or ServingConfig()
@@ -704,7 +851,7 @@ class GenerationServer(object):
             self.engine = ContinuousBatchingEngine(
                 model, cfg.num_slots, top_k=cfg.top_k, top_p=cfg.top_p)
         self.engine.model_version = int(model_version)
-        self.telemetry = ServingTelemetry()
+        self.telemetry = ServingTelemetry(exemplars=cfg.forensics)
         self.engine.telemetry = self.telemetry
         if cfg.profile:
             self.engine.profiler = StepProfiler()
@@ -721,7 +868,7 @@ class GenerationServer(object):
         self.scheduler = _Scheduler(
             self.engine, self.queue, idle_wait_secs=cfg.idle_wait_secs,
             watcher=self.watcher, prefill_budget_ms=cfg.prefill_budget_ms,
-            telemetry=self.telemetry)
+            telemetry=self.telemetry, forensics_on=cfg.forensics)
         self.raw_servicer = ServingServicer(
             self.scheduler, handler_poll_secs=cfg.handler_poll_secs,
             role=cfg.role)
@@ -729,16 +876,35 @@ class GenerationServer(object):
                                             rpcs=SERVING_RPCS)
         self._server = None
         self.port = None
+        self.metrics = None
+        self._classifier_held = False
 
     @property
     def model_version(self):
         return self.engine.model_version
 
+    def _metrics_families(self):
+        """One scrape: the telemetry's families and, with the step
+        profiler, its phase histogram (on the metrics thread; each
+        collector locks itself)."""
+        fams = self.telemetry.prometheus()
+        if self.engine.profiler is not None:
+            fams.extend(self.engine.profiler.prometheus())
+        return fams
+
     def start(self, transport=False):
-        """Start the scheduler; with `transport`, also serve the
-        Serving methods on config.port (0: an ephemeral port, in
-        `self.port`) with config.max_workers handlers."""
+        """Start the scheduler and, with config.metrics_port, the
+        /metrics server (its port in `self.metrics.port`); with
+        `transport`, also serve the Serving methods on config.port (0:
+        an ephemeral port, in `self.port`) with config.max_workers
+        handlers."""
+        if self.config.forensics and not self._classifier_held:
+            _hold_classifier(1)
+            self._classifier_held = True
         self.scheduler.start()
+        if self.config.metrics_port is not None:
+            self.metrics = MetricsServer(self._metrics_families,
+                                         port=self.config.metrics_port)
         if transport:
             from elasticdl_tpu_torch.proto.service import (
                 add_serving_servicer_to_server,
@@ -756,14 +922,23 @@ class GenerationServer(object):
     def stop(self, drain=True, grace=5.0, timeout=60.0):
         """Stop admission, drain (or abort) in-flight work, join the
         scheduler (at most `timeout` s), then stop the transport, whose
-        calls in flight get `grace` s to finish. Safe to call twice."""
+        calls in flight get `grace` s to finish, and the /metrics server;
+        export the span recorder when EDL_TRACE_DIR is set. Safe to call
+        twice."""
         self.scheduler.stop(drain=drain)
         if self.scheduler.is_alive():
             self.scheduler.join(timeout=timeout)
         if self._server is not None:
             self._server.stop(grace)
             self._server = None
+        if self.metrics is not None:
+            self.metrics.close()
+            self.metrics = None
         self.telemetry.close()
+        if self._classifier_held:
+            _hold_classifier(-1)
+            self._classifier_held = False
+        recorder().flush()
 
     def reload_checkpoint(self, version, timeout=120.0):
         """Swap to checkpoint `version` (newer or older) between decode
@@ -806,11 +981,13 @@ class GenerationServer(object):
 
     def submit(self, prompt, max_new_tokens, temperature=0.0, seed=0,
                deadline_ms=0, prefill_only=False):
-        """Admit one request (raises AdmissionError) and return it."""
+        """Admit one request (raises AdmissionError) and return it; its
+        serve span is the root of a fresh trace."""
         req = ServingRequest(prompt, max_new_tokens, temperature=temperature,
                              seed=seed, deadline_ms=deadline_ms,
                              prefill_only=prefill_only)
-        return _admit_request(self.queue, self.telemetry, req)
+        return _admit_request(self.queue, self.telemetry, self.engine, req,
+                              deadline_ms)
 
     def generate_stream(self, prompt, max_new_tokens, temperature=0.0,
                         seed=0, deadline_ms=0):

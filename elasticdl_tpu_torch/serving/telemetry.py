@@ -11,19 +11,23 @@ the shared log-linear histograms (observability/histogram.py), so the
 status's percentiles are computed as the JAX package computes them.
 Every counter, gauge and histogram also feeds a windowed
 `TimeSeriesRing` (observability/metrics.py), from which the windowed
-prefix-hit rate is read.
+prefix-hit rate is read. With `exemplars` on (the server's forensics
+switch), the record sites pass each request's trace id into the TTFT,
+queue-wait and end-to-end histograms, so a scraped tail bucket names a
+real trace, and the ring differences those exemplars too.
+`prometheus()` returns the exposition families the JAX package's
+`prometheus()` returns, by the same names, help strings and series.
 
 The snapshot derives `kv_bytes_per_token` = sum over decode steps of
 kv_bytes_in_use / tokens_generated: the average KV bytes resident per
 generated token.
 
 Thread-safety: the scheduler thread records steps and latencies,
-handler threads bump admission counters and read snapshots, all under
-one lock. Nothing here touches the device.
+handler threads bump admission counters and read snapshots, the metrics
+thread renders, all under one lock. Nothing here touches the device.
 
-Not ported: the TensorBoard event writer (`log_dir`), the Prometheus
-exposition (`prometheus()`) and histogram exemplars (ROADMAP Queue 1
-item 6).
+Not ported: the TensorBoard event writer (`log_dir` raises; ROADMAP
+Queue 1 item 6).
 """
 
 import threading
@@ -31,9 +35,15 @@ import time
 
 from elasticdl_tpu_torch.observability.forensics import CAUSES
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
-from elasticdl_tpu_torch.observability.metrics import TimeSeriesRing
+from elasticdl_tpu_torch.observability.metrics import (
+    TimeSeriesRing,
+    counter_family,
+    gauge_family,
+    hist_family,
+    labeled_counter_family,
+)
 
-_ITEM6 = "ROADMAP Queue 1 item 6, the metrics plane"
+_ITEM6 = "ROADMAP Queue 1 item 6, the TensorBoard writers"
 
 
 class ServingTelemetry(object):
@@ -73,11 +83,13 @@ class ServingTelemetry(object):
     #: the ring's window (secs) and its bound (windows)
     RING_SECS, RING_WINDOWS = 1.0, 240
 
-    def __init__(self, log_dir=None, clock=time.monotonic):
+    def __init__(self, log_dir=None, clock=time.monotonic, exemplars=True):
+        """`exemplars`: trace ids into the latency histograms."""
         if log_dir:
             raise NotImplementedError(
                 "the serving telemetry's TensorBoard writer is not ported "
                 "yet (%s)" % _ITEM6)
+        self._exemplars = bool(exemplars)
         self._clock = clock
         self._lock = threading.Lock()
         self._started = clock()
@@ -117,6 +129,8 @@ class ServingTelemetry(object):
         self.ring.observe(
             counters=counters, gauges=self.gauges,
             hists={name: h.to_counts() for name, h in self.hists.items()},
+            exemplars={name: h.exemplars for name, h in self.hists.items()
+                       if h.exemplars},
             roll=roll)
 
     # ------------------------------------------------------------ events
@@ -153,21 +167,25 @@ class ServingTelemetry(object):
                                        clock=self._clock)
 
     def record_ttft(self, request):
-        """Time to first token of one request, at its first token."""
+        """Time to first token of one request, at its first token; the
+        request's trace id rides in as the bucket's exemplar."""
         ttft_ms = (self._clock() - request.submitted_at) * 1000.0
+        trace_id = (getattr(request, "trace_id", "")
+                    if self._exemplars else "")
         with self._lock:
-            self.hists["ttft_ms"].record(ttft_ms)
+            self.hists["ttft_ms"].record(ttft_ms, trace_id=trace_id or None)
             self._gauge_locked("ttft_ms", ttft_ms)
             if self.ring.due():
                 self._ring_observe_locked()
         return ttft_ms
 
-    def record_e2e(self, latency_ms):
+    def record_e2e(self, latency_ms, trace_id=None):
         """End-to-end latency of one completed request."""
         with self._lock:
-            self.hists["e2e_ms"].record(latency_ms)
+            self.hists["e2e_ms"].record(
+                latency_ms, trace_id=trace_id if self._exemplars else None)
 
-    def record_queue_wait(self, wait_secs):
+    def record_queue_wait(self, wait_secs, trace_id=None):
         """Time one request spent queued before seating: the EWMA and
         the queue-wait histogram."""
         wait_ms = wait_secs * 1000.0
@@ -179,7 +197,8 @@ class ServingTelemetry(object):
                 self._queue_wait_ewma_ms = (
                     a * wait_ms + (1.0 - a) * self._queue_wait_ewma_ms)
             self._queue_waits_seen += 1
-            self.hists["queue_wait_ms"].record(wait_ms)
+            self.hists["queue_wait_ms"].record(
+                wait_ms, trace_id=trace_id if self._exemplars else None)
             self._gauge_locked("queue_wait_ms", self._queue_wait_ewma_ms)
         return wait_ms
 
@@ -267,6 +286,42 @@ class ServingTelemetry(object):
             snap["slow_requests"] = sum(self.slow_causes.values())
             return snap
 
+    def prometheus(self):
+        """The exposition families: every counter as
+        edl_serving_<name>_total, every gauge as edl_serving_<name>,
+        every histogram with its exemplars, the slow-cause counters by
+        `cause` label and the ring's dropped windows; taken under the
+        lock (the metrics thread calls it)."""
+        with self._lock:
+            fams = [counter_family("edl_serving_%s_total" % name,
+                                   "serving counter %s" % name,
+                                   self.counters[name])
+                    for name in self.COUNTERS]
+            gauges = dict(self.gauges)
+            gauges["prefix_hit_rate_window"] = self._prefix_hit_rate_locked()
+            fams += [gauge_family("edl_serving_%s" % name,
+                                  "serving gauge %s" % name,
+                                  [({}, gauges[name])])
+                     for name in self.GAUGES]
+            for name in self.HISTOGRAMS:
+                h = self.hists[name]
+                fams.append(hist_family(
+                    "edl_serving_%s" % name,
+                    "serving latency histogram %s (shared log-linear "
+                    "scheme)" % name,
+                    [({}, h.to_counts(), h.sum, h.exemplars)]))
+            fams.append(labeled_counter_family(
+                "edl_serving_slow_cause_total",
+                "terminally-slow requests by dominant attributed "
+                "cause (observability/forensics.py taxonomy)",
+                [({"cause": c}, self.slow_causes[c])
+                 for c in self.SLOW_CAUSES]))
+            fams.append(gauge_family(
+                "edl_serving_ring_windows_dropped",
+                "time-series ring windows evicted by the bound",
+                [({}, self.ring.dropped)]))
+            return fams
+
     def close(self):
         """Land the final partial window in the ring."""
         with self._lock:
@@ -293,9 +348,10 @@ class RouterTelemetry(object):
     histogram behind router_status's e2e_p* fields. Every heartbeat poll
     feeds the ring one cumulative observation: the counters, the e2e
     buckets and the fleet-merged replica histograms the router hands in
-    (`fleet_hists`); the SLO burn-rate engine reads that ring.
-    `flush_every` is the TensorBoard writer's cadence (the writer is not
-    ported: a `log_dir` raises)."""
+    (`fleet_hists`) and the e2e exemplars; the SLO burn-rate engine reads
+    that ring, `prometheus()` renders it. `flush_every` is the
+    TensorBoard writer's cadence (the writer is not ported: a `log_dir`
+    raises)."""
 
     COUNTERS = ("routed", "completed", "redispatched", "hedges",
                 "hedge_wins", "shed", "breaker_trips", "errors",
@@ -341,11 +397,9 @@ class RouterTelemetry(object):
 
     def record_e2e(self, latency_ms, trace_id=None):
         """The end-to-end latency of one dispatch that reached a
-        terminal outcome (`trace_id` names an exemplar in the JAX
-        package; exemplars are not ported)."""
-        del trace_id
+        terminal outcome; `trace_id` becomes the bucket's exemplar."""
         with self._lock:
-            self.hists["e2e_ms"].record(latency_ms)
+            self.hists["e2e_ms"].record(latency_ms, trace_id=trace_id)
 
     def record_poll(self, healthy, replicas, fleet_hists=None):
         """One heartbeat sweep: the rotation gauges and one cumulative
@@ -358,8 +412,9 @@ class RouterTelemetry(object):
             hists = {"e2e_ms": self.hists["e2e_ms"].to_counts()}
             if fleet_hists:
                 hists.update(fleet_hists)
-            self.ring.observe(counters=self.counters, gauges=self.gauges,
-                              hists=hists)
+            self.ring.observe(
+                counters=self.counters, gauges=self.gauges, hists=hists,
+                exemplars={"e2e_ms": self.hists["e2e_ms"].exemplars})
 
     def evaluate_slos(self, engine, now=None):
         """A BurnRateEngine over the ring, under the telemetry lock."""
@@ -376,6 +431,40 @@ class RouterTelemetry(object):
             for q in (50, 90, 99):
                 snap["e2e_p%d_ms" % q] = self.hists["e2e_ms"].percentile(q)
             return snap
+
+    def prometheus(self):
+        """The routing tier's families: the counters and gauges, the
+        router's e2e histogram with its exemplars, and every
+        fleet-merged histogram of the ring's latest observation, so one
+        scrape of the router answers fleet TTFT."""
+        with self._lock:
+            fams = [counter_family("edl_router_%s_total" % name,
+                                   "router counter %s" % name,
+                                   self.counters[name])
+                    for name in self.COUNTERS]
+            fams += [gauge_family("edl_router_%s" % name,
+                                  "router gauge %s" % name,
+                                  [({}, self.gauges[name])])
+                     for name in self.GAUGES]
+            h = self.hists["e2e_ms"]
+            fams.append(hist_family(
+                "edl_router_e2e_ms",
+                "router end-to-end dispatch latency (shared "
+                "log-linear scheme)",
+                [({}, h.to_counts(), h.sum, h.exemplars)]))
+            for name, counts in sorted(self.ring.latest()["hists"].items()):
+                if name == "e2e_ms":
+                    continue  # the live histogram above
+                fams.append(hist_family(
+                    "edl_router_%s" % name,
+                    "fleet-merged replica histogram %s (bucket "
+                    "addition across the roster)" % name,
+                    [({}, counts, None)]))
+            fams.append(gauge_family(
+                "edl_router_ring_windows_dropped",
+                "time-series ring windows evicted by the bound",
+                [({}, self.ring.dropped)]))
+            return fams
 
     def close(self):
         """Land the final partial window in the ring."""

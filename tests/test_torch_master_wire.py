@@ -384,11 +384,18 @@ def test_arguments_round_trip_against_jax():
     ["--mesh_spec", "sp=2"], ["--metrics_port", "0"], "env"])
 def test_unhonoured_flags_raise(flag, monkeypatch):
     base = ["--model_zoo", "z", "--model_def", "m.f"]
-    if flag == "env":
-        monkeypatch.setenv(pargs.METRICS_PORT_ENV, "9100")
-        flag = []
-    else:
+    if flag == "env" or flag[0] == "--metrics_port":
+        # the master's /metrics exposition is ported: the flag and the
+        # environment parse as JAX's do (master/main.py serves them)
+        if flag == "env":
+            monkeypatch.setenv(pargs.METRICS_PORT_ENV, "9100")
+            flag = []
+        args = vars(pargs.parse_master_args(base + flag))
+        assert args.pop("device") == "cuda"  # the port's one addition
+        assert args == vars(jargs.parse_master_args(base + flag))
         monkeypatch.delenv(pargs.METRICS_PORT_ENV, raising=False)
+        return
+    monkeypatch.delenv(pargs.METRICS_PORT_ENV, raising=False)
     with pytest.raises(NotImplementedError):
         pargs.parse_master_args(base + flag)
     if flag and flag[0] in ("--distribution_strategy", "--mesh_spec"):

@@ -424,6 +424,7 @@ class _Job(object):
     def __init__(self, name, tiles, request):
         self.name, self.left, self.request = name, tiles, request
         self.first = self.finished = None
+        self.slot = self.tiles = 0  # read by the serve span's events
 
 
 @pytest.mark.parametrize("decoding,tile_ms,per_tick", [
