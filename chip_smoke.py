@@ -494,7 +494,7 @@ repository checkout it sits in. Phases, each of which fails the run:
    streams token for token and A's and B's launches by variant equal,
    decode tokens/s of both and the scrape's and render's ms a record;
    (b) two `serving.main --device cuda --kv_paged 1 --metrics_port 0
-   --port 0` processes (started before (a)) behind a `router_main
+   --port 0` processes (started early, see below) behind a `router_main
    --metrics_port 0` process, all under a temporary EDL_TRACE_DIR; 24
    routed requests (the 16, then 4 with deadlines too tight for their
    64 tokens, then after the first scrape 4 with loose deadlines) while
@@ -510,6 +510,43 @@ repository checkout it sits in. Phases, each of which fails the run:
    at least one exemplar to a trace attributed to a cause of CAUSES,
    the span evidence complete; the dump CLI over the directory, and one
    router_generate -> dispatch -> serve tree for every routed request.
+35. the runtime-health plane (runtime_health_phase): (i) phase 34's
+   requests through an in-process replica over phase 34's model, the
+   plane off and on, each after a warmup of every shape the path takes
+   at this configuration (one request a prefill bucket, MP_SLOTS
+   requests seated together so the decode step runs each active-slot
+   count, the prefix index flushed after) and the steady mark: streams
+   and A / B launches equal (RH_LAUNCHES), the plane's self-report after
+   the pass (jit_compiles > 0, steady_recompiles 0, stalls 0, "ok"),
+   decode tokens/s on over off, the compiles by site and the
+   accountant's idle unaccounted bytes a record; (ii) the stall drill
+   (after scripts/run_stall_drill.py): an in-process router and replica
+   supervisor own two `serving.main --device cuda` flagship replicas;
+   seat 0 is born with RH_STALL_SPEC, seat 1 with RH_LEAK_SPEC, both
+   with --stall_after_secs RH_STALL_AFTER_S and a drill EDL_HEALTH_DIR;
+   stalled_kill_after_secs RH_STALLED_KILL_AFTER_S, wedged_after_secs
+   RH_WEDGED_AFTER_S. The leak is convicted from the sibling's idle
+   reconciles, under 8 MiB before it (no leak logged yet), at least 8
+   MiB after; then RH_LONG long requests: seat 0 self-reports stalled
+   within RH_STALL_AFTER_S + 2 s of the dispatch (its lease still
+   valid), the router drops it, the supervisor kills it before
+   wedged_after_secs, a clean replacement goes live, every wedged
+   request completes on the sibling, RH_POST more after the
+   replacement, 9 of 9 OK; the one bundle valid (validate_bundle), its
+   ring non-empty and the scheduler asleep in the fault hook in its
+   stacks; (iii) SIGUSR2 (sent in phases 24 and 34) to live processes: a
+   replica and router_main of phase 34, the master and the worker of
+   phase 24's CLI job, each dumping all its threads' stacks to
+   sigusr2-<pid>.txt and serving on.
+Every process the script starts writes stall bundles to one
+EDL_HEALTH_DIR: after phases 27-30 and 34 (and 35) it must hold none.
+Right after the build the script starts, beside the kernel checks
+(untimed work), the children later phases use: the sp ranks (20) and
+checkpoint run 1 (22), each waiting at a gate once torch is imported
+and its CUDA context made (their timed work starts at the go), phase
+34's two replicas (ready, then idle), the README quickstart of phase 32
+and the iris job of phase 33 (whole jobs, no timed section); before the
+first timed section it waits until each is at its gate, ready or done.
 
 It prints a `kernels` JSON line, a `serving` JSON line (the int8 run
 under "int8"), a `training` JSON line, a `dlrm` JSON line, a `dense`
@@ -534,7 +571,8 @@ and a `vision_zoo` line (its launches, all 0, ride the `kernels` line as
 ride the `kernels` line as `launches_bert_vit`; A, C and D timed at the
 bert and vit shapes are the `kernels` entries named `..._bert` and
 `..._vit`) and a `metrics_plane` line (its A and B launches by pass ride
-the `kernels` line as `launches_metrics_plane`), each with
+the `kernels` line as `launches_metrics_plane`) and a `runtime_health`
+line, each with
 its own seconds (`phase_s`; the kernel checks' and timings' and the whole
 script's under `serving_modes.kernels_phase_s` and `.script_s`), the
 nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -542,6 +580,7 @@ fp32 comparisons run with TF32 off (torch.backends.cuda.matmul / cudnn
 allow_tf32 = False).
 """
 
+import atexit
 import contextlib
 import gc
 import hashlib
@@ -562,6 +601,39 @@ import time
 import traceback
 import urllib.request
 from datetime import timedelta
+
+_T0 = time.perf_counter()  # the script's start: its log lines count from it
+
+
+def _start_build_early():
+    """Run as the script with no arguments on a machine with nvcc: start
+    the kernels' build (ops/_build.py imports no torch) on a thread
+    before the heavy imports below, which then overlap it. main() joins
+    it."""
+    if __name__ != "__main__" or sys.argv[1:]:
+        return None
+    if not (shutil.which("nvcc") or os.path.exists(
+            os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                         "bin", "nvcc"))):
+        return None
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from elasticdl_tpu_torch.ops import _build as build_mod
+
+    out = {"t0": time.perf_counter()}
+
+    def run():
+        try:
+            out["report"] = build_mod.build()
+        except BaseException as e:  # noqa: BLE001 - re-raised in main
+            out["error"] = e
+        out["t_end"] = time.perf_counter()
+
+    out["thread"] = threading.Thread(target=run, daemon=True)
+    out["thread"].start()
+    return out
+
+
+_EARLY_BUILD = _start_build_early()
 
 import numpy as np
 import torch
@@ -804,7 +876,8 @@ def check(cond, message):
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A log line, stamped with the script's seconds so far."""
+    print("[%7.1f]" % (time.perf_counter() - _T0), *args, flush=True)
 
 
 def _events_ms(run, iters):
@@ -4540,29 +4613,69 @@ def sp_small_step(mesh, device):
         k: p.grad.float().norm().item() for k, p in state.params.items()}}
 
 
-def sp_rank_main(rank, port, outdir):
-    """One rank of the sp path (`chip_smoke.py --sp-rank R PORT DIR`):
-    joins the gloo group of SP processes on this card, runs every
-    SP_CONFIGS run and the small card-vs-CPU step, and writes its
-    results to DIR/rank<R>.json. The parent built the kernels."""
+GATE_WAIT_S = 1500  # bound on an early child's wait for its go file
+
+
+def _gate(go_path, tag):
+    """In a child the script started early: make the CUDA context, say
+    ready (`<go_path>.ready-<tag>`), then wait for the parent's go file
+    (at most GATE_WAIT_S) and return its text. The child's timed work
+    starts after it."""
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with open("%s.ready-%s" % (go_path, tag), "w") as f:
+        f.write("%.6f" % time.time())
+    deadline = time.monotonic() + GATE_WAIT_S
+    while not os.path.exists(go_path):
+        if time.monotonic() > deadline:
+            raise SystemExit("no go file %s in %d s" % (go_path,
+                                                        GATE_WAIT_S))
+        time.sleep(0.05)
+    with open(go_path) as f:
+        return f.read()
+
+
+def _go(go_path, text):
+    """The parent's side of _gate: the go file, written whole."""
+    with open(go_path + ".tmp", "w") as f:
+        f.write(text)
+    os.replace(go_path + ".tmp", go_path)
+
+
+def sp_rank_main(rank, go_path, outdir):
+    """One rank of the sp path (`chip_smoke.py --sp-rank R GO DIR`),
+    started early: its CUDA context made, it waits for the go file GO,
+    which names the gloo group's port; then joins the gloo group of SP
+    processes on this card, runs every SP_CONFIGS run and the small
+    card-vs-CPU step, and writes its results and its stages' wall clock
+    to DIR/rank<R>.json. The parent built the kernels."""
     import torch.distributed as dist
 
     from elasticdl_tpu_torch.parallel.mesh import build_mesh
 
+    stages = {"imported": time.time()}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2)
+    # the inputs (numpy draws, untimed) before the gate
+    batch, params = sp_batch(), sp_params()
+    stages["inputs"] = time.time()
+    port = int(_gate(go_path, "rank%d" % rank))
+    stages["go"] = time.time()
     dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
                             world_size=SP, rank=rank,
                             timeout=timedelta(seconds=SP_RANK_TIMEOUT_S))
+    stages["gloo"] = time.time()
     try:
         mesh = build_mesh({"sp": SP})
-        batch, params = sp_batch(), sp_params()
-        result = {"rank": rank, "configs": {}}
+        result = {"rank": rank, "configs": {}, "stages": stages}
         for name, extra in SP_CONFIGS.items():
             result["configs"][name] = sp_train(params, batch, extra, mesh)
-        result["small"] = {dev: sp_small_step(mesh, dev)
-                           for dev in ("cuda", "cpu")}
+            stages[name] = time.time()
+        result["small"] = {}
+        for dev in ("cuda", "cpu"):
+            result["small"][dev] = sp_small_step(mesh, dev)
+            stages["small_" + dev] = time.time()
         with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
             json.dump(result, f)
     finally:
@@ -4575,21 +4688,65 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_sp_ranks(outdir):
-    """Start the SP rank processes, wait for them (SP_RANK_TIMEOUT_S)
-    and return their results by rank; a rank that fails or times out
-    fails the phase, and every rank still running is killed."""
-    port = _free_port()
+def start_sp_ranks():
+    """Start the SP rank processes (the script starts them early, beside
+    the kernel checks): each imports torch, makes its CUDA context and
+    waits at its gate. Returns the handle run_sp_ranks takes."""
+    outdir = tempfile.mkdtemp(prefix="sp_ranks_")
+    go = os.path.join(outdir, "go")
     env = dict(os.environ,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     procs, logs = [], []
+    t_spawn = time.time()
+    for r in range(SP):
+        logs.append(open(os.path.join(outdir, "rank%d.log" % r), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-rank",
+             str(r), go, outdir], env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    return {"outdir": outdir, "go": go, "procs": procs, "logs": logs,
+            "t_spawn": t_spawn}
+
+
+def _gated_ready(go, tags, procs, what):
+    """Wait until every early child of `tags` is at its gate; returns the
+    seconds from the spawn to the last one's ready stamp."""
+    deadline = time.monotonic() + GATE_WAIT_S
+    while True:
+        stamps = []
+        for tag in tags:
+            path = "%s.ready-%s" % (go, tag)
+            if os.path.exists(path):
+                with open(path) as f:
+                    text = f.read()
+                if text:
+                    stamps.append(float(text))
+        if len(stamps) == len(tags):
+            return max(stamps)
+        check(all(p.poll() is None for p in procs)
+              and time.monotonic() < deadline, "%s did not reach its "
+              "gate: rcs %s" % (what, [p.poll() for p in procs]))
+        time.sleep(0.05)
+
+
+def close_sp_ranks(handle):
+    for proc in handle["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    for f in handle["logs"]:
+        f.close()
+    shutil.rmtree(handle["outdir"], ignore_errors=True)
+
+
+def run_sp_ranks(handle):
+    """Let the SP rank processes of `handle` (start_sp_ranks) go, wait
+    for them (SP_RANK_TIMEOUT_S) and return their results by rank; a
+    rank that fails or times out fails the phase, and every rank still
+    running is killed."""
+    outdir, procs = handle["outdir"], handle["procs"]
+    _go(handle["go"], str(_free_port()))
     try:
-        for r in range(SP):
-            logs.append(open(os.path.join(outdir, "rank%d.log" % r), "w"))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--sp-rank",
-                 str(r), str(port), outdir], env=env, stdout=logs[-1],
-                stderr=subprocess.STDOUT))
         deadline = time.monotonic() + SP_RANK_TIMEOUT_S
         for proc in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -4600,7 +4757,7 @@ def run_sp_ranks(outdir):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=60)
-        for f in logs:
+        for f in handle["logs"]:
             f.close()
     codes = [p.returncode for p in procs]
     if codes != [0] * SP:
@@ -4617,7 +4774,7 @@ def run_sp_ranks(outdir):
     return results
 
 
-def train_sp():
+def train_sp(early=None):
     """The sp training path: the flagship (vocab 32000, embed 1024, 8
     heads, 8 layers, bf16 over fp32 params, AdamW 3e-4 / wd 0.01) at
     seq_len SP_SEQ, minibatch SP_BATCH, over SP rank processes sharing
@@ -4645,15 +4802,33 @@ def train_sp():
               "non-finite single-device loss at seq %d" % SP_SEQ)
     del params
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as outdir:
+    handle = early or start_sp_ranks()
+    try:
+        ready_at = _gated_ready(handle["go"], ["rank%d" % r
+                                               for r in range(SP)],
+                                handle["procs"], "the sp ranks")
         t0 = time.perf_counter()
-        ranks = run_sp_ranks(outdir)
+        ranks = run_sp_ranks(handle)
         wall = time.perf_counter() - t0
+    finally:
+        close_sp_ranks(handle)
+    # each rank's seconds by stage, from its go (its gloo join, each
+    # configuration, the small step on the card and on the CPU)
+    stage_s = []
+    for r in ranks:
+        st, prev, row = r["stages"], r["stages"]["go"], {}
+        for name, t in st.items():
+            if name not in ("imported", "inputs", "go"):
+                row[name] = t - prev
+                prev = t
+        stage_s.append(row)
     out = {"model": "transformer_lm flagship, bf16 compute, fp32 params",
            "seq_len": SP_SEQ, "minibatch": SP_BATCH, "sp": SP,
            "shard_len": SP_LOCAL, "steps": SP_STEPS,
            "exchange": "gloo, host-staged (SP processes share one card)",
-           "single_device": single, "ranks_wall_s": wall, "configs": {}}
+           "single_device": single, "ranks_wall_s": wall,
+           "ranks_spawn_to_ready_s": ready_at - handle["t_spawn"],
+           "rank_stage_s": stage_s, "configs": {}}
     for name in SP_CONFIGS:
         per_rank = [r["configs"][name] for r in ranks]
         check(len({r[0]["digest"] for r in per_rank}) == 1,
@@ -5052,9 +5227,7 @@ def ckpt_run_main(run, workdir):
                        save=executor.checkpoint_saver.last_timing), f)
 
 
-def _ckpt_child(run, workdir, fault=""):
-    """Start run `run` in a process of its own; returns (rc, wall clock
-    at the start, its step records, its summary or None)."""
+def _ckpt_spawn(run, target, fault, log_path):
     env = dict(os.environ)
     env.pop("EDL_FAULT_SPEC", None)
     if fault:
@@ -5062,19 +5235,50 @@ def _ckpt_child(run, workdir, fault=""):
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (repo, env.get("PYTHONPATH")) if p)
-    log_path = os.path.join(workdir, "run%d.log" % run)
-    t_launch = time.time()
     with open(log_path, "w") as log_f:
-        proc = subprocess.Popen(
+        return subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--ckpt-run",
-             str(run), workdir], stdout=log_f, stderr=subprocess.STDOUT,
+             str(run), target], stdout=log_f, stderr=subprocess.STDOUT,
             env=env)
-        try:
-            rc = proc.wait(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+
+
+def start_ckpt_run1():
+    """Run 1 of the checkpoint phase, started early (beside the kernel
+    checks): torch imported and its CUDA context made, it waits at its
+    gate for the phase's working directory. Its steps' times come after
+    the go. Returns the handle _ckpt_child takes."""
+    tmp = tempfile.mkdtemp(prefix="ckpt_run1_")
+    go, log_path = os.path.join(tmp, "go"), os.path.join(tmp, "run1.log")
+    t_spawn = time.time()
+    return {"proc": _ckpt_spawn(1, "gate:" + go, CKPT_FAULT, log_path),
+            "go": go, "log": log_path, "dir": tmp, "t_spawn": t_spawn}
+
+
+def close_ckpt_run1(handle):
+    if handle["proc"].poll() is None:
+        handle["proc"].kill()
+        handle["proc"].wait()
+    shutil.rmtree(handle["dir"], ignore_errors=True)
+
+
+def _ckpt_child(run, workdir, fault="", early=None):
+    """Run `run` in a process of its own (`early`: start_ckpt_run1's
+    process, let go here); returns (rc, wall clock at the start, its
+    step records, its summary or None)."""
+    t_launch = time.time()
+    if early is None:
+        log_path = os.path.join(workdir, "run%d.log" % run)
+        proc = _ckpt_spawn(run, workdir, fault, log_path)
+    else:
+        proc, log_path = early["proc"], early["log"]
+        _gated_ready(early["go"], ["ckpt"], [proc], "checkpoint run 1")
+        _go(early["go"], workdir)
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     steps_path = os.path.join(workdir, "run%d.steps.jsonl" % run)
     steps = []
     if os.path.exists(steps_path):
@@ -5131,7 +5335,7 @@ def _ckpt_serve(args_or_model, lines, device):
 
 
 def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
-                     device="cuda"):
+                     device="cuda", early=None):
     """Train -> crash -> resume -> serve at `cfg`: run 1 (a process)
     dies by SIGKILL at the dispatch boundary after CKPT_KILLED_AT steps,
     run 2 (a process) resumes from its checkpoint and job state and
@@ -5148,7 +5352,8 @@ def checkpoint_phase(rng, workdir, cfg=FLAGSHIP, batch=TRAIN_BATCH,
     if on_card:
         torch.cuda.empty_cache()
     # run 1: the crash
-    rc1, _, steps1, _ = _ckpt_child(1, workdir, fault=CKPT_FAULT)
+    rc1, _, steps1, _ = _ckpt_child(1, workdir, fault=CKPT_FAULT,
+                                    early=early)
     check(rc1 == -9, "run 1 ended with rc %d, not by SIGKILL (-9)" % rc1)
     check([s["step"] for s in steps1] == list(range(1, CKPT_KILLED_AT + 1)),
           "run 1 took steps %s before it died" % [s["step"] for s in steps1])
@@ -5502,6 +5707,52 @@ def _read_cuda_init_probe(proc):
     return {"import_torch_s": import_s, "cuda_context_s": init_s}
 
 
+def _child_pid(ppid, marker):
+    """The pid of a child of `ppid` whose command line holds `marker`
+    (bytes), or None."""
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % name) as f:
+                parent = int(f.read().rsplit(")", 1)[1].split()[1])
+            if parent != ppid:
+                continue
+            with open("/proc/%s/cmdline" % name, "rb") as f:
+                if marker in f.read():
+                    return int(name)
+        except (OSError, ValueError, IndexError):
+            continue
+    return None
+
+
+def _mw_sigusr2(proc, cli_log):
+    """Phase 35 (iii) on the CLI job: SIGUSR2 to its master (the CLI
+    process) and, once its worker has logged its start (the handler is
+    installed before that line), to the worker; each must dump its
+    stacks and run on (the job's rc and checkpoint are checked after)."""
+    deadline = time.monotonic() + MW_DEADLINE_S
+    worker = None
+    while worker is None:
+        check(proc.poll() is None and time.monotonic() < deadline,
+              "the CLI job ended before its worker started")
+        with open(cli_log, errors="replace") as f:
+            if "[worker] Worker 0 starting" in f.read():
+                worker = _child_pid(proc.pid,
+                                    b"elasticdl_tpu_torch.worker.main")
+        if worker is None:
+            time.sleep(0.05)
+
+    def running(pid):
+        with open("/proc/%d/stat" % pid) as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in "ZX"
+
+    _sigusr2("master", proc.pid, lambda: check(
+        proc.poll() is None, "the master died after SIGUSR2"))
+    _sigusr2("worker", worker, lambda: check(
+        running(worker), "the worker died after SIGUSR2"))
+
+
 def master_worker_phase(job, workdir, device="cuda"):
     """The elastic job at the flagship over phase 22's records (see the
     module docstring, 24). Returns (metrics, part 1's launches)."""
@@ -5586,13 +5837,17 @@ def master_worker_phase(job, workdir, device="cuda"):
     probe = _start_cuda_init_probe() if on_card else None
     t0 = time.perf_counter()
     with open(cli_log, "w") as log_f:
+        # a session of its own: a failure here kills its worker with it
         proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
-                                env=_mw_env(), cwd=cli_dir)
+                                env=_mw_env(), cwd=cli_dir,
+                                start_new_session=True)
         try:
+            if on_card:
+                _mw_sigusr2(proc, cli_log)
             rc = proc.wait(timeout=MW_DEADLINE_S)
         finally:
             if proc.poll() is None:
-                proc.kill()
+                os.killpg(proc.pid, signal.SIGKILL)
                 proc.wait()
     cli_s = time.perf_counter() - t0
     fresh_process = _read_cuda_init_probe(probe) if probe else None
@@ -8367,7 +8622,7 @@ class _Child(object):
         env.update(extra_env or {})
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (repo, env.get("PYTHONPATH")) if p)
-        self.what, self.lines = what, []
+        self.what, self.lines, self.stamps = what, [], []
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(argv, cwd=repo, env=env,
                                      stdout=subprocess.PIPE,
@@ -8378,6 +8633,7 @@ class _Child(object):
 
     def _read(self):
         for line in iter(self.proc.stdout.readline, ""):
+            self.stamps.append(time.perf_counter())
             self.lines.append(line)
 
     def tail(self):
@@ -8387,10 +8643,13 @@ class _Child(object):
         """Wait for the first line starting with `prefix`; returns it."""
         deadline = time.monotonic() + WIRE_READY_SECS
         while True:
-            hit = [l for l in list(self.lines) if l.startswith(prefix)]
+            hit = [i for i, l in enumerate(list(self.lines))
+                   if l.startswith(prefix)]
             if hit:
-                self.ready_s = time.perf_counter() - self.t0
-                return hit[0]
+                # from the spawn to the line's arrival (a child started
+                # early was ready long before it was asked)
+                self.ready_s = self.stamps[hit[0]] - self.t0
+                return self.lines[hit[0]]
             check(self.proc.poll() is None and time.monotonic() < deadline,
                   "%s never printed %s (rc %s): %s" % (
                       self.what, prefix, self.proc.poll(), self.tail()))
@@ -8658,6 +8917,11 @@ def _death_step(router, r3, r3_log, rs, addrs):
             rs.randint(0, vocab, size=ROUTER_DISTINCT_LEN).tolist()
             for _ in range(ROUTER_AFTER_KILL))], ROUTER_CONCURRENCY)
     _all_ok(after, ROUTER_NEW, "after the kill")
+    # read once R3's lease has run out for certain: a heartbeat R3
+    # answered just before its SIGKILL leases it on for ROUTER_LEASE_S,
+    # and once its breaker cools down a live lease counts it healthy
+    time.sleep(max(0.0, t_kill + ROUTER_LEASE_S + 2 * ROUTER_POLL_S
+                   - time.monotonic()))
     st = router.router_status(wire_pb.RouterStatusRequest(), timeout=60)
     check(st.shed == 0 and st.healthy == 2, "router_status after the "
           "kill: %r" % st)
@@ -10235,11 +10499,15 @@ def _vis_train(name, workdir, device):
     }
 
 
-def _vis_quickstart(workdir, device):
-    """The README's quickstart on the port: MNIST records from
-    gen_mnist_like (2 files of VIS_QUICKSTART_RECORDS), then `client.main
-    train` of mnist_functional_api with 2 worker processes sharing the
-    card at minibatch 64. Returns its report."""
+def start_quickstart(device, workdir=None):
+    """Start the README's quickstart on the port (the script starts it
+    early, beside the kernel checks: a job with no timed section): MNIST
+    records from gen_mnist_like (2 files of VIS_QUICKSTART_RECORDS), then
+    `client.main train` of mnist_functional_api with 2 worker processes
+    sharing the card at minibatch 64. Returns its handle for
+    _vis_quickstart."""
+    owned = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="quickstart_")
     data = os.path.join(workdir, "quickstart_mnist")
     port_recordio_gen.gen_mnist_like(data, 2, VIS_QUICKSTART_RECORDS)
     status = os.path.join(workdir, "quickstart_status.json")
@@ -10255,15 +10523,45 @@ def _vis_quickstart(workdir, device):
     out_log = os.path.join(workdir, "quickstart.log")
     t0 = time.perf_counter()
     with open(out_log, "w") as log_f:
+        # a session of its own: closing it kills its workers with it
         proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
-                                env=_mw_env(), cwd=workdir)
-        try:
-            rc = proc.wait(timeout=VIS_QUICKSTART_WAIT_S)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    seconds = time.perf_counter() - t0
+                                env=_mw_env(), cwd=workdir,
+                                start_new_session=True)
+    handle = {"proc": proc, "t0": t0, "log": out_log, "status": status,
+              "cmd": cmd, "workdir": workdir if owned else None}
+
+    def stamp_exit():
+        proc.wait()
+        handle["t_end"] = time.perf_counter()
+
+    threading.Thread(target=stamp_exit, daemon=True).start()
+    return handle
+
+
+def close_job(handle):
+    """Kill a job (the quickstart or the iris job) still running, its
+    workers with it, and remove its own directory."""
+    proc = handle["proc"]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    if handle["workdir"]:
+        shutil.rmtree(handle["workdir"], ignore_errors=True)
+
+
+def _vis_quickstart(handle):
+    """Wait for the quickstart `handle` (start_quickstart) and check it:
+    rc 0, the job Succeeded, 2 tasks completed. Returns its report; its
+    seconds run from its start to its exit."""
+    proc, out_log, status, cmd = (handle["proc"], handle["log"],
+                                  handle["status"], handle["cmd"])
+    try:
+        rc = proc.wait(timeout=max(1.0, VIS_QUICKSTART_WAIT_S - (
+            time.perf_counter() - handle["t0"])))
+    except subprocess.TimeoutExpired:
+        rc = None
+    seconds = handle.get("t_end", time.perf_counter()) - handle["t0"]
+    close_job(dict(handle, workdir=None))
     job = job_status.read_job_status(status) or {}
     with open(out_log, errors="replace") as f:
         text = f.read()
@@ -10271,7 +10569,7 @@ def _vis_quickstart(workdir, device):
     if rc != 0 or job.get("status") != job_status.SUCCEEDED:
         log("vision_zoo quickstart's log tail:\n%s" % _log_tail(out_log))
     check(rc == 0 and job.get("status") == job_status.SUCCEEDED,
-          "the README quickstart ended with rc %d, status %s"
+          "the README quickstart ended with rc %s, status %s"
           % (rc, job.get("status")))
     check(completed == 2, "the quickstart completed %d tasks, not 2"
           % completed)
@@ -10281,10 +10579,12 @@ def _vis_quickstart(workdir, device):
             "command": " ".join(cmd[1:])}
 
 
-def vision_zoo_phase(workdir, device="cuda"):
+def vision_zoo_phase(workdir, device="cuda", quickstart=None):
     """Phase 32: the vision zoo with BatchNorm state, dropout and conv
     weights on `device` (see the module docstring), then the README
-    quickstart. Returns (report, the kernels' launches in it)."""
+    quickstart (`quickstart`, start_quickstart's handle, when the script
+    started it early; else started here). Returns (report, the kernels'
+    launches in it)."""
     t_phase = time.perf_counter()
     out = {"models": {}}
     reset_all_launch_counts()
@@ -10293,7 +10593,8 @@ def vision_zoo_phase(workdir, device="cuda"):
         out["models"][name] = rep = _vis_train(name, workdir, device)
         rep["model_s"] = time.perf_counter() - t0
         log("vision_zoo %s: %s" % (name, json.dumps(rep)))
-    out["quickstart"] = _vis_quickstart(workdir, device)
+    out["quickstart"] = _vis_quickstart(
+        quickstart or start_quickstart(device, workdir))
     log("vision_zoo quickstart: %s" % json.dumps(out["quickstart"]))
     # conv, BatchNorm, pooling and dense layers are XLA ops in the JAX
     # package, cuDNN / aten calls here: none of the port's kernels
@@ -10570,16 +10871,58 @@ def _enc_compare(name, rng, device):
             "device_s": gs, "cpu_s": cs}
 
 
-def _enc_iris(workdir, device):
-    """odps_iris_dnn_model on CSV rows: gen_iris_csv (2 files of
-    ENC_IRIS_ROWS), ENC_IRIS_EPOCHS epochs through LocalExecutor on
-    `device` and on the CPU from the same weights (losses within
-    ENC_IRIS_LOSS_TOL_REL), then the job through `client.main train`
-    with one worker process (rc 0, Succeeded, every task completed)."""
+def _iris_data(workdir):
     data = os.path.join(workdir, "iris")
     port_recordio_gen.gen_iris_csv(data, num_files=2,
                                    rows_per_file=ENC_IRIS_ROWS,
                                    seed=ENC_SEED)
+    return data
+
+
+def start_iris_job(device, workdir=None):
+    """Start the iris job through `client.main train` with one worker
+    process over its own gen_iris_csv files (the script starts it early,
+    beside the kernel checks: a job with no timed section). Returns its
+    handle for _enc_iris."""
+    owned = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="iris_job_")
+    data = _iris_data(workdir)
+    status = os.path.join(workdir, "iris_status.json")
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train",
+           "--model_zoo", _tab_zoo_dir(), "--model_def", ENC_IRIS_DEF,
+           "--training_data", data, "--num_workers", "1",
+           "--minibatch_size", str(ENC_IRIS_BATCH),
+           "--records_per_task", str(ENC_IRIS_TASK), "--port", "0",
+           "--job_status_file", status]
+    if device != "cuda":
+        cmd += ["--device", device]
+    out_log = os.path.join(workdir, "iris_job.log")
+    t0 = time.perf_counter()
+    with open(out_log, "w") as log_f:
+        # a session of its own: closing it kills its workers with it
+        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                env=_mw_env(), cwd=workdir,
+                                start_new_session=True)
+    handle = {"proc": proc, "t0": t0, "log": out_log, "status": status,
+              "cmd": cmd, "workdir": workdir if owned else None}
+
+    def stamp_exit():
+        proc.wait()
+        handle["t_end"] = time.perf_counter()
+
+    threading.Thread(target=stamp_exit, daemon=True).start()
+    return handle
+
+
+def _enc_iris(workdir, device, job=None):
+    """odps_iris_dnn_model on CSV rows: gen_iris_csv (2 files of
+    ENC_IRIS_ROWS), ENC_IRIS_EPOCHS epochs through LocalExecutor on
+    `device` and on the CPU from the same weights (losses within
+    ENC_IRIS_LOSS_TOL_REL), then the job through `client.main train`
+    with one worker process (`job`, start_iris_job's handle, when the
+    script started it early; else started here): rc 0, Succeeded, every
+    task completed."""
+    data = _iris_data(workdir)
     spec = get_model_spec(_tab_zoo_dir(), ENC_IRIS_DEF)
     init = {k: v.clone() for k, v in spec.create_model(
         "", device="cpu", seed=ENC_SEED).state_dict().items()}
@@ -10601,34 +10944,24 @@ def _enc_iris(workdir, device):
     check(rel <= ENC_IRIS_LOSS_TOL_REL,
           "iris losses on %s %s, on the CPU %s (rel %.3g)"
           % (device, got, want, rel))
-    status = os.path.join(workdir, "iris_status.json")
-    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train",
-           "--model_zoo", _tab_zoo_dir(), "--model_def", ENC_IRIS_DEF,
-           "--training_data", data, "--num_workers", "1",
-           "--minibatch_size", str(ENC_IRIS_BATCH),
-           "--records_per_task", str(ENC_IRIS_TASK), "--port", "0",
-           "--job_status_file", status]
-    if device != "cuda":
-        cmd += ["--device", device]
-    out_log = os.path.join(workdir, "iris_job.log")
-    t0 = time.perf_counter()
-    with open(out_log, "w") as log_f:
-        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
-                                env=_mw_env(), cwd=workdir)
-        try:
-            rc = proc.wait(timeout=ENC_IRIS_WAIT_S)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    seconds = time.perf_counter() - t0
+    job = job or start_iris_job(device, workdir)
+    proc, out_log, status, cmd = (job["proc"], job["log"], job["status"],
+                                  job["cmd"])
+    try:
+        rc = proc.wait(timeout=max(1.0, ENC_IRIS_WAIT_S - (
+            time.perf_counter() - job["t0"])))
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        close_job(dict(job, workdir=None))
+    seconds = job.get("t_end", time.perf_counter()) - job["t0"]
     job = job_status.read_job_status(status) or {}
     with open(out_log, errors="replace") as f:
         completed = len(re.findall(r"Task:\d+ completed", f.read()))
     if rc != 0 or job.get("status") != job_status.SUCCEEDED:
         log("encoder_zoo iris job's log tail:\n%s" % _log_tail(out_log))
     check(rc == 0 and job.get("status") == job_status.SUCCEEDED,
-          "the iris CSV job ended with rc %d, status %s"
+          "the iris CSV job ended with rc %s, status %s"
           % (rc, job.get("status")))
     tasks = 2 * -(-ENC_IRIS_ROWS // ENC_IRIS_TASK)
     check(completed == tasks, "the iris job completed %d tasks, not %d"
@@ -10642,7 +10975,7 @@ def _enc_iris(workdir, device):
     return rep
 
 
-def encoder_zoo_phase(workdir, device="cuda"):
+def encoder_zoo_phase(workdir, device="cuda", iris_job=None):
     """Phase 33: BERT-base and ViT-Base training at full width, the
     card against the CPU port, packed bert rows and the iris model on
     CSV rows (see the module docstring). Returns (report, the kernels'
@@ -10673,7 +11006,7 @@ def encoder_zoo_phase(workdir, device="cuda"):
                                for name in ENC_MODELS}
     gc.collect()
     reset_all_launch_counts()
-    out["iris"] = _enc_iris(workdir, device)
+    out["iris"] = _enc_iris(workdir, device, iris_job)
     launches["iris"] = {k: v for k, v in all_launch_counts().items() if v}
     check(not launches["iris"], "the iris model launched %s"
           % launches["iris"])
@@ -11057,6 +11390,12 @@ def _mp_fleet(specs, trace_dir, children):
     out["collector_cli"] = {"rc": rc, "torch_free": cli_torch_free,
                             "s": time.perf_counter() - cli.t0}
     cli.close()
+    # phase 35 (iii): SIGUSR2 to a live replica and the live router, each
+    # still answering after its dump
+    _sigusr2("replica", replicas[0].proc.pid, lambda: direct[0].server_status(
+        wire_pb.ServerStatusRequest(), timeout=60))
+    _sigusr2("router_main", router.proc.pid, lambda: stub.router_status(
+        wire_pb.RouterStatusRequest(), timeout=60))
     # SIGTERM flushes each process's spans into the trace directory
     for child in [router] + list(replicas):
         child.stop()
@@ -11120,19 +11459,37 @@ def _mp_fleet(specs, trace_dir, children):
     return out
 
 
-def metrics_plane_phase(specs, device="cuda"):
+def start_metrics_replicas(device="cuda", trace_dir=None):
+    """Phase 34 (b)'s two replica processes (the script starts them
+    early, beside the kernel checks: untimed work); they warm up and wait
+    idle. Returns (the children, their trace directory)."""
+    trace_dir = trace_dir or tempfile.mkdtemp(prefix="metrics_plane_")
+    return [_Child([
+        sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
+        "--device", device, "--kv_paged", "1", "--metrics_port", "0",
+        "--port", "0", "--model_params", _params_str(FLAGSHIP),
+        "--num_slots", str(MP_SLOTS), "--kv_block_size", "16",
+        "--warmup_tokens", "2"], "metrics replica %d" % i,
+        extra_env={"EDL_TRACE_DIR": trace_dir}) for i in range(2)], trace_dir
+
+
+def metrics_plane_phase(specs, device="cuda", model=None, early=None):
     """Phase 34: the metrics plane and tail forensics on the serving
-    fleet. (a) the specs twice through an in-process replica, plane off
-    then on (scraped throughout): streams and A / B launches equal,
-    tokens/s and the scrape's and render's ms a record. (b) the fleet
-    (_mp_fleet), its replica processes started after (a), so that their
-    start-up does not share the host with (a)'s passes. Returns the line
-    and (a)'s launches by pass."""
+    fleet. (a) the specs twice through an in-process replica over `model`
+    (the flagship's, seeded; made here when None), plane off then on
+    (scraped throughout): streams and A / B launches equal, tokens/s and
+    the scrape's and render's ms a record. (b) the fleet (_mp_fleet),
+    its replica processes `early` = start_metrics_replicas()'s, started
+    beside the kernel checks, else here after (a), so that their start-up
+    does not share the host with (a)'s passes. Returns the line and (a)'s
+    launches by pass."""
     on_card = device == "cuda"
-    trace_dir = tempfile.mkdtemp(prefix="metrics_plane_")
-    out, launches, children = {}, {}, []
+    children, trace_dir = early if early is not None else ([], None)
+    trace_dir = trace_dir or tempfile.mkdtemp(prefix="metrics_plane_")
+    out, launches = {}, {}
     try:
-        model = TransformerLM(device=device, seed=0, **FLAGSHIP)
+        if model is None:
+            model = TransformerLM(device=device, seed=0, **FLAGSHIP)
         streams = {}
         for name, plane_on in (("plane_off", False), ("plane_on", True)):
             streams[name], launches[name], out[name] = _mp_pass(
@@ -11152,16 +11509,8 @@ def metrics_plane_phase(specs, device="cuda"):
         out["on_over_off_tokens_per_s"] = (
             out["plane_on"]["decode_tokens_per_s"]
             / out["plane_off"]["decode_tokens_per_s"])
-        del model
-        if on_card:
-            torch.cuda.empty_cache()
-        children += [_Child([
-            sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
-            "--device", device, "--kv_paged", "1", "--metrics_port", "0",
-            "--port", "0", "--model_params", _params_str(FLAGSHIP),
-            "--num_slots", str(MP_SLOTS), "--kv_block_size", "16",
-            "--warmup_tokens", "2"], "metrics replica %d" % i,
-            extra_env={"EDL_TRACE_DIR": trace_dir}) for i in range(2)]
+        if not children:
+            children += start_metrics_replicas(device, trace_dir)[0]
         out["fleet"] = _mp_fleet(specs, trace_dir, children)
     finally:
         for child in children:
@@ -11171,10 +11520,576 @@ def metrics_plane_phase(specs, device="cuda"):
     return out, launches
 
 
+RH_SEED = 35
+RH_LONG, RH_LONG_NEW, RH_LONG_PROMPT = 6, 96, 64  # the drill's burst
+RH_POST, RH_POST_NEW = 3, 16  # after the replacement
+RH_STALL_AFTER_S = 2.0  # the drill replicas' watchdog budget
+RH_STALLED_KILL_AFTER_S = 1.5  # the supervisor's self-report budget
+RH_WEDGED_AFTER_S = 30.0  # the lease heuristic, kept
+#: the first seat wedges on its 6th decode tick (its warmup of 4 tokens
+#: takes 3: the burst's third tick), with requests seated
+RH_STALL_SPEC = "engine_step:delay:1:secs=600,skip=5"
+#: the sibling leaks 8 MiB at its 2nd reconcile after the steady mark
+#: (reconciles 2 s apart), 2-4 s after it is ready: its idle drift is
+#: read first, as soon as it is ready
+RH_LEAK_SKIP = 1
+RH_LEAK_SPEC = "health_leak:drop:1:skip=%d" % RH_LEAK_SKIP
+RH_LEAK_BYTES = 8 << 20
+RH_WAIT_S = 300
+#: phase 34's pass of the 16 requests: A's prefills, B's split kernel
+#: (8 layers a decode step) and its tile kernel (the prefix hits' suffix
+#: tiles)
+RH_LAUNCHES = {"flash_fwd": 72, "paged_decode": 1872,
+               "paged_decode_tile": 32}
+#: what each process of the script saw: SIGUSR2 dumps by process kind
+#: (phases 24 and 34 send them; this phase's line reports them)
+SIGUSR2_DUMPS = {}
+
+
+def _health_dir():
+    """The script's EDL_HEALTH_DIR (main sets it): every replica, router
+    and job process started by a phase writes its stall bundles and
+    SIGUSR2 dumps there."""
+    return os.environ.get("EDL_HEALTH_DIR", "")
+
+
+def _stall_bundles(health_dir=None):
+    health_dir = health_dir if health_dir is not None else _health_dir()
+    if not health_dir or not os.path.isdir(health_dir):
+        return []
+    return sorted(f for f in os.listdir(health_dir)
+                  if f.startswith("health-bundle-") and f.endswith(".json"))
+
+
+def _no_stalls(where):
+    """No process of the script so far read as stalled: no stall bundle
+    in the script's health directory."""
+    bundles = _stall_bundles()
+    check(not bundles, "%s: a healthy process read as stalled: %s"
+          % (where, bundles))
+    return 0
+
+
+def _sigusr2(kind, pid, alive_check):
+    """SIGUSR2 to live process `pid`: its all-thread stacks (a block for
+    each Python thread) must land in sigusr2-<pid>.txt in the script's
+    health directory, and `alive_check()` (a call it serves) must pass
+    after. Records the result under `kind`."""
+    path = os.path.join(_health_dir(), "sigusr2-%d.txt" % pid)
+    t0 = time.perf_counter()
+    os.kill(pid, signal.SIGUSR2)
+    deadline = time.monotonic() + 30
+    text, threads = "", 0
+    while time.monotonic() < deadline:
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                got = f.read()
+            # the dump is written thread by thread: done once the file
+            # stops growing (the signal may land on a thread Python does
+            # not run, so no block need say "Current thread")
+            if "most recent call first" in got and got == text:
+                threads = len(re.findall(r"^(?:Current thread|Thread) 0x",
+                                         text, re.M))
+                break
+            text = got
+        time.sleep(0.2)
+    check(threads >= 1, "%s (pid %d): no all-thread dump in %s after "
+          "SIGUSR2: %r" % (kind, pid, path, text[-500:]))
+    alive_check()
+    SIGUSR2_DUMPS[kind] = {"pid": pid, "threads": threads,
+                           "bytes": len(text),
+                           "dump_s": time.perf_counter() - t0}
+
+
+def _rh_warm(server, vocab):
+    """The shapes of the serving path at this configuration, before the
+    steady mark: one request a prefill bucket (its prompt 2 tokens short
+    of the bucket), then MP_SLOTS requests of 2..MP_SLOTS + 1 tokens
+    seated together, so the decode step runs every active-slot count
+    (the port's step runs the active slots only: one signature a count);
+    the prefix index flushed after, so the pass seats as phase 34's
+    did."""
+    seq = server.engine.seq_len
+    for i, bucket in enumerate(range(64, seq + 1, 64)):
+        server.generate([(7 + i) % vocab] * (bucket - 2), 2)
+    _tiers_pass(server, [([3, 4 + i], 2 + i) for i in range(MP_SLOTS)])
+    server.scheduler.submit_job(server.engine.kv.flush_prefix_cache)
+
+
+def _rh_pass(model, specs, health_on, device):
+    """Phase 35 (i): phase 34's requests through an in-process replica
+    at the flagship's serving configuration, the runtime-health plane off
+    or on, after the shape warmup and the steady mark."""
+    server = GenerationServer(model, ServingConfig(
+        num_slots=MP_SLOTS, queue_capacity=64, kv_paged=True,
+        kv_block_size=16, kv_shared=True,
+        runtime_health=health_on)).start()
+    try:
+        _rh_warm(server, model.vocab_size)
+        server.telemetry.reset_latency()
+        server.mark_steady()
+        _sync(device)
+        att.reset_launch_counts()
+        reqs, times = _tiers_pass(server, specs)
+        _sync(device)
+        launches = {n: att.KERNEL_LAUNCHES[n] for n in SERVING_KERNELS}
+        tokens = sum(len(r.generated) for r in reqs)
+        out = dict(times, tokens=tokens,
+                   decode_tokens_per_s=tokens / times["wall_s"])
+        if health_on:
+            health = server.health
+            out["health"] = health.snapshot()
+            snap = health.sentry.snapshot()
+            out["compiles"] = snap["compiles"]
+            out["builds"] = snap["builds"]
+            # an idle reconcile after the pass (the scheduler is idle)
+            view = health.accountant.reconcile()
+            out["idle_unaccounted_bytes"] = view["unaccounted_bytes"]
+            out["unaccounted_peak_bytes"] = view["unaccounted_peak_bytes"]
+            out["ledger"] = view["ledger"]
+            out["live_bytes"] = view["live_bytes"]
+            out["ring_recorded"] = health.recorder.recorded
+        else:
+            check(server.health is None, "the plane is on in the off pass")
+    finally:
+        server.stop(timeout=120)
+    check(server.scheduler.crashed is None,
+          "scheduler crashed: %r" % (server.scheduler.crashed,))
+    return [list(r.generated) for r in reqs], launches, out
+
+
+def _rh_in_process(model, specs, device):
+    out, streams, launches = {}, {}, {}
+    for name, on in (("plane_off", False), ("plane_on", True)):
+        streams[name], launches[name], out[name] = _rh_pass(
+            model, specs, on, device)
+    check(streams["plane_on"] == streams["plane_off"], "the health plane "
+          "changed the streams from position %s" % (_first_divergence(
+              sum(streams["plane_on"], []), sum(streams["plane_off"], [])),))
+    check(launches["plane_on"] == launches["plane_off"], "the health plane "
+          "changed the launches: %s" % launches)
+    if device == "cuda":
+        check(launches["plane_on"] == RH_LAUNCHES, "the pass launched %s, "
+              "not %s" % (launches["plane_on"], RH_LAUNCHES))
+    h = out["plane_on"]["health"]
+    check(h["jit_compiles"] > 0 and h["steady_marked"]
+          and h["steady_recompiles"] == 0 and h["stalls"] == 0
+          and h["health_state"] == "ok", "the plane's self-report after "
+          "the pass: %s" % h)
+    out["launches"] = launches
+    out["streams_equal"] = len(streams["plane_on"])
+    out["on_over_off_tokens_per_s"] = (
+        out["plane_on"]["decode_tokens_per_s"]
+        / out["plane_off"]["decode_tokens_per_s"])
+    return out
+
+
+class _SeatLauncher(object):
+    """The drill's replica launcher: seat 0 is born with the stall
+    armed, seat 1 with the leak; later seats (the replacement) come up
+    clean, so the fleet converges. `prespawn(seat)` starts a seat ahead
+    of the supervisor, whose spawn of that seat then takes it."""
+
+    def __init__(self, base, env, seat_specs):
+        self._base, self._env, self._specs = base, env, seat_specs
+        self.spawned = {}
+        self._held = {}
+
+    def _start(self, seat_id):
+        env = dict(self._env)
+        spec = self._specs.get(seat_id)
+        if spec:
+            env["EDL_FAULT_SPEC"] = spec
+        self._base.env = env
+        handle = self._base.spawn(seat_id)
+        self.spawned[seat_id] = handle
+        return handle
+
+    def prespawn(self, seat_id):
+        self._held[seat_id] = self._start(seat_id)
+
+    def spawn(self, seat_id):
+        held = self._held.pop(seat_id, None)
+        return held if held is not None else self._start(seat_id)
+
+    def attach(self, seat_id, pid, log_path):
+        return self._base.attach(seat_id, pid, log_path)
+
+
+def _rh_status(stub):
+    try:
+        return stub.router_status(wire_pb.RouterStatusRequest(), timeout=20)
+    except wire_service.RpcError:
+        return None
+
+
+def _rh_wait(pred, what, timeout=RH_WAIT_S, poll=0.05):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        check(time.monotonic() < deadline, "the stall drill timed out "
+              "waiting for %s" % what)
+        time.sleep(poll)
+
+
+def _seat_log(launcher, seat):
+    handle = launcher.spawned.get(seat)
+    if handle is None or not os.path.exists(handle.log_path):
+        return ""
+    with open(handle.log_path, errors="replace") as f:
+        return f.read()
+
+
+def _rh_read_before(launcher, out):
+    """The sibling's (seat 1's) idle drift, read as soon as it is ready,
+    before its leak fires (2-4 s after its steady mark): into `out`."""
+    try:
+        addr = _rh_wait(lambda: launcher.spawned[1].ready(),
+                        "the sibling to be ready", poll=0.02)
+        out["ready_at"] = time.monotonic()
+        stub = wire_service.ServingStub(wire_service.build_channel(addr))
+        out["status"] = stub.server_status(wire_pb.ServerStatusRequest(),
+                                           timeout=20)
+        out["leak_logged"] = "leaked" in _seat_log(launcher, 1)
+        out["address"] = addr
+    except Exception as e:  # noqa: BLE001 - the drill reports it
+        out["error"] = repr(e)
+
+
+def start_drill_seats(device="cuda"):
+    """Phase 35 (ii)'s first two replicas (the script starts them early,
+    beside the kernel checks; they warm up and wait idle): seat 0 born
+    with RH_STALL_SPEC, seat 1 with RH_LEAK_SPEC, both with
+    --stall_after_secs RH_STALL_AFTER_S and the drill's EDL_HEALTH_DIR;
+    a thread reads the sibling's idle drift as soon as it is ready.
+    Returns the handle _rh_drill takes."""
+    from elasticdl_tpu_torch.serving.autoscaler import (
+        SubprocessReplicaLauncher,
+    )
+
+    root = tempfile.mkdtemp(prefix="stall_drill_")
+    health_dir = os.path.join(root, "health")
+    os.makedirs(health_dir)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, EDL_HEALTH_DIR=health_dir)
+    env.pop("EDL_FAULT_SPEC", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    args = ["--device", device, "--kv_paged", "1", "--kv_block_size", "16",
+            "--num_slots", str(MP_SLOTS), "--port", "0",
+            "--model_params", _params_str(FLAGSHIP), "--warmup_tokens", "4",
+            "--runtime_health", "1",
+            "--stall_after_secs", str(RH_STALL_AFTER_S)]
+    launcher = _SeatLauncher(
+        SubprocessReplicaLauncher(args, os.path.join(root, "logs"), env=env,
+                                  cwd=repo),
+        env, {0: RH_STALL_SPEC, 1: RH_LEAK_SPEC})
+    t_spawn = time.monotonic()
+    for seat in (0, 1):
+        launcher.prespawn(seat)
+    before = {}
+    reader = threading.Thread(target=_rh_read_before,
+                              args=(launcher, before), daemon=True)
+    reader.start()
+    return {"root": root, "health_dir": health_dir, "launcher": launcher,
+            "before": before, "reader": reader, "t_spawn": t_spawn}
+
+
+def close_drill_seats(seats):
+    for handle in seats["launcher"].spawned.values():
+        if handle.poll() is None:
+            handle.kill()
+            _rh_wait(lambda h=handle: h.poll() is not None,
+                     "a drill replica to die", timeout=30)
+    shutil.rmtree(seats["root"], ignore_errors=True)
+
+
+def _rh_drill(device, rs, seats=None):
+    """Phase 35 (ii): the stall drill (see the module docstring) over
+    `seats` (start_drill_seats'; started here when None)."""
+    from elasticdl_tpu_torch.observability.runtime_health import (
+        validate_bundle,
+    )
+    from elasticdl_tpu_torch.serving.autoscaler import (
+        AutoscalerConfig,
+        ReplicaSupervisor,
+    )
+    from elasticdl_tpu_torch.serving.router import Router, RouterConfig
+
+    seats = seats or start_drill_seats(device)
+    root, health_dir = seats["root"], seats["health_dir"]
+    launcher = seats["launcher"]
+    router = Router([], RouterConfig(
+        poll_secs=0.25, poll_timeout_secs=2.0, lease_secs=2.0,
+        breaker_cooldown_secs=1.0, redispatch_window_secs=120.0,
+        dispatch_timeout_secs=150.0, max_workers=96)).start()
+    sup = ReplicaSupervisor(router, launcher, AutoscalerConfig(
+        min_replicas=2, max_replicas=2, decide_secs=0.25,
+        ready_timeout_secs=RH_WAIT_S, drain_timeout_secs=60.0,
+        wedged_after_secs=RH_WEDGED_AFTER_S,
+        stalled_kill_after_secs=RH_STALLED_KILL_AFTER_S, max_restarts=3,
+        journal_dir=os.path.join(root, "journal")))
+    router.set_autoscaler(sup)
+    out, timeline, outcomes = {}, {}, {}
+    t_start = time.monotonic()
+
+    def stamp(name):
+        timeline[name] = time.monotonic() - t_start
+
+    stub = wire_service.RouterStub(wire_service.build_channel(
+        "localhost:%d" % router.port))
+    vocab = FLAGSHIP["vocab_size"]
+
+    def call(tag, prompt, new):
+        r = _routed(stub, "router_generate", tag, prompt, new)
+        outcomes[tag] = r["code"] or ("OK" if r["done"] and len(
+            r["tokens"]) == new else "INCOMPLETE")
+
+    def seat_log(seat):
+        return _seat_log(launcher, seat)
+
+    try:
+        sup.start()
+        # the leak from the sibling's idle reconciles: before (read as
+        # soon as it was ready, no leak logged yet) ...
+        seats["reader"].join(timeout=RH_WAIT_S)
+        got = seats["before"]
+        check("status" in got and not got["leak_logged"], "the sibling's "
+              "idle drift before its leak was not read: %s" % got)
+        stamp("sibling_ready")
+        out["seats_ready_s"] = got["ready_at"] - seats["t_spawn"]
+        before = got["status"]
+        leak_stub = wire_service.ServingStub(wire_service.build_channel(
+            got["address"]))
+
+        def leak_status():
+            return leak_stub.server_status(wire_pb.ServerStatusRequest(),
+                                           timeout=20)
+
+        check(before.memory_unaccounted_bytes < RH_LEAK_BYTES
+              and before.health_state == "ok", "the sibling's idle drift "
+              "before the leak: %d bytes, %r"
+              % (before.memory_unaccounted_bytes, before.health_state))
+        # ... and after
+        after = _rh_wait(lambda: (lambda s: s if s.memory_unaccounted_bytes
+                                  >= RH_LEAK_BYTES else None)(leak_status()),
+                         "the accountant to convict the leak", timeout=60,
+                         poll=0.25)
+        check("leaked %d device bytes" % RH_LEAK_BYTES in seat_log(1),
+              "the sibling logged no leak")
+        stamp("leak_convicted")
+        _rh_wait(lambda: (lambda st: st is not None
+                          and st.autoscaler.live >= 2
+                          and st.healthy >= 2)(_rh_status(stub)),
+                 "both replicas live")
+        stamp("fleet_live")
+        st = _rh_status(stub)
+        addr = {launcher.spawned[s].ready(): s for s in (0, 1)}
+        check(set(addr) == {r.address for r in st.replica},
+              "the fleet %s is not the two seats %s"
+              % ([r.address for r in st.replica], addr))
+        out["leak"] = {"spec": RH_LEAK_SPEC, "leaked_bytes": RH_LEAK_BYTES,
+                       "idle_before_bytes": before.memory_unaccounted_bytes,
+                       "idle_after_bytes": after.memory_unaccounted_bytes,
+                       "convicted": after.memory_unaccounted_bytes
+                       >= RH_LEAK_BYTES}
+        # the stall: a burst of long requests over both seats
+        threads = []
+        for i in range(RH_LONG):
+            prompt = rs.randint(0, vocab, size=RH_LONG_PROMPT).tolist()
+            threads.append(threading.Thread(target=call, args=(
+                "rh-long-%d" % i, prompt, RH_LONG_NEW), daemon=True))
+        t_dispatch = time.monotonic()
+        for t in threads:
+            t.start()
+        stamp("burst_dispatched")
+
+        def stalled():
+            st = _rh_status(stub)
+            for r in (st.replica if st is not None else ()):
+                if r.health_state == "stalled":
+                    return r
+            return None
+
+        rep = _rh_wait(stalled, "a replica to self-report stalled",
+                       timeout=RH_WEDGED_AFTER_S, poll=0.02)
+        t_detect = time.monotonic()
+        stamp("stall_detected")
+        check(addr.get(rep.address) == 0, "seat %s reads stalled, not the "
+              "armed seat 0" % addr.get(rep.address))
+        detect_s = t_detect - t_dispatch
+        out["detect"] = {"s": detect_s, "age_ms": rep.last_progress_age_ms,
+                         "lease_remaining_secs": rep.lease_remaining_secs,
+                         "router_healthy": rep.healthy}
+        check(detect_s <= RH_STALL_AFTER_S + 2.0, "detection took %.2f s "
+              "from the dispatch (bound %.1f)" % (detect_s,
+                                                  RH_STALL_AFTER_S + 2.0))
+        dropped = _rh_wait(lambda: (lambda st: st is not None and any(
+            r.address == rep.address and not r.healthy
+            for r in st.replica))(_rh_status(stub)),
+            "the router to drop the stalled replica", timeout=10, poll=0.02)
+        out["router_dropped"] = bool(dropped)
+        _rh_wait(lambda: (lambda st: st is not None
+                          and st.autoscaler.replacements >= 1)(
+            _rh_status(stub)), "the stalled replica to be killed",
+            timeout=RH_WEDGED_AFTER_S, poll=0.02)
+        t_kill = time.monotonic()
+        stamp("replica_killed")
+        kill_s = t_kill - t_dispatch
+        check(kill_s < RH_WEDGED_AFTER_S, "dispatch to kill took %.1f s, no "
+              "faster than the %.0f s lease heuristic"
+              % (kill_s, RH_WEDGED_AFTER_S))
+        rc = _rh_wait(lambda: (lambda rc: None if rc is None else [rc])(
+            launcher.spawned[0].poll()), "seat 0 to exit", timeout=30)[0]
+        out["kill"] = {"s": kill_s, "rc": rc}
+        check(rc == -signal.SIGKILL, "seat 0 exited %s, not by SIGKILL" % rc)
+        _rh_wait(lambda: (lambda st: st is not None
+                          and st.autoscaler.live >= 2
+                          and st.healthy >= 2)(_rh_status(stub)),
+                 "the replacement to go live")
+        t_live = time.monotonic()
+        stamp("replacement_live")
+        out["replacement_live_s"] = t_live - t_kill
+        check(2 in launcher.spawned, "no replacement seat was spawned")
+        for t in threads:
+            t.join(timeout=RH_WAIT_S)
+            check(not t.is_alive(), "a wedged request hung: %s" % outcomes)
+        stamp("burst_done")
+        for i in range(RH_POST):
+            prompt = rs.randint(0, vocab, size=RH_LONG_PROMPT).tolist()
+            call("rh-post-%d" % i, prompt, RH_POST_NEW)
+        stamp("post_done")
+        out["outcomes"] = dict(outcomes)
+        check(len(outcomes) == RH_LONG + RH_POST and set(
+            outcomes.values()) == {"OK"}, "outcomes: %s" % outcomes)
+        # the bundle the stalled replica left
+        bundles = _stall_bundles(health_dir)
+        check(len(bundles) == 1, "stall bundles: %s" % bundles)
+        with open(os.path.join(health_dir, bundles[0])) as f:
+            bundle = json.load(f)
+        problems = validate_bundle(bundle)
+        sched = [t for t in bundle["stacks"]["threads"]
+                 if t["thread"] == "serving-scheduler"]
+        asleep = bool(sched) and "fault_injection" in "".join(
+            sched[0]["stack"])
+        check(not problems and bundle["reason"] == "progress_stall"
+              and bundle["ring"] and asleep and bundle["pid"]
+              == launcher.spawned[0].pid, "the bundle: problems %s, "
+              "reason %s, %d ring ticks, scheduler asleep %s"
+              % (problems, bundle["reason"], len(bundle["ring"]), asleep))
+        out["bundle"] = {"valid": True, "ring_ticks": len(bundle["ring"]),
+                         "scheduler_asleep": asleep,
+                         "compiles": bundle["recompiles"]["total_compiles"],
+                         "stalls": bundle["health"]["stalls"],
+                         "age_ms": bundle["health"]["last_progress_age_ms"]}
+        stamp("bundle_validated")
+        st = _rh_status(stub)
+        out["autoscaler"] = {"live": st.autoscaler.live,
+                             "replacements": st.autoscaler.replacements}
+    finally:
+        sup.stop(grace=20.0)
+        router.stop()
+        close_drill_seats(seats)
+    out["timeline_s"] = timeline
+    out["bounds"] = {"stall_after_secs": RH_STALL_AFTER_S,
+                     "stalled_kill_after_secs": RH_STALLED_KILL_AFTER_S,
+                     "wedged_after_secs": RH_WEDGED_AFTER_S,
+                     "detect_bound_s": RH_STALL_AFTER_S + 2.0}
+    return out
+
+
+def runtime_health_phase(model, specs, device="cuda", seats=None):
+    """Phase 35: the runtime-health plane (see the module docstring),
+    the drill over `seats` (start_drill_seats', when the script started
+    them early). Returns the line."""
+    out = {"in_process": _rh_in_process(model, specs, device)}
+    out["drill"] = _rh_drill(device, np.random.RandomState(RH_SEED), seats)
+    out["sigusr2"] = dict(SIGUSR2_DUMPS)
+    check(set(SIGUSR2_DUMPS) == {"replica", "router_main", "master",
+                                 "worker"},
+          "SIGUSR2 dumps of %s, not of a replica, router_main, the master "
+          "and a worker" % sorted(SIGUSR2_DUMPS))
+    out["stall_bundles_elsewhere"] = len(_stall_bundles())
+    _no_stalls("runtime_health")
+    log("runtime_health: %s" % json.dumps(out))
+    return out
+
+
+class _Early(object):
+    """The children the script starts early, each for a later phase: the
+    README quickstart and phase 33's iris job (whole jobs with no timed
+    section and no kernel of the port) beside the build's tail; after
+    the build, beside the kernel checks (untimed work), the sp ranks and
+    checkpoint run 1 (at their gates, their timed work after the go),
+    phase 34's two replicas and phase 35's two drill seats (ready, then
+    idle). `settle()`, before the first timed section, waits until each
+    is at its gate, ready or done, so none starts up beside timed
+    work."""
+
+    def __init__(self, device):
+        self.quickstart = start_quickstart(device)
+        self.iris = start_iris_job(device)
+        self.sp = self.ckpt = self.metrics = self.seats = None
+        self.settle_s = self.ready_s = None
+        atexit.register(self.close)
+
+    def after_build(self, device):
+        self.sp = start_sp_ranks()
+        self.ckpt = start_ckpt_run1()
+        self.metrics = start_metrics_replicas(device)
+        self.seats = start_drill_seats(device)
+
+    def settle(self):
+        t0 = time.perf_counter()
+        ready = {
+            "sp_ranks": _gated_ready(
+                self.sp["go"], ["rank%d" % r for r in range(SP)],
+                self.sp["procs"], "the sp ranks") - self.sp["t_spawn"],
+            "ckpt_run1": _gated_ready(
+                self.ckpt["go"], ["ckpt"], [self.ckpt["proc"]],
+                "checkpoint run 1") - self.ckpt["t_spawn"]}
+        for i, child in enumerate(self.metrics[0]):
+            child.line("SERVING_READY")
+            ready["replica%d" % i] = child.ready_s
+        launcher = self.seats["launcher"]
+        _rh_wait(lambda: launcher.spawned[0].ready(), "drill seat 0")
+        ready["drill_seat0"] = time.monotonic() - self.seats["t_spawn"]
+        self.seats["reader"].join(timeout=RH_WAIT_S)
+        ready["drill_seat1"] = self.seats["before"].get(
+            "ready_at", time.monotonic()) - self.seats["t_spawn"]
+        for name, job, wait_s in (
+                ("quickstart", self.quickstart, VIS_QUICKSTART_WAIT_S),
+                ("iris_job", self.iris, ENC_IRIS_WAIT_S)):
+            try:
+                job["proc"].wait(timeout=wait_s)
+            except subprocess.TimeoutExpired:
+                pass  # its phase fails it
+            ready[name] = job.get("t_end", time.perf_counter()) - job["t0"]
+        self.settle_s = time.perf_counter() - t0
+        self.ready_s = ready
+        log("early children settled after %.1f s more: seconds from each "
+            "one's start to its gate, its ready line or its end: %s"
+            % (self.settle_s, json.dumps(ready)))
+
+    def close(self):
+        close_job(self.quickstart)
+        close_job(self.iris)
+        if self.sp is None:
+            return
+        close_sp_ranks(self.sp)
+        close_ckpt_run1(self.ckpt)
+        for child in self.metrics[0]:
+            child.close()
+        shutil.rmtree(self.metrics[1], ignore_errors=True)
+        close_drill_seats(self.seats)
+
+
 class _Laps(object):
     """Seconds of the script's run by JSON line: `to(name)` charges the
     time since the last call to the line it was charging and starts
-    charging `name` (None: stop)."""
+    charging `name` (None: stop), and logs the lap it closed."""
 
     def __init__(self, first):
         self.secs = {}
@@ -11184,6 +12099,8 @@ class _Laps(object):
         now = time.perf_counter()
         self.secs[self._name] = self.secs.get(self._name, 0.0) + (
             now - self._t0)
+        log("lap %s: %.1f s (%.1f s in all)" % (
+            self._name, now - self._t0, self.secs[self._name]))
         self._name, self._t0 = name, now
 
 
@@ -11204,15 +12121,33 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN (fp32 comparisons in full fp32)")
+    # every process the phases start writes its stall bundles and SIGUSR2
+    # dumps here (runtime health); a bundle is a process that read as
+    # stalled
+    health_dir = tempfile.mkdtemp(prefix="edl_health_")
+    os.environ["EDL_HEALTH_DIR"] = health_dir
+    atexit.register(shutil.rmtree, health_dir, True)
 
     laps = _Laps("kernels")
+    early = _Early("cuda")
     t0 = time.perf_counter()
-    report = _build.build()
+    if _EARLY_BUILD is not None:
+        # started before the imports: its seconds run from its own start
+        _EARLY_BUILD["thread"].join()
+        if "error" in _EARLY_BUILD:
+            raise _EARLY_BUILD["error"]
+        report = _EARLY_BUILD["report"]
+        t0 = _EARLY_BUILD["t0"]
+        log("the build ran beside the script's imports; %.1f s of it was "
+            "left after them" % (_EARLY_BUILD["t_end"] - t_script))
+    else:
+        report = _build.build()
     log("kernels built in %.1f s: %s" % (
         time.perf_counter() - t0,
         ", ".join("%s %.1f s" % (n, r["seconds"]) for n, r in
                   report.items())))
 
+    early.after_build("cuda")
     builds = flash_builds(report)
     # the fp32 instances' SASS, read after the kernel checks
     f32_sass = {name: start_sass(_build.library_path(name))
@@ -11263,6 +12198,7 @@ def main():
     log("fp32 forward and backward instances' SASS (no tensor-core product, "
         "no 16-bit or TF32 conversion): %s"
         % json.dumps(builds["flash_f32_sass"]))
+    early.settle()
     laps.to("serving")
     specs = serving_specs(rng)
     bf16_streams = []
@@ -11329,7 +12265,7 @@ def main():
     packed["logits_vs_documents"] = compare_packed_rows(rng_masked)
     torch.cuda.empty_cache()
     laps.to("sp")
-    sp, sp_launches = train_sp()
+    sp, sp_launches = train_sp(early.sp)
     sp["ring_rotations_vs_unsharded"] = ring_rotations
     laps.to("training")
     training["cuda_vs_cpu_step"] = compare_train_step(rng)
@@ -11360,7 +12296,7 @@ def main():
     laps.to("checkpoint")
     with tempfile.TemporaryDirectory() as workdir:
         checkpoint, ckpt_launches, ckpt_job = checkpoint_phase(
-            np.random.RandomState(14), workdir)
+            np.random.RandomState(14), workdir, early=early.ckpt)
         log("checkpoint phase launches: %s" % ckpt_launches)
         torch.cuda.empty_cache()
         laps.to("master_worker")
@@ -11383,21 +12319,25 @@ def main():
     laps.to("serving_wire")
     serving_wire, wire_launches = serving_wire_phase(
         specs, bf16_streams, serving["tokens_per_s"])
+    serving_wire["stall_bundles"] = _no_stalls("serving_wire")
     torch.cuda.empty_cache()
     verify_entry = time_verify_tile({"paged_decode": serving_modes[
         "speculative_self_draft"]["launches"]["paged_split"]})
     # phase 28 draws from its own generator (TIERS_SEED)
     laps.to("serving_tiers")
     serving_tiers, tiers_launches, tiers_errs = serving_tiers_phase()
+    serving_tiers["stall_bundles"] = _no_stalls("serving_tiers")
     torch.cuda.empty_cache()
     # phase 29 draws from its own generator (ROUTER_SEED)
     laps.to("serving_router")
     serving_router, router_launches, router_errs = serving_router_phase()
+    serving_router["stall_bundles"] = _no_stalls("serving_router")
     torch.cuda.empty_cache()
     # phase 30 draws from its own generator (TIER_SEED)
     laps.to("serving_router_tier")
     serving_router_tier, tier_launches, tier_errs = (
         serving_router_tier_phase())
+    serving_router_tier["stall_bundles"] = _no_stalls("serving_router_tier")
     torch.cuda.empty_cache()
     # phase 31 draws from its own generators (TAB_SEED)
     laps.to("tabular_zoo")
@@ -11407,16 +12347,25 @@ def main():
     # phase 32 draws from its own generators (VIS_SEED)
     laps.to("vision_zoo")
     with tempfile.TemporaryDirectory() as workdir:
-        vision_zoo, vis_launches = vision_zoo_phase(workdir)
+        vision_zoo, vis_launches = vision_zoo_phase(
+            workdir, quickstart=early.quickstart)
     torch.cuda.empty_cache()
     # phase 33 draws from its own generators (ENC_SEED)
     laps.to("encoder_zoo")
     with tempfile.TemporaryDirectory() as workdir:
-        encoder_zoo, enc_launches = encoder_zoo_phase(workdir)
+        encoder_zoo, enc_launches = encoder_zoo_phase(
+            workdir, iris_job=early.iris)
     torch.cuda.empty_cache()
-    # phase 34 serves phase 16's requests
+    # phase 34 serves phase 16's requests; phase 35 again, over its model
     laps.to("metrics_plane")
-    metrics_plane, mp_launches = metrics_plane_phase(specs)
+    mp_model = TransformerLM(device="cuda", seed=0, **FLAGSHIP)
+    metrics_plane, mp_launches = metrics_plane_phase(
+        specs, model=mp_model, early=early.metrics)
+    metrics_plane["stall_bundles"] = _no_stalls("metrics_plane")
+    laps.to("runtime_health")
+    runtime_health = runtime_health_phase(mp_model, specs,
+                                          seats=early.seats)
+    del mp_model
     torch.cuda.empty_cache()
     laps.to("kernels")
     kernels, paged_cases = time_kernels(gen, launches, flash_err, paged_err)
@@ -11639,14 +12588,20 @@ def main():
              "serving_router": serving_router,
              "serving_router_tier": serving_router_tier,
              "tabular_zoo": tabular_zoo, "vision_zoo": vision_zoo,
-             "encoder_zoo": encoder_zoo, "metrics_plane": metrics_plane}
+             "encoder_zoo": encoder_zoo, "metrics_plane": metrics_plane,
+             "runtime_health": runtime_health}
     for name, line in lines.items():
         line["card"] = smi
         line["phase_s"] = laps.secs[name]
     # the kernels line keeps its one key: its checks' and timings'
     # seconds ride in the serving_modes line with the whole script's
     serving_modes["kernels_phase_s"] = laps.secs["kernels"]
+    serving_modes["early_children_settle_s"] = early.settle_s
+    serving_modes["early_children_ready_s"] = early.ready_s
     serving_modes["script_s"] = time.perf_counter() - t_script
+    # from the process's first line, its imports (and the build's start
+    # beside them) included
+    serving_modes["process_s"] = time.perf_counter() - _T0
     log("phase seconds: %s; the whole script %.1f s" % (
         json.dumps(laps.secs), serving_modes["script_s"]))
     print(json.dumps({"kernels": kernels}))
@@ -11670,6 +12625,7 @@ def main():
     print(json.dumps({"vision_zoo": vision_zoo}))
     print(json.dumps({"encoder_zoo": encoder_zoo}))
     print(json.dumps({"metrics_plane": metrics_plane}))
+    print(json.dumps({"runtime_health": runtime_health}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -11679,10 +12635,13 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-rank"]:
-        sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     if sys.argv[1:2] == ["--ckpt-run"]:
-        ckpt_run_main(int(sys.argv[2]), sys.argv[3])
+        target = sys.argv[3]
+        if target.startswith("gate:"):  # started early: the go names it
+            target = _gate(target[len("gate:"):], "ckpt")
+        ckpt_run_main(int(sys.argv[2]), target)
         sys.exit(0)
     if sys.argv[1:2] == ["--router-replica"]:
         sys.exit(router_replica_main(sys.argv[2], sys.argv[3:]))

@@ -19,9 +19,42 @@ nucleus filter, then a categorical draw) but cannot reproduce
 from (seed, position) alone, so a request's sampled tokens depend on
 its own seed and logits and never on its batch mates, and a CPU run and
 a CUDA run that produce the same logits draw the same token.
+
+Recompile sentry (observability/runtime_health.py): the serving engine
+attaches its sentry with `set_decode_sentry`, and each offline decode
+path counts one compile of its name (`offline_decode_nocache`,
+`offline_decode_kv`, `offline_beam_nocache`, `offline_beam_kv`,
+`offline_speculative`) per model and configuration key, the key of the
+JAX package's per-trainer executable cache (its 16-entry LRU eviction
+is not modelled).
 """
 
 import torch
+
+from elasticdl_tpu_torch.observability.runtime_health import tracked_call
+
+#: the recompile sentry of the serving process (None = counting off)
+_SENTRY = None
+
+
+def set_decode_sentry(sentry):
+    """Adopt `sentry` (a RecompileSentry or None) for every offline
+    decode site of this module: one serving process, one sentry."""
+    global _SENTRY
+    _SENTRY = sentry
+
+
+def _count_compile(model, name, key):
+    """Count a compile of `name` the first time `model` meets
+    configuration `key` (a tuple), as the JAX package compiles one
+    executable per key and trainer."""
+    sites = model.__dict__.setdefault("_generate_sites", {})
+    site = sites.get(name)
+    if site is None:
+        site = sites[name] = tracked_call(
+            lambda *_key: None, name, lambda: _SENTRY,
+            static_argnums=range(len(key)))
+    site(*key)
 
 
 def _prefill_bucket(p, seq_len):
@@ -43,16 +76,18 @@ def kv_layout(model):
             model.dtype, model.kv_cache_dtype)
 
 
-def run_prefill(model, prompt, p_pad=None):
-    """One causal forward over `prompt` (a list of token ids) padded to
-    its 64-bucket (or to `p_pad`): returns (per-layer rows [1, hkv,
-    p_pad, d] in the pool's format, fp32 logits [vocab] at the last
-    prompt position)."""
-    p = len(prompt)
-    if p_pad is None:
-        p_pad = _prefill_bucket(p, model.seq_len)
+def pad_prompt(prompt, p_pad):
+    """`prompt` (a list of token ids) as a CPU int64 [1, p_pad] buffer,
+    zero-padded."""
     buf = torch.zeros((1, p_pad), dtype=torch.long)
-    buf[0, :p] = torch.as_tensor(prompt, dtype=torch.long)
+    buf[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
+    return buf
+
+
+def prefill_padded(model, buf, p):
+    """One causal forward over a padded prompt buffer [1, p_pad] whose
+    first `p` tokens are real: (per-layer rows [1, hkv, p_pad, d] in
+    the pool's format, fp32 logits [vocab] at position p - 1)."""
     logits, kv = model(buf.to(model.device))
     return kv, logits[0, p - 1]
 
@@ -122,7 +157,7 @@ def next_tokens(logits, seeds, positions, temperatures, top_k=0, top_p=1.0):
 
 def write_dense_rows(caches, rows, slot, n):
     """Copy the first `n` rows of a batch-1 prefill's per-layer `rows`
-    ([1, hkv, l, d] leaves, as `run_prefill` returns them) into row
+    ([1, hkv, l, d] leaves, as `prefill_padded` returns them) into row
     `slot` of dense caches (`model.dense_cache`), and zero the rest of
     that row's positions: what flax's prefill leaves in a fresh cache
     (a slot's stale rows from an earlier occupant are never read, but a
@@ -198,6 +233,12 @@ def autoregressive_generate(model, prompt, max_new_tokens, temperature=0.0,
     out = torch.zeros((b, total), dtype=torch.long)
     out[:, :p] = prompt
     seeds, temps = [seed] * b, [temperature] * b
+    sampling = (float(temperature), int(top_k), float(top_p))
+    if use_cache:
+        _count_compile(model, "offline_decode_kv", (
+            b, total, _prefill_bucket(p, seq_len)) + sampling)
+    else:
+        _count_compile(model, "offline_decode_nocache", (b,) + sampling)
     with torch.no_grad():
         if not use_cache:
             for i in range(p, total):
@@ -258,6 +299,11 @@ def beam_search_generate(model, prompt, max_new_tokens, num_beams=4,
     k = int(num_beams)
     if k < 1 or k > model.vocab_size:
         raise ValueError("num_beams must be in [1, vocab_size], got %d" % k)
+    if use_cache:
+        _count_compile(model, "offline_beam_kv", (
+            b, k, total, _prefill_bucket(p, model.seq_len)))
+    else:
+        _count_compile(model, "offline_beam_nocache", (b, k))
     dev = model.device
     tokens = torch.zeros((b, k, total), dtype=torch.long)
     tokens[:, :, :p] = prompt[:, None, :]
@@ -325,6 +371,10 @@ def speculative_generate(model, draft, prompt, max_new_tokens, gamma=4,
             "need prompt %d + new %d + gamma %d - 1 <= min seq_len %d (the "
             "verify chunk must fit the cache)"
             % (p, max_new_tokens, gamma, seq_len))
+    # the draft itself is part of the key (held, as the JAX cache entry
+    # holds its draft trainer)
+    _count_compile(model, "offline_speculative", (
+        b, total, gamma, _prefill_bucket(p, seq_len), draft))
     dev = model.device
     tokens = torch.zeros((b, total + gamma), dtype=torch.long)
     tokens[:, :p] = prompt

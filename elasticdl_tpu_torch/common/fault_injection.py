@@ -247,6 +247,21 @@ CELL_HOOKS = (
     "cell_kill",
 )
 
+# The runtime-health plane's hooks (observability/runtime_health.py,
+# serving/server.py), direct intercept() call sites as in the JAX
+# package: a spec makes exactly the failures the plane observes --
+#   engine_step:delay:1:secs=600,skip=5   the scheduler wedges on its
+#                                         6th decode tick (work stays
+#                                         seated, tokens stop)
+#   health_leak:drop:1                    the health thread leaks one
+#                                         8 MiB device buffer no ledger
+#                                         line names; the memory
+#                                         accountant must convict it
+HEALTH_RPCS = (
+    "engine_step",
+    "health_leak",
+)
+
 
 class FaultInjectingServicer(object):
     """Transparent servicer wrapper: the same RPC surface, with

@@ -16,8 +16,10 @@ one job's task order repeats from run to run. `--metrics_port N` (-1
 resolves from EDL_METRICS_PORT, unset = off; 0 = an ephemeral port)
 serves the master's Prometheus page at `GET /metrics` (queue depths, the
 model version, restarts and requeued tasks) and prints `METRICS_READY
-port=N`. Kubernetes workers (--worker_image) and the TensorBoard service
-are not ported and raise (common/args.py).
+port=N`. SIGUSR2 dumps every thread's stack (to stderr, or to
+`sigusr2-<pid>.txt` under $EDL_HEALTH_DIR) without stopping the job.
+Kubernetes workers (--worker_image) and the TensorBoard service are not
+ported and raise (common/args.py).
 """
 
 import logging
@@ -187,6 +189,12 @@ def _start_metrics(args, master):
 
 
 def main(argv=None):
+    # a live wedged master can always be read without killing the job
+    from elasticdl_tpu_torch.observability.runtime_health import (
+        install_sigusr2_dump,
+    )
+
+    install_sigusr2_dump()
     args = parse_master_args(argv)
     logging.basicConfig(
         level=args.log_level,

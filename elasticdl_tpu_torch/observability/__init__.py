@@ -15,9 +15,15 @@ port of elasticdl_tpu/observability/ (no torch anywhere in it).
              dominant cause of `CAUSES`
 * collector  ``python -m elasticdl_tpu_torch.observability.collector``:
              scrape, re-evaluate, join exemplars to traces, report
+* runtime_health  the runtime's self-report: `tracked_call` and
+             `RecompileSentry` (compiles per named site, steady-boundary
+             anomalies), `DeviceMemoryAccountant` (the byte ledger against
+             the allocator, a leak watermark), `ProgressWatchdog` and
+             `FlightRecorder` (stalls seen off the scheduler thread,
+             diagnostic bundles), `install_sigusr2_dump`
 
-The JAX package's runtime_health (the recompile sentry, the memory
-ledger, the watchdog, SIGUSR2) is not ported yet.
+The exports are the JAX package's list (runtime_health is imported by
+its module path there too).
 """
 
 from elasticdl_tpu_torch.observability.forensics import (  # noqa: F401

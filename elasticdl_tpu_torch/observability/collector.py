@@ -32,9 +32,9 @@ under ``$EDL_TRACE_DIR``.
    verdict over incomplete evidence says so.
 
 Scrape the router OR the replicas, not both: the router's fleet-merged
-histograms already hold its replicas' buckets. The JAX collector's
-SIGUSR2 stack dump belongs to the runtime-health plane, which the port
-does not have yet. It imports no torch.
+histograms already hold its replicas' buckets. SIGUSR2 dumps every
+thread's stack (runtime_health.install_sigusr2_dump), as in every
+long-running process of the fleet. It imports no torch.
 """
 
 import argparse
@@ -553,6 +553,12 @@ def percentile_of_counts(counts, q):
 
 
 def main(argv=None):
+    # a long-running collector can be read without killing it
+    from elasticdl_tpu_torch.observability.runtime_health import (
+        install_sigusr2_dump,
+    )
+
+    install_sigusr2_dump()
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0]
     )

@@ -23,6 +23,11 @@ without one too.
 Every build writes a file of its own (the process id in its name) and
 renames it into place, so processes that build one library at once
 never load a half-written file.
+
+`build_stats()` counts this process's builds, started and finished,
+with each one's name and seconds: the runtime-health plane
+(observability/runtime_health.py) reads a build in flight as progress,
+as the JAX package reads a jit compile.
 """
 
 import ctypes
@@ -54,6 +59,38 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs = {}
+# this process's builds: started, finished, in flight {name: start} and
+# the finished ones' [{"name", "seconds", "ok"}] (their own lock: the
+# health thread reads them while load() holds _lock through a build)
+_stats_lock = threading.Lock()
+_stats = {"started": 0, "finished": 0, "in_flight": {}, "builds": []}
+
+
+def build_stats():
+    """{"started", "finished", "in_flight": [names], "builds": [{"name",
+    "seconds", "ok"}]} of this process's compiler runs (a library found
+    built is no build)."""
+    with _stats_lock:
+        return {"started": _stats["started"],
+                "finished": _stats["finished"],
+                "in_flight": sorted(_stats["in_flight"]),
+                "builds": [dict(b) for b in _stats["builds"]]}
+
+
+def _build_started(name):
+    with _stats_lock:
+        _stats["started"] += 1
+        _stats["in_flight"][name] = time.perf_counter()
+
+
+def _build_finished(name, ok):
+    with _stats_lock:
+        t0 = _stats["in_flight"].pop(name, None)
+        if t0 is None:
+            return
+        _stats["finished"] += 1
+        _stats["builds"].append({"name": name, "ok": bool(ok),
+                                 "seconds": time.perf_counter() - t0})
 
 
 def nvcc_path():
@@ -130,10 +167,28 @@ def build(names=SOURCES + HOST_SOURCES):
             src = os.path.join(CSRC_DIR, name + ".cu")
             cmds = [([nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
                       stem + ".tmp", src], stem + ".tmp")]
-        jobs[name] = [(subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-            out) for cmd, out in cmds]
+        _build_started(name)
+        try:
+            jobs[name] = [(subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True), out) for cmd, out in cmds]
+        except BaseException:
+            _build_finished(name, False)
+            raise
     failures = []
+    try:
+        _wait_builds(jobs, report, failures, t0)
+    finally:
+        for name in jobs:
+            _build_finished(name, name in report)
+    if failures:
+        raise RuntimeError("the build failed for " + "\n".join(failures))
+    return report
+
+
+def _wait_builds(jobs, report, failures, t0):
+    """Wait for build()'s compiler processes, link the parts, rename
+    each library into place; a library that failed goes to `failures`."""
     for name, procs in jobs.items():
         logs, outs, ok = [], [], True
         for proc, out in procs:
@@ -145,6 +200,7 @@ def build(names=SOURCES + HOST_SOURCES):
                 failures.append("%s (rc %d):\n%s%s" % (
                     name, proc.returncode, stdout, stderr))
         if not ok:
+            _build_finished(name, False)
             continue
         target = library_path(name)
         if name in PARTS:
@@ -157,14 +213,13 @@ def build(names=SOURCES + HOST_SOURCES):
             if link.returncode != 0:
                 failures.append("%s link (rc %d):\n%s%s" % (
                     name, link.returncode, link.stdout, link.stderr))
+                _build_finished(name, False)
                 continue
             outs = [lib_tmp]
         os.replace(outs[0], target)
         report[name] = {"seconds": time.perf_counter() - t0,
                         "log": "".join(logs)}
-    if failures:
-        raise RuntimeError("the build failed for " + "\n".join(failures))
-    return report
+        _build_finished(name, True)
 
 
 def load(name):

@@ -237,12 +237,18 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         logger.debug("rpc %s: " + fmt, self.address_string(), *args)
 
     def _reply(self, code, body):
-        self.send_response(200 if code == "OK" else 500)
-        self.send_header(_STATUS_HEADER, code)
-        self.send_header("Content-Type", "application/octet-stream")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+        """One unary answer. A client that hung up before it is a debug
+        line, as a mid-stream hang-up is; every other error propagates."""
+        try:
+            self.send_response(200 if code == "OK" else 500)
+            self.send_header(_STATUS_HEADER, code)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        except OSError as e:
+            logger.debug("rpc %s: the client hung up before the reply (%s)",
+                         self.path, e)
 
     def _fail(self, code, details):
         self._reply(code, details.encode("utf-8", "replace"))

@@ -37,9 +37,10 @@ their log files) instead of orphaning or respawning them.
 
 The supervisor's hooks are `supervisor_spawn`, `supervisor_ready` and
 `supervisor_adopt` (common/fault_injection.py SUPERVISOR_RPCS). The
-port's replicas report `health_state == ""` until the runtime-health
-plane is ported (ROADMAP Queue 1 item 6), so on them only the lease path
-detects a wedge.
+port's replicas run the runtime-health plane by default
+(observability/runtime_health.py) and report `health_state` "ok" or
+"stalled"; one started with `--runtime_health 0` reports "", and on it
+only the lease path detects a wedge.
 """
 
 import logging

@@ -62,6 +62,23 @@ keep their caches, positions and pending tokens. With a profiler
 (`StepProfiler`) the engine synchronizes the card around each phase and
 records its wall ms; without one it does no timing work.
 
+Recompile sentry (runtime health): each counterpart of a JAX `_tjit`
+site runs through `tracked_call` under the JAX site's name: prefill[b],
+decode_step, slot_write (dense); prefill[b], paged_step (or, with the
+profiler, paged_decode.split and paged_scatter.split), suffix_prefill[t],
+draft_prefill[b], draft_slot_write, spec_step (or spec_draft.split,
+spec_verify.split, spec_scatter.split) (paged); the pool's own sites
+(serving/kv_pool.py) and the offline decode sites count into the same
+sentry (`engine.sentry = ...` forwards it). A site counts a compile for
+each call signature it has not seen. The JAX engine pads every step to
+its slot count and every write to seq_len, so each of those names
+compiles once there; the port runs only the active slots and writes the
+prefill bucket's rows, so decode_step, paged_step, spec_step (and their
+split parts) count one compile per active-slot count, and slot_write,
+draft_slot_write and kv_prompt_write one per prefill bucket: the port's
+shape churn, the captures a captured step would pay. The JAX engines'
+in-step int8 dequantize (`_dequant_fn`) is ROADMAP Queue 1 item 3.
+
 Token parity with the JAX engines: greedy streams are identical; sampled
 tokens follow the port's own (seed, position) contract
 (api/generation.py), and a speculative tick commits exactly the token
@@ -80,8 +97,10 @@ from elasticdl_tpu_torch.api.generation import (
     _prefill_bucket,
     kv_layout,
     next_tokens,
-    run_prefill,
+    pad_prompt,
+    prefill_padded,
     serving_next_token,
+    set_decode_sentry,
     write_dense_rows,
 )
 from elasticdl_tpu_torch.api.quantization import (
@@ -99,6 +118,7 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
 )
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
 from elasticdl_tpu_torch.observability.metrics import hist_family
+from elasticdl_tpu_torch.observability.runtime_health import tracked_call
 from elasticdl_tpu_torch.serving.kv_pool import PagedKVPool
 
 
@@ -308,6 +328,10 @@ class ContinuousBatchingEngine(object):
         self.draft_proposed = 0
         self.draft_accepted = 0
         self.prefill_chunk_tokens = 0  # the dense pool never chunks
+        # the recompile sentry (runtime health; see `sentry`) and the
+        # tracked sites by name
+        self._sentry = None
+        self._sites = {}
         # wall ms the scheduler has spent in this engine's prefills (it
         # advances the clock); the servicer stamps it at admission, so
         # seating reports how long OTHER requests' prefills held the
@@ -324,6 +348,42 @@ class ContinuousBatchingEngine(object):
     def _init_pool(self):
         self._pool = self.model.dense_cache(self.num_slots)
         self._kv_bytes_total = _cache_bytes(self._pool)
+
+    # ----------------------------------------------------- tracked sites
+
+    @property
+    def sentry(self):
+        return self._sentry
+
+    @sentry.setter
+    def sentry(self, value):
+        """Adopt a RecompileSentry (or None): the paged pool's sites and
+        the offline decode sites count into it too."""
+        self._sentry = value
+        kv = getattr(self, "kv", None)
+        if kv is not None:
+            kv.sentry = value
+        set_decode_sentry(value)
+
+    def _site(self, name, fn):
+        """The tracked site `name` around `fn` (made at its first use;
+        the sentry resolves at each call)."""
+        site = self._sites.get(name)
+        if site is None:
+            site = self._sites[name] = tracked_call(
+                fn, name, lambda: self._sentry)
+        return site
+
+    def _prefill_rows(self, buf, p):
+        return prefill_padded(self.model, buf, p)
+
+    def _prefill(self, prompt):
+        """The prefill site: (rows, last logits, bucket)."""
+        p = len(prompt)
+        p_pad = _prefill_bucket(p, self.seq_len)
+        kv, last = self._site("prefill[%d]" % p_pad, self._prefill_rows)(
+            pad_prompt(prompt, p_pad), p)
+        return kv, last, p_pad
 
     # ------------------------------------------------------------ timing
 
@@ -431,18 +491,20 @@ class ContinuousBatchingEngine(object):
         total = self._check_fits(request)
         p = len(request.prompt)
         t0 = self._tick()
-        kv, last = run_prefill(self.model, request.prompt)
-        write_dense_rows(self._pool, kv, slot, kv[0][0].shape[2])
+        kv, last, p_pad = self._prefill(request.prompt)
+        self._site("slot_write", self._write_slot)(kv, slot, p_pad)
         first = self._sample_first(last, request, p)
         self._observe("prefill", t0)
-        request.trace_event("prefill", bucket=_prefill_bucket(p, self.seq_len),
-               slot=slot)
+        request.trace_event("prefill", bucket=p_pad, slot=slot)
         request.generated.append(first)
         request.model_version = self.model_version
         finished = request.max_new_tokens <= 1
         if not finished:
             self._seat(slot, request, total, first)
         return slot, first, finished
+
+    def _write_slot(self, kv, slot, n):
+        write_dense_rows(self._pool, kv, slot, n)
 
     def evict(self, slot):
         """Free a slot; its stale rows stay until the next insert."""
@@ -494,19 +556,25 @@ class ContinuousBatchingEngine(object):
         if not active:
             return []
         idx = np.array([i for i, _ in active])
-        positions = self._positions[idx]
         dev = self.device
         t0 = self._tick()
-        logits = self.model.decode_dense(
+        toks = self._site("decode_step", self._dense_step)(
             torch.as_tensor(self._last_tokens[idx], device=dev)[:, None],
-            torch.as_tensor(positions, device=dev), self._pool,
-            slots=self._lanes(idx), span=int(positions.max()) + 1)
-        toks = next_tokens(
+            self._lanes(idx), idx)
+        self._observe("decode", t0)
+        return self._commit(active, [[t] for t in toks])
+
+    def _dense_step(self, tokens, lanes, idx):
+        """The decode_step site: one `decode_dense` over the slots `idx`
+        (their pool rows `lanes`, None = every slot) and the sampling."""
+        positions = self._positions[idx]
+        logits = self.model.decode_dense(
+            tokens, torch.as_tensor(positions, device=self.device),
+            self._pool, slots=lanes, span=int(positions.max()) + 1)
+        return next_tokens(
             logits[:, 0], self._seeds[idx].tolist(),
             (positions + 1).tolist(), self._temps[idx].tolist(), self.top_k,
             self.top_p)
-        self._observe("decode", t0)
-        return self._commit(active, [[t] for t in toks])
 
 
 class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
@@ -673,14 +741,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             first = self._insert_shared(slot, request, shared)
         else:
             t0 = self._tick()
-            kv, last = run_prefill(self.model, request.prompt)
+            kv, last, p_pad = self._prefill(request.prompt)
             first = self._sample_first(last, request, p)
             if decoding:
                 self.kv.write_prompt(kv, slot, p)
             self._observe("prefill", t0)
-            request.trace_event("prefill",
-                   bucket=_prefill_bucket(p, self.seq_len), slot=slot,
-                   paged=True)
+            request.trace_event("prefill", bucket=p_pad, slot=slot,
+                                paged=True)
         request.generated.append(first)
         request.model_version = self.model_version
         if decoding:
@@ -703,8 +770,15 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         position start + t from the last real row."""
         t0 = self._tick()
         t_pad = self._suffix_bucket(t)
-        chunk = torch.zeros((1, t_pad), dtype=torch.long)
-        chunk[0, :t] = torch.as_tensor(request.prompt[start:start + t])
+        chunk = pad_prompt(request.prompt[start:start + t], t_pad)
+        first = self._site("suffix_prefill[%d]" % t_pad, self._run_tile)(
+            chunk, slot, request, start, t, final)
+        self._observe(phase, t0)
+        return first
+
+    def _run_tile(self, chunk, slot, request, start, t, final):
+        """The suffix_prefill[t_pad] site: the tile over the slot's
+        blocks, its rows scattered, the sample when `final`."""
         table = self.kv.tables_device()[slot:slot + 1]
         logits, rows = self.model.decode_paged(
             chunk.to(self.device),
@@ -716,10 +790,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
              for layer in rows],
             self.kv.tables[slot, pos // self.block_size],
             pos % self.block_size)
-        first = (self._sample_first(logits[0, t - 1], request, start + t)
-                 if final else None)
-        self._observe(phase, t0)
-        return first
+        return (self._sample_first(logits[0, t - 1], request, start + t)
+                if final else None)
 
     def _insert_shared(self, slot, request, shared):
         """Seat on a prefix match: only the suffix `prompt[start:]`
@@ -837,10 +909,20 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         """Fill the draft's dense stripe for this prompt: the full
         prompt's prefill (kernel A on the card), the target's bucket."""
         t0 = self._tick()
-        p_pad = _prefill_bucket(len(request.prompt), self.seq_len)
-        kv, _last = run_prefill(self._draft, request.prompt, p_pad=p_pad)
-        write_dense_rows(self._d_pool, kv, slot, p_pad)
+        p = len(request.prompt)
+        p_pad = _prefill_bucket(p, self.seq_len)
+        kv, _last = self._site("draft_prefill[%d]" % p_pad,
+                               self._draft_prefill_rows)(
+            pad_prompt(request.prompt, p_pad), p)
+        self._site("draft_slot_write", self._write_draft_slot)(kv, slot,
+                                                              p_pad)
         self._observe("draft", t0)
+
+    def _draft_prefill_rows(self, buf, p):
+        return prefill_padded(self._draft, buf, p)
+
+    def _write_draft_slot(self, kv, slot, n):
+        write_dense_rows(self._d_pool, kv, slot, n)
 
     def evict(self, slot):
         """Free the slot and drop its block references."""
@@ -868,24 +950,47 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # an extend's pop can spill under pressure
         self._sync_host_telemetry()
         dev = self.device
-        positions = self._positions[idx]
+        tokens = torch.as_tensor(self._last_tokens[idx], device=dev)[:, None]
         tables = self.kv.tables_device()[torch.as_tensor(idx, device=dev)]
-        t0 = self._tick()
+        if self.profiler is None:
+            toks = self._site("paged_step", self._paged_step)(tokens, tables,
+                                                              idx)
+        else:
+            # the JAX engine's profiled split: decode | scatter
+            t0 = self._tick()
+            toks, rows = self._site("paged_decode.split", self._paged_decode)(
+                tokens, tables, idx)
+            self._observe("decode", t0)
+            t0 = self._tick()
+            self._site("paged_scatter.split", self._paged_scatter)(rows, idx)
+            self._observe("scatter", t0)
+        return self._commit(active, [[t] for t in toks])
+
+    def _paged_step(self, tokens, tables, idx):
+        """The paged_step site: decode, sample and scatter."""
+        toks, rows = self._paged_decode(tokens, tables, idx)
+        self._paged_scatter(rows, idx)
+        return toks
+
+    def _paged_decode(self, tokens, tables, idx):
+        """One `decode_paged` over the slots `idx` and the sampling:
+        (tokens, the new rows)."""
+        positions = self._positions[idx]
         logits, rows = self.model.decode_paged(
-            torch.as_tensor(self._last_tokens[idx], device=dev)[:, None],
-            torch.as_tensor(positions, device=dev),
+            tokens, torch.as_tensor(positions, device=self.device),
             self.kv.pools, tables)
         toks = next_tokens(
             logits[:, 0], self._seeds[idx].tolist(), (positions + 1).tolist(),
             self._temps[idx].tolist(), self.top_k, self.top_p)
-        self._observe("decode", t0)
-        t0 = self._tick()
+        return toks, rows
+
+    def _paged_scatter(self, rows, idx):
+        """The step's new rows into the slots' blocks."""
+        positions = self._positions[idx]
         self.kv.scatter(
             [tuple(leaf[:, :, 0] for leaf in layer) for layer in rows],
             self.kv.tables[idx, positions // self.block_size],
             positions % self.block_size)
-        self._observe("scatter", t0)
-        return self._commit(active, [[t] for t in toks])
 
     def _spec_step(self, active):
         """One speculative tick: k drafted tokens per active slot,
@@ -904,28 +1009,69 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                                          + len(st.request.generated))
         self._sync_host_telemetry()  # ensure_blocks' pops can spill
         dev = self.device
-        positions = self._positions[idx]
-        pos_dev = torch.as_tensor(positions, device=dev)
+        pos_dev = torch.as_tensor(self._positions[idx], device=dev)
         last = torch.as_tensor(self._last_tokens[idx], device=dev)
-        # draft: k greedy steps from the committed position (its
-        # rollback is this position: rows past it are never read). The
-        # first step feeds the two newest committed tokens, rewriting
-        # the row at pos - 1: after a full acceptance no draft step has
-        # fed the k-th proposal, and its row would stay stale.
-        t0 = self._tick()
+        if self.profiler is None:
+            committed, counts = self._site("spec_step", self._spec_tick)(
+                last, pos_dev, idx, budgets)
+        else:
+            # the JAX engine's profiled split: draft | verify | scatter
+            t0 = self._tick()
+            d_toks = self._site("spec_draft.split", self._spec_draft)(
+                last, pos_dev, idx)
+            self._observe("draft", t0)
+            t0 = self._tick()
+            committed, counts, rows = self._site(
+                "spec_verify.split", self._spec_verify)(
+                    last, d_toks, pos_dev, idx, budgets)
+            self._observe("verify_commit", t0)
+            t0 = self._tick()
+            self._site("spec_scatter.split", self._spec_scatter)(
+                rows, counts, idx)
+            self._observe("scatter", t0)
+        accepted_total = int((counts - 1).sum())
+        self.draft_proposed += k * len(active)
+        self.draft_accepted += accepted_total
+        if self.telemetry is not None:
+            self.telemetry.count("draft_proposed", k * len(active))
+            if accepted_total:
+                self.telemetry.count("draft_accepted", accepted_total)
+        return self._commit(active, committed)
+
+    def _spec_tick(self, last, pos_dev, idx, budgets):
+        """The spec_step site: draft, verify and scatter; returns
+        (committed tokens by lane, counts)."""
+        d_toks = self._spec_draft(last, pos_dev, idx)
+        committed, counts, rows = self._spec_verify(last, d_toks, pos_dev,
+                                                    idx, budgets)
+        self._spec_scatter(rows, counts, idx)
+        return committed, counts
+
+    def _spec_draft(self, last, pos_dev, idx):
+        """k greedy draft steps from the committed position (its rollback
+        is this position: rows past it are never read). The first step
+        feeds the two newest committed tokens, rewriting the row at
+        pos - 1: after a full acceptance no draft step has fed the k-th
+        proposal, and its row would stay stale. Returns [n, k]."""
+        dev = self.device
+        positions = self._positions[idx]
         lanes, top = self._lanes(idx), int(positions.max())
         prev = torch.as_tensor(self._prev_tokens[idx], device=dev)
         tok, proposals = torch.stack([prev, last], dim=1), []
-        for j in range(k):
+        for j in range(self.draft_k):
             lg = self._draft.decode_dense(
                 tok, pos_dev + j - tok.shape[1] + 1, self._d_pool,
                 slots=lanes, span=min(top + j + 1, self._draft.seq_len))
             tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
             proposals.append(tok[:, 0])
-        d_toks = torch.stack(proposals, dim=1)
-        self._observe("draft", t0)
-        # verify: row j of the tile predicts position pos + j + 1
-        t0 = self._tick()
+        return torch.stack(proposals, dim=1)
+
+    def _spec_verify(self, last, d_toks, pos_dev, idx, budgets):
+        """The target's (k + 1)-token verify (row j predicts position
+        pos + j + 1), the greedy-exact accept and the commit: (committed
+        tokens by lane, counts, the verify's rows)."""
+        k, dev = self.draft_k, self.device
+        positions = self._positions[idx]
         tables = self.kv.tables_device()[torch.as_tensor(idx, device=dev)]
         logits, rows = self.model.decode_paged(
             torch.cat([last[:, None], d_toks], dim=1), pos_dev,
@@ -937,7 +1083,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         accepted = np.where(temps > 0.0, 0, match)
         counts = np.minimum(accepted + 1, np.maximum(budgets, 1))
         committed = []
-        for n, (i, _st) in enumerate(active):
+        for n, i in enumerate(idx):
             a = int(accepted[n])
             toks = [int(x) for x in g[n, :a]]
             if temps[n] > 0.0:
@@ -947,10 +1093,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             else:
                 bonus = int(g[n, a])
             committed.append((toks + [bonus])[:int(counts[n])])
-        self._observe("verify_commit", t0)
-        # scatter only the committed rows j < c
-        t0 = self._tick()
-        lane = np.repeat(np.arange(len(active)), counts)
+        return committed, counts, rows
+
+    def _spec_scatter(self, rows, counts, idx):
+        """Scatter only the committed rows j < count of each lane."""
+        dev = self.device
+        positions = self._positions[idx]
+        lane = np.repeat(np.arange(len(idx)), counts)
         j = np.concatenate([np.arange(c) for c in counts])
         wpos = positions[lane] + j
         sel_lane = torch.as_tensor(lane, device=dev)
@@ -960,12 +1109,3 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
              for layer in rows],
             self.kv.tables[idx[lane], wpos // self.block_size],
             wpos % self.block_size)
-        self._observe("scatter", t0)
-        accepted_total = int((counts - 1).sum())
-        self.draft_proposed += k * len(active)
-        self.draft_accepted += accepted_total
-        if self.telemetry is not None:
-            self.telemetry.count("draft_proposed", k * len(active))
-            if accepted_total:
-                self.telemetry.count("draft_accepted", accepted_total)
-        return self._commit(active, committed)

@@ -59,12 +59,24 @@ Writes go through plain tensor indexing. Where the JAX package drops
 out-of-range writes (`mode="drop"` on a `num_blocks` sentinel id) and
 pads uploads to power-of-two buckets, the port never builds such an
 index: callers pass only the rows to write, and nothing is compiled.
+
+Recompile sentry (runtime health): the pool's device writes run through
+`tracked_call` under the JAX pool's names, counted into the sentry the
+engine forwards (`pool.sentry`): kv_spill_gather, kv_revive_upload[k]
+(k the power-of-two bucket of the blocks moved), kv_prompt_write and
+kv_cow_copy. The port's upload writes the k blocks it has, not a padded
+bucket, and its prompt write the prefill bucket's rows, so
+kv_revive_upload[k] counts one compile per block count and
+kv_prompt_write one per prefill bucket where the JAX pool compiles each
+once.
 """
 
 import collections
 
 import numpy as np
 import torch
+
+from elasticdl_tpu_torch.observability.runtime_health import tracked_call
 
 
 class OutOfBlocks(Exception):
@@ -688,6 +700,16 @@ class PagedKVPool(object):
         # a StepProfiler the engine forwards: the pool times its revive
         # uploads, the one phase only it sees
         self.profiler = None
+        # the recompile sentry the engine forwards, and the tracked sites
+        self.sentry = None
+        self._sites = {}
+
+    def _site(self, name, fn):
+        site = self._sites.get(name)
+        if site is None:
+            site = self._sites[name] = tracked_call(
+                fn, name, lambda: self.sentry)
+        return site
 
     def can_seat(self, prompt, prompt_tokens, commit_tokens):
         return self.allocator.can_seat(prompt, prompt_tokens, commit_tokens)
@@ -712,6 +734,9 @@ class PagedKVPool(object):
         fp32 scales alike) in wire order. The spill sink and the chain
         export both read through here, so an exported chain holds the
         bytes the host tier would hold for the same blocks."""
+        return self._site("kv_spill_gather", self._gather)(int(bid))
+
+    def _gather(self, bid):
         # copy=True: on a CPU pool .to("cpu") would alias the arena
         return [self.pools[layer][j][bid].to("cpu", copy=True)
                 for layer, j in self._order]
@@ -734,13 +759,19 @@ class PagedKVPool(object):
         t0 = self._tick()
         idx = torch.as_tensor([bid for bid, _rows in staged],
                               dtype=torch.long, device=self.device)
-        for n, (layer, j) in enumerate(self._order):
-            arena = self.pools[layer][j]
-            arena[idx] = torch.stack(
-                [rows[n] for _bid, rows in staged]).to(self.device)
+        leaves = [torch.stack([rows[n] for _bid, rows in staged])
+                  for n in range(len(self._order))]
+        k_pad = 1
+        while k_pad < len(staged):
+            k_pad *= 2
+        self._site("kv_revive_upload[%d]" % k_pad, self._upload)(idx, leaves)
         self.revive_uploads += 1
         if prof is not None:
             prof.observe("revive_upload", self._tick() - t0)
+
+    def _upload(self, idx, leaves):
+        for (layer, j), rows in zip(self._order, leaves):
+            self.pools[layer][j][idx] = rows.to(self.device)
 
     def _tick(self):
         if self.profiler is None:
@@ -874,6 +905,10 @@ class PagedKVPool(object):
         """Write the prefilled rows' blocks [start_block, ...) into the
         slot's allocated blocks (shared blocks below start_block are
         resident already)."""
+        self._site("kv_prompt_write", self._write_prompt)(
+            kv, int(slot), int(prompt_tokens), int(start_block))
+
+    def _write_prompt(self, kv, slot, prompt_tokens, start_block):
         table = self.allocator.table(slot)
         end = blocks_for(prompt_tokens, self.block_size)
         if end > start_block:
@@ -901,9 +936,12 @@ class PagedKVPool(object):
         moved = self.allocator.cow(slot, pos // self.block_size)
         if moved is None:
             return None
-        copy_block(self.pools, moved[0], moved[1])
+        self._site("kv_cow_copy", self._copy)(int(moved[0]), int(moved[1]))
         self._sync_row(slot)
         return moved
+
+    def _copy(self, src, dst):
+        copy_block(self.pools, src, dst)
 
     def flush_prefix_cache(self):
         """Hot reload: forget every indexed prefix in both tiers

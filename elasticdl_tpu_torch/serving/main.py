@@ -61,9 +61,16 @@ JAX package: `--model_params "...; kv_cache_dtype='int8'"`. A
 checkpoint of int8 weights (api/quantization) is served dequantized
 once at load.
 
-Not accepted yet (each raises with the ROADMAP item that brings it):
-`--runtime_health`, `--stall_after_secs` (item 6, the runtime-health
-plane) and `--tensorboard_log_dir` (item 6, the TensorBoard writers).
+`--runtime_health 0|1` (-1 resolves from EDL_RUNTIME_HEALTH, on) switches
+the runtime-health plane (the recompile sentry, the memory accountant,
+the progress watchdog and its bundles under EDL_HEALTH_DIR), and
+`--stall_after_secs` (-1 resolves from EDL_STALL_AFTER_SECS, 10) is the
+watchdog's budget; the warmup marks the plane's steady boundary.
+SIGUSR2 dumps every thread's stack (to stderr, or to `sigusr2-<pid>.txt`
+under EDL_HEALTH_DIR) without stopping the replica.
+
+Not accepted yet (it raises with the ROADMAP item that brings it):
+`--tensorboard_log_dir` (item 6, the TensorBoard writers).
 `serve_lines` is a library function that answers JSON request lines
 in-process.
 """
@@ -83,10 +90,8 @@ logger = logging.getLogger(__name__)
 PORT_ZOO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "model_zoo")
 
-_HEALTH = "ROADMAP Queue 1 item 6 (the runtime-health plane)"
 #: the JAX entry's flags the port does not take yet -> what brings them
 NOT_PORTED = {
-    "--runtime_health": _HEALTH, "--stall_after_secs": _HEALTH,
     "--tensorboard_log_dir": "ROADMAP Queue 1 item 6 (the TensorBoard "
                              "writers)",
 }
@@ -177,6 +182,15 @@ def parse_serving_args(args=None):
                         help="exemplars, serve-span retention, slow-cause "
                              "attribution; -1 resolves from EDL_FORENSICS "
                              "(on)")
+    parser.add_argument("--runtime_health", type=int, default=-1,
+                        choices=(-1, 0, 1),
+                        help="the recompile sentry, the memory accountant "
+                             "and the progress watchdog; -1 resolves from "
+                             "EDL_RUNTIME_HEALTH (on)")
+    parser.add_argument("--stall_after_secs", type=float, default=-1.0,
+                        help="seconds without progress with work seated "
+                             "that read as stalled; -1 resolves from "
+                             "EDL_STALL_AFTER_SECS (10)")
     parsed, unknown = parser.parse_known_args(args)
     for arg in unknown:
         flag = arg.split("=", 1)[0]
@@ -270,6 +284,10 @@ def build_server(args):
             max_workers=args.max_workers,
             metrics_port=unset(args.metrics_port),
             forensics=None if args.forensics < 0 else bool(args.forensics),
+            runtime_health=(None if args.runtime_health < 0
+                            else bool(args.runtime_health)),
+            stall_after_secs=(None if args.stall_after_secs < 0
+                              else args.stall_after_secs),
         ),
         model_version=version,
         draft=draft,
@@ -281,13 +299,15 @@ def warmup(server, tokens):
     fault rule never sees it) before the server reports ready, so the
     kernels' build and the allocator's growth are paid before traffic
     arrives; then drop the latency histograms, so that request never
-    shows in the percentiles."""
+    shows in the percentiles, and mark the runtime-health plane's steady
+    boundary (a recompile from here on is an anomaly)."""
     from elasticdl_tpu_torch.proto import messages as pb
 
     if tokens > 0:
         server.raw_servicer.generate(
             pb.GenerateRequest(prompt=[1, 2], max_new_tokens=tokens))
         server.telemetry.reset_latency()
+        server.mark_steady()
         logger.info("warmup complete (%d tokens)", tokens)
 
 
@@ -331,9 +351,14 @@ def serve_lines(server, lines):
 
 
 def main(argv=None):
+    from elasticdl_tpu_torch.observability.runtime_health import (
+        install_sigusr2_dump,
+    )
     from elasticdl_tpu_torch.observability.tracing import configure
 
     args = parse_serving_args(argv)
+    # a live wedged replica can always be read without killing it
+    install_sigusr2_dump()
     server = build_server(args).start(transport=True)
     # the recorder's name in its span export
     configure(service="replica:%d" % server.port)

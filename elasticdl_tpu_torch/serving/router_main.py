@@ -57,10 +57,12 @@ the supervisor's and the rollout's hooks (`supervisor_spawn`,
 an ephemeral port) serves the router's Prometheus page at `GET /metrics`
 and prints `METRICS_READY port=N` before ROUTER_READY.
 
+SIGUSR2 dumps every thread's stack (observability/runtime_health.py
+`install_sigusr2_dump`: to stderr, or to `sigusr2-<pid>.txt` under
+$EDL_HEALTH_DIR) without stopping the router.
+
 Not accepted yet: `--tensorboard_log_dir` raises NotImplementedError
-(ROADMAP Queue 1 item 6, the TensorBoard writers). The JAX entry's
-SIGUSR2 all-thread stack dump comes from runtime_health.py (item 6, the
-runtime-health plane) and is left out.
+(ROADMAP Queue 1 item 6, the TensorBoard writers).
 """
 
 import argparse
@@ -383,6 +385,12 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     if args.cells > 1 and args.cell_id < 0:
         return launch_cells(args)
+    # a live wedged router can always be read without killing it
+    from elasticdl_tpu_torch.observability.runtime_health import (
+        install_sigusr2_dump,
+    )
+
+    install_sigusr2_dump()
     router = build_router(args).start()
     supervisor = None
     if args.autoscale:

@@ -1,9 +1,8 @@
 """The generation server: the port of elasticdl_tpu/serving/server.py's
 ServingConfig, scheduler loop, ServingServicer and GenerationServer, on
 the port's transport (proto/service.py), with the disaggregated chain
-handoff's methods (serving/disagg.py), the serve span, tail forensics
-and the /metrics exposition; without the JAX server's runtime-health
-plane.
+handoff's methods (serving/disagg.py), the serve span, tail forensics,
+the /metrics exposition and the runtime-health plane.
 
 Wiring (one process):
 
@@ -53,6 +52,19 @@ status's `slow_cause_counts`). `metrics_port` (None resolves from
 EDL_METRICS_PORT, unset = off) serves the telemetry's and the
 profiler's families at `GET /metrics`. A stop exports the recorder to
 EDL_TRACE_DIR when that is set.
+
+Runtime health (`ServingConfig.runtime_health`, None resolves from
+EDL_RUNTIME_HEALTH, on by default; observability/runtime_health.py): the
+recompile sentry on every tracked site of the engine, the pool and the
+offline decode paths, the memory accountant, and the progress watchdog
+on a thread of its own, fed one flight-ring snapshot a decode tick. The
+scheduler's decode tick passes the `engine_step` fault hook (a delay
+wedges it, a drop skips a tick), the health thread the `health_leak`
+hook. A status read is also a watchdog check: `server_status` carries
+`health_state`, `last_progress_age_ms`, `jit_compiles`,
+`steady_recompiles` and `memory_unaccounted_bytes` ("" and zeros with the
+plane off), and /metrics the `edl_serving_recompiles_total{fn=}` family.
+`mark_steady()` is the warmup boundary.
 """
 
 import contextlib
@@ -63,12 +75,18 @@ import time
 from elasticdl_tpu_torch.common.fault_injection import (
     SERVING_RPCS,
     FaultInjector,
+    InjectedRpcError,
     maybe_wrap_servicer,
 )
 from elasticdl_tpu_torch.observability import forensics
 from elasticdl_tpu_torch.observability.metrics import (
     MetricsServer,
     metrics_port_default,
+)
+from elasticdl_tpu_torch.observability.runtime_health import (
+    RuntimeHealth,
+    runtime_health_default,
+    stall_after_default,
 )
 from elasticdl_tpu_torch.observability.tracing import recorder
 from elasticdl_tpu_torch.proto import messages as pb
@@ -160,7 +178,13 @@ class ServingConfig(object):
     metrics_port: the /metrics exposition's port (None resolves from
     EDL_METRICS_PORT, unset = off; 0 = an ephemeral one). forensics:
     exemplars, serve-span retention and slow-cause attribution (None
-    resolves from EDL_FORENSICS, on)."""
+    resolves from EDL_FORENSICS, on). runtime_health: the recompile
+    sentry, the memory accountant and the progress watchdog (None
+    resolves from EDL_RUNTIME_HEALTH, on); stall_after_secs: seconds
+    without progress with work present that read as stalled (None
+    resolves from EDL_STALL_AFTER_SECS, 10); health_reconcile_secs: the
+    accountant's cadence; health_dir: where a stall's bundle goes (None
+    resolves from EDL_HEALTH_DIR; "" = no bundle)."""
 
     def __init__(self, num_slots=4, queue_capacity=64, top_k=0, top_p=1.0,
                  idle_wait_secs=0.05, handler_poll_secs=0.25,
@@ -169,7 +193,8 @@ class ServingConfig(object):
                  prefill_budget_ms=None, profile=None, checkpoint_dir="",
                  reload_poll_secs=2.0, port=0, max_workers=64,
                  kv_host_bytes=None, role=None, metrics_port=None,
-                 forensics=None):
+                 forensics=None, runtime_health=None, stall_after_secs=None,
+                 health_reconcile_secs=2.0, health_dir=None):
         self.num_slots = int(num_slots)
         self.queue_capacity = int(queue_capacity)
         self.top_k = int(top_k)
@@ -203,6 +228,14 @@ class ServingConfig(object):
                              else int(metrics_port))
         self.forensics = (forensics_default() if forensics is None
                           else bool(forensics))
+        self.runtime_health = (runtime_health_default()
+                               if runtime_health is None
+                               else bool(runtime_health))
+        self.stall_after_secs = (stall_after_default()
+                                 if stall_after_secs is None
+                                 else float(stall_after_secs))
+        self.health_reconcile_secs = float(health_reconcile_secs)
+        self.health_dir = health_dir
 
 
 def _admit_request(queue, telemetry, engine, req, deadline_ms):
@@ -238,11 +271,14 @@ class _Scheduler(threading.Thread):
     host copy of its tokens, so its time includes the device work),
     `step_ends` the host clock at the end of each step, `step_tokens`
     the tokens each step committed; `prefill_tiles` counts the
-    chunked-prefill tiles run."""
+    chunked-prefill tiles run. `health` (a RuntimeHealth or None) gets
+    one flight-ring snapshot a decode tick; `injector` is consulted at
+    `engine_step` before each decode tick of the loop."""
 
     def __init__(self, engine, queue, idle_wait_secs=0.05,
                  clock=time.monotonic, watcher=None, prefill_budget_ms=0.0,
-                 telemetry=None, forensics_on=True):
+                 telemetry=None, forensics_on=True, injector=None,
+                 health=None):
         super().__init__(daemon=True, name="serving-scheduler")
         self.engine = engine
         self.queue = queue
@@ -252,6 +288,10 @@ class _Scheduler(threading.Thread):
         self.telemetry = telemetry or ServingTelemetry(clock=clock)
         # slow-cause attribution at the terminal paths
         self.forensics_on = bool(forensics_on)
+        self.health = health
+        # the engine_step fault hook: a delay rule wedges this thread
+        # mid-loop (work seated, no tokens), a drop rule skips one tick
+        self._injector = injector
         self._stop_requested = threading.Event()
         self._drain = True
         self.crashed = None
@@ -378,6 +418,11 @@ class _Scheduler(threading.Thread):
         self._fill_slots()
         self._advance_prefills()
         if self.engine.active_count():
+            if self._injector is not None:
+                try:
+                    self._injector.intercept("engine_step")
+                except InjectedRpcError:
+                    return
             self._step(record=True)
         elif not self._pending_prefills:
             self.queue.wait_for_work(self.idle_wait_secs)
@@ -405,6 +450,9 @@ class _Scheduler(threading.Thread):
                 kv_blocks_free=kv["kv_blocks_free"],
                 kv_host_blocks=kv.get("kv_host_blocks"),
                 kv_host_bytes=kv.get("kv_host_bytes"))
+            if self.health is not None:
+                self.health.record_tick(len(self.queue), len(results),
+                                        t1 - t0, committed)
 
     def _advance_prefills(self):
         """Run pending chunked-prefill tiles, round-robin, under the
@@ -571,9 +619,11 @@ class ServingServicer(object):
     the replica advertises. Called with a context of None (the port's
     transport, or in-process), a failure raises AdmissionError with its
     status name, which the transport answers with that status, as the
-    JAX servicer's `context.abort` does over gRPC."""
+    JAX servicer's `context.abort` does over gRPC. `health` (a
+    RuntimeHealth or None) stamps its self-report on server_status."""
 
-    def __init__(self, scheduler, handler_poll_secs=0.25, role="unified"):
+    def __init__(self, scheduler, handler_poll_secs=0.25, role="unified",
+                 health=None):
         self._scheduler = scheduler
         self._queue = scheduler.queue
         self._engine = scheduler.engine
@@ -581,6 +631,7 @@ class ServingServicer(object):
         self._watcher = scheduler.watcher
         self._poll = handler_poll_secs
         self._role = role
+        self._health = health
         # the transfer ledger: transfer calls executing now (0 after a
         # drain) and aborts closed out here
         self._transfers_inflight = 0
@@ -703,9 +754,10 @@ class ServingServicer(object):
 
     def server_status(self, request, context=None):
         """The replica's status from host-side counters (no device
-        sync): the pool's host-tier and chain counters, the role and the
-        transfer ledger among them. The health plane is not ported
-        (health_state "")."""
+        sync): the pool's host-tier and chain counters, the role, the
+        transfer ledger and the runtime-health self-report among them
+        ("" and zeros with the plane off). Served from a handler thread,
+        never the scheduler's, so a wedged scheduler still reports."""
         snap = self._telemetry.snapshot()
         engine = self._engine
         kv = engine.kv_stats()
@@ -768,7 +820,23 @@ class ServingServicer(object):
             transfers_inflight=transfers_inflight,
             reload_failed=bool(watcher.reload_failed) if watcher else False,
             reload_error=watcher.last_error if watcher else "",
+            **self._health_fields(),
         )
+
+    def _health_fields(self):
+        if self._health is None:
+            return {}
+        # a status read is also a watchdog check: detection never lags
+        # the poll that reports it
+        self._health.check()
+        h = self._health.snapshot()
+        return {
+            "last_progress_age_ms": h["last_progress_age_ms"],
+            "health_state": h["health_state"],
+            "jit_compiles": h["jit_compiles"],
+            "steady_recompiles": h["steady_recompiles"],
+            "memory_unaccounted_bytes": h["memory_unaccounted_bytes"],
+        }
 
     # --------------------------------------------------------- internals
 
@@ -830,9 +898,13 @@ class GenerationServer(object):
     wrapped by EDL_FAULT_SPEC's injector for the transport.
     `generate` / `generate_stream` / `submit` / `events` are the
     in-process entry points; `reload_checkpoint` the explicit swap.
-    `metrics` is the MetricsServer while one runs (config.metrics_port)."""
+    `metrics` is the MetricsServer while one runs (config.metrics_port);
+    `health` the RuntimeHealth with config.runtime_health, else None.
+    `injector` (default: EDL_FAULT_SPEC's) serves the servicer wrapper,
+    the watcher and the health hooks alike."""
 
-    def __init__(self, model, config=None, model_version=0, draft=None):
+    def __init__(self, model, config=None, model_version=0, draft=None,
+                 injector=None):
         self.config = config or ServingConfig()
         cfg = self.config
         if cfg.kv_paged:
@@ -855,7 +927,7 @@ class GenerationServer(object):
         self.engine.telemetry = self.telemetry
         if cfg.profile:
             self.engine.profiler = StepProfiler()
-        injector = FaultInjector.from_env()
+        injector = injector or FaultInjector.from_env()
         self.watcher = None
         if cfg.checkpoint_dir:
             self.watcher = CheckpointWatcher(
@@ -865,13 +937,26 @@ class GenerationServer(object):
             cfg.queue_capacity, self.engine.seq_len,
             max_cached_tokens=self.engine.max_cached_tokens(),
         )
+        # the runtime-health plane: the sentry is adopted by the engine
+        # (which forwards it to the pool and the offline decode sites);
+        # the watchdog runs on its own thread, because the scheduler
+        # being wedged is the failure under observation
+        self.health = None
+        if cfg.runtime_health:
+            self.health = RuntimeHealth(
+                self.engine, self.queue, self.telemetry,
+                stall_after_secs=cfg.stall_after_secs,
+                reconcile_secs=cfg.health_reconcile_secs,
+                health_dir=cfg.health_dir, injector=injector)
+            self.engine.sentry = self.health.sentry
         self.scheduler = _Scheduler(
             self.engine, self.queue, idle_wait_secs=cfg.idle_wait_secs,
             watcher=self.watcher, prefill_budget_ms=cfg.prefill_budget_ms,
-            telemetry=self.telemetry, forensics_on=cfg.forensics)
+            telemetry=self.telemetry, forensics_on=cfg.forensics,
+            injector=injector, health=self.health)
         self.raw_servicer = ServingServicer(
             self.scheduler, handler_poll_secs=cfg.handler_poll_secs,
-            role=cfg.role)
+            role=cfg.role, health=self.health)
         self.servicer = maybe_wrap_servicer(self.raw_servicer, injector,
                                             rpcs=SERVING_RPCS)
         self._server = None
@@ -890,7 +975,16 @@ class GenerationServer(object):
         fams = self.telemetry.prometheus()
         if self.engine.profiler is not None:
             fams.extend(self.engine.profiler.prometheus())
+        if self.health is not None:
+            fams.extend(self.health.prometheus())
         return fams
+
+    def mark_steady(self):
+        """The warmup boundary of the runtime-health plane: from here a
+        recompile is a counted anomaly and the memory baseline is
+        anchored. A no-op with the plane off."""
+        if self.health is not None:
+            self.health.mark_steady()
 
     def start(self, transport=False):
         """Start the scheduler and, with config.metrics_port, the
@@ -902,6 +996,8 @@ class GenerationServer(object):
             _hold_classifier(1)
             self._classifier_held = True
         self.scheduler.start()
+        if self.health is not None:
+            self.health.start()
         if self.config.metrics_port is not None:
             self.metrics = MetricsServer(self._metrics_families,
                                          port=self.config.metrics_port)
@@ -924,10 +1020,12 @@ class GenerationServer(object):
         scheduler (at most `timeout` s), then stop the transport, whose
         calls in flight get `grace` s to finish, and the /metrics server;
         export the span recorder when EDL_TRACE_DIR is set. Safe to call
-        twice."""
+        twice. The health thread stops after the scheduler."""
         self.scheduler.stop(drain=drain)
         if self.scheduler.is_alive():
             self.scheduler.join(timeout=timeout)
+        if self.health is not None:
+            self.health.stop()
         if self._server is not None:
             self._server.stop(grace)
             self._server = None
@@ -955,14 +1053,17 @@ class GenerationServer(object):
         KV pool's stats (the layout `kv_paged`, the format under
         `kv_cache_dtype`: "" or "int8"; blocks; bytes summed per leaf at
         its dtype; the paged pool's host-tier and chain counters), the
-        advertised `role` and, with the step profiler, its phases under
-        `profile`. `raw_servicer.server_status` answers the
+        advertised `role`, with the step profiler its phases under
+        `profile` and with the runtime-health plane its snapshot under
+        `health`. `raw_servicer.server_status` answers the
         ServerStatusResponse."""
         engine, watcher = self.engine, self.watcher
         prefilling = getattr(engine, "prefilling_count", lambda: 0)
         extra = {}
         if engine.profiler is not None:
             extra["profile"] = engine.profiler.snapshot()
+        if self.health is not None:
+            extra["health"] = self.health.snapshot()
         return dict(
             model_version=engine.model_version,
             reloads=self.scheduler.reloads,

@@ -54,8 +54,9 @@ class ServingTelemetry(object):
     #: revive_uploads / prefill_tokens_revived / host_drops the paged
     #: pool's host tier (forwarded by the engine by delta, with the
     #: kv_host_blocks / kv_host_bytes gauges fed each step); the health
-    #: pair is declared as in the JAX package and stays 0 until that
-    #: plane is ported.
+    #: pair (steady_recompiles, stalls) and the gauges last_progress_age_ms
+    #: and memory_unaccounted_bytes are the runtime-health plane's
+    #: (observability/runtime_health.py), fed by delta.
     COUNTERS = ("admitted", "rejected", "expired", "completed",
                 "tokens_generated", "reloads", "prefix_hit_tokens",
                 "prompt_tokens", "cow_copies", "draft_proposed",

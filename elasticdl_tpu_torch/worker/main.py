@@ -7,7 +7,9 @@ run the task loop. The local instance manager launches it as
         [--device cuda|cpu] ...
 
 It trains on the card unless --device cpu is passed, and raises when
-the card is missing.
+the card is missing. SIGUSR2 dumps every thread's stack (to stderr, or
+to `sigusr2-<pid>.txt` under $EDL_HEALTH_DIR) without stopping the
+worker.
 """
 
 import json
@@ -51,6 +53,12 @@ def build_worker(args):
 
 def main(argv=None):
     t_main = time.time()
+    # a live wedged worker can always be read without killing its task
+    from elasticdl_tpu_torch.observability.runtime_health import (
+        install_sigusr2_dump,
+    )
+
+    install_sigusr2_dump()
     args = parse_worker_args(argv)
     logging.basicConfig(
         level=args.log_level,

@@ -22,7 +22,10 @@
 
 import argparse
 import os
+import socket
+import struct
 import threading
+import time
 
 import grpc
 import numpy as np
@@ -210,6 +213,40 @@ def _code(fn):
     with pytest.raises(service.RpcError) as err:
         fn()
     return err.value.code(), err.value.details()
+
+
+def test_unary_reply_to_a_client_that_hung_up_is_quiet(capfd):
+    """A client resets its connection while a unary handler runs: the
+    reply's failed write leaves no traceback on stderr, and the next
+    call is served."""
+    fake = _FakeMasterServicer()
+    fake.slow = True
+    server, port = _serve(fake)
+    try:
+        body = pb.GetTaskRequest(worker_id=7).SerializeToString()
+        sock = socket.create_connection(("localhost", port), timeout=5)
+        sock.sendall(b"POST /%s/get_task HTTP/1.0\r\nContent-Length: %d"
+                     b"\r\n\r\n" % (service.SERVICE_NAME.encode(),
+                                    len(body)) + body)
+        deadline = time.monotonic() + 5
+        while not fake.calls and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert fake.calls == [("get_task", 7)]
+        # a reset, not a FIN: the reply's first write fails
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                        struct.pack("ii", 1, 0))
+        sock.close()
+        fake.slow = False
+        fake.release.set()
+        stub = service.MasterStub(service.build_channel("localhost:%d"
+                                                        % port))
+        task = stub.get_task(pb.GetTaskRequest(worker_id=4), timeout=5)
+        assert task.task_id == 5
+        time.sleep(0.3)  # the hung-up call's handler thread ends
+    finally:
+        server.stop(0)
+    err = capfd.readouterr().err
+    assert "Traceback" not in err and "Error" not in err, err
 
 
 def test_transport_answers_and_classifies_failures():

@@ -346,8 +346,9 @@ def start_pair(rig, **cfg):
     jchannel = jservice.build_channel("localhost:%d" % jserver.port)
     model = TransformerLM(device="cpu", **CFG)
     model.load_state_dict(sd)
-    pserver = GenerationServer(model, ServingConfig(**base)).start(
-        transport=True)
+    # the plane off on both sides: the JAX replica's is off
+    pserver = GenerationServer(model, ServingConfig(
+        runtime_health=False, **base)).start(transport=True)
     pstub = service.ServingStub(service.build_channel(
         "localhost:%d" % pserver.port))
     return (Replica("jax", jserver, jservice.ServingStub(jchannel), jchannel),
@@ -935,8 +936,23 @@ def test_time_series_ring_matches_jax():
 
 def test_entry_flags_of_later_items_raise():
     with pytest.raises(SystemExit):
-        port_main.parse_serving_args(["--stall_after_secs", "1"])
-    assert "item 6" in port_main.NOT_PORTED["--stall_after_secs"]
+        port_main.parse_serving_args(["--tensorboard_log_dir", "/tmp/x"])
+    assert "item 6" in port_main.NOT_PORTED["--tensorboard_log_dir"]
+    # the runtime-health plane's flags are ported: they parse to the JAX
+    # entry's namespace
+    from elasticdl_tpu.serving import main as jax_main
+
+    zoo_args = ["--model_zoo", "model_zoo", "--model_def",
+                "transformer_lm.transformer_lm.custom_model"]
+    for argv in (["--stall_after_secs", "1", "--runtime_health", "0"], []):
+        got, want = (m.parse_serving_args(zoo_args + argv)
+                     for m in (port_main, jax_main))
+        assert ((got.stall_after_secs, got.runtime_health)
+                == (want.stall_after_secs, want.runtime_health))
+    assert not {"--stall_after_secs", "--runtime_health"} & set(
+        port_main.NOT_PORTED)
+    with pytest.raises(SystemExit):
+        port_main.parse_serving_args(["--runtime_health", "2"])
     # the metrics plane's flags are ported: they parse as JAX's do
     args = port_main.parse_serving_args(["--metrics_port", "1",
                                          "--forensics", "0"])
