@@ -230,15 +230,28 @@ repository checkout it sits in. Phases, each of which fails the run:
    tasks, so phase 22's LocalExecutor, which shuffles each task alone,
    is not that reference); every call's round trip and every step's
    wall time are kept; (2) `python -m elasticdl_tpu_torch.client.main
-   train --num_workers 1 --device cuda` as a process: rc 0, its job
-   status Succeeded and its last checkpoint equal to (1)'s state bit
-   for bit; (3) a Master here and LocalInstanceManager with two worker
-   processes over 2 epochs: the first worker seen holding tasks is
-   killed by SIGKILL, its phase Failed, its tasks requeued, a worker
-   with a new id launched without spending a relaunch, the job done
-   with every range reported done once an epoch and
-   all_workers_failed never true; the kill to the new worker's first
-   get_task and each worker's start-up (its timeline stamps) are kept;
+   train --num_workers 1 --device cuda --need_tensorboard
+   --tensorboard_log_dir D --job_state_dir S` as a process under an
+   EDL_TRACE_DIR: rc 0, its job status Succeeded and its last checkpoint
+   equal to (1)'s state bit for bit; the master's and worker 0's span
+   exports hold one task_dispatch span sealed ok a task (3) with exactly
+   one worker_task child each, its task id equal; the master's event
+   file, read by read_event_file (a table-free CRC32C, sharing no code
+   with the writer), holds its recovery gauges (master/restarts and
+   master/recovery_requeued_tasks, 0 at step 0); (3) a Master here and
+   LocalInstanceManager with two worker processes over 2 epochs, their
+   spans exported to a trace directory: the first worker seen holding
+   tasks is killed by SIGKILL, its phase Failed, its tasks requeued, a
+   worker with a new id launched without spending a relaunch, the job
+   done with every range reported done once an epoch and
+   all_workers_failed never true; each requeued range's first dispatch
+   span is still open in the servicer (the dispatcher requeues under a
+   new task id, so nothing seals it, as in the JAX servicer) and a later
+   one on another worker is sealed ok; every sealed span is ok, each of
+   a surviving worker's has one worker_task child in its export, and
+   the killed worker exported none (SIGKILL skips atexit); the kill to
+   the new worker's first get_task and each worker's start-up (its
+   timeline stamps) are kept; the `master_worker` line's `traces`;
 25. the lifecycle after pretraining at the flagship width (inside phase
    22's temporary directory, over its records): (1) remat "", "full" and
    "dots" each take 2 Trainer steps at minibatch 8 from the same seeded
@@ -262,7 +275,14 @@ repository checkout it sits in. Phases, each of which fails the run:
    paged engine beside the float export: launches as the runs did, each
    int8 stream equal to the float one or leaving it where the float
    run's top two logits lie within LOGIT_TOL_REL; quantized_bytes
-   against the float bytes; (5) beam_search_generate with 4 beams,
+   against the float bytes; then the same checkpoint read by build_model
+   under EDL_SERVING_FUSED_DEQUANT=1 (the int8 leaves held resident,
+   dequantized inside every forward) serves them again, both int8 passes
+   admitted under a held job: its 16 streams equal the once-at-load
+   pass's token for token and its A / B launches equal them; each int8
+   pass's resident weight bytes, peak allocated bytes over the pass,
+   decode tokens/s and TTFT p50 are kept, and their ratios
+   (`lifecycle.int8.fused`); (5) beam_search_generate with 4 beams,
    full forwards and KV-cached, equal tokens (2 layers, fp32); on that
    2-layer target, whose greedy rows each hold many distinct tokens,
    speculative_generate with gamma 4 and a draft that differs from it
@@ -494,8 +514,9 @@ repository checkout it sits in. Phases, each of which fails the run:
    streams token for token and A's and B's launches by variant equal,
    decode tokens/s of both and the scrape's and render's ms a record;
    (b) two `serving.main --device cuda --kv_paged 1 --metrics_port 0
-   --port 0` processes (started early, see below) behind a `router_main
-   --metrics_port 0` process, all under a temporary EDL_TRACE_DIR; 24
+   --port 0 --tensorboard_log_dir D_i` processes (started early, see
+   below) behind a `router_main --metrics_port 0 --tensorboard_log_dir
+   D_r` process, all under a temporary EDL_TRACE_DIR; 24
    routed requests (the 16, then 4 with deadlines too tight for their
    64 tokens, then after the first scrape 4 with loose deadlines) while
    observability.collector.scrape_fleet scrapes the router MP_SCRAPES
@@ -509,7 +530,12 @@ repository checkout it sits in. Phases, each of which fails the run:
    run's smallest TTFT bucket validates, alerts on ttft_p99 and resolves
    at least one exemplar to a trace attributed to a cause of CAUSES,
    the span evidence complete; the dump CLI over the directory, and one
-   router_generate -> dispatch -> serve tree for every routed request.
+   router_generate -> dispatch -> serve tree for every routed request;
+   after the SIGTERM each replica's `.serving` and the router's
+   `.router` event file parse clean under read_event_file and their last
+   `serving/<counter>_total` and `router/<counter>_total` scalars equal
+   the final status reads (the router's routed the 24 sent;
+   `metrics_plane.tensorboard`).
 35. the runtime-health plane (runtime_health_phase): (i) phase 34's
    requests through an in-process replica over phase 34's model, the
    plane off and on, each after a warmup of every shape the path takes
@@ -583,6 +609,7 @@ allow_tf32 = False).
 import atexit
 import contextlib
 import gc
+import glob
 import hashlib
 import itertools
 import json
@@ -593,6 +620,7 @@ import re
 import shutil
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -656,6 +684,7 @@ from elasticdl_tpu_torch.api.generation import (
 )
 from elasticdl_tpu_torch.api.local_executor import LocalExecutor
 from elasticdl_tpu_torch.api.quantization import (
+    holds_int8,
     load_params,
     quantize_params,
     quantized_bytes,
@@ -726,7 +755,7 @@ from elasticdl_tpu_torch.observability.metrics import (
 )
 from elasticdl_tpu_torch.observability.promparse import parse_prometheus_text
 from elasticdl_tpu_torch.observability.slo import default_router_slos
-from elasticdl_tpu_torch.observability.tracing import group_by_trace
+from elasticdl_tpu_torch.observability.tracing import group_by_trace, recorder
 from elasticdl_tpu_torch.proto import messages as wire_pb
 from elasticdl_tpu_torch.proto import service as wire_service
 from elasticdl_tpu_torch.ops import _build
@@ -5610,6 +5639,7 @@ def _mw_master(job, **kwargs):
                     **kwargs)
     master.stamps = {"register_worker": {}, "get_task": {}}
     master.dispatched = []
+    master.dispatched_ids = {}  # task id -> (worker, shard, start)
     for name, seen in master.stamps.items():
         fn = getattr(master.servicer, name)
 
@@ -5625,6 +5655,8 @@ def _mw_master(job, **kwargs):
         if task is not None:
             master.dispatched.append((worker_id, task.shard_name,
                                       task.start, task.end))
+            master.dispatched_ids[task_id] = (worker_id, task.shard_name,
+                                              task.start)
         return task_id, task
 
     master.task_d.get = recorded
@@ -5753,6 +5785,90 @@ def _mw_sigusr2(proc, cli_log):
         running(worker), "the worker died after SIGUSR2"))
 
 
+def _span_exports(trace_dir, service):
+    """The span dicts of every `spans-<service>-<pid>.json` export."""
+    spans = []
+    for path in glob.glob(os.path.join(trace_dir, "spans-%s-*.json"
+                                       % service)):
+        with open(path) as f:
+            spans += json.load(f)["spans"]
+    return spans
+
+
+def _task_children(dispatch, worker_spans, where):
+    """The one worker_task span under each dispatch span, its task id
+    the dispatch's."""
+    for d in dispatch:
+        kids = [w for w in worker_spans if w["name"] == "worker_task"
+                and w["parent_span_id"] == d["span_id"]]
+        check(len(kids) == 1 and kids[0]["trace_id"] == d["trace_id"]
+              and kids[0]["attrs"]["task_id"] == d["attrs"]["task_id"]
+              and kids[0]["status"] == "ok", "%s: task %s has the worker "
+              "spans %s" % (where, d["attrs"]["task_id"], kids))
+
+
+def _mw_cli_traces(trace_dir, tb_dir):
+    """Phase 24 (2)'s exports: the master's and worker 0's span files,
+    every task_dispatch span sealed ok with one worker_task child; the
+    master's event file (its recovery gauges) read clean."""
+    master_spans = _span_exports(trace_dir, "master-*")
+    worker_spans = _span_exports(trace_dir, "worker-0")
+    dispatch = [s for s in master_spans if s["name"] == "task_dispatch"]
+    tasks = CKPT_STEPS // CKPT_STEPS_PER_TASK
+    check(len(dispatch) == tasks and all(
+        d["status"] == "ok" for d in dispatch), "master_worker (2): the "
+        "master exported %s, not %d task_dispatch spans sealed ok"
+        % ([(d["name"], d["status"]) for d in master_spans], tasks))
+    _task_children(dispatch, worker_spans, "master_worker (2)")
+    scalars = read_event_file(_event_file(tb_dir))
+    # the recovery gauges, and the worker's fault/ gauges if a call of
+    # its was retried
+    recovery = sorted(x for x in scalars if x[1].startswith("master/"))
+    check(recovery == [(0, "master/recovery_requeued_tasks", 0.0),
+                       (0, "master/restarts", 0.0)] and all(
+              t.startswith(("master/", "fault/")) and (
+                  t.startswith("master/") or t.endswith("/worker-0"))
+              for _s, t, _v in scalars),
+          "master_worker (2): the master's event file holds %s" % scalars)
+    return {"task_dispatch": len(dispatch),
+            "worker_task": sum(s["name"] == "worker_task"
+                               for s in worker_spans),
+            "event_scalars": len(scalars)}
+
+
+def _mw_drill_traces(master, t0, trace_dir, victim, held):
+    """Phase 24 (3)'s traces. The killed worker's dispatch spans stay open
+    in the servicer: its tasks were requeued by the dispatcher under new
+    task ids, so no report and no re-dispatch of the same id seals them
+    (the JAX servicer alike). Each held range has that open span and a
+    later one sealed ok on another worker; every span sealed ok whose
+    worker exited cleanly has one worker_task child in that worker's
+    export; the killed worker exported none (SIGKILL skips atexit)."""
+    sealed = [s.to_dict() for s in recorder().snapshot()
+              if s.name == "task_dispatch" and s.start >= t0]
+    open_spans = getattr(master.servicer, "_task_spans", {})
+    ids = master.dispatched_ids
+    victim_open = {ids[tid][1:] for tid, span in open_spans.items()
+                   if span.attrs["worker_id"] == victim}
+    ok = [s for s in sealed if s["status"] == "ok"]
+    later = {ids[s["attrs"]["task_id"]][1:] for s in ok
+             if s["attrs"]["worker_id"] != victim}
+    check(held <= victim_open and held <= later, "master_worker (3): the "
+          "killed worker held %s; open spans %s, sealed ok elsewhere %s"
+          % (sorted(held), sorted(victim_open), sorted(later)))
+    check(all(s["status"] == "ok" for s in sealed), "master_worker (3): "
+          "dispatch spans sealed %s" % sorted({s["status"] for s in sealed}))
+    check(not glob.glob(os.path.join(trace_dir, "spans-worker-%d-*.json"
+                                     % victim)),
+          "master_worker (3): the killed worker exported spans")
+    survivors = [s for s in ok if s["attrs"]["worker_id"] != victim]
+    worker_spans = _span_exports(trace_dir, "worker-*")
+    _task_children(survivors, worker_spans, "master_worker (3)")
+    return {"sealed_ok": len(ok), "open": len(open_spans),
+            "killed_open": len(victim_open), "worker_task": len(
+                worker_spans), "requeued_ranges": len(held)}
+
+
 def master_worker_phase(job, workdir, device="cuda"):
     """The elastic job at the flagship over phase 22's records (see the
     module docstring, 24). Returns (metrics, part 1's launches)."""
@@ -5827,11 +5943,14 @@ def master_worker_phase(job, workdir, device="cuda"):
     os.makedirs(cli_dir)
     status = os.path.join(cli_dir, "status.json")
     ckpt = os.path.join(cli_dir, "ckpt")
+    cli_traces = os.path.join(cli_dir, "traces")
+    cli_tb = os.path.join(cli_dir, "tb")
     cmd = ([sys.executable, "-m", "elasticdl_tpu_torch.client.main",
             "train"] + _mw_common_args(job, device)
            + ["--num_workers", "1", "--port", "0", "--checkpoint_dir", ckpt,
               "--checkpoint_steps", str(CKPT_STEPS), "--job_status_file",
-              status])
+              status, "--need_tensorboard", "--tensorboard_log_dir",
+              cli_tb, "--job_state_dir", os.path.join(cli_dir, "state")])
     cli_log = os.path.join(cli_dir, "cli.log")
     # the start-up probe runs beside the CLI's own start-up
     probe = _start_cuda_init_probe() if on_card else None
@@ -5839,8 +5958,9 @@ def master_worker_phase(job, workdir, device="cuda"):
     with open(cli_log, "w") as log_f:
         # a session of its own: a failure here kills its worker with it
         proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
-                                env=_mw_env(), cwd=cli_dir,
-                                start_new_session=True)
+                                env=dict(_mw_env(),
+                                         EDL_TRACE_DIR=cli_traces),
+                                cwd=cli_dir, start_new_session=True)
         try:
             if on_card:
                 _mw_sigusr2(proc, cli_log)
@@ -5866,6 +5986,7 @@ def master_worker_phase(job, workdir, device="cuda"):
     check(not cli_differ, "master_worker (2): the CLI's checkpoint differs "
           "from (1)'s state in %d leaves (largest %r)"
           % (len(cli_differ), cli_diff))
+    cli_traced = _mw_cli_traces(cli_traces, cli_tb)
     del flat1
     if on_card:
         torch.cuda.empty_cache()
@@ -5873,6 +5994,7 @@ def master_worker_phase(job, workdir, device="cuda"):
     drill_dir = os.path.join(workdir, "drill")
     logs = os.path.join(drill_dir, "logs")
     state_dir = os.path.join(drill_dir, "job_state")
+    drill_traces = os.path.join(drill_dir, "traces")
     master = _mw_master(job, num_epochs=MW_EPOCHS, job_state_dir=state_dir)
     master.prepare()
     manager = LocalInstanceManager(
@@ -5880,7 +6002,8 @@ def master_worker_phase(job, workdir, device="cuda"):
         worker_args=_mw_common_args(job, device) + [
             "--master_addr", "localhost:%d" % master.port,
             "--job_type", "training_only"],
-        env=_mw_env(), log_dir=logs)
+        env=dict(_mw_env(), EDL_TRACE_DIR=drill_traces), log_dir=logs)
+    t_drill = time.time()
     master.instance_manager = manager
     t0 = time.perf_counter()
     new_id = MW_WORKERS
@@ -5945,6 +6068,8 @@ def master_worker_phase(job, workdir, device="cuda"):
           "master_worker (3): requeued %s; the killed worker held %s and "
           "was given %s" % (sorted(failed), sorted(held),
                             sorted(victim_tasks)))
+    drill_traced = _mw_drill_traces(master, t_drill, drill_traces, victim,
+                                    held)
     timelines = {wid: _worker_timeline(os.path.join(
         logs, "worker-%d.log" % wid)) for wid in workers}
     startup = {}
@@ -5991,6 +6116,7 @@ def master_worker_phase(job, workdir, device="cuda"):
                   "requeued": sum(e["ev"] == "fail" for e in events),
                   "workers": {str(k): v for k, v in startup.items()}},
         "fresh_process": fresh_process,
+        "traces": {"cli": cli_traced, "drill": drill_traced},
         "phase_wall_s": time.perf_counter() - t_phase,
     }
     log("master_worker: %s" % json.dumps(metrics))
@@ -6046,12 +6172,15 @@ def _long_gap_ms(sched, req):
     return max(gaps) * 1e3 if gaps else None
 
 
-def run_mode(model, specs, config, draft=None, long_req=None):
+def run_mode(model, specs, config, draft=None, long_req=None, held=False):
     """Serve `specs` (greedy (prompt, new) pairs, then `long_req` if
     given) through a GenerationServer around `model` with
     ServingConfig(num_slots=8, kv_block_size=16, **config), after one
-    warm-up request. Returns the run's metrics,
-    streams, launches, tile log, requests and server."""
+    warm-up request; `held`: all admitted while the scheduler waits on a
+    held job, so two runs seat and batch alike. Returns the run's
+    metrics (on the card also the allocator's bytes at the pass's start
+    and its peak over the pass), streams, launches, tile log, requests
+    and server."""
     device = model.device.type
     server = GenerationServer(model, ServingConfig(
         num_slots=8, queue_capacity=64, kv_block_size=16, kv_shared=True,
@@ -6066,11 +6195,15 @@ def run_mode(model, specs, config, draft=None, long_req=None):
         del tiles[:]
         if device == "cuda":
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start_bytes = torch.cuda.memory_allocated()
         att.reset_launch_counts()
         t0 = time.perf_counter()
+        release = _hold_scheduler(server) if held else (lambda: None)
         reqs = [server.submit(p, n) for p, n in specs]
         if long_req is not None:
             reqs.append(server.submit(*long_req))
+        release()
         in_use = 0
         for req in reqs:
             for _chunk in server.events(req):
@@ -6080,6 +6213,7 @@ def run_mode(model, specs, config, draft=None, long_req=None):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(att.KERNEL_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     finally:
         server.stop(timeout=120)
     check(server.scheduler.crashed is None,
@@ -6103,12 +6237,18 @@ def run_mode(model, specs, config, draft=None, long_req=None):
         "steps": int(steps.size),
         "tokens_per_step": float(np.sum(sched.step_tokens[n_steps:])
                                  / max(1, steps.size)),
+        "decode_tokens_per_s": float(np.sum(sched.step_tokens[n_steps:])
+                                     / max(1e-9, np.sum(steps) / 1e3)),
         "kv_paged": kv["kv_paged"], "kv_cache_dtype": kv["kv_cache_dtype"],
         "kv_bytes_total": kv["kv_bytes_total"],
         "kv_bytes_in_use_peak": in_use,
         "launches": {"flash_fwd": launches[a], "paged_split": launches[split],
                      "paged_tile": launches[tile]},
     }
+    if device == "cuda":
+        metrics.update(start_allocated_bytes=start_bytes,
+                       peak_allocated_bytes=peak,
+                       peak_over_start_bytes=peak - start_bytes)
     if long_req is not None:
         metrics["long_prompt_tokens"] = len(long_req[0])
         metrics["long_prompt_ttft_ms"] = (
@@ -6128,6 +6268,38 @@ def run_mode(model, specs, config, draft=None, long_req=None):
     return {"metrics": metrics, "streams": [list(r.generated) for r in reqs],
             "launches": launches, "tiles": list(tiles), "requests": reqs,
             "server": server}
+
+
+def _hold_scheduler(server):
+    """Hold `server`'s scheduler on a job until the returned release() is
+    called: requests submitted meanwhile are seated in one order."""
+    held, go = threading.Event(), threading.Event()
+
+    def hold_job():
+        held.set()
+        go.wait(MODES_RELOAD_TIMEOUT_S)
+
+    hold = threading.Thread(target=server.scheduler.submit_job, args=(
+        hold_job, MODES_RELOAD_TIMEOUT_S + 20), daemon=True)
+    hold.start()
+    check(held.wait(60), "the scheduler did not take the hold job")
+
+    def release():
+        go.set()
+        hold.join(timeout=60)
+
+    return release
+
+
+def _resident_bytes(model):
+    """Bytes of `model`'s parameters and buffers, each storage once."""
+    seen, total = set(), 0
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in seen:
+            seen.add(storage.data_ptr())
+            total += storage.nbytes()
+    return total
 
 
 def _check_mode_launches(name, run, layers, draft_layers=0):
@@ -6820,32 +6992,78 @@ def lifecycle_phase(specs, job, workdir, device="cuda"):
     CheckpointSaver(None, qckpt).save_flat(dict(
         params_tree_leaves(qtree), **{".step": np.int32(meta["version"])}),
         meta["version"])
-    int8_model, qversion = serving_main.build_model(
-        serving_main.parse_serving_args([
-            "--device", device, "--model_params", _params_str(FLAGSHIP),
-            "--checkpoint_dir", qckpt]))
-    check(qversion == meta["version"], "lifecycle: the int8 checkpoint "
-          "served version %d" % qversion)
+    int8_args = serving_main.parse_serving_args([
+        "--device", device, "--model_params", _params_str(FLAGSHIP),
+        "--checkpoint_dir", qckpt])
+    int8_model, qversion = serving_main.build_model(int8_args)
+    check(qversion == meta["version"] and int8_model.weights_int8
+          and not holds_int8(int8_model), "lifecycle: the int8 checkpoint "
+          "served version %d, int8 %s" % (qversion, int8_model.weights_int8))
     target = load_params(TransformerLM(device=device, **FLAGSHIP),
                          payload["params"])
     float_run = run_mode(target, specs, {"kv_paged": True})
-    int8_run = run_mode(int8_model, specs, {"kv_paged": True})
+    # the two int8 modes seat and batch alike (held admission), so their
+    # bf16 products, and so their streams, must be equal; each starts
+    # from a collected heap, so their peaks compare
+    gc.collect()
+    int8_run = run_mode(int8_model, specs, {"kv_paged": True}, held=True)
+    int8_run["metrics"]["resident_weight_bytes"] = _resident_bytes(
+        int8_model)
+    del int8_model, int8_run["server"]  # the server holds the model
+    gc.collect()  # the server's reference cycles hold its model and pool
+    if on_card:
+        torch.cuda.empty_cache()
+    # the same checkpoint with the int8 leaves resident, dequantized inside
+    # every forward (EDL_SERVING_FUSED_DEQUANT=1)
+    saved = os.environ.get("EDL_SERVING_FUSED_DEQUANT")
+    os.environ["EDL_SERVING_FUSED_DEQUANT"] = "1"
+    try:
+        fused_model, fversion = serving_main.build_model(int8_args)
+    finally:
+        if saved is None:
+            os.environ.pop("EDL_SERVING_FUSED_DEQUANT")
+        else:
+            os.environ["EDL_SERVING_FUSED_DEQUANT"] = saved
+    check(fversion == meta["version"] and holds_int8(fused_model),
+          "lifecycle: the fused model holds no int8 leaf")
+    fused_run = run_mode(fused_model, specs, {"kv_paged": True}, held=True)
+    fused_run["metrics"]["resident_weight_bytes"] = _resident_bytes(
+        fused_model)
+    del fused_model, fused_run["server"]
     for name, run in (("float_export", float_run), ("int8_weights",
-                                                    int8_run)):
+                                                    int8_run),
+                      ("int8_fused", fused_run)):
         if on_card:
             _check_mode_launches("lifecycle " + name, run, layers)
         launches["serving_" + name] = run["metrics"]["launches"]
+    check(fused_run["metrics"]["launches"] == int8_run["metrics"]["launches"],
+          "lifecycle: the fused pass launched %s, the once-at-load pass %s"
+          % (fused_run["metrics"]["launches"],
+             int8_run["metrics"]["launches"]))
+    check(fused_run["streams"] == int8_run["streams"], "lifecycle: the fused "
+          "int8 streams leave the once-at-load ones at token %s"
+          % (_first_divergence(sum(fused_run["streams"], []),
+                               sum(int8_run["streams"], [])),))
     prompts = [p for p, _n in specs]
     agreement = near_tie_gaps(target, prompts, float_run["streams"],
                               {"int8_weights": int8_run["streams"]})
+    fm, im = fused_run["metrics"], int8_run["metrics"]
+    ratios = {key: fm[key] / im[key] for key in (
+        "decode_tokens_per_s", "tokens_per_s", "ttft_ms_p50",
+        "resident_weight_bytes", "peak_allocated_bytes",
+        "peak_over_start_bytes") if im.get(key)}
+    log("lifecycle int8 fused over once-at-load: %s" % json.dumps(ratios))
     out["int8"] = {"quantized_bytes": qbytes, "float_bytes": fbytes,
                    "ratio": qbytes / fbytes, "quantize_s": quantize_s,
                    "float_export": float_run["metrics"],
-                   "int8_weights": int8_run["metrics"],
+                   "int8_weights": im,
                    "agreement": agreement["int8_weights"],
+                   "fused": dict(fm, streams_equal=len(specs),
+                                 launches_equal=True,
+                                 over_int8_weights=ratios),
                    "seconds": time.perf_counter() - t0}
     log("lifecycle int8: %s" % json.dumps(out["int8"]))
-    del int8_model, int8_run
+    del int8_run, fused_run
     # 5. generation: beam search at 2 layers fp32; a warm-started,
     # distilled 2-layer draft's speculative decode at the flagship
     t0 = time.perf_counter()
@@ -11211,6 +11429,102 @@ def _mp_pass(model, specs, plane_on, device):
     return [list(r.generated) for r in reqs], launches, out
 
 
+def _crc32c_bitwise(data):
+    """CRC32C bit by bit, with no table: it shares no code with the event
+    writer (common/tb_events.py) whose files it checks."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = (crc >> 1) ^ 0x82F63B78 if crc & 1 else crc >> 1
+    return crc ^ 0xFFFFFFFF
+
+
+def _masked_crc32c(data):
+    crc = _crc32c_bitwise(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _pb_fields(buf):
+    """[(field number, value)] of one protobuf message level."""
+    out, off = [], 0
+
+    def varint(off):
+        val = shift = 0
+        while True:
+            b = buf[off]
+            off += 1
+            val |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return val, off
+            shift += 7
+
+    while off < len(buf):
+        key, off = varint(off)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            val, off = varint(off)
+        elif wire == 1:
+            val, off = struct.unpack_from("<d", buf, off)[0], off + 8
+        elif wire == 5:
+            val, off = struct.unpack_from("<f", buf, off)[0], off + 4
+        elif wire == 2:
+            n, off = varint(off)
+            val, off = buf[off:off + n], off + n
+        else:
+            raise SmokeFailure("event file: wire type %d" % wire)
+        out.append((num, val))
+    return out
+
+
+def read_event_file(path):
+    """The scalars of a TensorBoard event file as [(step, tag, value)],
+    both masked CRCs of every record checked and the header event
+    required first; any fault fails the run."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    off, out, header = 0, [], None
+    while off < len(blob):
+        check(off + 12 <= len(blob), "%s: a torn record header" % path)
+        (n,) = struct.unpack_from("<Q", blob, off)
+        check(off + 16 + n <= len(blob), "%s: a torn record" % path)
+        payload = blob[off + 12:off + 12 + n]
+        check(struct.unpack_from("<I", blob, off + 8)[0]
+              == _masked_crc32c(blob[off:off + 8])
+              and struct.unpack_from("<I", blob, off + 12 + n)[0]
+              == _masked_crc32c(payload), "%s: a CRC fails at byte %d"
+              % (path, off))
+        off += 16 + n
+        step = 0
+        for num, val in _pb_fields(payload):
+            if num == 2:
+                step = val - (1 << 64) if val >= 1 << 63 else val
+            elif num == 3:
+                header = bytes(val)
+            elif num == 5:
+                for _n, sval in _pb_fields(val):
+                    fields = dict(_pb_fields(sval))
+                    out.append((step, bytes(fields[1]).decode("utf-8"),
+                                fields[2]))
+    check(header == b"brain.Event:2", "%s: no file-version header" % path)
+    return out
+
+
+def _last_scalars(path, prefix, names):
+    """{name: the last `<prefix><name>_total` scalar} of an event file."""
+    last = {}
+    for _step, tag, value in read_event_file(path):
+        last[tag] = value
+    return {name: last.get("%s%s_total" % (prefix, name)) for name in names}
+
+
+def _event_file(directory, suffix=""):
+    files = glob.glob(os.path.join(directory, "events.out.tfevents.*"))
+    check(len(files) == 1 and files[0].endswith(suffix), "%s holds the "
+          "event files %s, not one *%s" % (directory, files, suffix))
+    return files[0]
+
+
 def _mp_get(port):
     return urllib.request.urlopen("http://127.0.0.1:%d/metrics" % port,
                                   timeout=60).read().decode()
@@ -11279,7 +11593,8 @@ def _mp_fleet(specs, trace_dir, children):
     rep_mports = [_mp_metrics_port(rep) for rep in replicas]
     addrs = ["localhost:%d" % rep.port for rep in replicas]
     argv = [sys.executable, "-m", "elasticdl_tpu_torch.serving.router_main",
-            "--port", "0", "--metrics_port", "0"]
+            "--port", "0", "--metrics_port", "0", "--tensorboard_log_dir",
+            _mp_tb_dir(trace_dir, "router")]
     for addr in addrs:
         argv += ["--replica", addr]
     router = _Child(argv, "the metrics router", extra_env=env)
@@ -11346,9 +11661,10 @@ def _mp_fleet(specs, trace_dir, children):
           "router: routed %d completed %d errors %d shed %d of %d sent"
           % (rst.routed, rst.completed, errors, rst.shed, sent))
     slow = [0] * len(forensics.CAUSES)
-    rep_rows = []
+    rep_rows, statuses = [], []
     for fams, s in zip(rep_pages, direct):
         st = s.server_status(wire_pb.ServerStatusRequest(), timeout=60)
+        statuses.append(st)
         for name in ("admitted", "rejected", "expired", "completed",
                      "tokens_generated"):
             check(_mp_value(fams, "edl_serving_%s_total" % name)
@@ -11396,9 +11712,12 @@ def _mp_fleet(specs, trace_dir, children):
         wire_pb.ServerStatusRequest(), timeout=60))
     _sigusr2("router_main", router.proc.pid, lambda: stub.router_status(
         wire_pb.RouterStatusRequest(), timeout=60))
-    # SIGTERM flushes each process's spans into the trace directory
+    # SIGTERM flushes each process's spans into the trace directory and
+    # closes its event file
     for child in [router] + list(replicas):
         child.stop()
+    out["tensorboard"] = _mp_event_files(trace_dir, statuses, rst, errors,
+                                         sent)
     fleet_hist = LogLinearHistogram.from_counts(fleet)
     threshold = fleet_hist.percentile(0) / 2  # below the run's p50
     specs_slo = default_router_slos(threshold, 60000.0, 0.02,
@@ -11459,6 +11778,39 @@ def _mp_fleet(specs, trace_dir, children):
     return out
 
 
+MP_SERVING_TOTALS = ("admitted", "rejected", "expired", "completed",
+                     "tokens_generated")
+MP_ROUTER_TOTALS = ("routed", "completed", "shed", "redispatched", "hedges",
+                    "breaker_trips", "affinity_hits", "affinity_misses")
+
+
+def _mp_event_files(trace_dir, statuses, rst, errors, sent):
+    """Each replica's `.serving` and the router's `.router` event file,
+    read by read_event_file: the last counter totals equal the final
+    status reads (the router's routed the `sent`)."""
+    out = {"replicas": []}
+    for i, st in enumerate(statuses):
+        path = _event_file(_mp_tb_dir(trace_dir, "replica-%d" % i),
+                           ".serving")
+        got = _last_scalars(path, "serving/", MP_SERVING_TOTALS)
+        want = {name: getattr(st, name) for name in MP_SERVING_TOTALS}
+        check(got == want, "replica %d's event file ends with %s, its "
+              "status %s" % (i, got, want))
+        out["replicas"].append({"bytes": os.path.getsize(path),
+                                "scalars": len(read_event_file(path)),
+                                "totals": got})
+    path = _event_file(_mp_tb_dir(trace_dir, "router"), ".router")
+    got = _last_scalars(path, "router/", MP_ROUTER_TOTALS + ("errors",))
+    want = dict({name: getattr(rst, name) for name in MP_ROUTER_TOTALS},
+                errors=errors)
+    check(got == want and got["routed"] == sent, "the router's event file "
+          "ends with %s, its status %s, %d sent" % (got, want, sent))
+    out["router"] = {"bytes": os.path.getsize(path),
+                     "scalars": len(read_event_file(path)), "totals": got}
+    log("metrics_plane event files: %s" % json.dumps(out))
+    return out
+
+
 def start_metrics_replicas(device="cuda", trace_dir=None):
     """Phase 34 (b)'s two replica processes (the script starts them
     early, beside the kernel checks: untimed work); they warm up and wait
@@ -11469,8 +11821,16 @@ def start_metrics_replicas(device="cuda", trace_dir=None):
         "--device", device, "--kv_paged", "1", "--metrics_port", "0",
         "--port", "0", "--model_params", _params_str(FLAGSHIP),
         "--num_slots", str(MP_SLOTS), "--kv_block_size", "16",
-        "--warmup_tokens", "2"], "metrics replica %d" % i,
+        "--warmup_tokens", "2", "--tensorboard_log_dir",
+        _mp_tb_dir(trace_dir, "replica-%d" % i)], "metrics replica %d" % i,
         extra_env={"EDL_TRACE_DIR": trace_dir}) for i in range(2)], trace_dir
+
+
+def _mp_tb_dir(trace_dir, process):
+    """Each process of phase 34's fleet writes its event file in a
+    directory of its own (two started in one second would share a file
+    name)."""
+    return os.path.join(trace_dir, "tb", process)
 
 
 def metrics_plane_phase(specs, device="cuda", model=None, early=None):
@@ -11512,6 +11872,7 @@ def metrics_plane_phase(specs, device="cuda", model=None, early=None):
         if not children:
             children += start_metrics_replicas(device, trace_dir)[0]
         out["fleet"] = _mp_fleet(specs, trace_dir, children)
+        out["tensorboard"] = out["fleet"].pop("tensorboard")
     finally:
         for child in children:
             child.close()

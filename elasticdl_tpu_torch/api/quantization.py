@@ -15,8 +15,15 @@ flip there.
 A bf16 leaf is a torch.bfloat16 tensor (numpy has no bfloat16; the
 port's checkpoints carry it so too). Serving dequantizes once per
 weight load (`load_params`, the engines' `set_params`) and serves float
-weights, the JAX engines' default.
+weights, the JAX engines' default. Under EDL_SERVING_FUSED_DEQUANT=1
+(`fused_dequant_default`) the serving entry instead keeps the int8
+leaves resident (`hold_int8`): each quantized parameter gives way to
+int8 values and fp32 scales in the port's layout, and the model
+dequantizes a weight where a forward uses it (transformer_lm
+`_weight` / `_rows`), so the weights stay int8 in memory.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -119,15 +126,75 @@ def quantized_bytes(params):
     return q_total, o_total
 
 
+def fused_dequant_default():
+    """EDL_SERVING_FUSED_DEQUANT: int8 weights stay resident and are
+    dequantized inside every step (set to anything but 0) instead of once
+    at the load."""
+    return os.environ.get("EDL_SERVING_FUSED_DEQUANT", "") not in ("", "0")
+
+
+def holds_int8(model):
+    """True if `model` holds any weight as resident int8 (`hold_int8`)."""
+    return any(name.endswith("_q8") for name, _b in model.named_buffers())
+
+
+def hold_int8(model, params):
+    """Keep the int8 leaves of the flax-named tree `params` resident in
+    `model`: each quantized parameter (`weight` of a module, or a LoRA
+    adapter) is replaced by the buffers `<name>_q8` (int8, the port's
+    layout: a flax kernel transposed) and `<name>_scale` (fp32, shaped
+    to broadcast over it), and the float parameter is dropped. A module
+    that holds them already gets the new values copied in place (a hot
+    reload). Every shape is checked before anything changes. Leaves that
+    are not quantized are left to the caller. Returns the number of
+    leaves held."""
+    path_fn = model_flax_param_path(model)
+    held = dict(model.named_buffers())
+    targets = []
+    for key in list(dict(model.named_parameters())) + [
+            k[:-len("_q8")] for k in held if k.endswith("_q8")]:
+        path = path_fn(key).split("/")
+        node = params
+        for part in path:
+            node = node.get(part) if isinstance(node, dict) else None
+        if not isinstance(node, dict) or _Q8_KEY not in node:
+            continue
+        q8 = torch.tensor(np.asarray(node[_Q8_KEY]))
+        scale = torch.tensor(fp32_array(node[_SCALE_KEY]))
+        if path[-1] == "kernel":
+            q8, scale = q8.t(), scale[:, None]
+        mod_name, _, attr = key.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        want = tuple((held.get(key + "_q8") if key + "_q8" in held
+                      else getattr(mod, attr)).shape)
+        if tuple(q8.shape) != want:
+            raise ValueError("int8 leaf %s has shape %s, the model %s"
+                             % ("/".join(path), tuple(q8.shape), want))
+        targets.append((mod, attr, q8, scale))
+    with torch.no_grad():
+        for mod, attr, q8, scale in targets:
+            if attr + "_q8" in mod._buffers:
+                mod._buffers[attr + "_q8"].copy_(q8)
+                mod._buffers[attr + "_scale"].copy_(scale)
+                continue
+            device = mod._parameters.pop(attr).device
+            mod.register_buffer(attr + "_q8", q8.contiguous().to(device))
+            mod.register_buffer(attr + "_scale",
+                                scale.contiguous().to(device))
+    return len(targets)
+
+
 def load_params(model, params):
     """Load a flax-named params tree (an export's or a checkpoint's;
     float or int8) into the port `model` in place, as a checkpoint's
     leaves restore (the model's zoo `flax_param_path` names them),
     dequantizing int8 leaves once and casting each value to its
-    parameter's dtype. Raises on a parameter the tree lacks or a leaf
-    the model lacks. Returns the model."""
+    parameter's dtype (and marking it `weights_int8`). Raises on a
+    parameter the tree lacks or a leaf the model lacks. Returns the
+    model."""
     if is_quantized(params):
         params = dequantize_params(params)
+        model.weights_int8 = True
     flat = params_tree_leaves(params)
     restored = restore_params_from_flat(model, model_flax_param_path(model),
                                         flat, strict=True)

@@ -10,10 +10,11 @@ reaches every worker.
 
 A flag the port does not honour raises when it is set to anything but
 its default, instead of being ignored (`check_ported_args`):
---worker_image (Kubernetes workers), --need_tensorboard,
---distribution_strategy AllreduceStrategy (the SPMD lockstep loop) and
---mesh_spec. The master's /metrics port (--metrics_port, or
-EDL_METRICS_PORT when the flag is -1) is honoured (master/main.py).
+--worker_image (Kubernetes workers), --distribution_strategy
+AllreduceStrategy (the SPMD lockstep loop) and --mesh_spec. The
+master's /metrics port (--metrics_port, or EDL_METRICS_PORT when the
+flag is -1) and its TensorBoard service (--need_tensorboard, writing
+under --tensorboard_log_dir) are honoured (master/main.py).
 """
 
 import argparse
@@ -36,7 +37,6 @@ METRICS_PORT_ENV = "EDL_METRICS_PORT"
 # flag -> (its default, what is missing); set to anything else, it raises
 _NOT_PORTED = {
     "worker_image": ("", "Kubernetes workers (K8sInstanceManager)"),
-    "need_tensorboard": (False, "the TensorBoard service"),
     "distribution_strategy": (
         "Local", "the SPMD lockstep loop (parallel/spmd.py)"),
     "mesh_spec": ("", "device meshes through the CLI"),

@@ -8,8 +8,9 @@ elasticdl_tpu/master/evaluation_service.py.
   common/tensor_utils.py's codec); the master aggregates them with the
   port's MetricsAggregator, on the host: the master never touches the
   device;
-* a finished job's metrics go to `completed_job_metrics` and the log
-  (the JAX service's TensorBoard writer is not ported)
+* a finished job's metrics go to `completed_job_metrics`, the log and,
+  given a `metrics_writer` (the master's TensorboardService), its
+  event file at the job's model version
 """
 
 import logging
@@ -84,6 +85,7 @@ class _EvaluationTrigger(threading.Thread):
 class EvaluationService(object):
     def __init__(
         self,
+        metrics_writer,
         task_d,
         start_delay_secs,
         throttle_secs,
@@ -91,6 +93,7 @@ class EvaluationService(object):
         eval_only,
         eval_metrics_fn,
     ):
+        self._metrics_writer = metrics_writer
         self._task_d = task_d
         # reentrant: complete_task -> try_to_create_new_job both lock
         self._lock = threading.RLock()
@@ -184,6 +187,9 @@ class EvaluationService(object):
             self.completed_job_metrics.append((version, metrics))
             if not self._eval_only:
                 self._eval_job = None
+        if self._metrics_writer and metrics:
+            self._metrics_writer.write_dict_to_summary(metrics,
+                                                       version=version)
         logger.info("Evaluation metrics[v=%d]: %s", version, metrics)
         self.try_to_create_new_job()
         return metrics

@@ -18,8 +18,13 @@ serves the master's Prometheus page at `GET /metrics` (queue depths, the
 model version, restarts and requeued tasks) and prints `METRICS_READY
 port=N`. SIGUSR2 dumps every thread's stack (to stderr, or to
 `sigusr2-<pid>.txt` under $EDL_HEALTH_DIR) without stopping the job.
-Kubernetes workers (--worker_image) and the TensorBoard service are not
-ported and raise (common/args.py).
+`--need_tensorboard` writes the evaluation metrics, the workers'
+`tier/` and `fault/` gauges and the recovery gauges as a TensorBoard
+event file under --tensorboard_log_dir (default /tmp/elasticdl_tb), and
+serves it with a `tensorboard` process when that binary is installed.
+The span recorder is named `master:<port>`: with EDL_TRACE_DIR set, the
+master's `task_dispatch` spans export there when it exits. Kubernetes
+workers (--worker_image) are not ported and raise (common/args.py).
 """
 
 import logging
@@ -42,12 +47,14 @@ from elasticdl_tpu_torch.data.reader.data_reader_factory import (
 )
 from elasticdl_tpu_torch.master.instance_manager import LocalInstanceManager
 from elasticdl_tpu_torch.master.master import Master
+from elasticdl_tpu_torch.master.tensorboard_service import TensorboardService
 from elasticdl_tpu_torch.observability.metrics import (
     MetricsServer,
     counter_family,
     gauge_family,
     metrics_port_default,
 )
+from elasticdl_tpu_torch.observability.tracing import configure
 
 logger = logging.getLogger(__name__)
 
@@ -110,6 +117,10 @@ def _run_master(args):
     callbacks_list = None
     if spec.callbacks_fn is not None:
         callbacks_list = CallbackList(spec.callbacks_fn())
+    tensorboard_service = None
+    if args.need_tensorboard:
+        tensorboard_service = TensorboardService(
+            args.tensorboard_log_dir or "/tmp/elasticdl_tb")
     # the task shuffle: one order for one seed
     random.seed(args.seed)
     master = Master(
@@ -127,6 +138,7 @@ def _run_master(args):
         task_timeout_check_interval=args.task_timeout_check_interval,
         callbacks_list=callbacks_list,
         export_saved_model=args.export_saved_model,
+        tensorboard_service=tensorboard_service,
         checkpoint_dir_for_init=args.checkpoint_dir_for_init or None,
         job_state_dir=args.job_state_dir or None,
     )
@@ -142,6 +154,8 @@ def _run_master(args):
     if instance_manager:
         instance_manager.start_workers()
     logger.info("Master ready on port %d", master.port)
+    # the recorder's name in its span export (EDL_TRACE_DIR, at exit)
+    configure(service="master:%d" % master.port)
     metrics = _start_metrics(args, master)
     job_status.write_job_status(args.job_status_file, job_status.RUNNING)
     try:

@@ -5,7 +5,12 @@ It builds the dispatcher (master/task_dispatcher.py, journaled to
 (wrapped by the fault injector when a spec is active) behind the port's
 transport (proto/service.py), and, when given one, the instance manager
 that launches the workers; `run` waits for the job with the straggler
-watchdog (`check_timeout_tasks`) and `stop` tears it all down.
+watchdog (`check_timeout_tasks`) and `stop` tears it all down. A
+`tensorboard_service` (master/tensorboard_service.py) receives the
+evaluation metrics and the servicer's worker gauges; `prepare` starts
+it and writes the recovery gauges (`master/restarts`,
+`master/recovery_requeued_tasks`) when a state store exists, `stop`
+stops it after the evaluation service.
 
 The master never touches the device: it serves tasks and aggregates
 evaluation outputs on the host, so a process that runs it (the CLI, a
@@ -54,6 +59,7 @@ class Master(object):
         task_timeout_check_interval=30,
         callbacks_list=None,
         export_saved_model=False,
+        tensorboard_service=None,
         checkpoint_dir_for_init=None,
         job_state_dir=None,
     ):
@@ -107,9 +113,11 @@ class Master(object):
                         cb.set_completed_steps(version)
 
         eval_only = bool(validation_data) and not training_data
+        self.tensorboard_service = tensorboard_service
         self.evaluation_service = None
         if validation_data:
             self.evaluation_service = EvaluationService(
+                tensorboard_service,
                 self.task_d,
                 eval_start_delay_secs,
                 eval_throttle_secs,
@@ -122,7 +130,8 @@ class Master(object):
         # EDL_FAULT_SPEC arms the fault injector on the five methods
         self.servicer = maybe_wrap_servicer(MasterServicer(
             minibatch_size, self.task_d,
-            evaluation_service=self.evaluation_service))
+            evaluation_service=self.evaluation_service,
+            tensorboard_service=tensorboard_service))
         self.instance_manager = instance_manager
         self._port = port
         self._server = None
@@ -133,7 +142,8 @@ class Master(object):
     # ------------------------------------------------------------ lifecycle
 
     def prepare(self):
-        """Start the service, the evaluation trigger and the workers."""
+        """Start the service, the evaluation trigger, the TensorBoard
+        service and the workers."""
         server = build_server()
         add_master_servicer_to_server(self.servicer, server)
         self.port = server.add_insecure_port("[::]:%d" % self._port)
@@ -142,9 +152,25 @@ class Master(object):
         logger.info("Master server started on port %d", self.port)
         if self.evaluation_service:
             self.evaluation_service.start()
+        if self.tensorboard_service:
+            self.tensorboard_service.start()
         if self.instance_manager:
             self.instance_manager.start_workers()
         self._start_watchdog()
+        self._write_recovery_gauges()
+
+    def _write_recovery_gauges(self):
+        """The crash-recovery counters as TensorBoard gauges at the
+        restart count: master/restarts and the tasks requeued from the
+        pre-crash doing set."""
+        if not (self.tensorboard_service and self.state_store):
+            return
+        restarts = self.state_store.restart_count
+        self.tensorboard_service.write_dict_to_summary(
+            {"master/restarts": restarts,
+             "master/recovery_requeued_tasks":
+                 self.task_d.requeued_on_recovery},
+            version=restarts)
 
     def run(self, poll_interval=1.0):
         """Block until every task is done, then linger and stop."""
@@ -176,6 +202,10 @@ class Master(object):
         self._watchdog_stopper.set()
         if self.evaluation_service:
             self.evaluation_service.stop()
+        # after the evaluation service: late metrics must not reopen the
+        # writer
+        if self.tensorboard_service:
+            self.tensorboard_service.stop()
         if self.instance_manager:
             self.instance_manager.stop()
         if self._server:

@@ -12,10 +12,18 @@ fails a task, `report_evaluation_metrics` feeds the evaluation service,
 trigger), `register_worker` records membership. The liveness times and
 the average task times feed the master's straggler watchdog.
 
+Training-plane tracing: `get_task` opens a `task_dispatch` span (task
+id, worker id, type) on the process recorder and puts its ids on the
+Task, so the worker's `worker_task` span parents under it; a second
+dispatch under the same task id seals the first span `redispatched`, and
+`report_task_result` seals the current one `ok` or `error` with a
+`reported` event. A task the dispatcher requeues from a dead worker goes
+out again under a new task id, so the dead worker's span stays open. A report's `tier/` and `fault/`
+exec counters become TensorBoard gauges tagged `/worker-<id>` through
+the `tensorboard_service`, at a per-worker report index.
+
 The handlers touch no device: the master process never initializes
-CUDA. Trace fields stay empty (tracing is not ported); the exec
-counters a report carries are read by nothing here (the JAX master
-turns them into TensorBoard gauges, not ported).
+CUDA.
 """
 
 import logging
@@ -24,6 +32,7 @@ import threading
 import time
 
 from elasticdl_tpu_torch.master.task_dispatcher import TaskType
+from elasticdl_tpu_torch.observability.tracing import recorder
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.proto.convert import TASK_TYPE_TO_PB
 
@@ -31,7 +40,8 @@ logger = logging.getLogger(__name__)
 
 
 class MasterServicer(object):
-    def __init__(self, minibatch_size, task_d, evaluation_service=None):
+    def __init__(self, minibatch_size, task_d, evaluation_service=None,
+                 tensorboard_service=None):
         self._task_d = task_d
         self._lock = threading.Lock()
         self._minibatch_size = minibatch_size
@@ -39,6 +49,7 @@ class MasterServicer(object):
         # step-based evaluation triggers do not re-fire for old versions
         self._version = getattr(task_d, "model_version", 0) or 0
         self._evaluation_service = evaluation_service
+        self._tensorboard_service = tensorboard_service
         self._task_complete_times = {
             TaskType.TRAINING: [],
             TaskType.EVALUATION: [],
@@ -46,6 +57,11 @@ class MasterServicer(object):
         self._worker_liveness_time = {}
         self._workers = {}
         self._cluster_version = 0
+        # worker id -> its next tier-gauge step: one step a report, so
+        # every cumulative value lands at its own step
+        self._tier_gauge_steps = {}
+        # task id -> the open task_dispatch span of its last dispatch
+        self._task_spans = {}
         if evaluation_service:
             evaluation_service.set_master_servicer(self)
 
@@ -72,6 +88,17 @@ class MasterServicer(object):
             if task.type == TaskType.EVALUATION:
                 # evaluation tasks pin the model version they evaluate
                 res.model_version = task.model_version
+            span = recorder().start_span(
+                "task_dispatch", task_id=task_id,
+                worker_id=request.worker_id, type=str(task.type))
+            res.trace_id = span.trace_id
+            res.span_id = span.span_id
+            with self._lock:
+                old = self._task_spans.pop(task_id, None)
+                self._task_spans[task_id] = span
+            if old is not None:
+                old.event("redispatched", worker_id=request.worker_id)
+                old.finish("redispatched")
         elif (not self._task_d.finished()) or (
             self._task_d.invoke_deferred_callback()
         ):
@@ -84,11 +111,12 @@ class MasterServicer(object):
         return res
 
     def report_task_result(self, request, _context=None):
+        self._finish_task_span(request.task_id, ok=not request.err_message)
         if request.err_message:
             logger.warning(
                 "Worker reported error: %s", request.err_message
             )
-            self._task_d.report(request.task_id, False)
+            _, _, worker_id = self._task_d.report(request.task_id, False)
         else:
             complete_time, task, worker_id = self._task_d.report(
                 request.task_id, True)
@@ -99,7 +127,36 @@ class MasterServicer(object):
                         self._task_complete_times[task.type].append(
                             complete_time
                         )
+        self._write_tier_gauges(dict(request.exec_counters), worker_id)
         return pb.Empty()
+
+    def _finish_task_span(self, task_id, ok):
+        """Seal the dispatch span a report closes. A late duplicate
+        report (a requeued straggler's) finds none: the re-dispatch
+        sealed it."""
+        with self._lock:
+            span = self._task_spans.pop(task_id, None)
+        if span is not None:
+            span.event("reported", ok=ok)
+            span.finish("ok" if ok else "error")
+
+    def _write_tier_gauges(self, exec_counters, worker_id):
+        """A report's cumulative `tier/` (host-tier health) and `fault/`
+        (RPC retries, reconnects) counters as gauges tagged
+        `/worker-<id>`, at that worker's report index. A report of an
+        unknown task (worker id -1) is dropped: a bare tag would mix the
+        workers' values."""
+        if not self._tensorboard_service or worker_id < 0:
+            return
+        suffix = "/worker-%d" % worker_id
+        gauges = {k + suffix: v for k, v in exec_counters.items()
+                  if k.startswith(("tier/", "fault/"))}
+        if gauges:
+            with self._lock:
+                step = self._tier_gauge_steps.get(worker_id, 0)
+                self._tier_gauge_steps[worker_id] = step + 1
+            self._tensorboard_service.write_dict_to_summary(gauges,
+                                                            version=step)
 
     def report_evaluation_metrics(self, request, _context=None):
         with self._lock:

@@ -96,6 +96,14 @@ keeps fp32 parameters under bf16 compute. Serving calls
 `use_compute_weights()` once, which casts the matmul and embedding
 weights to the compute dtype in place (what flax's cast-at-use computes
 on every call); training never does.
+
+Int8 weights held resident (api/quantization `hold_int8`, the serving
+entry under EDL_SERVING_FUSED_DEQUANT=1): every forward reads a weight
+through `_weight` / `_rows`, which dequantize a held one where it is
+used, `(q8.float() * scale)` cast to the compute dtype, the values the
+once-at-load dequantize gives; embedding rows are gathered as int8 and
+then scaled (the scale runs over the last axis). `weights_int8` says
+the weights came from an int8 checkpoint, held or dequantized once.
 """
 
 import functools
@@ -156,8 +164,26 @@ def _layer_norm(ln, x):
                         ln.bias.float(), ln.eps).to(x.dtype)
 
 
+def _weight(mod, name, dtype):
+    """`mod`'s weight `name` in `dtype`; one held as int8 (`<name>_q8`,
+    `<name>_scale` buffers) is dequantized here."""
+    q8 = mod._buffers.get(name + "_q8")
+    if q8 is None:
+        return getattr(mod, name).to(dtype)
+    return _dequantize(q8, mod._buffers[name + "_scale"], dtype)
+
+
+def _rows(emb, idx, dtype):
+    """Rows `idx` of the embedding `emb` in `dtype`; held int8 rows are
+    gathered, then scaled."""
+    q8 = emb._buffers.get("weight_q8")
+    if q8 is None:
+        return emb.weight[idx].to(dtype)
+    return _dequantize(q8[idx], emb._buffers["weight_scale"], dtype)
+
+
 def _linear(layer, x):
-    w = layer.weight.to(x.dtype)
+    w = _weight(layer, "weight", x.dtype)
     b = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, w, b)
 
@@ -265,8 +291,8 @@ class CausalSelfAttention(nn.Module):
         exist (flax `_lora_branch`)."""
         y = _linear(getattr(self, name), x)
         if self.lora_rank:
-            a = getattr(self, name + "_lora_a").to(x.dtype)
-            b = getattr(self, name + "_lora_b").to(x.dtype)
+            a = _weight(self, name + "_lora_a", x.dtype)
+            b = _weight(self, name + "_lora_b", x.dtype)
             y = y + torch.matmul(torch.matmul(x, a), b) * self.lora_scale
         return y
 
@@ -525,6 +551,7 @@ class TransformerLM(nn.Module):
         self.lora_alpha = float(lora_alpha)
         self.attn_impl = attn_impl
         self.tp_shard = bool(tp_shard)
+        self.weights_int8 = False
         self.wte = nn.Embedding(vocab_size, embed_dim, device=device)
         self.wpe = (nn.Embedding(seq_len, embed_dim, device=device)
                     if pos_emb == "learned" else None)
@@ -544,7 +571,7 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self):
-        return self.wte.weight.device
+        return self.ln_f.weight.device
 
     @torch.no_grad()
     def init_weights(self, seed):
@@ -574,27 +601,26 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def use_compute_weights(self):
         """Cast matmul, adapter and embedding weights to the compute
-        dtype in place (LayerNorm parameters stay fp32). Numerically the
-        same as the per-call cast flax does; returns self."""
+        dtype in place (LayerNorm parameters stay fp32; held int8 weights
+        and their fp32 scales stay as they are). Numerically the same as
+        the per-call cast flax does; returns self."""
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.to(self.dtype)
-            elif isinstance(mod, CausalSelfAttention) and mod.lora_rank:
-                for name in ("qkv", "proj"):
-                    for ab in ("_lora_a", "_lora_b"):
-                        p = getattr(mod, name + ab)
-                        p.data = p.data.to(self.dtype)
+            # an attention module's own parameters are its adapters
+            if isinstance(mod, (nn.Linear, nn.Embedding,
+                                CausalSelfAttention)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(self.dtype)
         return self
 
     def _embed(self, tokens, wpe_idx):
-        x = self.wte.weight[tokens].to(self.dtype)
+        x = _rows(self.wte, tokens, self.dtype)
         if self.wpe is not None:
-            x = x + self.wpe.weight[wpe_idx].to(self.dtype)
+            x = x + _rows(self.wpe, wpe_idx, self.dtype)
         return x
 
     def _logits(self, x):
         x = _layer_norm(self.ln_f, x)
-        return F.linear(x, self.head.weight.to(x.dtype)).float()
+        return F.linear(x, _weight(self.head, "weight", x.dtype)).float()
 
     def forward(self, inputs, training=False):
         """A feature dict {"tokens": [b, l]}: the training/eval forward

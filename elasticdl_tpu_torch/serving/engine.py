@@ -47,11 +47,20 @@ evict_expired / kv_stats / set_params):
     proposal and reads it stale from then on; the port's first step
     rewrites it (a perfect draft then accepts all its budget allows).
 
-Weight-only int8 checkpoints (api/quantization): `set_params` dequantizes
-their int8 leaves once, at the load, and the engine serves float weights
-in the compute dtype, the JAX engines' default. Their in-jit variant
-(EDL_SERVING_FUSED_DEQUANT=1, the int8 weights dequantized inside every
-step) is not ported and raises.
+Weight-only int8 checkpoints (api/quantization): by default their int8
+leaves are dequantized once per load (the serving entry's, and every
+`set_params`, through the tracked site `dequant`) and the engine serves
+float weights in the compute dtype, the JAX engines' default. Under
+EDL_SERVING_FUSED_DEQUANT=1 the model holds the int8 leaves and their
+fp32 scales resident in place of the float weights (`hold_int8`) and
+every forward the engine runs (prefill, dense and paged steps, the
+profiled split, the speculative verify and step, the suffix and chunked
+tiles) dequantizes a weight where it uses it, to the same values, so
+both modes serve the same tokens; a reload copies new int8 values in
+place. The engine records whether it serves an int8 checkpoint
+(`model.weights_int8`, or int8 leaves held) and, as the JAX engine, a
+`set_params` that would change that raises ValueError before it copies
+anything. A speculative draft must hold float weights.
 
 Only active slots run, and only their rows are written (the JAX engine
 runs every slot and drops the free lanes' writes). `set_params` swaps
@@ -76,8 +85,9 @@ compiles once there; the port runs only the active slots and writes the
 prefill bucket's rows, so decode_step, paged_step, spec_step (and their
 split parts) count one compile per active-slot count, and slot_write,
 draft_slot_write and kv_prompt_write one per prefill bucket: the port's
-shape churn, the captures a captured step would pay. The JAX engines'
-in-step int8 dequantize (`_dequant_fn`) is ROADMAP Queue 1 item 3.
+shape churn, the captures a captured step would pay. `dequant` counts a
+compile for each new leaf signature of a reload's once-at-load
+dequantize, as JAX's `_dequant_fn` retraces.
 
 Token parity with the JAX engines: greedy streams are identical; sampled
 tokens follow the port's own (seed, position) contract
@@ -105,6 +115,8 @@ from elasticdl_tpu_torch.api.generation import (
 )
 from elasticdl_tpu_torch.api.quantization import (
     dequantize_params,
+    hold_int8,
+    holds_int8,
     is_quantized,
 )
 from elasticdl_tpu_torch.checkpoint.saver import (
@@ -169,18 +181,12 @@ def prefill_budget_default():
 
 def float_weights(flat):
     """A checkpoint's flat leaves with int8 weights dequantized, once:
-    what the engines serve (the `.params` leaves rebuilt as a tree,
-    dequantized and named again; the other leaves as they were). The
-    in-step dequantize of the JAX engines' EDL_SERVING_FUSED_DEQUANT=1
-    is not ported."""
+    what the engines serve by default (the `.params` leaves rebuilt as a
+    tree, dequantized and named again; the other leaves as they
+    were)."""
     tree = params_tree_from_flat(flat)
     if not is_quantized(tree):
         return flat
-    if os.environ.get("EDL_SERVING_FUSED_DEQUANT", "") not in ("", "0"):
-        raise NotImplementedError(
-            "EDL_SERVING_FUSED_DEQUANT=1 (int8 weights dequantized inside "
-            "each step) is not ported; unset it to serve the weights "
-            "dequantized once at load")
     out = {k: v for k, v in flat.items() if not k.startswith(".params[")}
     out.update(params_tree_leaves(dequantize_params(tree)))
     return out
@@ -315,6 +321,11 @@ class ContinuousBatchingEngine(object):
             raise ValueError("top_p must be in (0, 1], got %r" % (top_p,))
         self.model = model.requires_grad_(False).use_compute_weights()
         self.device = model.device
+        # an int8 checkpoint: dequantized once per load (weights_int8),
+        # or held resident and dequantized inside every forward
+        self._exec_qz = holds_int8(model)
+        self._qz = self._exec_qz or bool(getattr(model, "weights_int8",
+                                                 False))
         self.num_slots = int(num_slots)
         self.seq_len = int(model.seq_len)
         self.top_k = int(top_k)
@@ -409,11 +420,23 @@ class ContinuousBatchingEngine(object):
         saver.load_checkpoint) are copied in place into the model's
         tensors, each cast to that tensor's dtype; parameters the
         checkpoint lacks keep their values. In-flight sequences keep
-        their caches, positions and pending tokens. Int8 weights
-        (a quantized checkpoint) are dequantized here, once."""
+        their caches, positions and pending tokens. Int8 weights (a
+        quantized checkpoint) are dequantized here, once, or, held
+        resident, replaced in place. A checkpoint whose quantization
+        differs from the one serving raises before anything is
+        copied."""
         t0 = self._tick()
-        restore_params_from_flat(self.model, flax_param_path,
-                                 float_weights(flat), strict=False)
+        tree = params_tree_from_flat(flat)
+        if is_quantized(tree) != self._qz:
+            raise ValueError(
+                "hot reload cannot change quantization (compiled "
+                "executables bake the dequantize path)")
+        if self._exec_qz:
+            hold_int8(self.model, tree)
+        elif self._qz:
+            flat = self._site("dequant", float_weights)(flat)
+        restore_params_from_flat(self.model, flax_param_path, flat,
+                                 strict=False)
         self.model_version = int(version)
         self._observe("reload_swap", t0)
 
@@ -652,6 +675,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if draft.device != self.device:
             raise ValueError("draft on %s, target on %s"
                              % (draft.device, self.device))
+        if holds_int8(draft):
+            raise ValueError(
+                "speculative decode needs float draft params (the draft "
+                "is small; quantizing it buys nothing)")
         self.draft_k = int(draft_k)
         self._draft = draft.requires_grad_(False).use_compute_weights()
         self._d_pool = self._draft.dense_cache(self.num_slots)

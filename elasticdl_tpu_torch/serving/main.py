@@ -59,7 +59,9 @@ through the unwrapped servicer before SERVING_READY, then drops the
 latency histograms. An int8 KV cache is a model parameter, as in the
 JAX package: `--model_params "...; kv_cache_dtype='int8'"`. A
 checkpoint of int8 weights (api/quantization) is served dequantized
-once at load.
+once at load, or, with EDL_SERVING_FUSED_DEQUANT=1, held resident as
+int8 and dequantized inside every step (the same tokens, half the bf16
+weights' bytes); a hot reload must keep the quantization.
 
 `--runtime_health 0|1` (-1 resolves from EDL_RUNTIME_HEALTH, on) switches
 the runtime-health plane (the recompile sentry, the memory accountant,
@@ -69,10 +71,11 @@ watchdog's budget; the warmup marks the plane's steady boundary.
 SIGUSR2 dumps every thread's stack (to stderr, or to `sigusr2-<pid>.txt`
 under EDL_HEALTH_DIR) without stopping the replica.
 
-Not accepted yet (it raises with the ROADMAP item that brings it):
-`--tensorboard_log_dir` (item 6, the TensorBoard writers).
-`serve_lines` is a library function that answers JSON request lines
-in-process.
+`--tensorboard_log_dir D` makes the replica's telemetry write a
+TensorBoard event file under D (`*.serving`: the gauges at each decode
+step, the counter totals, p99s and windowed prefix-hit rate every 50
+steps and at the stop). `serve_lines` is a library function that
+answers JSON request lines in-process.
 """
 
 import argparse
@@ -89,12 +92,6 @@ logger = logging.getLogger(__name__)
 #: the port's zoo, the default --model_zoo
 PORT_ZOO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "model_zoo")
-
-#: the JAX entry's flags the port does not take yet -> what brings them
-NOT_PORTED = {
-    "--tensorboard_log_dir": "ROADMAP Queue 1 item 6 (the TensorBoard "
-                             "writers)",
-}
 
 
 def parse_serving_args(args=None):
@@ -117,6 +114,9 @@ def parse_serving_args(args=None):
                         help="flax transformer_lm params saved as an .npz "
                              "of 'a/b/c'-keyed arrays; empty = seeded "
                              "random weights")
+    parser.add_argument("--tensorboard_log_dir", default="",
+                        help="write the telemetry's TensorBoard event "
+                             "file here; empty = none")
     parser.add_argument("--checkpoint_dir", default="",
                         help="restore the parameters of the latest valid "
                              "checkpoint version here at start-up "
@@ -191,15 +191,7 @@ def parse_serving_args(args=None):
                         help="seconds without progress with work seated "
                              "that read as stalled; -1 resolves from "
                              "EDL_STALL_AFTER_SECS (10)")
-    parsed, unknown = parser.parse_known_args(args)
-    for arg in unknown:
-        flag = arg.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            parser.error("%s is not ported yet: %s" % (flag,
-                                                       NOT_PORTED[flag]))
-    if unknown:
-        parser.error("unrecognized arguments: %s" % " ".join(unknown))
-    return parsed
+    return parser.parse_args(args)
 
 
 def _spec(args, model_def):
@@ -222,9 +214,15 @@ def build_model(args):
     # imports deferred so --help works without torch initialized
     import numpy as np
 
+    from elasticdl_tpu_torch.api.quantization import (
+        fused_dequant_default,
+        hold_int8,
+        is_quantized,
+    )
     from elasticdl_tpu_torch.checkpoint.saver import (
         get_latest_checkpoint_version,
         load_checkpoint,
+        params_tree_from_flat,
         restore_params_from_flat,
     )
     from elasticdl_tpu_torch.convert import params_from_flax
@@ -236,8 +234,15 @@ def build_model(args):
     if args.checkpoint_dir:
         if get_latest_checkpoint_version(args.checkpoint_dir) >= 0:
             flat, version = load_checkpoint(args.checkpoint_dir)
-            restore_params_from_flat(model, spec.flax_param_path,
-                                     float_weights(flat), strict=False)
+            tree = params_tree_from_flat(flat)
+            model.weights_int8 = is_quantized(tree)
+            if model.weights_int8 and fused_dequant_default():
+                # int8 leaves stay resident; the float ones restore below
+                hold_int8(model, tree)
+            else:
+                flat = float_weights(flat)
+            restore_params_from_flat(model, spec.flax_param_path, flat,
+                                     strict=False)
             logger.info("serving checkpoint version-%d", version)
         else:
             logger.warning("no checkpoint under %r yet; serving seeded "
@@ -288,6 +293,7 @@ def build_server(args):
                             else bool(args.runtime_health)),
             stall_after_secs=(None if args.stall_after_secs < 0
                               else args.stall_after_secs),
+            telemetry_dir=args.tensorboard_log_dir,
         ),
         model_version=version,
         draft=draft,

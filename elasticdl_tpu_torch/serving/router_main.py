@@ -61,8 +61,9 @@ SIGUSR2 dumps every thread's stack (observability/runtime_health.py
 `install_sigusr2_dump`: to stderr, or to `sigusr2-<pid>.txt` under
 $EDL_HEALTH_DIR) without stopping the router.
 
-Not accepted yet: `--tensorboard_log_dir` raises NotImplementedError
-(ROADMAP Queue 1 item 6, the TensorBoard writers).
+`--tensorboard_log_dir D` makes the router's telemetry write a
+TensorBoard event file under D (`*.router`: the rotation gauges at each
+heartbeat poll, the counter totals every 20 polls and at the stop).
 """
 
 import argparse
@@ -79,8 +80,6 @@ from elasticdl_tpu_torch.observability.tracing import configure
 from elasticdl_tpu_torch.serving.router import Router, RouterConfig
 
 logger = logging.getLogger(__name__)
-
-_ITEM6 = "ROADMAP Queue 1 item 6, the TensorBoard writers"
 
 
 def parse_router_args(args=None):
@@ -155,9 +154,6 @@ def parse_router_args(args=None):
                         default=60.0)
     parser.add_argument("--rollout_parity_prompts", default="1,2,3")
     parsed = parser.parse_args(args)
-    if parsed.tensorboard_log_dir:
-        raise NotImplementedError(
-            "--tensorboard_log_dir is not ported yet (%s)" % _ITEM6)
     if (not parsed.replica and not parsed.autoscale
             and not parsed.cell_journal_dir):
         parser.error("at least one --replica is required (or pass "
@@ -187,6 +183,7 @@ def build_router(args):
         dispatch_timeout_secs=args.dispatch_timeout_secs,
         redispatch_window_secs=args.redispatch_window_secs,
         port=args.port,
+        telemetry_dir=args.tensorboard_log_dir,
         metrics_port=(None if args.metrics_port < 0 else args.metrics_port),
         slo_ttft_p99_ms=args.slo_ttft_p99_ms,
         slo_e2e_p99_ms=args.slo_e2e_p99_ms,

@@ -184,7 +184,9 @@ class ServingConfig(object):
     without progress with work present that read as stalled (None
     resolves from EDL_STALL_AFTER_SECS, 10); health_reconcile_secs: the
     accountant's cadence; health_dir: where a stall's bundle goes (None
-    resolves from EDL_HEALTH_DIR; "" = no bundle)."""
+    resolves from EDL_HEALTH_DIR; "" = no bundle). telemetry_dir: the
+    directory of the telemetry's TensorBoard event file ("" = none);
+    telemetry_flush_every: decode steps between its counter flushes."""
 
     def __init__(self, num_slots=4, queue_capacity=64, top_k=0, top_p=1.0,
                  idle_wait_secs=0.05, handler_poll_secs=0.25,
@@ -194,7 +196,8 @@ class ServingConfig(object):
                  reload_poll_secs=2.0, port=0, max_workers=64,
                  kv_host_bytes=None, role=None, metrics_port=None,
                  forensics=None, runtime_health=None, stall_after_secs=None,
-                 health_reconcile_secs=2.0, health_dir=None):
+                 health_reconcile_secs=2.0, health_dir=None,
+                 telemetry_dir="", telemetry_flush_every=50):
         self.num_slots = int(num_slots)
         self.queue_capacity = int(queue_capacity)
         self.top_k = int(top_k)
@@ -236,6 +239,8 @@ class ServingConfig(object):
                                  else float(stall_after_secs))
         self.health_reconcile_secs = float(health_reconcile_secs)
         self.health_dir = health_dir
+        self.telemetry_dir = telemetry_dir
+        self.telemetry_flush_every = int(telemetry_flush_every)
 
 
 def _admit_request(queue, telemetry, engine, req, deadline_ms):
@@ -923,7 +928,10 @@ class GenerationServer(object):
             self.engine = ContinuousBatchingEngine(
                 model, cfg.num_slots, top_k=cfg.top_k, top_p=cfg.top_p)
         self.engine.model_version = int(model_version)
-        self.telemetry = ServingTelemetry(exemplars=cfg.forensics)
+        self.telemetry = ServingTelemetry(
+            log_dir=cfg.telemetry_dir or None,
+            flush_every=cfg.telemetry_flush_every,
+            exemplars=cfg.forensics)
         self.engine.telemetry = self.telemetry
         if cfg.profile:
             self.engine.profiler = StepProfiler()

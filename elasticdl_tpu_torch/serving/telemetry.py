@@ -22,17 +22,26 @@ The snapshot derives `kv_bytes_per_token` = sum over decode steps of
 kv_bytes_in_use / tokens_generated: the average KV bytes resident per
 generated token.
 
+With a `log_dir`, the telemetry also writes a TensorBoard event file
+(common/tb_events.py, suffix `.serving`; the router's `.router`), as
+the JAX package writes it: every gauge write is a `serving/<gauge>`
+scalar at the decode-step index; every `flush_every` steps the window
+closes with the `serving/<counter>_total` scalars, the p99s and the
+windowed prefix-hit rate; `close()` flushes the tail to the file and
+the ring's last window with the same totals. The router writes its
+gauges at every heartbeat poll and its `router/<counter>_total` scalars
+every `flush_every` polls and at `close()`. Without a `log_dir` no file
+is opened and nothing else changes.
+
 Thread-safety: the scheduler thread records steps and latencies,
 handler threads bump admission counters and read snapshots, the metrics
 thread renders, all under one lock. Nothing here touches the device.
-
-Not ported: the TensorBoard event writer (`log_dir` raises; ROADMAP
-Queue 1 item 6).
 """
 
 import threading
 import time
 
+from elasticdl_tpu_torch.common.tb_events import EventFileWriter
 from elasticdl_tpu_torch.observability.forensics import CAUSES
 from elasticdl_tpu_torch.observability.histogram import LogLinearHistogram
 from elasticdl_tpu_torch.observability.metrics import (
@@ -42,8 +51,6 @@ from elasticdl_tpu_torch.observability.metrics import (
     hist_family,
     labeled_counter_family,
 )
-
-_ITEM6 = "ROADMAP Queue 1 item 6, the TensorBoard writers"
 
 
 class ServingTelemetry(object):
@@ -79,28 +86,27 @@ class ServingTelemetry(object):
     #: the queue-wait EWMA's weight: a load signal tracks the current
     #: regime, not the lifetime mean
     QUEUE_WAIT_ALPHA = 0.3
-    #: decode steps a tokens/s window spans
-    FLUSH_EVERY = 50
-    #: the ring's window (secs) and its bound (windows)
-    RING_SECS, RING_WINDOWS = 1.0, 240
 
-    def __init__(self, log_dir=None, clock=time.monotonic, exemplars=True):
-        """`exemplars`: trace ids into the latency histograms."""
-        if log_dir:
-            raise NotImplementedError(
-                "the serving telemetry's TensorBoard writer is not ported "
-                "yet (%s)" % _ITEM6)
+    def __init__(self, log_dir=None, flush_every=50, clock=time.monotonic,
+                 ring_secs=1.0, ring_windows=240, exemplars=True):
+        """`log_dir`: the event file's directory (None: no file);
+        `flush_every`: decode steps a tokens/s window spans; `ring_secs`
+        / `ring_windows`: the ring's window and bound; `exemplars`:
+        trace ids into the latency histograms."""
+        self._log_dir = log_dir
+        self._flush_every = max(1, int(flush_every))
         self._exemplars = bool(exemplars)
         self._clock = clock
         self._lock = threading.Lock()
+        self._writer = None
         self._started = clock()
         self.counters = {name: 0 for name in self.COUNTERS}
         self.gauges = {name: 0.0 for name in self.GAUGES}
         self.slow_causes = {name: 0 for name in self.SLOW_CAUSES}
         self.hists = {name: LogLinearHistogram()
                       for name in self.HISTOGRAMS}
-        self.ring = TimeSeriesRing(interval_secs=self.RING_SECS,
-                                   capacity=self.RING_WINDOWS, clock=clock)
+        self.ring = TimeSeriesRing(interval_secs=ring_secs,
+                                   capacity=ring_windows, clock=clock)
         self.max_active_slots = 0
         self.kv_bytes_in_use_peak = 0
         self._kv_byte_steps = 0  # sum of kv_bytes_in_use over steps
@@ -109,6 +115,15 @@ class ServingTelemetry(object):
         self._step = 0
         self._window_tokens = 0
         self._window_t0 = clock()
+        self._dirty = False  # anything recorded since the last flush
+
+    def _scalar(self, tag, value, step):
+        """One event-file scalar; the writer opens at the first."""
+        if self._writer is None and self._log_dir:
+            self._writer = EventFileWriter(self._log_dir,
+                                           filename_suffix=".serving")
+        if self._writer is not None:
+            self._writer.add_scalar(tag, float(value), step)
 
     def _gauge_locked(self, name, value):
         if name not in self.gauges:
@@ -116,6 +131,7 @@ class ServingTelemetry(object):
                 "unknown serving gauge %r (declared: %s)"
                 % (name, ", ".join(self.GAUGES)))
         self.gauges[name] = float(value)
+        self._scalar("serving/%s" % name, value, self._step)
 
     def gauge(self, name, value):
         with self._lock:
@@ -143,6 +159,7 @@ class ServingTelemetry(object):
                     "unknown serving counter %r (declared: %s)"
                     % (name, ", ".join(self.COUNTERS)))
             self.counters[name] += n
+            self._dirty = True
 
     def count_slow_cause(self, cause, n=1):
         """One terminally-slow request attributed to `cause`."""
@@ -152,6 +169,7 @@ class ServingTelemetry(object):
                     "unknown slow cause %r (declared: %s)"
                     % (cause, ", ".join(self.SLOW_CAUSES)))
             self.slow_causes[cause] += n
+            self._dirty = True
 
     def reset_latency(self):
         """Drop the latency distributions (histograms, the queue-wait
@@ -163,8 +181,8 @@ class ServingTelemetry(object):
                 self.hists[name] = LogLinearHistogram()
             self._queue_wait_ewma_ms = 0.0
             self._queue_waits_seen = 0
-            self.ring = TimeSeriesRing(interval_secs=self.RING_SECS,
-                                       capacity=self.RING_WINDOWS,
+            self.ring = TimeSeriesRing(interval_secs=self.ring.interval_secs,
+                                       capacity=self.ring.capacity,
                                        clock=self._clock)
 
     def record_ttft(self, request):
@@ -174,6 +192,7 @@ class ServingTelemetry(object):
         trace_id = (getattr(request, "trace_id", "")
                     if self._exemplars else "")
         with self._lock:
+            self._dirty = True
             self.hists["ttft_ms"].record(ttft_ms, trace_id=trace_id or None)
             self._gauge_locked("ttft_ms", ttft_ms)
             if self.ring.due():
@@ -183,6 +202,7 @@ class ServingTelemetry(object):
     def record_e2e(self, latency_ms, trace_id=None):
         """End-to-end latency of one completed request."""
         with self._lock:
+            self._dirty = True
             self.hists["e2e_ms"].record(
                 latency_ms, trace_id=trace_id if self._exemplars else None)
 
@@ -207,9 +227,10 @@ class ServingTelemetry(object):
                     tokens_committed, kv_bytes_in_use=None,
                     kv_blocks_free=None, kv_host_blocks=None,
                     kv_host_bytes=None):
-        """One decode step's gauges; the tokens/s window closes every
-        FLUSH_EVERY steps."""
+        """One decode step's gauges; the tokens/s window closes (and the
+        counters reach the event file) every `flush_every` steps."""
         with self._lock:
+            self._dirty = True
             self._step += 1
             self.max_active_slots = max(self.max_active_slots, active_slots)
             self.counters["tokens_generated"] += tokens_committed
@@ -229,7 +250,7 @@ class ServingTelemetry(object):
             self._gauge_locked("queue_depth", queue_depth)
             self._gauge_locked("active_slots", active_slots)
             self._gauge_locked("step_ms", step_secs * 1000.0)
-            if self._step % self.FLUSH_EVERY == 0:
+            if self._step % self._flush_every == 0:
                 self._flush_window_locked()
             if self.ring.due():
                 self._ring_observe_locked()
@@ -248,12 +269,15 @@ class ServingTelemetry(object):
         return hit / total if total > 0 else 0.0
 
     def _flush_window_locked(self):
-        """Close the tokens/s window and refresh the headline gauges."""
+        """Close the tokens/s window, write the counter totals and
+        refresh the headline gauges."""
         now = self._clock()
         window = max(now - self._window_t0, 1e-9)
         self._gauge_locked("tokens_per_sec", self._window_tokens / window)
         self._window_tokens = 0
         self._window_t0 = now
+        for name, value in self.counters.items():
+            self._scalar("serving/%s_total" % name, value, self._step)
         for hist_name in ("ttft_ms", "e2e_ms"):
             hist = self.hists[hist_name]
             if hist.count:
@@ -261,6 +285,7 @@ class ServingTelemetry(object):
                                    hist.percentile(99))
         self._gauge_locked("prefix_hit_rate_window",
                            self._prefix_hit_rate_locked())
+        self._dirty = False
 
     # ---------------------------------------------------------- snapshot
 
@@ -324,10 +349,18 @@ class ServingTelemetry(object):
             return fams
 
     def close(self):
-        """Land the final partial window in the ring."""
+        """Flush the tail, then close the writer: with a `log_dir` and
+        anything recorded since the last window flush, the window closes
+        once more (the writer opens for it if it never did), and the
+        ring's final partial window lands with the same totals."""
         with self._lock:
+            if self._log_dir and self._dirty:
+                self._flush_window_locked()
             self._ring_observe_locked(roll=False)
             self.ring.flush()
+            if self._writer is not None:
+                self._writer.close()
+                self._writer = None
 
 
 class RouterTelemetry(object):
@@ -350,9 +383,11 @@ class RouterTelemetry(object):
     feeds the ring one cumulative observation: the counters, the e2e
     buckets and the fleet-merged replica histograms the router hands in
     (`fleet_hists`) and the e2e exemplars; the SLO burn-rate engine reads
-    that ring, `prometheus()` renders it. `flush_every` is the
-    TensorBoard writer's cadence (the writer is not ported: a `log_dir`
-    raises)."""
+    that ring, `prometheus()` renders it. With a `log_dir`, each poll
+    writes `router/healthy_replicas` and `router/replicas` at the poll
+    index, every `flush_every` polls and `close()` write the
+    `router/<counter>_total` scalars (the event file's suffix is
+    `.router`)."""
 
     COUNTERS = ("routed", "completed", "redispatched", "hedges",
                 "hedge_wins", "shed", "breaker_trips", "errors",
@@ -362,13 +397,11 @@ class RouterTelemetry(object):
 
     def __init__(self, log_dir=None, flush_every=20, clock=time.monotonic,
                  ring_secs=2.0, ring_windows=300):
-        if log_dir:
-            raise NotImplementedError(
-                "the router telemetry's TensorBoard writer is not ported "
-                "yet (%s)" % _ITEM6)
-        del flush_every  # the writer's cadence
+        self._log_dir = log_dir
+        self._flush_every = max(1, int(flush_every))
         self._clock = clock
         self._lock = threading.Lock()
+        self._writer = None
         self._started = clock()
         self._poll = 0
         self.counters = {name: 0 for name in self.COUNTERS}
@@ -377,12 +410,25 @@ class RouterTelemetry(object):
         self.ring = TimeSeriesRing(interval_secs=ring_secs,
                                    capacity=ring_windows, clock=clock)
 
+    def _scalar(self, tag, value, step):
+        """One event-file scalar; the writer opens at the first."""
+        if self._writer is None and self._log_dir:
+            self._writer = EventFileWriter(self._log_dir,
+                                           filename_suffix=".router")
+        if self._writer is not None:
+            self._writer.add_scalar(tag, float(value), step)
+
     def _gauge_locked(self, name, value):
         if name not in self.gauges:
             raise ValueError(
                 "unknown router gauge %r (declared: %s)"
                 % (name, ", ".join(self.GAUGES)))
         self.gauges[name] = float(value)
+        self._scalar("router/%s" % name, value, self._poll)
+
+    def _write_totals_locked(self):
+        for name, value in self.counters.items():
+            self._scalar("router/%s_total" % name, value, self._poll)
 
     def gauge(self, name, value):
         with self._lock:
@@ -403,13 +449,16 @@ class RouterTelemetry(object):
             self.hists["e2e_ms"].record(latency_ms, trace_id=trace_id)
 
     def record_poll(self, healthy, replicas, fleet_hists=None):
-        """One heartbeat sweep: the rotation gauges and one cumulative
-        ring observation (the counters, the e2e buckets and
-        `fleet_hists`, e.g. {"fleet_ttft_ms": cumulative buckets})."""
+        """One heartbeat sweep: the rotation gauges, the counter totals
+        every `flush_every` polls, and one cumulative ring observation
+        (the counters, the e2e buckets and `fleet_hists`, e.g.
+        {"fleet_ttft_ms": cumulative buckets})."""
         with self._lock:
             self._poll += 1
             self._gauge_locked("healthy_replicas", healthy)
             self._gauge_locked("replicas", replicas)
+            if self._poll % self._flush_every == 0:
+                self._write_totals_locked()
             hists = {"e2e_ms": self.hists["e2e_ms"].to_counts()}
             if fleet_hists:
                 hists.update(fleet_hists)
@@ -468,10 +517,16 @@ class RouterTelemetry(object):
             return fams
 
     def close(self):
-        """Land the final partial window in the ring."""
+        """Write the counter totals to an open event file, land the
+        final partial window in the ring, close the writer."""
         with self._lock:
+            if self._writer is not None:
+                self._write_totals_locked()
             self.ring.observe(
                 counters=self.counters, gauges=self.gauges,
                 hists={"e2e_ms": self.hists["e2e_ms"].to_counts()},
                 roll=False)
             self.ring.flush()
+            if self._writer is not None:
+                self._writer.close()
+                self._writer = None

@@ -9,7 +9,8 @@ run the task loop. The local instance manager launches it as
 It trains on the card unless --device cpu is passed, and raises when
 the card is missing. SIGUSR2 dumps every thread's stack (to stderr, or
 to `sigusr2-<pid>.txt` under $EDL_HEALTH_DIR) without stopping the
-worker.
+worker. The span recorder is named `worker:<id>`: with EDL_TRACE_DIR
+set, the worker's `worker_task` spans export there when it exits.
 """
 
 import json
@@ -22,6 +23,7 @@ from elasticdl_tpu_torch.common.model_utils import (
     get_dict_from_params_str,
     get_model_spec,
 )
+from elasticdl_tpu_torch.observability.tracing import configure
 from elasticdl_tpu_torch.worker.worker import Worker
 
 logger = logging.getLogger(__name__)
@@ -66,6 +68,8 @@ def main(argv=None):
     logger.info(
         "Worker %d starting, master=%s", args.worker_id, args.master_addr
     )
+    # the recorder's name in its span export (EDL_TRACE_DIR, at exit)
+    configure(service="worker:%d" % args.worker_id)
     worker = build_worker(args)
     try:
         worker.run()

@@ -35,8 +35,13 @@ spec that declares `host_embeddings()` trains its tables in the
 host-spill tier (embedding/host_bridge.py `attach_from_spec`); its
 checkpoints carry the engines' state and a restore reads both tiers from
 one version, and every task report carries the Trainer's `tier_health`
-counters as `tier/` exec counters once one is non-zero. The Task's
-trace fields are left empty: tracing is not ported.
+counters as `tier/` exec counters once one is non-zero.
+
+Training-plane tracing: a Task that carries trace ids (the master's
+`task_dispatch` span) opens a `worker_task` span under it at the fetch,
+with a `fetched` event (shard, start, end); the report records
+`reported` and seals the span `ok` or `error` once the RPC returns, so
+its duration is the task's fetch-to-report time on this worker.
 
 `timeline` holds the wall-clock times (time.time()) at which the worker
 was built (its Trainer and model on the device), first registered,
@@ -73,6 +78,7 @@ from elasticdl_tpu_torch.embedding.host_bridge import (
     restore_with_host_state,
 )
 from elasticdl_tpu_torch.master.task_dispatcher import Task
+from elasticdl_tpu_torch.observability.tracing import recorder
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.proto.convert import task_type_from_pb
 from elasticdl_tpu_torch.proto.service import MasterStub, build_channel
@@ -170,6 +176,9 @@ class Worker(object):
         self.job_complete = False
         self.rpc_retry_count = 0
         self.reconnect_count = 0
+        # task id -> its open worker_task span (the task loop is one
+        # thread)
+        self._task_spans = {}
         self.rpc_seconds = collections.defaultdict(
             lambda: collections.deque(maxlen=RPC_SECONDS_KEPT))
         self.losses = []
@@ -278,6 +287,14 @@ class Worker(object):
             if not self.job_complete:
                 logger.info("Master signaled JOB_COMPLETE")
             self.job_complete = True
+        if task.task_id and task.trace_id:
+            span = recorder().start_span(
+                "worker_task", trace_id=task.trace_id,
+                parent_span_id=task.span_id, task_id=task.task_id,
+                worker_id=self.worker_id)
+            span.event("fetched", shard=task.shard_name, start=task.start,
+                       end=task.end)
+            self._task_spans[task.task_id] = span
         return task
 
     def report_task_result(self, task_id, err_msg="", exec_counters=None):
@@ -295,9 +312,17 @@ class Worker(object):
             req.exec_counters["fault/rpc_retries"] = self.rpc_retry_count
         if self.reconnect_count:
             req.exec_counters["fault/reconnects"] = self.reconnect_count
-        return self._call_master(
-            "report_task_result", req, default_after_complete=pb.Empty(),
-        )
+        span = self._task_spans.pop(task_id, None)
+        if span is not None:
+            span.event("reported", ok=not err_msg)
+        try:
+            return self._call_master(
+                "report_task_result", req,
+                default_after_complete=pb.Empty(),
+            )
+        finally:
+            if span is not None:
+                span.finish("ok" if not err_msg else "error")
 
     def report_version(self, version):
         self._call_master(

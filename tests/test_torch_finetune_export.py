@@ -493,29 +493,35 @@ def test_quantized_checkpoint_round_trip(tmp_path):
 
 @pytest.mark.parametrize("paged", [False, True])
 def test_engines_serve_int8_weights_dequantized_once(paged, monkeypatch):
-    """set_params with a quantized checkpoint's leaves: the engine holds
-    the dequantized weights and serves the tokens of an engine given
-    those float weights; the in-step dequantize raises."""
+    """An engine over an int8 checkpoint's weights: set_params with the
+    quantized leaves holds the dequantized weights and serves the tokens
+    of an engine given those float weights; with
+    EDL_SERVING_FUSED_DEQUANT=1 the model holds the int8 leaves instead
+    and serves the same tokens."""
     params = numpy_params(CFG)
     qtree = q.quantize_params(params, min_size=1024)
     flat = params_tree_leaves(qtree)
     cls = PagedContinuousBatchingEngine if paged else (
         ContinuousBatchingEngine)
     kw = {"block_size": 4} if paged else {}
-    engine = cls(tzoo.custom_model(device="cpu", **CFG), 2, **kw)
+    engine = cls(q.load_params(tzoo.custom_model(device="cpu", **CFG),
+                               qtree), 2, **kw)
     engine.set_params(flat, 7)
     ref = cls(port_model(CFG, q.dequantize_params(qtree)), 2, **kw)
+    monkeypatch.setenv("EDL_SERVING_FUSED_DEQUANT", "1")
+    held = tzoo.custom_model(device="cpu", **CFG)
+    q.hold_int8(held, qtree)
+    fused = cls(held, 2, **kw)
+    fused.set_params(flat, 8)
     streams = []
-    for eng in (engine, ref):
+    for eng in (engine, ref, fused):
         req = ServingRequest([3, 1, 4, 1, 5], 8)
         eng.insert(req)
         while eng.active_count():
             eng.step()
         streams.append(list(req.generated))
-    assert streams[0] == streams[1] and engine.model_version == 7
-    monkeypatch.setenv("EDL_SERVING_FUSED_DEQUANT", "1")
-    with pytest.raises(NotImplementedError, match="FUSED_DEQUANT"):
-        engine.set_params(flat, 8)
+    assert streams[0] == streams[1] == streams[2]
+    assert engine.model_version == 7 and fused.model_version == 8
 
 
 def test_watcher_checks_int8_checkpoint_before_the_swap(tmp_path):
@@ -527,8 +533,8 @@ def test_watcher_checks_int8_checkpoint_before_the_swap(tmp_path):
     qtree = q.quantize_params(params, min_size=1024)
     CheckpointSaver(None, str(tmp_path / "ok")).save_flat(
         params_tree_leaves(qtree), 3)
-    engine = ContinuousBatchingEngine(tzoo.custom_model(device="cpu",
-                                                        **CFG), 2)
+    engine = ContinuousBatchingEngine(q.load_params(
+        tzoo.custom_model(device="cpu", **CFG), qtree), 2)
     watcher = CheckpointWatcher(str(tmp_path / "ok"), engine.model,
                                 poll_secs=0.0, sleep=lambda s: None)
     flat, version = watcher.poll(force=True)

@@ -421,9 +421,10 @@ def test_arguments_round_trip_against_jax():
     ["--mesh_spec", "sp=2"], ["--metrics_port", "0"], "env"])
 def test_unhonoured_flags_raise(flag, monkeypatch):
     base = ["--model_zoo", "z", "--model_def", "m.f"]
-    if flag == "env" or flag[0] == "--metrics_port":
-        # the master's /metrics exposition is ported: the flag and the
-        # environment parse as JAX's do (master/main.py serves them)
+    if flag == "env" or flag[0] in ("--metrics_port", "--need_tensorboard"):
+        # the master's /metrics exposition and TensorBoard service are
+        # ported: the flags and the environment parse as JAX's do
+        # (master/main.py serves them)
         if flag == "env":
             monkeypatch.setenv(pargs.METRICS_PORT_ENV, "9100")
             flag = []

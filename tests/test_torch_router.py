@@ -343,8 +343,9 @@ def test_router_telemetry_snapshot_and_ring_equal():
         pt.count("nope")
     with pytest.raises(ValueError):
         pt.gauge("nope", 1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ptelemetry.RouterTelemetry(log_dir="/nonexistent")
+    # the TensorBoard writer is ported: the log_dir's .router file holds
+    # the polls (tests/test_torch_tensorboard_traces.py: JAX's bytes)
+    assert ptelemetry.RouterTelemetry(log_dir="/nonexistent")._writer is None
 
 
 # ---------------------------------------------------------------- tracing
@@ -1203,5 +1204,8 @@ def test_metrics_port_and_log_dir_raise(monkeypatch):
     monkeypatch.setenv("EDL_METRICS_PORT", "nope")
     assert prouter.RouterConfig().metrics_port is None
     monkeypatch.delenv("EDL_METRICS_PORT")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        prouter.Router([], prouter.RouterConfig(telemetry_dir="/x"))
+    # the TensorBoard writer is ported: the config's dir reaches the
+    # router's telemetry, which opens its file at the first write
+    router = prouter.Router([], prouter.RouterConfig(telemetry_dir="/x"))
+    assert router.telemetry._log_dir == "/x"
+    router.stop()

@@ -10,7 +10,8 @@ localhost (CPU), and its entry point.
 * each server answers only its own table (UNIMPLEMENTED otherwise);
 * the entry: the JAX parser's defaults and its results for the cell,
   supervisor and rollout flags (and what each builds), the metrics
-  plane's flags raising with their ROADMAP item, an import that loads
+  port's and the TensorBoard writer's flags parsing as JAX's, an import
+  that loads
   neither torch nor jax, and
   `python -m elasticdl_tpu_torch.serving.router_main` as a process
   (ROUTER_READY, routed calls, exit 0 on SIGTERM).
@@ -212,14 +213,12 @@ def test_parser_defaults_equal_jax():
     (["--metrics_port", "0"], "item 6"),
     (["--tensorboard_log_dir", "tb"], "item 6")])
 def test_unported_flags_raise_naming_their_item(flags, item):
+    # both of item 6's flags are ported (the metrics plane, the
+    # TensorBoard writer): each parses as JAX's does
+    del item
     argv = ["--replica", "localhost:1"] + flags
-    if flags[0] == "--metrics_port":
-        # the metrics plane is ported: the flag parses as JAX's does
-        assert vars(router_main.parse_router_args(argv)) == vars(
-            jrouter_main.parse_router_args(argv))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        router_main.parse_router_args(argv)
+    assert vars(router_main.parse_router_args(argv)) == vars(
+        jrouter_main.parse_router_args(argv))
 
 
 ITEM4_FLAGS = {

@@ -879,7 +879,7 @@ def _drive_telemetry(tel, clock):
     tel.count_slow_cause("queue_wait", 2)
 
 
-def test_telemetry_snapshot_matches_jax_on_one_clock():
+def test_telemetry_snapshot_matches_jax_on_one_clock(tmp_path):
     snaps = []
     for cls in (JTelemetry, ServingTelemetry):
         clock = _Clock()
@@ -904,8 +904,14 @@ def test_telemetry_snapshot_matches_jax_on_one_clock():
     assert ServingTelemetry.COUNTERS == JTelemetry.COUNTERS
     assert ServingTelemetry.GAUGES == JTelemetry.GAUGES
     assert ServingTelemetry.SLOW_CAUSES == JTelemetry.SLOW_CAUSES
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServingTelemetry(log_dir="tb")
+    # the TensorBoard writer is ported: a log_dir opens a .serving file
+    # at the first write (tests/test_torch_tensorboard_traces.py holds
+    # its bytes against JAX's)
+    tel = ServingTelemetry(log_dir=str(tmp_path / "tb"))
+    tel.gauge("queue_depth", 1)
+    tel.close()
+    assert [p.name.endswith(".serving")
+            for p in (tmp_path / "tb").iterdir()] == [True]
 
 
 def test_time_series_ring_matches_jax():
@@ -935,31 +941,31 @@ def test_time_series_ring_matches_jax():
 
 
 def test_entry_flags_of_later_items_raise():
-    with pytest.raises(SystemExit):
-        port_main.parse_serving_args(["--tensorboard_log_dir", "/tmp/x"])
-    assert "item 6" in port_main.NOT_PORTED["--tensorboard_log_dir"]
-    # the runtime-health plane's flags are ported: they parse to the JAX
-    # entry's namespace
+    # the TensorBoard writer's flag is ported: it parses as JAX's does
     from elasticdl_tpu.serving import main as jax_main
 
     zoo_args = ["--model_zoo", "model_zoo", "--model_def",
                 "transformer_lm.transformer_lm.custom_model"]
+    for argv in (["--tensorboard_log_dir", "/tmp/x"], []):
+        got, want = (m.parse_serving_args(zoo_args + argv)
+                     for m in (port_main, jax_main))
+        assert got.tensorboard_log_dir == want.tensorboard_log_dir
+    with pytest.raises(SystemExit):
+        port_main.parse_serving_args(["--no_such_flag"])
+    # the runtime-health plane's flags are ported: they parse to the JAX
+    # entry's namespace
     for argv in (["--stall_after_secs", "1", "--runtime_health", "0"], []):
         got, want = (m.parse_serving_args(zoo_args + argv)
                      for m in (port_main, jax_main))
         assert ((got.stall_after_secs, got.runtime_health)
                 == (want.stall_after_secs, want.runtime_health))
-    assert not {"--stall_after_secs", "--runtime_health"} & set(
-        port_main.NOT_PORTED)
     with pytest.raises(SystemExit):
         port_main.parse_serving_args(["--runtime_health", "2"])
     # the metrics plane's flags are ported: they parse as JAX's do
     args = port_main.parse_serving_args(["--metrics_port", "1",
                                          "--forensics", "0"])
     assert (args.metrics_port, args.forensics) == (1, 0)
-    assert not {"--metrics_port", "--forensics"} & set(port_main.NOT_PORTED)
     # item 3's flags are ported: the host tier's budget and the role
-    assert not {"--kv_host_bytes", "--role"} & set(port_main.NOT_PORTED)
     args = port_main.parse_serving_args(["--kv_host_bytes", "4096",
                                          "--role", "decode"])
     assert (args.kv_host_bytes, args.role) == (4096, "decode")
