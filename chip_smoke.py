@@ -172,7 +172,23 @@ repository checkout it sits in. Phases, each of which fails the run:
    step's launches per kernel variant summed over the ranks equal to
    the ring's rotation table (72 forward launches a windowed step, 40 of
    them with an offset); a small fp32 windowed ring step card against
-   CPU. Its step times are no sp speed figure;
+   CPU. The loss is the zoo's partial form reduced over the mesh (no
+   logits gather). Then, in the same rank processes: the causal ring
+   with fused_head (the chunked head on each rank's rows), 2 steps
+   against the single-device fused run, peak allocation per rank beside
+   the unfused ring's; the flagship through LocalExecutor on {"dp": 2,
+   "sp": 2} with a checkpoint every step, 2 steps against the
+   single-device causal run, launches per variant equal to the ring's
+   table at sp 2 times dp 2, world rank 0 alone writing, and version 1
+   restored on all four ranks with step 2 replayed bit-identical
+   (sha256) to the uninterrupted run; BERT-base (phase 33's width,
+   minibatch 16, seq 512) on {"dp": 2, "sp": 2}, 2 steps against its
+   single-device run, the non-causal ring's table, after A, C and D
+   (C and D writing fp32 gradients, the d-64 grad_f32 instances) are
+   held against their plain versions at its rotation shape (b 8, h 12,
+   256-row shards, d 64). The single-device references run in the main
+   process while the ranks work. Its step times are no sp speed
+   figure;
 21. the offset variants timed at the ring's one-shard-back rotation,
    beside a bound over the pairs the mask keeps, the plain version and
    SDPA with the same boolean mask;
@@ -4546,32 +4562,49 @@ SP_RANK_TIMEOUT_S = 600
 # newer shard of the non-causal band
 SP_PATH_OFFSETS = ((SP_LOCAL, False), (2 * SP_LOCAL, False),
                    (-SP_LOCAL, False))
+# the runs phase 20's rank processes add after the sp configurations: the
+# flagship through LocalExecutor on a dp x sp mesh with a checkpoint every
+# step (against the single-device causal run), the causal ring with the
+# fused head on the sp mesh (against the single-device fused run), and
+# BERT-base on the dp x sp mesh (against its single-device run)
+DP_SP_MESH = {"dp": 2, "sp": 2}
+DP_SP = DP_SP_MESH["dp"] * DP_SP_MESH["sp"]
+FUSED_EXTRA = {"sp_impl": "ring", "fused_head": True}
+BERT_SP_SEED = 29
+# kernels C and D at bert's ring rotation shape on the dp x sp mesh (b 8
+# rows a dp rank, h 12, 256-row shards, d 64, bf16 in, fp32 gradients)
+BERT_RING_SHAPE = (8, 12, 256, 64)
 
 
-def sp_expected_launches(config):
-    """{kernel variant: launches in one sp training step summed over the
-    ranks} for one of SP_CONFIGS, from the ring's own rotation table:
-    each rotation that runs is one forward, one dq and one dk/dv launch
-    per layer, under "_window" for a windowed ring and "_offset" when
-    its pos_offset is nonzero; Ulysses launches each kernel once per
-    layer and rank over the whole sequence."""
-    layers = FLAGSHIP["num_layers"]
-    extra = SP_CONFIGS[config]
+def ring_launches(extra, sp, dp, layers, seq, causal=True):
+    """{kernel variant: launches in one training step summed over the dp
+    x sp ranks} from the ring's own rotation table: each rotation that
+    runs is one forward, one dq and one dk/dv launch per layer, under
+    "_window" for a windowed ring and "_offset" when its pos_offset is
+    nonzero; Ulysses launches each kernel once per layer and rank over
+    the whole sequence. Each dp replica runs its own ring."""
+    local = seq // sp
     counts = {}
-    if extra["sp_impl"] == "ulysses":
-        calls = [{"window": None, "pos_offset": 0}] * SP
+    if extra.get("sp_impl") == "ulysses":
+        calls = [{"window": None, "pos_offset": 0}] * sp
     else:
-        calls = [cp.rotation_call(src, my, SP, SP_LOCAL, True,
+        calls = [cp.rotation_call(src, my, sp, local, causal,
                                   extra.get("attn_window"))
-                 for my in range(SP) for src in range(SP)]
+                 for my in range(sp) for src in range(sp)]
     for call in calls:
         if call is None:
             continue
         for base in TRAINING_KERNELS:
             name = att._variant(base, call["window"], False,
                                 call["pos_offset"] != 0)
-            counts[name] = counts.get(name, 0) + layers
+            counts[name] = counts.get(name, 0) + layers * dp
     return counts
+
+
+def sp_expected_launches(config):
+    """ring_launches of one of SP_CONFIGS on the SP ranks."""
+    return ring_launches(SP_CONFIGS[config], SP, 1, FLAGSHIP["num_layers"],
+                         SP_SEQ)
 
 
 def sp_batch():
@@ -4596,31 +4629,140 @@ def _param_digest(params):
     return digest.hexdigest()
 
 
+def _counted_step(step_fn, state, batch, mesh, true_count=None):
+    """One `step_fn` train step on the card with the attention kernels'
+    counts set to 0 just before it: (state, {"loss", "ms" (host clock),
+    "launches", "peak_bytes" (the most allocated on the card during the
+    step), under a mesh "digest" of the parameters after it})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, batch, true_count)
+    torch.cuda.synchronize()
+    step = {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {k: n for k, n in att.KERNEL_LAUNCHES.items()
+                         if n},
+            "peak_bytes": int(torch.cuda.max_memory_allocated())}
+    if mesh is not None:
+        step["digest"] = _param_digest(state.params)
+    return state, step
+
+
+def _train_steps(trainer, state, batch, mesh):
+    """SP_STEPS _counted_step steps on one batch, after the digest of the
+    starting parameters under a mesh."""
+    steps = [{"digest": _param_digest(state.params)}] if mesh else []
+    for _ in range(SP_STEPS):
+        state, step = _counted_step(trainer.train_step, state, batch, mesh)
+        steps.append(step)
+    return steps
+
+
 def sp_train(params, batch, extra, mesh=None):
     """SP_STEPS Trainer steps of the flagship at SP_SEQ on the card,
-    under `mesh` (this rank's part of an sp run) or on one device.
+    under `mesh` (this rank's part of a mesh run) or on one device.
     Returns per step the loss, the host-clock ms, the kernel launches
-    of the step and (under a mesh) the digest of the parameters."""
+    and peak allocation of the step and (under a mesh) the digest of
+    the parameters."""
     cfg = dict(FLAGSHIP, seq_len=SP_SEQ, **extra)
     trainer = Trainer(load_model_spec_from_module(tzoo), mesh=mesh,
                       model_params=_params_str(cfg), device="cuda")
     state = trainer.init_state(batch, params=params)
-    steps = [{"digest": _param_digest(state.params)}] if mesh else []
-    for _ in range(SP_STEPS):
-        torch.cuda.synchronize()
-        att.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, loss = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        step = {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
-                "launches": {k: n for k, n in att.KERNEL_LAUNCHES.items()
-                             if n}}
-        if mesh is not None:
-            step["digest"] = _param_digest(state.params)
-        steps.append(step)
+    steps = _train_steps(trainer, state, batch, mesh)
     del trainer, state
     torch.cuda.empty_cache()
     return steps
+
+
+def bert_sp_batch():
+    """BERT-base's global batch for phase 20 (phase 33's width and
+    minibatch): masked rows drawn by numpy."""
+    _model_def, cfg, n = ENC_MODELS["bert"]
+    rs = np.random.RandomState(BERT_SP_SEED)
+    tokens = rs.randint(0, cfg["vocab_size"], size=(n, cfg["seq_len"]))
+    masked, mlm = zip(*[bert_zoo._mask_tokens(row.astype(np.int32),
+                                              cfg["vocab_size"], rs)
+                        for row in tokens])
+    return {"tokens": np.stack(masked)}, np.stack(mlm)
+
+
+def bert_sp_train(mesh=None):
+    """SP_STEPS Trainer steps of BERT-base (bf16 over fp32 params, its
+    seeded init on the card, the same in every process) on bert_sp_batch,
+    under `mesh` or on one device: sp_train's records."""
+    model_def, cfg, _n = ENC_MODELS["bert"]
+    trainer = Trainer(get_model_spec(_tab_zoo_dir(), model_def), mesh=mesh,
+                      model_params=_dlrm_params_str(cfg), seed=BERT_SP_SEED,
+                      device="cuda")
+    batch = bert_sp_batch()
+    state = trainer.init_state(batch)
+    steps = _train_steps(trainer, state, batch, mesh)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return steps
+
+
+def dp_sp_run(params, batch, mesh, workdir):
+    """This rank's part of the flagship at SP_SEQ through LocalExecutor
+    on the dp x sp `mesh`: SP_STEPS steps (one task of `batch`'s rows an
+    epoch, from `params`) with a checkpoint every step into
+    workdir/dp_sp_ckpt, which world rank 0 alone writes. Then version 1
+    restored on every rank into a fresh Trainer on the mesh and step 2
+    replayed on the batch the executor fed it. Returns the steps
+    (_counted_step's records), whether this rank wrote, the versions on
+    disk, and the restored and replayed parameters' digests."""
+    data = os.path.join(workdir, "dp_sp_records_rank%d" % mesh.world_rank)
+    os.makedirs(data)
+    with RecordWriter(os.path.join(data, "tokens-00000.trec")) as w:
+        for f, lab in zip(batch[0]["tokens"], batch[1]):
+            w.write(encode_example({"tokens": np.concatenate(
+                [f, lab[-1:]]).astype(np.int64)}))
+    ckpt = os.path.join(workdir, "dp_sp_ckpt")
+    cfg = dict(FLAGSHIP, seq_len=SP_SEQ, sp_impl="ring")
+    spec = load_model_spec_from_module(tzoo)
+    executor = LocalExecutor(
+        spec, training_data=data, minibatch_size=SP_BATCH,
+        num_epochs=SP_STEPS, records_per_task=SP_BATCH,
+        model_params=_params_str(cfg), checkpoint_dir=ckpt,
+        checkpoint_steps=1, device="cuda", mesh=mesh)
+    trainer = executor.trainer
+    executor.state = trainer.init_state(batch, params=params)
+    steps, fed = [{"digest": _param_digest(executor.state.params)}], []
+    step_fn = trainer.train_step
+
+    def counted(state, batch_, true_count=None):
+        fed.append((batch_, true_count))
+        state, step = _counted_step(step_fn, state, batch_, mesh, true_count)
+        steps.append(step)
+        return state, step["loss"]
+
+    trainer.train_step = counted
+    executor.train()
+    del trainer.train_step
+    out = {"steps": steps,
+           "wrote": bool(executor.checkpoint_saver.last_timing),
+           "versions": sorted(os.listdir(ckpt)),
+           "losses": list(executor.losses)}
+    # the saver's flatten leaves the trainer in reference cycles on rank 0:
+    # collect them, so the later runs' peaks are alike on every rank
+    del executor, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay = Trainer(spec, mesh=mesh, model_params=_params_str(cfg),
+                     device="cuda")
+    state = replay.init_state(batch)
+    state, version = restore_state_from_checkpoint(replay, state, ckpt,
+                                                   version=1)
+    out["restored_version"] = version
+    out["restored_digest"] = _param_digest(state.params)
+    state, loss = replay.train_step(state, *fed[1])
+    out["replayed_digest"] = _param_digest(state.params)
+    out["replayed_loss"] = loss
+    del replay, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def sp_small_step(mesh, device):
@@ -4675,9 +4817,11 @@ def sp_rank_main(rank, go_path, outdir):
     """One rank of the sp path (`chip_smoke.py --sp-rank R GO DIR`),
     started early: its CUDA context made, it waits for the go file GO,
     which names the gloo group's port; then joins the gloo group of SP
-    processes on this card, runs every SP_CONFIGS run and the small
-    card-vs-CPU step, and writes its results and its stages' wall clock
-    to DIR/rank<R>.json. The parent built the kernels."""
+    processes on this card, runs every SP_CONFIGS run, the small
+    card-vs-CPU step, the fused-head ring (FUSED_EXTRA), the flagship
+    through LocalExecutor on DP_SP_MESH with checkpoints (dp_sp_run) and
+    BERT-base on DP_SP_MESH, and writes its results and its stages' wall
+    clock to DIR/rank<R>.json. The parent built the kernels."""
     import torch.distributed as dist
 
     from elasticdl_tpu_torch.parallel.mesh import build_mesh
@@ -4705,6 +4849,14 @@ def sp_rank_main(rank, go_path, outdir):
         for dev in ("cuda", "cpu"):
             result["small"][dev] = sp_small_step(mesh, dev)
             stages["small_" + dev] = time.time()
+        result["fused_ring"] = sp_train(params, batch, FUSED_EXTRA, mesh)
+        stages["fused_ring"] = time.time()
+        mesh = build_mesh(DP_SP_MESH)
+        result["dp_sp"] = dp_sp_run(params, batch, mesh, outdir)
+        stages["dp_sp"] = time.time()
+        del params
+        result["bert_dp_sp"] = bert_sp_train(mesh)
+        stages["bert_dp_sp"] = time.time()
         with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
             json.dump(result, f)
     finally:
@@ -4768,15 +4920,17 @@ def close_sp_ranks(handle):
     shutil.rmtree(handle["outdir"], ignore_errors=True)
 
 
-def run_sp_ranks(handle):
-    """Let the SP rank processes of `handle` (start_sp_ranks) go, wait
-    for them (SP_RANK_TIMEOUT_S) and return their results by rank; a
-    rank that fails or times out fails the phase, and every rank still
-    running is killed."""
+def run_sp_ranks(handle, meanwhile):
+    """Let the SP rank processes of `handle` (start_sp_ranks) go, run
+    `meanwhile()` here while they work, wait for them (SP_RANK_TIMEOUT_S
+    from the go) and return (their results by rank, what `meanwhile`
+    returned); a rank that fails or times out fails the phase, and every
+    rank still running is killed."""
     outdir, procs = handle["outdir"], handle["procs"]
     _go(handle["go"], str(_free_port()))
+    deadline = time.monotonic() + SP_RANK_TIMEOUT_S
     try:
-        deadline = time.monotonic() + SP_RANK_TIMEOUT_S
+        done = meanwhile()
         for proc in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
@@ -4800,7 +4954,115 @@ def run_sp_ranks(handle):
     for r in range(SP):
         with open(os.path.join(outdir, "rank%d.json" % r)) as f:
             results.append(json.load(f))
-    return results
+    return results, done
+
+
+def check_bert_ring_rotation(gen):
+    """Kernels A, C and D at bert's ring rotation shape on DP_SP_MESH
+    (BERT_RING_SHAPE: b 8, h 12, 256-row shards, d 64, bf16 in, not
+    causal) against their plain versions, C and D writing fp32 gradients
+    (the d-64 grad_f32 instances the non-causal ring launches) from a
+    ring-like global lse (the rotation's merged with the other shard's).
+    Limits: fwd_ok for A, BWD_TOL_REL[bf16] and rounded_ok for C and D
+    (_check_flash_errs)."""
+    b, h, n, d = BERT_RING_SHAPE
+    q, k, v = flash_inputs(gen, b, h, h, n, d, torch.bfloat16)
+    do = flash_inputs(gen, b, h, h, n, d, torch.bfloat16)[0]
+    _q2, k2, v2 = flash_inputs(gen, b, h, h, n, d, torch.bfloat16)
+    _o, lse_other = att.flash_forward(q, k2, v2, causal=False)
+    _o, lse_rot = att.flash_forward(q, k, v, causal=False)
+    errs, variant = _flash_case(q, k, v, do, False, {},
+                                grad_dtype=torch.float32,
+                                lse_bwd=torch.logaddexp(lse_rot, lse_other))
+    where = "bert's ring rotation shape (b %d, h %d, %d rows, d %d)" % (
+        b, h, n, d)
+    _check_flash_errs(errs, variant, torch.bfloat16, where)
+    log("flash kernels at %s, fp32 gradients: %s" % (where, errs))
+    return {"shape": "b=%d h=%d shard=%d d=%d bf16, not causal, fp32 "
+            "gradients, ring-like global lse" % (b, h, n, d),
+            "errors": errs, "limit_bwd_rel": BWD_TOL_REL[torch.bfloat16]}
+
+
+def _single_record(steps):
+    return {"losses": [s["loss"] for s in steps],
+            "step_ms": [s["ms"] for s in steps],
+            "peak_bytes": [s["peak_bytes"] for s in steps],
+            "launches_per_step": steps[-1]["launches"]}
+
+
+def check_mesh_steps(name, per_rank, ref, want):
+    """The SP_STEPS steps of one mesh run, per rank _counted_step's
+    records after the starting digest, against the single-device losses
+    `ref`: finite losses, every rank's loss equal, the parameters
+    bit-identical across ranks before and after every step, each loss
+    within SP_LOSS_TOL_REL of the single device's, each step's launches
+    summed over the ranks equal to `want`. Returns the run's record."""
+    check(len({r[0]["digest"] for r in per_rank}) == 1,
+          "%s: ranks start from different parameters" % name)
+    losses = []
+    for i in range(SP_STEPS):
+        steps = [r[i + 1] for r in per_rank]
+        loss = steps[0]["loss"]
+        check(math.isfinite(loss), "%s: non-finite loss" % name)
+        check(all(s["loss"] == loss for s in steps),
+              "%s step %d: ranks disagree on the loss: %s"
+              % (name, i, [s["loss"] for s in steps]))
+        check(len({s["digest"] for s in steps}) == 1,
+              "%s step %d: parameters differ across ranks" % (name, i))
+        err = abs(loss - ref[i]) / abs(ref[i])
+        check(err <= SP_LOSS_TOL_REL,
+              "%s step %d: loss %.6f against the single device's %.6f"
+              % (name, i, loss, ref[i]))
+        summed = {}
+        for s in steps:
+            for k, n in s["launches"].items():
+                summed[k] = summed.get(k, 0) + n
+        check(summed == want, "%s step %d launched %s, not %s"
+              % (name, i, summed, want))
+        losses.append(loss)
+    rec = {"losses": losses, "single_device_losses": ref,
+           "loss_max_rel_err": max(abs(a - b) / abs(b)
+                                   for a, b in zip(losses, ref)),
+           "step_ms_by_rank": [[s["ms"] for s in r[1:]] for r in per_rank],
+           "peak_bytes_by_rank": [max(s["peak_bytes"] for s in r[1:])
+                                  for r in per_rank],
+           "launches_per_step": want}
+    log("%s: %s" % (name, json.dumps(rec)))
+    return rec
+
+
+def check_dp_sp(ranks, ref):
+    """The flagship through LocalExecutor on DP_SP_MESH (dp_sp_run):
+    check_mesh_steps against the single-device causal run, world rank 0
+    alone wrote, versions 1 and 2 on disk for every rank, and version 1
+    restored on every rank with step 2 replayed bit-identical (sha256 of
+    the parameters) to the uninterrupted run's step 2."""
+    runs = [r["dp_sp"] for r in ranks]
+    layers = FLAGSHIP["num_layers"]
+    rec = check_mesh_steps(
+        "dp_sp", [run["steps"] for run in runs], ref,
+        ring_launches(SP_CONFIGS["ring"], DP_SP_MESH["sp"],
+                      DP_SP_MESH["dp"], layers, SP_SEQ))
+    wrote = [run["wrote"] for run in runs]
+    check(wrote == [True] + [False] * (DP_SP - 1),
+          "dp_sp: checkpoint writers by rank %s, not rank 0 alone" % wrote)
+    want = ["version-%d" % v for v in range(1, SP_STEPS + 1)]
+    for r, run in enumerate(runs):
+        check(run["versions"] == want, "dp_sp rank %d sees %s, not %s"
+              % (r, run["versions"], want))
+        check(run["restored_version"] == 1
+              and run["restored_digest"] == run["steps"][1]["digest"],
+              "dp_sp rank %d: version 1 restored other parameters than "
+              "step 1 left" % r)
+        check(run["replayed_digest"] == run["steps"][2]["digest"],
+              "dp_sp rank %d: step 2 replayed from version 1 differs from "
+              "the uninterrupted step 2" % r)
+    rec.update(mesh=DP_SP_MESH, checkpoint_steps=1, writers=wrote,
+               versions=want, restored_version=1,
+               replay_bit_identical=True,
+               replayed_loss=runs[0]["replayed_loss"],
+               executor_losses=runs[0]["losses"])
+    return rec
 
 
 def train_sp(early=None):
@@ -4808,41 +5070,51 @@ def train_sp(early=None):
     heads, 8 layers, bf16 over fp32 params, AdamW 3e-4 / wd 0.01) at
     seq_len SP_SEQ, minibatch SP_BATCH, over SP rank processes sharing
     the card through a gloo group, SP_STEPS steps of each of SP_CONFIGS
-    (the causal ring, the ring with attn_window SP_WINDOW, Ulysses),
-    after the single-device port Trainer on the same global batch and
-    params (causal and windowed). Checks: finite losses, every rank's
-    loss equal, each loss within SP_LOSS_TOL_REL of the single-device
-    run's, the parameters bit-identical across ranks before and after
-    every step (sha256 of their bytes), each step's launches per kernel
-    variant summed over the ranks equal to sp_expected_launches, the
-    small fp32 windowed ring step equal card against CPU. Returns the
-    `sp` metrics and the launches of one windowed ring step by variant.
-    The step times are no sp speed figure: SP processes time-share one
-    card and exchange through host memory."""
+    (the causal ring, the ring with attn_window SP_WINDOW, Ulysses) and
+    of the causal ring with the fused head (FUSED_EXTRA), the flagship
+    through LocalExecutor on DP_SP_MESH with a checkpoint every step
+    (check_dp_sp) and BERT-base on DP_SP_MESH (phase 33's width and
+    minibatch, its non-causal ring at d 64). While the ranks run, this
+    process runs the single-device port Trainer on the same global
+    batches and params (causal, windowed, fused head, BERT-base). Before
+    them, check_bert_ring_rotation. Checks: check_mesh_steps of every
+    run against its single-device run (launches per kernel variant from
+    ring_launches), check_dp_sp, the small fp32 windowed ring step equal
+    card against CPU. Returns the `sp` metrics and the launches of one
+    windowed ring step by variant. The step times are no sp speed
+    figure: SP processes time-share one card (with the single-device
+    references) and exchange through host memory."""
     batch, params = sp_batch(), sp_params()
-    single = {}
-    for name, extra in (("causal", {}), ("window",
-                                         {"attn_window": SP_WINDOW})):
-        steps = sp_train(params, batch, extra)
-        single[name] = {"losses": [s["loss"] for s in steps],
-                        "step_ms": [s["ms"] for s in steps],
-                        "launches_per_step": steps[-1]["launches"]}
-        check(all(math.isfinite(x) for x in single[name]["losses"]),
-              "non-finite single-device loss at seq %d" % SP_SEQ)
-    del params
-    torch.cuda.empty_cache()
+    bert_ring = check_bert_ring_rotation(
+        torch.Generator().manual_seed(BERT_SP_SEED))
+
+    def references():
+        single = {}
+        for name, extra in (("causal", {}),
+                            ("window", {"attn_window": SP_WINDOW}),
+                            ("fused", {"fused_head": True})):
+            single[name] = _single_record(sp_train(params, batch, extra))
+        single["bert"] = _single_record(bert_sp_train())
+        for name, run in single.items():
+            check(all(math.isfinite(x) for x in run["losses"]),
+                  "non-finite single-device %s loss" % name)
+        return single
+
     handle = early or start_sp_ranks()
     try:
         ready_at = _gated_ready(handle["go"], ["rank%d" % r
                                                for r in range(SP)],
                                 handle["procs"], "the sp ranks")
         t0 = time.perf_counter()
-        ranks = run_sp_ranks(handle)
+        ranks, single = run_sp_ranks(handle, references)
         wall = time.perf_counter() - t0
     finally:
         close_sp_ranks(handle)
+    del params
+    torch.cuda.empty_cache()
     # each rank's seconds by stage, from its go (its gloo join, each
-    # configuration, the small step on the card and on the CPU)
+    # configuration, the small step on the card and on the CPU, the
+    # fused ring, dp_sp, bert_dp_sp)
     stage_s = []
     for r in ranks:
         st, prev, row = r["stages"], r["stages"]["go"], {}
@@ -4855,46 +5127,33 @@ def train_sp(early=None):
            "seq_len": SP_SEQ, "minibatch": SP_BATCH, "sp": SP,
            "shard_len": SP_LOCAL, "steps": SP_STEPS,
            "exchange": "gloo, host-staged (SP processes share one card)",
+           "loss": "the zoo's partial form (loss_parts) reduced over the "
+                   "mesh; no logits gather",
            "single_device": single, "ranks_wall_s": wall,
            "ranks_spawn_to_ready_s": ready_at - handle["t_spawn"],
            "rank_stage_s": stage_s, "configs": {}}
     for name in SP_CONFIGS:
-        per_rank = [r["configs"][name] for r in ranks]
-        check(len({r[0]["digest"] for r in per_rank}) == 1,
-              "sp %s: ranks start from different parameters" % name)
-        ref = single[SP_SINGLE[name]]["losses"]
-        want = sp_expected_launches(name)
-        losses = []
-        for i in range(SP_STEPS):
-            steps = [r[i + 1] for r in per_rank]
-            loss = steps[0]["loss"]
-            check(math.isfinite(loss), "sp %s: non-finite loss" % name)
-            check(all(s["loss"] == loss for s in steps),
-                  "sp %s step %d: ranks disagree on the loss: %s"
-                  % (name, i, [s["loss"] for s in steps]))
-            check(len({s["digest"] for s in steps}) == 1,
-                  "sp %s step %d: parameters differ across ranks"
-                  % (name, i))
-            err = abs(loss - ref[i]) / abs(ref[i])
-            check(err <= SP_LOSS_TOL_REL,
-                  "sp %s step %d: loss %.6f against the single device's "
-                  "%.6f" % (name, i, loss, ref[i]))
-            summed = {}
-            for s in steps:
-                for k, n in s["launches"].items():
-                    summed[k] = summed.get(k, 0) + n
-            check(summed == want, "sp %s step %d launched %s, not %s"
-                  % (name, i, summed, want))
-            losses.append(loss)
-        out["configs"][name] = {
-            **SP_CONFIGS[name], "losses": losses,
-            "single_device_losses": ref,
-            "loss_max_rel_err": max(abs(a - b) / abs(b)
-                                    for a, b in zip(losses, ref)),
-            "step_ms_by_rank": [[s["ms"] for s in r[1:]] for r in per_rank],
-            "launches_per_step": want,
-        }
-        log("sp %s: %s" % (name, json.dumps(out["configs"][name])))
+        out["configs"][name] = dict(SP_CONFIGS[name], **check_mesh_steps(
+            "sp %s" % name, [r["configs"][name] for r in ranks],
+            single[SP_SINGLE[name]]["losses"], sp_expected_launches(name)))
+    layers = FLAGSHIP["num_layers"]
+    fused = check_mesh_steps(
+        "fused_ring", [r["fused_ring"] for r in ranks],
+        single["fused"]["losses"],
+        ring_launches(FUSED_EXTRA, SP, 1, layers, SP_SEQ))
+    fused["peak_bytes_by_rank_unfused_ring"] = out["configs"]["ring"][
+        "peak_bytes_by_rank"]
+    out["fused_ring"] = dict(FUSED_EXTRA, **fused)
+    out["dp_sp"] = check_dp_sp(ranks, single["causal"]["losses"])
+    _model_def, bert_cfg, bert_batch = ENC_MODELS["bert"]
+    out["bert_dp_sp"] = dict(check_mesh_steps(
+        "bert_dp_sp", [r["bert_dp_sp"] for r in ranks],
+        single["bert"]["losses"],
+        ring_launches({"sp_impl": "ring"}, DP_SP_MESH["sp"],
+                      DP_SP_MESH["dp"], bert_cfg["num_layers"],
+                      bert_cfg["seq_len"], causal=False)),
+        model=bert_cfg, minibatch=bert_batch, mesh=DP_SP_MESH,
+        ring_rotation_check=bert_ring)
     small = []
     for r in ranks:
         gpu, cpu = r["small"]["cuda"], r["small"]["cpu"]
@@ -12806,6 +13065,12 @@ def main():
                 "serving"][entry["name"]]
         if entry["name"] in TRAINING_KERNELS:
             entry["launches_master_worker"] = mw_launches[entry["name"]]
+            # phase 20's mesh runs, one step summed over the four ranks:
+            # the flagship's causal ring on dp 2 x sp 2 and BERT-base's
+            # non-causal ring at d 64 (C and D: the grad_f32 instances)
+            for run in ("dp_sp", "bert_dp_sp"):
+                entry["launches_%s_per_step" % run] = sp[run][
+                    "launches_per_step"].get(entry["name"], 0)
     for name, entry in (("paged_decode", kernels[1]),
                         ("paged_decode_tile", kernels[2])):
         check(entry["name"] == name, "kernels[%d] is %s" % (

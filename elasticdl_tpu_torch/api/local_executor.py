@@ -3,8 +3,10 @@ zoo spec, the counterpart of elasticdl_tpu/api/local_executor.py.
 
 It drives the same in-memory TaskDispatcher the master uses (tasks stay
 the unit of work) and the port's Trainer on one device, or on this rank
-of an sp mesh (`mesh`, as the JAX executor passes its mesh to the
-Trainer; every rank runs its own executor over the same data).
+of a dp x sp mesh (`mesh`, as the JAX executor passes its mesh to the
+Trainer; every rank runs its own executor and its own deterministic
+dispatcher over the same data, so every rank reads the same global
+batches).
 
 Crash recovery, as in the JAX executor:
 
@@ -16,6 +18,11 @@ Crash recovery, as in the JAX executor:
 * `job_state_dir` journals the dispatcher's task lifecycle
   (master/state_store.py), so a killed run resumes where it died and
   retrains no completed range;
+* under a mesh, world rank 0 alone writes checkpoints (the whole
+  TrainState, as on one device) and prunes them, every rank waiting at
+  the mesh's barrier after a save; every rank restores the same
+  version; rank 0 alone journals the job state, which every other rank
+  reads (`JobStateReader`) before rank 0 opens it;
 * `fault_injector` (or EDL_FAULT_SPEC) intercepts the dispatch boundary
   (`local_get_task`, `local_report`) for drills.
 
@@ -29,10 +36,6 @@ A spec that declares `host_embeddings()` trains its tables in the
 host-spill tier (embedding/host_bridge.py `attach_from_spec`, native
 stores): every checkpoint carries the engines' state beside the
 TrainState, and a restore reads both from one version.
-
-Checkpoints under an sp mesh are not ported (every rank is a process of
-its own; writing from many ranks comes with the rest of the parallel
-port) and raise.
 """
 
 import logging
@@ -50,7 +53,10 @@ from elasticdl_tpu_torch.embedding.host_bridge import (
     attach_from_spec,
     restore_with_host_state,
 )
-from elasticdl_tpu_torch.master.state_store import JobStateStore
+from elasticdl_tpu_torch.master.state_store import (
+    JobStateReader,
+    JobStateStore,
+)
 from elasticdl_tpu_torch.master.task_dispatcher import (
     Task,
     TaskDispatcher,
@@ -75,10 +81,6 @@ class LocalExecutor(object):
                  grad_accum_steps=1, trainable_pattern=None,
                  job_state_dir=None, fault_injector=None, device="cuda",
                  mesh=None):
-        if mesh is not None and (checkpoint_dir or checkpoint_dir_for_init):
-            raise NotImplementedError(
-                "LocalExecutor: checkpoints under an sp mesh are not "
-                "ported (each rank is a process of its own)")
         self.spec = model_spec
         self.minibatch_size = minibatch_size
         self.num_epochs = num_epochs
@@ -114,16 +116,38 @@ class LocalExecutor(object):
         return create_data_reader(data_origin, self.records_per_task,
                                   **dict(self._reader_params))
 
+    def _mesh(self):
+        """The trainer's mesh when it spans more than one process."""
+        mesh = self.trainer.mesh
+        return mesh if mesh is not None and mesh.world_size > 1 else None
+
     def _make_dispatcher(self):
         def shards_of(data):
             return self._reader(data).create_shards() if data else {}
 
-        state_store = (JobStateStore(self._job_state_dir)
-                       if self._job_state_dir else None)
-        return TaskDispatcher(
-            shards_of(self.training_data), shards_of(self.validation_data),
-            shards_of(self.prediction_data), self.records_per_task,
-            self.num_epochs, state_store=state_store)
+        def make(state_store):
+            return TaskDispatcher(
+                shards_of(self.training_data),
+                shards_of(self.validation_data),
+                shards_of(self.prediction_data), self.records_per_task,
+                self.num_epochs, state_store=state_store)
+
+        mesh = self._mesh()
+        if not self._job_state_dir:
+            return make(None)
+        if mesh is None:
+            return make(JobStateStore(self._job_state_dir))
+        # the other ranks read the state once rank 0 has stopped writing
+        # it (its previous run's last events) and before rank 0 opens
+        # (and compacts) it, so all restore the same dispatcher
+        dispatcher = None
+        mesh.barrier()
+        if mesh.world_rank != 0:
+            dispatcher = make(JobStateReader(self._job_state_dir))
+        mesh.barrier()
+        if mesh.world_rank == 0:
+            dispatcher = make(JobStateStore(self._job_state_dir))
+        return dispatcher
 
     def _task_dataset(self, reader, task, mode):
         ds = Dataset.from_generator(lambda: reader.read_records(task))
@@ -142,6 +166,10 @@ class LocalExecutor(object):
             self.restored_version = version
             logger.info("Restored model version %d from %s", version,
                         self._checkpoint_dir_for_init)
+            if self._mesh() is not None:
+                # no rank trains (and rank 0 saves and prunes) before
+                # every rank has read the version
+                self._mesh().barrier()
 
     def _intercept(self, hook):
         if self._fault_injector is not None:

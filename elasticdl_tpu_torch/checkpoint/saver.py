@@ -590,6 +590,12 @@ class CheckpointSaver(object):
 
     `last_timing` holds the last save's seconds: `device_to_host_s` (on
     the caller), `serialize_sha256_s` and `write_rename_s`, and `bytes`.
+
+    Under a mesh (`trainer.mesh` over more than one process, every rank
+    holding the same replicated state) world rank 0 alone (`writer`)
+    writes each version, the whole TrainState as on one device, and
+    alone prunes; every rank then waits at the mesh's barrier, so no
+    rank reads a half-written version.
     """
 
     def __init__(self, trainer, checkpoint_dir, checkpoint_steps=0,
@@ -614,6 +620,9 @@ class CheckpointSaver(object):
             raise ValueError("num_shards must be positive")
         self._last_saved_version = -1
         self.last_timing = {}
+        mesh = getattr(trainer, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.writer = self._mesh is None or self._mesh.world_rank == 0
 
     def is_enabled(self):
         return bool(self.checkpoint_dir) and self.checkpoint_steps > 0
@@ -645,8 +654,20 @@ class CheckpointSaver(object):
 
     def save(self, state, version):
         """Write version-<V> atomically (temp dir + rename), then prune.
-        With async_save, return once the host copy is taken."""
+        With async_save, return once the host copy is taken; under a
+        mesh, once the version is on disk and every rank is at the
+        barrier."""
         version = int(version)
+        if self._mesh is not None:
+            if self.writer:
+                self._save(state, version)
+                self.wait()
+            self._last_saved_version = version
+            self._mesh.barrier()
+            return self._version_dir(version)
+        return self._save(state, version)
+
+    def _save(self, state, version):
         extra = dict(self.extra_state_fn()) if self.extra_state_fn else {}
         t0 = time.perf_counter()
         flat = flatten_state(self.trainer, state)

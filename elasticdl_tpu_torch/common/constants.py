@@ -53,7 +53,7 @@ class MeshAxis(object):
     """Canonical mesh axis names, in order (the JAX package's MeshAxis):
     dp data, fsdp sharded-parameter data, ep expert / embedding shard,
     tp tensor, sp sequence / context (ring attention, Ulysses), pp
-    pipeline. The port's mesh runs sp only."""
+    pipeline. The port's mesh runs dp and sp."""
 
     DP = "dp"
     FSDP = "fsdp"

@@ -12,7 +12,10 @@ exports, by name:
     dataset_fn(dataset, mode, metadata) -> dataset
     eval_metrics_fn() -> {metric_name: fn(labels, predictions)}
 
-plus optionally `callbacks()`, `flax_param_path(param_name) -> the
+plus optionally `loss_parts(labels, predictions, sample_weights, mesh)
+-> (numerator, denominator)`, the partial form of `loss` a Trainer
+under a dp x sp mesh reduces over the ranks (training/trainer.py),
+`callbacks()`, `flax_param_path(param_name) -> the
 flax path` (what a Trainer `trainable_pattern` regex matches and what
 names the parameter in a checkpoint), `PredictionOutputsProcessor`
 (worker/prediction_outputs_processor.py), `custom_data_reader` and
@@ -50,7 +53,7 @@ class ModelSpec(object):
     def __init__(self, model_fn, dataset_fn, loss, optimizer,
                  eval_metrics_fn, callbacks_fn=None, flax_param_path=None,
                  prediction_outputs_processor=None, custom_data_reader=None,
-                 host_embeddings_fn=None):
+                 host_embeddings_fn=None, loss_parts=None):
         self.model_fn = model_fn
         self.dataset_fn = dataset_fn
         self.loss = loss
@@ -61,6 +64,7 @@ class ModelSpec(object):
         self.prediction_outputs_processor = prediction_outputs_processor
         self.custom_data_reader = custom_data_reader
         self.host_embeddings_fn = host_embeddings_fn
+        self.loss_parts = loss_parts
 
     def create_model(self, model_params_str="", **overrides):
         """custom_model(**params, **overrides): `overrides` carries what
@@ -96,6 +100,7 @@ def _spec_from_dict(d, model_name):
         prediction_outputs_processor=d.get("PredictionOutputsProcessor"),
         custom_data_reader=d.get("custom_data_reader"),
         host_embeddings_fn=d.get("host_embeddings"),
+        loss_parts=d.get("loss_parts"),
     )
 
 

@@ -19,6 +19,9 @@ interrupt) is trimmed and skipped; corruption earlier raises.
 
 The journal line format is the TaskDispatcher's (snapshot()/restore());
 this module handles durability, atomicity and replay tolerance.
+`JobStateReader` reads a job state dir and writes nothing: under a mesh
+world rank 0 alone journals, and every other rank restores its own
+dispatcher from the state rank 0 restores from.
 """
 
 import json
@@ -74,12 +77,7 @@ class JobStateStore(object):
                 snapshot = json.load(f)
         events = []
         if os.path.exists(self._journal_path):
-            self._trim_torn_tail()
-            # binary read: a torn tail of raw block garbage must not
-            # blow up the WHOLE read with UnicodeDecodeError before
-            # per-line tolerance gets a chance
-            with open(self._journal_path, "rb") as f:
-                lines = f.readlines()
+            lines = self._journal_lines()
             for i, raw in enumerate(lines):
                 raw = raw.strip()
                 if not raw:
@@ -96,6 +94,15 @@ class JobStateStore(object):
                     else:
                         raise
         return snapshot, events
+
+    def _journal_lines(self):
+        """The journal's lines after the torn tail's trim."""
+        self._trim_torn_tail()
+        # binary read: a torn tail of raw block garbage must not blow up
+        # the WHOLE read with UnicodeDecodeError before per-line
+        # tolerance gets a chance
+        with open(self._journal_path, "rb") as f:
+            return f.readlines()
 
     # ------------------------------------------------------------ writing
 
@@ -199,3 +206,36 @@ class JobStateStore(object):
                 return int(f.read().strip() or 0)
         except (OSError, ValueError):
             return 0
+
+
+class JobStateReader(JobStateStore):
+    """A job state dir read as JobStateStore reads it, and never written:
+    no restart is counted, nothing is trimmed, journaled or compacted.
+    A newline-less journal tail is left out, as the writer's trim drops
+    it, so a reader restores the state a JobStateStore over the same
+    files restores."""
+
+    def __init__(self, job_state_dir):
+        self._dir = job_state_dir
+        self._journal_path = os.path.join(job_state_dir, JOURNAL_FILE)
+        self._snapshot_path = os.path.join(job_state_dir, SNAPSHOT_FILE)
+        self._had_state = (os.path.exists(self._journal_path)
+                           or os.path.exists(self._snapshot_path))
+        self._journal = None
+        self.journal_appends = self.compactions = self.torn_lines = 0
+
+    def _journal_lines(self):
+        with open(self._journal_path, "rb") as f:
+            lines = f.readlines()
+        if lines and not lines[-1].endswith(b"\n"):
+            lines.pop()
+        return lines
+
+    def append(self, event):
+        return False
+
+    def write_snapshot(self, state):
+        pass
+
+    def mark_job_complete(self):
+        pass

@@ -14,9 +14,14 @@ to fp32. Matmul and embedding weights are used in the compute dtype
 (`dtype`), norms in fp32, parameters kept in fp32, as in transformer_lm.
 
 The model is bidirectional: `causal` is a class attribute, False, which
-api/generation.py reads to refuse decoding it. Under an sp mesh it
-raises: bert under the `tp` and `sp` meshes is not ported (ROADMAP
-Queue 1 item 7).
+api/generation.py reads to refuse decoding it. Under an sp mesh (the
+Trainer enters it) the forward takes this rank's sequence shard, as
+transformer_lm's does: positions are global (sp_rank * l_local + i, or
+the packed positions of the whole row, from the all-gathered segment
+ids, sliced, since a document can cross a shard boundary), and the
+Blocks' attention runs the non-causal ring. `loss_parts` is the loss's
+partial form the Trainer reduces over the mesh. Under a tp mesh it
+raises (ROADMAP Queue 1 item 7).
 
 dataset_fn masks each record statically, seeded by the crc32 of its
 tokens (15% targets: 80% [MASK], 10% a random token, 10% kept), with
@@ -51,6 +56,7 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (
 )
 from elasticdl_tpu_torch.ops.attention import packed_positions
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
+from elasticdl_tpu_torch.parallel.mesh import current_mesh
 from elasticdl_tpu_torch.ops.losses import softmax_xent
 from elasticdl_tpu_torch.training.optimizers import adamw
 
@@ -100,23 +106,31 @@ class BertEncoder(nn.Module):
 
     def forward(self, features, training=False):
         """features {"tokens": [b, l], optionally "segment_ids": [b, l]}
-        -> fp32 MLM logits [b, l, vocab_size]."""
+        -> fp32 MLM logits [b, l, vocab_size]. Under an sp mesh the
+        features are this rank's sequence shard (see the module
+        docstring)."""
         del training  # no dropout in the encoder
-        refuse_mesh("bert")
+        refuse_mesh("bert", ("tp",))
         tokens = torch.as_tensor(features["tokens"],
                                  device=self.device).long()
         l = tokens.shape[1]
-        if l > self.seq_len:
+        mesh = current_mesh()
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        sp, start = (1, 0) if mesh is None else (mesh.size, mesh.rank * l)
+        if l * sp > self.seq_len:
             raise ValueError("length %d exceeds seq_len %d"
-                             % (l, self.seq_len))
+                             % (l * sp, self.seq_len))
         segments = features.get("segment_ids")
         if segments is None:
-            positions = torch.arange(l, device=self.device)
+            positions = torch.arange(start, start + l, device=self.device)
             wpe_idx = positions[None]
         else:
             segments = torch.as_tensor(segments, device=self.device).to(
                 torch.int32)
-            positions = wpe_idx = packed_positions(segments).long()
+            full = segments if mesh is None else mesh.all_gather(segments, 1)
+            positions = wpe_idx = packed_positions(full)[
+                :, start:start + l].long()
         x = (self.wte(tokens).to(self.dtype)
              + self.wpe(wpe_idx).to(self.dtype))
         for blk in self.blocks:
@@ -131,10 +145,12 @@ def custom_model(**kwargs):
     return BertEncoder(**resolve_dtype(kwargs, "bert"))
 
 
-def loss(labels, predictions, sample_weights=None):
-    """Cross entropy over the masked positions only (labels ==
-    IGNORE_LABEL elsewhere); with `sample_weights` [b], each row's
-    positions weighted by its row's weight."""
+def loss_parts(labels, predictions, sample_weights=None, mesh=None):
+    """The loss in its partial form: (sum of ce * mask * w, sum of mask
+    * w), whose quotient is `loss`. Under `mesh` (a dp x sp Mesh) the
+    labels and logits are this rank's rows and sequence slice, and the
+    denominator (which does not depend on the parameters) is summed
+    over the world."""
     labels = torch.as_tensor(labels, device=predictions.device)
     mask = (labels != IGNORE_LABEL).float()
     ce = softmax_xent(predictions, labels.clamp(min=0)) * mask
@@ -142,7 +158,18 @@ def loss(labels, predictions, sample_weights=None):
         w = torch.as_tensor(sample_weights, device=predictions.device,
                             dtype=ce.dtype)[:, None]
         ce, mask = ce * w, mask * w
-    return ce.sum() / mask.sum().clamp(min=1.0)
+    den = mask.sum()
+    if mesh is not None:
+        den = mesh.all_reduce_sum(den.reshape(1), "world")[0]
+    return ce.sum(), den.clamp(min=1.0)
+
+
+def loss(labels, predictions, sample_weights=None):
+    """Cross entropy over the masked positions only (labels ==
+    IGNORE_LABEL elsewhere); with `sample_weights` [b], each row's
+    positions weighted by its row's weight."""
+    num, den = loss_parts(labels, predictions, sample_weights)
+    return num / den
 
 
 def optimizer(lr=1e-4):

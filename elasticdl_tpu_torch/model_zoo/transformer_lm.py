@@ -45,7 +45,9 @@ document can cross a shard boundary), grouped-query kv expands to the
 full head count, and attention runs through ring attention or Ulysses
 by `sp_impl` ("ring" | "ulysses", parallel/context_parallel.py), as the
 flax model's attention routes under an sp mesh. Prefill and decode stay
-single-shard, as in flax; `fused_head` under sp is not ported.
+single-shard, as in flax. `fused_head` under sp hands the loss this
+rank's hidden rows, and `loss_parts` (the partial form of `loss` the
+Trainer reduces over a dp x sp mesh) runs the chunked head on them.
 
 With `kv_cache_dtype="int8"` the rows that reach the pool are symmetric
 per-row int8 (`kv_quantize_rows`), quantized once where they are
@@ -132,7 +134,7 @@ from elasticdl_tpu_torch.parallel.context_parallel import (
     ring_attention_local,
     ulysses_attention_local,
 )
-from elasticdl_tpu_torch.parallel.mesh import current_mesh
+from elasticdl_tpu_torch.parallel.mesh import MESH_ITEM, current_mesh
 from elasticdl_tpu_torch.training.optimizers import adamw
 
 _DTYPES = {
@@ -471,18 +473,16 @@ class Block(nn.Module):
         return self._mlp(x + y)
 
 
-# the ROADMAP item that bert and vit under a tp or sp mesh wait for
-MESH_ITEM = "ROADMAP Queue 1 item 7"
-
-
-def refuse_mesh(family):
-    """The bidirectional encoders (bert, vit) run on one device: under a
-    mesh they raise."""
+def refuse_mesh(family, axes):
+    """Raise when the current mesh sets one of `axes` above 1: bert
+    runs under dp and sp but not tp, vit under no mesh axis."""
     mesh = current_mesh()
-    if mesh is not None and mesh.size > 1:
+    shape = {} if mesh is None else mesh.shape
+    over = {a: shape[a] for a in axes if shape.get(a, 1) > 1}
+    if over:
         raise NotImplementedError(
-            "%s under a mesh (tp or sp) is not ported (%s)"
-            % (family, MESH_ITEM))
+            "%s under a mesh with %s is not ported (%s)"
+            % (family, over, MESH_ITEM))
 
 
 def encoder_blocks(module, embed_dim, num_heads, num_layers, window=0,
@@ -652,9 +652,6 @@ class TransformerLM(nn.Module):
         mesh = _sp_mesh()
         sp, start = (1, 0) if mesh is None else (mesh.size, mesh.rank * l)
         self._check_length(l * sp)
-        if mesh is not None and self.fused_head and training:
-            raise NotImplementedError(
-                "fused_head under an sp mesh is not ported (ROADMAP)")
         segments = features.get("segment_ids")
         if segments is None:
             positions = torch.arange(start, start + l, device=tokens.device)
@@ -755,12 +752,14 @@ def custom_model(**kwargs):
     return TransformerLM(**resolve_dtype(kwargs, "transformer_lm"))
 
 
-def loss(labels, predictions, sample_weights=None):
-    """The zoo loss (model_zoo/transformer_lm/transformer_lm.py:770-794):
-    negative labels (-100 marks) are ignored, each row is the mean of its
-    valid tokens' cross entropy, rows are weighted by
-    sum(ce * w) / max(sum(w), 1). `predictions` are fp32 logits or the
-    fused {"lm_hidden", "lm_head_kernel"} dict."""
+def loss_parts(labels, predictions, sample_weights=None, mesh=None):
+    """The zoo loss in its partial form: (numerator, denominator), whose
+    quotient is `loss`. Under `mesh` (a dp x sp Mesh) `labels` and
+    `predictions` are this rank's rows and sequence slice: each row's
+    valid-token count is summed over sp and the row weights over dp (the
+    denominator and the counts do not depend on the parameters), so the
+    numerators summed over the world, over the denominator, are the
+    global batch's loss."""
     fused = isinstance(predictions, dict) and "lm_hidden" in predictions
     device = (predictions["lm_hidden"] if fused else predictions).device
     labels = torch.as_tensor(labels, device=device)
@@ -772,11 +771,31 @@ def loss(labels, predictions, sample_weights=None):
     else:
         tok_ce = softmax_xent(predictions, safe)
     tok_ce = torch.where(valid, tok_ce, torch.zeros_like(tok_ce))
-    ce = tok_ce.sum(-1) / valid.sum(-1).clamp(min=1)
+    count = valid.sum(-1)
     if sample_weights is None:
-        return ce.mean()
-    w = torch.as_tensor(sample_weights, device=device, dtype=ce.dtype)
-    return (ce * w).sum() / w.sum().clamp(min=1.0)
+        w = torch.ones(labels.shape[0], device=device, dtype=tok_ce.dtype)
+    else:
+        w = torch.as_tensor(sample_weights, device=device,
+                            dtype=tok_ce.dtype)
+    total = w.sum()
+    if mesh is not None:
+        count = mesh.all_reduce_sum(count, "sp")
+        total = mesh.all_reduce_sum(total.reshape(1), "dp")[0]
+    ce = tok_ce.sum(-1) / count.clamp(min=1)
+    if sample_weights is None:
+        return ce.sum(), total
+    return (ce * w).sum(), total.clamp(min=1.0)
+
+
+def loss(labels, predictions, sample_weights=None):
+    """The zoo loss (model_zoo/transformer_lm/transformer_lm.py:770-794):
+    negative labels (-100 marks) are ignored, each row is the mean of its
+    valid tokens' cross entropy, rows are weighted by
+    sum(ce * w) / max(sum(w), 1) (the mean without weights).
+    `predictions` are fp32 logits or the fused {"lm_hidden",
+    "lm_head_kernel"} dict."""
+    num, den = loss_parts(labels, predictions, sample_weights)
+    return num / den
 
 
 def optimizer(lr=3e-4):

@@ -23,6 +23,7 @@ from elasticdl_tpu_torch.model_zoo.transformer_lm import (  # noqa: F401
     TransformerLM,
     flax_param_path,
     loss,
+    loss_parts,
     optimizer,
     resolve_dtype,
 )

@@ -11,15 +11,17 @@ the causal mask; head_dim 64 at ViT-Base), `ln_f`, a mean over the
 patches (no CLS token) and the `head`, the logits cast to fp32. The
 image is cast to the compute dtype (`dtype`) before the patch
 embedding; norms run in fp32 and parameters stay fp32, as in
-transformer_lm. The geometry checks keep flax's ValueErrors; under an
-sp mesh it raises (ROADMAP Queue 1 item 7). adamw with weight decay
-0.05.
+transformer_lm. The geometry checks keep flax's ValueErrors; under a
+mesh with any axis above 1 it raises (its sequence is made inside the
+model from image rows, and its mean-pool would need a sum over sp;
+ROADMAP Queue 1 item 7). adamw with weight decay 0.05.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.common.constants import MeshAxis
 from elasticdl_tpu_torch.convert import zoo_flax_param_path
 from elasticdl_tpu_torch.model_zoo import image_spec
 from elasticdl_tpu_torch.model_zoo.flax_layers import (
@@ -83,7 +85,7 @@ class ViT(nn.Module):
     def forward(self, features, training=False):
         """features {"image": [b, s, s, c] or [b, s * s * c]} -> fp32
         logits [b, num_classes]."""
-        refuse_mesh("vit")
+        refuse_mesh("vit", MeshAxis.ALL)
         x = torch.as_tensor(features["image"], device=self.device)
         b = x.shape[0]
         s, p, c = self.image_size, self.patch_size, self.channels

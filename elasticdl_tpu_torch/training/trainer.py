@@ -57,19 +57,30 @@ Semantics kept from the JAX Trainer:
   step. The masks are torch's bits, not `jax.random`'s; a model without
   Dropout layers is untouched.
 
-Sequence parallelism (`mesh` from `parallel.mesh.build_mesh({"sp":
-n})`, one process per sp rank): every rank is given the same global
-batch and takes its own sequence slice of the [b, l] features (l % sp ==
-0). The model runs inside the mesh, so its attention rings (or
-all-to-alls) the shards; parameters are replicated. The loss is not a
-mean of shard losses (the zoo loss averages each row over its valid
-tokens, and -100 labels split unevenly across shards), so the step
-all-gathers the detached local logits, runs the spec's loss on the
-whole sequence through a leaf tensor, and back-propagates this rank's
-slice of that leaf's gradient into the local logits. After backward the
-gradients are summed over the sp ranks, so every rank applies the same
-update and the parameters stay identical across ranks. The row tier
-does not run under sp.
+Meshes (`mesh` from `parallel.mesh.build_mesh({"dp": m, "sp": n})`,
+one process per rank): every rank is given the same global batch. Dp
+rank d takes rows [d b / m, (d + 1) b / m) (b % m == 0, as JAX's batch
+sharding asks), so the padded rows of a partial batch all fall on the
+last dp rank, and sp rank r takes its sequence slice of those rows'
+[b, l] features and labels (l % n == 0). The model runs inside the
+mesh, so its attention rings (or all-to-alls) the sp shards;
+parameters are replicated. The loss is the global batch's, not a mean
+of shard losses (the zoo losses average over rows' valid tokens or
+masked positions, which split unevenly across shards), so the step
+asks the spec's partial form, `loss_parts(labels, predictions,
+weights, mesh)`: a local numerator and a denominator already reduced
+over the mesh (it does not depend on the parameters). Each rank
+back-propagates its numerator over the denominator, and the step's
+loss is the numerators' sum over the world over the denominator, the
+same on every rank. A spec without the partial form runs under sp
+alone: the step all-gathers the detached local logits, runs the spec's
+loss on the whole sequence through a leaf tensor and back-propagates
+this rank's slice of that leaf's gradient. After backward the
+gradients are summed over the world, so every rank applies the same
+update and the parameters stay identical across ranks. `forward` and
+`evaluate_batch` return the whole global batch's outputs on every rank.
+The row tier, the host tier and the `*_assembled` entry points do not
+run under a mesh (ROADMAP Queue 1 item 7).
 
 The host-spill tier (`attach_host_embeddings`, before the first step;
 embedding/host_bridge.py): `train_step` and `forward` pull each batch's
@@ -82,11 +93,8 @@ the host tier). Under accumulation each microbatch stages its row
 gradients / k and the boundary applies the cycle (`stage` /
 `apply_staged`). A failed apply or stage is not retried: the rows miss
 that update, and `tier_health` counts the failed cycles and dropped row
-updates. The tier does not run under sp, nor with a `trainable_pattern`
-(the engines would train the tables anyway).
-
-Meshes with axes other than sp (SPMD) and the `*_assembled` entry
-points are not ported yet and raise.
+updates. The tier does not run under a mesh, nor with a
+`trainable_pattern` (the engines would train the tables anyway).
 """
 
 import contextlib
@@ -115,7 +123,7 @@ from elasticdl_tpu_torch.model_zoo.flax_layers import (
     model_state_buffers,
 )
 from elasticdl_tpu_torch.ops.dispatch import resolve_device
-from elasticdl_tpu_torch.parallel.mesh import Mesh
+from elasticdl_tpu_torch.parallel.mesh import MESH_ITEM, WORLD, Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -173,7 +181,7 @@ def _split_label(batch):
 
 class Trainer(object):
     """Owns the model and optimizer of a port ModelSpec on one device,
-    or on this rank of an sp mesh."""
+    or on this rank of a dp x sp mesh."""
 
     def __init__(self, model_spec, mesh=None, model_params="", seed=0,
                  callbacks=None, grad_accum_steps=1, trainable_pattern=None,
@@ -181,14 +189,14 @@ class Trainer(object):
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise NotImplementedError(
-                    "Trainer: only the sp mesh of parallel.mesh.build_mesh "
-                    "is ported (SPMD meshes are not), got %r" % (mesh,))
+                    "Trainer: only the dp x sp mesh of parallel.mesh."
+                    "build_mesh is ported (%s), got %r" % (MESH_ITEM, mesh))
             others = {a: n for a, n in mesh.shape.items()
-                      if a != "sp" and n > 1}
+                      if a not in ("dp", "sp") and n > 1}
             if others:
                 raise NotImplementedError(
-                    "Trainer: mesh axes %s (SPMD) are not ported; the sp "
-                    "axis only" % others)
+                    "Trainer: mesh axes %s are not ported; dp and sp only "
+                    "(%s)" % (others, MESH_ITEM))
         self.mesh = mesh
         self.spec = model_spec
         self.seed = seed
@@ -238,9 +246,10 @@ class Trainer(object):
         if self._ran:
             raise RuntimeError(
                 "attach_host_embeddings must precede the first step")
-        if manager is not None and self._sp() > 1:
+        if manager is not None and self._world() > 1:
             raise NotImplementedError(
-                "the host-spill tier does not run under an sp mesh")
+                "the host-spill tier does not run under a mesh (%s)"
+                % MESH_ITEM)
         self._host_manager = manager
         return self
 
@@ -374,10 +383,10 @@ class Trainer(object):
                 % (getattr(factory, "row_rule_missing", None)
                    or "the factory carries none (training.optimizers.sgd "
                    "and adam do)"))
-        if taps and self._sp() > 1:
+        if taps and self._world() > 1:
             raise NotImplementedError(
-                "the sparse-row tier does not run under an sp mesh; set "
-                "sparse_grads=False")
+                "the sparse-row tier does not run under a mesh (%s); set "
+                "sparse_grads=False" % MESH_ITEM)
         self._taps = taps
         named = dict(self.model.named_parameters())
         dense = [n for n in named if n in train and n not in taps]
@@ -418,10 +427,10 @@ class Trainer(object):
             return self.spec.loss(labels, predictions, weights)
         return self.spec.loss(labels, predictions)
 
-    # ------------------------------------------------------ sp (mesh)
+    # ---------------------------------------------------- dp x sp (mesh)
 
-    def _sp(self):
-        return 1 if self.mesh is None else self.mesh.size
+    def _world(self):
+        return 1 if self.mesh is None else self.mesh.world_size
 
     def _dropout_scope(self, step):
         if not self._has_dropout:
@@ -432,6 +441,21 @@ class Trainer(object):
     def _mesh_scope(self):
         return (self.mesh if self.mesh is not None
                 else contextlib.nullcontext())
+
+    def _dp_rows(self, x):
+        """This dp rank's rows of `x` (a [b, ...] array or a dict of
+        them; None stays None)."""
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: self._dp_rows(v) for k, v in x.items()}
+        x = np.asarray(x)
+        n, d = self.mesh.dp_size, self.mesh.dp_rank
+        if x.shape[0] % n:
+            raise ValueError("batch size %d is not a multiple of dp = %d"
+                             % (x.shape[0], n))
+        part = x.shape[0] // n
+        return x[d * part:(d + 1) * part]
 
     def _sp_slice(self, features):
         """This rank's sequence slice of every [b, l] feature, and l."""
@@ -453,13 +477,45 @@ class Trainer(object):
             local[key] = x[:, r * part:(r + 1) * part]
         return local, length
 
-    def _sp_loss_backward(self, local_logits, labels, weights, length):
-        """The loss over the whole sequence from every rank's logits,
-        and this rank's share of its gradient back-propagated (see the
-        module docstring). Returns the loss."""
+    def _local_batch(self, features, labels, weights):
+        """This rank's share of a global batch: its dp rows, then its
+        sp slice of the features (and of [b, l] labels when the spec
+        has a partial loss). Returns (features, labels, weights,
+        length)."""
+        length = None
+        if self.mesh.dp_size > 1:
+            features = self._dp_rows(features)
+            labels, weights = self._dp_rows(labels), self._dp_rows(weights)
+        if self.mesh.size > 1:
+            features, length = self._sp_slice(features)
+            if self.spec.loss_parts is not None and labels is not None:
+                labels, _ = self._sp_slice({"labels": labels})
+                labels = labels["labels"]
+        return features, labels, weights, length
+
+    def _mesh_loss_backward(self, local_preds, labels, weights, length):
+        """The global batch's loss from the spec's partial form (or, for
+        a spec without one under sp alone, from the all-gathered
+        logits), and this rank's share of its gradient back-propagated
+        (see the module docstring). Returns the loss."""
+        mesh = self.mesh
+        parts = self.spec.loss_parts
+        if parts is None:
+            return self._sp_gather_loss_backward(local_preds, labels,
+                                                 weights, length)
+        num, den = parts(labels, local_preds, weights, mesh)
+        if num.requires_grad:
+            (num / den).backward()
+        total = mesh.all_reduce_sum(num.detach().reshape(1), WORLD)[0]
+        return total / den
+
+    def _sp_gather_loss_backward(self, local_logits, labels, weights,
+                                 length):
+        """A spec without `loss_parts` under sp alone: the loss over the
+        whole sequence from every rank's gathered logits."""
         if not isinstance(local_logits, torch.Tensor):
             raise NotImplementedError(
-                "an sp step takes logits; fused_head under sp is not ported")
+                "an sp step of a spec without loss_parts takes logits")
         full = self.mesh.all_gather(local_logits.detach(), 1)
         full.requires_grad_()
         loss = self._compute_loss(labels, full, weights)
@@ -470,11 +526,11 @@ class Trainer(object):
             local_logits.backward(full.grad[:, start:start + part])
         return loss
 
-    def _sp_sum_grads(self, params):
-        """Sum each parameter's gradient over the sp ranks, in one
-        flat exchange."""
+    def _sum_grads(self, params):
+        """Sum each parameter's gradient over the world, in one flat
+        exchange."""
         flat = torch.cat([p.grad.reshape(-1).float() for p in params])
-        flat = self.mesh.all_reduce_sum(flat)
+        flat = self.mesh.all_reduce_sum(flat, WORLD)
         offset = 0
         for p in params:
             n = p.grad.numel()
@@ -500,9 +556,14 @@ class Trainer(object):
         if host:
             scale = self._host_lr_scale(pre_step)
             features = host.prepare(features)
-        sp = self._sp()
-        if sp > 1:
-            features, length = self._sp_slice(features)
+        sharded = self._world() > 1
+        if sharded:
+            if self.mesh.dp_size > 1 and self.spec.loss_parts is None:
+                raise NotImplementedError(
+                    "the dp axis needs the spec's partial loss "
+                    "(loss_parts); this spec has none (%s)" % MESH_ITEM)
+            features, labels, weights, length = self._local_batch(
+                features, labels, weights)
         features = self._features(features)
         host_rows = {}
         if host:
@@ -513,8 +574,8 @@ class Trainer(object):
             preds = self.model(features, training=True)
         labels, weights = self._tensor(labels), self._tensor(weights)
         trainable = opt.trainable()
-        if sp > 1:
-            loss = self._sp_loss_backward(preds, labels, weights, length)
+        if sharded:
+            loss = self._mesh_loss_backward(preds, labels, weights, length)
         else:
             loss = self._compute_loss(labels, preds, weights)
             if loss.requires_grad:
@@ -522,8 +583,8 @@ class Trainer(object):
         for p in trainable:
             if p.grad is None:  # unused by this batch: optax sees zeros
                 p.grad = torch.zeros_like(p)
-        if sp > 1 and trainable:
-            self._sp_sum_grads(trainable)
+        if sharded and trainable:
+            self._sum_grads(trainable)
         rows = sparse_update.tap_gradients(records)
         state.step += 1
         k = self.grad_accum_steps
@@ -568,18 +629,29 @@ class Trainer(object):
 
     def forward(self, state, features):
         """Inference forward (evaluation / prediction) under no_grad;
-        under an sp mesh, the logits of the whole sequence."""
+        under a mesh, the outputs of the whole global batch on every
+        rank."""
         del state
         self._ran = True
         features = self._host_prepare(features)
-        sp = self._sp()
-        if sp > 1:
-            features, _length = self._sp_slice(features)
+        sharded = self._world() > 1
+        if sharded:
+            features, _labels, _weights, _length = self._local_batch(
+                features, None, None)
         with torch.no_grad(), self._mesh_scope():
             preds = self.model(self._features(features), training=False)
-            if sp > 1:
-                preds = self.mesh.all_gather(preds, 1)
+            if sharded:
+                preds = self._gather_outputs(preds)
         return preds
+
+    def _gather_outputs(self, preds):
+        """Local outputs -> the global batch's: [b, l, ...] sequence
+        shards gathered over sp, then rows over dp."""
+        if isinstance(preds, dict):
+            return {k: self._gather_outputs(v) for k, v in preds.items()}
+        if self.mesh.size > 1:
+            preds = self.mesh.all_gather(preds, 1)
+        return self.mesh.all_gather(preds, 0, "dp")
 
     def evaluate_batch(self, state, batch, true_count=None):
         """(outputs, labels) as numpy, trimmed to true_count, for metric
@@ -604,11 +676,13 @@ class Trainer(object):
 
     def train_step_assembled(self, state, features, labels, weights):
         raise NotImplementedError(
-            "Trainer: the SPMD (assembled) step is not ported")
+            "Trainer: the SPMD (assembled) step is not ported (%s)"
+            % MESH_ITEM)
 
     def forward_assembled(self, state, features):
         raise NotImplementedError(
-            "Trainer: the SPMD (assembled) forward is not ported")
+            "Trainer: the SPMD (assembled) forward is not ported (%s)"
+            % MESH_ITEM)
 
 
 def _leading_dim(features):

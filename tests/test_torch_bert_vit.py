@@ -436,8 +436,9 @@ def test_decoding_refuses_the_bidirectional_encoder():
 
 def test_argument_and_geometry_refusals(monkeypatch):
     """flax's messages for a ViT whose patches or heads do not tile, an
-    unknown attn_impl and jax_flash over packed rows; the encoders under
-    a mesh raise NotImplementedError naming the ROADMAP item."""
+    unknown attn_impl and jax_flash over packed rows; bert under a tp
+    mesh and vit under any mesh raise NotImplementedError naming the
+    ROADMAP item (bert under dp x sp: tests/test_torch_dp_sp.py)."""
     jvit = specs("vit")[0].model_fn
     image = {"image": np.zeros((1, 8, 8, 3), np.float32)}
     for kwargs in (dict(VIT, image_size=10), dict(VIT, embed_dim=15)):
@@ -461,10 +462,13 @@ def test_argument_and_geometry_refusals(monkeypatch):
     model = pbert.custom_model(device="cpu", attn_impl="jax_flash", **BERT)
     assert _message(lambda: model(packed)) == _message(
         lambda: jmodel.apply(jvars, packed))
-    monkeypatch.setattr(tzoo, "current_mesh",
-                        lambda: types.SimpleNamespace(size=2))
-    for call in (lambda: model(tokens),
-                 lambda: specs("vit")[1].create_model(
-                     params_str(VIT), device="cpu")(image)):
+    vit = specs("vit")[1].create_model(params_str(VIT), device="cpu")
+    for shape, call in (({"tp": 2}, lambda: model(tokens)),
+                        ({"tp": 2}, lambda: vit(image)),
+                        ({"sp": 2}, lambda: vit(image)),
+                        ({"dp": 2}, lambda: vit(image))):
+        monkeypatch.setattr(tzoo, "current_mesh",
+                            lambda: types.SimpleNamespace(size=1,
+                                                          shape=shape))
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             call()

@@ -441,7 +441,11 @@ def test_sp_mesh_and_model_arguments_are_checked():
     from elasticdl_tpu_torch.parallel.mesh import build_mesh, current_mesh
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_mesh({"sp": 1, "dp": 2})
+        build_mesh({"sp": 1, "fsdp": 2})
+    # dp is a mesh axis of the port now: without a process group it asks
+    # for one (tests/test_torch_dp_sp.py runs it)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        build_mesh({"dp": 2})
     with pytest.raises(ValueError, match="Unknown mesh axis"):
         build_mesh({"sq": 2})
     mesh = build_mesh({"sp": 1})

@@ -291,8 +291,9 @@ def test_unported_options_raise():
     assert none_loss == plain_loss
     assert all(torch.equal(none_state.params[k], plain_state.params[k])
                for k in plain_state.params)
-    # checkpoints under an sp mesh (tests/test_torch_checkpoint.py has
-    # the single-device ones)
+    # a mesh that is not the port's Mesh raises before any checkpoint is
+    # set up (tests/test_torch_dp_sp.py saves and restores under a dp x
+    # sp mesh; tests/test_torch_checkpoint.py has the single-device ones)
     with pytest.raises(NotImplementedError):
         LocalExecutor(spec, mesh=object(), checkpoint_dir="ckpt",
                       checkpoint_steps=1, device="cpu")
